@@ -1,10 +1,12 @@
 """aether-primitives-tpu, ported to PyTorch and CUDA.
 
-The streaming receive chain of ``aether_primitives_tpu`` (causal FIR,
-decimation, per-frame FFT, hard demod, LSB-first byte packing) on PyTorch,
-with its frame op as a hand-written CUDA kernel for Hopper (sm_90a). The
-package imports torch and numpy only; the JAX package stays the reference
-that the tests hold this one against.
+Two paths of ``aether_primitives_tpu`` on PyTorch: the streaming receive
+chain (causal FIR, decimation, per-frame FFT, hard demod, LSB-first byte
+packing), with its frame op as a hand-written CUDA kernel for Hopper
+(sm_90a), and the batched burst link (``PacketModem`` with Viterbi or turbo
+FEC), with hand-written Viterbi and BCJR kernels. The package imports torch
+and numpy only; the JAX package stays the reference that the tests hold
+this one against.
 
 Numeric contract: :func:`assert_evm` at -80 dB, as in the JAX package.
 """
@@ -16,7 +18,7 @@ from . import ops
 from . import models
 from .ops import fft, modulation, fir
 from .ops.fft import Scale, Fft, plan as fft_plan
-from .models import RxChain, RxChainConfig
+from .models import PacketConfig, PacketModem, RxChain, RxChainConfig
 
 __version__ = "0.3.0"
 
@@ -40,4 +42,6 @@ __all__ = [
     "fir",
     "RxChain",
     "RxChainConfig",
+    "PacketConfig",
+    "PacketModem",
 ]

@@ -1,7 +1,9 @@
-"""Carry the JAX package's chain parameters and state into the port.
+"""Carry the JAX package's parameters and state into the port.
 
-Both functions take numpy data only, so the port never imports the JAX
+The functions take numpy data only, so the port never imports the JAX
 package: pass ``dataclasses.asdict(jax_config)`` and ``np.asarray(state)``.
+The burst link has no weights: what it carries is its configuration, from
+which both packages build the same preamble and turbo permutation.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .models.modem import RxChainConfig
+from .models.packet import PacketConfig
 
 #: JAX config fields that select TPU machinery and have no counterpart here
 #: (the port has one FFT backend, torch.fft).
@@ -30,6 +33,20 @@ def config_from_numpy(fields: dict) -> RxChainConfig:
     if fields.get("fir_taps") is not None:
         fields["fir_taps"] = np.asarray(fields["fir_taps"], dtype=np.complex64)
     return RxChainConfig(**fields)
+
+
+def packet_config_from_numpy(fields: dict) -> PacketConfig:
+    """``dataclasses.asdict`` of the JAX package's ``PacketConfig`` -> the
+    port's :class:`PacketConfig` (every field carried; an unknown field
+    raises)."""
+    known = {f.name for f in dataclasses.fields(PacketConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"PacketConfig has no fields {unknown}")
+    fields = dict(fields)
+    if "scrambler" in fields:
+        fields["scrambler"] = tuple(int(d) for d in fields["scrambler"])
+    return PacketConfig(**fields)
 
 
 def state_from_numpy(state, device) -> torch.Tensor:

@@ -1,6 +1,8 @@
-"""Signal-chain models: the streaming receive chain."""
+"""Signal-chain models: the streaming receive chain and the burst link."""
 
-from . import modem
+from . import modem, packet, sync
 from .modem import RxChain, RxChainConfig
+from .packet import PacketConfig, PacketModem
 
-__all__ = ["modem", "RxChain", "RxChainConfig"]
+__all__ = ["modem", "packet", "sync", "RxChain", "RxChainConfig",
+           "PacketConfig", "PacketModem"]

@@ -111,16 +111,17 @@ class RxChain:
     forward FFT (``Scale.SN``), hard demod of every bin to bits.
 
     ``device``: where the chain computes; blocks and states are moved there.
-    ``device="cuda"`` without a CUDA device raises. On a CUDA device a BPSK
-    or QPSK chain with all bins active launches the RX frame kernel, and
-    raises for a geometry the kernel does not take
+    The default is the card: ``device="cuda"`` without a CUDA device raises
+    RuntimeError, and the CPU runs only when asked for (``device="cpu"``).
+    On a CUDA device a BPSK or QPSK chain with all bins active launches
+    the RX frame kernel, and raises for a geometry the kernel does not take
     (:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.kernel_supports`);
     it never falls back to the plain version. Such a chain emits whole
     bytes per frame, so it needs ``fft_len % 4 == 0`` (QPSK) or
     ``fft_len % 8 == 0`` (BPSK), packed or not.
     """
 
-    def __init__(self, config: RxChainConfig = RxChainConfig(), device="cpu"):
+    def __init__(self, config: RxChainConfig = RxChainConfig(), device="cuda"):
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -3,6 +3,6 @@
 Importing this package builds nothing: a kernel is compiled at its first
 launch (:mod:`.build`)."""
 
-from . import rx_frame
+from . import bcjr, rx_frame, viterbi
 
-__all__ = ["rx_frame"]
+__all__ = ["bcjr", "rx_frame", "viterbi"]

@@ -1,10 +1,12 @@
 """Causal FIR filtering and the fused FIR -> decimate -> frame-FFT op (PyTorch).
 
-Counterpart of ``aether_primitives_tpu/ops/fir.py``, main-path subset:
-:func:`fir_filter` and :func:`fir_decimate_fft`, with the float64 constant
-builders :func:`_fused_stage_matrices` and :func:`_fused_rx_matrices` copied
-verbatim (numpy only) so that both packages contract against byte-identical
-constants. These functions are the plain PyTorch versions; the hand-written
+Counterpart of ``aether_primitives_tpu/ops/fir.py``, subset:
+:func:`fir_filter`, :func:`fir_decimate_fft`, and the overlap-save
+:func:`fir_filter_os` / :func:`matched_filter` of the burst receiver's
+preamble search, with the float64 constant builders
+:func:`_fused_stage_matrices` and :func:`_fused_rx_matrices` copied
+verbatim (numpy only) so that both packages contract against
+byte-identical constants. These functions are the plain PyTorch versions; the hand-written
 kernel of the RX chain lives in :mod:`.cuda.rx_frame`.
 
 Convention: ``y[n] = sum_k taps[k] * x[n - k]`` with zero initial state
@@ -61,6 +63,85 @@ def fir_filter(x, taps, history=None) -> torch.Tensor:
         yr = yr + a * sr - b * si
         yi = yi + a * si + b * sr
     return torch.complex(yr, yi)
+
+
+def _good_fft_size(n: int) -> int:
+    """Smallest 7-smooth integer >= n (factors only 2, 3, 5, 7), the JAX
+    package's overlap-save transform size (e.g. 1151 -> 1152)."""
+    best = 1
+    while best < n:
+        best *= 2
+    smooth = [1]
+    for p in (2, 3, 5, 7):
+        smooth = sorted(
+            {s * p**e for s in smooth for e in range(0, 20) if s * p**e <= best}
+        )
+    for s in smooth:
+        if s >= n:
+            return int(s)
+    return int(best)
+
+
+def fir_filter_os(x, taps, block_len: Optional[int] = None, history=None,
+                  fft_len: Optional[int] = None) -> torch.Tensor:
+    """Causal FIR by overlap-save block convolution on ``torch.fft``.
+
+    Blocks of ``block_len`` fresh samples, each extended with the previous
+    ``K-1`` samples (``history`` before the first block, zeros when None),
+    are multiplied by the tap spectrum and inverse-transformed; the first
+    ``K-1`` outputs of each block are dropped. Equal (to rounding) to
+    :func:`fir_filter`. ``taps``: ``[K]``. The defaults are the JAX
+    package's: the
+    power of two nearest ``max(1024, 8 K)`` (at most the signal length) and
+    the smallest 7-smooth transform that holds ``block_len + K - 1``.
+    """
+    x = as_cf32(x)
+    taps = as_cf32(taps, device=x.device).reshape(-1)
+    n = x.shape[-1]
+    k = taps.shape[-1]
+    if block_len is None:
+        target = max(1024, 8 * k)
+        block_len = 1024
+        while block_len * 2 <= target:
+            block_len *= 2
+        block_len = min(block_len, max(n, k - 1 if k > 1 else 1))
+    block_len = int(block_len)
+    if k > 1 and block_len < k - 1:
+        raise ValueError(f"block_len {block_len} must be >= taps-1 ({k - 1})")
+    n_pad = -(-n // block_len) * block_len
+    if n_pad != n:
+        x = torch.nn.functional.pad(x, (0, n_pad - n))
+    if fft_len is None:
+        fft_len = _good_fft_size(block_len + k - 1)
+    elif fft_len < block_len + k - 1:
+        raise ValueError(f"fft_len {fft_len} < block_len + taps - 1")
+    nblocks = n_pad // block_len
+    batch = tuple(x.shape[:-1])
+    xb = x.reshape(batch + (nblocks, block_len))
+    if k > 1:
+        h0 = _history(history, batch, k, x.device)[..., None, :]
+        hist = torch.cat([h0, xb[..., :-1, block_len - (k - 1):]], dim=-2)
+        ext = torch.cat([hist, xb], dim=-1)  # [..., nblocks, K-1+block_len]
+    else:
+        ext = xb
+    ext = torch.nn.functional.pad(ext, (0, fft_len - ext.shape[-1]))
+    h = torch.nn.functional.pad(taps, (0, fft_len - k))
+    plan = _fft.plan(fft_len)
+    y = plan.bwd(plan.fwd(ext, Scale.NONE) * plan.fwd(h, Scale.NONE), Scale.N)
+    y = y[..., k - 1:k - 1 + block_len]
+    return y.reshape(y.shape[:-2] + (n_pad,))[..., :n]
+
+
+def matched_filter(x, ref, block_len: Optional[int] = None,
+                   history=None) -> torch.Tensor:
+    """Linear sliding correlation against ``ref`` by overlap-save:
+    ``y[n] = sum_m x[n - m] conj(ref[M-1 - m])``, so ``|y|`` peaks at
+    ``n = offset + M - 1`` where ``ref`` starts at ``offset``."""
+    if isinstance(ref, torch.Tensor):
+        taps = ref.to(cf32).conj().flip(-1)
+    else:
+        taps = np.conj(np.asarray(ref, dtype=np.complex64))[::-1].copy()
+    return fir_filter_os(x, taps, block_len=block_len, history=history)
 
 
 @functools.lru_cache(maxsize=None)

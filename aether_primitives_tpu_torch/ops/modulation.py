@@ -1,10 +1,10 @@
 """Constellation-table modulation and hard demodulation (PyTorch).
 
-Counterpart of ``aether_primitives_tpu/ops/modulation.py``, main-path
-subset: the tables (bpsk, qpsk, qam16, ``qam(N)``, ``psk(N)``), modulation
-and hard demod. Bit conventions are the JAX package's: LSB-first symbol
-index ``sum_i bits[i] << i``, strictly {0,1} bits, and ties to the lowest
-table index. The generic BPSK and QPSK tables demodulate by sign tests
+Counterpart of ``aether_primitives_tpu/ops/modulation.py``, subset: the
+tables (bpsk, qpsk, qam16, ``qam(N)``, ``psk(N)``), modulation, hard demod
+and the max-log soft demod. Bit conventions are the JAX package's:
+LSB-first symbol index ``sum_i bits[i] << i``, strictly {0,1} bits, and
+ties to the lowest table index. The generic BPSK and QPSK tables demodulate by sign tests
 (strict ``< 0``); every other table by argmax of correlation.
 """
 
@@ -103,6 +103,34 @@ class Modulation:
         if self.name == "bpsk":
             return (s.real + s.imag < 0).to(torch.uint8)
         return _interleave_bits([s.real < 0, s.imag < 0])
+
+    def demod_soft(self, symbols, noise_var=1.0) -> torch.Tensor:
+        """Max-log per-bit LLRs, LSB-first: ``LLR(b_i) = (min_{c: b_i=1}
+        |s-c|^2 - min_{c: b_i=0} |s-c|^2) / noise_var``; positive = bit 0.
+
+        ``[..., n_sym]`` symbols -> ``[..., n_sym * bits_per_symbol]``
+        float32. ``noise_var`` is a float or a tensor that broadcasts
+        against ``[..., n_sym]`` (one variance per burst: shape ``[..., 1]``).
+        """
+        s = as_cf32(symbols)
+        table = self._table(s.device)
+        d2 = ((s.real[..., None] - table.real).abs() ** 2
+              + (s.imag[..., None] - table.imag).abs() ** 2)  # [..., n_sym, M]
+        nv = torch.as_tensor(noise_var, dtype=torch.float32, device=s.device)
+        idx = np.arange(table.shape[0])
+        llrs = []
+        for i in range(self.bits_per_symbol):
+            ones = torch.from_numpy(np.flatnonzero((idx >> i) & 1)).to(s.device)
+            zeros = torch.from_numpy(np.flatnonzero(~(idx >> i) & 1)).to(s.device)
+            d1 = d2.index_select(-1, ones).amin(dim=-1)
+            d0 = d2.index_select(-1, zeros).amin(dim=-1)
+            llrs.append((d1 - d0) / nv)
+        out = torch.stack(llrs, dim=-1)  # [..., n_sym, bits]
+        return out.reshape(s.shape[:-1] + (s.shape[-1] * self.bits_per_symbol,))
+
+    def hard_from_soft(self, llrs) -> torch.Tensor:
+        """LLRs -> hard bits (``llr < 0`` is bit 1), uint8."""
+        return (torch.as_tensor(llrs) < 0).to(torch.uint8)
 
 
 def _qam16_table() -> np.ndarray:

@@ -2,19 +2,37 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's main path, the streaming RX chain
-(``RxChain(RxChainConfig(fft_len=2048, decimation=4, packed_bits=True),
-device="cuda").streaming_step``) on 4,194,304-sample blocks, through the
-hand-written RX frame kernel (``aether_primitives_tpu_torch/csrc/rx_frame.cu``),
-in five phases:
+It drives the port's two paths through their hand-written kernels:
+
+- the streaming RX chain (``RxChain(RxChainConfig(fft_len=2048,
+  decimation=4, packed_bits=True), device="cuda").streaming_step``) on
+  4,194,304-sample blocks, through the RX frame kernel
+  (``aether_primitives_tpu_torch/csrc/rx_frame.cu``);
+- the batched burst link (``PacketModem(PacketConfig(payload_bits=600,
+  fec=...), device="cuda").rx_batch``) on 256 captures of 16,384 samples,
+  through the Viterbi kernel (``csrc/viterbi.cu``, ``fec="viterbi"``) and
+  the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``),
+
+in nine phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
-2. the kernel's build from the sources in the checkout, timed;
-3. the kernel against its plain PyTorch version and the float64 chain at
-   the main path's shapes: QPSK and BPSK bytes and the spectrum epilogue,
-   with and without carried history;
-4. the main path's two-block streaming gate, counting kernel launches;
-5. CUDA-event timings of the kernel path and the plain path.
+2. the three kernels' builds from the sources in the checkout, started
+   together, timed;
+3. the RX frame kernel against its plain PyTorch version and the float64
+   chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
+   epilogue, with and without carried history;
+4. the RX chain's two-block streaming gate, counting kernel launches;
+5. CUDA-event timings of the RX chain's kernel path and plain path;
+6. the Viterbi and BCJR kernels' register and spill reports;
+7. the Viterbi and BCJR kernels against their plain twins at the burst
+   path's shapes, bit for bit (``array_equal``);
+8. the burst path: 256 bursts built by the port's own ``tx`` through a
+   numpy channel from a fixed seed, decoded by ``rx_batch`` for both FECs;
+   every payload exact and CRC-ok, exactly 1 Viterbi and 16 BCJR launches
+   per call, and the first 8 bursts equal to the port's CPU run;
+9. CUDA-event timings of each burst kernel against its plain twin and of
+   ``rx_batch`` end to end, and a ``torch.profiler`` split of ``rx_batch``
+   into front end, decoder kernels and the rest.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -24,15 +42,52 @@ is the kernels' JSON summary; the last line is
 import json
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # tolerances, stated once
 AGREEMENT = 0.99999  # hard bits vs the float64 chain, and kernel vs plain
 EVM_DB = -80.0  # RMS EVM of spectra vs float64, and kernel vs plain
 
 
+KERNELS = ("rx_frame", "viterbi", "bcjr")
+# the burst path: benches/burst_bench.py's configuration at full width
+PAYLOAD, CAPTURE, BURSTS = 600, 16384, 256
+K7, K5 = ((0o171, 0o133), 7), ((0o25, 0o33, 0o37), 5)
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def print_ptxas(build, kernel: str) -> None:
+    log = build.library_path(kernel).with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {kernel}: {line.strip()}")
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """Roofline bound: the larger of ops / FP32 peak and bytes / HBM rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def burst_channel(burst, rng, delay, cfo, sigma=0.05):
+    """benches/burst_bench.py's channel: delay, gain 0.5 e^{j0.8}, CFO,
+    complex Gaussian noise of std ``sigma`` per component."""
+    import numpy as np
+
+    x = np.zeros(CAPTURE, np.complex64)
+    x[delay:delay + burst.size] = burst
+    n = np.arange(CAPTURE)
+    x = x * (0.5 * np.exp(1j * 0.8)) * np.exp(2j * np.pi * cfo * n)
+    x += sigma * (rng.normal(size=CAPTURE) + 1j * rng.normal(size=CAPTURE))
+    return x.astype(np.complex64)
 
 
 def main() -> None:
@@ -45,8 +100,13 @@ def main() -> None:
         BLOCK, capture, card_label, gate, numpy_reference_spectra,
         resident_streaming, stream_blocks, time_cuda,
     )
-    from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
+    from aether_primitives_tpu_torch.models import (
+        PacketConfig, PacketModem, RxChain, RxChainConfig,
+    )
+    from aether_primitives_tpu_torch.ops import fec
+    from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
     from aether_primitives_tpu_torch.ops.cuda import build, rx_frame as rf
+    from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
 
     # ---- phase 1: the card --------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -61,17 +121,16 @@ def main() -> None:
 
     # ---- phase 2: build --------------------------------------------------
     t0 = time.perf_counter()
-    try:
-        build.load("rx_frame")
-    except Exception as e:  # the build's own message names the cause
-        fail(f"rx_frame kernel build: {e}")
-    print(f"build: rx_frame.cu -> {build.library_path('rx_frame').name} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    log = build.library_path("rx_frame").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        builds = {k: pool.submit(build.load, k) for k in KERNELS}
+        for kernel, fut in builds.items():
+            try:
+                fut.result()
+            except Exception as e:  # the build's own message names the cause
+                fail(f"{kernel} kernel build: {e}")
+    print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)} "
+          f"in {time.perf_counter() - t0:.2f} s (parallel)")
+    print_ptxas(build, "rx_frame")
     sys.stdout.flush()
 
     # ---- phase 3: kernel vs plain vs float64 at the main path's shapes --
@@ -126,13 +185,15 @@ def main() -> None:
     sys.stdout.flush()
 
     # ---- phase 4: the main path's two-block streaming gate -----------------
-    rf.launches = 0
+    rf.launches = vk.launches = bk.launches = 0
     bits, states = stream_blocks(chain, x_full, BLOCK)
     torch.cuda.synchronize()
     main_launches = rf.launches
-    print(f"main path: {len(bits)} streaming steps, rx_frame.launches = {main_launches}")
-    if main_launches != len(bits):
-        fail(f"rx_frame.launches {main_launches} != {len(bits)} streaming steps")
+    print(f"main path: {len(bits)} streaming steps, rx_frame.launches = {main_launches}, "
+          f"viterbi {vk.launches}, bcjr {bk.launches}")
+    if main_launches != len(bits) or vk.launches or bk.launches:
+        fail(f"rx_frame.launches {main_launches} != {len(bits)} streaming steps "
+             "(or a burst kernel launched)")
     if any(b.shape != (BLOCK // 16,) or b.dtype != torch.uint8 for b in bits):
         fail(f"unexpected output blocks {[(b.shape, b.dtype) for b in bits]}")
     g = gate(chain, x_full, BLOCK, bits, states)
@@ -196,21 +257,232 @@ def main() -> None:
           f"{h2d_pinned:.4f} ms (CUDA events), pageable {h2d_pageable:.4f} ms "
           f"(host clock) [{card}]")
 
-    print(json.dumps({"kernels": [{
-        "name": "rx_frame",
-        "route": "cuda",
-        "source": "aether_primitives_tpu_torch/csrc/rx_frame.cu",
-        "replaces": "aether_primitives_tpu/ops/pallas/rx_frame.py:49",
-        "launches": main_launches,
-        "max_abs_err": worst_err,
-        "ms": t["kernel"],
-        "plain_ms": t["plain"],
-    }]}))
+    # the bound of the timed call: one 4M block with history, QPSK bytes
+    n1 = 128  # the heuristic's stage split at fft_len 2048, dec 4
+    n2, r, frames = dec * fft_len // n1, fft_len // n1, BLOCK // (dec * fft_len)
+    rx_frame_bound = bound(
+        8.0 * frames * (n1 * n1 * n2 + n1 * n2 * r + ku * fft_len),  # complex MACs
+        BLOCK * 8 + BLOCK // 16 + ku * 8 + 8 * (n1 * n1 + r * n2 * n1 + r * ku * n1),
+    )
+    sys.stdout.flush()
+
+    # ---- phase 6: the burst kernels' compiler reports --------------------
+    for kernel in ("viterbi", "bcjr"):
+        print_ptxas(build, kernel)
+
+    # ---- phase 7: burst kernels vs plain twins at the path's shapes ------
+    rng = np.random.default_rng(2026)
+
+    def coded_llrs(code, b, n_bits):
+        polys, k = code
+        bits = rng.integers(0, 2, (b, n_bits)).astype(np.uint8)
+        enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+        llr = (1 - 2.0 * enc) * 2 + 1.5 * rng.normal(size=enc.shape)
+        return torch.from_numpy(llr.astype(np.float32)).cuda()
+
+    frame_bits = PAYLOAD + 32
+    llr_v = coded_llrs(K7, BURSTS, frame_bits)  # [256, 1276], the path's shape
+    viterbi_cases = (
+        (f"K=7 r1/2 full block {tuple(llr_v.shape)}", K7, {}, llr_v),
+        (f"K=7 r1/2 windowed 64/48 {tuple(llr_v.shape)}", K7,
+         {"window": 64, "guard": 48}, llr_v),
+        ("K=5 r1/3 full block (64, 912)", K5, {}, coded_llrs(K5, 64, 300)),
+    )
+    vit_err = 0
+    for label, (polys, k), kw, llr in viterbi_cases:
+        got = fec.viterbi_decode(llr, polys, k, **kw)
+        plain = fec.viterbi_decode(llr, polys, k, backend="reference", **kw)
+        torch.cuda.synchronize()
+        err = int((got.int() - plain.int()).abs().max())
+        vit_err = max(vit_err, err)
+        print(f"compare viterbi {label}: kernel vs plain array_equal "
+              f"{torch.equal(got, plain)}, max |diff| {err}")
+        if not torch.equal(got, plain):
+            fail(f"viterbi {label}: kernel and plain twin disagree")
+    lw_t, cols_t = 16 + 64 + 16, BURSTS * 10  # turbo: window 64, guard 16, 10 windows
+    spans = [torch.from_numpy((rng.normal(size=(lw_t, cols_t)) * 3).astype(np.float32)).cuda()
+             for _ in range(2)]
+    bcjr_err = 0.0
+    for label, tables in (("RSC-8", None), ("K=7 conv", fec._conv_soft_coeffs(*K7))):
+        got = bk.bcjr_windowed_llr(spans[0], spans[1], lw_t, tables)
+        plain = bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t, tables)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        bcjr_err = max(bcjr_err, err)
+        print(f"compare bcjr {label} Lw {lw_t} x N {cols_t}: kernel vs plain "
+              f"array_equal {torch.equal(got, plain)}, max |diff| {err}")
+        if not torch.equal(got, plain):
+            fail(f"bcjr {label}: kernel and plain twin disagree")
+    sys.stdout.flush()
+
+    # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
+    burst_launches, modems, caps_dev = {}, {}, {}
+    for fec_name in ("viterbi", "turbo"):
+        cfg = PacketConfig(payload_bits=PAYLOAD, fec=fec_name)
+        pm = PacketModem(cfg, device="cuda")
+        brng = np.random.default_rng(4242)
+        payloads = brng.integers(0, 2, (BURSTS, PAYLOAD)).astype(np.uint8)
+        bursts = pm.tx(torch.from_numpy(payloads)).cpu().numpy()
+        caps = np.stack([
+            burst_channel(bursts[i], brng, delay=64 + (i * 53) % 2048,
+                          cfo=((i % 7) - 3) * 3e-4)
+            for i in range(BURSTS)
+        ])
+        x = torch.from_numpy(caps).cuda()
+        torch.cuda.synchronize()
+        rf.launches = vk.launches = bk.launches = 0
+        bits_b, ok_b, diag_b = pm.rx_batch(x)
+        torch.cuda.synchronize()
+        counts = {"rx_frame": rf.launches, "viterbi": vk.launches, "bcjr": bk.launches}
+        want = ({"rx_frame": 0, "viterbi": 1, "bcjr": 0} if fec_name == "viterbi"
+                else {"rx_frame": 0, "viterbi": 0, "bcjr": 16})
+        exact = (bits_b.cpu().numpy() == payloads).all(axis=1)
+        ok = ok_b.cpu().numpy()
+        host_bits, host_ok, host_diag = PacketModem(cfg, device="cpu").rx_batch(
+            torch.from_numpy(caps[:8]))
+        same_host = (np.array_equal(host_bits.numpy(), bits_b[:8].cpu().numpy())
+                     and np.array_equal(host_diag["offset"].numpy(),
+                                        diag_b["offset"][:8].cpu().numpy()))
+        print(f"burst path {fec_name}: rx_batch {tuple(x.shape)} -> payloads exact "
+              f"{int(exact.sum())}/{BURSTS}, crc ok {int(ok.sum())}/{BURSTS}, launches "
+              f"{counts} (need {want}), first 8 equal to the CPU run {same_host}, "
+              f"noise_var median {float(diag_b['noise_var'].median()):.3e}", flush=True)
+        if not (exact.all() and ok.all()) or counts != want or not same_host:
+            fail(f"burst path {fec_name}: payloads/CRC/launches/CPU agreement wrong")
+        burst_launches[fec_name] = counts[fec_name if fec_name == "viterbi" else "bcjr"]
+        modems[fec_name], caps_dev[fec_name] = pm, x
+
+    # ---- phase 9: burst timings --------------------------------------------
+    sym_v = llr_v.reshape(BURSTS, -1, 2).contiguous()
+    lw_v = sym_v.shape[1]
+    kernel_calls = {
+        "viterbi": (lambda: vk.viterbi_lanes(sym_v, lw_v, 2, K7[0], 7, True, True),
+                    lambda: vk.viterbi_lanes_reference(sym_v, lw_v, 2, K7[0], 7, True, True)),
+        "bcjr": (lambda: bk.bcjr_windowed_llr(spans[0], spans[1], lw_t),
+                 lambda: bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t)),
+    }
+    kt = {}
+    for kernel, (run_kernel, run_plain) in kernel_calls.items():
+        runs = {"kernel": [], "plain": []}
+        for run in range(4):  # plain, kernel, kernel, plain, ...
+            for which in (("plain", "kernel"), ("kernel", "plain"))[run % 2]:
+                if which == "kernel":
+                    runs["kernel"].append(time_cuda(run_kernel, 50))
+                elif run < 2:
+                    runs["plain"].append(time_cuda(run_plain, 2, warmup=1))
+        kt[kernel] = {k: float(np.median(v)) for k, v in runs.items()}
+        print(f"time: {kernel} kernel median {kt[kernel]['kernel']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}; mean of 50 calls), plain "
+              f"twin median {kt[kernel]['plain']:.2f} ms (runs "
+              f"{', '.join(f'{v:.2f}' for v in runs['plain'])}; mean of 2 calls), same "
+              f"spans, CUDA events [{card}]")
+    # per step and state: two candidates of 2n ops, the min, the state minimum, the
+    # subtraction; bytes: the LLRs in, one uint8 bit per step out
+    vit_bound = bound(BURSTS * lw_v * 64 * (4 * 2 + 3), sym_v.numel() * 4 + BURSTS * lw_v)
+    # per step and column 34 S + 1 ops (csrc/bcjr.cu); bytes: two spans in, LLRs out
+    bcjr_bound = bound(lw_t * cols_t * (34 * 8 + 1), 3 * lw_t * cols_t * 4)
+
+    e2e = {}
+    for fec_name, pm in modems.items():
+        x = caps_dev[fec_name]
+        runs = [time_cuda(lambda: pm.rx_batch(x), 10) for _ in range(3)]
+        e2e[fec_name] = float(np.median(runs))
+        print(f"time: rx_batch {fec_name} [{BURSTS}, {CAPTURE}]: median "
+              f"{e2e[fec_name]:.4f} ms/call = {BURSTS / (e2e[fec_name] * 1e-3):.1f} bursts/s "
+              f"(runs {', '.join(f'{v:.4f}' for v in runs)} ms; CUDA events, mean of 10 "
+              f"calls, captures resident) [{card}]")
+        profile_burst(torch, pm, x, fec_name, card)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "rx_frame",
+            "route": "cuda",
+            "source": "aether_primitives_tpu_torch/csrc/rx_frame.cu",
+            "replaces": "aether_primitives_tpu/ops/pallas/rx_frame.py:49",
+            "launches": main_launches,
+            "max_abs_err": worst_err,
+            "ms": t["kernel"],
+            "plain_ms": t["plain"],
+            **rx_frame_bound,
+            "library_ms": None,
+        },
+        {
+            "name": "viterbi",
+            "route": "cuda",
+            "source": "aether_primitives_tpu_torch/csrc/viterbi.cu",
+            "replaces": "aether_primitives_tpu/ops/pallas/viterbi.py:64",
+            "launches": burst_launches["viterbi"],
+            "max_abs_err": vit_err,
+            "ms": kt["viterbi"]["kernel"],
+            "plain_ms": kt["viterbi"]["plain"],
+            **vit_bound,
+            "library_ms": None,
+        },
+        {
+            "name": "bcjr",
+            "route": "cuda",
+            "source": "aether_primitives_tpu_torch/csrc/bcjr.cu",
+            "replaces": "aether_primitives_tpu/ops/pallas/bcjr.py:37",
+            "launches": burst_launches["turbo"],
+            "max_abs_err": bcjr_err,
+            "ms": kt["bcjr"]["kernel"],
+            "plain_ms": kt["bcjr"]["plain"],
+            **bcjr_bound,
+            "library_ms": None,
+        },
+    ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)
 
+
+def profile_burst(torch, pm, x, fec_name: str, card: str, calls: int = 5) -> None:
+    """torch.profiler split of ``rx_batch``'s device time: each kernel's own
+    time, attributed to the stage (front end, decode, tail) whose GPU-side
+    range holds its start; the decoder kernels apart; and the device's idle
+    share of the profiled calls' wall time (profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    stages = ("rx_front", "decode", "rx_tail")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with record_function("rx_front"):
+                llr, _ = pm._rx_front(x)
+            with record_function("decode"):
+                line = pm._decode_llr(llr)
+            with record_function("rx_tail"):
+                pm._rx_tail(line)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {st: [e.time_range for e in device if e.name == st] for st in stages}
+    kernels = [e for e in device if e.name not in stages]
+    if not kernels:
+        print(f"profile rx_batch {fec_name}: the profiler recorded no device time")
+        return
+    per_call = lambda us: us / calls / 1e3  # noqa: E731
+    busy = per_call(sum(k.time_range.elapsed_us() for k in kernels))
+    decoder = per_call(sum(k.time_range.elapsed_us() for k in kernels
+                           if "viterbi_kernel" in k.name or "bcjr_kernel" in k.name))
+    split = {}
+    for st, spans in ranges.items():
+        split[st] = per_call(sum(
+            k.time_range.elapsed_us() for k in kernels
+            if any(r.start <= k.time_range.start < r.end for r in spans)))
+    names = {}
+    for k in kernels:
+        names[k.name] = names.get(k.name, 0.0) + k.time_range.elapsed_us()
+    print(f"profile rx_batch {fec_name}: device busy {busy:.4f} ms/call of {wall_ms:.4f} ms "
+          f"wall (idle {100 * (1 - busy / wall_ms):.1f}%); kernel time by stage: front end "
+          f"{split['rx_front']:.4f} ms, decode {split['decode']:.4f} ms (decoder kernels "
+          f"{decoder:.4f} ms), tail {split['rx_tail']:.4f} ms; {len(kernels) // calls} "
+          f"kernels per call (torch.profiler, {calls} calls, profiler on) [{card}]")
+    for key, us in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {per_call(us):.4f} ms/call  {key[:90]}")
 
 if __name__ == "__main__":
     main()

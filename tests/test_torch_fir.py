@@ -134,3 +134,29 @@ def test_fir_filter_history_continues_a_stream():
     want = np.asarray(jfir.fir_filter_decimate(x[1500 - 64:], taps, 1, padding="valid"))
     assert evm_rms_db(b, want) <= EVM_DB
     assert evm_rms_db(np.concatenate([a, b]), whole) <= -120
+
+
+@pytest.mark.parametrize("k,block_len", [(65, None), (128, None), (16, 40), (1, None)])
+def test_fir_filter_os_matches_jax_and_golden(k, block_len):
+    x = _signal((2, 3000), 14)
+    taps = _signal(k, 15)
+    hist = _signal((2, k - 1), 16) if k > 1 else None
+    got = tfir.fir_filter_os(torch.from_numpy(x), taps, block_len=block_len,
+                             history=None if hist is None else torch.from_numpy(hist))
+    want = np.asarray(jfir.fir_filter_os(x, taps, block_len=block_len, history=hist))
+    assert got.shape == want.shape == x.shape
+    assert evm_rms_db(got.numpy(), want) <= EVM_DB
+    ext = x if hist is None else np.concatenate([hist, x], axis=-1)
+    golden = np.stack([np.convolve(r.astype(np.complex128), taps)[: ext.shape[-1]]
+                       for r in ext])[:, ext.shape[-1] - x.shape[-1]:]
+    assert evm_rms_db(got.numpy(), golden) <= EVM_DB
+    assert tfir._good_fft_size(1151) == jfir._good_fft_size(1151) == 1152
+
+
+def test_matched_filter_matches_jax():
+    x = _signal((2, 5000), 17)
+    ref = _signal(128, 18)
+    got = tfir.matched_filter(torch.from_numpy(x), ref).numpy()
+    assert evm_rms_db(got, np.asarray(jfir.matched_filter(x, ref))) <= EVM_DB
+    assert evm_rms_db(tfir.matched_filter(torch.from_numpy(x), torch.from_numpy(ref)).numpy(),
+                      got) <= EVM_DB

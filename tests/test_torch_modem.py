@@ -87,7 +87,7 @@ def test_two_block_streaming_matches_jax_and_float64(jax_modem, mod, packed):
         modulation=mod, packed_bits=packed,
     )
     jchain = jax_modem.RxChain(jcfg)
-    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)))
+    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)), device="cpu")
     assert chain.taps.tobytes() == jchain.taps.tobytes()
     assert chain._sign_fast_path_ok() == jchain._sign_fast_path_ok() == (mod != "qam16")
     x = _signal(2 * BLOCK, 200)
@@ -119,7 +119,7 @@ def test_two_block_streaming_matches_jax_and_float64(jax_modem, mod, packed):
 @pytest.mark.parametrize("mod", ["qpsk", "qam16"])
 def test_streaming_equals_one_contiguous_step(mod):
     chain = RxChain(RxChainConfig(fft_len=256, decimation=4, modulation=mod,
-                                  packed_bits=True))
+                                  packed_bits=True), device="cpu")
     x = torch.from_numpy(_signal(4 * 256 * 4 * 3, 201))
     contiguous = chain.step(x)
     state = chain.init_state()
@@ -143,7 +143,8 @@ def test_fast_path_condition_matches_jax(jax_modem, dec, fft_len, mod):
     jchain = jax_modem.RxChain(jax_modem.RxChainConfig(
         fft_len=fft_len, decimation=dec, modulation=mod, fir_mode="fused",
         fft_backend="matmul"))
-    chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec, modulation=mod))
+    chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec, modulation=mod),
+                    device="cpu")
     assert chain._sign_fast_path_ok() == jchain._sign_fast_path_ok()
 
 
@@ -156,7 +157,7 @@ def test_geometries_outside_the_kernel_match_jax_on_the_cpu(jax_modem, dec, fft_
                                    fir_mode="fused", fft_backend="matmul",
                                    packed_bits=True)
     jchain = jax_modem.RxChain(jcfg)
-    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)))
+    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)), device="cpu")
     assert chain._sign_fast_path_ok()
     span = dec * fft_len
     x = _signal(2 * 2 * span, 202)
@@ -178,7 +179,7 @@ def test_active_bins_match_jax(jax_modem):
     jcfg = jax_modem.RxChainConfig(fft_len=256, decimation=4, fir_mode="fused",
                                    fft_backend="matmul", active_bins=128)
     jchain = jax_modem.RxChain(jcfg)
-    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)))
+    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)), device="cpu")
     assert not chain._sign_fast_path_ok()
     x = _signal(4 * 256 * 4, 203)
     spec = chain.spectra(x).numpy()
@@ -192,7 +193,7 @@ def test_active_bins_match_jax(jax_modem):
 def test_short_block_keeps_the_previous_state():
     # taps fit in a frame, so the only block shorter than the filter memory
     # is an empty one: it emits no bits and keeps the carried history
-    chain = RxChain(RxChainConfig(fft_len=256, decimation=4, packed_bits=True))
+    chain = RxChain(RxChainConfig(fft_len=256, decimation=4, packed_bits=True), device="cpu")
     state = torch.from_numpy(_signal(chain.taps.shape[-1] - 1, 204))
     bits, new_state = chain.streaming_step(np.zeros(0, np.complex64), state)
     assert bits.shape == (0,)
@@ -201,21 +202,23 @@ def test_short_block_keeps_the_previous_state():
 
 def test_config_errors():
     with pytest.raises(ValueError, match="not ported"):
-        RxChain(RxChainConfig(fir_mode="os"))
+        RxChain(RxChainConfig(fir_mode="os"), device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        RxChain(RxChainConfig(fir_mode="shift_add"))
+        RxChain(RxChainConfig(fir_mode="shift_add"), device="cpu")
     with pytest.raises(ValueError):
-        RxChain(RxChainConfig(fir_mode="bogus"))
+        RxChain(RxChainConfig(fir_mode="bogus"), device="cpu")
     with pytest.raises(ValueError, match="TPU"):
-        RxChain(RxChainConfig(precision="high"))
+        RxChain(RxChainConfig(precision="high"), device="cpu")
     with pytest.raises(ValueError):
-        RxChain(RxChainConfig(precision="default"))
+        RxChain(RxChainConfig(precision="default"), device="cpu")
     with pytest.raises(ValueError):
-        RxChain(RxChainConfig(modulation="bpsk", active_bins=4, packed_bits=True))
+        RxChain(RxChainConfig(modulation="bpsk", active_bins=4, packed_bits=True),
+                device="cpu")
     with pytest.raises(ValueError):
-        RxChain(RxChainConfig(modulation="ook"))
+        RxChain(RxChainConfig(modulation="ook"), device="cpu")
     with pytest.raises(ValueError):
-        RxChain(RxChainConfig(fft_len=256)).step(torch.zeros(1000, dtype=torch.complex64))
+        RxChain(RxChainConfig(fft_len=256), device="cpu").step(
+            torch.zeros(1000, dtype=torch.complex64))
 
 
 def test_convert_carries_config_and_state(jax_modem):
@@ -225,7 +228,7 @@ def test_convert_carries_config_and_state(jax_modem):
     assert cfg.fir_taps.dtype == np.complex64
     assert cfg.fir_taps.tobytes() == np.asarray(jcfg.fir_taps, np.complex64).tobytes()
     assert (cfg.decimation, cfg.fft_len, cfg.packed_bits, cfg.stage_n1) == (2, 512, True, 64)
-    assert RxChain(cfg).taps.tobytes() == jax_modem.RxChain(jcfg).taps.tobytes()
+    assert RxChain(cfg, device="cpu").taps.tobytes() == jax_modem.RxChain(jcfg).taps.tobytes()
     with pytest.raises(ValueError):
         convert.config_from_numpy({"decimation": 4, "window": "hann"})
     s = _signal(64, 206)
@@ -270,7 +273,7 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("mod", ["qpsk", "bpsk"])
 def test_cuda_chain_goes_through_the_kernel(cuda, mod):
     cfg = RxChainConfig(fft_len=N_FFT, decimation=DEC, modulation=mod, packed_bits=True)
-    chain, host = RxChain(cfg, device=cuda), RxChain(cfg)
+    chain, host = RxChain(cfg, device=cuda), RxChain(cfg, device="cpu")
     x = _signal(2 * BLOCK, 207)
     state, hstate = chain.init_state(), host.init_state()
     got, want = [], []

@@ -1,6 +1,6 @@
-"""The port's modulation tables and hard demod against
-``aether_primitives_tpu.ops.modulation``: tables, symbols and hard bits are
-byte-identical (tolerance: none)."""
+"""The port's modulation tables, hard demod and max-log soft demod against
+``aether_primitives_tpu.ops.modulation``: tables, symbols, hard bits and
+LLRs are identical (tolerance: none)."""
 
 import numpy as np
 import pytest
@@ -71,3 +71,20 @@ def test_bad_orders_raise():
         tmod.psk(6)
     with pytest.raises(ValueError):
         tmod.Modulation(np.ones(3, np.complex64))
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_demod_soft_identical(name):
+    # max-log LLRs: the same float32 operations in the same order, so the
+    # values are identical (tolerance: none), scalar or per-row variance
+    t, j = _pair(name)
+    rng = np.random.default_rng(13)
+    s = (0.8 * (rng.normal(size=(3, 200)) + 1j * rng.normal(size=(3, 200)))).astype(np.complex64)
+    nv = np.array([0.5, 0.01, 2.0], np.float32)
+    got = t.demod_soft(torch.from_numpy(s), torch.from_numpy(nv[:, None])).numpy()
+    want = np.stack([np.asarray(j.demod_soft(s[i], nv[i])) for i in range(3)])
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert np.array_equal(t.demod_soft(torch.from_numpy(s)).numpy(),
+                          np.asarray(j.demod_soft(s)))
+    assert np.array_equal(t.hard_from_soft(torch.from_numpy(got)).numpy(),
+                          np.asarray(j.hard_from_soft(got)))
