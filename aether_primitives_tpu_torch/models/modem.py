@@ -21,7 +21,7 @@ from ..ops import fir as _fir
 from ..ops import modulation as _mod
 from ..ops.cuda import rx_frame as _rx_frame
 from ..ops.fft import Scale
-from ..types import as_cf32, cf32
+from ..types import as_cf32, cf32, stage_device
 
 
 @dataclass
@@ -123,11 +123,7 @@ class RxChain:
 
     def __init__(self, config: RxChainConfig = RxChainConfig(), device="cuda"):
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"RxChain device {device!r} requested but CUDA is not available"
-            )
+        self.device = stage_device(device, "RxChain")
         self.modulation = _modulation_by_name(config.modulation)
         if config.fir_taps is None:
             if config.decimation > 1:

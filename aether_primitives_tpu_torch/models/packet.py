@@ -32,7 +32,7 @@ from ..ops import fec as _fec
 from ..ops import modulation as _mod
 from ..ops import sequence as _seq
 from ..ops import turbo as _turbo
-from ..types import as_cf32
+from ..types import as_cf32, stage_device
 from . import sync as _sync
 
 #: FEC families the port decodes.
@@ -115,11 +115,7 @@ class PacketModem:
 
     def __init__(self, config: PacketConfig = PacketConfig(), device="cuda"):
         self.config = c = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"PacketModem device {device!r} requested but CUDA is not available"
-            )
+        self.device = stage_device(device, "PacketModem")
         if c.fec in UNPORTED_FECS:
             raise NotImplementedError(
                 f"fec {c.fec!r} is not ported yet (ROADMAP.md, queue 1 item 12); "

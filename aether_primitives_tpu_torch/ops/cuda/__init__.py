@@ -3,6 +3,6 @@
 Importing this package builds nothing: a kernel is compiled at its first
 launch (:mod:`.build`)."""
 
-from . import bcjr, rx_frame, viterbi
+from . import bcjr, pfb_fold, rx_frame, viterbi
 
-__all__ = ["bcjr", "rx_frame", "viterbi"]
+__all__ = ["bcjr", "pfb_fold", "rx_frame", "viterbi"]

@@ -1,12 +1,13 @@
 """Causal FIR filtering and the fused FIR -> decimate -> frame-FFT op (PyTorch).
 
 Counterpart of ``aether_primitives_tpu/ops/fir.py``, subset:
-:func:`fir_filter`, :func:`fir_decimate_fft`, and the overlap-save
-:func:`fir_filter_os` / :func:`matched_filter` of the burst receiver's
-preamble search, with the float64 constant builders
-:func:`_fused_stage_matrices` and :func:`_fused_rx_matrices` copied
-verbatim (numpy only) so that both packages contract against
-byte-identical constants. These functions are the plain PyTorch versions; the hand-written
+:func:`fir_filter`, :func:`fir_filter_decimate`, :func:`fir_decimate_fft`,
+the overlap-save :func:`fir_filter_os` / :func:`matched_filter` of the
+burst receiver's preamble search, the DDC's decimating overlap-save
+:func:`fir_filter_os_decimate`, and host copies (numpy only, pinned equal
+by the tests) of :func:`rrc_taps` and the float64 constant builders
+:func:`_fused_stage_matrices` and :func:`_fused_rx_matrices`, so that both
+packages contract against byte-identical constants. These functions are the plain PyTorch versions; the hand-written
 kernel of the RX chain lives in :mod:`.cuda.rx_frame`.
 
 Convention: ``y[n] = sum_k taps[k] * x[n - k]`` with zero initial state
@@ -63,6 +64,72 @@ def fir_filter(x, taps, history=None) -> torch.Tensor:
         yr = yr + a * sr - b * si
         yi = yi + a * si + b * sr
     return torch.complex(yr, yi)
+
+
+def fir_filter_decimate(x, taps, factor: int, padding: str = "causal") -> torch.Tensor:
+    """Fused causal FIR + decimation: ``y[m] = sum_k taps[k] x[m*factor - k]``,
+    equal to ``fir_filter(x, taps)[..., ::factor]`` but computing only the
+    kept outputs.
+
+    ``padding="causal"`` starts from zero history; ``padding="valid"``
+    takes an input already extended by its ``K-1``-sample history and
+    emits ``(n - K + 1 - 1) // factor + 1`` outputs aligned to the first
+    fresh sample. The shift-and-add over K strided slices of the float32
+    planes keeps the JAX package's order of operations.
+    """
+    x = as_cf32(x)
+    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    k = taps.shape[-1]
+    s = int(factor)
+    if padding == "causal":
+        x = torch.nn.functional.pad(x, (k - 1, 0))
+    elif padding != "valid":
+        raise ValueError(f"unknown padding {padding!r} (expected 'causal' or 'valid')")
+    n_out = (x.shape[-1] - k) // s + 1
+    xr, xi = x.real, x.imag
+    yr = torch.zeros(x.shape[:-1] + (n_out,), dtype=torch.float32, device=x.device)
+    yi = torch.zeros_like(yr)
+    for t in range(k):
+        start = k - 1 - t  # column for tap t: ext[m*s + (k-1) - t]
+        sr = xr[..., start:start + (n_out - 1) * s + 1:s]
+        si = xi[..., start:start + (n_out - 1) * s + 1:s]
+        a = float(taps[t].real)
+        b = float(taps[t].imag)
+        yr = yr + a * sr - b * si
+        yi = yi + a * si + b * sr
+    return torch.complex(yr, yi)
+
+
+def rrc_taps(sps: int, span: int = 10, beta: float = 0.35) -> np.ndarray:
+    """Root-raised-cosine pulse-shaping taps (host f64 design, complex64).
+
+    ``sps`` samples/symbol, ``span`` symbols each side (length
+    ``2*span*sps + 1``), roll-off ``beta`` in (0, 1]. Normalized to unit
+    energy so a matched TX/RX pair has unity cascade gain at the symbol
+    instants. The standard pulse for the timing-recovery path
+    (:func:`~aether_primitives_tpu.models.sync.estimate_timing` needs the
+    excess-bandwidth line beta > 0 provides).
+    """
+    if not 0.0 < beta <= 1.0:
+        raise ValueError("beta must be in (0, 1]")
+    t = np.arange(-span * sps, span * sps + 1, dtype=np.float64) / sps
+    h = np.empty_like(t)
+    for i, ti in enumerate(t):
+        if abs(ti) < 1e-12:
+            h[i] = 1.0 - beta + 4.0 * beta / np.pi
+        elif abs(abs(4.0 * beta * ti) - 1.0) < 1e-9:
+            h[i] = (beta / np.sqrt(2.0)) * (
+                (1.0 + 2.0 / np.pi) * np.sin(np.pi / (4.0 * beta))
+                + (1.0 - 2.0 / np.pi) * np.cos(np.pi / (4.0 * beta))
+            )
+        else:
+            num = np.sin(np.pi * ti * (1.0 - beta)) + 4.0 * beta * ti * np.cos(
+                np.pi * ti * (1.0 + beta)
+            )
+            den = np.pi * ti * (1.0 - (4.0 * beta * ti) ** 2)
+            h[i] = num / den
+    h /= np.sqrt(np.sum(h * h))
+    return h.astype(np.complex64)
 
 
 def _good_fft_size(n: int) -> int:
@@ -130,6 +197,78 @@ def fir_filter_os(x, taps, block_len: Optional[int] = None, history=None,
     y = plan.bwd(plan.fwd(ext, Scale.NONE) * plan.fwd(h, Scale.NONE), Scale.N)
     y = y[..., k - 1:k - 1 + block_len]
     return y.reshape(y.shape[:-2] + (n_pad,))[..., :n]
+
+
+@functools.lru_cache(maxsize=None)
+def _rotated_tap_spectrum(taps_bytes: bytes, k: int, fft_len: int, device: str):
+    """The tap spectrum times the overlap-save discard rotation
+    ``e^{+2 pi i q (K-1) / fft_len}``, built in float64 on the host and
+    uploaded once per ``(taps, fft_len, device)``."""
+    taps = np.frombuffer(taps_bytes, dtype=np.complex64)
+    hs = np.fft.fft(taps.astype(np.complex128), fft_len)
+    hs *= np.exp(2j * np.pi * np.arange(fft_len) * (k - 1) / fft_len)
+    return torch.from_numpy(hs.astype(np.complex64)).to(device)
+
+
+def fir_filter_os_decimate(x, taps, factor: int, block_len: Optional[int] = None,
+                           history=None) -> torch.Tensor:
+    """Fused overlap-save FIR + decimation with a time-domain output,
+    ``y[m] = sum_k taps[k] x[m*factor - k]`` (equal, to rounding, to
+    :func:`fir_filter_decimate`), the core of the DDC.
+
+    Keeping every ``factor``-th sample of a block's circular convolution is
+    a fold of its spectrum: with ``M = fft_len / factor``, ``y_dec =
+    iFFT_M(fold)``, ``fold[r] = (1/factor) sum_p Y[r + p*M]``, where the
+    product spectrum ``Y`` is pre-rotated so that the overlap-save discard
+    of the first ``K-1`` samples lands on fold index 0 (the rotation rides
+    the tap spectrum, :func:`_rotated_tap_spectrum`). The backward FFT runs
+    at ``1/factor`` the points. ``M`` is the smallest 7-smooth size that
+    holds the block, as in the JAX package.
+
+    Outputs sit at global multiples of ``factor``: ``ceil(n / factor)``
+    samples. ``history``: optional ``[..., K-1]`` samples preceding ``x``.
+    ``taps``: host numpy.
+    """
+    x = as_cf32(x)
+    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    n = x.shape[-1]
+    k = taps.shape[-1]
+    s = int(factor)
+    if s < 1:
+        raise ValueError("factor must be >= 1")
+    if s == 1:
+        return fir_filter_os(x, taps, block_len=block_len, history=history)
+    if block_len is None:
+        target = max(1024, 8 * k)
+        block_len = s
+        while block_len * 2 <= target:
+            block_len *= 2
+    block_len = int(block_len)
+    if block_len % s:
+        raise ValueError(f"block_len {block_len} must be a multiple of {s}")
+    if k > 1 and block_len < k - 1:
+        raise ValueError(f"block_len {block_len} must be >= taps-1 ({k - 1})")
+    m_len = _good_fft_size(-(-(block_len + k - 1) // s))
+    fft_len = s * m_len
+
+    n_pad = -(-n // block_len) * block_len
+    if n_pad != n:
+        x = torch.nn.functional.pad(x, (0, n_pad - n))
+    nblocks = n_pad // block_len
+    batch = tuple(x.shape[:-1])
+    xb = x.reshape(batch + (nblocks, block_len))
+    if k > 1:
+        h0 = _history(history, batch, k, x.device)[..., None, :]
+        hist = torch.cat([h0, xb[..., :-1, block_len - (k - 1):]], dim=-2)
+        ext = torch.cat([hist, xb], dim=-1)
+    else:
+        ext = xb
+    ext = torch.nn.functional.pad(ext, (0, fft_len - ext.shape[-1]))
+    hs = _rotated_tap_spectrum(taps.tobytes(), k, fft_len, str(x.device))
+    spec = _fft.plan(fft_len).fwd(ext) * hs
+    fold = spec.reshape(spec.shape[:-1] + (s, m_len)).mean(dim=-2)
+    yd = _fft.plan(m_len).bwd(fold, Scale.N)[..., :block_len // s]
+    return yd.reshape(batch + (n_pad // s,))[..., :-(-n // s)]
 
 
 def matched_filter(x, ref, block_len: Optional[int] = None,

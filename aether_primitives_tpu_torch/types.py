@@ -19,3 +19,13 @@ def as_cf32(x, device=None) -> torch.Tensor:
     A tensor keeps its device unless ``device`` is given.
     """
     return torch.as_tensor(x, dtype=cf32, device=device)
+
+
+def stage_device(device, stage: str) -> torch.device:
+    """``device`` as a ``torch.device`` for a stage named ``stage``; a CUDA
+    device without CUDA raises RuntimeError (the stages never fall back to
+    the CPU: it runs only when asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{stage} device {device!r} requested but CUDA is not available")
+    return dev

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It drives the port's two paths through their hand-written kernels:
+It drives the port's paths through their hand-written kernels:
 
 - the streaming RX chain (``RxChain(RxChainConfig(fft_len=2048,
   decimation=4, packed_bits=True), device="cuda").streaming_step``) on
@@ -11,13 +11,18 @@ It drives the port's two paths through their hand-written kernels:
 - the batched burst link (``PacketModem(PacketConfig(payload_bits=600,
   fec=...), device="cuda").rx_batch``) on 256 captures of 16,384 samples,
   through the Viterbi kernel (``csrc/viterbi.cu``, ``fec="viterbi"``) and
-  the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``),
+  the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``);
+- the wideband channelizer (``PfbChannelizerOs(2048, os=2,
+  taps_per_branch=16, device="cuda")`` feeding ``PfbSynthesizerOs`` with the
+  same configuration) on 4,194,304-sample blocks, through the PFB fold
+  kernel (``csrc/pfb_fold.cu``), and the DDC (``Ddc(DdcConfig(freq=0.1375,
+  decimation=8), device="cuda")``) on the same blocks,
 
-in nine phases:
+in thirteen phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
-2. the three kernels' builds from the sources in the checkout, started
-   together, timed;
+2. the four kernels' builds from the sources in the checkout, started
+   together, timed, with the RX frame and PFB fold compiler reports;
 3. the RX frame kernel against its plain PyTorch version and the float64
    chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
    epilogue, with and without carried history;
@@ -32,7 +37,23 @@ in nine phases:
    per call, and the first 8 bursts equal to the port's CPU run;
 9. CUDA-event timings of each burst kernel against its plain twin and of
    ``rx_batch`` end to end, and a ``torch.profiler`` split of ``rx_batch``
-   into front end, decoder kernels and the rest.
+   into front end, decoder kernels and the rest;
+10. the PFB fold kernel against its plain twin, bit for bit
+    (``torch.equal``), at the channelizer's shapes: the analysis fold, the
+    oversampled and the critically sampled synthesis spreads, and a ragged
+    batched case;
+11. the channelizer path: three consecutive blocks through analysis and
+    synthesis, exactly 1 + os fold launches per step and no other kernel,
+    the first 64 frames against a float64 golden (<= -80 dB), the streamed
+    analysis against one-shot ``pfb_channelize_os`` (<= -120 dB), the
+    reconstructed interior against the input (<= -70 dB), and the first
+    frames against the port's CPU run (<= -110 dB);
+12. the DDC path over two blocks: against the float64 composed golden on a
+    prefix (<= -80 dB) and block by block against one-shot (<= -115 dB);
+13. CUDA-event timings of the fold kernel, its plain twin and the one-call
+    ``conv1d`` yardstick, of the analysis, synthesis and DDC steps, and of
+    ``pfb_synthesize`` (slice-sum and kernel), with a ``torch.profiler``
+    split of one analysis step.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -47,9 +68,12 @@ from concurrent.futures import ThreadPoolExecutor
 # tolerances, stated once
 AGREEMENT = 0.99999  # hard bits vs the float64 chain, and kernel vs plain
 EVM_DB = -80.0  # RMS EVM of spectra vs float64, and kernel vs plain
+STREAM_DB, ROUNDTRIP_DB = -120.0, -70.0  # tests/test_pfb.py's bars
+CPU_DB, DDC_STREAM_DB = -110.0, -115.0  # card vs CPU run; tests/test_ddc.py
 
 
-KERNELS = ("rx_frame", "viterbi", "bcjr")
+KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold")
+NO_LAUNCHES = {k: 0 for k in KERNELS}  # a path's launch counts are read against this
 # the burst path: benches/burst_bench.py's configuration at full width
 PAYLOAD, CAPTURE, BURSTS = 600, 16384, 256
 K7, K5 = ((0o171, 0o133), 7), ((0o25, 0o33, 0o37), 5)
@@ -131,6 +155,7 @@ def main() -> None:
     print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f} s (parallel)")
     print_ptxas(build, "rx_frame")
+    print_ptxas(build, "pfb_fold")
     sys.stdout.flush()
 
     # ---- phase 3: kernel vs plain vs float64 at the main path's shapes --
@@ -185,15 +210,15 @@ def main() -> None:
     sys.stdout.flush()
 
     # ---- phase 4: the main path's two-block streaming gate -----------------
-    rf.launches = vk.launches = bk.launches = 0
+    reset_counts()
     bits, states = stream_blocks(chain, x_full, BLOCK)
     torch.cuda.synchronize()
-    main_launches = rf.launches
-    print(f"main path: {len(bits)} streaming steps, rx_frame.launches = {main_launches}, "
-          f"viterbi {vk.launches}, bcjr {bk.launches}")
-    if main_launches != len(bits) or vk.launches or bk.launches:
+    counts = read_counts()
+    main_launches = counts["rx_frame"]
+    print(f"main path: {len(bits)} streaming steps, launches {counts}")
+    if counts != {**NO_LAUNCHES, "rx_frame": len(bits)}:
         fail(f"rx_frame.launches {main_launches} != {len(bits)} streaming steps "
-             "(or a burst kernel launched)")
+             "(or another kernel launched)")
     if any(b.shape != (BLOCK // 16,) or b.dtype != torch.uint8 for b in bits):
         fail(f"unexpected output blocks {[(b.shape, b.dtype) for b in bits]}")
     g = gate(chain, x_full, BLOCK, bits, states)
@@ -330,12 +355,12 @@ def main() -> None:
         ])
         x = torch.from_numpy(caps).cuda()
         torch.cuda.synchronize()
-        rf.launches = vk.launches = bk.launches = 0
+        reset_counts()
         bits_b, ok_b, diag_b = pm.rx_batch(x)
         torch.cuda.synchronize()
-        counts = {"rx_frame": rf.launches, "viterbi": vk.launches, "bcjr": bk.launches}
-        want = ({"rx_frame": 0, "viterbi": 1, "bcjr": 0} if fec_name == "viterbi"
-                else {"rx_frame": 0, "viterbi": 0, "bcjr": 16})
+        counts = read_counts()
+        want = ({**NO_LAUNCHES, "viterbi": 1} if fec_name == "viterbi"
+                else {**NO_LAUNCHES, "bcjr": 16})
         exact = (bits_b.cpu().numpy() == payloads).all(axis=1)
         ok = ok_b.cpu().numpy()
         host_bits, host_ok, host_diag = PacketModem(cfg, device="cpu").rx_batch(
@@ -393,6 +418,8 @@ def main() -> None:
               f"calls, captures resident) [{card}]")
         profile_burst(torch, pm, x, fec_name, card)
 
+    pfb_entry = channelizer_phases(card)
+
     print(json.dumps({"kernels": [
         {
             "name": "rx_frame",
@@ -430,11 +457,332 @@ def main() -> None:
             **bcjr_bound,
             "library_ms": None,
         },
+        pfb_entry,
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def evm_db(got, ref) -> float:
+    """RMS EVM in dB of ``got`` against ``ref``, in float64 (tensors on the
+    card stay there; numpy on the host)."""
+    import numpy as np
+    import torch
+
+    if isinstance(got, torch.Tensor) and isinstance(ref, torch.Tensor):
+        g = got.to(torch.complex128)
+        r = ref.to(device=got.device, dtype=torch.complex128)
+        return float(10 * torch.log10((g - r).abs().pow(2).mean() / r.abs().pow(2).mean()))
+    g = np.asarray(got.cpu() if isinstance(got, torch.Tensor) else got, np.complex128)
+    r = np.asarray(ref.cpu() if isinstance(ref, torch.Tensor) else ref, np.complex128)
+    return float(10 * np.log10(np.mean(np.abs(g - r) ** 2) / np.mean(np.abs(r) ** 2)))
+
+
+def f64_os_frames(x, h, m: int, os: int, n_frames: int):
+    """Float64 golden of the oversampled analysis: frame t is the direct
+    fold of ``x[t*hop : t*hop + P*M]`` with the prototype, rolled by
+    ``(t*hop) mod M``, then ``np.fft.fft``."""
+    import numpy as np
+
+    hop = m // os
+    p = -(-len(h) // m)
+    hh = np.zeros(p * m)
+    hh[:len(h)] = h
+    out = np.empty((n_frames, m), np.complex128)
+    for t in range(n_frames):
+        u = (x[t * hop:t * hop + p * m].astype(np.complex128) * hh).reshape(p, m).sum(0)
+        out[t] = np.fft.fft(np.roll(u, (t * hop) % m))
+    return out
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    import importlib
+
+    for k in KERNELS:
+        importlib.import_module(f"aether_primitives_tpu_torch.ops.cuda.{k}").launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count (read just after a path ran)."""
+    import importlib
+
+    return {k: importlib.import_module(f"aether_primitives_tpu_torch.ops.cuda.{k}").launches
+            for k in KERNELS}
+
+
+def timed_pair(run_kernel, run_plain, iters=(50, 5), runs: int = 4):
+    """Medians (ms per call) of ``run_kernel`` and ``run_plain`` by CUDA
+    events, in turns plain, kernel, kernel, plain; returns the medians and
+    the runs."""
+    import numpy as np
+
+    from aether_primitives_tpu_torch.cli import time_cuda
+
+    got = {"kernel": [], "plain": []}
+    for run in range(runs):
+        for which in (("plain", "kernel"), ("kernel", "plain"))[run % 2]:
+            fn, n = (run_kernel, iters[0]) if which == "kernel" else (run_plain, iters[1])
+            got[which].append(time_cuda(fn, n, warmup=2))
+    return {k: float(np.median(v)) for k, v in got.items()}, got
+
+
+def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int = 2,
+                       tpb: int = 16, block: int = 1 << 22) -> dict:
+    """Phases 10-13: the PFB fold kernel against its twin, the channelizer
+    path, the DDC path and their timings, at ``M = m``, ``os`` and
+    ``taps_per_branch = tpb`` on ``block``-sample blocks (the defaults are
+    the path's; a smaller size on ``device="cpu"`` rehearses the phases,
+    with the CUDA calls stubbed). Returns the fold kernel's entry of the
+    kernels' JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from aether_primitives_tpu_torch.cli import capture, time_cuda
+    from aether_primitives_tpu_torch.models import Ddc, DdcConfig
+    from aether_primitives_tpu_torch.models import channelizer as ch
+    from aether_primitives_tpu_torch.ops.cuda import pfb_fold as pf
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize
+    hop = m // os
+    h = ch.pfb_prototype_nyquist(m, tpb)
+    hb = ch._branches(h, m)
+    p = hb.shape[0]
+    w = torch.from_numpy(np.ascontiguousarray(hb.real)).to(dev)
+    w_rev = torch.from_numpy(np.ascontiguousarray(hb.real[::-1])).to(dev)
+    rng = np.random.default_rng(3030)
+
+    def planes(n, batch=()):
+        return tuple(torch.from_numpy(rng.normal(size=batch + (n,)).astype(np.float32)).to(dev)
+                     for _ in range(2))
+
+    # ---- phase 10: the fold kernel vs its twin at the path's shapes -----
+    t_cls = block // m  # frames per class of a steady analysis step
+    g = ch.pfb_synthesis_taps(ch.pfb_prototype(m, 8), m, taps_per_branch=16)
+    gb = ch._branches(g, m)
+    q, t_syn = gb.shape[0], block // m
+    g_rev = torch.from_numpy(np.ascontiguousarray(gb.real[::-1], dtype=np.float32)).to(dev)
+    m_r = 1000 if m >= 1000 else m - 8  # not a multiple of the 64-column strip
+    w_ragged = torch.from_numpy(rng.normal(size=(7, m_r)).astype(np.float32)).to(dev)
+    fold_cases = [
+        (f"analysis os {os}, M {m}, P {p}, t_cls {t_cls}", os, t_cls, w, ()),
+        (f"oversampled synthesis spread, os 1, reversed branches, {t_cls + p - 1} slabs",
+         1, t_cls + p - 1, w_rev, ()),
+        (f"critically sampled synthesis spread, Q {q}, {t_syn + q - 1} slabs",
+         1, t_syn + q - 1, g_rev, ()),
+        (f"ragged: M {m_r}, os 2, P 7, t_cls 1001, batch 3", 2, 1001, w_ragged, (3,)),
+    ]
+    fold_err, fold_in = 0.0, None
+    for label, o, t, wb, batch in fold_cases:
+        pp, mm = wb.shape
+        xr, xi = planes((o - 1) * (mm // o) + (t - 1 + pp) * mm, batch)
+        got = pf.pfb_fold_os(xr, xi, wb, o, t)
+        plain = pf.pfb_fold_os_reference(xr, xi, wb, o, t)
+        sync()
+        same = torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        err = max(float((got[k] - plain[k]).abs().max()) for k in (0, 1))
+        fold_err = max(fold_err, err)
+        print(f"compare pfb_fold {label}: kernel vs plain torch.equal {same}, "
+              f"max |diff| {err}")
+        if not same:
+            fail(f"pfb_fold {label}: kernel and plain twin disagree")
+        if fold_in is None:
+            fold_in = (xr, xi)
+    sys.stdout.flush()
+
+    # ---- phase 11: the channelizer path, three blocks -------------------
+    n_blocks = 3
+    x_full = capture(n_blocks * block, 4040)
+    blocks = [torch.from_numpy(x_full[i * block:(i + 1) * block]).to(dev)
+              for i in range(n_blocks)]
+    ana = ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb, device=dev)
+    syn = ch.PfbSynthesizerOs(m, os=os, taps_per_branch=tpb, device=dev)
+    sync()
+    reset_counts()
+    frames, recon = [], []
+    for b in blocks:
+        frames.append(ana.step(b))
+        recon.append(syn.step(frames[-1]))
+    sync()
+    counts = read_counts()
+    want = {**NO_LAUNCHES, "pfb_fold": n_blocks * (1 + os)}
+    print(f"channelizer path: {n_blocks} blocks of {block} through PfbChannelizerOs -> "
+          f"PfbSynthesizerOs (M {m}, os {os}, P {p}, hop {hop}): frames per step "
+          f"{[f.shape[0] for f in frames]}, samples out {[r.shape[-1] for r in recon]}, "
+          f"launches {counts} (need {want}: 1 analysis + {os} synthesis per step)")
+    if counts != want:
+        fail(f"channelizer path launches {counts} != {want}")
+    y_all = torch.cat(frames, dim=0)
+    back = torch.cat(recon)
+    if not (bool(torch.isfinite(y_all.real).all()) and bool(torch.isfinite(back.real).all())):
+        fail("channelizer path: non-finite output")
+    gold = f64_os_frames(x_full, h.astype(np.float64), m, os, 64)
+    d_gold = evm_db(y_all[:64].cpu().numpy(), gold)
+    one = ch.pfb_channelize_os(torch.from_numpy(x_full).to(dev), m, os=os, taps_per_branch=tpb)
+    d_stream = evm_db(y_all, one[:y_all.shape[0]])
+    del one
+    core = slice(2 * p * m, back.shape[-1] - p * m)
+    d_rt = evm_db(back[core], torch.from_numpy(x_full[core]).to(dev))
+    n_pre = 255 * hop + p * m
+    cpu_y = ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb, device="cpu").step(
+        x_full[:n_pre])
+    d_cpu = evm_db(y_all[:cpu_y.shape[0]].cpu(), cpu_y)
+    print(f"channelizer gate: first 64 frames vs float64 golden {d_gold:.2f} dB "
+          f"(need <= {EVM_DB}), streamed vs one-shot pfb_channelize_os over "
+          f"{y_all.shape[0]} frames {d_stream:.2f} dB (need <= {STREAM_DB}), reconstructed "
+          f"interior ({core.stop - core.start} samples) vs input {d_rt:.2f} dB (need <= "
+          f"{ROUNDTRIP_DB}), first {cpu_y.shape[0]} frames vs the CPU run {d_cpu:.2f} dB "
+          f"(need <= {CPU_DB})", flush=True)
+    if d_gold > EVM_DB or d_stream > STREAM_DB or d_rt > ROUNDTRIP_DB or d_cpu > CPU_DB:
+        fail("channelizer gate")
+
+    # ---- phase 12: the DDC path, two blocks ----------------------------
+    cfg = DdcConfig(freq=0.1375, decimation=8)
+    ddc = Ddc(cfg, device=dev)
+    sync()
+    reset_counts()
+    outs = [ddc.step(b) for b in blocks[:2]]
+    sync()
+    ddc_counts = read_counts()
+    z = torch.cat(outs)
+    npre = min(1 << 16, 2 * block)
+    mixed = x_full[:npre].astype(np.complex128) * np.exp(-2j * np.pi * 0.1375 * np.arange(npre))
+    ref = np.convolve(mixed, ddc.taps.astype(np.complex128))[:npre][::8]
+    d_ddc = evm_db(z[:npre // 8].cpu().numpy(), ref)
+    whole = Ddc(cfg, device=dev).step(torch.cat(blocks[:2]))
+    d_ddc_stream = evm_db(z, whole)
+    print(f"DDC path: 2 blocks -> {z.shape[-1]} samples (129 taps, /8), launches "
+          f"{ddc_counts} (no kernel of the port on this path); vs float64 composed golden "
+          f"on {npre} samples {d_ddc:.2f} dB (need <= {EVM_DB}); block by block vs "
+          f"one-shot {d_ddc_stream:.2f} dB (need <= {DDC_STREAM_DB})", flush=True)
+    if d_ddc > EVM_DB or d_ddc_stream > DDC_STREAM_DB or not bool(torch.isfinite(z.real).all()):
+        fail("DDC gate")
+
+    # ---- phase 13: timings ------------------------------------------------
+    xr, xi = fold_in
+    fold_t, fold_runs = timed_pair(lambda: pf.pfb_fold_os(xr, xi, w, os, t_cls),
+                                   lambda: pf.pfb_fold_os_reference(xr, xi, w, os, t_cls))
+    span = (t_cls - 1 + p) * m
+    lib_in = torch.stack([plane[j * hop:j * hop + span].reshape(t_cls - 1 + p, m).t()
+                          for plane in (xr, xi) for j in range(os)]).contiguous()
+    lib_w = w.t().contiguous()[:, None, :]
+    lib = lambda: F.conv1d(lib_in, lib_w, groups=m)  # noqa: E731
+    lib_out = lib()
+    plain0 = pf.pfb_fold_os_reference(xr, xi, w, os, t_cls)[0][0]  # class 0: no roll
+    lib_rel = float((lib_out[0].t() - plain0).norm() / plain0.norm())
+    lib_runs = [time_cuda(lib, 20) for _ in range(3)]
+    lib_ms = float(np.median(lib_runs))
+    # bytes: the classes' input span once, both planes; both output planes; the taps
+    fold_bytes = 8 * ((t_cls - 1 + p) * m + (os - 1) * hop) + 8 * os * t_cls * m + 4 * p * m
+    fold_ops = os * t_cls * m * 2 * (2 * p - 1)  # P multiplies + P-1 adds per plane
+    fold_bound = bound(fold_ops, fold_bytes)
+    print(f"time: pfb_fold kernel [{os} x {t_cls} x {m}, P {p}] median {fold_t['kernel']:.4f} ms "
+          f"(runs {', '.join(f'{v:.4f}' for v in fold_runs['kernel'])}; mean of 50 calls), "
+          f"plain twin median {fold_t['plain']:.4f} ms (runs "
+          f"{', '.join(f'{v:.4f}' for v in fold_runs['plain'])}; mean of 5 calls), conv1d "
+          f"library median {lib_ms:.4f} ms (runs {', '.join(f'{v:.4f}' for v in lib_runs)}; "
+          f"mean of 20; rel. diff from the twin {lib_rel:.2e}); bound {fold_bound['bound_ms']:.4f} "
+          f"ms by {fold_bound['bound_by']} ({fold_bytes / 1e6:.1f} MB, {fold_ops / 1e9:.3f} G "
+          f"FP32 ops); CUDA events [{card}]", flush=True)
+
+    def stepper(stage, inputs):
+        box = {"i": 0}
+
+        def run():
+            out = stage.step(inputs[box["i"] % len(inputs)])
+            box["i"] += 1
+            return out
+        return run
+
+    msa = lambda ms: block / (ms * 1e-3) / 1e6  # noqa: E731
+    steady = frames[1]
+    step_t = {}
+    for name, make, inputs in (
+        ("analysis step", lambda be: ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb,
+                                                          device=dev, backend=be), blocks),
+        ("synthesis step", lambda be: ch.PfbSynthesizerOs(m, os=os, taps_per_branch=tpb,
+                                                           device=dev, backend=be), [steady]),
+    ):
+        t, runs = timed_pair(stepper(make("auto"), inputs), stepper(make("reference"), inputs),
+                             iters=(20, 3))
+        step_t[name] = t
+        print(f"time: {name} ({tuple(inputs[0].shape)} in): kernel path median "
+              f"{t['kernel']:.4f} ms = {msa(t['kernel']):.1f} Msa/s (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}), plain path median "
+              f"{t['plain']:.4f} ms = {msa(t['plain']):.1f} Msa/s (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events, blocks "
+              f"resident [{card}]", flush=True)
+    y_cs = blocks[0].reshape(t_syn, m)  # the capture read as channel frames
+    cs_t, cs_runs = timed_pair(lambda: ch.pfb_synthesize(y_cs, m, taps=g, backend="auto"),
+                               lambda: ch.pfb_synthesize(y_cs, m, taps=g), iters=(20, 20))
+    print(f"time: pfb_synthesize [{t_syn} x {m}], Q {q}: fold kernel median "
+          f"{cs_t['kernel']:.4f} ms = {msa(cs_t['kernel']):.1f} Msa/s (runs "
+          f"{', '.join(f'{v:.4f}' for v in cs_runs['kernel'])}), slice-sum (the default) "
+          f"median {cs_t['plain']:.4f} ms = {msa(cs_t['plain']):.1f} Msa/s (runs "
+          f"{', '.join(f'{v:.4f}' for v in cs_runs['plain'])}) [{card}]")
+    ddc_t = [time_cuda(stepper(Ddc(cfg, device=dev), blocks), 10) for _ in range(3)]
+    print(f"time: DDC step (freq 0.1375, /8, 129 taps): median {np.median(ddc_t):.4f} ms = "
+          f"{msa(float(np.median(ddc_t))):.1f} Msa/s (runs "
+          f"{', '.join(f'{v:.4f}' for v in ddc_t)}; mean of 10) [{card}]", flush=True)
+    profile_analysis(torch, stepper(ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb,
+                                                        device=dev), blocks),
+                     step_t["analysis step"]["kernel"], card)
+    return {
+        "name": "pfb_fold",
+        "route": "cuda",
+        "source": "aether_primitives_tpu_torch/csrc/pfb_fold.cu",
+        "replaces": "aether_primitives_tpu/ops/pallas/pfb_fold.py:35",
+        "launches": counts["pfb_fold"],
+        "max_abs_err": fold_err,
+        "ms": fold_t["kernel"],
+        "plain_ms": fold_t["plain"],
+        **fold_bound,
+        "library_ms": lib_ms,
+    }
+
+
+def profile_analysis(torch, step, step_ms: float, card: str, steps: int = 5) -> None:
+    """torch.profiler split of the channelizer's analysis step: the fold
+    kernel, the FFT kernels, the rest; and the device's idle share, of the
+    profiled steps' wall time (profiler on) and of ``step_ms``, the step's
+    CUDA-event time without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("profile analysis step: the profiler recorded no device time")
+        return
+    per = lambda us: us / steps / 1e3  # noqa: E731
+    split = {"fold": 0.0, "fft": 0.0, "rest": 0.0}
+    names = {}
+    for k in kernels:
+        us = k.time_range.elapsed_us()
+        key = "fold" if "pfb_fold" in k.name else "fft" if "fft" in k.name.lower() else "rest"
+        split[key] += us
+        names[k.name] = names.get(k.name, 0.0) + us
+    busy = per(sum(split.values()))
+    print(f"profile analysis step: device busy {busy:.4f} ms/step of {wall_ms:.4f} ms wall "
+          f"(idle {100 * (1 - busy / wall_ms):.1f}%, profiler on; idle "
+          f"{100 * (1 - busy / step_ms):.1f}% of the {step_ms:.4f} ms un-profiled step); "
+          f"fold kernel {per(split['fold']):.4f} ms, "
+          f"FFT {per(split['fft']):.4f} ms, rest {per(split['rest']):.4f} ms; "
+          f"{len(kernels) // steps} kernels per step (torch.profiler, {steps} steps, "
+          f"profiler on) [{card}]")
+    for key, us in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {per(us):.4f} ms/step  {key[:90]}")
 
 
 def profile_burst(torch, pm, x, fec_name: str, card: str, calls: int = 5) -> None:

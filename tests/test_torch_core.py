@@ -16,9 +16,13 @@ import torch
 from aether_primitives_tpu.models.modem import _default_lowpass
 from aether_primitives_tpu.ops import fft as jfft
 from aether_primitives_tpu.ops import fir as jfir
+from aether_primitives_tpu.ops import firdes as jfirdes
+from aether_primitives_tpu.ops import vecops as jvec
 from aether_primitives_tpu_torch import Split, as_cf32, merge, split
 from aether_primitives_tpu_torch.ops import fft as tfft
 from aether_primitives_tpu_torch.ops import fir as tfir
+from aether_primitives_tpu_torch.ops import firdes as tfirdes
+from aether_primitives_tpu_torch.ops import vecops as tvec
 
 torch.set_num_threads(1)
 
@@ -126,6 +130,10 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import aether_primitives_tpu_torch, aether_primitives_tpu_torch.cli\n"
         "import aether_primitives_tpu_torch.convert\n"
+        "import aether_primitives_tpu_torch.models.channelizer\n"
+        "import aether_primitives_tpu_torch.models.ddc\n"
+        "import aether_primitives_tpu_torch.ops.cuda.pfb_fold\n"
+        "import aether_primitives_tpu_torch.ops.firdes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aether_primitives_tpu')]\n"
         "print(bad)\n"
@@ -150,3 +158,110 @@ def test_split_merge_roundtrip():
     assert np.array_equal(back.numpy(), x)
     assert np.array_equal(merge((x.real, x.imag)).numpy(), x)
     assert as_cf32([1.0, 2.0]).dtype == torch.complex64
+
+
+# ------------------------------------------------------------------ firdes
+
+FIRDES = {
+    "windowed_sinc": [(63, 0.1), (64, 0.2, "hann"), (31, 0.05, "blackman"), (9, 0.3, "rect")],
+    "kaiser_beta": [(10.0,), (30.0,), (60.0,), (80.0,)],
+    "kaiser_order": [(60.0, 0.05), (80.0, 0.01), (40.0, 0.1)],
+    "kaiser_lowpass": [(0.1, 0.05), (0.2, 0.02, 60.0), (0.05, 0.1, 40.0)],
+    "remez": [(31, [(0, 0.1), (0.15, 0.5)], [1, 0]),
+              (41, [(0, 0.08), (0.12, 0.3), (0.35, 0.5)], [0, 1, 0], [1, 2, 1]),
+              (21, [(0, 0.2), (0.25, 0.5)], [1, 0], None, 8)],
+    "hilbert_taps": [(31,), (15, "blackman"), (65, "rect")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIRDES))
+def test_firdes_designers_equal(name):
+    for args in FIRDES[name]:
+        a = getattr(tfirdes, name)(*args)
+        b = getattr(jfirdes, name)(*args)
+        assert np.array_equal(np.asarray(a), np.asarray(b)), (name, args)
+
+
+@pytest.mark.parametrize("kind", ["highpass", "bandpass", "bandstop"])
+def test_firdes_band_transform_equal(kind):
+    lp = jfirdes.windowed_sinc(33, 0.1)
+    assert np.array_equal(tfirdes.band_transform(lp, kind, 0.2),
+                          jfirdes.band_transform(lp, kind, 0.2))
+    with pytest.raises(ValueError):
+        tfirdes.band_transform(lp, "notch")
+
+
+def test_firdes_is_a_numpy_copy():
+    # the module body after the docstring is the original's, line for line
+    def body(mod):
+        src = inspect.getsource(mod)
+        return src[src.index("from __future__"):]
+
+    assert body(tfirdes) == body(jfirdes)
+    for bad in ((tfirdes.windowed_sinc, (31, 0.6)), (tfirdes.remez, (30, [(0, 0.1)], [1])),
+                (tfirdes.hilbert_taps, (30,))):
+        with pytest.raises(ValueError):
+            bad[0](*bad[1])
+
+
+# ------------------------------------------------------------------ vecops
+
+
+def _vec(seed, n=100):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("name", ["mul", "div", "add", "sub"])
+def test_vecops_binary_match_jax(name):
+    a, b = _vec(1), _vec(2)
+    got = getattr(tvec, name)(torch.from_numpy(a), b).numpy()
+    want = np.asarray(getattr(jvec, name)(a, b))
+    assert tevm.evm_rms_db(got, want) <= -120
+    with pytest.raises(ValueError, match="same length"):
+        getattr(tvec, name)(torch.from_numpy(a), b[:, :50])
+
+
+@pytest.mark.parametrize("n", [4, 5, 100, 101])
+def test_vecops_unary_match_jax(n):
+    a = _vec(3, n)
+    for name in ("conj", "mirror", "clone", "zero"):
+        got = getattr(tvec, name)(torch.from_numpy(a)).numpy()
+        assert np.array_equal(got, np.asarray(getattr(jvec, name)(a))), name
+    assert np.array_equal(tvec.scale(torch.from_numpy(a), 2.5).numpy(),
+                          np.asarray(jvec.scale(a, 2.5)))
+    got = tvec.mutate_indexed(torch.from_numpy(a), lambda x, i: x * i.float()).numpy()
+    want = np.asarray(jvec.mutate_indexed(a, lambda x, i: x * i.astype(np.float32)))
+    assert np.array_equal(got, want)
+    assert np.array_equal(tvec.mutate(a, lambda x: x * 2).numpy(),
+                          np.asarray(jvec.mutate(a, lambda x: x * 2)))
+
+
+def test_vecops_mirror_reference_vectors():
+    assert tvec.mirror(torch.arange(4)).tolist() == [2, 3, 0, 1]
+    assert tvec.mirror(torch.arange(5)).tolist() == [2, 3, 0, 1, 4]
+
+
+def test_cvec_chain_matches_jax():
+    twos = np.full(100, 2 + 2j, np.complex64)
+    ones = np.full(100, 1 + 1j, np.complex64)
+
+    def chain(cls, real, ones_like):
+        return (cls(twos).vec_div(twos).vec_mul(twos).vec_zero().vec_add(ones)
+                .vec_sub(twos).vec_clone(ones)
+                .vec_mutate(lambda c: real(c) - 1j * ones_like(real(c)))
+                .vec_conj().vec_mirror().vec_scale(2.0))
+
+    got = chain(tvec.CVec, torch.real, torch.ones_like).array.numpy()
+    want = np.asarray(chain(jvec.CVec, np.real, np.ones_like).array)
+    assert np.array_equal(got, want)
+    assert len(tvec.CVec(twos)) == 100 and "CVec" in repr(tvec.CVec(twos[:2]))
+
+
+def test_cvec_fft_roundtrips():
+    v = tvec.CVec(np.full(100, 1 + 1j, np.complex64))
+    out = v.vec_fft(tfft.Scale.SN).vec_ifft(tfft.Scale.SN).array.numpy()
+    tevm.assert_evm(out, np.full(100, 1 + 1j, np.complex64), -80.0)
+    p = tfft.plan(100)
+    out = v.vec_rfft(p, tfft.Scale.SN).vec_scale(2.0).vec_rifft(p, tfft.Scale.SN).array.numpy()
+    tevm.assert_evm(out, np.full(100, 2 + 2j, np.complex64), -72.0)

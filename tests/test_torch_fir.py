@@ -160,3 +160,64 @@ def test_matched_filter_matches_jax():
     assert evm_rms_db(got, np.asarray(jfir.matched_filter(x, ref))) <= EVM_DB
     assert evm_rms_db(tfir.matched_filter(torch.from_numpy(x), torch.from_numpy(ref)).numpy(),
                       got) <= EVM_DB
+
+
+@pytest.mark.parametrize("padding", ["causal", "valid"])
+@pytest.mark.parametrize("k,factor", [(65, 4), (17, 3), (1, 2)])
+def test_fir_filter_decimate_matches_jax(k, factor, padding):
+    x = _signal((2, 3000), 20)
+    taps = _signal(k, 21)
+    got = tfir.fir_filter_decimate(torch.from_numpy(x), taps, factor, padding).numpy()
+    want = np.asarray(jfir.fir_filter_decimate(x, taps, factor, padding))
+    assert got.shape == want.shape
+    assert evm_rms_db(got, want) <= EVM_DB
+    if padding == "causal":
+        full = tfir.fir_filter(torch.from_numpy(x), taps).numpy()
+        assert evm_rms_db(got, full[..., ::factor]) <= EVM_DB
+    with pytest.raises(ValueError, match="padding"):
+        tfir.fir_filter_decimate(torch.from_numpy(x), taps, factor, "same")
+
+
+@pytest.mark.parametrize("history", [False, True], ids=["zero", "history"])
+@pytest.mark.parametrize("k,factor,block_len", [(129, 8, None), (33, 4, None),
+                                                (17, 2, 64), (9, 1, None)])
+def test_fir_filter_os_decimate_matches_jax_and_golden(k, factor, block_len, history):
+    x = _signal((2, 5000), 22)
+    taps = _signal(k, 23)
+    hist = _signal((2, k - 1), 24) if history else None
+    got = tfir.fir_filter_os_decimate(
+        torch.from_numpy(x), taps, factor, block_len=block_len,
+        history=None if hist is None else torch.from_numpy(hist)).numpy()
+    want = np.asarray(jfir.fir_filter_os_decimate(x, taps, factor, block_len=block_len,
+                                                  history=hist))
+    assert got.shape == want.shape == (2, -(-5000 // factor))
+    assert evm_rms_db(got, want) <= EVM_DB
+    ext = x if hist is None else np.concatenate([hist, x], axis=-1)
+    gold = np.stack([np.convolve(r.astype(np.complex128), taps)[:ext.shape[-1]]
+                     for r in ext])[:, ext.shape[-1] - 5000:][:, ::factor]
+    assert evm_rms_db(got, gold) <= EVM_DB
+
+
+def test_fir_filter_os_decimate_validates():
+    x = torch.zeros(1000, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="multiple"):
+        tfir.fir_filter_os_decimate(x, np.ones(9, np.complex64), 4, block_len=30)
+    with pytest.raises(ValueError, match=">= 1"):
+        tfir.fir_filter_os_decimate(x, np.ones(9, np.complex64), 0)
+    with pytest.raises(ValueError, match="taps-1"):
+        tfir.fir_filter_os_decimate(x, np.ones(65, np.complex64), 4, block_len=32)
+
+
+@pytest.mark.parametrize("sps,span,beta", [(8, 10, 0.35), (2048, 16, 0.5), (4, 3, 1.0),
+                                           (4, 4, 0.25)])
+def test_rrc_taps_equal(sps, span, beta):
+    a, b = tfir.rrc_taps(sps, span, beta), jfir.rrc_taps(sps, span, beta)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+    with pytest.raises(ValueError, match="beta"):
+        tfir.rrc_taps(sps, span, 0.0)
+
+
+def test_rrc_taps_is_a_verbatim_copy():
+    import inspect
+
+    assert inspect.getsource(tfir.rrc_taps) == inspect.getsource(jfir.rrc_taps)
