@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..boundary import Split, merge
 from ..ops import fir as _fir
 from ..ops import modulation as _mod
 from ..ops.cuda import rx_frame as _rx_frame
@@ -218,7 +219,8 @@ class RxChain:
             raise ValueError(
                 f"block length {n} is not a multiple of frame_span "
                 f"{self.frame_span} (= decimation {self.config.decimation} x "
-                f"fft_len {self.config.fft_len})"
+                f"fft_len {self.config.fft_len}); use step_ragged (keep "
+                "the remainder) or step_padded (zero-pad the tail frame)"
             )
 
     def step(self, block) -> torch.Tensor:
@@ -228,6 +230,35 @@ class RxChain:
         if self._sign_fast_path_ok():
             return self._bits_fast(x)
         return self._demod_frames(self._frames_spectra(x))
+
+    def step_ragged(self, block):
+        """Drop-free ragged-capture policy: demodulate every COMPLETE frame
+        and hand back the remainder, ``(bits, tail)`` with ``tail =
+        block[..., -(n % frame_span):]``. ``bits`` equals :meth:`step` on
+        the trimmed prefix; feed ``tail`` in front of the next capture to
+        lose nothing."""
+        x = self._block(block)
+        n = x.shape[-1]
+        whole = n - n % self.frame_span
+        if whole == 0:
+            return torch.zeros(x.shape[:-1] + (0,), dtype=torch.uint8, device=x.device), x
+        return self.step(x[..., :whole].contiguous()), x[..., whole:]
+
+    def step_padded(self, block) -> torch.Tensor:
+        """Zero-pad ragged-capture policy (the reference waterfall's,
+        reference src/util/plot.rs:50-57): the tail frame is completed with
+        zeros and demodulated; the output covers ``ceil(n / frame_span)``
+        frames, and tail bits past the real samples are the demod of the
+        filter ring-down into zeros."""
+        return self.step(pad_to_frames(self._block(block), self.frame_span))
+
+    def step_split(self, block_split) -> torch.Tensor:
+        """:meth:`step` with a :class:`~aether_primitives_tpu_torch.boundary.
+        Split` input (the JAX package's boundary-safe signature; the planes
+        are merged where they lie, then moved to the chain's device)."""
+        if not isinstance(block_split, Split):
+            raise TypeError("step_split expects a boundary.Split block")
+        return self.step(merge(block_split))
 
     def init_state(self, batch_shape=()) -> torch.Tensor:
         """Zero FIR history ``[..., K-1]`` on the chain's device."""
@@ -261,3 +292,34 @@ class RxChain:
         else:
             new_state = self._block(state)
         return bits, new_state
+
+    def streaming_step_split(self, block_split, state_split):
+        """:meth:`streaming_step` over :class:`~aether_primitives_tpu_torch.
+        boundary.Split` block AND state (the JAX package's boundary-safe
+        streaming signature): the new state comes back as a Split of
+        contiguous float32 planes."""
+        if not isinstance(block_split, Split) or not isinstance(state_split, Split):
+            raise TypeError("streaming_step_split expects Split block/state")
+        bits, ns = self.streaming_step(merge(block_split), merge(state_split))
+        return bits, Split(ns.real.contiguous(), ns.imag.contiguous())
+
+    def init_state_split(self, batch_shape=()) -> Split:
+        """:meth:`init_state` as a :class:`~aether_primitives_tpu_torch.
+        boundary.Split` of float32 zeros (for :meth:`streaming_step_split`)."""
+        k = self.taps.shape[-1]
+        shape = tuple(batch_shape) + (max(k - 1, 0),)
+        return Split(torch.zeros(shape, dtype=torch.float32, device=self.device),
+                     torch.zeros(shape, dtype=torch.float32, device=self.device))
+
+
+def pad_to_frames(block, multiple: int) -> torch.Tensor:
+    """Zero-pad the last axis up to the next multiple of ``multiple`` (the
+    same semantics as :meth:`RxChain.step_padded`; the JAX package applies it
+    before a mesh split, with ``n_time_shards * chain.frame_span``). The
+    block keeps its dtype and device."""
+    x = torch.as_tensor(block)
+    r = x.shape[-1] % int(multiple)
+    if not r:
+        return x
+    pad = torch.zeros(x.shape[:-1] + (int(multiple) - r,), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=-1)

@@ -16,12 +16,19 @@ It drives the port's paths through their hand-written kernels:
   taps_per_branch=16, device="cuda")`` feeding ``PfbSynthesizerOs`` with the
   same configuration) on 4,194,304-sample blocks, through the PFB fold
   kernel (``csrc/pfb_fold.cu``), and the DDC (``Ddc(DdcConfig(freq=0.1375,
-  decimation=8), device="cuda")``) on the same blocks,
+  decimation=8), device="cuda")``) on the same blocks;
+- the host-fed stream: the RX chain above fed from host memory through
+  ``parallel.streaming.StatefulExecutor`` (pinned ``BlockPool`` buffers,
+  pageable numpy blocks, a capture file through ``utils.file.stream_blocks``
+  into ``streaming_step_split``) at depths 1-4, and a ``StreamExecutor``
+  pipeline;
+- the elementwise kernels through their own entry points: ``cmul`` and
+  ``cmul_c64`` (``csrc/cmul.cu``) and ``streamed_cmul`` (``csrc/stream.cu``),
 
-in thirteen phases:
+in seventeen phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
-2. the four kernels' builds from the sources in the checkout, started
+2. the six kernels' builds from the sources in the checkout, started
    together, timed, with the RX frame and PFB fold compiler reports;
 3. the RX frame kernel against its plain PyTorch version and the float64
    chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
@@ -53,7 +60,29 @@ in thirteen phases:
 13. CUDA-event timings of the fold kernel, its plain twin and the one-call
     ``conv1d`` yardstick, of the analysis, synthesis and DDC steps, and of
     ``pfb_synthesize`` (slice-sum and kernel), with a ``torch.profiler``
-    split of one analysis step.
+    split of one analysis step;
+14. the cmul and stream kernels' compiler reports; ``cmul``, ``cmul_c64``
+    and ``streamed_cmul`` once each at [2048, 2048] (chunk_rows 128),
+    exactly 2 cmul and 1 stream launches, each ``torch.equal`` to its plain
+    twin there and at ragged cases (an element count not a multiple of 4,
+    inputs at an odd element offset, an odd chunk), and the refusal of rows
+    that chunk_rows does not divide;
+15. the host-fed stream: 16 consecutive 4M blocks of one capture through
+    ``StatefulExecutor(chain.streaming_step, ...)`` at depths 1-4 from
+    pinned buffers, pageable numpy blocks and the capture file, each
+    ``torch.equal`` to device-resident stepping with the state and the
+    stage counters exact and 16 RX frame launches; the two-block gate on
+    the first two blocks; a two-buffer pinned ring released after each
+    ``send``; a ``StreamExecutor`` Abs -> Mul 20 pipeline equal to eager;
+16. the soak: 512 blocks (2.1 G samples) cycling 8 pinned captures with the
+    true history carried, every 64th block against a float64 chain
+    (agreement >= 0.9999), device memory after block 16 and at the end
+    within 64 MB, the carried state exact;
+17. CUDA-event timings of cmul, cmul_c64 and streamed_cmul against their
+    twins and one ``torch.mul`` each; the host-fed sustained rates per
+    depth and source against the resident step and the pinned and pageable
+    copy times (medians of four runs); a ``torch.profiler`` split of one
+    depth-2 pinned run into copy, kernel and idle.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -72,7 +101,7 @@ STREAM_DB, ROUNDTRIP_DB = -120.0, -70.0  # tests/test_pfb.py's bars
 CPU_DB, DDC_STREAM_DB = -110.0, -115.0  # card vs CPU run; tests/test_ddc.py
 
 
-KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold")
+KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold", "cmul", "stream")
 NO_LAUNCHES = {k: 0 for k in KERNELS}  # a path's launch counts are read against this
 # the burst path: benches/burst_bench.py's configuration at full width
 PAYLOAD, CAPTURE, BURSTS = 600, 16384, 256
@@ -153,7 +182,7 @@ def main() -> None:
             except Exception as e:  # the build's own message names the cause
                 fail(f"{kernel} kernel build: {e}")
     print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)} "
-          f"in {time.perf_counter() - t0:.2f} s (parallel)")
+          f"in {time.perf_counter() - t0:.2f} s (parallel) [{card}]")
     print_ptxas(build, "rx_frame")
     print_ptxas(build, "pfb_fold")
     sys.stdout.flush()
@@ -167,7 +196,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ref_spec = numpy_reference_spectra(x_full, taps, dec, fft_len)
     print(f"float64 reference chain over {2 * BLOCK} samples: "
-          f"{time.perf_counter() - t0:.1f} s (host)")
+          f"{time.perf_counter() - t0:.1f} s (host) [{card}]")
     half = ref_spec.shape[0] // 2
     x_dev = torch.from_numpy(x_full).cuda()
     cases = {
@@ -419,6 +448,9 @@ def main() -> None:
         profile_burst(torch, pm, x, fec_name, card)
 
     pfb_entry = channelizer_phases(card)
+    ew = elementwise_phase()
+    host_fed_phases(card)
+    cmul_entry, stream_entry = elementwise_timing(card, ew)
 
     print(json.dumps({"kernels": [
         {
@@ -458,6 +490,8 @@ def main() -> None:
             "library_ms": None,
         },
         pfb_entry,
+        cmul_entry,
+        stream_entry,
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -831,6 +865,509 @@ def profile_burst(torch, pm, x, fec_name: str, card: str, calls: int = 5) -> Non
           f"kernels per call (torch.profiler, {calls} calls, profiler on) [{card}]")
     for key, us in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {per_call(us):.4f} ms/call  {key[:90]}")
+
+
+
+def f64_qpsk_bits(taps, block, history, dec: int, fft_len: int):
+    """Float64 chain on one block given its true full-rate history (causal
+    FIR, decimate, SN frame FFT, QPSK sign demod), as ``tests/test_soak.py``
+    computes it; bits in the chain's order (b0, b1 per bin)."""
+    import numpy as np
+
+    k = taps.shape[-1]
+    ext = np.concatenate([history.astype(np.complex128), block.astype(np.complex128)])
+    y = np.convolve(ext, taps.astype(np.complex128))[k - 1:k - 1 + block.size][::dec]
+    spec = np.fft.fft(y.reshape(-1, fft_len), axis=-1) / np.sqrt(fft_len)
+    return np.stack([spec.real < 0, spec.imag < 0], axis=-1).astype(np.uint8).reshape(-1)
+
+
+def elementwise_phase(device: str = "cuda", n: int = 2048, chunk_rows: int = 128) -> dict:
+    """Phase 14: the cmul and streamed_cmul kernels through their own entry
+    points (``cmul``, ``cmul_c64``, ``streamed_cmul``) at ``x [n, n]`` with
+    ``chunk_rows``, counted, and each ``torch.equal`` to its plain twin
+    there and at ragged cases. Returns what phase 17 times and the launch
+    counts and errors for the kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.ops.cuda import build
+    from aether_primitives_tpu_torch.ops.cuda import cmul as cm
+    from aether_primitives_tpu_torch.ops.cuda import stream as sk
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize
+    print_ptxas(build, "cmul")
+    print_ptxas(build, "stream")
+    rng = np.random.default_rng(1414)
+
+    def planes(shape, k=4, offset=0):
+        """``k`` float32 planes on the card; with ``offset``, views that
+        start ``offset`` elements into a buffer (not 16-byte aligned)."""
+        out = []
+        for _ in range(k):
+            flat = torch.from_numpy(rng.normal(size=int(np.prod(shape)) + offset)
+                                    .astype(np.float32)).to(dev)
+            out.append(flat[offset:].view(shape))
+        return out
+
+    a = planes((n, n))
+    ac, bc = (torch.complex(a[0], a[1]), torch.complex(a[2], a[3]))
+    xr, xi = planes((n, n), 2)
+    rr, ri = planes((chunk_rows, n), 2)
+    sync()
+
+    # the path: each entry point once at the chip shapes, counted
+    reset_counts()
+    got_p = cm.cmul(*a, conj_b=True, scale=0.5)
+    got_c = cm.cmul_c64(ac, bc, conj_b=True, scale=0.5)
+    got_s = sk.streamed_cmul(xr, xi, rr, ri, chunk_rows=chunk_rows)
+    sync()
+    counts = read_counts()
+    want = {**NO_LAUNCHES, "cmul": 2, "stream": 1}
+    print(f"elementwise path: cmul [{n}, {n}] planes and complex64, streamed_cmul x [{n}, {n}] "
+          f"chunk_rows {chunk_rows}: launches {counts} (need {want})")
+    if counts != want:
+        fail(f"elementwise path launches {counts} != {want}")
+    if not all(bool(torch.isfinite(t).all()) for t in (*got_p, got_c.real, *got_s)):
+        fail("elementwise path: non-finite output")
+
+    errs = {"cmul": 0.0, "stream": 0.0}
+
+    def check(kernel, label, got, plain):
+        got, plain = ([got] if isinstance(got, torch.Tensor) else list(got),
+                      [plain] if isinstance(plain, torch.Tensor) else list(plain))
+        sync()
+        same = all(torch.equal(g, p) for g, p in zip(got, plain))
+        err = max(float((g - p).abs().max()) if g.numel() else 0.0 for g, p in zip(got, plain))
+        errs[kernel] = max(errs[kernel], err)
+        print(f"compare {kernel} {label}: kernel vs plain torch.equal {same}, max |diff| {err}")
+        if not same:
+            fail(f"{kernel} {label}: kernel and plain twin disagree")
+
+    check("cmul", f"planes [{n}, {n}] conj 0.5", got_p, cm.cmul_reference(*a, True, 0.5))
+    check("cmul", f"complex64 [{n}, {n}] conj 0.5", got_c, cm.cmul_c64_reference(ac, bc, True, 0.5))
+    check("stream", f"x [{n}, {n}] chunk {chunk_rows}", got_s,
+          sk.streamed_cmul_reference(xr, xi, rr, ri))
+    check("cmul", f"planes [{n}, {n}] plain 1.0", cm.cmul(*a), cm.cmul_reference(*a))
+    check("cmul", f"complex64 [{n}, {n}] plain 1.0", cm.cmul_c64(ac, bc),
+          cm.cmul_c64_reference(ac, bc))
+    ragged = n * n - 3  # not a multiple of 4
+    pr = planes((ragged,))
+    check("cmul", f"planes ragged ({ragged},)", cm.cmul(*pr, conj_b=True, scale=0.25),
+          cm.cmul_reference(*pr, True, 0.25))
+    po = planes((n - 1, n + 1), offset=1)  # an odd element offset: scalar path
+    check("cmul", f"planes [{n - 1}, {n + 1}] at offset 1", cm.cmul(*po, scale=2.0),
+          cm.cmul_reference(*po, scale=2.0))
+    cr = torch.complex(*planes((ragged,), 2))
+    cb = torch.complex(*planes((ragged,), 2))
+    check("cmul", f"complex64 ragged ({ragged},)", cm.cmul_c64(cr, cb, True),
+          cm.cmul_c64_reference(cr, cb, True))
+    co = torch.complex(*planes((ragged + 2,), 2))[1:1 + ragged]  # 8-byte offset
+    check("cmul", f"complex64 ({ragged},) at offset 1", cm.cmul_c64(co, cb, scale=3.0),
+          cm.cmul_c64_reference(co, cb, scale=3.0))
+    sx = planes((3 * 129, 1001), 2)
+    sr = planes((3, 1001), 2)
+    check("stream", "x [387, 1001] chunk 3 (odd chunk: scalar ring)",
+          sk.streamed_cmul(*sx, *sr, chunk_rows=3), sk.streamed_cmul_reference(*sx, *sr))
+    ox = planes((n, n // 2), 2, offset=1)
+    orr = planes((chunk_rows, n // 2), 2, offset=1)
+    check("stream", f"x [{n}, {n // 2}] chunk {chunk_rows} at offset 1",
+          sk.streamed_cmul(*ox, *orr, chunk_rows=chunk_rows),
+          sk.streamed_cmul_reference(*ox, *orr))
+    try:
+        sk.streamed_cmul(xr[:n - 1], xi[:n - 1], rr, ri, chunk_rows=chunk_rows)
+    except ValueError as e:
+        if "divisible" not in str(e):
+            fail(f"streamed_cmul on indivisible rows raised {e!r}")
+        print(f"streamed_cmul on {n - 1} rows, chunk_rows {chunk_rows} on the card: "
+              f"ValueError({e})")
+    else:
+        fail("streamed_cmul took rows that chunk_rows does not divide")
+    sys.stdout.flush()
+    return {"a": a, "c": (ac, bc), "s": (xr, xi, rr, ri), "counts": counts, "errs": errs,
+            "n": n, "chunk_rows": chunk_rows}
+
+
+def host_fed_phases(card: str, device: str = "cuda", block: int = 1 << 22,
+                    n_blocks: int = 16, soak_blocks: int = 512, soak_every: int = 64,
+                    runs: int = 4) -> dict:
+    """Phases 15 and 16, and the streaming part of 17: the main path's chain
+    fed from the host through ``StatefulExecutor`` at depths 1-4 from
+    pinned ``BlockPool`` buffers, pageable numpy blocks and a capture file
+    (``utils.file.stream_blocks`` into ``streaming_step_split``), each
+    ``torch.equal`` to device-resident stepping; a ``StreamExecutor``
+    pipeline; the soak; then the sustained rates against the resident step
+    and the copy times, and a profiler split of one depth-2 pinned run.
+    The defaults are the path's; a smaller size on ``device="cpu"``
+    rehearses the phases with the CUDA calls stubbed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch import native
+    from aether_primitives_tpu_torch.boundary import Split
+    from aether_primitives_tpu_torch.cli import capture, gate, time_cuda
+    from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
+    from aether_primitives_tpu_torch.ops.cuda import build
+    from aether_primitives_tpu_torch.parallel import streaming
+    from aether_primitives_tpu_torch.utils import file as file_mod
+    from aether_primitives_tpu_torch.utils.profiling import device_memory_stats
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize
+    pin = (lambda t: t.pin_memory()) if dev.type == "cuda" else (lambda t: t)  # noqa: E731
+    chain = RxChain(RxChainConfig(fft_len=2048, decimation=4, packed_bits=True), device=dev)
+    k = chain.taps.shape[-1]
+    msa = lambda sec, nb: nb * block / sec / 1e6  # noqa: E731
+
+    # ---- phase 15: host-fed streaming on the main path ---------------------
+    t0 = time.perf_counter()
+    if not native.available():  # the capture feeder's compiled host loops
+        fail("the native host extension (csrc/hostops.cpp, g++) did not build or load")
+    x = capture(n_blocks * block, 1515)
+    blocks = [x[i * block:(i + 1) * block] for i in range(n_blocks)]
+    x_dev = [torch.from_numpy(b).to(dev) for b in blocks]
+    ref, states, state = [], [], chain.init_state()
+    for xb in x_dev:  # the resident stepping every stream is held to
+        bits, state = chain.streaming_step(xb, state)
+        ref.append(bits)
+        states.append(state)
+    sync()
+    g = gate(chain, x[:2 * block], block, ref[:2], states[:2])
+    print(f"host-fed capture: {n_blocks} blocks of {block} samples (seed 1515) made and "
+          f"stepped resident in {time.perf_counter() - t0:.1f} s (host, native host "
+          f"extension built and loaded) [{card}]; first two blocks' "
+          f"gate: bit agreement {g['bit_agreement']:.7f} (need >= {AGREEMENT}), block-2 "
+          f"spectrum {g['evm_rms_db']:.2f} dB (need <= {EVM_DB}), state exact "
+          f"{g['state_exact']}", flush=True)
+    if not g["ok"]:
+        fail(f"host-fed capture gate: {g}")
+    tail = torch.from_numpy(blocks[-1][block - (k - 1):])
+    pool = streaming.make(n_blocks, lambda: pin(torch.empty(block, dtype=torch.complex64)))
+    elems = [pool.take() for _ in range(n_blocks)]  # the capture, already in pinned memory
+    for e, b in zip(elems, blocks):
+        e.value.copy_(torch.from_numpy(b))
+    build_dir = build.PACKAGE_DIR.parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build_dir)
+    path = f"{tmp.name}/capture.cf32"
+    file_mod.save(path, x)
+
+    def feed(depth: int, source: str):
+        """One pass of the capture through a StatefulExecutor; returns the
+        results, the host seconds (ending in a synchronise), the executor
+        and the launch counts."""
+        split = source == "file"
+        ex = streaming.StatefulExecutor(
+            chain.streaming_step_split if split else chain.streaming_step,
+            chain.init_state_split() if split else chain.init_state(),
+            name=f"{source} d{depth}", depth=depth, printer=None, device=dev)
+        outs = []
+
+        def push(b):
+            if len(ex._inflight) >= ex.depth:
+                outs.append(ex.recv())
+            ex.send(b)
+
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        if source == "pinned":
+            for e in elems:
+                push(e.value)
+        elif source == "pageable":
+            for b in blocks:
+                push(b)
+        elif source == "ring":  # two pinned buffers, filled per block, released after send
+            ring = streaming.make(2, lambda: pin(torch.empty(block, dtype=torch.complex64)))
+            for b in blocks:
+                e = ring.take()
+                e.value.copy_(torch.from_numpy(b))
+                push(e.value)
+                e.release()
+        else:
+            with file_mod.stream_blocks(path, block, depth=4) as feeder:
+                for re, im in feeder:
+                    push(Split(re, im))
+        outs.extend(ex)
+        sync()
+        return outs, time.perf_counter() - t0, ex, read_counts()
+
+    def check_stream(label, outs, ex, counts, split=False):
+        same = len(outs) == n_blocks and all(torch.equal(o, r) for o, r in zip(outs, ref))
+        st = ex.state
+        st = torch.complex(st.re, st.im) if split else st
+        state_ok = torch.equal(st.cpu(), tail)
+        nsamp = (2 if split else 1) * n_blocks * block
+        stats_ok = (ex.chain_stats.total_n, ex.chain_stats.total_samples) == (n_blocks, nsamp)
+        want = {**NO_LAUNCHES, "rx_frame": n_blocks}
+        if not (same and state_ok and stats_ok and counts == want):
+            fail(f"host-fed {label}: equal to resident {same}, state {state_ok}, stats "
+                 f"({ex.chain_stats.total_n}, {ex.chain_stats.total_samples}) need "
+                 f"({n_blocks}, {nsamp}), launches {counts} need {want}")
+
+    first = {}
+    for depth in (1, 2, 3, 4):
+        for source in ("pinned", "pageable", "file"):
+            outs, sec, ex, counts = feed(depth, source)
+            check_stream(f"{source} depth {depth}", outs, ex, counts, split=source == "file")
+            first[(depth, source)] = sec
+        print(f"host-fed depth {depth}: pinned, pageable and file streams torch.equal to the "
+              f"resident stepping over {n_blocks} blocks, state exact, chain_stats exact "
+              f"(file: Split blocks count 2n samples), {n_blocks} rx_frame launches each; "
+              f"first-pass Msa/s pinned {msa(first[(depth, 'pinned')], n_blocks):.1f}, "
+              f"pageable {msa(first[(depth, 'pageable')], n_blocks):.1f}, file "
+              f"{msa(first[(depth, 'file')], n_blocks):.1f} (host clock) [{card}]", flush=True)
+    outs, sec, ex, counts = feed(2, "ring")
+    check_stream("two-buffer pinned ring", outs, ex, counts)
+    print(f"host-fed two-buffer pinned ring (fill, send, release at once), depth 2: "
+          f"torch.equal to resident, {msa(sec, n_blocks):.1f} Msa/s with the host fill "
+          f"(host clock) [{card}]")
+    fblocks = [np.random.default_rng(1600 + i).normal(size=block).astype(np.float32)
+               for i in range(8)]
+    fsrc = [b if i % 2 else pin(torch.from_numpy(b)) for i, b in enumerate(fblocks)]
+    pipe = streaming.new("Abs", torch.abs).add_stage("Mul 20", lambda b: b * 20.0)
+    sex = pipe.finish(depth=2, printer=None, device=dev)
+    reset_counts()
+    pouts = sex.run(fsrc)
+    sync()
+    pcounts = read_counts()
+    eager = [torch.abs(torch.from_numpy(b).to(dev)) * 20.0 for b in fblocks]
+    same = all(torch.equal(o, e) for o, e in zip(pouts, eager))
+    print(f"StreamExecutor Abs -> Mul 20 on 8 float32 blocks of {block} (pageable and pinned "
+          f"alternately), depth 2: torch.equal to eager {same}, chain blocks "
+          f"{sex.chain_stats.total_n}, sampled stages {[s.total_n for s in sex.stats]}, "
+          f"launches {pcounts} (none of the port's kernels)", flush=True)
+    if not same or sex.chain_stats.total_n != 8 or pcounts != NO_LAUNCHES:
+        fail("StreamExecutor pipeline")
+
+    # ---- phase 16: soak ---------------------------------------------------
+    caps = [capture(block, 1700 + i) for i in range(8)]
+    caps_pin = [pin(torch.from_numpy(c)) for c in caps]
+    ex = streaming.StatefulExecutor(chain.streaming_step, chain.init_state(), name="soak",
+                                    depth=2, printer=None, device=dev)
+    order = [(i + i // soak_every) % 8 for i in range(soak_blocks)]  # checked blocks meet all 8
+    checked, worst, mem = [], 1.0, {}
+    kept, received = {}, [0]  # bits of every soak_every-th block, on the host
+    sync()
+    t0 = time.perf_counter()
+
+    def collect():
+        j, y = received[0], ex.recv()
+        received[0] += 1
+        if j % soak_every == 0:
+            kept[j] = y.cpu().numpy()
+
+    for i in range(soak_blocks):
+        if len(ex._inflight) >= ex.depth:
+            collect()
+        ex.send(caps_pin[order[i]])
+        if i == min(16, soak_blocks - 1):
+            mem["warm"] = device_memory_stats().get("bytes_in_use")
+        if i == soak_blocks - 1:
+            mem["end"] = device_memory_stats().get("bytes_in_use")
+    while ex._inflight:
+        collect()
+    sync()
+    soak_s = time.perf_counter() - t0
+    for i, got in sorted(kept.items()):
+        hist = caps[order[i - 1]][block - (k - 1):] if i else np.zeros(k - 1, np.complex64)
+        want = f64_qpsk_bits(chain.taps, caps[order[i]], hist, 4, 2048)
+        agree = float((np.unpackbits(got, bitorder="little") == want).mean())
+        checked.append((i, agree))
+        worst = min(worst, agree)
+    st = ex.chain_stats
+    state_ok = torch.equal(ex.state.cpu(), torch.from_numpy(caps[order[-1]][block - (k - 1):]))
+    grow = (mem["end"] - mem["warm"]) if mem.get("warm") is not None else 0
+    print(f"soak: {soak_blocks} blocks ({soak_blocks * block / 1e9:.3f} G samples), 8 pinned "
+          f"captures cycled with the true history carried, depth 2, in {soak_s:.3f} s = "
+          f"{msa(soak_s, soak_blocks):.1f} Msa/s (host clock); agreement vs float64 at blocks "
+          f"{[i for i, _ in checked]}: worst {worst:.7f} (need >= 0.9999); device bytes in use "
+          f"after block 16 {mem.get('warm')} and at the end {mem.get('end')} (differ by "
+          f"{grow / 1e6:.3f} MB, need < 64 MB); state exact {state_ok}; chain_stats "
+          f"({st.total_n}, {st.total_samples}) [{card}]", flush=True)
+    if (worst < 0.9999 or abs(grow) >= 64 * 1024 * 1024 or not state_ok
+            or (st.total_n, st.total_samples) != (soak_blocks, soak_blocks * block)):
+        fail("soak")
+
+    # ---- phase 17, streaming part: sustained rates, resident step, copies ----
+    box = {"state": chain.init_state(), "i": 0}
+
+    def resident_step():
+        bits, box["state"] = chain.streaming_step(x_dev[box["i"] % n_blocks], box["state"])
+        box["i"] += 1
+        return bits
+
+    host = blocks[0]
+    dbuf = torch.empty(block, dtype=torch.complex64, device=dev)
+    times = {"resident": [], "h2d_pinned": [], "h2d_pageable": []}
+    sust = {(d, s): [] for d in (1, 2, 3, 4) for s in ("pinned", "pageable", "file")}
+    for run in range(runs):
+        times["resident"].append(time_cuda(resident_step, 32))
+        times["h2d_pinned"].append(time_cuda(lambda: dbuf.copy_(elems[0].value,
+                                                                 non_blocking=True), 20))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            dbuf.copy_(torch.from_numpy(host))
+        sync()
+        times["h2d_pageable"].append((time.perf_counter() - t0) / 10 * 1e3)
+        sources = ("pinned", "pageable", "file")[::1 if run % 2 == 0 else -1]
+        for depth in (1, 2, 3, 4):
+            for source in sources:
+                outs, sec, ex, counts = feed(depth, source)
+                check_stream(f"{source} depth {depth} (timed run {run})", outs, ex, counts,
+                             split=source == "file")
+                sust[(depth, source)].append(sec / n_blocks * 1e3)
+    med = {key: float(np.median(v)) for key, v in times.items()}
+    print(f"time: resident streaming step median {med['resident']:.4f} ms/block = "
+          f"{block / med['resident'] / 1e3:.1f} Msa/s (runs "
+          f"{', '.join(f'{v:.4f}' for v in times['resident'])}; CUDA events); host->device copy "
+          f"of one block ({block * 8} bytes): pinned median {med['h2d_pinned']:.4f} ms (runs "
+          f"{', '.join(f'{v:.4f}' for v in times['h2d_pinned'])}; CUDA events), pageable median "
+          f"{med['h2d_pageable']:.4f} ms (runs "
+          f"{', '.join(f'{v:.4f}' for v in times['h2d_pageable'])}; host clock) [{card}]")
+    sustained = {}
+    for (depth, source), v in sust.items():
+        m = float(np.median(v))
+        sustained[(depth, source)] = m
+        print(f"time: host-fed sustained, depth {depth}, {source}: median {m:.4f} ms/block = "
+              f"{block / m / 1e3:.1f} Msa/s (runs {', '.join(f'{t:.4f}' for t in v)} ms/block; "
+              f"host clock over {n_blocks} blocks ending in a synchronise); resident step "
+              f"{med['resident']:.4f}, pinned copy {med['h2d_pinned']:.4f}, pageable copy "
+              f"{med['h2d_pageable']:.4f} ms/block [{card}]")
+    tmp.cleanup()
+    sys.stdout.flush()
+    if dev.type == "cuda":
+        profile_host_fed(torch, lambda: feed(2, "pinned"), n_blocks, card)
+    for e in elems:
+        e.release()
+    return {"sustained": sustained, "times": med}
+
+
+def profile_host_fed(torch, run, n_blocks: int, card: str) -> None:
+    """torch.profiler split of one host-fed stream: host->device copy time,
+    RX frame kernel time and other kernels on the device, the time copies
+    and kernels overlap, and the device's idle share of the run's wall time
+    (profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profile host-fed run: the profiler recorded no device time")
+        return
+    spans = {"copy": [], "rx_frame": [], "other": []}
+    for e in events:
+        key = ("copy" if "memcpy" in e.name.lower() else
+               "rx_frame" if "rx_frame" in e.name else "other")
+        spans[key].append((e.time_range.start, e.time_range.end))
+
+    def union(intervals):
+        total, end = 0.0, None
+        for s, t in sorted(intervals):
+            if end is None or s > end:
+                total += t - s
+                end = t
+            elif t > end:
+                total += t - end
+                end = t
+        return total
+
+    busy = union([iv for v in spans.values() for iv in v])
+    copy_t, kern_t = union(spans["copy"]), union(spans["rx_frame"])
+    overlap = copy_t + kern_t - union(spans["copy"] + spans["rx_frame"])
+    ms = lambda us: us / n_blocks / 1e3  # noqa: E731
+    print(f"profile host-fed depth 2 pinned run ({n_blocks} blocks): per block H2D copy "
+          f"{ms(copy_t):.4f} ms ({len(spans['copy'])} copies), rx_frame kernel "
+          f"{ms(kern_t):.4f} ms, other kernels {ms(union(spans['other'])):.4f} ms, copy and "
+          f"kernel overlapping {ms(overlap):.4f} ms; device busy {ms(busy):.4f} of "
+          f"{ms(wall_us):.4f} ms wall (idle {100 * (1 - busy / wall_us):.1f}%) "
+          f"(torch.profiler, profiler on) [{card}]", flush=True)
+
+
+def elementwise_timing(card: str, ew: dict) -> tuple:
+    """Phase 17, kernel part: cmul (planes and complex64) and streamed_cmul
+    against their plain twins and one PyTorch call each, CUDA events,
+    median of four runs in alternating order. Returns the two kernels'
+    JSON entries."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import time_cuda
+    from aether_primitives_tpu_torch.ops.cuda import cmul as cm
+    from aether_primitives_tpu_torch.ops.cuda import stream as sk
+
+    n, c = ew["n"], ew["chunk_rows"]
+    a, (ac, bc), (xr, xi, rr, ri) = ew["a"], ew["c"], ew["s"]
+    xc, rc = torch.complex(xr, xi), torch.complex(rr, ri)
+    cases = {
+        "cmul": (lambda: cm.cmul(*a), lambda: cm.cmul_reference(*a),
+                 lambda: torch.mul(ac, bc)),
+        "cmul_c64": (lambda: cm.cmul_c64(ac, bc), lambda: cm.cmul_c64_reference(ac, bc),
+                     lambda: torch.mul(ac, bc)),
+        "streamed_cmul": (lambda: sk.streamed_cmul(xr, xi, rr, ri, chunk_rows=c),
+                          lambda: sk.streamed_cmul_reference(xr, xi, rr, ri),
+                          lambda: torch.mul(xc.view(n // c, c, n), rc)),
+    }
+    iters = {"kernel": 50, "plain": 10, "library": 50}
+    med = {}
+    for name, fns in cases.items():
+        runs = {"kernel": [], "plain": [], "library": []}
+        for run in range(4):
+            order = ("plain", "kernel", "library") if run % 2 == 0 else ("library", "kernel", "plain")
+            for which in order:
+                fn = fns[("kernel", "plain", "library").index(which)]
+                runs[which].append(time_cuda(fn, iters[which], warmup=2))
+        med[name] = {k: float(np.median(v)) for k, v in runs.items()}
+        print(f"time: {name} [{n}, {n}]: kernel median {med[name]['kernel']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}; mean of 50), plain twin median "
+              f"{med[name]['plain']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in runs['plain'])}; "
+              f"mean of 10), torch.mul complex64 median {med[name]['library']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['library'])}; mean of 50); CUDA events [{card}]")
+    nn = n * n
+    cmul_bound = bound(8.0 * nn, 6 * 4 * nn)  # 6 ops + 2 scale products; 4 planes in, 2 out
+    stream_bound = bound(6.0 * nn, 4 * 4 * nn + 2 * 4 * c * n)  # x and out planes, r once
+    for name, bd in (("cmul", cmul_bound), ("cmul_c64", cmul_bound),
+                     ("streamed_cmul", stream_bound)):
+        print(f"bound: {name} {bd['bound_ms']:.4f} ms by {bd['bound_by']}; kernel at "
+              f"{100 * bd['bound_ms'] / med[name]['kernel']:.1f}% of it [{card}]")
+    sys.stdout.flush()
+    return (
+        {
+            "name": "cmul",
+            "route": "cuda",
+            "source": "aether_primitives_tpu_torch/csrc/cmul.cu",
+            "replaces": "aether_primitives_tpu/ops/pallas/cmul.py:27",
+            "launches": ew["counts"]["cmul"],
+            "max_abs_err": ew["errs"]["cmul"],
+            "ms": med["cmul"]["kernel"],
+            "plain_ms": med["cmul"]["plain"],
+            **cmul_bound,
+            "library_ms": med["cmul"]["library"],
+        },
+        {
+            "name": "stream",
+            "route": "cuda",
+            "source": "aether_primitives_tpu_torch/csrc/stream.cu",
+            "replaces": "aether_primitives_tpu/ops/pallas/stream.py:26",
+            "launches": ew["counts"]["stream"],
+            "max_abs_err": ew["errs"]["stream"],
+            "ms": med["streamed_cmul"]["kernel"],
+            "plain_ms": med["streamed_cmul"]["plain"],
+            **stream_bound,
+            "library_ms": med["streamed_cmul"]["library"],
+        },
+    )
+
 
 if __name__ == "__main__":
     main()

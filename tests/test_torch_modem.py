@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from aether_primitives_tpu_torch import convert
+from aether_primitives_tpu_torch.boundary import Split
 from aether_primitives_tpu_torch.cli import numpy_reference_spectra
 from aether_primitives_tpu_torch.evm import evm_rms_db
 from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
@@ -305,3 +306,145 @@ def test_cuda_chain_raises_where_the_kernel_does_not_go(cuda):
         chain.streaming_step(torch.zeros(4 * 4096, dtype=torch.complex64),
                              chain.init_state())
     assert rf.launches == before
+
+
+# ------------------------------------------- ragged-capture policies and Split
+# (tests/test_models.py:426-556 run these on fir_mode="os", which the port
+# does not take; here the JAX chain runs fir_mode="fused")
+
+SPAN_CFG = dict(fft_len=256, decimation=4)
+SPAN = 4 * 256
+
+
+def _chains(jax_modem, packed=False):
+    jcfg = jax_modem.RxChainConfig(fir_mode="fused", fft_backend="matmul",
+                                   packed_bits=packed, **SPAN_CFG)
+    return jax_modem.RxChain(jcfg), RxChain(convert.config_from_numpy(
+        dataclasses.asdict(jcfg)), device="cpu")
+
+
+def _margin(chain, x):
+    return _decisions(numpy_reference_spectra(x, chain.taps, 4, 256), chain.modulation.table)[1]
+
+
+def test_span_error_names_the_policies(jax_modem):
+    jchain, chain = _chains(jax_modem)
+    x = _signal(1000, 210)
+    for fn in (chain.step, jchain.step, lambda b: chain.streaming_step(b, chain.init_state())):
+        with pytest.raises(ValueError, match="step_ragged") as err:
+            fn(x)
+        assert "step_padded" in str(err.value)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_step_ragged_matches_jax(jax_modem, packed):
+    jchain, chain = _chains(jax_modem, packed)
+    x = _signal(3 * SPAN + 217, 211)
+    bits, tail = chain.step_ragged(torch.from_numpy(x))
+    jbits, jtail = jchain.step_ragged(x)
+    assert torch.equal(bits, chain.step(x[:3 * SPAN]))
+    assert np.array_equal(tail.numpy(), x[3 * SPAN:]) and np.array_equal(np.asarray(jtail), x[3 * SPAN:])
+    assert bits.dtype == torch.uint8 and bits.shape == np.shape(jbits)
+    _check_bits(_flat(bits.numpy(), packed), _flat(np.asarray(jbits), packed),
+                _margin(chain, x[:3 * SPAN]))
+    # remainder carried in front of the next capture loses nothing
+    y = _signal(2 * SPAN - 217, 212)
+    bits2 = chain.step(torch.cat([tail, torch.from_numpy(y)]))
+    whole = chain.step_padded(np.concatenate([x, y]))
+    assert bits.shape[-1] + bits2.shape[-1] == whole.shape[-1]
+
+
+def test_step_ragged_shorter_than_frame(jax_modem):
+    jchain, chain = _chains(jax_modem)
+    x = _signal(100, 213)
+    bits, tail = chain.step_ragged(x)
+    jbits, jtail = jchain.step_ragged(x)
+    assert bits.shape == np.shape(jbits) == (0,) and bits.dtype == torch.uint8
+    assert np.array_equal(tail.numpy(), x) and np.array_equal(np.asarray(jtail), x)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_step_padded_matches_manual_zero_pad_and_jax(jax_modem, packed):
+    jchain, chain = _chains(jax_modem, packed)
+    n = 2 * SPAN + 100
+    x = _signal(n, 214)
+    got = chain.step_padded(x)
+    manual = np.zeros(3 * SPAN, np.complex64)
+    manual[:n] = x
+    assert torch.equal(got, chain.step(manual))
+    jgot = np.asarray(jchain.step_padded(x))
+    assert got.shape == jgot.shape
+    _check_bits(_flat(got.numpy(), packed), _flat(jgot, packed), _margin(chain, manual))
+    assert torch.equal(chain.step_padded(x[:2 * SPAN]), chain.step(x[:2 * SPAN]))
+
+
+@pytest.mark.parametrize("shape,multiple", [((1000,), 1024), ((2, 4396), 4096),
+                                            ((3, 2048), 1024), ((0,), 8)])
+def test_pad_to_frames_matches_jax(jax_modem, shape, multiple):
+    from aether_primitives_tpu_torch.models import pad_to_frames
+
+    rng = np.random.default_rng(215)
+    for x in ((rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64),
+              rng.normal(size=shape).astype(np.float32)):
+        got = pad_to_frames(torch.from_numpy(x), multiple)
+        want = np.asarray(jax_modem.pad_to_frames(x, multiple))
+        assert got.dtype == torch.from_numpy(x).dtype
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_split_variants_match_step_and_jax(jax_modem):
+    from aether_primitives_tpu.boundary import Split as JaxSplit
+
+    jchain, chain = _chains(jax_modem)
+    nblk, nblocks = 2 * SPAN, 3
+    x = _signal(nblk * nblocks, 216)
+    contiguous = chain.step(x)
+    state, jstate = chain.init_state_split(), jchain.init_state_split()
+    assert isinstance(state, Split) and state.re.dtype == torch.float32
+    assert state.re.shape == np.shape(jstate.re) == (chain.taps.shape[-1] - 1,)
+    outs, jouts = [], []
+    for i in range(nblocks):
+        blk = x[i * nblk:(i + 1) * nblk]
+        bits, state = chain.streaming_step_split(Split(blk.real.copy(), blk.imag.copy()), state)
+        jbits, jstate = jchain.streaming_step_split(JaxSplit(blk.real.copy(), blk.imag.copy()),
+                                                    jstate)
+        outs.append(bits)
+        jouts.append(np.asarray(jbits))
+        assert np.array_equal(state.re.numpy(), np.asarray(jstate.re))
+        assert np.array_equal(state.im.numpy(), np.asarray(jstate.im))
+        assert state.re.is_contiguous() and state.im.is_contiguous()
+    assert torch.equal(torch.cat(outs), contiguous)
+    _check_bits(torch.cat(outs).numpy(), np.concatenate(jouts), _margin(chain, x))
+    assert torch.equal(chain.step_split(Split(torch.from_numpy(x.real.copy()),
+                                              torch.from_numpy(x.imag.copy()))), contiguous)
+    with pytest.raises(TypeError, match="Split"):
+        chain.step_split(x)
+    with pytest.raises(TypeError, match="Split"):
+        chain.streaming_step_split(x, chain.init_state_split())
+
+
+@pytest.mark.cuda
+def test_policies_on_the_card(cuda):
+    cfg = RxChainConfig(fft_len=N_FFT, decimation=DEC, packed_bits=True)
+    chain, host = RxChain(cfg, device=cuda), RxChain(cfg, device="cpu")
+    x = _signal(2 * BLOCK + 5000, 217)
+    before = rf.launches
+    bits, tail = chain.step_ragged(torch.from_numpy(x).to(cuda))
+    padded = chain.step_padded(x)
+    state = chain.init_state_split()
+    sbits, state = chain.streaming_step_split(Split(x.real[:BLOCK].copy(),
+                                                    x.imag[:BLOCK].copy()), state)
+    torch.cuda.synchronize()
+    assert rf.launches == before + 3
+    assert torch.equal(tail.cpu(), torch.from_numpy(x[2 * BLOCK:]))
+    manual = np.zeros(3 * BLOCK, np.complex64)
+    manual[:x.size] = x
+    for got, want, sig in ((bits, host.step(x[:2 * BLOCK]), x[:2 * BLOCK]),
+                           (padded, host.step(manual), manual[:2 * BLOCK + N_FFT * DEC]),
+                           (sbits, host.step(x[:BLOCK]), x[:BLOCK])):
+        margin = _decisions(numpy_reference_spectra(sig, chain.taps, DEC, N_FFT),
+                            chain.modulation.table)[1]
+        flat_got = np.unpackbits(got.cpu().numpy(), bitorder="little")
+        flat_want = np.unpackbits(want.numpy(), bitorder="little")
+        n = margin.size
+        _check_bits(flat_got[:n], flat_want[:n], margin)
