@@ -4,7 +4,11 @@ Two paths of ``aether_primitives_tpu`` on PyTorch: the streaming receive
 chain (causal FIR, decimation, per-frame FFT, hard demod, LSB-first byte
 packing), with its frame op as a hand-written CUDA kernel for Hopper
 (sm_90a), and the batched burst link (``PacketModem`` with Viterbi or turbo
-FEC), with hand-written Viterbi and BCJR kernels. The package imports torch
+FEC), with hand-written Viterbi and BCJR kernels. Beside them: the
+channelizers and the DDC (a hand-written PFB fold kernel), the host-fed
+streaming executors, and the sharded forms of these paths over a mesh of
+devices in one process (:mod:`.parallel.mesh`), whose halo exchange is a
+hand-written peer-push kernel. The package imports torch
 and numpy only; the JAX package stays the reference that the tests hold
 this one against.
 

@@ -1,7 +1,6 @@
 """Waterfall channelizer, polyphase filterbanks (PFB) and the STFT (PyTorch).
 
-Counterpart of ``aether_primitives_tpu/models/channelizer.py`` without its
-sharded entry points:
+Counterpart of ``aether_primitives_tpu/models/channelizer.py``:
 
 - the chunked-FFT waterfall (:func:`waterfall_spectra`, :func:`welch_psd`,
   :class:`Channelizer`);
@@ -12,7 +11,12 @@ sharded entry points:
 - :func:`stft` and :func:`istft`;
 - the oversampled PFB, the wideband front end (:func:`pfb_prototype_nyquist`,
   :func:`pfb_channelize_os`, :func:`pfb_synthesize_os`,
-  :class:`PfbChannelizerOs`, :class:`PfbSynthesizerOs`).
+  :class:`PfbChannelizerOs`, :class:`PfbSynthesizerOs`);
+- the forms over a device mesh (:func:`sharded_waterfall`,
+  :func:`sharded_pfb`, :func:`sharded_pfb_os`): contiguous time spans (or
+  waterfall rows) per shard, the PFB history crossing shard boundaries
+  through the halo exchange of
+  :mod:`~aether_primitives_tpu_torch.parallel.halo`.
 
 The oversampled bank's weighted overlap-add (the fold) and its synthesis
 spread run through the hand-written fold kernel
@@ -42,6 +46,8 @@ import torch.nn.functional as F
 from ..ops import vecops as _vecops
 from ..ops.cuda import pfb_fold as _pf
 from ..ops.fft import Scale, plan as fft_plan
+from ..parallel.halo import left_tail, right_head
+from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last
 from ..types import as_cf32, stage_device
 
 #: Fold backends: "auto" takes the fold kernel for a CUDA tensor and the
@@ -185,6 +191,17 @@ class Channelizer:
     __call__ = step
 
 
+def sharded_waterfall(samples, fft_len: int, mesh: Mesh, use_db: bool = False,
+                      axis_name: str = CHANNEL_AXIS) -> Sharded:
+    """Waterfall with rows sharded across the mesh (no data crosses
+    shards: pure scale-out). The capture's ``fft_len``-rows must split
+    evenly over the mesh axis. Returns the rows as a
+    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`."""
+    rows = _pad_rows(as_cf32(samples), fft_len)
+    rs = shard(rows, mesh, (None,) * (rows.ndim - 2) + (axis_name, None))
+    return rs.map(lambda r: _magnitude(fft_plan(fft_len).fwd(r, Scale.SN), use_db))
+
+
 # ------------------------------------------------ critically sampled PFB
 
 
@@ -302,6 +319,27 @@ class PfbChannelizer:
         return out
 
     __call__ = step
+
+
+def sharded_pfb(samples, n_chan: int, mesh: Mesh, taps: Optional[np.ndarray] = None,
+                taps_per_branch: int = 8, scale: Scale = Scale.NONE,
+                axis_name: str = TIME_AXIS) -> Sharded:
+    """PFB with contiguous time spans sharded across the mesh: each shard
+    takes its ``(P-1)*n_chan``-sample left halo through the halo exchange
+    (:func:`~aether_primitives_tpu_torch.parallel.halo.left_tail`), so the
+    gathered output equals :func:`pfb_channelize` bit for bit. Each shard's
+    span must be divisible by ``n_chan``. Returns the frames as a
+    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` ``[..., T,
+    n_chan]`` split along ``T``."""
+    m = int(n_chan)
+    if taps is None:
+        taps = pfb_prototype(m, taps_per_branch)
+    h = np.asarray(taps, dtype=np.complex64).ravel()
+    p = max(1, -(-h.shape[-1] // m))
+    xs = shard_last(samples, mesh, axis_name, dtype=torch.complex64)
+    halo = left_tail(xs, (p - 1) * m, axis_name) if p > 1 else None
+    return xs.map(lambda xl, hl: pfb_channelize(xl, m, taps=h, scale=scale, history=hl),
+                  halo, spec=xs.spec + (None,))
 
 
 def pfb_synthesis_taps(
@@ -802,6 +840,46 @@ class PfbChannelizerOs:
         return y
 
     __call__ = step
+
+
+def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
+                   taps: Optional[np.ndarray] = None, taps_per_branch: int = 16,
+                   scale: Scale = Scale.NONE, axis_name: str = TIME_AXIS,
+                   backend: str = "auto") -> Sharded:
+    """Oversampled PFB with contiguous time spans sharded over the mesh:
+    frames are FORWARD-looking, so each shard takes a ``P*M - hop`` RIGHT
+    halo (:func:`~aether_primitives_tpu_torch.parallel.halo.right_head`,
+    the dual of the causal chains' left halo) and emits the ``span/hop``
+    frames that start inside its span: one fold launch per shard on CUDA
+    shards. The gathered frames equal :func:`pfb_channelize_os` frame for
+    frame (the last shard's zero halo reproduces the one-shot's zero-padded
+    tail). Each shard's span must be divisible by ``n_chan`` so the ``os``
+    reference-phase classes align per shard.
+    """
+    _check_backend(backend)
+    m = int(n_chan)
+    os = _check_os(m, os)
+    hop = m // os
+    if taps is None:
+        taps = pfb_prototype_nyquist(m, taps_per_branch)
+    h = np.asarray(taps).ravel()
+    p = max(1, -(-h.shape[-1] // m))
+    overlap = p * m - hop
+    xs = shard_last(samples, mesh, axis_name, dtype=torch.complex64)
+    span = xs.shards.flat[0].shape[-1]
+    if span % m:
+        raise ValueError("per-device span must be divisible by n_chan")
+    if span < overlap:
+        raise ValueError(
+            f"per-device span {span} < halo P*M - hop = {overlap}: the "
+            "right halo only reaches ONE neighbor (like the causal "
+            "chains' left halo) — use fewer shards or a longer capture"
+        )
+    halo = right_head(xs, overlap, axis_name)
+    # ext = span + P*M - hop samples -> exactly span/hop full frames
+    return xs.map(lambda xl, hl: pfb_channelize_os(torch.cat([xl, hl], dim=-1), m, os=os,
+                                                   taps=h, scale=scale, backend=backend),
+                  halo, spec=xs.spec + (None,))
 
 
 class PfbSynthesizerOs:

@@ -1,8 +1,7 @@
 """Digital down- and up-converters (PyTorch): channel extraction and its
 transmit dual.
 
-Counterpart of ``aether_primitives_tpu/models/ddc.py`` without the sharded
-entry points:
+Counterpart of ``aether_primitives_tpu/models/ddc.py``:
 
 - :class:`Ddc`: ``y = decimate(lowpass(x * e^{-j 2 pi f n}))``, the exact-mod
   NCO (:func:`..ops.frontend.nco_mix`) then the decimating overlap-save FIR
@@ -11,14 +10,20 @@ entry points:
 - :func:`ddc_bank`: ``C`` arbitrarily placed channels of one capture at
   once (the non-uniform counterpart of the PFB);
 - :class:`Duc`: polyphase interpolation (``L`` low-rate overlap-save branch
-  filters, interleaved) then the NCO mix up to the carrier.
+  filters, interleaved) then the NCO mix up to the carrier;
+- :func:`sharded_ddc` and :func:`sharded_duc`: both over a capture sharded
+  into contiguous time spans on a device mesh, the filter history crossing
+  the shard boundaries through the halo exchange
+  (:func:`~aether_primitives_tpu_torch.parallel.halo.left_tail`: the
+  peer-push kernel on CUDA shards).
 
 The stages carry the oscillator phase (host float64) and the filter
 history (the last ``K-1`` mixed samples for the DDC, the last ``kb-1``
 inputs for the DUC), so a capture fed block by block equals the one-shot
 computation. They run on an explicit ``device``, ``"cuda"`` by default,
-which raises RuntimeError without a CUDA device. No kernel of the port
-runs here: the work is ``torch.fft`` and elementwise.
+which raises RuntimeError without a CUDA device. Apart from the sharded
+forms' halo kernel no kernel of the port runs here: the work is
+``torch.fft`` and elementwise.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import torch
 
 from ..ops import fir as _fir
 from ..ops import frontend as _fe
+from ..parallel.halo import left_tail
+from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -135,6 +142,54 @@ def ddc_bank(x, freqs, decimation: int, taps=None) -> torch.Tensor:
     return _fir.fir_filter_os_decimate(mixed, taps, decimation)
 
 
+def _shard_rotators(freq: float, step: int, size: int) -> np.ndarray:
+    """Float64-exact per-shard oscillator phases ``e^{j 2 pi freq * i * step}``,
+    ``i < size``, rounded to complex64 once."""
+    cyc = np.mod(np.float64(freq) * step * np.arange(size), 1.0)
+    return np.exp(2j * np.pi * cyc).astype(np.complex64)
+
+
+def sharded_ddc(x, config: DdcConfig, mesh: Mesh, axis_name: str = TIME_AXIS) -> Sharded:
+    """DDC over a time-sharded capture: equal to rounding to
+    ``Ddc(config).step`` on the gathered signal. Returns the
+    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` baseband.
+
+    Each shard holds a contiguous span of the capture. Two pieces make the
+    result exactly continuous across shards:
+
+    - **global oscillator phase**: shard ``i`` starts at global sample
+      ``i * n_local``, so its local mix is the phase-0 mix rotated by the
+      per-shard constant ``e^{-j 2 pi f i n_local}``, a float64-exact host
+      table indexed by the shard's position (no long in-shard ramps, the
+      same precision as the exact-mod NCO);
+    - **filter halo**: the left neighbour's last ``K-1`` *mixed* samples
+      arrive through the halo exchange as the decimating overlap-save
+      history.
+
+    ``n_local`` must be divisible by ``decimation`` so the decimated
+    streams concatenate on the global grid.
+    """
+    size = mesh.shape[axis_name]
+    n = np.shape(x)[-1]
+    if n % size:
+        raise ValueError(f"capture length {n} must divide over {size} shards")
+    n_local = n // size
+    if n_local % config.decimation:
+        raise ValueError(
+            f"local shard length {n_local} must be divisible by the "
+            f"decimation {config.decimation}"
+        )
+    taps = config.resolved_taps()
+    rotators = _shard_rotators(-config.freq, n_local, size)
+    xs = shard_last(x, mesh, axis_name, dtype=cf32)
+    mixed = xs.map(lambda xl, index: complex(rotators[index[axis_name]])
+                   * _fe.nco_mix(xl, -config.freq), with_index=True)
+    k = taps.shape[-1]
+    h = left_tail(mixed, k - 1, axis_name) if k > 1 else None
+    return mixed.map(lambda ml, hl: _fir.fir_filter_os_decimate(
+        ml, taps, config.decimation, block_len=config.block_len, history=hl), h)
+
+
 @dataclass(frozen=True)
 class DucConfig:
     """Digital up-converter parameters.
@@ -204,3 +259,36 @@ class Duc:
         return y
 
     __call__ = step
+
+
+def sharded_duc(x, config: DucConfig, mesh: Mesh, axis_name: str = TIME_AXIS) -> Sharded:
+    """DUC over a time-sharded baseband: equal to rounding to
+    ``Duc(config).step`` on the gathered signal. Returns the
+    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` output.
+
+    The mirror of :func:`sharded_ddc`: each shard runs the polyphase branch
+    filters with the left neighbour's ``kb-1`` input samples as overlap-save
+    history (the halo exchange), interleaves locally (a shard's ``n_local``
+    inputs produce exactly its ``n_local * L`` contiguous outputs: the
+    interleave never crosses shards), and mixes up with a per-shard
+    float64-exact oscillator rotator at the OUTPUT rate.
+    """
+    size = mesh.shape[axis_name]
+    n = np.shape(x)[-1]
+    if n % size:
+        raise ValueError(f"baseband length {n} must divide over {size} shards")
+    n_local = n // size
+    ell = int(config.interpolation)
+    branches = _polyphase_branches(config.resolved_taps(), ell)
+    kb = branches.shape[-1]
+    rotators = _shard_rotators(config.freq, n_local * ell, size)
+    xs = shard_last(x, mesh, axis_name, dtype=cf32)
+    halo = left_tail(xs, kb - 1, axis_name) if kb > 1 else None
+
+    def shard_fn(xl, hl, index):
+        outs = [_fir.fir_filter_os(xl, branches[t], block_len=config.block_len, history=hl)
+                for t in range(ell)]
+        y = torch.stack(outs, dim=-1).reshape(xl.shape[:-1] + (xl.shape[-1] * ell,))
+        return complex(rotators[index[axis_name]]) * _fe.nco_mix(y, config.freq)
+
+    return xs.map(shard_fn, halo, with_index=True)

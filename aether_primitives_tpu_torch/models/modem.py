@@ -7,6 +7,16 @@ tensor. With ``fir_mode="fused"`` and a BPSK or QPSK table, a block goes
 through the hand-written RX frame kernel
 (:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.rx_frame`) on a CUDA
 device, and through its plain PyTorch version on the CPU.
+
+The ``sharded_*`` methods run the chain over a device mesh
+(:mod:`~aether_primitives_tpu_torch.parallel.mesh`): the block's last axis
+splits into contiguous per-shard time spans whose FIR history crosses the
+shard boundaries through the halo exchange
+(:func:`~aether_primitives_tpu_torch.parallel.halo.left_tail`: the
+peer-push kernel on CUDA shards), and independent channels split over a
+second mesh axis. Each shard computes on its mesh device, whatever the
+chain's own ``device``: the chain's constants are host arrays that the
+frame op uploads once per device.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from ..ops import fir as _fir
 from ..ops import modulation as _mod
 from ..ops.cuda import rx_frame as _rx_frame
 from ..ops.fft import Scale
+from ..parallel import halo as _halo
+from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -214,11 +226,23 @@ class RxChain:
         )
         return packed if cfg.packed_bits else _rx_frame.unpack_bits(packed)
 
-    def _check_span(self, n: int) -> None:
-        if n % self.frame_span:
+    def _check_span(self, n: int, shards: int = 1) -> None:
+        span = self.frame_span
+        if shards > 1:
+            if n % shards:
+                raise ValueError(
+                    f"capture length {n} must divide over {shards} "
+                    f"time shards; pad with pad_to_frames(x, "
+                    f"{shards * span})"
+                )
+            n //= shards
+            what = f"per-shard span {n}"
+        else:
+            what = f"block length {n}"
+        if n % span:
             raise ValueError(
-                f"block length {n} is not a multiple of frame_span "
-                f"{self.frame_span} (= decimation {self.config.decimation} x "
+                f"{what} is not a multiple of frame_span "
+                f"{span} (= decimation {self.config.decimation} x "
                 f"fft_len {self.config.fft_len}); use step_ragged (keep "
                 "the remainder) or step_padded (zero-pad the tail frame)"
             )
@@ -310,6 +334,98 @@ class RxChain:
         shape = tuple(batch_shape) + (max(k - 1, 0),)
         return Split(torch.zeros(shape, dtype=torch.float32, device=self.device),
                      torch.zeros(shape, dtype=torch.float32, device=self.device))
+
+    # ------------------------------------------------------- sharded steps
+
+    def _local_bits(self, x, history=None) -> torch.Tensor:
+        """One shard's block -> bits, where the shard lies."""
+        if self._sign_fast_path_ok():
+            return self._bits_fast(x, history=history)
+        return self._demod_frames(self._frames_spectra(x, history=history))
+
+    def _shard_bits(self, x: Sharded, axis_name: str) -> Sharded:
+        """Per-shard blocks -> bits (halo + fast path when applicable)."""
+        k = self.taps.shape[-1]
+        h = _halo.left_tail(x, k - 1, axis_name) if k > 1 else None
+        return x.map(self._local_bits, h)
+
+    def sharded_step(self, block, mesh, axis_name: str = TIME_AXIS) -> Sharded:
+        """Time-sharded step: the capture's last axis splits into contiguous
+        per-shard spans; the FIR history crosses shard boundaries through
+        the halo exchange, so the output is identical to :meth:`step`.
+        Returns the bits as a :class:`~aether_primitives_tpu_torch.parallel.
+        mesh.Sharded` value (``.gather()`` concatenates them).
+
+        Each shard's span must be divisible by ``decimation * fft_len``
+        (:attr:`frame_span`); ragged captures must pick a tail policy
+        BEFORE sharding (:meth:`step_padded` semantics via
+        ``pad_to_frames(x, shards * frame_span)``, or trim the
+        :meth:`step_ragged` remainder off): a precise error names the
+        required multiple otherwise.
+        """
+        self._check_span(np.shape(block)[-1], shards=int(mesh.shape[axis_name]))
+        return self._shard_bits(shard_last(block, mesh, axis_name, dtype=cf32), axis_name)
+
+    def sharded_step_2d(self, block, mesh, channel_axis: str = CHANNEL_AXIS,
+                        time_axis: str = TIME_AXIS) -> Sharded:
+        """Two-axis sharding: independent channels (leading axis, pure data
+        parallel) x contiguous time spans (last axis, halo exchange): the
+        full production layout for a multi-stream capture."""
+        self._check_span(np.shape(block)[-1], shards=int(mesh.shape[time_axis]))
+        xs = shard_last(block, mesh, time_axis, leading=channel_axis, dtype=cf32)
+        return self._shard_bits(xs, time_axis)
+
+    def sharded_streaming_step_2d(self, block, state, mesh,
+                                  channel_axis: str = CHANNEL_AXIS,
+                                  time_axis: str = TIME_AXIS):
+        """:meth:`streaming_step` on the ``(channel, time)`` mesh: a
+        CONTINUOUS capture processed block by block, where each block is
+        itself sharded into contiguous per-shard time spans (with the halo
+        exchange) across independent channels.
+
+        ``(block, state) -> (bits, new_state)``, both results
+        :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`:
+        ``block`` is ``[channels, n]``, split ``(channel, time)``;
+        ``state`` is the carried FIR history ``[channels, K-1]``, split
+        over ``channel`` and replicated over ``time`` (:meth:`init_state`
+        with ``batch_shape=(channels,)`` before the first block, or the
+        last call's ``new_state``, which passes straight back in without a
+        gather). The state hand-off and the intra-block halo compose: the
+        first time shard consumes the carried state where its halo would
+        be, and the new state, the block's last ``K-1`` full-rate samples
+        (the LAST time shard's tail), comes back copied to every time
+        shard's device (the JAX package sums a masked tail over the axis).
+        N successive calls are bit-exact to one contiguous :meth:`step` of
+        the concatenated capture.
+        """
+        self._check_span(np.shape(block)[-1], shards=int(mesh.shape[time_axis]))
+        xs = shard_last(block, mesh, time_axis, leading=channel_axis, dtype=cf32)
+        state_spec = (channel_axis,) + (None,) * (xs.ndim - 1)
+        s = shard(state if isinstance(state, Sharded) else as_cf32(state), mesh, state_spec)
+        k = self.taps.shape[-1]
+        if k <= 1:
+            return xs.map(self._local_bits), s
+        # left_tail already rejects per-shard spans < k-1 (the halo would
+        # need to reach beyond one neighbour); the same bound makes the
+        # carried state a plain slice of the last shard's block below
+        halo = _halo.left_tail(xs, k - 1, time_axis)
+        h = halo.map(lambda hl, sl, index: sl if index[time_axis] == 0 else hl, s,
+                     with_index=True)
+        bits = xs.map(self._local_bits, h)
+        jt = mesh.axis(time_axis)
+        last = mesh.devices.shape[jt] - 1
+        new_state = np.empty(mesh.devices.shape, dtype=object)
+        placed = {}
+        for c in mesh.coords():
+            src = c[:jt] + (last,) + c[jt + 1:]
+            key = (src, mesh.devices[c])
+            if key not in placed:
+                xl = xs.shards[src]
+                buf = torch.empty(xl.shape[:-1] + (k - 1,), dtype=cf32,
+                                  device=mesh.devices[c])
+                placed[key] = buf.copy_(xl[..., xl.shape[-1] - (k - 1):])
+            new_state[c] = placed[key]
+        return bits, Sharded(mesh, state_spec, new_state)
 
 
 def pad_to_frames(block, multiple: int) -> torch.Tensor:

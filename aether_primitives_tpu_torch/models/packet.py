@@ -22,6 +22,7 @@ The other FEC families raise :class:`NotImplementedError`.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -32,6 +33,7 @@ from ..ops import fec as _fec
 from ..ops import modulation as _mod
 from ..ops import sequence as _seq
 from ..ops import turbo as _turbo
+from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard
 from ..types import as_cf32, stage_device
 from . import sync as _sync
 
@@ -147,6 +149,7 @@ class PacketModem:
         self.preamble = np.concatenate([half, half])
         self.burst_len = self.preamble.size + self.n_data_symbols
         self._pre = torch.from_numpy(self.preamble).to(self.device)
+        self._replicas = {self.device: self}
 
     # ------------------------------------------------------------ TX
 
@@ -267,6 +270,46 @@ class PacketModem:
                 f"rx_batch takes [B, window] captures, got shape {tuple(x.shape)}"
             )
         return self.rx(x)
+
+    def _on(self, device) -> "PacketModem":
+        """This modem computing on ``device``: a shallow copy whose device
+        constants (the preamble) lie there, made once per device. A shard
+        on another card than the modem's own needs them on its card."""
+        replica = self._replicas.get(device)
+        if replica is None:
+            replica = copy.copy(self)
+            replica.device = device
+            replica._pre = self._pre.to(device)
+            self._replicas[device] = replica
+        return replica
+
+    def rx_batch_sharded(self, captures, mesh, axis_name: str = CHANNEL_AXIS):
+        """:meth:`rx_batch` with the BURST axis sharded over ``mesh``: each
+        shard decodes its ``B / n_dev`` captures on its mesh device (pure
+        data parallel: bursts are independent), one decoder call per
+        shard. ``B`` must divide by the mesh axis size. Returns
+        ``(payloads, crc_ok, diag)`` as :class:`~aether_primitives_tpu_torch.
+        parallel.mesh.Sharded` values split along the burst axis, equal to
+        :meth:`rx_batch`'s when gathered."""
+        x = captures if isinstance(captures, Sharded) else as_cf32(captures)
+        if x.ndim != 2:
+            raise ValueError(
+                f"rx_batch_sharded takes [B, window] captures, got {tuple(x.shape)}"
+            )
+        n_dev = mesh.shape[axis_name]
+        if x.shape[0] % n_dev:
+            raise ValueError(
+                f"{x.shape[0]} bursts do not divide over {n_dev} devices"
+            )
+        xs = shard(x, mesh, (axis_name, None))
+        keys = ("offset", "metric", "cfo", "gain", "noise_var")
+
+        def shard_fn(xl):
+            payload, ok, diag = self._on(xl.device).rx_batch(xl)
+            return (payload, ok) + tuple(diag[k] for k in keys)
+
+        flat = xs.map(shard_fn, spec=((axis_name, None),) + ((axis_name,),) * (1 + len(keys)))
+        return flat[0], flat[1], dict(zip(keys, flat[2:]))
 
     def loopback(self, payload):
         """tx -> rx with no channel (sanity path)."""

@@ -3,6 +3,6 @@
 Importing this package builds nothing: a kernel is compiled at its first
 launch (:mod:`.build`)."""
 
-from . import bcjr, cmul, pfb_fold, rx_frame, stream, viterbi
+from . import bcjr, cmul, halo, pfb_fold, rx_frame, stream, viterbi
 
-__all__ = ["bcjr", "cmul", "pfb_fold", "rx_frame", "stream", "viterbi"]
+__all__ = ["bcjr", "cmul", "halo", "pfb_fold", "rx_frame", "stream", "viterbi"]

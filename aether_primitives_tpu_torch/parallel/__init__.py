@@ -1,7 +1,7 @@
-"""Streaming: the bounded-depth executors and the host block pool
-(counterpart of ``aether_primitives_tpu/parallel``'s ``streaming``; the
-mesh and halo modules belong to the multi-device slice, not ported yet)."""
+"""Streaming and sharding: the bounded-depth executors and the host block
+pool, the device mesh with its sharded value, and the halo exchange
+(counterpart of ``aether_primitives_tpu/parallel``)."""
 
-from . import streaming
+from . import halo, mesh, streaming
 
-__all__ = ["streaming"]
+__all__ = ["halo", "mesh", "streaming"]

@@ -1,0 +1,109 @@
+"""Overlap-save halo exchange between the shards of a mesh (PyTorch).
+
+Counterpart of ``aether_primitives_tpu/parallel/halo.py``: when a long
+capture is sharded into contiguous time blocks across the mesh, FIR and
+correlation at block boundaries need each shard to see the last ``K-1``
+samples of its **left** (earlier-time) neighbour. The first shard receives
+zeros: exactly the zero initial filter state of the causal convention.
+
+Every function takes and returns whole :class:`~aether_primitives_tpu_torch.
+parallel.mesh.Sharded` values (the JAX functions run inside ``shard_map``;
+here the exchange sees all shards at once). :func:`left_tail` on CUDA
+shards goes through the hand-written peer-push kernel
+(:func:`~aether_primitives_tpu_torch.ops.cuda.halo.halo_left_rdma`), so the
+kernel is on every left-halo path; on CPU shards, or with
+``backend="reference"``, it is the kernel's plain version.
+:func:`right_head` is plain peer copies: the JAX package computes it with
+``ppermute`` outside any kernel, and the TPU kernel pushes left tails only.
+
+Use :func:`sharded_fir` for the sharded FIR, or :func:`halo_left` in your
+own sharded stages.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops import fir as _fir
+from ..ops.cuda import halo as _halo_kernel
+from ..types import cf32
+from .mesh import TIME_AXIS, Mesh, Sharded, shard_last
+
+#: "auto": the peer-push kernel for CUDA shards and its plain version for
+#: CPU shards; "reference": the plain version on any device.
+BACKENDS = ("auto", "reference")
+
+
+def left_tail(x: Sharded, overlap: int, axis_name: str = TIME_AXIS,
+              backend: str = "auto") -> Sharded:
+    """The left neighbour's trailing ``overlap`` samples along mesh axis
+    ``axis_name`` (zeros on the first shard): a :class:`Sharded` of
+    ``[..., overlap]`` halos, each on its shard's device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+    if backend == "reference":
+        return _halo_kernel.halo_left_rdma_reference(x, overlap, axis_name)
+    return _halo_kernel.halo_left_rdma(x, overlap, axis_name)
+
+
+def right_head(x: Sharded, overlap: int, axis_name: str = TIME_AXIS) -> Sharded:
+    """The RIGHT neighbour's leading ``overlap`` samples (zeros on the last
+    shard): the halo for FORWARD-looking windows (the oversampled PFB's
+    frames), dual of :func:`left_tail`. Plain copies between devices."""
+    j = x.mesh.axis(axis_name)
+    size = x.mesh.devices.shape[j]
+    span = x.shards.flat[0].shape[-1]
+    if overlap > span:
+        raise ValueError(
+            f"halo overlap {overlap} exceeds the per-device span "
+            f"{span}: the exchange reaches only ONE neighbor — "
+            "use fewer shards or a longer capture"
+        )
+    out = np.empty(x.mesh.devices.shape, dtype=object)
+    for c in x.mesh.coords():
+        mine = x.shards[c]
+        shape = mine.shape[:-1] + (overlap,)
+        if c[j] == size - 1:
+            out[c] = torch.zeros(shape, dtype=mine.dtype, device=mine.device)
+        else:
+            right = x.shards[c[:j] + (c[j] + 1,) + c[j + 1:]]
+            buf = torch.empty(shape, dtype=mine.dtype, device=mine.device)
+            out[c] = buf.copy_(right[..., :overlap])
+    return Sharded(x.mesh, x.spec, out)
+
+
+def halo_left(x: Sharded, overlap: int, axis_name: str = TIME_AXIS,
+              backend: str = "auto") -> Sharded:
+    """Prepend the left neighbour's trailing ``overlap`` samples (zeros on
+    the first shard): shards of ``[..., overlap + n_local]``."""
+    if overlap <= 0:
+        return x
+    halo = left_tail(x, overlap, axis_name, backend)
+    return x.map(lambda xl, hl: torch.cat([hl, xl], dim=-1), halo)
+
+
+def sharded_fir(x, taps, mesh: Mesh, axis_name: str = TIME_AXIS, use_os: bool = False,
+                block_len: Optional[int] = None) -> Sharded:
+    """Continuous causal FIR over a time-sharded capture.
+
+    ``x``: ``[..., n]`` with ``n`` divisible by the mesh axis size (a
+    tensor or array-like, split here over ``axis_name`` on its last axis,
+    or a :class:`Sharded` laid out so). Equal (to rounding) to
+    :func:`~aether_primitives_tpu_torch.ops.fir.fir_filter` on the
+    gathered signal: the halo exchange supplies the true cross-shard
+    history. Returns the :class:`Sharded` result; ``.gather()`` it.
+    """
+    taps = np.asarray(taps, dtype=np.complex64)
+    xs = shard_last(x, mesh, axis_name, dtype=cf32)
+    k = taps.shape[-1]
+    if use_os:
+        # the halo becomes overlap-save's external history: the local
+        # length stays divisible by block_len
+        h = left_tail(xs, k - 1, axis_name) if k > 1 else None
+        return xs.map(lambda xl, hl: _fir.fir_filter_os(xl, taps, block_len=block_len,
+                                                        history=hl), h)
+    ext = halo_left(xs, k - 1, axis_name)
+    return ext.map(lambda el: _fir.fir_filter(el, taps)[..., k - 1:])

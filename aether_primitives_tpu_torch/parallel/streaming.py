@@ -42,8 +42,15 @@ Pageable host memory (a numpy block) is staged like pinned memory, but its
 copy is synchronous with the host: only pinned blocks overlap.
 
 On ``device="cpu"`` (the tests) every call runs eagerly and the events are
-skipped. A sharded layout is not ported: a ``sharding`` raises
-NotImplementedError (ROADMAP.md queue 1, item 17).
+skipped.
+
+With a ``sharding`` (a :class:`~aether_primitives_tpu_torch.parallel.mesh.
+Sharding`: a mesh and a spec) each block is laid out across the mesh before
+the chain runs, as the JAX executors ``device_put`` it: the chain gets a
+:class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` value. The mesh
+says where the block goes, so ``device`` is not read; every shard is copied
+on its own device's current stream (no side copy stream), and the
+done-event of a block is one event per card of the mesh.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import torch
 
 from ..types import stage_device
 from ..utils.metrics import StageStats
+from .mesh import Sharded, Sharding, shard
 
 #: Host dtypes that the JAX package (without x64) stages as 32-bit; the
 #: port stages them the same way.
@@ -69,14 +77,6 @@ _CANONICAL = {
     np.dtype(np.int64): np.int32,
     np.dtype(np.uint64): np.uint32,
 }
-
-
-def _no_sharding(sharding) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharded streaming is not ported yet (ROADMAP.md, queue 1 item 17: "
-            "the multi-device slice)"
-        )
 
 
 def _host_tensor(a) -> torch.Tensor:
@@ -100,6 +100,12 @@ def _tree_map(fn, x):
     return fn(x)
 
 
+def _copy_leaf(a):
+    if isinstance(a, Sharded):
+        return a.map(torch.clone)
+    return a.clone() if isinstance(a, torch.Tensor) else a
+
+
 def _leaves(x) -> list:
     out = []
     _tree_map(out.append, x)
@@ -110,17 +116,38 @@ class _Stager:
     """Moves blocks onto the executor's device; on a CUDA device through a
     side copy stream, as the module docstring sets out."""
 
-    def __init__(self, device):
+    def __init__(self, device, sharding: Optional[Sharding] = None):
+        self.sharding = sharding
+        if sharding is not None:
+            self.sharding = sharding = Sharding(*sharding)
+            cards = sorted({d.index for d in sharding.mesh.devices.flat if d.type == "cuda"})
+            self.device = sharding.mesh.devices.flat[0]
+            self.cuda = False  # no side copy stream: each shard's own stream
+            self.streams = [torch.cuda.current_stream(torch.device("cuda", i)) for i in cards]
+            return
         self.device = stage_device(device, "the streaming executor")
         self.cuda = self.device.type == "cuda"
+        self.streams = []
         if self.cuda:
             if self.device.index is None:  # compare equal to the tensors' cuda:N
                 self.device = torch.device("cuda", torch.cuda.current_device())
             self.compute = torch.cuda.current_stream(self.device)
             self.copy = torch.cuda.Stream(self.device)
+            self.streams = [self.compute]
 
-    def leaf(self, a) -> torch.Tensor:
+    def state_leaf(self, a):
+        """A leaf of the carried state: with a sharding it stays as given
+        (the step lays it out), else it is staged like a block."""
+        if self.sharding is None:
+            return self.leaf(a)
+        return a if isinstance(a, (torch.Tensor, Sharded)) else _host_tensor(a)
+
+    def leaf(self, a):
+        if isinstance(a, Sharded):
+            return a
         t = a if isinstance(a, torch.Tensor) else _host_tensor(a)
+        if self.sharding is not None:
+            return shard(t, *self.sharding)
         if t.device == self.device:
             return t  # already there: the caller's tensor, used as it is
         if not self.cuda:
@@ -143,23 +170,22 @@ class _Stager:
     def on_compute(self):
         return torch.cuda.stream(self.compute) if self.cuda else contextlib.nullcontext()
 
-    def done(self):
-        """An event recorded on the compute stream after a block's chain
-        (None on the CPU)."""
-        if not self.cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record(self.compute)
-        return ev
+    def done(self) -> list:
+        """Events recorded after a block's chain, one per compute stream
+        (the executor's, or one per card of the mesh; none on the CPU)."""
+        return [s.record_event() for s in self.streams]
 
     def sync(self) -> None:
-        if self.cuda:
-            self.compute.synchronize()
+        for s in self.streams:
+            s.synchronize()
 
 
-def _wait(event) -> None:
-    if event is not None:
-        event.synchronize()
+def _wait(events) -> None:
+    """Synchronise an event, a list of events, or None."""
+    if events is None:
+        return
+    for ev in events if isinstance(events, list) else [events]:
+        ev.synchronize()
 
 
 class _Bounded:
@@ -315,7 +341,6 @@ class StreamExecutor(_Bounded):
         profile_every: int = 16,
         device="cuda",
     ):
-        _no_sharding(sharding)
         self.stages = stages
         self.depth = max(1, int(depth))
         self.sharding = sharding
@@ -325,7 +350,7 @@ class StreamExecutor(_Bounded):
         self._donate = donate
         self.profile_every = 0 if profile else max(0, int(profile_every))
         self._sent = 0
-        self._stager = _Stager(device)
+        self._stager = _Stager(device, sharding)
         self.device = self._stager.device
         self._stage_fns = [s.op for s in stages]
 
@@ -418,13 +443,12 @@ class StatefulExecutor(_Bounded):
         printer: Optional[Callable[[str], None]] = print,
         device="cuda",
     ):
-        _no_sharding(sharding)
         self.depth = max(1, int(depth))
         self.sharding = sharding
         self._fn = step
-        self._stager = _Stager(device)
+        self._stager = _Stager(device, sharding)
         self.device = self._stager.device
-        self._state = _tree_map(self._stager.leaf, init_state)
+        self._state = _tree_map(self._stager.state_leaf, init_state)
         _wait(self._stager.copied())
         self._inflight: deque = deque()
         self._closed = False
@@ -452,9 +476,7 @@ class StatefulExecutor(_Bounded):
         """Current carry state (e.g. to checkpoint or resume a stream), as a
         COPY: later sends never change a checkpoint taken here."""
         with self._stager.on_compute():
-            return _tree_map(
-                lambda a: a.clone() if isinstance(a, torch.Tensor) else a, self._state
-            )
+            return _tree_map(_copy_leaf, self._state)
 
 
 # --------------------------------------------------------------------------

@@ -23,12 +23,18 @@ It drives the port's paths through their hand-written kernels:
   into ``streaming_step_split``) at depths 1-4, and a ``StreamExecutor``
   pipeline;
 - the elementwise kernels through their own entry points: ``cmul`` and
-  ``cmul_c64`` (``csrc/cmul.cu``) and ``streamed_cmul`` (``csrc/stream.cu``),
+  ``cmul_c64`` (``csrc/cmul.cu``) and ``streamed_cmul`` (``csrc/stream.cu``);
+- the sharded receiver: the RX chain above on a ``{channel: 2, time: 4}``
+  mesh of eight shards (``RxChain.sharded_streaming_step_2d`` on ``[2,
+  4,194,304]`` blocks), every shard on the one card, its FIR history crossing
+  the shard boundaries through the peer-push halo kernel (``csrc/halo.cu``);
+  and the other sharded entry points (``sharded_pfb_os``, ``sharded_pfb``,
+  ``sharded_ddc``, ``rx_batch_sharded``),
 
-in seventeen phases:
+in twenty-two phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
-2. the six kernels' builds from the sources in the checkout, started
+2. the seven kernels' builds from the sources in the checkout, started
    together, timed, with the RX frame and PFB fold compiler reports;
 3. the RX frame kernel against its plain PyTorch version and the float64
    chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
@@ -82,7 +88,37 @@ in seventeen phases:
     twins and one ``torch.mul`` each; the host-fed sustained rates per
     depth and source against the resident step and the pinned and pageable
     copy times (medians of four runs); a ``torch.profiler`` split of one
-    depth-2 pinned run into copy, kernel and idle.
+    depth-2 pinned run into copy, kernel and idle;
+18. the halo kernel's compiler report; the kernel against its plain twin,
+    bit for bit (``torch.equal``), at the sharded paths' shapes (complex64
+    ``[1, 1,048,576]`` shards, overlap 64, on ``{channel: 2, time: 4}``;
+    ``[1,048,576]`` shards, overlap 14,336, on ``{time: 4}``) and at ragged
+    ones (float32 overlap 4, misaligned strided rows, overlap equal to the
+    span, a ring of one, the exchanged axis first in a two-axis mesh, uint8
+    and complex128), exactly one launch per sending shard;
+19. the sharded receiver: three consecutive ``[2, 4,194,304]`` blocks through
+    ``sharded_streaming_step_2d``, exactly 8 RX frame and 8 halo launches
+    per call; the concatenated bytes ``torch.equal`` to one ``step`` of the
+    ``[2, 12,582,912]`` capture, every block's bytes and state ``torch.equal``
+    to resident ``streaming_step``, the final state the capture's last 64
+    samples, phase 4's float64 two-block gate on channel 0; and
+    ``sharded_step`` on ``{time: 8}``;
+20. the other sharded paths on one 4M block over ``{time: 4}``:
+    ``sharded_pfb_os`` (phase 11's configuration) against one-shot
+    ``pfb_channelize_os`` (<= -120 dB) with 4 fold launches, ``sharded_pfb``
+    against ``pfb_channelize`` (<= -120 dB) and ``sharded_ddc`` (phase 12's
+    configuration) against ``Ddc.step`` (<= -100 dB) with 4 halo launches
+    each; ``rx_batch_sharded`` on phase 8's 256 captures over ``{channel:
+    8}``: payloads, CRC and offsets equal to ``rx_batch``, 8 Viterbi or 128
+    BCJR launches;
+21. CUDA-event timings (medians of four runs) of the halo exchange, kernel
+    against twin against ``Tensor.copy_``, at phase 18's two path shapes,
+    and of the sharded streaming step against the resident step on the same
+    ``[2, 4M]`` block;
+22. where there are two cards or more: phases 18 and 19 again with the
+    shards spread over the cards, the same gates, and host-clock timings of
+    the sharded step and the halo exchange across the cards; with one card
+    the line ``cards: 1, cross-card phase not run``.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -101,13 +137,15 @@ STREAM_DB, ROUNDTRIP_DB = -120.0, -70.0  # tests/test_pfb.py's bars
 CPU_DB, DDC_STREAM_DB = -110.0, -115.0  # card vs CPU run; tests/test_ddc.py
 
 
-KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold", "cmul", "stream")
+KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold", "cmul", "stream", "halo")
 NO_LAUNCHES = {k: 0 for k in KERNELS}  # a path's launch counts are read against this
 # the burst path: benches/burst_bench.py's configuration at full width
 PAYLOAD, CAPTURE, BURSTS = 600, 16384, 256
 K7, K5 = ((0o171, 0o133), 7), ((0o25, 0o33, 0o37), 5)
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+NVLINK_BYTES = 450e9  # one way between two cards of a host
+SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
 
 
 def fail(msg: str) -> None:
@@ -141,6 +179,22 @@ def burst_channel(burst, rng, delay, cfo, sigma=0.05):
     x = x * (0.5 * np.exp(1j * 0.8)) * np.exp(2j * np.pi * cfo * n)
     x += sigma * (rng.normal(size=CAPTURE) + 1j * rng.normal(size=CAPTURE))
     return x.astype(np.complex64)
+
+
+def burst_captures(pm, bursts: int = BURSTS, seed: int = 4242):
+    """``bursts`` random payloads sent by ``pm.tx`` through
+    :func:`burst_channel`, from ``seed``: ``(payloads, captures)`` as numpy."""
+    import numpy as np
+    import torch
+
+    brng = np.random.default_rng(seed)
+    payloads = brng.integers(0, 2, (bursts, pm.config.payload_bits)).astype(np.uint8)
+    sent = pm.tx(torch.from_numpy(payloads)).cpu().numpy()
+    caps = np.stack([
+        burst_channel(sent[i], brng, delay=64 + (i * 53) % 2048, cfo=((i % 7) - 3) * 3e-4)
+        for i in range(bursts)
+    ])
+    return payloads, caps
 
 
 def main() -> None:
@@ -370,18 +424,11 @@ def main() -> None:
     sys.stdout.flush()
 
     # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
-    burst_launches, modems, caps_dev = {}, {}, {}
+    burst_launches, modems, caps_dev, burst_set = {}, {}, {}, {}
     for fec_name in ("viterbi", "turbo"):
         cfg = PacketConfig(payload_bits=PAYLOAD, fec=fec_name)
         pm = PacketModem(cfg, device="cuda")
-        brng = np.random.default_rng(4242)
-        payloads = brng.integers(0, 2, (BURSTS, PAYLOAD)).astype(np.uint8)
-        bursts = pm.tx(torch.from_numpy(payloads)).cpu().numpy()
-        caps = np.stack([
-            burst_channel(bursts[i], brng, delay=64 + (i * 53) % 2048,
-                          cfo=((i % 7) - 3) * 3e-4)
-            for i in range(BURSTS)
-        ])
+        payloads, caps = burst_captures(pm)
         x = torch.from_numpy(caps).cuda()
         torch.cuda.synchronize()
         reset_counts()
@@ -405,6 +452,7 @@ def main() -> None:
             fail(f"burst path {fec_name}: payloads/CRC/launches/CPU agreement wrong")
         burst_launches[fec_name] = counts[fec_name if fec_name == "viterbi" else "bcjr"]
         modems[fec_name], caps_dev[fec_name] = pm, x
+        burst_set[fec_name] = (pm, x, payloads)
 
     # ---- phase 9: burst timings --------------------------------------------
     sym_v = llr_v.reshape(BURSTS, -1, 2).contiguous()
@@ -451,6 +499,7 @@ def main() -> None:
     ew = elementwise_phase()
     host_fed_phases(card)
     cmul_entry, stream_entry = elementwise_timing(card, ew)
+    halo_entry = sharded_phases(card, burst=burst_set)
 
     print(json.dumps({"kernels": [
         {
@@ -492,6 +541,7 @@ def main() -> None:
         pfb_entry,
         cmul_entry,
         stream_entry,
+        halo_entry,
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1367,6 +1417,384 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
             "library_ms": med["streamed_cmul"]["library"],
         },
     )
+
+
+def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
+                   block: int = 1 << 22, m: int = 2048, tpb: int = 16, pfb_p: int = 8,
+                   burst=None, bursts: int = BURSTS, runs: int = 4) -> dict:
+    """Phases 18-22: the halo kernel against its twin, the sharded receiver,
+    the other sharded entry points, their timings and, with two cards or
+    more, the cross-card run. Every shard lies on ``device`` (phase 22
+    spreads them). ``burst``: per FEC ``(modem, captures on the device,
+    payloads)``, phase 8's; None builds ``bursts`` of them here. The
+    defaults are the paths' sizes; a smaller size on ``device="cpu"``
+    rehearses the phases with ``cli.time_cuda`` swapped for a host timer
+    (CPU shards launch no kernel, so every expected launch count is 0
+    there). Returns the halo kernel's entry of the kernels' JSON line."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import capture, gate, time_cuda
+    from aether_primitives_tpu_torch.models import (
+        Ddc, DdcConfig, PacketConfig, PacketModem, RxChain, RxChainConfig,
+    )
+    from aether_primitives_tpu_torch.models import channelizer as ch
+    from aether_primitives_tpu_torch.models.ddc import sharded_ddc
+    from aether_primitives_tpu_torch.ops.cuda import build
+    from aether_primitives_tpu_torch.ops.cuda import halo as hk
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n_cards = torch.cuda.device_count() if on_card else 0
+    kl = 1 if on_card else 0  # kernel launches per wrapper launch site
+
+    def sync_all():
+        for i in range(n_cards):
+            torch.cuda.synchronize(i)
+
+    def one_card(n):
+        return [dev] * n
+
+    def spread(n):
+        return [torch.device("cuda", i % n_cards) for i in range(n)]
+
+    def data(shape, dtype, seed):
+        rng = np.random.default_rng(seed)
+        if np.issubdtype(dtype, np.complexfloating):
+            return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(dtype)
+        if np.issubdtype(dtype, np.floating):
+            return rng.normal(size=shape).astype(dtype)
+        return rng.integers(0, 255, size=shape).astype(dtype)
+
+    chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=4, packed_bits=True), device=dev)
+    ku = chain.taps.shape[-1] - 1
+    pfb_halo = (pfb_p - 1) * m
+    c2t4, t4, t8 = {"channel": 2, "time": 4}, {"time": 4}, {"time": 8}
+
+    # ---- phase 18: the halo kernel vs its twin ------------------------------
+    # (label, global shape, dtype, mesh axes, spec, overlap); the first two are the paths'
+    halo_shapes = [
+        (f"RX chain: complex64 shards [1, {block // 4}], overlap {ku}",
+         (2, block), np.complex64, c2t4, ("channel", "time"), ku),
+        (f"sharded_pfb: complex64 shards [{block // 4}], overlap {pfb_halo}",
+         (block,), np.complex64, t4, ("time",), pfb_halo),
+        ("float32 shards [16], overlap 4", (128,), np.float32, t8, ("time",), 4),
+        ("misaligned strided rows: complex64 shards [3, 5, 1000], overlap 7",
+         (3, 5, 8000), np.complex64, t8, (None, None, "time"), 7),
+        ("overlap equal to the span: float32 shards [4, 64]",
+         (4, 512), np.float32, t8, (None, "time"), 64),
+        ("a ring of one: complex64 [3, 100], overlap 9 (zeros out)",
+         (3, 100), np.complex64, {"time": 1}, (None, "time"), 9),
+        ("the exchanged axis first: {time: 4, channel: 2}, complex64 shards [1, 1024], "
+         "overlap 33", (2, 4096), np.complex64, {"time": 4, "channel": 2},
+         ("channel", "time"), 33),
+        ("uint8 shards [7, 101], overlap 13", (7, 808), np.uint8, t8, (None, "time"), 13),
+        ("complex128 shards [2, 64], overlap 5", (2, 256), np.complex128, t4, (None, "time"), 5),
+    ]
+
+    def halo_cases(devices, where):
+        """Every case through kernel and twin on a mesh of ``devices(n)``;
+        returns the worst |diff| and the two path cases' sharded inputs."""
+        worst, kept = 0.0, []
+        for i, (label, shape, dtype, axes, spec, overlap) in enumerate(halo_shapes):
+            mesh = mesh_mod.make_mesh(axes, devices=devices(int(np.prod(list(axes.values())))))
+            xs = mesh_mod.shard(torch.from_numpy(data(shape, dtype, 1800 + i)).to(dev), mesh, spec)
+            sync_all()
+            reset_counts()
+            got = hk.halo_left_rdma(xs, overlap, "time")
+            sync_all()
+            counts = read_counts()
+            want = hk.halo_left_rdma_reference(xs, overlap, "time")
+            sync_all()
+            same = all(torch.equal(got.shards[c], want.shards[c])
+                       and got.shards[c].device == xs.shards[c].device for c in mesh.coords())
+            widen = (lambda t: t) if np.issubdtype(dtype, np.inexact) else torch.Tensor.int
+            err = max(float((widen(got.shards[c]) - widen(want.shards[c])).abs().max())
+                      for c in mesh.coords())
+            worst = max(worst, err)
+            need = {**NO_LAUNCHES, "halo": kl * mesh.size}
+            print(f"compare halo {where}{label} on {dict(mesh.shape)}: kernel vs plain "
+                  f"torch.equal {same}, max |diff| {err}, launches {counts['halo']} "
+                  f"(need {need['halo']}: one per sending shard)")
+            if not same or counts != need:
+                fail(f"halo {where}{label}: kernel and plain twin disagree, or launches "
+                     f"{counts} != {need}")
+            if i < 2:
+                kept.append((label, xs, overlap))
+        sys.stdout.flush()
+        return worst, kept
+
+    if on_card:
+        print_ptxas(build, "halo")
+    halo_err, halo_inputs = halo_cases(one_card, "")
+
+    # ---- phase 19: the sharded receiver -----------------------------------------
+    n_ch, n_blocks = 2, 3
+    t0 = time.perf_counter()
+    cap = np.stack([capture(n_blocks * block, 1900 + c) for c in range(n_ch)])
+    x_dev = torch.from_numpy(cap).to(dev)
+    blocks = [x_dev[:, i * block:(i + 1) * block].contiguous() for i in range(n_blocks)]
+    ref_bits, ref_states, st = [], [], chain.init_state((n_ch,))
+    for b in blocks:  # the resident stepping every sharded call is held to
+        rb, st = chain.streaming_step(b, st)
+        ref_bits.append(rb)
+        ref_states.append(st)
+    whole = chain.step(x_dev)
+    sync_all()
+    print(f"sharded receiver capture: [{n_ch}, {n_blocks * block}] complex64 (seeds 1900, "
+          f"1901) made, stepped resident block by block and in one step in "
+          f"{time.perf_counter() - t0:.1f} s (host) [{card}]", flush=True)
+
+    def receiver(devices, where):
+        """Three blocks through sharded_streaming_step_2d on a {channel: 2,
+        time: 4} mesh of ``devices(8)`` with every gate; returns the mesh
+        and the launch counts of the run."""
+        mesh = mesh_mod.make_mesh(c2t4, devices=devices(8))
+        per_call = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": 8 * kl}
+        sync_all()
+        reset_counts()
+        state, outs, states, calls = chain.init_state((n_ch,)), [], [], []
+        for b in blocks:
+            before = read_counts()
+            bits, state = chain.sharded_streaming_step_2d(b, state, mesh)
+            after = read_counts()
+            calls.append({k: after[k] - before[k] for k in after})
+            outs.append(bits)
+            states.append(state)
+        sync_all()
+        counts = read_counts()
+        got = [o.gather(dev) for o in outs]
+        got_states = [s_.gather(dev) for s_ in states]
+        sync_all()
+        shapes_ok = all(g.shape == (n_ch, block // 16) and g.dtype == torch.uint8 for g in got)
+        blocks_ok = all(torch.equal(g, r) for g, r in zip(got, ref_bits))
+        states_ok = all(torch.equal(g, r) for g, r in zip(got_states, ref_states))
+        whole_ok = torch.equal(torch.cat(got, dim=-1), whole)
+        tail_ok = torch.equal(got_states[-1].cpu(), torch.from_numpy(cap[:, -ku:]))
+        g = gate(chain, cap[0, :2 * block], block, [b[0] for b in got[:2]],
+                 [s_[0] for s_ in got_states[:2]])
+        print(f"sharded receiver {where}: {n_blocks} blocks [{n_ch}, {block}] through "
+              f"sharded_streaming_step_2d on {dict(mesh.shape)} "
+              f"({sorted({str(d) for d in mesh.devices.flat})}): launches per call "
+              f"{[{k: v for k, v in c.items() if v} for c in calls]} (need rx_frame "
+              f"{per_call['rx_frame']}, halo {per_call['halo']}), run total {counts}; "
+              f"concatenated bytes torch.equal to one step of the whole capture {whole_ok}; "
+              f"every block's bytes torch.equal to resident streaming_step {blocks_ok}, "
+              f"states {states_ok}; final state the capture's last {ku} samples {tail_ok}; "
+              f"channel 0 two-block gate: bit agreement {g['bit_agreement']:.7f} (need >= "
+              f"{AGREEMENT}), block-2 spectrum {g['evm_rms_db']:.2f} dB (need <= {EVM_DB}), "
+              f"state exact {g['state_exact']}", flush=True)
+        if not (shapes_ok and blocks_ok and states_ok and whole_ok and tail_ok and g["ok"]
+                and all(c == per_call for c in calls)):
+            fail(f"sharded receiver {where}: a gate failed")
+        return mesh, counts
+
+    mesh, rx_counts = receiver(one_card, "on one card" if on_card else "on the CPU")
+    mesh8 = mesh_mod.make_mesh(t8, devices=one_card(8))
+    sync_all()
+    reset_counts()
+    flat = chain.sharded_step(blocks[0][0], mesh8).gather(dev)
+    sync_all()
+    counts = read_counts()
+    need = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": 8 * kl}
+    same = torch.equal(flat, chain.step(blocks[0][0]))
+    print(f"sharded_step [{block}] on {{time: 8}}: torch.equal to step {same}, launches "
+          f"{counts} (need {need})", flush=True)
+    if not same or counts != need:
+        fail("sharded_step on {time: 8}")
+
+    # ---- phase 20: the other sharded paths ------------------------------------------
+    mesh4 = mesh_mod.make_mesh(t4, devices=one_card(4))
+    x1 = torch.from_numpy(capture(block, 2020)).to(dev)
+
+    def sharded_vs_one(label, run_sharded, run_one, need, bar):
+        sync_all()
+        reset_counts()
+        y = run_sharded().gather(dev)
+        sync_all()
+        counts = read_counts()
+        one = run_one()
+        t = one.shape[0] if one.ndim == 2 else one.shape[-1]
+        y = y[:t] if one.ndim == 2 else y[..., :t]
+        d = evm_db(y, one)
+        print(f"{label}: sharded {tuple(y.shape)} vs one-shot {d:.2f} dB (need <= {bar}), "
+              f"torch.equal {torch.equal(y, one)}, launches {counts} (need {need})", flush=True)
+        if not (d <= bar) or counts != need or not bool(torch.isfinite(y.abs()).all()):
+            fail(label)
+
+    p_os = ch._branches(ch.pfb_prototype_nyquist(m, tpb), m).shape[0]
+    sharded_vs_one(
+        f"sharded_pfb_os (M {m}, os 2, P {p_os}, right halo {p_os * m - m // 2}) on {{time: 4}}",
+        lambda: ch.sharded_pfb_os(x1, m, mesh4, os=2, taps_per_branch=tpb),
+        lambda: ch.pfb_channelize_os(x1, m, os=2, taps_per_branch=tpb),
+        {**NO_LAUNCHES, "pfb_fold": 4 * kl}, STREAM_DB)
+    sharded_vs_one(
+        f"sharded_pfb (M {m}, P {pfb_p}, left halo {pfb_halo}) on {{time: 4}}",
+        lambda: ch.sharded_pfb(x1, m, mesh4, taps_per_branch=pfb_p),
+        lambda: ch.pfb_channelize(x1, m, taps_per_branch=pfb_p),
+        {**NO_LAUNCHES, "halo": 4 * kl}, STREAM_DB)
+    ddc_cfg = DdcConfig(freq=0.1375, decimation=8)
+    sharded_vs_one(
+        "sharded_ddc (freq 0.1375, /8, 129 taps, left halo 128 mixed samples) on {time: 4}",
+        lambda: sharded_ddc(x1, ddc_cfg, mesh4),
+        lambda: Ddc(ddc_cfg, device=dev).step(x1),
+        {**NO_LAUNCHES, "halo": 4 * kl}, SHARDED_DDC_DB)
+    del x1
+    mesh_c8 = mesh_mod.make_mesh({"channel": 8}, devices=one_card(8))
+    if burst is None:
+        burst = {}
+        for fec_name in ("viterbi", "turbo"):
+            pm = PacketModem(PacketConfig(payload_bits=PAYLOAD, fec=fec_name), device=dev)
+            payloads, caps = burst_captures(pm, bursts)
+            burst[fec_name] = (pm, torch.from_numpy(caps).to(dev), payloads)
+    for fec_name, (pm, xb, payloads) in burst.items():
+        sync_all()
+        reset_counts()
+        bits_s, ok_s, diag_s = pm.rx_batch_sharded(xb, mesh_c8)
+        sync_all()
+        counts = read_counts()
+        need = {**NO_LAUNCHES, **({"viterbi": 8 * kl} if fec_name == "viterbi"
+                                  else {"bcjr": 128 * kl})}
+        bits_u, ok_u, diag_u = pm.rx_batch(xb)
+        same = (torch.equal(bits_s.gather(dev), bits_u) and torch.equal(ok_s.gather(dev), ok_u)
+                and torch.equal(diag_s["offset"].gather(dev), diag_u["offset"]))
+        exact = bool((bits_s.gather("cpu").numpy() == payloads).all()) and bool(ok_u.all())
+        print(f"rx_batch_sharded {fec_name} {tuple(xb.shape)} on {{channel: 8}}: payloads, CRC "
+              f"and offsets equal to rx_batch {same}, every payload exact and CRC-ok {exact}, "
+              f"launches {counts} (need {need})", flush=True)
+        if not (same and exact) or counts != need:
+            fail(f"rx_batch_sharded {fec_name}")
+
+    # ---- phase 21: timings ---------------------------------------------------------
+    def host_clock(fn, iters, warmup=2):
+        """ms per call by the host clock around ``iters`` calls ending in a
+        synchronise of every card (work that spans cards)."""
+        for _ in range(warmup):
+            fn()
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync_all()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def time_exchange(xs, overlap, peak, timer=time_cuda):
+        """Medians (ms per whole exchange: one push per shard) of the
+        kernel, its twin and Tensor.copy_ / zero_ per shard, and the bound."""
+        msh = xs.mesh
+        j = msh.axis("time")
+        size = msh.devices.shape[j]
+        bufs = {c: torch.empty(xs.shards[c].shape[:-1] + (overlap,), dtype=xs.shards[c].dtype,
+                               device=xs.shards[c].device) for c in msh.coords()}
+
+        def run_library():
+            for c in msh.coords():
+                if c[j] == 0:
+                    bufs[c].zero_()
+                else:
+                    left = xs.shards[c[:j] + (c[j] - 1,) + c[j + 1:]]
+                    bufs[c].copy_(left[..., left.shape[-1] - overlap:])
+
+        fns = {"kernel": lambda: hk.halo_left_rdma(xs, overlap, "time"),
+               "plain": lambda: hk.halo_left_rdma_reference(xs, overlap, "time"),
+               "library": run_library}
+        got = {k: [] for k in fns}
+        for run in range(runs):
+            order = ("plain", "kernel", "library") if run % 2 == 0 else ("library", "kernel",
+                                                                         "plain")
+            for which in order:
+                got[which].append(timer(fns[which], 50, warmup=2))
+        first = xs.shards.flat[0]
+        push = first.numel() // first.shape[-1] * overlap * first.element_size()
+        rings = msh.size // size
+        # every shard's buffer written once; every tail but the last shard's read once
+        nbytes = rings * (size + size - 1) * push
+        t_ms = nbytes / peak * 1e3
+        return {k: float(np.median(v)) for k, v in got.items()}, got, nbytes, t_ms
+
+    halo_t = []
+    for label, xs, overlap in halo_inputs:
+        med, got, nbytes, t_ms = time_exchange(xs, overlap, PEAK_BYTES)
+        halo_t.append((med, nbytes, t_ms))
+        print(f"time: halo exchange, {label}, {xs.mesh.size} pushes on {dict(xs.mesh.shape)}: "
+              f"kernel median {med['kernel']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in got['kernel'])}), plain twin median "
+              f"{med['plain']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in got['plain'])}), "
+              f"Tensor.copy_ / zero_ per shard median {med['library']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in got['library'])}); mean of 50 exchanges, CUDA "
+              f"events; bound {t_ms:.6f} ms by bytes ({nbytes} B over 3.35 TB/s): the "
+              f"launches, not the bytes, are the floor at this size [{card}]", flush=True)
+    box = {"s": chain.init_state((n_ch,)), "r": chain.init_state((n_ch,))}
+
+    def sharded_call():
+        bits, box["s"] = chain.sharded_streaming_step_2d(blocks[1], box["s"], mesh)
+        return bits
+
+    def resident_call():
+        bits, box["r"] = chain.streaming_step(blocks[1], box["r"])
+        return bits
+
+    step_t, step_runs = timed_pair(sharded_call, resident_call, iters=(20, 20), runs=runs)
+    msa = lambda ms: n_ch * block / (ms * 1e-3) / 1e6  # noqa: E731
+    print(f"time: sharded streaming step, [{n_ch}, {block}] on {dict(mesh.shape)} with all 8 "
+          f"shards on one device: median {step_t['kernel']:.4f} ms = "
+          f"{msa(step_t['kernel']):.1f} Msa/s (runs "
+          f"{', '.join(f'{v:.4f}' for v in step_runs['kernel'])}); resident streaming_step on "
+          f"the same block: median {step_t['plain']:.4f} ms = {msa(step_t['plain']):.1f} Msa/s "
+          f"(runs {', '.join(f'{v:.4f}' for v in step_runs['plain'])}); mean of 20 calls, CUDA "
+          f"events, bits left sharded [{card}]", flush=True)
+
+    # ---- phase 22: across cards -----------------------------------------------------
+    if n_cards >= 2:
+        err, inputs = halo_cases(spread, f"across {n_cards} cards: ")
+        halo_err = max(halo_err, err)
+        mesh_x, _ = receiver(spread, f"across {n_cards} cards")
+        placed = mesh_mod.shard(blocks[1], mesh_x, ("channel", "time"))
+        box.update(x=chain.init_state((n_ch,)), p=chain.init_state((n_ch,)))
+
+        def spread_call():
+            bits, box["x"] = chain.sharded_streaming_step_2d(blocks[1], box["x"], mesh_x)
+
+        def placed_call():
+            bits, box["p"] = chain.sharded_streaming_step_2d(placed, box["p"], mesh_x)
+
+        for what, fn in (
+            (f"8 shards over {n_cards} cards, the block resident on {dev}", spread_call),
+            (f"8 shards over {n_cards} cards, the block laid out beforehand", placed_call),
+            (f"8 shards on {dev} alone", sharded_call),
+            (f"resident streaming_step on {dev}", resident_call),
+        ):
+            got = [host_clock(fn, 20) for _ in range(runs)]
+            print(f"time: streaming step on [{n_ch}, {block}], {what}: median "
+                  f"{float(np.median(got)):.4f} ms = {msa(float(np.median(got))):.1f} Msa/s "
+                  f"(runs {', '.join(f'{v:.4f}' for v in got)}; host clock around 20 calls "
+                  f"ending in a synchronise of every card) [{card}]", flush=True)
+        for label, xs, overlap in inputs:
+            med, got, nbytes, t_ms = time_exchange(xs, overlap, NVLINK_BYTES, host_clock)
+            print(f"time: halo exchange across {n_cards} cards, {label}: kernel median "
+                  f"{med['kernel']:.4f} ms, plain twin {med['plain']:.4f} ms, Tensor.copy_ / "
+                  f"zero_ per shard {med['library']:.4f} ms (host clock around 50 exchanges "
+                  f"ending in a synchronise of every card); bound {t_ms:.6f} ms by bytes "
+                  f"({nbytes} B over 450 GB/s NVLink one way) [{card}]", flush=True)
+    else:
+        print(f"cards: {n_cards}, cross-card phase not run")
+    med, nbytes, t_ms = halo_t[0]
+    return {
+        "name": "halo",
+        "route": "cuda",
+        "source": "aether_primitives_tpu_torch/csrc/halo.cu",
+        "replaces": "aether_primitives_tpu/ops/pallas/halo_rdma.py:42",
+        "launches": rx_counts["halo"],
+        "max_abs_err": halo_err,
+        "ms": med["kernel"],
+        "plain_ms": med["plain"],
+        "bound_ms": t_ms,
+        "bound_by": "bytes",
+        "library_ms": med["library"],
+    }
 
 
 if __name__ == "__main__":

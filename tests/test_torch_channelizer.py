@@ -379,3 +379,64 @@ def test_scale_defaults_follow_jax():
     assert sig(tch.stft).parameters["scale"].default == Scale.SN
     assert sig(tch.pfb_synthesize).parameters["backend"].default == "reference"
     assert sig(tch.pfb_channelize_os).parameters["backend"].default == "auto"
+
+
+# ------------------------------------------------------------- sharded forms
+
+
+def _meshes(axis):
+    from aether_primitives_tpu.parallel import mesh as jmesh
+    from aether_primitives_tpu_torch.parallel import mesh as tmesh
+
+    return tmesh.make_mesh({axis: 8}, devices=["cpu"] * 8), jmesh.make_mesh({axis: 8})
+
+
+def test_sharded_pfb_matches_single_and_jax(eight_devices):
+    # tests/test_pfb.py: the sharded PFB equals the one-device PFB bit for bit
+    m_t, m_j = _meshes("time")
+    m, p = 16, 4
+    x = _c(8 * m * 4, 36)  # 4 frames per shard
+    single = tch.pfb_channelize(x, m, taps_per_branch=p)
+    sharded = tch.sharded_pfb(x, m, m_t, taps_per_branch=p)
+    assert sharded.spec == ("time", None)
+    assert torch.equal(sharded.gather(), single)
+    want = np.asarray(jch.sharded_pfb(x, m, m_j, taps_per_branch=p))
+    assert evm_rms_db(_np(sharded.gather()), want.astype(np.complex128)) < DB
+    rows = tch.sharded_pfb(_c((2, 8 * m * 4), 38), m, m_t, taps_per_branch=1)
+    assert rows.shape == (2, 32, m)  # P = 1: no halo
+
+
+def test_sharded_pfb_os_matches_single_and_jax(eight_devices):
+    m_t, m_j = _meshes("time")
+    m, p = 16, 4  # the prototype spans 2p+1 = 9 branches: a right halo of 136 samples
+    x = _c(8 * m * 12, 37)  # span 192 >= the halo
+    single = tch.pfb_channelize_os(x, m, os=2, taps_per_branch=p)
+    sharded = tch.sharded_pfb_os(x, m, m_t, os=2, taps_per_branch=p).gather()
+    # sharded emits n/hop frames (the capture's end zero-extended); the
+    # one-shot emits the frames whose windows fit: a prefix
+    t = single.shape[0]
+    assert sharded.shape[0] == x.shape[-1] // (m // 2) >= t
+    assert torch.equal(sharded[:t], single)
+    assert bool(torch.isfinite(sharded[t:].abs()).all())
+    want = np.asarray(jch.sharded_pfb_os(x, m, m_j, os=2, taps_per_branch=p))
+    assert want.shape == tuple(sharded.shape)
+    assert evm_rms_db(_np(sharded), want.astype(np.complex128)) < DB
+    for fn, mesh in ((tch.sharded_pfb_os, m_t), (jch.sharded_pfb_os, m_j)):
+        with pytest.raises(ValueError, match="span"):  # undersized spans are refused
+            fn(_c(8 * m * 6, 39), m, mesh, os=2, taps_per_branch=p)
+    with pytest.raises(ValueError, match="divisible by n_chan"):
+        tch.sharded_pfb_os(_c(8 * (m * 12 + 8), 39), m, m_t, os=2, taps_per_branch=p)
+    with pytest.raises(ValueError, match="os must divide"):
+        tch.sharded_pfb_os(x, m, m_t, os=3)
+
+
+@pytest.mark.parametrize("use_db", [False, True])
+def test_sharded_waterfall_matches_single_and_jax(eight_devices, use_db):
+    m_t, m_j = _meshes("channel")
+    cap = _c(8 * 4 * 256, 40)  # 32 rows of 256 over 8 shards
+    single = tch.waterfall_spectra(cap, 256, use_db=use_db)
+    sharded = tch.sharded_waterfall(cap, 256, m_t, use_db=use_db)
+    assert sharded.spec == ("channel", None)
+    assert torch.equal(sharded.gather(), single)
+    want = np.asarray(jch.sharded_waterfall(cap, 256, m_j, use_db=use_db))
+    assert np.allclose(_np(sharded.gather()), want, atol=1e-5 if not use_db else 1e-3)

@@ -169,3 +169,51 @@ def test_stages_default_to_the_card(monkeypatch):
     for make in (lambda: tddc.Ddc(), lambda: tddc.Duc()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+# ------------------------------------------------------------- sharded forms
+
+
+def _meshes():
+    from aether_primitives_tpu.parallel import mesh as jmesh
+    from aether_primitives_tpu_torch.parallel import mesh as tmesh
+
+    return tmesh.make_mesh({"time": 8}, devices=["cpu"] * 8), jmesh.make_mesh({"time": 8})
+
+
+@pytest.mark.parametrize("batch", [(), (2,)], ids=["1-d", "rows"])
+def test_sharded_ddc_matches_single_device_and_jax(eight_devices, batch):
+    # tests/test_ddc.py's case and bar: <= -110 dB against the one-device step
+    m, jm = _meshes()
+    x = _c(batch + (8 * 4096,), 31)
+    cfg = tddc.DdcConfig(freq=0.173, decimation=4)
+    single = tddc.Ddc(cfg, device="cpu").step(x).numpy()
+    sharded = np.asarray(tddc.sharded_ddc(x, cfg, m))
+    want = np.asarray(jddc.sharded_ddc(x, jddc.DdcConfig(freq=0.173, decimation=4), jm))
+    assert sharded.shape == single.shape == want.shape
+    assert evm_rms_db(sharded, single.astype(np.complex128)) < DB
+    assert evm_rms_db(sharded, want.astype(np.complex128)) < DB
+
+
+def test_sharded_ddc_rejects_bad_lengths(eight_devices):
+    m, jm = _meshes()
+    for fn, cfg, mesh in ((tddc.sharded_ddc, tddc.DdcConfig(decimation=4), m),
+                          (jddc.sharded_ddc, jddc.DdcConfig(decimation=4), jm)):
+        with pytest.raises(ValueError, match="divisible"):
+            fn(_c(8 * 4098, 32), cfg, mesh)
+        with pytest.raises(ValueError, match="must divide over 8 shards"):
+            fn(_c(8 * 4096 + 4, 32), cfg, mesh)
+
+
+def test_sharded_duc_matches_single_device_and_jax(eight_devices):
+    m, jm = _meshes()
+    x = _c(8 * 1024, 33)
+    cfg = tddc.DucConfig(freq=0.27, interpolation=4)
+    single = tddc.Duc(cfg, device="cpu").step(x).numpy()
+    sharded = np.asarray(tddc.sharded_duc(x, cfg, m))
+    want = np.asarray(jddc.sharded_duc(x, jddc.DucConfig(freq=0.27, interpolation=4), jm))
+    assert sharded.shape == single.shape == want.shape
+    assert evm_rms_db(sharded, single.astype(np.complex128)) < DB
+    assert evm_rms_db(sharded, want.astype(np.complex128)) < DB
+    with pytest.raises(ValueError, match="must divide over 8 shards"):
+        tddc.sharded_duc(x[:-3], cfg, m)

@@ -304,3 +304,31 @@ def test_cuda_rx_batch_goes_through_the_kernels(cuda, fec_name):
     assert np.array_equal(bits.cpu().numpy(), payloads) and ok.cpu().numpy().all()
     assert np.array_equal(bits.cpu().numpy(), hbits.numpy())
     assert np.array_equal(diag["offset"].cpu().numpy(), hdiag["offset"].numpy())
+
+
+# ------------------------------------------------------------- sharded bursts
+
+
+@pytest.mark.parametrize("fec_name", DECODED)
+def test_rx_batch_sharded_matches_unsharded(link, fec_name):
+    # tests/test_packet.py's case: payloads, CRC and offsets equal to rx_batch
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    ref = link[fec_name]
+    pm = _modem(fec_name)
+    mesh = mesh_mod.make_mesh({"channel": B}, devices=["cpu"] * B)
+    caps = torch.from_numpy(ref["caps"])
+    bits_s, ok_s, diag_s = pm.rx_batch_sharded(caps, mesh)
+    bits_u, ok_u, diag_u = pm.rx_batch(caps)
+    assert bits_s.spec == ("channel", None) and ok_s.spec == ("channel",)
+    assert torch.equal(bits_s.gather(), bits_u) and torch.equal(ok_s.gather(), ok_u)
+    for key in diag_u:
+        assert torch.equal(diag_s[key].gather(), diag_u[key]), key
+    assert np.array_equal(np.asarray(bits_s), ref["payloads"]) and np.asarray(ok_s).all()
+    assert np.array_equal(np.asarray(diag_s["offset"]), ref["diag"]["offset"])
+    two = mesh_mod.make_mesh({"channel": 2, "time": 1}, devices=["cpu"] * 2)
+    assert torch.equal(pm.rx_batch_sharded(caps, two)[0].gather(), bits_u)
+    with pytest.raises(ValueError, match="divide"):
+        pm.rx_batch_sharded(caps[:3], mesh)
+    with pytest.raises(ValueError, match=r"takes \[B, window\] captures"):
+        pm.rx_batch_sharded(caps[0], mesh)

@@ -145,12 +145,66 @@ def test_stats_reporting(jax_streaming):
         assert any("chain" in m and "Utilisation" in m for m in msgs)
 
 
+def test_executor_with_sharding(jax_streaming, eight_devices):
+    # blocks laid out across the 8-device mesh before the chain runs
+    # (tests/test_streaming.py): the JAX chain sees a sharded array, the
+    # port's a Sharded value
+    import jax
+
+    from aether_primitives_tpu.parallel import mesh as jmesh
+    from aether_primitives_tpu_torch.parallel import mesh as tmesh
+
+    js, _ = jax_streaming
+    blocks = [np.arange(64, dtype=np.float32) + i for i in range(3)]
+    sharding = tmesh.time_sharding(tmesh.make_mesh({"time": 8}, devices=["cpu"] * 8))
+    ex = streaming.new("x2", lambda b: b.map(lambda t: t * 2.0)).finish(
+        depth=2, donate=False, sharding=sharding, printer=None)
+    out = ex.run(blocks)
+    jsharding = jax.sharding.NamedSharding(jmesh.make_mesh({"time": 8}),
+                                           jax.sharding.PartitionSpec("time"))
+    jout = js.new("x2", lambda b: b * 2.0).finish(
+        depth=2, donate=False, sharding=jsharding, printer=None).run(blocks)
+    for o, jo, b in zip(out, jout, blocks):
+        assert isinstance(o, tmesh.Sharded) and o.spec == ("time",)
+        assert o.shards[3].shape == (8,)
+        assert np.array_equal(np.asarray(o), np.asarray(jo))
+        assert np.array_equal(np.asarray(o), b * 2.0)
+    assert ex.chain_stats.total_n == 3 and ex.chain_stats.total_samples == 3 * 64
+    assert ex.device == torch.device("cpu")  # the mesh's, not the default card
+
+
+def test_stateful_executor_with_sharding():
+    # the flagship composition as a stream: blocks placed (channel, time),
+    # the carried state handed from call to call as a Sharded value
+    from aether_primitives_tpu_torch.parallel import mesh as tmesh
+
+    chain = RxChain(RxChainConfig(fft_len=128, decimation=4, packed_bits=True), device=CPU)
+    mesh = tmesh.make_mesh({"channel": 2, "time": 4}, devices=["cpu"] * 8)
+    rng = np.random.default_rng(21)
+    n = 4 * 4 * 128
+    cap = (rng.normal(size=(2, 3 * n)) + 1j * rng.normal(size=(2, 3 * n))).astype(np.complex64)
+    ex = streaming.StatefulExecutor(
+        lambda b, s: chain.sharded_streaming_step_2d(b, s, mesh), chain.init_state((2,)),
+        depth=2, sharding=tmesh.Sharding(mesh, ("channel", "time")), printer=None)
+    outs = ex.run([cap[:, i * n:(i + 1) * n] for i in range(3)])
+    assert torch.equal(torch.cat([o.gather() for o in outs], dim=-1), chain.step(cap))
+    state = ex.state
+    assert isinstance(state, tmesh.Sharded) and state.spec == ("channel", None)
+    assert np.array_equal(np.asarray(state), cap[:, -(chain.taps.shape[-1] - 1):])
+    assert ex.chain_stats.total_samples == 3 * 2 * n
+
+
 def test_executor_with_sharding_not_ported():
-    # the JAX case lays blocks across an 8-device mesh; the port has no
-    # sharded layout yet and says which ROADMAP item brings it
-    with pytest.raises(NotImplementedError, match="item 17"):
-        streaming.new("x2", lambda b: b * 2.0).finish(sharding=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # what of the sharded layout is still missing: a mesh that spans
+    # processes; and a sharding must be a (mesh, spec) pair
+    from aether_primitives_tpu_torch.parallel import mesh as tmesh
+
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        tmesh.init_distributed(coordinator_address="localhost:1234", num_processes=2,
+                               process_id=0)
+    with pytest.raises(TypeError):
+        streaming.new("x2", lambda b: b).finish(sharding=object(), device=CPU)
+    with pytest.raises(TypeError):
         streaming.StatefulExecutor(lambda b, s: (b, s), np.zeros(2), sharding=object(),
                                    device=CPU)
 
