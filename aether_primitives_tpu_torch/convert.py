@@ -21,16 +21,22 @@ from .models.ddc import Ddc, DdcConfig
 from .models.modem import RxChainConfig
 from .models.packet import PacketConfig
 
-#: JAX config fields that select TPU machinery and have no counterpart here
-#: (the port has one FFT backend, torch.fft).
-_DROPPED = ("fft_backend",)
 
+def _carried(fields: dict) -> dict:
+    """The fields as the port takes them: the JAX package's TPU FFT backend
+    (``fft_backend="matmul"``, the MXU matmul FFT) carries over as None, the
+    port's one FFT (cuFFT) in its place; ``"xla"`` and None carry as they
+    are, and any other name raises where the config is used."""
+    fields = dict(fields)
+    if fields.get("fft_backend") == "matmul":
+        fields["fft_backend"] = None
+    return fields
 
 def config_from_numpy(fields: dict) -> RxChainConfig:
     """``dataclasses.asdict`` of the JAX package's ``RxChainConfig`` -> the
-    port's :class:`RxChainConfig`. Taps become complex64 numpy; an unknown
-    field raises."""
-    fields = {k: v for k, v in fields.items() if k not in _DROPPED}
+    port's :class:`RxChainConfig` (:func:`_carried`). Taps become complex64
+    numpy; an unknown field raises."""
+    fields = _carried(fields)
     known = {f.name for f in dataclasses.fields(RxChainConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -56,9 +62,9 @@ def packet_config_from_numpy(fields: dict) -> PacketConfig:
 
 def ddc_config_from_numpy(fields: dict) -> DdcConfig:
     """``dataclasses.asdict`` of the JAX package's ``DdcConfig`` -> the
-    port's :class:`DdcConfig` (``fft_backend`` dropped; taps become
-    complex64 numpy; an unknown field raises)."""
-    fields = {k: v for k, v in fields.items() if k not in _DROPPED}
+    port's :class:`DdcConfig` (:func:`_carried`; taps become complex64 numpy;
+    an unknown field raises)."""
+    fields = _carried(fields)
     known = {f.name for f in dataclasses.fields(DdcConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:

@@ -35,13 +35,26 @@
 // [d][u][k1] layouts, k1 minor). Everything is FP32 FMA: TF32 or bf16 would
 // fail the -80 dB EVM gate. Raising the FP32 issue rate (a larger stage-1
 // tile, fewer shared loads per FMA) is left to a later change.
+//
+// Three instances, picked by the wrapper (ops/cuda/rx_frame.py kernel_plan):
+//   tile256   n1 % 8 == 0, n2 % 8 == 0, span <= 8,192: 256 threads, one 4 x 8
+//             stage-1 tile each, two CTAs an SM (the main path's, dec 4,
+//             fft_len 2048, n1 128, n2 64);
+//   tile512   the same code at 512 threads for spans of 8,193-16,384 (dec 4,
+//             fft_len 4096): one 4 x 8 tile a thread, about 128.5 KB of
+//             opt-in dynamic shared memory (both planes of the frame and the
+//             deltas), one CTA an SM, 128 registers a thread at most;
+//   generic   any other split n1 x n2 (fft_len 30, spans under 64, n2 < 8):
+//             scalar stage-1 points, each thread looping over (k1, m2), A in
+//             its own pair of shared planes, and the spectrum epilogue only
+//             (the wrapper demodulates and packs its spectrum in PyTorch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kGenericThreads = 256;
 constexpr int kTileK = 4;  // stage-1 thread tile: 4 k1 ...
 constexpr int kTileM = 8;  // ... by 8 m2
 
@@ -55,8 +68,8 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int EPI, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 rx_frame_kernel(const float2* __restrict__ x,     // [frames, span] complex64
                 const float2* __restrict__ hist,  // [rows, ku] or null
                 const float* __restrict__ f1r,    // [n1, n1]
@@ -228,18 +241,107 @@ rx_frame_kernel(const float2* __restrict__ x,     // [frames, span] complex64
   }
 }
 
-template <int EPI>
+// The generic instance: any n1 x n2 split, scalar stage-1 points, X and A in
+// separate shared planes, the spectrum epilogue (natural bin k1 + n1 d).
+__global__ void __launch_bounds__(kGenericThreads)
+rx_frame_generic_kernel(const float2* __restrict__ x, const float2* __restrict__ hist,
+                        const float* __restrict__ f1r, const float* __restrict__ f1i,
+                        const float* __restrict__ gr, const float* __restrict__ gi,
+                        const float* __restrict__ cr, const float* __restrict__ ci,
+                        float2* __restrict__ out, int nsym, int n1, int n2, int r,
+                        int ku, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int span = n1 * n2;
+  float* xr = smem;  // X [n1][n2]
+  float* xi = smem + span;
+  float* ar = smem + 2 * span;  // A [n2][n1]
+  float* ai = smem + 3 * span;
+  float* dr = smem + 4 * span;  // tail deltas [ku]
+  float* di = dr + ku;
+
+  const long long fi = blockIdx.x;
+  const int f = static_cast<int>(fi % nsym);
+  const float2* xf = x + fi * span;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < span; i += kGenericThreads) {
+    const float2 v = xf[i];
+    xr[i] = v.x;
+    xi[i] = v.y;
+  }
+  for (int u = tid; u < ku; u += kGenericThreads) {
+    const float2 cur = xf[span - ku + u];
+    float2 prev = make_float2(0.f, 0.f);
+    if (f > 0) {
+      prev = xf[u - ku];
+    } else if (hist != nullptr) {
+      prev = hist[(fi / nsym) * ku + u];
+    }
+    dr[u] = cur.x - prev.x;
+    di[u] = cur.y - prev.y;
+  }
+  __syncthreads();
+
+  for (int p = tid; p < span; p += kGenericThreads) {  // A[k1, m2], p = m2 * n1 + k1
+    const int k1 = p % n1;
+    const int m2 = p / n1;
+    float sr = 0.f, si = 0.f;
+    for (int n = 0; n < n1; ++n) {
+      const float fr = f1r[n * n1 + k1];
+      const float fm = f1i[n * n1 + k1];
+      const float a = xr[n * n2 + m2];
+      const float b = xi[n * n2 + m2];
+      sr = fmaf(fr, a, fmaf(-fm, b, sr));
+      si = fmaf(fr, b, fmaf(fm, a, si));
+    }
+    ar[p] = sr;
+    ai[p] = si;
+  }
+  __syncthreads();
+
+  const int bins = r * n1;
+  for (int p = tid; p < bins; p += kGenericThreads) {  // bin p = d * n1 + k1
+    const int k1 = p % n1;
+    const int d = p / n1;
+    float zr = 0.f, zi = 0.f, er = 0.f, ei = 0.f;
+    const float* gdr = gr + static_cast<size_t>(d) * n2 * n1 + k1;
+    const float* gdi = gi + static_cast<size_t>(d) * n2 * n1 + k1;
+    for (int m = 0; m < n2; ++m) {
+      const float a = ar[m * n1 + k1];
+      const float b = ai[m * n1 + k1];
+      const float c = gdr[m * n1];
+      const float s = gdi[m * n1];
+      zr = fmaf(a, c, fmaf(-b, s, zr));
+      zi = fmaf(a, s, fmaf(b, c, zi));
+    }
+    const float* cdr = cr + static_cast<size_t>(d) * ku * n1 + k1;
+    const float* cdi = ci + static_cast<size_t>(d) * ku * n1 + k1;
+    for (int u = 0; u < ku; ++u) {
+      const float c = cdr[u * n1];
+      const float s = cdi[u * n1];
+      er = fmaf(dr[u], c, fmaf(-di[u], s, er));
+      ei = fmaf(dr[u], s, fmaf(di[u], c, ei));
+    }
+    out[fi * bins + p] = make_float2((zr - er) * scale, (zi - ei) * scale);
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+template <int EPI, int kThreads, int kMinBlocks>
 int launch(const void* x, const void* hist, const void* f1r, const void* f1i,
            const void* gr, const void* gi, const void* cr, const void* ci,
            void* out, long long frames, int nsym, int n1, int n2, int r, int ku,
            float scale, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(n1) * n2 + 2 * static_cast<size_t>(ku)) *
                       sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rx_frame_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rx_frame_kernel<EPI><<<static_cast<unsigned>(frames), kThreads, smem, stream>>>(
+  const int err = set_smem(rx_frame_kernel<EPI, kThreads, kMinBlocks>, smem);
+  if (err != 0) return err;
+  rx_frame_kernel<EPI, kThreads, kMinBlocks>
+      <<<static_cast<unsigned>(frames), kThreads, smem, stream>>>(
       static_cast<const float2*>(x), static_cast<const float2*>(hist),
       static_cast<const float*>(f1r), static_cast<const float*>(f1i),
       static_cast<const float*>(gr), static_cast<const float*>(gi),
@@ -248,29 +350,82 @@ int launch(const void* x, const void* hist, const void* f1r, const void* f1i,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. epilogue: 0 QPSK bytes, 1 BPSK
-// bytes, 2 spectrum. Returns the cudaError_t of the launch (0 = success).
-// The caller guarantees: n1 % 8 == 0, n2 % 8 == 0, (n1 / 4) * (n2 / 8) <= 256
-// threads, 0 <= ku <= n1 * n2, 16-byte aligned constants, contiguous tensors.
-extern "C" int rx_frame_launch(int epilogue, const void* x, const void* hist,
-                               const void* f1r, const void* f1i, const void* gr,
-                               const void* gi, const void* cr, const void* ci,
-                               void* out, long long frames, int nsym, int n1,
-                               int n2, int r, int ku, float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int kThreads, int kMinBlocks>
+int launch_epilogue(int epilogue, const void* x, const void* hist, const void* f1r,
+                    const void* f1i, const void* gr, const void* gi, const void* cr,
+                    const void* ci, void* out, long long frames, int nsym, int n1,
+                    int n2, int r, int ku, float scale, cudaStream_t s) {
   switch (epilogue) {
     case kQpsk:
-      return launch<kQpsk>(x, hist, f1r, f1i, gr, gi, cr, ci, out, frames, nsym,
-                           n1, n2, r, ku, scale, s);
+      return launch<kQpsk, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                                 frames, nsym, n1, n2, r, ku, scale, s);
     case kBpsk:
-      return launch<kBpsk>(x, hist, f1r, f1i, gr, gi, cr, ci, out, frames, nsym,
-                           n1, n2, r, ku, scale, s);
+      return launch<kBpsk, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                                 frames, nsym, n1, n2, r, ku, scale, s);
     case kSpectrum:
-      return launch<kSpectrum>(x, hist, f1r, f1i, gr, gi, cr, ci, out, frames,
-                               nsym, n1, n2, r, ku, scale, s);
+      return launch<kSpectrum, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                                     frames, nsym, n1, n2, r, ku, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int launch_instance(int instance, int epilogue, const void* x, const void* hist,
+                    const void* f1r, const void* f1i, const void* gr, const void* gi,
+                    const void* cr, const void* ci, void* out, long long frames, int nsym,
+                    int n1, int n2, int r, int ku, float scale, cudaStream_t s) {
+  switch (instance) {
+    case 0:
+      return launch_epilogue<256, 2>(epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                     frames, nsym, n1, n2, r, ku, scale, s);
+    case 1:
+      return launch_epilogue<512, 1>(epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                     frames, nsym, n1, n2, r, ku, scale, s);
+    case 2: {
+      if (epilogue != kSpectrum) return static_cast<int>(cudaErrorInvalidValue);
+      const size_t smem = (4 * static_cast<size_t>(n1) * n2 + 2 * static_cast<size_t>(ku)) *
+                          sizeof(float);
+      const int err = set_smem(rx_frame_generic_kernel, smem);
+      if (err != 0) return err;
+      rx_frame_generic_kernel<<<static_cast<unsigned>(frames), kGenericThreads, smem, s>>>(
+          static_cast<const float2*>(x), static_cast<const float2*>(hist),
+          static_cast<const float*>(f1r), static_cast<const float*>(f1i),
+          static_cast<const float*>(gr), static_cast<const float*>(gi),
+          static_cast<const float*>(cr), static_cast<const float*>(ci),
+          static_cast<float2*>(out), nsym, n1, n2, r, ku, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. instance: 0 tile256, 1 tile512,
+// 2 generic. epilogue: 0 QPSK bytes, 1 BPSK bytes, 2 spectrum (the generic
+// instance takes the spectrum only). Returns the cudaError_t of the launch
+// (0 = success). The caller guarantees: for the tile instances n1 % 8 == 0,
+// n2 % 8 == 0 and (n1 / 4) * (n2 / 8) <= the instance's threads, 16-byte
+// aligned constants; for every instance 0 <= ku <= n1 * n2, contiguous
+// tensors and a shared-memory size within the card's opt-in limit.
+// Launches on `stream` of card `device`, which is made current for the
+// launch where it is not (and the caller's put back).
+extern "C" int rx_frame_launch(int instance, int epilogue, const void* x,
+                               const void* hist, const void* f1r, const void* f1i,
+                               const void* gr, const void* gi, const void* cr,
+                               const void* ci, void* out, long long frames, int nsym,
+                               int n1, int n2, int r, int ku, float scale, int device,
+                               void* stream) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int rc = launch_instance(instance, epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
+                                 frames, nsym, n1, n2, r, ku, scale,
+                                 static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
 }

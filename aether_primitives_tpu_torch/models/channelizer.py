@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from ..ops import vecops as _vecops
 from ..ops.cuda import pfb_fold as _pf
-from ..ops.fft import Scale, plan as fft_plan
+from ..ops.fft import Scale, check_backend, plan as fft_plan
 from ..parallel.halo import left_tail, right_head
 from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last
 from ..types import as_cf32, stage_device
@@ -121,13 +121,15 @@ def _magnitude(spec: torch.Tensor, use_db: bool) -> torch.Tensor:
     return 10.0 * torch.log10(mag) if use_db else mag
 
 
-def waterfall_spectra(samples, fft_len: int, use_db: bool = False, window=None,
+def waterfall_spectra(samples, fft_len: int, use_db: bool = False,
+                      fft_backend: Optional[str] = None, window=None,
                       hop: Optional[int] = None) -> torch.Tensor:
     """``[rows, fft_len]`` magnitude (or amplitude dB, ``10*log10|.|``)
     waterfall of a capture: per row a forward FFT with ``Scale.SN``, the
     fftshift (:func:`~..ops.vecops.mirror`) and ``|.|``. Optional analysis
     ``window`` ("hann"/"hamming"/"blackman" or an explicit ``[fft_len]``
     array) and overlapped rows with ``hop < fft_len`` (dividing it)."""
+    check_backend(fft_backend)
     x = as_cf32(samples)
     rows = _frames_overlapped(x, fft_len, hop or fft_len)
     w = _resolve_window(window, fft_len)
@@ -137,7 +139,7 @@ def waterfall_spectra(samples, fft_len: int, use_db: bool = False, window=None,
 
 
 def welch_psd(samples, fft_len: int, hop: Optional[int] = None, window="hann",
-              fs: float = 1.0, shift: bool = False):
+              fs: float = 1.0, fft_backend: Optional[str] = None, shift: bool = False):
     """Welch power-spectral-density estimate: windowed overlapped frames,
     per-frame periodograms, averaged, with the conventions of
     ``scipy.signal.welch(..., detrend=False, return_onesided=False,
@@ -146,6 +148,7 @@ def welch_psd(samples, fft_len: int, hop: Optional[int] = None, window="hann",
     complete frames only, periodic named windows. Returns ``(freqs float64
     numpy, psd float32 tensor [..., fft_len])`` in FFT order, or both
     fftshifted with ``shift=True``."""
+    check_backend(fft_backend)
     x = as_cf32(samples)
     hop = int(hop) if hop is not None else fft_len // 2
     n = x.shape[-1]
@@ -177,7 +180,8 @@ class Channelizer:
     blocks when ``block % fft_len == 0`` and ``hop == fft_len``)."""
 
     def __init__(self, fft_len: int, use_db: bool = False, window=None,
-                 hop: Optional[int] = None, device="cuda"):
+                 hop: Optional[int] = None, fft_backend: Optional[str] = None, device="cuda"):
+        check_backend(fft_backend)
         self.fft_len = int(fft_len)
         self.use_db = use_db
         self.window = window
@@ -192,11 +196,12 @@ class Channelizer:
 
 
 def sharded_waterfall(samples, fft_len: int, mesh: Mesh, use_db: bool = False,
-                      axis_name: str = CHANNEL_AXIS) -> Sharded:
+                      axis_name: str = CHANNEL_AXIS, fft_backend: Optional[str] = None) -> Sharded:
     """Waterfall with rows sharded across the mesh (no data crosses
     shards: pure scale-out). The capture's ``fft_len``-rows must split
     evenly over the mesh axis. Returns the rows as a
     :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`."""
+    check_backend(fft_backend)
     rows = _pad_rows(as_cf32(samples), fft_len)
     rs = shard(rows, mesh, (None,) * (rows.ndim - 2) + (axis_name, None))
     return rs.map(lambda r: _magnitude(fft_plan(fft_len).fwd(r, Scale.SN), use_db))
@@ -235,7 +240,7 @@ def _branches(taps, m: int) -> np.ndarray:
 
 def pfb_channelize(samples, n_chan: int, taps: Optional[np.ndarray] = None,
                    taps_per_branch: int = 8, scale: Scale = Scale.NONE,
-                   history=None) -> torch.Tensor:
+                   fft_backend: Optional[str] = None, history=None) -> torch.Tensor:
     """Critically sampled polyphase analysis filterbank: ``[..., n]`` ->
     ``[..., T, n_chan]``, ``T = ceil(n / n_chan)`` (zero-padded to whole
     frames). With frames ``F[t, r] = x[t*M + r]``::
@@ -249,6 +254,7 @@ def pfb_channelize(samples, n_chan: int, taps: Optional[np.ndarray] = None,
     history-extended frame stack; no kernel runs here (the JAX package has
     none on this path either).
     """
+    check_backend(fft_backend)
     x = as_cf32(samples)
     m = int(n_chan)
     if taps is None:
@@ -280,9 +286,10 @@ def pfb_channelize(samples, n_chan: int, taps: Optional[np.ndarray] = None,
 
 def pfb_spectra(samples, n_chan: int, use_db: bool = False,
                 taps: Optional[np.ndarray] = None,
-                taps_per_branch: int = 8) -> torch.Tensor:
+                taps_per_branch: int = 8, fft_backend: Optional[str] = None) -> torch.Tensor:
     """PFB waterfall: :func:`pfb_channelize` with ``Scale.SN``, fftshift and
     magnitude (or amplitude dB), as :func:`waterfall_spectra`."""
+    check_backend(fft_backend)
     spec = pfb_channelize(samples, n_chan, taps=taps, taps_per_branch=taps_per_branch,
                           scale=Scale.SN)
     return _magnitude(spec, use_db)
@@ -294,7 +301,9 @@ class PfbChannelizer:
     block equals the one-shot :func:`pfb_channelize`."""
 
     def __init__(self, n_chan: int, taps: Optional[np.ndarray] = None,
-                 taps_per_branch: int = 8, scale: Scale = Scale.NONE, device="cuda"):
+                 taps_per_branch: int = 8, scale: Scale = Scale.NONE,
+                 fft_backend: Optional[str] = None, device="cuda"):
+        check_backend(fft_backend)
         self.n_chan = int(n_chan)
         self.taps = (
             np.asarray(taps, np.complex64).ravel()
@@ -323,7 +332,7 @@ class PfbChannelizer:
 
 def sharded_pfb(samples, n_chan: int, mesh: Mesh, taps: Optional[np.ndarray] = None,
                 taps_per_branch: int = 8, scale: Scale = Scale.NONE,
-                axis_name: str = TIME_AXIS) -> Sharded:
+                axis_name: str = TIME_AXIS, fft_backend: Optional[str] = None) -> Sharded:
     """PFB with contiguous time spans sharded across the mesh: each shard
     takes its ``(P-1)*n_chan``-sample left halo through the halo exchange
     (:func:`~aether_primitives_tpu_torch.parallel.halo.left_tail`), so the
@@ -331,6 +340,7 @@ def sharded_pfb(samples, n_chan: int, mesh: Mesh, taps: Optional[np.ndarray] = N
     span must be divisible by ``n_chan``. Returns the frames as a
     :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` ``[..., T,
     n_chan]`` split along ``T``."""
+    check_backend(fft_backend)
     m = int(n_chan)
     if taps is None:
         taps = pfb_prototype(m, taps_per_branch)
@@ -447,7 +457,7 @@ def _spread(v: torch.Tensor, gb: np.ndarray, w_rev, s_len: int,
 
 def pfb_synthesize(frames, n_chan: Optional[int] = None,
                    taps: Optional[np.ndarray] = None, scale: Scale = Scale.N,
-                   backend: str = "reference") -> torch.Tensor:
+                   fft_backend: Optional[str] = None, backend: str = "reference") -> torch.Tensor:
     """Critically sampled polyphase synthesis filterbank, the dual of
     :func:`pfb_channelize`: ``[..., T, n_chan]`` -> ``[..., (T + Q - 1) *
     n_chan]`` samples, by weighted overlap-add with the synthesis prototype
@@ -466,6 +476,7 @@ def pfb_synthesize(frames, n_chan: Optional[int] = None,
     prototypes only; a complex one raises NotImplementedError there), and
     the plain fold on a CPU tensor.
     """
+    check_backend(fft_backend)
     _check_backend(backend)
     y = as_cf32(frames)
     m = int(n_chan) if n_chan is not None else y.shape[-1]
@@ -493,7 +504,8 @@ class PfbSynthesizer:
     final tail, which :meth:`flush` returns)."""
 
     def __init__(self, n_chan: int, taps: Optional[np.ndarray] = None,
-                 scale: Scale = Scale.N, device="cuda"):
+                 scale: Scale = Scale.N, fft_backend: Optional[str] = None, device="cuda"):
+        check_backend(fft_backend)
         self.n_chan = int(n_chan)
         if taps is None:
             taps = np.ones(self.n_chan, np.float32)
@@ -563,13 +575,14 @@ def _overlap_add_weights(w: np.ndarray, hop: int, t_frames: int, full: int) -> n
 
 
 def stft(x, fft_len: int, hop: Optional[int] = None, window="sqrt_hann",
-         scale: Scale = Scale.SN) -> torch.Tensor:
+         scale: Scale = Scale.SN, fft_backend: Optional[str] = None) -> torch.Tensor:
     """Short-time Fourier transform: ``[..., n]`` -> ``[..., T, fft_len]``
     spectra of windowed frames starting at ``t*hop`` (default ``fft_len //
     2``, dividing ``fft_len``), with ``fft_len - hop`` boundary zeros on
     each side so every real sample gets the full overlap-add weight. With
     the default periodic ``sqrt_hann`` at 50% overlap, :func:`istft`
     reconstructs exactly."""
+    check_backend(fft_backend)
     fft_len = int(fft_len)
     hop = fft_len // 2 if hop is None else int(hop)
     w = _stft_window(window, fft_len)
@@ -581,12 +594,14 @@ def stft(x, fft_len: int, hop: Optional[int] = None, window="sqrt_hann",
 
 
 def istft(frames, hop: Optional[int] = None, window="sqrt_hann",
-          scale: Scale = Scale.SN, length: Optional[int] = None) -> torch.Tensor:
+          scale: Scale = Scale.SN, fft_backend: Optional[str] = None,
+          length: Optional[int] = None) -> torch.Tensor:
     """Inverse STFT: ``[..., T, fft_len]`` -> ``[..., n]`` by windowed
     overlap-add, divided by the exact per-sample ``sum_t w^2(n - t*hop)``
     (so the edges reconstruct too). ``scale`` must match the analysis call;
     ``length`` trims the output (default the full span less :func:`stft`'s
     boundary padding)."""
+    check_backend(fft_backend)
     y = as_cf32(frames)
     fft_len = int(y.shape[-1])
     hop = fft_len // 2 if hop is None else int(hop)
@@ -696,7 +711,8 @@ def _channelize_os(x: torch.Tensor, m: int, os: int, hb: np.ndarray, w,
 
 def pfb_channelize_os(samples, n_chan: int, os: int = 2,
                       taps: Optional[np.ndarray] = None, taps_per_branch: int = 16,
-                      scale: Scale = Scale.NONE, backend: str = "auto") -> torch.Tensor:
+                      scale: Scale = Scale.NONE, fft_backend: Optional[str] = None,
+                      backend: str = "auto") -> torch.Tensor:
     """OVERSAMPLED polyphase analysis filterbank: channel frames advance by
     ``hop = n_chan/os`` samples, ``[..., n]`` -> ``[..., T, n_chan]`` with
     ``y[t, k] = sum_m h[m] x[t*hop + m] e^{-2 pi i k (t*hop + m)/M}``: each
@@ -712,6 +728,7 @@ def pfb_channelize_os(samples, n_chan: int, os: int = 2,
     and batch rows); the channel DFT is ``torch.fft``. Default prototype:
     :func:`pfb_prototype_nyquist` (``2*taps_per_branch + 1`` branches).
     """
+    check_backend(fft_backend)
     _check_backend(backend)
     x = as_cf32(samples)
     m = int(n_chan)
@@ -765,8 +782,9 @@ def _synthesize_os(y: torch.Tensor, m: int, os: int, hb: np.ndarray, w_rev,
 
 def pfb_synthesize_os(frames, n_chan: Optional[int] = None, os: int = 2,
                       taps: Optional[np.ndarray] = None, taps_per_branch: int = 16,
-                      scale: Scale = Scale.N, length: Optional[int] = None,
-                      normalize: bool = True, backend: str = "auto") -> torch.Tensor:
+                      scale: Scale = Scale.N, fft_backend: Optional[str] = None,
+                      length: Optional[int] = None, normalize: bool = True,
+                      backend: str = "auto") -> torch.Tensor:
     """Matched weighted-overlap-add inverse of :func:`pfb_channelize_os`:
     ``[..., T, n_chan]`` -> samples (the full ``(T-1)*hop + P*M`` span,
     or ``length``).
@@ -780,6 +798,7 @@ def pfb_synthesize_os(frames, n_chan: Optional[int] = None, os: int = 2,
     divisor instead). ``scale`` pairs with the analysis call (defaults:
     ``Scale.NONE`` forward, ``Scale.N`` backward).
     """
+    check_backend(fft_backend)
     _check_backend(backend)
     y = as_cf32(frames)
     m = int(n_chan) if n_chan is not None else int(y.shape[-1])
@@ -802,7 +821,8 @@ class PfbChannelizerOs:
 
     def __init__(self, n_chan: int, os: int = 2, taps: Optional[np.ndarray] = None,
                  taps_per_branch: int = 16, scale: Scale = Scale.NONE,
-                 device="cuda", backend: str = "auto"):
+                 fft_backend: Optional[str] = None, device="cuda", backend: str = "auto"):
+        check_backend(fft_backend)
         _check_backend(backend)
         self.n_chan = int(n_chan)
         self.os = _check_os(self.n_chan, os)
@@ -845,7 +865,7 @@ class PfbChannelizerOs:
 def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
                    taps: Optional[np.ndarray] = None, taps_per_branch: int = 16,
                    scale: Scale = Scale.NONE, axis_name: str = TIME_AXIS,
-                   backend: str = "auto") -> Sharded:
+                   fft_backend: Optional[str] = None, backend: str = "auto") -> Sharded:
     """Oversampled PFB with contiguous time spans sharded over the mesh:
     frames are FORWARD-looking, so each shard takes a ``P*M - hop`` RIGHT
     halo (:func:`~aether_primitives_tpu_torch.parallel.halo.right_head`,
@@ -856,6 +876,7 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
     tail). Each shard's span must be divisible by ``n_chan`` so the ``os``
     reference-phase classes align per shard.
     """
+    check_backend(fft_backend)
     _check_backend(backend)
     m = int(n_chan)
     os = _check_os(m, os)
@@ -893,7 +914,8 @@ class PfbSynthesizerOs:
 
     def __init__(self, n_chan: int, os: int = 2, taps: Optional[np.ndarray] = None,
                  taps_per_branch: int = 16, scale: Scale = Scale.N,
-                 device="cuda", backend: str = "auto"):
+                 fft_backend: Optional[str] = None, device="cuda", backend: str = "auto"):
+        check_backend(fft_backend)
         _check_backend(backend)
         self.n_chan = int(n_chan)
         self.os = _check_os(self.n_chan, os)

@@ -36,6 +36,7 @@ import torch
 
 from ..ops import fir as _fir
 from ..ops import frontend as _fe
+from ..ops.fft import check_backend
 from ..parallel.halo import left_tail
 from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last
 from ..types import as_cf32, cf32, stage_device
@@ -68,14 +69,16 @@ class DdcConfig:
     ``decimation``: output rate = input rate / decimation.
     ``taps``: channel-select lowpass (None: Hamming-windowed sinc, cutoff
     ``1/(2*decimation)``, ``16*decimation + 1`` taps).
-    ``block_len``: overlap-save block (None: the FIR op's default). The JAX
-    config's ``fft_backend`` has no counterpart: the port has one FFT.
+    ``block_len``: overlap-save block (None: the FIR op's default).
+    ``fft_backend``: None or ``"xla"`` (cuFFT, the port's one FFT backend;
+    see :func:`~aether_primitives_tpu_torch.ops.fft.check_backend`).
     """
 
     freq: float = 0.0
     decimation: int = 4
     taps: Optional[np.ndarray] = None
     block_len: Optional[int] = None
+    fft_backend: Optional[str] = None
 
     def resolved_taps(self) -> np.ndarray:
         if self.taps is not None:
@@ -103,6 +106,7 @@ class Ddc:
     """
 
     def __init__(self, config: DdcConfig = DdcConfig(), device="cuda"):
+        check_backend(config.fft_backend)
         self.config = config
         self.device = stage_device(device, "Ddc")
         self.taps = config.resolved_taps()
@@ -126,12 +130,14 @@ class Ddc:
     __call__ = step
 
 
-def ddc_bank(x, freqs, decimation: int, taps=None) -> torch.Tensor:
+def ddc_bank(x, freqs, decimation: int, taps=None,
+             fft_backend: Optional[str] = None) -> torch.Tensor:
     """Extract ``C`` arbitrarily placed channels of a 1-D capture at once:
     each row of a ``[C, n]`` broadcast mixes by its own float64-exact NCO
     tables, and all rows share one batched decimating overlap-save. Returns
     ``[C, ceil(n/decimation)]``; one-shot (phase 0). For streaming, run one
     :class:`Ddc` per channel."""
+    check_backend(fft_backend)
     x = as_cf32(x)
     if x.ndim != 1:
         raise ValueError("ddc_bank takes a 1-D capture")
@@ -200,12 +206,14 @@ class DucConfig:
     ``1/(2*interpolation)``, ``16*interpolation + 1`` taps, gain
     ``interpolation``, so a passband tone keeps its amplitude).
     ``block_len``: overlap-save block of the branch filters.
+    ``fft_backend``: as in :class:`DdcConfig`.
     """
 
     freq: float = 0.0
     interpolation: int = 4
     taps: Optional[np.ndarray] = None
     block_len: Optional[int] = None
+    fft_backend: Optional[str] = None
 
     def resolved_taps(self) -> np.ndarray:
         if self.taps is not None:
@@ -233,6 +241,7 @@ class Duc:
     stream never exists. Then the NCO mix to ``freq``."""
 
     def __init__(self, config: DucConfig = DucConfig(), device="cuda"):
+        check_backend(config.fft_backend)
         self.config = config
         self.device = stage_device(device, "Duc")
         self.taps = config.resolved_taps()

@@ -31,7 +31,7 @@ from ..boundary import Split, merge
 from ..ops import fir as _fir
 from ..ops import modulation as _mod
 from ..ops.cuda import rx_frame as _rx_frame
-from ..ops.fft import Scale
+from ..ops.fft import Scale, check_backend
 from ..parallel import halo as _halo
 from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last
 from ..types import as_cf32, cf32, stage_device
@@ -41,12 +41,13 @@ from ..types import as_cf32, cf32, stage_device
 class RxChainConfig:
     """FIR -> decimate -> blocked FFT -> demod receive chain parameters.
 
-    The fields mirror the JAX package's config (without its TPU FFT
-    backend choice):
+    The fields mirror the JAX package's config, in its order:
 
     - ``fir_taps``: None designs a Hamming-windowed sinc lowpass, cutoff
       1/(2*decimation), 16*decimation+1 taps (identity for decimation 1).
     - ``modulation``: ``"bpsk"``, ``"qpsk"``, ``"qamN"`` or ``"pskN"``.
+    - ``fft_backend``: None or ``"xla"`` (cuFFT through ``torch.fft``, the
+      only backend); the JAX package's TPU ``"matmul"`` FFT raises.
     - ``active_bins``: occupied-subcarrier count (even; None = all bins):
       FFT indices ``[0, a/2)`` and ``[fft_len - a/2, fft_len)``.
     - ``fir_mode``: ``"fused"`` (the default, and the only mode ported:
@@ -65,6 +66,7 @@ class RxChainConfig:
     decimation: int = 4
     fft_len: int = 2048
     modulation: str = "qpsk"
+    fft_backend: Optional[str] = None
     active_bins: Optional[int] = None
     fir_mode: Optional[str] = None
     precision: Optional[str] = None
@@ -106,18 +108,6 @@ def _resolve_fir_mode(mode: Optional[str]) -> str:
     raise ValueError(f"unknown fir_mode {mode!r}")
 
 
-def _check_precision(name: Optional[str]) -> None:
-    if name in (None, "highest"):
-        return
-    if name == "high":
-        raise ValueError(
-            "precision 'high' is the TPU's bf16x3 matmul setting and has no "
-            "counterpart on the GPU; the port computes in full float32 "
-            "('highest')"
-        )
-    raise ValueError(f"precision {name!r} not allowed (expected 'highest')")
-
-
 class RxChain:
     """The receive chain over blocks ``[..., n]`` of complex64 samples with
     ``n % (decimation * fft_len) == 0``: causal FIR, decimation, per-frame
@@ -129,9 +119,10 @@ class RxChain:
     On a CUDA device a BPSK or QPSK chain with all bins active launches
     the RX frame kernel, and raises for a geometry the kernel does not take
     (:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.kernel_supports`);
-    it never falls back to the plain version. Such a chain emits whole
-    bytes per frame, so it needs ``fft_len % 4 == 0`` (QPSK) or
-    ``fft_len % 8 == 0`` (BPSK), packed or not.
+    it never falls back to the plain version. Packed output needs whole
+    bytes per frame; an unpacked chain whose frame is not whole bytes
+    (QPSK ``fft_len % 4``, BPSK ``fft_len % 8``) takes the op's spectrum
+    epilogue and demodulates it in PyTorch, still one kernel launch.
     """
 
     def __init__(self, config: RxChainConfig = RxChainConfig(), device="cuda"):
@@ -148,7 +139,8 @@ class RxChain:
             taps = np.asarray(config.fir_taps, dtype=np.complex64).ravel()
         self.taps = taps
         self.fir_mode = _resolve_fir_mode(config.fir_mode)
-        _check_precision(config.precision)
+        check_backend(config.fft_backend)
+        _fir.check_precision(config.precision)
         if config.packed_bits:
             bpf = self.modulation.bits_per_symbol * (
                 config.active_bins or config.fft_len
@@ -217,9 +209,16 @@ class RxChain:
         )
 
     def _bits_fast(self, x, history=None) -> torch.Tensor:
-        """Block -> bits through the RX frame kernel, which emits packed
-        bytes; unpacked output is unpacked from them."""
+        """Block -> bits through the RX frame op, which emits packed bytes;
+        unpacked output is unpacked from them. A frame that is not whole
+        bytes (unpacked only: the constructor refuses it packed) goes
+        through the op's spectrum epilogue and the table demod."""
         cfg = self.config
+        if cfg.fft_len * self.modulation.bits_per_symbol % 8:
+            return self._demod_frames(_rx_frame.rx_frame(
+                x, self.taps, cfg.decimation, cfg.fft_len, history=history,
+                epilogue="spectrum", stage_n1=cfg.stage_n1,
+            ))
         packed = _rx_frame.rx_frame(
             x, self.taps, cfg.decimation, cfg.fft_len, history=history,
             epilogue=cfg.modulation, stage_n1=cfg.stage_n1,

@@ -18,6 +18,7 @@ agree with it to float32 rounding.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,14 +28,15 @@ from ..ops import fir as _fir
 from ..types import as_cf32
 
 
-def detect_preamble(x, preamble):
+def detect_preamble(x, preamble, fft_backend: Optional[str] = None):
     """``(offset, peak_metric)`` of the best preamble alignment in ``x``
     ``[..., n]``: ``offset`` (int64) is where the preamble's first sample
     sits, ``peak_metric`` is ``|correlation|^2 / energy(preamble)^2``
-    (1.0 for a clean hit)."""
+    (1.0 for a clean hit). ``fft_backend``: see
+    :func:`~aether_primitives_tpu_torch.ops.fft.check_backend`."""
     x = as_cf32(x)
     pre = np.asarray(preamble, dtype=np.complex64)
-    y = _fir.matched_filter(x, pre)
+    y = _fir.matched_filter(x, pre, fft_backend=fft_backend)
     mag2 = y.real ** 2 + y.imag ** 2
     peak_pos = torch.argmax(mag2, dim=-1)
     energy = float(np.sum(np.abs(pre) ** 2))
@@ -95,13 +97,26 @@ def estimate_cfo_blind(x, m: int = 4, osr: int = 4) -> torch.Tensor:
     return kf / float(nfft * m)
 
 
-def estimate_phase_mpsk(x, m: int = 4) -> torch.Tensor:
+def _mpsk_grid_ref(m: int, grid: str) -> complex:
+    """M-th-power reference of the constellation grid: ``"diagonal"`` (the
+    package's BPSK/QPSK tables, points at ``pi/M + 2 pi k/M``) powers to
+    ``e^{j pi}``; ``"axes"`` (index-linear ``psk`` tables, points at
+    ``2 pi k/M``) powers to ``e^{j 0}``."""
+    if grid == "diagonal":
+        return complex(np.exp(-1j * np.pi))
+    if grid == "axes":
+        return 1.0 + 0.0j
+    raise ValueError(f"grid must be 'diagonal' or 'axes', got {grid!r}")
+
+
+def estimate_phase_mpsk(x, m: int = 4, grid: str = "diagonal") -> torch.Tensor:
     """Feedforward M-PSK phase (radians, in ``[-pi/M, pi/M)``): ``angle(
-    sum x^M * ref) / M`` with the reference rotation of the package's
-    diagonal BPSK/QPSK tables (``(e^{j pi/4})^4 = -1``)."""
+    sum x^M * ref) / M`` with the reference rotation of the constellation
+    grid (:func:`_mpsk_grid_ref`: the diagonal BPSK/QPSK tables by
+    default, ``(e^{j pi/4})^4 = -1``; ``"axes"`` for ``psk`` tables)."""
+    ref = np.complex64(_mpsk_grid_ref(m, grid))
     x = as_cf32(x)
     acc = _pow_m(x, m).sum(dim=-1)
-    ref = np.complex64(complex(np.exp(-1j * np.pi)))
     acc = acc * torch.tensor(ref, device=x.device)
     return torch.angle(acc) / float(m)
 

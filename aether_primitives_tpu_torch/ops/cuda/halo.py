@@ -12,23 +12,26 @@ it for CUDA shards.
   parallel.mesh.Sharded` value and returns the per-shard halos ``[...,
   overlap]``, each on its own shard's device. For CUDA shards it launches
   the hand-written kernel of ``csrc/halo.cu`` (built at first use, see
-  :mod:`.build`), one launch per sending shard on the sender's device and
-  stream, or raises; for CPU shards it runs :func:`halo_left_rdma_reference`.
+  :mod:`.build`), one launch per sending card on its stream, with a table
+  of that card's pushes, or raises; for CPU shards it runs
+  :func:`halo_left_rdma_reference`.
 - :func:`halo_left_rdma_reference` is the plain PyTorch version on any
   device: slices, ``Tensor.copy_`` into the neighbour's device, and zeros.
   The kernel copies bytes, so it is bit-identical to it for every dtype.
 - :data:`launches` counts the kernel's launches.
 
-The receive buffer lives on the receiver's device and is written by a
-kernel on the sender's stream. Where the two lie on different cards, two
-events order their streams, the counterparts of the TPU kernel's
-semaphores: the sender's stream waits for an event recorded on the
-receiver's stream after the buffer was allocated there (whatever last used
-that memory is done: the send semaphore), and the receiver's stream waits
-for an event recorded on the sender's stream after the push (the receive
-semaphore), so whatever the receiver enqueues next sees the halo. On one
-card sender and receiver share one stream, which orders them already. Two cards without peer access raise
-and name ``left_tail(..., backend="reference")``.
+The halos of the shards on one card are slices of one receive allocation
+made on that card's stream per call (nothing is cached across calls: the
+callers keep the halos as state). A launch on the sending card writes them,
+also where they lie on another card. Where they do, one event per ordered
+pair of cards orders the two streams, the counterparts of the TPU kernel's
+semaphores: the sender's stream waits once for an event recorded on the
+receiver's stream after the allocation (whatever last used that memory is
+done: the send semaphore), and the receiver's stream waits once for an event
+recorded on the sender's stream after its launch (the receive semaphore),
+so whatever the receiver enqueues next sees the halos. On one card the one
+stream orders them already. Two cards without peer access raise and name
+``left_tail(..., backend="reference")``.
 
 Unlike the TPU kernel, the last shard pushes zeros into the first shard's
 buffer instead of its tail (``csrc/halo.cu`` says why). Meshes of any rank
@@ -46,8 +49,8 @@ import torch
 
 from . import build
 
-#: Launches of the CUDA kernel in this process, one per sending shard (the
-#: plain version and calls that raise do not count).
+#: Launches of the CUDA kernel in this process, one per sending card and
+#: exchange (the plain version and calls that raise do not count).
 launches = 0
 
 
@@ -100,13 +103,13 @@ def halo_left_rdma_reference(x, overlap: int, axis_name: str, mesh=None):
 def _entries():
     lib = build.load("halo")
     push = lib.halo_push_launch
-    push.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
-                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    push.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     push.restype = ctypes.c_int
     peer = lib.halo_enable_peer
     peer.argtypes = [ctypes.c_int, ctypes.c_int]
     peer.restype = ctypes.c_int
-    return push, peer
+    return push, peer, int(lib.halo_max_pushes())
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,13 +128,42 @@ def _enable_peer(sender: int, receiver: int) -> None:
         )
 
 
-def _copy_unit(src_ptr: int, dst_ptr: int, row_bytes: int, stride_bytes: int,
-               itemsize: int) -> int:
-    """16 where both addresses, the row length and the source row stride
-    are 16-byte aligned, else the element size."""
-    if all(v % 16 == 0 for v in (src_ptr, dst_ptr, row_bytes, stride_bytes)):
+def _copy_unit(ptrs, row_bytes: int, stride_bytes: int, itemsize: int) -> int:
+    """16 where every address, the row length and the source row stride are
+    16-byte aligned, else the element size."""
+    if row_bytes % 16 == 0 and stride_bytes % 16 == 0 and not any(p % 16 for p in ptrs):
         return 16
     return itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(cards: tuple, shape: tuple, j: int) -> tuple:
+    """The exchange's plan for shards (row-major mesh order) on ``cards`` of
+    a mesh of ``shape`` exchanging along axis ``j``, made once per layout:
+    ``(on_card, slot, senders)``. ``on_card``: ``{card: flat indices of its
+    shards}``, whose halos are slices of one allocation; ``slot[i]``:
+    ``(card, position)`` of shard ``i``'s halo there; ``senders``: ``[(card,
+    [(source index or None for zeros, receiving index), ...], remote
+    cards)]``, one launch each (the ring's last shard pushes zeros into the
+    first shard's buffer)."""
+    coords = list(np.ndindex(*shape))
+    flat = {c: i for i, c in enumerate(coords)}
+    on_card, slot = {}, []
+    for i, card in enumerate(cards):
+        idx = on_card.setdefault(card, [])
+        slot.append((card, len(idx)))
+        idx.append(i)
+    senders = []
+    for card, idx in on_card.items():
+        pushes, remote = [], []
+        for i in idx:
+            c = coords[i]
+            dst = flat[_neighbour(c, j, 1, shape[j])]
+            pushes.append((None if c[j] == shape[j] - 1 else i, dst))
+            if cards[dst] != card and cards[dst] not in remote:
+                remote.append(cards[dst])
+        senders.append((card, pushes, remote))
+    return on_card, slot, senders
 
 
 def halo_left_rdma(x, overlap: int, axis_name: str, mesh=None):
@@ -142,60 +174,81 @@ def halo_left_rdma(x, overlap: int, axis_name: str, mesh=None):
 
     ``mesh`` (default: the value's own) only validates ``axis_name``, as
     the JAX wrapper's ``mesh_axis_names`` does. On CUDA shards this
-    launches the kernel once per sending shard; it raises for shards that
+    launches the kernel once per sending card; it raises for shards that
     are not contiguous, of differing shape or dtype, or partly on the CPU,
-    for cards without peer access, a missing ``nvcc``, a failed build or a
-    failed launch. On CPU shards it is :func:`halo_left_rdma_reference`.
+    for a card holding more shards than one launch's table, for cards
+    without peer access, a missing ``nvcc``, a failed build or a failed
+    launch. On CPU shards it is :func:`halo_left_rdma_reference`. The
+    host's work is the floor of an exchange (its bytes take nanoseconds),
+    so the plan of each layout is made once (:func:`_layout`).
     """
     global launches
     from ...parallel.mesh import Sharded
 
     j = _check(x, overlap, axis_name, mesh)
     locals_ = list(x.shards.flat)
-    kinds = {t.device.type for t in locals_}
-    if kinds == {"cpu"}:
-        return halo_left_rdma_reference(x, overlap, axis_name, mesh)
-    if kinds != {"cuda"}:
+    cards = tuple(t.get_device() for t in locals_)
+    if min(cards) < 0:
+        kinds = {t.device.type for t in locals_}
+        if kinds == {"cpu"}:
+            return halo_left_rdma_reference(x, overlap, axis_name, mesh)
         raise ValueError(f"halo_left_rdma takes shards on cpu or on cuda, got {sorted(kinds)}")
     first = locals_[0]
-    if any(t.shape != first.shape or t.dtype != first.dtype for t in locals_):
-        raise ValueError("halo_left_rdma takes shards of one shape and dtype")
-    if not all(t.is_contiguous() for t in locals_):
+    shape, dtype = first.shape, first.dtype
+    if not all(t.shape == shape and t.dtype == dtype and t.is_contiguous() for t in locals_):
+        if not all(t.shape == shape and t.dtype == dtype for t in locals_):
+            raise ValueError("halo_left_rdma takes shards of one shape and dtype")
         raise ValueError("halo_left_rdma takes contiguous shards")
-    size = x.mesh.devices.shape[j]
-    n_local = first.shape[-1]
+    mesh_shape = x.mesh.devices.shape
+    on_card, slot, senders = _layout(cards, mesh_shape, j)
+    n_local = shape[-1]
     itemsize = first.element_size()
     rows = first.numel() // n_local if n_local else 0
     row_bytes, stride_bytes = overlap * itemsize, n_local * itemsize
-    shape = first.shape[:-1] + (overlap,)
-    out = np.empty(x.mesh.devices.shape, dtype=object)
-    for c in x.mesh.coords():  # every receive buffer, on its receiver's stream
-        out[c] = torch.empty(shape, dtype=first.dtype, device=x.shards[c].device)
+    halo_shape = shape[:-1] + (overlap,)
+    halo_bytes = rows * row_bytes
+    bufs, halos = {}, [None] * len(locals_)
+    for card, idx in on_card.items():  # one receive allocation per card, on its stream
+        buf = torch.empty((len(idx),) + halo_shape, dtype=dtype, device=f"cuda:{card}")
+        bufs[card] = buf.data_ptr()
+        for i, h in zip(idx, buf.unbind(0)):
+            halos[i] = h
+    out = np.empty(mesh_shape, dtype=object)
+    out_flat = out.reshape(-1)
+    for i, h in enumerate(halos):
+        out_flat[i] = h
     if rows == 0:
         return Sharded(x.mesh, x.spec, out)
-    push = _entries()[0]
-    streams = {}  # each card's current stream, looked up once per call
-    for t in locals_:
-        if t.device not in streams:
-            streams[t.device] = torch.cuda.current_stream(t.device)
-    for c in x.mesh.coords():
-        src, dst = x.shards[c], out[_neighbour(c, j, 1, size)]
-        send_stream, recv_stream = streams[src.device], streams[dst.device]
-        remote = src.device != dst.device  # one card: one stream, already in order
-        if remote:
-            _enable_peer(src.device.index, dst.device.index)
-            # the buffer's memory is free of its last use (send semaphore)
-            send_stream.wait_event(recv_stream.record_event())
-        src_ptr = src.data_ptr() + (n_local - overlap) * itemsize
-        dst_ptr = dst.data_ptr()
+    push, _, max_pushes = _entries()
+    most = max(len(idx) for idx in on_card.values())
+    if most > max_pushes:
+        raise ValueError(
+            f"halo_left_rdma pushes at most {max_pushes} shards from one card in one launch, "
+            f"got {most}"
+        )
+    tail = (n_local - overlap) * itemsize
+    streams, allocated = {}, {}  # Stream objects and allocation events, where cards differ
+    for card, pushes, remote in senders:
+        srcs = [0 if i is None else locals_[i].data_ptr() + tail for i, _ in pushes]
+        dsts = [bufs[slot[d][0]] + slot[d][1] * halo_bytes for _, d in pushes]
+        for r in remote:  # the buffers' memory is free of its last use (send semaphore)
+            _enable_peer(card, r)
+            if r not in allocated:
+                streams.setdefault(r, torch.cuda.current_stream(r))
+                allocated[r] = streams[r].record_event()
+            streams.setdefault(card, torch.cuda.current_stream(card)).wait_event(allocated[r])
+        n = len(pushes)
         rc = push(
-            src_ptr, dst_ptr, rows, row_bytes, stride_bytes,
-            _copy_unit(src_ptr, dst_ptr, row_bytes, stride_bytes, itemsize),
-            int(c[j] == size - 1), src.device.index, send_stream.cuda_stream,
+            (ctypes.c_void_p * n)(*[p or None for p in srcs]), (ctypes.c_void_p * n)(*dsts), n,
+            rows, row_bytes, stride_bytes,
+            _copy_unit([p for p in srcs if p] + dsts, row_bytes, stride_bytes, itemsize),
+            card, torch._C._cuda_getCurrentRawStream(card),
         )
         if rc != 0:
             raise RuntimeError(f"halo kernel launch failed: CUDA error {rc}")
         launches += 1
-        if remote:  # the receiver's next work sees the halo (receive semaphore)
-            recv_stream.wait_event(send_stream.record_event())
+        if remote:  # the receivers' next work sees the halos (receive semaphore)
+            pushed = streams[card].record_event()
+            for r in remote:
+                streams[r].wait_event(pushed)
     return Sharded(x.mesh, x.spec, out)

@@ -4,7 +4,10 @@ Counterpart of ``aether_primitives_tpu/ops/fft.py``. Forward is the
 ``e^{-i 2π k n / N}`` DFT, backward the unnormalised inverse (conjugate
 kernel); all normalisation comes only from the ``Scale`` argument. The JAX
 package's MXU matmul FFT and its factor tables are TPU workarounds and have
-no counterpart here: cuFFT, through ``torch.fft``, is the only backend.
+no counterpart here: cuFFT, through ``torch.fft``, is the only backend. The
+``backend`` / ``fft_backend`` arguments keep their place in every signature
+(so a positional call written for the JAX package binds the same
+arguments) and :func:`check_backend` checks them.
 """
 
 from __future__ import annotations
@@ -90,27 +93,48 @@ class Fft:
         return scale.apply(torch.fft.ifft(x, norm="forward"))
 
 
+def check_backend(backend: Optional[str]) -> None:
+    """Accept the FFT backends a call may name: None and ``"xla"`` (the JAX
+    package's off-TPU backend) both mean cuFFT through ``torch.fft``. The
+    JAX package's ``"matmul"`` backend is the TPU's MXU FFT and raises, as
+    does any other name."""
+    if backend is None or backend == "xla":
+        return
+    if backend == "matmul":
+        raise ValueError(
+            "fft_backend 'matmul' is the JAX package's TPU matmul FFT; the port's only "
+            "FFT backend is cuFFT through torch.fft: pass None or 'xla'"
+        )
+    raise ValueError(f"unknown fft_backend {backend!r} (expected None or 'xla')")
+
+
 @functools.lru_cache(maxsize=None)
-def plan(n: int) -> Fft:
-    """The cached FFT plan for length ``n`` (cuFFT keeps its own plan cache;
-    this one keeps the JAX package's ``plan(n).fwd/bwd`` surface)."""
+def _plan(n: int) -> Fft:
     return Fft(n)
 
 
-def fft(x, scale: Scale = Scale.NONE) -> torch.Tensor:
+def plan(n: int, backend: Optional[str] = None) -> Fft:
+    """The cached FFT plan for length ``n`` (cuFFT keeps its own plan cache;
+    this one keeps the JAX package's ``plan(n).fwd/bwd`` surface);
+    ``backend`` as in :func:`check_backend`."""
+    check_backend(backend)
+    return _plan(int(n))
+
+
+def fft(x, scale: Scale = Scale.NONE, backend: Optional[str] = None) -> torch.Tensor:
     """Forward FFT along the last axis."""
     x = as_cf32(x)
-    return plan(x.shape[-1]).fwd(x, scale)
+    return plan(x.shape[-1], backend).fwd(x, scale)
 
 
-def ifft(x, scale: Scale = Scale.NONE) -> torch.Tensor:
+def ifft(x, scale: Scale = Scale.NONE, backend: Optional[str] = None) -> torch.Tensor:
     """Unnormalised backward FFT along the last axis."""
     x = as_cf32(x)
-    return plan(x.shape[-1]).bwd(x, scale)
+    return plan(x.shape[-1], backend).bwd(x, scale)
 
 
-def fft_of_decimated(frames_full_rate, dec: int,
-                     scale: Scale = Scale.NONE) -> torch.Tensor:
+def fft_of_decimated(frames_full_rate, dec: int, scale: Scale = Scale.NONE,
+                     backend: Optional[str] = None) -> torch.Tensor:
     """Forward FFT of the decimated last axis, ``fft(x[..., ::dec])``;
     ``scale`` applies at the output length."""
     x = as_cf32(frames_full_rate)
@@ -118,4 +142,4 @@ def fft_of_decimated(frames_full_rate, dec: int,
         raise ValueError(
             f"length {x.shape[-1]} not divisible by decimation {dec}"
         )
-    return plan(x.shape[-1] // dec).fwd(x[..., ::dec], scale)
+    return plan(x.shape[-1] // dec, backend).fwd(x[..., ::dec], scale)

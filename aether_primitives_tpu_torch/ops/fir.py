@@ -27,6 +27,19 @@ from . import fft as _fft
 from .fft import Scale
 
 
+def _taps_1d(taps, fn: str) -> np.ndarray:
+    """``taps`` as a host complex64 ``[K]``; per-row taps raise (only
+    :func:`fir_filter_os` and :func:`matched_filter` filter each row by its
+    own taps)."""
+    taps = np.asarray(taps, dtype=np.complex64)
+    if taps.ndim > 1:
+        raise ValueError(
+            f"{fn} takes one [K] tap vector, got taps of shape {taps.shape}; "
+            "per-row taps go through fir_filter_os"
+        )
+    return taps.reshape(-1)
+
+
 def _history(history, batch, k: int, device) -> torch.Tensor:
     """``[..., K-1]`` samples preceding a block (zeros when ``history`` is
     None), broadcast to the block's batch shape."""
@@ -47,7 +60,7 @@ def fir_filter(x, taps, history=None) -> torch.Tensor:
     causal start). Batched over leading axes.
     """
     x = as_cf32(x)
-    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    taps = _taps_1d(taps, "fir_filter")
     k = taps.shape[-1]
     n = x.shape[-1]
     if k > 1:
@@ -78,7 +91,7 @@ def fir_filter_decimate(x, taps, factor: int, padding: str = "causal") -> torch.
     planes keeps the JAX package's order of operations.
     """
     x = as_cf32(x)
-    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    taps = _taps_1d(taps, "fir_filter_decimate")
     k = taps.shape[-1]
     s = int(factor)
     if padding == "causal":
@@ -132,6 +145,22 @@ def rrc_taps(sps: int, span: int = 10, beta: float = 0.35) -> np.ndarray:
     return h.astype(np.complex64)
 
 
+def check_precision(precision) -> None:
+    """Accept the matmul precisions a call may name: None and ``"highest"``
+    (full float32, the port's only setting). The JAX package's ``"high"``
+    is the TPU's bf16x3 MXU mode and raises, as does any other value."""
+    name = precision if precision is None or isinstance(precision, str) else str(precision)
+    if name is None or name.lower() in ("highest", "precision.highest"):
+        return
+    if name.lower() in ("high", "precision.high"):
+        raise ValueError(
+            "precision 'high' is the TPU's bf16x3 matmul setting and has no "
+            "counterpart on the GPU; the port computes in full float32 "
+            "('highest')"
+        )
+    raise ValueError(f"precision {precision!r} not allowed (expected 'highest')")
+
+
 def _good_fft_size(n: int) -> int:
     """Smallest 7-smooth integer >= n (factors only 2, 3, 5, 7), the JAX
     package's overlap-save transform size (e.g. 1151 -> 1152)."""
@@ -149,7 +178,8 @@ def _good_fft_size(n: int) -> int:
     return int(best)
 
 
-def fir_filter_os(x, taps, block_len: Optional[int] = None, history=None,
+def fir_filter_os(x, taps, block_len: Optional[int] = None,
+                  fft_backend: Optional[str] = None, history=None,
                   fft_len: Optional[int] = None) -> torch.Tensor:
     """Causal FIR by overlap-save block convolution on ``torch.fft``.
 
@@ -157,13 +187,17 @@ def fir_filter_os(x, taps, block_len: Optional[int] = None, history=None,
     ``K-1`` samples (``history`` before the first block, zeros when None),
     are multiplied by the tap spectrum and inverse-transformed; the first
     ``K-1`` outputs of each block are dropped. Equal (to rounding) to
-    :func:`fir_filter`. ``taps``: ``[K]``. The defaults are the JAX
-    package's: the
-    power of two nearest ``max(1024, 8 K)`` (at most the signal length) and
-    the smallest 7-smooth transform that holds ``block_len + K - 1``.
+    :func:`fir_filter`. ``taps``: ``[K]``, or ``[..., K]`` with leading
+    axes that broadcast against ``x``'s batch axes: each row filtered by
+    its own taps, as in the JAX package. ``fft_backend``: see
+    :func:`~aether_primitives_tpu_torch.ops.fft.check_backend`. The
+    defaults are the JAX package's: the power of two nearest ``max(1024,
+    8 K)`` (at most the signal length) and the smallest 7-smooth transform
+    that holds ``block_len + K - 1``.
     """
+    _fft.check_backend(fft_backend)
     x = as_cf32(x)
-    taps = as_cf32(taps, device=x.device).reshape(-1)
+    taps = as_cf32(taps, device=x.device)
     n = x.shape[-1]
     k = taps.shape[-1]
     if block_len is None:
@@ -194,9 +228,12 @@ def fir_filter_os(x, taps, block_len: Optional[int] = None, history=None,
     ext = torch.nn.functional.pad(ext, (0, fft_len - ext.shape[-1]))
     h = torch.nn.functional.pad(taps, (0, fft_len - k))
     plan = _fft.plan(fft_len)
-    y = plan.bwd(plan.fwd(ext, Scale.NONE) * plan.fwd(h, Scale.NONE), Scale.N)
+    hspec = plan.fwd(h, Scale.NONE)
+    if h.ndim > 1:  # per-row taps: broadcast across the block axis
+        hspec = hspec[..., None, :]
+    y = plan.bwd(plan.fwd(ext, Scale.NONE) * hspec, Scale.N)
     y = y[..., k - 1:k - 1 + block_len]
-    return y.reshape(y.shape[:-2] + (n_pad,))[..., :n]
+    return y.reshape(batch + (n_pad,))[..., :n]
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,6 +248,7 @@ def _rotated_tap_spectrum(taps_bytes: bytes, k: int, fft_len: int, device: str):
 
 
 def fir_filter_os_decimate(x, taps, factor: int, block_len: Optional[int] = None,
+                           fft_backend: Optional[str] = None,
                            history=None) -> torch.Tensor:
     """Fused overlap-save FIR + decimation with a time-domain output,
     ``y[m] = sum_k taps[k] x[m*factor - k]`` (equal, to rounding, to
@@ -227,10 +265,12 @@ def fir_filter_os_decimate(x, taps, factor: int, block_len: Optional[int] = None
 
     Outputs sit at global multiples of ``factor``: ``ceil(n / factor)``
     samples. ``history``: optional ``[..., K-1]`` samples preceding ``x``.
-    ``taps``: host numpy.
+    ``taps``: host numpy ``[K]``. ``fft_backend``: see
+    :func:`~aether_primitives_tpu_torch.ops.fft.check_backend`.
     """
+    _fft.check_backend(fft_backend)
     x = as_cf32(x)
-    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    taps = _taps_1d(taps, "fir_filter_os_decimate")
     n = x.shape[-1]
     k = taps.shape[-1]
     s = int(factor)
@@ -272,15 +312,18 @@ def fir_filter_os_decimate(x, taps, factor: int, block_len: Optional[int] = None
 
 
 def matched_filter(x, ref, block_len: Optional[int] = None,
-                   history=None) -> torch.Tensor:
+                   fft_backend: Optional[str] = None, history=None) -> torch.Tensor:
     """Linear sliding correlation against ``ref`` by overlap-save:
     ``y[n] = sum_m x[n - m] conj(ref[M-1 - m])``, so ``|y|`` peaks at
-    ``n = offset + M - 1`` where ``ref`` starts at ``offset``."""
+    ``n = offset + M - 1`` where ``ref`` starts at ``offset``. ``ref``
+    ``[..., M]``: leading axes are per-row references, as the taps of
+    :func:`fir_filter_os`."""
     if isinstance(ref, torch.Tensor):
         taps = ref.to(cf32).conj().flip(-1)
     else:
-        taps = np.conj(np.asarray(ref, dtype=np.complex64))[::-1].copy()
-    return fir_filter_os(x, taps, block_len=block_len, history=history)
+        taps = np.conj(np.asarray(ref, dtype=np.complex64))[..., ::-1].copy()
+    return fir_filter_os(x, taps, block_len=block_len, fft_backend=fft_backend,
+                         history=history)
 
 
 @functools.lru_cache(maxsize=None)
@@ -413,6 +456,8 @@ def fir_decimate_fft(
     fft_len: int,
     scale: Scale = Scale.NONE,
     history=None,
+    fft_backend: Optional[str] = None,
+    precision=None,
     stage_n1: Optional[int] = None,
     _staged_layout: bool = False,
 ) -> torch.Tensor:
@@ -430,16 +475,22 @@ def fir_decimate_fft(
     op is two complex64 contractions, stage 1 with ``DFT_{n1}`` and stage 2
     with G'; otherwise a span-point ``torch.fft`` with the fold.
 
-    ``x``: ``[..., n]`` with ``n % span == 0``. ``taps``: host numpy.
-    ``history``: optional ``[..., K-1]`` samples preceding ``x``. Returns
+    ``x``: ``[..., n]`` with ``n % span == 0``. ``taps``: host numpy
+    ``[K]``. ``history``: optional ``[..., K-1]`` samples preceding ``x``.
+    ``fft_backend``: see :func:`~aether_primitives_tpu_torch.ops.fft.
+    check_backend`; ``precision``: None or ``"highest"`` (full float32, the
+    only setting; the JAX package's reduced MXU precisions are TPU
+    settings). Returns
     ``[..., n // span, fft_len]`` spectra scaled by ``scale``; with
     ``_staged_layout=True`` (two-einsum path only) ``[n1, ..., nsym, r]``
     with ``k1`` leading and natural bin ``k = k1 + n1*d``; callers of the
     staged layout pass ``Scale.NONE`` (a scale would read ``r`` as the
     transform length).
     """
+    _fft.check_backend(fft_backend)
+    check_precision(precision)
     x = as_cf32(x)
-    taps = np.asarray(taps, dtype=np.complex64).ravel()
+    taps = _taps_1d(taps, "fir_decimate_fft")
     k = taps.shape[-1]
     span = dec * fft_len
     n = x.shape[-1]

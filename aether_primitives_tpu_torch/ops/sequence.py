@@ -64,11 +64,13 @@ def _init_state(init, order: int, batch, device) -> torch.Tensor:
 
 
 def scramble_multiplicative(bits, delays: Sequence[int] = (14, 15),
-                            init=None) -> torch.Tensor:
+                            init=None, block: int = 256) -> torch.Tensor:
     """Self-synchronising scrambler ``y(n) = x(n) ^ sum_d y(n-d)``; the
     default taps ``(14, 15)`` are the DVB / V.35 polynomial ``1 + x^14 +
     x^15``. ``init`` is the ``max(delays)`` bits of output history before
-    the stream (zeros when None). ``[..., n]`` uint8 -> ``[..., n]``."""
+    the stream (zeros when None). ``[..., n]`` uint8 -> ``[..., n]``.
+    ``block`` is accepted and ignored: it sizes the JAX package's GF(2)
+    matmul steps, and the output does not depend on it."""
     x = _bits(bits)
     delays = tuple(int(d) for d in delays)
     order, step = max(delays), min(delays)

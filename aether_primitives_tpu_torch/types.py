@@ -12,6 +12,10 @@ import torch
 
 cf32 = torch.complex64
 
+#: Double precision, for host-side golden computations (the JAX package's
+#: alias of the reference's cf64).
+cf64 = torch.complex128
+
 
 def as_cf32(x, device=None) -> torch.Tensor:
     """Coerce array-like input (numpy, list or tensor) to a complex64 tensor.
@@ -19,6 +23,20 @@ def as_cf32(x, device=None) -> torch.Tensor:
     A tensor keeps its device unless ``device`` is given.
     """
     return torch.as_tensor(x, dtype=cf32, device=device)
+
+
+def split_complex(x) -> tuple:
+    """A complex array-like as an ``(re, im)`` pair of float32 tensors."""
+    x = torch.as_tensor(x)
+    if not x.is_complex():
+        x = x.to(cf32)
+    return x.real.to(torch.float32), x.imag.to(torch.float32)
+
+
+def merge_complex(re, im) -> torch.Tensor:
+    """Split re/im float32 planes merged into a complex64 tensor."""
+    return torch.complex(torch.as_tensor(re, dtype=torch.float32),
+                         torch.as_tensor(im, dtype=torch.float32))
 
 
 def stage_device(device, stage: str) -> torch.device:

@@ -79,7 +79,7 @@ def main() -> None:
         "shard(block) + shard(state)": lambda: (
             mesh_mod.shard(block, mesh, ("channel", "time")),
             mesh_mod.shard(box["r"], mesh, ("channel", None))),
-        "halo.left_tail (8 pushes)": lambda: halo.left_tail(xs, ku, "time"),
+        "halo.left_tail (8 pushes, one launch)": lambda: halo.left_tail(xs, ku, "time"),
         "state into the first time shard's slot (map)": lambda: h.map(
             lambda hl, sl, index: sl if index["time"] == 0 else hl, state, with_index=True),
         "8 RX frame calls (map)": lambda: xs.map(chain._local_bits, h),

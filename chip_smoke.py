@@ -38,7 +38,12 @@ in twenty-two phases:
    together, timed, with the RX frame and PFB fold compiler reports;
 3. the RX frame kernel against its plain PyTorch version and the float64
    chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
-   epilogue, with and without carried history;
+   epilogue, with and without carried history; then its other instances
+   and splits (``F7_GEOMETRIES``: the 512-thread tile instance at dec 4,
+   fft_len 4096; the card's own split n1 32, n2 8 at dec 4, fft_len 64;
+   the generic instance for an unpacked chain at dec 5, fft_len 30), each
+   through the chain's two-block streaming gate with one launch a step,
+   against the plain twin given the same split, and timed;
 4. the RX chain's two-block streaming gate, counting kernel launches;
 5. CUDA-event timings of the RX chain's kernel path and plain path;
 6. the Viterbi and BCJR kernels' register and spill reports;
@@ -85,7 +90,9 @@ in twenty-two phases:
     (agreement >= 0.9999), device memory after block 16 and at the end
     within 64 MB, the carried state exact;
 17. CUDA-event timings of cmul, cmul_c64 and streamed_cmul against their
-    twins and one ``torch.mul`` each; the host-fed sustained rates per
+    twins and one ``torch.mul`` each, and of the stream kernel launched
+    straight on outputs made once (``launch_ms``: its time without the
+    wrapper's host time); the host-fed sustained rates per
     depth and source against the resident step and the pinned and pageable
     copy times (medians of four runs); a ``torch.profiler`` split of one
     depth-2 pinned run into copy, kernel and idle;
@@ -95,19 +102,20 @@ in twenty-two phases:
     ``[1,048,576]`` shards, overlap 14,336, on ``{time: 4}``) and at ragged
     ones (float32 overlap 4, misaligned strided rows, overlap equal to the
     span, a ring of one, the exchanged axis first in a two-axis mesh, uint8
-    and complex128), exactly one launch per sending shard;
+    and complex128), exactly one launch per sending card;
 19. the sharded receiver: three consecutive ``[2, 4,194,304]`` blocks through
-    ``sharded_streaming_step_2d``, exactly 8 RX frame and 8 halo launches
-    per call; the concatenated bytes ``torch.equal`` to one ``step`` of the
-    ``[2, 12,582,912]`` capture, every block's bytes and state ``torch.equal``
-    to resident ``streaming_step``, the final state the capture's last 64
-    samples, phase 4's float64 two-block gate on channel 0; and
-    ``sharded_step`` on ``{time: 8}``;
+    ``sharded_streaming_step_2d``, exactly 8 RX frame and 1 halo launches
+    per call (one halo launch per sending card); the concatenated bytes
+    ``torch.equal`` to one ``step`` of the ``[2, 12,582,912]`` capture,
+    every block's bytes and state ``torch.equal`` to resident
+    ``streaming_step``, the final state the capture's last 64 samples,
+    phase 4's float64 two-block gate on channel 0; and ``sharded_step`` on
+    ``{time: 8}``;
 20. the other sharded paths on one 4M block over ``{time: 4}``:
     ``sharded_pfb_os`` (phase 11's configuration) against one-shot
     ``pfb_channelize_os`` (<= -120 dB) with 4 fold launches, ``sharded_pfb``
     against ``pfb_channelize`` (<= -120 dB) and ``sharded_ddc`` (phase 12's
-    configuration) against ``Ddc.step`` (<= -100 dB) with 4 halo launches
+    configuration) against ``Ddc.step`` (<= -100 dB) with 1 halo launch
     each; ``rx_batch_sharded`` on phase 8's 256 captures over ``{channel:
     8}``: payloads, CRC and offsets equal to ``rx_batch``, 8 Viterbi or 128
     BCJR launches;
@@ -146,6 +154,10 @@ K7, K5 = ((0o171, 0o133), 7), ((0o25, 0o33, 0o37), 5)
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 NVLINK_BYTES = 450e9  # one way between two cards of a host
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
+# (dec, fft_len, packed): the RX frame kernel's 512-thread instance, the card's
+# own stage split (the heuristic's n2 is 4) and the generic instance (an
+# unpacked chain whose frame is not whole bytes)
+F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (5, 30, False))
 
 
 def fail(msg: str) -> None:
@@ -291,6 +303,8 @@ def main() -> None:
         if k_db > EVM_DB or kp_db > EVM_DB or not np.isfinite(s).all():
             fail(f"spectrum epilogue, {label}: EVM above {EVM_DB} dB")
     sys.stdout.flush()
+
+    instances = rx_frame_instances(card)
 
     # ---- phase 4: the main path's two-block streaming gate -----------------
     reset_counts()
@@ -513,6 +527,7 @@ def main() -> None:
             "plain_ms": t["plain"],
             **rx_frame_bound,
             "library_ms": None,
+            "instances": instances,
         },
         {
             "name": "viterbi",
@@ -595,6 +610,99 @@ def read_counts() -> dict:
 
     return {k: importlib.import_module(f"aether_primitives_tpu_torch.ops.cuda.{k}").launches
             for k in KERNELS}
+
+
+def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
+                       n_time: int = 1 << 22) -> dict:
+    """Phase 3, the geometries outside the main path's instance (the RX
+    frame kernel's tile512 and generic instances and the card's own stage
+    split): for each of :data:`F7_GEOMETRIES`, the chain's two-block
+    streaming gate on two ``~n_check``-sample blocks (one RX frame launch a
+    step, bits against the float64 chain, the block-2 spectrum, the state);
+    the kernel against its plain twin given the same stage split (spectrum
+    EVM and, where frames are whole bytes, QPSK and BPSK bytes); and both
+    timed on a ``~n_time``-sample block. Returns the kernels' JSON line's
+    ``instances`` entry of the rx_frame kernel."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import capture, gate, stream_blocks
+    from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
+    from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
+
+    dev = torch.device(device)
+    kl = 1 if dev.type == "cuda" else 0
+    out = {}
+    for dec, fft_len, packed in F7_GEOMETRIES:
+        chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec, packed_bits=packed),
+                        device=dev)
+        taps = chain.taps
+        k = taps.shape[-1]
+        instance, n1 = rf.kernel_plan(dec, fft_len, None, k)
+        span = dec * fft_len
+        n = span * max(2, n_check // span)
+        x_full = capture(2 * n, 3300 + fft_len)
+        reset_counts()
+        bits, states = stream_blocks(chain, x_full, n)
+        sync(dev)
+        counts = read_counts()
+        g = gate(chain, x_full, n, bits, states)
+        label = (f"{instance}, dec {dec}, fft_len {fft_len}, n1 {n1}, n2 {span // n1}, "
+                 f"{'packed' if packed else 'unpacked'}")
+        print(f"rx_frame {label}: two-block streaming gate: bit agreement "
+              f"{g['bit_agreement']:.7f} (need >= {AGREEMENT}), block-2 spectrum "
+              f"{g['evm_rms_db']:.2f} dB (need <= {EVM_DB}), state exact {g['state_exact']}, "
+              f"launches {counts} (need rx_frame {2 * kl})")
+        if not g["ok"] or counts != {**NO_LAUNCHES, "rx_frame": 2 * kl}:
+            fail(f"rx_frame {label}: the streaming gate or its launch count")
+        x_dev = torch.from_numpy(x_full).to(dev)
+        blocks = [(x_dev[:n], None), (x_dev[n:].contiguous(), x_dev[n - (k - 1):n])]
+        worst, k_db = 0.0, -np.inf
+        for epi in ("spectrum", "qpsk", "bpsk"):
+            bits_per = {"qpsk": 2, "bpsk": 1}.get(epi)
+            if bits_per and fft_len * bits_per % 8:
+                continue  # not whole bytes per frame: the spectrum path serves the chain
+            for xb, h in blocks:
+                got = rf.rx_frame(xb, taps, dec, fft_len, h, epi)
+                plain = rf.rx_frame_reference(xb, taps, dec, fft_len, h, epi, n1)
+                sync(dev)
+                if epi == "spectrum":
+                    d = evm_db(got, plain)
+                    k_db = max(k_db, d)
+                    worst = max(worst, float((got - plain).abs().max()))
+                    ok = d <= EVM_DB and bool(torch.isfinite(got.abs()).all())
+                else:
+                    a = float((rf.unpack_bits(got) == rf.unpack_bits(plain)).float().mean())
+                    ok = a >= AGREEMENT
+                if not ok:
+                    fail(f"rx_frame {label}, {epi}: kernel and plain twin (n1 {n1}) disagree")
+        print(f"compare rx_frame {label}: kernel vs plain twin at n1 {n1}: spectrum "
+              f"{k_db:.2f} dB RMS EVM (need <= {EVM_DB}), max |kernel - plain| {worst:.3e}; "
+              f"whole-byte epilogues agree >= {AGREEMENT}")
+        xt = torch.from_numpy(capture(span * (n_time // span), 3400)).to(dev)
+        epi = "qpsk" if fft_len * 2 % 8 == 0 else "spectrum"
+        t, runs = timed_pair(lambda: rf.rx_frame(xt, taps, dec, fft_len, None, epi),
+                             lambda: rf.rx_frame_reference(xt, taps, dec, fft_len, None, epi,
+                                                           n1),
+                             iters=(20, 3), runs=2)
+        print(f"time: rx_frame {label}, {epi} on [{xt.shape[0]}]: kernel median "
+              f"{t['kernel']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in runs['kernel'])}), "
+              f"plain twin median {t['plain']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events [{card}]",
+              flush=True)
+        out[f"{instance} dec {dec} fft_len {fft_len}"] = {
+            "n1": n1, "launches": counts["rx_frame"], "max_abs_err": worst,
+            "ms": t["kernel"], "plain_ms": t["plain"], "samples": int(xt.shape[0]),
+        }
+    return out
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def timed_pair(run_kernel, run_plain, iters=(50, 5), runs: int = 4):
@@ -1383,6 +1491,28 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
               f"{med[name]['plain']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in runs['plain'])}; "
               f"mean of 10), torch.mul complex64 median {med[name]['library']:.4f} ms (runs "
               f"{', '.join(f'{v:.4f}' for v in runs['library'])}; mean of 50); CUDA events [{card}]")
+    # the stream kernel launched straight on outputs made once, in turns with
+    # torch.mul: its own time, apart from the wrapper's host time per call
+    launch = None
+    if xr.is_cuda:
+        outs = (torch.empty_like(xr), torch.empty_like(xi))
+        ptrs = tuple(t.data_ptr() for t in (xr, xi, rr, ri, *outs))
+        lib = cases["streamed_cmul"][2]
+
+        def run_launch():
+            sk._launch(ptrs, xr.get_device(), c * n, n // c, True, sk.STAGES, sk.UNROLL,
+                       sk.CTAS_PER_SM)
+
+        turns = {"launch": [], "library": []}
+        for which in ("launch", "library", "library", "launch", "launch", "library"):
+            turns[which].append(time_cuda(run_launch if which == "launch" else lib, 50,
+                                          warmup=2))
+        launch = float(np.median(turns["launch"]))
+        print(f"time: streamed_cmul kernel launched straight (outputs made once): median "
+              f"{launch:.4f} ms (runs {', '.join(f'{v:.4f}' for v in turns['launch'])}), "
+              f"torch.mul complex64 in turns {float(np.median(turns['library'])):.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in turns['library'])}); mean of 50, CUDA events; "
+              f"the gap to the streamed_cmul call above is its wrapper's host time [{card}]")
     nn = n * n
     cmul_bound = bound(8.0 * nn, 6 * 4 * nn)  # 6 ops + 2 scale products; 4 planes in, 2 out
     stream_bound = bound(6.0 * nn, 4 * 4 * nn + 2 * 4 * c * n)  # x and out planes, r once
@@ -1415,6 +1545,7 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
             "plain_ms": med["streamed_cmul"]["plain"],
             **stream_bound,
             "library_ms": med["streamed_cmul"]["library"],
+            "launch_ms": launch,
         },
     )
 
@@ -1457,6 +1588,10 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
 
     def one_card(n):
         return [dev] * n
+
+    def cards_of(mesh):
+        """The mesh's distinct devices: the halo kernel launches once on each."""
+        return len({str(d) for d in mesh.devices.flat})
 
     def spread(n):
         return [torch.device("cuda", i % n_cards) for i in range(n)]
@@ -1515,10 +1650,10 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
             err = max(float((widen(got.shards[c]) - widen(want.shards[c])).abs().max())
                       for c in mesh.coords())
             worst = max(worst, err)
-            need = {**NO_LAUNCHES, "halo": kl * mesh.size}
+            need = {**NO_LAUNCHES, "halo": kl * cards_of(mesh)}
             print(f"compare halo {where}{label} on {dict(mesh.shape)}: kernel vs plain "
                   f"torch.equal {same}, max |diff| {err}, launches {counts['halo']} "
-                  f"(need {need['halo']}: one per sending shard)")
+                  f"(need {need['halo']}: one per sending card)")
             if not same or counts != need:
                 fail(f"halo {where}{label}: kernel and plain twin disagree, or launches "
                      f"{counts} != {need}")
@@ -1553,7 +1688,7 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
         time: 4} mesh of ``devices(8)`` with every gate; returns the mesh
         and the launch counts of the run."""
         mesh = mesh_mod.make_mesh(c2t4, devices=devices(8))
-        per_call = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": 8 * kl}
+        per_call = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": kl * cards_of(mesh)}
         sync_all()
         reset_counts()
         state, outs, states, calls = chain.init_state((n_ch,)), [], [], []
@@ -1599,7 +1734,7 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
     flat = chain.sharded_step(blocks[0][0], mesh8).gather(dev)
     sync_all()
     counts = read_counts()
-    need = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": 8 * kl}
+    need = {**NO_LAUNCHES, "rx_frame": 8 * kl, "halo": kl}
     same = torch.equal(flat, chain.step(blocks[0][0]))
     print(f"sharded_step [{block}] on {{time: 8}}: torch.equal to step {same}, launches "
           f"{counts} (need {need})", flush=True)
@@ -1635,13 +1770,13 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
         f"sharded_pfb (M {m}, P {pfb_p}, left halo {pfb_halo}) on {{time: 4}}",
         lambda: ch.sharded_pfb(x1, m, mesh4, taps_per_branch=pfb_p),
         lambda: ch.pfb_channelize(x1, m, taps_per_branch=pfb_p),
-        {**NO_LAUNCHES, "halo": 4 * kl}, STREAM_DB)
+        {**NO_LAUNCHES, "halo": kl}, STREAM_DB)
     ddc_cfg = DdcConfig(freq=0.1375, decimation=8)
     sharded_vs_one(
         "sharded_ddc (freq 0.1375, /8, 129 taps, left halo 128 mixed samples) on {time: 4}",
         lambda: sharded_ddc(x1, ddc_cfg, mesh4),
         lambda: Ddc(ddc_cfg, device=dev).step(x1),
-        {**NO_LAUNCHES, "halo": 4 * kl}, SHARDED_DDC_DB)
+        {**NO_LAUNCHES, "halo": kl}, SHARDED_DDC_DB)
     del x1
     mesh_c8 = mesh_mod.make_mesh({"channel": 8}, devices=one_card(8))
     if burst is None:
@@ -1682,8 +1817,9 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
         return (time.perf_counter() - t0) / iters * 1e3
 
     def time_exchange(xs, overlap, peak, timer=time_cuda):
-        """Medians (ms per whole exchange: one push per shard) of the
-        kernel, its twin and Tensor.copy_ / zero_ per shard, and the bound."""
+        """Medians (ms per whole exchange: one push per shard, one launch per
+        card) of the kernel, its twin and Tensor.copy_ / zero_ per shard, and
+        the bound."""
         msh = xs.mesh
         j = msh.axis("time")
         size = msh.devices.shape[j]

@@ -198,7 +198,8 @@ def test_cmul_c64_kernel_equals_twin(cuda, shape, offset, conj_b, scale):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,lanes,chunk,offset", [(2048, 2048, 128, 0), (1024, 256, 256, 0),
                                                      (96, 130, 32, 0), (64, 33, 16, 0),
-                                                     (256, 512, 64, 1)])
+                                                     (256, 512, 64, 1), (4096, 64, 1, 0),
+                                                     (131072, 4, 1, 0)])
 def test_streamed_cmul_kernel_equals_twin(cuda, rows, lanes, chunk, offset):
     xr, xi = _dev(_planes((rows, lanes), 19, 2), cuda, offset)
     rr, ri = _dev(_planes((chunk, lanes), 20, 2), cuda, offset)
@@ -216,3 +217,31 @@ def test_streamed_cmul_rejects_indivisible_on_card(cuda):
     r = torch.zeros(64, 128, device=cuda)
     with pytest.raises(ValueError, match="divisible"):
         ts.streamed_cmul(x, x, r, r, chunk_rows=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("unroll", [1, 2, 4])
+@pytest.mark.parametrize("ctas_per_sm", [1, 16])
+def test_streamed_cmul_every_launch_shape_equals_twin(cuda, stages, unroll, ctas_per_sm):
+    # the ring depths, copies per stage and chunk groups the sweep bench times
+    rows, lanes, chunk = 512, 1000, 32
+    xr, xi = _dev(_planes((rows, lanes), 21, 2), cuda)
+    rr, ri = _dev(_planes((chunk, lanes), 22, 2), cuda)
+    want = ts.streamed_cmul_reference(xr, xi, rr, ri)
+    for vec in (True, False):
+        out = torch.empty_like(xr), torch.empty_like(xi)
+        ptrs = tuple(t.data_ptr() for t in (xr, xi, rr, ri, *out))
+        ts._launch(ptrs, cuda.index or 0, chunk * lanes, rows // chunk, vec, stages, unroll,
+                   ctas_per_sm)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_streamed_cmul_chunk_groups_fill_the_card():
+    # x [2048, 2048], chunk_rows 128 on 132 SMs: 128 tiles of 2,048 positions x 4 groups
+    assert ts.chunks_per_cta(128 * 2048, 16, 132, True, 2, 4) == 4
+    assert ts.chunks_per_cta(128 * 2048, 16, 132, True, 1, 1) == 16  # 256 tiles fill it
+    assert ts.chunks_per_cta(4, 131072, 132, False, 1, 4) == 249  # 1 tile x 527 groups
+    assert ts.chunks_per_cta(4, 200000, 132, False, 1, 1000) == 4  # at most 65,535 groups
+    assert ts.chunks_per_cta(1 << 20, 3, 132, True, 4, 16) == 1

@@ -205,7 +205,8 @@ def _check_kernel_case(case, devices):
     want = hk.halo_left_rdma_reference(xs, overlap, axis_name)
     for d in {t.device for t in xs.shards.flat}:
         torch.cuda.synchronize(d)
-    assert hk.launches - before == m.size  # one push per sending shard
+    # one launch per sending card, whatever the shards on it
+    assert hk.launches - before == len({t.device for t in xs.shards.flat})
     for c in m.coords():
         assert got.shards[c].device == xs.shards[c].device
         assert torch.equal(got.shards[c], want.shards[c]), c
@@ -246,3 +247,28 @@ def test_cuda_kernel_equals_twin_across_cards(cuda, name):
     size = int(np.prod(list(CARD_CASES[name][2].values())))
     _check_kernel_case(CARD_CASES[name],
                        [torch.device("cuda", i % n_cards) for i in range(size)])
+
+
+@pytest.mark.cuda
+def test_cuda_one_launch_per_card_slices_one_buffer(cuda):
+    m = mesh_mod.make_mesh({"channel": 2, "time": 4}, devices=[cuda] * 8)
+    xs = mesh_mod.shard(torch.from_numpy(_data((2, 4096), np.complex64)), m,
+                        ("channel", "time"))
+    before = hk.launches
+    got = hk.halo_left_rdma(xs, 64, "time")
+    torch.cuda.synchronize()
+    assert hk.launches == before + 1
+    bases = {t.untyped_storage().data_ptr() for t in got.shards.flat}
+    assert len(bases) == 1  # the eight halos are slices of one allocation
+    want = hk.halo_left_rdma_reference(xs, 64, "time")
+    assert all(torch.equal(got.shards[c], want.shards[c]) for c in m.coords())
+
+
+@pytest.mark.cuda
+def test_cuda_more_shards_on_a_card_than_one_launch_takes_raise(cuda):
+    m = mesh_mod.make_mesh({"time": 129}, devices=[cuda] * 129)
+    xs = mesh_mod.shard(torch.zeros(129 * 8, device=cuda), m, ("time",))
+    before = hk.launches
+    with pytest.raises(ValueError, match="at most 128"):
+        hk.halo_left_rdma(xs, 4, "time")
+    assert hk.launches == before

@@ -151,9 +151,11 @@ def test_fast_path_condition_matches_jax(jax_modem, dec, fft_len, mod):
 
 @pytest.mark.parametrize("dec,fft_len,mod", [(1, 256, "qpsk"), (4, 4096, "bpsk")])
 def test_geometries_outside_the_kernel_match_jax_on_the_cpu(jax_modem, dec, fft_len, mod):
-    # geometries the CUDA kernel does not take (n2 = 2; a frame over 64 KB)
-    # still go through the RX frame op's plain version on the CPU
-    assert not rf.kernel_supports(dec, fft_len)
+    # geometries outside the CUDA kernel's main instance at the JAX split
+    # (the heuristic's n2 = 2, which the card splits as n1 32 instead; a
+    # frame over 64 KB, the 512-thread instance) still go through the RX
+    # frame op's plain version on the CPU, at the JAX package's split
+    assert rf.kernel_plan(dec, fft_len) != ("tile256", rf._fir._fused_stage_n1(dec, fft_len))
     jcfg = jax_modem.RxChainConfig(fft_len=fft_len, decimation=dec, modulation=mod,
                                    fir_mode="fused", fft_backend="matmul",
                                    packed_bits=True)
@@ -295,15 +297,17 @@ def test_cuda_chain_goes_through_the_kernel(cuda, mod):
 
 @pytest.mark.cuda
 def test_cuda_chain_raises_where_the_kernel_does_not_go(cuda):
-    # fft_len 4096 at decimation 4 is a 128 KB frame, which the kernel does
-    # not take: the chain raises instead of running the plain version
-    chain = RxChain(RxChainConfig(fft_len=4096), device=cuda)
-    assert chain._sign_fast_path_ok()
+    # fft_len 3750 at decimation 4 splits only as n1 125 x n2 120, which
+    # only the generic instance takes, and its four planes of a 15,000-sample
+    # frame need 240 KB of shared memory: the chain raises instead of
+    # running the plain version
+    chain = RxChain(RxChainConfig(fft_len=3750), device=cuda)
+    assert chain._sign_fast_path_ok() and rf.kernel_supports(4, 3750, None, 65) is None
     before = rf.launches
     with pytest.raises(ValueError, match="does not take"):
-        chain.step(torch.zeros(4 * 4096, dtype=torch.complex64))
+        chain.step(torch.zeros(4 * 3750, dtype=torch.complex64))
     with pytest.raises(ValueError, match="does not take"):
-        chain.streaming_step(torch.zeros(4 * 4096, dtype=torch.complex64),
+        chain.streaming_step(torch.zeros(4 * 3750, dtype=torch.complex64),
                              chain.init_state())
     assert rf.launches == before
 

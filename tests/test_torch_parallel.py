@@ -261,7 +261,7 @@ def test_cuda_sharded_streaming_goes_through_the_kernels(cuda, modulation):
         bits, state = chain.sharded_streaming_step_2d(x[:, i * n:(i + 1) * n], state, m)
         outs.append(bits.gather())
     torch.cuda.synchronize()
-    assert (hk.launches - h0, rf.launches - r0) == (16, 16)
+    assert (hk.launches - h0, rf.launches - r0) == (2, 16)  # halo: one per call on one card
     assert torch.equal(torch.cat(outs, dim=-1), chain.step(x))
     assert torch.equal(state.gather(), x[:, -(chain.taps.shape[-1] - 1):])
 

@@ -139,12 +139,36 @@ def test_plain_batched_rows_equal_row_calls():
 
 
 def test_kernel_supports():
-    assert rf.kernel_supports(4, 2048)  # n1 128, n2 64: the main path
-    assert rf.kernel_supports(4, 256)
-    assert rf.kernel_supports(1, 2048)
-    assert not rf.kernel_supports(1, 256)  # n2 = 2
-    assert not rf.kernel_supports(4, 4096)  # a frame over 64 KB
-    assert not rf.kernel_supports(4, 8192)  # no two-stage split
+    assert rf.kernel_supports(4, 2048) == "tile256"  # n1 128, n2 64: the main path
+    assert rf.kernel_supports(4, 256) == "tile256"
+    assert rf.kernel_supports(1, 2048) == "tile256"
+    assert rf.kernel_supports(1, 256) == "tile256"  # the heuristic's n2 = 2: the card's n1 32
+    assert rf.kernel_supports(4, 4096) == "tile512"  # a frame over 64 KB
+    assert rf.kernel_supports(5, 30) == "generic"  # no n1 % 8 == 0 divides 30
+    assert rf.kernel_supports(4, 8192) is None  # 256 KB a frame: beyond shared memory
+
+
+@pytest.mark.parametrize("dec,fft_len,stage_n1,want", [
+    (4, 2048, None, ("tile256", 128)),  # the main path keeps the heuristic's split
+    (4, 4096, None, ("tile512", 128)),
+    (4, 64, None, ("tile256", 32)),  # the heuristic's n1 64 leaves n2 = 4
+    (1, 128, None, ("tile256", 16)),  # the heuristic's n1 128 leaves n2 = 1
+    (2, 8192, None, ("tile512", 128)),  # the heuristic has no split (G' over 4 MB)
+    (5, 30, None, ("generic", 30)),
+    (1, 32, None, ("generic", 32)),  # a span under 64
+    (4, 64, 64, ("generic", 64)),  # a caller's split is kept as given
+    (4, 2048, 64, ("tile256", 64)),
+])
+def test_kernel_plan_picks_instance_and_split(dec, fft_len, stage_n1, want):
+    assert rf.kernel_plan(dec, fft_len, stage_n1, 65) == want
+
+
+def test_kernel_plan_refuses_frames_beyond_shared_memory():
+    assert rf.kernel_plan(8, 4096) is None  # span 32,768
+    assert rf.kernel_plan(4, 3750) is None  # generic, n1 125: 4 planes of 15,000
+    assert rf.kernel_plan(4, 3500) == ("generic", 125)  # 4 planes of 14,000
+    assert rf.kernel_plan(4, 3500, n_taps=1500) is None  # the deltas tip it over
+    assert 4 * 4 * 14000 + 8 * 1499 > rf.SMEM_LIMIT >= 4 * 4 * 14000
 
 
 def test_wrapper_rejects_what_it_does_not_take():
@@ -225,10 +249,49 @@ def test_kernel_batched_rows_and_identity_taps(cuda):
 @pytest.mark.cuda
 def test_kernel_raises_instead_of_falling_back(cuda):
     before = rf.launches
-    with pytest.raises(ValueError):
-        rf.rx_frame(torch.zeros(4 * 4096, dtype=torch.complex64, device=cuda),
-                    TAPS, 4, 4096)
+    with pytest.raises(ValueError, match="232448 bytes"):
+        rf.rx_frame(torch.zeros(8 * 4096, dtype=torch.complex64, device=cuda),
+                    TAPS, 8, 4096)
     strided = torch.zeros(2 * 4 * 256 * 2, dtype=torch.complex64, device=cuda)[::2]
     with pytest.raises(ValueError):
         rf.rx_frame(strided, TAPS, 4, 256)
     assert rf.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec,n_fft,instance", [
+    (4, 4096, "tile512"), (4, 64, "tile256"), (1, 128, "tile256"), (5, 30, "generic"),
+    (2, 12, "generic"),
+])
+@pytest.mark.parametrize("epilogue", ["qpsk", "bpsk", "spectrum"])
+def test_kernel_instances_match_the_twin_at_the_same_split(cuda, dec, n_fft, instance, epilogue):
+    # every instance against the plain twin given the card's own stage split
+    # the chain's default taps, cut to fit the 24-sample frame of dec 2, fft_len 12
+    ntaps = 16 * dec + 1 if dec * n_fft > 16 * dec else 9
+    taps = _default_lowpass(ntaps, 1.0 / (2 * dec)) if dec > 1 else TAPS[:1]
+    k = taps.shape[-1]
+    plan = rf.kernel_plan(dec, n_fft, None, k)
+    assert plan[0] == instance
+    bits = {"qpsk": 2, "bpsk": 1}.get(epilogue)
+    if bits and n_fft * bits % 8:
+        pytest.skip("the bit epilogues write whole bytes per frame")
+    x = _signal(dec * n_fft * 12, 105)
+    ref = numpy_reference_spectra(x, taps, dec, n_fft)
+    blocks = _halves(x, k, cuda)
+    before = rf.launches
+    got = [rf.rx_frame(b, taps, dec, n_fft, h, epilogue) for b, h in blocks]
+    torch.cuda.synchronize()
+    assert rf.launches == before + len(blocks)
+    plain = [rf.rx_frame_reference(b, taps, dec, n_fft, h, epilogue, plan[1]) for b, h in blocks]
+    if epilogue == "spectrum":
+        got = np.concatenate([g.cpu().numpy() for g in got])
+        plain = np.concatenate([p.cpu().numpy() for p in plain])
+        assert np.isfinite(got).all()
+        assert evm_rms_db(got, plain) <= EVM_DB
+        assert evm_rms_db(got, ref) <= EVM_DB
+    else:
+        got = np.concatenate([unpack(g).cpu().numpy() for g in got])
+        plain = np.concatenate([unpack(p).cpu().numpy() for p in plain])
+        want, margin = _decisions(ref, epilogue)
+        _check_bits(got, plain, margin)
+        _check_bits(got, want, margin)
