@@ -62,6 +62,19 @@ def card_label() -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
+def max_sm_clock_hz() -> float:
+    """The first card's maximum SM clock as ``nvidia-smi`` reports it, in
+    Hz. Raises RuntimeError where it reports none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"nvidia-smi reported no maximum SM clock: {e!r}") from e
+
+
 def stream_blocks(chain: RxChain, x_full: np.ndarray, n: int):
     """The main path: consecutive ``n``-sample blocks of ``x_full`` through
     ``chain.streaming_step`` from a zero state. Returns the per-block bits
@@ -134,6 +147,27 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_device_ms(fn, match: str, calls: int = 20) -> float:
+    """Device milliseconds per call of ``fn()`` spent in the kernels whose
+    name holds ``match``, by ``torch.profiler`` (CUPTI) over ``calls`` calls
+    after one: the kernels' own time, without the host's time between
+    launches. Raises where the profiler recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and match in e.name]
+    if not us:
+        raise RuntimeError(f"the profiler recorded no device time for kernels named {match!r}")
+    return sum(us) / calls / 1e3
 
 
 def resident_streaming(chain: RxChain, nblocks: int = 4, seed: int = 816):

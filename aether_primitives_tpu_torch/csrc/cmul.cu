@@ -19,6 +19,11 @@
 //   values per float4), so the complex signature moves the same bytes as
 //   the split one; the TPU wrapper split and merged its planes through
 //   copies, which on a card would nearly double the traffic.
+// - One float4 a stream per thread, default caching, one float4 group a
+//   thread: no other launch shape is faster on an H100. Unroll 1-4 x cache
+//   hints x grid (benches/torch_cmul_sweep.py, built from its own
+//   benches/torch_cmul_sweep.cu) reach at best 80-82% of the byte bound,
+//   as this shape and torch.mul do.
 // The TPU kernel's row tiling and its VMEM budget (cmul.py:37-58) are a TPU
 // workaround and have no counterpart here.
 
@@ -104,13 +109,30 @@ unsigned grid_for(long long work) {
   return static_cast<unsigned>(blocks);
 }
 
+// Runs launch() with card `device` current (and the caller's put back).
+template <class F>
+int on_device(int device, F&& launch) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int rc = launch();
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
 }  // namespace
 
-// vec != 0: every pointer is 16-byte aligned (checked by the wrapper).
+// Plain C entry points, loaded with ctypes; each returns the cudaError_t of
+// the launch (0 = success) and launches on `stream` of card `device`, made
+// current for the launch where it is not. vec != 0: every pointer is
+// 16-byte aligned (checked by the wrapper).
 extern "C" int cmul_planes_launch(const void* ar, const void* ai, const void* br,
                                   const void* bi, void* out_re, void* out_im,
                                   long long n, float scale, int conj_b, int vec,
-                                  void* stream) {
+                                  int device, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a_r = static_cast<const float*>(ar);
@@ -119,28 +141,32 @@ extern "C" int cmul_planes_launch(const void* ar, const void* ai, const void* br
   const float* b_i = static_cast<const float*>(bi);
   float* o_r = static_cast<float*>(out_re);
   float* o_i = static_cast<float*>(out_im);
-  if (vec) {
-    cmul_planes_kernel<true><<<grid_for(n / 4 > 0 ? n / 4 : 1), kThreads, 0, st>>>(
-        a_r, a_i, b_r, b_i, o_r, o_i, n, scale, conj_b);
-  } else {
-    cmul_planes_kernel<false><<<grid_for(n), kThreads, 0, st>>>(
-        a_r, a_i, b_r, b_i, o_r, o_i, n, scale, conj_b);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    if (vec) {
+      cmul_planes_kernel<true><<<grid_for(n / 4 > 0 ? n / 4 : 1), kThreads, 0, st>>>(
+          a_r, a_i, b_r, b_i, o_r, o_i, n, scale, conj_b);
+    } else {
+      cmul_planes_kernel<false><<<grid_for(n), kThreads, 0, st>>>(
+          a_r, a_i, b_r, b_i, o_r, o_i, n, scale, conj_b);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int cmul_c64_launch(const void* a, const void* b, void* out, long long n,
-                               float scale, int conj_b, int vec, void* stream) {
+                               float scale, int conj_b, int vec, int device, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* va = static_cast<const float2*>(a);
   const float2* vb = static_cast<const float2*>(b);
   float2* vo = static_cast<float2*>(out);
-  if (vec) {
-    cmul_c64_kernel<true><<<grid_for(n / 2 > 0 ? n / 2 : 1), kThreads, 0, st>>>(
-        va, vb, vo, n, scale, conj_b);
-  } else {
-    cmul_c64_kernel<false><<<grid_for(n), kThreads, 0, st>>>(va, vb, vo, n, scale, conj_b);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    if (vec) {
+      cmul_c64_kernel<true><<<grid_for(n / 2 > 0 ? n / 2 : 1), kThreads, 0, st>>>(
+          va, vb, vo, n, scale, conj_b);
+    } else {
+      cmul_c64_kernel<false><<<grid_for(n), kThreads, 0, st>>>(va, vb, vo, n, scale, conj_b);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

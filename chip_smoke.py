@@ -48,14 +48,20 @@ in twenty-two phases:
 5. CUDA-event timings of the RX chain's kernel path and plain path;
 6. the Viterbi and BCJR kernels' register and spill reports;
 7. the Viterbi and BCJR kernels against their plain twins at the burst
-   path's shapes, bit for bit (``array_equal``);
+   path's shapes, bit for bit (``array_equal`` / ``torch.equal``); for the
+   BCJR kernel also Lw 1, 2, 95, 97, N 1, 77, 1,000, 2,570, exact ties
+   with -0.0, random tables of every state count it takes, and the meet
+   instance at both its CTA widths (16 and 8 columns);
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for both FECs;
    every payload exact and CRC-ok, exactly 1 Viterbi and 16 BCJR launches
    per call, and the first 8 bursts equal to the port's CPU run;
-9. CUDA-event timings of each burst kernel against its plain twin and of
-   ``rx_batch`` end to end, and a ``torch.profiler`` split of ``rx_batch``
-   into front end, decoder kernels and the rest;
+9. CUDA-event timings of each burst kernel (and the BCJR kernel at K=7)
+   against its plain twin and of ``rx_batch`` end to end, the BCJR
+   kernel's device time (``torch.profiler``) beside its chain floor (an
+   estimate from assumed operation counts, on a line of its own), and a
+   ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
+   and the rest;
 10. the PFB fold kernel against its plain twin, bit for bit
     (``torch.equal``), at the channelizer's shapes: the analysis fold, the
     oversampled and the critically sampled synthesis spreads, and a ragged
@@ -90,9 +96,9 @@ in twenty-two phases:
     (agreement >= 0.9999), device memory after block 16 and at the end
     within 64 MB, the carried state exact;
 17. CUDA-event timings of cmul, cmul_c64 and streamed_cmul against their
-    twins and one ``torch.mul`` each, and of the stream kernel launched
-    straight on outputs made once (``launch_ms``: its time without the
-    wrapper's host time); the host-fed sustained rates per
+    twins and one ``torch.mul`` each, and of each kernel launched straight
+    on outputs made once (``launch_ms``: its time without the wrapper's
+    host time); the host-fed sustained rates per
     depth and source against the resident step and the pinned and pageable
     copy times (medians of four runs); a ``torch.profiler`` split of one
     depth-2 pinned run into copy, kernel and idle;
@@ -152,6 +158,9 @@ PAYLOAD, CAPTURE, BURSTS = 600, 16384, 256
 K7, K5 = ((0o171, 0o133), 7), ((0o25, 0o33, 0o37), 5)
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# the BCJR chain floor: dependent FP32 operations a step and their latency in
+# cycles (the clock is nvidia-smi's clocks.max.sm: cli.max_sm_clock_hz)
+CHAIN_OPS, OP_CYCLES = 6, 4
 NVLINK_BYTES = 450e9  # one way between two cards of a host
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
 # (dec, fft_len, packed): the RX frame kernel's 512-thread instance, the card's
@@ -209,6 +218,62 @@ def burst_captures(pm, bursts: int = BURSTS, seed: int = 4242):
     return payloads, caps
 
 
+def random_tables(s_count: int, seed: int, pattern=None):
+    """A random valid binary trellis of ``s_count`` states (two successors
+    and two predecessors each) with random coefficients, as hashable tables;
+    ``pattern`` keeps that ``(nxt, prev_s)`` (tests/test_torch_bcjr.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if pattern is None:
+        nxt = rng.permutation(np.repeat(np.arange(s_count), 2)).reshape(s_count, 2)
+        prev_s = np.zeros((s_count, 2), np.int64)
+        fill = np.zeros(s_count, np.int64)
+        for s in range(s_count):
+            for u in (0, 1):
+                prev_s[nxt[s, u], fill[nxt[s, u]]] = s
+                fill[nxt[s, u]] += 1
+    else:
+        nxt, prev_s = (np.asarray(p) for p in pattern)
+    coef = [np.round(rng.normal(size=(s_count, 2)), 3) for _ in range(4)]
+    return tuple(tuple(map(tuple, a.tolist())) for a in (nxt, prev_s, *coef))
+
+
+def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
+    """Phase 7's BCJR cases, ``(label, tables, (ls, lp), Lw)``: the path's
+    shape for RSC-8 and K=7; Lw 1, 2, 95 and 97; N 1, 77, 1,000 and 2,570
+    (the last CTA not full); integer-valued LLRs with -0.0 (exact ties);
+    random valid tables for every state count the kernel takes, and random
+    coefficients on the RSC-8 pattern (not through its branch-metric
+    classes: the generic instance)."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.ops import fec
+
+    rng = np.random.default_rng(seed)
+    dev = spans[0].device
+
+    def normal(lw_c, n):
+        return tuple(torch.from_numpy((rng.normal(size=(lw_c, n)) * 3).astype(np.float32))
+                     .to(dev) for _ in range(2))
+
+    k7 = fec._conv_soft_coeffs(*K7)
+    cases = [("RSC-8", None, spans, lw), ("K=7 conv", k7, spans, lw)]
+    cases += [("RSC-8", None, normal(lw_c, cols), lw_c) for lw_c in (1, 2, 95, 97)]
+    cases += [("RSC-8", None, normal(lw, n), lw) for n in (1, 77, 1000, 2570)]
+    ties = [rng.integers(-2, 3, (lw, cols)).astype(np.float32) for _ in range(2)]
+    for t in ties:
+        t[(t == 0) & (rng.random(t.shape) < 0.5)] = -0.0
+    ties = tuple(torch.from_numpy(t).to(dev) for t in ties)
+    cases += [("RSC-8 ties and -0.0", None, ties, lw), ("K=7 conv ties and -0.0", k7, ties, lw)]
+    cases += [(f"random S {s_count}", random_tables(s_count, seed + s_count), spans, lw)
+              for s_count in bk.KERNEL_STATES]
+    cases.append(("random coefficients on the RSC-8 pattern",
+                  random_tables(8, seed, pattern=bk.rsc8_tables()[:2]), spans, lw))
+    return cases
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -216,8 +281,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     from aether_primitives_tpu_torch.cli import (
-        BLOCK, capture, card_label, gate, numpy_reference_spectra,
-        resident_streaming, stream_blocks, time_cuda,
+        BLOCK, capture, card_label, gate, kernel_device_ms, max_sm_clock_hz,
+        numpy_reference_spectra, resident_streaming, stream_blocks, time_cuda,
     )
     from aether_primitives_tpu_torch.models import (
         PacketConfig, PacketModem, RxChain, RxChainConfig,
@@ -425,16 +490,27 @@ def main() -> None:
     spans = [torch.from_numpy((rng.normal(size=(lw_t, cols_t)) * 3).astype(np.float32)).cuda()
              for _ in range(2)]
     bcjr_err = 0.0
-    for label, tables in (("RSC-8", None), ("K=7 conv", fec._conv_soft_coeffs(*K7))):
-        got = bk.bcjr_windowed_llr(spans[0], spans[1], lw_t, tables)
-        plain = bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t, tables)
+    for label, tables, (ls_c, lp_c), lw_c in bcjr_cases(bk, spans, lw_t, cols_t):
+        got = bk.bcjr_windowed_llr(ls_c, lp_c, lw_c, tables)
+        plain = bk.bcjr_windowed_llr_reference(ls_c, lp_c, lw_c, tables)
         torch.cuda.synchronize()
-        err = float((got - plain).abs().max())
+        err = float((got - plain).abs().max()) if got.numel() else 0.0
         bcjr_err = max(bcjr_err, err)
-        print(f"compare bcjr {label} Lw {lw_t} x N {cols_t}: kernel vs plain "
-              f"array_equal {torch.equal(got, plain)}, max |diff| {err}")
+        print(f"compare bcjr {label} Lw {lw_c} x N {ls_c.shape[1]} "
+              f"({bk.kernel_plan(tables, lw_c)}): kernel vs plain torch.equal "
+              f"{torch.equal(got, plain)}, max |diff| {err}")
         if not torch.equal(got, plain):
             fail(f"bcjr {label}: kernel and plain twin disagree")
+    rsc8_cls = bk._host_tables(bk.rsc8_tables())[3]
+    want = bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t)
+    for cols in bk.MEET_COLS:  # both CTA widths the meet instance ships
+        got = torch.empty_like(want)
+        bk._launch_meet(spans[0], spans[1], got, lw_t, cols, rsc8_cls)
+        torch.cuda.synchronize()
+        print(f"compare bcjr RSC-8 meet instance at {cols} columns a CTA: kernel vs plain "
+              f"torch.equal {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            fail(f"bcjr meet instance at {cols} columns a CTA disagrees with the twin")
     sys.stdout.flush()
 
     # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
@@ -471,11 +547,15 @@ def main() -> None:
     # ---- phase 9: burst timings --------------------------------------------
     sym_v = llr_v.reshape(BURSTS, -1, 2).contiguous()
     lw_v = sym_v.shape[1]
+    k7_tables = fec._conv_soft_coeffs(*K7)
     kernel_calls = {
         "viterbi": (lambda: vk.viterbi_lanes(sym_v, lw_v, 2, K7[0], 7, True, True),
                     lambda: vk.viterbi_lanes_reference(sym_v, lw_v, 2, K7[0], 7, True, True)),
         "bcjr": (lambda: bk.bcjr_windowed_llr(spans[0], spans[1], lw_t),
                  lambda: bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t)),
+        "bcjr K=7 (S 64, generic instance)": (
+            lambda: bk.bcjr_windowed_llr(spans[0], spans[1], lw_t, k7_tables),
+            lambda: bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t, k7_tables)),
     }
     kt = {}
     for kernel, (run_kernel, run_plain) in kernel_calls.items():
@@ -487,8 +567,8 @@ def main() -> None:
                 elif run < 2:
                     runs["plain"].append(time_cuda(run_plain, 2, warmup=1))
         kt[kernel] = {k: float(np.median(v)) for k, v in runs.items()}
-        print(f"time: {kernel} kernel median {kt[kernel]['kernel']:.4f} ms (runs "
-              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}; mean of 50 calls), plain "
+        print(f"time: {kernel} kernel median {kt[kernel]['kernel']:.5f} ms (runs "
+              f"{', '.join(f'{v:.5f}' for v in runs['kernel'])}; mean of 50 calls), plain "
               f"twin median {kt[kernel]['plain']:.2f} ms (runs "
               f"{', '.join(f'{v:.2f}' for v in runs['plain'])}; mean of 2 calls), same "
               f"spans, CUDA events [{card}]")
@@ -497,6 +577,28 @@ def main() -> None:
     vit_bound = bound(BURSTS * lw_v * 64 * (4 * 2 + 3), sym_v.numel() * 4 + BURSTS * lw_v)
     # per step and column 34 S + 1 ops (csrc/bcjr.cu); bytes: two spans in, LLRs out
     bcjr_bound = bound(lw_t * cols_t * (34 * 8 + 1), 3 * lw_t * cols_t * 4)
+    # The chain floor of the meet instance, an estimate and not a
+    # measurement: each warp walks Lw dependent steps (forward and backward
+    # side by side), and a step's chain is taken as 6 dependent FP32
+    # operations (add the branch metric, the max of two candidates, a
+    # three-level max tree over 8 states, the subtraction) of an assumed 4
+    # cycles of latency each, at the card's maximum SM clock as nvidia-smi
+    # reports it: Lw x 6 x 4 / f.
+    clock_hz = max_sm_clock_hz()
+    chain_floor = lw_t * CHAIN_OPS * OP_CYCLES / clock_hz * 1e3
+    # the kernels' own device time (torch.profiler): a loop of calls above is
+    # bound by the wrapper's host time where a launch is shorter than it
+    bcjr_dev = kernel_device_ms(kernel_calls["bcjr"][0], "bcjr_kernel")
+    k7_dev = kernel_device_ms(kernel_calls["bcjr K=7 (S 64, generic instance)"][0],
+                              "bcjr_kernel")
+    print(f"bound: bcjr {bcjr_bound['bound_ms']:.5f} ms by {bcjr_bound['bound_by']}; kernel "
+          f"device time {bcjr_dev:.5f} ms a launch (torch.profiler, 20 launches), instance "
+          f"{bk.kernel_plan(None, lw_t)}; K=7 (S 64, generic instance) device time "
+          f"{k7_dev:.5f} ms a launch [{card}]")
+    print(f"chain floor (estimate, not measured): bcjr {chain_floor:.5f} ms = {lw_t} steps x "
+          f"{CHAIN_OPS} dependent FP32 ops a step (assumed) x {OP_CYCLES} cycles each "
+          f"(assumed) at {clock_hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm); the kernel's "
+          f"measured device time is {bcjr_dev / chain_floor:.1f}x it [{card}]")
 
     e2e = {}
     for fec_name, pm in modems.items():
@@ -552,6 +654,10 @@ def main() -> None:
             "plain_ms": kt["bcjr"]["plain"],
             **bcjr_bound,
             "library_ms": None,
+            "device_ms": bcjr_dev,
+            "instance": bk.kernel_plan(None, lw_t)[0],
+            "k7_ms": kt["bcjr K=7 (S 64, generic instance)"]["kernel"],
+            "k7_device_ms": k7_dev,
         },
         pfb_entry,
         cmul_entry,
@@ -1491,28 +1597,38 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
               f"{med[name]['plain']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in runs['plain'])}; "
               f"mean of 10), torch.mul complex64 median {med[name]['library']:.4f} ms (runs "
               f"{', '.join(f'{v:.4f}' for v in runs['library'])}; mean of 50); CUDA events [{card}]")
-    # the stream kernel launched straight on outputs made once, in turns with
-    # torch.mul: its own time, apart from the wrapper's host time per call
-    launch = None
+    # the cmul (planes, complex64) and stream kernels launched straight on
+    # outputs made once, in turns with torch.mul: their own time, apart from
+    # the wrapper's host time per call
+    launch = {"cmul": None, "cmul_c64": None, "streamed_cmul": None}
     if xr.is_cuda:
+        dev = xr.get_device()
         outs = (torch.empty_like(xr), torch.empty_like(xi))
-        ptrs = tuple(t.data_ptr() for t in (xr, xi, rr, ri, *outs))
-        lib = cases["streamed_cmul"][2]
-
-        def run_launch():
-            sk._launch(ptrs, xr.get_device(), c * n, n // c, True, sk.STAGES, sk.UNROLL,
-                       sk.CTAS_PER_SM)
-
-        turns = {"launch": [], "library": []}
-        for which in ("launch", "library", "library", "launch", "launch", "library"):
-            turns[which].append(time_cuda(run_launch if which == "launch" else lib, 50,
-                                          warmup=2))
-        launch = float(np.median(turns["launch"]))
-        print(f"time: streamed_cmul kernel launched straight (outputs made once): median "
-              f"{launch:.4f} ms (runs {', '.join(f'{v:.4f}' for v in turns['launch'])}), "
-              f"torch.mul complex64 in turns {float(np.median(turns['library'])):.4f} ms (runs "
-              f"{', '.join(f'{v:.4f}' for v in turns['library'])}); mean of 50, CUDA events; "
-              f"the gap to the streamed_cmul call above is its wrapper's host time [{card}]")
+        s_ptrs = tuple(t.data_ptr() for t in (xr, xi, rr, ri, *outs))
+        p_ptrs = tuple(t.data_ptr() for t in (*a, *outs))
+        out_c = torch.empty_like(ac)
+        c_ptrs = (ac.data_ptr(), bc.data_ptr(), out_c.data_ptr())
+        straight = {
+            "cmul": (lambda: cm._launch_planes(p_ptrs, dev, n * n, 1.0, False, True),
+                     cases["cmul"][2]),
+            "cmul_c64": (lambda: cm._launch_c64(c_ptrs, dev, n * n, 1.0, False, True),
+                         cases["cmul_c64"][2]),
+            "streamed_cmul": (lambda: sk._launch(s_ptrs, dev, c * n, n // c, True, sk.STAGES,
+                                                 sk.UNROLL, sk.CTAS_PER_SM),
+                              cases["streamed_cmul"][2]),
+        }
+        for name, (run_launch, lib) in straight.items():
+            turns = {"launch": [], "library": []}
+            for which in ("launch", "library", "library", "launch", "launch", "library"):
+                turns[which].append(time_cuda(run_launch if which == "launch" else lib, 50,
+                                              warmup=2))
+            launch[name] = float(np.median(turns["launch"]))
+            print(f"time: {name} kernel launched straight (outputs made once): median "
+                  f"{launch[name]:.4f} ms (runs {', '.join(f'{v:.4f}' for v in turns['launch'])}"
+                  f"), torch.mul complex64 in turns {float(np.median(turns['library'])):.4f} ms "
+                  f"(runs {', '.join(f'{v:.4f}' for v in turns['library'])}); mean of 50, CUDA "
+                  f"events; the gap to the {name} call above is its wrapper's host time "
+                  f"[{card}]")
     nn = n * n
     cmul_bound = bound(8.0 * nn, 6 * 4 * nn)  # 6 ops + 2 scale products; 4 planes in, 2 out
     stream_bound = bound(6.0 * nn, 4 * 4 * nn + 2 * 4 * c * n)  # x and out planes, r once
@@ -1533,6 +1649,9 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
             "plain_ms": med["cmul"]["plain"],
             **cmul_bound,
             "library_ms": med["cmul"]["library"],
+            "launch_ms": launch["cmul"],
+            "c64_ms": med["cmul_c64"]["kernel"],
+            "c64_launch_ms": launch["cmul_c64"],
         },
         {
             "name": "stream",
@@ -1545,7 +1664,7 @@ def elementwise_timing(card: str, ew: dict) -> tuple:
             "plain_ms": med["streamed_cmul"]["plain"],
             **stream_bound,
             "library_ms": med["streamed_cmul"]["library"],
-            "launch_ms": launch,
+            "launch_ms": launch["streamed_cmul"],
         },
     )
 

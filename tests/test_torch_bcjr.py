@@ -6,10 +6,17 @@ and the K=7 conv tables; the windowed constituent decoder and the whole
 turbo decode (window 64, guard 16, 4 iterations) against JAX's XLA scans;
 the encoder and interleaver against JAX's. The reference decoders are exact
 (max-log, fixed expression tree), so LLRs and bits are compared with
-``np.array_equal``: no tolerance. The CUDA kernel is held against the twin
-on a card (``cuda`` marker; skipped without one; run with ``python -m
-pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_bcjr.py``).
+``np.array_equal``: no tolerance. The wrapper's choice of kernel instance
+and the compile-time RSC-8 trellis in ``csrc/bcjr.cu`` are checked on the
+CPU, and so is the meet-in-the-middle schedule of that instance (a numpy
+model of its order of operations, bit for bit against the twin). The CUDA
+kernel is held against the twin on a card (``cuda`` marker; skipped without
+one; run with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_bcjr.py``).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -144,6 +151,199 @@ def test_backends_and_argument_checks():
                              torch.zeros(4, 5, dtype=torch.float64), 4)
 
 
+def _swapped_rsc8():
+    """The RSC-8 tables with one ``nxt`` entry swapped (and ``prev_s``
+    left as it is): a table set outside the meet instance's pattern."""
+    nxt, *rest = bk.rsc8_tables()
+    rows = [list(r) for r in nxt]
+    rows[1] = rows[1][::-1]
+    return (tuple(map(tuple, rows)), *rest)
+
+
+def _cu_table(name):
+    src = (Path(bk.__file__).resolve().parents[2] / "csrc" / "bcjr.cu").read_text()
+    body = re.search(rf"static constexpr int {name}\[16\] = \{{([^}}]*)\}};", src).group(1)
+    return np.array([int(v) for v in body.split(",")]).reshape(8, 2)
+
+
+def test_kernel_plan_picks_the_instance():
+    assert bk.kernel_plan(None, 96) == ("rsc8", 16)
+    assert bk.kernel_plan(bk.rsc8_tables(), 96) == ("rsc8", 16)
+    assert bk.kernel_plan(CONV_K7, 96) == ("generic", 0)
+    assert bk.kernel_plan(_swapped_rsc8(), 96) == ("generic", 0)
+    # other coefficients on the RSC-8 pattern stay in the meet instance
+    # where they factor through its classes, and take the generic one where
+    # they do not
+    nxt, prev_s, *coef = bk.rsc8_tables()
+    scaled = tuple(tuple(tuple(2.0 * v for v in row) for row in c) for c in coef)
+    assert bk.kernel_plan((nxt, prev_s, *scaled), 96)[0] == "rsc8"
+    assert bk.kernel_plan(random_tables(8, 1, pattern=(nxt, prev_s)), 96) == ("generic", 0)
+    # spans and history of Lw x cols x 40 bytes within 227 KB at 16 columns
+    # a CTA, else at 8, else the generic instance
+    assert bk.kernel_plan(None, 1) == ("rsc8", 16)
+    assert bk.kernel_plan(None, 363) == ("rsc8", 16)
+    assert bk.kernel_plan(None, 364) == ("rsc8", 8)
+    assert bk.kernel_plan(None, 726) == ("rsc8", 8)
+    assert bk.kernel_plan(None, 727) == ("generic", 0)
+
+
+def test_meet_instance_tables_pinned_to_the_trellis(jturbo):
+    # the compile-time copy in csrc/bcjr.cu against the port's trellis and
+    # the JAX package's tables
+    nxt, par, _, prev_s, _ = turbo._trellis()
+    assert np.array_equal(_cu_table("kNxt"), nxt)
+    assert np.array_equal(_cu_table("kPrev"), prev_s)
+    assert np.array_equal(_cu_table("kClass"), 2 * np.arange(2)[None, :] + par)
+    jnxt, jprev, *_ = jturbo._step_coeffs()
+    assert np.array_equal(_cu_table("kNxt"), jnxt)
+    assert np.array_equal(_cu_table("kPrev"), jprev)
+    assert np.array_equal(_cu_table("kClass"), 2 * np.arange(2)[None, :] + jturbo._trellis()[1])
+    from aether_primitives_tpu.ops.pallas.bcjr import _rsc8_tables
+
+    jt = _rsc8_tables()
+    assert np.array_equal(_cu_table("kNxt"), np.array(jt[0]))
+    assert np.array_equal(_cu_table("kPrev"), np.array(jt[1]))
+
+
+def _meet_model(ls, lp, coef):
+    """numpy model of ``bcjr_kernel_meet``'s order of operations: forward
+    to mid storing alpha_t, backward to mid storing beta_t, then each half's
+    LLRs from the other's history; the state maximum as a three-level
+    tree. float32 throughout."""
+    nxt, prev = _cu_table("kNxt").reshape(-1), _cu_table("kPrev").reshape(-1)
+    fw0, fw1, bw0, bw1 = (c.reshape(-1) for c in coef)
+    lw, n = ls.shape
+    mid = lw // 2
+
+    def g(c0, c1, t):
+        return [c0[i] * ls[t] + c1[i] * lp[t] for i in range(16)]
+
+    def tree(v):
+        m = list(v)
+        for w in (4, 2, 1):
+            m = [np.maximum(m[s], m[s + w]) for s in range(w)]
+        return m[0]
+
+    def update(m, gg, idx):
+        v = [np.maximum(m[idx[2 * s]] + gg[2 * s], m[idx[2 * s + 1]] + gg[2 * s + 1])
+             for s in range(8)]
+        mx = tree(v)
+        return [x - mx for x in v]
+
+    def llr(a, b, gb):
+        c = [[(a[s] + gb[2 * s + u]) + b[nxt[2 * s + u]] for s in range(8)] for u in (0, 1)]
+        m0, m1 = c[0][0], c[1][0]
+        for s in range(1, 8):
+            m0, m1 = np.maximum(m0, c[0][s]), np.maximum(m1, c[1][s])
+        return m0 - m1
+
+    zero = [np.zeros(n, np.float32)] * 8
+    hist, out, a, b = [None] * lw, np.empty((lw, n), np.float32), zero, zero
+    for t in range(mid):
+        hist[t], a = a, update(a, g(fw0, fw1, t), prev)
+    for t in range(lw - 1, mid - 1, -1):
+        hist[t], b = b, update(b, g(bw0, bw1, t), nxt)
+    for t in range(mid, lw):
+        out[t] = llr(a, hist[t], g(bw0, bw1, t))
+        a = update(a, g(fw0, fw1, t), prev)
+    for t in range(mid - 1, -1, -1):
+        gb = g(bw0, bw1, t)
+        out[t] = llr(hist[t], b, gb)
+        b = update(b, gb, nxt)
+    return out
+
+
+def _tie_spans(lw, n, seed):
+    """Integer-valued LLRs (exact ties between paths) with -0.0 among the
+    zeros."""
+    rng = np.random.default_rng(seed)
+    ls, lp = (rng.integers(-2, 3, (lw, n)).astype(np.float32) for _ in range(2))
+    ls[ls == 0] = -0.0
+    lp[(lp == 0) & (rng.random((lw, n)) < 0.5)] = -0.0
+    return ls, lp
+
+
+@pytest.mark.parametrize("lw", [1, 2, 3, 95, 96, 97])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_meet_schedule_equals_twin(lw, kind):
+    # the kernel's schedule reorders the recursions and the state maxima;
+    # its model must equal the twin bit for bit (signed zeros included)
+    ls, lp = _spans(lw, 64, 30 + lw) if kind == "normal" else _tie_spans(lw, 64, 30 + lw)
+    _, coef, _, _ = bk._host_tables(bk.rsc8_tables())
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw)
+    got = _meet_model(ls, lp, coef)
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("tables", [None, CONV_K7], ids=["rsc8", "conv_k7"])
+def test_twin_matches_pallas_at_ties_and_signed_zeros(jturbo, tables):
+    from aether_primitives_tpu.ops.pallas.bcjr import bcjr_windowed_llr
+
+    lw, n = 24, 128
+    ls, lp = _tie_spans(lw, n, 9)
+    got = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp),
+                                         lw, tables).numpy()
+    want = np.asarray(bcjr_windowed_llr(ls, lp, lw, tables=tables, tile_n=128,
+                                        interpret=True))
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def random_tables(s_count, seed, pattern=None):
+    """A random valid binary trellis of ``s_count`` states (every state has
+    two successors and two predecessors) with random float coefficients, as
+    hashable tables; ``pattern`` keeps that ``(nxt, prev_s)`` instead."""
+    rng = np.random.default_rng(seed)
+    if pattern is None:
+        nxt = rng.permutation(np.repeat(np.arange(s_count), 2)).reshape(s_count, 2)
+        prev_s = np.zeros((s_count, 2), np.int64)
+        fill = np.zeros(s_count, np.int64)
+        for s in range(s_count):
+            for u in (0, 1):
+                prev_s[nxt[s, u], fill[nxt[s, u]]] = s
+                fill[nxt[s, u]] += 1
+    else:
+        nxt, prev_s = (np.asarray(p) for p in pattern)
+    coef = [np.round(rng.normal(size=(s_count, 2)), 3) for _ in range(4)]
+    return tuple(tuple(map(tuple, a.tolist())) for a in (nxt, prev_s, *coef))
+
+
+def test_branch_metric_classes_are_found():
+    # the turbo tables factor through the trellis's four branch-metric
+    # classes (forward and backward alike); random coefficients and a flipped
+    # sign do not, and the K=7 tables are not the meet instance's: those
+    # take the generic instance
+    _, _, instance, cls = bk._host_tables(bk.rsc8_tables())
+    assert instance == "rsc8"
+    assert cls is not None and cls.shape == (2, 4) and np.isfinite(cls).all()
+    assert bk._host_tables(CONV_K7)[2:] == ("generic", None)
+    assert bk._host_tables(random_tables(8, 1, pattern=bk.rsc8_tables()[:2]))[2:] == (
+        "generic", None)
+    nxt, prev_s, fw0, fw1, bw0, bw1 = bk.rsc8_tables()
+    bad = [list(r) for r in fw1]
+    bad[3][1] = -bad[3][1]
+    assert bk._host_tables((nxt, prev_s, fw0, tuple(map(tuple, bad)), bw0, bw1))[2:] == (
+        "generic", None)
+    # each class's pair is the coefficients of its transitions
+    _, coef, _, _ = bk._host_tables(bk.rsc8_tables())
+    klass = _cu_table("kClass")
+    for s in range(8):
+        for u in (0, 1):
+            assert (cls[0, klass[s, u]], cls[1, klass[s, u]]) == (coef[2, s, u], coef[3, s, u])
+
+
+def test_random_tables_are_valid_and_planned():
+    for s_count in bk.KERNEL_STATES:
+        t = random_tables(s_count, s_count)
+        nxt, prev_s = np.array(t[0]), np.array(t[1])
+        assert sorted(nxt.reshape(-1).tolist()) == sorted(list(range(s_count)) * 2)
+        for sp in range(s_count):
+            for j in (0, 1):
+                assert sp in nxt[prev_s[sp, j]]
+        assert bk.kernel_plan(t, 96)[0] == "generic"
+    t = random_tables(8, 1, pattern=bk.rsc8_tables()[:2])
+    assert bk.kernel_plan(t, 96) == ("generic", 0)  # not through the classes
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -172,3 +372,62 @@ def test_cuda_turbo_decode_matches_twin(cuda):
     assert bk.launches == before + 16
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
     assert np.array_equal(got[0].cpu().numpy(), bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lw", [1, 2, 95, 96, 97])
+@pytest.mark.parametrize("n", [1, 77, 1000, 2560, 2570])
+def test_cuda_meet_instance_matches_twin(cuda, lw, n):
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(lw, n, 40 + lw))
+    assert bk.kernel_plan(None, lw)[0] == "rsc8"
+    before = bk.launches
+    got = bk.bcjr_windowed_llr(ls, lp, lw)
+    want = bk.bcjr_windowed_llr_reference(ls, lp, lw)
+    torch.cuda.synchronize()
+    assert bk.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", [None, CONV_K7], ids=["rsc8", "conv_k7"])
+@pytest.mark.parametrize("n", [2560, 1001])
+def test_cuda_kernel_at_ties_and_signed_zeros(cuda, tables, n):
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _tie_spans(96, n, 11))
+    got = bk.bcjr_windowed_llr(ls, lp, 96, tables)
+    want = bk.bcjr_windowed_llr_reference(ls, lp, 96, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_count", [4, 8, 16, 32, 64, "rsc8-pattern"])
+def test_cuda_kernel_random_tables(cuda, s_count):
+    tables = (random_tables(8, 3, pattern=bk.rsc8_tables()[:2]) if s_count == "rsc8-pattern"
+              else random_tables(s_count, 5 + s_count))
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(96, 1000, 12))
+    got = bk.bcjr_windowed_llr(ls, lp, 96, tables)
+    want = bk.bcjr_windowed_llr_reference(ls, lp, 96, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", bk.MEET_COLS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_meet_every_column_count(cuda, cols, offset):
+    # both CTA widths the meet instance ships; offset 1 takes the 4-byte
+    # copies
+    lw, n = 96, 2560 - offset
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(lw, n + offset, 13))
+    ls, lp = ls[:, offset:].contiguous(), lp[:, offset:].contiguous()
+    flat = [torch.zeros(lw * n + offset, device=cuda) for _ in range(2)]
+    for f, src in zip(flat, (ls, lp)):
+        f[offset:] = src.reshape(-1)
+    ls_o, lp_o = (f[offset:].view(lw, n) for f in flat)
+    cls = bk._host_tables(bk.rsc8_tables())[3]
+    want = bk.bcjr_windowed_llr_reference(ls, lp, lw)
+    out = torch.empty((lw, n), device=cuda)
+    bk._launch_meet(ls_o, lp_o, out, lw, cols, cls)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

@@ -104,6 +104,53 @@ def test_cmul_rejects_mismatched_shapes():
         tc.cmul_c64(torch.zeros(4, dtype=torch.complex64), torch.zeros(5, dtype=torch.complex64))
 
 
+def test_cmul_refusals_and_conversions_on_cpu():
+    # the refusals of the wrapper where they apply without a card, and the
+    # conversions of array-likes and other dtypes
+    a = torch.ones(8)
+    meta = torch.ones(8, device="meta")
+    with pytest.raises(ValueError, match="takes its tensors on one device"):
+        tc.cmul(a, a, a, meta)
+    with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+        tc.cmul(meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="takes its tensors on one device"):
+        tc.cmul_c64(torch.ones(4, dtype=torch.complex64),
+                    torch.ones(4, dtype=torch.complex64, device="meta"))
+    with pytest.raises(ValueError, match="cmul_c64 runs on cpu or cuda, not meta"):
+        tc.cmul_c64(torch.ones(4, dtype=torch.complex64, device="meta"),
+                    torch.ones(4, dtype=torch.complex64, device="meta"))
+    args = _planes((3, 4), 23)
+    want = tc.cmul_reference(*(torch.from_numpy(x) for x in args), True, 0.5)
+    for given in (args, [x.astype(np.float64) for x in args], [x.tolist() for x in args],
+                  [torch.from_numpy(x).double() for x in args]):
+        got = tc.cmul(*given, conj_b=True, scale=0.5)
+        assert all(g.dtype == torch.float32 for g in got)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # non-contiguous CPU planes take the plain version
+    t = [torch.from_numpy(x).t() for x in args]
+    got = tc.cmul(*t)
+    want = tc.cmul_reference(*t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    c = (args[0] + 1j * args[1]).astype(np.complex128)
+    got = tc.cmul_c64(c, c.tolist(), conj_b=True)
+    assert got.dtype == torch.complex64
+    cc = torch.from_numpy(c.astype(np.complex64))
+    assert torch.equal(got, tc.cmul_c64_reference(cc, cc, True))
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048), (7,), (3, 5, 127), (4,)])
+def test_cmul_outputs_are_one_allocation(shape):
+    # the wrapper's two output planes: slices of one buffer, the second
+    # 16-byte aligned (padded where the element count is not a multiple of 4)
+    n = int(np.prod(shape))
+    out_re, out_im = tc._outputs(torch.Size(shape), n, torch.device("cpu"))
+    assert out_re.shape == shape and out_im.shape == shape
+    assert out_re.is_contiguous() and out_im.is_contiguous()
+    assert out_re.untyped_storage().data_ptr() == out_im.untyped_storage().data_ptr()
+    assert out_im.data_ptr() % 16 == 0 and out_re.data_ptr() % 16 == 0
+    assert out_im.data_ptr() - out_re.data_ptr() >= 4 * n
+
+
 def test_streamed_cmul_matches_pallas(pallas):
     _, st = pallas
     rows, lanes, chunk = 1024, 256, 256
@@ -245,3 +292,37 @@ def test_streamed_cmul_chunk_groups_fill_the_card():
     assert ts.chunks_per_cta(4, 131072, 132, False, 1, 4) == 249  # 1 tile x 527 groups
     assert ts.chunks_per_cta(4, 200000, 132, False, 1, 1000) == 4  # at most 65,535 groups
     assert ts.chunks_per_cta(1 << 20, 3, 132, True, 4, 16) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 6, 4 * 3001 + 3])
+def test_cmul_vector_and_scalar_paths_equal_twin(cuda, n):
+    # both paths of both kernels, the float4 one with its scalar tail, at
+    # counts that leave a tail
+    ar, ai, br, bi = _dev(_planes((n,), 24), cuda)
+    want = tc.cmul_reference(ar, ai, br, bi, True, 0.75)
+    ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
+    want_c = tc.cmul_c64_reference(ac, bc, True, 0.75)
+    dev = cuda.index or 0
+    for vec in (True, False):
+        out = torch.empty_like(ar), torch.empty_like(ai)
+        ptrs = tuple(t.data_ptr() for t in (ar, ai, br, bi, *out))
+        tc._launch_planes(ptrs, dev, n, 0.75, True, vec)
+        oc = torch.empty_like(ac)
+        tc._launch_c64((ac.data_ptr(), bc.data_ptr(), oc.data_ptr()), dev, n, 0.75, True, vec)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        assert torch.equal(oc, want_c)
+
+
+@pytest.mark.cuda
+def test_cmul_refusals_on_card(cuda):
+    a = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="takes its tensors on one device"):
+        tc.cmul(a, a, a, torch.ones(16))
+    with pytest.raises(ValueError, match="takes contiguous tensors"):
+        tc.cmul(a, a, a, torch.ones(32, device=cuda)[::2])
+    with pytest.raises(ValueError, match="one shape"):
+        tc.cmul(a, a, a, torch.ones(17, device=cuda))
+    got = tc.cmul(a.double(), a, a, a)  # converted to float32
+    assert got[0].dtype == torch.float32 and got[0].device == a.device
