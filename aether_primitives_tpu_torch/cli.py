@@ -149,11 +149,10 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_device_ms(fn, match: str, calls: int = 20) -> float:
-    """Device milliseconds per call of ``fn()`` spent in the kernels whose
-    name holds ``match``, by ``torch.profiler`` (CUPTI) over ``calls`` calls
-    after one: the kernels' own time, without the host's time between
-    launches. Raises where the profiler recorded none."""
+def kernel_device_times(fn, match: str, calls: int = 20) -> list:
+    """``(name, microseconds)`` of every kernel whose name holds ``match``
+    that ``torch.profiler`` (CUPTI) recorded over ``calls`` calls of
+    ``fn()`` after one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,11 +162,21 @@ def kernel_device_ms(fn, match: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and match in e.name]
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and match in e.name]
+
+
+def kernel_device_ms(fn, match: str, calls: int = 20) -> float:
+    """Device milliseconds a launch of the kernels whose name holds
+    ``match``, by ``torch.profiler`` (CUPTI) over ``calls`` calls of
+    ``fn()`` after one: the kernel's own time, without the host's time
+    between launches. The mean over the launches the profiler recorded,
+    which may be fewer than were made (it drops some), so a call of ``fn``
+    should launch one such kernel. Raises where it recorded none."""
+    us = [t for _, t in kernel_device_times(fn, match, calls)]
     if not us:
         raise RuntimeError(f"the profiler recorded no device time for kernels named {match!r}")
-    return sum(us) / calls / 1e3
+    return sum(us) / len(us) / 1e3
 
 
 def resident_streaming(chain: RxChain, nblocks: int = 4, seed: int = 816):

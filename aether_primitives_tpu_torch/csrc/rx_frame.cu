@@ -1,10 +1,12 @@
-// RX frame kernel for Hopper (sm_90a): causal FIR -> decimate -> frame DFT
-// -> wrap correction -> hard demod, one CTA per frame.
+// RX frame kernel for Hopper (sm_90a): causal FIR -> decimate -> frame FFT
+// -> hard demod (cli.py numpy_reference_spectra plus the sign demod).
 //
 // Replaces the TPU kernel aether_primitives_tpu/ops/pallas/rx_frame.py:_kernel
-// and computes the JAX chain's staged frame op (ops/fir.py fir_decimate_fft
-// with _staged_layout) plus the epilogue of models/modem.py RxChain._bits_fast.
-// Per frame of span = n1 * n2 samples:
+// and the epilogue of models/modem.py RxChain._bits_fast. The direct instance
+// (the main path's; described after the tile instances) computes the FIR at
+// the kept outputs and a hand-written FFT. The tile and generic instances
+// compute the JAX chain's staged frame op (ops/fir.py fir_decimate_fft with
+// _staged_layout), per frame of span = n1 * n2 samples:
 //   stage 1   A[k1, m2] = sum_n F1[n, k1] X[n, m2]           (DFT_{n1})
 //   stage 2   Z[k1, d]  = sum_m2 A[k1, m2] G'[k1, m2, d]     (twiddle * taps *
 //                                                            DFT_{n2} * fold)
@@ -18,14 +20,14 @@
 // Comparisons are strict; a positive scale never flips a sign, so the bit
 // epilogues skip it.
 //
-// What bounds it on an H100: FP32 issue. Per 4,194,304-sample block (512
-// frames at n1 128, n2 64, r 16, K-1 64) the work is 0.67 G complex MACs
+// What bounds the staged form on an H100: FP32 issue. Per 4,194,304-sample
+// block (512 frames at n1 128, n2 64, r 16, K-1 64) the work is 0.67 G complex MACs
 // (2.7 G FMAs, 80 us at the 67 TFLOP/s FP32 peak); the kernel takes about
 // 0.22 ms, a third of that peak. Stage 2 and the wrap correction also stream
 // G' (1 MB) and Cm (1 MB) from L2 once per frame (1.07 GB per block), but
 // timing the stage splits n1 = 64, 128, 256 showed the time following the
-// FP32 work, not the L2 bytes. DRAM traffic is only the 32 MB block in and
-// 1 MB of bytes out.
+// FP32 work, not the L2 bytes. DRAM traffic is only the 33.55 MB block in and
+// 262,144 QPSK bytes out.
 // What the design does about it: the frame is read from DRAM once into shared
 // memory (64 KB, deinterleaved into re/im planes) and stage 1's result
 // overwrites it in place, so the spectra never touch DRAM and a CTA needs
@@ -36,18 +38,47 @@
 // fail the -80 dB EVM gate. Raising the FP32 issue rate (a larger stage-1
 // tile, fewer shared loads per FMA) is left to a later change.
 //
-// Three instances, picked by the wrapper (ops/cuda/rx_frame.py kernel_plan):
-//   tile256   n1 % 8 == 0, n2 % 8 == 0, span <= 8,192: 256 threads, one 4 x 8
-//             stage-1 tile each, two CTAs an SM (the main path's, dec 4,
-//             fft_len 2048, n1 128, n2 64);
-//   tile512   the same code at 512 threads for spans of 8,193-16,384 (dec 4,
-//             fft_len 4096): one 4 x 8 tile a thread, about 128.5 KB of
-//             opt-in dynamic shared memory (both planes of the frame and the
-//             deltas), one CTA an SM, 128 registers a thread at most;
+// Four instances, picked by the wrapper (ops/cuda/rx_frame.py kernel_plan):
+//   direct    power-of-two fft_len 64-4096 whose staged frames fit shared
+//             memory and at most 256 taps (the main path, dec 4 / fft_len
+//             2048, and dec 4 / fft_len 64 and 4096): see below;
+//   tile256   n1 % 8 == 0, n2 % 8 == 0, span <= 8,192 (e.g. dec 4,
+//             fft_len 192 or dec 8, fft_len 32): 256 threads, one 4 x 8
+//             stage-1 tile each, two CTAs an SM;
+//   tile512   the same code at 512 threads for spans of 8,193-16,384 (e.g.
+//             dec 1, fft_len 16384): about 128.5 KB of opt-in dynamic shared
+//             memory, one CTA an SM;
 //   generic   any other split n1 x n2 (fft_len 30, spans under 64, n2 < 8):
 //             scalar stage-1 points, each thread looping over (k1, m2), A in
 //             its own pair of shared planes, and the spectrum epilogue only
 //             (the wrapper demodulates and packs its spectrum in PyTorch).
+//
+// The direct instance computes the function itself rather than the MXU's
+// factorisation: per frame, the decimating FIR at the kept outputs only,
+//   y[m] = sum_k h[k] x[dec m - k],   m < fft_len,
+// then an fft_len-point FFT written by hand in shared memory. What bounds
+// it: the bytes. A 4M block is 33.55 MB in and 262,144 QPSK bytes out
+// (0.0101 ms at 3.35 TB/s); the FIR is 1,048,576 outputs x 65 taps (273 M
+// FP32 operations with real taps, 545 M with complex ones) and the FFTs
+// about 58 M, 0.004-0.009 ms at the 67 TFLOP/s FP32 peak. Design:
+//   - a CTA stages its frames once, by 8-byte cp.async, into a window of
+//     K-1 + span samples each (the previous frame's tail, the carried
+//     history row for frame 0 of a row, or zeros), one pad slot every 32
+//     samples so that the FIR's strided reads miss no bank twice (68 KB at
+//     the main path: three CTAs an SM);
+//   - a thread computes 8 consecutive outputs, phase by phase of the
+//     polyphase split k = dec q + p, in blocks of 8 taps: 15 samples in
+//     registers serve 64 multiply-adds. The taps are a kernel parameter
+//     (constant memory); a real-tap variant (every imaginary part exactly
+//     0, as for the default lowpass) skips the products with zero;
+//   - the FFT is a Stockham radix-8 (then radix-4 or 2) pass sequence in
+//     place in shared memory, bins in natural order, twiddles from a
+//     float32 table built on the host in float64; one pad slot every 8
+//     points keeps the passes' strided stores off shared bank conflicts;
+//   - the epilogues read the natural-order bins: strict comparisons, the
+//     Scale.SN factor on the spectrum only.
+// Frames of fewer than 2,048 points go 2048 / fft_len to a CTA (as far as
+// shared memory allows), so that a CTA always has 2,048 outputs' work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -325,6 +356,276 @@ rx_frame_generic_kernel(const float2* __restrict__ x, const float2* __restrict__
   }
 }
 
+// ---- the direct instance ---------------------------------------------------
+
+constexpr int kMaxTaps = 256;  // taps the direct instance takes (kernel parameter)
+constexpr int kFirOut = 8;     // consecutive FIR outputs a thread
+constexpr int kFirBlock = 8;   // taps of one register block
+
+struct DirectTaps {
+  float2 h[kMaxTaps];
+};
+
+// A staged window's slot of sample e' (one pad slot every 32 samples), and an
+// FFT buffer's slot of point k (one pad slot every 8 points).
+__device__ __forceinline__ int wslot(int e) { return e + (e >> 5); }
+__device__ __forceinline__ int fslot(int k) { return k + (k >> 3); }
+
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <bool kReal>
+__device__ __forceinline__ void fir_mac(float& ar, float& ai, float2 h, float2 v) {
+  if constexpr (kReal) {
+    ar = fmaf(h.x, v.x, ar);
+    ai = fmaf(h.x, v.y, ai);
+  } else {
+    ar = fmaf(h.x, v.x, fmaf(-h.y, v.y, ar));
+    ai = fmaf(h.x, v.y, fmaf(h.y, v.x, ai));
+  }
+}
+
+__device__ __forceinline__ float2 c_add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 c_sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 c_mul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ float2 c_negi(float2 a) {  // a * -i
+  return make_float2(a.y, -a.x);
+}
+
+// In-register DFT_R, natural order in and out (forward, e^{-2 pi i / R}).
+template <int R>
+__device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 2) {
+    const float2 a = v[0];
+    v[0] = c_add(a, v[1]);
+    v[1] = c_sub(a, v[1]);
+  } else if constexpr (R == 4) {
+    const float2 a0 = c_add(v[0], v[2]), a2 = c_sub(v[0], v[2]);
+    const float2 a1 = c_add(v[1], v[3]), a3 = c_negi(c_sub(v[1], v[3]));
+    v[0] = c_add(a0, a1);
+    v[1] = c_add(a2, a3);
+    v[2] = c_sub(a0, a1);
+    v[3] = c_sub(a2, a3);
+  } else {
+    constexpr float kS = 0.70710678118654752f;
+    const float2 a0 = c_add(v[0], v[4]), a1 = c_add(v[1], v[5]);
+    const float2 a2 = c_add(v[2], v[6]), a3 = c_add(v[3], v[7]);
+    const float2 a4 = c_sub(v[0], v[4]);
+    const float2 d5 = c_sub(v[1], v[5]);
+    const float2 a5 = make_float2((d5.x + d5.y) * kS, (d5.y - d5.x) * kS);  // * W8
+    const float2 a6 = c_negi(c_sub(v[2], v[6]));                           // * W8^2
+    const float2 d7 = c_sub(v[3], v[7]);
+    const float2 a7 = make_float2((d7.y - d7.x) * kS, -(d7.x + d7.y) * kS);  // * W8^3
+    const float2 b0 = c_add(a0, a2), b1 = c_add(a1, a3);
+    const float2 b2 = c_sub(a0, a2), b3 = c_negi(c_sub(a1, a3));
+    const float2 b4 = c_add(a4, a6), b5 = c_add(a5, a7);
+    const float2 b6 = c_sub(a4, a6), b7 = c_negi(c_sub(a5, a7));
+    v[0] = c_add(b0, b1);
+    v[4] = c_sub(b0, b1);
+    v[2] = c_add(b2, b3);
+    v[6] = c_sub(b2, b3);
+    v[1] = c_add(b4, b5);
+    v[5] = c_sub(b4, b5);
+    v[3] = c_add(b6, b7);
+    v[7] = c_sub(b6, b7);
+  }
+}
+
+// One Stockham pass of radix R over nf frames of n points in place (buffers
+// of nb slots each): butterfly j of a frame reads points j + r n/R, twiddles
+// point r by W_n^{(j mod ns) r n / (ns R)}, and writes point
+// (j / ns) ns R + (j mod ns) + r ns. All reads land in registers before the
+// first write (the CTA holds at most 8 n / R butterflies' points: nf n <= 8
+// threads).
+template <int R, int LOG2R, int kThreads>
+__device__ __forceinline__ void fft_pass(float2* buf, int log2n, int nb, int nf, int ns,
+                                         int log2ns, const float2* __restrict__ tw) {
+  constexpr int kPer = 8 / R;
+  const int log2b = log2n - LOG2R;  // butterflies a frame: 2^log2b
+  const int total = nf << log2b;
+  float2 v[kPer][R];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int bi = threadIdx.x + u * kThreads;
+    if (bi < total) {
+      const int j = bi & ((1 << log2b) - 1);
+      const float2* src = buf + (bi >> log2b) * nb;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[u][r] = src[fslot(j + (r << log2b))];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int bi = threadIdx.x + u * kThreads;
+    if (bi < total) {
+      const int j = bi & ((1 << log2b) - 1);
+      const int jm = j & (ns - 1);
+      if (ns > 1) {
+        const int e = jm << (log2n - log2ns - LOG2R);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[u][r] = c_mul(v[u][r], __ldg(tw + e * r));
+      }
+      dft<R>(v[u]);
+      float2* dst = buf + (bi >> log2b) * nb;
+      const int d = ((j >> log2ns) << (log2ns + LOG2R)) + jm;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[fslot(d + (r << log2ns))] = v[u][r];
+    }
+  }
+  __syncthreads();
+}
+
+// One CTA takes fpc consecutive frames (of any block rows): stage, FIR at the
+// kept outputs, FFT, epilogue. Needs fpc * n <= 8 * kThreads and fpc to
+// divide kThreads.
+template <int EPI, int kThreads, int kMinBlocks, bool kReal>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
+                       const float2* __restrict__ hist,  // [rows, ku] or null
+                       const float2* __restrict__ tw,    // [n] W_n^e
+                       void* __restrict__ out, long long frames, int nsym, int dec,
+                       int log2n, int k, int fpc, int wp, int nb, float scale,
+                       const __grid_constant__ DirectTaps taps) {
+  extern __shared__ __align__(16) float2 sm[];
+  const int tid = threadIdx.x;
+  const int n = 1 << log2n;
+  const int ku = k - 1;
+  const int span = dec * n;
+  const long long f0 = static_cast<long long>(blockIdx.x) * fpc;
+  const int nf = static_cast<int>(min(static_cast<long long>(fpc), frames - f0));
+
+  // ---- stage: window slot e' holds sample e' - ku of the frame ----------
+  // each of the CTA's frames by kThreads / fpc threads (fpc divides kThreads)
+  const int wlen = ku + span;
+  const int tpf = fpc == 1 ? kThreads : kThreads / fpc;
+  const int js = fpc == 1 ? 0 : tid / tpf;
+  if (js < nf) {
+    const long long fi = f0 + js;
+    const float2* xf = x + fi * span;
+    const bool first = fi % nsym == 0;  // frame 0 of a block row
+    const float2* hrow = hist == nullptr ? nullptr : hist + (fi / nsym) * ku;
+    float2* win = sm + js * wp;
+    auto stage = [&](int e) {
+      float2* dst = win + wslot(e);
+      if (e >= ku || !first) {
+        cp_async8(dst, xf + (e - ku));  // this frame, or the previous frame's tail
+      } else if (hrow != nullptr) {
+        cp_async8(dst, hrow + e);
+      } else {
+        *dst = make_float2(0.f, 0.f);
+      }
+    };
+    if (fpc == 1) {
+      for (int e = tid; e < wlen; e += kThreads) stage(e);  // a compile-time stride
+    } else {
+      for (int e = tid - js * tpf; e < wlen; e += tpf) stage(e);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- FIR at the kept outputs: y[m0 + r], r < 8 -------------------------
+  const int groups = n / kFirOut;
+  const bool active = tid < nf * groups;
+  const int jf = tid / groups;
+  const int m0 = (tid - jf * groups) * kFirOut;
+  float ar[kFirOut], ai[kFirOut];
+#pragma unroll
+  for (int r = 0; r < kFirOut; ++r) {
+    ar[r] = 0.f;
+    ai[r] = 0.f;
+  }
+  if (active) {
+    const float2* xw = sm + jf * wp;
+    for (int p = 0; p < dec && p < k; ++p) {
+      const int qp = (k - p + dec - 1) / dec;  // taps k = dec q + p < K
+      int q = 0;
+      for (; q + kFirBlock <= qp; q += kFirBlock) {
+        // w[i] = x[dec (m0 - q - 7 + i) - p]: output r, tap q + b reads w[r - b + 7]
+        float2 w[kFirOut + kFirBlock - 1];
+        const int e0 = dec * (m0 - q - (kFirBlock - 1)) - p + ku;
+#pragma unroll
+        for (int i = 0; i < kFirOut + kFirBlock - 1; ++i) w[i] = xw[wslot(e0 + i * dec)];
+#pragma unroll
+        for (int b = 0; b < kFirBlock; ++b) {
+          const float2 h = taps.h[dec * (q + b) + p];
+#pragma unroll
+          for (int r = 0; r < kFirOut; ++r) {
+            fir_mac<kReal>(ar[r], ai[r], h, w[r - b + kFirBlock - 1]);
+          }
+        }
+      }
+      for (; q < qp; ++q) {
+        const float2 h = taps.h[dec * q + p];
+        const int e0 = dec * (m0 - q) - p + ku;
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) fir_mac<kReal>(ar[r], ai[r], h, xw[wslot(e0 + r * dec)]);
+      }
+    }
+  }
+  __syncthreads();  // every window read: the FFT buffers overwrite them
+  if (active) {
+    float2* fb = sm + jf * nb;
+#pragma unroll
+    for (int r = 0; r < kFirOut; ++r) fb[fslot(m0 + r)] = make_float2(ar[r], ai[r]);
+  }
+  __syncthreads();
+
+  // ---- FFT: radix-8 passes, then one radix-4 or radix-2 pass -------------
+  int log2ns = 0;
+  for (; log2ns + 3 <= log2n; log2ns += 3) {
+    fft_pass<8, 3, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+  }
+  if (log2n - log2ns == 2) {
+    fft_pass<4, 2, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+  } else if (log2n - log2ns == 1) {
+    fft_pass<2, 1, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+  }
+
+  // ---- epilogue, natural bin order -----------------------------------------
+  if constexpr (EPI == kSpectrum) {
+    float2* o = static_cast<float2*>(out) + f0 * n;
+    for (int i = tid; i < nf * n; i += kThreads) {
+      const float2 z = sm[(i >> log2n) * nb + fslot(i & (n - 1))];
+      o[i] = make_float2(z.x * scale, z.y * scale);
+    }
+  } else {
+    constexpr int SPB = (EPI == kBpsk) ? 8 : 4;  // symbols a byte
+    const int per = n / SPB;
+    uint8_t* o = static_cast<uint8_t*>(out) + f0 * per;
+    for (int i = tid; i < nf * per; i += kThreads) {
+      const int j = i / per;
+      const float2* fb = sm + j * nb;
+      const int kb = (i - j * per) * SPB;
+      uint32_t byte = 0;
+#pragma unroll
+      for (int q = 0; q < SPB; ++q) {
+        const float2 z = fb[fslot(kb + q)];
+        if constexpr (EPI == kQpsk) {
+          byte |= (static_cast<uint32_t>(z.x < 0.f) | (static_cast<uint32_t>(z.y < 0.f) << 1))
+                  << (2 * q);
+        } else {
+          byte |= static_cast<uint32_t>(z.x + z.y < 0.f) << q;
+        }
+      }
+      o[i] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -400,6 +701,69 @@ int launch_instance(int instance, int epilogue, const void* x, const void* hist,
   }
 }
 
+
+template <int EPI, int kThreads, int kMinBlocks, bool kReal>
+int launch_direct(const void* x, const void* hist, const void* tw, void* out,
+                  long long frames, int nsym, int dec, int log2n, int k, int fpc, int wp,
+                  int nb, float scale, const DirectTaps& taps, size_t smem,
+                  cudaStream_t stream) {
+  auto kernel = rx_frame_direct_kernel<EPI, kThreads, kMinBlocks, kReal>;
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const long long ctas = (frames + fpc - 1) / fpc;
+  kernel<<<static_cast<unsigned>(ctas), kThreads, smem, stream>>>(
+      static_cast<const float2*>(x), static_cast<const float2*>(hist),
+      static_cast<const float2*>(tw), out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale,
+      taps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kThreads, int kMinBlocks, bool kReal>
+int direct_epilogue(int epilogue, const void* x, const void* hist, const void* tw,
+                    void* out, long long frames, int nsym, int dec, int log2n, int k,
+                    int fpc, int wp, int nb, float scale, const DirectTaps& taps,
+                    size_t smem, cudaStream_t s) {
+  switch (epilogue) {
+    case kQpsk:
+      return launch_direct<kQpsk, kThreads, kMinBlocks, kReal>(
+          x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
+    case kBpsk:
+      return launch_direct<kBpsk, kThreads, kMinBlocks, kReal>(
+          x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
+    case kSpectrum:
+      return launch_direct<kSpectrum, kThreads, kMinBlocks, kReal>(
+          x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_direct_instance(int epilogue, const void* x, const void* hist, const void* tw,
+                           const float* taps_ri, int k, int real_taps, void* out,
+                           long long frames, int nsym, int dec, int log2n, int fpc, int wp,
+                           int nb, float scale, cudaStream_t s) {
+  const int n = 1 << log2n;
+  if (k < 1 || k > kMaxTaps || log2n < 3 || fpc < 1 || fpc * n > 8 * 512 || 256 % fpc != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DirectTaps taps = {};
+  for (int i = 0; i < k; ++i) taps.h[i] = make_float2(taps_ri[2 * i], taps_ri[2 * i + 1]);
+  const size_t smem = static_cast<size_t>(fpc) * (wp > nb ? wp : nb) * sizeof(float2);
+  if (fpc * n > 8 * 256) {
+    return real_taps ? direct_epilogue<512, 1, true>(epilogue, x, hist, tw, out, frames, nsym,
+                                                     dec, log2n, k, fpc, wp, nb, scale, taps,
+                                                     smem, s)
+                     : direct_epilogue<512, 1, false>(epilogue, x, hist, tw, out, frames,
+                                                      nsym, dec, log2n, k, fpc, wp, nb,
+                                                      scale, taps, smem, s);
+  }
+  return real_taps ? direct_epilogue<256, 3, true>(epilogue, x, hist, tw, out, frames, nsym,
+                                                   dec, log2n, k, fpc, wp, nb, scale, taps,
+                                                   smem, s)
+                   : direct_epilogue<256, 3, false>(epilogue, x, hist, tw, out, frames, nsym,
+                                                    dec, log2n, k, fpc, wp, nb, scale, taps,
+                                                    smem, s);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. instance: 0 tile256, 1 tile512,
@@ -426,6 +790,33 @@ extern "C" int rx_frame_launch(int instance, int epilogue, const void* x,
   const int rc = launch_instance(instance, epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
                                  frames, nsym, n1, n2, r, ku, scale,
                                  static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
+// Plain C entry point of the direct instance, loaded with ctypes. taps_ri:
+// a host array of k complex taps as (re, im) float pairs, k <= 256;
+// real_taps: every imaginary part is exactly 0 (the real-tap variant); tw:
+// the float32 table W_n^e, e < n, of n = 2^log2n points on the card. A CTA
+// takes fpc consecutive frames (a power of two, fpc * n <= 4,096; 512
+// threads where fpc * n > 2,048, else 256); wp and nb: the float2 slots of a frame's staged window
+// (wslot(K-2 + span) + 1) and FFT buffer (n + n / 8). Returns the
+// cudaError_t of the launch (0 = success). The caller guarantees contiguous
+// tensors and fpc * max(wp, nb) * 8 bytes within the opt-in shared memory.
+extern "C" int rx_frame_direct_launch(int epilogue, const void* x, const void* hist,
+                                      const void* tw, const float* taps_ri, int k,
+                                      int real_taps, void* out, long long frames, int nsym,
+                                      int dec, int log2n, int fpc, int wp, int nb,
+                                      float scale, int device, void* stream) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int rc = launch_direct_instance(epilogue, x, hist, tw, taps_ri, k, real_taps, out,
+                                        frames, nsym, dec, log2n, fpc, wp, nb, scale,
+                                        static_cast<cudaStream_t>(stream));
   if (prev != device) cudaSetDevice(prev);
   return rc;
 }

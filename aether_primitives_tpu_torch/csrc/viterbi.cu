@@ -18,17 +18,34 @@
 //
 // What bounds it on an H100: the serial chain. At the burst path's shape
 // (256 trellises of 638 steps, 64 states, rate 1/2) the arithmetic is about
-// 0.1 G FP32 operations and the traffic 1.5 MB, both about a microsecond,
-// but every one of the 638 ACS steps waits on the previous one through
-// warp shuffles (4 to fetch predecessor metrics, 5 for the minimum), and the
-// traceback is 638 dependent shared-memory reads, while 256 warps fill only
-// a few warps per SM. What the design does about it: the path metrics stay
-// in registers (2 of the 64 states per lane, S / 32 in general), the
-// decisions of a step are packed by __ballot_sync into S / 32 words
-// (8 bytes per step at S = 64, 5.1 KB per trellis) in shared memory, and the
-// LLRs are read once, as warp-wide broadcast loads. Nothing but the bits
-// goes back to device memory. Overlapping trellises to hide the chain
-// latency (several trellises per warp) is left to a later change.
+// 0.1 G FP32 operations and the traffic 1.5 MB, both about a microsecond;
+// the time is 638 dependent ACS steps and a 638-step traceback. What the
+// design does about it: the chain of a step holds the ACS and nothing else.
+//   - The LLRs come through a ring in registers: lane i holds step 32c + i
+//     of chunk c, the current chunk and the next one; the chunk after that
+//     is loaded (coalesced, __ldg) when the next one becomes current, 32
+//     steps before its first use, and a step's LLRs reach every lane by
+//     __shfl_sync. Shared memory holds the decisions alone, max(1, S/32)
+//     words a step, so the longest span is the decision history's.
+//   - Step t+1's branch metrics (they do not depend on the path metrics)
+//     are computed while step t's ACS runs, from 0/1 encoder outputs held
+//     per lane as floats, with the generator count fixed at compile time
+//     for rate 1/2 and 1/3 (at run time, up to 8, otherwise).
+//   - Path metrics stay in registers (S / 32 states a lane, S >= 32;
+//     replicated below); the predecessors come by __shfl_sync; the minimum
+//     over the states is one __reduce_min_sync (redux.sync) on
+//     order-preserving uint32 keys of the floats. The minimum is exact in
+//     any order, and no candidate pm + g is ever -0 (a path metric x - min
+//     is never -0), so the keys order the candidates as the floats do and
+//     the decisions are the twin's.
+//   - One trellis a warp (benches/torch_viterbi_sweep.py also times two a
+//     warp, two chains interleaved in one instruction stream, from its own
+//     source).
+//   - The traceback (lane 0) loads the decision words of 8 steps (one
+//     64-bit load a step at 64 states) before it walks them, so most of a
+//     step's chain is register arithmetic; bit t goes to the first byte of
+//     step t's words once they are read, and the bits leave as coalesced
+//     stores of the whole warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +54,7 @@ namespace {
 
 constexpr int kMaxN = 8;        // generators per code
 constexpr int kMaxStates = 256; // 2^(K-1), K <= 9
+constexpr int kAhead = 8;       // traceback steps whose words load together
 constexpr unsigned kFull = 0xffffffffu;
 
 // out_mask[2 * s' + j]: bit m is o_m of the transition into s' from
@@ -45,44 +63,103 @@ struct Masks {
   unsigned char m[2 * kMaxStates];
 };
 
-__device__ __forceinline__ float branch(unsigned mask, const float* l, int n) {
-  float g = __fmul_rn((mask & 1u) ? 1.0f : 0.0f, l[0]);
+// g = sum_m o_m * l_m, m left to right, o_m in {0.0f, 1.0f} held per lane.
+template <int NM>
+__device__ __forceinline__ float branch(const float* o, const float* l, int n) {
+  float g = __fmul_rn(o[0], l[0]);
 #pragma unroll
-  for (int m = 1; m < kMaxN; ++m) {
-    if (m < n) g = __fadd_rn(g, __fmul_rn(((mask >> m) & 1u) ? 1.0f : 0.0f, l[m]));
+  for (int m = 1; m < NM; ++m) {
+    if (m < n) g = __fadd_rn(g, __fmul_rn(o[m], l[m]));
   }
   return g;
 }
 
-template <int S>
+// Order-preserving uint32 key of a float (no NaN), and back.
+__device__ __forceinline__ unsigned fkey(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unkey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Chunk c of the LLR ring: lane i's registers take step 32c + i's n values
+// (zeros past the span).
+template <int NT, int NM>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ y, int lw, int n, int c,
+                                           int lane, float* r) {
+  const int t = 32 * c + lane;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    r[m] = (t < lw && (NT != 0 || m < n)) ? __ldg(y + static_cast<long long>(t) * n + m)
+                                          : 0.0f;
+  }
+}
+
+// The LLRs of step t (from the lane that holds it in chunk register r) and
+// the branch metrics of each of this lane's states.
+template <int kSpl, int NT, int NM>
+__device__ __forceinline__ void branches(const float* r, int t, int n, float (*o0)[NM],
+                                         float (*o1)[NM], float* g0, float* g1) {
+  float l[NM];
+#pragma unroll
+  for (int m = 0; m < NM; ++m) l[m] = __shfl_sync(kFull, r[m], t & 31);
+#pragma unroll
+  for (int j = 0; j < kSpl; ++j) {
+    g0[j] = branch<NM>(o0[j], l, NT != 0 ? NT : n);
+    g1[j] = branch<NM>(o1[j], l, NT != 0 ? NT : n);
+  }
+}
+
+// NT: the code's generators n when 2 or 3 (compile time), else 0 (n at run
+// time, at most kMaxN).
+template <int S, int NT>
 __global__ void viterbi_kernel(const float* __restrict__ sym,
                                unsigned char* __restrict__ bits,
                                long long n_trellis, int lw, int n,
                                int init_state0, int end_state0, Masks masks) {
   constexpr int kSpl = S >= 32 ? S / 32 : 1;  // states (and words) per lane/step
+  constexpr int NM = NT != 0 ? NT : kMaxN;    // LLRs a step, at most
   extern __shared__ unsigned int smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long tr = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
   if (tr >= n_trellis) return;  // whole warps only: nothing below syncs the block
-  unsigned int* dec = smem + static_cast<size_t>(warp) * lw * kSpl;
+  unsigned* dec = smem + static_cast<size_t>(warp) * lw * kSpl;
   const float* y = sym + tr * static_cast<long long>(lw) * n;
 
+  float cur[NM], nxt[NM];  // the LLR ring: chunks c and c + 1
+  load_chunk<NT, NM>(y, lw, n, 0, lane, cur);
+  load_chunk<NT, NM>(y, lw, n, 1, lane, nxt);
+
   int st[kSpl];
-  unsigned om0[kSpl], om1[kSpl];
+  float o0[kSpl][NM], o1[kSpl][NM];  // the encoder outputs as 0.0f / 1.0f
   float pm[kSpl];
 #pragma unroll
   for (int j = 0; j < kSpl; ++j) {
     st[j] = S >= 32 ? lane + 32 * j : lane % S;
-    om0[j] = masks.m[2 * st[j]];
-    om1[j] = masks.m[2 * st[j] + 1];
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      o0[j][m] = (masks.m[2 * st[j]] >> m) & 1u ? 1.0f : 0.0f;
+      o1[j][m] = (masks.m[2 * st[j] + 1] >> m) & 1u ? 1.0f : 0.0f;
+    }
     pm[j] = init_state0 ? (st[j] == 0 ? 0.0f : 1e9f) : 0.0f;
   }
 
+  float g0[kSpl], g1[kSpl];
+  branches<kSpl, NT, NM>(cur, 0, n, o0, o1, g0, g1);
+
   for (int t = 0; t < lw; ++t) {
-    float l[kMaxN];
+    // step t+1's branch metrics, off the chain; at a chunk's end the next
+    // chunk becomes current and the one after it starts to load
+    const int tn = t + 1;
+    if ((tn & 31) == 0) {  // the same for the whole warp
 #pragma unroll
-    for (int m = 0; m < kMaxN; ++m) l[m] = m < n ? __ldg(y + t * n + m) : 0.0f;
+      for (int m = 0; m < NM; ++m) cur[m] = nxt[m];
+      load_chunk<NT, NM>(y, lw, n, (tn >> 5) + 1, lane, nxt);
+    }
+    float h0[kSpl], h1[kSpl];
+    branches<kSpl, NT, NM>(cur, tn, n, o0, o1, h0, h1);
     float nw[kSpl];
 #pragma unroll
     for (int j = 0; j < kSpl; ++j) {
@@ -98,8 +175,8 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
         a0 = __shfl_sync(kFull, pm[0], p0);
         a1 = __shfl_sync(kFull, pm[0], p0 + S / 2);
       }
-      const float c0 = __fadd_rn(a0, branch(om0[j], l, n));
-      const float c1 = __fadd_rn(a1, branch(om1[j], l, n));
+      const float c0 = __fadd_rn(a0, g0[j]);
+      const float c1 = __fadd_rn(a1, g1[j]);
       const bool d = c1 < c0;
       nw[j] = d ? c1 : c0;
       const unsigned word = __ballot_sync(kFull, d);
@@ -108,55 +185,99 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
     float mn = nw[0];
 #pragma unroll
     for (int j = 1; j < kSpl; ++j) mn = fminf(mn, nw[j]);
+    mn = unkey(__reduce_min_sync(kFull, fkey(mn)));
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mn = fminf(mn, __shfl_xor_sync(kFull, mn, off));
-#pragma unroll
-    for (int j = 0; j < kSpl; ++j) pm[j] = __fsub_rn(nw[j], mn);
+    for (int j = 0; j < kSpl; ++j) {
+      pm[j] = __fsub_rn(nw[j], mn);
+      g0[j] = h0[j];
+      g1[j] = h1[j];
+    }
   }
 
+  // ---- traceback (lane 0) ---------------------------------------------------
   int state = 0;
   if (!end_state0) {  // first argmin of the final metrics
     float mn = pm[0];
 #pragma unroll
     for (int j = 1; j < kSpl; ++j) mn = fminf(mn, pm[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mn = fminf(mn, __shfl_xor_sync(kFull, mn, off));
-    int best = S;
+    mn = unkey(__reduce_min_sync(kFull, fkey(mn)));
+    unsigned best = S;
 #pragma unroll
     for (int j = kSpl - 1; j >= 0; --j) {
-      if (pm[j] == mn && st[j] < best) best = st[j];
+      if (pm[j] == mn && static_cast<unsigned>(st[j]) < best) best = st[j];
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(kFull, best, off));
-    state = best;
+    state = static_cast<int>(__reduce_min_sync(kFull, best));
   }
   __syncwarp();
+  unsigned char* out = reinterpret_cast<unsigned char*>(dec);  // bit t: step t's first byte
   if (lane == 0) {
-    unsigned char* out = bits + tr * static_cast<long long>(lw);
-    for (int t = lw - 1; t >= 0; --t) {
-      out[t] = static_cast<unsigned char>(state & 1);
-      const unsigned word = dec[t * kSpl + (S >= 32 ? (state >> 5) : 0)];
-      const int d = (word >> (state & 31)) & 1;
-      state = (state >> 1) | (d ? S / 2 : 0);
+    if constexpr (kSpl <= 2) {
+      int t = lw - 1;
+      for (; t >= kAhead - 1; t -= kAhead) {
+        uint2 w[kAhead];
+#pragma unroll
+        for (int i = 0; i < kAhead; ++i) {
+          const unsigned* p = dec + (t - i) * kSpl;
+          if constexpr (kSpl == 2) {
+            w[i] = *reinterpret_cast<const uint2*>(p);
+          } else {
+            w[i] = make_uint2(*p, 0u);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kAhead; ++i) {
+          out[(t - i) * kSpl * 4] = static_cast<unsigned char>(state & 1);
+          const unsigned word = (kSpl == 2 && (state >> 5)) ? w[i].y : w[i].x;
+          state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
+        }
+      }
+      for (; t >= 0; --t) {
+        const unsigned* p = dec + t * kSpl;
+        const unsigned word = (kSpl == 2 && (state >> 5)) ? p[1] : p[0];
+        out[t * kSpl * 4] = static_cast<unsigned char>(state & 1);
+        state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
+      }
+    } else {
+      for (int t = lw - 1; t >= 0; --t) {
+        const unsigned word = dec[t * kSpl + (state >> 5)];
+        out[t * kSpl * 4] = static_cast<unsigned char>(state & 1);
+        state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
+      }
     }
   }
+  __syncwarp();
+  unsigned char* dst = bits + tr * static_cast<long long>(lw);
+  for (int t = lane; t < lw; t += 32) dst[t] = out[t * kSpl * 4];
 }
 
-template <int S>
+template <int S, int NT>
 int launch(const void* sym, void* bits, long long n_trellis, int lw, int n,
            int init_state0, int end_state0, int warps, const Masks& masks,
            cudaStream_t stream) {
   constexpr int kSpl = S >= 32 ? S / 32 : 1;
   const size_t smem = static_cast<size_t>(warps) * lw * kSpl * sizeof(unsigned int);
   cudaError_t err = cudaFuncSetAttribute(
-      viterbi_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      viterbi_kernel<S, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n_trellis + warps - 1) / warps;
-  viterbi_kernel<S><<<static_cast<unsigned>(blocks), 32 * warps, smem, stream>>>(
+  viterbi_kernel<S, NT><<<static_cast<unsigned>(blocks), 32 * warps, smem, stream>>>(
       static_cast<const float*>(sym), static_cast<unsigned char*>(bits), n_trellis,
       lw, n, init_state0, end_state0, masks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_n(const void* sym, void* bits, long long n_trellis, int lw, int n,
+             int init_state0, int end_state0, int warps, const Masks& masks, cudaStream_t s) {
+  switch (n) {
+    case 2: return launch<S, 2>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
+                                masks, s);
+    case 3: return launch<S, 3>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
+                                masks, s);
+    default: return launch<S, 0>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
+                                 masks, s);
+  }
 }
 
 }  // namespace
@@ -165,8 +286,8 @@ int launch(const void* sym, void* bits, long long n_trellis, int lw, int n,
 // launch (0 = success). The caller guarantees: sym float32 [n_trellis, lw, n]
 // and bits uint8 [n_trellis, lw], contiguous; s_count a power of two in
 // [4, 256]; 1 <= n <= 8; out_mask a host array of 2 * s_count bytes;
-// warps * lw * max(1, s_count / 32) * 4 bytes of shared memory within the
-// card's per-block limit.
+// warps trellises a block (one a warp); warps * lw * max(1, s_count / 32) * 4
+// bytes of shared memory within the card's per-block limit.
 extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
                               int lw, int n, int s_count, int init_state0,
                               int end_state0, int warps,
@@ -177,13 +298,20 @@ extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
   for (int i = 0; i < 2 * s_count; ++i) masks.m[i] = out_mask[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (s_count) {
-    case 4: return launch<4>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 8: return launch<8>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 16: return launch<16>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 32: return launch<32>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 64: return launch<64>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 128: return launch<128>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
-    case 256: return launch<256>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 4:
+      return launch_n<4>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 8:
+      return launch_n<8>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 16:
+      return launch_n<16>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 32:
+      return launch_n<32>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 64:
+      return launch_n<64>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 128:
+      return launch_n<128>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+    case 256:
+      return launch_n<256>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

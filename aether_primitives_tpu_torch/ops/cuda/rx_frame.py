@@ -13,19 +13,21 @@ bytes, or the ``Scale.SN`` spectrum that the EVM gate reads.
   in complex64 plus the same epilogue.
 - :data:`launches` counts the kernel's launches (one per call).
 - :func:`kernel_plan` / :func:`kernel_supports` name the kernel's instance
-  and stage split for a geometry: ``tile256`` (n1 and n2 multiples of 8, a
-  frame of at most 8,192 samples: the main path's dec 4, fft_len 2048),
+  for a geometry: ``direct`` (power-of-two fft_len 64-4096, at most
+  :data:`DIRECT_MAX_TAPS` taps, staged frames within the opt-in shared
+  memory: the main path's dec 4, fft_len 2048; the FIR at the kept outputs
+  and an FFT written by hand, no stage split), ``tile256`` (n1 and n2
+  multiples of 8, a frame of at most 8,192 samples: dec 4, fft_len 192),
   ``tile512`` (the same split rules, 8,193-16,384 samples: dec 4,
-  fft_len 4096), ``generic`` (any other split: fft_len 30, spans under 64;
+  fft_len 3072), ``generic`` (any other split: fft_len 30, spans under 64;
   spectrum epilogue, its bits decided and packed in PyTorch on the card).
-  Where the heuristic's split does not tile, the card takes its own
-  factorisation (dec 4, fft_len 64 -> n1 32; dec 1, fft_len 128 -> n1 16),
-  which agrees with the JAX package at the usual bars, not bit for bit. A
-  frame beyond the opt-in shared memory (:data:`SMEM_LIMIT`) raises.
+  For the staged instances, where the heuristic's split does not tile, the
+  card takes its own factorisation (dec 1, fft_len 16384 -> n1 128), which
+  agrees with the JAX package at the usual bars, not bit for bit. A frame
+  beyond the opt-in shared memory (:data:`SMEM_LIMIT`) raises.
 
-Output per frame, natural bin ``k = k1 + n1*d``: ``"qpsk"`` writes
-``fft_len / 4`` bytes (byte ``d*n1/4 + k1/4`` holds symbols ``k1..k1+3``,
-two bits each, LSB-first); ``"bpsk"`` writes ``fft_len / 8`` bytes, one
+Output per frame, natural bin ``k``: ``"qpsk"`` writes ``fft_len / 4``
+bytes (byte ``k/4`` holds symbols ``k..k+3``, two bits each, LSB-first); ``"bpsk"`` writes ``fft_len / 8`` bytes, one
 bit ``re + im < 0`` per symbol; ``"spectrum"`` writes ``fft_len`` complex64
 bins times ``Scale.SN``. Bytes come back flat per block row,
 ``[..., nsym * fft_len * bits / 8]``; spectra as ``[..., nsym, fft_len]``.
@@ -49,10 +51,15 @@ from . import build
 launches = 0
 
 EPILOGUES = {"qpsk": 0, "bpsk": 1, "spectrum": 2}
-#: The kernel's instances (``csrc/rx_frame.cu``: 256, 512 and 256 threads a
-#: CTA) by name: the most samples a frame may span, and the number the C
-#: entry takes.
+#: The kernel's staged instances (``csrc/rx_frame.cu``: 256, 512 and 256
+#: threads a CTA) by name: the most samples a frame may span, and the number
+#: the C entry takes. The direct instance has its own C entry.
 INSTANCES = {"tile256": (8192, 0), "tile512": (16384, 1), "generic": (None, 2)}
+#: The direct instance: the most taps (a kernel parameter), the fft_len
+#: range (powers of two), and the FIR outputs a CTA works on at once.
+DIRECT_MAX_TAPS = 256
+DIRECT_FFT_LEN = (64, 4096)
+DIRECT_OUTPUTS = 2048
 #: Opt-in shared memory of one CTA on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
 _G_CAP = 64 << 20  # the largest G' tensor a stage split may imply (ops/fir.py)
@@ -80,17 +87,51 @@ def _smem_bytes(instance: str, span: int, ku: int) -> int:
     return (planes * span + 2 * ku) * 4
 
 
+def direct_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[tuple]:
+    """``(fpc, wp, nb)`` of the direct instance, or None where it does not
+    take the geometry: frames a CTA (``DIRECT_OUTPUTS / fft_len``, halved
+    until they fit :data:`SMEM_LIMIT`), float2 slots of a frame's staged
+    window (``K-1 + span`` samples, one pad slot every 32) and of its FFT
+    buffer (``fft_len`` points, one pad slot every 8)."""
+    lo, hi = DIRECT_FFT_LEN
+    if not lo <= fft_len <= hi or fft_len & (fft_len - 1) or not 1 <= n_taps <= DIRECT_MAX_TAPS:
+        return None
+    wlen = n_taps - 1 + dec * fft_len
+    wp = wlen + ((wlen - 1) >> 5)
+    nb = fft_len + fft_len // 8
+    fpc = max(1, DIRECT_OUTPUTS // fft_len)
+    while fpc > 1 and fpc * max(wp, nb) * 8 > SMEM_LIMIT:
+        fpc //= 2
+    if fpc * max(wp, nb) * 8 > SMEM_LIMIT:
+        return None
+    return fpc, wp, nb
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                 n_taps: int = 1) -> Optional[tuple]:
-    """``(instance, n1)``: the kernel's instance (:data:`INSTANCES`) and
-    stage split for a geometry, or None where no instance takes it.
+    """``(instance, n1)``: the kernel's instance and stage split for a
+    geometry, or None where no instance takes it.
 
-    ``stage_n1`` given: that split (it must divide ``fft_len``). Otherwise
-    the heuristic's (:func:`~aether_primitives_tpu_torch.ops.fir.
+    ``"direct"`` wherever :func:`direct_layout` takes the geometry, whatever
+    ``stage_n1``: it has no split, and ``n1`` is the split the plain twin
+    takes (``stage_n1``, else the heuristic's, else the card's own), which
+    computes the same function. Otherwise :func:`staged_plan`.
+    """
+    if direct_layout(dec, fft_len, n_taps) is not None:
+        return "direct", (_fir._fused_stage_n1(dec, fft_len, stage_n1)
+                          or _card_n1(dec, fft_len))
+    return staged_plan(dec, fft_len, stage_n1, n_taps)
+
+
+def staged_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
+                n_taps: int = 1) -> Optional[tuple]:
+    """``(instance, n1)`` among the staged instances (:data:`INSTANCES`),
+    or None. ``stage_n1`` given: that split (it must divide ``fft_len``).
+    Otherwise the heuristic's (:func:`~aether_primitives_tpu_torch.ops.fir.
     _fused_stage_n1`, the JAX package's) where the tile instances take it,
     else the card's own factorisation (:func:`_card_n1`: e.g. dec 4,
-    fft_len 64 -> n1 32, n2 8; dec 1, fft_len 128 -> n1 16, n2 8), else the
+    fft_len 64 -> n1 32, n2 8; dec 1, fft_len 16384 -> n1 128), else the
     heuristic's split through the generic instance. A split other than the
     heuristic's agrees with the JAX package at the usual bars, not bit for
     bit. None where a frame of ``n_taps``-tap history needs more shared
@@ -115,8 +156,8 @@ def kernel_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
 def kernel_supports(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                     n_taps: int = 1) -> Optional[str]:
     """The instance of the CUDA kernel that takes this geometry
-    (``"tile256"``, ``"tile512"`` or ``"generic"``, see :func:`kernel_plan`),
-    or None where none does. Every output mode shares the condition."""
+    (``"direct"``, ``"tile256"``, ``"tile512"`` or ``"generic"``, see
+    :func:`kernel_plan`), or None where none does. Every output mode shares the condition."""
     plan = kernel_plan(dec, fft_len, stage_n1, n_taps)
     return None if plan is None else plan[0]
 
@@ -222,6 +263,35 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _direct_entry():
+    fn = build.load("rx_frame").rx_frame_direct_launch
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                     ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def twiddles(fft_len: int, device: str) -> torch.Tensor:
+    """The direct instance's FFT twiddles ``W[e] = exp(-2 pi i e / fft_len)``,
+    ``e < fft_len``: computed in float64, stored as complex64, uploaded once
+    per ``(fft_len, device)``."""
+    e = np.arange(fft_len, dtype=np.float64)
+    return torch.from_numpy(np.exp(-2j * np.pi * e / fft_len).astype(np.complex64)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _direct_taps(taps_bytes: bytes):
+    """The taps as ``(re, im)`` float32 pairs for the C entry, and whether
+    every imaginary part is exactly 0 (the real-tap variant)."""
+    taps = np.frombuffer(taps_bytes, dtype=np.complex64)
+    return np.ascontiguousarray(taps.view(np.float32)), bool(np.all(taps.imag == 0))
+
+
 def sign_bits(spec: torch.Tensor, epilogue: str) -> torch.Tensor:
     """The bit epilogues' hard decisions of ``[..., nsym, fft_len]`` spectra,
     one uint8 per bit in natural bin order: QPSK ``(re < 0, im < 0)``, BPSK
@@ -248,7 +318,6 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
     a non-contiguous block, a missing ``nvcc``, a failed build or a failed
     launch. On a CPU tensor it is :func:`rx_frame_reference`.
     """
-    global launches
     if not isinstance(x, torch.Tensor):
         raise TypeError("rx_frame takes a torch.Tensor block")
     if x.device.type == "cpu":
@@ -269,8 +338,6 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
             f"stage_n1 {stage_n1}, {k} taps: no instance fits a frame of {span} samples "
             f"in the {SMEM_LIMIT} bytes of opt-in shared memory a CTA has (see kernel_plan)"
         )
-    instance, n1 = plan
-    n2, r = span // n1, fft_len // n1
     batch = tuple(x.shape[:-1])
     nsym = x.shape[-1] // span
     rows = int(np.prod(batch, dtype=np.int64))
@@ -283,6 +350,25 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
         if hist.shape[-1] != ku:
             raise ValueError(f"history must have K-1 = {ku} samples")
         hist = hist.expand(batch + (ku,)).contiguous()
+    if plan[0] == "direct":
+        return _launch_direct(x, hist, taps, dec, fft_len, epilogue, batch, nsym, frames)
+    return launch_staged(x, hist, taps, dec, fft_len, epilogue, plan)
+
+
+def launch_staged(x, hist, taps, dec: int, fft_len: int, epilogue: str, plan) -> torch.Tensor:
+    """One launch of a staged instance, ``plan = (instance, n1)`` of
+    :func:`staged_plan`, on a checked contiguous block and history
+    (:func:`rx_frame` for the geometries the direct instance does not take;
+    ``chip_smoke.py`` times the tile256 instance, the parent's main-path
+    kernel, beside the direct one). Counts as a launch."""
+    global launches
+    instance, n1 = plan
+    k = taps.shape[-1]
+    span = dec * fft_len
+    batch = tuple(x.shape[:-1])
+    nsym = x.shape[-1] // span
+    frames = int(np.prod(batch, dtype=np.int64)) * nsym
+    n2, r = span // n1, fft_len // n1
     generic_bits = instance == "generic" and epilogue != "spectrum"
     if epilogue == "spectrum" or generic_bits:
         out = torch.empty(batch + (nsym, fft_len), dtype=torch.complex64,
@@ -302,10 +388,37 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
         INSTANCES[instance][1], EPILOGUES["spectrum" if generic_bits else epilogue],
         x.data_ptr(), None if hist is None else hist.data_ptr(),
         *(c.data_ptr() for c in consts), out.data_ptr(),
-        frames, nsym, n1, n2, r, ku, scale, index,
+        frames, nsym, n1, n2, r, k - 1, scale, index,
         torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
     launches += 1
     return pack_bits(sign_bits(out, epilogue)) if generic_bits else out
+
+
+def _launch_direct(x, hist, taps, dec, fft_len, epilogue, batch, nsym, frames):
+    """One launch of the direct instance (see :func:`rx_frame`)."""
+    global launches
+    fpc, wp, nb = direct_layout(dec, fft_len, taps.shape[-1])
+    if epilogue == "spectrum":
+        out = torch.empty(batch + (nsym, fft_len), dtype=torch.complex64, device=x.device)
+    else:
+        bits = 2 if epilogue == "qpsk" else 1
+        out = torch.empty(batch + (nsym * fft_len * bits // 8,), dtype=torch.uint8,
+                          device=x.device)
+    if frames == 0:
+        return out
+    taps_ri, real = _direct_taps(taps.tobytes())
+    index = x.get_device()
+    rc = _direct_entry()(
+        EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
+        twiddles(fft_len, str(x.device)).data_ptr(), taps_ri.ctypes.data,
+        taps.shape[-1], int(real), out.data_ptr(), frames, nsym, dec,
+        fft_len.bit_length() - 1, fpc, wp, nb, Scale.SN.factor_for(fft_len), index,
+        torch._C._cuda_getCurrentRawStream(index),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out

@@ -16,9 +16,12 @@ N]`` transposed) -> uint8 bits ``[N, Lw]``.
 
 The kernel's limits (:func:`kernel_supports`): ``2^(K-1)`` from 4 to 256
 states, 1 to 8 generators, and a decision history of ``Lw * max(1, S/32) *
-4`` bytes per trellis within one block's shared memory (7,264 steps at 64
-states with 4 trellises per block, 29,058 steps with one). A longer block
-is the windowed decoder's work (``viterbi_decode(..., window=...)``).
+4`` bytes per trellis within one block's shared memory (58,112 steps up to
+32 states, 29,056 at 64, with one trellis per block; the LLRs do not take
+shared memory). A longer block is the windowed decoder's work
+(``viterbi_decode(..., window=...)``). A warp decodes one trellis; the
+trellises a block (:data:`WARPS`, the first that fits) were chosen by
+``benches/torch_viterbi_sweep.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ launches = 0
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on an H100
 MAX_STATES = 256
 MAX_GENERATORS = 8
-_WARPS = (4, 2, 1)  # trellises per block, the first that fits
+#: Trellises (warps) a block in order of preference; the kernel takes the
+#: first whose histories fit a block.
+WARPS = (4, 2, 1)
 
 
 def _tables(polys, k: int):
@@ -47,11 +52,13 @@ def _tables(polys, k: int):
     return _trellis(tuple(int(p) for p in polys), int(k))
 
 
-def _warps_per_block(lw: int, k: int):
-    words = max(1, (1 << (k - 1)) // 32)
-    for w in _WARPS:
-        if w * lw * words * 4 <= MAX_SMEM:
-            return w
+def warps_per_block(lw: int, k: int, choices=WARPS):
+    """The first of ``choices`` (warps a block, one trellis a warp) whose
+    decision histories fit one block's shared memory, or None."""
+    per_trellis = lw * max(1, (1 << (k - 1)) // 32) * 4
+    for warps in choices:
+        if warps * per_trellis <= MAX_SMEM:
+            return warps
     return None
 
 
@@ -60,7 +67,7 @@ def kernel_supports(lw: int, n: int, constraint: int) -> bool:
     ``n`` generators and constraint length ``constraint``."""
     s_count = 1 << (int(constraint) - 1)
     return (4 <= s_count <= MAX_STATES and 1 <= n <= MAX_GENERATORS and lw >= 1
-            and _warps_per_block(lw, int(constraint)) is not None)
+            and warps_per_block(lw, int(constraint), (1,)) is not None)
 
 
 def _check_args(sym: torch.Tensor, lw: int, n: int, polys, constraint: int):
@@ -175,15 +182,23 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
     bits = torch.empty((n_tr, lw), dtype=torch.uint8, device=sym.device)
     if n_tr == 0:
         return bits
-    masks = _out_masks(polys, k)
+    launch(sym, bits, lw, n, polys, k, init_state0, end_state0,
+           warps_per_block(lw, k))
+    launches += 1
+    return bits
+
+
+def launch(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,
+           end_state0: bool, warps: int) -> None:
+    """One launch of the kernel at ``warps`` trellises a block into ``bits``
+    (checked arguments; no count): :func:`viterbi_lanes`, and the tests and
+    the sweep at each block width."""
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
         rc = _entry()(
-            sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, 1 << (k - 1),
-            int(bool(init_state0)), int(bool(end_state0)), _warps_per_block(lw, k),
-            masks.ctypes.data, stream,
+            sym.data_ptr(), bits.data_ptr(), sym.shape[0], lw, n, 1 << (k - 1),
+            int(bool(init_state0)), int(bool(end_state0)), warps,
+            _out_masks(tuple(polys), k).ctypes.data, stream,
         )
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return bits

@@ -47,12 +47,13 @@ def main() -> None:
     frames = BLOCK // (DEC * FFT_LEN)
     for n1 in SPLITS:
         n2, r = DEC * FFT_LEN // n1, FFT_LEN // n1
-        if not rf.kernel_supports(DEC, FFT_LEN, n1):
-            print(f"n1={n1}: the kernel does not take this split")
+        plan = rf.staged_plan(DEC, FFT_LEN, n1, ku + 1)
+        if plan is None:
+            print(f"n1={n1}: no staged instance takes this split")
             continue
-        spec = rf.rx_frame(xd, taps, DEC, FFT_LEN, None, "spectrum", n1)
+        spec = rf.launch_staged(xd, None, taps, DEC, FFT_LEN, "spectrum", plan)
         evm = evm_rms_db(spec.cpu().numpy(), ref)
-        runs = [time_cuda(lambda: rf.rx_frame(xd, taps, DEC, FFT_LEN, None, "qpsk", n1),
+        runs = [time_cuda(lambda: rf.launch_staged(xd, None, taps, DEC, FFT_LEN, "qpsk", plan),
                           ITERS) for _ in range(RUNS)]
         plain = time_cuda(
             lambda: rf.rx_frame_reference(xd, taps, DEC, FFT_LEN, None, "qpsk", n1),
@@ -62,7 +63,7 @@ def main() -> None:
         stage2 = frames * (n1 * n2 * r + ku * FFT_LEN)
         l2 = frames * FFT_LEN * (n2 + ku) * 8  # G' and Cm float32 planes per frame
         tflops = (stage1 + stage2) * 8 / (ms * 1e-3) / 1e12
-        print(f"n1={n1} n2={n2} r={r}: kernel {ms:.4f} ms (runs "
+        print(f"n1={n1} n2={n2} r={r}: {plan[0]} kernel {ms:.4f} ms (runs "
               f"{[round(v, 4) for v in runs]}), plain {plain:.4f} ms, evm {evm:.2f} dB, "
               f"stage1 {stage1 / 1e9:.3f} G cMAC, stage2+corr {stage2 / 1e9:.3f} G cMAC, "
               f"G'+Cm L2 reads {l2 / 1e9:.3f} GB, {tflops:.1f} TFLOP/s [{card}]")

@@ -35,30 +35,37 @@ in twenty-two phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
 2. the seven kernels' builds from the sources in the checkout, started
-   together, timed, with the RX frame and PFB fold compiler reports;
-3. the RX frame kernel against its plain PyTorch version and the float64
-   chain at the main path's shapes: QPSK and BPSK bytes and the spectrum
-   epilogue, with and without carried history; then its other instances
-   and splits (``F7_GEOMETRIES``: the 512-thread tile instance at dec 4,
-   fft_len 4096; the card's own split n1 32, n2 8 at dec 4, fft_len 64;
-   the generic instance for an unpacked chain at dec 5, fft_len 30), each
-   through the chain's two-block streaming gate with one launch a step,
-   against the plain twin given the same split, and timed;
+   together, timed, with the PFB fold compiler report;
+3. the RX frame kernel's main-path instance (``direct``: the FIR at the
+   kept outputs and a hand-written FFT) against its plain PyTorch version
+   and the float64 chain at the main path's shapes: QPSK and BPSK bytes and
+   the spectrum epilogue, with and without carried history; then every
+   other instance (``F7_GEOMETRIES``: direct at dec 4, fft_len 4096 and 64;
+   tile256 at dec 4, fft_len 192; tile512 at dec 4, fft_len 3072; generic
+   for an unpacked chain at dec 5, fft_len 30), each through the chain's
+   two-block streaming gate with one launch a step, against the plain twin,
+   and timed;
 4. the RX chain's two-block streaming gate, counting kernel launches;
-5. CUDA-event timings of the RX chain's kernel path and plain path;
-6. the Viterbi and BCJR kernels' register and spill reports;
+5. CUDA-event timings of the RX frame kernel, the parent's main-path kernel
+   (the tile256 instance, unchanged in this tree, after a bit comparison
+   with the direct one), the plain version, and the RX chain's kernel and
+   plain paths; the two kernels' device times (``torch.profiler``) and the
+   host's time to enqueue a streaming step;
+6. the RX frame, Viterbi and BCJR kernels' register and spill reports;
 7. the Viterbi and BCJR kernels against their plain twins at the burst
    path's shapes, bit for bit (``array_equal`` / ``torch.equal``); for the
-   BCJR kernel also Lw 1, 2, 95, 97, N 1, 77, 1,000, 2,570, exact ties
-   with -0.0, random tables of every state count it takes, and the meet
-   instance at both its CTA widths (16 and 8 columns);
+   Viterbi kernel also tie-heavy spans (integer LLRs with -0.0) at K = 3,
+   5, 7 and 9, rates 1/2 and 1/3; for the BCJR kernel also Lw 1, 2, 95,
+   97, N 1, 77, 1,000, 2,570, exact ties with -0.0, random tables of every
+   state count it takes, and the meet instance at both its CTA widths (16
+   and 8 columns);
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for both FECs;
    every payload exact and CRC-ok, exactly 1 Viterbi and 16 BCJR launches
    per call, and the first 8 bursts equal to the port's CPU run;
 9. CUDA-event timings of each burst kernel (and the BCJR kernel at K=7)
-   against its plain twin and of ``rx_batch`` end to end, the BCJR
-   kernel's device time (``torch.profiler``) beside its chain floor (an
+   against its plain twin and of ``rx_batch`` end to end, the Viterbi and
+   BCJR kernels' device times (``torch.profiler``) beside its chain floor (an
    estimate from assumed operation counts, on a line of its own), and a
    ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
    and the rest;
@@ -163,10 +170,15 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 CHAIN_OPS, OP_CYCLES = 6, 4
 NVLINK_BYTES = 450e9  # one way between two cards of a host
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
-# (dec, fft_len, packed): the RX frame kernel's 512-thread instance, the card's
-# own stage split (the heuristic's n2 is 4) and the generic instance (an
-# unpacked chain whose frame is not whole bytes)
-F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (5, 30, False))
+# (dec, fft_len, packed): the RX frame kernel's direct instance at 4,096 points
+# (one CTA an SM) and at 64 (32 frames a CTA), the staged tile256 and tile512
+# instances (fft_len not a power of two) and the generic instance (an unpacked
+# chain whose frame is not whole bytes)
+# phase 7's tie cases: a rate-1/2 code a constraint length (a third generator
+# makes the rate-1/3 case)
+VITERBI_TIE_CODES = {3: (0o5, 0o7), 5: (0o23, 0o35), 7: (0o171, 0o133), 9: (0o561, 0o753)}
+F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (4, 192, True), (4, 3072, True),
+                 (5, 30, False))
 
 
 def fail(msg: str) -> None:
@@ -314,7 +326,6 @@ def main() -> None:
                 fail(f"{kernel} kernel build: {e}")
     print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f} s (parallel) [{card}]")
-    print_ptxas(build, "rx_frame")
     print_ptxas(build, "pfb_fold")
     sys.stdout.flush()
 
@@ -336,6 +347,11 @@ def main() -> None:
                                      x_dev[BLOCK - ku:BLOCK], ref_spec[half:]),
     }
     unpack = rf.unpack_bits
+    main_plan = rf.kernel_plan(dec, fft_len, None, taps.shape[-1])
+    print(f"rx_frame main path: instance {main_plan[0]} (kernel_plan; the parent's was "
+          f"{rf.staged_plan(dec, fft_len, None, taps.shape[-1])})")
+    if main_plan[0] != "direct":
+        fail(f"the main path's geometry took the {main_plan[0]} instance, not direct")
     worst_err = 0.0
     for label, (xb, hist, rs) in cases.items():
         ref_bits = {
@@ -405,14 +421,30 @@ def main() -> None:
         return out
 
     xb, hist = blocks[0], blocks[1][BLOCK - ku:]
+    # the parent's main-path kernel: the tile256 instance, unchanged in this tree
+    parent_plan = rf.staged_plan(dec, fft_len, None, ku + 1)
+    hist_c = hist.contiguous()
+
+    def parent_kernel():
+        return rf.launch_staged(xb, hist_c, taps, dec, fft_len, "qpsk", parent_plan)
+
+    got_new = rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk")
+    got_old = parent_kernel()
+    a_old = float((unpack(got_new) == unpack(got_old)).float().mean())
+    print(f"compare rx_frame direct vs the parent's kernel ({parent_plan}): qpsk bits "
+          f"{a_old:.7f} (need >= {AGREEMENT})")
+    if a_old < AGREEMENT:
+        fail("the direct instance and the parent's kernel disagree")
     iters, runs = 40, 4
-    ms = {"plain": [], "kernel": [], "chain_kernel": [], "chain_plain": []}
+    ms = {"plain": [], "kernel": [], "parent": [], "chain_kernel": [], "chain_plain": []}
     for run in range(runs):  # alternate which side runs first
-        for which in (("plain", "kernel"), ("kernel", "plain"))[run % 2]:
+        for which in (("plain", "parent", "kernel"), ("kernel", "parent", "plain"))[run % 2]:
             if which == "kernel":
                 ms["kernel"].append(time_cuda(
                     lambda: rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk"), iters))
                 ms["chain_kernel"].append(time_cuda(step_kernel, iters))
+            elif which == "parent":
+                ms["parent"].append(time_cuda(parent_kernel, iters))
             else:
                 ms["plain"].append(time_cuda(
                     lambda: rf.rx_frame_reference(xb, taps, dec, fft_len, hist, "qpsk"),
@@ -421,7 +453,8 @@ def main() -> None:
     t = {k: float(np.median(v)) for k, v in ms.items()}
     msa = lambda m: BLOCK / (m * 1e-3) / 1e6  # noqa: E731
     for key, what in (
-        ("kernel", "rx_frame kernel, qpsk bytes"),
+        ("kernel", "rx_frame kernel (direct), qpsk bytes"),
+        ("parent", f"rx_frame parent's kernel ({parent_plan[0]}), qpsk bytes"),
         ("plain", "rx_frame plain PyTorch, qpsk bytes"),
         ("chain_kernel", "streaming step, kernel path"),
         ("chain_plain", "streaming step, plain path"),
@@ -429,6 +462,28 @@ def main() -> None:
         print(f"time: {what}: median {t[key]:.4f} ms/block = {msa(t[key]):.1f} Msa/s "
               f"(runs {', '.join(f'{v:.4f}' for v in ms[key])} ms; CUDA events, "
               f"mean of {iters} calls per run, blocks resident) [{card}]")
+    # the kernels' own device time, and the host's time to enqueue a step
+    dev_ms = {
+        "kernel": kernel_device_ms(lambda: rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk"),
+                                   "rx_frame"),
+        "parent": kernel_device_ms(parent_kernel, "rx_frame"),
+        "step": kernel_device_ms(step_kernel, "rx_frame"),
+    }
+    enqueue = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step_kernel()
+        enqueue.append((time.perf_counter() - t0) / 10 * 1e3)
+        torch.cuda.synchronize()
+    t["enqueue"] = float(np.median(enqueue))
+    print(f"device: rx_frame direct {dev_ms['kernel']:.4f} ms, the parent's kernel "
+          f"{dev_ms['parent']:.4f} ms a launch, the kernel inside a streaming step "
+          f"{dev_ms['step']:.4f} ms (torch.profiler, mean over the launches of 20 calls); "
+          f"host enqueue of a streaming step median {t['enqueue']:.4f} ms (runs "
+          f"{', '.join(f'{v:.4f}' for v in enqueue)}; host clock, 10 steps, no synchronise): "
+          f"the step is {'host' if t['enqueue'] > dev_ms['step'] else 'device'}-bound [{card}]")
 
     host = capture(BLOCK, 950)
     pinned = torch.from_numpy(host).pin_memory()
@@ -444,17 +499,18 @@ def main() -> None:
           f"{h2d_pinned:.4f} ms (CUDA events), pageable {h2d_pageable:.4f} ms "
           f"(host clock) [{card}]")
 
-    # the bound of the timed call: one 4M block with history, QPSK bytes
-    n1 = 128  # the heuristic's stage split at fft_len 2048, dec 4
-    n2, r, frames = dec * fft_len // n1, fft_len // n1, BLOCK // (dec * fft_len)
+    # the bound of the timed call, the function's own: one 4M block with history
+    # in, QPSK bytes out; operations of the FIR at the kept outputs with real
+    # taps (2 FMAs a tap) and of a 5 N log2 N FFT per frame
+    frames = BLOCK // (dec * fft_len)
     rx_frame_bound = bound(
-        8.0 * frames * (n1 * n1 * n2 + n1 * n2 * r + ku * fft_len),  # complex MACs
-        BLOCK * 8 + BLOCK // 16 + ku * 8 + 8 * (n1 * n1 + r * n2 * n1 + r * ku * n1),
+        4.0 * frames * fft_len * (ku + 1) + 5.0 * frames * fft_len * np.log2(fft_len),
+        BLOCK * 8 + BLOCK // 16 + ku * 8,
     )
     sys.stdout.flush()
 
-    # ---- phase 6: the burst kernels' compiler reports --------------------
-    for kernel in ("viterbi", "bcjr"):
+    # ---- phase 6: the redesigned kernels' and the BCJR's compiler reports ----
+    for kernel in ("rx_frame", "viterbi", "bcjr"):
         print_ptxas(build, kernel)
 
     # ---- phase 7: burst kernels vs plain twins at the path's shapes ------
@@ -486,6 +542,40 @@ def main() -> None:
               f"{torch.equal(got, plain)}, max |diff| {err}")
         if not torch.equal(got, plain):
             fail(f"viterbi {label}: kernel and plain twin disagree")
+    # tie-heavy spans: integer LLRs (many exact ties, repeated values) with half
+    # of the zeros -0.0, at K = 3, 5, 7, 9, rates 1/2 and 1/3, both starts/ends
+    for k in (3, 5, 7, 9):
+        for polys in (VITERBI_TIE_CODES[k], VITERBI_TIE_CODES[k] + (VITERBI_TIE_CODES[k][0] | 1,)):
+            n = len(polys)
+            ties = np.round(rng.normal(size=(BURSTS, 160, n)) * 1.5).astype(np.float32)
+            ties[(ties == 0) & (rng.random(ties.shape) < 0.5)] = -0.0
+            sym_t = torch.from_numpy(ties).cuda()
+            for ends in ((True, True), (False, False)):
+                got = vk.viterbi_lanes(sym_t, 160, n, polys, k, *ends)
+                plain = vk.viterbi_lanes_reference(sym_t, 160, n, polys, k, *ends)
+                torch.cuda.synchronize()
+                same = torch.equal(got, plain)
+                vit_err = max(vit_err, int((got.int() - plain.int()).abs().max()))
+                print(f"compare viterbi ties and -0.0, K={k} rate 1/{n} {tuple(sym_t.shape)} "
+                      f"ends {ends}: kernel vs plain torch.equal {same}")
+                if not same:
+                    fail(f"viterbi ties K={k} rate 1/{n}: kernel and plain twin disagree")
+    # spans at the kernel's limit (one trellis a block, the decision history
+    # alone in shared memory): the plain twin runs on the CPU copy
+    for (polys, k) in (((0o23, 0o35), 5), ((0o133, 0o145, 0o175), 7)):
+        n, lw_l = len(polys), vk.MAX_SMEM // (4 * max(1, (1 << (k - 1)) // 32))
+        if not vk.kernel_supports(lw_l, n, k) or vk.kernel_supports(lw_l + 1, n, k):
+            fail(f"viterbi K={k} rate 1/{n}: the span limit is not {lw_l} steps")
+        sym_l = torch.from_numpy(np.round(rng.normal(size=(2, lw_l, n)) * 2)
+                                 .astype(np.float32)).cuda()
+        got = vk.viterbi_lanes(sym_l, lw_l, n, polys, k, True, False).cpu()
+        plain = vk.viterbi_lanes_reference(sym_l.cpu(), lw_l, n, polys, k, True, False)
+        same = torch.equal(got, plain)
+        vit_err = max(vit_err, int((got.int() - plain.int()).abs().max()))
+        print(f"compare viterbi at the span limit, K={k} rate 1/{n} {tuple(sym_l.shape)}: "
+              f"kernel vs plain (CPU) torch.equal {same}")
+        if not same:
+            fail(f"viterbi K={k} rate 1/{n} at {lw_l} steps: kernel and plain twin disagree")
     lw_t, cols_t = 16 + 64 + 16, BURSTS * 10  # turbo: window 64, guard 16, 10 windows
     spans = [torch.from_numpy((rng.normal(size=(lw_t, cols_t)) * 3).astype(np.float32)).cuda()
              for _ in range(2)]
@@ -589,11 +679,16 @@ def main() -> None:
     # the kernels' own device time (torch.profiler): a loop of calls above is
     # bound by the wrapper's host time where a launch is shorter than it
     bcjr_dev = kernel_device_ms(kernel_calls["bcjr"][0], "bcjr_kernel")
+    vit_dev = kernel_device_ms(kernel_calls["viterbi"][0], "viterbi_kernel")
+    print(f"device: viterbi kernel {vit_dev:.5f} ms a launch at {BURSTS} x {lw_v} steps "
+          f"(torch.profiler, mean over 20 launches), {vk.warps_per_block(lw_v, 7)} "
+          f"trellises a block; bound {vit_bound['bound_ms']:.5f} ms by "
+          f"{vit_bound['bound_by']} [{card}]")
     k7_dev = kernel_device_ms(kernel_calls["bcjr K=7 (S 64, generic instance)"][0],
                               "bcjr_kernel")
     print(f"bound: bcjr {bcjr_bound['bound_ms']:.5f} ms by {bcjr_bound['bound_by']}; kernel "
-          f"device time {bcjr_dev:.5f} ms a launch (torch.profiler, 20 launches), instance "
-          f"{bk.kernel_plan(None, lw_t)}; K=7 (S 64, generic instance) device time "
+          f"device time {bcjr_dev:.5f} ms a launch (torch.profiler, mean over 20 launches), "
+          f"instance {bk.kernel_plan(None, lw_t)}; K=7 (S 64, generic instance) device time "
           f"{k7_dev:.5f} ms a launch [{card}]")
     print(f"chain floor (estimate, not measured): bcjr {chain_floor:.5f} ms = {lw_t} steps x "
           f"{CHAIN_OPS} dependent FP32 ops a step (assumed) x {OP_CYCLES} cycles each "
@@ -629,6 +724,13 @@ def main() -> None:
             "plain_ms": t["plain"],
             **rx_frame_bound,
             "library_ms": None,
+            "instance": main_plan[0],
+            "device_ms": dev_ms["kernel"],
+            "parent_ms": t["parent"],
+            "parent_device_ms": dev_ms["parent"],
+            "parent_instance": parent_plan[0],
+            "step_ms": t["chain_kernel"],
+            "step_host_enqueue_ms": t["enqueue"],
             "instances": instances,
         },
         {
@@ -642,6 +744,7 @@ def main() -> None:
             "plain_ms": kt["viterbi"]["plain"],
             **vit_bound,
             "library_ms": None,
+            "device_ms": vit_dev,
         },
         {
             "name": "bcjr",
@@ -753,7 +856,8 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
         sync(dev)
         counts = read_counts()
         g = gate(chain, x_full, n, bits, states)
-        label = (f"{instance}, dec {dec}, fft_len {fft_len}, n1 {n1}, n2 {span // n1}, "
+        split = "FIR + FFT" if instance == "direct" else f"n1 {n1}, n2 {span // n1}"
+        label = (f"{instance}, dec {dec}, fft_len {fft_len}, {split}, "
                  f"{'packed' if packed else 'unpacked'}")
         print(f"rx_frame {label}: two-block streaming gate: bit agreement "
               f"{g['bit_agreement']:.7f} (need >= {AGREEMENT}), block-2 spectrum "

@@ -282,11 +282,15 @@ def test_f6_unpacked_chain_of_partial_bytes_returns_bits(jx, mod):
 # ------------------------------------------------------------ F7
 
 
-@pytest.mark.parametrize("dec,fft_len,instance", [(4, 4096, "tile512"), (4, 64, "tile256"),
-                                                  (1, 128, "tile256"), (5, 30, "generic")])
+@pytest.mark.parametrize("dec,fft_len,instance", [
+    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "generic"),
+    (4, 48, "tile256"), (1, 16384, "tile512"),
+])
 def test_f7_the_cards_split_agrees_with_jax(jx, dec, fft_len, instance):
-    # the card's own factorisation (kernel_plan) through the plain twin,
-    # against the JAX chain's spectra and bits at the usual bars
+    # the split kernel_plan names for the plain twin (the card's own
+    # factorisation where the heuristic's does not tile: dec 4, fft_len 48 ->
+    # n1 24; dec 1, fft_len 16384 -> n1 128), against the JAX chain's
+    # spectra and bits at the usual bars
     chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec), device="cpu")
     plan = rf.kernel_plan(dec, fft_len, None, chain.taps.shape[-1])
     assert plan[0] == instance

@@ -17,6 +17,7 @@ import torch
 from aether_primitives_tpu_torch.cli import numpy_reference_spectra
 from aether_primitives_tpu_torch.evm import evm_rms_db
 from aether_primitives_tpu_torch.models.modem import _default_lowpass
+from aether_primitives_tpu_torch.ops.fft import Scale
 from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
 
 torch.set_num_threads(1)
@@ -139,28 +140,62 @@ def test_plain_batched_rows_equal_row_calls():
 
 
 def test_kernel_supports():
-    assert rf.kernel_supports(4, 2048) == "tile256"  # n1 128, n2 64: the main path
-    assert rf.kernel_supports(4, 256) == "tile256"
-    assert rf.kernel_supports(1, 2048) == "tile256"
-    assert rf.kernel_supports(1, 256) == "tile256"  # the heuristic's n2 = 2: the card's n1 32
-    assert rf.kernel_supports(4, 4096) == "tile512"  # a frame over 64 KB
+    assert rf.kernel_supports(4, 2048) == "direct"  # the main path
+    assert rf.kernel_supports(4, 256) == "direct"
+    assert rf.kernel_supports(1, 2048) == "direct"
+    assert rf.kernel_supports(1, 256) == "direct"
+    assert rf.kernel_supports(4, 4096) == "direct"  # a frame over 64 KB
+    assert rf.kernel_supports(4, 192) == "tile256"  # not a power of two: n1 96, n2 8
+    assert rf.kernel_supports(4, 3072) == "tile512"  # n1 96, n2 128
     assert rf.kernel_supports(5, 30) == "generic"  # no n1 % 8 == 0 divides 30
     assert rf.kernel_supports(4, 8192) is None  # 256 KB a frame: beyond shared memory
 
 
 @pytest.mark.parametrize("dec,fft_len,stage_n1,want", [
-    (4, 2048, None, ("tile256", 128)),  # the main path keeps the heuristic's split
-    (4, 4096, None, ("tile512", 128)),
-    (4, 64, None, ("tile256", 32)),  # the heuristic's n1 64 leaves n2 = 4
-    (1, 128, None, ("tile256", 16)),  # the heuristic's n1 128 leaves n2 = 1
+    (4, 2048, None, ("direct", 128)),  # the main path; n1 is the twin's split
+    (4, 4096, None, ("direct", 128)),
+    (4, 64, None, ("direct", 64)),  # the heuristic's n1 64 (n2 = 4) serves the twin
+    (1, 128, None, ("direct", 128)),
     (2, 8192, None, ("tile512", 128)),  # the heuristic has no split (G' over 4 MB)
     (5, 30, None, ("generic", 30)),
     (1, 32, None, ("generic", 32)),  # a span under 64
-    (4, 64, 64, ("generic", 64)),  # a caller's split is kept as given
-    (4, 2048, 64, ("tile256", 64)),
+    (4, 64, 64, ("direct", 64)),  # the route does not depend on stage_n1
+    (4, 2048, 64, ("direct", 64)),
+    (4, 192, None, ("tile256", 96)),  # not a power of two
+    (8, 32, None, ("tile256", 32)),  # fft_len under 64
+    (4, 3072, None, ("tile512", 128)),
+    (1, 16384, None, ("tile512", 128)),  # fft_len over 4096; the card's own split
 ])
 def test_kernel_plan_picks_instance_and_split(dec, fft_len, stage_n1, want):
     assert rf.kernel_plan(dec, fft_len, stage_n1, 65) == want
+
+
+@pytest.mark.parametrize("dec,fft_len,stage_n1,want", [
+    (4, 64, 64, ("generic", 64)),  # a caller's split that no tile instance takes
+    (4, 2048, 64, ("tile256", 64)),  # a caller's split that tile256 takes
+    (1, 2048, 32, ("tile256", 32)),
+    (4, 2048, None, ("tile256", 128)),  # the heuristic's split
+    (4, 64, None, ("tile256", 32)),  # the card's own split (the heuristic's does not tile)
+])
+def test_staged_plan_keeps_a_callers_split(dec, fft_len, stage_n1, want):
+    assert rf.staged_plan(dec, fft_len, stage_n1, 65) == want
+
+
+def test_direct_layout():
+    assert rf.direct_layout(4, 2048, 65) == (1, 8513, 2304)  # 68,104 B: three CTAs an SM
+    assert rf.direct_layout(4, 64, 65) == (32, 329, 72)  # 2,048 outputs a CTA
+    assert rf.direct_layout(4, 4096, 65) == (1, 16961, 4608)  # one CTA an SM
+    assert rf.direct_layout(1, 64, 1) == (32, 65, 72)  # the FFT buffer is the larger
+    assert rf.direct_layout(4, 2048, rf.DIRECT_MAX_TAPS + 1) is None
+    assert rf.direct_layout(4, 2048 + 8, 65) is None  # not a power of two
+    assert rf.direct_layout(4, 32, 65) is None  # under 64 points
+    assert rf.direct_layout(8, 4096, 65) is None  # 270 KB a frame
+    assert rf.kernel_plan(4, 2048, None, 300) == ("tile256", 128)  # too many taps
+    for dec in (1, 2, 4, 8):  # frames a CTA: a power of two that divides 256 threads
+        for log2n in range(6, 13):
+            layout = rf.direct_layout(dec, 1 << log2n, 65)
+            if layout is not None:
+                assert 256 % layout[0] == 0 and layout[0] << log2n <= 4096
 
 
 def test_kernel_plan_refuses_frames_beyond_shared_memory():
@@ -260,8 +295,8 @@ def test_kernel_raises_instead_of_falling_back(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dec,n_fft,instance", [
-    (4, 4096, "tile512"), (4, 64, "tile256"), (1, 128, "tile256"), (5, 30, "generic"),
-    (2, 12, "generic"),
+    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "generic"),
+    (2, 12, "generic"), (4, 192, "tile256"), (4, 3072, "tile512"), (1, 16384, "tile512"),
 ])
 @pytest.mark.parametrize("epilogue", ["qpsk", "bpsk", "spectrum"])
 def test_kernel_instances_match_the_twin_at_the_same_split(cuda, dec, n_fft, instance, epilogue):
@@ -295,3 +330,163 @@ def test_kernel_instances_match_the_twin_at_the_same_split(cuda, dec, n_fft, ins
         want, margin = _decisions(ref, epilogue)
         _check_bits(got, plain, margin)
         _check_bits(got, want, margin)
+
+
+# ------------------------------------------- the direct instance's schedule
+#
+# A float32 numpy model of ``csrc/rx_frame.cu``'s direct instance: each
+# frame's staged window (the previous frame's tail, the carried history or
+# zeros, then the frame), the decimating FIR at the kept outputs phase by
+# phase and tap by tap as a thread accumulates it, and the Stockham
+# radix-8/4/2 FFT in the kernel's pass order with the kernel's float32
+# twiddle table (``rf.twiddles``). Held against the JAX package on the CPU
+# and against the plain twin at the chain's bars.
+
+_S8 = np.float32(np.sqrt(0.5))
+_I = np.complex64(1j)
+
+
+def _negi(a):
+    return np.complex64(-1j) * a
+
+
+def _dft(v):
+    """The kernel's in-register DFT_R (R = 2, 4, 8), natural order."""
+    if len(v) == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if len(v) == 4:
+        a0, a2, a1, a3 = v[0] + v[2], v[0] - v[2], v[1] + v[3], _negi(v[1] - v[3])
+        return [a0 + a1, a2 + a3, a0 - a1, a2 - a3]
+    d5, d7 = v[1] - v[5], v[3] - v[7]
+    a = [v[i] + v[i + 4] for i in range(4)] + [
+        v[0] - v[4],
+        (d5.real + d5.imag) * _S8 + _I * ((d5.imag - d5.real) * _S8),
+        _negi(v[2] - v[6]),
+        (d7.imag - d7.real) * _S8 + _I * (-(d7.real + d7.imag) * _S8),
+    ]
+    b0, b1, b2, b3 = a[0] + a[2], a[1] + a[3], a[0] - a[2], _negi(a[1] - a[3])
+    b4, b5, b6, b7 = a[4] + a[6], a[5] + a[7], a[4] - a[6], _negi(a[5] - a[7])
+    return [b0 + b1, b4 + b5, b2 + b3, b6 + b7, b0 - b1, b4 - b5, b2 - b3, b6 - b7]
+
+
+def _stockham(buf, tw):
+    """The kernel's FFT passes over ``[frames, n]`` complex64 buffers."""
+    n = buf.shape[-1]
+    log2n = n.bit_length() - 1
+    radices = [8] * (log2n // 3) + ([1 << log2n % 3] if log2n % 3 else [])
+    ns = 1
+    for rdx in radices:
+        nbf = n // rdx
+        j = np.arange(nbf)
+        v = [buf[:, j + r * nbf] for r in range(rdx)]
+        if ns > 1:
+            e = (j % ns) * (n // (ns * rdx))
+            v = [v[0]] + [v[r] * tw[e * r] for r in range(1, rdx)]
+        v = _dft(v)
+        d = (j // ns) * ns * rdx + j % ns
+        out = np.empty_like(buf)
+        for r in range(rdx):
+            out[:, d + r * ns] = v[r]
+        buf, ns = out, ns * rdx
+    return buf
+
+
+def direct_model(x, taps, dec, n, history=None, epilogue="spectrum"):
+    """One block row through the direct instance's schedule: SN-scaled
+    spectra ``[nsym, n]`` or packed bytes, as ``rx_frame``."""
+    x = np.asarray(x, np.complex64)
+    taps = np.asarray(taps, np.complex64)
+    k, span = taps.size, dec * n
+    ku, nsym = k - 1, x.size // span
+    frames = x.reshape(nsym, span)
+    win = np.zeros((nsym, ku + span), np.complex64)
+    win[:, ku:] = frames
+    if ku:
+        win[1:, :ku] = frames[:-1, span - ku:]
+        if history is not None:
+            win[0, :ku] = np.asarray(history, np.complex64)
+    m = np.arange(n)
+    real = not taps.imag.any()
+    ar = np.zeros((nsym, n), np.float32)
+    ai = np.zeros((nsym, n), np.float32)
+    for p in range(min(dec, k)):
+        for q in range((k - p + dec - 1) // dec):
+            h = taps[dec * q + p]
+            v = win[:, dec * (m - q) - p + ku]
+            if real:
+                ar = ar + h.real * v.real
+                ai = ai + h.real * v.imag
+            else:
+                ar = (ar + -h.imag * v.imag) + h.real * v.real
+                ai = (ai + h.imag * v.real) + h.real * v.imag
+    z = _stockham(ar + _I * ai, rf.twiddles(n, "cpu").numpy())
+    if epilogue == "spectrum":
+        return z * np.float32(Scale.SN.factor_for(n))
+    return rf.pack_bits(rf.sign_bits(torch.from_numpy(z), epilogue)).numpy()
+
+
+@pytest.fixture(scope="module")
+def jax_front():
+    pytest.importorskip("jax")
+    from aether_primitives_tpu.models import modem as jax_modem
+    from aether_primitives_tpu.ops import fir as jax_fir
+    from aether_primitives_tpu.ops.fft import Scale as JaxScale
+
+    return jax_fir, jax_modem, JaxScale
+
+
+@pytest.mark.parametrize("n_fft", [2048, 64])
+def test_direct_model_fft_is_the_dft(n_fft):
+    rng = np.random.default_rng(n_fft)
+    x = (rng.normal(size=(3, n_fft)) + 1j * rng.normal(size=(3, n_fft))).astype(np.complex64)
+    got = _stockham(x, rf.twiddles(n_fft, "cpu").numpy())
+    assert got.dtype == np.complex64
+    assert evm_rms_db(got, np.fft.fft(x.astype(np.complex128), axis=-1)) <= -120.0
+
+
+@pytest.mark.parametrize("n_fft", [2048, 64])
+def test_direct_model_matches_jax(jax_front, n_fft):
+    # 8 frames a block: block 1 from a zero history, block 2 with block 1's tail
+    jax_fir, jax_modem, jax_scale = jax_front
+    dec, k = 4, TAPS.shape[-1]
+    x = _signal(2 * 8 * dec * n_fft, 106)
+    ref = numpy_reference_spectra(x, TAPS, dec, n_fft)
+    jchain = jax_modem.RxChain(jax_modem.RxChainConfig(
+        fft_len=n_fft, decimation=dec, fir_mode="fused", modulation="qpsk"))
+    assert jchain.taps.tobytes() == TAPS.tobytes()
+    state = jchain.init_state()
+    half = ref.shape[0] // 2
+    for i, (blk, hist) in enumerate(_halves(x, k)):
+        b, h = blk.numpy(), None if hist is None else hist.numpy()
+        spec = direct_model(b, TAPS, dec, n_fft, h)
+        want = np.asarray(jax_fir.fir_decimate_fft(b, TAPS, dec, n_fft, jax_scale.SN,
+                                                   history=h))
+        rs = ref[i * half:(i + 1) * half]
+        assert evm_rms_db(spec, want) <= EVM_DB
+        assert evm_rms_db(spec, rs) <= EVM_DB
+        jbits, state = jchain.streaming_step(b, state)
+        bits = unpack(torch.from_numpy(direct_model(b, TAPS, dec, n_fft, h, "qpsk"))).numpy()
+        _check_bits(bits, np.asarray(jbits), _decisions(rs, "qpsk")[1])
+        _check_bits(bits, *_decisions(rs, "qpsk"))
+
+
+@pytest.mark.parametrize("taps", ["real", "complex"])
+@pytest.mark.parametrize("n_fft", [2048, 64])
+def test_direct_model_bytes_match_the_twin(n_fft, taps):
+    dec = 4
+    h = TAPS if taps == "real" else (TAPS * np.exp(0.3j)).astype(np.complex64)
+    x = _signal(2 * 8 * dec * n_fft, 107)
+    ref = numpy_reference_spectra(x, h, dec, n_fft)
+    half = ref.shape[0] // 2
+    for i, (blk, hist) in enumerate(_halves(x, h.shape[-1])):
+        rs = ref[i * half:(i + 1) * half]
+        hn = None if hist is None else hist.numpy()
+        for epi in ("qpsk", "bpsk"):
+            got = unpack(torch.from_numpy(direct_model(blk.numpy(), h, dec, n_fft, hn, epi)))
+            twin = unpack(rf.rx_frame_reference(blk, h, dec, n_fft, hist, epi))
+            margin = _decisions(rs, epi)[1]
+            _check_bits(got.numpy(), twin.numpy(), margin)
+            _check_bits(got.numpy(), *_decisions(rs, epi))
+        spec = direct_model(blk.numpy(), h, dec, n_fft, hn)
+        twin = rf.rx_frame_reference(blk, h, dec, n_fft, hist, "spectrum").numpy()
+        assert evm_rms_db(spec, twin) <= EVM_DB

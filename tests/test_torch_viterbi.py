@@ -186,3 +186,176 @@ def test_cuda_kernel_raises_on_spans_it_does_not_take(cuda):
         vk.viterbi_lanes(torch.zeros(10, 4, 2, device=cuda).transpose(0, 1), 10, 2,
                          K7[0], 7, True, True)
     assert vk.launches == before
+
+
+# --------------------------------------------- the kernel's schedule on the CPU
+#
+# A numpy model of ``csrc/viterbi.cu``: float32 branch metrics in the
+# kernel's order, decisions packed into S/32 ballot words a step (state s at
+# word s >> 5, bit s & 31), the minimum over the states taken on
+# order-preserving uint32 keys (the kernel's redux.sync), the first argmin
+# by the smallest state index at the minimum key, and the traceback from the
+# last step down in groups of 8 steps whose words are read first. Held bit
+# for bit against the twin and, through ``viterbi_decode``, against JAX.
+
+CODES = {
+    "k3r2": ((0o5, 0o7), 3), "k3r3": ((0o5, 0o7, 0o7), 3),
+    "k5r2": ((0o23, 0o35), 5), "k5r3": K5,
+    "k7r2": K7, "k7r3": ((0o133, 0o145, 0o175), 7),
+    "k9r2": ((0o561, 0o753), 9), "k9r3": ((0o557, 0o663, 0o711), 9),
+}
+
+
+def _keys(f):
+    u = np.asarray(f, np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+
+
+def _unkeys(k):
+    k = np.asarray(k, np.uint32)
+    return np.where(k & np.uint32(0x80000000), k & np.uint32(0x7FFFFFFF), ~k).view(np.float32)
+
+
+def kernel_model(sym, lw, n, polys, k, init_state0, end_state0):
+    """``sym [N, Lw, n]`` float32 -> uint8 bits ``[N, Lw]`` as the kernel
+    computes them."""
+    sym = np.asarray(sym, np.float32)
+    pred, _ = fec._trellis(tuple(polys), k)
+    s_count = 1 << (k - 1)
+    masks = vk._out_masks(tuple(polys), k).reshape(s_count, 2)
+    one = lambda b: np.where(b, np.float32(1.0), np.float32(0.0))  # noqa: E731
+    n_tr = sym.shape[0]
+    pm = np.zeros((n_tr, s_count), np.float32)
+    if init_state0:
+        pm[:, 1:] = np.float32(1e9)
+    words = np.zeros((lw, n_tr, max(1, s_count // 32)), np.uint64)
+    states = np.arange(s_count)
+    for t in range(lw):
+        g = []
+        for j in (0, 1):
+            acc = one(masks[:, j] & 1) * sym[:, t, 0:1]
+            for m in range(1, n):
+                acc = acc + one((masks[:, j] >> m) & 1) * sym[:, t, m:m + 1]
+            g.append(acc)
+        c0 = pm[:, pred[:, 0]] + g[0]
+        c1 = pm[:, pred[:, 1]] + g[1]
+        d = c1 < c0
+        nw = np.where(d, c1, c0)
+        for s in states:  # the ballot words
+            words[t, :, s >> 5] |= d[:, s].astype(np.uint64) << np.uint64(s & 31)
+        mn = _unkeys(_keys(nw).min(axis=1))
+        pm = nw - mn[:, None]
+    if end_state0:
+        state = np.zeros(n_tr, np.int64)
+    else:
+        mn = _unkeys(_keys(pm).min(axis=1))
+        state = np.where(pm == mn[:, None], states, s_count).min(axis=1)
+    bits = np.zeros((n_tr, lw), np.uint8)
+    rows = np.arange(n_tr)
+
+    def step(t, word):
+        nonlocal state
+        bits[:, t] = state & 1
+        d = (word >> (state & 31).astype(np.uint64)) & np.uint64(1)
+        state = (state >> 1) | (d.astype(np.int64) << (k - 2))
+
+    t = lw - 1
+    while t >= 7:  # groups of 8 steps (the kernel reads a group's words first)
+        group = words[t - 7:t + 1][::-1]  # steps t, t-1, ..., t-7
+        for i in range(8):
+            step(t - i, group[i][rows, state >> 5])
+        t -= 8
+    for t in range(t, -1, -1):  # the remainder, one step at a time
+        step(t, words[t, rows, state >> 5])
+    return bits
+
+
+def _tie_llrs(rng, shape):
+    """Integer-valued LLRs (many exact ties) with half of the zeros -0.0."""
+    x = np.round(rng.normal(size=shape) * 1.5).astype(np.float32)
+    x[(x == 0) & (rng.random(shape) < 0.5)] = -0.0
+    return x
+
+
+def test_key_order_is_the_float_order():
+    vals = np.array([-1e9, -3.5, -1.0, -1e-30, -0.0, 0.0, 1e-30, 1.0, 2.0, 1e9, np.inf,
+                     -np.inf], np.float32)
+    keys = _keys(vals)
+    order = np.argsort(keys, kind="stable")
+    assert np.array_equal(np.sort(vals, kind="stable")[1:], vals[order][1:])  # -0 before +0
+    assert np.array_equal(_unkeys(keys).view(np.uint32), vals.view(np.uint32))
+    assert keys[vals.tolist().index(-0.0)] < keys[5]
+
+
+@pytest.mark.parametrize("ends", [(True, True), (True, False), (False, False)],
+                         ids=["state0-state0", "state0-argmin", "uniform-argmin"])
+@pytest.mark.parametrize("code", sorted(CODES))
+def test_kernel_model_matches_twin_on_ties(code, ends):
+    polys, k = CODES[code]
+    n = len(polys)
+    rng = np.random.default_rng(70 + k + n)
+    lw = 37  # four groups of 8 and a remainder of 5
+    sym = _tie_llrs(rng, (9, lw, n))
+    want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, *ends).numpy()
+    assert np.array_equal(kernel_model(sym, lw, n, polys, k, *ends), want)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("code", sorted(CODES))
+def test_kernel_model_decode_matches_jax(jfec, monkeypatch, code, mode):
+    polys, k = CODES[code]
+    rng = np.random.default_rng(80 + k)
+    bits, llr = _llrs((polys, k), (2, 150), 90 + k, hard=True)
+    llr[rng.random(llr.shape) < 0.05] = -0.0  # exact ties on -0.0
+    monkeypatch.setattr(vk, "viterbi_lanes", lambda sym, *a: torch.from_numpy(
+        kernel_model(sym.numpy(), *a)))
+    got = fec.viterbi_decode(torch.from_numpy(llr), polys, k, **MODES[mode]).numpy()
+    want = np.asarray(jfec.viterbi_decode(llr, polys, k, backend="xla", **MODES[mode]))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("code", sorted(CODES))
+def test_kernel_span_limit_is_the_decision_history(code):
+    # the LLRs take no shared memory: one trellis a block holds max(1, S/32)
+    # decision words a step, whatever the rate
+    polys, k = CODES[code]
+    n = len(polys)
+    limit = vk.MAX_SMEM // (4 * max(1, (1 << (k - 1)) // 32))
+    assert limit == {3: 58_112, 5: 58_112, 7: 29_056, 9: 7_264}[k]
+    assert vk.kernel_supports(limit, n, k)
+    assert not vk.kernel_supports(limit + 1, n, k)
+    assert vk.warps_per_block(limit, k) == 1
+    assert vk.warps_per_block(limit // 4, k) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["k5r2", "k7r3"])
+def test_cuda_kernel_at_the_span_limit(cuda, code):
+    polys, k = CODES[code]
+    n = len(polys)
+    lw = {5: 58_000, 7: 29_000}[k]
+    rng = np.random.default_rng(110 + k)
+    sym = np.round(rng.normal(size=(2, lw, n)) * 2).astype(np.float32)
+    got = vk.viterbi_lanes(torch.from_numpy(sym).to(cuda), lw, n, polys, k, True, False)
+    want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, True, False)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", sorted(CODES))
+def test_cuda_kernel_every_launch_shape_on_ties(cuda, code):
+    # exact ties and -0.0 at every block width the wrapper takes (WARPS),
+    # a ragged last block, both starts and ends
+    polys, k = CODES[code]
+    n = len(polys)
+    rng = np.random.default_rng(100 + k + n)
+    for lw, n_tr in ((638, 37), (160, 21), (1, 3), (9, 5)):
+        sym = torch.from_numpy(_tie_llrs(rng, (n_tr, lw, n))).to(cuda)
+        for ends in ((True, True), (False, False), (True, False)):
+            want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, *ends)
+            assert np.array_equal(kernel_model(sym.cpu().numpy(), lw, n, polys, k, *ends),
+                                  want.cpu().numpy())
+            for warps in vk.WARPS:
+                got = torch.full_like(want, 7)
+                vk.launch(sym, got, lw, n, polys, k, *ends, warps)
+                assert torch.equal(got, want), (lw, ends, warps)
