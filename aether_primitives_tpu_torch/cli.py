@@ -166,17 +166,21 @@ def kernel_device_times(fn, match: str, calls: int = 20) -> list:
             if e.device_type == DeviceType.CUDA and match in e.name]
 
 
-def kernel_device_ms(fn, match: str, calls: int = 20) -> float:
+def kernel_device_ms(fn, match: str, calls: int = 20, tries: int = 3) -> float:
     """Device milliseconds a launch of the kernels whose name holds
     ``match``, by ``torch.profiler`` (CUPTI) over ``calls`` calls of
     ``fn()`` after one: the kernel's own time, without the host's time
     between launches. The mean over the launches the profiler recorded,
-    which may be fewer than were made (it drops some), so a call of ``fn``
-    should launch one such kernel. Raises where it recorded none."""
-    us = [t for _, t in kernel_device_times(fn, match, calls)]
-    if not us:
-        raise RuntimeError(f"the profiler recorded no device time for kernels named {match!r}")
-    return sum(us) / len(us) / 1e3
+    which may be fewer than were made (it drops some, at times all of a
+    window's: then it profiles another window, ``tries`` in all), so a call
+    of ``fn`` should launch one such kernel. Raises where no window
+    recorded any."""
+    for _ in range(tries):
+        us = [t for _, t in kernel_device_times(fn, match, calls)]
+        if us:
+            return sum(us) / len(us) / 1e3
+    raise RuntimeError(f"the profiler recorded no device time for kernels named {match!r} "
+                       f"in {tries} windows of {calls} calls")
 
 
 def resident_streaming(chain: RxChain, nblocks: int = 4, seed: int = 816):

@@ -19,14 +19,14 @@ Counterpart of ``aether_primitives_tpu/models/channelizer.py``:
   :mod:`~aether_primitives_tpu_torch.parallel.halo`.
 
 The oversampled bank's weighted overlap-add (the fold) and its synthesis
-spread run through the hand-written fold kernel
-(:func:`~aether_primitives_tpu_torch.ops.cuda.pfb_fold.pfb_fold_os`) when
-``backend="auto"`` and the samples lie on a CUDA device; on the CPU, or
-with ``backend="reference"``, through its plain version. A complex
-prototype on a CUDA device with ``backend="auto"`` raises
-NotImplementedError: the kernel takes real branches. :func:`pfb_synthesize`
-keeps the JAX package's default, the slice-sum overlap-add
-(``backend="reference"``), and takes the kernel only when asked for.
+overlap-add run through the hand-written fold kernel
+(:func:`~aether_primitives_tpu_torch.ops.cuda.pfb_fold.pfb_analysis`,
+:func:`~aether_primitives_tpu_torch.ops.cuda.pfb_fold.pfb_synthesis`; real
+or complex prototypes) when ``backend="auto"`` and the samples lie on a
+CUDA device; on the CPU, or with ``backend="reference"``, through their
+plain versions. :func:`pfb_synthesize` keeps the JAX package's default, the
+slice-sum overlap-add (``backend="reference"``), and takes the kernel only
+when asked for.
 
 Functions run where their input tensor lies (numpy input: the CPU). The
 streaming stages take an explicit ``device``, ``"cuda"`` by default, which
@@ -401,52 +401,23 @@ def pfb_synthesis_taps(
     return g.astype(np.complex64)
 
 
-def _is_real(hb: np.ndarray) -> bool:
-    return not (np.abs(hb.imag) > 0).any()
+def _fold_branches(hb: np.ndarray, device, reverse: bool = False) -> torch.Tensor:
+    """The branches ``[P, M]`` for the fold on ``device`` (reversed in
+    ``p`` for the synthesis): one float32 plane for a real prototype, a
+    complex64 tensor (two interleaved planes) for a complex one."""
+    w = hb[::-1] if reverse else hb
+    if not (np.abs(w.imag) > 0).any():
+        w = w.real.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(w)).to(device)
 
 
-def _real_branches(hb: np.ndarray, device, reverse: bool = False):
-    """The float32 branches ``[P, M]`` (reversed in ``p`` for a synthesis
-    spread) on ``device`` for the fold, or None for a complex prototype."""
-    if not _is_real(hb):
-        return None
-    w = hb.real[::-1] if reverse else hb.real
-    return torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).to(device)
-
-
-def _complex_prototype_on_card(what: str):
-    return NotImplementedError(
-        f"{what}: a complex prototype on a CUDA device needs a second tap plane "
-        "in the PFB fold kernel (aether_primitives_tpu/ops/pallas/pfb_fold.py:35, "
-        "kernel row 6 of PERF.md), which is not written; pass a real prototype, "
-        "or backend='reference' for the plain version"
-    )
-
-
-def _fold_planes(x: torch.Tensor, w: torch.Tensor, os: int, t_cls: int,
-                 backend: str) -> torch.Tensor:
-    """The real-prototype fold of complex ``x [..., n]`` -> complex ``[...,
-    os, t_cls, M]``: the kernel (``backend="auto"``; the plain fold for a
-    CPU tensor) or the plain fold on any device."""
-    fold = _pf.pfb_fold_os if backend == "auto" else _pf.pfb_fold_os_reference
-    o_r, o_i = fold(x.real.contiguous(), x.imag.contiguous(), w, os, t_cls)
-    return torch.complex(o_r, o_i)
-
-
-def _spread(v: torch.Tensor, gb: np.ndarray, w_rev, s_len: int,
-            backend: str, what: str) -> torch.Tensor:
+def _slice_sum(v: torch.Tensor, gb: np.ndarray, s_len: int) -> torch.Tensor:
     """The synthesis overlap-add of frames ``v [..., T, M]`` with branches
-    ``gb [Q, M]``: ``out[s] = sum_pi vp[s + Q-1-pi] * gb[pi]`` over
-    ``vp = v`` padded by ``Q-1`` zero frames on each side, ``s < s_len``.
-    With real branches (``w_rev`` given) it is the fold with reversed
-    branches at ``os = 1``; otherwise the slice-sum in ``pi`` order."""
+    ``gb [Q, M]`` as the JAX package sums it: ``out[s] = sum_pi vp[s +
+    Q-1-pi] * gb[pi]`` over ``vp = v`` padded by ``Q-1`` zero frames on each
+    side, ``s < s_len``, in ``pi`` order."""
     q = gb.shape[0]
     vp = F.pad(v, (0, 0, q - 1, q - 1))
-    if w_rev is not None:
-        flat = vp.reshape(vp.shape[:-2] + (-1,))
-        return _fold_planes(flat, w_rev, 1, s_len, backend)[..., 0, :, :]
-    if backend == "auto" and v.device.type == "cuda":
-        raise _complex_prototype_on_card(what)
     gbt = _on(gb, v)
     acc = None
     for pi in range(q):
@@ -472,9 +443,8 @@ def pfb_synthesize(frames, n_chan: Optional[int] = None,
 
     ``backend="reference"`` (the default, as the JAX package's) sums ``Q``
     slices of one padded tensor; ``backend="auto"`` runs the overlap-add
-    as the fold kernel with reversed branches on a CUDA tensor (real
-    prototypes only; a complex one raises NotImplementedError there), and
-    the plain fold on a CPU tensor.
+    as the fold kernel's synthesis layout at ``os = 1`` (reversed branches,
+    real or complex) on a CUDA tensor, and its plain twin on a CPU tensor.
     """
     check_backend(fft_backend)
     _check_backend(backend)
@@ -491,9 +461,10 @@ def pfb_synthesize(frames, n_chan: Optional[int] = None,
     if q == 1:  # pure per-channel gain
         out = v * _on(gb[0], v)
         return out.reshape(out.shape[:-2] + (t_frames * m,))
+    if backend == "auto":
+        return _pf.pfb_synthesis(v, _fold_branches(gb, v.device, reverse=True), 1)
     s_len = t_frames + q - 1
-    w_rev = _real_branches(gb, v.device, reverse=True) if backend == "auto" else None
-    acc = _spread(v, gb, w_rev, s_len, backend, "pfb_synthesize")
+    acc = _slice_sum(v, gb, s_len)
     return acc.reshape(acc.shape[:-2] + (s_len * m,))
 
 
@@ -673,40 +644,19 @@ def _check_os(m: int, os: int) -> int:
     return os
 
 
-def _channelize_os(x: torch.Tensor, m: int, os: int, hb: np.ndarray, w,
-                   scale: Scale, backend: str) -> torch.Tensor:
-    """:func:`pfb_channelize_os` on a complex tensor with the branches
-    ``hb [P, M]`` resolved (``w``: their real float32 planes on ``x``'s
-    device, or None for a complex prototype)."""
-    hop = m // os
-    p = hb.shape[0]
-    n = x.shape[-1]
-    t_frames = max(n - p * m + hop - 1, 0) // hop + 1 if n >= p * m else 1
-    t_cls = -(-t_frames // os)  # frames per class (classes padded equal)
-    need = ((t_cls - 1) * os + (os - 1)) * hop + p * m  # last class frame end
-    if need > n:
-        x = F.pad(x, (0, need - n))
-    batch = tuple(x.shape[:-1])
-    if w is not None:
-        u = _fold_planes(x, w, os, t_cls, backend)  # [..., os, t_cls, M]
-    else:
-        if backend == "auto" and x.device.type == "cuda":
-            raise _complex_prototype_on_card("pfb_channelize_os")
-        hbt = _on(hb, x)
-        classes = []
-        for j in range(os):
-            fr = x[..., j * hop:j * hop + (t_cls - 1 + p) * m].reshape(
-                batch + (t_cls - 1 + p, m))
-            acc = None
-            for pi in range(p):
-                term = fr[..., pi:pi + t_cls, :] * hbt[pi]
-                acc = term if acc is None else acc + term
-            a = (j * hop) % m  # constant reference roll for the whole class
-            classes.append(torch.roll(acc, a, dims=-1) if a else acc)
-        u = torch.stack(classes, dim=-3)
-    # interleave the classes: frame t = i*os + j
-    u = u.transpose(-3, -2).reshape(batch + (t_cls * os, m))[..., :t_frames, :]
-    return fft_plan(m).fwd(u, scale)
+def _channelize_os(head: torch.Tensor, body: Optional[torch.Tensor], m: int, os: int,
+                   w: torch.Tensor, scale: Scale, backend: str,
+                   t_frames: Optional[int] = None) -> torch.Tensor:
+    """:func:`pfb_channelize_os` on the samples ``head`` then ``body`` (or
+    None) with the fold branches ``w`` (:func:`_fold_branches`) on their
+    device: ``t_frames`` frames (default: those whose window fits the
+    samples zero-padded to a whole class group), one fold and one FFT."""
+    if t_frames is None:
+        p = w.shape[0]
+        n = head.shape[-1] + (0 if body is None else body.shape[-1])
+        t_frames = max(n - p * m + m // os - 1, 0) // (m // os) + 1 if n >= p * m else 1
+    fold = _pf.pfb_analysis if backend == "auto" else _pf.pfb_analysis_reference
+    return fft_plan(m).fwd(fold(head, body, w, os, t_frames), scale)
 
 
 def pfb_channelize_os(samples, n_chan: int, os: int = 2,
@@ -725,7 +675,8 @@ def pfb_channelize_os(samples, n_chan: int, os: int = 2,
     (frames ``t = i*os + j``) is the ``M``-stride fold of ``x[j*hop:]``,
     rolled by the constant ``(j*hop) mod M``. That fold is the kernel's
     work (``backend="auto"`` on a CUDA tensor: one launch for all classes
-    and batch rows); the channel DFT is ``torch.fft``. Default prototype:
+    and batch rows, real or complex prototypes, frames written in frame
+    order); the channel DFT is ``torch.fft``. Default prototype:
     :func:`pfb_prototype_nyquist` (``2*taps_per_branch + 1`` branches).
     """
     check_backend(fft_backend)
@@ -735,44 +686,26 @@ def pfb_channelize_os(samples, n_chan: int, os: int = 2,
     os = _check_os(m, os)
     if taps is None:
         taps = pfb_prototype_nyquist(m, taps_per_branch)
-    hb = _branches(taps, m)
-    return _channelize_os(x, m, os, hb, _real_branches(hb, x.device), scale, backend)
+    w = _fold_branches(_branches(taps, m), x.device)
+    return _channelize_os(x, None, m, os, w, scale, backend)
 
 
-def _synthesize_os(y: torch.Tensor, m: int, os: int, hb: np.ndarray, w_rev,
+def _synthesize_os(y: torch.Tensor, m: int, os: int, hb: np.ndarray, w_rev: torch.Tensor,
                    scale: Scale, length: Optional[int], normalize: bool,
                    backend: str) -> torch.Tensor:
     """:func:`pfb_synthesize_os` with the branches resolved (``w_rev``: the
-    real branches reversed in ``p``, on ``y``'s device, or None)."""
+    fold branches reversed in ``p``, on ``y``'s device): the backward FFT,
+    then the raw overlap-add of all classes, each spread as a critically
+    sampled stream at its hop offset ``j*hop`` (one fold launch)."""
     hop = m // os
-    p = hb.shape[0]
     t_frames = int(y.shape[-2])
-    t_cls = -(-t_frames // os)
-    batch = tuple(y.shape[:-2])
     w = fft_plan(m).bwd(y, scale)  # [..., T, M]
-    pad_t = t_cls * os - t_frames
-    if pad_t:
-        w = F.pad(w, (0, 0, 0, pad_t))
-    # the dual of the interleaved-class analysis: class j spreads as a
-    # critically sampled stream and lands at the hop offset j*hop
-    wg = w.reshape(batch + (t_cls, os, m))
-    m_slabs = t_cls + p - 1  # M-slabs per class stream
-    n_slabs = m_slabs * os + (os - 1)  # hop-slabs of the combined output
-    acc = None
-    for j in range(os):
-        wj = wg[..., j, :]
-        a = (j * hop) % m  # undo the class's constant reference roll
-        if a:
-            wj = torch.roll(wj, -a, dims=-1)
-        oj = _spread(wj, hb, w_rev, m_slabs, backend, "pfb_synthesize_os")
-        oh = F.pad(oj.reshape(batch + (m_slabs * os, hop)),
-                   (0, 0, j, n_slabs - m_slabs * os - j))
-        acc = oh if acc is None else acc + oh
-    out = acc.reshape(batch + (n_slabs * hop,))
+    spread = _pf.pfb_synthesis if backend == "auto" else _pf.pfb_synthesis_reference
+    out = spread(w, w_rev, os)
     if normalize:
         # exact normalization: the overlap-add of |h|^2 for the actual frames
         hg = np.abs(hb.reshape(-1).astype(np.complex128)) ** 2
-        denom = _overlap_add_weights(hg, hop, t_frames, n_slabs * hop)
+        denom = _overlap_add_weights(hg, hop, t_frames, out.shape[-1])
         denom = np.where(denom <= 1e-10 * max(denom.max(), 1e-30), 1.0, denom)
         out = _div_real(out, _on(denom.astype(np.float32), out))
     if length is not None:
@@ -790,10 +723,11 @@ def pfb_synthesize_os(frames, n_chan: Optional[int] = None, os: int = 2,
     or ``length``).
 
     The synthesis prototype is the analysis one; each class's spread is the
-    analysis fold with the branch order reversed at ``os = 1``, so
-    ``backend="auto"`` on a CUDA tensor launches the fold kernel once per
-    class (``os`` launches). ``normalize`` divides by the exact overlap-add
-    of ``|h|^2`` for the actual frame count; ``normalize=False`` returns the
+    analysis fold with the branch order reversed at ``os = 1``, placed at
+    its hop offset; ``backend="auto"`` on a CUDA tensor launches the fold
+    kernel once for all classes (real or complex prototypes).
+    ``normalize`` divides by the exact overlap-add of ``|h|^2`` for the
+    actual frame count; ``normalize=False`` returns the
     raw overlap-add (the streaming stage divides by the periodic interior
     divisor instead). ``scale`` pairs with the analysis call (defaults:
     ``Scale.NONE`` forward, ``Scale.N`` backward).
@@ -808,7 +742,7 @@ def pfb_synthesize_os(frames, n_chan: Optional[int] = None, os: int = 2,
     if taps is None:
         taps = pfb_prototype_nyquist(m, taps_per_branch)
     hb = _branches(taps, m)
-    w_rev = _real_branches(hb, y.device, reverse=True)
+    w_rev = _fold_branches(hb, y.device, reverse=True)
     return _synthesize_os(y, m, os, hb, w_rev, scale, length, normalize, backend)
 
 
@@ -817,7 +751,9 @@ class PfbChannelizerOs:
     ``P*M - hop``-sample tail between blocks and emits only frames whose
     window fits, in whole groups of ``os`` frames, so block-by-block output
     equals the one-shot :func:`pfb_channelize_os` frame for frame. One fold
-    launch per step on a CUDA device."""
+    launch per step on a CUDA device: the kernel reads the carried tail and
+    the new block as they lie, and the next tail is a copy of the block's
+    last samples."""
 
     def __init__(self, n_chan: int, os: int = 2, taps: Optional[np.ndarray] = None,
                  taps_per_branch: int = 16, scale: Scale = Scale.NONE,
@@ -836,15 +772,14 @@ class PfbChannelizerOs:
         self.scale = scale
         self.backend = backend
         self.device = stage_device(device, "PfbChannelizerOs")
-        self._hb = _branches(self.taps, self.n_chan)
-        self._w = _real_branches(self._hb, self.device)
+        self._w = _fold_branches(_branches(self.taps, self.n_chan), self.device)
         self._tail = None
 
     def step(self, block) -> torch.Tensor:
         x = as_cf32(block, device=self.device)
-        if self._tail is not None:
-            x = torch.cat([self._tail, x], dim=-1)
-        n = int(x.shape[-1])
+        head, body = (x, None) if self._tail is None else (self._tail, x)
+        n_head = int(head.shape[-1])
+        n = n_head + (0 if body is None else int(body.shape[-1]))
         pm = self.p * self.n_chan
         t1 = (n - pm) // self.hop + 1 if n >= pm else 0
         t1 -= t1 % self.os
@@ -853,10 +788,15 @@ class PfbChannelizerOs:
                 f"block too short: need >= {pm + (self.os - 1) * self.hop} "
                 f"buffered samples for one os-aligned frame group, have {n}"
             )
-        span = (t1 - 1) * self.hop + pm
-        y = _channelize_os(x[..., :span], self.n_chan, self.os, self._hb, self._w,
-                           self.scale, self.backend)
-        self._tail = x[..., t1 * self.hop:].clone()
+        y = _channelize_os(head, body, self.n_chan, self.os, self._w, self.scale,
+                           self.backend, t_frames=t1)
+        cut = t1 * self.hop  # the next tail: samples [cut, n)
+        if body is None:
+            self._tail = head[..., cut:].clone()
+        elif cut >= n_head:
+            self._tail = body[..., cut - n_head:].clone()
+        else:
+            self._tail = torch.cat([head[..., cut:], body], dim=-1)
         return y
 
     __call__ = step
@@ -874,7 +814,8 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
     shards. The gathered frames equal :func:`pfb_channelize_os` frame for
     frame (the last shard's zero halo reproduces the one-shot's zero-padded
     tail). Each shard's span must be divisible by ``n_chan`` so the ``os``
-    reference-phase classes align per shard.
+    reference-phase classes align per shard. The kernel reads a shard and
+    its halo as two sources.
     """
     check_backend(fft_backend)
     _check_backend(backend)
@@ -897,9 +838,10 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
             "chains' left halo) — use fewer shards or a longer capture"
         )
     halo = right_head(xs, overlap, axis_name)
+    hb = _branches(h, m)
     # ext = span + P*M - hop samples -> exactly span/hop full frames
-    return xs.map(lambda xl, hl: pfb_channelize_os(torch.cat([xl, hl], dim=-1), m, os=os,
-                                                   taps=h, scale=scale, backend=backend),
+    return xs.map(lambda xl, hl: _channelize_os(xl, hl, m, os, _fold_branches(hb, xl.device),
+                                                scale, backend),
                   halo, spec=xs.spec + (None,))
 
 
@@ -909,8 +851,8 @@ class PfbSynthesizerOs:
     carried into the next block, and division by the periodic interior
     divisor at emission, so block-by-block output equals the one-shot
     interior (the one-shot's edge-aware normalization differs only inside
-    the first and last ``P*M`` samples). ``os`` fold launches per step on a
-    CUDA device."""
+    the first and last ``P*M`` samples). One fold launch per step on a CUDA
+    device, which also adds the tail and divides."""
 
     def __init__(self, n_chan: int, os: int = 2, taps: Optional[np.ndarray] = None,
                  taps_per_branch: int = 16, scale: Scale = Scale.N,
@@ -930,7 +872,7 @@ class PfbSynthesizerOs:
         self.backend = backend
         self.device = stage_device(device, "PfbSynthesizerOs")
         self._hb = _branches(self.taps, self.n_chan)
-        self._w_rev = _real_branches(self._hb, self.device, reverse=True)
+        self._w_rev = _fold_branches(self._hb, self.device, reverse=True)
         # periodic interior divisor: full-overlap sum of |h|^2 hop-tiles
         pm = self.p * self.n_chan
         h = np.asarray(self.taps, np.complex128).ravel()
@@ -955,15 +897,12 @@ class PfbSynthesizerOs:
         t = int(y.shape[-2])
         if t % self.os:
             raise ValueError(f"frame count {t} must be a multiple of os={self.os}")
-        pm = self.p * self.n_chan
-        span = (t - 1) * self.hop + pm
-        raw = _synthesize_os(y, self.n_chan, self.os, self._hb, self._w_rev,
-                             self.scale, span, False, self.backend)
-        if self._tail is not None:
-            raw[..., :pm - self.hop] += self._tail
-        emit_n = t * self.hop
-        out = self._normalize(raw[..., :emit_n])
-        self._tail = raw[..., emit_n:].clone()
+        v = fft_plan(self.n_chan).bwd(y, self.scale)  # [..., T, M]
+        # the raw overlap-add (t*hop + P*M - hop samples), the carried tail
+        # added, the first t*hop divided by the periodic divisor: one launch
+        spread = _pf.pfb_synthesis if self.backend == "auto" else _pf.pfb_synthesis_reference
+        out, self._tail = spread(v, self._w_rev, self.os, self._tail, self._dper_dev,
+                                 t * self.hop)
         return out
 
     def flush(self) -> torch.Tensor:

@@ -50,9 +50,15 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives (hash of source + flags)."""
-    src = PACKAGE_DIR / "csrc" / f"{name}.cu"
+    return source_library_path(PACKAGE_DIR / "csrc" / f"{name}.cu")
+
+
+def source_library_path(src: Path) -> Path:
+    """Where the build of the CUDA source ``src`` lives (hash of source +
+    flags)."""
+    src = Path(src)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,11 +70,18 @@ def load(name: str) -> ctypes.CDLL:
     build at once each compile into a temporary file and rename it into
     place.
     """
-    lib = library_path(name)
+    return load_source(PACKAGE_DIR / "csrc" / f"{name}.cu")
+
+
+@functools.lru_cache(maxsize=None)
+def load_source(src: Path) -> ctypes.CDLL:
+    """:func:`load` for any CUDA source with a plain C interface (the
+    benches' own kernels, edited copies, another checkout's)."""
+    src = Path(src)
+    lib = source_library_path(src)
     if not lib.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = PACKAGE_DIR / "csrc" / f"{name}.cu"
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:

@@ -14,9 +14,10 @@ It drives the port's paths through their hand-written kernels:
   the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``);
 - the wideband channelizer (``PfbChannelizerOs(2048, os=2,
   taps_per_branch=16, device="cuda")`` feeding ``PfbSynthesizerOs`` with the
-  same configuration) on 4,194,304-sample blocks, through the PFB fold
-  kernel (``csrc/pfb_fold.cu``), and the DDC (``Ddc(DdcConfig(freq=0.1375,
-  decimation=8), device="cuda")``) on the same blocks;
+  same configuration) on 4,194,304-sample blocks, with a real and a complex
+  prototype, through the PFB fold kernel (``csrc/pfb_fold.cu``), and the
+  DDC (``Ddc(DdcConfig(freq=0.1375, decimation=8), device="cuda")``) on
+  the same blocks;
 - the host-fed stream: the RX chain above fed from host memory through
   ``parallel.streaming.StatefulExecutor`` (pinned ``BlockPool`` buffers,
   pageable numpy blocks, a capture file through ``utils.file.stream_blocks``
@@ -34,8 +35,10 @@ It drives the port's paths through their hand-written kernels:
 in twenty-two phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
-2. the seven kernels' builds from the sources in the checkout, started
-   together, timed, with the PFB fold compiler report;
+2. the seven kernels' builds from the sources in the checkout, and the PFB
+   fold kernel's previous design (``benches/torch_pfb_fold_parent.cu``,
+   timed in phase 13), started together, timed, with the PFB fold compiler
+   report;
 3. the RX frame kernel's main-path instance (``direct``: the FIR at the
    kept outputs and a hand-written FFT) against its plain PyTorch version
    and the float64 chain at the main path's shapes: QPSK and BPSK bytes and
@@ -69,22 +72,32 @@ in twenty-two phases:
    estimate from assumed operation counts, on a line of its own), and a
    ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
    and the rest;
-10. the PFB fold kernel against its plain twin, bit for bit
-    (``torch.equal``), at the channelizer's shapes: the analysis fold, the
-    oversampled and the critically sampled synthesis spreads, and a ragged
-    batched case;
+10. every layout of the PFB fold kernel against its plain twin, bit for
+    bit (``torch.equal``), at the channelizer's shapes: the planes layout
+    (the TPU wrapper's), the complex64 analysis from a step's two sources
+    (the carried tail and the block) with real and complex taps, the
+    synthesis with the stage's tail and divisor and raw with complex taps,
+    the critically sampled synthesis, and ragged batched cases (M 1,000, a
+    seam inside a row at an odd sample, os 4);
 11. the channelizer path: three consecutive blocks through analysis and
-    synthesis, exactly 1 + os fold launches per step and no other kernel,
-    the first 64 frames against a float64 golden (<= -80 dB), the streamed
-    analysis against one-shot ``pfb_channelize_os`` (<= -120 dB), the
-    reconstructed interior against the input (<= -70 dB), and the first
-    frames against the port's CPU run (<= -110 dB);
+    synthesis, exactly 1 analysis + 1 synthesis fold launch per step and no
+    other kernel, the first 64 frames against a float64 golden (<= -80 dB),
+    the streamed analysis against one-shot ``pfb_channelize_os`` (<= -120
+    dB), the reconstructed interior against the input (<= -70 dB), and the
+    first frames against the port's CPU run (<= -110 dB); then the same
+    blocks with a complex prototype (the root-Nyquist one moved by a
+    quarter channel): the same launches, analysis and synthesis against
+    float64 goldens (<= -80 dB) and the CPU run (<= -110 dB);
 12. the DDC path over two blocks: against the float64 composed golden on a
     prefix (<= -80 dB) and block by block against one-shot (<= -115 dB);
-13. CUDA-event timings of the fold kernel, its plain twin and the one-call
-    ``conv1d`` yardstick, of the analysis, synthesis and DDC steps, and of
-    ``pfb_synthesize`` (slice-sum and kernel), with a ``torch.profiler``
-    split of one analysis step;
+13. timings of the fold kernel's analysis and synthesis layouts (CUDA
+    events and ``torch.profiler`` device time with its record count), their
+    plain twins, the previous design's kernel launched as its callers
+    launched it (in turns), the complex-tap and planes layouts, the one-call
+    ``conv1d`` yardstick and both floors; of the analysis, synthesis and DDC
+    steps (CUDA events and the host's enqueue time) and of
+    ``pfb_synthesize`` (slice-sum and kernel); a ``torch.profiler`` split of
+    each channelizer step;
 14. the cmul and stream kernels' compiler reports; ``cmul``, ``cmul_c64``
     and ``streamed_cmul`` once each at [2048, 2048] (chunk_rows 128),
     exactly 2 cmul and 1 stream launches, each ``torch.equal`` to its plain
@@ -146,10 +159,12 @@ is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import json
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 # tolerances, stated once
 AGREEMENT = 0.99999  # hard bits vs the float64 chain, and kernel vs plain
@@ -169,6 +184,8 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # cycles (the clock is nvidia-smi's clocks.max.sm: cli.max_sm_clock_hz)
 CHAIN_OPS, OP_CYCLES = 6, 4
 NVLINK_BYTES = 450e9  # one way between two cards of a host
+# the fold kernel's previous design, timed beside the shipped one (phase 13)
+PARENT_FOLD = Path(__file__).resolve().parent / "benches" / "torch_pfb_fold_parent.cu"
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
 # (dec, fft_len, packed): the RX frame kernel's direct instance at 4,096 points
 # (one CTA an SM) and at 64 (32 frames a CTA), the staged tile256 and tile512
@@ -317,15 +334,17 @@ def main() -> None:
 
     # ---- phase 2: build --------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one nvcc per source, together
         builds = {k: pool.submit(build.load, k) for k in KERNELS}
+        builds["the fold kernel's previous design"] = pool.submit(build.load_source, PARENT_FOLD)
         for kernel, fut in builds.items():
             try:
                 fut.result()
             except Exception as e:  # the build's own message names the cause
                 fail(f"{kernel} kernel build: {e}")
-    print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)} "
-          f"in {time.perf_counter() - t0:.2f} s (parallel) [{card}]")
+    print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)}, "
+          f"and {PARENT_FOLD.name} (timed in phase 13) in {time.perf_counter() - t0:.2f} s "
+          f"(parallel) [{card}]")
     print_ptxas(build, "pfb_fold")
     sys.stdout.flush()
 
@@ -790,13 +809,13 @@ def evm_db(got, ref) -> float:
 
 def f64_os_frames(x, h, m: int, os: int, n_frames: int):
     """Float64 golden of the oversampled analysis: frame t is the direct
-    fold of ``x[t*hop : t*hop + P*M]`` with the prototype, rolled by
-    ``(t*hop) mod M``, then ``np.fft.fft``."""
+    fold of ``x[t*hop : t*hop + P*M]`` with the prototype (real or
+    complex), rolled by ``(t*hop) mod M``, then ``np.fft.fft``."""
     import numpy as np
 
     hop = m // os
     p = -(-len(h) // m)
-    hh = np.zeros(p * m)
+    hh = np.zeros(p * m, np.result_type(h, np.float64))
     hh[:len(h)] = h
     out = np.empty((n_frames, m), np.complex128)
     for t in range(n_frames):
@@ -931,14 +950,63 @@ def timed_pair(run_kernel, run_plain, iters=(50, 5), runs: int = 4):
     return {k: float(np.median(v)) for k, v in got.items()}, got
 
 
+def complex_prototype(m: int, tpb: int):
+    """Phase 11's complex prototype: the root-Nyquist prototype moved by a
+    quarter of a channel (``h[n] e^{2 pi i n / (4M)}``), a channel grid
+    offset as a complex-baseband front end designs it."""
+    import numpy as np
+
+    from aether_primitives_tpu_torch.models import channelizer as ch
+
+    h = ch.pfb_prototype_nyquist(m, tpb).astype(np.float64)
+    return (h * np.exp(2j * np.pi * np.arange(h.size) / (4 * m))).astype(np.complex64)
+
+
+def f64_synthesis(frames, h, m: int, os: int, n_out: int):
+    """Float64 golden of the raw synthesis overlap-add over ``frames [T,
+    M]`` (the card's analysis output): frame t adds ``h[n] v_t[(n + t*hop)
+    mod M]`` at sample ``t*hop + n``, ``v_t`` the inverse DFT (1/M); the
+    first ``n_out`` samples, which frames past T do not reach."""
+    import numpy as np
+
+    hop = m // os
+    p = -(-len(h) // m)
+    hh = np.zeros(p * m, np.complex128)
+    hh[:len(h)] = h
+    v = np.fft.ifft(np.asarray(frames, np.complex128), axis=-1)
+    out = np.zeros(n_out + p * m, np.complex128)
+    n = np.arange(p * m)
+    for t in range(min(v.shape[0], -(-n_out // hop))):
+        out[t * hop:t * hop + p * m] += hh * v[t][(n + t * hop) % m]
+    return out[:n_out]
+
+
+def fold_case(pf, label: str, run_kernel, run_plain) -> float:
+    """One phase-10 case: the kernel's output(s) against the twin's, bit
+    for bit; returns the largest absolute difference (0.0 when equal)."""
+    import torch
+
+    got, plain = run_kernel(), run_plain()
+    sync(plain[0].device if isinstance(plain, tuple) else plain.device)
+    got = got if isinstance(got, tuple) else (got,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    same = all(torch.equal(g, q) for g, q in zip(got, plain))
+    err = max(float((g - q).abs().max()) if g.numel() else 0.0 for g, q in zip(got, plain))
+    print(f"compare pfb_fold {label}: kernel vs plain twin torch.equal {same}, "
+          f"max |diff| {err}")
+    if not same:
+        fail(f"pfb_fold {label}: kernel and plain twin disagree")
+    return err
+
+
 def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int = 2,
                        tpb: int = 16, block: int = 1 << 22) -> dict:
-    """Phases 10-13: the PFB fold kernel against its twin, the channelizer
-    path, the DDC path and their timings, at ``M = m``, ``os`` and
-    ``taps_per_branch = tpb`` on ``block``-sample blocks (the defaults are
-    the path's; a smaller size on ``device="cpu"`` rehearses the phases,
-    with the CUDA calls stubbed). Returns the fold kernel's entry of the
-    kernels' JSON line."""
+    """Phases 10-13: every layout of the PFB fold kernel against its twin,
+    the channelizer path with a real and a complex prototype, the DDC path
+    and their timings, at ``M = m``, ``os`` and ``taps_per_branch = tpb`` on
+    ``block``-sample blocks (the defaults are the path's; a smaller size on
+    ``device="cpu"`` rehearses the phases, with the CUDA calls stubbed).
+    Returns the fold kernel's entry of the kernels' JSON line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -949,51 +1017,110 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
     from aether_primitives_tpu_torch.ops.cuda import pfb_fold as pf
 
     dev = torch.device(device)
-    sync = torch.cuda.synchronize
     hop = m // os
     h = ch.pfb_prototype_nyquist(m, tpb)
     hb = ch._branches(h, m)
     p = hb.shape[0]
-    w = torch.from_numpy(np.ascontiguousarray(hb.real)).to(dev)
-    w_rev = torch.from_numpy(np.ascontiguousarray(hb.real[::-1])).to(dev)
+    w = ch._fold_branches(hb, dev)
+    w_rev = ch._fold_branches(hb, dev, reverse=True)
+    h_c = complex_prototype(m, tpb)
+    hb_c = ch._branches(h_c, m)
+    w_c, w_c_rev = ch._fold_branches(hb_c, dev), ch._fold_branches(hb_c, dev, reverse=True)
     rng = np.random.default_rng(3030)
 
-    def planes(n, batch=()):
-        return tuple(torch.from_numpy(rng.normal(size=batch + (n,)).astype(np.float32)).to(dev)
-                     for _ in range(2))
+    def c64(shape):
+        return torch.from_numpy((rng.normal(size=shape) + 1j * rng.normal(size=shape))
+                                .astype(np.complex64)).to(dev)
 
-    # ---- phase 10: the fold kernel vs its twin at the path's shapes -----
-    t_cls = block // m  # frames per class of a steady analysis step
+    # ---- phase 10: every layout of the fold kernel vs its twin ------------
+    t_frames = 2 * (block // m)  # frames of a steady analysis step
+    t_cls = t_frames // os
+    tail_n = p * m - hop  # a steady step's carried tail
+    head, body = c64((tail_n,)), c64((block,))
+    x_planes = torch.cat([head, body])
+    xr, xi = x_planes.real.contiguous(), x_planes.imag.contiguous()
+    v = c64((t_frames, m))  # backward-FFT frames of a steady synthesis step
+    syn_tail = c64((tail_n,))
+    dper = torch.from_numpy(rng.uniform(0.5, 2.0, hop).astype(np.float32)).to(dev)
+    emit = t_frames * hop
     g = ch.pfb_synthesis_taps(ch.pfb_prototype(m, 8), m, taps_per_branch=16)
     gb = ch._branches(g, m)
-    q, t_syn = gb.shape[0], block // m
-    g_rev = torch.from_numpy(np.ascontiguousarray(gb.real[::-1], dtype=np.float32)).to(dev)
+    q = gb.shape[0]
+    g_rev = ch._fold_branches(gb, dev, reverse=True)
+    y_cs = c64((block // m, m))
     m_r = 1000 if m >= 1000 else m - 8  # not a multiple of the 64-column strip
-    w_ragged = torch.from_numpy(rng.normal(size=(7, m_r)).astype(np.float32)).to(dev)
-    fold_cases = [
-        (f"analysis os {os}, M {m}, P {p}, t_cls {t_cls}", os, t_cls, w, ()),
-        (f"oversampled synthesis spread, os 1, reversed branches, {t_cls + p - 1} slabs",
-         1, t_cls + p - 1, w_rev, ()),
-        (f"critically sampled synthesis spread, Q {q}, {t_syn + q - 1} slabs",
-         1, t_syn + q - 1, g_rev, ()),
-        (f"ragged: M {m_r}, os 2, P 7, t_cls 1001, batch 3", 2, 1001, w_ragged, (3,)),
-    ]
-    fold_err, fold_in = 0.0, None
-    for label, o, t, wb, batch in fold_cases:
-        pp, mm = wb.shape
-        xr, xi = planes((o - 1) * (mm // o) + (t - 1 + pp) * mm, batch)
-        got = pf.pfb_fold_os(xr, xi, wb, o, t)
-        plain = pf.pfb_fold_os_reference(xr, xi, wb, o, t)
-        sync()
-        same = torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
-        err = max(float((got[k] - plain[k]).abs().max()) for k in (0, 1))
-        fold_err = max(fold_err, err)
-        print(f"compare pfb_fold {label}: kernel vs plain torch.equal {same}, "
-              f"max |diff| {err}")
-        if not same:
-            fail(f"pfb_fold {label}: kernel and plain twin disagree")
-        if fold_in is None:
-            fold_in = (xr, xi)
+    wr_r = torch.from_numpy(rng.normal(size=(7, m_r)).astype(np.float32)).to(dev)
+    wr_c = torch.complex(wr_r, torch.from_numpy(rng.normal(size=(7, m_r)).astype(np.float32))
+                         .to(dev))
+    xr_b = c64((3, (1001 - 1 + 7) * m_r + m_r + 333))  # past the planes' span
+    v_r = c64((2, 301, m_r))
+    cut = 2 * m_r + 333  # a seam inside a row, at an odd sample
+    # where the weights of every class do not fit in shared memory beside a
+    # slab, they are staged a chunk of branches at a time: os 8 at the
+    # previous kernel's limit (P 260), and os 32 at the path's width and P
+    m_l, p_l = 256, 260
+    w_l = torch.from_numpy(rng.normal(size=(p_l, m_l)).astype(np.float32)).to(dev)
+    w_lc = torch.complex(w_l, torch.from_numpy(rng.normal(size=(p_l, m_l)).astype(np.float32))
+                         .to(dev))
+    x_l = c64((2, (75 - 1 + p_l) * m_l + 7 * (m_l // 8) + 5))
+    v_l = c64((40, m_l))
+    x_32 = c64(((64 - 1 + p) * m + 31 * (m // 32),))
+
+    def plan(mode, p_, os_, cplx=False):
+        stages, staged = pf.launch_plan(mode, p_, os_, cplx)
+        return (f"{stages} stage(s), weights "
+                f"{'staged all at once' if staged else 'staged a chunk at a time'}")
+    fold_err = max(
+        fold_case(pf, f"planes (the TPU wrapper's layout), os {os}, M {m}, P {p}, t_cls {t_cls}",
+                  lambda: pf.pfb_fold_os(xr, xi, w, os, t_cls),
+                  lambda: pf.pfb_fold_os_reference(xr, xi, w, os, t_cls)),
+        fold_case(pf, f"analysis, complex64, tail {tail_n} + block {block}, {t_frames} frames",
+                  lambda: pf.pfb_analysis(head, body, w, os, t_frames),
+                  lambda: pf.pfb_analysis_reference(head, body, w, os, t_frames)),
+        fold_case(pf, "analysis, complex taps, the same sources",
+                  lambda: pf.pfb_analysis(head, body, w_c, os, t_frames),
+                  lambda: pf.pfb_analysis_reference(head, body, w_c, os, t_frames)),
+        fold_case(pf, f"synthesis, {t_frames} frames, tail {tail_n} added, {emit} emitted "
+                      "and divided",
+                  lambda: pf.pfb_synthesis(v, w_rev, os, syn_tail, dper, emit),
+                  lambda: pf.pfb_synthesis_reference(v, w_rev, os, syn_tail, dper, emit)),
+        fold_case(pf, "synthesis, complex taps, raw",
+                  lambda: pf.pfb_synthesis(v, w_c_rev, os),
+                  lambda: pf.pfb_synthesis_reference(v, w_c_rev, os)),
+        fold_case(pf, f"critically sampled synthesis (os 1), Q {q}, {y_cs.shape[0]} frames",
+                  lambda: pf.pfb_synthesis(y_cs, g_rev, 1),
+                  lambda: pf.pfb_synthesis_reference(y_cs, g_rev, 1)),
+        fold_case(pf, f"ragged planes: M {m_r}, os 2, P 7, t_cls 1001, batch 3",
+                  lambda: pf.pfb_fold_os(xr_b.real.contiguous(), xr_b.imag.contiguous(), wr_r,
+                                         2, 1001),
+                  lambda: pf.pfb_fold_os_reference(xr_b.real.contiguous(),
+                                                   xr_b.imag.contiguous(), wr_r, 2, 1001)),
+        fold_case(pf, f"ragged analysis: M {m_r}, os 4, P 7, batch 3, seam at {cut}, "
+                      "complex taps, zero tail past the end",
+                  lambda: pf.pfb_analysis(xr_b[:, :cut], xr_b[:, cut:], wr_c, 4, 4007),
+                  lambda: pf.pfb_analysis_reference(xr_b[:, :cut], xr_b[:, cut:], wr_c, 4,
+                                                    4007)),
+        fold_case(pf, f"ragged synthesis: M {m_r}, os 4, P 7, 301 frames, batch 2",
+                  lambda: pf.pfb_synthesis(v_r, wr_r, 4),
+                  lambda: pf.pfb_synthesis_reference(v_r, wr_r, 4)),
+        fold_case(pf, f"planes: M {m_l}, os 8, P {p_l}, t_cls 75, batch 2 "
+                      f"({plan('planes', p_l, 8)})",
+                  lambda: pf.pfb_fold_os(x_l.real.contiguous(), x_l.imag.contiguous(), w_l,
+                                         8, 75),
+                  lambda: pf.pfb_fold_os_reference(x_l.real.contiguous(),
+                                                   x_l.imag.contiguous(), w_l, 8, 75)),
+        fold_case(pf, f"analysis: M {m_l}, os 8, P {p_l}, 600 frames, batch 2, complex taps "
+                      f"({plan('analysis', p_l, 8, True)})",
+                  lambda: pf.pfb_analysis(x_l, None, w_lc, 8, 600),
+                  lambda: pf.pfb_analysis_reference(x_l, None, w_lc, 8, 600)),
+        fold_case(pf, f"synthesis: M {m_l}, os 8, P {p_l}, 40 frames "
+                      f"({plan('synthesis', p_l, 8)})",
+                  lambda: pf.pfb_synthesis(v_l, w_l, 8),
+                  lambda: pf.pfb_synthesis_reference(v_l, w_l, 8)),
+        fold_case(pf, f"analysis: M {m}, os 32, P {p}, 2048 frames ({plan('analysis', p, 32)})",
+                  lambda: pf.pfb_analysis(x_32, None, w, 32, 2048),
+                  lambda: pf.pfb_analysis_reference(x_32, None, w, 32, 2048)),
+    )
     sys.stdout.flush()
 
     # ---- phase 11: the channelizer path, three blocks -------------------
@@ -1003,19 +1130,20 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
               for i in range(n_blocks)]
     ana = ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb, device=dev)
     syn = ch.PfbSynthesizerOs(m, os=os, taps_per_branch=tpb, device=dev)
-    sync()
+    sync(dev)
     reset_counts()
     frames, recon = [], []
     for b in blocks:
         frames.append(ana.step(b))
         recon.append(syn.step(frames[-1]))
-    sync()
+    sync(dev)
     counts = read_counts()
-    want = {**NO_LAUNCHES, "pfb_fold": n_blocks * (1 + os)}
+    kl = 1 if dev.type == "cuda" else 0
+    want = {**NO_LAUNCHES, "pfb_fold": n_blocks * 2 * kl}
     print(f"channelizer path: {n_blocks} blocks of {block} through PfbChannelizerOs -> "
           f"PfbSynthesizerOs (M {m}, os {os}, P {p}, hop {hop}): frames per step "
           f"{[f.shape[0] for f in frames]}, samples out {[r.shape[-1] for r in recon]}, "
-          f"launches {counts} (need {want}: 1 analysis + {os} synthesis per step)")
+          f"launches {counts} (need {want}: 1 analysis + 1 synthesis per step)")
     if counts != want:
         fail(f"channelizer path launches {counts} != {want}")
     y_all = torch.cat(frames, dim=0)
@@ -1042,13 +1170,50 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
     if d_gold > EVM_DB or d_stream > STREAM_DB or d_rt > ROUNDTRIP_DB or d_cpu > CPU_DB:
         fail("channelizer gate")
 
+    # the complex prototype through both stages: the complex-tap layouts
+    ana_c = ch.PfbChannelizerOs(m, os=os, taps=h_c, device=dev)
+    syn_c = ch.PfbSynthesizerOs(m, os=os, taps=h_c, device=dev)
+    sync(dev)
+    reset_counts()
+    fr_c, rc_c = [], []
+    for b in blocks:
+        fr_c.append(ana_c.step(b))
+        rc_c.append(syn_c.step(fr_c[-1]))
+    sync(dev)
+    counts_c = read_counts()
+    yc = torch.cat(fr_c, dim=0)
+    bc = torch.cat(rc_c)
+    if not (bool(torch.isfinite(yc.abs()).all()) and bool(torch.isfinite(bc.abs()).all())):
+        fail("complex prototype: non-finite output")
+    dc_gold = evm_db(yc[:64].cpu().numpy(), f64_os_frames(x_full, h_c, m, os, 64))
+    cpu_ana = ch.PfbChannelizerOs(m, os=os, taps=h_c, device="cpu")
+    cpu_yc = cpu_ana.step(x_full[:n_pre])
+    dc_cpu = evm_db(yc[:cpu_yc.shape[0]].cpu(), cpu_yc)
+    n_syn = 256 * hop  # samples of the first block that no later frame reaches
+    syn_gold = f64_synthesis(yc[:256].cpu().numpy(), h_c, m, os, n_syn)
+    dper_c = syn_c._dper.astype(np.float64)
+    dc_syn_gold = evm_db(bc[:n_syn].cpu().numpy(), syn_gold / np.tile(dper_c, n_syn // hop))
+    cpu_bc = ch.PfbSynthesizerOs(m, os=os, taps=h_c, device="cpu").step(yc[:256].cpu())
+    dc_syn_cpu = evm_db(ch.PfbSynthesizerOs(m, os=os, taps=h_c, device=dev).step(yc[:256])
+                        .cpu(), cpu_bc)
+    print(f"complex prototype (the root-Nyquist prototype moved by M/4 of a channel): "
+          f"launches {counts_c} (need {want}); analysis: first 64 frames vs float64 golden "
+          f"{dc_gold:.2f} dB (need <= {EVM_DB}), first {cpu_yc.shape[0]} frames vs the CPU run "
+          f"{dc_cpu:.2f} dB (need <= {CPU_DB}); synthesis: first {n_syn} samples vs float64 "
+          f"golden {dc_syn_gold:.2f} dB (need <= {EVM_DB}), 256 frames vs the CPU run "
+          f"{dc_syn_cpu:.2f} dB (need <= {CPU_DB})", flush=True)
+    if (counts_c != want or dc_gold > EVM_DB or dc_cpu > CPU_DB or dc_syn_gold > EVM_DB
+            or dc_syn_cpu > CPU_DB):
+        fail("complex prototype gate")
+    del fr_c, rc_c, yc, bc
+
     # ---- phase 12: the DDC path, two blocks ----------------------------
     cfg = DdcConfig(freq=0.1375, decimation=8)
     ddc = Ddc(cfg, device=dev)
-    sync()
+    sync(dev)
     reset_counts()
     outs = [ddc.step(b) for b in blocks[:2]]
-    sync()
+    sync(dev)
     ddc_counts = read_counts()
     z = torch.cat(outs)
     npre = min(1 << 16, 2 * block)
@@ -1065,9 +1230,84 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
         fail("DDC gate")
 
     # ---- phase 13: timings ------------------------------------------------
-    xr, xi = fold_in
-    fold_t, fold_runs = timed_pair(lambda: pf.pfb_fold_os(xr, xi, w, os, t_cls),
-                                   lambda: pf.pfb_fold_os_reference(xr, xi, w, os, t_cls))
+    from aether_primitives_tpu_torch.ops.cuda import build
+
+    parent = build.load_source(PARENT_FOLD).pfb_fold_launch
+    parent.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+    parent.restype = ctypes.c_int
+    p_re = torch.empty(os, t_cls, m, device=dev)
+    p_im = torch.empty_like(p_re)
+    spread = t_cls + p - 1  # slabs of a class's os-1 spread in the parent's synthesis step
+    s_in = c64(((spread - 1 + p) * m,))
+    s_re, s_im = s_in.real.contiguous(), s_in.imag.contiguous()
+    s_out_re = torch.empty(1, spread, m, device=dev)
+    s_out_im = torch.empty_like(s_out_re)
+
+    def stream_ptr():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def parent_analysis():
+        if parent(xr.data_ptr(), xi.data_ptr(), xr.shape[0], w.data_ptr(), p_re.data_ptr(),
+                  p_im.data_ptr(), 1, m, p, os, hop, t_cls, stream_ptr()):
+            fail("the parent's fold kernel did not launch")
+
+    def parent_synthesis():  # the parent's synthesis step launched it once per class
+        for _ in range(os):
+            if parent(s_re.data_ptr(), s_im.data_ptr(), s_re.shape[0], w_rev.data_ptr(),
+                      s_out_re.data_ptr(), s_out_im.data_ptr(), 1, m, p, 1, m, spread,
+                      stream_ptr()):
+                fail("the parent's fold kernel did not launch")
+
+    kernels = {
+        "analysis": (lambda: pf.pfb_analysis(head, body, w, os, t_frames),
+                     lambda: pf.pfb_analysis_reference(head, body, w, os, t_frames)),
+        "synthesis": (lambda: pf.pfb_synthesis(v, w_rev, os, syn_tail, dper, emit),
+                      lambda: pf.pfb_synthesis_reference(v, w_rev, os, syn_tail, dper, emit)),
+    }
+    fold_t, dev_ms = {}, {}
+    for name, (run_k, run_p) in kernels.items():
+        fold_t[name], runs = timed_pair(run_k, run_p)
+        dev_ms[name] = device_ms(run_k, "pfb_fold_kernel")
+        print(f"time: pfb_fold {name} layout at the path's shape: kernel median "
+              f"{fold_t[name]['kernel']:.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in runs['kernel'])}; CUDA events, mean of 50 "
+              f"wrapper calls), device {fmt_ms(dev_ms[name][0])} ms ({dev_ms[name][1]} records of "
+              f"20; torch.profiler); plain twin median {fold_t[name]['plain']:.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in runs['plain'])}) [{card}]", flush=True)
+    par_t = {}
+    for name, run_par, run_this in (
+        ("analysis", parent_analysis, kernels["analysis"][0]),
+        ("synthesis", parent_synthesis, kernels["synthesis"][0]),
+    ):
+        got = {"parent": [], "this": []}
+        for r in range(4):  # parent, this, this, parent
+            for who in (("parent", "this"), ("this", "parent"))[r % 2]:
+                got[who].append(time_cuda(run_par if who == "parent" else run_this, 50,
+                                          warmup=2))
+        per = os if name == "synthesis" else 1
+        pd, pn = device_ms(run_par, "pfb_fold_kernel")
+        par_t[name] = {"ms": float(np.median(got["parent"])),
+                       "device_ms": None if pd is None else pd * per}
+        print(f"time: the parent's fold kernel for the {name} step ({per} launch(es) on "
+              f"planes, as its callers made them): median {par_t[name]['ms']:.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in got['parent'])}; CUDA events, launched "
+              f"straight), device {fmt_ms(par_t[name]['device_ms'])} ms a step ({pn} records of "
+              f"{20 * per}); this tree's {name} layout in turns: median "
+              f"{float(np.median(got['this'])):.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in got['this'])}) [{card}]", flush=True)
+    dev_c = {
+        "analysis": device_ms(lambda: pf.pfb_analysis(head, body, w_c, os, t_frames),
+                              "pfb_fold_kernel"),
+        "synthesis": device_ms(lambda: pf.pfb_synthesis(v, w_c_rev, os), "pfb_fold_kernel"),
+        "planes": device_ms(lambda: pf.pfb_fold_os(xr, xi, w, os, t_cls), "pfb_fold_kernel"),
+    }
+    print(f"time: pfb_fold device, complex taps: analysis {fmt_ms(dev_c['analysis'][0])} ms "
+          f"({dev_c['analysis'][1]} records of 20), synthesis raw "
+          f"{fmt_ms(dev_c['synthesis'][0])} ms ({dev_c['synthesis'][1]} records); planes "
+          f"layout {fmt_ms(dev_c['planes'][0])} ms ({dev_c['planes'][1]} records); "
+          f"torch.profiler [{card}]", flush=True)
     span = (t_cls - 1 + p) * m
     lib_in = torch.stack([plane[j * hop:j * hop + span].reshape(t_cls - 1 + p, m).t()
                           for plane in (xr, xi) for j in range(os)]).contiguous()
@@ -1078,18 +1318,20 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
     lib_rel = float((lib_out[0].t() - plain0).norm() / plain0.norm())
     lib_runs = [time_cuda(lib, 20) for _ in range(3)]
     lib_ms = float(np.median(lib_runs))
-    # bytes: the classes' input span once, both planes; both output planes; the taps
-    fold_bytes = 8 * ((t_cls - 1 + p) * m + (os - 1) * hop) + 8 * os * t_cls * m + 4 * p * m
-    fold_ops = os * t_cls * m * 2 * (2 * p - 1)  # P multiplies + P-1 adds per plane
-    fold_bound = bound(fold_ops, fold_bytes)
-    print(f"time: pfb_fold kernel [{os} x {t_cls} x {m}, P {p}] median {fold_t['kernel']:.4f} ms "
-          f"(runs {', '.join(f'{v:.4f}' for v in fold_runs['kernel'])}; mean of 50 calls), "
-          f"plain twin median {fold_t['plain']:.4f} ms (runs "
-          f"{', '.join(f'{v:.4f}' for v in fold_runs['plain'])}; mean of 5 calls), conv1d "
-          f"library median {lib_ms:.4f} ms (runs {', '.join(f'{v:.4f}' for v in lib_runs)}; "
-          f"mean of 20; rel. diff from the twin {lib_rel:.2e}); bound {fold_bound['bound_ms']:.4f} "
-          f"ms by {fold_bound['bound_by']} ({fold_bytes / 1e6:.1f} MB, {fold_ops / 1e9:.3f} G "
-          f"FP32 ops); CUDA events [{card}]", flush=True)
+    # bytes: the classes' input span once, the frames out, the weights; the
+    # operations: a multiply and an add a real term on each plane, never an
+    # FMA, so each takes an FMA's issue slot: counted as two of the data
+    # sheet's FP32 operations (the instruction floor at 33.5 G a ms)
+    fold_bytes = 8 * ((t_cls - 1 + p) * m + (os - 1) * hop) + 8 * t_frames * m + 4 * p * m
+    fold_ins = t_frames * m * 2 * (2 * p - 1)
+    fold_bound = bound(2 * fold_ins, fold_bytes)
+    print(f"bound: pfb_fold analysis {fold_bound['bound_ms']:.4f} ms by "
+          f"{fold_bound['bound_by']}: {fold_bytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s "
+          f"= {fold_bytes / PEAK_BYTES * 1e3:.4f} ms, {fold_ins / 1e9:.3f} G FP32 instructions "
+          f"(no FMA) at {PEAK_FP32 / 2e12:.1f} T/s = {2 * fold_ins / PEAK_FP32 * 1e3:.4f} ms; "
+          f"conv1d library median {lib_ms:.4f} ms (runs "
+          f"{', '.join(f'{x:.4f}' for x in lib_runs)}; rel. diff from the twin {lib_rel:.2e}) "
+          f"[{card}]", flush=True)
 
     def stepper(stage, inputs):
         box = {"i": 0}
@@ -1111,28 +1353,35 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
     ):
         t, runs = timed_pair(stepper(make("auto"), inputs), stepper(make("reference"), inputs),
                              iters=(20, 3))
-        step_t[name] = t
+        enq = host_enqueue_ms(stepper(make("auto"), inputs), dev)
+        step_t[name] = {**t, "enqueue": enq}
         print(f"time: {name} ({tuple(inputs[0].shape)} in): kernel path median "
               f"{t['kernel']:.4f} ms = {msa(t['kernel']):.1f} Msa/s (runs "
-              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}), plain path median "
+              f"{', '.join(f'{x:.4f}' for x in runs['kernel'])}), plain path median "
               f"{t['plain']:.4f} ms = {msa(t['plain']):.1f} Msa/s (runs "
-              f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events, blocks "
+              f"{', '.join(f'{x:.4f}' for x in runs['plain'])}); host enqueue {enq:.4f} ms a "
+              f"step (host clock, no synchronise inside 20 steps); CUDA events, blocks "
               f"resident [{card}]", flush=True)
-    y_cs = blocks[0].reshape(t_syn, m)  # the capture read as channel frames
     cs_t, cs_runs = timed_pair(lambda: ch.pfb_synthesize(y_cs, m, taps=g, backend="auto"),
                                lambda: ch.pfb_synthesize(y_cs, m, taps=g), iters=(20, 20))
-    print(f"time: pfb_synthesize [{t_syn} x {m}], Q {q}: fold kernel median "
+    print(f"time: pfb_synthesize [{y_cs.shape[0]} x {m}], Q {q}: fold kernel median "
           f"{cs_t['kernel']:.4f} ms = {msa(cs_t['kernel']):.1f} Msa/s (runs "
-          f"{', '.join(f'{v:.4f}' for v in cs_runs['kernel'])}), slice-sum (the default) "
+          f"{', '.join(f'{x:.4f}' for x in cs_runs['kernel'])}), slice-sum (the default) "
           f"median {cs_t['plain']:.4f} ms = {msa(cs_t['plain']):.1f} Msa/s (runs "
-          f"{', '.join(f'{v:.4f}' for v in cs_runs['plain'])}) [{card}]")
+          f"{', '.join(f'{x:.4f}' for x in cs_runs['plain'])}) [{card}]")
     ddc_t = [time_cuda(stepper(Ddc(cfg, device=dev), blocks), 10) for _ in range(3)]
     print(f"time: DDC step (freq 0.1375, /8, 129 taps): median {np.median(ddc_t):.4f} ms = "
           f"{msa(float(np.median(ddc_t))):.1f} Msa/s (runs "
-          f"{', '.join(f'{v:.4f}' for v in ddc_t)}; mean of 10) [{card}]", flush=True)
-    profile_analysis(torch, stepper(ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb,
-                                                        device=dev), blocks),
-                     step_t["analysis step"]["kernel"], card)
+          f"{', '.join(f'{x:.4f}' for x in ddc_t)}; mean of 10) [{card}]", flush=True)
+    busy = {}
+    for name, stage, inputs in (
+        ("analysis step", ch.PfbChannelizerOs(m, os=os, taps_per_branch=tpb, device=dev),
+         blocks),
+        ("synthesis step", ch.PfbSynthesizerOs(m, os=os, taps_per_branch=tpb, device=dev),
+         [steady]),
+    ):
+        busy[name] = profile_step(torch, stepper(stage, inputs), name,
+                                  step_t[name]["kernel"], card)
     return {
         "name": "pfb_fold",
         "route": "cuda",
@@ -1140,18 +1389,64 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
         "replaces": "aether_primitives_tpu/ops/pallas/pfb_fold.py:35",
         "launches": counts["pfb_fold"],
         "max_abs_err": fold_err,
-        "ms": fold_t["kernel"],
-        "plain_ms": fold_t["plain"],
+        "ms": fold_t["analysis"]["kernel"],
+        "plain_ms": fold_t["analysis"]["plain"],
         **fold_bound,
         "library_ms": lib_ms,
+        "device_ms": dev_ms["analysis"][0],
+        "parent_ms": par_t["analysis"]["ms"],
+        "parent_device_ms": par_t["analysis"]["device_ms"],
+        "synthesis_ms": fold_t["synthesis"]["kernel"],
+        "synthesis_device_ms": dev_ms["synthesis"][0],
+        "synthesis_plain_ms": fold_t["synthesis"]["plain"],
+        "parent_synthesis_ms": par_t["synthesis"]["ms"],
+        "parent_synthesis_device_ms": par_t["synthesis"]["device_ms"],
+        "complex_device_ms": {k: dev_c[k][0] for k in ("analysis", "synthesis")},
+        "planes_device_ms": dev_c["planes"][0],
+        "steps": {k: {"ms": t["kernel"], "host_enqueue_ms": t["enqueue"],
+                      "device_busy_ms": busy[k]} for k, t in step_t.items()},
     }
 
 
-def profile_analysis(torch, step, step_ms: float, card: str, steps: int = 5) -> None:
-    """torch.profiler split of the channelizer's analysis step: the fold
-    kernel, the FFT kernels, the rest; and the device's idle share, of the
-    profiled steps' wall time (profiler on) and of ``step_ms``, the step's
-    CUDA-event time without the profiler."""
+def device_ms(fn, match: str, calls: int = 20, tries: int = 3):
+    """``(ms, records)``: the mean device time of the kernels named
+    ``match`` that ``torch.profiler`` kept over ``calls`` calls of ``fn``,
+    and how many it kept. It drops some records, at times all of a
+    window's: then it profiles another window, ``tries`` in all, and
+    returns ``(None, 0)`` (not measured) when every one came back empty."""
+    from aether_primitives_tpu_torch.cli import kernel_device_times
+
+    for _ in range(tries):
+        t = [us for _, us in kernel_device_times(fn, match, calls)]
+        if t:
+            return sum(t) / len(t) / 1e3, len(t)
+    return None, 0
+
+
+def fmt_ms(ms) -> str:
+    """A time in ms, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def host_enqueue_ms(step, dev, steps: int = 20) -> float:
+    """The host's milliseconds to enqueue one call of ``step``: the queue
+    drained, then ``steps`` calls with no synchronise between them."""
+    step()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    sync(dev)
+    return ms
+
+
+def profile_step(torch, step, name: str, step_ms: float, card: str, steps: int = 5) -> float:
+    """torch.profiler split of one of the channelizer's steps: the fold
+    kernel, the FFT kernels, the rest, with the records kept; the device's
+    idle share, of the profiled steps' wall time (profiler on) and of
+    ``step_ms``, the step's CUDA-event time without the profiler. Returns
+    the device's busy milliseconds a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1165,8 +1460,8 @@ def profile_analysis(torch, step, step_ms: float, card: str, steps: int = 5) -> 
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print("profile analysis step: the profiler recorded no device time")
-        return
+        print(f"profile {name}: the profiler recorded no device time: not measured")
+        return None
     per = lambda us: us / steps / 1e3  # noqa: E731
     split = {"fold": 0.0, "fft": 0.0, "rest": 0.0}
     names = {}
@@ -1174,17 +1469,18 @@ def profile_analysis(torch, step, step_ms: float, card: str, steps: int = 5) -> 
         us = k.time_range.elapsed_us()
         key = "fold" if "pfb_fold" in k.name else "fft" if "fft" in k.name.lower() else "rest"
         split[key] += us
-        names[k.name] = names.get(k.name, 0.0) + us
+        t, n = names.get(k.name, (0.0, 0))
+        names[k.name] = (t + us, n + 1)
     busy = per(sum(split.values()))
-    print(f"profile analysis step: device busy {busy:.4f} ms/step of {wall_ms:.4f} ms wall "
+    print(f"profile {name}: device busy {busy:.4f} ms/step of {wall_ms:.4f} ms wall "
           f"(idle {100 * (1 - busy / wall_ms):.1f}%, profiler on; idle "
           f"{100 * (1 - busy / step_ms):.1f}% of the {step_ms:.4f} ms un-profiled step); "
-          f"fold kernel {per(split['fold']):.4f} ms, "
-          f"FFT {per(split['fft']):.4f} ms, rest {per(split['rest']):.4f} ms; "
-          f"{len(kernels) // steps} kernels per step (torch.profiler, {steps} steps, "
-          f"profiler on) [{card}]")
-    for key, us in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"  {per(us):.4f} ms/step  {key[:90]}")
+          f"fold kernel {per(split['fold']):.4f} ms, FFT {per(split['fft']):.4f} ms, rest "
+          f"{per(split['rest']):.4f} ms; {len(kernels)} kernel records over {steps} steps "
+          f"(torch.profiler, profiler on) [{card}]")
+    for key, (us, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {per(us):.4f} ms/step  {n:3d} records  {key[:90]}")
+    return busy
 
 
 def profile_burst(torch, pm, x, fec_name: str, card: str, calls: int = 5) -> None:

@@ -251,6 +251,51 @@ def test_pfb_os_batch_complex_and_short_captures(which):
     assert evm_rms_db(back, np.asarray(jch.pfb_synthesize_os(want, m, os=2, **kw))) <= DB
 
 
+@pytest.mark.parametrize("os_", [2, 4])
+def test_pfb_os_complex_prototype_through_the_fold_matches_jax(os_):
+    # backend="auto" on a CPU tensor runs the fold's plain twin with the
+    # complex tap plane; "reference" runs the same twin
+    m = 32
+    h = _c(5 * m - 7, 30 + os_)
+    x = _c((2, 1500), 31)
+    got = tch.pfb_channelize_os(torch.from_numpy(x), m, os=os_, taps=h)
+    want = np.asarray(jch.pfb_channelize_os(x, m, os=os_, taps=h))
+    assert got.shape == want.shape and evm_rms_db(_np(got), want) <= DB
+    assert torch.equal(got, tch.pfb_channelize_os(x, m, os=os_, taps=h, backend="reference"))
+    back = tch.pfb_synthesize_os(got, m, os=os_, taps=h)
+    jback = np.asarray(jch.pfb_synthesize_os(want, m, os=os_, taps=h))
+    assert back.shape == jback.shape and evm_rms_db(_np(back), jback) <= DB
+    assert torch.equal(back, tch.pfb_synthesize_os(got, m, os=os_, taps=h, backend="reference"))
+    if os_ != 2:
+        return
+    # the stages carry a complex prototype too
+    ana = tch.PfbChannelizerOs(m, os=os_, taps=h, device="cpu")
+    syn = tch.PfbSynthesizerOs(m, os=os_, taps=h, device="cpu")
+    jana, jsyn = jch.PfbChannelizerOs(m, os=os_, taps=h), jch.PfbSynthesizerOs(m, os=os_, taps=h)
+    for blk in (x[0, :700], x[0, 700:]):
+        fr = ana.step(blk)
+        jfr = np.asarray(jana.step(blk))
+        assert evm_rms_db(_np(fr), jfr) <= DB
+        assert evm_rms_db(_np(syn.step(fr)), np.asarray(jsyn.step(jfr))) <= DB
+
+
+def test_pfb_os_stage_tail_straddles_the_seam():
+    # blocks shorter than the carried tail: the next tail is part head, part
+    # body; the stage still equals one-shot frame for frame
+    m, os_ = 16, 2
+    x = _c(m * 40, 56)
+    whole = _np(tch.pfb_channelize_os(x, m, os=os_, taps_per_branch=4))
+    ana = tch.PfbChannelizerOs(m, os=os_, taps_per_branch=4, device="cpu")
+    parts = [_np(ana.step(x[:m * 12]))]
+    for a in range(m * 12, m * 40, 40):
+        try:
+            parts.append(_np(ana.step(x[a:a + 40])))
+        except ValueError:  # too short for a frame group: nothing consumed
+            continue
+    got = np.concatenate(parts)
+    assert np.array_equal(got, whole[:got.shape[0]])
+
+
 def test_pfb_os_f64_golden():
     m, os_, p = 8, 2, 3
     hop = m // os_
