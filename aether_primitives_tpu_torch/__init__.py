@@ -1,9 +1,12 @@
 """aether-primitives-tpu, ported to PyTorch and CUDA.
 
-Five paths of ``aether_primitives_tpu`` on PyTorch, each through
+Six paths of ``aether_primitives_tpu`` on PyTorch, each through
 hand-written CUDA kernels for Hopper (sm_90a): the streaming receive chain
 (causal FIR, decimation, per-frame FFT, hard demod, LSB-first byte packing;
-the RX frame kernel); the same chain fed from host memory by the
+the RX frame kernel); the link simulation (the transmit chain, a channel
+with AWGN, the receive chain with guard bands through the RX frame
+kernel's spectrum epilogue; the loopback modem, BER curves); the same
+chain fed from host memory by the
 bounded-depth streaming executors; the batched burst link (``PacketModem``
 with Viterbi or turbo FEC; the Viterbi and BCJR kernels); the wideband
 front end (the oversampled PFB channelizers and the DDC; the PFB fold
@@ -22,7 +25,7 @@ from . import ops
 from . import parallel
 from . import utils
 from . import models
-from .ops import vecops, fft, modulation, sequence, fir, frontend, fec
+from .ops import vecops, fft, sampling, modulation, sequence, noise, fir, frontend, fec
 from .ops.vecops import CVec
 from .ops.fft import Scale, Fft, plan as fft_plan
 from .models import PacketConfig, PacketModem, RxChain, RxChainConfig
@@ -51,8 +54,10 @@ __all__ = [
     "models",
     "vecops",
     "fft",
+    "sampling",
     "modulation",
     "sequence",
+    "noise",
     "fir",
     "frontend",
     "fec",

@@ -18,7 +18,8 @@ import torch
 
 from .models.channelizer import PfbChannelizerOs, PfbSynthesizerOs
 from .models.ddc import Ddc, DdcConfig
-from .models.modem import RxChainConfig
+from .models.channel import ChannelConfig
+from .models.modem import ModemConfig, RxChainConfig
 from .models.packet import PacketConfig
 
 
@@ -44,6 +45,32 @@ def config_from_numpy(fields: dict) -> RxChainConfig:
     if fields.get("fir_taps") is not None:
         fields["fir_taps"] = np.asarray(fields["fir_taps"], dtype=np.complex64)
     return RxChainConfig(**fields)
+
+
+def modem_config_from_numpy(fields: dict) -> ModemConfig:
+    """``dataclasses.asdict`` of the JAX package's ``ModemConfig`` -> the
+    port's :class:`ModemConfig` (an unknown field raises)."""
+    known = {f.name for f in dataclasses.fields(ModemConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"ModemConfig has no fields {unknown}")
+    return ModemConfig(**fields)
+
+
+def channel_config_from_numpy(fields: dict) -> ChannelConfig:
+    """``dataclasses.asdict`` of the JAX package's ``ChannelConfig`` -> the
+    port's :class:`ChannelConfig`: taps become a tuple of Python complex
+    numbers, ``dc`` a complex (an unknown field raises)."""
+    known = {f.name for f in dataclasses.fields(ChannelConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"ChannelConfig has no fields {unknown}")
+    fields = dict(fields)
+    if fields.get("taps") is not None:
+        fields["taps"] = tuple(complex(t) for t in np.asarray(fields["taps"]).ravel())
+    if "dc" in fields:
+        fields["dc"] = complex(fields["dc"])
+    return ChannelConfig(**fields)
 
 
 def packet_config_from_numpy(fields: dict) -> PacketConfig:

@@ -1,12 +1,28 @@
-"""The streaming receive chain (PyTorch): FIR -> decimate -> frame FFT -> demod.
+"""Modem chains (PyTorch): the loopback modem, the streaming receive chain
+(FIR -> decimate -> frame FFT -> demod) and the transmit chain.
 
-Counterpart of ``aether_primitives_tpu/models/modem.py`` (``RxChainConfig``,
-``RxChain``), main-path subset. The chain runs eagerly on an explicit
-``device``; the FIR history carried from block to block is a plain complex64
-tensor. With ``fir_mode="fused"`` and a BPSK or QPSK table, a block goes
-through the hand-written RX frame kernel
-(:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.rx_frame`) on a CUDA
-device, and through its plain PyTorch version on the CPU.
+Counterpart of ``aether_primitives_tpu/models/modem.py`` (``ModemConfig``,
+``Modem``, ``RxChainConfig``, ``RxChain``, ``TxChain``, ``loopback_delay``,
+``pad_to_frames``). Every class computes eagerly on an explicit ``device``
+(the card by default); the FIR history carried from block to block is a
+plain complex64 tensor.
+
+``fir_mode`` None means ``"fused"`` here (the JAX package picks
+``"shift_add"`` off the TPU, so cross-checks name the mode). A fused RX
+chain on a CUDA device goes through the hand-written RX frame kernel
+(:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.rx_frame`, one
+launch a step): its bit epilogues on the sign fast path (BPSK or QPSK, all
+bins active), its ``spectrum`` epilogue for every other fused chain
+(active bins, QAM and PSK tables), whose active-bin slice and table demod
+follow in PyTorch on the card. On the CPU the fused chain runs the plain
+versions: :func:`~aether_primitives_tpu_torch.ops.fir.fir_decimate_fft`,
+or on the sign path the RX frame op's. ``"os"`` and ``"shift_add"`` filter
+first (:func:`~aether_primitives_tpu_torch.ops.fir.fir_filter_os`,
+:func:`~aether_primitives_tpu_torch.ops.fir.fir_filter`) and run the
+decimating frame FFT after, on any device, as the JAX package does; they
+launch no kernel. The fused ``TxChain`` is the TX frame op
+:func:`~aether_primitives_tpu_torch.ops.fir.interp_fir_ifft` (cuFFT and
+matmuls: it is XLA, not Pallas, in the JAX package).
 
 The ``sharded_*`` methods run the chain over a device mesh
 (:mod:`~aether_primitives_tpu_torch.parallel.mesh`): the block's last axis
@@ -30,11 +46,23 @@ import torch
 from ..boundary import Split, merge
 from ..ops import fir as _fir
 from ..ops import modulation as _mod
+from ..ops import noise as _noise
 from ..ops.cuda import rx_frame as _rx_frame
-from ..ops.fft import Scale, check_backend
+from ..ops.fft import Scale, check_backend, fft_of_decimated, plan as fft_plan
 from ..parallel import halo as _halo
 from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last
 from ..types import as_cf32, cf32, stage_device
+
+
+@dataclass
+class ModemConfig:
+    """``modulation``: ``"bpsk"``, ``"qpsk"``, ``"qamN"`` or ``"pskN"``;
+    ``noise_power``: per-component AWGN variance of :meth:`Modem.loopback`
+    (reference examples/modem.rs:25); ``seed``: its generator's seed."""
+
+    modulation: str = "qpsk"
+    noise_power: float = 0.01
+    seed: int = 815
 
 
 @dataclass
@@ -50,9 +78,10 @@ class RxChainConfig:
       only backend); the JAX package's TPU ``"matmul"`` FFT raises.
     - ``active_bins``: occupied-subcarrier count (even; None = all bins):
       FFT indices ``[0, a/2)`` and ``[fft_len - a/2, fft_len)``.
-    - ``fir_mode``: ``"fused"`` (the default, and the only mode ported:
-      FIR, decimation and frame FFT in one frame op). The JAX package's
-      ``"shift_add"`` and ``"os"`` modes are not ported yet.
+    - ``fir_mode``: ``"fused"`` (the default: FIR, decimation and frame FFT
+      in one frame op), ``"os"`` (overlap-save FIR, then the decimating
+      frame FFT) or ``"shift_add"`` (time-domain FIR, then the same FFT).
+      The JAX package's None is ``"shift_add"`` off the TPU.
     - ``precision``: ``"highest"`` (full float32, the only setting; None
       means it). The JAX package's ``"high"`` is a TPU bf16x3 matmul mode
       with no counterpart here.
@@ -98,14 +127,49 @@ def _default_lowpass(ntaps: int, cutoff: float) -> np.ndarray:
 
 
 def _resolve_fir_mode(mode: Optional[str]) -> str:
-    if mode is None or mode == "fused":
+    if mode is None:
         return "fused"
-    if mode in ("shift_add", "os"):
-        raise ValueError(
-            f"fir_mode {mode!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 5); use 'fused'"
-        )
-    raise ValueError(f"unknown fir_mode {mode!r}")
+    if mode not in ("fused", "os", "shift_add"):
+        raise ValueError(f"unknown fir_mode {mode!r}")
+    return mode
+
+
+def _chain_taps(config: RxChainConfig) -> np.ndarray:
+    """The chain's host complex64 taps: the config's, else the default
+    lowpass for its decimation (identity for decimation 1)."""
+    if config.fir_taps is not None:
+        return np.asarray(config.fir_taps, dtype=np.complex64).ravel()
+    if config.decimation > 1:
+        return _default_lowpass(16 * config.decimation + 1, 1.0 / (2 * config.decimation))
+    return np.asarray([1.0 + 0j], dtype=np.complex64)
+
+
+class Modem:
+    """The reference's loopback modem (examples/modem.rs): ``tx`` maps {0,1}
+    bits to symbols, ``rx`` hard-demodulates them, ``loopback`` runs tx ->
+    AWGN -> rx, bit-exact at the reference's noise power. ``device``: where
+    it computes (the card by default; ``"cuda"`` without CUDA raises)."""
+
+    def __init__(self, config: ModemConfig = ModemConfig(), device="cuda"):
+        self.config = config
+        self.device = stage_device(device, "Modem")
+        self.modulation = _modulation_by_name(config.modulation)
+
+    def tx(self, bits) -> torch.Tensor:
+        return self.modulation.modulate(torch.as_tensor(bits, device=self.device))
+
+    def rx(self, symbols) -> torch.Tensor:
+        return self.modulation.demod(as_cf32(symbols, device=self.device))
+
+    def loopback(self, bits, generator=None) -> torch.Tensor:
+        """bits -> modulate -> AWGN (``config.noise_power``) -> demod. The
+        noise comes from ``generator`` (a ``torch.Generator`` on the modem's
+        device, or a seed), by default a new one seeded with
+        ``config.seed``."""
+        if generator is None:
+            generator = self.config.seed
+        g = _noise.make_generator(generator, self.device)
+        return self.rx(_noise.apply(g, self.tx(bits), self.config.noise_power, self.device))
 
 
 class RxChain:
@@ -116,10 +180,12 @@ class RxChain:
     ``device``: where the chain computes; blocks and states are moved there.
     The default is the card: ``device="cuda"`` without a CUDA device raises
     RuntimeError, and the CPU runs only when asked for (``device="cpu"``).
-    On a CUDA device a BPSK or QPSK chain with all bins active launches
-    the RX frame kernel, and raises for a geometry the kernel does not take
-    (:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.kernel_supports`);
-    it never falls back to the plain version. Packed output needs whole
+    On a CUDA device a fused chain launches the RX frame kernel once a step
+    (the bit epilogues for a BPSK or QPSK chain with all bins active, the
+    spectrum epilogue otherwise), and raises for a geometry the kernel does
+    not take (:func:`~aether_primitives_tpu_torch.ops.cuda.rx_frame.
+    kernel_supports`); it never falls back to the plain version. The
+    ``"os"`` and ``"shift_add"`` modes launch no kernel. Packed output needs whole
     bytes per frame; an unpacked chain whose frame is not whole bytes
     (QPSK ``fft_len % 4``, BPSK ``fft_len % 8``) takes the op's spectrum
     epilogue and demodulates it in PyTorch, still one kernel launch.
@@ -129,15 +195,7 @@ class RxChain:
         self.config = config
         self.device = stage_device(device, "RxChain")
         self.modulation = _modulation_by_name(config.modulation)
-        if config.fir_taps is None:
-            if config.decimation > 1:
-                taps = _default_lowpass(16 * config.decimation + 1,
-                                        1.0 / (2 * config.decimation))
-            else:
-                taps = np.asarray([1.0 + 0j], dtype=np.complex64)
-        else:
-            taps = np.asarray(config.fir_taps, dtype=np.complex64).ravel()
-        self.taps = taps
+        self.taps = _chain_taps(config)
         self.fir_mode = _resolve_fir_mode(config.fir_mode)
         check_backend(config.fft_backend)
         _fir.check_precision(config.precision)
@@ -159,13 +217,37 @@ class RxChain:
     def _block(self, block) -> torch.Tensor:
         return as_cf32(block, device=self.device)
 
+    def _fir(self, x, history=None) -> torch.Tensor:
+        """The ``"os"`` and ``"shift_add"`` modes' causal FIR at full rate
+        (the JAX chain's: overlap-save blocks of ``min(4096, n)`` samples,
+        at least ``K-1``; or the time-domain shift-and-add)."""
+        if self.fir_mode == "os":
+            k = self.taps.shape[-1]
+            block_len = max(min(4096, x.shape[-1]), k - 1 if k > 1 else 1)
+            return _fir.fir_filter_os(x, self.taps, block_len=block_len, history=history)
+        return _fir.fir_filter(x, self.taps, history=history)
+
     def _frames_spectra(self, x, history=None) -> torch.Tensor:
-        """Block -> per-frame full-bin spectra ``[..., nsym, fft_len]``."""
+        """Block -> per-frame full-bin spectra ``[..., nsym, fft_len]``
+        (``Scale.SN``). Fused: on a CUDA device one launch of the RX frame
+        kernel's ``spectrum`` epilogue (it raises where no instance takes the
+        geometry), elsewhere the plain ``fir_decimate_fft``. The other modes
+        filter, then run the decimating frame FFT."""
         cfg = self.config
-        return _fir.fir_decimate_fft(
-            x, self.taps, cfg.decimation, cfg.fft_len, Scale.SN,
-            history=history, stage_n1=cfg.stage_n1,
-        )
+        if self.fir_mode == "fused":
+            if x.device.type == "cuda":
+                return _rx_frame.rx_frame(
+                    x.contiguous(), self.taps, cfg.decimation, cfg.fft_len,
+                    history=history, epilogue="spectrum", stage_n1=cfg.stage_n1,
+                )
+            return _fir.fir_decimate_fft(
+                x, self.taps, cfg.decimation, cfg.fft_len, Scale.SN,
+                history=history, stage_n1=cfg.stage_n1,
+            )
+        y = self._fir(x, history=history)
+        span = self.frame_span
+        frames = y.reshape(y.shape[:-1] + (y.shape[-1] // span, span))
+        return fft_of_decimated(frames, cfg.decimation, Scale.SN)
 
     def _active(self, spec) -> torch.Tensor:
         """The occupied (centre-band) subcarriers of full frames."""
@@ -425,6 +507,81 @@ class RxChain:
                 placed[key] = buf.copy_(xl[..., xl.shape[-1] - (k - 1):])
             new_state[c] = placed[key]
         return bits, Sharded(mesh, state_spec, new_state)
+
+
+class TxChain:
+    """The transmit chain, the inverse structure of :class:`RxChain` (share
+    one :class:`RxChainConfig` for a matched pair): bits -> modulation onto
+    the active subcarriers of each ``fft_len``-bin frame (guard bands zero)
+    -> backward FFT (``Scale.SN``) -> zero-stuff by ``decimation`` ->
+    pulse-shaping FIR with gain ``decimation``.
+
+    ``fir_mode`` ``"fused"`` (the default) runs the TX frame op
+    :func:`~aether_primitives_tpu_torch.ops.fir.interp_fir_ifft`; ``"os"``
+    and ``"shift_add"`` zero-stuff densely and filter with
+    :func:`~aether_primitives_tpu_torch.ops.fir.fir_filter_os` or
+    :func:`~aether_primitives_tpu_torch.ops.fir.fir_filter`. Each symmetric
+    length-K filter delays by ``(K-1)/2`` samples: a TX -> RX loopback skips
+    :func:`loopback_delay` samples before framing. ``device``: as
+    :class:`RxChain`'s."""
+
+    def __init__(self, config: RxChainConfig = RxChainConfig(), device="cuda"):
+        self.config = config
+        self.device = stage_device(device, "TxChain")
+        self.modulation = _modulation_by_name(config.modulation)
+        self.taps = _chain_taps(config)
+        self.fir_mode = _resolve_fir_mode(config.fir_mode)
+        self._plan = fft_plan(config.fft_len, config.fft_backend)
+
+    def bits_per_frame(self) -> int:
+        a = self.config.active_bins or self.config.fft_len
+        return a * self.modulation.bits_per_symbol
+
+    def step(self, bits) -> torch.Tensor:
+        """``[..., n_bits]`` {0,1} -> ``[..., n_frames * fft_len * decimation]``
+        complex64 samples (``n_bits`` divisible by :meth:`bits_per_frame`)."""
+        cfg = self.config
+        a = cfg.active_bins or cfg.fft_len
+        bits = torch.as_tensor(bits, device=self.device)
+        bpf = self.bits_per_frame()
+        if bits.shape[-1] % bpf:
+            raise ValueError(f"bit count {bits.shape[-1]} not divisible by bits/frame {bpf}")
+        nframes = bits.shape[-1] // bpf
+        syms = self.modulation.modulate(bits)
+        syms = syms.reshape(syms.shape[:-1] + (nframes, a))
+        if a != cfg.fft_len:
+            half = a // 2
+            guard = torch.zeros(syms.shape[:-1] + (cfg.fft_len - a,), dtype=cf32,
+                                device=self.device)
+            spec = torch.cat([syms[..., :half], guard, syms[..., half:]], dim=-1)
+        else:
+            spec = syms
+        dec = cfg.decimation
+        taps = self.taps * np.complex64(dec)
+        if dec > 1 and self.fir_mode == "fused":
+            return _fir.interp_fir_ifft(spec, taps, dec, Scale.SN)
+        tf = self._plan.bwd(spec, Scale.SN)
+        x = tf.reshape(tf.shape[:-2] + (nframes * cfg.fft_len,))
+        if dec > 1:
+            # zero-stuff by a dense reshape: [..., n] -> [..., n, dec] -> flat
+            up = torch.nn.functional.pad(x[..., None], (0, dec - 1))
+            up = up.reshape(x.shape[:-1] + (x.shape[-1] * dec,))
+            if self.fir_mode == "os":
+                x = _fir.fir_filter_os(up, taps)
+            else:
+                x = _fir.fir_filter(up, taps)
+        return x
+
+
+def loopback_delay(tx: TxChain, rx: RxChain) -> int:
+    """Full-rate sample delay of a TX -> RX cascade (the sum of the two
+    symmetric filters' group delays): skip this many samples before RX
+    framing."""
+    d = 0
+    if tx.config.decimation > 1:
+        d += (tx.taps.shape[-1] - 1) // 2
+    d += (rx.taps.shape[-1] - 1) // 2
+    return d
 
 
 def pad_to_frames(block, multiple: int) -> torch.Tensor:

@@ -49,9 +49,7 @@ def _modulation_by_name(name: str) -> _mod.Modulation:
     if name in named:
         return named[name]()
     if name.startswith("apsk"):
-        raise NotImplementedError(
-            f"modulation {name!r} is not ported yet (ROADMAP.md, queue 1 item 3)"
-        )
+        return _mod.apsk(int(name[4:]))
     if name.startswith("psk"):
         return _mod.psk(int(name[3:]))
     return _mod.qam(int(name[3:]))

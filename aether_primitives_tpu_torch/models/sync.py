@@ -8,7 +8,9 @@ every function batched over leading axes:
 - :func:`estimate_cfo_blind`: periodogram peak of ``x^M`` (M-PSK), with a
   parabolic refinement;
 - :func:`estimate_phase_mpsk`: Viterbi & Viterbi M-th power phase;
-- :func:`apply_freq_shift`: mix by ``e^{-j 2 pi f n}``.
+- :func:`apply_freq_shift`: mix by ``e^{-j 2 pi f n}``;
+- :class:`OfdmEqualizer`: the one-tap per-subcarrier equalizer of the
+  OFDM link (a pilot frame's channel estimate, divided out).
 
 Arithmetic follows the JAX package's order (``x^4`` as two squarings, the
 angle of a float32 sum, the rotation ``-2 pi f n`` in float32), so results
@@ -131,3 +133,25 @@ def apply_freq_shift(x, cycles_per_sample) -> torch.Tensor:
         f = f[..., None]  # per-row CFOs broadcast against the sample index
     ang = -2.0 * math.pi * f * n
     return x * torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+class OfdmEqualizer:
+    """One-tap per-subcarrier equalizer from a known pilot frame.
+
+    ``estimate(rx_pilot_spec, tx_pilot_spec)`` -> per-bin channel ``H``;
+    ``apply(spec, H)`` divides it out. Bins where the pilot is zero (guard
+    bands) get ``H = 1``, so the division leaves them as they are. Tensors
+    stay where they lie (the received spectrum's device)."""
+
+    @staticmethod
+    def estimate(rx_pilot_spec, tx_pilot_spec) -> torch.Tensor:
+        rx = as_cf32(rx_pilot_spec)
+        tx = as_cf32(tx_pilot_spec, device=rx.device)
+        occupied = tx.abs() > 0
+        one = torch.ones((), dtype=rx.dtype, device=rx.device)
+        return torch.where(occupied, rx / torch.where(occupied, tx, one), one)
+
+    @staticmethod
+    def apply(spec, h) -> torch.Tensor:
+        spec = as_cf32(spec)
+        return spec / as_cf32(h, device=spec.device)

@@ -1,13 +1,17 @@
-"""Causal FIR filtering and the fused FIR -> decimate -> frame-FFT op (PyTorch).
+"""Causal FIR filtering, the fused RX and TX frame ops, correlation (PyTorch).
 
-Counterpart of ``aether_primitives_tpu/ops/fir.py``, subset:
+Counterpart of ``aether_primitives_tpu/ops/fir.py``:
 :func:`fir_filter`, :func:`fir_filter_decimate`, :func:`fir_decimate_fft`,
-the overlap-save :func:`fir_filter_os` / :func:`matched_filter` of the
-burst receiver's preamble search, the DDC's decimating overlap-save
-:func:`fir_filter_os_decimate`, and host copies (numpy only, pinned equal
-by the tests) of :func:`rrc_taps` and the float64 constant builders
-:func:`_fused_stage_matrices` and :func:`_fused_rx_matrices`, so that both
-packages contract against byte-identical constants. These functions are the plain PyTorch versions; the hand-written
+the TX frame op :func:`interp_fir_ifft`, the overlap-save
+:func:`fir_filter_os` / :func:`matched_filter` of the burst receiver's
+preamble search, the DDC's decimating overlap-save
+:func:`fir_filter_os_decimate`, the circular :func:`correlate`, and host
+copies (numpy only, pinned equal by the tests) of :func:`rrc_taps` and the
+float64 constant tables :func:`_fused_stage_matrices`,
+:func:`_fused_rx_matrices` and :func:`_fused_tx_matrices`, so that both
+packages contract against byte-identical constants. The JAX package's
+``fir_decimate_fft_planes`` (a measured negative result on the TPU) is not
+ported. These functions are the plain PyTorch versions; the hand-written
 kernel of the RX chain lives in :mod:`.cuda.rx_frame`.
 
 Convention: ``y[n] = sum_k taps[k] * x[n - k]`` with zero initial state
@@ -534,3 +538,137 @@ def fir_decimate_fft(
             ecorr = torch.einsum("...nu,uk->...nk", delta, c["cm"])
         z = z - ecorr
     return scale.apply(z)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_tx_matrices(
+    taps_bytes: bytes, k: int, dec: int, fft_len: int, scale_f: float
+):
+    """Precomputed (f64) constants for :func:`interp_fir_ifft` — the TX dual
+    of :func:`_fused_rx_matrices`.
+
+    With ``span = dec * fft_len``, zero-stuffing by ``dec`` replicates the
+    ``fft_len``-point spectrum across the span (``Up[f] = X[f mod N]``), so
+    per frame the circular (upsample ∘ FIR) output is
+
+        y[dec*u + t] = (s/dec) * iFFT_N( spec ⊙ R[t] )[u]
+        R[t, b] = e^{2πi t b / span} * sum_p Hs[b + N p] e^{2πi t p / dec}
+
+    — ``dec`` diagonal multiplies + one batched N-point backward FFT, the
+    span-point transform never happens. Returns ``(R [dec, N]`` (with the
+    ``s/dec`` factor folded in), ``Mtail [N, ntail]`` (maps a frame's
+    spectrum to its last ``ntail = ceil((K-1)/dec)`` time samples),
+    ``T2 [K-1, ntail]`` (maps tail deltas to the circular-wrap error on the
+    first ``K-1`` outputs)) complex64.
+    """
+    h = np.frombuffer(taps_bytes, dtype=np.complex64).astype(np.complex128)
+    span = dec * fft_len
+    n = fft_len
+    hs = np.fft.fft(h, span)  # [span]
+    b = np.arange(n, dtype=np.float64)
+    t = np.arange(dec, dtype=np.float64)
+    p = np.arange(dec, dtype=np.float64)
+    # Q[t, b] = sum_p Hs[b + N p] e^{2πi t p / dec}
+    hs_rep = hs.reshape(dec, n)  # [p, b]
+    phase_tp = np.exp(2j * np.pi * np.outer(t, p) / dec)  # [t, p]
+    q = phase_tp @ hs_rep  # [t, b]
+    r = q * np.exp(2j * np.pi * np.outer(t, b) / span)
+    r *= scale_f / dec
+
+    ntail = -(-(k - 1) // dec) if k > 1 else 0
+    if ntail:
+        idx = n - ntail + np.arange(ntail, dtype=np.float64)
+        mtail = scale_f * np.exp(2j * np.pi * np.outer(b, idx) / n)  # [b, i]
+        t2 = np.zeros((k - 1, ntail), np.complex128)
+        for m in range(k - 1):
+            for i in range(ntail):
+                kk = span + m - dec * (n - ntail + i)
+                if m + 1 <= kk <= k - 1:
+                    t2[m, i] = h[kk]
+    else:
+        mtail = np.zeros((n, 0), np.complex128)
+        t2 = np.zeros((0, 0), np.complex128)
+    return (
+        r.astype(np.complex64),
+        mtail.astype(np.complex64),
+        t2.astype(np.complex64),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _tx_device_constants(taps_bytes: bytes, k: int, dec: int, fft_len: int,
+                         scale_f: float, device: str) -> tuple:
+    """``(R, Mtail, T2)`` of :func:`_fused_tx_matrices`, uploaded once per
+    ``(taps, geometry, scale, device)``."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _fused_tx_matrices(taps_bytes, k, dec, fft_len, scale_f))
+
+
+def interp_fir_ifft(spec, taps: np.ndarray, dec: int, scale: Scale = Scale.NONE,
+                    history_spec=None, fft_backend: Optional[str] = None) -> torch.Tensor:
+    """Fused TX frame op: spectrum frames -> (scaled backward FFT ->
+    zero-stuff by ``dec`` -> causal FIR) -> full-rate samples, equal (to
+    rounding) to ``fir_filter(zero_stuff(ifft(spec, scale), dec).reshape(-1),
+    taps)`` on the frames' flattened stream, without the zero-stuffed stream
+    or a span-point transform.
+
+    Per frame: ``dec`` diagonal multiplies by ``R`` (the tap spectrum folded
+    with the replication of zero-stuffing, :func:`_fused_tx_matrices`), one
+    batched ``fft_len``-point backward ``torch.fft``, the ``(u, t)``
+    interleave ``j = dec*u + t``; then the circular wrap of each frame's
+    first ``K-1`` outputs is replaced by the causal ones through the frame
+    tails (its last ``ceil((K-1)/dec)`` time samples, from the spectrum by
+    ``Mtail``) minus the previous frame's (``history_spec`` for the first:
+    the ``[..., N]`` spectrum of the frame before ``spec``; zeros when None),
+    times ``T2``. ``scale`` is taken at the frame's ``fft_len``.
+
+    ``spec``: ``[..., nsym, N]`` complex64. ``taps``: host numpy ``[K]``,
+    ``K - 1 <= dec * N``. Returns ``[..., nsym * dec * N]``. ``fft_backend``:
+    see :func:`~aether_primitives_tpu_torch.ops.fft.check_backend`.
+    """
+    _fft.check_backend(fft_backend)
+    spec = as_cf32(spec)
+    taps = _taps_1d(taps, "interp_fir_ifft")
+    k = taps.shape[-1]
+    n = spec.shape[-1]
+    nsym = spec.shape[-2]
+    span = dec * n
+    if k - 1 > span:
+        raise ValueError(f"taps ({k}) longer than a frame ({span}) + 1")
+    batch = tuple(spec.shape[:-2])
+    r, mtail, t2 = _tx_device_constants(taps.tobytes(), k, dec, n,
+                                        float(scale.factor_for(n)), str(spec.device))
+    v = spec[..., None, :] * r  # [.., nsym, dec, N]
+    y_tu = _fft.plan(n).bwd(v, Scale.NONE)  # [.., nsym, t, u]
+    y = y_tu.transpose(-1, -2).reshape(batch + (nsym, span))  # j = dec*u + t
+    if k > 1:
+        tails = torch.matmul(spec, mtail)  # [.., nsym, ntail]
+        if history_spec is None:
+            h0 = torch.zeros(batch + (1, tails.shape[-1]), dtype=cf32, device=spec.device)
+        else:
+            hs0 = as_cf32(history_spec, device=spec.device)
+            if hs0.shape[-1] != n:
+                raise ValueError(f"history_spec must have N = {n} bins")
+            h0 = torch.matmul(hs0.expand(batch + (n,))[..., None, :], mtail)
+        prev = torch.cat([h0, tails[..., :-1, :]], dim=-2)
+        e = torch.einsum("...ni,mi->...nm", tails - prev, t2)  # [.., nsym, K-1]
+        y = torch.cat([y[..., :k - 1] - e, y[..., k - 1:]], dim=-1)
+    return y.reshape(batch + (nsym * span,))
+
+
+def correlate(x, ref, fft_backend: Optional[str] = None) -> torch.Tensor:
+    """Circular correlation ``ifft(fft(x) * conj(fft(ref)))`` with the
+    backward transform scaled ``Scale.N``: ``sum_m x[m] conj(ref[m - n])``.
+    ``ref`` shorter than ``x`` is zero-padded; longer raises. ``fft_backend``:
+    see :func:`~aether_primitives_tpu_torch.ops.fft.check_backend` (the JAX
+    package's matmul-FFT branch is a TPU realisation)."""
+    x = as_cf32(x)
+    ref = as_cf32(ref, device=x.device)
+    n = x.shape[-1]
+    if ref.shape[-1] < n:
+        ref = torch.nn.functional.pad(ref, (0, n - ref.shape[-1]))
+    elif ref.shape[-1] > n:
+        raise ValueError("Reference longer than signal")
+    plan = _fft.plan(n, fft_backend)
+    spec = plan.fwd(x, Scale.NONE) * plan.fwd(ref, Scale.NONE).conj()
+    return plan.bwd(spec, Scale.N)

@@ -1,22 +1,30 @@
-"""Pseudo-random sequences and the multiplicative scrambler (PyTorch).
+"""Pseudo-random sequences, scramblers and DSSS spreading (PyTorch).
 
-Counterpart of ``aether_primitives_tpu/ops/sequence.py``, burst-link subset:
-:func:`expand`, :func:`lte_gold` (a host numpy constant: the preamble is
-built from it once per modem) and the self-synchronising scrambler pair
-:func:`scramble_multiplicative` / :func:`descramble_multiplicative`. Bits
-are exact {0, 1} uint8. The JAX package's GF(2) block-matrix scans exist to
-keep a TPU off bit-serial loops; here the scrambler's feedback recurrence
-runs as a plain loop that advances ``min(delays)`` bits per step (every
-bit in such a chunk depends only on earlier chunks), batched over leading
-axes.
+Counterpart of ``aether_primitives_tpu/ops/sequence.py``: :func:`expand`,
+:func:`generate`, the LFSRs :func:`lfsr_generate` and
+:func:`lfsr_matrix_generate`, :func:`lte_gold` (a host numpy constant: the
+preamble is built from it once per modem), the scramblers
+(:func:`scramble_multiplicative` / :func:`descramble_multiplicative`,
+:func:`scramble_additive`), DSSS (:func:`bits_to_chips`,
+:func:`dsss_spread`, :func:`dsss_despread`) and the host tables
+:func:`zadoff_chu` and :func:`gps_ca_code`. Bits are exact {0, 1} uint8,
+equal to the JAX package's. The JAX package's GF(2) block-matrix scans
+exist to keep a TPU off bit-serial loops: here an LFSR runs on the host
+(the sequences are short configuration constants) and the scrambler's
+feedback recurrence runs as a plain loop that advances ``min(delays)``
+bits per step (every bit in such a chunk depends only on earlier chunks),
+batched over leading axes.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from ..types import stage_device
 
 
 def expand(seed: int, length: int) -> np.ndarray:
@@ -25,18 +33,62 @@ def expand(seed: int, length: int) -> np.ndarray:
     return ((np.uint64(seed) >> i) & np.uint64(1)).astype(np.uint8)
 
 
+def generate(init: Sequence[int], generator: Callable[[int, np.ndarray], int],
+             length: int) -> np.ndarray:
+    """Grow ``init`` with ``generator(pos, seq_so_far)`` until ``length``
+    (the reference's ``generate``, src/sequence.rs:47-53): host numpy,
+    serial."""
+    seq = np.asarray(init, dtype=np.uint8).tolist()
+    while len(seq) < length:
+        seq.append(np.uint8(generator(len(seq), np.asarray(seq, dtype=np.uint8))))
+    return np.asarray(seq, dtype=np.uint8)
+
+
 def _lfsr(init: np.ndarray, delays: Sequence[int], length: int) -> np.ndarray:
     """``x(n) = sum_d x(n - d) mod 2`` from ``init`` (``max(delays)`` bits),
-    ``length`` bits in all (host numpy)."""
-    order = max(delays)
+    ``length`` bits in all (host numpy), ``min(delays)`` bits a step: each
+    bit of such a chunk depends on earlier chunks only."""
+    order, step = max(delays), min(delays)
     x = np.zeros(max(length, order), np.uint8)
     x[:order] = init
-    for n in range(order, length):
-        acc = 0
+    for start in range(order, length, step):
+        stop = min(length, start + step)
+        acc = np.zeros(stop - start, np.uint8)
         for d in delays:
-            acc ^= int(x[n - d])
-        x[n] = acc
+            acc ^= x[start - d:stop - d]
+        x[start:stop] = acc
     return x[:length]
+
+
+def _lfsr_tensor(init, delays: Sequence[int], length: int, device) -> torch.Tensor:
+    delays = tuple(int(d) for d in delays)
+    order = max(delays)
+    if device is None:
+        device = init.device if isinstance(init, torch.Tensor) else "cuda"
+    dev = stage_device(device, "lfsr")
+    init = np.asarray(init.cpu() if isinstance(init, torch.Tensor) else init).astype(np.uint8)
+    if init.shape[-1] != order:
+        raise ValueError(f"init length {init.shape[-1]} != max delay {order}")
+    if length <= order:
+        return torch.from_numpy(init[:length].copy()).to(dev)
+    return torch.from_numpy(_lfsr(init, delays, length)).to(dev)
+
+
+def lfsr_generate(init, delays: Sequence[int], length: int, device=None) -> torch.Tensor:
+    """LFSR ``x(n) = sum_k x(n - d_k) mod 2`` from ``init`` (``max(delays)``
+    bits), ``length`` bits in all, as a uint8 tensor on ``device`` (None:
+    ``init``'s device when it is a tensor, else the card). Example, the LTE
+    TS 36.211 §7.2 x1 recurrence: ``lfsr_generate(expand(1, 31), (28, 31),
+    1600)``. The recurrence runs on the host."""
+    return _lfsr_tensor(init, delays, length, device)
+
+
+def lfsr_matrix_generate(init, delays: Sequence[int], length: int, block: int = 1024,
+                         device=None) -> torch.Tensor:
+    """The same sequence as :func:`lfsr_generate`. ``block`` is accepted and
+    ignored: it sizes the JAX package's GF(2) matrix steps, a TPU
+    realisation, and the output does not depend on it."""
+    return _lfsr_tensor(init, delays, length, device)
 
 
 def lte_gold(c_init: int, length: int, nc: int = 1600) -> np.ndarray:
@@ -100,3 +152,98 @@ def descramble_multiplicative(bits, delays: Sequence[int] = (14, 15),
     for d in delays:
         acc ^= yp[..., order - d:order - d + n]
     return acc
+
+
+def scramble_additive(bits, sequence) -> torch.Tensor:
+    """Additive (synchronous) scrambler: XOR with a free-running PN sequence
+    (e.g. :func:`lte_gold`), self-inverse. ``sequence`` is cut to the bits'
+    length and moved to their device."""
+    b = _bits(bits)
+    s = _bits(sequence, b.device)
+    return b ^ s[..., :b.shape[-1]]
+
+
+def bits_to_chips(bits) -> torch.Tensor:
+    """{0,1} spreading bits -> antipodal float32 chips {+1, -1} (bit 0 -> +1)."""
+    return 1.0 - 2.0 * torch.as_tensor(bits).to(torch.float32)
+
+
+def dsss_spread(symbols, chips) -> torch.Tensor:
+    """Direct-sequence spread: each symbol times the ``L``-chip code,
+    ``[..., n]`` -> ``[..., n * L]``."""
+    s = torch.as_tensor(symbols)
+    c = torch.as_tensor(chips, device=s.device)
+    out = s[..., :, None] * c
+    return out.reshape(s.shape[:-1] + (s.shape[-1] * c.shape[-1],))
+
+
+def dsss_despread(x, chips) -> torch.Tensor:
+    """Matched despread, the inverse of :func:`dsss_spread`: each ``L``-chip
+    span correlated with ``conj(chips) / sum |chips|^2``, ``[..., n*L] ->
+    [..., n]`` (a trailing partial span is dropped)."""
+    x = torch.as_tensor(x)
+    c = torch.as_tensor(chips, device=x.device)
+    ell = c.shape[-1]
+    n = x.shape[-1] // ell
+    frames = x[..., :n * ell].reshape(x.shape[:-1] + (n, ell))
+    w = c.conj() / (c.abs() ** 2).sum()
+    return (frames * w).sum(dim=-1)
+
+
+def zadoff_chu(root: int, length: int, shift: int = 0) -> np.ndarray:
+    """Zadoff-Chu CAZAC sequence (host table, complex64):
+    ``x[n] = e^{-j pi u n (n+1+2q) / L}`` for odd ``L``, ``root`` coprime
+    with ``length``, ``shift`` the cyclic-shift parameter ``q``. The
+    quadratic phase is reduced mod ``2L`` in exact integers before the trig."""
+    length = int(length)
+    root = int(root)
+    if length % 2 == 0:
+        raise ValueError("zadoff_chu: length must be odd")
+    if np.gcd(root, length) != 1:
+        raise ValueError("root must be coprime with length")
+    n = np.arange(length, dtype=np.int64)
+    ph = (root * n * (n + 1 + 2 * int(shift))) % (2 * length)
+    return np.exp(-1j * np.pi * ph / length).astype(np.complex64)
+
+
+#: IS-GPS-200 Table 3-I: PRN -> (G2 phase-select taps, the published
+#: first-10-chip octal); :func:`gps_ca_code` checks the one against the other.
+_GPS_CA_TAPS = {
+    1: (2, 6, 0o1440), 2: (3, 7, 0o1620), 3: (4, 8, 0o1710),
+    4: (5, 9, 0o1744), 5: (1, 9, 0o1133), 6: (2, 10, 0o1455),
+    7: (1, 8, 0o1131), 8: (2, 9, 0o1454), 9: (3, 10, 0o1626),
+    10: (2, 3, 0o1504), 11: (3, 4, 0o1642), 12: (5, 6, 0o1750),
+    13: (6, 7, 0o1764), 14: (7, 8, 0o1772), 15: (8, 9, 0o1775),
+    16: (9, 10, 0o1776), 17: (1, 4, 0o1156), 18: (2, 5, 0o1467),
+    19: (3, 6, 0o1633), 20: (4, 7, 0o1715), 21: (5, 8, 0o1746),
+    22: (6, 9, 0o1763), 23: (1, 3, 0o1063), 24: (4, 6, 0o1706),
+    25: (5, 7, 0o1743), 26: (6, 8, 0o1761), 27: (7, 9, 0o1770),
+    28: (8, 10, 0o1774), 29: (1, 6, 0o1127), 30: (2, 7, 0o1453),
+    31: (3, 8, 0o1625), 32: (4, 9, 0o1712),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def gps_ca_code(prn: int) -> np.ndarray:
+    """GPS L1 C/A code of satellite ``prn`` (1..32): 1023 chips in {0, 1}
+    (IS-GPS-200 §3.3.2.3), host numpy. G1 ``1 + x^3 + x^10``, G2 ``1 + x^2 +
+    x^3 + x^6 + x^8 + x^9 + x^10`` (all-ones init), chip ``G1 ^ G2[s1] ^
+    G2[s2]``; the first 10 chips are checked against the standard's octal."""
+    if prn not in _GPS_CA_TAPS:
+        raise ValueError(f"PRN {prn} not in 1..32")
+    s1, s2, octal_ref = _GPS_CA_TAPS[prn]
+    g1 = np.ones(10, np.uint8)
+    g2 = np.ones(10, np.uint8)
+    out = np.zeros(1023, np.uint8)
+    for i in range(1023):
+        out[i] = g1[9] ^ g2[s1 - 1] ^ g2[s2 - 1]
+        f1 = g1[2] ^ g1[9]
+        f2 = g2[1] ^ g2[2] ^ g2[5] ^ g2[7] ^ g2[8] ^ g2[9]
+        g1 = np.concatenate([[f1], g1[:9]])
+        g2 = np.concatenate([[f2], g2[:9]])
+    prefix = int("".join(str(int(b)) for b in out[:10]), 2)
+    if prefix != octal_ref:
+        raise AssertionError(
+            f"PRN {prn}: generated prefix {oct(prefix)} != standard {oct(octal_ref)}"
+        )
+    return out

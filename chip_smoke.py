@@ -30,9 +30,16 @@ It drives the port's paths through their hand-written kernels:
   4,194,304]`` blocks), every shard on the one card, its FIR history crossing
   the shard boundaries through the peer-push halo kernel (``csrc/halo.cu``);
   and the other sharded entry points (``sharded_pfb_os``, ``sharded_pfb``,
-  ``sharded_ddc``, ``rx_batch_sharded``),
+  ``sharded_ddc``, ``rx_batch_sharded``);
+- the link simulation: ``TxChain(RxChainConfig(fft_len=2048, decimation=4,
+  active_bins=1024), device="cuda").step`` on 1,048,576 bits (512 frames,
+  4,194,304 samples) -> ``noise.Awgn(1e-6, 815, device="cuda").apply`` ->
+  the shift by ``loopback_delay`` -> ``RxChain`` of the same configuration,
+  whose active-bin step goes through the RX frame kernel's spectrum
+  epilogue; the other FIR modes, QAM16 with an ``OfdmEqualizer`` pilot,
+  ``Modem.loopback``, ``simulate_ber`` and a ``Channel``,
 
-in twenty-two phases:
+in twenty-four phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
 2. the seven kernels' builds from the sources in the checkout, and the PFB
@@ -152,7 +159,27 @@ in twenty-two phases:
 22. where there are two cards or more: phases 18 and 19 again with the
     shards spread over the cards, the same gates, and host-clock timings of
     the sharded step and the halo exchange across the cards; with one card
-    the line ``cards: 1, cross-card phase not run``.
+    the line ``cards: 1, cross-card phase not run``;
+23. the link gate (``link_phases``): every interior frame's bits equal to
+    the sent bits, exactly 1 RX frame launch (instance ``direct``, epilogue
+    ``spectrum``) and no other kernel in the TX -> AWGN -> RX run, the TX
+    samples against the port's CPU run (<= -120 dB) and a float64 golden
+    on the first 64 frames (<= -80 dB), the RX active-bin spectra against
+    ``rx_frame_reference`` (<= -120 dB); the same link with ``fir_mode``
+    ``"os"`` and ``"shift_add"`` on both chains (interior bits exact, no
+    kernel launch); QAM16 with an ``OfdmEqualizer`` pilot frame (data frames
+    exact, 1 RX frame launch); ``Modem(ModemConfig("qpsk")).loopback`` on
+    1,048,576 bits (exact); ``simulate_ber("qpsk", (0.25, 0.5, 1.0),
+    1 << 20)`` (each point within 5 sigma of theory); a ``Channel``
+    (multipath, CFO, IQ imbalance, DC) against the port's CPU run (<= -120
+    dB);
+24. CUDA-event times (medians of four runs of 10 calls) and the host's
+    enqueue time of ``TxChain.step``, the active-bin ``RxChain.step`` (and
+    the same step through the plain ``fir_decimate_fft``, its route on the
+    card before it went through the kernel) and the loopback end to end,
+    in Msa/s; a ``torch.profiler`` split of the TX
+    step (cuFFT, matmul, elementwise, the rest) and of the RX step (the RX
+    frame kernel against the rest).
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -187,6 +214,7 @@ NVLINK_BYTES = 450e9  # one way between two cards of a host
 # the fold kernel's previous design, timed beside the shipped one (phase 13)
 PARENT_FOLD = Path(__file__).resolve().parent / "benches" / "torch_pfb_fold_parent.cu"
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
+LINK_DB = -120.0  # the link: card vs CPU run, and the RX kernel vs its plain twin
 # (dec, fft_len, packed): the RX frame kernel's direct instance at 4,096 points
 # (one CTA an SM) and at 64 (32 frames a CTA), the staged tile256 and tile512
 # instances (fft_len not a power of two) and the generic instance (an unpacked
@@ -730,6 +758,7 @@ def main() -> None:
     host_fed_phases(card)
     cmul_entry, stream_entry = elementwise_timing(card, ew)
     halo_entry = sharded_phases(card, burst=burst_set)
+    link = link_phases(card)
 
     print(json.dumps({"kernels": [
         {
@@ -738,6 +767,7 @@ def main() -> None:
             "source": "aether_primitives_tpu_torch/csrc/rx_frame.cu",
             "replaces": "aether_primitives_tpu/ops/pallas/rx_frame.py:49",
             "launches": main_launches,
+            "link_launches": link["launches"],
             "max_abs_err": worst_err,
             "ms": t["kernel"],
             "plain_ms": t["plain"],
@@ -1441,15 +1471,21 @@ def host_enqueue_ms(step, dev, steps: int = 20) -> float:
     return ms
 
 
-def profile_step(torch, step, name: str, step_ms: float, card: str, steps: int = 5) -> float:
-    """torch.profiler split of one of the channelizer's steps: the fold
-    kernel, the FFT kernels, the rest, with the records kept; the device's
-    idle share, of the profiled steps' wall time (profiler on) and of
+def profile_step(torch, step, name: str, step_ms: float, card: str, steps: int = 5,
+                 classes=None) -> float:
+    """torch.profiler split of a step's device time into ``classes``
+    (``(label, predicate on the kernel's name)`` pairs, the first that
+    holds takes a kernel; by default the channelizer's fold kernel and the
+    FFT kernels) and the rest, with the records kept; the device's idle
+    share, of the profiled steps' wall time (profiler on) and of
     ``step_ms``, the step's CUDA-event time without the profiler. Returns
-    the device's busy milliseconds a step."""
+    the device's busy milliseconds a step (None: not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if classes is None:
+        classes = (("fold kernel", lambda k: "pfb_fold" in k),
+                   ("FFT", lambda k: "fft" in k.lower()))
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1463,20 +1499,21 @@ def profile_step(torch, step, name: str, step_ms: float, card: str, steps: int =
         print(f"profile {name}: the profiler recorded no device time: not measured")
         return None
     per = lambda us: us / steps / 1e3  # noqa: E731
-    split = {"fold": 0.0, "fft": 0.0, "rest": 0.0}
+    split = {label: 0.0 for label, _ in classes}
+    split["rest"] = 0.0
     names = {}
     for k in kernels:
         us = k.time_range.elapsed_us()
-        key = "fold" if "pfb_fold" in k.name else "fft" if "fft" in k.name.lower() else "rest"
-        split[key] += us
+        label = next((lab for lab, match in classes if match(k.name)), "rest")
+        split[label] += us
         t, n = names.get(k.name, (0.0, 0))
         names[k.name] = (t + us, n + 1)
     busy = per(sum(split.values()))
+    parts = ", ".join(f"{label} {per(us):.4f} ms" for label, us in split.items())
     print(f"profile {name}: device busy {busy:.4f} ms/step of {wall_ms:.4f} ms wall "
           f"(idle {100 * (1 - busy / wall_ms):.1f}%, profiler on; idle "
           f"{100 * (1 - busy / step_ms):.1f}% of the {step_ms:.4f} ms un-profiled step); "
-          f"fold kernel {per(split['fold']):.4f} ms, FFT {per(split['fft']):.4f} ms, rest "
-          f"{per(split['rest']):.4f} ms; {len(kernels)} kernel records over {steps} steps "
+          f"{parts}; {len(kernels)} kernel records over {steps} steps "
           f"(torch.profiler, profiler on) [{card}]")
     for key, (us, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {per(us):.4f} ms/step  {n:3d} records  {key[:90]}")
@@ -2450,6 +2487,194 @@ def sharded_phases(card: str, device: str = "cuda", fft_len: int = 2048,
         "bound_by": "bytes",
         "library_ms": med["library"],
     }
+
+
+def f64_tx(bits, table, fft_len: int, dec: int, active: int, taps):
+    """Float64 golden of the transmit chain: table symbols (LSB-first
+    indices) on the active bins of each frame, ``ifft`` scaled ``1/sqrt(N)``
+    (``Scale.SN`` of the float32 N), zero-stuffing by ``dec``, and one causal
+    ``np.convolve`` with ``taps * dec`` over the flattened stream."""
+    import numpy as np
+
+    bps = int(np.log2(table.shape[0]))
+    idx = (bits.reshape(-1, bps).astype(np.int64) << np.arange(bps)).sum(-1)
+    syms = table.astype(np.complex128)[idx].reshape(-1, active)
+    spec = np.zeros((syms.shape[0], fft_len), np.complex128)
+    half = active // 2
+    spec[:, :half] = syms[:, :half]
+    spec[:, fft_len - (active - half):] = syms[:, half:]
+    frames = np.fft.ifft(spec, axis=-1) * fft_len / np.sqrt(np.float32(fft_len))
+    up = np.zeros((frames.shape[0], fft_len * dec), np.complex128)
+    up[:, ::dec] = frames
+    h = taps.astype(np.complex128) * dec
+    return np.convolve(up.reshape(-1), h)[:up.size]
+
+
+def link_phases(card: str, device: str = "cuda", fft_len: int = 2048, dec: int = 4,
+                frames: int = 512, golden_frames: int = 64, modem_bits: int = 1 << 20,
+                ber_bits: int = 1 << 20, runs: int = 4) -> dict:
+    """Phases 23-24, the link simulation: ``TxChain`` -> ``noise.Awgn`` ->
+    the shift by ``loopback_delay`` -> ``RxChain`` with ``active_bins =
+    fft_len / 2`` at full width (``frames`` frames a block), its gates, the
+    other FIR modes, QAM16 with an ``OfdmEqualizer`` pilot, ``Modem``,
+    ``simulate_ber`` and a ``Channel``; then the timings and profiles.
+    Returns ``{"launches": ...}``, the RX frame launches of the link run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch import cli
+    from aether_primitives_tpu_torch.models import (
+        Channel, ChannelConfig, Modem, ModemConfig, OfdmEqualizer, RxChain, RxChainConfig,
+        TxChain, loopback_delay,
+    )
+    from aether_primitives_tpu_torch.models.ber import simulate_ber
+    from aether_primitives_tpu_torch.ops import fir, noise
+    from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
+    from aether_primitives_tpu_torch.ops.fft import Scale
+
+    dev = torch.device(device)
+    kl = 1 if dev.type == "cuda" else 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    active = fft_len // 2
+    cfg = RxChainConfig(fft_len=fft_len, decimation=dec, active_bins=active)
+    tx, rx = TxChain(cfg, device=dev), RxChain(cfg, device=dev)
+    bpf, span = tx.bits_per_frame(), dec * fft_len
+    n = frames * span
+    rng = np.random.default_rng(2300)
+    bits_np = rng.integers(0, 2, frames * bpf).astype(np.uint8)
+    bits = torch.from_numpy(bits_np).to(dev)
+    d = loopback_delay(tx, rx)
+    awgn = noise.Awgn(1e-6, 815, device=dev)
+    interior = slice(bpf, (frames - 1) * bpf)
+
+    def shifted(y):
+        return torch.cat([y[d:], torch.zeros(d, dtype=y.dtype, device=y.device)])
+
+    def link(t, r):
+        x = t.step(bits)
+        rin = shifted(awgn.apply(x))
+        return x, rin, r.step(rin)
+
+    # ---- phase 23: the link gate, at full width -------------------------------
+    plan = rf.kernel_plan(dec, fft_len, None, rx.taps.shape[-1])
+    if kl and plan[0] != "direct":
+        fail(f"the link's RX geometry took the {plan[0]} instance, not direct")
+    epilogues, real_rx_frame = [], rf.rx_frame
+
+    def recording(*args, **kwargs):
+        epilogues.append(kwargs.get("epilogue"))
+        return real_rx_frame(*args, **kwargs)
+
+    rf.rx_frame = recording
+    try:
+        reset_counts()
+        x, rin, out = link(tx, rx)
+        sync(dev)
+        counts = read_counts()
+    finally:
+        rf.rx_frame = real_rx_frame
+    exact = bool(torch.equal(out[interior], bits[interior]))
+    print(f"link (fft_len {fft_len}, decimation {dec}, active_bins {active}, QPSK, {frames} "
+          f"frames = {frames * bpf} bits -> {n} samples, AWGN 1e-6, delay {d}): interior "
+          f"frames' bits exact {exact}; launches {counts}, RX frame epilogues {epilogues} "
+          f"(need rx_frame {kl}, spectrum), instance {plan[0]}")
+    if not exact or counts != {**NO_LAUNCHES, "rx_frame": kl} or epilogues != ["spectrum"] * kl:
+        fail("link: interior bits, the RX frame launch count or its epilogue")
+    link_launches = counts["rx_frame"]
+    x_cpu = TxChain(cfg, device="cpu").step(bits.cpu())
+    tx_cpu_db = evm_db(x.cpu(), x_cpu)
+    golden = f64_tx(bits_np[:golden_frames * bpf], tx.modulation.table, fft_len, dec, active,
+                    tx.taps)
+    tx_f64_db = evm_db(x[:golden_frames * span].cpu().numpy(), golden)
+    spec = rx.spectra(rin)
+    ref = rx._active(rf.rx_frame_reference(rin, rx.taps, dec, fft_len, epilogue="spectrum"))
+    rx_db = evm_db(spec, ref)
+    print(f"compare link: TX samples vs the port's CPU run {tx_cpu_db:.2f} dB (need <= "
+          f"{LINK_DB}), vs float64 on the first {golden_frames} frames {tx_f64_db:.2f} dB (need "
+          f"<= {EVM_DB}); RX active-bin spectra vs rx_frame_reference {rx_db:.2f} dB (need <= "
+          f"{LINK_DB}) RMS EVM")
+    if tx_cpu_db > LINK_DB or tx_f64_db > EVM_DB or rx_db > LINK_DB:
+        fail("link: TX or RX spectra EVM")
+    for mode in ("os", "shift_add"):
+        mcfg = dataclasses.replace(cfg, fir_mode=mode)
+        reset_counts()
+        xm, _, om = link(TxChain(mcfg, device=dev), RxChain(mcfg, device=dev))
+        sync(dev)
+        mcounts = read_counts()
+        ok = bool(torch.equal(om[interior], bits[interior]))
+        print(f"link fir_mode {mode!r} on both chains: interior bits exact {ok}, launches "
+              f"{mcounts} (need none), TX vs fused {evm_db(xm, x):.2f} dB")
+        if not ok or mcounts != NO_LAUNCHES:
+            fail(f"link fir_mode {mode!r}: interior bits or a kernel launch")
+    qcfg = dataclasses.replace(cfg, modulation="qam16")
+    qtx, qrx = TxChain(qcfg, device=dev), RxChain(qcfg, device=dev)
+    qbpf = qtx.bits_per_frame()
+    qbits = torch.from_numpy(rng.integers(0, 2, frames * qbpf).astype(np.uint8)).to(dev)
+    pilot, data = qbits[qbpf:2 * qbpf], qbits[2 * qbpf:]
+    reset_counts()
+    qspec = qrx.spectra(shifted(qtx.step(qbits)))
+    h = OfdmEqualizer.estimate(qspec[1], qrx.modulation.modulate(pilot))
+    qout = qrx.demod_spectra(OfdmEqualizer.apply(qspec[2:], h))
+    sync(dev)
+    qcounts = read_counts()
+    keep = (frames - 3) * qbpf  # the last frame holds the zero-padded tail
+    qok = bool(torch.equal(qout[:keep], data[:keep]))
+    print(f"link QAM16 with an OfdmEqualizer pilot (frame 1): data frames exact {qok}; "
+          f"launches {qcounts} (need rx_frame {kl})")
+    if not qok or qcounts != {**NO_LAUNCHES, "rx_frame": kl}:
+        fail("link QAM16: data frames or the launch count")
+    mbits = torch.from_numpy(rng.integers(0, 2, modem_bits).astype(np.uint8)).to(dev)
+    mok = bool(torch.equal(Modem(ModemConfig("qpsk"), device=dev).loopback(mbits), mbits))
+    print(f"Modem(ModemConfig('qpsk')).loopback on {modem_bits} bits (noise 0.01): exact {mok}")
+    if not mok:
+        fail("Modem loopback")
+    for p, sim, th in simulate_ber("qpsk", (0.25, 0.5, 1.0), ber_bits, device=dev):
+        sigma = float(np.sqrt(th * (1 - th) / ber_bits))
+        print(f"simulate_ber qpsk power {p}: {sim:.6f} vs theory {th:.6f} ({(sim - th) / sigma:+.2f}"
+              f" sigma of {ber_bits} bits; need within 5)")
+        if abs(sim - th) > 5 * sigma:
+            fail(f"simulate_ber at power {p}")
+    ccfg = ChannelConfig(taps=(1.0, 0.2 - 0.1j, 0.05j), cfo=1e-4, phase0=0.3, iq_amp_db=0.5,
+                         iq_phase_deg=2.0, dc=0.01 + 0.02j)
+    ch_db = evm_db(Channel(ccfg, device=dev).apply(7, x).cpu(),
+                   Channel(ccfg, device="cpu").apply(7, x.cpu()))
+    print(f"compare Channel (multipath, CFO, IQ imbalance, DC, no noise) on the TX block vs the "
+          f"port's CPU run: {ch_db:.2f} dB RMS EVM (need <= {LINK_DB})", flush=True)
+    if ch_db > LINK_DB:
+        fail("Channel: card vs CPU")
+
+    # ---- phase 24: timings ------------------------------------------------------
+    steps = {
+        "TxChain.step": lambda: tx.step(bits),
+        "RxChain.step (active bins)": lambda: rx.step(rin),
+        # the step as it ran on the card before it went through the kernel
+        "the active-bin step through the plain fir_decimate_fft": lambda: rx._demod_frames(
+            fir.fir_decimate_fft(rin, rx.taps, dec, fft_len, Scale.SN)),
+        "loopback (TX, AWGN, shift, RX)": lambda: link(tx, rx),
+    }
+    for what, fn in steps.items():
+        got = [cli.time_cuda(fn, 10) for _ in range(runs)]
+        ms = float(np.median(got))
+        enq = host_enqueue_ms(fn, dev)
+        print(f"time: {what} on {n} samples ({frames * bpf} bits): median {ms:.4f} ms = "
+              f"{n / ms / 1e3:.1f} Msa/s (runs {', '.join(f'{v:.4f}' for v in got)}; mean of "
+              f"10 calls, CUDA events); host enqueue {enq:.4f} ms a call [{card}]", flush=True)
+        if what.startswith("TxChain"):
+            profile_step(torch, fn, what, ms, card, classes=(
+                ("cuFFT", lambda k: "fft" in k.lower()),
+                ("matmul", lambda k: any(w in k.lower() for w in ("gemm", "gemv", "cutlass",
+                                                                   "xmma", "dot"))),
+                ("elementwise", lambda k: any(w in k.lower() for w in ("elementwise",
+                                                                        "vectorized",
+                                                                        "unrolled"))),
+            ))
+        elif what.startswith("RxChain"):
+            profile_step(torch, fn, what, ms, card,
+                         classes=(("RX frame kernel", lambda k: "rx_frame" in k),))
+    return {"launches": link_launches}
 
 
 if __name__ == "__main__":

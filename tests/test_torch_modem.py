@@ -204,11 +204,10 @@ def test_short_block_keeps_the_previous_state():
 
 
 def test_config_errors():
-    with pytest.raises(ValueError, match="not ported"):
-        RxChain(RxChainConfig(fir_mode="os"), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        RxChain(RxChainConfig(fir_mode="shift_add"), device="cpu")
-    with pytest.raises(ValueError):
+    # the other FIR modes are ported: they build, and only unknown ones raise
+    for mode in ("os", "shift_add", "fused", None):
+        assert RxChain(RxChainConfig(fir_mode=mode), device="cpu").fir_mode == (mode or "fused")
+    with pytest.raises(ValueError, match="unknown fir_mode"):
         RxChain(RxChainConfig(fir_mode="bogus"), device="cpu")
     with pytest.raises(ValueError, match="TPU"):
         RxChain(RxChainConfig(precision="high"), device="cpu")

@@ -88,3 +88,70 @@ def test_demod_soft_identical(name):
                           np.asarray(j.demod_soft(s)))
     assert np.array_equal(t.hard_from_soft(torch.from_numpy(got)).numpy(),
                           np.asarray(j.hard_from_soft(got)))
+
+
+# ------------------------------------------- APSK, differential coding, pi/4-DQPSK
+# Tables equal to the JAX package's; indices and bits identical off the
+# decision boundaries (the inputs are random, ROADMAP §3.5); pi/4-DQPSK
+# symbols at RMS EVM <= PI4_DB (the float32 phase is a cumsum, summed in
+# another order).
+PI4_DB = -90.0
+
+
+@pytest.mark.parametrize("order,gamma", [(16, None), (16, "9/10"), (16, 3.0), (32, None),
+                                         (32, "5/6")])
+def test_apsk_tables_identical(order, gamma):
+    t, j = tmod.apsk(order, gamma), jmod.apsk(order, gamma)
+    assert t.table.tobytes() == j.table.tobytes() and t.name == j.name
+    rng = np.random.default_rng(14)
+    s = (0.9 * (rng.normal(size=300) + 1j * rng.normal(size=300))).astype(np.complex64)
+    assert t.demod(torch.from_numpy(s)).numpy().tobytes() == np.asarray(j.demod(s)).tobytes()
+    assert tmod.APSK16_GAMMA == jmod.APSK16_GAMMA and tmod.APSK32_GAMMA == jmod.APSK32_GAMMA
+    with pytest.raises(ValueError):
+        tmod.apsk(8)
+
+
+def test_symbol_identical():
+    t, j = tmod.qam16(), jmod.qam16()
+    idx = np.array([[0, 5, 15], [3, 3, 9]])
+    assert np.array_equal(t.symbol(torch.from_numpy(idx)).numpy(), np.asarray(j.symbol(idx)))
+    assert np.array_equal(t.demod_naive(t.symbol(torch.from_numpy(idx))).numpy(),
+                          np.asarray(j.demod_naive(j.symbol(idx))))
+
+
+@pytest.mark.parametrize("order", [2, 4, 8, 16])
+def test_differential_coding_and_nearest_index_identical(order):
+    rng = np.random.default_rng(15 + order)
+    d = rng.integers(0, order, (3, 400))
+    enc = tmod.differential_encode(torch.from_numpy(d), order)
+    assert enc.dtype == torch.int32
+    assert np.array_equal(enc.numpy(), np.asarray(jmod.differential_encode(d, order)))
+    dec = tmod.differential_decode(enc, order)
+    assert np.array_equal(dec.numpy(), np.asarray(jmod.differential_decode(enc.numpy(), order)))
+    assert np.array_equal(dec.numpy(), d)
+    table = tmod.psk_table(order)
+    assert table.tobytes() == jmod.psk_table(order).tobytes()
+    s = (table[enc.numpy()] * np.exp(0.1j) + 0.05 * (rng.normal(size=enc.shape) + 1j * rng.normal(
+        size=enc.shape))).astype(np.complex64)
+    got = tmod.nearest_index(torch.from_numpy(s), table)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(jmod.nearest_index(s, table)))
+
+
+def test_pi4dqpsk_against_jax():
+    rng = np.random.default_rng(16)
+    bits = rng.integers(0, 2, (2, 2000)).astype(np.uint8)
+    sym = tmod.pi4dqpsk_modulate(torch.from_numpy(bits))
+    jsym = np.asarray(jmod.pi4dqpsk_modulate(bits))
+    assert sym.dtype == torch.complex64 and sym.shape == jsym.shape == (2, 1000)
+    err = np.mean(np.abs(sym.numpy().astype(np.complex128) - jsym) ** 2) / np.mean(np.abs(jsym) ** 2)
+    assert 10 * np.log10(err) <= PI4_DB
+    # a constant rotation and noise: the bits come back, equal to JAX's
+    rx = (jsym * np.exp(0.7j) + 0.05 * (rng.normal(size=jsym.shape) + 1j * rng.normal(
+        size=jsym.shape))).astype(np.complex64)
+    got = tmod.pi4dqpsk_demod(torch.from_numpy(rx)).numpy()
+    assert got.dtype == np.uint8
+    assert np.array_equal(got, np.asarray(jmod.pi4dqpsk_demod(rx)))
+    assert np.array_equal(tmod.pi4dqpsk_demod(sym).numpy(), bits)
+    with pytest.raises(ValueError, match="PAIRS"):
+        tmod.pi4dqpsk_modulate(torch.zeros(3, dtype=torch.uint8))

@@ -152,6 +152,31 @@ def test_loopback_with_interleaver(fec_name):
     assert int(diag["offset"]) == 0
 
 
+@pytest.mark.parametrize("fec_name", ["viterbi", "none"])
+def test_apsk16_round_trips_as_in_jax(jax_mods, fec_name):
+    # the 16-APSK table (ops/modulation.py apsk) through the burst link: the
+    # same bursts as the JAX modem's, and both decode the payloads of B
+    # captures with a gain, a delay, a CFO and noise
+    jpacket = jax_mods["packet"]
+    jpm = jpacket.PacketModem(jpacket.PacketConfig(payload_bits=PAYLOAD, fec=fec_name,
+                                                   modulation="apsk16"))
+    pm = _modem(fec_name, modulation="apsk16")
+    assert pm.modulation.table.tobytes() == jpm.modulation.table.tobytes()
+    rng = np.random.default_rng(5)
+    payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
+    bursts = pm.tx(torch.from_numpy(payloads)).numpy()
+    want = np.stack([np.asarray(jpm.tx(p)) for p in payloads])
+    assert evm_rms_db(bursts, want) <= EVM_DB
+    caps = np.stack([_channel(bursts[b], rng, delay=90 + 101 * b, cfo=(b - 1.5) * 2e-4,
+                              sigma=0.02) for b in range(B)])
+    bits, ok, diag = pm.rx_batch(torch.from_numpy(caps))
+    jbits, jok, jdiag = jpm.rx_batch(caps)
+    assert ok.numpy().all() and np.array_equal(bits.numpy(), payloads)
+    assert np.array_equal(np.asarray(jok), ok.numpy())
+    assert np.array_equal(np.asarray(jbits), bits.numpy())
+    assert np.array_equal(diag["offset"].numpy(), np.asarray(jdiag["offset"]))
+
+
 def test_preamble_permutation_and_config_carry_over(jax_mods):
     jpacket = jax_mods["packet"]
     jcfg = jpacket.PacketConfig(payload_bits=600, fec="turbo", preamble_cinit=0x77,
@@ -179,8 +204,8 @@ def test_unported_fec_raises(fec_name):
 def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="unknown fec"):
         _modem("bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _modem("viterbi", modulation="apsk16")
+    with pytest.raises(ValueError, match="order 16 or 32"):
+        _modem("viterbi", modulation="apsk8")
     pm = _modem("none")
     with pytest.raises(ValueError, match="B, window"):
         pm.rx_batch(np.zeros(4096, np.complex64))
