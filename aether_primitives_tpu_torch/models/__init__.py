@@ -4,11 +4,13 @@ channelizers (waterfall, PFB, STFT) and the digital down/up-converters."""
 
 from . import ber, channel, channelizer, ddc, modem, packet, sync
 from .channel import Channel, ChannelConfig
-from .sync import OfdmEqualizer
+from .sync import OfdmEqualizer, detect_preamble
 from .channelizer import (
     Channelizer, PfbChannelizer, PfbChannelizerOs, PfbSynthesizer, PfbSynthesizerOs,
+    istft, pfb_channelize, pfb_channelize_os, pfb_prototype, pfb_prototype_nyquist,
+    pfb_synthesis_taps, pfb_synthesize, pfb_synthesize_os, sharded_pfb_os, stft, welch_psd,
 )
-from .ddc import Ddc, DdcConfig, Duc, DucConfig, ddc_bank
+from .ddc import Ddc, DdcConfig, Duc, DucConfig, ddc_bank, sharded_ddc, sharded_duc
 from .modem import (
     Modem, ModemConfig, RxChain, RxChainConfig, TxChain, loopback_delay, pad_to_frames,
 )
@@ -16,7 +18,10 @@ from .packet import PacketConfig, PacketModem
 
 __all__ = ["ber", "channel", "channelizer", "ddc", "modem", "packet", "sync", "Modem",
            "ModemConfig", "TxChain", "loopback_delay", "Channel", "ChannelConfig", "OfdmEqualizer",
-           "RxChain", "RxChainConfig",
+           "detect_preamble", "RxChain", "RxChainConfig",
            "PacketConfig", "PacketModem", "Channelizer", "PfbChannelizer",
-           "PfbChannelizerOs", "PfbSynthesizer", "PfbSynthesizerOs", "Ddc",
-           "DdcConfig", "Duc", "DucConfig", "ddc_bank", "pad_to_frames"]
+           "PfbChannelizerOs", "PfbSynthesizer", "PfbSynthesizerOs", "welch_psd",
+           "pfb_channelize", "pfb_prototype", "pfb_synthesis_taps", "pfb_synthesize",
+           "pfb_channelize_os", "pfb_prototype_nyquist", "pfb_synthesize_os", "sharded_pfb_os",
+           "stft", "istft", "Ddc", "DdcConfig", "Duc", "DucConfig", "ddc_bank", "sharded_ddc",
+           "sharded_duc", "pad_to_frames"]

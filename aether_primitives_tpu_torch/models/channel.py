@@ -38,14 +38,18 @@ from ..types import as_cf32, stage_device
 
 def delay_pad(x, offset: int, total_len: int) -> torch.Tensor:
     """Place a burst at ``offset`` inside a zero capture of ``total_len``
-    samples. As the JAX package's ``dynamic_update_slice``, an offset that
-    would run the burst past the end is clamped to ``total_len - n``; a
-    burst longer than the capture raises."""
+    samples. As the JAX package's ``dynamic_update_slice``, a negative
+    offset counts from the end (``offset + total_len``), and the offset is
+    then clamped to ``[0, total_len - n]``; a burst longer than the capture
+    raises."""
     x = as_cf32(x)
     n, total_len = x.shape[-1], int(total_len)
     if n > total_len:
         raise ValueError(f"burst of {n} samples longer than the capture ({total_len})")
-    offset = min(max(int(offset), 0), total_len - n)
+    offset = int(offset)
+    if offset < 0:
+        offset += total_len
+    offset = min(max(offset, 0), total_len - n)
     cap = torch.zeros(x.shape[:-1] + (total_len,), dtype=x.dtype, device=x.device)
     cap[..., offset:offset + n] = x
     return cap

@@ -1,7 +1,7 @@
 """Packet transceiver: the burst link (PyTorch).
 
 Counterpart of ``aether_primitives_tpu/models/packet.py`` for ``fec`` in
-{"viterbi", "turbo", "none"}:
+:data:`PORTED_FECS`:
 
 TX: payload -> CRC -> multiplicative scramble -> FEC -> block interleave
     -> modulate -> [preamble | symbols]
@@ -11,13 +11,20 @@ RX: capture -> preamble acquisition -> CFO off the repeated halves ->
     descramble -> CRC verdict
 
 Everything is batched over leading axes natively: the burst offset found
-per row becomes a gather, and the decoders take the batch as their lane
-axis. ``fec="viterbi"`` decodes through the Viterbi kernel
-(:mod:`~aether_primitives_tpu_torch.ops.cuda.viterbi`, one launch per
-call), ``fec="turbo"`` through the BCJR kernel
+per row becomes a gather, and every decoder takes the whole batch in one
+call. On a CUDA device ``fec="viterbi"`` decodes through the Viterbi
+kernel (:mod:`~aether_primitives_tpu_torch.ops.cuda.viterbi`, one launch
+per call) and ``fec="turbo"`` through the BCJR kernel
 (:mod:`~aether_primitives_tpu_torch.ops.cuda.bcjr`, two launches per
-iteration) on a CUDA device; on the CPU both run their plain versions.
-The other FEC families raise :class:`NotImplementedError`.
+iteration). ``fec="ccsds"`` (RS outer, K=7 convolutional inner, an 8-row
+block or a symbol-wise circular Forney interleaver between) decodes its
+inner code windowed through the Viterbi kernel (64/48, one launch), or
+with ``rs_erasures`` through the BCJR kernel's soft output (96/64, one
+launch) so that the outer RS can erase its unreliable symbols. The
+``rs``, ``bch`` (hard or Chase-2), ``tpc``, ``ldpc`` and ``ldpc11n``
+decoders are plain PyTorch on every device, as they are XLA in the JAX
+package. On the CPU the kernels' plain versions run. ``nr_ldpc`` and
+``polar`` raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,19 +36,23 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import bch as _bch
 from ..ops import fec as _fec
+from ..ops import ldpc as _ldpc
 from ..ops import modulation as _mod
+from ..ops import rs as _rs
 from ..ops import sequence as _seq
+from ..ops import tpc as _tpc
 from ..ops import turbo as _turbo
 from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard
 from ..types import as_cf32, stage_device
 from . import sync as _sync
 
 #: FEC families the port decodes.
-PORTED_FECS = ("viterbi", "turbo", "none")
+PORTED_FECS = ("viterbi", "turbo", "none", "rs", "ccsds", "bch", "tpc", "ldpc", "ldpc11n")
 #: The JAX package's other FEC families, still to be ported (ROADMAP.md,
 #: queue 1 item 12).
-UNPORTED_FECS = ("ldpc", "ldpc11n", "nr_ldpc", "rs", "bch", "tpc", "ccsds", "polar")
+UNPORTED_FECS = ("nr_ldpc", "polar")
 
 
 def _modulation_by_name(name: str) -> _mod.Modulation:
@@ -55,12 +66,21 @@ def _modulation_by_name(name: str) -> _mod.Modulation:
     return _mod.qam(int(name[3:]))
 
 
+def _median_midpoint(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, keeping it: the mean of the two middle
+    values for an even count, as ``jnp.median`` (``torch.median`` returns
+    the lower one)."""
+    s = x.sort(dim=-1).values
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2:(n - 1) // 2 + 1] + s[..., n // 2:n // 2 + 1]) * 0.5
+
+
 @dataclass(frozen=True)
 class PacketConfig:
     """The JAX package's packet configuration, every field kept for parity.
-    Only ``fec`` in :data:`PORTED_FECS` is accepted by :class:`PacketModem`;
-    the fields of the other families (``ldpc_*``, ``rs_*``, ``bch_*``,
-    ``tpc_*``, ``ccsds_*``, ``polar_*``, ``nr_*``) are carried unused."""
+    Only ``fec`` in :data:`PORTED_FECS` is accepted by :class:`PacketModem`,
+    and a code table from a file (``ldpc_file``) is not; the fields of the
+    other families (``polar_*``, ``nr_*``) are carried unused."""
 
     payload_bits: int = 960
     modulation: str = "qpsk"
@@ -116,6 +136,17 @@ class PacketModem:
     def __init__(self, config: PacketConfig = PacketConfig(), device="cuda"):
         self.config = c = config
         self.device = stage_device(device, "PacketModem")
+        if c.ccsds_interleaver not in ("block", "conv"):
+            raise ValueError(f"unknown ccsds_interleaver {c.ccsds_interleaver!r}")
+        if c.ccsds_interleaver == "conv" and c.ccsds_interleave_rows < 1:
+            raise ValueError(
+                "ccsds_interleaver='conv' needs ccsds_interleave_rows >= 1, "
+                f"got {c.ccsds_interleave_rows}"
+            )
+        if c.polar_decoder not in ("scl", "bp"):
+            raise ValueError(
+                f"unknown polar_decoder {c.polar_decoder!r} (expected 'scl' or 'bp')"
+            )
         if c.fec in UNPORTED_FECS:
             raise NotImplementedError(
                 f"fec {c.fec!r} is not ported yet (ROADMAP.md, queue 1 item 12); "
@@ -123,11 +154,60 @@ class PacketModem:
             )
         if c.fec not in PORTED_FECS:
             raise ValueError(f"unknown fec {c.fec!r}")
+        if c.fec == "ldpc" and c.ldpc_file is not None:
+            raise NotImplementedError(
+                "ldpc_file: code tables from files (ops/code_io.py) are not ported "
+                "yet (ROADMAP.md, queue 1 item 12)"
+            )
         self.modulation = _modulation_by_name(c.modulation)
         bps = self.modulation.bits_per_symbol
         self.frame_bits = c.payload_bits + c.crc_width
         if c.fec == "viterbi":
             self.coded_bits = 2 * (self.frame_bits + _fec.DEFAULT_K - 1)
+        elif c.fec in ("ldpc", "ldpc11n"):
+            # "ldpc": the Gallager ensemble; "ldpc11n": the 802.11n n=648
+            # Z=27 rate-1/2 code through the QC decoder
+            if c.fec == "ldpc11n":
+                h, g, info = _ldpc.wifi_ldpc()
+                self._ldpc_qc = (_ldpc._WIFI_648_R12, 27)
+            else:
+                h, g, info = _ldpc.make_regular_ldpc(seed=c.ldpc_seed)
+                self._ldpc_qc = None
+            self._ldpc = (h, g, info)
+            k = g.shape[0]
+            self.ldpc_frames = -(-self.frame_bits // k)
+            self.ldpc_pad = self.ldpc_frames * k - self.frame_bits
+            self.coded_bits = self.ldpc_frames * h.shape[1]
+        elif c.fec in ("rs", "ccsds"):
+            # whole GF(2^8) symbols, then whole RS(rs_n, rs_k) codewords
+            self._rs = _rs.ReedSolomon(c.rs_n, c.rs_k)
+            frame_bytes = -(-self.frame_bits // 8)
+            self.rs_frames = -(-frame_bytes // c.rs_k)
+            self.rs_pad_bits = self.rs_frames * c.rs_k * 8 - self.frame_bits
+            rs_bits = self.rs_frames * c.rs_n * 8
+            if c.fec == "ccsds":
+                # the inner interleaver's whole rows (8-bit symbols, a
+                # multiple of the branches, for "conv"), then rate 1/2
+                rows = max(1, c.ccsds_interleave_rows)
+                if c.ccsds_interleaver == "conv":
+                    self.ccsds_pad = (-rs_bits) % (8 * rows)
+                else:
+                    self.ccsds_pad = (-rs_bits) % rows
+                self.coded_bits = 2 * (rs_bits + self.ccsds_pad + _fec.DEFAULT_K - 1)
+            else:
+                self.coded_bits = rs_bits
+        elif c.fec == "bch":
+            self._bch = _bch.BCH(c.bch_n, c.bch_t)
+            kb = self._bch.k
+            self.bch_frames = -(-self.frame_bits // kb)
+            self.bch_pad = self.bch_frames * kb - self.frame_bits
+            self.coded_bits = self.bch_frames * c.bch_n
+        elif c.fec == "tpc":
+            self._tpc = _tpc.TPC(m=c.tpc_m, p=c.tpc_p, iters=c.tpc_iters, t_component=c.tpc_t)
+            kb = self._tpc.k * self._tpc.k
+            self.tpc_frames = -(-self.frame_bits // kb)
+            self.tpc_pad = self.tpc_frames * kb - self.frame_bits
+            self.coded_bits = self.tpc_frames * self._tpc.n * self._tpc.n
         elif c.fec == "turbo":
             # [sys n | par1 n | par2 n | tail_sys 3 | tail_par 3]
             self.coded_bits = 3 * self.frame_bits + 6
@@ -162,8 +242,26 @@ class PacketModem:
             )
         frame = _fec.crc_append(bits, c.crc)
         line = _seq.scramble_multiplicative(frame, c.scrambler)
+        lead = tuple(line.shape[:-1])
+        pad = torch.nn.functional.pad
         if c.fec == "viterbi":
             coded = _fec.conv_encode(line)
+        elif c.fec in ("ldpc", "ldpc11n"):
+            padded = pad(line, (0, self.ldpc_pad)).reshape(lead + (self.ldpc_frames, -1))
+            coded = _ldpc.ldpc_encode(padded, self._ldpc[1]).reshape(lead + (-1,))
+        elif c.fec in ("rs", "ccsds"):
+            syms = _rs.bits_to_symbols(pad(line, (0, self.rs_pad_bits)))
+            cw = self._rs.encode(syms.reshape(lead + (self.rs_frames, c.rs_k)))
+            coded = _rs.symbols_to_bits(cw).reshape(lead + (-1,))
+            if c.fec == "ccsds":
+                coded = _fec.conv_encode(self._ccsds_ilv(pad(coded, (0, self.ccsds_pad))))
+        elif c.fec == "bch":
+            padded = pad(line, (0, self.bch_pad)).reshape(lead + (self.bch_frames, -1))
+            coded = self._bch.encode(padded).reshape(lead + (-1,))
+        elif c.fec == "tpc":
+            kk = self._tpc.k
+            padded = pad(line, (0, self.tpc_pad)).reshape(lead + (self.tpc_frames, kk, kk))
+            coded = self._tpc.encode(padded).reshape(lead + (-1,))
         elif c.fec == "turbo":
             coded = torch.cat(_turbo.turbo_encode(line), dim=-1)
         else:
@@ -229,13 +327,83 @@ class PacketModem:
         }
         return llr, diag
 
+    def _ccsds_ilv(self, bits):
+        """The inner interleaver, batched: the block interleaver, or
+        ("conv") the circular Forney permutation of whole 8-bit symbols,
+        each bit plane of the symbols permuted alike."""
+        c = self.config
+        if c.ccsds_interleaver == "conv":
+            syms = bits.reshape(bits.shape[:-1] + (-1, 8)).transpose(-1, -2)
+            out = _fec.conv_interleave_block(syms, c.ccsds_interleave_rows,
+                                             c.ccsds_interleave_cell)
+            return out.transpose(-1, -2).reshape(bits.shape)
+        return _fec.interleave(bits, c.ccsds_interleave_rows)
+
+    def _ccsds_dilv(self, x):
+        """Inverse of :meth:`_ccsds_ilv` (bits or LLRs)."""
+        c = self.config
+        if c.ccsds_interleaver == "conv":
+            syms = x.reshape(x.shape[:-1] + (-1, 8)).transpose(-1, -2)
+            out = _fec.conv_deinterleave_block(syms, c.ccsds_interleave_rows,
+                                               c.ccsds_interleave_cell)
+            return out.transpose(-1, -2).reshape(x.shape)
+        return _fec.deinterleave(x, c.ccsds_interleave_rows)
+
+    def _decode_rs(self, llr):
+        """``rs`` and ``ccsds``: the inner decode (``ccsds``), then the RS
+        codewords, with erasures where a symbol's weakest bit falls below
+        ``rs_erasure_threshold`` times its codeword's median."""
+        c = self.config
+        lead = tuple(llr.shape[:-1])
+        if c.fec == "ccsds":
+            rs_len = self.rs_frames * c.rs_n * 8
+            if c.rs_erasures:
+                inner = _fec.conv_decode_soft(llr, window=96, guard=64)
+                llr = self._ccsds_dilv(inner)[..., :rs_len]
+                hard = (llr < 0).to(torch.uint8)
+            else:
+                inner = _fec.viterbi_decode(llr, window=64, guard=48)
+                hard = self._ccsds_dilv(inner)[..., :rs_len]
+                llr = _fec.hard_to_llr(hard)
+        else:
+            hard = (llr < 0).to(torch.uint8)
+        syms = _rs.bits_to_symbols(hard).reshape(lead + (self.rs_frames, c.rs_n))
+        if c.rs_erasures:
+            rel = llr.abs().reshape(lead + (self.rs_frames, c.rs_n, 8)).amin(dim=-1)
+            erased = rel < c.rs_erasure_threshold * _median_midpoint(rel)
+            dec, _ok, _ = self._rs.decode_erasures(syms, erased)
+        else:
+            dec, _ok, _ = self._rs.decode(syms)
+        return _rs.symbols_to_bits(dec).reshape(lead + (-1,))[..., : self.frame_bits]
+
     def _decode_llr(self, llr):
         """Coded-bit LLRs ``[..., coded_bits]`` -> line bits ``[...,
-        frame_bits]`` (uint8), batched over the leading axes."""
+        frame_bits]`` (uint8), batched over the leading axes: one decoder
+        call for the whole batch."""
         c = self.config
+        lead = tuple(llr.shape[:-1])
         if c.fec == "viterbi":
             return _fec.viterbi_decode(llr)
-        if c.fec == "turbo":
+        if c.fec in ("rs", "ccsds"):
+            return self._decode_rs(llr)
+        if c.fec in ("ldpc", "ldpc11n"):
+            h, _g, info = self._ldpc
+            frames = llr.reshape(lead + (self.ldpc_frames, -1))
+            if self._ldpc_qc is not None:
+                hard, _ok = _ldpc.qc_ldpc_decode(frames, *self._ldpc_qc, iters=30)
+            else:
+                hard, _ok = _ldpc.ldpc_decode(frames, h, iters=30)
+            line = _ldpc.extract_info(hard, info)
+        elif c.fec == "bch":
+            frames = llr.reshape(lead + (self.bch_frames, -1))
+            if c.bch_chase > 0:
+                line, _ok = self._bch.decode_soft(frames, p=c.bch_chase)
+            else:
+                line, _ok, _ = self._bch.decode((frames < 0).to(torch.uint8))
+        elif c.fec == "tpc":
+            nn = self._tpc.n
+            line, _ok = self._tpc.decode(llr.reshape(lead + (self.tpc_frames, nn, nn)))
+        elif c.fec == "turbo":
             nb = self.frame_bits
             line, _llr = _turbo.turbo_decode(
                 llr[..., :nb],
@@ -248,7 +416,9 @@ class PacketModem:
                 guard=16,
             )
             return line
-        return (llr < 0).to(torch.uint8)
+        else:
+            return (llr < 0).to(torch.uint8)
+        return line.reshape(lead + (-1,))[..., : self.frame_bits]
 
     def _rx_tail(self, line):
         """Line bits -> descramble -> CRC verdict."""

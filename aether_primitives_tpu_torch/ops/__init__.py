@@ -1,6 +1,8 @@
 """DSP ops on complex64 sample tensors: FFT, modulation, FIR and FIR
 design, the NCO mixer, vector ops, sequences, AWGN, resampling, FEC
-(convolutional/Viterbi, CRC, turbo), and the hand-written CUDA kernels."""
+(convolutional/Viterbi and soft-output BCJR, CRC, interleavers, turbo,
+Reed-Solomon, BCH, turbo product and LDPC codes), and the hand-written
+CUDA kernels."""
 
 from . import fft
 from . import modulation
@@ -8,6 +10,10 @@ from . import fir
 from . import sequence
 from . import cuda
 from . import fec
+from . import ldpc
+from . import rs
+from . import bch
+from . import tpc
 from . import turbo
 from . import firdes
 from . import frontend
@@ -15,5 +21,5 @@ from . import vecops
 from . import noise
 from . import sampling
 
-__all__ = ["fft", "modulation", "fir", "sequence", "cuda", "fec", "turbo",
-           "firdes", "frontend", "vecops", "noise", "sampling"]
+__all__ = ["fft", "modulation", "fir", "sequence", "cuda", "fec", "ldpc", "rs", "bch", "tpc",
+           "turbo", "firdes", "frontend", "vecops", "noise", "sampling"]

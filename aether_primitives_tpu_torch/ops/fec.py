@@ -11,11 +11,24 @@ Counterpart of ``aether_primitives_tpu/ops/fec.py``, burst-link subset:
   hand-written kernel, on a CPU tensor its plain version. The windowed
   spans carry the JAX package's boundary-forcing pad LLRs, so both modes
   are bit-identical to its scans.
+- :func:`conv_decode_soft`: soft-output max-log BCJR over the
+  feedforward trellis, batched natively. The full block (``window=0``) is
+  a forward/backward recursion over ``[B, S]`` metrics; the windowed form
+  builds ``[Lw, B * W]`` spans and decodes them in one call of
+  :func:`~.cuda.bcjr.bcjr_windowed_llr` with the trellis's
+  ``_conv_soft_coeffs`` tables (the kernel's ``generic`` instance on a
+  CUDA tensor, its plain version on a CPU tensor).
 - :data:`CRC_PARAMS`, :func:`crc_bits`, :func:`crc_append`,
   :func:`crc_check`: the CRC of a fixed-length message is affine over
   GF(2), so it is one float32 matmul against a host-built ``[width, n]``
   matrix (exact: every sum is an integer below 2^24).
-- :func:`interleave` / :func:`deinterleave`: the block interleaver.
+  :func:`crc_compute` and :func:`crc32` take any register on a flat bit
+  stream: a table-driven byte loop on the host.
+- :func:`interleave` / :func:`deinterleave`: the block interleaver;
+  :func:`conv_interleave` / :func:`conv_deinterleave` (streaming Forney,
+  with state) and :func:`conv_interleave_block` /
+  :func:`conv_deinterleave_block` (circular, batched): one gather each.
+- :func:`hard_to_llr`.
 - The trellis tables ``_trellis``, ``_trellis_fwd`` and
   ``_conv_soft_coeffs`` are the JAX package's, copied verbatim (numpy).
 
@@ -30,6 +43,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .cuda import bcjr as _bk
 from .cuda import viterbi as _vk
 
 DEFAULT_POLYS = (0o171, 0o133)
@@ -240,6 +254,140 @@ def _conv_soft_coeffs(polys: Tuple[int, ...], k: int):
     )
 
 
+def conv_soft_spans(llr, polys, k: int, terminated: bool, window: int, guard: int):
+    """The windowed soft decode's spans of ``llr [B, T * 2]``: the two LLR
+    streams as ``[Lw, B * W]`` float32 (contiguous), ``Lw = window + 2
+    guard``, ``W = ceil(T / window)`` windows, column ``b * W + w``. The JAX
+    package's window construction: pads of 1e6 before the stream (the known
+    state-0 history) and after it when terminated (the flush), else
+    zeros."""
+    b_sz = llr.shape[0]
+    n = len(polys)
+    t_steps = llr.shape[-1] // n
+    sym = llr.reshape(b_sz, t_steps, n)
+    n_win = -(-t_steps // window)
+    t_pad = n_win * window
+    lw = window + 2 * guard
+    tail = guard + (t_pad - t_steps)
+    symp = torch.cat([
+        torch.full((b_sz, guard, n), 1e6, dtype=torch.float32, device=llr.device),
+        sym,
+        torch.full((b_sz, tail, n), 1e6 if terminated else 0.0,
+                   dtype=torch.float32, device=llr.device),
+    ], dim=1)  # [B, t_pad + 2 guard, n]
+    spans = symp.unfold(1, lw, window)  # [B, W, n, Lw]
+    spans = spans.permute(2, 3, 0, 1).reshape(n, lw, b_sz * n_win)
+    return spans[0].contiguous(), spans[1].contiguous()
+
+
+def _conv_soft_windowed(llr, polys, k: int, terminated: bool, window: int,
+                        guard: int, backend: str) -> torch.Tensor:
+    """Windowed max-log BCJR, batched: ``llr [B, T * 2]`` -> a-posteriori
+    LLRs ``[B, T]``: the spans of :func:`conv_soft_spans` through one call
+    of the BCJR kernel (or its plain version), uniform initial metrics,
+    each window's core ``window`` LLRs kept."""
+    tables = _conv_soft_coeffs(polys, k)
+    b_sz = llr.shape[0]
+    t_steps = llr.shape[-1] // len(polys)
+    n_win = -(-t_steps // window)
+    lw = window + 2 * guard
+    l0, l1 = conv_soft_spans(llr, polys, k, terminated, window, guard)
+    decode = _bk.bcjr_windowed_llr if backend == "auto" else _bk.bcjr_windowed_llr_reference
+    out = decode(l0, l1, lw, tables)
+    core = out[guard:guard + window].reshape(window, b_sz, n_win)
+    return core.permute(1, 2, 0).reshape(b_sz, n_win * window)[:, :t_steps]
+
+
+def _conv_soft_full(llr, polys, k: int, terminated: bool) -> torch.Tensor:
+    """Exact max-log BCJR over the whole block, batched: ``llr [B, T * n]``
+    -> ``[B, T]``. The JAX package's recursion with the batch on the last
+    axis: state 0 pinned (0 against -1e9) at the start, and at the end when
+    terminated; the forward step is its scatter-max onto a -1e9 floor."""
+    nxt, sgn = _trellis_fwd(polys, k)
+    dev = llr.device
+    s_count = nxt.shape[0]
+    b_sz = llr.shape[0]
+    n = len(polys)
+    t_steps = llr.shape[-1] // n
+    sym = llr.reshape(b_sz, t_steps, n).permute(1, 2, 0)  # [T, n, B]
+    sgn_t = torch.from_numpy(sgn).to(dev)  # [S, 2, n]
+    # gamma[t, s, u, b] = 0.5 * sum_j sgn[s, u, j] * llr[t, j, b]
+    gamma = 0.5 * torch.einsum("sun,tnb->tsub", sgn_t, sym)
+    ns = np.arange(s_count)
+    # the two transitions into next state s': (s' >> 1, u) and ((s' >> 1) | half, u),
+    # u = s' & 1, in the order the scatter visits them
+    pred = [torch.from_numpy((ns >> 1) | (j * (s_count >> 1))).to(dev) for j in (0, 1)]
+    u_in = torch.from_numpy(ns & 1).to(dev)
+    nxt_t = [torch.from_numpy(nxt[:, u].astype(np.int64)).to(dev) for u in (0, 1)]
+    floor = torch.full((s_count, b_sz), -1e9, dtype=torch.float32, device=dev)
+    pinned = floor.clone()
+    pinned[0] = 0.0
+    alphas = torch.empty((t_steps, s_count, b_sz), dtype=torch.float32, device=dev)
+    alpha = pinned
+    for t in range(t_steps):
+        alphas[t] = alpha
+        g = gamma[t]  # [S, 2, B]
+        cand = [alpha[pred[j]] + g[pred[j], u_in] for j in (0, 1)]
+        a = torch.maximum(floor, torch.maximum(cand[0], cand[1]))
+        alpha = a - a.amax(dim=0, keepdim=True)
+    betas = torch.empty_like(alphas)
+    beta = pinned.clone() if terminated else torch.zeros_like(pinned)
+    for t in range(t_steps - 1, -1, -1):
+        betas[t] = beta
+        g = gamma[t]
+        b = torch.maximum(g[:, 0] + beta[nxt_t[0]], g[:, 1] + beta[nxt_t[1]])
+        beta = b - b.amax(dim=0, keepdim=True)
+    m = [((alphas + gamma[:, :, u]) + betas[:, nxt_t[u]]).amax(dim=1) for u in (0, 1)]
+    return (m[0] - m[1]).T  # [B, T], positive = bit 0
+
+
+def conv_decode_soft(llrs, polys: Sequence[int] = DEFAULT_POLYS,
+                     constraint: int = DEFAULT_K, terminated: bool = True,
+                     window: int = 0, guard: int = 64,
+                     backend: str = "auto") -> torch.Tensor:
+    """Soft-output decode of a rate-``1/n`` convolutional code: per-bit
+    a-posteriori LLRs by max-log BCJR over the feedforward trellis.
+
+    Same input contract as :func:`viterbi_decode` (``[..., n_sym * n]``
+    channel LLRs, positive = bit 0); returns float32 ``[..., n_sym -
+    (K-1)]`` when ``terminated`` (flush positions stripped), else ``[...,
+    n_sym]``, whose signs are the decoded bits and whose magnitudes are
+    per-bit reliabilities. Batched over leading axes natively.
+
+    ``window = 0``: the exact recursion over the whole block (plain
+    PyTorch on the tensor's device). ``window > 0``: the windowed form of
+    rate-1/2 codes (other rates raise ValueError), every window decoded
+    from uniform metrics with ``guard`` steps on both sides, in one call of
+    the BCJR kernel with the trellis's tables on a CUDA tensor (``backend
+    "auto"``; its ``generic`` instance) or its plain version (on a CPU
+    tensor, or with ``backend="reference"``).
+    """
+    _check_backend(backend)
+    llr = torch.as_tensor(llrs)
+    if llr.dtype != torch.float32:
+        llr = llr.to(torch.float32)
+    polys = tuple(int(p) for p in polys)
+    n = len(polys)
+    k = int(constraint)
+    if llr.shape[-1] % n:
+        raise ValueError(f"LLR count must be a multiple of n = {n}")
+    lead = tuple(llr.shape[:-1])
+    flat = llr.reshape(-1, llr.shape[-1])
+    if window:
+        out = _conv_soft_windowed(flat, polys, k, bool(terminated), int(window),
+                                  int(guard), backend)
+    else:
+        out = _conv_soft_full(flat, polys, k, bool(terminated))
+    if terminated:
+        out = out[:, : out.shape[-1] - (k - 1)]
+    return out.reshape(lead + out.shape[-1:])
+
+
+def hard_to_llr(bits) -> torch.Tensor:
+    """Hard bits {0, 1} -> float32 LLRs in the convention (+1 = strong 0)."""
+    return 1.0 - 2.0 * torch.as_tensor(bits).to(torch.float32)
+
+
 #: Rocksoft parameter sets: (poly, width, init, refin, refout, xorout).
 CRC_PARAMS = {
     "crc32": (0x04C11DB7, 32, 0xFFFFFFFF, True, True, 0xFFFFFFFF),  # ISO-HDLC/zlib
@@ -335,3 +483,133 @@ def deinterleave(x, rows: int) -> torch.Tensor:
         raise ValueError(f"length {n} not divisible by rows {rows}")
     m = x.reshape(x.shape[:-1] + (n // rows, rows))
     return m.transpose(-1, -2).reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_table(poly: int, width: int) -> Tuple[int, ...]:
+    """The MSB-first register's byte table: ``table[v]`` is the register
+    after shifting in 8 zero bits from ``v << (width - 8)``."""
+    mask, top = (1 << width) - 1, 1 << (width - 1)
+    table = []
+    for v in range(256):
+        reg = v << (width - 8)
+        for _ in range(8):
+            reg = ((reg << 1) ^ poly) & mask if reg & top else (reg << 1) & mask
+        table.append(reg)
+    return tuple(table)
+
+
+def crc_compute(bits, poly: int, width: int, init: int = 0, xorout: int = 0,
+                reflect_out: bool = False, block: int = 512) -> torch.Tensor:
+    """CRC of a flat MSB-first bit stream: the ``width`` check bits,
+    MSB-first after ``reflect_out`` and ``xorout``, uint8 on the stream's
+    device (the JAX package's ``crc_compute``, bit for bit).
+
+    The register ``crc' = (crc << 1) ^ ((msb ^ b) ? poly : 0)`` runs on the
+    host: bit by bit up to a byte boundary, then a byte a step through a
+    256-entry table (bit by bit throughout for ``width < 8``). ``block``
+    is the JAX package's block size, accepted and unused."""
+    del block
+    x = torch.as_tensor(bits)
+    if x.ndim != 1:
+        raise ValueError("crc_compute takes a flat bit stream")
+    b = (x.detach().cpu().numpy().astype(np.int64) % 2).astype(np.uint8)
+    poly, width = int(poly), int(width)
+    mask, top = (1 << width) - 1, 1 << (width - 1)
+    reg = int(init) & mask
+    head = b.size % 8 if width >= 8 else b.size
+    for bit in b[:head].tolist():
+        fb = ((reg & top) != 0) ^ bit
+        reg = ((reg << 1) & mask) ^ (poly & mask if fb else 0)
+    if head < b.size:
+        table = _crc_table(poly & mask, width)
+        shift = width - 8
+        for byte in np.packbits(b[head:]).tolist():  # MSB-first bytes
+            reg = ((reg << 8) & mask) ^ table[((reg >> shift) ^ byte) & 0xFF]
+    out = _msb_bits(reg, width)
+    if reflect_out:
+        out = out[::-1]
+    if xorout:
+        out = out ^ _msb_bits(int(xorout), width)
+    return torch.from_numpy(np.ascontiguousarray(out, np.uint8)).to(x.device)
+
+
+def crc32(data: bytes) -> int:
+    """CRC-32/ISO-HDLC of a byte string, equal to ``zlib.crc32``: bytes
+    unpacked LSB-first (``refin``), the register MSB-first, the output
+    reflected and inverted (``refout``, ``xorout``)."""
+    poly, width, init, _refin, refout, xorout = CRC_PARAMS["crc32"]
+    arr = np.frombuffer(bytes(data), np.uint8)
+    bits = np.unpackbits(arr, bitorder="little")
+    out = crc_compute(torch.from_numpy(bits), poly, width, init, xorout, refout).numpy()
+    return int(np.packbits(out[::-1], bitorder="little").view(np.uint32)[0])
+
+
+def _class_gather(x2: torch.Tensor, starts, length: int) -> torch.Tensor:
+    """``out[..., j, r] = x2[..., j, (starts[j] + r) mod L]`` for the class
+    rows ``x2 [..., I, L]``: one gather."""
+    idx = (np.asarray(starts, np.int64)[:, None] + np.arange(length)) % x2.shape[-1]
+    idx_t = torch.from_numpy(idx).to(x2.device)
+    return x2.gather(-1, idx_t.expand(x2.shape[:-2] + idx_t.shape))
+
+
+def _conv_ilv(x, branches: int, cell: int, state, deinter: bool):
+    x = torch.as_tensor(x)
+    if x.ndim != 1:
+        raise ValueError("conv_(de)interleave takes a flat stream")
+    i, m = int(branches), int(cell)
+    if x.shape[0] % i:
+        raise ValueError(
+            f"stream length {x.shape[0]} not divisible by branches {i} "
+            "(pad the final chunk)"
+        )
+    depth = (i - 1) * m * i
+    if state is None:
+        state = torch.zeros(depth, dtype=x.dtype, device=x.device)
+    else:
+        state = torch.as_tensor(state).to(device=x.device, dtype=x.dtype)
+    ext = torch.cat([state, x])
+    ext2 = ext.reshape(-1, i).T  # [I, (depth + T) / I]; class j = row j
+    rows, d0 = x.shape[0] // i, depth // i
+    starts = [d0 - ((i - 1 - j) if deinter else j) * m for j in range(i)]
+    y = _class_gather(ext2, starts, rows).T.reshape(-1)
+    return y, ext[ext.shape[0] - depth:]
+
+
+def conv_interleave(x, branches: int = 12, cell: int = 17, state=None):
+    """Convolutional (Forney) interleaver on a flat stream: branch ``j``
+    (positions ``t = j mod I``) delays by ``j * cell * I`` samples.
+    ``state``: the ``(I-1) * cell * I``-sample history (None = zeros).
+    Returns ``(y, new_state)``; bits or LLRs, any dtype."""
+    return _conv_ilv(x, branches, cell, state, deinter=False)
+
+
+def conv_deinterleave(x, branches: int = 12, cell: int = 17, state=None):
+    """Inverse of :func:`conv_interleave`: branch ``j`` delays by
+    ``(I-1-j) * cell * I`` samples, so the cascade is a pure
+    ``(I-1) * cell * I``-sample delay. Returns ``(y, new_state)``."""
+    return _conv_ilv(x, branches, cell, state, deinter=True)
+
+
+def _conv_ilv_block(x, branches: int, cell: int, sign: int) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    n = x.shape[-1]
+    i, m = int(branches), int(cell)
+    if n % i:
+        raise ValueError(f"length {n} not divisible by branches {i}")
+    x2 = x.reshape(x.shape[:-1] + (n // i, i)).transpose(-1, -2)  # [..., I, n / I]
+    y2 = _class_gather(x2, [-sign * j * m for j in range(i)], n // i)
+    return y2.transpose(-1, -2).reshape(x.shape)
+
+
+def conv_interleave_block(x, branches: int = 12, cell: int = 17) -> torch.Tensor:
+    """Circular convolutional interleaver for framed data, batched over
+    leading axes: class ``j`` of ``[..., n]`` rolls by ``j * cell`` within
+    its ``n / I`` members (a permutation; ``branches`` must divide ``n``).
+    Invert with :func:`conv_deinterleave_block`."""
+    return _conv_ilv_block(x, branches, cell, 1)
+
+
+def conv_deinterleave_block(x, branches: int = 12, cell: int = 17) -> torch.Tensor:
+    """Inverse permutation of :func:`conv_interleave_block`."""
+    return _conv_ilv_block(x, branches, cell, -1)

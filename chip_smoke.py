@@ -11,7 +11,11 @@ It drives the port's paths through their hand-written kernels:
 - the batched burst link (``PacketModem(PacketConfig(payload_bits=600,
   fec=...), device="cuda").rx_batch``) on 256 captures of 16,384 samples,
   through the Viterbi kernel (``csrc/viterbi.cu``, ``fec="viterbi"``) and
-  the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``);
+  the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``); and the
+  families ``BURST_FAMILIES``: ``ccsds`` (RS outer, K=7 inner through the
+  windowed Viterbi kernel, or with ``rs_erasures`` through the BCJR
+  kernel's generic instance), ``rs``, ``bch``, ``tpc``, ``ldpc`` and
+  ``ldpc11n`` (plain PyTorch decoders);
 - the wideband channelizer (``PfbChannelizerOs(2048, os=2,
   taps_per_branch=16, device="cuda")`` feeding ``PfbSynthesizerOs`` with the
   same configuration) on 4,194,304-sample blocks, with a real and a complex
@@ -68,17 +72,22 @@ in twenty-four phases:
    5, 7 and 9, rates 1/2 and 1/3; for the BCJR kernel also Lw 1, 2, 95,
    97, N 1, 77, 1,000, 2,570, exact ties with -0.0, random tables of every
    state count it takes, and the meet instance at both its CTA widths (16
-   and 8 columns);
+   and 8 columns); and the ``ccsds`` link's inner code at its shapes: the
+   windowed Viterbi 64/48 and the BCJR kernel's generic instance on the K=7
+   tables at Lw 224 (the windowed soft decode 96/64), ``torch.equal``;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
-   numpy channel from a fixed seed, decoded by ``rx_batch`` for both FECs;
-   every payload exact and CRC-ok, exactly 1 Viterbi and 16 BCJR launches
-   per call, and the first 8 bursts equal to the port's CPU run;
+   numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
+   turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
+   exactly 1 Viterbi and 16 BCJR launches per call (``ccsds``: 1 Viterbi;
+   with erasures 1 BCJR; the other families none), and the first 8 bursts
+   equal to the port's CPU run;
 9. CUDA-event timings of each burst kernel (and the BCJR kernel at K=7)
-   against its plain twin and of ``rx_batch`` end to end, the Viterbi and
-   BCJR kernels' device times (``torch.profiler``) beside its chain floor (an
-   estimate from assumed operation counts, on a line of its own), and a
+   against its plain twin and of ``rx_batch`` end to end for every family,
+   the Viterbi and BCJR kernels' device times (``torch.profiler``) beside
+   its chain floor (an estimate from assumed operation counts, on a line of
+   its own) and at the ``ccsds`` shapes beside their bounds, and a
    ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
-   and the rest;
+   and the rest, with the device's idle share;
 10. every layout of the PFB fold kernel against its plain twin, bit for
     bit (``torch.equal``), at the channelizer's shapes: the planes layout
     (the TPU wrapper's), the complex64 analysis from a step's two sources
@@ -224,6 +233,20 @@ LINK_DB = -120.0  # the link: card vs CPU run, and the RX kernel vs its plain tw
 VITERBI_TIE_CODES = {3: (0o5, 0o7), 5: (0o23, 0o35), 7: (0o171, 0o133), 9: (0o561, 0o753)}
 F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (4, 192, True), (4, 3072, True),
                  (5, 30, False))
+# the burst families beside viterbi and turbo: (label, PacketConfig fields,
+# the kernel launches an rx_batch makes)
+BURST_FAMILIES = (
+    ("rs", {"fec": "rs"}, {}),
+    ("ccsds", {"fec": "ccsds"}, {"viterbi": 1}),
+    ("ccsds conv", {"fec": "ccsds", "ccsds_interleaver": "conv"}, {"viterbi": 1}),
+    ("ccsds erasures", {"fec": "ccsds", "rs_erasures": True}, {"bcjr": 1}),
+    ("bch", {"fec": "bch"}, {}),
+    ("bch chase 4", {"fec": "bch", "bch_chase": 4}, {}),
+    ("tpc", {"fec": "tpc"}, {}),
+    ("ldpc", {"fec": "ldpc"}, {}),
+    ("ldpc11n", {"fec": "ldpc11n"}, {}),
+)
+CCSDS_VITERBI, CCSDS_SOFT = (64, 48), (96, 64)  # the ccsds inner decoders' (window, guard)
 
 
 def fail(msg: str) -> None:
@@ -648,12 +671,45 @@ def main() -> None:
               f"torch.equal {torch.equal(got, want)}")
         if not torch.equal(got, want):
             fail(f"bcjr meet instance at {cols} columns a CTA disagrees with the twin")
+    # the ccsds link's inner code at its shapes: the RS(255, 223) codeword's
+    # 2,040 bits and the flush, rate 1/2 -> [256, 4,092] LLRs
+    ccsds_pm = PacketModem(PacketConfig(payload_bits=PAYLOAD, fec="ccsds"), device="cuda")
+    llr_c = coded_llrs(K7, BURSTS, ccsds_pm.coded_bits // 2 - 6)
+    got = fec.viterbi_decode(llr_c, window=CCSDS_VITERBI[0], guard=CCSDS_VITERBI[1])
+    plain = fec.viterbi_decode(llr_c, window=CCSDS_VITERBI[0], guard=CCSDS_VITERBI[1],
+                               backend="reference")
+    torch.cuda.synchronize()
+    vit_err = max(vit_err, int((got.int() - plain.int()).abs().max()))
+    print(f"compare viterbi ccsds K=7 r1/2 windowed {CCSDS_VITERBI[0]}/{CCSDS_VITERBI[1]} "
+          f"{tuple(llr_c.shape)}: kernel vs plain torch.equal {torch.equal(got, plain)}")
+    if not torch.equal(got, plain):
+        fail("viterbi at the ccsds shape: kernel and plain twin disagree")
+    k7_tables = fec._conv_soft_coeffs(*K7)
+    lw_c = CCSDS_SOFT[0] + 2 * CCSDS_SOFT[1]
+    spans_c = fec.conv_soft_spans(llr_c, K7[0], 7, True, *CCSDS_SOFT)
+    got = bk.bcjr_windowed_llr(*spans_c, lw_c, k7_tables)
+    plain = bk.bcjr_windowed_llr_reference(*spans_c, lw_c, k7_tables)
+    soft = fec.conv_decode_soft(llr_c, window=CCSDS_SOFT[0], guard=CCSDS_SOFT[1])
+    soft_plain = fec.conv_decode_soft(llr_c, window=CCSDS_SOFT[0], guard=CCSDS_SOFT[1],
+                                      backend="reference")
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    bcjr_err = max(bcjr_err, err)
+    print(f"compare bcjr ccsds K=7 conv Lw {lw_c} x N {spans_c[0].shape[1]} "
+          f"({bk.kernel_plan(k7_tables, lw_c)}): kernel vs plain torch.equal "
+          f"{torch.equal(got, plain)}, max |diff| {err}; conv_decode_soft "
+          f"{CCSDS_SOFT[0]}/{CCSDS_SOFT[1]} {tuple(soft.shape)} kernel vs plain torch.equal "
+          f"{torch.equal(soft, soft_plain)}")
+    if not (torch.equal(got, plain) and torch.equal(soft, soft_plain)):
+        fail("bcjr at the ccsds shape: kernel and plain twin disagree")
     sys.stdout.flush()
 
     # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
-    burst_launches, modems, caps_dev, burst_set = {}, {}, {}, {}
-    for fec_name in ("viterbi", "turbo"):
-        cfg = PacketConfig(payload_bits=PAYLOAD, fec=fec_name)
+    burst_counts, modems, caps_dev, burst_set = {}, {}, {}, {}
+    for label, fields, launches in ((("viterbi", {"fec": "viterbi"}, {"viterbi": 1}),
+                                     ("turbo", {"fec": "turbo"}, {"bcjr": 16}))
+                                    + BURST_FAMILIES):
+        cfg = PacketConfig(payload_bits=PAYLOAD, **fields)
         pm = PacketModem(cfg, device="cuda")
         payloads, caps = burst_captures(pm)
         x = torch.from_numpy(caps).cuda()
@@ -662,29 +718,29 @@ def main() -> None:
         bits_b, ok_b, diag_b = pm.rx_batch(x)
         torch.cuda.synchronize()
         counts = read_counts()
-        want = ({**NO_LAUNCHES, "viterbi": 1} if fec_name == "viterbi"
-                else {**NO_LAUNCHES, "bcjr": 16})
+        want = {**NO_LAUNCHES, **launches}
         exact = (bits_b.cpu().numpy() == payloads).all(axis=1)
         ok = ok_b.cpu().numpy()
         host_bits, host_ok, host_diag = PacketModem(cfg, device="cpu").rx_batch(
             torch.from_numpy(caps[:8]))
         same_host = (np.array_equal(host_bits.numpy(), bits_b[:8].cpu().numpy())
+                     and np.array_equal(host_ok.numpy(), ok[:8])
                      and np.array_equal(host_diag["offset"].numpy(),
                                         diag_b["offset"][:8].cpu().numpy()))
-        print(f"burst path {fec_name}: rx_batch {tuple(x.shape)} -> payloads exact "
-              f"{int(exact.sum())}/{BURSTS}, crc ok {int(ok.sum())}/{BURSTS}, launches "
-              f"{counts} (need {want}), first 8 equal to the CPU run {same_host}, "
+        print(f"burst path {label}: rx_batch {tuple(x.shape)} ({pm.coded_bits} coded bits) -> "
+              f"payloads exact {int(exact.sum())}/{BURSTS}, crc ok {int(ok.sum())}/{BURSTS}, "
+              f"launches {counts} (need {want}), first 8 equal to the CPU run {same_host}, "
               f"noise_var median {float(diag_b['noise_var'].median()):.3e}", flush=True)
         if not (exact.all() and ok.all()) or counts != want or not same_host:
-            fail(f"burst path {fec_name}: payloads/CRC/launches/CPU agreement wrong")
-        burst_launches[fec_name] = counts[fec_name if fec_name == "viterbi" else "bcjr"]
-        modems[fec_name], caps_dev[fec_name] = pm, x
-        burst_set[fec_name] = (pm, x, payloads)
+            fail(f"burst path {label}: payloads/CRC/launches/CPU agreement wrong")
+        burst_counts[label] = counts
+        modems[label], caps_dev[label] = pm, x
+        if label in ("viterbi", "turbo"):
+            burst_set[label] = (pm, x, payloads)
 
     # ---- phase 9: burst timings --------------------------------------------
     sym_v = llr_v.reshape(BURSTS, -1, 2).contiguous()
     lw_v = sym_v.shape[1]
-    k7_tables = fec._conv_soft_coeffs(*K7)
     kernel_calls = {
         "viterbi": (lambda: vk.viterbi_lanes(sym_v, lw_v, 2, K7[0], 7, True, True),
                     lambda: vk.viterbi_lanes_reference(sym_v, lw_v, 2, K7[0], 7, True, True)),
@@ -742,6 +798,34 @@ def main() -> None:
           f"(assumed) at {clock_hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm); the kernel's "
           f"measured device time is {bcjr_dev / chain_floor:.1f}x it [{card}]")
 
+    # the ccsds inner decoders' launches at their path shapes: CUDA events of
+    # the windowed calls, the kernels' device time, the bounds by the same
+    # rules (the Viterbi spans: 32 windows x 256 of 160 steps)
+    n_vit = BURSTS * (-(-(llr_c.shape[1] // 2) // CCSDS_VITERBI[0]))
+    lw_cv = CCSDS_VITERBI[0] + 2 * CCSDS_VITERBI[1]
+    ccsds_runs = {
+        "viterbi": lambda: fec.viterbi_decode(llr_c, window=CCSDS_VITERBI[0],
+                                              guard=CCSDS_VITERBI[1]),
+        "bcjr": lambda: bk.bcjr_windowed_llr(*spans_c, lw_c, k7_tables),
+    }
+    ccsds_bounds = {
+        "viterbi": bound(n_vit * lw_cv * 64 * (4 * 2 + 3), n_vit * lw_cv * (2 * 4 + 1)),
+        "bcjr": bound(lw_c * spans_c[0].shape[1] * (34 * 64 + 1),
+                      3 * lw_c * spans_c[0].shape[1] * 4),
+    }
+    ccsds_t = {}
+    for kernel, run in ccsds_runs.items():
+        call_ms = float(np.median([time_cuda(run, 10) for _ in range(3)]))
+        launch_ms = kernel_device_ms(run, f"{kernel}_kernel", calls=10)
+        ccsds_t[kernel] = {"call_ms": call_ms, "device_ms": launch_ms}
+        shape = (f"{n_vit} spans x {lw_cv} steps" if kernel == "viterbi"
+                 else f"Lw {lw_c} x N {spans_c[0].shape[1]}, K=7 (S 64), instance "
+                      f"{bk.kernel_plan(k7_tables, lw_c)[0]}")
+        print(f"time: {kernel} at the ccsds shape ({shape}): device {launch_ms:.5f} ms a launch "
+              f"(torch.profiler, mean over 10 launches), the call {call_ms:.5f} ms (CUDA "
+              f"events, median of 3 runs of 10 calls); bound {ccsds_bounds[kernel]['bound_ms']:.5f}"
+              f" ms by {ccsds_bounds[kernel]['bound_by']} [{card}]")
+
     e2e = {}
     for fec_name, pm in modems.items():
         x = caps_dev[fec_name]
@@ -787,20 +871,24 @@ def main() -> None:
             "route": "cuda",
             "source": "aether_primitives_tpu_torch/csrc/viterbi.cu",
             "replaces": "aether_primitives_tpu/ops/pallas/viterbi.py:64",
-            "launches": burst_launches["viterbi"],
+            "launches": burst_counts["viterbi"]["viterbi"],
             "max_abs_err": vit_err,
             "ms": kt["viterbi"]["kernel"],
             "plain_ms": kt["viterbi"]["plain"],
             **vit_bound,
             "library_ms": None,
             "device_ms": vit_dev,
+            "ccsds_launches": burst_counts["ccsds"]["viterbi"],
+            "ccsds_ms": ccsds_t["viterbi"]["device_ms"],
+            "ccsds_call_ms": ccsds_t["viterbi"]["call_ms"],
+            "ccsds_bound_ms": ccsds_bounds["viterbi"]["bound_ms"],
         },
         {
             "name": "bcjr",
             "route": "cuda",
             "source": "aether_primitives_tpu_torch/csrc/bcjr.cu",
             "replaces": "aether_primitives_tpu/ops/pallas/bcjr.py:37",
-            "launches": burst_launches["turbo"],
+            "launches": burst_counts["turbo"]["bcjr"],
             "max_abs_err": bcjr_err,
             "ms": kt["bcjr"]["kernel"],
             "plain_ms": kt["bcjr"]["plain"],
@@ -810,6 +898,11 @@ def main() -> None:
             "instance": bk.kernel_plan(None, lw_t)[0],
             "k7_ms": kt["bcjr K=7 (S 64, generic instance)"]["kernel"],
             "k7_device_ms": k7_dev,
+            "ccsds_launches": burst_counts["ccsds erasures"]["bcjr"],
+            "ccsds_ms": ccsds_t["bcjr"]["device_ms"],
+            "ccsds_call_ms": ccsds_t["bcjr"]["call_ms"],
+            "ccsds_bound_ms": ccsds_bounds["bcjr"]["bound_ms"],
+            "ccsds_instance": bk.kernel_plan(k7_tables, lw_c)[0],
         },
         pfb_entry,
         cmul_entry,
@@ -1561,9 +1654,11 @@ def profile_burst(torch, pm, x, fec_name: str, card: str, calls: int = 5) -> Non
         names[k.name] = names.get(k.name, 0.0) + k.time_range.elapsed_us()
     print(f"profile rx_batch {fec_name}: device busy {busy:.4f} ms/call of {wall_ms:.4f} ms "
           f"wall (idle {100 * (1 - busy / wall_ms):.1f}%); kernel time by stage: front end "
-          f"{split['rx_front']:.4f} ms, decode {split['decode']:.4f} ms (decoder kernels "
-          f"{decoder:.4f} ms), tail {split['rx_tail']:.4f} ms; {len(kernels) // calls} "
-          f"kernels per call (torch.profiler, {calls} calls, profiler on) [{card}]")
+          f"{split['rx_front']:.4f} ms, decode {split['decode']:.4f} ms (hand-written decoder "
+          f"kernels {decoder:.4f} ms), tail {split['rx_tail']:.4f} ms, rest of device time "
+          f"(outside the decode stage) {busy - split['decode']:.4f} ms; "
+          f"{len(kernels) // calls} kernels per call (torch.profiler, {calls} calls, "
+          f"profiler on) [{card}]")
     for key, us in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {per_call(us):.4f} ms/call  {key[:90]}")
 

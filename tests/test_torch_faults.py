@@ -1,11 +1,12 @@
 """The port's repaired faults against the JAX package (ROADMAP.md §3,
-F1-F7), each on the same numpy inputs from a seed through both packages.
+F1-F10), each on the same numpy inputs from a seed through both packages.
 
 Tolerances are the reference's own: filters RMS EVM <= -120 dB against the
 JAX function, spectra <= -80 dB, the RX chain's bits >= 0.99999 agreement
 (two float32 implementations may split a sign only on near-zero bins,
 ROADMAP.md §3.5), and exact equality where the reference is exact
-(scrambler bits, the Split planes, the bound arguments of a call).
+(scrambler bits, the Split planes, the bound arguments of a call, the
+exported names, the filled samples, the configs each package refuses).
 """
 
 import dataclasses
@@ -39,16 +40,20 @@ def jx():
     import aether_primitives_tpu as jtop
     from aether_primitives_tpu import boundary as jboundary
     from aether_primitives_tpu import types as jtypes
+    from aether_primitives_tpu import models as jmodels
+    from aether_primitives_tpu.models import channel as jchannel
     from aether_primitives_tpu.models import channelizer as jch
     from aether_primitives_tpu.models import ddc as jddc
     from aether_primitives_tpu.models import modem as jmodem
+    from aether_primitives_tpu.models import packet as jpacket
     from aether_primitives_tpu.models import sync as jsync
     from aether_primitives_tpu.ops import fft as jfft
     from aether_primitives_tpu.ops import fir as jfir
     from aether_primitives_tpu.ops import sequence as jseq
 
     return types.SimpleNamespace(top=jtop, boundary=jboundary, types=jtypes, ch=jch, ddc=jddc,
-                                 modem=jmodem, sync=jsync, fft=jfft, fir=jfir, seq=jseq)
+                                 modem=jmodem, sync=jsync, fft=jfft, fir=jfir, seq=jseq,
+                                 models=jmodels, channel=jchannel, packet=jpacket)
 
 
 def _c(shape, seed):
@@ -305,3 +310,73 @@ def test_f7_the_cards_split_agrees_with_jax(jx, dec, fft_len, instance):
     bits = rf.sign_bits(got, "qpsk").numpy()
     jbits = np.stack([want.real < 0, want.imag < 0], -1).astype(np.uint8).reshape(-1)
     assert (bits == jbits).mean() >= AGREEMENT
+
+
+# ------------------------------------------------------------ F8: the models exports
+
+
+def test_f8_models_export_every_ported_name(jx):
+    # every name of the JAX models.__all__ whose module the port has
+    import importlib
+
+    from aether_primitives_tpu_torch import models as tmodels
+
+    missing = []
+    for name in jx.models.__all__:
+        obj = getattr(jx.models, name)
+        module = name if isinstance(obj, types.ModuleType) else obj.__module__.rsplit(".", 1)[-1]
+        try:
+            importlib.import_module(f"aether_primitives_tpu_torch.models.{module}")
+        except ModuleNotFoundError:
+            continue  # a module still to port (ROADMAP.md queue 1)
+        if not hasattr(tmodels, name):
+            missing.append(name)
+        elif name not in tmodels.__all__:
+            missing.append(f"{name} (not in __all__)")
+    assert not missing, missing
+    assert tmodels.detect_preamble is tsync.detect_preamble
+    assert tmodels.sharded_ddc is ddc.sharded_ddc and tmodels.stft is channelizer.stft
+
+
+# ------------------------------------------------------------ F9: delay_pad offsets
+
+
+@pytest.mark.parametrize("offset", [-3, -15, 0, 5, 25])
+def test_f9_delay_pad_counts_negative_offsets_from_the_end(jx, offset):
+    from aether_primitives_tpu_torch.models import channel as tchannel
+
+    x = _c((10,), 30)
+    got = tchannel.delay_pad(torch.from_numpy(x), offset, 20).numpy()
+    want = np.asarray(jx.channel.delay_pad(x, offset, 20))
+    assert np.array_equal(got, want)
+    assert np.array_equal(np.nonzero(got)[0], np.nonzero(want)[0])
+
+
+def test_f9_delay_pad_batched_negative_offset(jx):
+    from aether_primitives_tpu_torch.models import channel as tchannel
+
+    x = _c((2, 1000), 31)
+    got = tchannel.delay_pad(torch.from_numpy(x), -5, 1200).numpy()
+    want = np.asarray(jx.channel.delay_pad(x, -5, 1200))
+    assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------ F10: PacketModem checks
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("ccsds_interleaver", "bad", "unknown ccsds_interleaver"),
+    ("ccsds_interleave_rows", 0, "ccsds_interleave_rows >= 1"),
+    ("polar_decoder", "BP", "unknown polar_decoder"),
+])
+def test_f10_packet_modem_refuses_what_the_reference_refuses(jx, field, value, match):
+    from aether_primitives_tpu_torch.models.packet import PacketConfig, PacketModem
+
+    kw = {field: value}
+    if field == "ccsds_interleave_rows":
+        kw["ccsds_interleaver"] = "conv"
+    with pytest.raises(ValueError, match=match) as jerr:
+        jx.packet.PacketModem(jx.packet.PacketConfig(fec="viterbi", **kw))
+    with pytest.raises(ValueError, match=match) as err:
+        PacketModem(PacketConfig(fec="viterbi", **kw), device="cpu")
+    assert str(err.value) == str(jerr.value)

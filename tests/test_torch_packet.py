@@ -1,10 +1,13 @@
 """The port's burst link (``PacketModem``) and its modules against the JAX
 package's, at ``tests/test_packet.py``'s batched size: B = 4 bursts of a
 480-bit payload in 8192-sample captures, each with its own delay, CFO and
-noise.
+noise, for every FEC family the port decodes (``FAMILIES`` adds the RS,
+CCSDS, BCH, TPC and LDPC families to the Viterbi and turbo links), and
+``tests/test_packet.py``'s fade-and-erasure cases.
 
 Tolerances:
-- decoded payloads, CRC verdicts and burst offsets: exact;
+- decoded payloads, CRC verdicts and burst offsets: exact, and the TX
+  bursts of the ``FAMILIES`` links bit-equal;
 - CFO, complex gain, noise variance and preamble metric: ``rtol = RTOL``
   (1e-3; both sides compute them in float32 from FFTs and sums taken in
   another order; measured at most 4e-7 apart);
@@ -41,6 +44,18 @@ B, PAYLOAD, CAPTURE = 4, 480, 8192
 RTOL = 1e-3
 EVM_DB = -80.0
 DECODED = ("viterbi", "turbo")
+#: The other decoded links: name -> PacketConfig fields.
+FAMILIES = {
+    "rs": {"fec": "rs"},
+    "ccsds": {"fec": "ccsds"},
+    "ccsds-conv": {"fec": "ccsds", "ccsds_interleaver": "conv"},
+    "ccsds-erasures": {"fec": "ccsds", "rs_erasures": True},
+    "bch": {"fec": "bch"},
+    "bch-chase": {"fec": "bch", "bch_chase": 4},
+    "tpc": {"fec": "tpc"},
+    "ldpc": {"fec": "ldpc"},
+    "ldpc11n": {"fec": "ldpc11n"},
+}
 
 
 @pytest.fixture(scope="module")
@@ -71,31 +86,56 @@ def _channel(burst, rng, delay, cfo, gain=0.4 * np.exp(1j * 1.1), sigma=0.08):
     return x.astype(np.complex64)
 
 
+def _jax_link(jax, jpacket, cfg: dict, seed: int, jit: bool = False) -> dict:
+    """The JAX modem's bursts for B random payloads, the captures after the
+    channel, and JAX ``rx_batch`` / ``_rx_front`` on them (``jit``: each
+    traced once, as one XLA program, which compiles several times faster
+    than the op-by-op calls)."""
+    rng = np.random.default_rng(seed)
+    jpm = jpacket.PacketModem(jpacket.PacketConfig(payload_bits=PAYLOAD, **cfg))
+    wrap = jax.jit if jit else (lambda f: f)
+    payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
+    tx = wrap(jpm.tx)
+    bursts = np.stack([np.asarray(tx(p)) for p in payloads])
+    caps = np.stack([_channel(bursts[b], rng, delay=100 + 137 * b, cfo=(b - 1.5) * 4e-4)
+                     for b in range(B)])
+    jb, jok, jdiag = wrap(jpm.rx_batch)(caps)
+    jllr, _ = wrap(jax.vmap(jpm._rx_front))(caps)
+    return {
+        "jpm": jpm, "payloads": payloads, "bursts": bursts, "caps": caps,
+        "bits": np.asarray(jb), "ok": np.asarray(jok), "llr": np.asarray(jllr),
+        "diag": {k: np.asarray(v) for k, v in jdiag.items()},
+    }
+
+
 @pytest.fixture(scope="module")
 def link(jax_mods):
-    """Per FEC: the JAX modem's bursts for B random payloads, the captures
-    after the channel, and JAX ``rx_batch`` / ``_rx_front`` on them."""
-    jax, jpacket = jax_mods["jax"], jax_mods["packet"]
-    out = {}
-    for i, fec_name in enumerate(DECODED):
-        rng = np.random.default_rng(815 + i)
-        jpm = jpacket.PacketModem(jpacket.PacketConfig(payload_bits=PAYLOAD, fec=fec_name))
-        payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
-        bursts = np.stack([np.asarray(jpm.tx(p)) for p in payloads])
-        caps = np.stack([_channel(bursts[b], rng, delay=100 + 137 * b, cfo=(b - 1.5) * 4e-4)
-                         for b in range(B)])
-        jb, jok, jdiag = jpm.rx_batch(caps)
-        jllr, _ = jax.vmap(jpm._rx_front)(caps)
-        out[fec_name] = {
-            "jpm": jpm, "payloads": payloads, "bursts": bursts, "caps": caps,
-            "bits": np.asarray(jb), "ok": np.asarray(jok), "llr": np.asarray(jllr),
-            "diag": {k: np.asarray(v) for k, v in jdiag.items()},
-        }
-    return out
+    """Per FEC of ``DECODED``: :func:`_jax_link`."""
+    return {fec_name: _jax_link(jax_mods["jax"], jax_mods["packet"], {"fec": fec_name}, 815 + i)
+            for i, fec_name in enumerate(DECODED)}
+
+
+@pytest.fixture(scope="module")
+def families(jax_mods):
+    """:func:`_jax_link` of a ``FAMILIES`` link, made at its first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            seed = 900 + list(FAMILIES).index(name)
+            cache[name] = _jax_link(jax_mods["jax"], jax_mods["packet"], FAMILIES[name], seed,
+                                    jit=True)
+        return cache[name]
+
+    return get
 
 
 def _modem(fec_name, **kw):
     return PacketModem(PacketConfig(payload_bits=PAYLOAD, fec=fec_name, **kw), device="cpu")
+
+
+def _family_modem(name):
+    return PacketModem(PacketConfig(payload_bits=PAYLOAD, **FAMILIES[name]), device="cpu")
 
 
 @pytest.mark.parametrize("fec_name", DECODED)
@@ -137,7 +177,8 @@ def test_tx_matches_jax(jax_mods, fec_name):
     pm = _modem(fec_name)
     payloads = np.random.default_rng(3).integers(0, 2, (3, PAYLOAD)).astype(np.uint8)
     got = pm.tx(torch.from_numpy(payloads)).numpy()
-    want = np.stack([np.asarray(jpm.tx(p)) for p in payloads])
+    jtx = jax_mods["jax"].jit(jpm.tx)
+    want = np.stack([np.asarray(jtx(p)) for p in payloads])
     assert got.dtype == np.complex64 and got.shape == want.shape == (3, pm.burst_len)
     assert evm_rms_db(got, want) <= EVM_DB
     assert np.array_equal(pm.tx(torch.from_numpy(payloads[1])).numpy(), got[1])
@@ -195,10 +236,11 @@ def test_preamble_permutation_and_config_carry_over(jax_mods):
         convert.packet_config_from_numpy({"fec": "viterbi", "window": 3})
 
 
-@pytest.mark.parametrize("fec_name", UNPORTED_FECS)
-def test_unported_fec_raises(fec_name):
+@pytest.mark.parametrize("fec_name,kw", [(f, {}) for f in UNPORTED_FECS]
+                         + [("ldpc", {"ldpc_file": "code.alist"})])
+def test_unported_fec_raises(fec_name, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _modem(fec_name)
+        _modem(fec_name, **kw)
 
 
 def test_bad_inputs_raise():
@@ -225,6 +267,131 @@ def test_entry_points_default_to_the_card(monkeypatch):
         PacketModem(PacketConfig(fec="turbo"))
     assert RxChain(device="cpu").device.type == "cpu"
     assert PacketModem(device="cpu").device.type == "cpu"
+
+
+# ------------------------------------------- the RS, CCSDS, BCH, TPC, LDPC links
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_rx_batch_matches_jax(families, name):
+    ref = families(name)
+    pm = _family_modem(name)
+    bits, ok, diag = pm.rx_batch(torch.from_numpy(ref["caps"]))
+    assert bits.dtype == torch.uint8 and bits.shape == (B, PAYLOAD)
+    assert np.array_equal(bits.numpy(), ref["bits"])
+    assert np.array_equal(ok.numpy(), ref["ok"])
+    assert np.array_equal(diag["offset"].numpy(), ref["diag"]["offset"])
+    assert ok.numpy().all() and np.array_equal(bits.numpy(), ref["payloads"])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_tx_is_bit_equal_to_jax(families, name):
+    ref = families(name)
+    pm = _family_modem(name)
+    assert (pm.burst_len, pm.coded_bits) == (ref["jpm"].burst_len, ref["jpm"].coded_bits)
+    got = pm.tx(torch.from_numpy(ref["payloads"])).numpy()
+    assert got.dtype == np.complex64 and np.array_equal(got, ref["bursts"])
+    llr, _ = pm._rx_front(torch.from_numpy(ref["caps"]))
+    assert evm_rms_db(llr.numpy(), ref["llr"]) <= EVM_DB
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_rx_per_burst_equals_rx_batch(name):
+    pm = _family_modem(name)
+    rng = np.random.default_rng(17)
+    payloads = rng.integers(0, 2, (3, PAYLOAD)).astype(np.uint8)
+    bursts = pm.tx(torch.from_numpy(payloads)).numpy()
+    caps = np.stack([_channel(bursts[b], rng, 60 + 91 * b, (b - 1) * 3e-4) for b in range(3)])
+    bits, ok, diag = pm.rx_batch(torch.from_numpy(caps))
+    assert ok.numpy().all() and np.array_equal(bits.numpy(), payloads)
+    b1, ok1, diag1 = pm.rx(torch.from_numpy(caps[1]))
+    assert torch.equal(b1, bits[1]) and bool(ok1) and int(diag1["offset"]) == int(diag["offset"][1])
+
+
+def test_erasure_median_averages_the_middle_pair(jax_mods):
+    # jnp.median takes the mean of the two middle values (torch.median the
+    # lower one): the erasure rule's median at an even rs_n
+    import jax.numpy as jnp
+
+    from aether_primitives_tpu_torch.models.packet import _median_midpoint
+
+    x = np.random.default_rng(18).random((3, 2, 156)).astype(np.float32)
+    x[0, 0, :4] = 0.5
+    for n in (156, 255, 2):
+        got = _median_midpoint(torch.from_numpy(x[..., :n]))
+        want = np.asarray(jnp.median(x[..., :n], axis=-1, keepdims=True))
+        assert np.array_equal(got.numpy(), want)
+
+
+def _faded_rs_captures(pm, rng, payloads):
+    """tests/test_packet.py's 80-symbol fade inside the shortened RS
+    codeword, one capture a payload."""
+    caps = []
+    for i, p in enumerate(payloads):
+        burst = pm.tx(torch.from_numpy(p)).numpy()
+        cap = np.zeros(6000, np.complex64)
+        cap[400:400 + burst.size] = burst
+        n = np.arange(cap.size)
+        cap = cap * np.exp(2j * np.pi * 5e-4 * n)
+        cap += 0.03 * (rng.normal(size=cap.size) + 1j * rng.normal(size=cap.size))
+        lo = 400 + pm.preamble.size + 230 + 7 * i
+        cap[lo:lo + 80] = 0.02 * (rng.normal(size=80) + 1j * rng.normal(size=80))
+        caps.append(cap.astype(np.complex64))
+    return np.stack(caps)
+
+
+def test_rs_erasures_survive_the_fade_as_in_jax(jax_mods):
+    # tests/test_packet.py:168: ~21 symbol errors of RS(156, 124), beyond
+    # t = 16 for plain RS, within 2 nu + rho <= 32 once the fade is erased
+    jpacket = jax_mods["packet"]
+    cfg = dict(payload_bits=960, fec="rs", rs_n=156, rs_k=124)
+    rng = np.random.default_rng(19)
+    payloads = rng.integers(0, 2, (B, 960)).astype(np.uint8)
+    plain = PacketModem(PacketConfig(**cfg), device="cpu")
+    caps = _faded_rs_captures(plain, rng, payloads)
+    for erasures in (False, True):
+        pm = PacketModem(PacketConfig(**cfg, rs_erasures=erasures), device="cpu")
+        jpm = jpacket.PacketModem(jpacket.PacketConfig(**cfg, rs_erasures=erasures))
+        bits, ok, diag = pm.rx_batch(torch.from_numpy(caps))
+        jbits, jok, jdiag = jax_mods["jax"].jit(jpm.rx_batch)(caps)
+        assert np.array_equal(bits.numpy(), np.asarray(jbits))
+        assert np.array_equal(ok.numpy(), np.asarray(jok))
+        assert np.array_equal(diag["offset"].numpy(), np.asarray(jdiag["offset"]))
+        if erasures:
+            assert ok.numpy().all() and np.array_equal(bits.numpy(), payloads)
+        else:
+            assert not ok.numpy().any()
+
+
+def test_ccsds_soft_erasures_survive_the_fade_as_in_jax(jax_mods):
+    # tests/test_packet.py:309: a 140-symbol fade kills the hard-decision
+    # chain; the BCJR's reliabilities let the outer RS erase it
+    jpacket = jax_mods["packet"]
+    rng = np.random.default_rng(4242)
+    payloads = rng.integers(0, 2, (2, 960)).astype(np.uint8)
+    plain = PacketModem(PacketConfig(payload_bits=960, fec="ccsds"), device="cpu")
+    caps = []
+    for seed in (1, 2):
+        r = np.random.default_rng(seed)
+        x = plain.tx(torch.from_numpy(payloads[seed - 1])).numpy().copy()
+        lo = plain.preamble.size + 40
+        x[lo:lo + 140] *= 0.05
+        x += (0.25 * (r.normal(size=x.shape) + 1j * r.normal(size=x.shape))).astype(np.complex64)
+        caps.append(x.astype(np.complex64))
+    caps = np.stack(caps)
+    for erasures in (False, True):
+        cfg = dict(payload_bits=960, fec="ccsds", rs_erasures=erasures)
+        pm = PacketModem(PacketConfig(**cfg), device="cpu")
+        jpm = jpacket.PacketModem(jpacket.PacketConfig(**cfg))
+        jbits, jok, jdiag = jax_mods["jax"].jit(jpm.rx_batch)(caps)
+        bits, ok, diag = pm.rx_batch(torch.from_numpy(caps))
+        assert np.array_equal(bits.numpy(), np.asarray(jbits))
+        assert np.array_equal(ok.numpy(), np.asarray(jok))
+        assert np.array_equal(diag["offset"].numpy(), np.asarray(jdiag["offset"]))
+        if erasures:
+            assert ok.numpy().all() and np.array_equal(bits.numpy(), payloads)
+        else:
+            assert not ok.numpy().any()
 
 
 # ------------------------------------------------- the modules of the link
@@ -325,6 +492,30 @@ def test_cuda_rx_batch_goes_through_the_kernels(cuda, fec_name):
     bits, ok, diag = card.rx_batch(torch.from_numpy(caps).to(cuda))
     torch.cuda.synchronize()
     assert (vk.launches - v0, bk.launches - b0) == ((1, 0) if fec_name == "viterbi" else (0, 16))
+    hbits, hok, hdiag = host.rx_batch(torch.from_numpy(caps))
+    assert np.array_equal(bits.cpu().numpy(), payloads) and ok.cpu().numpy().all()
+    assert np.array_equal(bits.cpu().numpy(), hbits.numpy())
+    assert np.array_equal(diag["offset"].cpu().numpy(), hdiag["offset"].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FAMILIES)
+def test_cuda_family_rx_batch_equals_the_cpu_run(cuda, name):
+    # ccsds decodes its inner code through one kernel launch (Viterbi, or
+    # BCJR with erasures); the other families launch none of the kernels
+    rng = np.random.default_rng(20)
+    cfg = dict(payload_bits=PAYLOAD, **FAMILIES[name])
+    host, card = _family_modem(name), PacketModem(PacketConfig(**cfg))
+    payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
+    bursts = card.tx(torch.from_numpy(payloads)).cpu().numpy()
+    assert np.array_equal(bursts, host.tx(torch.from_numpy(payloads)).numpy())
+    caps = np.stack([_channel(bursts[b], rng, 100 + 137 * b, (b - 1.5) * 4e-4)
+                     for b in range(B)])
+    v0, b0 = vk.launches, bk.launches
+    bits, ok, diag = card.rx_batch(torch.from_numpy(caps).to(cuda))
+    torch.cuda.synchronize()
+    want = {"ccsds": (1, 0), "ccsds-conv": (1, 0), "ccsds-erasures": (0, 1)}.get(name, (0, 0))
+    assert (vk.launches - v0, bk.launches - b0) == want
     hbits, hok, hdiag = host.rx_batch(torch.from_numpy(caps))
     assert np.array_equal(bits.cpu().numpy(), payloads) and ok.cpu().numpy().all()
     assert np.array_equal(bits.cpu().numpy(), hbits.numpy())
