@@ -21,10 +21,14 @@ block or a symbol-wise circular Forney interleaver between) decodes its
 inner code windowed through the Viterbi kernel (64/48, one launch), or
 with ``rs_erasures`` through the BCJR kernel's soft output (96/64, one
 launch) so that the outer RS can erase its unreliable symbols. The
-``rs``, ``bch`` (hard or Chase-2), ``tpc``, ``ldpc`` and ``ldpc11n``
-decoders are plain PyTorch on every device, as they are XLA in the JAX
-package. On the CPU the kernels' plain versions run. ``nr_ldpc`` and
-``polar`` raise :class:`NotImplementedError`.
+``rs``, ``bch`` (hard or Chase-2), ``tpc``, ``ldpc`` (the Gallager
+ensemble, or a table from ``ldpc_file``: an ``.alist`` through the dense
+min-sum decoder, a QC ``.npz`` through the QC one), ``ldpc11n``,
+``nr_ldpc`` (NR-structured QC-LDPC with rate matching, or the shift table
+of ``nr_base_graph_file``) and ``polar`` (CA-SCL with an inner CRC-8, SC
+at ``polar_list`` 1, or flooding BP) decoders are plain PyTorch on every
+device, as they are XLA in the JAX package. On the CPU the kernels' plain
+versions run.
 """
 
 from __future__ import annotations
@@ -37,9 +41,12 @@ import numpy as np
 import torch
 
 from ..ops import bch as _bch
+from ..ops import code_io as _cio
 from ..ops import fec as _fec
 from ..ops import ldpc as _ldpc
 from ..ops import modulation as _mod
+from ..ops import nr_ldpc as _nr
+from ..ops import polar as _polar
 from ..ops import rs as _rs
 from ..ops import sequence as _seq
 from ..ops import tpc as _tpc
@@ -48,11 +55,9 @@ from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard
 from ..types import as_cf32, stage_device
 from . import sync as _sync
 
-#: FEC families the port decodes.
-PORTED_FECS = ("viterbi", "turbo", "none", "rs", "ccsds", "bch", "tpc", "ldpc", "ldpc11n")
-#: The JAX package's other FEC families, still to be ported (ROADMAP.md,
-#: queue 1 item 12).
-UNPORTED_FECS = ("nr_ldpc", "polar")
+#: FEC families the port decodes: every family of the JAX package.
+PORTED_FECS = ("viterbi", "turbo", "none", "rs", "ccsds", "bch", "tpc", "ldpc", "ldpc11n",
+               "nr_ldpc", "polar")
 
 
 def _modulation_by_name(name: str) -> _mod.Modulation:
@@ -78,9 +83,10 @@ def _median_midpoint(x: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class PacketConfig:
     """The JAX package's packet configuration, every field kept for parity.
-    Only ``fec`` in :data:`PORTED_FECS` is accepted by :class:`PacketModem`,
-    and a code table from a file (``ldpc_file``) is not; the fields of the
-    other families (``polar_*``, ``nr_*``) are carried unused."""
+    ``fec`` is one of :data:`PORTED_FECS`; ``ldpc_file`` (an ``.alist`` or
+    a QC ``.npz``) replaces the Gallager code of ``fec="ldpc"``, and
+    ``nr_base_graph_file`` (a QC ``.npz``) the built-in NR graph of
+    ``fec="nr_ldpc"``."""
 
     payload_bits: int = 960
     modulation: str = "qpsk"
@@ -147,29 +153,24 @@ class PacketModem:
             raise ValueError(
                 f"unknown polar_decoder {c.polar_decoder!r} (expected 'scl' or 'bp')"
             )
-        if c.fec in UNPORTED_FECS:
-            raise NotImplementedError(
-                f"fec {c.fec!r} is not ported yet (ROADMAP.md, queue 1 item 12); "
-                f"the port decodes {PORTED_FECS}"
-            )
         if c.fec not in PORTED_FECS:
             raise ValueError(f"unknown fec {c.fec!r}")
-        if c.fec == "ldpc" and c.ldpc_file is not None:
-            raise NotImplementedError(
-                "ldpc_file: code tables from files (ops/code_io.py) are not ported "
-                "yet (ROADMAP.md, queue 1 item 12)"
-            )
         self.modulation = _modulation_by_name(c.modulation)
         bps = self.modulation.bits_per_symbol
         self.frame_bits = c.payload_bits + c.crc_width
         if c.fec == "viterbi":
             self.coded_bits = 2 * (self.frame_bits + _fec.DEFAULT_K - 1)
         elif c.fec in ("ldpc", "ldpc11n"):
-            # "ldpc": the Gallager ensemble; "ldpc11n": the 802.11n n=648
-            # Z=27 rate-1/2 code through the QC decoder
+            # "ldpc": the Gallager ensemble or a table from a file (a QC
+            # .npz keeps the QC decoder); "ldpc11n": the 802.11n n=648 Z=27
+            # rate-1/2 code through the QC decoder
             if c.fec == "ldpc11n":
                 h, g, info = _ldpc.wifi_ldpc()
                 self._ldpc_qc = (_ldpc._WIFI_648_R12, 27)
+            elif c.ldpc_file is not None:
+                h, g, info = _cio.ldpc_from_file(c.ldpc_file)
+                qc = str(c.ldpc_file).endswith(".npz")
+                self._ldpc_qc = _cio.load_qc_npz(c.ldpc_file) if qc else None
             else:
                 h, g, info = _ldpc.make_regular_ldpc(seed=c.ldpc_seed)
                 self._ldpc_qc = None
@@ -208,9 +209,40 @@ class PacketModem:
             self.tpc_frames = -(-self.frame_bits // kb)
             self.tpc_pad = self.tpc_frames * kb - self.frame_bits
             self.coded_bits = self.tpc_frames * self._tpc.n * self._tpc.n
+        elif c.fec == "nr_ldpc":
+            # the smallest lifting size whose kb z holds the frame (fillers
+            # take the rest); the rate by the circular buffer's selection
+            kb = _nr._BG_DIMS[c.nr_bg][2]
+            fits = [s for s in _nr.LIFTING_SIZES if kb * s >= self.frame_bits]
+            if not fits:
+                raise ValueError(
+                    f"frame of {self.frame_bits} bits exceeds one BG"
+                    f"{c.nr_bg} codeword (max {kb * max(_nr.LIFTING_SIZES)}); "
+                    "segment the transport block first"
+                )
+            nr_base = None
+            if c.nr_base_graph_file is not None:
+                nr_base = _cio.nr_base_graph_from_file(c.nr_base_graph_file)
+            self._nr = _nr.NrLdpc(z=min(fits), bg=c.nr_bg, k=self.frame_bits,
+                                  base_graph=nr_base)
+            self.coded_bits = int(round(self.frame_bits / c.nr_rate))
         elif c.fec == "turbo":
             # [sys n | par1 n | par2 n | tail_sys 3 | tail_par 3]
             self.coded_bits = 3 * self.frame_bits + 6
+        elif c.fec == "polar":
+            # rate-1/2 codewords of polar_n; a list > 1 decodes CA-SCL with
+            # a CRC-8 inside each codeword
+            self._polar = _polar.PolarCode(
+                n=c.polar_n,
+                k=c.polar_n // 2,
+                design_snr_db=c.polar_design_snr_db,
+                crc="crc8" if c.polar_list > 1 else "",
+                list_size=c.polar_list,
+            )
+            bpf = self._polar.payload_bits
+            self.polar_frames = -(-self.frame_bits // bpf)
+            self.polar_pad = self.polar_frames * bpf - self.frame_bits
+            self.coded_bits = self.polar_frames * c.polar_n
         else:
             self.coded_bits = self.frame_bits
         rows = c.interleave_rows
@@ -262,8 +294,13 @@ class PacketModem:
             kk = self._tpc.k
             padded = pad(line, (0, self.tpc_pad)).reshape(lead + (self.tpc_frames, kk, kk))
             coded = self._tpc.encode(padded).reshape(lead + (-1,))
+        elif c.fec == "nr_ldpc":
+            coded = self._nr.encode(line, self.coded_bits, rv=c.nr_rv)
         elif c.fec == "turbo":
             coded = torch.cat(_turbo.turbo_encode(line), dim=-1)
+        elif c.fec == "polar":
+            padded = pad(line, (0, self.polar_pad)).reshape(lead + (self.polar_frames, -1))
+            coded = self._polar.encode(padded).reshape(lead + (-1,))
         else:
             coded = line
         if self.inter_pad or c.interleave_rows > 1:
@@ -403,6 +440,14 @@ class PacketModem:
         elif c.fec == "tpc":
             nn = self._tpc.n
             line, _ok = self._tpc.decode(llr.reshape(lead + (self.tpc_frames, nn, nn)))
+        elif c.fec == "nr_ldpc":
+            line, _ok = self._nr.decode(llr, rv=c.nr_rv, iters=30)
+        elif c.fec == "polar":
+            frames = llr.reshape(lead + (self.polar_frames, -1))
+            if c.polar_decoder == "bp":
+                line, _ok = self._polar.decode_bp(frames)
+            else:
+                line, _ok = self._polar.decode(frames)
         elif c.fec == "turbo":
             nb = self.frame_bits
             line, _llr = _turbo.turbo_decode(

@@ -12,8 +12,10 @@ positions, the same decoders.
 - :func:`ldpc_decode` and :func:`qc_ldpc_decode`: normalized min-sum on
   the graph's edges, batched over leading axes. The messages live on a
   ``[..., m, d]`` plane of each check's edges (``d`` its largest degree,
-  padded), and a variable's total is a gather of its edges summed in a
-  fixed order, so a run is deterministic on every device. The JAX
+  padded), and a variable's total is a gather of its edges added one at
+  a time in ascending check order (the reference's order), so a run is
+  deterministic on every device. The QC decoder's tables come from the
+  base matrix, never the dense matrix. The JAX
   package holds the dense decoder's messages on a masked ``[m, n]``
   plane, because gathers are slow on its TPU; the QC decoder keeps them
   per base-matrix edge with static rolls. Both are the same update on
@@ -22,7 +24,8 @@ positions, the same decoders.
 - :func:`extract_info`.
 
 The decoders are float32: hard bits and ``ok`` equal the reference's on
-correctable frames; the soft sums' order differs.
+every input tried (the check updates are exact, and the variable totals
+are summed in its order).
 
 LLR convention: positive = bit 0.
 """
@@ -213,11 +216,31 @@ def _edges(shape: Tuple[int, int], packed: bytes):
     return rows, valid, cols
 
 
-def _graph(h: np.ndarray, device):
-    h = np.asarray(h, np.uint8) % 2
-    rows, valid, cols = _edges(h.shape, np.packbits(h).tobytes())
-    return (torch.from_numpy(rows).to(device), torch.from_numpy(valid).to(device),
-            torch.from_numpy(cols).to(device))
+@functools.lru_cache(maxsize=16)
+def _qc_edges(base_key: Tuple[Tuple[int, ...], ...], z: int):
+    """:func:`_edges` of ``qc_expand(base, z)``, built from the base matrix
+    in O(edges z) without the dense matrix: check ``(i, t)`` touches bit
+    ``(t + s) mod z`` of every block ``j`` with a shift ``s`` in row ``i``
+    (ascending in ``j``, so in ascending variable order), and bit ``(j,
+    u)`` is touched by check ``(u - s) mod z`` of every such block row
+    ``i`` (ascending in ``i``, so in ascending check order)."""
+    base = np.asarray(base_key, np.int64)
+    mb, nb = base.shape
+    m, n = mb * z, nb * z
+    on = base >= 0
+    d = max(int(on.sum(axis=1).max(initial=0)), 1)
+    dv = max(int(on.sum(axis=0).max(initial=0)), 1)
+    ii, jj = np.nonzero(on)  # the edges, row-major
+    s = (base[ii, jj] % z)[:, None]
+    slot = (np.cumsum(on, axis=1) - 1)[ii, jj]  # the edge's place in its check
+    rank = (np.cumsum(on, axis=0) - 1)[ii, jj]  # and in its variable
+    t = np.arange(z)[None, :]
+    rows = np.full((mb, z, d), n, np.int64)
+    rows[ii, :, slot] = jj[:, None] * z + (t + s) % z
+    cols = np.full((nb, z, dv), m * d, np.int64)
+    cols[jj, :, rank] = (ii[:, None] * z + (t - s) % z) * d + slot[:, None]
+    rows = rows.reshape(m, d)
+    return rows, rows < n, cols.reshape(n, dv)
 
 
 def _check_update(v2c: torch.Tensor, valid: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -236,15 +259,16 @@ def _check_update(v2c: torch.Tensor, valid: torch.Tensor, alpha: float) -> torch
     return torch.where(valid, alpha * row_sign * sgn * ext, torch.zeros_like(ext))
 
 
-def _min_sum(llrs, h: np.ndarray, checks: int, alpha: float):
-    """``checks`` check updates from ``v2c = llr`` on the edges of ``h``,
+def _min_sum(llrs, tables, n: int, checks: int, alpha: float):
+    """``checks`` check updates from ``v2c = llr`` on the edges of a code
+    of length ``n`` given by its ``(rows, valid, cols)`` tables (numpy),
     each followed by the variable update but the last: ``(hard [..., n]
     uint8, syndrome ok [...])``."""
     lam = torch.as_tensor(llrs).to(torch.float32)
-    m, n = np.asarray(h).shape
     if lam.shape[-1] != n:
         raise ValueError(f"LLR length {lam.shape[-1]} != code length {n}")
-    rows, valid, cols = _graph(h, lam.device)
+    rows, valid, cols = (torch.from_numpy(t).to(lam.device) for t in tables)
+    cols = cols.T.contiguous()  # [dv, n]: an edge slot's messages lie together
     lead = tuple(lam.shape[:-1])
     lam = lam.reshape(-1, n)
     b_sz = lam.shape[0]
@@ -252,8 +276,15 @@ def _min_sum(llrs, h: np.ndarray, checks: int, alpha: float):
     v2c = lam_pad[:, rows]  # [B, m, d]
 
     def col_sums(c2v):
-        flat = torch.nn.functional.pad(c2v.reshape(b_sz, -1), (0, 1))
-        return flat[:, cols].sum(dim=-1)  # [B, n], each variable's edges in order
+        """Each variable's messages [B, n], added one edge at a time in
+        ascending check order: the reference's order (a reduction kernel
+        would group the terms its own way, and the float32 sums of a
+        variable of many edges, or beside a +1e9 filler, round apart)."""
+        edges = torch.nn.functional.pad(c2v.reshape(b_sz, -1), (0, 1))[:, cols]  # [B, dv, n]
+        acc = edges[:, 0]
+        for e in range(1, edges.shape[1]):
+            acc = acc + edges[:, e]
+        return acc
 
     c2v = _check_update(v2c, valid, alpha)
     for _ in range(checks - 1):
@@ -272,7 +303,9 @@ def ldpc_decode(llrs, h, iters: int = 25,
     ``h [m, n]`` (numpy 0/1): ``iters`` iterations and a final check
     update, as the reference's dense decoder. Returns ``(hard [..., n]
     uint8, syndrome_ok [...])``."""
-    return _min_sum(llrs, h, int(iters) + 1, float(alpha))
+    h = np.asarray(h, np.uint8) % 2
+    tables = _edges(h.shape, np.packbits(h).tobytes())
+    return _min_sum(llrs, tables, h.shape[1], int(iters) + 1, float(alpha))
 
 
 def qc_ldpc_decode(llrs, base, z: int, iters: int = 25,
@@ -280,8 +313,12 @@ def qc_ldpc_decode(llrs, base, z: int, iters: int = 25,
     """Normalized min-sum decode of a QC code given by its base matrix of
     shifts ``base [mb, nb]`` and lifting ``z``: ``llrs [..., nb z]``,
     ``iters`` check updates, as the reference's edge-message decoder.
-    Returns ``(hard [..., nb z] uint8, syndrome_ok [...])``."""
-    return _min_sum(llrs, qc_expand(base, int(z)), int(iters), float(alpha))
+    Returns ``(hard [..., nb z] uint8, syndrome_ok [...])``. The graph's
+    tables come from the base matrix (:func:`_qc_edges`), never from the
+    dense ``[mb z, nb z]`` matrix."""
+    base = np.asarray(base, np.int64)
+    tables = _qc_edges(tuple(map(tuple, base.tolist())), int(z))
+    return _min_sum(llrs, tables, base.shape[1] * int(z), int(iters), float(alpha))
 
 
 def ldpc_encode(bits, g) -> torch.Tensor:

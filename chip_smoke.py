@@ -14,8 +14,10 @@ It drives the port's paths through their hand-written kernels:
   the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``); and the
   families ``BURST_FAMILIES``: ``ccsds`` (RS outer, K=7 inner through the
   windowed Viterbi kernel, or with ``rs_erasures`` through the BCJR
-  kernel's generic instance), ``rs``, ``bch``, ``tpc``, ``ldpc`` and
-  ``ldpc11n`` (plain PyTorch decoders);
+  kernel's generic instance), ``rs``, ``bch``, ``tpc``, ``ldpc``,
+  ``ldpc11n``, ``nr_ldpc``, ``polar`` (CA-SCL and flooding BP), and ``ldpc``
+  and ``nr_ldpc`` with their code tables loaded from files that the run
+  writes (plain PyTorch decoders);
 - the wideband channelizer (``PfbChannelizerOs(2048, os=2,
   taps_per_branch=16, device="cuda")`` feeding ``PfbSynthesizerOs`` with the
   same configuration) on 4,194,304-sample blocks, with a real and a complex
@@ -80,7 +82,14 @@ in twenty-four phases:
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
    exactly 1 Viterbi and 16 BCJR launches per call (``ccsds``: 1 Viterbi;
    with erasures 1 BCJR; the other families none), and the first 8 bursts
-   equal to the port's CPU run;
+   equal to the port's CPU run; the code tables of the file-loaded
+   families (an ``.alist`` of the Gallager code, a QC ``.npz`` of the
+   802.11n base, an ``.npz`` NR BG2 graph) written into a temporary
+   directory by the port's ``code_io``; then the NR transport-block chain
+   (``NrTransportBlock`` of 3 code blocks, 64 blocks' worth) encoded and
+   decoded on the card, and two redundancy versions' de-rate-matched
+   buffers at 4 passes of the circular buffer summed, each ``torch.equal``
+   to the CPU run;
 9. CUDA-event timings of each burst kernel (and the BCJR kernel at K=7)
    against its plain twin and of ``rx_batch`` end to end for every family,
    the Viterbi and BCJR kernels' device times (``torch.profiler``) beside
@@ -198,6 +207,7 @@ is the kernels' JSON summary; the last line is
 import ctypes
 import json
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -245,6 +255,12 @@ BURST_FAMILIES = (
     ("tpc", {"fec": "tpc"}, {}),
     ("ldpc", {"fec": "ldpc"}, {}),
     ("ldpc11n", {"fec": "ldpc11n"}, {}),
+    ("nr_ldpc", {"fec": "nr_ldpc"}, {}),
+    ("polar", {"fec": "polar"}, {}),
+    ("polar bp", {"fec": "polar", "polar_decoder": "bp"}, {}),
+    ("ldpc alist", {"fec": "ldpc", "ldpc_file": "regular.alist"}, {}),
+    ("ldpc npz", {"fec": "ldpc", "ldpc_file": "wifi_qc.npz"}, {}),
+    ("nr_ldpc file", {"fec": "nr_ldpc", "nr_base_graph_file": "bg2_z64.npz"}, {}),
 )
 CCSDS_VITERBI, CCSDS_SOFT = (64, 48), (96, 64)  # the ccsds inner decoders' (window, guard)
 
@@ -280,6 +296,79 @@ def burst_channel(burst, rng, delay, cfo, sigma=0.05):
     x = x * (0.5 * np.exp(1j * 0.8)) * np.exp(2j * np.pi * cfo * n)
     x += sigma * (rng.normal(size=CAPTURE) + 1j * rng.normal(size=CAPTURE))
     return x.astype(np.complex64)
+
+
+def write_code_tables(folder: Path) -> None:
+    """The file-loaded families' code tables, by the port's ``code_io``:
+    the Gallager code's H as an ``.alist``, the 802.11n 648/Z27 base and an
+    NR BG2 graph for z 64 (seed 99, not the built-in seed 1) as QC ``.npz``."""
+    from aether_primitives_tpu_torch.ops import code_io, ldpc, nr_ldpc
+
+    code_io.save_alist(ldpc.make_regular_ldpc()[0], folder / "regular.alist")
+    code_io.save_qc_npz(ldpc._WIFI_648_R12, 27, folder / "wifi_qc.npz")
+    code_io.save_qc_npz(nr_ldpc.make_nr_base_graph(2, 64, seed=99), 64, folder / "bg2_z64.npz")
+
+
+def nr_chain_phase(card: str, device: str = "cuda", frames: int = 64, host: int = 8) -> None:
+    """The NR transport-block chain and soft combining on ``device``
+    against the CPU run of the first ``host`` frames:
+    ``NrTransportBlock(9000)`` (3 code blocks of BG2 at z 320) over
+    ``frames`` payloads, encoded and decoded (sigma 0.7, every block
+    decodes); and two redundancy versions (rv 0 and 2) of a shortened BG2
+    code at z 64 sent at 3.03 times the circular buffer (a position hit up
+    to 4 times; sigma 1.5), their de-rate-matched buffers summed and
+    decoded. Every output ``torch.equal`` to the CPU's; no kernel of
+    ``KERNELS`` launches."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import time_cuda
+    from aether_primitives_tpu_torch.ops.nr_ldpc import NrLdpc, NrTransportBlock
+
+    def noisy(tx, rng, sigma):
+        y = (1.0 - 2.0 * tx.cpu().numpy()) + sigma * rng.normal(size=tuple(tx.shape))
+        return torch.from_numpy((2.0 / sigma ** 2 * y).astype(np.float32))
+
+    rng = np.random.default_rng(2024)
+    tb = NrTransportBlock(tb_bits=9000)
+    payload = torch.from_numpy(rng.integers(0, 2, (frames, 9000)).astype(np.uint8))
+    e = 2 * tb.k_per_block
+    reset_counts()
+    tx = tb.encode(payload.to(device), e)
+    llr = noisy(tx, rng, 0.7)
+    got = tb.decode(llr.to(device))
+    sync(device)
+    counts = read_counts()
+    tx_cpu, want = tb.encode(payload, e), tb.decode(llr[:host])
+    same = (torch.equal(tx.cpu(), tx_cpu) and torch.equal(got[0][:host].cpu(), want[0])
+            and torch.equal(got[1][:host].cpu(), want[1]))
+    exact = bool(torch.equal(got[0].cpu(), payload)) and bool(got[1].all())
+    dec_ms = time_cuda(lambda: tb.decode(llr.to(device)), 3) if device == "cuda" else None
+    print(f"nr transport block: {tb.n_blocks} code blocks of {tb.k_per_block} bits (BG2, z "
+          f"{tb.code.z}) x {frames}, e {e} a block: payloads exact and CRC24A ok {exact}, "
+          f"encode (all) and decode (first {host}) equal to the CPU run {same}, launches "
+          f"{counts} (need none); "
+          f"decode {fmt_ms(dec_ms)} ms a call (CUDA events, mean of 3) [{card}]", flush=True)
+    if not (same and exact) or counts != NO_LAUNCHES:
+        fail("nr transport block: card and CPU disagree, a payload failed, or a kernel launched")
+
+    code = NrLdpc(z=64, bg=2, k=500)
+    e = 3 * (code.ncb - code.n_filler) + 77  # 4 passes of the circular buffer
+    bits = torch.from_numpy(rng.integers(0, 2, (frames, 500)).astype(np.uint8))
+    llrs = {rv: noisy(code.encode(bits, e, rv), np.random.default_rng(rv), 1.5) for rv in (0, 2)}
+    bufs = {}
+    for dev in (device, "cpu"):
+        buf = code.dematch(llrs[0].to(dev), 0) + code.dematch(llrs[2].to(dev), 2)
+        bufs[dev] = (buf, code.decode_buffer(buf))
+    (buf, (dec, ok)), (buf_h, (dec_h, ok_h)) = bufs[device], bufs["cpu"]
+    same = (torch.equal(buf.cpu(), buf_h) and torch.equal(dec.cpu(), dec_h)
+            and torch.equal(ok.cpu(), ok_h))
+    print(f"nr soft combining: rv 0 + rv 2 at e {e} ({e / (code.ncb - code.n_filler):.2f} "
+          f"times the buffer), {frames} frames: buffers torch.equal to the CPU's "
+          f"{torch.equal(buf.cpu(), buf_h)}, decode equal {same}, decoded "
+          f"{int(ok.sum())}/{frames} [{card}]", flush=True)
+    if not same:
+        fail("nr soft combining: the card's buffers or decode differ from the CPU's")
 
 
 def burst_captures(pm, bursts: int = BURSTS, seed: int = 4242):
@@ -706,9 +795,13 @@ def main() -> None:
 
     # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
     burst_counts, modems, caps_dev, burst_set = {}, {}, {}, {}
+    tables = tempfile.TemporaryDirectory(prefix="chip_smoke_tables_")
+    write_code_tables(Path(tables.name))
     for label, fields, launches in ((("viterbi", {"fec": "viterbi"}, {"viterbi": 1}),
                                      ("turbo", {"fec": "turbo"}, {"bcjr": 16}))
                                     + BURST_FAMILIES):
+        fields = {k: str(Path(tables.name) / v) if k.endswith("_file") else v
+                  for k, v in fields.items()}
         cfg = PacketConfig(payload_bits=PAYLOAD, **fields)
         pm = PacketModem(cfg, device="cuda")
         payloads, caps = burst_captures(pm)
@@ -737,6 +830,8 @@ def main() -> None:
         modems[label], caps_dev[label] = pm, x
         if label in ("viterbi", "turbo"):
             burst_set[label] = (pm, x, payloads)
+    tables.cleanup()  # the modems read their tables when they were made
+    nr_chain_phase(card)
 
     # ---- phase 9: burst timings --------------------------------------------
     sym_v = llr_v.reshape(BURSTS, -1, 2).contiguous()

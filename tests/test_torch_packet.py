@@ -2,8 +2,11 @@
 package's, at ``tests/test_packet.py``'s batched size: B = 4 bursts of a
 480-bit payload in 8192-sample captures, each with its own delay, CFO and
 noise, for every FEC family the port decodes (``FAMILIES`` adds the RS,
-CCSDS, BCH, TPC and LDPC families to the Viterbi and turbo links), and
-``tests/test_packet.py``'s fade-and-erasure cases.
+CCSDS, BCH, TPC, LDPC, NR LDPC and polar families, and the LDPC and NR
+tables loaded from files, to the Viterbi and turbo links), and
+``tests/test_packet.py``'s fade-and-erasure cases. The code tables go to
+files under a temporary directory, written by each package's own
+``code_io`` for its modem.
 
 Tolerances:
 - decoded payloads, CRC verdicts and burst offsets: exact, and the TX
@@ -32,9 +35,9 @@ from aether_primitives_tpu_torch import convert
 from aether_primitives_tpu_torch.evm import evm_rms_db
 from aether_primitives_tpu_torch.models import RxChain, RxChainConfig, sync
 from aether_primitives_tpu_torch.models.packet import (
-    PORTED_FECS, UNPORTED_FECS, PacketConfig, PacketModem,
+    PORTED_FECS, PacketConfig, PacketModem,
 )
-from aether_primitives_tpu_torch.ops import fec, sequence, turbo
+from aether_primitives_tpu_torch.ops import code_io, fec, ldpc, nr_ldpc, sequence, turbo
 from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
 from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
 
@@ -44,7 +47,8 @@ B, PAYLOAD, CAPTURE = 4, 480, 8192
 RTOL = 1e-3
 EVM_DB = -80.0
 DECODED = ("viterbi", "turbo")
-#: The other decoded links: name -> PacketConfig fields.
+#: The other decoded links: name -> PacketConfig fields; a ``*_file`` field
+#: names a file of ``TABLES``.
 FAMILIES = {
     "rs": {"fec": "rs"},
     "ccsds": {"fec": "ccsds"},
@@ -55,7 +59,35 @@ FAMILIES = {
     "tpc": {"fec": "tpc"},
     "ldpc": {"fec": "ldpc"},
     "ldpc11n": {"fec": "ldpc11n"},
+    "nr_ldpc": {"fec": "nr_ldpc"},
+    "polar": {"fec": "polar"},
+    "polar-bp": {"fec": "polar", "polar_decoder": "bp"},
+    "ldpc-alist": {"fec": "ldpc", "ldpc_file": "regular.alist"},
+    "ldpc-npz": {"fec": "ldpc", "ldpc_file": "wifi_qc.npz"},
+    "nr-file": {"fec": "nr_ldpc", "nr_base_graph_file": "bg2_z64.npz"},
 }
+#: file name -> (writer name of ``code_io``, the table's arguments): the
+#: Gallager code's H, the 802.11n 648/Z27 base, and an NR BG2 graph for z 64
+#: of another seed than the built-in one (at this payload's z 52 its shifts
+#: apply mod 52)
+TABLES = {
+    "regular.alist": ("save_alist", lambda: (ldpc.make_regular_ldpc()[0],)),
+    "wifi_qc.npz": ("save_qc_npz", lambda: (ldpc._WIFI_648_R12, 27)),
+    "bg2_z64.npz": ("save_qc_npz", lambda: (nr_ldpc.make_nr_base_graph(2, 64, seed=99), 64)),
+}
+
+
+def _write_tables(cio, folder):
+    """Every file of ``TABLES`` written by ``cio`` (a ``code_io`` module)
+    into ``folder``."""
+    for fname, (writer, args) in TABLES.items():
+        getattr(cio, writer)(*args(), folder / fname)
+    return folder
+
+
+def _fields(name, folder):
+    """``FAMILIES[name]`` with its file names under ``folder``."""
+    return {k: str(folder / v) if k.endswith("_file") else v for k, v in FAMILIES[name].items()}
 
 
 @pytest.fixture(scope="module")
@@ -116,15 +148,25 @@ def link(jax_mods):
 
 
 @pytest.fixture(scope="module")
-def families(jax_mods):
-    """:func:`_jax_link` of a ``FAMILIES`` link, made at its first use."""
+def tables(tmp_path_factory):
+    """The port's ``TABLES``, written by its own ``code_io``."""
+    return _write_tables(code_io, tmp_path_factory.mktemp("port_tables"))
+
+
+@pytest.fixture(scope="module")
+def families(jax_mods, tmp_path_factory):
+    """:func:`_jax_link` of a ``FAMILIES`` link, made at its first use (the
+    JAX modem reads ``TABLES`` written by the JAX package's ``code_io``)."""
+    from aether_primitives_tpu.ops import code_io as jcode_io
+
+    folder = _write_tables(jcode_io, tmp_path_factory.mktemp("jax_tables"))
     cache = {}
 
     def get(name):
         if name not in cache:
             seed = 900 + list(FAMILIES).index(name)
-            cache[name] = _jax_link(jax_mods["jax"], jax_mods["packet"], FAMILIES[name], seed,
-                                    jit=True)
+            cache[name] = _jax_link(jax_mods["jax"], jax_mods["packet"], _fields(name, folder),
+                                    seed, jit=True)
         return cache[name]
 
     return get
@@ -134,8 +176,8 @@ def _modem(fec_name, **kw):
     return PacketModem(PacketConfig(payload_bits=PAYLOAD, fec=fec_name, **kw), device="cpu")
 
 
-def _family_modem(name):
-    return PacketModem(PacketConfig(payload_bits=PAYLOAD, **FAMILIES[name]), device="cpu")
+def _family_modem(name, folder, device="cpu"):
+    return PacketModem(PacketConfig(payload_bits=PAYLOAD, **_fields(name, folder)), device=device)
 
 
 @pytest.mark.parametrize("fec_name", DECODED)
@@ -236,11 +278,39 @@ def test_preamble_permutation_and_config_carry_over(jax_mods):
         convert.packet_config_from_numpy({"fec": "viterbi", "window": 3})
 
 
-@pytest.mark.parametrize("fec_name,kw", [(f, {}) for f in UNPORTED_FECS]
-                         + [("ldpc", {"ldpc_file": "code.alist"})])
-def test_unported_fec_raises(fec_name, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _modem(fec_name, **kw)
+def test_every_jax_fec_is_ported(jax_mods):
+    # the families that the JAX PacketConfig's fec field lists in its comment
+    import inspect
+    import re
+
+    line = next(ln for ln in inspect.getsource(jax_mods["packet"].PacketConfig).splitlines()
+                if ln.strip().startswith("fec: str"))
+    listed = re.findall(r'"([a-z0-9_]+)"', line.split("#", 1)[1])
+    assert len(listed) == 11 and sorted(listed) == sorted(PORTED_FECS)
+    for fec_name in listed:
+        # a JAX config carried over by convert builds the same frame
+        jcfg = jax_mods["packet"].PacketConfig(payload_bits=PAYLOAD, fec=fec_name)
+        jpm = jax_mods["packet"].PacketModem(jcfg)
+        pm = PacketModem(convert.packet_config_from_numpy(dataclasses.asdict(jcfg)), device="cpu")
+        assert (pm.burst_len, pm.coded_bits, pm.frame_bits) == (
+            jpm.burst_len, jpm.coded_bits, jpm.frame_bits), fec_name
+    with pytest.raises(ValueError, match="unknown fec"):
+        _modem("polar2")
+
+
+def test_file_tables_replace_the_built_in_ones(tables):
+    # a QC .npz keeps the QC decoder, an .alist takes the dense one; the NR
+    # graph of the file (shifts mod the modem's z) replaces the built-in one
+    alist, npz = _family_modem("ldpc-alist", tables), _family_modem("ldpc-npz", tables)
+    assert alist._ldpc_qc is None and np.array_equal(alist._ldpc[0], ldpc.make_regular_ldpc()[0])
+    base, z = npz._ldpc_qc
+    assert z == 27 and np.array_equal(base, ldpc._WIFI_648_R12)
+    assert np.array_equal(npz._ldpc[0], ldpc.wifi_ldpc()[0])
+    nr = _family_modem("nr-file", tables)._nr
+    base = nr_ldpc.make_nr_base_graph(2, 64, seed=99)
+    assert nr.z == 52 and nr.base_graph == tuple(map(tuple, np.where(base >= 0, base % 52,
+                                                                     -1).tolist()))
+    assert nr.base_graph != tuple(map(tuple, nr_ldpc.make_nr_base_graph(2, 52).tolist()))
 
 
 def test_bad_inputs_raise():
@@ -273,9 +343,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-def test_family_rx_batch_matches_jax(families, name):
+def test_family_rx_batch_matches_jax(families, tables, name):
     ref = families(name)
-    pm = _family_modem(name)
+    pm = _family_modem(name, tables)
     bits, ok, diag = pm.rx_batch(torch.from_numpy(ref["caps"]))
     assert bits.dtype == torch.uint8 and bits.shape == (B, PAYLOAD)
     assert np.array_equal(bits.numpy(), ref["bits"])
@@ -285,9 +355,9 @@ def test_family_rx_batch_matches_jax(families, name):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-def test_family_tx_is_bit_equal_to_jax(families, name):
+def test_family_tx_is_bit_equal_to_jax(families, tables, name):
     ref = families(name)
-    pm = _family_modem(name)
+    pm = _family_modem(name, tables)
     assert (pm.burst_len, pm.coded_bits) == (ref["jpm"].burst_len, ref["jpm"].coded_bits)
     got = pm.tx(torch.from_numpy(ref["payloads"])).numpy()
     assert got.dtype == np.complex64 and np.array_equal(got, ref["bursts"])
@@ -296,8 +366,8 @@ def test_family_tx_is_bit_equal_to_jax(families, name):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-def test_family_rx_per_burst_equals_rx_batch(name):
-    pm = _family_modem(name)
+def test_family_rx_per_burst_equals_rx_batch(tables, name):
+    pm = _family_modem(name, tables)
     rng = np.random.default_rng(17)
     payloads = rng.integers(0, 2, (3, PAYLOAD)).astype(np.uint8)
     bursts = pm.tx(torch.from_numpy(payloads)).numpy()
@@ -500,12 +570,11 @@ def test_cuda_rx_batch_goes_through_the_kernels(cuda, fec_name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", FAMILIES)
-def test_cuda_family_rx_batch_equals_the_cpu_run(cuda, name):
+def test_cuda_family_rx_batch_equals_the_cpu_run(cuda, tables, name):
     # ccsds decodes its inner code through one kernel launch (Viterbi, or
     # BCJR with erasures); the other families launch none of the kernels
     rng = np.random.default_rng(20)
-    cfg = dict(payload_bits=PAYLOAD, **FAMILIES[name])
-    host, card = _family_modem(name), PacketModem(PacketConfig(**cfg))
+    host, card = _family_modem(name, tables), _family_modem(name, tables, device=cuda)
     payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
     bursts = card.tx(torch.from_numpy(payloads)).cpu().numpy()
     assert np.array_equal(bursts, host.tx(torch.from_numpy(payloads)).numpy())
