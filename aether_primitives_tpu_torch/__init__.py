@@ -12,7 +12,11 @@ with Viterbi or turbo FEC; the Viterbi and BCJR kernels); the wideband
 front end (the oversampled PFB channelizers and the DDC; the PFB fold
 kernel); and the sharded forms of these paths over a mesh of devices in one
 process (:mod:`.parallel.mesh`), whose halo exchange is a peer-push kernel.
-The package imports torch and numpy only; the JAX package stays the
+Beside them run receivers in plain PyTorch, with no kernel of their own:
+the feedback tracking loops (Gardner timing, Costas carrier, the GNSS code
+and carrier loops and bit sync), the front end's conditioning stages, IIR
+filters, the analog modes (FM, AM, SSB), CPFSK/GMSK and OQPSK, and the
+detectors. The package imports torch and numpy only; the JAX package stays the
 reference that the tests hold this one against.
 
 Numeric contract: :func:`assert_evm` at -80 dB, as in the JAX package.
@@ -25,10 +29,11 @@ from . import ops
 from . import parallel
 from . import utils
 from . import models
-from .ops import vecops, fft, sampling, modulation, sequence, noise, fir, frontend, fec
+from .ops import vecops, fft, sampling, modulation, sequence, noise, fir, frontend, analog, fec
 from .ops.vecops import CVec
 from .ops.fft import Scale, Fft, plan as fft_plan
 from .models import PacketConfig, PacketModem, RxChain, RxChainConfig
+from .utils import DB
 
 __version__ = "0.3.0"
 
@@ -48,6 +53,7 @@ __all__ = [
     "Scale",
     "Fft",
     "fft_plan",
+    "DB",
     "ops",
     "parallel",
     "utils",
@@ -60,6 +66,7 @@ __all__ = [
     "noise",
     "fir",
     "frontend",
+    "analog",
     "fec",
     "RxChain",
     "RxChainConfig",

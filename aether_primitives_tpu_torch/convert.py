@@ -6,7 +6,8 @@ The burst link has no weights: what it carries is its configuration, from
 which both packages build the same preamble and turbo permutation. The
 streaming channelizer and DDC stages carry state (tails, oscillator phase,
 filter history): :func:`stage_state_from_numpy` loads it, so that a stream
-started in the JAX package continues in the port.
+started in the JAX package continues in the port; so does
+:func:`iir_states_from_numpy` for ``sosfilt_stream``'s section states.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from .models.channelizer import PfbChannelizerOs, PfbSynthesizerOs
 from .models.ddc import Ddc, DdcConfig
+from .models.fsk import FskConfig
 from .models.channel import ChannelConfig
 from .models.modem import ModemConfig, RxChainConfig
 from .models.packet import PacketConfig
@@ -99,6 +101,27 @@ def ddc_config_from_numpy(fields: dict) -> DdcConfig:
     if fields.get("taps") is not None:
         fields["taps"] = np.asarray(fields["taps"], dtype=np.complex64)
     return DdcConfig(**fields)
+
+
+def fsk_config_from_numpy(fields: dict) -> FskConfig:
+    """``dataclasses.asdict`` of the JAX package's ``FskConfig`` -> the
+    port's :class:`FskConfig` (an unknown field raises)."""
+    known = {f.name for f in dataclasses.fields(FskConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"FskConfig has no fields {unknown}")
+    fields = dict(fields)
+    if fields.get("bt") is not None:
+        fields["bt"] = float(fields["bt"])
+    return FskConfig(**fields)
+
+
+def iir_states_from_numpy(states, device) -> list:
+    """The JAX package's ``sosfilt_stream`` states (a list of per-section
+    complex ``[..., 2]`` arrays, or Nones at a cold start) -> the port's
+    list of complex64 tensors on ``device``; the next
+    ``ops.iir.sosfilt_stream`` call continues the JAX stream."""
+    return [None if s is None else state_from_numpy(np.asarray(s), device) for s in states]
 
 
 def stage_state_from_numpy(stage, tail=None, phase=None, history=None):

@@ -1,8 +1,11 @@
 """Signal-chain models: the loopback modem, the streaming receive and
 transmit chains, the channel simulation and BER curves, the burst link, the
-channelizers (waterfall, PFB, STFT) and the digital down/up-converters."""
+channelizers (waterfall, PFB, STFT), the digital down/up-converters, the
+tracking loops (``sync``), the CPFSK/GMSK and OQPSK modems (``fsk``) and
+the detectors (``detect``)."""
 
-from . import ber, channel, channelizer, ddc, modem, packet, sync
+from . import ber, channel, channelizer, ddc, detect, fsk, modem, packet, sync
+from .fsk import FskConfig, FskModem
 from .channel import Channel, ChannelConfig
 from .sync import OfdmEqualizer, detect_preamble
 from .channelizer import (
@@ -24,4 +27,4 @@ __all__ = ["ber", "channel", "channelizer", "ddc", "modem", "packet", "sync", "M
            "pfb_channelize", "pfb_prototype", "pfb_synthesis_taps", "pfb_synthesize",
            "pfb_channelize_os", "pfb_prototype_nyquist", "pfb_synthesize_os", "sharded_pfb_os",
            "stft", "istft", "Ddc", "DdcConfig", "Duc", "DucConfig", "ddc_bank", "sharded_ddc",
-           "sharded_duc", "pad_to_frames"]
+           "sharded_duc", "pad_to_frames", "detect", "fsk", "FskConfig", "FskModem"]

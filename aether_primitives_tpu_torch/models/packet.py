@@ -50,6 +50,7 @@ from ..ops import polar as _polar
 from ..ops import rs as _rs
 from ..ops import sequence as _seq
 from ..ops import tpc as _tpc
+from ..ops._stats import median_midpoint
 from ..ops import turbo as _turbo
 from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard
 from ..types import as_cf32, stage_device
@@ -69,15 +70,6 @@ def _modulation_by_name(name: str) -> _mod.Modulation:
     if name.startswith("psk"):
         return _mod.psk(int(name[3:]))
     return _mod.qam(int(name[3:]))
-
-
-def _median_midpoint(x: torch.Tensor) -> torch.Tensor:
-    """Median over the last axis, keeping it: the mean of the two middle
-    values for an even count, as ``jnp.median`` (``torch.median`` returns
-    the lower one)."""
-    s = x.sort(dim=-1).values
-    n = x.shape[-1]
-    return (s[..., (n - 1) // 2:(n - 1) // 2 + 1] + s[..., n // 2:n // 2 + 1]) * 0.5
 
 
 @dataclass(frozen=True)
@@ -407,7 +399,7 @@ class PacketModem:
         syms = _rs.bits_to_symbols(hard).reshape(lead + (self.rs_frames, c.rs_n))
         if c.rs_erasures:
             rel = llr.abs().reshape(lead + (self.rs_frames, c.rs_n, 8)).amin(dim=-1)
-            erased = rel < c.rs_erasure_threshold * _median_midpoint(rel)
+            erased = rel < c.rs_erasure_threshold * median_midpoint(rel, keepdim=True)
             dec, _ok, _ = self._rs.decode_erasures(syms, erased)
         else:
             dec, _ok, _ = self._rs.decode(syms)

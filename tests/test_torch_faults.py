@@ -338,6 +338,61 @@ def test_f8_models_export_every_ported_name(jx):
     assert tmodels.sharded_ddc is ddc.sharded_ddc and tmodels.stft is channelizer.stft
 
 
+def _ported_names(jmod, pkg: str, port_pkg: str) -> list:
+    """Names of ``jmod.__all__`` whose module the port has, with the port
+    module's path: a module name itself, or the module defining the object
+    (lazy names such as ``utils.plot`` are modules of the package)."""
+    import importlib
+
+    out = []
+    for name in jmod.__all__:
+        obj = vars(jmod).get(name)
+        if obj is None or isinstance(obj, types.ModuleType):
+            module = obj.__name__ if obj is not None else f"{jmod.__name__}.{name}"
+        else:
+            module = getattr(obj, "__module__", "") or ""
+        if not module.startswith(pkg + ".") and module != pkg:
+            out.append(name)  # a name from outside the package (a dtype): the port has it too
+            continue
+        try:
+            importlib.import_module(port_pkg + module[len(pkg):])
+        except ModuleNotFoundError:
+            continue  # a module still to port (ROADMAP.md queue 1)
+        out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("sub", ["", "ops", "models", "utils"])
+def test_every_ported_name_of_the_jax_all_is_exported(jx, sub):
+    # the top level, ops, models and utils: each name of the JAX __all__
+    # whose module is ported is exported by the port under the same name
+    import importlib
+
+    jmod = importlib.import_module("aether_primitives_tpu" + (f".{sub}" if sub else ""))
+    tmod = importlib.import_module("aether_primitives_tpu_torch" + (f".{sub}" if sub else ""))
+    names = _ported_names(jmod, "aether_primitives_tpu", "aether_primitives_tpu_torch")
+    missing = [n for n in names if not hasattr(tmod, n) or n not in tmod.__all__]
+    assert not missing, missing
+    want = {"": {"analog", "DB"}, "ops": {"analog", "iir"},
+            "models": {"fsk", "FskConfig", "FskModem"}, "utils": {"DB", "db"}}[sub]
+    assert want <= set(names)
+    assert tp.analog.fm_mod is not None and tp.DB.from_ratio(100).db() == 20.0
+
+
+def test_db_equals_the_jax_copy(jx):
+    from aether_primitives_tpu.utils import db as jdb
+
+    from aether_primitives_tpu_torch.utils import db as tdb
+
+    for r in (1e-3, 0.5, 1.0, 2.0, 1234.5):
+        assert tdb.DB.from_ratio(r).db() == jdb.DB.from_ratio(r).db()
+        assert tdb.DB(r).ratio() == jdb.DB(r).ratio()
+    arr = np.array([0.1, 1.0, 10.0, 3.3])
+    assert np.array_equal(tdb.to_db(arr), jdb.to_db(arr))
+    assert np.array_equal(tdb.from_db(arr), jdb.from_db(arr))
+    assert tp.DB is tdb.DB and tp.utils.DB is tdb.DB
+
+
 # ------------------------------------------------------------ F9: delay_pad offsets
 
 

@@ -383,12 +383,12 @@ def test_erasure_median_averages_the_middle_pair(jax_mods):
     # lower one): the erasure rule's median at an even rs_n
     import jax.numpy as jnp
 
-    from aether_primitives_tpu_torch.models.packet import _median_midpoint
+    from aether_primitives_tpu_torch.ops._stats import median_midpoint
 
     x = np.random.default_rng(18).random((3, 2, 156)).astype(np.float32)
     x[0, 0, :4] = 0.5
     for n in (156, 255, 2):
-        got = _median_midpoint(torch.from_numpy(x[..., :n]))
+        got = median_midpoint(torch.from_numpy(x[..., :n]), keepdim=True)
         want = np.asarray(jnp.median(x[..., :n], axis=-1, keepdims=True))
         assert np.array_equal(got.numpy(), want)
 

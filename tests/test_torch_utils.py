@@ -242,6 +242,10 @@ def test_port_imports_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import aether_primitives_tpu_torch.parallel.streaming, aether_primitives_tpu_torch.native\n"
+        "import aether_primitives_tpu_torch.models.fsk, aether_primitives_tpu_torch.models.detect\n"
+        "import aether_primitives_tpu_torch.ops.analog, aether_primitives_tpu_torch.ops.iir\n"
+        "import aether_primitives_tpu_torch.ops._stats, aether_primitives_tpu_torch.utils.db\n"
+        "assert pkg.analog is aether_primitives_tpu_torch.ops.analog and pkg.DB is not None\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aether_primitives_tpu')))\n"
     )
