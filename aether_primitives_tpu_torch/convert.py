@@ -18,8 +18,11 @@ import numpy as np
 import torch
 
 from .models.channelizer import PfbChannelizerOs, PfbSynthesizerOs
+from .models.css import CssConfig
 from .models.ddc import Ddc, DdcConfig
+from .models.fhss import FhssConfig
 from .models.fsk import FskConfig
+from .models.ofdm import OfdmConfig
 from .models.channel import ChannelConfig
 from .models.modem import ModemConfig, RxChainConfig
 from .models.packet import PacketConfig
@@ -114,6 +117,35 @@ def fsk_config_from_numpy(fields: dict) -> FskConfig:
     if fields.get("bt") is not None:
         fields["bt"] = float(fields["bt"])
     return FskConfig(**fields)
+
+
+def _config(cls, fields: dict):
+    """``cls(**fields)`` after :func:`_carried`; an unknown field raises."""
+    fields = _carried(fields)
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {unknown}")
+    return cls(**fields)
+
+
+def ofdm_config_from_numpy(fields: dict) -> OfdmConfig:
+    """``dataclasses.asdict`` of the JAX package's ``OfdmConfig`` -> the
+    port's :class:`OfdmConfig` (:func:`_carried`; an unknown field
+    raises)."""
+    return _config(OfdmConfig, fields)
+
+
+def css_config_from_numpy(fields: dict) -> CssConfig:
+    """``dataclasses.asdict`` of the JAX package's ``CssConfig`` -> the
+    port's :class:`CssConfig` (:func:`_carried`; an unknown field raises)."""
+    return _config(CssConfig, fields)
+
+
+def fhss_config_from_numpy(fields: dict) -> FhssConfig:
+    """``dataclasses.asdict`` of the JAX package's ``FhssConfig`` -> the
+    port's :class:`FhssConfig` (an unknown field raises)."""
+    return _config(FhssConfig, fields)
 
 
 def iir_states_from_numpy(states, device) -> list:

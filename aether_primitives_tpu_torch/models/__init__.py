@@ -1,10 +1,19 @@
 """Signal-chain models: the loopback modem, the streaming receive and
 transmit chains, the channel simulation and BER curves, the burst link, the
 channelizers (waterfall, PFB, STFT), the digital down/up-converters, the
-tracking loops (``sync``), the CPFSK/GMSK and OQPSK modems (``fsk``) and
-the detectors (``detect``)."""
+tracking loops (``sync``), the CPFSK/GMSK and OQPSK modems (``fsk``), the
+detectors (``detect``), CP-OFDM (``ofdm``), the chirp modem (``css``),
+acquisition by cross-ambiguity (``caf``), direction finding and
+beamforming (``doa``), modulation classification (``amc``), frequency
+hopping (``fhss``), the adaptive equalizers (``equalizer``) and diversity
+combining and MIMO detection (``diversity``)."""
 
-from . import ber, channel, channelizer, ddc, detect, fsk, modem, packet, sync
+from . import (
+    amc, ber, caf, channel, channelizer, css, ddc, detect, diversity, doa, equalizer, fhss,
+    fsk, modem, ofdm, packet, sync,
+)
+from .css import CssConfig, CssModem
+from .ofdm import OfdmConfig, OfdmModem, cp_sync
 from .fsk import FskConfig, FskModem
 from .channel import Channel, ChannelConfig
 from .sync import OfdmEqualizer, detect_preamble
@@ -27,4 +36,6 @@ __all__ = ["ber", "channel", "channelizer", "ddc", "modem", "packet", "sync", "M
            "pfb_channelize", "pfb_prototype", "pfb_synthesis_taps", "pfb_synthesize",
            "pfb_channelize_os", "pfb_prototype_nyquist", "pfb_synthesize_os", "sharded_pfb_os",
            "stft", "istft", "Ddc", "DdcConfig", "Duc", "DucConfig", "ddc_bank", "sharded_ddc",
-           "sharded_duc", "pad_to_frames", "detect", "fsk", "FskConfig", "FskModem"]
+           "sharded_duc", "pad_to_frames", "detect", "fsk", "FskConfig", "FskModem",
+           "amc", "caf", "css", "diversity", "doa", "equalizer", "ofdm", "fhss", "OfdmConfig",
+           "OfdmModem", "cp_sync", "CssConfig", "CssModem"]

@@ -49,9 +49,16 @@ It drives the port's paths through their hand-written kernels:
   (``code_tracking_loop`` -> ``carrier_tracking_loop`` -> ``nav_bit_sync``),
   the FM receiver (``fm_mod`` -> ``Duc`` -> ``Ddc`` -> ``fm_demod``, with
   ``sosfilt``), the front end's conditioning stages on a 4M block, the MSK,
-  GMSK and OQPSK loopbacks and the detectors,
+  GMSK and OQPSK loopbacks and the detectors;
+- the acquisition, multicarrier, chirp and array receivers in plain PyTorch
+  (no kernel of their own): GNSS cold acquisition by cross-ambiguity
+  (``models.caf``), the CP-OFDM burst receiver (``models.ofdm``), the chirp
+  modem (``models.css``), the modulation classifier (``models.amc``), the
+  array receivers (``models.doa``), MIMO detection and diversity combining
+  (``models.diversity``), the adaptive equalizers (``models.equalizer``)
+  and the frequency hopper (``models.fhss``),
 
-in twenty-six phases:
+in twenty-eight phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
 2. the seven kernels' builds from the sources in the checkout, and the PFB
@@ -226,7 +233,35 @@ in twenty-six phases:
     flags and masks exact) against the CPU run;
 26. each of phase 25's paths timed (CUDA events, median of 3 runs) and
     profiled (``torch.profiler``, device activity: kernels a call, busy
-    time, the device's idle share).
+    time, the device's idle share);
+27. the acquisition, multicarrier, chirp and array receivers
+    (``acquisition_array_phases``), each at the width its users run, on the
+    card and again on the CPU from the same inputs, none launching any of
+    the seven kernels: GNSS cold acquisition (4 ms of GPS L1 C/A at 4.092
+    Msps, three satellites at -20 dB a sample, all 32 PRNs through
+    ``estimate_delay_doppler`` over +-1.25e-3 cycles/sample in 64
+    hypotheses: exactly the three found, code phase within 0.5 sample,
+    Doppler within 2e-5; again through ``sharded_estimate_delay_doppler`` on
+    ``{time: 4}``, equal to the one-device estimates); the CP-OFDM receiver
+    (LTE 20 MHz numerology, 64QAM, a Schmidl-Cox preamble, one pilot and 139
+    data symbols, ``examples/ofdm.py``'s channel, a batch of 8 captures:
+    ``cp_sync`` timing, ``sc_sync`` frame and CFO, one-tap equalization,
+    bits exact); CSS at SF 12 (-15 dB a chip) and SF 7 (-5 dB), 4M chips
+    each, bits exact; AMC on 320 bursts of 16,384 symbols at 18 dB (BPSK,
+    QPSK and 8PSK all right, the names equal to the CPU run's); a 16-element
+    scan of 256 windows with MUSIC and Capon, a coherent pair with
+    smoothing 4, the scan through ``sharded_estimate_doa`` on ``{channel:
+    4}``, 2-D MUSIC on a 4x4 planar array, ``examples/beamform_rx.py``'s
+    MVDR receiver (payload exact through a jammer 12 dB stronger); 4x4 ZF /
+    MMSE / stream SNR over 1M symbol times; MRC, EGC and selection over 4 x
+    4M samples; Alamouti over 4M symbols; LMS, decision-directed LMS, CMA,
+    RLS and FDAF (decisions after the settle exact); the hopper over 4M
+    samples; each against the CPU run at the bars of its
+    ``tests/test_torch_*.py`` (outputs <= -100 dB, MIMO <= -80 dB, bearings
+    1e-4 rad, CAF delay 1e-3 and Doppler 1e-7, CFOs 1e-7, AMC scores rtol
+    1e-4);
+28. each of phase 27's paths timed (CUDA events, median of 3 runs) and
+    profiled as in phase 26.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -272,6 +307,25 @@ COSTAS_Y_ATOL, COSTAS_ATOL, COSTAS_FREQ_ATOL = 4e-6, 3e-6, 2e-7
 GARDNER_ATOL, GARDNER_ULPS = 3e-3, 10
 DLL_PROMPT_ATOL, DLL_TAU_ATOL = 2e-5, 1e-3
 CARRIER_ATOL, CARRIER_PHASE_ATOL, CARRIER_FREQ_ATOL = 4e-4, 4e-5, 2e-5
+# phases 27-28: the bars of tests/test_torch_{caf,ofdm,doa,amc,diversity,equalizer}.py
+# (card vs CPU run): CAF delay (samples), Doppler (cycles/sample), metric
+# (relative); sync CFOs (cycles/sample); bearings (rad); MUSIC spectra
+# (relative); AMC scores (relative, and absolute for the winner's residual
+# near zero, a difference of features ~1.5 that float32 means round ~1e-6
+# apart in another summation order); the MIMO solves at channel condition numbers under
+# 100 (dB); RLS against float64, from which its float32 recurrence sits
+# at -68 to -103 dB in either package (ROADMAP.md §3.17)
+CAF_DELAY_ATOL, CAF_DOPPLER_ATOL, CAF_METRIC_RTOL = 1e-3, 1e-7, 1e-4
+CFO_ATOL, BEARING_ATOL, SPEC_RTOL, AMC_RTOL, AMC_ATOL = 1e-7, 1e-4, 1e-3, 1e-4, 1e-5
+MIMO_DB, RLS_DB = -80.0, -65.0
+# MVDR weights of examples/beamform_rx.py's scene: its loaded covariance's
+# condition number is ~6e3 (a jammer 12 dB over the packet, 40 dB over the
+# noise), and float32 solves sit at -72 to -76 dB from float64 on the CPU
+MVDR_DB = -60.0
+# GNSS acquisition: +-1.25e-3 cycles/sample (+-5.1 kHz at 4.092 Msps) in 64
+# hypotheses; a PRN is present where metric * N exceeds 25 (noise alone:
+# ~1 on average, ~14 at the largest of the 1M cells of a surface)
+ACQ_MAX_DOPPLER, ACQ_DOPPLERS, ACQ_THRESHOLD = 1.25e-3, 64, 25.0
 # butter(4, 0.05) against the exact float64 recursion: the truncated
 # kernel's floor (-89 dB on the CPU, in both packages; ROADMAP.md §3.15)
 IIR_TRUNC_DB = -85.0
@@ -981,6 +1035,7 @@ def main() -> None:
     halo_entry = sharded_phases(card, burst=burst_set)
     link = link_phases(card)
     analog_tracking_phases(card)
+    acquisition_array_phases(card)
 
     print(json.dumps({"kernels": [
         {
@@ -2927,7 +2982,8 @@ def _max_err(got, want, scale: float = 1.0) -> float:
     return float(np.max(np.abs(g.astype(np.complex128) - w.astype(np.complex128)))) / scale
 
 
-def profile_calls(torch, fn, name: str, ms: float, card: str, calls: int = 1) -> dict:
+def profile_calls(torch, fn, name: str, ms: float, card: str, calls: int = 1,
+                  warm: bool = True) -> dict:
     """torch.profiler over ``calls`` calls of ``fn``, device activity only
     (a loop path makes ~10^5 kernels a call): kernels a call, the device's
     busy milliseconds a call and its idle share of the profiled wall time
@@ -2940,7 +2996,8 @@ def profile_calls(torch, fn, name: str, ms: float, card: str, calls: int = 1) ->
     if not torch.cuda.is_available():
         print(f"profile {name}: no CUDA device: not measured")
         return {"kernels": None, "busy_ms": None, "idle": None}
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3369,6 +3426,601 @@ def analog_tracking_phases(card: str, device: str = "cuda", nsym: int = 6000,
         print(f"time: {name}: median {ms:.4f} ms a call (runs {', '.join(f'{v:.4f}' for v in got)}; "
               f"{iters} call(s) a run, CUDA events) [{card}]", flush=True)
         results[name].update({"ms": ms, **profile_calls(torch, fn, name, ms, card)})
+    return results
+
+
+def _cn(rng, *shape, scale=1.0):
+    """Circular complex Gaussian samples of power ``scale ** 2``, complex64."""
+    import numpy as np
+
+    return (scale * (rng.normal(size=shape) + 1j * rng.normal(size=shape)) / np.sqrt(2)).astype(
+        np.complex64)
+
+
+def _ula_snapshots(rng, m: int, t_snap: int, degs, snr_db: float, coherent: bool = False):
+    """Snapshots ``[m, t_snap]`` of unit-power sources at ``degs`` (degrees
+    from broadside) on a half-wavelength ULA, with complex noise at
+    ``snr_db`` per element; coherent sources are copies of one tone."""
+    import numpy as np
+
+    t = np.arange(t_snap)
+    x = np.zeros((m, t_snap), np.complex128)
+    base = np.exp(2j * np.pi * 0.0137 * t)
+    for i, d in enumerate(degs):
+        a = np.exp(-1j * np.pi * np.arange(m) * np.sin(np.deg2rad(d)))
+        s = (base * (0.9 if i else 1.0) if coherent else
+             np.exp(2j * np.pi * rng.uniform(0.01, 0.45) * t + 2j * np.pi * rng.uniform()))
+        x += a[:, None] * s[None, :]
+    return (x + _cn(rng, m, t_snap, scale=10 ** (-snr_db / 20))).astype(np.complex64)
+
+
+def rls_f64(x, d, ntaps: int, delay: int, lam: float = 0.99, delta: float = 0.01):
+    """``rls_equalize``'s recurrence in float64 (numpy): ``(y, w, err)``."""
+    import numpy as np
+
+    n = x.size
+    xp = np.concatenate([np.zeros(ntaps - 1), x.astype(np.complex128)])
+    rows = np.stack([xp[ntaps - 1 - t:ntaps - 1 - t + n] for t in range(ntaps)], axis=-1)
+    m = min(d.size, n - delay)
+    w = np.zeros(ntaps, np.complex128)
+    p = np.eye(ntaps, dtype=np.complex128) / delta
+    errs = []
+    for u, dd in zip(rows[delay:delay + m], d[:m].astype(np.complex128)):
+        pu = p @ u
+        k = pu / (lam + np.sum(np.conj(u) * pu))
+        e = dd - np.sum(np.conj(w) * u)
+        w = w + k * np.conj(e)
+        p = (p - k[:, None] * np.conj(pu)[None, :]) / lam
+        errs.append(abs(e))
+    return rows @ np.conj(w), np.conj(w), np.array(errs)
+
+
+def acquisition_array_phases(card: str, device: str = "cuda", gps_ms: int = 4, n_prn: int = 32,
+                             numerology=(2048, 144, 1200), ofdm_frames: int = 140,
+                             ofdm_batch: int = 8, css=((12, 1024, -15.0), (7, 32768, -5.0)),
+                             amc_bursts: int = 64, amc_len: int = 16384, doa_windows: int = 256,
+                             doa_snaps: int = 1024, mimo_n: int = 1 << 20,
+                             mimo_host: int = 1 << 16, div_n: int = 1 << 22,
+                             eq_train: int = 1000, eq_len: int = 10000, fdaf_n: int = 1 << 18,
+                             fhss_hops: int = 6400, runs: int = 3) -> dict:
+    """Phases 27-28, the receivers of the OFDM, CSS, CAF, DOA, AMC, FHSS,
+    equalizer and diversity models, each at the full width its users run:
+    GNSS cold acquisition (``examples/gps_acquire.py`` at 4 ms of GPS L1 C/A
+    sampled 4x the chip rate, all 32 PRNs, one device and sharded), the
+    CP-OFDM burst receiver (``examples/ofdm.py`` at the LTE 20 MHz
+    numerology, a batch of ``ofdm_batch`` captures) and Schmidl-Cox sync,
+    the chirp modem at SF 12 and SF 7, the modulation classifier, the array
+    receivers (a 16-element scan with MUSIC and Capon, a coherent pair with
+    smoothing, the sharded scan, 2-D MUSIC on a 4x4 planar array,
+    ``examples/beamform_rx.py``'s MVDR scene), 4x4 MIMO detection and the
+    diversity combiners, the adaptive equalizers and the frequency hopper.
+    Every path runs on ``device`` and again on the CPU from the same inputs
+    (the MIMO detectors' CPU run on the first ``mimo_host`` symbol times),
+    each against its own gate and the bars of its ``tests/test_torch_*.py``;
+    none launches any of the seven kernels. Then each is timed and
+    profiled. Returns ``{path: {"ms", "kernels", "idle", "launches"}}``."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch import cli
+    from aether_primitives_tpu_torch.models import (
+        OfdmConfig, OfdmModem, CssConfig, CssModem, PacketConfig, PacketModem,
+    )
+    from aether_primitives_tpu_torch.models import amc, caf, diversity, doa, equalizer, fhss, ofdm
+    from aether_primitives_tpu_torch.models.sync import OfdmEqualizer, apply_freq_shift
+    from aether_primitives_tpu_torch.ops import modulation as mod
+    from aether_primitives_tpu_torch.ops.sequence import gps_ca_code, lte_gold
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    dev, cpu = torch.device(device), torch.device("cpu")
+    up_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    results, paths = {}, {}
+
+    def run_path(name, fn):
+        """``fn()`` once between the launch counters (none of the seven
+        kernels may launch), as phase 25 runs its paths."""
+        sync(dev)
+        reset_counts()
+        out = fn()
+        sync(dev)
+        counts = read_counts()
+        print(f"{name}: launches {counts} (need none of the seven kernels)")
+        if counts != NO_LAUNCHES:
+            fail(f"{name}: a kernel launch on a path that makes none")
+        paths[name] = fn
+        results[name] = {"launches": counts}
+        return out
+
+    t_start = time.perf_counter()
+
+    # ---- phase 27: the receivers, card against the CPU run ----------------------
+    # GNSS cold acquisition: 4 ms of GPS L1 C/A at 4 samples a chip (4.092
+    # Msps), three satellites at -20 dB per sample for the strongest
+    # (examples/gps_acquire.py's scene), all 32 PRNs searched over +-1.25e-3
+    # cycles/sample (+-5.1 kHz) in 64 Doppler hypotheses
+    rng = np.random.default_rng(21)
+    spc = 4
+    n = 1023 * spc * gps_ms
+    period = 1023 * spc  # the code repeats every 1 ms: delays are taken modulo it
+    truth = {7: (1520, 2.4e-4, 1.0), 13: (2318, -4.4e-4, 0.8), 29: (3070, 7.8e-4, 0.6)}
+    refs = {p: np.tile(np.repeat(1.0 - 2.0 * gps_ca_code(p).astype(np.float32), spc), gps_ms)
+            .astype(np.complex64) for p in range(1, n_prn + 1)}
+    t = np.arange(n)
+    xg = np.zeros(n, np.complex128)
+    for prn, (tau, fd, amp) in truth.items():
+        xg += amp * np.roll(refs[prn], tau) * np.exp(2j * np.pi * fd * t)
+    xg = (xg + _cn(rng, n, scale=10.0)).astype(np.complex64)
+    refs_d = {p: up_dev(r) for p, r in refs.items()}
+    xg_d = up_dev(xg)
+
+    def acquire(x, rs):
+        return {p: caf.estimate_delay_doppler(x, r, max_doppler=ACQ_MAX_DOPPLER,
+                                              n_dopplers=ACQ_DOPPLERS) for p, r in rs.items()}
+
+    acq = {p: tuple(v.cpu() for v in est)
+           for p, est in run_path("GNSS acquisition", lambda: acquire(xg_d, refs_d)).items()}
+    acq_h = acquire(torch.from_numpy(xg), {p: torch.from_numpy(r) for p, r in refs.items()})
+    found = {p: e for p, e in acq.items() if float(e[2]) * n > ACQ_THRESHOLD}
+    exact = set(found) == set(truth) and all(
+        abs((float(found[p][0]) - truth[p][0] + period / 2) % period - period / 2) < 0.5
+        and abs(float(found[p][1]) - truth[p][1]) < 2e-5 for p in truth)
+    # the reference repeats the code gps_ms times, so the surface repeats
+    # every code period in delay: its gps_ms peaks are equal in exact
+    # arithmetic, and rounding picks one; delays compare modulo the period
+    errs = {"delay": max(abs((float(acq[p][0]) - float(acq_h[p][0]) + period / 2) % period
+                             - period / 2) for p in acq),
+            "doppler": max(abs(float(acq[p][1]) - float(acq_h[p][1])) for p in acq),
+            "metric": max(abs(float(acq[p][2]) / float(acq_h[p][2]) - 1) for p in acq)}
+    bars = {"delay": CAF_DELAY_ATOL, "doppler": CAF_DOPPLER_ATOL, "metric": CAF_METRIC_RTOL}
+    acq_mesh = mesh_mod.make_mesh({"time": 4}, [dev] * 4)
+    acq_s = {p: tuple(v.cpu() for v in est) for p, est in run_path(
+        "GNSS acquisition, sharded", lambda: {p: caf.sharded_estimate_delay_doppler(
+            xg_d, r, ACQ_MAX_DOPPLER, acq_mesh, ACQ_DOPPLERS) for p, r in refs_d.items()}).items()}
+    same_s = all(all(torch.equal(a, b) for a, b in zip(acq_s[p], acq[p])) for p in acq)
+    nu = caf._doppler_grid(ACQ_MAX_DOPPLER, ACQ_DOPPLERS)
+    surf_1 = caf.ambiguity(xg_d, refs_d[7], nu)
+    surf_s = caf.sharded_ambiguity(xg_d, refs_d[7], nu, acq_mesh).gather()
+    surf_eq = bool(torch.equal(surf_s, surf_1))
+    print(f"GNSS acquisition ({n} samples = {gps_ms} ms at {spc} samples a chip, {n_prn} PRNs x "
+          f"{ACQ_DOPPLERS} Dopplers): acquired " + ", ".join(
+              f"PRN {p} delay {float(e[0]):.3f} doppler {float(e[1]):+.4e} metric*N "
+              f"{float(e[2]) * n:.1f}" for p, e in sorted(found.items()))
+          + f" (truth {truth}; need exactly these, delay modulo {period} within 0.5, Doppler "
+          f"within 2e-5); "
+          f"the strongest PRN left {max(float(e[2]) * n for p, e in acq.items() if p not in truth):.1f}"
+          f" (threshold {ACQ_THRESHOLD}); card vs CPU run over all PRNs: " + ", ".join(
+              f"{k} {v:.3g} (need <= {bars[k]:g})" for k, v in errs.items())
+          + f"; sharded over {{time: 4}} on {acq_mesh.devices.flat[0]}: estimates equal to the "
+          f"one-device run {same_s}, PRN 7's surface torch.equal {surf_eq} "
+          f"({evm_db(surf_s, surf_1):.2f} dB)", flush=True)
+    if not exact or any(errs[k] > bars[k] for k in errs) or not same_s:
+        fail("GNSS acquisition: the acquired set, the CPU run or the sharded run")
+
+    # CP-OFDM at the LTE 20 MHz numerology: a Schmidl-Cox preamble, a pilot
+    # and ofdm_frames - 1 data symbols of 64QAM, then the transmission goes
+    # on (two more symbols); examples/ofdm.py's channel (unknown delay,
+    # 20-tap multipath inside the CP, CFO within +-2e-4, AWGN 1e-5); a batch
+    # of ofdm_batch captures. cp_sync gives the symbol timing, sc_sync the
+    # frame and the CFO: cp_sync's own CFO, whose folded CP window takes in
+    # the multipath's 19 samples of ISI, is off by up to ~2e-7 cycles/sample,
+    # which turns 64QAM by ~11 degrees over 139 symbols (ROADMAP.md §3.18)
+    fft_len, cp_len, active = numerology
+    cfg = OfdmConfig(fft_len=fft_len, cp_len=cp_len, active_bins=active, modulation="qam64")
+    om, om_h = OfdmModem(cfg, device=dev), OfdmModem(cfg, device=cpu)
+    sym, bpf = cfg.symbol_len, om.bits_per_frame()
+    rng = np.random.default_rng(2026)
+    pilot_bits = np.asarray(lte_gold(0x5A5, bpf)).astype(np.uint8)
+    data = rng.integers(0, 2, (ofdm_batch, (ofdm_frames - 1) * bpf)).astype(np.uint8)
+    more = rng.integers(0, 2, (ofdm_batch, 2 * bpf)).astype(np.uint8)
+    tx = om_h.modulate(torch.from_numpy(np.concatenate(
+        [np.broadcast_to(pilot_bits, (ofdm_batch, bpf)), data, more], axis=1))).numpy()
+    tx_card = om.modulate(up_dev(np.concatenate([pilot_bits, data[0], more[0]])))
+    tx_db = evm_db(tx_card.cpu(), tx[0])
+    pre = ofdm.sc_preamble(cfg)
+    h = np.zeros(20, np.complex64)
+    h[0], h[6], h[19] = 1.0, 0.4j, -0.25 + 0.1j
+    delays = rng.integers(100, 2000, ofdm_batch)
+    cfos = rng.uniform(-2e-4, 2e-4, ofdm_batch)
+    length = 2000 + (ofdm_frames + 1) * sym + h.size - 1 + 64
+    caps = np.zeros((ofdm_batch, length), np.complex64)
+    for i in range(ofdm_batch):
+        rx_i = np.convolve(np.concatenate([pre, tx[i]]), h)[:length - delays[i]]
+        caps[i, delays[i]:delays[i] + rx_i.size] = rx_i
+    caps = (caps * np.exp(2j * np.pi * cfos[:, None] * np.arange(length))
+            + _cn(rng, ofdm_batch, length, scale=np.sqrt(1e-5))).astype(np.complex64)
+    pilot_syms = om_h.modulation.modulate(torch.from_numpy(pilot_bits)).reshape(1, -1)
+
+    def ofdm_sync(x):
+        off, cfo_cp = ofdm.cp_sync(x, cfg)
+        pre_off, cfo = ofdm.sc_sync(x, cfg)
+        return off, cfo_cp, pre_off, cfo
+
+    def ofdm_demod(x, m, off, pre_off, cfo):
+        fixed = apply_freq_shift(x, cfo)
+        # the pilot: the symbol boundary (cp_sync) nearest one symbol past
+        # the preamble's start (sc_sync); one host read for the batch
+        o, so = torch.stack([off, pre_off]).cpu().tolist()
+        starts = [a + round((b - cp_len + sym - a) / sym) * sym for a, b in zip(o, so)]
+        seg = torch.stack([fixed[i, s:s + ofdm_frames * sym] for i, s in enumerate(starts)])
+        spec = m.spectra(seg)
+        h_hat = OfdmEqualizer.estimate(spec[:, :1], pilot_syms.to(spec.device))
+        eq = OfdmEqualizer.apply(spec[:, 1:], h_hat)
+        return starts, eq, m.modulation.demod(eq).reshape(x.shape[0], -1)
+
+    def ofdm_rx(x, m):
+        sy = ofdm_sync(x)
+        return sy, ofdm_demod(x, m, sy[0], sy[2], sy[3])
+
+    caps_d = up_dev(caps)
+    (off, cfo_cp, pre_off, cfo), (starts, eq, got) = run_path(
+        "CP-OFDM receiver", lambda: ofdm_rx(caps_d, om))
+    caps_h = torch.from_numpy(caps)
+    sy_h = ofdm_sync(caps_h)
+    # the CPU's demodulation from the card's sync: a CFO apart in its last
+    # place turns the late symbols by ~1e-4 rad, which the one pilot does
+    # not take out
+    dm_h = ofdm_demod(caps_h, om_h, off.cpu(), pre_off.cpu(), cfo.cpu())
+    bits_ok = bool(np.array_equal(got.cpu().numpy(), data))
+    offs_ok = (off.cpu().tolist() == [int(d) % sym for d in delays]
+               and starts == [int(d) + sym for d in delays]
+               and int((pre_off.cpu() - torch.from_numpy(delays + cp_len)).abs().max()) <= h.size)
+    same = (torch.equal(off.cpu(), sy_h[0]) and torch.equal(pre_off.cpu(), sy_h[2])
+            and starts == dm_h[0] and torch.equal(got.cpu(), dm_h[2]))
+    cfo_err = max(float((a.cpu() - b).abs().max()) for a, b in ((cfo_cp, sy_h[1]), (cfo, sy_h[3])))
+    eq_db = evm_db(eq.cpu(), dm_h[1])
+    miss = {name: float(np.abs(v.cpu().numpy() - cfos).max())
+            for name, v in (("cp_sync", cfo_cp), ("sc_sync", cfo))}
+    print(f"CP-OFDM receiver ({ofdm_batch} captures of {length} samples: fft_len {fft_len}, cp "
+          f"{cp_len}, {active} active bins, 64QAM, preamble + 1 pilot + {ofdm_frames - 1} data "
+          f"symbols = {data.shape[1]} data bits each): bits exact {bits_ok}; cp_sync offsets, "
+          f"frame starts and sc_sync offsets (within {h.size}) right {offs_ok}; CFO error vs "
+          f"truth " + ", ".join(f"{k} {v:.2e}" for k, v in miss.items()) + f"; card vs CPU run: "
+          f"offsets, starts and bits equal {same}, CFOs {cfo_err:.2e} (need <= {CFO_ATOL:g}), "
+          f"equalized spectra from the card's sync {eq_db:.2f} dB (need <= {LOOP_DB}); TX on "
+          f"the card vs the CPU {tx_db:.2f} dB (need <= {LOOP_DB})", flush=True)
+    if not (bits_ok and offs_ok and same) or cfo_err > CFO_ATOL or max(eq_db, tx_db) > LOOP_DB:
+        fail("CP-OFDM receiver: bits, offsets or the CPU run")
+
+    # the chirp modem: SF 12 and SF 7 at 4,194,304 chips each
+    for sf, nsym, snr_db in css:
+        cm, cm_h = CssModem(CssConfig(sf=sf), device=dev), CssModem(CssConfig(sf=sf), device=cpu)
+        rng = np.random.default_rng(sf)
+        bits = rng.integers(0, 2, sf * nsym).astype(np.uint8)
+        bits_d = up_dev(bits)
+        chips_h = cm_h.tx(torch.from_numpy(bits))
+        noise = _cn(rng, chips_h.shape[-1], scale=10 ** (-snr_db / 20))
+        noisy_d = cm.tx(bits_d) + up_dev(noise)
+        chips, got = run_path(f"CSS SF {sf}", lambda m=cm, b=bits_d, x=noisy_d: (m.tx(b), m.rx(x)))
+        got_h = cm_h.rx(chips_h + torch.from_numpy(noise))
+        c_db = evm_db(chips.cpu(), chips_h)
+        ok = bool(np.array_equal(got.cpu().numpy(), bits))
+        same = bool(torch.equal(got.cpu(), got_h))
+        print(f"CSS SF {sf} ({nsym} symbols, {chips.shape[-1]} chips, {snr_db:+.0f} dB a chip): "
+              f"bits exact {ok}; card vs CPU run: chips {c_db:.2f} dB (need <= {LOOP_DB}), bits "
+              f"equal {same}")
+        if not (ok and same) or c_db > LOOP_DB:
+            fail(f"CSS SF {sf}")
+
+    # the modulation classifier: amc_bursts bursts of each class at 18 dB,
+    # CFO removed, a random phase each
+    rng = np.random.default_rng(1800)
+    mods = {"bpsk": mod.bpsk(), "qpsk": mod.qpsk(), "psk8": mod.psk(8), "qam16": mod.qam16(),
+            "qam64": mod.qam(64)}
+    labels = [name for name in mods for _ in range(amc_bursts)]
+    rows = []
+    for name in labels:
+        m = mods[name]
+        s = m.modulate(torch.from_numpy(
+            rng.integers(0, 2, amc_len * m.bits_per_symbol).astype(np.uint8))).numpy()
+        sigma = np.sqrt(np.mean(np.abs(s) ** 2) / 10 ** 1.8)
+        rows.append((s + _cn(rng, amc_len, scale=sigma)) * np.exp(2j * np.pi * rng.uniform()))
+    xa = np.stack(rows).astype(np.complex64)
+    xa_d = up_dev(xa)
+    names, scores = run_path("AMC", lambda: amc.classify_modulation(xa_d))
+    names_h, scores_h = amc.classify_modulation(torch.from_numpy(xa))
+    feat_err = float(np.max(np.abs(amc.cumulant_features(xa_d).cpu().numpy()
+                                   - amc.cumulant_features(torch.from_numpy(xa)).numpy())))
+    acc = {k: sum(g == k for g, w in zip(names, labels) if w == k) / amc_bursts for k in mods}
+    score_ok = bool(np.allclose(scores, scores_h, rtol=AMC_RTOL, atol=AMC_ATOL))
+    psk_ok = all(acc[k] == 1.0 for k in ("bpsk", "qpsk", "psk8"))
+    print(f"AMC ([{xa.shape[0]}, {amc_len}] symbols, 18 dB): accuracy " + ", ".join(
+        f"{k} {v:.4f}" for k, v in acc.items()) + f" (BPSK/QPSK/8PSK need 1.0); card vs CPU run: "
+          f"names equal {names == names_h}, scores within rtol {AMC_RTOL:g} / atol {AMC_ATOL:g} "
+          f"{score_ok}, features max abs difference {feat_err:.2e}", flush=True)
+    if names != names_h or not score_ok or not psk_ok:
+        fail("AMC: the names, the scores or a PSK class")
+
+    # the array receivers: a 16-element ULA scan of doa_windows windows of
+    # doa_snaps snapshots, two sources a window at 10 dB
+    rng = np.random.default_rng(1600)
+    degs = np.stack([np.linspace(-50.0, -10.0, doa_windows), np.linspace(5.0, 45.0, doa_windows)],
+                    axis=1)
+    xw = np.stack([_ula_snapshots(rng, 16, doa_snaps, d, 10.0) for d in degs])
+    xw_d = up_dev(xw)
+    scan = {}
+    for method, tol in (("music", 0.5), ("capon", 1.0)):
+        got = run_path(f"DOA scan, {method}", lambda m=method: doa.estimate_doa(xw_d, 2, method=m))
+        want = doa.estimate_doa(torch.from_numpy(xw), 2, method=method)
+        miss = float(np.abs(np.rad2deg(got.cpu().numpy()) - degs).max())
+        err = float((got.cpu() - want).abs().max())
+        scan[method] = got
+        print(f"DOA scan {method} ({doa_windows} windows x 16 elements x {doa_snaps} snapshots): "
+              f"bearings within {miss:.3f} deg of the sources (need < {tol}); card vs CPU run "
+              f"{err:.2e} rad (need <= {BEARING_ATOL:g})")
+        if miss >= tol or err > BEARING_ATOL:
+            fail(f"DOA scan {method}")
+    r8 = doa.covariance(xw_d[:8])
+    sp, sp_h = doa.music_spectrum(r8, 2)[1], doa.music_spectrum(r8.cpu(), 2)[1]
+    sp_err = float(((sp.cpu() - sp_h).abs() / sp_h.abs()).max())
+    doa_mesh = mesh_mod.make_mesh({"channel": 4}, [dev] * 4)
+    sh = run_path("DOA scan, sharded",
+                  lambda: doa.sharded_estimate_doa(xw_d, 2, doa_mesh).gather())
+    sh_eq = bool(torch.equal(sh, scan["music"]))
+    sh_err = float((sh - scan["music"]).abs().max())
+    print(f"DOA: MUSIC spectra of 8 windows on the card vs on the CPU (the same covariance) rtol "
+          f"{sp_err:.2e} (need <= {SPEC_RTOL:g}); sharded over {{channel: 4}} on "
+          f"{doa_mesh.devices.flat[0]}: torch.equal to the one-device scan {sh_eq} (max "
+          f"{sh_err:.2e} rad)")
+    if sp_err > SPEC_RTOL or sh_err > BEARING_ATOL:
+        fail("DOA: the spectra or the sharded scan")
+    xc = np.stack([_ula_snapshots(rng, 16, doa_snaps, (-20.0, 25.0), 20.0, coherent=True)
+                   for _ in range(32)])
+    xc_d = up_dev(xc)
+    co = run_path("DOA coherent pair", lambda: doa.estimate_doa(xc_d, 2, smoothing=4))
+    co_h = doa.estimate_doa(torch.from_numpy(xc), 2, smoothing=4)
+    miss = float(np.abs(np.rad2deg(co.cpu().numpy()) - [-20.0, 25.0]).max())
+    err = float((co.cpu() - co_h).abs().max())
+    print(f"DOA coherent pair (32 windows, smoothing 4): within {miss:.3f} deg (need < 1.5); card "
+          f"vs CPU run {err:.2e} rad (need <= {BEARING_ATOL:g})")
+    if miss >= 1.5 or err > BEARING_ATOL:
+        fail("DOA coherent pair")
+    # 2-D MUSIC: a 4x4 planar array (x-z plane, half a wavelength apart)
+    pos = np.array([[0.5 * i, 0.0, 0.5 * j] for i in range(4) for j in range(4)])
+    src = [(np.deg2rad(-15.0), np.deg2rad(10.0)), (np.deg2rad(30.0), np.deg2rad(-20.0))]
+    tt = np.arange(doa_snaps)
+    x2 = np.zeros((16, doa_snaps), np.complex128)
+    for az0, el0 in src:
+        a = doa.steering_vector_pos(pos, az0, el0).numpy()
+        x2 += a[:, None] * np.exp(2j * np.pi * rng.uniform(0.05, 0.45) * tt)[None, :]
+    x2 = (x2 + _cn(rng, 16, doa_snaps, scale=0.2)).astype(np.complex64)
+    x2_d = up_dev(x2)
+    p2 = run_path("DOA 2-D MUSIC", lambda: doa.estimate_doa_2d(x2_d, 2, pos))
+    p2_h = doa.estimate_doa_2d(torch.from_numpy(x2), 2, pos)
+    miss = float(np.abs(np.rad2deg(p2.cpu().numpy()) - np.rad2deg(sorted(src))).max())
+    err = float((p2.cpu() - p2_h).abs().max())
+    print(f"DOA 2-D MUSIC (4x4 planar, 181 x 61 grid): (az, el) within {miss:.3f} deg (need < "
+          f"2.5); card vs CPU run {err:.2e} rad (need <= {BEARING_ATOL:g})")
+    if miss >= 2.5 or err > BEARING_ATOL:
+        fail("DOA 2-D MUSIC")
+    # examples/beamform_rx.py: 8 elements, a jammer 12 dB stronger; MUSIC
+    # bearings, MVDR toward each, the packet decoded by the CRC's verdict
+    rng = np.random.default_rng(11)
+    pm, pm_h = (PacketModem(PacketConfig(payload_bits=256, fec="ldpc11n"), device=d)
+                for d in (dev, cpu))
+    payload = rng.integers(0, 2, 256).astype(np.uint8)
+    burst = pm_h.tx(torch.from_numpy(payload)).numpy()
+    nb = burst.size * 3
+    s_pkt = np.zeros(nb, np.complex64)
+    s_pkt[421:421 + burst.size] = burst
+    jam = 4.0 * np.exp(2j * np.pi * 0.083 * np.arange(nb) + 2j * np.pi * rng.uniform())
+    a_pkt = doa.steering_vector(8, np.deg2rad(18.0)).numpy()
+    a_jam = doa.steering_vector(8, np.deg2rad(-30.0)).numpy()
+    xb = (a_pkt[:, None] * s_pkt + a_jam[:, None] * jam
+          + 0.05 * (rng.normal(size=(8, nb)) + 1j * rng.normal(size=(8, nb)))).astype(np.complex64)
+
+    def array_rx(x, m):
+        est = doa.estimate_doa(x, 2, method="music")
+        r = doa.covariance(x)
+        out = []
+        for i in range(2):
+            w = doa.mvdr_weights(r, est[i])
+            y = torch.matmul(w.conj()[None, :], x)[0]
+            out.append((w, *m.rx(y)))
+        return est, out
+
+    xb_d = up_dev(xb)
+    bf = run_path("array receiver (MVDR + packet)", lambda: array_rx(xb_d, pm))
+    bf_h = array_rx(torch.from_numpy(xb), pm_h)
+    oks = [bool(o[2]) for o in bf[1]]
+    decoded = [o[1].cpu().numpy() for o in bf[1] if bool(o[2])]
+    exact = len(decoded) == 1 and np.array_equal(decoded[0], payload)
+    same = all(bool(o[2]) == bool(oh[2]) and torch.equal(o[1].cpu(), oh[1])
+               for o, oh in zip(bf[1], bf_h[1]))
+    b_err = float((bf[0].cpu() - bf_h[0]).abs().max())
+    w_db = max(evm_db(o[0].cpu(), oh[0]) for o, oh in zip(bf[1], bf_h[1]))
+    y_db = max(evm_db(torch.matmul(o[0].cpu().conj()[None, :], torch.from_numpy(xb))[0],
+                      torch.matmul(oh[0].conj()[None, :], torch.from_numpy(xb))[0])
+               for o, oh in zip(bf[1], bf_h[1]))
+    print(f"array receiver (8 elements, jammer +12 dB): MUSIC bearings "
+          f"{np.rad2deg(bf[0].cpu().numpy()).round(2).tolist()} deg (-30, 18), CRC per bearing "
+          f"{oks}, payload exact {exact}; card vs CPU run: bearings {b_err:.2e} rad (need <= "
+          f"{BEARING_ATOL:g}), MVDR weights {w_db:.2f} dB (need <= {MVDR_DB}), their beams "
+          f"{y_db:.2f} dB, payloads and verdicts equal {same}", flush=True)
+    if not (exact and same) or b_err > BEARING_ATOL or w_db > MVDR_DB:
+        fail("array receiver")
+
+    # 4x4 spatial multiplexing of QPSK, a Rayleigh H per symbol time, 20 dB
+    rng = np.random.default_rng(44)
+    hm = _cn(rng, mimo_n, 4, 4)
+    sm_bits = rng.integers(0, 2, (mimo_n, 8)).astype(np.uint8)
+    q = mod.qpsk()
+    sm = q.modulate(torch.from_numpy(sm_bits)).numpy() / np.sqrt(2)
+    ym = (np.einsum("nij,nj->ni", hm, sm) + _cn(rng, mimo_n, 4, scale=0.1)).astype(np.complex64)
+    hm_d, ym_d = up_dev(hm), up_dev(ym)
+
+    def mimo(y, hh):
+        return (diversity.mimo_detect_zf(y, hh), diversity.mimo_detect_mmse(y, hh, 0.01),
+                diversity.mimo_stream_snr(hh, 0.01))
+
+    zf, mm, snr = run_path("MIMO 4x4 ZF / MMSE / SNR", lambda: mimo(ym_d, hm_d))
+    k = mimo_host
+    zf_h, mm_h, snr_h = mimo(torch.from_numpy(ym[:k]), torch.from_numpy(hm[:k]))
+    good = np.linalg.cond(hm[:k]) < 100
+    g = torch.from_numpy(good)
+    dbs = {"zf": evm_db(zf[:k].cpu()[g], zf_h[g]), "mmse": evm_db(mm[:k].cpu()[g], mm_h[g]),
+           "snr": evm_db(snr[:k].cpu()[g], snr_h[g])}
+    ber = {name: float((q.demod(v.reshape(-1)).cpu().numpy() != sm_bits.reshape(-1)).mean())
+           for name, v in (("zf", zf), ("mmse", mm))}
+    dec_same = bool(torch.equal(q.demod(zf[:k].cpu()[g]), q.demod(zf_h[g])))
+    print(f"MIMO 4x4 ({mimo_n} symbol times, a Rayleigh H each, 20 dB): BER ZF {ber['zf']:.4e}, "
+          f"MMSE {ber['mmse']:.4e} (MMSE must not exceed ZF); card vs CPU run on the first {k} "
+          f"symbol times, the {int(good.sum())} with cond(H) < 100: " + ", ".join(
+              f"{kk} {v:.2f} dB" for kk, v in dbs.items()) + f" (need <= {MIMO_DB}), ZF decisions "
+          f"equal {dec_same}", flush=True)
+    if ber["mmse"] > ber["zf"] or any(v > MIMO_DB for v in dbs.values()) or not dec_same:
+        fail("MIMO detectors")
+
+    # MRC / EGC / selection over 4 branches x div_n samples (a Rayleigh gain
+    # a branch every 1,024 samples, 5 dB a branch), and Alamouti over div_n
+    # symbols (a channel pair every 2,048)
+    rng = np.random.default_rng(45)
+    blocks = div_n // 1024
+    hd = _cn(rng, blocks, 4, 1)
+    sd_bits = rng.integers(0, 2, (blocks, 1, 2048)).astype(np.uint8)
+    sd = q.modulate(torch.from_numpy(sd_bits)).numpy() / np.sqrt(2)
+    yd = (hd * sd + _cn(rng, blocks, 4, 1024, scale=10 ** (-5 / 20))).astype(np.complex64)
+    hd_d, yd_d = up_dev(hd), up_dev(yd)
+
+    def combine(y, hh):
+        return (diversity.mrc_combine(y, hh), diversity.egc_combine(y, hh),
+                diversity.selection_combine(y, hh))
+
+    comb = run_path("diversity combiners", lambda: combine(yd_d, hd_d))
+    comb_h = combine(torch.from_numpy(yd), torch.from_numpy(hd))
+    ref_bits = sd_bits.reshape(-1)
+    ber = {name: float((q.demod(v.reshape(-1)).cpu().numpy() != ref_bits).mean())
+           for name, v in zip(("mrc", "egc", "selection"), comb)}
+    ber["one branch"] = float((q.demod(torch.from_numpy(yd[:, 0] / hd[:, 0])).numpy().reshape(-1)
+                               != ref_bits).mean())
+    dbs = {name: evm_db(v.cpu(), vh) for name, v, vh in zip(("mrc", "egc", "selection"), comb,
+                                                            comb_h)}
+    rng = np.random.default_rng(46)
+    sa_bits = rng.integers(0, 2, (div_n // 2048, 4096)).astype(np.uint8)
+    sa = q.modulate(torch.from_numpy(sa_bits)).numpy() / np.sqrt(2)
+    h0, h1 = _cn(rng, div_n // 2048), _cn(rng, div_n // 2048)
+    noise_a = _cn(rng, div_n // 2048, 2048, scale=0.1)
+    sa_d, h0_d, h1_d, na_d = up_dev(sa), up_dev(h0), up_dev(h1), up_dev(noise_a)
+
+    def alamouti(s, g0, g1, w):
+        txa = diversity.alamouti_encode(s)
+        r = g0[:, None] * txa[:, 0] + g1[:, None] * txa[:, 1] + w
+        return txa, diversity.alamouti_decode(r, g0, g1)
+
+    al = run_path("Alamouti", lambda: alamouti(sa_d, h0_d, h1_d, na_d))
+    al_h = alamouti(*(torch.from_numpy(a) for a in (sa, h0, h1, noise_a)))
+    ber["alamouti"] = float((q.demod(al[1].reshape(-1)).cpu().numpy()
+                             != sa_bits.reshape(-1)).mean())
+    dbs["alamouti tx"] = evm_db(al[0].cpu(), al_h[0])
+    dbs["alamouti"] = evm_db(al[1].cpu(), al_h[1])
+    print(f"diversity (4 x {div_n} samples at 5 dB a branch; Alamouti {div_n} symbols at 20 "
+          f"dB): BER " + ", ".join(f"{kk} {v:.4e}" for kk, v in ber.items()) + " (MRC must beat "
+          f"one branch tenfold); card vs CPU run " + ", ".join(
+              f"{kk} {v:.2f} dB" for kk, v in dbs.items()) + f" (need <= {LOOP_DB})", flush=True)
+    if ber["mrc"] * 10 > ber["one branch"] or any(v > LOOP_DB for v in dbs.values()):
+        fail("diversity: the combiners' gain or the CPU run")
+
+    # the adaptive equalizers: QPSK (unit modulus) through a 5-tap ISI
+    # channel at noise 1e-3; LMS (11 taps) trained on eq_train symbols then
+    # decision-directed over eq_len, CMA over eq_len, RLS trained on 200,
+    # FDAF (64 taps) over fdaf_n samples (identifying the channel's inverse
+    # at a delay of 8)
+    rng = np.random.default_rng(5000)
+    ch5 = np.array([0.2j, 1.0, 0.45, -0.25 + 0.15j, 0.1], np.complex64)
+    ne = max(eq_train + eq_len, fdaf_n)
+    e_bits = rng.integers(0, 2, 2 * ne).astype(np.uint8)
+    txe = (q.modulate(torch.from_numpy(e_bits)).numpy() / np.sqrt(2)).astype(np.complex64)
+    xe = (np.convolve(txe, ch5)[:ne] + _cn(rng, ne, scale=np.sqrt(1e-3))).astype(np.complex64)
+    table = (q.table / np.sqrt(2)).astype(np.complex64)
+    dly = 4
+    spike = np.zeros(11, np.complex64)  # CMA starts from a spike ahead of the main tap
+    spike[3] = 1.0
+
+    def equalizers(x, d):
+        lms = equalizer.lms_equalize(x[:eq_train], d[:eq_train], ntaps=11, mu=0.4, delay=dly)
+        dd = equalizer.dd_equalize(x[eq_train:eq_train + eq_len], table, ntaps=11, mu=0.05,
+                                   w0=lms[1])
+        cma = equalizer.cma_equalize(x[:eq_len], ntaps=11, mu=0.02, w0=spike)
+        rls = equalizer.rls_equalize(x[:eq_train + eq_len], d[:200], ntaps=11, delay=dly)
+        dd8 = torch.nn.functional.pad(d[:fdaf_n - 8], (8, 0))
+        fd = equalizer.fdaf(x[:fdaf_n], dd8, ntaps=64)
+        return lms, dd, cma, rls, fd
+
+    xe_d, txe_d = up_dev(xe), up_dev(txe)
+    eqs = run_path("adaptive equalizers", lambda: equalizers(xe_d, txe_d))
+    eqs_h = equalizers(torch.from_numpy(xe), torch.from_numpy(txe))
+
+    def decide(y):
+        return q.demod(y.cpu()).numpy()
+
+    settle = 64
+    # y[i] estimates symbol i - delay; the DD output restarts its window
+    got = {"dd": decide(eqs[1][0][settle:]),
+           "rls": decide(eqs[3][0][200 + dly:eq_train + eq_len]),
+           "fdaf": decide(eqs[4][0][fdaf_n // 2:])}
+    want = {"dd": e_bits[2 * (eq_train + settle - dly):2 * (eq_train + eq_len - dly)],
+            "rls": e_bits[400:2 * (eq_train + eq_len - dly)],
+            "fdaf": e_bits[2 * (fdaf_n // 2 - 8):2 * (fdaf_n - 8)]}
+    exact = {k: bool(np.array_equal(got[k], want[k])) for k in got}
+    # CMA is phase-blind: its combined response with the channel peaks at a
+    # lag and a rotation, which the decisions after its settle are taken at
+    comb = np.convolve(ch5, eqs[2][1].cpu().numpy())
+    lag = int(np.argmax(np.abs(comb)))
+    peak_share = float(np.abs(comb[lag]) ** 2 / np.sum(np.abs(comb) ** 2))
+    rot = np.conj(comb[lag]) / np.abs(comb[lag])
+    cy = eqs[2][0][eq_len // 2:].cpu() * torch.tensor(rot, dtype=torch.complex64)
+    exact["cma"] = peak_share > 0.95 and bool(np.array_equal(
+        decide(cy), e_bits[2 * (eq_len // 2 - lag):2 * (eq_len - lag)]))
+    dbs = {}
+    for name, v, vh in zip(("lms", "dd", "cma", "rls", "fdaf"), eqs, eqs_h):
+        if name != "rls":
+            dbs[name] = (max(evm_db(a.cpu(), b) for a, b in zip(v, vh)), LOOP_DB)
+    # RLS: the card and the CPU each against float64, as tests/test_torch_
+    # equalizer.py holds it (its float32 recurrence, ROADMAP.md §3.17)
+    gold = rls_f64(xe[:eq_train + eq_len], txe[:200], 11, dly)
+    for name, v in (("rls (card vs float64)", eqs[3]), ("rls (CPU vs float64)", eqs_h[3])):
+        dbs[name] = (max(evm_db(a.cpu(), b) for a, b in zip(v, gold)), RLS_DB)
+    print(f"adaptive equalizers (5-tap ISI, QPSK): CMA's combined response at lag {lag} holds "
+          f"{peak_share:.4f} of its energy (need > 0.95); decisions after the settle exact: "
+          + ", ".join(f"{k} {v}" for k, v in exact.items()) + "; card vs CPU run (weights, "
+          "outputs, errors): " + ", ".join(f"{k} {v:.2f} dB (need <= {b})"
+                                           for k, (v, b) in dbs.items()), flush=True)
+    if not all(exact.values()) or any(v > b for v, b in dbs.values()):
+        fail("adaptive equalizers")
+
+    # the frequency hopper: 79 channels, dwell 625, fhss_hops hops
+    hcfg = fhss.FhssConfig(n_channels=79, dwell=625)
+    rng = np.random.default_rng(79)
+    xh = _cn(rng, fhss_hops * 625)
+    xh_d = up_dev(xh)
+    fh = run_path("FHSS", lambda: (lambda s: (s, fhss.hop_despread(s, hcfg)))(
+        fhss.hop_spread(xh_d, hcfg)))
+    fh_h = fhss.hop_spread(torch.from_numpy(xh), hcfg)
+    dbs = {"spread vs CPU": evm_db(fh[0].cpu(), fh_h), "despread vs input": evm_db(fh[1].cpu(), xh)}
+    print(f"FHSS ({fhss_hops} hops of 625 over 79 channels, {xh.size} samples): " + ", ".join(
+        f"{k} {v:.2f} dB" for k, v in dbs.items()) + f" (need <= {LOOP_DB})", flush=True)
+    if any(v > LOOP_DB for v in dbs.values()):
+        fail("FHSS")
+
+    print(f"phase 27: {time.perf_counter() - t_start:.1f} s (the card's runs and the CPU's)")
+
+    # ---- phase 28: timings ---------------------------------------------------------
+    t_start = time.perf_counter()
+    for name, fn in paths.items():
+        iters = 1 if name == "adaptive equalizers" else 5
+        got = [cli.time_cuda(fn, iters, warmup=0 if iters == 1 else 1) for _ in range(runs)]
+        ms = float(np.median(got))
+        print(f"time: {name}: median {ms:.4f} ms a call (runs {', '.join(f'{v:.4f}' for v in got)}; "
+              f"{iters} call(s) a run, CUDA events) [{card}]", flush=True)
+        # the paths ran warm in the timings; a short call is profiled over
+        # more calls, and over another window where the profiler dropped
+        # every record of one (cli.kernel_device_ms does the same)
+        calls = 20 if ms < 1.0 else 5 if ms < 5.0 else 1
+        for _ in range(3):
+            prof = profile_calls(torch, fn, name, ms, card, calls=calls, warm=False)
+            if prof["kernels"] is not None or not torch.cuda.is_available():
+                break
+        results[name].update({"ms": ms, **prof})
+    print(f"phase 28: {time.perf_counter() - t_start:.1f} s")
     return results
 
 

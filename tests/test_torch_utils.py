@@ -245,6 +245,9 @@ def test_port_imports_with_jax_blocked():
         "import aether_primitives_tpu_torch.models.fsk, aether_primitives_tpu_torch.models.detect\n"
         "import aether_primitives_tpu_torch.ops.analog, aether_primitives_tpu_torch.ops.iir\n"
         "import aether_primitives_tpu_torch.ops._stats, aether_primitives_tpu_torch.utils.db\n"
+        "from aether_primitives_tpu_torch.models import css, equalizer, diversity, doa, caf, ofdm\n"
+        "from aether_primitives_tpu_torch.models import amc, fhss\n"
+        "import aether_primitives_tpu_torch.utils.plot\n"
         "assert pkg.analog is aether_primitives_tpu_torch.ops.analog and pkg.DB is not None\n"
         "print(len(names), sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aether_primitives_tpu')))\n"
