@@ -1,18 +1,32 @@
-"""The RX chain benchmark on a CUDA device, and the float64 reference chain.
+"""The RX chain benchmark and the per-op micro-benchmark on a CUDA device,
+and the float64 reference chain.
 
-Counterpart of ``aether_primitives_tpu/cli.py`` ``bench_main``: the same
-chain (fft_len 2048, decimation 4, 65 taps, packed QPSK bytes), the same
-4,194,304-sample blocks and the same two-block streaming gate, timed with
-CUDA events on blocks already resident on the device. Run it with
-``python -m aether_primitives_tpu_torch.cli``.
+Counterpart of ``aether_primitives_tpu/cli.py``:
+
+- ``bench_main`` (``aether-torch-bench``): the same chain (fft_len 2048,
+  decimation 4, 65 taps, packed QPSK bytes), the same 4,194,304-sample
+  blocks and the same two-block streaming gate, timed with CUDA events on
+  blocks already resident on the device. Also ``python -m
+  aether_primitives_tpu_torch.cli``.
+- ``microbench_main`` (``aether-torch-microbench``): the JAX package's 33
+  per-op rows (names, sizes and seed 815 kept), each calling the port's
+  function for that op on inputs resident on the card, timed by CUDA
+  events (the median of ``--rounds`` rounds of ``--iters`` calls after
+  warm-up), with the kernels a call and the device's busy time from
+  ``torch.profiler`` over one call, and the launches of the seven
+  hand-written kernels a call. The JAX package's relay timing (marginal
+  cost, digests, the plausibility cap) has no counterpart: events time the
+  device directly.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -233,6 +247,293 @@ def bench_main(argv=None):
     payload["ms_per_block"] = ms
     payload["value"] = BLOCK / (ms * 1e-3) / 1e6
     print(json.dumps(payload))
+    return None
+
+
+#: The seven hand-written kernels, whose launches a microbench row counts
+#: (``ops/cuda/<name>.py``'s ``launches``).
+KERNELS = ("rx_frame", "viterbi", "bcjr", "pfb_fold", "cmul", "stream", "halo")
+
+
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launch count in this process."""
+    import importlib
+
+    return {k: importlib.import_module(f"{__package__}.ops.cuda.{k}").launches
+            for k in KERNELS}
+
+
+def time_host(fn, iters: int, warmup: int = 0) -> float:
+    """Milliseconds per call of ``fn()`` by the host clock (a CPU run)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def profile_call(fn) -> dict:
+    """``torch.profiler`` (CUPTI) over one call of ``fn()`` after it ran
+    once: ``{"kernels": device activities a call, "busy_ms": their summed
+    device time}``; None for each where the profiler recorded no device
+    activity (it drops records at times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not acts:
+        return {"kernels": None, "busy_ms": None}
+    return {"kernels": len(acts), "busy_ms": sum(e.time_range.elapsed_us() for e in acts) / 1e3}
+
+
+def _np_polar_encode(u: np.ndarray) -> np.ndarray:
+    """Polar transform of ``u [..., n]`` over GF(2), in numpy (the JAX
+    microbench's own helper)."""
+    x, step = u.copy(), 1
+    while step < u.shape[-1]:
+        b = x.reshape(x.shape[:-1] + (-1, 2, step))
+        b[..., 0, :] ^= b[..., 1, :]
+        x = b.reshape(x.shape)
+        step *= 2
+    return x
+
+
+def microbench_main(argv=None):
+    """Per-op micro-benchmark: one row per op of the JAX package's
+    ``microbench_main`` (``aether_primitives_tpu/cli.py:95-449``), printed
+    a line each and written with ``--json``. Exits 1 without a CUDA device
+    unless ``--cpu`` asks for the CPU (timed by the host clock: for the
+    tests, not a measurement of the card)."""
+    ap = argparse.ArgumentParser(prog="aether-torch-microbench",
+                                 description="Per-op micro-benchmark of the port on one card.")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU, timed by the host clock (tests only)")
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="timed rounds per row (the median is the row's time)")
+    args = ap.parse_args(argv)
+
+    from .models.caf import ambiguity
+    from .models.channelizer import istft, stft
+    from .models.css import CssConfig, CssModem
+    from .models.ddc import DdcConfig
+    from .ops import fec as _fec
+    from .ops import fir, frontend, modulation, sampling, vecops
+    from .ops import ldpc as _ldpc
+    from .ops import polar as _polar
+    from .ops.fft import Scale, plan as fft_plan
+    from .ops.iir import butter_sos, sosfilt
+    from .ops.rs import rs_255_223
+    from .ops.turbo import turbo_decode, turbo_encode
+
+    if args.cpu:
+        dev = torch.device("cpu")
+        head = {"platform": "cpu", "device": "cpu", "card": "none (a CPU run: not measured)",
+                "timing": "host clock (perf_counter), no card"}
+    else:
+        if not torch.cuda.is_available():
+            sys.exit("microbench_main needs a CUDA device (--cpu asks for the CPU)")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        head = {"platform": "gpu", "device": torch.cuda.get_device_name(dev),
+                "card": card_label(), "timing": "CUDA events"}
+    clock = time_host if args.cpu else time_cuda
+    rng = np.random.default_rng(815)
+    results = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(name, fn, blk, samples, iters=args.iters):
+        call = (lambda: fn(*blk)) if isinstance(blk, tuple) else (lambda: fn(blk))
+        call()  # warm-up: kernel builds, cuFFT plans, caches
+        sync()
+        before = kernel_launches()  # the second warm-up call counts the launches
+        call()
+        sync()
+        after = kernel_launches()
+        launches = {k: after[k] - before[k] for k in KERNELS if after[k] != before[k]}
+        rounds = [clock(call, iters, warmup=0) for _ in range(max(1, args.rounds))]
+        ms = statistics.median(rounds)
+        prof = profile_call(call) if dev.type == "cuda" else {"kernels": None, "busy_ms": None}
+        row = {
+            "bench": name, "us_per_call": ms * 1e3,
+            "msamples_per_s": samples / (ms * 1e-3) / 1e6,
+            "rounds_us_per_call": [r * 1e3 for r in rounds],
+            "round_spread": max(rounds) / min(rounds),
+            "iters": iters,
+            "kernels_per_call": prof["kernels"],
+            "device_busy_ms": prof["busy_ms"],
+            "idle": None if prof["busy_ms"] is None else max(0.0, 1 - prof["busy_ms"] / ms),
+            "launches": launches,
+        }
+        results.append(row)
+        busy = ("not measured" if prof["busy_ms"] is None else
+                f"{prof['kernels']} kernels, busy {prof['busy_ms']:.4f} ms, "
+                f"idle {100 * row['idle']:.1f}%")
+        print(f"{name:46s} {row['us_per_call']:11.1f} us/call {row['msamples_per_s']:10.1f} "
+              f"Msa/s  spread {row['round_spread']:.2f}x/{len(rounds)}r  {busy}"
+              + (f"  launches {launches}" if launches else ""), flush=True)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def rsplit(shape):
+        re = rng.normal(size=shape).astype(np.float32)
+        im = rng.normal(size=shape).astype(np.float32)
+        return on(re + 1j * im.astype(np.complex64))
+
+    B = args.batch
+    slow = min(args.iters, 10)  # the decoders' rows: the JAX rows' 10 calls at most
+
+    # vecops @ N=2048 (reference benches/benches.rs:28-70)
+    n = 2048
+    two = rsplit((B, n))
+    timed("vecops mul [batch x 2048]", lambda x: vecops.mul(x, x), two, B * n)
+    timed("vecops scale [batch x 2048]", lambda x: vecops.scale(x, 2.0), two, B * n)
+    timed("vecops conj+mirror [batch x 2048]", lambda x: vecops.mirror(vecops.conj(x)), two,
+          B * n)
+
+    # interpolate / downsample (reference benches/benches.rs:72-133)
+    timed("interpolate (1024,4) [batch]", lambda x: sampling.interpolate(x, 4),
+          rsplit((B, 1024)), B * 1024)
+    timed("downsample 30720->1024 [batch]", lambda x: sampling.downsample(x, 1024),
+          rsplit((B // 8 or 1, 30720)), (B // 8 or 1) * 30720)
+
+    # modulation (reference benches/benches.rs:192-281)
+    qpsk = modulation.qpsk()
+    bits = on(rng.integers(0, 2, (B, 8000)).astype(np.uint8))
+    timed("qpsk modulate 8000 bits [batch]", qpsk.modulate, bits, B * 8000)
+    timed("qpsk demod 4000 syms [batch]", qpsk.demod, rsplit((B, 4000)), B * 4000)
+    bpsk = modulation.bpsk()
+    timed("bpsk modulate 8000 bits [batch]", bpsk.modulate, bits, B * 8000)
+
+    # FFT fwd/bwd (reference benches/benches.rs:288-380)
+    for nfft in (512, 1024, 2048):
+        p = fft_plan(nfft)
+        blk = rsplit((B, nfft))
+        timed(f"fft {nfft} fwd SN [batch]", lambda x, p=p: p.fwd(x, Scale.SN), blk, B * nfft)
+        timed(f"fft {nfft} bwd SN [batch]", lambda x, p=p: p.bwd(x, Scale.SN), blk, B * nfft)
+
+    # freq-domain correlator (reference benches/benches.rs:382-423)
+    for nfft in (512, 1024, 2048):
+        sig_c = rsplit((nfft,))
+        timed(f"correlator {nfft} [batch]", lambda x, s=sig_c: fir.correlate(x, s),
+              rsplit((B, nfft)), B * nfft)
+
+    # the front-end mixer and the DDC core (mix -> lowpass -> /8)
+    nddc = B * 2048
+    ddc_taps = DdcConfig(decimation=8).resolved_taps()
+    one = rsplit((nddc,))
+    timed("nco mix [flat]", lambda x: frontend.nco_mix(x, 0.1375), one, nddc)
+    timed("ddc core: mix+fir129+/8 [flat]",
+          lambda x: fir.fir_filter_os_decimate(frontend.nco_mix(x, 0.1375), ddc_taps, 8),
+          one, nddc)
+
+    # channel coding, acquisition, spread spectrum
+    h_pc, _g, _info = _ldpc.make_regular_ldpc(648, 3, 6, seed=7)
+    nfr = max(B // 16, 1)
+    llr_blk = on(rng.normal(size=(nfr, 648)).astype(np.float32) * 4.0)
+    timed(f"ldpc min-sum 25 iters [{nfr} x 648]",
+          lambda l: _ldpc.ldpc_decode(l, h_pc, iters=25)[0], llr_blk, nfr * 648)
+    h_11n, _g11, _i11 = _ldpc.wifi_ldpc()
+    timed(f"ldpc 802.11n(648,R1/2) min-sum 25 it [{nfr} cw]",
+          lambda l: _ldpc.ldpc_decode(l, h_11n, iters=25)[0], llr_blk, nfr * 648)
+    timed(f"ldpc 802.11n QC edge decoder 25 it [{nfr} cw]",
+          lambda l: _ldpc.qc_ldpc_decode(l, _ldpc._WIFI_648_R12, 27, iters=25)[0],
+          llr_blk, nfr * 648)
+
+    vb_bits = rng.integers(0, 2, (nfr, 1024)).astype(np.uint8)
+    vb_coded = _fec.conv_encode(torch.from_numpy(vb_bits)).numpy()
+    vb_llr = on((4.0 * (1.0 - 2.0 * vb_coded.astype(np.float32))).astype(np.float32))
+    timed(f"viterbi K=7 decode [{nfr} x 1024 bits]", _fec.viterbi_decode, vb_llr, nfr * 1024,
+          iters=slow)
+
+    css = CssModem(CssConfig(sf=10), device=dev)
+    n_css = B * 1024
+    timed("css demod SF10 [flat]", lambda x: css.demod_symbols(x)[0], rsplit((n_css,)), n_css)
+
+    ref_caf = rsplit((4096,))
+    dops = np.linspace(-1e-3, 1e-3, 64).astype(np.float32)
+    timed("caf 64 dopplers x 4096", lambda x: ambiguity(x, ref_caf, dops), rsplit((4096,)),
+          64 * 4096)
+
+    crc_bits_in = on(rng.integers(0, 2, 1 << 20).astype(np.uint8))
+    timed("crc32 2^20 bits", lambda b: _fec.crc_compute(b, 0x04C11DB7, 32, 0xFFFFFFFF),
+          crc_bits_in, 1 << 20)
+
+    # Reed-Solomon (samples = GF(2^8) symbols = bytes)
+    rs_code = rs_255_223()
+    nrs = max(B // 4, 1)
+    rs_msgs = rng.integers(0, 256, (nrs, 223)).astype(np.uint8)
+    timed(f"rs(255,223) encode [{nrs} cw]", rs_code.encode, on(rs_msgs), nrs * 223)
+    rs_cws = rs_code.encode(torch.from_numpy(rs_msgs)).numpy().copy()
+    for row in rs_cws:  # full-t error load
+        row[rng.choice(255, 16, replace=False)] ^= rng.integers(1, 256, 16).astype(np.uint8)
+    timed(f"rs(255,223) decode t=16 errs [{nrs} cw]", lambda c: rs_code.decode(c)[0],
+          on(rs_cws), nrs * 255)
+
+    # turbo decode, batched over codewords (the BCJR kernel's rsc8 instance)
+    ntb, nblk = 1024, max(B // 16, 1)
+    tb_bits = rng.integers(0, 2, (nblk, ntb)).astype(np.uint8)
+    enc = turbo_encode(torch.from_numpy(tb_bits))
+    tb_args = tuple(on((8.0 * (1.0 - 2.0 * v.numpy().astype(np.float32))).astype(np.float32))
+                    for v in enc)
+    timed(f"turbo decode 8 iters win64 [{nblk} x {ntb} bits]",
+          lambda *t: turbo_decode(*t, iterations=8, window=64, guard=16)[0], tb_args,
+          nblk * ntb, iters=slow)
+
+    # polar decode, batched over codewords
+    npo, kpo, nblk_po = 1024, 512, max(B // 16, 1)
+    po_mask = _polar.polar_construct(npo, kpo, design_snr_db=1.0)
+    po_u = np.zeros((nblk_po, npo), np.uint8)
+    po_u[:, np.where(po_mask)[0]] = rng.integers(0, 2, (nblk_po, kpo)).astype(np.uint8)
+    po_llr = on((8.0 * (1.0 - 2.0 * _np_polar_encode(po_u))).astype(np.float32))
+    timed(f"polar SC decode (1024,512) [{nblk_po} cw]",
+          lambda l: _polar.polar_decode(l, po_mask), po_llr, nblk_po * kpo, iters=slow)
+    scl_code = _polar.PolarCode(n=256, k=128, crc="crc8", list_size=8)
+    scl_bits = rng.integers(0, 2, (nblk_po, scl_code.payload_bits)).astype(np.uint8)
+    scl_x = scl_code.encode(torch.from_numpy(scl_bits)).numpy()
+    scl_llr = on((8.0 * (1.0 - 2.0 * scl_x)).astype(np.float32))
+    timed(f"polar CA-SCL L=8 (256,128+crc8) [{nblk_po} cw]", lambda l: scl_code.decode(l)[0],
+          scl_llr, nblk_po * scl_code.payload_bits, iters=slow)
+
+    # the spectral-processing pair and the truncated-IR IIR
+    nsp = B * 1024
+    timed("stft+istft 1024/512 [flat]", lambda x: istft(stft(x, 1024), length=nsp),
+          rsplit((nsp,)), nsp)
+    sos4 = butter_sos(4, 0.1)
+    timed("iir sosfilt butter4 [flat]", lambda x: sosfilt(sos4, x), rsplit((nsp,)), nsp)
+
+    payload = {
+        **head,
+        "batch": B,
+        "iters": args.iters,
+        "rounds": max(1, args.rounds),
+        "methodology": {
+            "estimator": f"median of {max(1, args.rounds)} rounds of `iters` calls each "
+                         "after two warm-up calls, inputs resident on the device; every "
+                         "round committed in rounds_us_per_call",
+            "profile": "kernels_per_call and device_busy_ms: torch.profiler (CUDA "
+                       "activities) over one call; idle = 1 - busy / the row's time",
+            "launches": "launches of the hand-written kernels in one call",
+        },
+        "results": results,
+    }
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"wrote {args.json}")
     return None
 
 

@@ -47,7 +47,8 @@ from ..ops import vecops as _vecops
 from ..ops.cuda import pfb_fold as _pf
 from ..ops.fft import Scale, check_backend, plan as fft_plan
 from ..parallel.halo import left_tail, right_head
-from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last
+from ..parallel.mesh import (CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last,
+                             single_process)
 from ..types import as_cf32, stage_device
 
 #: Fold backends: "auto" takes the fold kernel for a CUDA tensor and the
@@ -201,6 +202,7 @@ def sharded_waterfall(samples, fft_len: int, mesh: Mesh, use_db: bool = False,
     shards: pure scale-out). The capture's ``fft_len``-rows must split
     evenly over the mesh axis. Returns the rows as a
     :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`."""
+    single_process(mesh, "sharded_waterfall")
     check_backend(fft_backend)
     rows = _pad_rows(as_cf32(samples), fft_len)
     rs = shard(rows, mesh, (None,) * (rows.ndim - 2) + (axis_name, None))
@@ -340,6 +342,7 @@ def sharded_pfb(samples, n_chan: int, mesh: Mesh, taps: Optional[np.ndarray] = N
     span must be divisible by ``n_chan``. Returns the frames as a
     :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` ``[..., T,
     n_chan]`` split along ``T``."""
+    single_process(mesh, "sharded_pfb")
     check_backend(fft_backend)
     m = int(n_chan)
     if taps is None:
@@ -817,6 +820,7 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
     reference-phase classes align per shard. The kernel reads a shard and
     its halo as two sources.
     """
+    single_process(mesh, "sharded_pfb_os")
     check_backend(fft_backend)
     _check_backend(backend)
     m = int(n_chan)

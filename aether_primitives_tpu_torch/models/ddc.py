@@ -38,7 +38,7 @@ from ..ops import fir as _fir
 from ..ops import frontend as _fe
 from ..ops.fft import check_backend
 from ..parallel.halo import left_tail
-from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last
+from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last, single_process
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -282,6 +282,7 @@ def sharded_duc(x, config: DucConfig, mesh: Mesh, axis_name: str = TIME_AXIS) ->
     interleave never crosses shards), and mixes up with a per-shard
     float64-exact oscillator rotator at the OUTPUT rate.
     """
+    single_process(mesh, "sharded_duc")
     size = mesh.shape[axis_name]
     n = np.shape(x)[-1]
     if n % size:

@@ -50,7 +50,7 @@ from ..ops import noise as _noise
 from ..ops.cuda import rx_frame as _rx_frame
 from ..ops.fft import Scale, check_backend, fft_of_decimated, plan as fft_plan
 from ..parallel import halo as _halo
-from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last
+from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last, single_process
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -479,6 +479,7 @@ class RxChain:
         N successive calls are bit-exact to one contiguous :meth:`step` of
         the concatenated capture.
         """
+        single_process(mesh, "RxChain.sharded_streaming_step_2d")
         self._check_span(np.shape(block)[-1], shards=int(mesh.shape[time_axis]))
         xs = shard_last(block, mesh, time_axis, leading=channel_axis, dtype=cf32)
         state_spec = (channel_axis,) + (None,) * (xs.ndim - 1)

@@ -181,7 +181,22 @@ class TPC:
         return data.reshape(lead + (self.k, self.k)), ok.reshape(lead)
 
     def sharded_decode(self, llr, mesh, axis_name: str = "channel"):
-        """The JAX package's block-sharded decode: not ported yet."""
-        raise NotImplementedError(
-            "TPC.sharded_decode is not ported yet (ROADMAP.md, queue 1 item 17b)"
-        )
+        """:meth:`decode` with the block batch sharded over ``mesh``'s
+        ``axis_name``: pure data parallel (blocks are independent, nothing
+        crosses shards), one :meth:`decode` a shard on its device.
+        ``llr [B, n, n]`` (a tensor or array-like, or a :class:`~..parallel.
+        mesh.Sharded` laid out so) with ``B`` divisible by the mesh axis;
+        returns ``(data, ok)`` as :class:`~..parallel.mesh.Sharded` values
+        split along ``B``, equal to the unsharded call's when gathered. On
+        a mesh that spans processes each process decodes its own blocks."""
+        from ..parallel import mesh as _mesh  # parallel imports ops: not at the top
+
+        if not isinstance(llr, _mesh.Sharded):
+            llr = torch.as_tensor(llr).to(torch.float32)
+        if llr.ndim != 3:
+            raise ValueError(f"expected [B, n, n] LLRs, got {tuple(llr.shape)}")
+        n_dev = mesh.shape[axis_name]
+        if llr.shape[0] % n_dev:
+            raise ValueError(f"{llr.shape[0]} blocks do not divide over {n_dev} devices")
+        xs = _mesh.shard(llr, mesh, (axis_name, None, None))
+        return xs.map(self.decode, spec=((axis_name, None, None), (axis_name,)))

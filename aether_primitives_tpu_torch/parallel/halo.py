@@ -16,6 +16,14 @@ kernel is on every left-halo path; on CPU shards, or with
 :func:`right_head` is plain peer copies: the JAX package computes it with
 ``ppermute`` outside any kernel, and the TPU kernel pushes left tails only.
 
+On a mesh that spans processes each process exchanges its own shards as
+above (its coordinates form a box of the mesh), and the one edge a box has
+along the axis on each side crosses to the neighbouring rank through
+``torch.distributed`` ``isend`` / ``irecv``: CUDA tensors themselves with
+the ``nccl`` backend, and with ``gloo`` a host copy of the edge (the
+backend the caller chose; gloo sends host tensors). Complex edges travel
+as their float32 ``view_as_real``.
+
 Use :func:`sharded_fir` for the sharded FIR, or :func:`halo_left` in your
 own sharded stages.
 """
@@ -44,6 +52,9 @@ def left_tail(x: Sharded, overlap: int, axis_name: str = TIME_AXIS,
     ``[..., overlap]`` halos, each on its shard's device."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+    if x.mesh.spans_processes:
+        inner = left_tail(x.local_view(), overlap, axis_name, backend)
+        return _across_ranks(x, inner, overlap, axis_name, step=-1)
     if backend == "reference":
         return _halo_kernel.halo_left_rdma_reference(x, overlap, axis_name)
     return _halo_kernel.halo_left_rdma(x, overlap, axis_name)
@@ -53,6 +64,9 @@ def right_head(x: Sharded, overlap: int, axis_name: str = TIME_AXIS) -> Sharded:
     """The RIGHT neighbour's leading ``overlap`` samples (zeros on the last
     shard): the halo for FORWARD-looking windows (the oversampled PFB's
     frames), dual of :func:`left_tail`. Plain copies between devices."""
+    if x.mesh.spans_processes:
+        inner = right_head(x.local_view(), overlap, axis_name)
+        return _across_ranks(x, inner, overlap, axis_name, step=1)
     j = x.mesh.axis(axis_name)
     size = x.mesh.devices.shape[j]
     span = x.shards.flat[0].shape[-1]
@@ -73,6 +87,53 @@ def right_head(x: Sharded, overlap: int, axis_name: str = TIME_AXIS) -> Sharded:
             buf = torch.empty(shape, dtype=mine.dtype, device=mine.device)
             out[c] = buf.copy_(right[..., :overlap])
     return Sharded(x.mesh, x.spec, out)
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor as it travels: complex as its float32 pairs."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _across_ranks(x: Sharded, inner: Sharded, overlap: int, axis_name: str,
+                  step: int) -> Sharded:
+    """The halos of ``inner`` (this process's exchange on its own box, the
+    box's edge shards holding zeros) placed on ``x``'s mesh, with the edges
+    whose neighbour (``step`` -1: left, +1: right, along ``axis_name``) is
+    another rank's received from that rank, and this rank's own edges sent.
+    Every rank walks the mesh in one order, so each pair of ranks posts its
+    sends and receives in the same order (NCCL matches them by order)."""
+    dist = torch.distributed
+    mesh = x.mesh
+    j = mesh.axis(axis_name)
+    size = mesh.devices.shape[j]
+    on_card = dist.get_backend() == "nccl"
+    out = np.full(mesh.devices.shape, None, dtype=object)
+    out[mesh.local_box()] = inner.shards
+    works, keep, arrived = [], [], []
+    for flat, c in enumerate(mesh.coords()):
+        if not 0 <= c[j] + step < size:
+            continue
+        src = c[:j] + (c[j] + step,) + c[j + 1:]  # the shard whose edge c takes
+        sender, receiver = int(mesh.ranks[src]), int(mesh.ranks[c])
+        if sender == receiver:
+            continue
+        if sender == mesh.rank:
+            t = x.shards[src]
+            edge = t[..., t.shape[-1] - overlap:] if step < 0 else t[..., :overlap]
+            edge = edge.contiguous() if on_card else edge.to("cpu").contiguous()
+            keep.append(edge)
+            works.append(dist.isend(_wire(edge), receiver, tag=flat))
+        elif receiver == mesh.rank:
+            halo = out[c]
+            buf = (torch.empty_like(halo) if on_card
+                   else torch.empty(halo.shape, dtype=halo.dtype))  # a host buffer (gloo)
+            works.append(dist.irecv(_wire(buf), sender, tag=flat))
+            arrived.append((c, buf))
+    for w in works:
+        w.wait()
+    for c, buf in arrived:
+        out[c] = buf if on_card else buf.to(out[c].device)
+    return Sharded(mesh, x.spec, out)
 
 
 def halo_left(x: Sharded, overlap: int, axis_name: str = TIME_AXIS,

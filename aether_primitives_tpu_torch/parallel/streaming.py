@@ -67,7 +67,7 @@ import torch
 
 from ..types import stage_device
 from ..utils.metrics import StageStats
-from .mesh import Sharded, Sharding, shard
+from .mesh import Sharded, Sharding, shard, single_process
 
 #: Host dtypes that the JAX package (without x64) stages as 32-bit; the
 #: port stages them the same way.
@@ -120,6 +120,7 @@ class _Stager:
         self.sharding = sharding
         if sharding is not None:
             self.sharding = sharding = Sharding(*sharding)
+            single_process(sharding.mesh, "a streaming executor's sharding")
             cards = sorted({d.index for d in sharding.mesh.devices.flat if d.type == "cuda"})
             self.device = sharding.mesh.devices.flat[0]
             self.cuda = False  # no side copy stream: each shard's own stream

@@ -56,9 +56,13 @@ It drives the port's paths through their hand-written kernels:
   modem (``models.css``), the modulation classifier (``models.amc``), the
   array receivers (``models.doa``), MIMO detection and diversity combining
   (``models.diversity``), the adaptive equalizers (``models.equalizer``)
-  and the frequency hopper (``models.fhss``),
+  and the frequency hopper (``models.fhss``);
+- the entry points (``entry()``, ``dryrun_multichip(8)`` on the card),
+  the per-op microbench (the JAX package's 33 rows), two processes on one
+  mesh over ``torch.distributed`` (gloo) running the flagship chain's
+  ``sharded_step`` and ``sharded_ddc``, and the four ``examples/torch_*.py``,
 
-in twenty-eight phases:
+in thirty-one phases:
 
 1. the card's name and power limit (exits 1 without a CUDA device);
 2. the seven kernels' builds from the sources in the checkout, and the PFB
@@ -261,7 +265,28 @@ in twenty-eight phases:
     1e-4 rad, CAF delay 1e-3 and Doppler 1e-7, CFOs 1e-7, AMC scores rtol
     1e-4);
 28. each of phase 27's paths timed (CUDA events, median of 3 runs) and
-    profiled as in phase 26.
+    profiled as in phase 26;
+29. the entry points (``aether_primitives_tpu_torch/entry.py``):
+    ``entry()``'s step on the card against its CPU run (1 RX frame launch),
+    ``dryrun_multichip(8)`` with all eight shards on the card against its
+    CPU run (every sharded path: the ``(channel, time)`` chain at fft_len
+    128 and 2048, one step and three streaming steps each, ``sharded_ddc``,
+    ``sharded_pfb_os``, the CAF, the DOA scan, ``rx_batch_sharded`` and
+    ``TPC.sharded_decode``; 68 RX frame, 9 halo and 9 PFB fold launches),
+    across the cards where there are two or more, and the four
+    ``examples/torch_*.py`` on the card, each printing its verdict;
+30. the per-op microbench (``cli.microbench_main --batch 1024 --iters
+    20``): the JAX package's 33 rows, each with its time (CUDA events,
+    median of 3 rounds),
+    Msa/s, kernels a call and idle share (``torch.profiler``); its Viterbi
+    row 1 Viterbi launch a call and its turbo row 16 BCJR launches;
+31. two processes on the card over gloo (``init_distributed``, a
+    ``{time: 8}`` mesh that spans them, four shards of the flagship chain
+    each on its 4,194,304-sample part of one capture): their bytes joined
+    equal to one process's ``sharded_step`` and through the float64 gate,
+    ``sharded_ddc`` against ``Ddc.step`` (<= -100 dB), 4 RX frame + 1 halo
+    launches a step in each; the step and the halo exchange timed in both
+    (the edge between the ranks apart), beside one process's step.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -322,6 +347,14 @@ MIMO_DB, RLS_DB = -80.0, -65.0
 # condition number is ~6e3 (a jammer 12 dB over the packet, 40 dB over the
 # noise), and float32 solves sit at -72 to -76 dB from float64 on the CPU
 MVDR_DB = -60.0
+CROSS_SEED = 3131  # phase 31's capture
+# phase 29's DOA bearings, card against the CPU run: the dry run's scene (8
+# elements, two sources 20 dB over the noise, 256 snapshots) puts each peak
+# of the MUSIC pseudo-spectrum ~1e4 over its floor, and a bearing is the
+# parabolic vertex of three of its samples on a 0.25 degree (4.4e-3 rad)
+# grid, so the float32 eigensolvers of the card and the host move it by up
+# to a few percent of a grid step (1.4e-4 rad seen on an H100)
+DRYRUN_BEARING_ATOL = 5e-4
 # GNSS acquisition: +-1.25e-3 cycles/sample (+-5.1 kHz at 4.092 Msps) in 64
 # hypotheses; a PRN is present where metric * N exceeds 25 (noise alone:
 # ~1 on average, ~14 at the largest of the 1M cells of a surface)
@@ -1036,6 +1069,15 @@ def main() -> None:
     link = link_phases(card)
     analog_tracking_phases(card)
     acquisition_array_phases(card)
+    entry_counts = entry_phase(card)
+    micro = microbench_phase(card)
+    cross = cross_process_phase(card)
+    nfr = max(1024 // 16, 1)  # the microbench's coding rows at --batch 1024
+    micro_vit = micro[f"viterbi K=7 decode [{nfr} x 1024 bits]"]["launches"]
+    micro_turbo = micro[f"turbo decode 8 iters win64 [{nfr} x 1024 bits]"]["launches"]
+    pfb_entry["dryrun_launches"] = entry_counts["dryrun"]["pfb_fold"]
+    halo_entry["dryrun_launches"] = entry_counts["dryrun"]["halo"]
+    halo_entry["cross_process_launches"] = cross["ranks"][0]["launches"]["halo"]
 
     print(json.dumps({"kernels": [
         {
@@ -1058,6 +1100,9 @@ def main() -> None:
             "step_ms": t["chain_kernel"],
             "step_host_enqueue_ms": t["enqueue"],
             "instances": instances,
+            "entry_launches": entry_counts["entry"]["rx_frame"],
+            "dryrun_launches": entry_counts["dryrun"]["rx_frame"],
+            "cross_process_launches": cross["ranks"][0]["launches"]["rx_frame"],
         },
         {
             "name": "viterbi",
@@ -1075,6 +1120,7 @@ def main() -> None:
             "ccsds_ms": ccsds_t["viterbi"]["device_ms"],
             "ccsds_call_ms": ccsds_t["viterbi"]["call_ms"],
             "ccsds_bound_ms": ccsds_bounds["viterbi"]["bound_ms"],
+            "microbench_launches": micro_vit.get("viterbi", 0),
         },
         {
             "name": "bcjr",
@@ -1096,6 +1142,7 @@ def main() -> None:
             "ccsds_call_ms": ccsds_t["bcjr"]["call_ms"],
             "ccsds_bound_ms": ccsds_bounds["bcjr"]["bound_ms"],
             "ccsds_instance": bk.kernel_plan(k7_tables, lw_c)[0],
+            "microbench_launches": micro_turbo.get("bcjr", 0),
         },
         pfb_entry,
         cmul_entry,
@@ -4024,5 +4071,337 @@ def acquisition_array_phases(card: str, device: str = "cuda", gps_ms: int = 4, n
     return results
 
 
+def sync_cards() -> None:
+    """Wait for every card's work (nothing to wait for without one)."""
+    import torch
+
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def dryrun_launches(device: str) -> dict:
+    """The launches one ``dryrun_multichip(8)`` makes with all eight shards
+    on one card: per ``(channel, time)`` step 8 RX frame + 1 halo launches
+    and 1 RX frame launch for its one-card step, at fft_len 128 and 2048
+    (one step, three streaming steps and one contiguous step each); 1 halo
+    launch for ``sharded_ddc``; 8 + 1 fold launches for ``sharded_pfb_os``
+    and its one-card form; the CAF, DOA, ``rs`` burst and TPC paths none.
+    CPU shards launch nothing."""
+    if device == "cpu":
+        return dict(NO_LAUNCHES)
+    return {**NO_LAUNCHES, "rx_frame": 2 * ((8 + 1) + (3 * 8 + 1)),
+            "halo": 2 * (1 + 3) + 1, "pfb_fold": 8 + 1}
+
+
+EXAMPLES = (("torch_modem.py", [], "Modem loopback on"),
+            ("torch_packet.py", [], "packet recovered exactly"),
+            ("torch_stream_policies.py", [], "stream_policies: OK"),
+            ("torch_pipeline.py", ["4", "65536", "1.0"], "bit-exact vs one contiguous step"))
+
+
+def entry_phase(card: str, device: str = "cuda", examples: bool = True) -> dict:
+    """Phase 29: ``entry()`` on ``device`` against its CPU run (1 RX frame
+    launch), ``dryrun_multichip(8)`` with every shard on one card against
+    its CPU run (all seven paths; the launches of the RX frame, PFB fold and
+    halo kernels counted against :func:`dryrun_launches`), across the cards
+    where there are two or more, and the four ``examples/torch_*.py`` on the
+    card. Returns the launch counts."""
+    import subprocess
+
+    import torch
+
+    from aether_primitives_tpu_torch import entry as port_entry
+
+    t_start = time.perf_counter()
+    # ---- phase 29: the entry points, card against the CPU run ------------------
+    reset_counts()
+    fn, ex = port_entry.entry(device)
+    bits = fn(*ex)
+    sync(device)
+    entry_counts = read_counts()
+    need = {**NO_LAUNCHES, "rx_frame": 0 if device == "cpu" else 1}
+    fn_c, ex_c = port_entry.entry("cpu")
+    agree = float((bits.cpu() == fn_c(*ex_c)).to(torch.float64).mean())
+    print(f"entry(): RxChain(fft_len=2048, decimation=4).step_split on a 32,768-sample block: "
+          f"{tuple(bits.shape)} {bits.dtype} on {bits.device}, bits vs the CPU run {agree:.6f} "
+          f"(need >= {AGREEMENT}), launches {entry_counts} (need {need}) [{card}]", flush=True)
+    if agree < AGREEMENT or entry_counts != need:
+        fail("entry()")
+
+    shards = [device if device == "cpu" else "cuda:0"] * 8
+    sync_cards()
+    reset_counts()
+    out = port_entry.dryrun_multichip(8, devices=shards)
+    sync_cards()
+    dry_counts = read_counts()
+    need = dryrun_launches(device)
+    ref = port_entry.dryrun_multichip(8, devices=["cpu"] * 8)
+    report = {}
+    for key in ("bits", "stream_bits", "flagship_bits", "flagship_stream_bits", "burst_bits",
+                "tpc"):
+        report[key] = float((out[key] == ref[key]).to(torch.float64).mean())
+    for key in ("ddc", "pfb_os", "caf"):
+        report[key] = evm_db(out[key], ref[key])
+    report["doa"] = float((out["doa"] - ref["doa"]).abs().max())
+    report["caf_delay"] = abs(out["caf_delay"] - ref["caf_delay"])
+    print(f"dryrun_multichip(8) on {shards[0]} x 8 against its CPU run: "
+          + ", ".join(f"{k} {v:.6f}" if k in ("bits", "stream_bits", "flagship_bits",
+                                              "flagship_stream_bits", "burst_bits", "tpc")
+                      else f"{k} {v:.2f} dB" if k in ("ddc", "pfb_os", "caf")
+                      else f"{k} {v:.2e}" for k, v in report.items())
+          + f" (need bits >= {AGREEMENT}, outputs <= {CPU_DB} dB, bearings <= "
+          f"{DRYRUN_BEARING_ATOL} rad, delay <= {CAF_DELAY_ATOL}); launches {dry_counts} "
+          f"(need {need}) [{card}]", flush=True)
+    bits_ok = all(report[k] >= AGREEMENT for k in ("bits", "stream_bits", "flagship_bits",
+                                                   "flagship_stream_bits", "burst_bits", "tpc"))
+    if (not bits_ok or any(report[k] > CPU_DB for k in ("ddc", "pfb_os", "caf"))
+            or report["doa"] > DRYRUN_BEARING_ATOL or report["caf_delay"] > CAF_DELAY_ATOL
+            or dry_counts != need):
+        fail("dryrun_multichip(8) on one card")
+    cards = torch.cuda.device_count() if device != "cpu" else 0
+    if cards > 1:
+        sync_cards()
+        reset_counts()
+        port_entry.dryrun_multichip(8)
+        sync_cards()
+        across = read_counts()
+        print(f"dryrun_multichip(8) across {cards} cards: launches {across} [{card}]",
+              flush=True)
+        if not all(across[k] > 0 for k in ("rx_frame", "pfb_fold", "halo")):
+            fail("dryrun_multichip(8) across cards")
+    else:
+        print(f"cards: {max(cards, 1)}, across-card dry run not run", flush=True)
+
+    if examples:  # the four examples, started together, each in its own process
+        folder = Path(__file__).resolve().parent / "examples"
+        flag = ["--cpu"] if device == "cpu" else []
+        procs = {name: subprocess.Popen([sys.executable, str(folder / name), *args, *flag],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                 for name, args, _ in EXAMPLES}
+        outs = {}
+        try:
+            for name, p in procs.items():
+                outs[name] = p.communicate(timeout=300)[0]
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        for name, _, verdict in EXAMPLES:
+            lines = outs[name].strip().splitlines()
+            print(f"example {name} on {device}: exit {procs[name].returncode}, "
+                  f"{lines[-1] if lines else 'no output'}", flush=True)
+            if procs[name].returncode != 0 or verdict not in outs[name]:
+                print(outs[name][-3000:], flush=True)
+                fail(f"example {name}")
+    print(f"phase 29: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"entry": entry_counts, "dryrun": dry_counts}
+
+
+def microbench_phase(card: str, device: str = "cuda", batch: int = 1024, iters: int = 20,
+                     extra: tuple = ()) -> dict:
+    """Phase 30: ``cli.microbench_main`` at ``--batch`` on ``device`` with
+    ``--iters`` calls a round (20, not the default 50: the whole script
+    stays near half its time limit), every one of the JAX package's 33 rows
+    with a time; its Viterbi row makes 1 Viterbi launch a call and its
+    turbo row 16 BCJR launches (8 iterations x 2 constituent decoders).
+    Returns the rows."""
+    import math
+
+    from aether_primitives_tpu_torch import cli
+
+    t_start = time.perf_counter()
+    # ---- phase 30: the per-op microbench ----------------------------------------
+    print(f"microbench at --batch {batch} on {device} [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "microbench.json"
+        argv = ["--batch", str(batch), "--iters", str(iters), "--json", str(path), *extra]
+        cli.microbench_main(argv + (["--cpu"] if device == "cpu" else []))
+        payload = json.loads(path.read_text())
+    rows = {r["bench"]: r for r in payload["results"]}
+    print(f"microbench head: platform {payload['platform']}, device {payload['device']}, "
+          f"card {payload['card']}, timing {payload['timing']}, {len(rows)} rows", flush=True)
+    if len(rows) != 33 or not all(math.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
+                                  for r in rows.values()):
+        fail("microbench rows")
+    on_card = device != "cpu"
+    nfr = max(batch // 16, 1)
+    checks = {f"viterbi K=7 decode [{nfr} x 1024 bits]": {"viterbi": 1} if on_card else {},
+              f"turbo decode 8 iters win64 [{nfr} x 1024 bits]": {"bcjr": 16} if on_card else {}}
+    for name, need in checks.items():
+        got = rows[name]["launches"]
+        print(f"microbench {name}: launches a call {got} (need {need})", flush=True)
+        if got != need:
+            fail(f"microbench {name} launches")
+    print(f"phase 30: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return rows
+
+
+def cross_process_phase(card: str, device: str = "cuda", span: int = 1 << 22,
+                        runs: int = 3) -> dict:
+    """Phase 31: two processes on ``device`` over gloo, each with four
+    shards of the flagship chain (fft_len 2048, decimation 4, packed bytes)
+    on its ``span``-sample part of one ``2 x span`` capture
+    (:func:`cross_process_worker`); their bytes joined equal to one
+    process's ``sharded_step`` on eight shards and through the float64
+    gate, and ``sharded_ddc`` against ``Ddc.step``; the step and its halo
+    exchange timed in both processes. Returns the workers' records."""
+    import socket
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import capture, numpy_reference_bits
+    from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
+    from aether_primitives_tpu_torch.models.ddc import Ddc
+    from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    t_start = time.perf_counter()
+    # ---- phase 31: two processes, one mesh ----------------------------------------
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--rank-worker", str(r), "2", str(port), tmp, device,
+                                   str(span), str(runs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print(out.rstrip(), flush=True)
+            if p.returncode != 0:
+                fail(f"cross-process worker {r} exited {p.returncode}")
+        got = np.concatenate([np.load(Path(tmp) / f"bytes_{r}.npy") for r in range(2)])
+        got_d = np.concatenate([np.load(Path(tmp) / f"ddc_{r}.npy") for r in range(2)])
+        recs = [json.loads((Path(tmp) / f"record_{r}.json").read_text()) for r in range(2)]
+    chain = RxChain(RxChainConfig(fft_len=2048, decimation=4, packed_bits=True), device=device)
+    x = capture(2 * span, CROSS_SEED)
+    x_dev = torch.from_numpy(x).to(device)
+    mesh8 = mesh_mod.make_mesh({"time": 8}, devices=[device] * 8)
+    one = chain.sharded_step(x_dev, mesh8).gather("cpu").numpy()
+    same = bool(np.array_equal(got, one))
+    ref = numpy_reference_bits(x, chain.taps, 4, 2048)
+    agree = float((rf.unpack_bits(torch.from_numpy(got)).numpy() == ref).mean())
+    ddc_cfg = _cross_ddc()
+    ddc_db = evm_db(got_d, Ddc(ddc_cfg, device=device).step(x_dev))
+    need = {**NO_LAUNCHES, **({} if device == "cpu" else {"rx_frame": 4, "halo": 1})}
+    counts = [r["launches"] for r in recs]
+    print(f"two processes (gloo) x 4 shards of [{span}] on {device}: bytes joined equal to one "
+          f"process's sharded_step on 8 shards {same}, bits vs float64 {agree:.6f} (need >= "
+          f"{AGREEMENT}); sharded_ddc (freq {ddc_cfg.freq}, /{ddc_cfg.decimation}) vs "
+          f"Ddc.step {ddc_db:.2f} dB (need <= {SHARDED_DDC_DB}); launches a step per process "
+          f"{counts} (need {need}) [{card}]", flush=True)
+    if not same or agree < AGREEMENT or ddc_db > SHARDED_DDC_DB or any(c != need for c in counts):
+        fail("the step across two processes")
+
+    def host_ms(fn, iters: int = 10) -> float:
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync(device)
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    one_ms = [host_ms(lambda: chain.sharded_step(x_dev, mesh8)) for _ in range(runs)]
+    for r, rec in enumerate(recs):
+        print(f"time: rank {r}: step {rec['step_ms']:.4f} ms (median of {runs} runs "
+              f"{', '.join(f'{v:.4f}' for v in rec['step_runs'])}; host clock, 10 steps a run, "
+              f"both ranks on {device} at once), halo exchange {rec['tail_ms']:.4f} ms of which "
+              f"the rank's own pushes {rec['local_tail_ms']:.4f} ms, the edge between ranks "
+              f"{rec['tail_ms'] - rec['local_tail_ms']:.4f} ms = "
+              f"{100 * (rec['tail_ms'] - rec['local_tail_ms']) / rec['step_ms']:.1f}% of the "
+              f"step [{card}]", flush=True)
+    print(f"time: one process, 8 shards of [{span // 4}] on {device}: sharded_step median "
+          f"{float(np.median(one_ms)):.4f} ms (runs {', '.join(f'{v:.4f}' for v in one_ms)}; "
+          f"host clock, 10 steps a run) [{card}]", flush=True)
+    print(f"phase 31: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"ranks": recs, "one_process_ms": float(np.median(one_ms))}
+
+
+def _cross_ddc():
+    """Phase 31's DDC: phase 12's configuration."""
+    from aether_primitives_tpu_torch.models.ddc import DdcConfig
+
+    return DdcConfig(freq=0.1375, decimation=8)
+
+
+def cross_process_worker(rank: int, world: int, port: int, folder: str, device: str,
+                         span: int, runs: int) -> None:
+    """One rank of phase 31: joins the gloo group, builds the ``{time: 4 x
+    world}`` mesh from four shards of its own on ``device``, steps its part
+    of the capture once with the launches counted, saves its bytes and its
+    ``sharded_ddc`` output under ``folder``, and times the step and the
+    halo exchange (the whole one, and its own pushes alone)."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import capture
+    from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
+    from aether_primitives_tpu_torch.models.ddc import sharded_ddc
+    from aether_primitives_tpu_torch.parallel import halo
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+                              process_id=rank, backend="gloo")
+    dist = torch.distributed
+    mesh = mesh_mod.make_mesh({"time": 4 * world}, devices=[device] * 4)
+    x = capture(world * span, CROSS_SEED)
+    local = torch.from_numpy(x[rank * span:(rank + 1) * span]).to(device)
+    xg = mesh_mod.shard_process_local(local, mesh, ("time",), (world * span,))
+    chain = RxChain(RxChainConfig(fft_len=2048, decimation=4, packed_bits=True), device=device)
+    chain.sharded_step(xg, mesh)  # the first call's setup
+    sync(device)
+    reset_counts()
+    out = chain.sharded_step(xg, mesh)
+    sync(device)
+    launches = read_counts()
+    np.save(Path(folder) / f"bytes_{rank}.npy", out.gather(local=True).cpu().numpy())
+    ddc = sharded_ddc(xg, _cross_ddc(), mesh)
+    np.save(Path(folder) / f"ddc_{rank}.npy", ddc.gather(local=True).cpu().numpy())
+
+    def host_ms(fn, iters: int = 10) -> float:
+        fn()
+        sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync(device)
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    k = chain.taps.shape[-1]
+    step_runs = [host_ms(lambda: chain.sharded_step(xg, mesh)) for _ in range(runs)]
+    tail_ms = float(np.median([host_ms(lambda: halo.left_tail(xg, k - 1))
+                               for _ in range(runs)]))
+    local_view = xg.local_view()
+    local_ms = float(np.median([host_ms(lambda: halo.left_tail(local_view, k - 1))
+                                for _ in range(runs)]))
+    record = {"rank": rank, "launches": launches, "step_runs": step_runs,
+              "step_ms": float(np.median(step_runs)), "tail_ms": tail_ms,
+              "local_tail_ms": local_ms}
+    (Path(folder) / f"record_{rank}.json").write_text(json.dumps(record))
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: mesh {mesh.shape} over {world} processes, {len(mesh.local_coords())} "
+          f"shards of [{span // 4}] here, done", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase 31, started by it
+        rank, world, port, folder, device, span, runs = sys.argv[2:9]
+        cross_process_worker(int(rank), int(world), int(port), folder, device, int(span),
+                             int(runs))
+    else:
+        main()

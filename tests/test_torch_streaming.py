@@ -195,13 +195,17 @@ def test_stateful_executor_with_sharding():
 
 
 def test_executor_with_sharding_not_ported():
-    # what of the sharded layout is still missing: a mesh that spans
-    # processes; and a sharding must be a (mesh, spec) pair
+    # what of the sharded layout is still missing: a sharding over a mesh
+    # that spans processes; and a sharding must be a (mesh, spec) pair
     from aether_primitives_tpu_torch.parallel import mesh as tmesh
 
+    m = tmesh.make_mesh({"time": 8}, devices=[CPU] * 8)
+    spanning = tmesh.Mesh(m.devices, m.axis_names, np.repeat([0, 1], 4), rank=0)
     with pytest.raises(NotImplementedError, match="item 17b"):
-        tmesh.init_distributed(coordinator_address="localhost:1234", num_processes=2,
-                               process_id=0)
+        streaming.new("x2", lambda b: b).finish(sharding=(spanning, ("time",)), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        streaming.StatefulExecutor(lambda b, s: (b, s), np.zeros(2),
+                                   sharding=(spanning, ("time",)), device=CPU)
     with pytest.raises(TypeError):
         streaming.new("x2", lambda b: b).finish(sharding=object(), device=CPU)
     with pytest.raises(TypeError):

@@ -11,6 +11,7 @@ import torch
 
 from aether_primitives_tpu_torch.evm import evm_rms_db
 from aether_primitives_tpu_torch.ops import tpc
+from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
 
 torch.set_num_threads(1)
 
@@ -104,8 +105,38 @@ def test_bad_arguments_raise():
         code.encode(torch.zeros(10, 10))
     with pytest.raises(ValueError, match="LLRs"):
         code.decode(torch.zeros(15, 16))
-    with pytest.raises(NotImplementedError, match="17b"):
-        code.sharded_decode(torch.zeros(2, 16, 16), None)
+    mesh = mesh_mod.make_mesh({"channel": 8}, devices=["cpu"] * 8)
+    with pytest.raises(ValueError, match=r"\[B, n, n\]"):
+        code.sharded_decode(torch.zeros(16, 16), mesh)
+    with pytest.raises(ValueError, match="do not divide over 8"):
+        code.sharded_decode(torch.zeros(12, 16, 16), mesh)
+
+
+def test_sharded_decode_matches_jax(jtpc, eight_devices):
+    """``tests/test_tpc.py:166``'s case: 16 blocks over an 8-shard
+    ``channel`` mesh, against the JAX package's ``sharded_decode`` on its
+    eight CPU devices and the port's own unsharded decode (exact)."""
+    import math
+
+    import jax
+
+    from aether_primitives_tpu.parallel import mesh as jmesh
+
+    a, b = tpc.TPC(m=4, p=3, iters=2), jtpc.TPC(m=4, p=3, iters=2)
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 2, (16, b.k, b.k)).astype(np.uint8)
+    cw = np.asarray(b.encode(data)).astype(np.float64)
+    sigma = math.sqrt(1 / (2 * b.rate * 10 ** (4.0 / 10)))  # test_tpc.py's _awgn_llr
+    llr = (2 * ((1 - 2 * cw) + sigma * rng.normal(size=cw.shape)) / sigma ** 2).astype(np.float32)
+    jm = jmesh.make_mesh({"channel": 8})
+    want_dec, want_ok = jax.jit(lambda v: b.sharded_decode(v, jm))(llr)
+    mesh = mesh_mod.make_mesh({"channel": 8}, devices=["cpu"] * 8)
+    dec, ok = a.sharded_decode(llr, mesh)
+    assert dec.spec == ("channel", None, None) and ok.spec == ("channel",)
+    assert np.array_equal(dec.gather().numpy(), np.asarray(want_dec))
+    assert np.array_equal(ok.gather().numpy(), np.asarray(want_ok))
+    got_u, ok_u = a.decode(llr)
+    assert torch.equal(dec.gather(), got_u) and torch.equal(ok.gather(), ok_u)
 
 
 @pytest.mark.cuda
