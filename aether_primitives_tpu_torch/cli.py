@@ -263,33 +263,51 @@ def kernel_launches() -> dict:
             for k in KERNELS}
 
 
-def time_host(fn, iters: int, warmup: int = 0) -> float:
-    """Milliseconds per call of ``fn()`` by the host clock (a CPU run)."""
+def time_host(fn, iters: int, warmup: int = 0, sync=None) -> float:
+    """Milliseconds per call of ``fn()`` by the host clock; ``sync()``,
+    where given, runs before the clock starts and before it stops (to wait
+    for a card's queued work)."""
     for _ in range(warmup):
         fn()
+    if sync is not None:
+        sync()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    if sync is not None:
+        sync()
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_call(fn) -> dict:
-    """``torch.profiler`` (CUPTI) over one call of ``fn()`` after it ran
-    once: ``{"kernels": device activities a call, "busy_ms": their summed
-    device time}``; None for each where the profiler recorded no device
-    activity (it drops records at times)."""
+def profile_call(fn, calls: int = 1, warm: bool = True) -> dict:
+    """``torch.profiler`` (CUPTI) over ``calls`` calls of ``fn()``, device
+    activity only, after one call outside it where ``warm``: ``{"kernels":
+    device activities a call, "busy_ms": their summed device time a call,
+    "wall_ms": the host clock a call (profiler on), "names": {kernel name:
+    (summed us, count)}}``; None for each where the profiler recorded no
+    device activity (it drops records at times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not acts:
-        return {"kernels": None, "busy_ms": None}
-    return {"kernels": len(acts), "busy_ms": sum(e.time_range.elapsed_us() for e in acts) / 1e3}
+        return {"kernels": None, "busy_ms": None, "wall_ms": wall_ms, "names": {}}
+    names = {}
+    for e in acts:
+        us, count = names.get(e.name, (0.0, 0))
+        names[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return {"kernels": len(acts) / calls,
+            "busy_ms": sum(e.time_range.elapsed_us() for e in acts) / calls / 1e3,
+            "wall_ms": wall_ms, "names": names}
 
 
 def _np_polar_encode(u: np.ndarray) -> np.ndarray:
@@ -379,7 +397,7 @@ def microbench_main(argv=None):
         }
         results.append(row)
         busy = ("not measured" if prof["busy_ms"] is None else
-                f"{prof['kernels']} kernels, busy {prof['busy_ms']:.4f} ms, "
+                f"{prof['kernels']:g} kernels, busy {prof['busy_ms']:.4f} ms, "
                 f"idle {100 * row['idle']:.1f}%")
         print(f"{name:46s} {row['us_per_call']:11.1f} us/call {row['msamples_per_s']:10.1f} "
               f"Msa/s  spread {row['round_spread']:.2f}x/{len(rounds)}r  {busy}"

@@ -81,6 +81,26 @@ def _agreement(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.cpu() == want.cpu()).to(torch.float64).mean())
 
 
+def doa_windows(rng, n_windows: int, coherent: bool = True) -> np.ndarray:
+    """The dry run's DOA scene: ``[n_windows, 8, 256]`` snapshots of an
+    8-element half-wavelength ULA, window ``w`` with sources at ``-25 + 2w``
+    and ``15 + w`` degrees and noise of 0.1 a component from ``rng``. Both
+    sources send one waveform (``coherent``, as ``__graft_entry__.py``
+    has it), so the signal subspace has rank 1; else the second source's
+    tone is 0.3 cycles/sample higher."""
+    tsnap = np.arange(256)
+    wins = []
+    for w in range(n_windows):
+        xm = np.zeros((8, 256), np.complex64)
+        for j, deg in enumerate((-25.0 + 2 * w, 15.0 + w)):
+            a = np.exp(-2j * np.pi * 0.5 * np.sin(np.deg2rad(deg)) * np.arange(8))
+            s = np.exp(2j * np.pi * (0.05 + 0.011 * w + (0.0 if coherent else 0.3 * j)) * tsnap)
+            xm += np.outer(a, s)
+        xm += 0.1 * (rng.normal(size=xm.shape) + 1j * rng.normal(size=xm.shape))
+        wins.append(xm.astype(np.complex64))
+    return np.stack(wins)
+
+
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict:
     """One pass of every sharded path over a mesh of ``n_devices`` shards
     on ``devices`` (default: the card's; ``["cpu"] * n`` asks for the
@@ -88,7 +108,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
     each held to its one-device form on ``devices[0]`` with the JAX dry
     run's assertions (AssertionError where one fails). Prints one summary
     line; returns every path's output as host tensors (and the flagship
-    block), for comparing two devices' runs."""
+    block and the DOA windows), for comparing two devices' runs."""
     from .models import caf, doa as doa_mod
     from .models.channelizer import pfb_channelize_os, sharded_pfb_os
     from .models.ddc import Ddc, DdcConfig, sharded_ddc
@@ -196,21 +216,12 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
 
     # the DOA scan: independent windows over the mesh
     dmesh = mesh_mod.make_mesh({"channel": n_devices}, devices=devs)
-    tsnap = np.arange(256)
-    wins = []
-    for w in range(2 * n_devices):
-        xm = np.zeros((8, 256), np.complex64)
-        for deg in (-25.0 + 2 * w, 15.0 + w):
-            a = np.exp(-2j * np.pi * 0.5 * np.sin(np.deg2rad(deg)) * np.arange(8))
-            s = np.exp(2j * np.pi * (0.05 + 0.011 * w) * tsnap)
-            xm += np.outer(a, s)
-        xm += 0.1 * (rng.normal(size=xm.shape) + 1j * rng.normal(size=xm.shape))
-        wins.append(xm.astype(np.complex64))
-    wins_d = on(np.stack(wins))
+    wins = doa_windows(rng, 2 * n_devices)
+    wins_d = on(wins)
     doa_s = doa_mod.sharded_estimate_doa(wins_d, 2, dmesh).gather(dev)
     doa_err = float((doa_s - doa_mod.estimate_doa(wins_d, 2)).abs().max())
     assert doa_err < DOA_ATOL, f"sharded DOA mismatch {doa_err}"
-    out["doa"] = doa_s.cpu()
+    out["doa"], out["doa_windows"] = doa_s.cpu(), wins
 
     # the batched burst link, bursts data-parallel over the mesh
     pm = PacketModem(PacketConfig(payload_bits=120, fec="rs", rs_n=36, rs_k=20,

@@ -8,9 +8,11 @@ Each process builds its part of the capture with
 the process boundary through ``send`` / ``recv``), ``sharded_step_2d`` on a
 ``{time: 4, channel: 2}`` mesh, ``sharded_fir``, ``sharded_ddc`` and
 ``TPC.sharded_decode``, and holds its own shards to the float64 reference
-chain (bits exact), to ``Ddc.step`` and ``fir_filter`` on the whole capture
-(RMS error < 1e-5, the JAX worker's bar) and to ``TPC.decode`` (exact). The
-worker is this file's ``__main__`` block; it imports no JAX.
+chain (bits exact), to the JAX package's ``Ddc.step`` and ``fir_filter`` on
+the whole capture (RMS error < 1e-5, the JAX worker's bar) and to its
+``TPC.decode`` (exact). The test computes the JAX outputs on the same
+inputs and writes them to a folder that the workers read; the worker is
+this file's ``__main__`` block and imports no JAX.
 
 The cases in one process: ``init_distributed``'s backend check, a mesh of
 one process unchanged, and a mesh whose coordinates record two ranks
@@ -34,6 +36,43 @@ torch.set_num_threads(1)
 
 CPU8 = ["cpu"] * 8
 DDC_RMS = 1e-5  # tests/distributed_worker.py's bar, relative RMS error
+NPROC, FFT_LEN, DEC = 2, 256, 4  # the worker's chain: tests/distributed_worker.py's
+DDC_FREQ = 0.1375
+
+
+def _capture(nproc: int) -> np.ndarray:
+    """The capture every process builds: 4 x nproc shards of two spans."""
+    n = 4 * nproc * FFT_LEN * DEC * 2
+    rng = np.random.default_rng(815)
+    return (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+
+
+def _jax_references(folder: Path, nproc: int) -> None:
+    """The JAX package's FIR (the chain's taps), DDC and TPC decode on the
+    workers' inputs, saved under ``folder``: the TPC LLRs and their
+    decode, the FIR output and ``Ddc.step`` on the whole capture."""
+    pytest.importorskip("jax")
+    import jax
+
+    from aether_primitives_tpu.models import RxChain as JRxChain, RxChainConfig as JConfig
+    from aether_primitives_tpu.models.ddc import Ddc as JDdc, DdcConfig as JDdcConfig
+    from aether_primitives_tpu.ops import fir as jfir
+    from aether_primitives_tpu.ops.tpc import TPC as JTPC
+
+    x = _capture(nproc)
+    taps = np.asarray(JRxChain(JConfig(fft_len=FFT_LEN, decimation=DEC, fir_mode="fused")).taps)
+    np.save(folder / "fir.npy", np.asarray(jfir.fir_filter(x, taps)))
+    np.save(folder / "ddc.npy",
+            np.asarray(JDdc(JDdcConfig(freq=DDC_FREQ, decimation=DEC)).step(x)))
+    t = JTPC(m=4, p=3, iters=2)
+    trng = np.random.default_rng(7)
+    tdata = trng.integers(0, 2, (8 * nproc, t.k, t.k)).astype(np.uint8)
+    tcw = np.asarray(t.encode(tdata)).astype(np.float64)
+    tllr = ((1 - 2 * tcw) * 5.0 + 0.4 * trng.normal(size=tcw.shape)).astype(np.float32)
+    dec, ok = jax.jit(t.decode)(tllr)
+    np.save(folder / "tpc_llr.npy", tllr)
+    np.save(folder / "tpc_dec.npy", np.asarray(dec))
+    np.save(folder / "tpc_ok.npy", np.asarray(ok))
 
 
 def _free_port() -> int:
@@ -42,18 +81,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_gloo_sharded_paths():
+def test_two_process_gloo_sharded_paths(tmp_path):
     # bounded by the workers' communicate(timeout=240) below
+    _jax_references(tmp_path, NPROC)
     port = _free_port()
     env = dict(os.environ)
     repo_root = str(Path(__file__).resolve().parent.parent)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (repo_root, env.get("PYTHONPATH")) if p)
     procs = [
         subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), str(i), "2", str(port)],
+            [sys.executable, str(Path(__file__).resolve()), str(i), str(NPROC), str(port),
+             str(tmp_path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True,
         )
-        for i in range(2)
+        for i in range(NPROC)
     ]
     outs = []
     try:
@@ -166,11 +207,10 @@ def _rel_rms(got, want) -> float:
     return float(np.sqrt(np.mean(np.abs(got - want) ** 2) / np.mean(np.abs(want) ** 2)))
 
 
-def worker(pid: int, nproc: int, port: str) -> None:
+def worker(pid: int, nproc: int, port: str, folder: str) -> None:
     from aether_primitives_tpu_torch.cli import numpy_reference_bits
     from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
-    from aether_primitives_tpu_torch.models.ddc import Ddc, DdcConfig, sharded_ddc
-    from aether_primitives_tpu_torch.ops import fir
+    from aether_primitives_tpu_torch.models.ddc import DdcConfig, sharded_ddc
     from aether_primitives_tpu_torch.ops.tpc import TPC
     from aether_primitives_tpu_torch.parallel import halo
 
@@ -184,13 +224,11 @@ def worker(pid: int, nproc: int, port: str) -> None:
     ndev = mesh.size
     assert ndev == 4 * nproc and mesh.spans_processes and mesh.rank == pid
 
-    cfg = RxChainConfig(fft_len=256, decimation=4, fir_mode="fused")
+    cfg = RxChainConfig(fft_len=FFT_LEN, decimation=DEC, fir_mode="fused")
     chain = RxChain(cfg, device="cpu")
-    span = cfg.fft_len * cfg.decimation
-    n = ndev * span * 2
     # the same capture in every process (fixed seed); each passes its part
-    rng = np.random.default_rng(815)
-    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    x = _capture(nproc)
+    n = x.size
     local = x[pid * n // nproc:(pid + 1) * n // nproc]
     xg = mesh_mod.shard_process_local(local, mesh, ("time",), (n,))
 
@@ -225,8 +263,9 @@ def worker(pid: int, nproc: int, port: str) -> None:
         want2 = ref2[pid * ref2.size // nproc:(pid + 1) * ref2.size // nproc]
         assert np.array_equal(got2, want2), f"process {pid} 2-d channel {ch}"
 
-    # the FIR alone, by shift-and-add and by overlap-save
-    fir_ref = fir.fir_filter(torch.from_numpy(x), chain.taps).numpy()
+    # the FIR alone, by shift-and-add and by overlap-save, against the JAX
+    # package's fir_filter with the JAX chain's taps
+    fir_ref = np.load(Path(folder) / "fir.npy")
     for use_os in (False, True):
         got_f = halo.sharded_fir(xg, chain.taps, mesh, use_os=use_os, block_len=256)
         for sh in got_f.addressable_shards:
@@ -235,25 +274,24 @@ def worker(pid: int, nproc: int, port: str) -> None:
 
     # the sharded DDC: per-shard exact NCO rotators and a halo that crosses
     # the process boundary
-    dcfg = DdcConfig(freq=0.1375, decimation=4)
+    dcfg = DdcConfig(freq=DDC_FREQ, decimation=DEC)
     got_d = sharded_ddc(mesh_mod.shard_process_local(local, mesh, ("time",), (n,)), dcfg, mesh)
-    ref_d = Ddc(dcfg, device="cpu").step(torch.from_numpy(x)).numpy()
+    ref_d = np.load(Path(folder) / "ddc.npy")  # the JAX package's Ddc.step
     for sh in got_d.addressable_shards:
         err = _rel_rms(sh.data, ref_d[sh.index[-1]])
         assert err < DDC_RMS, f"process {pid} ddc shard {sh.index}: {err}"
 
-    # the block-sharded TPC decode: each process decodes its own blocks
+    # the block-sharded TPC decode: each process decodes its own blocks,
+    # against the JAX package's decode of the same LLRs
     t = TPC(m=4, p=3, iters=2)
-    trng = np.random.default_rng(7)
-    tdata = trng.integers(0, 2, (2 * ndev, t.k, t.k)).astype(np.uint8)
-    tcw = t.encode(torch.from_numpy(tdata)).numpy().astype(np.float64)
-    tllr = ((1 - 2 * tcw) * 5.0 + 0.4 * trng.normal(size=tcw.shape)).astype(np.float32)
+    tllr = np.load(Path(folder) / "tpc_llr.npy")
     tmesh = mesh_mod.make_mesh({"channel": 4 * nproc}, devices=["cpu"] * 4)
     tdec, tok = t.sharded_decode(tllr, tmesh)
-    want_dec, want_ok = t.decode(tllr)
     mine = slice(pid * 2 * ndev // nproc, (pid + 1) * 2 * ndev // nproc)
-    assert torch.equal(tdec.gather(local=True), want_dec[mine])
-    assert torch.equal(tok.gather(local=True), want_ok[mine])
+    assert np.array_equal(tdec.gather(local=True).numpy(),
+                          np.load(Path(folder) / "tpc_dec.npy")[mine])
+    assert np.array_equal(tok.gather(local=True).numpy(),
+                          np.load(Path(folder) / "tpc_ok.npy")[mine])
 
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -262,4 +300,4 @@ def worker(pid: int, nproc: int, port: str) -> None:
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
