@@ -155,7 +155,6 @@ def sharded_ambiguity(
     ``(axis_name, None)``; ``.gather()`` for the tensor). The per-row math
     never crosses shards. ``len(dopplers)`` must divide by the mesh axis
     size."""
-    _mesh.single_process(mesh, "sharded_ambiguity")
     x = as_cf32(x)
     nu = torch.as_tensor(dopplers, dtype=torch.float32).reshape(-1)
     n_dev = mesh.shape[axis_name]
@@ -182,11 +181,12 @@ def sharded_estimate_delay_doppler(
 ):
     """:func:`estimate_delay_doppler` computing its CAF surface by
     :func:`sharded_ambiguity`; the peak search and refinement run on the
-    surface gathered onto the mesh's first device. Same return contract
-    (tensors on that device)."""
-    _mesh.single_process(mesh, "sharded_estimate_delay_doppler")
+    surface gathered onto the mesh's first device (on a mesh that spans
+    processes, all-gathered onto each process's first device, so every
+    rank returns the same estimate). Same return contract (tensors on that
+    device)."""
     x = as_cf32(x)
     nu = _doppler_grid(max_doppler, n_dopplers)
-    surf = sharded_ambiguity(x, ref, nu, mesh, axis_name, fft_backend).gather()
+    surf = _mesh.allgather(sharded_ambiguity(x, ref, nu, mesh, axis_name, fft_backend))
     dev = surf.device
     return _refine_peak(surf, _upload(nu, dev), x.to(dev), as_cf32(ref, device=dev))

@@ -47,8 +47,7 @@ from ..ops import vecops as _vecops
 from ..ops.cuda import pfb_fold as _pf
 from ..ops.fft import Scale, check_backend, plan as fft_plan
 from ..parallel.halo import left_tail, right_head
-from ..parallel.mesh import (CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last,
-                             single_process)
+from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, Sharded, shard, shard_last
 from ..types import as_cf32, stage_device
 
 #: Fold backends: "auto" takes the fold kernel for a CUDA tensor and the
@@ -200,11 +199,21 @@ def sharded_waterfall(samples, fft_len: int, mesh: Mesh, use_db: bool = False,
                       axis_name: str = CHANNEL_AXIS, fft_backend: Optional[str] = None) -> Sharded:
     """Waterfall with rows sharded across the mesh (no data crosses
     shards: pure scale-out). The capture's ``fft_len``-rows must split
-    evenly over the mesh axis. Returns the rows as a
-    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`."""
-    single_process(mesh, "sharded_waterfall")
+    evenly over the mesh axis. ``samples``: the capture (zero-padded to
+    whole rows here), or its rows ``[..., R, fft_len]`` as a
+    :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` split along
+    ``R`` (on a mesh that spans processes, e.g. from ``shard_process_local``).
+    Returns the rows as a :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded`."""
     check_backend(fft_backend)
-    rows = _pad_rows(as_cf32(samples), fft_len)
+    if isinstance(samples, Sharded):
+        if samples.shape[-1] != fft_len:
+            raise ValueError(
+                f"sharded_waterfall takes a Sharded value of [..., rows, {fft_len}], "
+                f"got {samples.shape}"
+            )
+        rows = samples
+    else:
+        rows = _pad_rows(as_cf32(samples), fft_len)
     rs = shard(rows, mesh, (None,) * (rows.ndim - 2) + (axis_name, None))
     return rs.map(lambda r: _magnitude(fft_plan(fft_len).fwd(r, Scale.SN), use_db))
 
@@ -342,7 +351,6 @@ def sharded_pfb(samples, n_chan: int, mesh: Mesh, taps: Optional[np.ndarray] = N
     span must be divisible by ``n_chan``. Returns the frames as a
     :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` ``[..., T,
     n_chan]`` split along ``T``."""
-    single_process(mesh, "sharded_pfb")
     check_backend(fft_backend)
     m = int(n_chan)
     if taps is None:
@@ -820,7 +828,6 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
     reference-phase classes align per shard. The kernel reads a shard and
     its halo as two sources.
     """
-    single_process(mesh, "sharded_pfb_os")
     check_backend(fft_backend)
     _check_backend(backend)
     m = int(n_chan)
@@ -832,7 +839,7 @@ def sharded_pfb_os(samples, n_chan: int, mesh: Mesh, os: int = 2,
     p = max(1, -(-h.shape[-1] // m))
     overlap = p * m - hop
     xs = shard_last(samples, mesh, axis_name, dtype=torch.complex64)
-    span = xs.shards.flat[0].shape[-1]
+    span = xs.shape[-1] // mesh.shape[axis_name]
     if span % m:
         raise ValueError("per-device span must be divisible by n_chan")
     if span < overlap:

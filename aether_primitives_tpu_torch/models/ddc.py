@@ -38,7 +38,7 @@ from ..ops import fir as _fir
 from ..ops import frontend as _fe
 from ..ops.fft import check_backend
 from ..parallel.halo import left_tail
-from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last, single_process
+from ..parallel.mesh import TIME_AXIS, Mesh, Sharded, shard_last
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -280,9 +280,9 @@ def sharded_duc(x, config: DucConfig, mesh: Mesh, axis_name: str = TIME_AXIS) ->
     history (the halo exchange), interleaves locally (a shard's ``n_local``
     inputs produce exactly its ``n_local * L`` contiguous outputs: the
     interleave never crosses shards), and mixes up with a per-shard
-    float64-exact oscillator rotator at the OUTPUT rate.
+    float64-exact oscillator rotator at the OUTPUT rate, indexed by the
+    shard's global coordinate (so on a mesh that spans processes too).
     """
-    single_process(mesh, "sharded_duc")
     size = mesh.shape[axis_name]
     n = np.shape(x)[-1]
     if n % size:

@@ -321,7 +321,6 @@ def sharded_estimate_doa(
     windows (no exchange between shards). Returns the ``[W, K]`` sorted
     bearings as a :class:`~..parallel.mesh.Sharded` value (``.gather()``
     for the tensor). ``W`` must divide by the mesh axis size."""
-    _mesh.single_process(mesh, "sharded_estimate_doa")
     x = x if isinstance(x, _mesh.Sharded) else as_cf32(x)
     if x.ndim != 3:
         raise ValueError(f"expected [W, M, T] windows, got shape {tuple(x.shape)}")

@@ -10,8 +10,9 @@ on-device ``argmin`` gathered with ``index_select``, and everything that
 does not depend on the state (the sliding windows, their conjugates and
 energies, the step constants) is made before the loop. Each float32
 expression keeps the JAX package's order of operations (``mu / en`` before
-``* e * conj(row)``; RLS's ``p @ u``, ``denom``, ``k``, then ``p``): the
-recurrences compound rounding, so a reordered sum would show up as drift.
+``* e * conj(row)``): the recurrences compound rounding, so a reordered sum
+would show up as drift. RLS keeps that order too, in complex128: its float32
+recurrence turns NaN (see :func:`rls_equalize`).
 
 Convention: equalizer output ``y[i] = sum_t w[t] * x[i - t]`` (causal
 window), decisions/training aligned so ``y[i]`` estimates ``d[i]``; pick a
@@ -231,28 +232,34 @@ def rls_equalize(
     :func:`lms_equalize`, converging in ~2*ntaps symbols. The state is an
     ``[ntaps, ntaps]`` inverse correlation updated a step. ``lam``:
     forgetting factor; ``delta``: initial inverse-correlation scale (P0 =
-    I/delta)."""
+    I/delta).
+
+    The recurrence runs in complex128 on the input's device and the results
+    come back as complex64 / float32: in float32 the inverse correlation
+    loses its symmetry over a few hundred steps and the weights turn NaN
+    (in the JAX package's float32 form too), which float64 does not."""
     x = as_cf32(x)
     dev = x.device
     d = as_cf32(training, device=dev)
-    rows = _sliding(x, ntaps)
+    rows = _sliding(x, ntaps).to(torch.complex128)
     m = min(int(d.shape[-1]), rows.shape[0] - int(delay))
-    d = d[:m]
+    d = d[:m].to(torch.complex128)
     train_rows = rows[delay:delay + m]
     conj_rows = train_rows.conj().resolve_conj()
-    w = torch.zeros(ntaps, dtype=cf32, device=dev)
-    p = torch.eye(ntaps, dtype=cf32, device=dev) / _f32(delta)
-    lamf = _f32(lam)
+    w = torch.zeros(ntaps, dtype=torch.complex128, device=dev)
+    p = torch.eye(ntaps, dtype=torch.complex128, device=dev) / float(delta)
+    lam = float(lam)
     errs = []
     for i in range(m):
         u = train_rows[i]  # regression row
         pu = p @ u
-        denom = lamf + (conj_rows[i] * pu).sum()
+        denom = lam + (conj_rows[i] * pu).sum()
         k = pu / denom
         e = d[i] - (w.conj() * u).sum()
         w = w + k * e.conj()
-        p = (p - k[:, None] * pu.conj()[None, :]) / lamf
+        p = (p - k[:, None] * pu.conj()[None, :]) / lam
         errs.append(e)
-    err = torch.stack(errs).abs() if errs else torch.zeros(0, dtype=torch.float32, device=dev)
+    err = (torch.stack(errs).abs().to(torch.float32) if errs
+           else torch.zeros(0, dtype=torch.float32, device=dev))
     y = torch.matmul(rows, w.conj())
-    return y.to(cf32), w.conj().resolve_conj(), err
+    return y.to(cf32), w.conj().resolve_conj().to(cf32), err

@@ -50,7 +50,7 @@ from ..ops import noise as _noise
 from ..ops.cuda import rx_frame as _rx_frame
 from ..ops.fft import Scale, check_backend, fft_of_decimated, plan as fft_plan
 from ..parallel import halo as _halo
-from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last, single_process
+from ..parallel.mesh import CHANNEL_AXIS, TIME_AXIS, Sharded, shard, shard_last
 from ..types import as_cf32, cf32, stage_device
 
 
@@ -478,8 +478,13 @@ class RxChain:
         shard's device (the JAX package sums a masked tail over the axis).
         N successive calls are bit-exact to one contiguous :meth:`step` of
         the concatenated capture.
+
+        On a mesh that spans processes ``block`` is the whole capture in
+        every process or a ``Sharded`` value from ``shard_process_local``,
+        and ``state`` likewise: the halo's edges and the new state cross
+        ranks (the last time shard's rank sends its tail to every other
+        rank holding a coordinate of that channel row).
         """
-        single_process(mesh, "RxChain.sharded_streaming_step_2d")
         self._check_span(np.shape(block)[-1], shards=int(mesh.shape[time_axis]))
         xs = shard_last(block, mesh, time_axis, leading=channel_axis, dtype=cf32)
         state_spec = (channel_axis,) + (None,) * (xs.ndim - 1)
@@ -496,18 +501,9 @@ class RxChain:
         bits = xs.map(self._local_bits, h)
         jt = mesh.axis(time_axis)
         last = mesh.devices.shape[jt] - 1
-        new_state = np.empty(mesh.devices.shape, dtype=object)
-        placed = {}
-        for c in mesh.coords():
-            src = c[:jt] + (last,) + c[jt + 1:]
-            key = (src, mesh.devices[c])
-            if key not in placed:
-                xl = xs.shards[src]
-                buf = torch.empty(xl.shape[:-1] + (k - 1,), dtype=cf32,
-                                  device=mesh.devices[c])
-                placed[key] = buf.copy_(xl[..., xl.shape[-1] - (k - 1):])
-            new_state[c] = placed[key]
-        return bits, Sharded(mesh, state_spec, new_state)
+        new_state = _halo.take_from(xs, lambda c: c[:jt] + (last,) + c[jt + 1:],
+                                    lambda xl: xl[..., xl.shape[-1] - (k - 1):], state_spec)
+        return bits, new_state
 
 
 class TxChain:

@@ -52,7 +52,7 @@ from ..ops import sequence as _seq
 from ..ops import tpc as _tpc
 from ..ops._stats import median_midpoint
 from ..ops import turbo as _turbo
-from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard, single_process
+from ..parallel.mesh import CHANNEL_AXIS, Sharded, shard
 from ..types import as_cf32, stage_device
 from . import sync as _sync
 
@@ -495,8 +495,8 @@ class PacketModem:
         shard. ``B`` must divide by the mesh axis size. Returns
         ``(payloads, crc_ok, diag)`` as :class:`~aether_primitives_tpu_torch.
         parallel.mesh.Sharded` values split along the burst axis, equal to
-        :meth:`rx_batch`'s when gathered."""
-        single_process(mesh, "PacketModem.rx_batch_sharded")
+        :meth:`rx_batch`'s when gathered. On a mesh that spans processes
+        each decodes its own shards' bursts (nothing crosses ranks)."""
         x = captures if isinstance(captures, Sharded) else as_cf32(captures)
         if x.ndim != 2:
             raise ValueError(

@@ -22,7 +22,11 @@ along the axis on each side crosses to the neighbouring rank through
 ``torch.distributed`` ``isend`` / ``irecv``: CUDA tensors themselves with
 the ``nccl`` backend, and with ``gloo`` a host copy of the edge (the
 backend the caller chose; gloo sends host tensors). Complex edges travel
-as their float32 ``view_as_real``.
+as their float32 ``view_as_real``. :func:`take_from` moves any piece of
+one shard to other coordinates the same way (a streaming step's carried
+state). A mesh that spans processes in a process that has joined no
+process group raises RuntimeError (:func:`~aether_primitives_tpu_torch.
+parallel.mesh.process_group`).
 
 Use :func:`sharded_fir` for the sharded FIR, or :func:`halo_left` in your
 own sharded stages.
@@ -38,7 +42,7 @@ import torch
 from ..ops import fir as _fir
 from ..ops.cuda import halo as _halo_kernel
 from ..types import cf32
-from .mesh import TIME_AXIS, Mesh, Sharded, shard_last
+from .mesh import TIME_AXIS, Mesh, Sharded, _wire, process_group, shard_last
 
 #: "auto": the peer-push kernel for CUDA shards and its plain version for
 #: CPU shards; "reference": the plain version on any device.
@@ -89,9 +93,38 @@ def right_head(x: Sharded, overlap: int, axis_name: str = TIME_AXIS) -> Sharded:
     return Sharded(x.mesh, x.spec, out)
 
 
-def _wire(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous tensor as it travels: complex as its float32 pairs."""
-    return torch.view_as_real(t) if t.is_complex() else t
+def _send_recv(x: Sharded, pairs, piece) -> dict:
+    """The pieces that cross ranks along ``pairs``, ``(taker, source)``
+    coordinates in one order on every rank: a rank sends ``piece`` of its
+    source shard once to each other rank that takes it, and gets the pieces
+    it takes keyed by source (host tensors under gloo, on the first taker's
+    device under nccl). Every rank posts its sends and receives in the
+    pairs' order, so each pair of ranks matches them in the same order
+    (NCCL matches by order, gloo by tag: the source's flat index)."""
+    mesh = x.mesh
+    dist = process_group(mesh)
+    on_card = dist.get_backend() == "nccl"
+    like = piece(x._first())
+    works, keep, arrived, seen = [], [], {}, set()
+    for c, src in pairs:
+        sender, receiver = int(mesh.ranks[src]), int(mesh.ranks[c])
+        if sender == receiver or (src, receiver) in seen:
+            continue
+        seen.add((src, receiver))
+        tag = int(np.ravel_multi_index(src, mesh.devices.shape))
+        if sender == mesh.rank:
+            t = piece(x.shards[src])
+            t = t.contiguous() if on_card else t.to("cpu").contiguous()
+            keep.append(t)
+            works.append(dist.isend(_wire(t), receiver, tag=tag))
+        elif receiver == mesh.rank:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device=mesh.devices[c] if on_card else "cpu")
+            works.append(dist.irecv(_wire(buf), sender, tag=tag))
+            arrived[src] = buf
+    for w in works:
+        w.wait()
+    return arrived
 
 
 def _across_ranks(x: Sharded, inner: Sharded, overlap: int, axis_name: str,
@@ -99,41 +132,46 @@ def _across_ranks(x: Sharded, inner: Sharded, overlap: int, axis_name: str,
     """The halos of ``inner`` (this process's exchange on its own box, the
     box's edge shards holding zeros) placed on ``x``'s mesh, with the edges
     whose neighbour (``step`` -1: left, +1: right, along ``axis_name``) is
-    another rank's received from that rank, and this rank's own edges sent.
-    Every rank walks the mesh in one order, so each pair of ranks posts its
-    sends and receives in the same order (NCCL matches them by order)."""
-    dist = torch.distributed
+    another rank's received from that rank, and this rank's own edges sent
+    (:func:`_send_recv`)."""
     mesh = x.mesh
     j = mesh.axis(axis_name)
     size = mesh.devices.shape[j]
-    on_card = dist.get_backend() == "nccl"
+    pairs = [(c, c[:j] + (c[j] + step,) + c[j + 1:]) for c in mesh.coords()
+             if 0 <= c[j] + step < size]
+    if step < 0:
+        arrived = _send_recv(x, pairs, lambda t: t[..., t.shape[-1] - overlap:])
+    else:
+        arrived = _send_recv(x, pairs, lambda t: t[..., :overlap])
     out = np.full(mesh.devices.shape, None, dtype=object)
     out[mesh.local_box()] = inner.shards
-    works, keep, arrived = [], [], []
-    for flat, c in enumerate(mesh.coords()):
-        if not 0 <= c[j] + step < size:
-            continue
-        src = c[:j] + (c[j] + step,) + c[j + 1:]  # the shard whose edge c takes
-        sender, receiver = int(mesh.ranks[src]), int(mesh.ranks[c])
-        if sender == receiver:
-            continue
-        if sender == mesh.rank:
-            t = x.shards[src]
-            edge = t[..., t.shape[-1] - overlap:] if step < 0 else t[..., :overlap]
-            edge = edge.contiguous() if on_card else edge.to("cpu").contiguous()
-            keep.append(edge)
-            works.append(dist.isend(_wire(edge), receiver, tag=flat))
-        elif receiver == mesh.rank:
-            halo = out[c]
-            buf = (torch.empty_like(halo) if on_card
-                   else torch.empty(halo.shape, dtype=halo.dtype))  # a host buffer (gloo)
-            works.append(dist.irecv(_wire(buf), sender, tag=flat))
-            arrived.append((c, buf))
-    for w in works:
-        w.wait()
-    for c, buf in arrived:
-        out[c] = buf if on_card else buf.to(out[c].device)
+    for c, src in pairs:
+        if src in arrived and mesh.ranks[c] == mesh.rank:
+            out[c] = arrived[src].to(mesh.devices[c])
     return Sharded(mesh, x.spec, out)
+
+
+def take_from(x: Sharded, source, piece, spec=None) -> Sharded:
+    """A value on ``x``'s mesh (laid out by ``spec``, default ``x``'s)
+    whose every coordinate ``c`` of this process holds a copy of
+    ``piece(shard)`` of the shard at coordinate ``source(c)``, on ``c``'s
+    device: one copy per (source, device). Where the source is another
+    rank's, that rank sends its piece once to each rank that takes it
+    (:func:`_send_recv`). E.g. a streaming step's carried state: every
+    coordinate of a channel row takes the tail of the row's last time
+    shard."""
+    mesh = x.mesh
+    pairs = [(c, source(c)) for c in mesh.coords()]
+    arrived = _send_recv(x, pairs, piece) if mesh.spans_processes else {}
+    out = np.full(mesh.devices.shape, None, dtype=object)
+    placed = {}
+    for c in mesh.local_coords():
+        src, dev = source(c), mesh.devices[c]
+        if (src, dev) not in placed:
+            t = arrived[src] if src in arrived else piece(x.shards[src])
+            placed[src, dev] = torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+        out[c] = placed[src, dev]
+    return Sharded(mesh, x.spec if spec is None else spec, out)
 
 
 def halo_left(x: Sharded, overlap: int, axis_name: str = TIME_AXIS,

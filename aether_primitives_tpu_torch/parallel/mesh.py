@@ -217,14 +217,30 @@ def init_distributed(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend=backend, **kwargs)
 
 
-def single_process(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError where ``mesh`` spans processes: for the
-    sharded entry points that take a mesh of one process only."""
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            f"{what} on a mesh that spans processes is not ported yet (ROADMAP.md §1, "
-            "what remains of item 17b); it takes a mesh of one process"
+def process_group(mesh: Mesh):
+    """``torch.distributed``, once checked to hold the process group that
+    ``mesh`` spans: RuntimeError where this process has joined none (a mesh
+    that spans processes was used without :func:`init_distributed`, or
+    after the group was destroyed) or joined another one, before an
+    exchange that would otherwise fail deep inside or wait for ever."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"{mesh} spans processes, but this process has joined no process group: "
+            "call init_distributed in every process before make_mesh"
         )
+    if dist.get_rank() != mesh.rank or dist.get_world_size() <= int(mesh.ranks.max()):
+        raise RuntimeError(
+            f"{mesh} is rank {mesh.rank}'s of {int(mesh.ranks.max()) + 1} processes, but this "
+            f"process is rank {dist.get_rank()} of a group of {dist.get_world_size()}"
+        )
+    return dist
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor as it travels between ranks: complex as its
+    float32 pairs."""
+    return torch.view_as_real(t) if t.is_complex() else t
 
 
 def _on_device(device):
@@ -364,6 +380,54 @@ class Sharded:
 
     def __repr__(self) -> str:
         return f"Sharded(shape={self.shape}, spec={self.spec}, mesh={self.mesh.shape})"
+
+
+def allgather(x: Sharded, device=None) -> torch.Tensor:
+    """The global tensor of ``x`` in every process, on ``device`` (default:
+    the first device of this process's coordinates). On a mesh of one
+    process it is :meth:`Sharded.gather`. Across processes each rank's part
+    (its box's shards, concatenated) goes to every rank in one
+    ``all_gather`` (host tensors under gloo, CUDA tensors under nccl;
+    complex as float32 pairs, each part padded to the largest) and is
+    placed where its box lies: for small values that every rank needs
+    whole, such as a CAF surface."""
+    mesh = x.mesh
+    if not mesh.spans_processes:
+        return x.gather(device)
+    dist = process_group(mesh)
+    dev = mesh.devices[mesh.local_coords()[0]] if device is None else torch.device(device)
+    on_card = dist.get_backend() == "nccl"
+    local_shape = x._first().shape
+    spec = x.spec + (None,) * (len(local_shape) - len(x.spec))
+    regions = []  # each rank's (slices, shape) of the global tensor
+    for r in range(dist.get_world_size()):
+        held = np.argwhere(mesh.ranks == r)
+        if not len(held):
+            regions.append(None)
+            continue
+        lo, hi = held.min(0), held.max(0) + 1
+        cut = [(0, n) if name is None else
+               (lo[mesh.axis(name)] * n, hi[mesh.axis(name)] * n)
+               for n, name in zip(local_shape, spec)]
+        regions.append((tuple(slice(int(a), int(b)) for a, b in cut),
+                        tuple(int(b - a) for a, b in cut)))
+    mine = _wire(x.gather(dev if on_card else "cpu", local=True).contiguous()).reshape(-1)
+    out = torch.empty(x.shape, dtype=x._first().dtype, device=dev)
+    pair = 2 if out.is_complex() else 1
+    buf = torch.zeros(max(int(np.prod(r[1])) for r in regions if r is not None) * pair,
+                      dtype=mine.dtype, device=mine.device)
+    buf[:mine.numel()] = mine
+    parts = [torch.empty_like(buf) for _ in regions]
+    dist.all_gather(parts, buf)
+    for part, region in zip(parts, regions):
+        if region is None:
+            continue
+        where, shape = region
+        piece = part[:int(np.prod(shape)) * pair]
+        piece = (torch.view_as_complex(piece.reshape(shape + (2,))) if pair == 2
+                 else piece.reshape(shape))
+        out[where] = piece.to(dev)
+    return out
 
 
 def _lift(local: Sharded, mesh: Mesh) -> Sharded:

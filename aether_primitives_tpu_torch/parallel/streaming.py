@@ -50,7 +50,9 @@ the chain runs, as the JAX executors ``device_put`` it: the chain gets a
 :class:`~aether_primitives_tpu_torch.parallel.mesh.Sharded` value. The mesh
 says where the block goes, so ``device`` is not read; every shard is copied
 on its own device's current stream (no side copy stream), and the
-done-event of a block is one event per card of the mesh.
+done-event of a block is one event per card of the mesh. On a mesh that
+spans processes each process stages only its own shards, and its cards and
+``device`` are its own coordinates'.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ import torch
 
 from ..types import stage_device
 from ..utils.metrics import StageStats
-from .mesh import Sharded, Sharding, shard, single_process
+from .mesh import Sharded, Sharding, shard
 
 #: Host dtypes that the JAX package (without x64) stages as 32-bit; the
 #: port stages them the same way.
@@ -120,9 +122,10 @@ class _Stager:
         self.sharding = sharding
         if sharding is not None:
             self.sharding = sharding = Sharding(*sharding)
-            single_process(sharding.mesh, "a streaming executor's sharding")
-            cards = sorted({d.index for d in sharding.mesh.devices.flat if d.type == "cuda"})
-            self.device = sharding.mesh.devices.flat[0]
+            mesh = sharding.mesh
+            local = [mesh.devices[c] for c in mesh.local_coords()]  # this process's
+            cards = sorted({d.index for d in local if d.type == "cuda"})
+            self.device = local[0]
             self.cuda = False  # no side copy stream: each shard's own stream
             self.streams = [torch.cuda.current_stream(torch.device("cuda", i)) for i in cards]
             return

@@ -59,8 +59,8 @@ It drives the port's paths through their hand-written kernels:
   and the frequency hopper (``models.fhss``);
 - the entry points (``entry()``, ``dryrun_multichip(8)`` on the card),
   the per-op microbench (the JAX package's 33 rows), two processes on one
-  mesh over ``torch.distributed`` (gloo) running the flagship chain's
-  ``sharded_step`` and ``sharded_ddc``, and the four ``examples/torch_*.py``,
+  mesh over ``torch.distributed`` (gloo) running every sharded entry
+  point, and the four ``examples/torch_*.py``,
 
 in thirty-one phases:
 
@@ -265,7 +265,8 @@ in thirty-one phases:
     1e-4 rad, CAF delay 1e-3 and Doppler 1e-7, CFOs 1e-7, AMC scores rtol
     1e-4);
 28. each of phase 27's paths timed (CUDA events, median of 3 runs) and
-    profiled as in phase 26;
+    profiled as in phase 26, and RLS a training step beside its complex64
+    form from before ROADMAP.md §3.17's repair;
 29. the entry points (``aether_primitives_tpu_torch/entry.py``):
     ``entry()``'s step on the card against its CPU run (1 RX frame launch),
     ``dryrun_multichip(8)`` with all eight shards on the card against its
@@ -288,7 +289,19 @@ in thirty-one phases:
     equal to one process's ``sharded_step`` and through the float64 gate,
     ``sharded_ddc`` against ``Ddc.step`` (<= -100 dB), 4 RX frame + 1 halo
     launches a step in each; the step and the halo exchange timed in both
-    (the edge between the ranks apart), beside one process's step.
+    (the edge between the ranks apart), beside one process's step; then
+    three ``[2, 4,194,304]`` blocks of the flagship chain through
+    ``sharded_streaming_step_2d`` on a ``{time: 4, channel: 2}`` mesh whose
+    halo and carried state cross the ranks (bytes equal to one process's
+    eight-shard calls and to one contiguous ``step``, the float64 gate, 4 RX
+    frame + 1 halo launches a rank and step) and through a
+    ``StatefulExecutor`` with ``sharding=`` (equal to the direct calls), and
+    ``rx_batch_sharded`` (viterbi, turbo), ``sharded_pfb``,
+    ``sharded_pfb_os``, ``sharded_waterfall``, ``sharded_duc``,
+    ``sharded_ambiguity``, ``sharded_estimate_delay_doppler`` and
+    ``sharded_estimate_doa`` at the dry run's shapes, each equal to one
+    process's run on eight shards with its launches a rank; each path timed
+    a rank, with the edge of its exchange between the ranks.
 
 Any failed phase prints its cause and exits 1. The line before the last
 is the kernels' JSON summary; the last line is
@@ -341,11 +354,11 @@ CARRIER_ATOL, CARRIER_PHASE_ATOL, CARRIER_FREQ_ATOL = 4e-4, 4e-5, 2e-5
 # (relative); AMC scores (relative, and absolute for the winner's residual
 # near zero, a difference of features ~1.5 that float32 means round ~1e-6
 # apart in another summation order); the MIMO solves at channel condition numbers under
-# 100 (dB); RLS against float64, from which its float32 recurrence sits
-# at -68 to -103 dB in either package (ROADMAP.md §3.17)
+# 100 (dB); RLS (a complex128 recurrence since ROADMAP.md §3.17's repair)
+# against float64
 CAF_DELAY_ATOL, CAF_DOPPLER_ATOL, CAF_METRIC_RTOL = 1e-3, 1e-7, 1e-4
 CFO_ATOL, BEARING_ATOL, SPEC_RTOL, AMC_RTOL, AMC_ATOL = 1e-7, 1e-4, 1e-3, 1e-4, 1e-5
-MIMO_DB, RLS_DB = -80.0, -65.0
+MIMO_DB, RLS_DB = -80.0, -100.0
 # MVDR weights of examples/beamform_rx.py's scene: its loaded covariance's
 # condition number is ~6e3 (a jammer 12 dB over the packet, 40 dB over the
 # noise), and float32 solves sit at -72 to -76 dB from float64 on the CPU
@@ -1086,6 +1099,8 @@ def main() -> None:
     pfb_entry["dryrun_launches"] = entry_counts["dryrun"]["pfb_fold"]
     halo_entry["dryrun_launches"] = entry_counts["dryrun"]["halo"]
     halo_entry["cross_process_launches"] = cross["ranks"][0]["launches"]["halo"]
+    halo_entry["cross_process_2d_launches"] = cross["entries"]["sharded_streaming_step_2d"]["halo"]
+    pfb_entry["cross_process_launches"] = cross["entries"]["sharded_pfb_os"]["pfb_fold"]
 
     print(json.dumps({"kernels": [
         {
@@ -1111,6 +1126,8 @@ def main() -> None:
             "entry_launches": entry_counts["entry"]["rx_frame"],
             "dryrun_launches": entry_counts["dryrun"]["rx_frame"],
             "cross_process_launches": cross["ranks"][0]["launches"]["rx_frame"],
+            "cross_process_2d_launches":
+                cross["entries"]["sharded_streaming_step_2d"]["rx_frame"],
         },
         {
             "name": "viterbi",
@@ -1129,6 +1146,7 @@ def main() -> None:
             "ccsds_call_ms": ccsds_t["viterbi"]["call_ms"],
             "ccsds_bound_ms": ccsds_bounds["viterbi"]["bound_ms"],
             "microbench_launches": micro_vit.get("viterbi", 0),
+            "cross_process_launches": cross["entries"]["rx_batch_sharded (viterbi)"]["viterbi"],
         },
         {
             "name": "bcjr",
@@ -1151,6 +1169,7 @@ def main() -> None:
             "ccsds_bound_ms": ccsds_bounds["bcjr"]["bound_ms"],
             "ccsds_instance": bk.kernel_plan(k7_tables, lw_c)[0],
             "microbench_launches": micro_turbo.get("bcjr", 0),
+            "cross_process_launches": cross["entries"]["rx_batch_sharded (turbo)"]["bcjr"],
         },
         pfb_entry,
         cmul_entry,
@@ -4007,7 +4026,7 @@ def acquisition_array_phases(card: str, device: str = "cuda", gps_ms: int = 4, n
         if name != "rls":
             dbs[name] = (max(evm_db(a.cpu(), b) for a, b in zip(v, vh)), LOOP_DB)
     # RLS: the card and the CPU each against float64, as tests/test_torch_
-    # equalizer.py holds it (its float32 recurrence, ROADMAP.md §3.17)
+    # equalizer.py holds it (a complex128 recurrence, ROADMAP.md §3.17)
     gold = rls_f64(xe[:eq_train + eq_len], txe[:200], 11, dly)
     for name, v in (("rls (card vs float64)", eqs[3]), ("rls (CPU vs float64)", eqs_h[3])):
         dbs[name] = (max(evm_db(a.cpu(), b) for a, b in zip(v, gold)), RLS_DB)
@@ -4052,6 +4071,15 @@ def acquisition_array_phases(card: str, device: str = "cuda", gps_ms: int = 4, n
             if prof["kernels"] is not None or not torch.cuda.is_available():
                 break
         results[name].update({"ms": ms, **prof})
+    # RLS a training step (200 steps a call) of the complex128 recurrence
+    # (ROADMAP.md §3.17)
+    rls_x, rls_d = xe_d[:eq_train + eq_len], txe_d[:200]
+    got = [cli.time_cuda(lambda: equalizer.rls_equalize(rls_x, rls_d, ntaps=11, delay=dly), 1,
+                         warmup=1) / 200 for _ in range(CROSS_RUNS)]
+    ms = float(np.median(got))
+    results["rls step"] = {"ms": ms}
+    print(f"time: RLS a step: median {ms:.5f} ms (runs {', '.join(f'{v:.5f}' for v in got)}; "
+          f"200 training steps of 11 taps a call, CUDA events) [{card}]", flush=True)
     print(f"phase 28: {time.perf_counter() - t_start:.1f} s")
     return results
 
@@ -4299,8 +4327,11 @@ def cross_process_phase(card: str, device: str = "cuda", span: int = 1 << 22) ->
     (:func:`cross_process_worker`); their bytes joined equal to one
     process's ``sharded_step`` on eight shards and through the float64
     gate, and ``sharded_ddc`` against ``Ddc.step``; the step and its halo
-    exchange timed in both processes (the median of CROSS_RUNS runs).
-    Returns the workers' records."""
+    exchange timed in both processes (the median of CROSS_RUNS runs). Then
+    the other entry points across the two processes
+    (:func:`cross_entry_checks`): the flagship 2-D streaming step over three
+    ``[2, span]`` blocks, the executor, and :func:`cross_paths`.
+    Returns the workers' records and the launches a rank of each path."""
     import socket
     import subprocess
 
@@ -4339,6 +4370,8 @@ def cross_process_phase(card: str, device: str = "cuda", span: int = 1 << 22) ->
         got = np.concatenate([np.load(Path(tmp) / f"bytes_{r}.npy") for r in range(2)])
         got_d = np.concatenate([np.load(Path(tmp) / f"ddc_{r}.npy") for r in range(2)])
         recs = [json.loads((Path(tmp) / f"record_{r}.json").read_text()) for r in range(2)]
+        entries = [json.loads((Path(tmp) / f"entries_{r}.json").read_text()) for r in range(2)]
+        shards = [torch.load(Path(tmp) / f"shards_{r}.pt", weights_only=False) for r in range(2)]
     chain = RxChain(RxChainConfig(fft_len=2048, decimation=4, packed_bits=True), device=device)
     x = capture(2 * span, CROSS_SEED)
     x_dev = torch.from_numpy(x).to(device)
@@ -4372,8 +4405,103 @@ def cross_process_phase(card: str, device: str = "cuda", span: int = 1 << 22) ->
     print(f"time: one process, 8 shards of [{span // 4}] on {device}: sharded_step median "
           f"{float(np.median(one_ms)):.4f} ms (runs {', '.join(f'{v:.4f}' for v in one_ms)}; "
           f"host clock, 10 steps a run) [{card}]", flush=True)
+    del x_dev
+    entry_counts = cross_entry_checks(card, device, span, chain, entries, shards)
     print(f"phase 31: {time.perf_counter() - t_start:.1f} s", flush=True)
-    return {"ranks": recs, "one_process_ms": float(np.median(one_ms))}
+    return {"ranks": recs, "one_process_ms": float(np.median(one_ms)), "entries": entry_counts}
+
+
+def cross_entry_checks(card: str, device: str, block: int, chain, entries, shards) -> dict:
+    """Phase 31's checks of the entry points the workers ran across the two
+    processes (their ``entries`` records and saved ``shards``): the 2-D
+    streaming step's joined bytes equal to one process's same calls on
+    eight shards and to one contiguous ``step``, through the float64 gate
+    on channel 0, its states, and 4 RX frame + 1 halo launches a rank and
+    step; the executor equal to the direct calls; every path of
+    :func:`cross_paths` equal to one process's run on eight shards, the CAF
+    estimate the same on both ranks, each rank's launches as the code
+    implies. Prints every path's ms a rank and its edge between the ranks.
+    Returns the launches a rank (rank 0's)."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.cli import gate
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    on_card = device != "cpu"
+    cap = stream2d_capture(block)
+    mesh8 = mesh_mod.make_mesh({"time": 4, "channel": 2}, devices=[device] * 8)
+    state, one, one_states = chain.init_state((2,)), [], []
+    for i in range(3):
+        bits, state = chain.sharded_streaming_step_2d(
+            torch.from_numpy(np.ascontiguousarray(cap[:, i * block:(i + 1) * block])).to(device),
+            state, mesh8)
+        one.append(bits.gather("cpu"))
+        one_states.append(state.gather("cpu"))
+    whole = chain.step(torch.from_numpy(cap).to(device)).cpu()
+    rec = shards[0]["sharded_streaming_step_2d"]
+    got = [joined([s_["sharded_streaming_step_2d"]["bits"][i] for s_ in shards], one[i])
+           for i in range(3)]
+    same = all(g is not None and torch.equal(g, o) for g, o in zip(got, one))
+    contiguous = same and torch.equal(torch.cat(got, dim=-1), whole)
+    states_ok = all(torch.equal(s_["sharded_streaming_step_2d"]["states"][i], one_states[i])
+                    for s_ in shards for i in range(3))
+    g = gate(chain, cap[0, :2 * block], block, [got[0][0], got[1][0]],
+             [rec["states"][0][0].to(device), rec["states"][1][0].to(device)]) if same else None
+    need = {**NO_LAUNCHES, **({"rx_frame": 4, "halo": 1} if on_card else {})}
+    calls = [e["sharded_streaming_step_2d"]["calls"] for e in entries]
+    need_ex = {**NO_LAUNCHES, **({"rx_frame": 12, "halo": 3} if on_card else {})}
+    ex = [e["StatefulExecutor(sharding=)"] for e in entries]
+    print(f"two processes (gloo), sharded_streaming_step_2d of the flagship chain on {{time: 4, "
+          f"channel: 2}}, rank r holding time shards 2r-2r+1 of both channels, 3 blocks "
+          f"[2, {block}]: joined bytes equal to one process's same calls on 8 shards {same}, "
+          f"to one contiguous step of each channel {contiguous}; states equal {states_ok}; "
+          f"channel 0 two-block float64 gate: bit agreement "
+          f"{g['bit_agreement'] if g else float('nan'):.7f} (need >= {AGREEMENT}), block-2 "
+          f"spectrum {g['evm_rms_db'] if g else float('nan'):.2f} dB (need <= {EVM_DB}), state "
+          f"exact {g['state_exact'] if g else False}; launches a step per rank "
+          f"{[[{k: v for k, v in c.items() if v} for c in cs] for cs in calls]} (need "
+          f"{ {k: v for k, v in need.items() if v} }); StatefulExecutor(sharding=) over the same "
+          f"blocks equal to the direct calls {[e['equal'] for e in ex]}, launches a run "
+          f"{[{k: v for k, v in e['launches'].items() if v} for e in ex]} (need "
+          f"{ {k: v for k, v in need_ex.items() if v} }) [{card}]", flush=True)
+    if not (same and contiguous and states_ok and g is not None and g["ok"]
+            and all(c == need for cs in calls for c in cs)
+            and all(e["equal"] and e["launches"] == need_ex for e in ex)):
+        fail("the 2-D streaming step across two processes")
+
+    ok = True
+    for name, (call, _, _) in cross_paths(device, [device] * 8).items():
+        out = call()
+        parts = [s_[name] for s_ in shards]
+        equal = True
+        for v, want in enumerate(out if isinstance(out, tuple) else (out,)):
+            if isinstance(want, mesh_mod.Sharded):  # join the ranks' shards
+                want = want.gather("cpu")
+                got_v = joined([p[v] for p in parts], want)
+                equal = equal and got_v is not None and torch.equal(got_v, want)
+            else:  # the CAF estimate: the same on both ranks and in one process
+                equal = equal and all(torch.equal(p[v], want.cpu()) for p in parts)
+        need_p = entries[0][name]["need"]  # a rank's four shards' launches
+        counts = [e[name]["launches"] for e in entries]
+        print(f"two processes (gloo), {name}: joined output equal to one process's run on 8 "
+              f"shards {equal}; launches a call per rank "
+              f"{[{k: v for k, v in c.items() if v} for c in counts]} (need "
+              f"{ {k: v for k, v in need_p.items() if v} }) [{card}]", flush=True)
+        ok = ok and equal and all(c == need_p for c in counts)
+    if not ok:
+        fail("an entry point across two processes")
+    for name in entries[0]:
+        for r, e in enumerate(entries):
+            rec_t = e[name]
+            edge = ("no exchange between the ranks" if rec_t["edge_ms"] is None else
+                    f"its edge between the ranks {rec_t['edge_ms']:.4f} ms = "
+                    f"{100 * rec_t['edge_ms'] / rec_t['step_ms']:.1f}% of the call")
+            print(f"time: rank {r}: {name}: {rec_t['step_ms']:.4f} ms a call (median of "
+                  f"{CROSS_RUNS} runs {', '.join(f'{v:.4f}' for v in rec_t['step_runs'])}; host "
+                  f"clock, 10 calls a run, both ranks on {device} at once), {edge} [{card}]",
+                  flush=True)
+    return {name: e.get("launches", e.get("calls", [None])[0]) for name, e in entries[0].items()}
 
 
 def _cross_ddc():
@@ -4383,20 +4511,160 @@ def _cross_ddc():
     return DdcConfig(freq=0.1375, decimation=8)
 
 
+STREAM2D_SEED = 3132  # phase 31's [2, 3 x block] capture for the 2-D streaming step
+SPEC2 = ("channel", "time")
+
+
+def stream2d_capture(block: int):
+    """Phase 31's capture of the 2-D streaming step: ``[2, 3 * block]``
+    complex64 from STREAM2D_SEED, made alike in every process."""
+    from aether_primitives_tpu_torch.cli import capture
+
+    return capture(2 * 3 * block, STREAM2D_SEED).reshape(2, 3 * block)
+
+
+def cross_paths(device: str, devs: list) -> dict:
+    """Phase 31's other entry points at ``dryrun_multichip(8)``'s shapes
+    (``entry.py``; the paths it lacks at its DDC's and chain's), each on a
+    mesh of ``devs`` (four a rank across two processes, eight in one):
+    ``{name: (call, launches a call, exchange or None)}``, where ``call()``
+    returns the path's output (a ``Sharded`` value, a tuple of them, or the
+    CAF estimate) and ``exchange(local)`` runs the path's exchange between
+    shards on its input (``local``: this process's part alone)."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.entry import _cn, doa_windows
+    from aether_primitives_tpu_torch.models import caf, channelizer, doa
+    from aether_primitives_tpu_torch.models.ddc import DucConfig, _polyphase_branches, sharded_duc
+    from aether_primitives_tpu_torch.models.packet import PacketConfig, PacketModem
+    from aether_primitives_tpu_torch.parallel import halo
+    from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
+
+    on_card = device != "cpu"
+    tmesh = mesh_mod.make_mesh({"time": 8}, devices=devs)
+    cmesh = mesh_mod.make_mesh({"channel": 8}, devices=devs)
+    rng = np.random.default_rng(1)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def placed(a, mesh, spec):
+        """The process's part of host ``a`` on the mesh (shard_process_local)."""
+        box = mesh.local_box()
+        cut = tuple(slice(None) if name is None else
+                    slice(box[mesh.axis(name)].start * (a.shape[d] // mesh.shape[name]),
+                          box[mesh.axis(name)].stop * (a.shape[d] // mesh.shape[name]))
+                    for d, name in enumerate(spec))
+        return mesh_mod.shard_process_local(on(a[cut]), mesh, spec, a.shape)
+
+    def per_shard(**k):  # launches a call: one set per local shard
+        return {key: v * len(tmesh.local_coords()) for key, v in k.items()} if on_card else {}
+
+    one_halo = {"halo": 1} if on_card else {}  # one launch per sending card
+
+    paths = {}
+    # bursts, data-parallel: the dry run's 8 captures of 2,048, viterbi and turbo
+    for fec, need in (("viterbi", {"viterbi": 1}), ("turbo", {"bcjr": 16})):
+        pm = PacketModem(PacketConfig(payload_bits=120, fec=fec, preamble_half=32), device=device)
+        caps = 0.02 * _cn(rng, 8, 2048)
+        for i in range(8):
+            burst = pm.tx(on(rng.integers(0, 2, 120).astype(np.uint8))).cpu().numpy()
+            caps[i, 40 + 16 * i:40 + 16 * i + burst.size] += burst
+        caps_d = on(caps)
+        paths[f"rx_batch_sharded ({fec})"] = (
+            lambda pm=pm, caps_d=caps_d: pm.rx_batch_sharded(caps_d, cmesh)[:2],
+            per_shard(**need), None)
+    # the PFBs over the time mesh: the dry run's os-PFB (M 32, P 2, os 2)
+    xp = _cn(rng, 8 * 10 * 32)
+    xps = placed(xp, tmesh, ("time",))
+    paths["sharded_pfb"] = (
+        lambda: channelizer.sharded_pfb(xps, 32, tmesh, taps_per_branch=2),
+        one_halo,
+        lambda local: halo.left_tail(xps.local_view() if local else xps, 32))
+    h_os = channelizer.pfb_prototype_nyquist(32, 2)
+    overlap = max(1, -(-h_os.size // 32)) * 32 - 16
+    paths["sharded_pfb_os"] = (
+        lambda: channelizer.sharded_pfb_os(xps, 32, tmesh, os=2, taps_per_branch=2),
+        per_shard(pfb_fold=1),
+        lambda local: halo.right_head(xps.local_view() if local else xps, overlap))
+    # the waterfall's rows over the channel mesh: 32 rows of the dry run's 128
+    rows = _cn(rng, 32, 128)
+    paths["sharded_waterfall"] = (
+        lambda: channelizer.sharded_waterfall(placed(rows, cmesh, ("channel", None)), 128, cmesh),
+        {}, None)
+    # the DUC over the time mesh at the dry run's DDC size
+    xd = _cn(rng, 8 * 1024)
+    xds = placed(xd, tmesh, ("time",))
+    dcfg = DucConfig(freq=0.21, interpolation=4)
+    kb = _polyphase_branches(dcfg.resolved_taps(), 4).shape[-1]
+    paths["sharded_duc"] = (lambda: sharded_duc(xds, dcfg, tmesh), one_halo,
+                            lambda local: halo.left_tail(xds.local_view() if local else xds,
+                                                         kb - 1))
+    # CAF (the dry run's scene) and DOA (its windows)
+    ref_sig = _cn(rng, 128)
+    xc = 0.05 * _cn(rng, 1024)
+    xc[300:428] += ref_sig * np.exp(2j * np.pi * 2e-3 * (np.arange(128) + 300))
+    xc_d, ref_d = on(xc.astype(np.complex64)), on(ref_sig)
+    dops = np.linspace(-4e-3, 4e-3, 64).astype(np.float32)
+    paths["sharded_ambiguity"] = (lambda: caf.sharded_ambiguity(xc_d, ref_d, dops, tmesh), {},
+                                  None)
+    surf = caf.sharded_ambiguity(xc_d, ref_d, dops, tmesh)
+    paths["sharded_estimate_delay_doppler"] = (
+        lambda: caf.sharded_estimate_delay_doppler(xc_d, ref_d, 4e-3, tmesh, n_dopplers=64), {},
+        lambda local: surf.gather(local=True) if local else mesh_mod.allgather(surf))
+    wins = doa_windows(rng, 16)
+    paths["sharded_estimate_doa"] = (
+        lambda: doa.sharded_estimate_doa(placed(wins, cmesh, ("channel",)), 2, cmesh), {}, None)
+    return paths
+
+
+def local_shards(out) -> list:
+    """A path's output as this process holds it: per ``Sharded`` value its
+    ``(global index, host tensor)`` shards, per plain tensor the tensor."""
+    import torch
+
+    from aether_primitives_tpu_torch.parallel.mesh import Sharded
+
+    outs = out if isinstance(out, tuple) else (out,)
+    return [[(sh.index, sh.data.cpu()) for sh in v.addressable_shards] if isinstance(v, Sharded)
+            else v.cpu() if isinstance(v, torch.Tensor) else v for v in outs]
+
+
+def joined(parts, like):
+    """The global tensor of ``like``'s shape from the ranks' ``(index,
+    tensor)`` shards; None where they leave part of it uncovered."""
+    import torch
+
+    out = torch.zeros(like.shape, dtype=like.dtype)
+    covered = torch.zeros(like.shape, dtype=torch.bool)
+    for rank_parts in parts:
+        for index, data in rank_parts:
+            out[index] = data
+            covered[index] = True
+    return out if bool(covered.all()) else None
+
+
 def cross_process_worker(rank: int, world: int, port: int, folder: str, device: str,
                          span: int) -> None:
     """One rank of phase 31: joins the gloo group, builds the ``{time: 4 x
     world}`` mesh from four shards of its own on ``device``, steps its part
     of the capture once with the launches counted, saves its bytes and its
     ``sharded_ddc`` output under ``folder``, and times the step and the
-    halo exchange (the whole one, and its own pushes alone)."""
+    halo exchange (the whole one, and its own pushes alone). Then three
+    ``[2, span]`` blocks through ``sharded_streaming_step_2d`` on a
+    ``{time: 4, channel: 2}`` mesh (launches counted a step) and through a
+    ``StatefulExecutor`` with ``sharding=`` (held equal to the direct
+    calls), and each path of :func:`cross_paths` once with its launches
+    counted; it saves their shards and times each path and the edge of its
+    exchange between the ranks (the exchange less this rank's part of it)."""
     import numpy as np
     import torch
 
     from aether_primitives_tpu_torch.cli import capture
     from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
     from aether_primitives_tpu_torch.models.ddc import sharded_ddc
-    from aether_primitives_tpu_torch.parallel import halo
+    from aether_primitives_tpu_torch.parallel import halo, streaming
     from aether_primitives_tpu_torch.parallel import mesh as mesh_mod
 
     mesh_mod.init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
@@ -4434,6 +4702,79 @@ def cross_process_worker(rank: int, world: int, port: int, folder: str, device: 
               "step_ms": float(np.median(step_runs)), "tail_ms": tail_ms,
               "local_tail_ms": local_ms}
     (Path(folder) / f"record_{rank}.json").write_text(json.dumps(record))
+
+    # the 2-D streaming step across the ranks on {time: 4, channel: 2}:
+    # this rank holds two time shards of both channels, so the halo's edge
+    # and the carried state cross; block 0 is the whole block in every
+    # process, blocks 1-2 this rank's part (shard_process_local)
+    mesh2 = mesh_mod.make_mesh({"time": 4, "channel": 2}, devices=[device] * 4)
+    cap = stream2d_capture(span)
+    blocks = [np.ascontiguousarray(cap[:, i * span:(i + 1) * span]) for i in range(3)]
+    half = span // world
+    parts = [mesh_mod.shard_process_local(
+        torch.from_numpy(np.ascontiguousarray(b[:, rank * half:(rank + 1) * half])).to(device),
+        mesh2, SPEC2, b.shape) for b in blocks]
+    chain.sharded_streaming_step_2d(parts[1], chain.init_state((2,)), mesh2)  # setup
+    sync(device)
+    state, outs, states, calls = chain.init_state((2,)), [], [], []
+    for i in range(3):
+        reset_counts()
+        bits, state = chain.sharded_streaming_step_2d(blocks[0] if i == 0 else parts[i], state,
+                                                      mesh2)
+        sync(device)
+        calls.append(kernel_launches())
+        outs.append(bits)
+        states.append(state)
+    ex = streaming.StatefulExecutor(lambda b, st: chain.sharded_streaming_step_2d(b, st, mesh2),
+                                    chain.init_state((2,)), sharding=(mesh2, SPEC2),
+                                    device=device, printer=None)
+    reset_counts()
+    ys = ex.run(blocks)  # host blocks: each rank stages its own pieces
+    sync(device)
+    ex_launches = kernel_launches()
+    ex_equal = all(a.index == b.index and torch.equal(a.data, b.data)
+                   for y, o in zip(ys + [ex.state], outs + [state])
+                   for a, b in zip(y.addressable_shards, o.addressable_shards))
+
+    def exchange2(v):
+        """The 2-D step's exchanges: the halo and the carried state."""
+        jt = v.mesh.axis("time")
+        last = v.mesh.devices.shape[jt] - 1
+        halo.left_tail(v, k - 1)
+        halo.take_from(v, lambda c: c[:jt] + (last,) + c[jt + 1:],
+                       lambda t: t[..., t.shape[-1] - (k - 1):])
+
+    def timed(call, exchange=None) -> dict:
+        runs = [host_ms(call) for _ in range(CROSS_RUNS)]
+        rec = {"step_runs": runs, "step_ms": float(np.median(runs)), "edge_ms": None}
+        if exchange is not None:
+            rec["edge_ms"] = float(np.median([host_ms(lambda: exchange(False))
+                                              for _ in range(CROSS_RUNS)])
+                                   - np.median([host_ms(lambda: exchange(True))
+                                                for _ in range(CROSS_RUNS)]))
+        return rec
+
+    entries = {"sharded_streaming_step_2d": {
+        "calls": calls, **timed(lambda: chain.sharded_streaming_step_2d(parts[1], states[0], mesh2),
+                                lambda local: exchange2(parts[1].local_view() if local
+                                                        else parts[1]))}}
+    entries["StatefulExecutor(sharding=)"] = {"launches": ex_launches, "equal": ex_equal,
+                                             **timed(lambda: ex.run(blocks[1:2]))}
+    shards = {"sharded_streaming_step_2d": {
+        "bits": [[(sh.index, sh.data.cpu()) for sh in b.addressable_shards] for b in outs],
+        "states": [st.gather(local=True).cpu() for st in states]}}
+    for name, (call, need, exchange) in cross_paths(device, [device] * 4).items():
+        call()  # setup
+        sync(device)
+        dist.barrier()
+        reset_counts()
+        out = call()
+        sync(device)
+        entries[name] = {"launches": kernel_launches(), "need": {**NO_LAUNCHES, **need},
+                         **timed(call, exchange)}
+        shards[name] = local_shards(out)
+    torch.save(shards, Path(folder) / f"shards_{rank}.pt")
+    (Path(folder) / f"entries_{rank}.json").write_text(json.dumps(entries))
     dist.barrier()
     dist.destroy_process_group()
     print(f"rank {rank}: mesh {mesh.shape} over {world} processes, {len(mesh.local_coords())} "

@@ -4,13 +4,14 @@ package's, on the same seeded numpy inputs.
 Tolerances: LMS, decision-directed LMS, CMA and FDAF weights, outputs and
 error traces RMS EVM <= -100 dB against the JAX package's over the tests'
 lengths (the recurrences keep its float32 order, so rounding does not
-drift apart); decisions after the settle exact. RLS: its float32
-inverse-correlation recurrence is where the JAX package itself sits at -68
-to -91 dB from float64, and the port at -70 to -103 dB, each on inputs
-where the other does better (ROADMAP.md §3.17), so the port's weights,
-outputs and errors are held to a float64 golden at -65 dB and its
-decisions to the JAX package's. The JAX side runs under ``jax.jit`` (one
-XLA program a call). The ``cuda`` case runs every loop on the card under
+drift apart); decisions after the settle exact. RLS: the port runs its
+recurrence in complex128 (ROADMAP.md §3.17: in float32, the JAX package's
+form, the weights turn NaN over a few hundred training symbols), so its
+weights, outputs and errors are held to a float64 golden at -100 dB, its
+decisions to the golden's exactly, and to the JAX package's only where the
+JAX weights are finite (the draws where they are not xfail, citing §3.17).
+The JAX side runs under ``jax.jit`` (one XLA program a call). The ``cuda``
+case runs every loop on the card under
 ``torch.cuda.set_sync_debug_mode("error")`` (a host read in a step
 raises) and holds it to the CPU run (RLS to the float64 golden).
 """
@@ -26,8 +27,14 @@ from aether_primitives_tpu_torch.ops import modulation as tmod
 torch.set_num_threads(1)
 
 EVM_DB = -100.0
-RLS_DB = -65.0  # against float64 (ROADMAP.md §3.17)
+RLS_DB = -100.0  # against float64 (ROADMAP.md §3.17)
 CHANNEL = np.array([0.2j, 1.0, 0.45, -0.25 + 0.15j], np.complex64)
+# ROADMAP.md §3.17's scene, where the JAX package's float32 RLS gives NaN
+# weights in 145 of 150 draws: RLS's defaults (11 taps, lam 0.99, delta
+# 0.01, delay 0) trained on 800 QPSK symbols through RLS_CHANNEL with
+# complex noise of RMS 0.02
+RLS_CHANNEL = np.array([1.0, 0.3 - 0.2j, 0.1j], np.complex64)
+RLS_NSYM, RLS_TRAIN = 1000, 800
 
 
 @pytest.fixture(scope="module")
@@ -137,6 +144,43 @@ def test_rls_matches_float64_and_jax_decisions(jeq, seed, ntrain):
     got = q.demod(ty[4 + 100:] * np.sqrt(2)).numpy()
     assert np.array_equal(got, bits[200:200 + got.size])  # y[4 + j] estimates symbol j
     assert np.array_equal(got, q.demod(torch.from_numpy(np.asarray(jy)[4 + 100:]) * np.sqrt(2)).numpy())
+
+
+def _rls_scene(seed):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, 2 * RLS_NSYM).astype(np.uint8)
+    tx = (tmod.qpsk().modulate(torch.from_numpy(bits)).numpy() / np.sqrt(2)).astype(np.complex64)
+    noise = rng.normal(size=RLS_NSYM) + 1j * rng.normal(size=RLS_NSYM)
+    x = np.convolve(tx, RLS_CHANNEL)[:RLS_NSYM] + 0.02 / np.sqrt(2) * noise
+    return tx, x.astype(np.complex64)
+
+
+def _qpsk_decisions(y):
+    return tmod.qpsk().demod(torch.as_tensor(np.asarray(y, np.complex64)) * np.sqrt(2)).numpy()
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_rls_float32_nan_scene_matches_float64(seed):
+    # ROADMAP.md §3.17: no NaN, weights/outputs/errors at -100 dB from the
+    # float64 recurrence, decisions equal to its decisions
+    tx, x = _rls_scene(seed)
+    ty, tw, te = teq.rls_equalize(torch.from_numpy(x), torch.from_numpy(tx[:RLS_TRAIN]))
+    assert ty.dtype == torch.complex64 and tw.dtype == torch.complex64
+    assert te.dtype == torch.float32 and te.shape == (RLS_TRAIN,)
+    assert bool(torch.isfinite(tw).all() and torch.isfinite(ty).all())
+    gy, gw, ge = _rls_f64(x, tx[:RLS_TRAIN], 11, 0)
+    assert max(_db(tw, gw), _db(ty, gy), _db(te, ge)) <= RLS_DB
+    assert np.array_equal(_qpsk_decisions(ty), _qpsk_decisions(gy))
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_rls_float32_nan_scene_decisions_match_jax(jeq, seed):
+    tx, x = _rls_scene(seed)
+    jy, jw, _ = _jit(jeq.rls_equalize)(x, tx[:RLS_TRAIN])
+    if not np.isfinite(np.asarray(jw)).all():
+        pytest.xfail("the JAX package's float32 RLS gives NaN weights here (ROADMAP.md §3.17)")
+    ty, _, _ = teq.rls_equalize(torch.from_numpy(x), torch.from_numpy(tx[:RLS_TRAIN]))
+    assert np.array_equal(_qpsk_decisions(ty), _qpsk_decisions(jy))
 
 
 @pytest.mark.parametrize("n,ntaps", [(1 << 13, 33), (3000, 8)])

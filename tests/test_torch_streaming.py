@@ -195,17 +195,25 @@ def test_stateful_executor_with_sharding():
 
 
 def test_executor_with_sharding_not_ported():
-    # what of the sharded layout is still missing: a sharding over a mesh
-    # that spans processes; and a sharding must be a (mesh, spec) pair
+    # (the name is from when a mesh that spans processes was refused) the
+    # executors take such a mesh: they stage this process's shards on its
+    # own devices and run the chain on them; a sharding must be a (mesh,
+    # spec) pair
     from aether_primitives_tpu_torch.parallel import mesh as tmesh
 
     m = tmesh.make_mesh({"time": 8}, devices=[CPU] * 8)
-    spanning = tmesh.Mesh(m.devices, m.axis_names, np.repeat([0, 1], 4), rank=0)
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        streaming.new("x2", lambda b: b).finish(sharding=(spanning, ("time",)), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        streaming.StatefulExecutor(lambda b, s: (b, s), np.zeros(2),
-                                   sharding=(spanning, ("time",)), device=CPU)
+    x = torch.arange(8 * 16, dtype=torch.float32)
+    for rank in (0, 1):
+        spanning = tmesh.Mesh(m.devices, m.axis_names, np.repeat([0, 1], 4), rank=rank)
+        ex = streaming.new("x2", lambda b: b.map(lambda t: 2 * t)).finish(
+            sharding=(spanning, ("time",)), device=CPU, printer=None)
+        assert ex.device == torch.device(CPU)
+        (y,) = ex.run([x])
+        assert torch.equal(y.gather(local=True), 2 * x[64 * rank:64 * (rank + 1)])
+        sx = streaming.StatefulExecutor(lambda b, s: (b, s), np.zeros(2),
+                                        sharding=(spanning, ("time",)), device=CPU,
+                                        printer=None)
+        assert sx.device == torch.device(CPU)
     with pytest.raises(TypeError):
         streaming.new("x2", lambda b: b).finish(sharding=object(), device=CPU)
     with pytest.raises(TypeError):
