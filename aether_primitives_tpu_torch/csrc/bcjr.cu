@@ -1,4 +1,4 @@
-// Windowed max-log BCJR for Hopper (sm_90a), in two instances.
+// Windowed max-log BCJR for Hopper (sm_90a), in three instances.
 //
 // Replaces the TPU kernel aether_primitives_tpu/ops/pallas/bcjr.py:
 // _bcjr_kernel (wrapper bcjr_windowed_llr) and is bit-identical to the JAX
@@ -20,14 +20,27 @@
 // and +0 + -0 is +0), so fmaxf is order-free on them; NaN input is outside
 // the contract.
 //
-// What bounds it on an H100: the serial chain. At the turbo path's shape
-// (Lw 96, 2,560 columns, S 8) a launch does 67 M FP32 operations (34 S + 1
-// per step and column: 1.0 us at 67 TFLOP/s, the roofline bound) and must
-// read 2 x 0.98 MB of LLR spans and write 0.98 MB of LLRs (0.9 us at
-// 3.35 TB/s). Each column is a chain of Lw dependent steps of about six
-// dependent FP32 operations (add, max, a three-level max tree, subtract):
-// with the two directions side by side, 96 x 6 x 4 cycles, 1.2 us at
-// 1.98 GHz, the chain floor.
+// What bounds it on an H100: its FP32 instructions, counted as the
+// arithmetic the function needs a step and column. For any tables, each
+// direction takes its 2 S branch metrics of three operations, 2 S adds, S
+// maxima, S - 1 for the state maximum and S subtractions (11 S - 1); the
+// LLR reuses the backward step's branch metrics and adds 4 S adds, 2 (S - 1)
+// maxima and one subtraction (6 S - 1): 28 S - 3 in all. Where every
+// transition's coefficients are those of one of four classes (the RSC-8
+// turbo tables and the conv codes' 0.5 sgn tables), a direction needs only
+// four branch metrics, 12 operations, which the LLR shares: 16 S + 21. None
+// is an FMA and none can contract to one, so each takes an FMA's issue
+// slot: 33.5 T a second, half the data sheet's 67 TFLOP/s. At the ccsds +
+// erasures launch (K=7, S 64, Lw 224 = window 96 + 2 x guard 64, N 5,632 =
+// 256 captures x 22 windows) that is 2.257 G operations, 0.0674 ms, for
+// tables as the lanes instance takes them, and 1.318 G, 0.0394 ms, with the
+// four classes; its bytes (two spans in, the LLRs out: 15.1 MB) take 0.0045
+// ms at 3.35 TB/s. At the turbo path's shape (Lw 96, N 2,560, S 8, the four
+// classes of the meet instance): 36.6 M operations, 0.0011 ms. Each column
+// is also a chain of Lw dependent steps of about six dependent operations a
+// step (add, max, the state maximum, subtract): with the two directions
+// side by side, 96 x 6 x 4 cycles, 1.2 us at 1.98 GHz, the chain floor of
+// the turbo shape.
 //
 // bcjr_kernel_meet<Rsc8, kCols>, the turbo path's instance (the wrapper
 // picks it when the tables' nxt and prev_s equal the copy in Rsc8 and every
@@ -52,14 +65,50 @@
 //   the same values bit for bit.
 // - Shared memory is Lw x kCols x (S + 2) x 4 bytes (60 KB at Lw 96 and
 //   kCols 16). kCols is 16 (benches/torch_bcjr_sweep.py), or 8 for spans
-//   too long for 227 KB at 16 (Lw 364-726); a longer span takes the generic
+//   too long for 227 KB at 16 (Lw 364-726); a longer span takes the lanes
 //   instance.
 //
-// bcjr_kernel<S>, the generic instance (any table set, S in 4..64): one
-// thread per column, the metric column in shared memory ([S][threads], so
-// the table-indexed reads of a warp hit 32 consecutive words), the beta
-// history in a global scratch laid out [Lw][S][N] (coalesced along N, in L2),
-// backward pass then forward pass.
+// bcjr_kernel_lanes<S, kShift>, the lanes instance, for every other table
+// set (S in 4..64; the ccsds + erasures path's K=7 code), the same schedule
+// with a column's states spread over lanes:
+// - State-parallel: a column's S metrics live in registers of L = min(S,
+//   32) lanes, S / L a lane (two at S 64), 32 / L columns a warp (S <= 16).
+//   A step gathers each transition's other end: by shuffles where the
+//   tables are the shift-register pattern (the conv codes; the wrapper
+//   checks), else through shared memory by the tables (a store, one
+//   __syncwarp, the table-indexed loads; two alternating buffers). The
+//   state maximum is one redux.sync of an order-preserving integer key at
+//   L = 32 (the float bits of the maximum come back exactly; one
+//   instruction in place of five levels of shuffle and max), a shuffle
+//   butterfly within the column's lanes below; the LLR's two maxima the
+//   same. The gather takes the last update's values before they are
+//   normalised, beside the maximum, and both then subtract it (the same
+//   floats: one subtraction of one maximum), so a step's chain is the
+//   maximum's and not the maximum's and the exchange's.
+// - A forward and a backward warp a CTA over the same columns at once,
+//   meeting at mid = Lw / 2, as in the meet instance: the chain falls from
+//   2 Lw to Lw steps.
+// - No history in device memory: the half-histories (alpha_t for t < mid,
+//   beta_t for t >= mid) are Lw x S x 4 bytes a column in shared memory,
+//   57 KB at the ccsds launch (60,160 bytes a CTA with the spans and the
+//   exchange buffers: at most 3 CTAs an SM, 6 warps) and 25 KB at Lw 96
+//   (26,368 a CTA: 8 CTAs an SM). (The column instance keeps the beta
+//   history in a [Lw][S][N] scratch in device memory: 323 MB at the ccsds
+//   launch, written and read back. Half-histories in an L2-resident scratch that
+//   persistent CTAs reuse ran slower than in shared memory; PERF.md.)
+// - The CTA's spans come into shared memory once, by cp.async, while the
+//   lanes load their table entries from the card (a table in the kernel's
+//   parameters, read at a lane-dependent index, would serialise on the
+//   constant bank).
+// - Shared memory is Lw x G x (S + 2) x 4 + 16 G S bytes (G = 32 / L): the
+//   spans Lw 876 at S 64, 1,705 at S 32, 1,610 at 16, 1,449 at 8 and 1,208
+//   at 4 fit 227 KB. A longer span takes the column instance.
+//
+// bcjr_kernel<S>, the column instance, only for spans past the lanes
+// instance's limit (any table set, S in 4..64): one thread per column, the
+// metric column in shared memory ([S][threads], so the table-indexed reads
+// of a warp hit 32 consecutive words), the beta history in a global scratch
+// laid out [Lw][S][N] (coalesced along N), backward pass then forward pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +119,7 @@ namespace {
 
 constexpr int kThreads = 128;         // the generic instance's block
 constexpr int kMeetThreads = 64;      // the meet instance's block: two warps
+constexpr int kLanesThreads = 64;     // the lanes instance's block: two warps
 constexpr int kMaxSmem = 232448;      // opt-in shared memory of a block on sm_90
 
 // The turbo RSC-8 trellis of ops/turbo.py _trellis(): nxt[s][u] and
@@ -378,7 +428,351 @@ int launch_meet(const float* ls, const float* lp, float* llr, int lw, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------- generic instance
+// ------------------------------------------------------------ lanes instance
+
+// The lanes instance's shape at S states: L lanes of a warp hold a column's
+// metrics, R = S / L states a lane (state li + r L in lane li, slot r), and
+// a warp holds G = 32 / L columns side by side.
+template <int S>
+struct Lanes {
+  static_assert(S >= 4 && S <= 64 && (S & (S - 1)) == 0, "S in 4..64, a power of two");
+  static constexpr int L = S < 32 ? S : 32;
+  static constexpr int R = S / L;
+  static constexpr int G = 32 / L;
+  // floats of shared memory a CTA needs besides lw x G x (S + 2): the two
+  // warps' double-buffered exchange, [2][2][G][S]
+  static constexpr int kExchange = 4 * G * S;
+};
+
+// An order-preserving map of float32 to int32 (NaN aside): the integer max
+// of the keys is the key of the float max, so one redux.sync takes a warp's
+// maximum. Its own inverse.
+__device__ __forceinline__ int max_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
+
+// The maximum of v over the L lanes of this lane's column.
+template <int L>
+__device__ __forceinline__ float column_max(float v) {
+  if constexpr (L == 32) {
+    return __int_as_float(max_key(__reduce_max_sync(0xffffffffu, max_key(__float_as_int(v)))));
+  } else {
+#pragma unroll
+    for (int o = L / 2; o >= 1; o /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ float local_max(const float (&v)[R]) {
+  float m = v[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) m = fmaxf(m, v[r]);
+  return m;
+}
+
+// A lane's transitions: for each of its R states s and each input or
+// predecessor, the table index and the two coefficients.
+template <int R>
+struct LaneEdges {
+  int at[R][2];
+  float c0[R][2];
+  float c1[R][2];
+};
+
+template <int R>
+__device__ __forceinline__ void edge_metrics(const LaneEdges<R>& e, float ls, float lp,
+                                             float (&g)[R][2]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) g[r][k] = branch_metric(e.c0[r][k], e.c1[r][k], ls, lp);
+  }
+}
+
+// The other ends' values of a lane's transitions, v[r][k] = n[at[r][k]]
+// for the column's values n (a lane's own in registers): through shared
+// memory by the tables (stored into the column's [S] row x, a __syncwarp,
+// the table-indexed loads), or, where the tables are the shift-register
+// pattern of ops/fec.py _conv_soft_coeffs (nxt[s][u] = (2 s + u) mod S,
+// prev_s[s'][j] = (s' >> 1) + j S / 2), by shuffles: forward the
+// predecessors', backward the successors'. `base` is the column's first
+// lane.
+template <int S, bool kShift, bool kForward>
+__device__ __forceinline__ void gather(const float (&n)[Lanes<S>::R], float* x, int li,
+                                       int base, const LaneEdges<Lanes<S>::R>& e,
+                                       float (&v)[Lanes<S>::R][2]) {
+  constexpr int L = Lanes<S>::L, R = Lanes<S>::R;
+  if constexpr (!kShift) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[li + r * L] = n[r];
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) { v[r][0] = x[e.at[r][0]]; v[r][1] = x[e.at[r][1]]; }
+  } else if constexpr (R == 1) {  // state li in lane base + li
+    const int s0 = kForward ? li >> 1 : (2 * li) & (S - 1);
+    const int s1 = kForward ? (li >> 1) + S / 2 : (2 * li + 1) & (S - 1);
+    v[0][0] = __shfl_sync(0xffffffffu, n[0], base + s0);
+    v[0][1] = __shfl_sync(0xffffffffu, n[0], base + s1);
+  } else if constexpr (kForward) {  // S 64: states li and li + 32 in lane li
+    const int l0 = li >> 1, l1 = 16 + (li >> 1);  // prev_s[s'][j]: slot j of these lanes
+    v[0][0] = __shfl_sync(0xffffffffu, n[0], l0);
+    v[0][1] = __shfl_sync(0xffffffffu, n[1], l0);
+    v[1][0] = __shfl_sync(0xffffffffu, n[0], l1);
+    v[1][1] = __shfl_sync(0xffffffffu, n[1], l1);
+  } else {  // S 64: nxt[s][u] = (2 li + u) mod 64 for both of the lane's states
+    const float a0 = __shfl_sync(0xffffffffu, n[0], (2 * li) & 31);
+    const float a1 = __shfl_sync(0xffffffffu, n[1], (2 * li) & 31);
+    const float b0 = __shfl_sync(0xffffffffu, n[0], (2 * li + 1) & 31);
+    const float b1 = __shfl_sync(0xffffffffu, n[1], (2 * li + 1) & 31);
+    const bool hi = li >= 16;
+    v[0][0] = v[1][0] = hi ? a1 : a0;
+    v[0][1] = v[1][1] = hi ? b1 : b0;
+  }
+}
+
+// A step's normalisation, with its gather beside the state maximum: the
+// values n (the last update's, before normalisation) are gathered while
+// the column's maximum mx is reduced, then both subtract it: m = n - mx
+// (the lane's metrics of this step) and v = n[at] - mx (its transitions'
+// other ends; the same floats as gathering m, since a subtraction of the
+// one mx is the same operation wherever it runs).
+template <int S, bool kShift, bool kForward>
+__device__ __forceinline__ void normalise(const float (&n)[Lanes<S>::R], float* x, int li,
+                                          int base, const LaneEdges<Lanes<S>::R>& e,
+                                          float (&m)[Lanes<S>::R],
+                                          float (&v)[Lanes<S>::R][2]) {
+  constexpr int R = Lanes<S>::R;
+  const float mx = column_max<Lanes<S>::L>(local_max<R>(n));
+  gather<S, kShift, kForward>(n, x, li, base, e, v);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = __fsub_rn(n[r], mx);
+    v[r][0] = __fsub_rn(v[r][0], mx);
+    v[r][1] = __fsub_rn(v[r][1], mx);
+  }
+}
+
+// n <- the recursion's update from the gathered metrics v: n[s] = max_k
+// (v[s][k] + g[s][k]).
+template <int R>
+__device__ __forceinline__ void update(float (&n)[R], const float (&v)[R][2],
+                                       const float (&g)[R][2]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    n[r] = fmaxf(__fadd_rn(v[r][0], g[r][0]), __fadd_rn(v[r][1], g[r][1]));
+  }
+}
+
+// The LLR of a step: the column maxima of c_u = (alpha[s] + gb[s][u]) +
+// beta[nxt[s][u]] over its transitions with u = 0, less those with u = 1.
+template <int S>
+__device__ __forceinline__ float lanes_llr(const float (&a)[Lanes<S>::R],
+                                           const float (&bn)[Lanes<S>::R][2],
+                                           const float (&gb)[Lanes<S>::R][2]) {
+  constexpr int R = Lanes<S>::R;
+  float c0[R], c1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    c0[r] = __fadd_rn(__fadd_rn(a[r], gb[r][0]), bn[r][0]);
+    c1[r] = __fadd_rn(__fadd_rn(a[r], gb[r][1]), bn[r][1]);
+  }
+  const float m0 = column_max<Lanes<S>::L>(local_max<R>(c0));
+  const float m1 = column_max<Lanes<S>::L>(local_max<R>(c1));
+  return __fsub_rn(m0, m1);
+}
+
+template <int R>
+__device__ __forceinline__ void copy_metrics(float (&to)[R][2], const float (&from)[R][2]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) { to[r][0] = from[r][0]; to[r][1] = from[r][1]; }
+}
+
+// Two warps a CTA over the same G columns: warp 0 runs alpha forward, warp
+// 1 runs beta backward, at once, each to the middle of the span storing its
+// metrics in the history, then each on through the other half computing the
+// LLRs from the other's stored metrics (the meet instance's schedule, with
+// a column's states spread over lanes). A lane carries the last update's
+// values n; a step normalises them (the gather beside the maximum), then
+// updates, and its LLR (off the chain) comes after. idx: int32 [nxt;
+// prev_s] [2][S][2], coef: float32 [fw0; fw1; bw0; bw1] [4][S][2], both on
+// the card. kShift: the tables are the shift-register pattern (the wrapper
+// checks), so the values are gathered by shuffles.
+template <int S, bool kShift>
+__global__ void __launch_bounds__(kLanesThreads, 8)
+bcjr_kernel_lanes(const float* __restrict__ ls, const float* __restrict__ lp,
+                  float* __restrict__ llr, int lw, long long ncols,
+                  const int* __restrict__ idx, const float* __restrict__ coef) {
+  using Sh = Lanes<S>;
+  constexpr int L = Sh::L, R = Sh::R, G = Sh::G;
+  extern __shared__ __align__(16) float smem[];
+  float* const sls = smem;                  // [lw][G]
+  float* const slp = sls + lw * G;          // [lw][G]
+  float* const hist = slp + lw * G;         // [G][lw][S]
+  float* const xch = hist + G * lw * S;     // [2 warps][2 buffers][G][S]
+  const long long col0 = static_cast<long long>(blockIdx.x) * G;
+
+  // 1. the CTA's two spans into shared memory; columns past N read as zero
+  for (int i = threadIdx.x; i < 2 * lw * G; i += kLanesThreads) {
+    const int row = i / G, q = i - row * G;
+    const int t = row < lw ? row : row - lw;
+    const long long c = col0 + q;
+    const float* src = (row < lw ? ls : lp) + static_cast<long long>(t) * ncols;
+    const bool in = c < ncols;
+    cp_async4(sls + row * G + q, in ? src + c : ls, in ? 4 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // 2. this lane's transitions, while the spans arrive
+  const bool forward = threadIdx.x < 32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / L, li = lane - g * L, base = g * L;
+  LaneEdges<R> fe, be;  // forward (s', j): prev_s, fw; backward (s, u): nxt, bw
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = li + r * L;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = 2 * s + k;
+      be.at[r][k] = __ldg(idx + e);
+      fe.at[r][k] = __ldg(idx + 2 * S + e);
+      fe.c0[r][k] = __ldg(coef + e);
+      fe.c1[r][k] = __ldg(coef + 2 * S + e);
+      be.c0[r][k] = __ldg(coef + 4 * S + e);
+      be.c1[r][k] = __ldg(coef + 6 * S + e);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const long long col = col0 + g;
+  const bool store = li == 0 && col < ncols;
+  const int mid = lw >> 1;
+  const float* const xs = sls + g;
+  const float* const xp = slp + g;
+  float* const h = hist + g * lw * S;  // [lw][S]: alpha_t for t < mid, beta_t for t >= mid
+  float* const xb = xch + ((forward ? 0 : 2) * G + g) * S;  // buffer b at xb + b G S
+  float n[R], m[R];  // the last update's values (zero: uniform metrics), a step's metrics
+#pragma unroll
+  for (int r = 0; r < R; ++r) n[r] = 0.0f;
+  float gf[R][2], gb[R][2], gn[R][2], v[R][2];
+
+  // 3. to the middle: each warp stores its metrics of step t in the history
+  if (forward) {
+    edge_metrics(fe, xs[0], xp[0], gf);
+#pragma unroll 2
+    for (int t = 0; t < mid; ++t) {
+      edge_metrics(fe, xs[(t + 1) * G], xp[(t + 1) * G], gn);  // t + 1 <= mid < lw
+      normalise<S, kShift, true>(n, xb + (t & 1) * G * S, li, base, fe, m, v);
+#pragma unroll
+      for (int r = 0; r < R; ++r) h[t * S + li + r * L] = m[r];
+      update(n, v, gf);
+      copy_metrics(gf, gn);
+    }
+  } else {
+    edge_metrics(be, xs[(lw - 1) * G], xp[(lw - 1) * G], gb);
+#pragma unroll 2
+    for (int t = lw - 1; t >= mid; --t) {
+      const int tn = t > 0 ? t - 1 : 0;
+      edge_metrics(be, xs[tn * G], xp[tn * G], gn);
+      normalise<S, kShift, false>(n, xb + (t & 1) * G * S, li, base, be, m, v);
+#pragma unroll
+      for (int r = 0; r < R; ++r) h[t * S + li + r * L] = m[r];
+      update(n, v, gb);
+      copy_metrics(gb, gn);
+    }
+  }
+  __syncthreads();
+
+  // 4. on through the other half, each step's LLR from the other warp's
+  // stored metrics
+  if (forward) {  // t >= mid: alpha_t in registers, beta_t stored
+    edge_metrics(fe, xs[mid * G], xp[mid * G], gf);
+    float* out = llr + static_cast<long long>(mid) * ncols + col;
+#pragma unroll 2
+    for (int t = mid; t < lw; ++t, out += ncols) {
+      const int tn = t + 1 < lw ? t + 1 : t;
+      edge_metrics(fe, xs[tn * G], xp[tn * G], gn);
+      edge_metrics(be, xs[t * G], xp[t * G], gb);
+      normalise<S, kShift, true>(n, xb + (t & 1) * G * S, li, base, fe, m, v);
+      update(n, v, gf);
+      const float* const beta = h + t * S;
+#pragma unroll
+      for (int r = 0; r < R; ++r) { v[r][0] = beta[be.at[r][0]]; v[r][1] = beta[be.at[r][1]]; }
+      const float o = lanes_llr<S>(m, v, gb);
+      if (store) *out = o;
+      copy_metrics(gf, gn);
+    }
+  } else if (mid > 0) {  // t < mid: beta_t in registers, alpha_t stored
+    edge_metrics(be, xs[(mid - 1) * G], xp[(mid - 1) * G], gb);
+    float* out = llr + static_cast<long long>(mid - 1) * ncols + col;
+#pragma unroll 2
+    for (int t = mid - 1; t >= 0; --t, out -= ncols) {
+      const int tn = t > 0 ? t - 1 : 0;
+      edge_metrics(be, xs[tn * G], xp[tn * G], gn);
+      normalise<S, kShift, false>(n, xb + (t & 1) * G * S, li, base, be, m, v);
+      update(n, v, gb);
+      const float* const alpha = h + t * S;
+#pragma unroll
+      for (int r = 0; r < R; ++r) m[r] = alpha[li + r * L];
+      const float o = lanes_llr<S>(m, v, gb);
+      if (store) *out = o;
+      copy_metrics(gb, gn);
+    }
+  }
+}
+
+// The lanes instance's shared memory a CTA at span length lw, in bytes.
+template <int S>
+constexpr long long lanes_smem(int lw) {
+  return (static_cast<long long>(lw) * Lanes<S>::G * (S + 2) + Lanes<S>::kExchange) *
+         static_cast<long long>(sizeof(float));
+}
+
+// Sets a kernel's shared-memory attributes once per card, and again for a
+// larger size than asked so far (`opted`: a table per kernel): the largest
+// carveout, so that an SM holds as many CTAs as their shared memory allows,
+// and the opt-in above 48 KB of dynamic shared memory.
+template <class K>
+int opt_in(K kernel, long long smem, int (&opted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && opted[dev] >= smem) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dev < 64) opted[dev] = static_cast<int>(smem);
+  return 0;
+}
+
+template <int S, bool kShift>
+int launch_lanes(const float* ls, const float* lp, float* llr, int lw, long long ncols,
+                 const int* idx, const float* coef, cudaStream_t stream) {
+  const long long smem = lanes_smem<S>(lw);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static int opted[64] = {};
+  const int rc = opt_in(bcjr_kernel_lanes<S, kShift>, smem, opted);
+  if (rc) return rc;
+  const long long blocks = (ncols + Lanes<S>::G - 1) / Lanes<S>::G;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bcjr_kernel_lanes<S, kShift><<<static_cast<unsigned>(blocks), kLanesThreads,
+                                 static_cast<size_t>(smem), stream>>>(ls, lp, llr, lw, ncols,
+                                                                      idx, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_lanes(const float* ls, const float* lp, float* llr, int lw, long long ncols,
+                 int shift, const int* idx, const float* coef, cudaStream_t stream) {
+  return shift ? launch_lanes<S, true>(ls, lp, llr, lw, ncols, idx, coef, stream)
+               : launch_lanes<S, false>(ls, lp, llr, lw, ncols, idx, coef, stream);
+}
+
+// ----------------------------------------------------------- column instance
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
@@ -494,7 +888,37 @@ int on_device(int device, F&& launch) {
 // the launch (0 = success) and launches on `stream` of card `device`, made
 // current for the launch where it is not.
 //
-// bcjr_launch, the generic instance. The caller guarantees: ls, lp, llr
+// bcjr_lanes_launch, the lanes instance. ls, lp, llr float32 [lw, ncols],
+// contiguous, lw >= 1, ncols >= 1; s_count in {4, 8, 16, 32, 64}, with
+// lw x G x (s_count + 2) x 4 + 16 G s_count bytes within 227 KB (G = 32 /
+// min(s_count, 32)); idx int32 [nxt; prev_s] (2 x s_count x 2 entries, each
+// in [0, s_count)) and coef float32 [fw0; fw1; bw0; bw1] (4 x s_count x 2),
+// both on the card; shift != 0 only when nxt[s][u] = (2 s + u) mod s_count
+// and prev_s[s'][j] = (s' >> 1) + j s_count / 2.
+extern "C" int bcjr_lanes_launch(const void* ls, const void* lp, void* llr, int lw,
+                                 long long ncols, int s_count, int shift, const void* idx,
+                                 const void* coef, int device, void* stream) {
+  if (lw < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* a = static_cast<const float*>(ls);
+  const float* b = static_cast<const float*>(lp);
+  float* o = static_cast<float*>(llr);
+  const int* i = static_cast<const int*>(idx);
+  const float* c = static_cast<const float*>(coef);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&] {
+    switch (s_count) {
+      case 4: return launch_lanes<4>(a, b, o, lw, ncols, shift, i, c, s);
+      case 8: return launch_lanes<8>(a, b, o, lw, ncols, shift, i, c, s);
+      case 16: return launch_lanes<16>(a, b, o, lw, ncols, shift, i, c, s);
+      case 32: return launch_lanes<32>(a, b, o, lw, ncols, shift, i, c, s);
+      case 64: return launch_lanes<64>(a, b, o, lw, ncols, shift, i, c, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
+}
+
+// bcjr_launch, the column instance, for spans too long for the lanes
+// instance's shared memory. The caller guarantees: ls, lp, llr
 // float32 [lw, ncols] and scratch float32 [lw, s_count, ncols], contiguous;
 // s_count in {4, 8, 16, 32, 64}; idx a host int32 array [nxt; prev_s] of
 // 2 x s_count x 2 entries with every entry in [0, s_count); coef a host

@@ -107,3 +107,16 @@ def windows(synd: torch.Tensor, width: int) -> torch.Tensor:
     i = np.arange(width)[None, :]
     idx = torch.from_numpy((r + width - 1 - i).reshape(-1)).to(synd.device)
     return pad[:, idx].reshape(b, n_syn, width)
+
+
+def gf2_power(a: np.ndarray, e: int) -> np.ndarray:
+    """``a^e`` of a square 0/1 matrix over GF(2), by squaring (exact
+    int64)."""
+    out = np.eye(a.shape[0], dtype=np.int64)
+    base = a.astype(np.int64)
+    while e:
+        if e & 1:
+            out = (out @ base) % 2
+        base = (base @ base) % 2
+        e >>= 1
+    return out

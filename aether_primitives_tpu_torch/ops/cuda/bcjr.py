@@ -16,17 +16,22 @@ bw1)``, each ``[S][2]`` (None = the turbo RSC-8 trellis).
   over the steps with the JAX scan's expression tree, on any device.
 - :data:`launches` counts the kernel's launches.
 
-The kernel has two instances; :func:`kernel_plan` says which one a call
+The kernel has three instances; :func:`kernel_plan` says which one a call
 takes. ``"rsc8"``: the trellis's ``nxt`` and ``prev_s`` equal the turbo
 RSC-8 trellis's (``ops/turbo.py _trellis``), of which ``csrc/bcjr.cu``
 holds a compile-time copy, and the coefficients factor through its four
 branch-metric classes, as the turbo tables' do (decided once per table
 set, with the tables' host arrays): a column's metrics live in registers,
 a forward and a backward warp meet in the middle of the span, and a step
-computes four branch metrics. ``"generic"``: any other table set of 4 to
-64 states (:data:`KERNEL_STATES`), and RSC-8 spans too long for the meet
-instance's shared memory; one thread per column. Both take any ``N``,
-ragged or not, and any ``Lw >= 1``.
+computes four branch metrics. ``"lanes"``: any other table set of 4 to 64
+states (:data:`KERNEL_STATES`; the K=7 conv code), and RSC-8 spans too long
+for the meet instance: the same meeting warps with a column's states spread
+over lanes and its half-histories in shared memory, up to
+:func:`lanes_span_limit` steps; a step's metrics are gathered by shuffles
+where the tables are the shift-register pattern (:func:`shift_register`),
+else through shared memory by the tables. ``"column"``: longer spans; one
+thread per column, the beta history in a device scratch. All take any
+``N``, ragged or not, and any ``Lw >= 1``.
 """
 
 from __future__ import annotations
@@ -122,17 +127,42 @@ def _host_tables(tables):
     return idx, coef, "rsc8", cls
 
 
+def lanes_smem(s_count: int, lw: int) -> int:
+    """Shared memory of a lanes-instance CTA in bytes: its spans,
+    half-histories and exchange buffers, ``Lw x G x (S + 2) + 4 G S``
+    floats (``G = 32 / min(S, 32)`` columns)."""
+    g = 32 // min(s_count, 32)
+    return 4 * (lw * g * (s_count + 2) + 4 * g * s_count)
+
+
+def lanes_span_limit(s_count: int) -> int:
+    """The longest span the lanes instance takes at ``s_count`` states:
+    the largest ``Lw`` whose :func:`lanes_smem` fits a CTA's shared
+    memory."""
+    g = 32 // min(s_count, 32)
+    return (_MEET_SMEM // 4 - 4 * g * s_count) // (g * (s_count + 2))
+
+
 def kernel_plan(tables, lw: int):
     """The instance a call on the card takes: ``("rsc8", c)``, the meet
     instance at the first columns a CTA ``c`` of :data:`MEET_COLS` whose
     spans and history (``Lw`` x ``c`` x 40 bytes) fit a CTA's shared
-    memory, or ``("generic", 0)``."""
-    _, _, instance, _ = _host_tables(tables if tables is not None else rsc8_tables())
+    memory; else ``("lanes", g)``, ``g`` columns a CTA, up to
+    :func:`lanes_span_limit`; else ``("column", 0)``. Raises ValueError on
+    a state count the kernel does not take."""
+    idx, _, instance, _ = _host_tables(tables if tables is not None else rsc8_tables())
+    s_count = idx.shape[1]
+    if s_count not in KERNEL_STATES:
+        raise ValueError(
+            f"the CUDA BCJR kernel takes {KERNEL_STATES} states, not {s_count}"
+        )
     if instance == "rsc8":
         for c in MEET_COLS:
             if lw * c * (_MEET_STATES + 2) * 4 <= _MEET_SMEM:
                 return "rsc8", c
-    return "generic", 0
+    if lw <= lanes_span_limit(s_count):
+        return "lanes", 32 // min(s_count, 32)
+    return "column", 0
 
 
 def _check_args(ls, lp, lw: int):
@@ -189,29 +219,54 @@ def bcjr_windowed_llr_reference(ls, lp, lw: int, tables=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _entries():
     lib = build.load("bcjr")
-    generic = lib.bcjr_launch
-    generic.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    generic.restype = ctypes.c_int
+    column = lib.bcjr_launch
+    column.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    column.restype = ctypes.c_int
     meet = lib.bcjr_rsc8_launch
     meet.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
                      + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     meet.restype = ctypes.c_int
-    return generic, meet
+    lanes = lib.bcjr_lanes_launch
+    lanes.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                      + [ctypes.c_int, ctypes.c_void_p])
+    lanes.restype = ctypes.c_int
+    return column, meet, lanes
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(tables, lw: int):
-    """``(idx, coef, cls, instance, cols)`` of a call: :func:`_host_tables`
-    and :func:`kernel_plan` at once, cached on the call's own arguments (no
-    table hashing a call when ``tables`` is None)."""
+    """``(idx, coef, cls, instance, cols, shift)`` of a call:
+    :func:`_host_tables`, :func:`kernel_plan` and :func:`shift_register` at
+    once, cached on the call's own arguments (no table hashing a call when
+    ``tables`` is None)."""
     idx, coef, _, cls = _host_tables(tables if tables is not None else rsc8_tables())
-    s_count = idx.shape[1]
-    if s_count not in KERNEL_STATES:
-        raise ValueError(
-            f"the CUDA BCJR kernel takes {KERNEL_STATES} states, not {s_count}"
-        )
-    return (idx, coef, cls, *kernel_plan(tables, lw))
+    return (idx, coef, cls, *kernel_plan(tables, lw), shift_register(tables))
+
+
+@functools.lru_cache(maxsize=None)
+def shift_register(tables) -> bool:
+    """Whether the tables' ``nxt`` and ``prev_s`` are the shift-register
+    pattern of ``ops/fec.py _conv_soft_coeffs`` (``nxt[s][u] = (2 s + u)
+    mod S``, ``prev_s[s'][j] = (s' >> 1) + j S / 2``): the lanes instance
+    then gathers a step's metrics by shuffles instead of through shared
+    memory."""
+    idx, _, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
+    s = np.arange(idx.shape[1])
+    nxt = (2 * s[:, None] + np.arange(2)) % idx.shape[1]
+    prev = (s[:, None] >> 1) + np.arange(2) * (idx.shape[1] // 2)
+    return bool(np.array_equal(idx[0], nxt) and np.array_equal(idx[1], prev))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_tables(tables, index: int):
+    """The lanes instance's tables on card ``index``: int32 ``[nxt;
+    prev_s]`` and float32 ``[fw0; fw1; bw0; bw1]``, copied once a table
+    set and card."""
+    idx, coef, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
+    dev = torch.device("cuda", index)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(coef).to(dev)
 
 
 def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
@@ -221,7 +276,7 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
     prev_s, fw0, fw1, bw0, bw1)`` tuples, None for the turbo RSC-8 trellis.
 
     On a CUDA tensor this launches the kernel of ``csrc/bcjr.cu`` on the
-    current stream, in the instance :func:`kernel_plan` names (the generic
+    current stream, in the instance :func:`kernel_plan` names (the column
     one with an ``[Lw, S, N]`` float32 scratch for the beta history); it
     raises on a state count the kernel does not take, a dtype other than
     float32, non-contiguous spans, a missing ``nvcc``, a failed build or a
@@ -236,21 +291,23 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         raise ValueError(f"bcjr_windowed_llr runs on cpu or cuda, not {ls.device.type}")
     if not (ls.is_contiguous() and lp.is_contiguous()):
         raise ValueError("bcjr_windowed_llr takes contiguous spans")
-    idx, coef, cls, instance, cols = _plan(tables, lw)
+    idx, coef, cls, instance, cols, shift = _plan(tables, lw)
     n = ls.shape[1]
     out = torch.empty((lw, n), dtype=torch.float32, device=ls.device)
     if n == 0 or lw == 0:
         return out
     if instance == "rsc8":
         _launch_meet(ls, lp, out, lw, cols, cls)
-        return out
-    scratch = torch.empty((lw, idx.shape[1], n), dtype=torch.float32, device=ls.device)
-    _launch(ls, lp, out, lw, idx, coef, scratch)
+    elif instance == "lanes":
+        _launch_lanes(ls, lp, out, lw, tables, shift)
+    else:
+        scratch = torch.empty((lw, idx.shape[1], n), dtype=torch.float32, device=ls.device)
+        _launch(ls, lp, out, lw, idx, coef, scratch)
     return out
 
 
 def _launch(ls, lp, out, lw: int, idx, coef, scratch) -> None:
-    """One launch of the generic instance, counted in :data:`launches`."""
+    """One launch of the column instance, counted in :data:`launches`."""
     global launches
     index = ls.get_device()
     rc = _entries()[0](
@@ -258,6 +315,22 @@ def _launch(ls, lp, out, lw: int, idx, coef, scratch) -> None:
         lw, ls.shape[1], idx.shape[1], idx.ctypes.data, coef.ctypes.data,
         index, torch._C._cuda_getCurrentRawStream(index),
     )
+    if rc != 0:
+        raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
+    launches += 1
+
+
+def _launch_lanes(ls, lp, out, lw: int, tables, shift: bool) -> None:
+    """One launch of the lanes instance with ``tables`` (None: RSC-8),
+    counted in :data:`launches`: in its shuffle form where ``shift`` (only
+    for tables that :func:`shift_register` holds for), else its table form.
+    The C entry makes the spans' card current for the launch itself."""
+    global launches
+    index = ls.get_device()
+    idx_t, coef_t = _card_tables(tables, index)
+    rc = _entries()[2](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), lw, ls.shape[1],
+                       idx_t.shape[1], int(shift), idx_t.data_ptr(), coef_t.data_ptr(),
+                       index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -16,14 +16,15 @@ Counterpart of ``aether_primitives_tpu/ops/fec.py``, burst-link subset:
   a forward/backward recursion over ``[B, S]`` metrics; the windowed form
   builds ``[Lw, B * W]`` spans and decodes them in one call of
   :func:`~.cuda.bcjr.bcjr_windowed_llr` with the trellis's
-  ``_conv_soft_coeffs`` tables (the kernel's ``generic`` instance on a
+  ``_conv_soft_coeffs`` tables (the kernel's ``lanes`` instance on a
   CUDA tensor, its plain version on a CPU tensor).
 - :data:`CRC_PARAMS`, :func:`crc_bits`, :func:`crc_append`,
   :func:`crc_check`: the CRC of a fixed-length message is affine over
   GF(2), so it is one float32 matmul against a host-built ``[width, n]``
   matrix (exact: every sum is an integer below 2^24).
   :func:`crc_compute` and :func:`crc32` take any register on a flat bit
-  stream: a table-driven byte loop on the host.
+  stream: the JAX package's GF(2) block matrices on the stream's device,
+  the blocks folded pairwise in ``log2`` of their count steps.
 - :func:`interleave` / :func:`deinterleave`: the block interleaver;
   :func:`conv_interleave` / :func:`conv_deinterleave` (streaming Forney,
   with state) and :func:`conv_interleave_block` /
@@ -43,6 +44,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ._gf import gf2_power
 from .cuda import bcjr as _bk
 from .cuda import viterbi as _vk
 
@@ -359,7 +361,7 @@ def conv_decode_soft(llrs, polys: Sequence[int] = DEFAULT_POLYS,
     rate-1/2 codes (other rates raise ValueError), every window decoded
     from uniform metrics with ``guard`` steps on both sides, in one call of
     the BCJR kernel with the trellis's tables on a CUDA tensor (``backend
-    "auto"``; its ``generic`` instance) or its plain version (on a CPU
+    "auto"``; its ``lanes`` instance) or its plain version (on a CPU
     tensor, or with ``backend="reference"``).
     """
     _check_backend(backend)
@@ -486,17 +488,50 @@ def deinterleave(x, rows: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _crc_table(poly: int, width: int) -> Tuple[int, ...]:
-    """The MSB-first register's byte table: ``table[v]`` is the register
-    after shifting in 8 zero bits from ``v << (width - 8)``."""
-    mask, top = (1 << width) - 1, 1 << (width - 1)
-    table = []
-    for v in range(256):
-        reg = v << (width - 8)
-        for _ in range(8):
-            reg = ((reg << 1) ^ poly) & mask if reg & top else (reg << 1) & mask
-        table.append(reg)
-    return tuple(table)
+def _crc_matrices(poly: int, width: int, block: int):
+    """GF(2) block matrices of the CRC register (the JAX package's
+    ``_crc_matrices``, numpy): the register ``crc' = A crc ^ b p`` (``A =
+    shift ^ p e0^T``, ``p`` the polynomial's bits, MSB first) advances over
+    ``block`` bits as ``A^B crc ^ M bits`` with ``M[:, j] = A^(B-1-j) p``.
+    float32 ``(A^B [width, width], M [width, block])``; ``block`` may be 0."""
+    p = _msb_bits(poly, width)
+    a = np.zeros((width, width), np.int64)
+    a[: width - 1, 1:] = np.eye(width - 1, dtype=np.int64)  # shift left (MSB out)
+    a[:, 0] ^= p  # feedback of the outgoing MSB
+    m = np.zeros((width, block), np.int64)
+    col = p.copy()
+    for j in range(block - 1, -1, -1):  # m[:, j] = A^(B-1-j) p
+        m[:, j] = col
+        col = (a @ col) % 2
+    return gf2_power(a, block).astype(np.float32), m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_blocks(poly: int, width: int, block: int, levels: int, device: torch.device):
+    """``M.T`` (float32 ``[block, width]``) and ``((A^B)^(2^k)).T`` for ``k
+    < levels`` (``[levels, width, width]``: the fold of a pair of runs of
+    ``2^k`` blocks each), on ``device``, made once."""
+    a_b, m = _crc_matrices(poly, width, block)
+    a_b = a_b.astype(np.int64)
+    folds = np.zeros((levels, width, width), np.float32)
+    for k in range(levels):
+        folds[k] = a_b.T
+        a_b = (a_b @ a_b) % 2
+    return (torch.from_numpy(np.ascontiguousarray(m.T)).to(device),
+            torch.from_numpy(folds).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_bits_on(value: int, width: int, device: torch.device) -> torch.Tensor:
+    """``value``'s ``width`` bits MSB first, float32 on ``device``, made
+    once (a copy from host memory would wait for the device's queue)."""
+    return torch.from_numpy(_msb_bits(value, width).astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_short(poly: int, width: int, n: int, device: torch.device):
+    """:func:`_crc_matrices` at ``block = n`` on ``device``, made once."""
+    return tuple(torch.from_numpy(v).to(device) for v in _crc_matrices(poly, width, n))
 
 
 def crc_compute(bits, poly: int, width: int, init: int = 0, xorout: int = 0,
@@ -505,33 +540,44 @@ def crc_compute(bits, poly: int, width: int, init: int = 0, xorout: int = 0,
     MSB-first after ``reflect_out`` and ``xorout``, uint8 on the stream's
     device (the JAX package's ``crc_compute``, bit for bit).
 
-    The register ``crc' = (crc << 1) ^ ((msb ^ b) ? poly : 0)`` runs on the
-    host: bit by bit up to a byte boundary, then a byte a step through a
-    256-entry table (bit by bit throughout for ``width < 8``). ``block``
-    is the JAX package's block size, accepted and unused."""
-    del block
+    The JAX package's GF(2) form, on the stream's device with no copy of it
+    to the host: ``init`` folded into the first ``width`` bits (``crc(I, m)
+    = crc(0, m ^ I x^(n - width))``), zeros in front to whole blocks, one
+    float32 matmul for every block's ``M @ bits``, then the blocks' terms
+    folded pairwise, ``v = (A^B)^(2^k) v_left + v_right``, in ``log2`` of
+    their count steps (exact: every sum is an integer below 2^24). A
+    stream shorter than ``width`` takes one affine step."""
     x = torch.as_tensor(bits)
     if x.ndim != 1:
         raise ValueError("crc_compute takes a flat bit stream")
-    b = (x.detach().cpu().numpy().astype(np.int64) % 2).astype(np.uint8)
-    poly, width = int(poly), int(width)
-    mask, top = (1 << width) - 1, 1 << (width - 1)
-    reg = int(init) & mask
-    head = b.size % 8 if width >= 8 else b.size
-    for bit in b[:head].tolist():
-        fb = ((reg & top) != 0) ^ bit
-        reg = ((reg << 1) & mask) ^ (poly & mask if fb else 0)
-    if head < b.size:
-        table = _crc_table(poly & mask, width)
-        shift = width - 8
-        for byte in np.packbits(b[head:]).tolist():  # MSB-first bytes
-            reg = ((reg << 8) & mask) ^ table[((reg >> shift) ^ byte) & 0xFF]
-    out = _msb_bits(reg, width)
+    poly, width, block = int(poly), int(width), int(block)
+    n, dev = x.shape[0], x.device
+    iv = _crc_bits_on(int(init), width, dev)
+    if n < width:  # too short for the init fold: one affine step
+        a_n, m_n = _crc_short(poly, width, n, dev)
+        state = torch.remainder(a_n @ iv + m_n @ torch.remainder(x.to(torch.float32), 2.0), 2.0)
+    else:
+        nb = -(-n // block)
+        pad = nb * block - n  # leading zeros: a no-op at state 0
+        xb = x.new_zeros(nb * block, dtype=torch.float32)
+        xb[pad:] = x
+        if init:
+            xb[pad:pad + width] += iv
+        xb = torch.remainder(xb, 2.0)
+        m_t, folds = _crc_blocks(poly, width, block, (nb - 1).bit_length(), dev)
+        v = torch.remainder(xb.view(nb, block) @ m_t, 2.0)  # [blocks, width]
+        for fold in folds:
+            if v.shape[0] % 2:  # a zero run in front
+                v = torch.cat([v.new_zeros(1, width), v])
+            pairs = v.view(-1, 2, width)
+            v = torch.remainder(pairs[:, 0] @ fold + pairs[:, 1], 2.0)
+        state = v[0]
+    out = state.to(torch.uint8)
     if reflect_out:
-        out = out[::-1]
+        out = out.flip(0)
     if xorout:
-        out = out ^ _msb_bits(int(xorout), width)
-    return torch.from_numpy(np.ascontiguousarray(out, np.uint8)).to(x.device)
+        out = out ^ _crc_bits_on(int(xorout), width, dev).to(torch.uint8)
+    return out
 
 
 def crc32(data: bytes) -> int:

@@ -8,12 +8,13 @@ preamble is built from it once per modem), the scramblers
 :func:`scramble_additive`), DSSS (:func:`bits_to_chips`,
 :func:`dsss_spread`, :func:`dsss_despread`) and the host tables
 :func:`zadoff_chu` and :func:`gps_ca_code`. Bits are exact {0, 1} uint8,
-equal to the JAX package's. The JAX package's GF(2) block-matrix scans
-exist to keep a TPU off bit-serial loops: here an LFSR runs on the host
-(the sequences are short configuration constants) and the scrambler's
-feedback recurrence runs as a plain loop that advances ``min(delays)``
-bits per step (every bit in such a chunk depends only on earlier chunks),
-batched over leading axes.
+equal to the JAX package's. The LFSRs take the JAX package's GF(2)
+companion-matrix form on the requested device: the states at every block's
+start by doubling jumps, then every block's bits in one matmul (the
+caller's ``init`` never goes through the host). The scrambler's feedback
+recurrence runs as a plain loop that advances ``min(delays)`` bits per
+step (every bit in such a chunk depends only on earlier chunks), batched
+over leading axes.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..types import stage_device
+from ._gf import gf2_power
 
 
 def expand(seed: int, length: int) -> np.ndarray:
@@ -60,18 +62,60 @@ def _lfsr(init: np.ndarray, delays: Sequence[int], length: int) -> np.ndarray:
     return x[:length]
 
 
-def _lfsr_tensor(init, delays: Sequence[int], length: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _lfsr_blocks(delays: tuple, order: int, block: int, levels: int, device: torch.device):
+    """The JAX package's ``_lfsr_block_matrices`` on ``device``: with the
+    state ``s_n = [x(n), ..., x(n + order - 1)]`` and the companion matrix
+    ``C``, ``M_out.T`` (float32 ``[order, block]``, row ``j`` of ``M_out``
+    ``e_0 C^j``: ``x(n + j) = M_out[j] s_n``) and the jumps ``((C^block)^(2^k)).T``
+    for ``k < levels`` (``[levels, order, order]``), built with exact numpy
+    integers once."""
+    comp = np.zeros((order, order), np.int64)
+    comp[:-1, 1:] = np.eye(order - 1, dtype=np.int64)
+    for d in delays:
+        comp[order - 1, order - d] = 1  # x(n + order) = sum x(n + order - d)
+    rows = np.zeros((block, order), np.int64)
+    row = np.eye(order, dtype=np.int64)[0]
+    for j in range(block):
+        rows[j] = row
+        row = (row @ comp) % 2
+    jump = gf2_power(comp, block)
+    jumps = np.zeros((levels, order, order), np.float32)
+    for k in range(levels):
+        jumps[k] = jump.T
+        jump = (jump @ jump) % 2
+    return (torch.from_numpy(np.ascontiguousarray(rows.T, np.float32)).to(device),
+            torch.from_numpy(jumps).to(device))
+
+
+def _lfsr_tensor(init, delays: Sequence[int], length: int, device, block: int,
+                 raw_head: bool) -> torch.Tensor:
+    """``length`` bits of the LFSR from ``init`` on ``device`` (None:
+    ``init``'s device when it is a tensor, else the card): the states at
+    the blocks' starts by doubling (``s_{(k + 2^l) B} = (C^B)^(2^l)
+    s_{kB}``, ``log2`` of the block count matmuls), then every block's bits
+    as ``states @ M_out.T``, all mod 2 in float32 (exact: every sum is at
+    most ``order``). ``raw_head``: the first ``order`` bits are ``init``
+    as given (``lfsr_generate``), else ``init mod 2`` (the matrix form's)."""
     delays = tuple(int(d) for d in delays)
     order = max(delays)
     if device is None:
         device = init.device if isinstance(init, torch.Tensor) else "cuda"
     dev = stage_device(device, "lfsr")
-    init = np.asarray(init.cpu() if isinstance(init, torch.Tensor) else init).astype(np.uint8)
+    init = torch.as_tensor(init).to(dev, torch.uint8)
     if init.shape[-1] != order:
         raise ValueError(f"init length {init.shape[-1]} != max delay {order}")
-    if length <= order:
-        return torch.from_numpy(init[:length].copy()).to(dev)
-    return torch.from_numpy(_lfsr(init, delays, length)).to(dev)
+    if length <= order and raw_head:
+        return init[:length].clone()
+    nb = -(-length // block)
+    rows_t, jumps = _lfsr_blocks(delays, order, block, (nb - 1).bit_length(), init.device)
+    states = torch.remainder(init.to(torch.float32), 2.0)[None]  # [1, order]
+    for jump in jumps:
+        states = torch.cat([states, torch.remainder(states @ jump, 2.0)])
+    bits = torch.remainder(states[:nb] @ rows_t, 2.0).reshape(-1)[:length].to(torch.uint8)
+    if raw_head:
+        bits[:order] = init
+    return bits
 
 
 def lfsr_generate(init, delays: Sequence[int], length: int, device=None) -> torch.Tensor:
@@ -79,16 +123,18 @@ def lfsr_generate(init, delays: Sequence[int], length: int, device=None) -> torc
     bits), ``length`` bits in all, as a uint8 tensor on ``device`` (None:
     ``init``'s device when it is a tensor, else the card). Example, the LTE
     TS 36.211 §7.2 x1 recurrence: ``lfsr_generate(expand(1, 31), (28, 31),
-    1600)``. The recurrence runs on the host."""
-    return _lfsr_tensor(init, delays, length, device)
+    1600)``. The recurrence runs on ``device`` in the matrix form of
+    :func:`lfsr_matrix_generate` (the same bits), ``init`` as the first
+    ``max(delays)`` bits."""
+    return _lfsr_tensor(init, delays, length, device, 1024, True)
 
 
 def lfsr_matrix_generate(init, delays: Sequence[int], length: int, block: int = 1024,
                          device=None) -> torch.Tensor:
-    """The same sequence as :func:`lfsr_generate`. ``block`` is accepted and
-    ignored: it sizes the JAX package's GF(2) matrix steps, a TPU
-    realisation, and the output does not depend on it."""
-    return _lfsr_tensor(init, delays, length, device)
+    """The same sequence as :func:`lfsr_generate`, ``block`` bits a matmul
+    (the output does not depend on ``block``), every bit mod 2 as in the
+    JAX package's matrix form."""
+    return _lfsr_tensor(init, delays, length, device, int(block), False)
 
 
 def lte_gold(c_init: int, length: int, nc: int = 1600) -> np.ndarray:

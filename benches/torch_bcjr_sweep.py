@@ -7,22 +7,29 @@ float32: window 64, guard 16, 256 bursts x 10 windows; the RSC-8 trellis):
 the meet instance at 8, 16, 24 and 32 columns a CTA (the port ships 16 and
 8; ``benches/torch_bcjr_sweep.cu`` builds all four from the port's source
 with one more C entry), the meet instance at Lw 2, 24 and 48 (its fixed
-cost and its cost a step), the generic instance on the same tables, and,
-with ``--parent``, the parent tree's kernel, in turns. Then the K=7 conv trellis (S 64) at the same spans through the
-generic instance (and the parent's). Each case is first held
-``torch.equal`` to the plain twin. Times by CUDA events (median of 3 runs
-of 50 launches, outputs allocated once: bound by the host where a launch
-is shorter than its Python call) and by ``torch.profiler`` (the kernel's
-own device time, median of 2 x 20 launches), with the card's name and power
-limit on every line, beside the roofline bound and the chain floor (Lw
-steps x 6 dependent FP32 operations x 4 cycles at the card's maximum SM
-clock: an estimate from assumed counts, not a measurement). First it prints the compiler's register and spill report and,
-for each meet instance, its machine instructions by opcode (``cuobjdump
--sass`` of the build: static counts, loops counted once per copy).
+cost and its cost a step), and the lanes and column instances on the same
+tables. Then the K=7 conv trellis (S 64) through the lanes instance (its
+shuffle form and, forced, its table form) and the column instance (the one-thread-per-column kernel), at the same
+spans and at the ccsds + erasures launch (``[224, 5632]``: window 96, guard
+64, 256 captures x 22 windows), with ``--parent`` the parent tree's kernel
+beside them, in turns. Each case is first held ``torch.equal`` to the plain
+twin. Times by CUDA events (median of 3 runs of 50 launches, outputs
+allocated once: bound by the host where a launch is shorter than its Python
+call) and by ``torch.profiler`` (the kernel's own device time, median of 2
+x 20 launches), with the card's name and power limit on every line, beside
+the bound (the FP32 operations the function needs a step and column, none
+an FMA, at 33.5 T a second: 16 S + 21 where the coefficients factor
+through four classes, as for the RSC-8 and conv tables, and 28 S - 3 for
+any tables, both printed; or the bytes at 3.35 TB/s) and the chain floor (Lw steps x 6
+dependent FP32 operations x 4 cycles at the card's maximum SM clock: an
+estimate from assumed counts, not a measurement). First it prints the
+compiler's register and spill report and, for each meet and lanes instance, its machine instructions by
+opcode (``cuobjdump -sass`` of the build: static counts, loops counted once
+per copy).
 
 ``--parent DIR``: also build ``DIR``'s ``csrc/bcjr.cu`` (C entry
-``bcjr_launch(ls, lp, llr, scratch, lw, ncols, s_count, idx, coef,
-stream)``, the one-thread-per-column kernel) and time it the same way.
+``bcjr_launch(ls, lp, llr, scratch, lw, ncols, s_count, idx, coef, device,
+stream)``, its generic instance) and time it the same way.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 benches/torch_bcjr_sweep.py [--parent DIR]``. Imports the port
@@ -32,6 +39,7 @@ only.
 import argparse
 import collections
 import ctypes
+import functools
 import re
 import subprocess
 import sys
@@ -50,13 +58,24 @@ from aether_primitives_tpu_torch.ops.cuda import bcjr as bk  # noqa: E402
 from aether_primitives_tpu_torch.ops.cuda import build  # noqa: E402
 
 LW, N = 16 + 64 + 16, 256 * 10
+CCSDS_LW, CCSDS_N = 96 + 2 * 64, 256 * 22  # the ccsds + erasures launch
 ITERS, RUNS = 50, 3
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, NVIDIA data sheet
+# H100 SXM, NVIDIA data sheet: FP32 67 TFLOP/s counts an FMA as two; the
+# BCJR's adds, multiplies and maxima never fuse, so 33.5 T instructions/s
+PEAK_INSTR, PEAK_BYTES = 33.5e12, 3.35e12
 CHAIN_OPS, OP_CYCLES = 6, 4  # dependent FP32 ops a step (add, max, 3-level tree, sub)
 
 
+def bcjr_ops(lw: int, n: int, s_count: int, classes: bool) -> int:
+    """FP32 operations a launch's function needs (csrc/bcjr.cu): 28 S - 3 a
+    step and column for any tables, 16 S + 21 where every transition's
+    coefficients are those of one of four classes."""
+    return lw * n * (16 * s_count + 21 if classes else 28 * s_count - 3)
+
+
 def sass_opcodes(card: str) -> None:
-    """Static SASS instruction counts by opcode of each meet instance."""
+    """Static SASS instruction counts by opcode of the meet and lanes
+    instances."""
     lib = build.library_path("bcjr")
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -73,28 +92,36 @@ def sass_opcodes(card: str) -> None:
             counts[name][m.group(1).split(".")[0]] += 1
     for fname, c in counts.items():
         m = re.search(r"bcjr_kernel_meetINS_4Rsc8ELi(\d+)E", fname)
+        lanes = re.search(r"bcjr_kernel_lanesILi(\d+)ELb([01])E", fname)
+        top = ", ".join(f"{op} {k}" for op, k in c.most_common(9))
         if m:
-            top = ", ".join(f"{op} {k}" for op, k in c.most_common(9))
             print(f"  sass meet {m.group(1)} cols: {sum(c.values())} instructions: {top} "
                   f"[{card}]")
+        elif lanes:
+            form = "shuffle" if lanes.group(2) == "1" else "table"
+            print(f"  sass lanes S {lanes.group(1)} {form} form: {sum(c.values())} "
+                  f"instructions: {top} [{card}]")
 
 
-def sweep_entry():
-    """``bcjr_rsc8_sweep_launch`` of ``benches/torch_bcjr_sweep.cu``: the
-    port's meet instance at 8, 16, 24 or 32 columns a CTA."""
+@functools.lru_cache(maxsize=None)
+def sweep_library():
+    """``benches/torch_bcjr_sweep.cu`` built: the port's source with the
+    bench's entries ``bcjr_rsc8_sweep_launch`` (the meet instance at 8, 16,
+    24 or 32 columns a CTA)."""
     src = Path(__file__).with_suffix(".cu")
-    out = build.BUILD_DIR / "sweep-bcjr-cols.so"
+    out = build.BUILD_DIR / "sweep-bcjr.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
                            str(build.PACKAGE_DIR / "csrc"), "-o", str(out), str(src)],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).bcjr_rsc8_sweep_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(out))
+    wide = lib.bcjr_rsc8_sweep_launch
+    wide.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    wide.restype = ctypes.c_int
+    return wide
 
 
 def parent_entry(root: str):
@@ -108,13 +135,48 @@ def parent_entry(root: str):
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     fn = ctypes.CDLL(str(out)).bcjr_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock) -> None:
+    """Each case held torch.equal to ``want``, then timed in turns (CUDA
+    events) and by the profiler; prints a line a case."""
+    for name, run in cases.items():
+        out.zero_()
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            sys.exit(f"{label} {name}: kernel != twin")
+    runs = {name: [] for name in cases}
+    names = list(cases)
+    for r in range(2 * RUNS):  # in turns, the order reversed every other round
+        for name in (names if r % 2 == 0 else names[::-1]):
+            runs[name].append(time_cuda(cases[name], ITERS, warmup=2))
+    dev_ms = {name: float(np.median([kernel_device_ms(cases[name], "bcjr_kernel", 20)
+                                     for _ in range(2)])) for name in names}
+    floor_bytes = 3 * lw * n * 4 / PEAK_BYTES
+    ops, ops_any = (bcjr_ops(lw, n, s_count, c) for c in (True, False))
+    bound = max(ops / PEAK_INSTR, floor_bytes) * 1e3
+    bound_any = max(ops_any / PEAK_INSTR, floor_bytes) * 1e3
+    print(f"{label}, Lw {lw} x N {n}: bound {bound:.5f} ms ({ops / 1e6:.1f} M FP32 "
+          f"operations with four branch-metric classes, no FMA, at {PEAK_INSTR / 1e12:.1f} "
+          f"T/s; {bound_any:.5f} ms, {ops_any / 1e6:.1f} M, for any tables), chain floor "
+          f"{floor_ms:.5f} ms "
+          f"({lw} steps x {CHAIN_OPS} ops x {OP_CYCLES} cycles at {clock / 1e6:.0f} MHz) "
+          f"[{card}]")
+    for name in names:
+        ms = float(np.median(runs[name]))
+        print(f"  {name:46s} device {dev_ms[name]:.5f} ms a launch (torch.profiler, "
+              f"median of 2 x 20), {dev_ms[name] / bound:.1f}x the bound "
+              f"({dev_ms[name] / bound_any:.1f}x the bound for any tables); a loop of "
+              f"launches {ms:.5f} ms (runs {', '.join(f'{v:.5f}' for v in runs[name])}; "
+              f"CUDA events, mean of {ITERS}) [{card}]", flush=True)
+
+
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--parent", help="a checkout of the parent tree to time beside this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -128,68 +190,57 @@ def main() -> None:
             print(f"  ptxas bcjr: {line.strip()}")
     sass_opcodes(card)
     rng = np.random.default_rng(2026)
-    ls, lp = (torch.from_numpy((rng.normal(size=(LW, N)) * 3).astype(np.float32)).cuda()
-              for _ in range(2))
-    out = torch.empty((LW, N), device="cuda")
+    ls_all, lp_all = (torch.from_numpy((rng.normal(size=(CCSDS_LW, CCSDS_N)) * 3)
+                                       .astype(np.float32)).cuda() for _ in range(2))
     stream = torch.cuda.current_stream().cuda_stream
     old = parent_entry(args.parent) if args.parent else None
-    wide = sweep_entry()
-    dev = ls.get_device()
+    wide = sweep_library()
+    dev = ls_all.get_device()
     clock = max_sm_clock_hz()
-    floor_ms = LW * CHAIN_OPS * OP_CYCLES / clock * 1e3
-    for label, tables in (("RSC-8 (S 8)", None), ("K=7 conv (S 64)", fec._conv_soft_coeffs(
-            (0o171, 0o133), 7))):
+    k7 = fec._conv_soft_coeffs((0o171, 0o133), 7)
+    shapes = (("RSC-8 (S 8)", None, LW, N), ("K=7 conv (S 64)", k7, LW, N),
+              ("K=7 conv (S 64), the ccsds launch", k7, CCSDS_LW, CCSDS_N))
+    for label, tables, lw, n in shapes:
+        ls, lp = ls_all[:lw, :n].contiguous(), lp_all[:lw, :n].contiguous()
+        out = torch.empty((lw, n), device="cuda")
         idx, coef, instance, cls = bk._host_tables(tables if tables is not None
                                                    else bk.rsc8_tables())
         s_count = idx.shape[1]
-        scratch = torch.empty((LW, s_count, N), device="cuda")
-        want = bk.bcjr_windowed_llr_reference(ls, lp, LW, tables)
-        ops = LW * N * (34 * s_count + 1)
-        bound = max(ops / PEAK_FP32, 3 * LW * N * 4 / PEAK_BYTES) * 1e3
+        scratch = torch.empty((lw, s_count, n), device="cuda")
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        floor_ms = lw * CHAIN_OPS * OP_CYCLES / clock * 1e3
         cases = {}
         if instance == "rsc8":
             for cols in (8, 16, 24, 32):
                 def run_wide(c=cols):
-                    rc = wide(ls.data_ptr(), lp.data_ptr(), out.data_ptr(), LW, N, c, 1,
+                    rc = wide(ls.data_ptr(), lp.data_ptr(), out.data_ptr(), lw, n, c, 1,
                               cls.ctypes.data, dev, stream)
                     if rc:
                         sys.exit(f"bcjr meet at {c} columns a CTA: CUDA error {rc}")
-                cases[f"meet {cols} cols/CTA ({-(-N // cols)} CTAs)"] = run_wide
-            cases[f"meet through the wrapper ({bk.kernel_plan(None, LW)})"] = (
-                lambda: bk._launch_meet(ls, lp, out, LW, bk.kernel_plan(None, LW)[1], cls))
-        cases["generic (1 thread/column)"] = lambda: bk._launch(ls, lp, out, LW, idx, coef,
-                                                                scratch)
+                cases[f"meet {cols} cols/CTA ({-(-n // cols)} CTAs)"] = run_wide
+            cases[f"meet through the wrapper ({bk.kernel_plan(None, lw)})"] = (
+                lambda: bk._launch_meet(ls, lp, out, lw, bk.kernel_plan(None, lw)[1], cls))
+        shift = bk.shift_register(tables)
+        cases["lanes (states over lanes, meeting warps)"] = (
+            lambda: bk._launch_lanes(ls, lp, out, lw, tables, shift))
+        if shift:
+            cases["lanes, table form (no shuffles)"] = (
+                lambda: bk._launch_lanes(ls, lp, out, lw, tables, False))
+        cases["column (1 thread/column)"] = lambda: bk._launch(ls, lp, out, lw, idx, coef,
+                                                               scratch)
         if old is not None:
             def run_parent():
-                rc = old(ls.data_ptr(), lp.data_ptr(), out.data_ptr(), scratch.data_ptr(), LW,
-                         N, s_count, idx.ctypes.data, coef.ctypes.data, stream)
+                rc = old(ls.data_ptr(), lp.data_ptr(), out.data_ptr(), scratch.data_ptr(), lw,
+                         n, s_count, idx.ctypes.data, coef.ctypes.data, dev, stream)
                 if rc:
                     sys.exit(f"parent bcjr kernel: CUDA error {rc}")
-            cases["parent kernel"] = run_parent
-        for name, run in cases.items():
-            out.zero_()
-            run()
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                sys.exit(f"{label} {name}: kernel != twin")
-        runs = {name: [] for name in cases}
-        names = list(cases)
-        for r in range(2 * RUNS):  # in turns, the order reversed every other round
-            for name in (names if r % 2 == 0 else names[::-1]):
-                runs[name].append(time_cuda(cases[name], ITERS, warmup=2))
-        dev_ms = {name: float(np.median([kernel_device_ms(cases[name], "bcjr_kernel", 20)
-                                         for _ in range(2)])) for name in names}
-        print(f"{label}, Lw {LW} x N {N}: bound {bound:.5f} ms ({ops / 1e6:.0f} M FP32 ops), "
-              f"chain floor {floor_ms:.5f} ms ({LW} steps x {CHAIN_OPS} ops x {OP_CYCLES} "
-              f"cycles at {clock / 1e6:.0f} MHz) [{card}]")
-        for name in names:
-            ms = float(np.median(runs[name]))
-            print(f"  {name:42s} device {dev_ms[name]:.5f} ms a launch (torch.profiler, "
-                  f"median of 2 x 20), {dev_ms[name] / floor_ms:.1f}x the chain floor; a loop "
-                  f"of launches {ms:.5f} ms (runs {', '.join(f'{v:.5f}' for v in runs[name])};"
-                  f" CUDA events, mean of {ITERS}) [{card}]", flush=True)
+            cases["parent kernel (its generic instance)"] = run_parent
+        time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock)
+        del scratch
     # the meet instance's fixed cost and its cost a step: device time at
     # shorter spans of the same columns
+    ls, lp = ls_all[:LW, :N].contiguous(), lp_all[:LW, :N].contiguous()
+    out = torch.empty((LW, N), device="cuda")
     cls = bk._host_tables(bk.rsc8_tables())[3]
     at = {}
     for lw in (2, 24, 48, LW):
@@ -203,7 +254,8 @@ def main() -> None:
     step_ns = (at[LW] - at[48]) / (LW - 48) * 1e6
     print(f"  meet: {step_ns:.1f} ns a step from Lw 48 to {LW}, {at[2]:.5f} ms at Lw 2 "
           f"(launch, span load, LLR stores) [{card}]")
-    print(f"module choice: kernel_plan(None, {LW}) = {bk.kernel_plan(None, LW)} [{card}]")
+    print(f"module choice: kernel_plan(None, {LW}) = {bk.kernel_plan(None, LW)}, "
+          f"kernel_plan(K=7, {CCSDS_LW}) = {bk.kernel_plan(k7, CCSDS_LW)} [{card}]")
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ It drives the port's paths through their hand-written kernels:
   the windowed BCJR kernel (``csrc/bcjr.cu``, ``fec="turbo"``); and the
   families ``BURST_FAMILIES``: ``ccsds`` (RS outer, K=7 inner through the
   windowed Viterbi kernel, or with ``rs_erasures`` through the BCJR
-  kernel's generic instance), ``rs``, ``bch``, ``tpc``, ``ldpc``,
+  kernel's lanes instance), ``rs``, ``bch``, ``tpc``, ``ldpc``,
   ``ldpc11n``, ``nr_ldpc``, ``polar`` (CA-SCL and flooding BP), and ``ldpc``
   and ``nr_ldpc`` with their code tables loaded from files that the run
   writes (plain PyTorch decoders);
@@ -84,16 +84,21 @@ in thirty-one phases:
    with the direct one), the plain version, and the RX chain's kernel and
    plain paths; the two kernels' device times (``torch.profiler``) and the
    host's time to enqueue a streaming step;
-6. the RX frame, Viterbi and BCJR kernels' register and spill reports;
+6. the RX frame, Viterbi and BCJR kernels' register and spill reports,
+   and the BCJR lanes instance's shared memory a CTA at Lw 96 and at the
+   ``ccsds`` launch's Lw 224;
 7. the Viterbi and BCJR kernels against their plain twins at the burst
    path's shapes, bit for bit (``array_equal`` / ``torch.equal``); for the
    Viterbi kernel also tie-heavy spans (integer LLRs with -0.0) at K = 3,
    5, 7 and 9, rates 1/2 and 1/3; for the BCJR kernel also Lw 1, 2, 95,
    97, N 1, 77, 1,000, 2,570, exact ties with -0.0, random tables of every
-   state count it takes, and the meet instance at both its CTA widths (16
-   and 8 columns); and the ``ccsds`` link's inner code at its shapes: the
-   windowed Viterbi 64/48 and the BCJR kernel's generic instance on the K=7
-   tables at Lw 224 (the windowed soft decode 96/64), ``torch.equal``;
+   state count it takes, shift-register codes at K = 3-6 (S 4-32) with a
+   ragged last CTA, spans at the lanes instance's limit and one step past
+   it (the column instance), RSC-8 past the meet instance's limit, and the
+   meet instance at both its CTA widths (16 and 8 columns); and the
+   ``ccsds`` link's inner code at its shapes: the windowed Viterbi 64/48 and
+   the BCJR kernel's lanes instance on the K=7 tables at Lw 224 (the
+   windowed soft decode 96/64), ``torch.equal``;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
@@ -111,7 +116,9 @@ in thirty-one phases:
    against its plain twin and of ``rx_batch`` end to end for every family,
    the Viterbi and BCJR kernels' device times (``torch.profiler``) beside
    its chain floor (an estimate from assumed operation counts, on a line of
-   its own) and at the ``ccsds`` shapes beside their bounds, and a
+   its own) and at the ``ccsds`` shapes beside their bounds and, for the
+   BCJR, beside the column instance (the parent's generic kernel,
+   unchanged) in turns, and a
    ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
    and the rest, with the device's idle share;
 10. every layout of the PFB fold kernel against its plain twin, bit for
@@ -282,7 +289,9 @@ in thirty-one phases:
     20``): the JAX package's 33 rows, each with its time (CUDA events,
     median of 3 rounds),
     Msa/s, kernels a call and idle share (``torch.profiler``); its Viterbi
-    row 1 Viterbi launch a call and its turbo row 16 BCJR launches;
+    row 1 Viterbi launch a call and its turbo row 16 BCJR launches; the
+    CRC-32 row's device time, and ``crc_compute`` of 2^20 bits on the card
+    equal to ``zlib.crc32``;
 31. two processes on the card over gloo (``init_distributed``, a
     ``{time: 8}`` mesh that spans them, four shards of the flagship chain
     each on its 4,194,304-sample part of one capture): their bytes joined
@@ -303,8 +312,9 @@ in thirty-one phases:
     process's run on eight shards with its launches a rank; each path timed
     a rank, with the edge of its exchange between the ranks.
 
-Any failed phase prints its cause and exits 1. The line before the last
-is the kernels' JSON summary; the last line is
+Any failed phase prints its cause and exits 1. The last four lines are
+the kernels' JSON summary, one line of the BCJR and CRC-32 figures with
+their bounds, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -413,6 +423,9 @@ BURST_FAMILIES = (
     ("nr_ldpc file", {"fec": "nr_ldpc", "nr_base_graph_file": "bg2_z64.npz"}, {}),
 )
 CCSDS_VITERBI, CCSDS_SOFT = (64, 48), (96, 64)  # the ccsds inner decoders' (window, guard)
+# phase 7's shift-register codes for the BCJR's lanes instance, K = 3..6 (S 4..32)
+BCJR_SR_CODES = {3: (0o5, 0o7), 4: (0o13, 0o17), 5: (0o23, 0o35), 6: (0o53, 0o75)}
+CRC_SEED = 1717  # phase 30's bytes for the CRC on the card against zlib
 
 
 def fail(msg: str) -> None:
@@ -433,6 +446,28 @@ def bound(ops: float, nbytes: float) -> dict:
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bcjr_bound_of(lw: int, n: int, s_count: int, classes: bool) -> dict:
+    """The BCJR kernel's bound: the FP32 operations its function needs a
+    step and column (csrc/bcjr.cu), 28 S - 3 for any tables and 16 S + 21
+    where every transition's coefficients are those of one of four classes,
+    none an FMA, so each an FMA's issue slot (twice the data sheet's count
+    at its FP32 peak); the bytes: two spans in, the LLRs out."""
+    ops = 16 * s_count + 21 if classes else 28 * s_count - 3
+    return bound(2 * lw * n * ops, 3 * lw * n * 4)
+
+
+def paired_device_ms(run_a, run_b, calls: int = 20):
+    """Device ms a launch (``kernel_device_ms``, kernels named
+    ``bcjr_kernel*``) of ``run_a`` and ``run_b`` in turns, a, b, b, a:
+    the medians of their two windows."""
+    from aether_primitives_tpu_torch.cli import kernel_device_ms
+
+    got = {0: [], 1: []}
+    for which in (0, 1, 1, 0):
+        got[which].append(kernel_device_ms((run_a, run_b)[which], "bcjr_kernel", calls))
+    return sum(got[0]) / 2, sum(got[1]) / 2  # the median of two
 
 
 def burst_channel(burst, rng, delay, cfo, sigma=0.05):
@@ -564,7 +599,10 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
     (the last CTA not full); integer-valued LLRs with -0.0 (exact ties);
     random valid tables for every state count the kernel takes, and random
     coefficients on the RSC-8 pattern (not through its branch-metric
-    classes: the generic instance)."""
+    classes: the lanes instance); shift-register codes at K = 3-6; the lanes
+    instance's short spans (Lw 1-3, 97) in both its forms; its span limit at
+    S 64 and one step past it (the column instance); RSC-8 past the meet
+    instance's limit (the lanes instance)."""
     import numpy as np
     import torch
 
@@ -590,6 +628,19 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
               for s_count in bk.KERNEL_STATES]
     cases.append(("random coefficients on the RSC-8 pattern",
                   random_tables(8, seed, pattern=bk.rsc8_tables()[:2]), spans, lw))
+    # the lanes instance's shift-register codes with a ragged last CTA, its
+    # short spans in both forms, its span limit and one step past it (the
+    # column instance), and RSC-8 past the meet instance's limit
+    for k, polys in BCJR_SR_CODES.items():
+        cases.append((f"K={k} conv (S {1 << (k - 1)})", fec._conv_soft_coeffs(polys, k),
+                      normal(lw, 2570), lw))
+    cases += [("K=7 conv", k7, normal(lw_c, 77), lw_c) for lw_c in (1, 2, 3, 97)]
+    s8 = random_tables(8, seed + 1)
+    cases += [("random S 8", s8, normal(lw_c, 77), lw_c) for lw_c in (1, 2, 3)]
+    lim = bk.lanes_span_limit(64)
+    cases += [("K=7 conv at the lanes limit", k7, normal(lim, 77), lim),
+              ("K=7 conv one step past the lanes limit", k7, normal(lim + 1, 77), lim + 1),
+              ("RSC-8 past the meet limit", None, normal(727, 1000), 727)]
     return cases
 
 
@@ -821,6 +872,9 @@ def main() -> None:
     # ---- phase 6: the redesigned kernels' and the BCJR's compiler reports ----
     for kernel in ("rx_frame", "viterbi", "bcjr"):
         print_ptxas(build, kernel)
+    for lw_o in (16 + 64 + 16, CCSDS_SOFT[0] + 2 * CCSDS_SOFT[1]):
+        print(f"  bcjr lanes instance, K=7 (S 64) at Lw {lw_o}: {bk.lanes_smem(64, lw_o)} "
+              f"bytes of shared memory a CTA (2 warps, 1 column) [{card}]")
 
     # ---- phase 7: burst kernels vs plain twins at the path's shapes ------
     rng = np.random.default_rng(2026)
@@ -895,8 +949,9 @@ def main() -> None:
         torch.cuda.synchronize()
         err = float((got - plain).abs().max()) if got.numel() else 0.0
         bcjr_err = max(bcjr_err, err)
+        form = ", shuffle form" if bk.shift_register(tables) else ""
         print(f"compare bcjr {label} Lw {lw_c} x N {ls_c.shape[1]} "
-              f"({bk.kernel_plan(tables, lw_c)}): kernel vs plain torch.equal "
+              f"({bk.kernel_plan(tables, lw_c)}{form}): kernel vs plain torch.equal "
               f"{torch.equal(got, plain)}, max |diff| {err}")
         if not torch.equal(got, plain):
             fail(f"bcjr {label}: kernel and plain twin disagree")
@@ -991,7 +1046,7 @@ def main() -> None:
                     lambda: vk.viterbi_lanes_reference(sym_v, lw_v, 2, K7[0], 7, True, True)),
         "bcjr": (lambda: bk.bcjr_windowed_llr(spans[0], spans[1], lw_t),
                  lambda: bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t)),
-        "bcjr K=7 (S 64, generic instance)": (
+        "bcjr K=7 (S 64, lanes instance)": (
             lambda: bk.bcjr_windowed_llr(spans[0], spans[1], lw_t, k7_tables),
             lambda: bk.bcjr_windowed_llr_reference(spans[0], spans[1], lw_t, k7_tables)),
     }
@@ -1013,8 +1068,7 @@ def main() -> None:
     # per step and state: two candidates of 2n ops, the min, the state minimum, the
     # subtraction; bytes: the LLRs in, one uint8 bit per step out
     vit_bound = bound(BURSTS * lw_v * 64 * (4 * 2 + 3), sym_v.numel() * 4 + BURSTS * lw_v)
-    # per step and column 34 S + 1 ops (csrc/bcjr.cu); bytes: two spans in, LLRs out
-    bcjr_bound = bound(lw_t * cols_t * (34 * 8 + 1), 3 * lw_t * cols_t * 4)
+    bcjr_bound = bcjr_bound_of(lw_t, cols_t, 8, classes=True)
     # The chain floor of the meet instance, an estimate and not a
     # measurement: each warp walks Lw dependent steps (forward and backward
     # side by side), and a step's chain is taken as 6 dependent FP32
@@ -1032,12 +1086,21 @@ def main() -> None:
           f"(torch.profiler, mean over 20 launches), {vk.warps_per_block(lw_v, 7)} "
           f"trellises a block; bound {vit_bound['bound_ms']:.5f} ms by "
           f"{vit_bound['bound_by']} [{card}]")
-    k7_dev = kernel_device_ms(kernel_calls["bcjr K=7 (S 64, generic instance)"][0],
-                              "bcjr_kernel")
+    k7_idx, k7_coef = bk._host_tables(k7_tables)[:2]
+    k7_scratch = torch.empty((lw_t, 64, cols_t), device="cuda")
+    k7_out = torch.empty((lw_t, cols_t), device="cuda")
+    k7_dev, k7_col_dev = paired_device_ms(
+        kernel_calls["bcjr K=7 (S 64, lanes instance)"][0],
+        lambda: bk._launch(spans[0], spans[1], k7_out, lw_t, k7_idx, k7_coef, k7_scratch))
+    del k7_scratch
+    k7_bound = bcjr_bound_of(lw_t, cols_t, 64, classes=False)
     print(f"bound: bcjr {bcjr_bound['bound_ms']:.5f} ms by {bcjr_bound['bound_by']}; kernel "
           f"device time {bcjr_dev:.5f} ms a launch (torch.profiler, mean over 20 launches), "
-          f"instance {bk.kernel_plan(None, lw_t)}; K=7 (S 64, generic instance) device time "
-          f"{k7_dev:.5f} ms a launch [{card}]")
+          f"instance {bk.kernel_plan(None, lw_t)}; K=7 (S 64) lanes instance device time "
+          f"{k7_dev:.5f} ms a launch against the column instance's (the parent's generic "
+          f"kernel, unchanged) {k7_col_dev:.5f} ms, in turns (median of 2 x 20 launches "
+          f"each); K=7 bound {k7_bound['bound_ms']:.5f} ms by {k7_bound['bound_by']} "
+          f"[{card}]")
     print(f"chain floor (estimate, not measured): bcjr {chain_floor:.5f} ms = {lw_t} steps x "
           f"{CHAIN_OPS} dependent FP32 ops a step (assumed) x {OP_CYCLES} cycles each "
           f"(assumed) at {clock_hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm); the kernel's "
@@ -1055,9 +1118,10 @@ def main() -> None:
     }
     ccsds_bounds = {
         "viterbi": bound(n_vit * lw_cv * 64 * (4 * 2 + 3), n_vit * lw_cv * (2 * 4 + 1)),
-        "bcjr": bound(lw_c * spans_c[0].shape[1] * (34 * 64 + 1),
-                      3 * lw_c * spans_c[0].shape[1] * 4),
+        "bcjr": bcjr_bound_of(lw_c, spans_c[0].shape[1], 64, classes=False),
     }
+    # the same function with four branch-metric classes, as the conv tables factor
+    ccsds_class_bound = bcjr_bound_of(lw_c, spans_c[0].shape[1], 64, classes=True)
     ccsds_t = {}
     for kernel, run in ccsds_runs.items():
         call_ms = float(np.median([time_cuda(run, 10) for _ in range(3)]))
@@ -1070,6 +1134,28 @@ def main() -> None:
               f"(torch.profiler, mean over 10 launches), the call {call_ms:.5f} ms (CUDA "
               f"events, median of 3 runs of 10 calls); bound {ccsds_bounds[kernel]['bound_ms']:.5f}"
               f" ms by {ccsds_bounds[kernel]['bound_by']} [{card}]")
+    # the lanes instance against the parent's generic kernel (the column
+    # instance, unchanged) at the ccsds launch, in turns, one output each
+    n_c = spans_c[0].shape[1]
+    c_scratch = torch.empty((lw_c, 64, n_c), device="cuda")
+    c_out = torch.empty((lw_c, n_c), device="cuda")
+    k7_col = lambda: bk._launch(*spans_c, c_out, lw_c, k7_idx, k7_coef, c_scratch)  # noqa: E731
+    k7_col()
+    want_c = bk.bcjr_windowed_llr(*spans_c, lw_c, k7_tables)
+    torch.cuda.synchronize()
+    if not torch.equal(c_out, want_c):
+        fail("bcjr at the ccsds shape: the column instance and the lanes instance disagree")
+    lanes_c, col_c = paired_device_ms(ccsds_runs["bcjr"], k7_col)
+    del c_scratch
+    ccsds_t["bcjr"].update(lanes_ms=lanes_c, column_ms=col_c)
+    print(f"time: bcjr at the ccsds launch, device ms a launch in turns (median of 2 x 20 "
+          f"launches each): lanes instance {lanes_c:.5f}, column instance (the parent's generic "
+          f"kernel, unchanged, torch.equal to it) {col_c:.5f}: {col_c / lanes_c:.2f}x; the "
+          f"lanes instance {lanes_c / ccsds_bounds['bcjr']['bound_ms']:.1f}x its bound "
+          f"{ccsds_bounds['bcjr']['bound_ms']:.5f} ms for any tables, "
+          f"{lanes_c / ccsds_class_bound['bound_ms']:.1f}x the "
+          f"{ccsds_class_bound['bound_ms']:.5f} ms of four branch-metric classes [{card}]",
+          flush=True)
 
     e2e = {}
     for fec_name, pm in modems.items():
@@ -1161,12 +1247,17 @@ def main() -> None:
             "library_ms": None,
             "device_ms": bcjr_dev,
             "instance": bk.kernel_plan(None, lw_t)[0],
-            "k7_ms": kt["bcjr K=7 (S 64, generic instance)"]["kernel"],
+            "k7_ms": kt["bcjr K=7 (S 64, lanes instance)"]["kernel"],
             "k7_device_ms": k7_dev,
+            "k7_parent_device_ms": k7_col_dev,
+            "k7_bound_ms": k7_bound["bound_ms"],
             "ccsds_launches": burst_counts["ccsds erasures"]["bcjr"],
             "ccsds_ms": ccsds_t["bcjr"]["device_ms"],
+            "ccsds_lanes_ms": ccsds_t["bcjr"]["lanes_ms"],
+            "ccsds_parent_ms": ccsds_t["bcjr"]["column_ms"],
             "ccsds_call_ms": ccsds_t["bcjr"]["call_ms"],
             "ccsds_bound_ms": ccsds_bounds["bcjr"]["bound_ms"],
+            "ccsds_class_bound_ms": ccsds_class_bound["bound_ms"],
             "ccsds_instance": bk.kernel_plan(k7_tables, lw_c)[0],
             "microbench_launches": micro_turbo.get("bcjr", 0),
             "cross_process_launches": cross["entries"]["rx_batch_sharded (turbo)"]["bcjr"],
@@ -1176,6 +1267,14 @@ def main() -> None:
         stream_entry,
         halo_entry,
     ]}))
+    crc = micro["crc32 2^20 bits"]
+    print(f"summary: bcjr rsc8 (turbo, Lw {lw_t} x N {cols_t}) {bcjr_dev:.5f} ms device, "
+          f"bound {bcjr_bound['bound_ms']:.5f}; K=7 Lw {lw_t} lanes {k7_dev:.5f} against the "
+          f"parent's kernel {k7_col_dev:.5f}, bound {k7_bound['bound_ms']:.5f}; ccsds launch "
+          f"lanes {ccsds_t['bcjr']['lanes_ms']:.5f} against {ccsds_t['bcjr']['column_ms']:.5f}, "
+          f"bound {ccsds_bounds['bcjr']['bound_ms']:.5f} (four classes "
+          f"{ccsds_class_bound['bound_ms']:.5f}); crc32 2^20 bits {crc['us_per_call']:.1f} us "
+          f"a call, device busy {crc['device_busy_ms']} ms, {crc['kernels_per_call']} kernels")
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
@@ -4316,6 +4415,28 @@ def microbench_phase(card: str, device: str = "cuda", batch: int = 1024, iters: 
         print(f"microbench {name}: launches a call {got} (need {need})", flush=True)
         if got != need:
             fail(f"microbench {name} launches")
+    # the CRC row runs on the device: its device time, and the register on
+    # the card against zlib
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.ops import fec
+
+    row = rows["crc32 2^20 bits"]
+    data = bytes(np.random.default_rng(CRC_SEED).integers(0, 256, 1 << 17, dtype=np.uint8))
+    bits = torch.from_numpy(np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little"))
+    poly, width, init, _refin, refout, xorout = fec.CRC_PARAMS["crc32"]
+    out = fec.crc_compute(bits.to(device), poly, width, init, xorout, refout)
+    got = int(np.packbits(out.cpu().numpy()[::-1], bitorder="little").view(np.uint32)[0])
+    busy = ("not measured" if row["device_busy_ms"] is None else
+            f"device busy {row['device_busy_ms']:.4f} ms, {row['kernels_per_call']:g} kernels")
+    print(f"microbench crc32 2^20 bits: {row['us_per_call']:.1f} us a call, {busy} a call "
+          f"[{card}]; crc_compute of 2^20 bits on {out.device}: {got:#010x}, zlib.crc32 "
+          f"{zlib.crc32(data):#010x}", flush=True)
+    if got != zlib.crc32(data) or out.device.type != torch.device(device).type:
+        fail("crc_compute on the device against zlib.crc32")
     print(f"phase 30: {time.perf_counter() - t_start:.1f} s", flush=True)
     return rows
 

@@ -8,8 +8,10 @@ the encoder and interleaver against JAX's. The reference decoders are exact
 (max-log, fixed expression tree), so LLRs and bits are compared with
 ``np.array_equal``: no tolerance. The wrapper's choice of kernel instance
 and the compile-time RSC-8 trellis in ``csrc/bcjr.cu`` are checked on the
-CPU, and so is the meet-in-the-middle schedule of that instance (a numpy
-model of its order of operations, bit for bit against the twin). The CUDA
+CPU, and so are the meet-in-the-middle schedules of the ``rsc8`` and
+``lanes`` instances (numpy models of their order of operations, bit for bit
+against the twin); the windowed conv decode's twin is held against the JAX
+package's XLA scan at K = 5, 6 and 7. The CUDA
 kernel is held against the twin on a card (``cuda`` marker; skipped without
 one; run with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_bcjr.py``).
@@ -169,22 +171,22 @@ def _cu_table(name):
 def test_kernel_plan_picks_the_instance():
     assert bk.kernel_plan(None, 96) == ("rsc8", 16)
     assert bk.kernel_plan(bk.rsc8_tables(), 96) == ("rsc8", 16)
-    assert bk.kernel_plan(CONV_K7, 96) == ("generic", 0)
-    assert bk.kernel_plan(_swapped_rsc8(), 96) == ("generic", 0)
+    assert bk.kernel_plan(CONV_K7, 96) == ("lanes", 1)
+    assert bk.kernel_plan(_swapped_rsc8(), 96) == ("lanes", 4)
     # other coefficients on the RSC-8 pattern stay in the meet instance
-    # where they factor through its classes, and take the generic one where
-    # they do not
+    # where they factor through its classes, and take the lanes instance
+    # where they do not
     nxt, prev_s, *coef = bk.rsc8_tables()
     scaled = tuple(tuple(tuple(2.0 * v for v in row) for row in c) for c in coef)
     assert bk.kernel_plan((nxt, prev_s, *scaled), 96)[0] == "rsc8"
-    assert bk.kernel_plan(random_tables(8, 1, pattern=(nxt, prev_s)), 96) == ("generic", 0)
+    assert bk.kernel_plan(random_tables(8, 1, pattern=(nxt, prev_s)), 96) == ("lanes", 4)
     # spans and history of Lw x cols x 40 bytes within 227 KB at 16 columns
-    # a CTA, else at 8, else the generic instance
+    # a CTA, else at 8, else the lanes instance
     assert bk.kernel_plan(None, 1) == ("rsc8", 16)
     assert bk.kernel_plan(None, 363) == ("rsc8", 16)
     assert bk.kernel_plan(None, 364) == ("rsc8", 8)
     assert bk.kernel_plan(None, 726) == ("rsc8", 8)
-    assert bk.kernel_plan(None, 727) == ("generic", 0)
+    assert bk.kernel_plan(None, 727) == ("lanes", 4)
 
 
 def test_meet_instance_tables_pinned_to_the_trellis(jturbo):
@@ -311,7 +313,7 @@ def test_branch_metric_classes_are_found():
     # the turbo tables factor through the trellis's four branch-metric
     # classes (forward and backward alike); random coefficients and a flipped
     # sign do not, and the K=7 tables are not the meet instance's: those
-    # take the generic instance
+    # take the lanes instance
     _, _, instance, cls = bk._host_tables(bk.rsc8_tables())
     assert instance == "rsc8"
     assert cls is not None and cls.shape == (2, 4) and np.isfinite(cls).all()
@@ -339,9 +341,145 @@ def test_random_tables_are_valid_and_planned():
         for sp in range(s_count):
             for j in (0, 1):
                 assert sp in nxt[prev_s[sp, j]]
-        assert bk.kernel_plan(t, 96)[0] == "generic"
+        assert bk.kernel_plan(t, 96) == ("lanes", 32 // min(s_count, 32))
     t = random_tables(8, 1, pattern=bk.rsc8_tables()[:2])
-    assert bk.kernel_plan(t, 96) == ("generic", 0)  # not through the classes
+    assert bk.kernel_plan(t, 96) == ("lanes", 4)  # not through the classes
+
+
+# shift-register codes a constraint length, K = 3..7 (S = 4..64)
+SR_CODES = {3: (0o5, 0o7), 4: (0o13, 0o17), 5: (0o23, 0o35), 6: (0o53, 0o75),
+            7: (0o171, 0o133)}
+
+
+@pytest.mark.parametrize("k", sorted(SR_CODES))
+def test_kernel_plan_takes_the_lanes_instance_for_codes(k):
+    tables = fec._conv_soft_coeffs(SR_CODES[k], k)
+    s_count = 1 << (k - 1)
+    assert bk._host_tables(tables)[2] == "generic"
+    for lw in (1, 96, 224):
+        assert bk.kernel_plan(tables, lw) == ("lanes", 32 // min(s_count, 32))
+
+
+@pytest.mark.parametrize("s_count", bk.KERNEL_STATES)
+def test_lanes_span_limit(s_count):
+    # the lanes instance takes Lw up to its shared memory (spans, histories
+    # and exchange buffers within 227 KB); one step more takes the column
+    # instance
+    tables = random_tables(s_count, 20 + s_count)
+    limit = bk.lanes_span_limit(s_count)
+    g = 32 // min(s_count, 32)
+    assert limit == {4: 1208, 8: 1449, 16: 1610, 32: 1705, 64: 876}[s_count]
+    smem = lambda lw: 4 * (lw * g * (s_count + 2) + 4 * g * s_count)  # noqa: E731
+    assert smem(limit) <= 232448 < smem(limit + 1)
+    assert bk.kernel_plan(tables, limit) == ("lanes", g)
+    assert bk.kernel_plan(tables, limit + 1) == ("column", 0)
+
+
+def test_kernel_plan_raises_on_other_state_counts():
+    for s_count in (2, 3, 128):
+        with pytest.raises(ValueError, match="states"):
+            bk.kernel_plan(random_tables(s_count, 3), 96)
+
+
+@pytest.mark.parametrize("k", sorted(SR_CODES))
+def test_shift_gather_lanes_match_the_tables(k):
+    # the lanes instance's shuffle form (csrc/bcjr.cu gather): the source
+    # lane and slot of each transition's other end, by its formulas, against
+    # the tables (state li + r L in lane li, slot r; 32 / L columns a warp)
+    tables = fec._conv_soft_coeffs(SR_CODES[k], k)
+    assert bk.shift_register(tables)
+    idx = bk._host_tables(tables)[0]
+    s_count = 1 << (k - 1)
+    lanes = min(s_count, 32)
+    m = np.arange(s_count, dtype=np.float32) + 100  # metric of state s
+    slot = lambda lane, r: m[lane + r * lanes]  # noqa: E731
+    for li in range(lanes):
+        if s_count < 64:
+            fwd = [[slot(li >> 1, 0), slot((li >> 1) + s_count // 2, 0)]]
+            bwd = [[slot((2 * li) % s_count, 0), slot((2 * li + 1) % s_count, 0)]]
+        else:
+            l0, l1 = li >> 1, 16 + (li >> 1)
+            fwd = [[slot(l0, 0), slot(l0, 1)], [slot(l1, 0), slot(l1, 1)]]
+            hi = int(li >= 16)
+            pair = [slot((2 * li) & 31, hi), slot((2 * li + 1) & 31, hi)]
+            bwd = [pair, pair]
+        for r in range(s_count // lanes):
+            s = li + r * lanes
+            assert fwd[r] == [m[idx[1, s, 0]], m[idx[1, s, 1]]]
+            assert bwd[r] == [m[idx[0, s, 0]], m[idx[0, s, 1]]]
+    for other in (None, random_tables(16, 2), random_tables(64, 2)):
+        assert not bk.shift_register(other)
+
+
+def _lanes_model(ls, lp, tables):
+    """numpy model of ``bcjr_kernel_lanes``'s order of operations: forward
+    to mid storing alpha_t, backward to mid storing beta_t, then each half's
+    LLRs from the other's history; every maximum over all states at once
+    (the kernel's lane maxima and warp reduction in another order).
+    float32 throughout."""
+    idx, coef, _, _ = bk._host_tables(tables)
+    nxt, prev = idx[0], idx[1]
+    fw0, fw1, bw0, bw1 = coef
+    lw, n = ls.shape
+    mid = lw // 2
+
+    def g(c0, c1, t):  # [S, 2, N]
+        return c0[:, :, None] * ls[t] + c1[:, :, None] * lp[t]
+
+    def update(m, gg, at):
+        v = np.maximum(m[at[:, 0]] + gg[:, 0], m[at[:, 1]] + gg[:, 1])
+        return v - v.max(axis=0)
+
+    def llr(a, bn, gb):
+        return (((a + gb[:, 0]) + bn[:, 0]).max(axis=0)
+                - ((a + gb[:, 1]) + bn[:, 1]).max(axis=0))
+
+    zero = np.zeros((nxt.shape[0], n), np.float32)
+    hist, out, a, b = [None] * lw, np.empty((lw, n), np.float32), zero, zero
+    for t in range(mid):
+        hist[t], a = a, update(a, g(fw0, fw1, t), prev)
+    for t in range(lw - 1, mid - 1, -1):
+        hist[t], b = b, update(b, g(bw0, bw1, t), nxt)
+    for t in range(mid, lw):
+        out[t] = llr(a, hist[t][nxt], g(bw0, bw1, t))
+        a = update(a, g(fw0, fw1, t), prev)
+    for t in range(mid - 1, -1, -1):
+        gb = g(bw0, bw1, t)
+        out[t] = llr(hist[t], b[nxt], gb)
+        b = update(b, gb, nxt)
+    return out
+
+
+@pytest.mark.parametrize("lw", [1, 2, 3, 96, 97])
+@pytest.mark.parametrize("code", ["k7", "k3", "random-16", "ties-k7"])
+def test_lanes_schedule_equals_twin(lw, code):
+    tables = {"k7": CONV_K7, "ties-k7": CONV_K7, "k3": fec._conv_soft_coeffs(SR_CODES[3], 3),
+              "random-16": random_tables(16, 4)}[code]
+    ls, lp = (_tie_spans(lw, 40, 50 + lw) if code.startswith("ties")
+              else _spans(lw, 40, 50 + lw))
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
+                                          tables)
+    got = _lanes_model(ls, lp, tables)
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("k", [5, 6, 7])
+def test_windowed_conv_decode_twin_matches_jax_scan(k):
+    # the port's windowed soft decode through the BCJR twin against the JAX
+    # package's XLA scan of the same trellis (fec._conv_soft_windowed: the
+    # turbo decoder's _bcjr_maxlog_windowed takes the RSC-8 trellis only)
+    pytest.importorskip("jax")
+    from aether_primitives_tpu.ops import fec as jfec
+
+    rng = np.random.default_rng(60 + k)
+    polys = SR_CODES[k]
+    bits = rng.integers(0, 2, (2, 150)).astype(np.uint8)
+    enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+    llr = ((1 - 2.0 * enc) * 2 + 1.5 * rng.normal(size=enc.shape)).astype(np.float32)
+    got = fec.conv_decode_soft(torch.from_numpy(llr), polys, k, window=32, guard=16,
+                               backend="reference")
+    want = jfec.conv_decode_soft(llr, polys, k, window=32, guard=16, backend="xla")
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 # ------------------------------------------------------------ on the card
@@ -410,6 +548,35 @@ def test_cuda_kernel_random_tables(cuda, s_count):
     want = bk.bcjr_windowed_llr_reference(ls, lp, 96, tables)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", sorted(SR_CODES))
+@pytest.mark.parametrize("n", [77, 2570])
+def test_cuda_lanes_instance_codes(cuda, k, n):
+    tables = fec._conv_soft_coeffs(SR_CODES[k], k)
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(224, n, 14 + k))
+    before = bk.launches
+    got = bk.bcjr_windowed_llr(ls, lp, 224, tables)
+    want = bk.bcjr_windowed_llr_reference(ls, lp, 224, tables)
+    torch.cuda.synchronize()
+    assert bk.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_count", bk.KERNEL_STATES)
+def test_cuda_at_the_lanes_span_limit(cuda, s_count):
+    # the last span the lanes instance takes and the first the column one does
+    tables = random_tables(s_count, 30 + s_count)
+    limit = bk.lanes_span_limit(s_count)
+    for lw, instance in ((limit, "lanes"), (limit + 1, "column")):
+        assert bk.kernel_plan(tables, lw)[0] == instance
+        ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(lw, 37, lw))
+        got = bk.bcjr_windowed_llr(ls, lp, lw, tables)
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

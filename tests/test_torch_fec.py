@@ -12,7 +12,7 @@ Tolerances (the reference's own bars):
   (-120 dB; the branch metrics of rate 1/3 sum three terms in another
   order).
 The ``cuda`` cases hold the windowed form on the card (the BCJR kernel's
-``generic`` instance) ``torch.equal`` to its plain version; they skip
+``lanes`` instance) ``torch.equal`` to its plain version; they skip
 without a card.
 """
 
@@ -98,6 +98,70 @@ def test_crc32_equals_zlib_and_jax(jfec):
     for data in (b"123456789", bytes(rng.integers(0, 256, 777, dtype=np.uint8))):
         assert fec.crc32(data) == zlib.crc32(data) == jfec.crc32(data)
     assert fec.crc32(b"") == zlib.crc32(b"")  # the JAX package's raises on no bytes
+
+
+# CRC registers of widths 8-32 with a nonzero init, reflected and inverted
+# outputs (poly, width, init, xorout, reflect_out)
+_CRC_WIDTHS = {8: (0x07, 8, 0xA5, 0x00, True), 16: (0x8005, 16, 0xFFFF, 0xFFFF, True),
+               24: (0x864CFB, 24, 0xB704CE, 0x0, False),
+               32: (0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, True)}
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 511, 512, 1537, 4099])
+@pytest.mark.parametrize("width", sorted(_CRC_WIDTHS))
+def test_crc_compute_block_fold_matches_jax(jfec, width, n):
+    # n < width takes the one affine step; n % 512 != 0 the leading zero pad;
+    # 4,099 bits fold 9 blocks in four pairwise levels (an odd count twice)
+    poly, width, init, xorout, refl = _CRC_WIDTHS[width]
+    bits = np.random.default_rng(width * 10_000 + n).integers(0, 2, n).astype(np.uint8)
+    got = fec.crc_compute(torch.from_numpy(bits), poly, width, init, xorout, refl)
+    assert got.dtype == torch.uint8 and got.shape == (width,)
+    if n == 0:  # the JAX package's block matrices take no empty stream
+        want = fec._msb_bits(init, width)[::-1] if refl else fec._msb_bits(init, width)
+        assert np.array_equal(got.numpy(), want ^ fec._msb_bits(xorout, width))
+        return
+    want = np.asarray(jfec.crc_compute(bits, poly, width, init, xorout, refl))
+    assert np.array_equal(got.numpy(), want)
+    # other block sizes give the same bits
+    for block in (64, 3):
+        again = fec.crc_compute(torch.from_numpy(bits), poly, width, init, xorout, refl, block)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("size", [0, 1, 9, 64, 1000, 4101])
+def test_crc32_equals_zlib_at_lengths(size):
+    data = bytes(np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8))
+    assert fec.crc32(data) == zlib.crc32(data)
+
+
+def _no_host_copies(monkeypatch):
+    """Every way a tensor's data reaches the host raises from here on."""
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a tensor was copied to the host")
+
+    for name in ("cpu", "numpy", "tolist", "item"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+@pytest.mark.parametrize("n", [20, 3000])
+def test_crc_compute_copies_nothing_to_the_host(monkeypatch, n):
+    bits = torch.from_numpy(np.random.default_rng(n).integers(0, 2, n).astype(np.uint8))
+    want = fec.crc_compute(bits, 0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, True)
+    _no_host_copies(monkeypatch)
+    got = fec.crc_compute(bits, 0x04C11DB7, 32, 0xFFFFFFFF, 0xFFFFFFFF, True)
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_crc_compute_matches_zlib(cuda):
+    data = bytes(np.random.default_rng(14).integers(0, 256, 1 << 17, dtype=np.uint8))
+    bits = torch.from_numpy(np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little"))
+    poly, width, init, _refin, refout, xorout = fec.CRC_PARAMS["crc32"]
+    out = fec.crc_compute(bits.to(cuda), poly, width, init, xorout, refout)
+    assert out.device.type == "cuda"
+    got = int(np.packbits(out.cpu().numpy()[::-1], bitorder="little").view(np.uint32)[0])
+    assert got == zlib.crc32(data)
 
 
 # -------------------------------------------------------- interleavers
@@ -228,7 +292,9 @@ def test_soft_decode_rejects_what_the_reference_rejects():
 
 
 def test_windowed_soft_decode_takes_the_generic_instance():
-    assert bk.kernel_plan(fec._conv_soft_coeffs((0o171, 0o133), 7), 224) == ("generic", 0)
+    # the generic table set takes the lanes instance, in its shuffle form
+    tables = fec._conv_soft_coeffs((0o171, 0o133), 7)
+    assert bk.kernel_plan(tables, 224) == ("lanes", 1) and bk.shift_register(tables)
 
 
 # ------------------------------------------------------------ on the card

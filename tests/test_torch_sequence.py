@@ -51,6 +51,48 @@ def test_lfsr_identical(jseq, delays, seed, length):
         tseq.lfsr_generate(init[:-1], delays, length, device=CPU)
 
 
+@pytest.mark.parametrize("length,block", [(0, 1024), (7, 1024), (31, 1024), (32, 1024),
+                                          (5000, 64), (2049, 1024)])
+def test_lfsr_lengths_and_blocks_match_jax(jseq, length, block):
+    # the matrix form's doubling over 1, 2 and 79 blocks; a head of init only
+    delays = (28, 29, 30, 31)
+    init = tseq.expand(0x2F1B37A, 31)
+    got = tseq.lfsr_generate(torch.from_numpy(init), delays, length)
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), np.asarray(jseq.lfsr_generate(init, delays, length)))
+    m = tseq.lfsr_matrix_generate(init, delays, length, block=block, device=CPU)
+    assert np.array_equal(m.numpy(), np.asarray(jseq.lfsr_matrix_generate(
+        init, delays, length, block=block)))
+
+
+@pytest.mark.parametrize("matrix", [False, True], ids=["lfsr_generate", "lfsr_matrix_generate"])
+def test_lfsr_copies_nothing_to_the_host(monkeypatch, matrix):
+    init = torch.from_numpy(tseq.expand(1, 31))
+    run = ((lambda: tseq.lfsr_matrix_generate(init, (28, 31), 3000, block=256)) if matrix
+           else (lambda: tseq.lfsr_generate(init, (28, 31), 3000)))
+    want = run()
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a tensor was copied to the host")
+
+    for name in ("cpu", "numpy", "tolist", "item"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    got = run()
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_lfsr_runs_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    init = tseq.expand(0x1234, 31)
+    for fn in (tseq.lfsr_generate, tseq.lfsr_matrix_generate):
+        got = fn(torch.from_numpy(init).cuda(), (28, 29, 30, 31), 3000)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), tseq._lfsr(init, (28, 29, 30, 31), 3000))
+
+
 def test_scramble_additive_and_chips_identical(jseq):
     rng = np.random.default_rng(30)
     bits = rng.integers(0, 2, (3, 500)).astype(np.uint8)
