@@ -2,65 +2,42 @@
 // -> hard demod (cli.py numpy_reference_spectra plus the sign demod).
 //
 // Replaces the TPU kernel aether_primitives_tpu/ops/pallas/rx_frame.py:_kernel
-// and the epilogue of models/modem.py RxChain._bits_fast. The direct instance
-// (the main path's; described after the tile instances) computes the FIR at
-// the kept outputs and a hand-written FFT. The tile and generic instances
-// compute the JAX chain's staged frame op (ops/fir.py fir_decimate_fft with
-// _staged_layout), per frame of span = n1 * n2 samples:
-//   stage 1   A[k1, m2] = sum_n F1[n, k1] X[n, m2]           (DFT_{n1})
-//   stage 2   Z[k1, d]  = sum_m2 A[k1, m2] G'[k1, m2, d]     (twiddle * taps *
-//                                                            DFT_{n2} * fold)
-//   wrap      Z[k1, d] -= sum_u delta[u] Cm[u, k1 + n1 d]    (delta = this
-//             frame's last K-1 samples minus the previous frame's, or minus
-//             the carried history for frame 0 of a block)
-// and one of three epilogues, natural bin k = k1 + n1 d:
+// and the epilogue of models/modem.py RxChain._bits_fast. The TPU kernel
+// factorises the frame op for its matrix unit (a DFT_{n1} contraction, a G'
+// contraction folding taps, twiddles, DFT_{n2} and decimation, and a wrap
+// correction). This kernel computes the function itself, per frame of
+// span = dec * n samples:
+//   y[m] = sum_k h[k] x[dec m - k],   m < n = fft_len
+// (x before the frame: the previous frame's tail, or the carried history for
+// frame 0 of a block row, or zeros), then an n-point FFT written by hand in
+// shared memory, then one of three epilogues, natural bin k:
 //   QPSK      4 symbols per byte, LSB-first, bits (re < 0) | (im < 0) << 1
 //   BPSK      8 symbols per byte, LSB-first, bit  re + im < 0
 //   SPECTRUM  complex64 bins times the Scale.SN factor (the EVM gate reads it)
 // Comparisons are strict; a positive scale never flips a sign, so the bit
-// epilogues skip it.
+// epilogues skip it. Everything is FP32 FMA: TF32 or bf16 would fail the
+// -80 dB EVM gate.
 //
-// What bounds the staged form on an H100: FP32 issue. Per 4,194,304-sample
-// block (512 frames at n1 128, n2 64, r 16, K-1 64) the work is 0.67 G complex MACs
-// (2.7 G FMAs, 80 us at the 67 TFLOP/s FP32 peak); the kernel takes about
-// 0.22 ms, a third of that peak. Stage 2 and the wrap correction also stream
-// G' (1 MB) and Cm (1 MB) from L2 once per frame (1.07 GB per block), but
-// timing the stage splits n1 = 64, 128, 256 showed the time following the
-// FP32 work, not the L2 bytes. DRAM traffic is only the 33.55 MB block in and
-// 262,144 QPSK bytes out.
-// What the design does about it: the frame is read from DRAM once into shared
-// memory (64 KB, deinterleaved into re/im planes) and stage 1's result
-// overwrites it in place, so the spectra never touch DRAM and a CTA needs
-// 64.5 KB, which lets two CTAs share an SM. Stage 1 keeps a 4 x 8 complex
-// register tile per thread with F1 read as float4 through L1; stage 2 and the
-// correction read G' and Cm as coalesced float4 rows ([d][m2][k1] and
-// [d][u][k1] layouts, k1 minor). Everything is FP32 FMA: TF32 or bf16 would
-// fail the -80 dB EVM gate. Raising the FP32 issue rate (a larger stage-1
-// tile, fewer shared loads per FMA) is left to a later change.
+// What bounds it on an H100: the bytes. A 4M block is 33.55 MB in and
+// 262,144 QPSK bytes out (0.0101 ms at 3.35 TB/s) at every decimation; with
+// the chain's default 16 dec + 1 taps the FIR is about 16 real-tap
+// multiply-adds per input sample (0.27-0.55 G FP32 operations a block) and
+// the FFTs 5 n log2 n a frame, 0.004-0.009 ms at the 67 TFLOP/s FP32 peak.
 //
-// Four instances, picked by the wrapper (ops/cuda/rx_frame.py kernel_plan):
-//   direct    power-of-two fft_len 64-4096 whose staged frames fit shared
-//             memory and at most 256 taps (the main path, dec 4 / fft_len
-//             2048, and dec 4 / fft_len 64 and 4096): see below;
-//   tile256   n1 % 8 == 0, n2 % 8 == 0, span <= 8,192 (e.g. dec 4,
-//             fft_len 192 or dec 8, fft_len 32): 256 threads, one 4 x 8
-//             stage-1 tile each, two CTAs an SM;
-//   tile512   the same code at 512 threads for spans of 8,193-16,384 (e.g.
-//             dec 1, fft_len 16384): about 128.5 KB of opt-in dynamic shared
-//             memory, one CTA an SM;
-//   generic   any other split n1 x n2 (fft_len 30, spans under 64, n2 < 8):
-//             scalar stage-1 points, each thread looping over (k1, m2), A in
-//             its own pair of shared planes, and the spectrum epilogue only
-//             (the wrapper demodulates and packs its spectrum in PyTorch).
+// Three instances, picked by the wrapper (ops/cuda/rx_frame.py kernel_plan):
+//   direct    fft_len 12-4096 (powers of two from 64), at most 256 taps, whole
+//             frames staged within shared memory (the main path, dec 4 /
+//             fft_len 2048; fft_len 30, 131, 192, 3072 through the mixed-radix
+//             FFT, kMixed): below;
+//   chunked   any other frame of at most 4,096 points whose span suits one
+//             CTA (dec 16-64 with their 257-1,025 taps, fft_len 16 and 32, a
+//             32,768-sample span at dec 8): the FIR's input staged in chunks,
+//             taps through L1, the mixed-radix FFT (rx_frame_general_kernel);
+//   cluster   larger frames or spans (fft_len 8,192-65,536, dec 64 at
+//             fft_len >= 1024): 2-8 CTAs of a thread-block cluster share a
+//             frame through distributed shared memory, with a four-step FFT.
 //
-// The direct instance computes the function itself rather than the MXU's
-// factorisation: per frame, the decimating FIR at the kept outputs only,
-//   y[m] = sum_k h[k] x[dec m - k],   m < fft_len,
-// then an fft_len-point FFT written by hand in shared memory. What bounds
-// it: the bytes. A 4M block is 33.55 MB in and 262,144 QPSK bytes out
-// (0.0101 ms at 3.35 TB/s); the FIR is 1,048,576 outputs x 65 taps (273 M
-// FP32 operations with real taps, 545 M with complex ones) and the FFTs
-// about 58 M, 0.004-0.009 ms at the 67 TFLOP/s FP32 peak. Design:
+// The direct instance:
 //   - a CTA stages its frames once, by 8-byte cp.async, into a window of
 //     K-1 + span samples each (the previous frame's tail, the carried
 //     history row for frame 0 of a row, or zeros), one pad slot every 32
@@ -79,282 +56,49 @@
 //     Scale.SN factor on the spectrum only.
 // Frames of fewer than 2,048 points go 2048 / fft_len to a CTA (as far as
 // shared memory allows), so that a CTA always has 2,048 outputs' work.
+//
+// The mixed-radix FFT (gen_fft) adds radix 3 and 5 passes and a pass by the
+// definition of the p-point DFT for any other prime (O(p) a point) to the
+// Stockham sequence, index arithmetic by a float-reciprocal divider (Div).
+// The chunked and cluster instances keep the direct one's arithmetic and lift
+// its limits: a CTA's shared memory holds its frames' FFT buffers and two
+// windows of one chunk of outputs (any dec; a tap count past what a window
+// holds is staged in ranges), the taps come through L1 (any count), and a
+// frame beyond one CTA is split over a cluster. See rx_frame_general_kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+constexpr int kMaxPasses = 20;
+
+// The launch geometry of the chunked and cluster instances (ops/cuda/rx_frame.py
+// general_layout builds it; the field order is the ctypes mirror's, GenPlan).
+struct GenPlan {
+  int n;      // fft_len
+  int dec;    // decimation
+  int k;      // taps
+  int kt;     // taps a staged range (all of them where the window fits)
+  int fpc;    // frames a CTA (1 in a cluster)
+  int q;      // CTAs a frame: 1, or the cluster's size
+  int lp;     // FIR outputs a CTA computes of a frame (a multiple of 8)
+  int split;  // threads that share a group's 8 outputs (a power of two, <= 32)
+  int chunk;  // outputs staged at once: 8 * threads / split
+  int win;    // float2 slots of one of the two window buffers
+  int fbuf;   // float2 slots of the FFT buffer
+  int nb1;    // frame stride of the first FFT (a frame; a cluster's column of a)
+  int nb2;    // a cluster: stride of a row of b points
+  int a, b;   // a cluster's four-step split n = a * b (one CTA: n, 1)
+  int np1, np2;
+  int rad1[kMaxPasses];  // the first FFT's radices (2, 3, 4, 5, 8 or another prime)
+  int rad2[kMaxPasses];  // a cluster's second FFT's
+};
+
 namespace {
 
-constexpr int kGenericThreads = 256;
-constexpr int kTileK = 4;  // stage-1 thread tile: 4 k1 ...
-constexpr int kTileM = 8;  // ... by 8 m2
+namespace cg = cooperative_groups;
 
 enum Epilogue { kQpsk = 0, kBpsk = 1, kSpectrum = 2 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-template <int EPI, int kThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-rx_frame_kernel(const float2* __restrict__ x,     // [frames, span] complex64
-                const float2* __restrict__ hist,  // [rows, ku] or null
-                const float* __restrict__ f1r,    // [n1, n1]
-                const float* __restrict__ f1i,
-                const float* __restrict__ gr,     // [r, n2, n1]
-                const float* __restrict__ gi,
-                const float* __restrict__ cr,     // [r, ku, n1]
-                const float* __restrict__ ci,
-                void* __restrict__ out,
-                int nsym, int n1, int n2, int r, int ku, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int span = n1 * n2;
-  float* pr = smem;  // X [n1][n2], then A [n2][n1], re plane
-  float* pi = smem + span;
-  float* dr = smem + 2 * span;  // tail deltas [ku]
-  float* di = dr + ku;
-
-  const long long fi = blockIdx.x;  // frame index over all block rows
-  const int f = static_cast<int>(fi % nsym);
-  const float2* xf = x + fi * span;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < span; i += kThreads) {
-    const float2 v = xf[i];
-    pr[i] = v.x;
-    pi[i] = v.y;
-  }
-  for (int u = tid; u < ku; u += kThreads) {
-    const float2 cur = xf[span - ku + u];
-    float2 prev = make_float2(0.f, 0.f);
-    if (f > 0) {
-      prev = xf[u - ku];  // the previous frame's tail
-    } else if (hist != nullptr) {
-      prev = hist[(fi / nsym) * ku + u];
-    }
-    dr[u] = cur.x - prev.x;
-    di[u] = cur.y - prev.y;
-  }
-  __syncthreads();
-
-  // ---- stage 1: A[k1, m2] = sum_n F1[n, k1] X[n, m2] -------------------
-  const int tiles_k = n1 / kTileK;
-  const bool active = tid < tiles_k * (n2 / kTileM);
-  const int k0 = (tid % tiles_k) * kTileK;
-  const int m0 = (tid / tiles_k) * kTileM;
-  float ar[kTileM][kTileK];
-  float ai[kTileM][kTileK];
-#pragma unroll
-  for (int j = 0; j < kTileM; ++j) {
-#pragma unroll
-    for (int q = 0; q < kTileK; ++q) {
-      ar[j][q] = 0.f;
-      ai[j][q] = 0.f;
-    }
-  }
-  if (active) {
-    for (int n = 0; n < n1; ++n) {
-      const float4 fr4 = ldg4(f1r + n * n1 + k0);
-      const float4 fi4 = ldg4(f1i + n * n1 + k0);
-      const float fr[kTileK] = {fr4.x, fr4.y, fr4.z, fr4.w};
-      const float fm[kTileK] = {fi4.x, fi4.y, fi4.z, fi4.w};
-      const float4 xa = ld4(pr + n * n2 + m0);
-      const float4 xb = ld4(pr + n * n2 + m0 + 4);
-      const float4 ya = ld4(pi + n * n2 + m0);
-      const float4 yb = ld4(pi + n * n2 + m0 + 4);
-      const float xr[kTileM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-      const float xm[kTileM] = {ya.x, ya.y, ya.z, ya.w, yb.x, yb.y, yb.z, yb.w};
-#pragma unroll
-      for (int j = 0; j < kTileM; ++j) {
-#pragma unroll
-        for (int q = 0; q < kTileK; ++q) {
-          ar[j][q] = fmaf(fr[q], xr[j], fmaf(-fm[q], xm[j], ar[j][q]));
-          ai[j][q] = fmaf(fr[q], xm[j], fmaf(fm[q], xr[j], ai[j][q]));
-        }
-      }
-    }
-  }
-  __syncthreads();  // every thread is done reading X: A overwrites it
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < kTileM; ++j) {
-      const int o = (m0 + j) * n1 + k0;
-      *reinterpret_cast<float4*>(pr + o) =
-          make_float4(ar[j][0], ar[j][1], ar[j][2], ar[j][3]);
-      *reinterpret_cast<float4*>(pi + o) =
-          make_float4(ai[j][0], ai[j][1], ai[j][2], ai[j][3]);
-    }
-  }
-  __syncthreads();
-
-  // ---- stage 2 + wrap correction + epilogue, SPB symbols per thread ------
-  constexpr int SPB = (EPI == kBpsk) ? 8 : 4;
-  const int groups = n1 / SPB;
-  for (int item = tid; item < r * groups; item += kThreads) {
-    const int g = item % groups;
-    const int d = item / groups;
-    const int kb = g * SPB;
-    float zr[SPB], zi[SPB], er[SPB], ei[SPB];
-#pragma unroll
-    for (int q = 0; q < SPB; ++q) {
-      zr[q] = 0.f;
-      zi[q] = 0.f;
-      er[q] = 0.f;
-      ei[q] = 0.f;
-    }
-    const float* gdr = gr + static_cast<size_t>(d) * n2 * n1 + kb;
-    const float* gdi = gi + static_cast<size_t>(d) * n2 * n1 + kb;
-    for (int m = 0; m < n2; ++m) {
-#pragma unroll
-      for (int h = 0; h < SPB; h += 4) {
-        const float4 a4 = ld4(pr + m * n1 + kb + h);
-        const float4 b4 = ld4(pi + m * n1 + kb + h);
-        const float4 c4 = ldg4(gdr + m * n1 + h);
-        const float4 s4 = ldg4(gdi + m * n1 + h);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-        const float c[4] = {c4.x, c4.y, c4.z, c4.w};
-        const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          zr[h + q] = fmaf(a[q], c[q], fmaf(-b[q], s[q], zr[h + q]));
-          zi[h + q] = fmaf(a[q], s[q], fmaf(b[q], c[q], zi[h + q]));
-        }
-      }
-    }
-    const float* cdr = cr + static_cast<size_t>(d) * ku * n1 + kb;
-    const float* cdi = ci + static_cast<size_t>(d) * ku * n1 + kb;
-    for (int u = 0; u < ku; ++u) {
-      const float tr = dr[u];
-      const float ti = di[u];
-#pragma unroll
-      for (int h = 0; h < SPB; h += 4) {
-        const float4 c4 = ldg4(cdr + u * n1 + h);
-        const float4 s4 = ldg4(cdi + u * n1 + h);
-        const float c[4] = {c4.x, c4.y, c4.z, c4.w};
-        const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          er[h + q] = fmaf(tr, c[q], fmaf(-ti, s[q], er[h + q]));
-          ei[h + q] = fmaf(tr, s[q], fmaf(ti, c[q], ei[h + q]));
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < SPB; ++q) {
-      zr[q] -= er[q];
-      zi[q] -= ei[q];
-    }
-
-    if constexpr (EPI == kSpectrum) {
-      float2* o = static_cast<float2*>(out) + fi * (static_cast<long long>(r) * n1) +
-                  static_cast<size_t>(d) * n1 + kb;
-#pragma unroll
-      for (int q = 0; q < SPB; ++q) o[q] = make_float2(zr[q] * scale, zi[q] * scale);
-    } else {
-      uint32_t byte = 0;
-#pragma unroll
-      for (int q = 0; q < SPB; ++q) {
-        if constexpr (EPI == kQpsk) {
-          byte |= (static_cast<uint32_t>(zr[q] < 0.f) |
-                   (static_cast<uint32_t>(zi[q] < 0.f) << 1)) << (2 * q);
-        } else {
-          byte |= static_cast<uint32_t>(zr[q] + zi[q] < 0.f) << q;
-        }
-      }
-      static_cast<uint8_t*>(out)[fi * (static_cast<long long>(r) * groups) + item] =
-          static_cast<uint8_t>(byte);
-    }
-  }
-}
-
-// The generic instance: any n1 x n2 split, scalar stage-1 points, X and A in
-// separate shared planes, the spectrum epilogue (natural bin k1 + n1 d).
-__global__ void __launch_bounds__(kGenericThreads)
-rx_frame_generic_kernel(const float2* __restrict__ x, const float2* __restrict__ hist,
-                        const float* __restrict__ f1r, const float* __restrict__ f1i,
-                        const float* __restrict__ gr, const float* __restrict__ gi,
-                        const float* __restrict__ cr, const float* __restrict__ ci,
-                        float2* __restrict__ out, int nsym, int n1, int n2, int r,
-                        int ku, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int span = n1 * n2;
-  float* xr = smem;  // X [n1][n2]
-  float* xi = smem + span;
-  float* ar = smem + 2 * span;  // A [n2][n1]
-  float* ai = smem + 3 * span;
-  float* dr = smem + 4 * span;  // tail deltas [ku]
-  float* di = dr + ku;
-
-  const long long fi = blockIdx.x;
-  const int f = static_cast<int>(fi % nsym);
-  const float2* xf = x + fi * span;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < span; i += kGenericThreads) {
-    const float2 v = xf[i];
-    xr[i] = v.x;
-    xi[i] = v.y;
-  }
-  for (int u = tid; u < ku; u += kGenericThreads) {
-    const float2 cur = xf[span - ku + u];
-    float2 prev = make_float2(0.f, 0.f);
-    if (f > 0) {
-      prev = xf[u - ku];
-    } else if (hist != nullptr) {
-      prev = hist[(fi / nsym) * ku + u];
-    }
-    dr[u] = cur.x - prev.x;
-    di[u] = cur.y - prev.y;
-  }
-  __syncthreads();
-
-  for (int p = tid; p < span; p += kGenericThreads) {  // A[k1, m2], p = m2 * n1 + k1
-    const int k1 = p % n1;
-    const int m2 = p / n1;
-    float sr = 0.f, si = 0.f;
-    for (int n = 0; n < n1; ++n) {
-      const float fr = f1r[n * n1 + k1];
-      const float fm = f1i[n * n1 + k1];
-      const float a = xr[n * n2 + m2];
-      const float b = xi[n * n2 + m2];
-      sr = fmaf(fr, a, fmaf(-fm, b, sr));
-      si = fmaf(fr, b, fmaf(fm, a, si));
-    }
-    ar[p] = sr;
-    ai[p] = si;
-  }
-  __syncthreads();
-
-  const int bins = r * n1;
-  for (int p = tid; p < bins; p += kGenericThreads) {  // bin p = d * n1 + k1
-    const int k1 = p % n1;
-    const int d = p / n1;
-    float zr = 0.f, zi = 0.f, er = 0.f, ei = 0.f;
-    const float* gdr = gr + static_cast<size_t>(d) * n2 * n1 + k1;
-    const float* gdi = gi + static_cast<size_t>(d) * n2 * n1 + k1;
-    for (int m = 0; m < n2; ++m) {
-      const float a = ar[m * n1 + k1];
-      const float b = ai[m * n1 + k1];
-      const float c = gdr[m * n1];
-      const float s = gdi[m * n1];
-      zr = fmaf(a, c, fmaf(-b, s, zr));
-      zi = fmaf(a, s, fmaf(b, c, zi));
-    }
-    const float* cdr = cr + static_cast<size_t>(d) * ku * n1 + k1;
-    const float* cdi = ci + static_cast<size_t>(d) * ku * n1 + k1;
-    for (int u = 0; u < ku; ++u) {
-      const float c = cdr[u * n1];
-      const float s = cdi[u * n1];
-      er = fmaf(dr[u], c, fmaf(-di[u], s, er));
-      ei = fmaf(dr[u], s, fmaf(di[u], c, ei));
-    }
-    out[fi * bins + p] = make_float2((zr - er) * scale, (zi - ei) * scale);
-  }
-}
 
 // ---- the direct instance ---------------------------------------------------
 
@@ -364,7 +108,12 @@ constexpr int kFirBlock = 8;   // taps of one register block
 
 struct DirectTaps {
   float2 h[kMaxTaps];
+  int n;                 // fft_len (the mixed-radix variant; else 2^log2n)
+  int npass;             // its FFT passes and their radices
+  int rad[kMaxPasses];
 };
+
+constexpr int kDirectPoints = 8;  // points a thread through a mixed-radix pass
 
 // A staged window's slot of sample e' (one pad slot every 32 samples), and an
 // FFT buffer's slot of point k (one pad slot every 8 points).
@@ -411,6 +160,33 @@ __device__ __forceinline__ void dft(float2* v) {
     const float2 a = v[0];
     v[0] = c_add(a, v[1]);
     v[1] = c_sub(a, v[1]);
+  } else if constexpr (R == 3) {
+    constexpr float kS = 0.86602540378443865f;  // sin(2 pi / 3)
+    const float2 t = c_add(v[1], v[2]);
+    const float2 d = c_sub(v[1], v[2]);
+    const float2 m = make_float2(fmaf(-0.5f, t.x, v[0].x), fmaf(-0.5f, t.y, v[0].y));
+    const float2 r = make_float2(kS * d.y, -kS * d.x);  // -i sin(2 pi / 3) (v1 - v2)
+    v[0] = c_add(v[0], t);
+    v[1] = c_add(m, r);
+    v[2] = c_sub(m, r);
+  } else if constexpr (R == 5) {
+    constexpr float kC1 = 0.30901699437494742f;   // cos(2 pi / 5)
+    constexpr float kC2 = -0.80901699437494742f;  // cos(4 pi / 5)
+    constexpr float kS1 = 0.95105651629515357f;   // sin(2 pi / 5)
+    constexpr float kS2 = 0.58778525229247313f;   // sin(4 pi / 5)
+    const float2 t1 = c_add(v[1], v[4]), t2 = c_add(v[2], v[3]);
+    const float2 t3 = c_sub(v[1], v[4]), t4 = c_sub(v[2], v[3]);
+    const float2 a1 = make_float2(fmaf(kC1, t1.x, fmaf(kC2, t2.x, v[0].x)),
+                                  fmaf(kC1, t1.y, fmaf(kC2, t2.y, v[0].y)));
+    const float2 a2 = make_float2(fmaf(kC2, t1.x, fmaf(kC1, t2.x, v[0].x)),
+                                  fmaf(kC2, t1.y, fmaf(kC1, t2.y, v[0].y)));
+    const float2 b1 = make_float2(fmaf(kS1, t3.x, kS2 * t4.x), fmaf(kS1, t3.y, kS2 * t4.y));
+    const float2 b2 = make_float2(fmaf(kS2, t3.x, -kS1 * t4.x), fmaf(kS2, t3.y, -kS1 * t4.y));
+    v[0] = c_add(v[0], c_add(t1, t2));
+    v[1] = c_add(a1, c_negi(b1));  // a - i b
+    v[4] = c_sub(a1, c_negi(b1));
+    v[2] = c_add(a2, c_negi(b2));
+    v[3] = c_sub(a2, c_negi(b2));
   } else if constexpr (R == 4) {
     const float2 a0 = c_add(v[0], v[2]), a2 = c_sub(v[0], v[2]);
     const float2 a1 = c_add(v[1], v[3]), a3 = c_negi(c_sub(v[1], v[3]));
@@ -488,10 +264,155 @@ __device__ __forceinline__ void fft_pass(float2* buf, int log2n, int nb, int nf,
   __syncthreads();
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x / d for 0 <= x < 2^22 by a float reciprocal and one correction (the
+// product's error is under 1): the index arithmetic of the chunked and
+// cluster instances divides by run-time sizes.
+struct Div {
+  int d;
+  float r;
+  __device__ __forceinline__ explicit Div(int d_) : d(d_), r(1.0f / static_cast<float>(d_)) {}
+  __device__ __forceinline__ int operator()(int x) const {
+    int q = __float2int_rz(__int2float_rn(x) * r);
+    const int rem = x - q * d;
+    return q + (rem >= d) - (rem < 0);
+  }
+};
+
+// One Stockham pass of radix R (2, 3, 4, 5, 8) over nf frames of n points in
+// place (frame stride nb): butterfly j of a frame reads points j + r n/R,
+// twiddles point r by W_n^{(j mod ns) r n / (ns R)}, and writes point
+// (j / ns) ns R + (j mod ns) + r ns. tw is a table of W_N^e with N = n tstride.
+// Every read lands in registers before the first write (the plan keeps nf n
+// within threads * kPoints points; a thread holds ceil(kPoints / R) butterflies).
+template <int R, int kThreads, int kPoints>
+__device__ __forceinline__ void gen_pass(float2* buf, int n, int nb, int nf, int ns,
+                                         const float2* __restrict__ tw, int tstride) {
+  constexpr int kPer = (kPoints + R - 1) / R;
+  const int nbf = n / R;  // butterflies a frame
+  const int total = nf * nbf;
+  const Div by_nbf(nbf), by_ns(ns);
+  float2 v[kPer][R];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int bi = threadIdx.x + u * kThreads;
+    if (bi < total) {
+      const int f = by_nbf(bi);
+      const int j = bi - f * nbf;
+      const float2* src = buf + f * nb;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[u][r] = src[fslot(j + r * nbf)];
+    }
+  }
+  __syncthreads();
+  const int step = n / (ns * R) * tstride;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int bi = threadIdx.x + u * kThreads;
+    if (bi < total) {
+      const int f = by_nbf(bi);
+      const int j = bi - f * nbf;
+      const int jd = by_ns(j);
+      const int jm = j - jd * ns;
+      if (ns > 1) {
+        const int e = jm * step;
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[u][r] = c_mul(v[u][r], __ldg(tw + e * r));
+      }
+      dft<R>(v[u]);
+      float2* dst = buf + f * nb;
+      const int d = jd * ns * R + jm;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[fslot(d + r * ns)] = v[u][r];
+    }
+  }
+  __syncthreads();
+}
+
+// A pass of any other prime radix p, by the definition of the p-point DFT:
+// output k of butterfly j is sum_r x[j + r n/p] W_n^{r (n / (ns p)) (j mod ns
+// + k ns)}, one output point a thread at a time (kPoints of them held).
+template <int kThreads, int kPoints>
+__device__ __forceinline__ void prime_pass(float2* buf, int n, int nb, int nf, int ns, int p,
+                                           const float2* __restrict__ tw, int tstride) {
+  const int np = n / p;
+  const int total = nf * n;
+  const Div by_n(n), by_p(p), by_ns(ns);
+  float2 acc[kPoints];
+#pragma unroll
+  for (int u = 0; u < kPoints; ++u) {
+    const int pt = threadIdx.x + u * kThreads;
+    if (pt < total) {
+      const int f = by_n(pt);
+      const int w = pt - f * n;
+      const int j = by_p(w);
+      const int k = w - j * p;
+      const int jm = j - by_ns(j) * ns;
+      const int step = np / ns * (jm + k * ns);  // < n
+      const float2* src = buf + f * nb;
+      float2 a = src[fslot(j)];
+      int e = step;
+      for (int r = 1; r < p; ++r) {
+        const float2 t = __ldg(tw + e * tstride);
+        const float2 y = src[fslot(j + r * np)];
+        a.x = fmaf(y.x, t.x, fmaf(-y.y, t.y, a.x));
+        a.y = fmaf(y.x, t.y, fmaf(y.y, t.x, a.y));
+        e += step;
+        if (e >= n) e -= n;
+      }
+      acc[u] = a;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPoints; ++u) {
+    const int pt = threadIdx.x + u * kThreads;
+    if (pt < total) {
+      const int f = by_n(pt);
+      const int w = pt - f * n;
+      const int j = by_p(w);
+      const int k = w - j * p;
+      const int jd = by_ns(j);
+      const int jm = j - jd * ns;
+      buf[f * nb + fslot(jd * ns * p + jm + k * ns)] = acc[u];
+    }
+  }
+  __syncthreads();
+}
+
+// The mixed-radix Stockham FFT of nf frames of n points in place, bins in
+// natural order, passes in the plan's order.
+template <int kThreads, int kPoints>
+__device__ __forceinline__ void gen_fft(float2* buf, int n, int nb, int nf, const int* rad,
+                                        int npass, const float2* __restrict__ tw, int tstride) {
+  int ns = 1;
+  for (int i = 0; i < npass; ++i) {
+    const int r = rad[i];
+    switch (r) {
+      case 8: gen_pass<8, kThreads, kPoints>(buf, n, nb, nf, ns, tw, tstride); break;
+      case 4: gen_pass<4, kThreads, kPoints>(buf, n, nb, nf, ns, tw, tstride); break;
+      case 2: gen_pass<2, kThreads, kPoints>(buf, n, nb, nf, ns, tw, tstride); break;
+      case 3: gen_pass<3, kThreads, kPoints>(buf, n, nb, nf, ns, tw, tstride); break;
+      case 5: gen_pass<5, kThreads, kPoints>(buf, n, nb, nf, ns, tw, tstride); break;
+      default: prime_pass<kThreads, kPoints>(buf, n, nb, nf, ns, r, tw, tstride); break;
+    }
+    ns *= r;
+  }
+}
+
 // One CTA takes fpc consecutive frames (of any block rows): stage, FIR at the
-// kept outputs, FFT, epilogue. Needs fpc * n <= 8 * kThreads and fpc to
-// divide kThreads.
-template <int EPI, int kThreads, int kMinBlocks, bool kReal>
+// kept outputs, FFT, epilogue. Needs fpc * n <= 8 * kThreads (n rounded up to
+// a multiple of 8) and fpc to divide kThreads. kMixed: fft_len no power of
+// two (taps.n; the FFT of the chunked instance, taps.rad), else 2^log2n.
+template <int EPI, int kThreads, int kMinBlocks, bool kReal, bool kMixed>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
                        const float2* __restrict__ hist,  // [rows, ku] or null
@@ -501,7 +422,7 @@ rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
                        const __grid_constant__ DirectTaps taps) {
   extern __shared__ __align__(16) float2 sm[];
   const int tid = threadIdx.x;
-  const int n = 1 << log2n;
+  const int n = kMixed ? taps.n : 1 << log2n;
   const int ku = k - 1;
   const int span = dec * n;
   const long long f0 = static_cast<long long>(blockIdx.x) * fpc;
@@ -538,7 +459,9 @@ rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
   __syncthreads();
 
   // ---- FIR at the kept outputs: y[m0 + r], r < 8 -------------------------
-  const int groups = n / kFirOut;
+  // (the mixed-radix variant rounds a frame up to whole groups of 8; the
+  // outputs past n read slots past the frame's samples and are dropped)
+  const int groups = kMixed ? (n + kFirOut - 1) / kFirOut : n / kFirOut;
   const bool active = tid < nf * groups;
   const int jf = tid / groups;
   const int m0 = (tid - jf * groups) * kFirOut;
@@ -580,26 +503,38 @@ rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
   if (active) {
     float2* fb = sm + jf * nb;
 #pragma unroll
-    for (int r = 0; r < kFirOut; ++r) fb[fslot(m0 + r)] = make_float2(ar[r], ai[r]);
+    for (int r = 0; r < kFirOut; ++r) {
+      if (!kMixed || m0 + r < n) fb[fslot(m0 + r)] = make_float2(ar[r], ai[r]);
+    }
   }
   __syncthreads();
 
   // ---- FFT: radix-8 passes, then one radix-4 or radix-2 pass -------------
-  int log2ns = 0;
-  for (; log2ns + 3 <= log2n; log2ns += 3) {
-    fft_pass<8, 3, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
-  }
-  if (log2n - log2ns == 2) {
-    fft_pass<4, 2, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
-  } else if (log2n - log2ns == 1) {
-    fft_pass<2, 1, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+  if constexpr (kMixed) {
+    gen_fft<kThreads, kDirectPoints>(sm, n, nb, nf, taps.rad, taps.npass, tw, 1);
+  } else {
+    int log2ns = 0;
+    for (; log2ns + 3 <= log2n; log2ns += 3) {
+      fft_pass<8, 3, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+    }
+    if (log2n - log2ns == 2) {
+      fft_pass<4, 2, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+    } else if (log2n - log2ns == 1) {
+      fft_pass<2, 1, kThreads>(sm, log2n, nb, nf, 1 << log2ns, log2ns, tw);
+    }
   }
 
   // ---- epilogue, natural bin order -----------------------------------------
   if constexpr (EPI == kSpectrum) {
     float2* o = static_cast<float2*>(out) + f0 * n;
     for (int i = tid; i < nf * n; i += kThreads) {
-      const float2 z = sm[(i >> log2n) * nb + fslot(i & (n - 1))];
+      float2 z;
+      if constexpr (kMixed) {
+        const int j = Div(n)(i);
+        z = sm[j * nb + fslot(i - j * n)];
+      } else {
+        z = sm[(i >> log2n) * nb + fslot(i & (n - 1))];
+      }
       o[i] = make_float2(z.x * scale, z.y * scale);
     }
   } else {
@@ -626,88 +561,347 @@ rx_frame_direct_kernel(const float2* __restrict__ x,     // [frames, span]
   }
 }
 
+// ---- the chunked and cluster instances -------------------------------------
+
+// One group's (phase, block of 8 taps) items of the chunked and cluster
+// instances (see rx_frame_general_kernel): outputs o + r, r < 8, of the taps
+// [k0, k1) read window slots wslot(ob + dec r - kk); items s, s + S, ...
+template <bool kReal>
+__device__ __forceinline__ void fir_items(const float2* win, const float2* __restrict__ taps,
+                                          int ob, int dec, int k0, int k1, int s, int S,
+                                          const Div& by_dec, float* ar, float* ai) {
+  const int nqb = (by_dec(k1 - k0 + dec - 1) + kFirBlock - 1) / kFirBlock;
+  for (int item = s; item < dec * nqb; item += S) {
+    const int b = by_dec(item);
+    const int p = item - b * dec;
+    const int qlo = k0 > p ? by_dec(k0 - p + dec - 1) : 0;  // taps dec q + p in [k0, k1)
+    const int qhi = k1 > p ? by_dec(k1 - p + dec - 1) : 0;
+    const int q0 = qlo + kFirBlock * b;
+    if (q0 >= qhi) continue;
+    if (q0 + kFirBlock <= qhi) {
+      // w[i] = window at ob + dec (i - 7) - (dec q0 + p): output r, tap q0 + bb
+      // reads w[r - bb + 7]
+      float2 w[kFirOut + kFirBlock - 1];
+      const int e0 = ob - dec * (q0 + kFirBlock - 1) - p;
+#pragma unroll
+      for (int i = 0; i < kFirOut + kFirBlock - 1; ++i) w[i] = win[wslot(e0 + i * dec)];
+#pragma unroll
+      for (int bb = 0; bb < kFirBlock; ++bb) {
+        const float2 h = __ldg(taps + dec * (q0 + bb) + p);
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) {
+          fir_mac<kReal>(ar[r], ai[r], h, w[r - bb + kFirBlock - 1]);
+        }
+      }
+    } else {
+      for (int q = q0; q < qhi; ++q) {
+        const float2 h = __ldg(taps + dec * q + p);
+        const int e0 = ob - dec * q - p;
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) {
+          fir_mac<kReal>(ar[r], ai[r], h, win[wslot(e0 + r * dec)]);
+        }
+      }
+    }
+  }
+}
+
+// The bit epilogues' byte of 4 (QPSK) or 8 (BPSK) consecutive bins, bin q at(q).
+template <typename At>
+__device__ __forceinline__ uint8_t demod_byte(int epi, At at) {
+  uint32_t byte = 0;
+  if (epi == kQpsk) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 z = at(q);
+      byte |= (static_cast<uint32_t>(z.x < 0.f) | (static_cast<uint32_t>(z.y < 0.f) << 1))
+              << (2 * q);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 z = at(q);
+      byte |= static_cast<uint32_t>(z.x + z.y < 0.f) << q;
+    }
+  }
+  return static_cast<uint8_t>(byte);
+}
+
+// The chunked (kCluster false) and cluster (kCluster true) instances. A CTA
+// computes lp FIR outputs of each of its frames (fpc whole frames; in a
+// cluster, the outputs [rank lp, (rank + 1) lp) of the cluster's frame):
+//   - in chunks of `chunk` consecutive outputs (of consecutive frames), and
+//     tap ranges of `kt` taps, each staged as one window per frame it touches
+//     (the samples dec m - k the range's taps read for the chunk's outputs m,
+//     the previous frame's tail, the carried history or zeros), by 8-byte
+//     cp.async into two buffers: the next chunk loads while this one computes;
+//   - `split` threads share a group of 8 consecutive outputs, taking the
+//     (phase, block of 8 taps) items of the polyphase split k = dec q + p in
+//     turn (15 samples in registers serve 64 multiply-adds, as in the direct
+//     instance), then sum over the group's lanes by shuffles; taps come
+//     through L1 (any count);
+//   - one CTA: the outputs go to its frames' FFT buffers, then the mixed-radix
+//     FFT and the epilogue;
+//   - a cluster: output m = b m1 + m2 goes to the CTA that owns column m2
+//     (b / q columns each, a points a column) through distributed shared
+//     memory; each CTA FFTs its columns (a points), twiddles by W_n^{m2 k1}
+//     as it gathers its a / q rows k1 of all b columns from the cluster, FFTs
+//     the rows (b points), and writes bins k1 + a k2.
+template <int kThreads, int kMinBlocks, int kPoints, bool kCluster>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rx_frame_general_kernel(const float2* __restrict__ x,     // [frames, span]
+                        const float2* __restrict__ hist,  // [rows, ku] or null
+                        const float2* __restrict__ tw,    // [n] W_n^e
+                        const float2* __restrict__ taps,  // [k]
+                        void* __restrict__ out, long long frames, int nsym, float scale,
+                        int epi, int real_taps, const __grid_constant__ GenPlan plan) {
+  extern __shared__ __align__(16) float2 sm[];
+  const int tid = threadIdx.x;
+  const int n = plan.n, dec = plan.dec, k = plan.k;
+  const int ku = k - 1;
+  const int span = dec * n;
+  const int lp = plan.lp;
+  float2* fbuf = sm;
+
+  long long f0;
+  int nf, rank = 0;
+  if constexpr (kCluster) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+    f0 = blockIdx.x / plan.q;
+    nf = 1;
+    cg::this_cluster().sync();  // every CTA runs before one writes into another
+  } else {
+    f0 = static_cast<long long>(blockIdx.x) * plan.fpc;
+    nf = static_cast<int>(min(static_cast<long long>(plan.fpc), frames - f0));
+  }
+  const int m_base = rank * lp;  // the CTA's first output of its frame(s)
+
+  // ---- FIR at the kept outputs -----------------------------------------
+  const int total_out = nf * lp;
+  const int chunk = plan.chunk;
+  const int nkr = (k + plan.kt - 1) / plan.kt;
+  const int iters = (total_out + chunk - 1) / chunk * nkr;
+  const int S = plan.split;
+  const int g = tid / S;
+  const int s = tid - g * S;
+
+  // frame f0's block row and frame index in it: a sample before a frame's
+  // start comes from the previous frame unless the frame opens its row
+  const long long row0 = f0 / nsym;
+  const int col0 = static_cast<int>(f0 - row0 * nsym);
+
+  auto stage = [&](int it) {
+    const int c = it / nkr;
+    const int k0 = (it - c * nkr) * plan.kt;
+    const int k1 = min(k, k0 + plan.kt);
+    const int kr = k1 - k0;
+    const int o0 = c * chunk;
+    const int o1 = min(o0 + chunk, total_out);
+    float2* win = sm + plan.fbuf + (it & 1) * plan.win;
+    // one window a frame the chunk touches: the first from o0, the others
+    // from a frame's first output; wl0 and wlf samples
+    const int jf0 = o0 / lp;
+    const int wl0 = dec * (min(o1, (jf0 + 1) * lp) - o0 - 1) + kr;
+    const int wlf = dec * (lp - 1) + kr;
+    const int pieces = (o1 - 1) / lp - jf0 + 1;
+    const int total = dec * (o1 - o0 - pieces) + pieces * kr;
+    const Div by_wlf(wlf);
+    for (int idx = tid; idx < total; idx += kThreads) {
+      int t = 0, e = idx;
+      if (idx >= wl0) {
+        t = 1 + by_wlf(idx - wl0);
+        e = idx - wl0 - (t - 1) * wlf;
+      }
+      const int jf = jf0 + t;
+      const int ps = t == 0 ? o0 : jf * lp;
+      const int base = dec * (ps - o0) + t * (kr - dec);
+      // sample i of frame f0 + jf, -ku <= i
+      const int i = dec * (m_base + ps - jf * lp) - (k1 - 1) + e;
+      float2* dst = win + wslot(base + e);
+      const float2* xf = x + (f0 + jf) * span;
+      if (i >= span) {
+        *dst = make_float2(0.f, 0.f);  // past the frame: padded outputs only
+      } else if (i >= 0) {
+        cp_async8(dst, xf + i);
+      } else {
+        const int col = col0 + jf;
+        const int rc = col / nsym;
+        if (col - rc * nsym != 0) {
+          cp_async8(dst, xf + i);  // the previous frame's tail
+        } else if (hist != nullptr) {
+          cp_async8(dst, hist + (row0 + rc) * ku + ku + i);  // the carried history
+        } else {
+          *dst = make_float2(0.f, 0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const Div by_dec(dec), by_lp(lp), by_b(plan.b), by_bq(plan.b / plan.q);
+  float ar[kFirOut], ai[kFirOut];
+  stage(0);
+  for (int it = 0; it < iters; ++it) {
+    if (it + 1 < iters) {
+      stage(it + 1);
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    const int c = it / nkr;
+    const int kr = it - c * nkr;
+    const int k0 = kr * plan.kt;
+    const int k1 = min(k, k0 + plan.kt);
+    const int o0 = c * chunk;
+    const int o1 = min(o0 + chunk, total_out);
+    const int o = o0 + kFirOut * g;  // the group's first output
+    if (kr == 0) {
+#pragma unroll
+      for (int r = 0; r < kFirOut; ++r) {
+        ar[r] = 0.f;
+        ai[r] = 0.f;
+      }
+    }
+    if (o < o1) {
+      const float2* win = sm + plan.fbuf + (it & 1) * plan.win;
+      const int t = by_lp(o) - by_lp(o0);  // the group's window in the chunk
+      // window slot of output o + r, tap kk: wslot(ob + dec r - kk)
+      const int ob = dec * (o - o0) + t * (k1 - k0 - dec) + (k1 - 1);
+      if (real_taps) {
+        fir_items<true>(win, taps, ob, dec, k0, k1, s, S, by_dec, ar, ai);
+      } else {
+        fir_items<false>(win, taps, ob, dec, k0, k1, s, S, by_dec, ar, ai);
+      }
+    }
+    if (kr == nkr - 1) {
+      // the group's lanes are S consecutive lanes of one warp: sum them
+      for (int off = S >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) {
+          ar[r] += __shfl_xor_sync(0xffffffffu, ar[r], off);
+          ai[r] += __shfl_xor_sync(0xffffffffu, ai[r], off);
+        }
+      }
+      if (o < o1) {
+        const int jf = by_lp(o);
+        const int m = o - jf * lp + m_base;  // output index in the frame
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) {
+          if (S <= kFirOut ? (r & (S - 1)) == s : r == s) {
+            const float2 y = make_float2(ar[r], ai[r]);
+            if constexpr (kCluster) {
+              const int mm = m + r;
+              const int m1 = by_b(mm);
+              const int m2 = mm - m1 * plan.b;
+              const int dst = by_bq(m2);
+              float2* rb = cg::this_cluster().map_shared_rank(fbuf, dst);
+              rb[(m2 - dst * by_bq.d) * plan.nb1 + fslot(m1)] = y;
+            } else {
+              if (m + r < n) fbuf[jf * plan.nb1 + fslot(m + r)] = y;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the window is read: the load two iterations on may overwrite it
+  }
+
+  // ---- FFT ------------------------------------------------------------------
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every output is in its column's CTA
+    const int a = plan.a, b = plan.b, q = plan.q;
+    const int aq = a / q, bq = b / q;
+    gen_fft<kThreads, kPoints>(fbuf, a, plan.nb1, bq, plan.rad1, plan.np1, tw, b);  // columns
+    cluster.sync();  // every CTA's columns are transformed
+    // gather rows k1 of this CTA from every column, twiddled by W_n^{m2 k1}
+    const int pts = aq * b;
+    const Div by_b(b), by_bq(bq);
+    float2 v[kPoints];
+#pragma unroll
+    for (int u = 0; u < kPoints; ++u) {
+      const int pt = tid + u * kThreads;
+      if (pt < pts) {
+        const int k1l = by_b(pt);
+        const int m2 = pt - k1l * b;
+        const int src = by_bq(m2);
+        const int k1 = rank * aq + k1l;
+        const float2* rb = cluster.map_shared_rank(fbuf, src);
+        v[u] = c_mul(rb[(m2 - src * bq) * plan.nb1 + fslot(k1)], __ldg(tw + k1 * m2));
+      }
+    }
+    cluster.sync();  // every CTA has read what it needs: buffers may be overwritten
+#pragma unroll
+    for (int u = 0; u < kPoints; ++u) {
+      const int pt = tid + u * kThreads;
+      if (pt < pts) {
+        const int k1l = by_b(pt);
+        fbuf[k1l * plan.nb2 + fslot(pt - k1l * b)] = v[u];
+      }
+    }
+    __syncthreads();
+    gen_fft<kThreads, kPoints>(fbuf, b, plan.nb2, aq, plan.rad2, plan.np2, tw, a);  // rows
+    // ---- epilogue: bin k1 + a k2 -------------------------------------------
+    if (epi == kSpectrum) {
+      float2* o = static_cast<float2*>(out) + f0 * n + rank * aq;
+      const Div by_aq(aq);
+      for (int i = tid; i < pts; i += kThreads) {
+        const int k2 = by_aq(i);
+        const int k1l = i - k2 * aq;
+        const float2 z = fbuf[k1l * plan.nb2 + fslot(k2)];
+        o[k1l + a * k2] = make_float2(z.x * scale, z.y * scale);
+      }
+    } else {
+      const int spb = epi == kBpsk ? 8 : 4;  // symbols a byte
+      const int per = aq / spb;
+      uint8_t* o = static_cast<uint8_t*>(out) + f0 * (n / spb) + rank * per;
+      const Div by_per(per);
+      for (int i = tid; i < per * b; i += kThreads) {
+        const int k2 = by_per(i);
+        const int kb = (i - k2 * per) * spb;
+        o[kb / spb + (a / spb) * k2] =
+            demod_byte(epi, [&](int q) { return fbuf[(kb + q) * plan.nb2 + fslot(k2)]; });
+      }
+    }
+  } else {
+    gen_fft<kThreads, kPoints>(fbuf, n, plan.nb1, nf, plan.rad1, plan.np1, tw, 1);
+    // ---- epilogue, natural bin order ---------------------------------------
+    if (epi == kSpectrum) {
+      float2* o = static_cast<float2*>(out) + f0 * n;
+      const Div by_n(n);
+      for (int i = tid; i < nf * n; i += kThreads) {
+        const int j = by_n(i);
+        const float2 z = fbuf[j * plan.nb1 + fslot(i - j * n)];
+        o[i] = make_float2(z.x * scale, z.y * scale);
+      }
+    } else {
+      const int spb = epi == kBpsk ? 8 : 4;
+      const int per = n / spb;
+      uint8_t* o = static_cast<uint8_t*>(out) + f0 * per;
+      const Div by_per(per);
+      for (int i = tid; i < nf * per; i += kThreads) {
+        const int j = by_per(i);
+        const float2* fb = fbuf + j * plan.nb1;
+        const int kb = (i - j * per) * spb;
+        o[i] = demod_byte(epi, [&](int q) { return fb[fslot(kb + q)]; });
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <int EPI, int kThreads, int kMinBlocks>
-int launch(const void* x, const void* hist, const void* f1r, const void* f1i,
-           const void* gr, const void* gi, const void* cr, const void* ci,
-           void* out, long long frames, int nsym, int n1, int n2, int r, int ku,
-           float scale, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(n1) * n2 + 2 * static_cast<size_t>(ku)) *
-                      sizeof(float);
-  const int err = set_smem(rx_frame_kernel<EPI, kThreads, kMinBlocks>, smem);
-  if (err != 0) return err;
-  rx_frame_kernel<EPI, kThreads, kMinBlocks>
-      <<<static_cast<unsigned>(frames), kThreads, smem, stream>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(hist),
-      static_cast<const float*>(f1r), static_cast<const float*>(f1i),
-      static_cast<const float*>(gr), static_cast<const float*>(gi),
-      static_cast<const float*>(cr), static_cast<const float*>(ci), out, nsym,
-      n1, n2, r, ku, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kThreads, int kMinBlocks>
-int launch_epilogue(int epilogue, const void* x, const void* hist, const void* f1r,
-                    const void* f1i, const void* gr, const void* gi, const void* cr,
-                    const void* ci, void* out, long long frames, int nsym, int n1,
-                    int n2, int r, int ku, float scale, cudaStream_t s) {
-  switch (epilogue) {
-    case kQpsk:
-      return launch<kQpsk, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                                 frames, nsym, n1, n2, r, ku, scale, s);
-    case kBpsk:
-      return launch<kBpsk, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                                 frames, nsym, n1, n2, r, ku, scale, s);
-    case kSpectrum:
-      return launch<kSpectrum, kThreads, kMinBlocks>(x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                                     frames, nsym, n1, n2, r, ku, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int launch_instance(int instance, int epilogue, const void* x, const void* hist,
-                    const void* f1r, const void* f1i, const void* gr, const void* gi,
-                    const void* cr, const void* ci, void* out, long long frames, int nsym,
-                    int n1, int n2, int r, int ku, float scale, cudaStream_t s) {
-  switch (instance) {
-    case 0:
-      return launch_epilogue<256, 2>(epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                     frames, nsym, n1, n2, r, ku, scale, s);
-    case 1:
-      return launch_epilogue<512, 1>(epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                     frames, nsym, n1, n2, r, ku, scale, s);
-    case 2: {
-      if (epilogue != kSpectrum) return static_cast<int>(cudaErrorInvalidValue);
-      const size_t smem = (4 * static_cast<size_t>(n1) * n2 + 2 * static_cast<size_t>(ku)) *
-                          sizeof(float);
-      const int err = set_smem(rx_frame_generic_kernel, smem);
-      if (err != 0) return err;
-      rx_frame_generic_kernel<<<static_cast<unsigned>(frames), kGenericThreads, smem, s>>>(
-          static_cast<const float2*>(x), static_cast<const float2*>(hist),
-          static_cast<const float*>(f1r), static_cast<const float*>(f1i),
-          static_cast<const float*>(gr), static_cast<const float*>(gi),
-          static_cast<const float*>(cr), static_cast<const float*>(ci),
-          static_cast<float2*>(out), nsym, n1, n2, r, ku, scale);
-      return static_cast<int>(cudaGetLastError());
-    }
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-
-template <int EPI, int kThreads, int kMinBlocks, bool kReal>
+template <int EPI, int kThreads, int kMinBlocks, bool kReal, bool kMixed>
 int launch_direct(const void* x, const void* hist, const void* tw, void* out,
                   long long frames, int nsym, int dec, int log2n, int k, int fpc, int wp,
                   int nb, float scale, const DirectTaps& taps, size_t smem,
                   cudaStream_t stream) {
-  auto kernel = rx_frame_direct_kernel<EPI, kThreads, kMinBlocks, kReal>;
+  auto kernel = rx_frame_direct_kernel<EPI, kThreads, kMinBlocks, kReal, kMixed>;
   const int err = set_smem(kernel, smem);
   if (err != 0) return err;
   const long long ctas = (frames + fpc - 1) / fpc;
@@ -718,96 +912,149 @@ int launch_direct(const void* x, const void* hist, const void* tw, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kThreads, int kMinBlocks, bool kReal>
+template <int kThreads, int kMinBlocks, bool kReal, bool kMixed>
 int direct_epilogue(int epilogue, const void* x, const void* hist, const void* tw,
                     void* out, long long frames, int nsym, int dec, int log2n, int k,
                     int fpc, int wp, int nb, float scale, const DirectTaps& taps,
                     size_t smem, cudaStream_t s) {
   switch (epilogue) {
     case kQpsk:
-      return launch_direct<kQpsk, kThreads, kMinBlocks, kReal>(
+      return launch_direct<kQpsk, kThreads, kMinBlocks, kReal, kMixed>(
           x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
     case kBpsk:
-      return launch_direct<kBpsk, kThreads, kMinBlocks, kReal>(
+      return launch_direct<kBpsk, kThreads, kMinBlocks, kReal, kMixed>(
           x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
     case kSpectrum:
-      return launch_direct<kSpectrum, kThreads, kMinBlocks, kReal>(
+      return launch_direct<kSpectrum, kThreads, kMinBlocks, kReal, kMixed>(
           x, hist, tw, out, frames, nsym, dec, log2n, k, fpc, wp, nb, scale, taps, smem, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// 512 threads where a CTA's frames pass 2,048 points, else 256 (three CTAs
+// an SM for the power-of-two FFT, two for the mixed-radix one).
+template <bool kMixed>
+int direct_width(int epilogue, int real_taps, const void* x, const void* hist, const void* tw,
+                 void* out, long long frames, int nsym, int dec, int log2n, int k, int fpc,
+                 int wp, int nb, float scale, const DirectTaps& taps, size_t smem,
+                 cudaStream_t s) {
+  constexpr int kMin256 = kMixed ? 2 : 3;
+  if (fpc * ((taps.n + kFirOut - 1) / kFirOut * kFirOut) > 8 * 256) {
+    return real_taps ? direct_epilogue<512, 1, true, kMixed>(epilogue, x, hist, tw, out, frames,
+                                                             nsym, dec, log2n, k, fpc, wp, nb,
+                                                             scale, taps, smem, s)
+                     : direct_epilogue<512, 1, false, kMixed>(epilogue, x, hist, tw, out,
+                                                              frames, nsym, dec, log2n, k, fpc,
+                                                              wp, nb, scale, taps, smem, s);
+  }
+  return real_taps ? direct_epilogue<256, kMin256, true, kMixed>(epilogue, x, hist, tw, out,
+                                                                 frames, nsym, dec, log2n, k,
+                                                                 fpc, wp, nb, scale, taps, smem,
+                                                                 s)
+                   : direct_epilogue<256, kMin256, false, kMixed>(epilogue, x, hist, tw, out,
+                                                                  frames, nsym, dec, log2n, k,
+                                                                  fpc, wp, nb, scale, taps,
+                                                                  smem, s);
+}
+
 int launch_direct_instance(int epilogue, const void* x, const void* hist, const void* tw,
                            const float* taps_ri, int k, int real_taps, void* out,
                            long long frames, int nsym, int dec, int log2n, int fpc, int wp,
-                           int nb, float scale, cudaStream_t s) {
-  const int n = 1 << log2n;
-  if (k < 1 || k > kMaxTaps || log2n < 3 || fpc < 1 || fpc * n > 8 * 512 || 256 % fpc != 0)
+                           int nb, int n_mixed, const int* rad, int npass, float scale,
+                           cudaStream_t s) {
+  const bool mixed = npass > 0;
+  const int n = mixed ? n_mixed : 1 << log2n;
+  const int lp = (n + kFirOut - 1) / kFirOut * kFirOut;
+  if (k < 1 || k > kMaxTaps || n < 8 || (!mixed && n % 8 != 0) || fpc < 1 ||
+      fpc * lp > 8 * 512 || 256 % fpc != 0 || npass > kMaxPasses)
     return static_cast<int>(cudaErrorInvalidValue);
   DirectTaps taps = {};
   for (int i = 0; i < k; ++i) taps.h[i] = make_float2(taps_ri[2 * i], taps_ri[2 * i + 1]);
+  taps.n = n;
+  taps.npass = npass;
+  for (int i = 0; i < npass; ++i) taps.rad[i] = rad[i];
   const size_t smem = static_cast<size_t>(fpc) * (wp > nb ? wp : nb) * sizeof(float2);
-  if (fpc * n > 8 * 256) {
-    return real_taps ? direct_epilogue<512, 1, true>(epilogue, x, hist, tw, out, frames, nsym,
-                                                     dec, log2n, k, fpc, wp, nb, scale, taps,
-                                                     smem, s)
-                     : direct_epilogue<512, 1, false>(epilogue, x, hist, tw, out, frames,
-                                                      nsym, dec, log2n, k, fpc, wp, nb,
-                                                      scale, taps, smem, s);
+  return mixed ? direct_width<true>(epilogue, real_taps, x, hist, tw, out, frames, nsym, dec,
+                                    log2n, k, fpc, wp, nb, scale, taps, smem, s)
+               : direct_width<false>(epilogue, real_taps, x, hist, tw, out, frames, nsym, dec,
+                                     log2n, k, fpc, wp, nb, scale, taps, smem, s);
+}
+
+
+// Points a thread holds in registers through an FFT pass: 8 on one CTA (no
+// spills at 128 registers), 16 in a cluster (a CTA holds 8,192 points of a
+// 65,536-point frame at 512 threads). ops/cuda/rx_frame.py GEN_POINTS,
+// CLUSTER_POINTS_A_THREAD mirror them.
+constexpr int kSinglePoints = 8;
+constexpr int kClusterPoints = 16;
+
+template <int kThreads, int kMinBlocks, int kPoints, bool kCluster>
+int launch_general(int epilogue, int real_taps, const void* x, const void* hist, const void* tw,
+                   const void* taps, void* out, long long frames, int nsym, float scale,
+                   const GenPlan& plan, size_t smem, cudaStream_t stream) {
+  auto kernel = rx_frame_general_kernel<kThreads, kMinBlocks, kPoints, kCluster>;
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const long long ctas = kCluster ? frames * plan.q : (frames + plan.fpc - 1) / plan.fpc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster ? plan.q : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float2*>(x), static_cast<const float2*>(hist),
+      static_cast<const float2*>(tw), static_cast<const float2*>(taps), out, frames, nsym,
+      scale, epilogue, real_taps, plan);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instances: one CTA at 256 or 512 threads, a cluster's CTAs at 512.
+int general_instance(int epilogue, int real_taps, int threads, const void* x, const void* hist,
+                     const void* tw, const void* taps, void* out, long long frames, int nsym,
+                     float scale, const GenPlan& plan, size_t smem, cudaStream_t s) {
+  if (epilogue < kQpsk || epilogue > kSpectrum) return static_cast<int>(cudaErrorInvalidValue);
+  if (plan.q > 1) {
+    if (threads != 512) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_general<512, 1, kClusterPoints, true>(epilogue, real_taps, x, hist, tw, taps,
+                                                        out, frames, nsym, scale, plan, smem, s);
   }
-  return real_taps ? direct_epilogue<256, 3, true>(epilogue, x, hist, tw, out, frames, nsym,
-                                                   dec, log2n, k, fpc, wp, nb, scale, taps,
-                                                   smem, s)
-                   : direct_epilogue<256, 3, false>(epilogue, x, hist, tw, out, frames, nsym,
-                                                    dec, log2n, k, fpc, wp, nb, scale, taps,
-                                                    smem, s);
+  if (threads == 256) {
+    return launch_general<256, 2, kSinglePoints, false>(epilogue, real_taps, x, hist, tw, taps,
+                                                        out, frames, nsym, scale, plan, smem, s);
+  }
+  return launch_general<512, 1, kSinglePoints, false>(epilogue, real_taps, x, hist, tw, taps,
+                                                      out, frames, nsym, scale, plan, smem, s);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. instance: 0 tile256, 1 tile512,
-// 2 generic. epilogue: 0 QPSK bytes, 1 BPSK bytes, 2 spectrum (the generic
-// instance takes the spectrum only). Returns the cudaError_t of the launch
-// (0 = success). The caller guarantees: for the tile instances n1 % 8 == 0,
-// n2 % 8 == 0 and (n1 / 4) * (n2 / 8) <= the instance's threads, 16-byte
-// aligned constants; for every instance 0 <= ku <= n1 * n2, contiguous
-// tensors and a shared-memory size within the card's opt-in limit.
-// Launches on `stream` of card `device`, which is made current for the
-// launch where it is not (and the caller's put back).
-extern "C" int rx_frame_launch(int instance, int epilogue, const void* x,
-                               const void* hist, const void* f1r, const void* f1i,
-                               const void* gr, const void* gi, const void* cr,
-                               const void* ci, void* out, long long frames, int nsym,
-                               int n1, int n2, int r, int ku, float scale, int device,
-                               void* stream) {
-  int prev = device;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  const int rc = launch_instance(instance, epilogue, x, hist, f1r, f1i, gr, gi, cr, ci, out,
-                                 frames, nsym, n1, n2, r, ku, scale,
-                                 static_cast<cudaStream_t>(stream));
-  if (prev != device) cudaSetDevice(prev);
-  return rc;
-}
-
 // Plain C entry point of the direct instance, loaded with ctypes. taps_ri:
 // a host array of k complex taps as (re, im) float pairs, k <= 256;
 // real_taps: every imaginary part is exactly 0 (the real-tap variant); tw:
-// the float32 table W_n^e, e < n, of n = 2^log2n points on the card. A CTA
-// takes fpc consecutive frames (a power of two, fpc * n <= 4,096; 512
-// threads where fpc * n > 2,048, else 256); wp and nb: the float2 slots of a frame's staged window
-// (wslot(K-2 + span) + 1) and FFT buffer (n + n / 8). Returns the
-// cudaError_t of the launch (0 = success). The caller guarantees contiguous
-// tensors and fpc * max(wp, nb) * 8 bytes within the opt-in shared memory.
+// the float32 table W_n^e, e < n, on the card; n = 2^log2n, or, where npass >
+// 0, n = n_mixed with the FFT passes rad[npass] (the mixed-radix variant). A
+// CTA takes fpc consecutive frames (a power of two, fpc * lp <= 4,096 with lp
+// n rounded up to a multiple of 8; 512 threads where fpc * lp > 2,048, else
+// 256); wp and nb: the float2 slots of a frame's staged window (wslot(K-2 +
+// span + dec (lp - n)) + 1: the dropped outputs' reads stay in the window's
+// slots) and FFT buffer (n + n / 8). Returns the cudaError_t of the launch (0 = success). The
+// caller guarantees contiguous tensors and fpc * max(wp, nb) * 8 bytes within
+// the opt-in shared memory.
 extern "C" int rx_frame_direct_launch(int epilogue, const void* x, const void* hist,
                                       const void* tw, const float* taps_ri, int k,
                                       int real_taps, void* out, long long frames, int nsym,
-                                      int dec, int log2n, int fpc, int wp, int nb,
-                                      float scale, int device, void* stream) {
+                                      int dec, int log2n, int fpc, int wp, int nb, int n_mixed,
+                                      const int* rad, int npass, float scale, int device,
+                                      void* stream) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -815,8 +1062,38 @@ extern "C" int rx_frame_direct_launch(int epilogue, const void* x, const void* h
     return static_cast<int>(err);
   }
   const int rc = launch_direct_instance(epilogue, x, hist, tw, taps_ri, k, real_taps, out,
-                                        frames, nsym, dec, log2n, fpc, wp, nb, scale,
-                                        static_cast<cudaStream_t>(stream));
+                                        frames, nsym, dec, log2n, fpc, wp, nb, n_mixed, rad,
+                                        npass, scale, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
+// Plain C entry point of the chunked and cluster instances, loaded with
+// ctypes. plan: a host GenPlan (ops/cuda/rx_frame.py general_layout); threads:
+// 256 or 512 a CTA (512 in a cluster); taps: the k complex taps on the card; real_taps: every
+// imaginary part exactly 0; tw: the float32 table W_n^e, e < n, on the card.
+// A cluster launch (plan->q > 1) puts q CTAs on each frame. Returns the
+// cudaError_t of the launch (0 = success). The caller guarantees contiguous
+// tensors, 8 | lp, 8 q | a, q | b, lp = n / q in a cluster, and (fbuf + 2 win)
+// float2 slots within the opt-in shared memory.
+extern "C" int rx_frame_general_launch(int epilogue, const void* x, const void* hist,
+                                       const void* tw, const void* taps, int real_taps,
+                                       void* out, long long frames, int nsym, int threads,
+                                       const GenPlan* plan, float scale, int device,
+                                       void* stream) {
+  if (plan->np1 > kMaxPasses || plan->np2 > kMaxPasses || plan->split < 1 ||
+      plan->split > 32 || plan->q < 1 || plan->q > 8 || (threads != 256 && threads != 512))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const size_t smem = (static_cast<size_t>(plan->fbuf) + 2 * static_cast<size_t>(plan->win)) *
+                      sizeof(float2);
+  const int rc = general_instance(epilogue, real_taps, threads, x, hist, tw, taps, out, frames,
+                                  nsym, scale, *plan, smem, static_cast<cudaStream_t>(stream));
   if (prev != device) cudaSetDevice(prev);
   return rc;
 }

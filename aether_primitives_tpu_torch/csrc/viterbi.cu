@@ -26,7 +26,12 @@
 //     is loaded (coalesced, __ldg) when the next one becomes current, 32
 //     steps before its first use, and a step's LLRs reach every lane by
 //     __shfl_sync. Shared memory holds the decisions alone, max(1, S/32)
-//     words a step, so the longest span is the decision history's.
+//     words a step. Where one trellis's history does not fit a block's
+//     shared memory (past 29,056 steps at 64 states), the scratch instance
+//     keeps it in a device scratch the wrapper allocates (one history a
+//     trellis, in global memory, L2-resident while it is read back); the
+//     ACS, the tie-break and the traceback are the same code, the
+//     traceback reading 32 steps' words ahead instead of 8.
 //   - Step t+1's branch metrics (they do not depend on the path metrics)
 //     are computed while step t's ACS runs, from 0/1 encoder outputs held
 //     per lane as floats, with the generator count fixed at compile time
@@ -54,7 +59,8 @@ namespace {
 
 constexpr int kMaxN = 8;        // generators per code
 constexpr int kMaxStates = 256; // 2^(K-1), K <= 9
-constexpr int kAhead = 8;       // traceback steps whose words load together
+constexpr int kAhead = 8;       // traceback steps whose words load together (shared)
+constexpr int kAheadScratch = 32;  // ... from the device scratch
 constexpr unsigned kFull = 0xffffffffu;
 
 // out_mask[2 * s' + j]: bit m is o_m of the transition into s' from
@@ -112,12 +118,14 @@ __device__ __forceinline__ void branches(const float* r, int t, int n, float (*o
 }
 
 // NT: the code's generators n when 2 or 3 (compile time), else 0 (n at run
-// time, at most kMaxN).
-template <int S, int NT>
+// time, at most kMaxN). kScratch: the decision histories live in `scratch`
+// ([n_trellis, lw, max(1, S/32)] words) instead of shared memory.
+template <int S, int NT, bool kScratch>
 __global__ void viterbi_kernel(const float* __restrict__ sym,
                                unsigned char* __restrict__ bits,
                                long long n_trellis, int lw, int n,
-                               int init_state0, int end_state0, Masks masks) {
+                               int init_state0, int end_state0, Masks masks,
+                               unsigned* __restrict__ scratch) {
   constexpr int kSpl = S >= 32 ? S / 32 : 1;  // states (and words) per lane/step
   constexpr int NM = NT != 0 ? NT : kMaxN;    // LLRs a step, at most
   extern __shared__ unsigned int smem[];
@@ -125,7 +133,12 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   const int lane = threadIdx.x & 31;
   const long long tr = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
   if (tr >= n_trellis) return;  // whole warps only: nothing below syncs the block
-  unsigned* dec = smem + static_cast<size_t>(warp) * lw * kSpl;
+  unsigned* dec;
+  if constexpr (kScratch) {
+    dec = scratch + tr * lw * kSpl;
+  } else {
+    dec = smem + static_cast<size_t>(warp) * lw * kSpl;
+  }
   const float* y = sym + tr * static_cast<long long>(lw) * n;
 
   float cur[NM], nxt[NM];  // the LLR ring: chunks c and c + 1
@@ -212,11 +225,12 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   unsigned char* out = reinterpret_cast<unsigned char*>(dec);  // bit t: step t's first byte
   if (lane == 0) {
     if constexpr (kSpl <= 2) {
+      constexpr int kA = kScratch ? kAheadScratch : kAhead;
       int t = lw - 1;
-      for (; t >= kAhead - 1; t -= kAhead) {
-        uint2 w[kAhead];
+      for (; t >= kA - 1; t -= kA) {
+        uint2 w[kA];
 #pragma unroll
-        for (int i = 0; i < kAhead; ++i) {
+        for (int i = 0; i < kA; ++i) {
           const unsigned* p = dec + (t - i) * kSpl;
           if constexpr (kSpl == 2) {
             w[i] = *reinterpret_cast<const uint2*>(p);
@@ -225,7 +239,7 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
           }
         }
 #pragma unroll
-        for (int i = 0; i < kAhead; ++i) {
+        for (int i = 0; i < kA; ++i) {
           out[(t - i) * kSpl * 4] = static_cast<unsigned char>(state & 1);
           const unsigned word = (kSpl == 2 && (state >> 5)) ? w[i].y : w[i].x;
           state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
@@ -250,33 +264,46 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   for (int t = lane; t < lw; t += 32) dst[t] = out[t * kSpl * 4];
 }
 
-template <int S, int NT>
-int launch(const void* sym, void* bits, long long n_trellis, int lw, int n,
-           int init_state0, int end_state0, int warps, const Masks& masks,
-           cudaStream_t stream) {
+template <int S, int NT, bool kScratch>
+int launch_kernel(const void* sym, void* bits, long long n_trellis, int lw, int n,
+                  int init_state0, int end_state0, int warps, const Masks& masks,
+                  void* scratch, cudaStream_t stream) {
   constexpr int kSpl = S >= 32 ? S / 32 : 1;
-  const size_t smem = static_cast<size_t>(warps) * lw * kSpl * sizeof(unsigned int);
+  const size_t smem =
+      kScratch ? 0 : static_cast<size_t>(warps) * lw * kSpl * sizeof(unsigned int);
   cudaError_t err = cudaFuncSetAttribute(
-      viterbi_kernel<S, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      viterbi_kernel<S, NT, kScratch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n_trellis + warps - 1) / warps;
-  viterbi_kernel<S, NT><<<static_cast<unsigned>(blocks), 32 * warps, smem, stream>>>(
+  viterbi_kernel<S, NT, kScratch><<<static_cast<unsigned>(blocks), 32 * warps, smem, stream>>>(
       static_cast<const float*>(sym), static_cast<unsigned char*>(bits), n_trellis,
-      lw, n, init_state0, end_state0, masks);
+      lw, n, init_state0, end_state0, masks, static_cast<unsigned*>(scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, int NT>
+int launch(const void* sym, void* bits, long long n_trellis, int lw, int n,
+           int init_state0, int end_state0, int warps, const Masks& masks,
+           void* scratch, cudaStream_t stream) {
+  return scratch != nullptr
+             ? launch_kernel<S, NT, true>(sym, bits, n_trellis, lw, n, init_state0,
+                                          end_state0, warps, masks, scratch, stream)
+             : launch_kernel<S, NT, false>(sym, bits, n_trellis, lw, n, init_state0,
+                                           end_state0, warps, masks, nullptr, stream);
 }
 
 template <int S>
 int launch_n(const void* sym, void* bits, long long n_trellis, int lw, int n,
-             int init_state0, int end_state0, int warps, const Masks& masks, cudaStream_t s) {
+             int init_state0, int end_state0, int warps, const Masks& masks, void* scratch,
+             cudaStream_t s) {
   switch (n) {
     case 2: return launch<S, 2>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
-                                masks, s);
+                                masks, scratch, s);
     case 3: return launch<S, 3>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
-                                masks, s);
+                                masks, scratch, s);
     default: return launch<S, 0>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps,
-                                 masks, s);
+                                 masks, scratch, s);
   }
 }
 
@@ -286,12 +313,14 @@ int launch_n(const void* sym, void* bits, long long n_trellis, int lw, int n,
 // launch (0 = success). The caller guarantees: sym float32 [n_trellis, lw, n]
 // and bits uint8 [n_trellis, lw], contiguous; s_count a power of two in
 // [4, 256]; 1 <= n <= 8; out_mask a host array of 2 * s_count bytes;
-// warps trellises a block (one a warp); warps * lw * max(1, s_count / 32) * 4
-// bytes of shared memory within the card's per-block limit.
+// warps trellises a block (one a warp); scratch null and warps * lw *
+// max(1, s_count / 32) * 4 bytes of shared memory within the card's per-block
+// limit, or scratch a device buffer of n_trellis * lw * max(1, s_count / 32)
+// uint32 words on the stream's card (the histories then take no shared memory).
 extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
                               int lw, int n, int s_count, int init_state0,
                               int end_state0, int warps,
-                              const unsigned char* out_mask, void* stream) {
+                              const unsigned char* out_mask, void* scratch, void* stream) {
   if (n < 1 || n > kMaxN || s_count > kMaxStates || warps < 1 || warps > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   Masks masks = {};
@@ -299,19 +328,26 @@ extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (s_count) {
     case 4:
-      return launch_n<4>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<4>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                           warps, masks, scratch, s);
     case 8:
-      return launch_n<8>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<8>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                           warps, masks, scratch, s);
     case 16:
-      return launch_n<16>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<16>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                            warps, masks, scratch, s);
     case 32:
-      return launch_n<32>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<32>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                            warps, masks, scratch, s);
     case 64:
-      return launch_n<64>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<64>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                            warps, masks, scratch, s);
     case 128:
-      return launch_n<128>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<128>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                             warps, masks, scratch, s);
     case 256:
-      return launch_n<256>(sym, bits, n_trellis, lw, n, init_state0, end_state0, warps, masks, s);
+      return launch_n<256>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                             warps, masks, scratch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

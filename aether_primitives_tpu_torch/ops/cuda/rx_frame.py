@@ -10,21 +10,23 @@ bytes, or the ``Scale.SN`` spectrum that the EVM gate reads.
   :mod:`.build`) or raises; for a CPU tensor it runs :func:`rx_frame_reference`.
 - :func:`rx_frame_reference` is the plain PyTorch version: the staged
   two-einsum :func:`~aether_primitives_tpu_torch.ops.fir.fir_decimate_fft`
-  in complex64 plus the same epilogue.
+  in complex64 where a stage split exists, else its span-point FFT route
+  (the JAX package's), plus the same epilogue.
 - :data:`launches` counts the kernel's launches (one per call).
 - :func:`kernel_plan` / :func:`kernel_supports` name the kernel's instance
-  for a geometry: ``direct`` (power-of-two fft_len 64-4096, at most
-  :data:`DIRECT_MAX_TAPS` taps, staged frames within the opt-in shared
-  memory: the main path's dec 4, fft_len 2048; the FIR at the kept outputs
-  and an FFT written by hand, no stage split), ``tile256`` (n1 and n2
-  multiples of 8, a frame of at most 8,192 samples: dec 4, fft_len 192),
-  ``tile512`` (the same split rules, 8,193-16,384 samples: dec 4,
-  fft_len 3072), ``generic`` (any other split: fft_len 30, spans under 64;
-  spectrum epilogue, its bits decided and packed in PyTorch on the card).
-  For the staged instances, where the heuristic's split does not tile, the
-  card takes its own factorisation (dec 1, fft_len 16384 -> n1 128), which
-  agrees with the JAX package at the usual bars, not bit for bit. A frame
-  beyond the opt-in shared memory (:data:`SMEM_LIMIT`) raises.
+  for a geometry. Every instance computes the function itself, the
+  decimating FIR at the kept outputs and an FFT written by hand, with no
+  stage split: ``direct`` (fft_len 12-4096, powers of two from 64, at most
+  :data:`DIRECT_MAX_TAPS` taps, whole frames staged within the opt-in
+  shared memory: the main path's dec 4, fft_len 2048; a mixed-radix FFT
+  where fft_len is no power of two); ``chunked`` (every
+  other frame of at most 4,096 points whose input span suits one CTA: the
+  FIR's input staged in chunks, taps read through L1, a mixed-radix FFT);
+  ``cluster`` (larger frames or spans: a thread-block cluster of 2-8 CTAs
+  shares a frame through distributed shared memory and a four-step FFT).
+  :func:`general_layout` gives the last two their launch geometry. A
+  geometry none takes (beyond what :func:`general_layout` finds room for:
+  a prime fft_len past 4,096, more than 65,536 points) raises.
 
 Output per frame, natural bin ``k``: ``"qpsk"`` writes ``fft_len / 4``
 bytes (byte ``k/4`` holds symbols ``k..k+3``, two bits each, LSB-first); ``"bpsk"`` writes ``fft_len / 8`` bytes, one
@@ -51,55 +53,53 @@ from . import build
 launches = 0
 
 EPILOGUES = {"qpsk": 0, "bpsk": 1, "spectrum": 2}
-#: The kernel's staged instances (``csrc/rx_frame.cu``: 256, 512 and 256
-#: threads a CTA) by name: the most samples a frame may span, and the number
-#: the C entry takes. The direct instance has its own C entry.
-INSTANCES = {"tile256": (8192, 0), "tile512": (16384, 1), "generic": (None, 2)}
 #: The direct instance: the most taps (a kernel parameter), the fft_len
-#: range (powers of two), and the FIR outputs a CTA works on at once.
+#: range (powers of two; any other fft_len from the range's second value
+#: through the mixed-radix FFT), and the FIR outputs a CTA works on at once.
 DIRECT_MAX_TAPS = 256
-DIRECT_FFT_LEN = (64, 4096)
+DIRECT_FFT_LEN = (64, 12, 4096)
 DIRECT_OUTPUTS = 2048
 #: Opt-in shared memory of one CTA on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
-_G_CAP = 64 << 20  # the largest G' tensor a stage split may imply (ops/fir.py)
-
-
-def _tiled(n1: int, n2: int) -> bool:
-    """The tile instances' split: 4 x 8 stage-1 tiles, whole float4 rows."""
-    return n1 % 8 == 0 and n2 % 8 == 0 and n1 * n2 <= INSTANCES["tile512"][0]
-
-
-def _card_n1(dec: int, fft_len: int) -> Optional[int]:
-    """The card's own stage split where the heuristic's does not tile: the
-    largest ``n1 | fft_len``, ``n1 <= 128``, with ``n1 % 8 == 0`` and
-    ``n2 % 8 == 0`` whose frame fits the tile instances and whose G' stays
-    within 64 MB; None when there is none."""
-    span = dec * fft_len
-    for n1 in range(min(fft_len, 128), 7, -1):
-        if fft_len % n1 == 0 and _tiled(n1, span // n1) and span * (fft_len // n1) * 8 <= _G_CAP:
-            return n1
-    return None
-
-
-def _smem_bytes(instance: str, span: int, ku: int) -> int:
-    planes = 4 if instance == "generic" else 2
-    return (planes * span + 2 * ku) * 4
+#: The chunked and cluster instances: CTA widths (threads; a cluster's CTAs
+#: take 512), the points a thread holds in registers through an FFT pass on
+#: one CTA and in a cluster, the outputs and input samples a CTA aims at,
+#: the cluster sizes, and the passes a frame's FFT may have
+#: (``csrc/rx_frame.cu`` ``kSinglePoints``, ``kClusterPoints``, ``GenPlan``).
+GEN_THREADS = (256, 512)
+GEN_POINTS = 8
+CLUSTER_THREADS = 512
+CLUSTER_POINTS_A_THREAD = 16
+GEN_OUTPUTS = 2048
+GEN_SPAN = 32768
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_POINTS = 8192
+MAX_PASSES = 20
+SMALL_RADICES = (2, 3, 4, 5, 8)
 
 
 def direct_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[tuple]:
     """``(fpc, wp, nb)`` of the direct instance, or None where it does not
-    take the geometry: frames a CTA (``DIRECT_OUTPUTS / fft_len``, halved
-    until they fit :data:`SMEM_LIMIT`), float2 slots of a frame's staged
-    window (``K-1 + span`` samples, one pad slot every 32) and of its FFT
-    buffer (``fft_len`` points, one pad slot every 8)."""
-    lo, hi = DIRECT_FFT_LEN
-    if not lo <= fft_len <= hi or fft_len & (fft_len - 1) or not 1 <= n_taps <= DIRECT_MAX_TAPS:
+    take the geometry: frames a CTA (the largest power of two up to
+    ``DIRECT_OUTPUTS / fft_len``, halved until they fit :data:`SMEM_LIMIT`),
+    float2 slots of a frame's staged window (``K-1 + span`` samples, one pad
+    slot every 32) and of its FFT buffer (``fft_len`` points, one pad slot
+    every 8). fft_len in :data:`DIRECT_FFT_LEN`: a power of two takes the
+    radix-8/4/2 FFT, any other the mixed-radix one, its frames' outputs
+    rounded up to whole groups of 8 (the window keeps the slots the
+    dropped outputs read)."""
+    lo_pow2, lo, hi = DIRECT_FFT_LEN
+    pow2 = fft_len & (fft_len - 1) == 0
+    if (not (lo_pow2 if pow2 else lo) <= fft_len <= hi or not 1 <= n_taps <= DIRECT_MAX_TAPS
+            or len(radices(fft_len)) > MAX_PASSES):
         return None
-    wlen = n_taps - 1 + dec * fft_len
+    lp = -(-fft_len // 8) * 8
+    wlen = n_taps - 1 + dec * fft_len + dec * (lp - fft_len)
     wp = wlen + ((wlen - 1) >> 5)
     nb = fft_len + fft_len // 8
-    fpc = max(1, DIRECT_OUTPUTS // fft_len)
+    fpc = 1 << (max(1, DIRECT_OUTPUTS // fft_len).bit_length() - 1)
+    if fpc > 1 and fpc * lp > DIRECT_OUTPUTS:  # padded outputs past 256 threads' 2,048
+        fpc //= 2
     while fpc > 1 and fpc * max(wp, nb) * 8 > SMEM_LIMIT:
         fpc //= 2
     if fpc * max(wp, nb) * 8 > SMEM_LIMIT:
@@ -107,57 +107,190 @@ def direct_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[tuple]:
     return fpc, wp, nb
 
 
+def radices(n: int) -> list:
+    """The FFT passes of an ``n``-point frame in the kernel's order: radix 8
+    while it divides, then one radix 4 or 2, then 3s, 5s and every other
+    prime factor ascending (each a pass of its own)."""
+    out, m = [], n
+    while m % 8 == 0:
+        out.append(8)
+        m //= 8
+    for r in (4, 2):
+        if m % r == 0:
+            out.append(r)
+            m //= r
+    p = 3
+    while m > 1:
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return out
+
+
+def _capacity(threads: int, rads, per: int) -> int:
+    """The most points a CTA of ``threads`` holds through the passes
+    ``rads`` at ``per`` points a thread: a radix-R pass keeps ``ceil(per /
+    R)`` butterflies a thread in registers, any other prime ``per`` output
+    points."""
+    return threads * min([r * -(-per // r) if r in SMALL_RADICES else per for r in rads]
+                         or [per])
+
+
+def _fslot(k: int) -> int:
+    return k + (k >> 3)
+
+
+def _wslot(e: int) -> int:
+    return e + (e >> 5)
+
+
+def _fir_items(dec: int, k: int) -> int:
+    """The FIR's non-empty (phase, block of 8 taps) items for one output
+    group: ``sum_p ceil(ceil((K - p) / dec) / 8)``."""
+    return sum(-(-(-(-(k - p) // dec)) // 8) for p in range(min(dec, k)))
+
+
+def _fir_fit(dec: int, k: int, threads: int, lp: int, pieces_cap: int, fbuf: int):
+    """``(split, chunk, kt, win)`` of the FIR's staging for a CTA whose FFT
+    buffer takes ``fbuf`` slots, or None: threads a group (a power of two
+    up to 32, from the FIR's items), outputs a chunk, taps a staged range
+    (all of them where they fit) and the float2 slots of one of the two
+    window buffers."""
+    s0 = 1
+    while s0 < 32 and 2 * s0 <= _fir_items(dec, k) // 2:
+        s0 *= 2
+    split = s0
+    while split <= 32:
+        chunk = 8 * threads // split
+        pieces = max(1, min(pieces_cap, chunk // lp + 2))
+        room = (SMEM_LIMIT // 8 - fbuf) // 2  # window slots that fit
+        # total samples t of a window take _wslot(t - 1) + 1 <= t + t / 32 + 1 slots
+        samples = (room - 1) * 32 // 33
+        kt = min(k, (samples - dec * chunk) // pieces)
+        if kt == k or (split == 32 and kt >= 1):
+            total = pieces * kt + dec * chunk
+            return split, chunk, kt, _wslot(total - 1) + 1
+        split *= 2
+    return None
+
+
+def _single_layout(dec: int, n: int, k: int) -> Optional[dict]:
+    rads = radices(n)
+    # the narrowest CTA that holds a frame, as many frames as it holds
+    threads = next((t for t in GEN_THREADS if n <= _capacity(t, rads, GEN_POINTS)), None)
+    if len(rads) > MAX_PASSES or threads is None:
+        return None
+    span = dec * n
+    fpc0 = max(1, min(GEN_OUTPUTS // n, GEN_SPAN // span,
+                      _capacity(threads, rads, GEN_POINTS) // n))
+    lp = -(-n // 8) * 8
+    nb = _fslot(n - 1) + 1
+    fpc = fpc0
+    while fpc >= 1:
+        fit = _fir_fit(dec, k, threads, lp, fpc, fpc * nb)
+        if fit is not None:
+            split, chunk, kt, win = fit
+            return dict(instance="chunked", threads=threads, n=n, dec=dec, k=k, kt=kt,
+                        fpc=fpc, q=1, lp=lp, split=split, chunk=chunk, win=win,
+                        fbuf=fpc * nb, nb1=nb, nb2=0, a=n, b=1, rad1=rads, rad2=[])
+        fpc //= 2
+    return None
+
+
+def _cluster_layout(dec: int, n: int, k: int) -> Optional[dict]:
+    span = dec * n
+    found = []
+    for q in CLUSTER_SIZES:
+        if n % (8 * q * q):
+            continue
+        # n = a * b, q | b, a / q a multiple of 8, a and b near sqrt(n)
+        best = None
+        for a in range(8 * q, n + 1, 8 * q):
+            if n % a or (n // a) % q:
+                continue
+            b = n // a
+            score = abs(np.log(a / b))
+            if best is None or score < best[0]:
+                best = (score, a, b)
+        if best is None:
+            continue
+        _, a, b = best
+        ra, rb = radices(a), radices(b)
+        if max(len(ra), len(rb)) > MAX_PASSES:
+            continue
+        pts = n // q
+        threads = CLUSTER_THREADS
+        if pts > min(_capacity(threads, r, CLUSTER_POINTS_A_THREAD) for r in (ra, rb)):
+            continue
+        nb1 = (_fslot(a - 1) + 1) | 1  # odd strides: strided reads miss no bank twice
+        nb2 = (_fslot(b - 1) + 1) | 1
+        fbuf = max((b // q) * nb1, (a // q) * nb2)
+        fit = _fir_fit(dec, k, threads, pts, 1, fbuf)
+        if fit is None:
+            continue
+        split, chunk, kt, win = fit
+        found.append(dict(instance="cluster", threads=threads, n=n, dec=dec, k=k, kt=kt,
+                          fpc=1, q=q, lp=pts, split=split, chunk=chunk, win=win, fbuf=fbuf,
+                          nb1=nb1, nb2=nb2, a=a, b=b, rad1=ra, rad2=rb))
+    for lay in found:
+        if lay["lp"] <= CLUSTER_POINTS and span // lay["q"] <= GEN_SPAN:
+            return lay
+    return found[-1] if found else None
+
+
+@functools.lru_cache(maxsize=None)
+def general_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[dict]:
+    """The launch geometry of the chunked or cluster instance, or None
+    where neither takes the geometry. Keys: ``instance``, ``threads``,
+    ``n`` (fft_len), ``dec``, ``k`` (taps), ``kt`` (taps a staged range),
+    ``fpc`` (frames a CTA), ``q`` (CTAs a frame: 1, or a cluster's size),
+    ``lp`` (FIR outputs a CTA computes of a frame, a multiple of 8),
+    ``split`` (threads that share a group's 8 outputs), ``chunk`` (outputs
+    staged at once), ``win`` (float2 slots of a window buffer), ``fbuf``
+    (of the FFT buffer), ``nb1``/``nb2`` (frame strides of the FFT's
+    stages), ``a``/``b`` (the cluster's four-step split ``n = a b``; ``n``,
+    1 on one CTA) and ``rad1``/``rad2`` (the stages' radices).
+
+    One CTA (256 threads where they hold the frame, else 512) takes frames
+    of up to 4,096 points (8 a thread through the FFT's passes) whose span
+    is at most :data:`GEN_SPAN` samples, ``GEN_OUTPUTS / fft_len`` of them
+    together. Past either, a cluster of 512-thread CTAs (16 points a
+    thread): the smallest of :data:`CLUSTER_SIZES` whose CTAs hold at most
+    :data:`CLUSTER_POINTS` points and :data:`GEN_SPAN` samples of the frame
+    each (else the largest whose CTAs hold their share), where ``fft_len``
+    splits as ``a b`` with ``8 q | a`` and ``q | b``: up to 65,536 points. A
+    frame that fits one CTA and has no such split stays on one CTA.
+    """
+    if fft_len < 1 or dec < 1 or not 1 <= n_taps <= dec * fft_len + 1:
+        return None
+    single = _single_layout(dec, fft_len, n_taps)
+    if single is not None and dec * fft_len <= GEN_SPAN:
+        return single
+    return _cluster_layout(dec, fft_len, n_taps) or single
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                 n_taps: int = 1) -> Optional[tuple]:
-    """``(instance, n1)``: the kernel's instance and stage split for a
-    geometry, or None where no instance takes it.
-
-    ``"direct"`` wherever :func:`direct_layout` takes the geometry, whatever
-    ``stage_n1``: it has no split, and ``n1`` is the split the plain twin
-    takes (``stage_n1``, else the heuristic's, else the card's own), which
-    computes the same function. Otherwise :func:`staged_plan`.
-    """
-    if direct_layout(dec, fft_len, n_taps) is not None:
-        return "direct", (_fir._fused_stage_n1(dec, fft_len, stage_n1)
-                          or _card_n1(dec, fft_len))
-    return staged_plan(dec, fft_len, stage_n1, n_taps)
-
-
-def staged_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
-                n_taps: int = 1) -> Optional[tuple]:
-    """``(instance, n1)`` among the staged instances (:data:`INSTANCES`),
-    or None. ``stage_n1`` given: that split (it must divide ``fft_len``).
-    Otherwise the heuristic's (:func:`~aether_primitives_tpu_torch.ops.fir.
-    _fused_stage_n1`, the JAX package's) where the tile instances take it,
-    else the card's own factorisation (:func:`_card_n1`: e.g. dec 4,
-    fft_len 64 -> n1 32, n2 8; dec 1, fft_len 16384 -> n1 128), else the
-    heuristic's split through the generic instance. A split other than the
-    heuristic's agrees with the JAX package at the usual bars, not bit for
-    bit. None where a frame of ``n_taps``-tap history needs more shared
-    memory than :data:`SMEM_LIMIT`, or where no split exists.
-    """
-    span = dec * fft_len
+    """``(instance, n1)``: the kernel's instance for a geometry (``"direct"``
+    wherever :func:`direct_layout` takes it, else ``"chunked"`` or
+    ``"cluster"`` of :func:`general_layout`), or None where none takes it.
+    The kernel has no stage split: ``n1`` is the split the plain twin
+    computes, ``stage_n1`` or the heuristic's (``_fused_stage_n1``, the JAX
+    package's), None where there is none (the twin's FFT route)."""
     n1 = _fir._fused_stage_n1(dec, fft_len, stage_n1)
-    if stage_n1 is None and (n1 is None or not _tiled(n1, span // n1)):
-        n1 = _card_n1(dec, fft_len) or n1
-    if n1 is None:
-        return None
-    n2 = span // n1
-    if _tiled(n1, n2):
-        instance = "tile256" if span <= INSTANCES["tile256"][0] else "tile512"
-    else:
-        instance = "generic"
-    if _smem_bytes(instance, span, max(n_taps - 1, 0)) > SMEM_LIMIT:
-        return None
-    return instance, n1
+    if direct_layout(dec, fft_len, n_taps) is not None:
+        return "direct", n1
+    layout = general_layout(dec, fft_len, n_taps)
+    return None if layout is None else (layout["instance"], n1)
 
 
 def kernel_supports(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                     n_taps: int = 1) -> Optional[str]:
     """The instance of the CUDA kernel that takes this geometry
-    (``"direct"``, ``"tile256"``, ``"tile512"`` or ``"generic"``, see
-    :func:`kernel_plan`), or None where none does. Every output mode shares the condition."""
+    (``"direct"``, ``"chunked"`` or ``"cluster"``, see :func:`kernel_plan`),
+    or None where none does. Every output mode shares the condition."""
     plan = kernel_plan(dec, fft_len, stage_n1, n_taps)
     return None if plan is None else plan[0]
 
@@ -209,58 +342,23 @@ def rx_frame_reference(x, taps, dec: int, fft_len: int, history=None,
                        epilogue: str = "qpsk",
                        stage_n1: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`rx_frame` (same signature, same
-    output), on any device."""
+    output), on any device: the staged two-einsum frame op where a stage
+    split exists (``stage_n1``, else the heuristic's), else the span-point
+    FFT route of the JAX package's ``fir_decimate_fft`` (the FFT times the
+    taps' spectrum, the spectral fold, the wrap correction)."""
     taps = _check_args(x, taps, dec, fft_len, epilogue)
     batch = tuple(x.shape[:-1])
-    z = _fir.fir_decimate_fft(
-        x, taps, dec, fft_len, Scale.NONE, history=history,
-        stage_n1=stage_n1, _staged_layout=True,
-    )  # [n1, ..., nsym, r], k1 leading
-    spec = z.movedim(0, -1).reshape(batch + (-1, fft_len))  # natural bin order
+    if _fir._fused_stage_n1(dec, fft_len, stage_n1) is None:
+        spec = _fir.fir_decimate_fft(x, taps, dec, fft_len, Scale.NONE, history=history)
+    else:
+        z = _fir.fir_decimate_fft(
+            x, taps, dec, fft_len, Scale.NONE, history=history,
+            stage_n1=stage_n1, _staged_layout=True,
+        )  # [n1, ..., nsym, r], k1 leading
+        spec = z.movedim(0, -1).reshape(batch + (-1, fft_len))  # natural bin order
     if epilogue == "spectrum":
         return Scale.SN.apply(spec)
     return pack_bits(sign_bits(spec, epilogue))
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_constants(taps_bytes: bytes, k: int, dec: int, fft_len: int,
-                      n1: int, device: str):
-    """float32 planes of F1 [n1, n1], G' [r, n2, n1] and Cm [r, K-1, n1]
-    (k1 minor, so the kernel reads them as coalesced float4 rows), built
-    from the f64 host constants and uploaded once per device.
-
-    This is a second layout of the constants that
-    :func:`~aether_primitives_tpu_torch.ops.fir._device_constants` uploads
-    for the plain einsums (complex64, ``[k1, m2, d]``, the JAX package's
-    layout, pinned against it by the tests). Both stay: the einsum form is
-    what the plain version contracts, and the kernel needs split planes
-    with k1 minor. On the chain's main path only this set is on the card;
-    the einsum set is uploaded there only when the plain version runs.
-    """
-    f1, gp = _fir._fused_stage_matrices(taps_bytes, k, dec, fft_len, n1)
-    _, cm = _fir._fused_rx_matrices(taps_bytes, k, dec, fft_len)
-    r = fft_len // n1
-    g = gp.transpose(2, 1, 0)  # [k1, m2, d] -> [d, m2, k1]
-    c = cm.reshape(max(k - 1, 0), r, n1).transpose(1, 0, 2)  # [d, u, k1]
-    planes = []
-    for a in (f1, g, c):
-        for part in (a.real, a.imag):
-            planes.append(
-                torch.from_numpy(np.ascontiguousarray(part, np.float32)).to(device)
-            )
-    return tuple(planes)
-
-
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.load("rx_frame").rx_frame_launch
-    fn.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-        + [ctypes.c_longlong] + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,8 +366,54 @@ def _direct_entry():
     fn = build.load("rx_frame").rx_frame_direct_launch
     fn.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                     ctypes.c_void_p]
+        + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def direct_radices(fft_len: int):
+    """The direct instance's ``(n_mixed, rad, npass)`` C arguments: ``(0,
+    None, 0)`` for a power of two (its own radix-8/4/2 passes), else the
+    mixed-radix passes of :func:`radices` as an int32 array."""
+    if fft_len & (fft_len - 1) == 0:
+        return 0, None, 0
+    rads = np.asarray(radices(fft_len), dtype=np.int32)
+    return fft_len, rads, len(rads)
+
+
+class GenPlan(ctypes.Structure):
+    """ctypes mirror of ``csrc/rx_frame.cu`` ``GenPlan`` (same field order)."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in (
+        "n", "dec", "k", "kt", "fpc", "q", "lp", "split", "chunk", "win", "fbuf", "nb1",
+        "nb2", "a", "b", "np1", "np2")]
+        + [("rad1", ctypes.c_int * MAX_PASSES), ("rad2", ctypes.c_int * MAX_PASSES)])
+
+
+@functools.lru_cache(maxsize=None)
+def gen_plan(dec: int, fft_len: int, n_taps: int) -> GenPlan:
+    """The :class:`GenPlan` of :func:`general_layout` (which must take the
+    geometry), built once per geometry."""
+    lay = general_layout(dec, fft_len, n_taps)
+    fields = {key: lay[key] for key, _ in GenPlan._fields_[:15]}
+    plan = GenPlan(**fields, np1=len(lay["rad1"]), np2=len(lay["rad2"]))
+    plan.rad1[:len(lay["rad1"])] = lay["rad1"]
+    plan.rad2[:len(lay["rad2"])] = lay["rad2"]
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _general_entry():
+    fn = build.load("rx_frame").rx_frame_general_launch
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                                  ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.POINTER(GenPlan),
+                                                  ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -277,9 +421,9 @@ def _direct_entry():
 
 @functools.lru_cache(maxsize=None)
 def twiddles(fft_len: int, device: str) -> torch.Tensor:
-    """The direct instance's FFT twiddles ``W[e] = exp(-2 pi i e / fft_len)``,
-    ``e < fft_len``: computed in float64, stored as complex64, uploaded once
-    per ``(fft_len, device)``."""
+    """The FFT twiddles ``W[e] = exp(-2 pi i e / fft_len)``, ``e <
+    fft_len``: computed in float64, stored as complex64, uploaded once per
+    ``(fft_len, device)``."""
     e = np.arange(fft_len, dtype=np.float64)
     return torch.from_numpy(np.exp(-2j * np.pi * e / fft_len).astype(np.complex64)).to(device)
 
@@ -290,6 +434,13 @@ def _direct_taps(taps_bytes: bytes):
     every imaginary part is exactly 0 (the real-tap variant)."""
     taps = np.frombuffer(taps_bytes, dtype=np.complex64)
     return np.ascontiguousarray(taps.view(np.float32)), bool(np.all(taps.imag == 0))
+
+
+@functools.lru_cache(maxsize=None)
+def device_taps(taps_bytes: bytes, device: str) -> torch.Tensor:
+    """The taps as complex64 on ``device``, uploaded once (the chunked and
+    cluster instances read them through L1)."""
+    return torch.from_numpy(np.frombuffer(taps_bytes, dtype=np.complex64).copy()).to(device)
 
 
 def sign_bits(spec: torch.Tensor, epilogue: str) -> torch.Tensor:
@@ -310,13 +461,12 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
 
     ``history``: optional ``[..., K-1]`` samples preceding each block row
     (zeros = causal start). On a CUDA tensor this launches the kernel of
-    ``csrc/rx_frame.cu`` on the current stream, once, in the instance and
-    stage split of :func:`kernel_plan` (the generic instance writes the
-    spectrum unscaled and the bit epilogues' decisions and packing follow
-    in PyTorch on the card); it raises on a geometry no instance takes (a
-    frame beyond the opt-in shared memory), a dtype other than complex64,
-    a non-contiguous block, a missing ``nvcc``, a failed build or a failed
-    launch. On a CPU tensor it is :func:`rx_frame_reference`.
+    ``csrc/rx_frame.cu`` on the current stream, once, in the instance of
+    :func:`kernel_plan` (``stage_n1`` changes no route: the kernel has no
+    stage split); it raises on a geometry no instance takes, a dtype other
+    than complex64, a non-contiguous block, a missing ``nvcc``, a failed
+    build or a failed launch. On a CPU tensor it is
+    :func:`rx_frame_reference`.
     """
     if not isinstance(x, torch.Tensor):
         raise TypeError("rx_frame takes a torch.Tensor block")
@@ -335,14 +485,17 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
     if plan is None:
         raise ValueError(
             f"the CUDA rx_frame kernel does not take dec {dec}, fft_len {fft_len}, "
-            f"stage_n1 {stage_n1}, {k} taps: no instance fits a frame of {span} samples "
-            f"in the {SMEM_LIMIT} bytes of opt-in shared memory a CTA has (see kernel_plan)"
+            f"{k} taps: no instance has room for it (see general_layout: one CTA takes "
+            f"up to 4,096 points in the {SMEM_LIMIT} bytes of opt-in shared memory, "
+            f"a cluster of up to {CLUSTER_SIZES[-1]} CTAs a frame that splits as a b "
+            f"with {8 * CLUSTER_SIZES[-1]} | a)"
         )
     batch = tuple(x.shape[:-1])
     nsym = x.shape[-1] // span
     rows = int(np.prod(batch, dtype=np.int64))
     frames = rows * nsym
-    if frames >= 1 << 31:
+    q = 1 if plan[0] == "direct" else gen_plan(dec, fft_len, k).q
+    if frames * q >= 1 << 31:
         raise ValueError(f"{frames} frames exceed one launch's grid")
     hist = None
     if ku > 0 and history is not None:
@@ -350,57 +503,6 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
         if hist.shape[-1] != ku:
             raise ValueError(f"history must have K-1 = {ku} samples")
         hist = hist.expand(batch + (ku,)).contiguous()
-    if plan[0] == "direct":
-        return _launch_direct(x, hist, taps, dec, fft_len, epilogue, batch, nsym, frames)
-    return launch_staged(x, hist, taps, dec, fft_len, epilogue, plan)
-
-
-def launch_staged(x, hist, taps, dec: int, fft_len: int, epilogue: str, plan) -> torch.Tensor:
-    """One launch of a staged instance, ``plan = (instance, n1)`` of
-    :func:`staged_plan`, on a checked contiguous block and history
-    (:func:`rx_frame` for the geometries the direct instance does not take;
-    ``chip_smoke.py`` times the tile256 instance, the parent's main-path
-    kernel, beside the direct one). Counts as a launch."""
-    global launches
-    instance, n1 = plan
-    k = taps.shape[-1]
-    span = dec * fft_len
-    batch = tuple(x.shape[:-1])
-    nsym = x.shape[-1] // span
-    frames = int(np.prod(batch, dtype=np.int64)) * nsym
-    n2, r = span // n1, fft_len // n1
-    generic_bits = instance == "generic" and epilogue != "spectrum"
-    if epilogue == "spectrum" or generic_bits:
-        out = torch.empty(batch + (nsym, fft_len), dtype=torch.complex64,
-                          device=x.device)
-    else:
-        bits = 2 if epilogue == "qpsk" else 1
-        out = torch.empty(batch + (nsym * fft_len * bits // 8,),
-                          dtype=torch.uint8, device=x.device)
-    if frames == 0:
-        return pack_bits(sign_bits(out, epilogue)) if generic_bits else out
-    consts = _kernel_constants(taps.tobytes(), k, dec, fft_len, n1, str(x.device))
-    # the bit decisions of the generic instance read the unscaled spectrum,
-    # as the tile instances' epilogues do
-    scale = 1.0 if generic_bits else Scale.SN.factor_for(fft_len)
-    index = x.get_device()
-    rc = _entry()(
-        INSTANCES[instance][1], EPILOGUES["spectrum" if generic_bits else epilogue],
-        x.data_ptr(), None if hist is None else hist.data_ptr(),
-        *(c.data_ptr() for c in consts), out.data_ptr(),
-        frames, nsym, n1, n2, r, k - 1, scale, index,
-        torch._C._cuda_getCurrentRawStream(index),
-    )
-    if rc != 0:
-        raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return pack_bits(sign_bits(out, epilogue)) if generic_bits else out
-
-
-def _launch_direct(x, hist, taps, dec, fft_len, epilogue, batch, nsym, frames):
-    """One launch of the direct instance (see :func:`rx_frame`)."""
-    global launches
-    fpc, wp, nb = direct_layout(dec, fft_len, taps.shape[-1])
     if epilogue == "spectrum":
         out = torch.empty(batch + (nsym, fft_len), dtype=torch.complex64, device=x.device)
     else:
@@ -409,16 +511,49 @@ def _launch_direct(x, hist, taps, dec, fft_len, epilogue, batch, nsym, frames):
                           device=x.device)
     if frames == 0:
         return out
+    if plan[0] == "direct":
+        _launch_direct(x, hist, taps, dec, fft_len, epilogue, out, frames)
+    else:
+        _launch_general(x, hist, taps, dec, fft_len, epilogue, out, frames)
+    return out
+
+
+def _launch_direct(x, hist, taps, dec, fft_len, epilogue, out, frames):
+    """One launch of the direct instance into ``out`` (see :func:`rx_frame`)."""
+    global launches
+    fpc, wp, nb = direct_layout(dec, fft_len, taps.shape[-1])
     taps_ri, real = _direct_taps(taps.tobytes())
+    n_mixed, rads, npass = direct_radices(fft_len)
     index = x.get_device()
     rc = _direct_entry()(
         EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
         twiddles(fft_len, str(x.device)).data_ptr(), taps_ri.ctypes.data,
-        taps.shape[-1], int(real), out.data_ptr(), frames, nsym, dec,
-        fft_len.bit_length() - 1, fpc, wp, nb, Scale.SN.factor_for(fft_len), index,
-        torch._C._cuda_getCurrentRawStream(index),
+        taps.shape[-1], int(real), out.data_ptr(), frames, x.shape[-1] // (dec * fft_len), dec,
+        fft_len.bit_length() - 1, fpc, wp, nb, n_mixed,
+        None if rads is None else rads.ctypes.data, npass, Scale.SN.factor_for(fft_len),
+        index, torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
     launches += 1
-    return out
+
+
+def _launch_general(x, hist, taps, dec, fft_len, epilogue, out, frames):
+    """One launch of the chunked or cluster instance into ``out`` (see
+    :func:`rx_frame`)."""
+    global launches
+    k = taps.shape[-1]
+    plan = gen_plan(dec, fft_len, k)
+    threads = general_layout(dec, fft_len, k)["threads"]
+    dev = str(x.device)
+    index = x.get_device()
+    rc = _general_entry()(
+        EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
+        twiddles(fft_len, dev).data_ptr(), device_taps(taps.tobytes(), dev).data_ptr(),
+        int(_direct_taps(taps.tobytes())[1]), out.data_ptr(), frames,
+        x.shape[-1] // (dec * fft_len), threads, ctypes.byref(plan),
+        Scale.SN.factor_for(fft_len), index, torch._C._cuda_getCurrentRawStream(index),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
+    launches += 1

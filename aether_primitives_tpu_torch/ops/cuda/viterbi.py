@@ -15,13 +15,14 @@ N]`` transposed) -> uint8 bits ``[N, Lw]``.
 - :data:`launches` counts the kernel's launches.
 
 The kernel's limits (:func:`kernel_supports`): ``2^(K-1)`` from 4 to 256
-states, 1 to 8 generators, and a decision history of ``Lw * max(1, S/32) *
-4`` bytes per trellis within one block's shared memory (58,112 steps up to
-32 states, 29,056 at 64, with one trellis per block; the LLRs do not take
-shared memory). A longer block is the windowed decoder's work
-(``viterbi_decode(..., window=...)``). A warp decodes one trellis; the
-trellises a block (:data:`WARPS`, the first that fits) were chosen by
-``benches/torch_viterbi_sweep.py``.
+states and 1 to 8 generators, at any span length. A decision history of
+``Lw * max(1, S/32) * 4`` bytes per trellis is kept in one block's shared
+memory where it fits (58,112 steps up to 32 states, 29,056 at 64, with one
+trellis per block; the LLRs do not take shared memory); a longer full
+block keeps it in a device scratch that the wrapper allocates
+(:func:`scratch_words`), with the same ACS, tie-break and traceback. A
+warp decodes one trellis; the trellises a block (:data:`WARPS`, the first
+that fits) were chosen by ``benches/torch_viterbi_sweep.py``.
 """
 
 from __future__ import annotations
@@ -64,10 +65,19 @@ def warps_per_block(lw: int, k: int, choices=WARPS):
 
 def kernel_supports(lw: int, n: int, constraint: int) -> bool:
     """True when the CUDA kernel takes spans of ``lw`` steps for a code of
-    ``n`` generators and constraint length ``constraint``."""
+    ``n`` generators and constraint length ``constraint`` (any ``lw >= 1``:
+    histories past shared memory go to the device scratch)."""
     s_count = 1 << (int(constraint) - 1)
-    return (4 <= s_count <= MAX_STATES and 1 <= n <= MAX_GENERATORS and lw >= 1
-            and warps_per_block(lw, int(constraint), (1,)) is not None)
+    return 4 <= s_count <= MAX_STATES and 1 <= n <= MAX_GENERATORS and lw >= 1
+
+
+def scratch_words(lw: int, k: int, n_trellis: int) -> int:
+    """uint32 words of the device scratch that holds the decision
+    histories of ``n_trellis`` spans of ``lw`` steps, or 0 where one
+    trellis's history fits a block's shared memory (the shared route)."""
+    if warps_per_block(lw, k) is not None:
+        return 0
+    return n_trellis * lw * max(1, (1 << (k - 1)) // 32)
 
 
 def _check_args(sym: torch.Tensor, lw: int, n: int, polys, constraint: int):
@@ -141,7 +151,7 @@ def _out_masks(polys, k: int) -> np.ndarray:
 def _entry():
     fn = build.load("viterbi").viterbi_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -153,11 +163,11 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
     bit at step t).
 
     On a CUDA tensor this launches the kernel of ``csrc/viterbi.cu`` on the
-    current stream; it raises on spans the kernel does not take
-    (:func:`kernel_supports`: too long a block names the windowed decoder),
-    a dtype other than float32, a non-contiguous tensor, a missing
-    ``nvcc``, a failed build or a failed launch. On a CPU tensor it is
-    :func:`viterbi_lanes_reference`.
+    current stream, once (a history past shared memory in a scratch
+    allocated here, :func:`scratch_words`); it raises on codes the kernel
+    does not take (:func:`kernel_supports`), a dtype other than float32, a
+    non-contiguous tensor, a missing ``nvcc``, a failed build or a failed
+    launch. On a CPU tensor it is :func:`viterbi_lanes_reference`.
     """
     global launches
     if not isinstance(sym, torch.Tensor):
@@ -174,31 +184,37 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
     polys = tuple(int(p) for p in polys)
     if not kernel_supports(lw, n, k):
         raise ValueError(
-            f"the CUDA Viterbi kernel does not take {lw}-step spans of a K={k} "
-            f"code with {n} generators (see kernel_supports); decode long "
-            "blocks with the windowed decoder, viterbi_decode(..., window=64)"
+            f"the CUDA Viterbi kernel does not take a K={k} code with {n} "
+            f"generators (see kernel_supports: 4-{MAX_STATES} states, "
+            f"1-{MAX_GENERATORS} generators)"
         )
     n_tr = sym.shape[0]
     bits = torch.empty((n_tr, lw), dtype=torch.uint8, device=sym.device)
     if n_tr == 0:
         return bits
+    words = scratch_words(lw, k, n_tr)
+    scratch = (torch.empty(words, dtype=torch.int32, device=sym.device)
+               if words else None)
     launch(sym, bits, lw, n, polys, k, init_state0, end_state0,
-           warps_per_block(lw, k))
+           warps_per_block(lw, k) or WARPS[0], scratch)
     launches += 1
     return bits
 
 
 def launch(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,
-           end_state0: bool, warps: int) -> None:
+           end_state0: bool, warps: int, scratch=None) -> None:
     """One launch of the kernel at ``warps`` trellises a block into ``bits``
-    (checked arguments; no count): :func:`viterbi_lanes`, and the tests and
-    the sweep at each block width."""
+    (checked arguments; no count), the histories in shared memory, or in
+    ``scratch`` (an int32 tensor of at least ``N * lw * max(1, S/32)``
+    words on the card) where it is given: :func:`viterbi_lanes`, and the
+    tests and the sweep at each block width."""
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
         rc = _entry()(
             sym.data_ptr(), bits.data_ptr(), sym.shape[0], lw, n, 1 << (k - 1),
             int(bool(init_state0)), int(bool(end_state0)), warps,
-            _out_masks(tuple(polys), k).ctypes.data, stream,
+            _out_masks(tuple(polys), k).ctypes.data,
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc}")

@@ -5,11 +5,11 @@ machine code in two checkouts.
 Builds ``aether_primitives_tpu_torch/csrc/rx_frame.cu`` of this tree and of
 ``--parent DIR`` to cubins for sm_90a with the port's nvcc flags, dumps
 each with ``cuobjdump -sass``, takes the QPSK, BPSK and spectrum kernels of
-the 256-thread instance (``rx_frame_kernel<EPI>`` in older trees,
-``rx_frame_kernel<EPI, 256, 2>`` since the instances were templated) and
-compares their instructions with addresses, encodings and symbol names
-dropped. Prints one line per epilogue: instruction counts and whether the
-two listings are identical.
+the direct instance at 256 threads with real taps
+(``rx_frame_direct_kernel<EPI, 256, 3, true[, false]>``, the main path's
+since it was written) and compares their instructions with addresses, encodings and
+symbol names dropped. Prints one line per epilogue: instruction counts and
+whether the two listings are identical.
 
 Run from the repository root on a machine with the CUDA toolkit:
 ``python3 benches/torch_rx_frame_sass_diff.py --parent DIR``.
@@ -30,7 +30,8 @@ EPILOGUES = {0: "qpsk", 1: "bpsk", 2: "spectrum"}
 
 
 def sass(src: Path, out_dir: Path) -> dict:
-    """``{epilogue: [instructions]}`` of the 256-thread instance in ``src``."""
+    """``{epilogue: [instructions]}`` of the main path's direct kernels in
+    ``src``."""
     cubin = out_dir / (src.parent.parent.parent.name + ".cubin")
     flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC",
                                                       "-Xptxas", "-v")]
@@ -52,8 +53,9 @@ def sass(src: Path, out_dir: Path) -> dict:
             funcs[name].append(re.sub(r"_Z\w+", "SYM", m.group(1)))
     out = {}
     for fname, body in funcs.items():
-        m = re.search(r"rx_frame_kernelILi(\d)E(?:Li256ELi2E)?EEv", fname)
-        if m and "Li512" not in fname:
+        # the power-of-two form (a trailing kMixed = false since the mixed-radix one)
+        m = re.search(r"rx_frame_direct_kernelILi(\d)ELi256ELi3ELb1E(?:Lb0E)?EEv", fname)
+        if m:
             out[EPILOGUES[int(m.group(1))]] = body
     return out
 
@@ -71,7 +73,7 @@ def main() -> None:
         a, b = sass(there, a_dir), sass(here, b_dir)
     for epi in EPILOGUES.values():
         same = a.get(epi) == b.get(epi) and a.get(epi) is not None
-        print(f"rx_frame {epi}, 256-thread instance: {len(a.get(epi, []))} instructions in "
+        print(f"rx_frame {epi}, direct instance: {len(a.get(epi, []))} instructions in "
               f"the parent, {len(b.get(epi, []))} here; identical SASS: {same}")
 
 

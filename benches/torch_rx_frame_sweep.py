@@ -4,25 +4,28 @@ parent tree's kernel, at the main path's geometry and ``chip_smoke.py``'s
 ``F7_GEOMETRIES``.
 
 For each geometry (dec 4 / fft_len 2048 with real and with complex taps;
-dec 4 / fft_len 4096, 64, 192, 3072; dec 5 / fft_len 30; and off the
-main path, dec 1 / fft_len 2048 with 129 taps, dec 2 / fft_len 1024 and
-dec 8 / fft_len 512 with the chain's own lowpass) on a block of
-about 4,194,304 samples with carried history: this tree's instance
-(``ops/cuda/rx_frame.py kernel_plan``) and, with ``--parent DIR``, the
-parent tree's ``csrc/rx_frame.cu`` built beside the port's builds and
-launched in the parent's instance (this tree's ``staged_plan``, the
-parent's routing), each first held against the plain twin (bits >=
-0.99999, spectrum <= -80 dB RMS EVM), then launched straight on outputs
-made once, in turns (parent, this, this, parent; CUDA events, median of
-4 runs of 50 launches) and by ``torch.profiler`` (device time a launch).
-Then the direct instance's device time against the taps' count (K = 1,
-9, 33, 65, 129 of the chain's lowpass design, QPSK and spectrum) at dec 4
-/ fft_len 2048, 64 and 4096, dec 1 / fft_len 2048 and dec 8 / fft_len
-512: K = 1 leaves the staging, the FFT and the epilogue, so the slope is
-the FIR's cost. Then the main path's streaming step: CUDA events over resident 4M blocks,
-the host's enqueue time a step (host clock, no synchronise inside the
-loop), and the kernel's device time inside the step. Every line carries
-the card's name and power limit.
+``chip_smoke.py``'s phase 3 geometries: dec 4 / fft_len 4096, 64, 192,
+3072, 131 and 8192, dec 5 / 30, dec 16 / 2048, dec 8 / 4096, dec 64 / 512,
+dec 1 / 65536; and off the main path, dec 1 / fft_len 2048 with 129 taps,
+dec 2 / fft_len 1024, dec 8 / fft_len 512 and dec 3 / 1536 with the chain's
+own lowpass) on a block of about 4,194,304 samples with carried history:
+this tree's ``rx_frame`` (the instance of ``ops/cuda/rx_frame.py
+kernel_plan``) and, with ``--parent DIR``, the parent tree's ``rx_frame``
+(its package imported from DIR under another name, built into DIR's own
+``build/``, in its own routing: the staged instances where its direct one
+did not go, "raised" where it took no instance), each first held against
+this tree's plain twin (bits >= 0.99999, spectrum <= -80 dB RMS EVM), then
+timed in turns (parent, this, this, parent): CUDA events (median of 4 runs
+of 50 calls, the wrapper's host time included) and ``torch.profiler``
+(device time a launch), beside the block's byte bound. Then the direct
+instance's device time against the taps' count (K = 1, 9, 33, 65, 129 of the
+chain's lowpass design, QPSK and spectrum) at dec 4 / fft_len 2048, 64 and
+4096, dec 1 / fft_len 2048 and dec 8 / fft_len 512: K = 1 leaves the
+staging, the FFT and the epilogue, so the slope is the FIR's cost. Then the
+main path's streaming step: CUDA events over resident 4M blocks, the host's
+enqueue time a step (host clock, no synchronise inside the loop), and the
+kernel's device time inside the step. Every line carries the card's name
+and power limit.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 benches/torch_rx_frame_sweep.py [--parent DIR]``, where ``DIR``
@@ -31,8 +34,8 @@ Imports the port only.
 """
 
 import argparse
-import ctypes
-import subprocess
+import importlib
+import importlib.util
 import sys
 import time
 from pathlib import Path
@@ -48,7 +51,6 @@ from aether_primitives_tpu_torch.cli import (  # noqa: E402
 from aether_primitives_tpu_torch.evm import evm_rms_db  # noqa: E402
 from aether_primitives_tpu_torch.models import RxChain, RxChainConfig  # noqa: E402
 from aether_primitives_tpu_torch.models.modem import _default_lowpass  # noqa: E402
-from aether_primitives_tpu_torch.ops.cuda import build  # noqa: E402
 from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf  # noqa: E402
 from aether_primitives_tpu_torch.ops.fft import Scale  # noqa: E402
 
@@ -56,9 +58,12 @@ from aether_primitives_tpu_torch.ops.fft import Scale  # noqa: E402
 GEOMETRIES = (
     ("main path", 4, 2048, False, None), ("main path, complex taps", 4, 2048, True, None),
     ("F7", 4, 4096, False, None), ("F7", 4, 64, False, None), ("F7", 4, 192, False, None),
-    ("F7", 4, 3072, False, None), ("F7", 5, 30, False, None),
+    ("F7", 4, 3072, False, None), ("F7", 5, 30, False, None), ("F7", 4, 131, False, None),
+    ("F7", 16, 2048, False, None), ("F7", 4, 8192, False, None),
+    ("F7", 8, 4096, False, None), ("F7", 64, 512, False, None),
+    ("F7", 1, 65536, False, None),
     ("off path", 1, 2048, False, 129), ("off path", 2, 1024, False, None),
-    ("off path", 8, 512, False, None),
+    ("off path", 8, 512, False, None), ("off path", 3, 1536, False, None),
 )
 ITERS, RUNS = 50, 4
 TAP_COUNTS = (1, 9, 33, 65, 129)
@@ -66,44 +71,17 @@ TAP_GEOMETRIES = ((4, 2048), (4, 64), (4, 4096), (1, 2048), (8, 512))
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 
-def parent_entry(root: str):
-    """The parent tree's staged entry ``rx_frame_launch``, built beside the
-    port's builds."""
-    src = Path(root) / "aether_primitives_tpu_torch" / "csrc" / "rx_frame.cu"
-    out = build.BUILD_DIR / "sweep-parent-rx_frame.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).rx_frame_launch
-    fn.argtypes = rf._entry().argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def staged_launcher(entry, x, hist, taps, dec, fft_len, epilogue, plan):
-    """A closure launching a staged instance (this tree's or the parent's
-    entry) straight on an output made once; returns ``(run, out)``."""
-    instance, n1 = plan
-    span, k = dec * fft_len, taps.shape[-1]
-    frames = x.shape[-1] // span
-    epi = "spectrum" if instance == "generic" else epilogue
-    if epi == "spectrum":
-        out = torch.empty((frames, fft_len), dtype=torch.complex64, device=x.device)
-    else:
-        out = torch.empty(frames * fft_len * (2 if epi == "qpsk" else 1) // 8,
-                          dtype=torch.uint8, device=x.device)
-    consts = rf._kernel_constants(taps.tobytes(), k, dec, fft_len, n1, str(x.device))
-    scale = Scale.SN.factor_for(fft_len)
-    args = (rf.INSTANCES[instance][1], rf.EPILOGUES[epi], x.data_ptr(),
-            None if hist is None else hist.data_ptr(), *(c.data_ptr() for c in consts),
-            out.data_ptr(), frames, frames, n1, span // n1, fft_len // n1, k - 1, scale, 0)
-
-    def run():
-        if entry(*args, torch._C._cuda_getCurrentRawStream(0)):
-            sys.exit("staged rx_frame launch failed")
-    return run, out
+def parent_rx_frame(root: str):
+    """The parent tree's ``ops/cuda/rx_frame`` module: its package imported
+    from ``root`` as ``parent_port`` (its kernels build into ``root``'s
+    own ``build/``)."""
+    pkg = Path(root).resolve() / "aether_primitives_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_port.ops.cuda.rx_frame")
 
 
 def direct_launcher(x, hist, taps, dec, fft_len, epilogue):
@@ -116,10 +94,12 @@ def direct_launcher(x, hist, taps, dec, fft_len, epilogue):
         out = torch.empty(frames * fft_len * (2 if epilogue == "qpsk" else 1) // 8,
                           dtype=torch.uint8, device=x.device)
     taps_ri, real = rf._direct_taps(taps.tobytes())
+    n_mixed, rads, npass = rf.direct_radices(fft_len)
     args = (rf.EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
             rf.twiddles(fft_len, str(x.device)).data_ptr(), taps_ri.ctypes.data,
             taps.shape[-1], int(real), out.data_ptr(), frames, frames, dec,
-            fft_len.bit_length() - 1, fpc, wp, nb, Scale.SN.factor_for(fft_len), 0)
+            fft_len.bit_length() - 1, fpc, wp, nb, n_mixed,
+            None if rads is None else rads.ctypes.data, npass, Scale.SN.factor_for(fft_len), 0)
     entry = rf._direct_entry()
 
     def run():
@@ -144,7 +124,7 @@ def main() -> None:
         sys.exit("needs a CUDA device")
     card = card_label()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    parent = parent_entry(args.parent) if args.parent else None
+    prf = parent_rx_frame(args.parent) if args.parent else None
     for label, dec, fft_len, cplx, n_taps in GEOMETRIES:
         if n_taps is None:
             taps = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec), device="cuda").taps
@@ -153,48 +133,55 @@ def main() -> None:
         if cplx:
             taps = (taps * np.exp(0.4j)).astype(np.complex64)
         span, k = dec * fft_len, taps.shape[-1]
-        x = torch.from_numpy(capture(span * (BLOCK // span), 4100 + fft_len)).cuda()
+        x = torch.from_numpy(capture(span * max(1, BLOCK // span), 4100 + fft_len)).cuda()
         hist = torch.from_numpy(capture(k - 1, 4200)).cuda() if k > 1 else None
         epi = "qpsk" if fft_len * 2 % 8 == 0 else "spectrum"
         plan = rf.kernel_plan(dec, fft_len, None, k)
-        old_plan = rf.staged_plan(dec, fft_len, None, k)
-        twin = rf.rx_frame_reference(x, taps, dec, fft_len, hist, epi, plan[1])
-        turns = {}
-        if plan[0] == "direct":
-            turns["this tree"] = direct_launcher(x, hist, taps, dec, fft_len, epi)
-        else:
-            turns["this tree"] = staged_launcher(rf._entry(), x, hist, taps, dec, fft_len,
-                                                 epi, plan)
-        if parent is not None:
-            turns["parent"] = staged_launcher(parent, x, hist, taps, dec, fft_len, epi,
-                                              old_plan)
-        for name, (run, out) in turns.items():
-            run()
-            torch.cuda.synchronize()
-            a = agree(out, twin if name == "this tree" or old_plan[1] == plan[1] else
-                      rf.rx_frame_reference(x, taps, dec, fft_len, hist, epi, old_plan[1]),
-                      epi)
-            good = a <= -80.0 if epi == "spectrum" else a >= 0.99999
-            if not good:
+        twin = rf.rx_frame_reference(x, taps, dec, fft_len, hist, epi)
+        turns = {"this tree": (rf, plan[0])}
+        if prf is not None:
+            turns["parent"] = (prf, prf.kernel_plan(dec, fft_len, None, k))
+        runs, dev = {}, {}
+        for name, (mod, inst) in turns.items():
+            if mod is None or inst is None:
+                turns[name] = (None, f"raised (no instance: {inst})")
+                continue
+            run = (lambda m: lambda: m.rx_frame(x, taps, dec, fft_len, hist, epi))(mod)
+            try:
+                out = run()
+                torch.cuda.synchronize()
+            except ValueError as e:
+                turns[name] = (None, f"raised: {str(e)[:80]}")
+                continue
+            a = agree(out, twin, epi)
+            if not (a <= -80.0 if epi == "spectrum" else a >= 0.99999):
                 sys.exit(f"{label} dec {dec} fft_len {fft_len}: {name} disagrees with the "
                          f"twin ({a})")
-        runs = {name: [] for name in turns}
-        order = ["parent", "this tree"] if parent is not None else ["this tree"]
+            runs[name] = run
+        times = {name: [] for name in runs}
+        order = [n for n in ("parent", "this tree") if n in runs]
         for r in range(RUNS):
             for name in (order if r % 2 == 0 else order[::-1]):
-                runs[name].append(time_cuda(turns[name][0], ITERS, warmup=3))
-        nbytes = x.numel() * 8 + (turns["this tree"][1].numel()
-                                  * turns["this tree"][1].element_size())
-        bound = nbytes / PEAK_BYTES * 1e3
+                times[name].append(time_cuda(runs[name], ITERS, warmup=3))
         for name in order:
-            inst = plan if name == "this tree" else old_plan
-            dev = kernel_device_ms(turns[name][0], "rx_frame")
+            dev[name] = kernel_device_ms(runs[name], "rx_frame")
+        out_bytes = (x.numel() // span) * (fft_len * 8 if epi == "spectrum" else fft_len // 4)
+        bound = (x.numel() * 8 + out_bytes) / PEAK_BYTES * 1e3
+        for name in turns:
+            inst = turns[name][1]
+            if name not in runs:
+                print(f"{label}, dec {dec}, fft_len {fft_len}, {k} taps, {epi}: {name} "
+                      f"{inst} [{card}]", flush=True)
+                continue
             print(f"{label}, dec {dec}, fft_len {fft_len}, {k} taps, {epi}, "
-                  f"{x.numel()} samples: {name} ({inst[0]}) median "
-                  f"{float(np.median(runs[name])):.4f} ms (runs "
-                  f"{', '.join(f'{v:.4f}' for v in runs[name])}; CUDA events, mean of "
-                  f"{ITERS} launches straight); device {dev:.4f} ms a launch "
-                  f"(torch.profiler); byte bound {bound:.4f} ms [{card}]", flush=True)
+                  f"{x.numel()} samples: {name} ({inst}) median "
+                  f"{float(np.median(times[name])):.4f} ms (runs "
+                  f"{', '.join(f'{v:.4f}' for v in times[name])}; CUDA events, mean of "
+                  f"{ITERS} calls); device {dev[name]:.4f} ms a launch (torch.profiler); "
+                  f"byte bound {bound:.4f} ms ({dev[name] / bound:.1f}x) [{card}]", flush=True)
+        if len(dev) == 2:
+            print(f"{label}, dec {dec}, fft_len {fft_len}: device time this tree / parent "
+                  f"{dev['this tree'] / dev['parent']:.3f} [{card}]", flush=True)
 
     x = torch.from_numpy(capture(BLOCK, 7)).cuda()
     for dec, fft_len in TAP_GEOMETRIES:

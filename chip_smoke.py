@@ -72,18 +72,21 @@ in thirty-one phases:
 3. the RX frame kernel's main-path instance (``direct``: the FIR at the
    kept outputs and a hand-written FFT) against its plain PyTorch version
    and the float64 chain at the main path's shapes: QPSK and BPSK bytes and
-   the spectrum epilogue, with and without carried history; then every
-   other instance (``F7_GEOMETRIES``: direct at dec 4, fft_len 4096 and 64;
-   tile256 at dec 4, fft_len 192; tile512 at dec 4, fft_len 3072; generic
-   for an unpacked chain at dec 5, fft_len 30), each through the chain's
-   two-block streaming gate with one launch a step, against the plain twin,
-   and timed;
+   the spectrum epilogue, with and without carried history; then the other
+   geometries (``F7_GEOMETRIES``: direct at dec 4, fft_len 4096, 64, 192,
+   3072 and 131 and an unpacked chain at dec 5, fft_len 30 (the last four
+   through its mixed-radix FFT); the chunked instance at dec 16, fft_len
+   2048, dec 8, fft_len 4096 and dec 64, fft_len 512; the cluster instance
+   at dec 4, fft_len 8192 and dec 1, fft_len 65,536),
+   each through the chain's two-block streaming gate with one
+   launch a step, against the plain twin, and timed on a 4M block beside
+   its byte bound;
 4. the RX chain's two-block streaming gate, counting kernel launches;
-5. CUDA-event timings of the RX frame kernel, the parent's main-path kernel
-   (the tile256 instance, unchanged in this tree, after a bit comparison
-   with the direct one), the plain version, and the RX chain's kernel and
-   plain paths; the two kernels' device times (``torch.profiler``) and the
-   host's time to enqueue a streaming step;
+5. CUDA-event timings of the RX frame kernel, the plain version, and the RX
+   chain's kernel and plain paths; the kernel's device time
+   (``torch.profiler``) and the host's time to enqueue a streaming step
+   (the parent's kernel is timed beside this one by
+   ``benches/torch_rx_frame_sweep.py --parent``);
 6. the RX frame, Viterbi and BCJR kernels' register and spill reports,
    and the BCJR lanes instance's shared memory a CTA at Lw 96 and at the
    ``ccsds`` launch's Lw 224;
@@ -98,7 +101,9 @@ in thirty-one phases:
    meet instance at both its CTA widths (16 and 8 columns); and the
    ``ccsds`` link's inner code at its shapes: the windowed Viterbi 64/48 and
    the BCJR kernel's lanes instance on the K=7 tables at Lw 224 (the
-   windowed soft decode 96/64), ``torch.equal``;
+   windowed soft decode 96/64), ``torch.equal``; and a K=7 full block of
+   65,536 steps, past the shared-memory history (the device scratch), one
+   launch, ``torch.equal`` to the twin;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
@@ -395,14 +400,21 @@ ACQ_MAX_DOPPLER, ACQ_DOPPLERS, ACQ_THRESHOLD = 1.25e-3, 64, 25.0
 IIR_TRUNC_DB = -85.0
 IRR_DB_APART = 0.01  # the corrected tone's image rejection, card vs CPU run (dB)
 # (dec, fft_len, packed): the RX frame kernel's direct instance at 4,096 points
-# (one CTA an SM) and at 64 (32 frames a CTA), the staged tile256 and tile512
-# instances (fft_len not a power of two) and the generic instance (an unpacked
-# chain whose frame is not whole bytes)
+# (one CTA an SM) and at 64 (32 frames a CTA), and with its mixed-radix FFT at
+# 192, 3072, a prime 131 and an unpacked chain at 30 (frames not whole bytes);
+# the chunked instance past the direct instance's frames (a 32,768-sample span
+# at dec 8) and taps (257 at dec 16, 1,025 at dec 64); the cluster instance at
+# 8,192 points (2 CTAs) and 65,536 (8 CTAs). Before the chunked and cluster
+# instances the card raised at dec 16 / 2048, 4 / 8192, 8 / 4096, 64 / 512 and
+# 1 / 65536.
 # phase 7's tie cases: a rate-1/2 code a constraint length (a third generator
 # makes the rate-1/3 case)
 VITERBI_TIE_CODES = {3: (0o5, 0o7), 5: (0o23, 0o35), 7: (0o171, 0o133), 9: (0o561, 0o753)}
 F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (4, 192, True), (4, 3072, True),
-                 (5, 30, False))
+                 (5, 30, False), (4, 131, False), (16, 2048, True), (4, 8192, True),
+                 (8, 4096, True), (64, 512, True), (1, 65536, True))
+# phase 7's full block past the shared-memory history: K = 7, rate 1/2
+VITERBI_LONG_STEPS = 65_536
 # the burst families beside viterbi and turbo: (label, PacketConfig fields,
 # the kernel launches an rx_batch makes)
 BURST_FAMILIES = (
@@ -708,8 +720,7 @@ def main() -> None:
     }
     unpack = rf.unpack_bits
     main_plan = rf.kernel_plan(dec, fft_len, None, taps.shape[-1])
-    print(f"rx_frame main path: instance {main_plan[0]} (kernel_plan; the parent's was "
-          f"{rf.staged_plan(dec, fft_len, None, taps.shape[-1])})")
+    print(f"rx_frame main path: instance {main_plan[0]} (kernel_plan)")
     if main_plan[0] != "direct":
         fail(f"the main path's geometry took the {main_plan[0]} instance, not direct")
     worst_err = 0.0
@@ -781,30 +792,14 @@ def main() -> None:
         return out
 
     xb, hist = blocks[0], blocks[1][BLOCK - ku:]
-    # the parent's main-path kernel: the tile256 instance, unchanged in this tree
-    parent_plan = rf.staged_plan(dec, fft_len, None, ku + 1)
-    hist_c = hist.contiguous()
-
-    def parent_kernel():
-        return rf.launch_staged(xb, hist_c, taps, dec, fft_len, "qpsk", parent_plan)
-
-    got_new = rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk")
-    got_old = parent_kernel()
-    a_old = float((unpack(got_new) == unpack(got_old)).float().mean())
-    print(f"compare rx_frame direct vs the parent's kernel ({parent_plan}): qpsk bits "
-          f"{a_old:.7f} (need >= {AGREEMENT})")
-    if a_old < AGREEMENT:
-        fail("the direct instance and the parent's kernel disagree")
     iters, runs = 40, 4
-    ms = {"plain": [], "kernel": [], "parent": [], "chain_kernel": [], "chain_plain": []}
+    ms = {"plain": [], "kernel": [], "chain_kernel": [], "chain_plain": []}
     for run in range(runs):  # alternate which side runs first
-        for which in (("plain", "parent", "kernel"), ("kernel", "parent", "plain"))[run % 2]:
+        for which in (("plain", "kernel"), ("kernel", "plain"))[run % 2]:
             if which == "kernel":
                 ms["kernel"].append(time_cuda(
                     lambda: rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk"), iters))
                 ms["chain_kernel"].append(time_cuda(step_kernel, iters))
-            elif which == "parent":
-                ms["parent"].append(time_cuda(parent_kernel, iters))
             else:
                 ms["plain"].append(time_cuda(
                     lambda: rf.rx_frame_reference(xb, taps, dec, fft_len, hist, "qpsk"),
@@ -814,7 +809,6 @@ def main() -> None:
     msa = lambda m: BLOCK / (m * 1e-3) / 1e6  # noqa: E731
     for key, what in (
         ("kernel", "rx_frame kernel (direct), qpsk bytes"),
-        ("parent", f"rx_frame parent's kernel ({parent_plan[0]}), qpsk bytes"),
         ("plain", "rx_frame plain PyTorch, qpsk bytes"),
         ("chain_kernel", "streaming step, kernel path"),
         ("chain_plain", "streaming step, plain path"),
@@ -826,7 +820,6 @@ def main() -> None:
     dev_ms = {
         "kernel": kernel_device_ms(lambda: rf.rx_frame(xb, taps, dec, fft_len, hist, "qpsk"),
                                    "rx_frame"),
-        "parent": kernel_device_ms(parent_kernel, "rx_frame"),
         "step": kernel_device_ms(step_kernel, "rx_frame"),
     }
     enqueue = []
@@ -838,8 +831,8 @@ def main() -> None:
         enqueue.append((time.perf_counter() - t0) / 10 * 1e3)
         torch.cuda.synchronize()
     t["enqueue"] = float(np.median(enqueue))
-    print(f"device: rx_frame direct {dev_ms['kernel']:.4f} ms, the parent's kernel "
-          f"{dev_ms['parent']:.4f} ms a launch, the kernel inside a streaming step "
+    print(f"device: rx_frame direct {dev_ms['kernel']:.4f} ms a launch, the kernel inside "
+          f"a streaming step "
           f"{dev_ms['step']:.4f} ms (torch.profiler, mean over the launches of 20 calls); "
           f"host enqueue of a streaming step median {t['enqueue']:.4f} ms (runs "
           f"{', '.join(f'{v:.4f}' for v in enqueue)}; host clock, 10 steps, no synchronise): "
@@ -923,12 +916,13 @@ def main() -> None:
                       f"ends {ends}: kernel vs plain torch.equal {same}")
                 if not same:
                     fail(f"viterbi ties K={k} rate 1/{n}: kernel and plain twin disagree")
-    # spans at the kernel's limit (one trellis a block, the decision history
-    # alone in shared memory): the plain twin runs on the CPU copy
+    # spans at the shared-memory route's limit (one trellis a block, the
+    # decision history alone in shared memory): the plain twin runs on the
+    # CPU copy
     for (polys, k) in (((0o23, 0o35), 5), ((0o133, 0o145, 0o175), 7)):
         n, lw_l = len(polys), vk.MAX_SMEM // (4 * max(1, (1 << (k - 1)) // 32))
-        if not vk.kernel_supports(lw_l, n, k) or vk.kernel_supports(lw_l + 1, n, k):
-            fail(f"viterbi K={k} rate 1/{n}: the span limit is not {lw_l} steps")
+        if vk.scratch_words(lw_l, k, 1) or not vk.scratch_words(lw_l + 1, k, 1):
+            fail(f"viterbi K={k} rate 1/{n}: the shared route's limit is not {lw_l} steps")
         sym_l = torch.from_numpy(np.round(rng.normal(size=(2, lw_l, n)) * 2)
                                  .astype(np.float32)).cuda()
         got = vk.viterbi_lanes(sym_l, lw_l, n, polys, k, True, False).cpu()
@@ -939,6 +933,23 @@ def main() -> None:
               f"kernel vs plain (CPU) torch.equal {same}")
         if not same:
             fail(f"viterbi K={k} rate 1/{n} at {lw_l} steps: kernel and plain twin disagree")
+    # a full block past shared memory: the histories in the device scratch,
+    # one launch, equal to the twin (on the CPU copy)
+    lw_v = VITERBI_LONG_STEPS
+    llr_l = coded_llrs(K7, 2, lw_v - 6)  # [2, 2 x 65,536] with the K-1 flush steps
+    reset_counts()
+    got = fec.viterbi_decode(llr_l, *K7)
+    torch.cuda.synchronize()
+    long_counts = kernel_launches()
+    plain = fec.viterbi_decode(llr_l.cpu(), *K7, backend="reference")
+    same = torch.equal(got.cpu(), plain)
+    vit_err = max(vit_err, int((got.cpu().int() - plain.int()).abs().max()))
+    print(f"compare viterbi K=7 r1/2 full block of {lw_v} steps {tuple(llr_l.shape)} "
+          f"({vk.scratch_words(lw_v, 7, 2)} scratch words): kernel vs plain (CPU) "
+          f"torch.equal {same}, launches {long_counts}")
+    if not same or long_counts != {**NO_LAUNCHES, "viterbi": 1}:
+        fail(f"viterbi full block of {lw_v} steps: kernel and plain twin disagree, "
+             "or not one launch")
     lw_t, cols_t = 16 + 64 + 16, BURSTS * 10  # turbo: window 64, guard 16, 10 windows
     spans = [torch.from_numpy((rng.normal(size=(lw_t, cols_t)) * 3).astype(np.float32)).cuda()
              for _ in range(2)]
@@ -1203,9 +1214,6 @@ def main() -> None:
             "library_ms": None,
             "instance": main_plan[0],
             "device_ms": dev_ms["kernel"],
-            "parent_ms": t["parent"],
-            "parent_device_ms": dev_ms["parent"],
-            "parent_instance": parent_plan[0],
             "step_ms": t["chain_kernel"],
             "step_host_enqueue_ms": t["enqueue"],
             "instances": instances,
@@ -1324,19 +1332,20 @@ def reset_counts() -> None:
 
 def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
                        n_time: int = 1 << 22) -> dict:
-    """Phase 3, the geometries outside the main path's instance (the RX
-    frame kernel's tile512 and generic instances and the card's own stage
-    split): for each of :data:`F7_GEOMETRIES`, the chain's two-block
-    streaming gate on two ``~n_check``-sample blocks (one RX frame launch a
-    step, bits against the float64 chain, the block-2 spectrum, the state);
-    the kernel against its plain twin given the same stage split (spectrum
-    EVM and, where frames are whole bytes, QPSK and BPSK bytes); and both
-    timed on a ``~n_time``-sample block. Returns the kernels' JSON line's
-    ``instances`` entry of the rx_frame kernel."""
+    """Phase 3, the geometries beside the main path (the RX frame kernel's
+    direct instance at other sizes, its chunked and cluster instances):
+    for each of :data:`F7_GEOMETRIES`, the chain's two-block streaming gate
+    on two blocks of ``~n_check`` samples or two frames (one RX frame launch
+    a step, bits against the float64 chain, the block-2 spectrum, the
+    state); the kernel against its plain twin (spectrum EVM and, where
+    frames are whole bytes, QPSK and BPSK bytes); and both timed on a
+    ``~n_time``-sample block, the kernel also by ``torch.profiler``, beside
+    the block's byte bound. Returns the kernels' JSON line's ``instances``
+    entry of the rx_frame kernel."""
     import numpy as np
     import torch
 
-    from aether_primitives_tpu_torch.cli import capture, gate, stream_blocks
+    from aether_primitives_tpu_torch.cli import capture, gate, kernel_device_ms, stream_blocks
     from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
     from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
 
@@ -1357,8 +1366,15 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
         sync(dev)
         counts = kernel_launches()
         g = gate(chain, x_full, n, bits, states)
-        split = "FIR + FFT" if instance == "direct" else f"n1 {n1}, n2 {span // n1}"
-        label = (f"{instance}, dec {dec}, fft_len {fft_len}, {split}, "
+        if instance == "direct":
+            shape = "whole frames staged"
+        else:
+            lay = rf.general_layout(dec, fft_len, k)
+            shape = (f"{lay['threads']} threads, {lay['fpc']} frame(s) a CTA, radices "
+                     f"{lay['rad1']}" if lay["q"] == 1 else
+                     f"clusters of {lay['q']} x {lay['threads']} threads, {lay['a']} x "
+                     f"{lay['b']} four-step")
+        label = (f"{instance}, dec {dec}, fft_len {fft_len}, {k} taps ({shape}), "
                  f"{'packed' if packed else 'unpacked'}")
         print(f"rx_frame {label}: two-block streaming gate: bit agreement "
               f"{g['bit_agreement']:.7f} (need >= {AGREEMENT}), block-2 spectrum "
@@ -1387,23 +1403,31 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
                     ok = a >= AGREEMENT
                 if not ok:
                     fail(f"rx_frame {label}, {epi}: kernel and plain twin (n1 {n1}) disagree")
-        print(f"compare rx_frame {label}: kernel vs plain twin at n1 {n1}: spectrum "
+        print(f"compare rx_frame {label}: kernel vs plain twin (split {n1}): spectrum "
               f"{k_db:.2f} dB RMS EVM (need <= {EVM_DB}), max |kernel - plain| {worst:.3e}; "
               f"whole-byte epilogues agree >= {AGREEMENT}")
         xt = torch.from_numpy(capture(span * (n_time // span), 3400)).to(dev)
         epi = "qpsk" if fft_len * 2 % 8 == 0 else "spectrum"
-        t, runs = timed_pair(lambda: rf.rx_frame(xt, taps, dec, fft_len, None, epi),
+        run = lambda: rf.rx_frame(xt, taps, dec, fft_len, None, epi)  # noqa: E731
+        t, runs = timed_pair(run,
                              lambda: rf.rx_frame_reference(xt, taps, dec, fft_len, None, epi,
                                                            n1),
                              iters=(20, 3), runs=2)
+        dev_ms = kernel_device_ms(run, "rx_frame") if dev.type == "cuda" else None
+        out_bytes = (xt.shape[0] // span) * (fft_len * 8 if epi == "spectrum" else
+                                             fft_len // 4)
+        b = bound(4.0 * (xt.shape[0] // dec) * k + 5.0 * (xt.shape[0] // dec)
+                  * np.log2(fft_len), xt.shape[0] * 8 + out_bytes)
         print(f"time: rx_frame {label}, {epi} on [{xt.shape[0]}]: kernel median "
               f"{t['kernel']:.4f} ms (runs {', '.join(f'{v:.4f}' for v in runs['kernel'])}), "
+              f"device {fmt_ms(dev_ms)} ms a launch (torch.profiler), "
               f"plain twin median {t['plain']:.4f} ms (runs "
-              f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events [{card}]",
-              flush=True)
+              f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
         out[f"{instance} dec {dec} fft_len {fft_len}"] = {
             "n1": n1, "launches": counts["rx_frame"], "max_abs_err": worst,
-            "ms": t["kernel"], "plain_ms": t["plain"], "samples": int(xt.shape[0]),
+            "ms": t["kernel"], "device_ms": dev_ms, "plain_ms": t["plain"],
+            "samples": int(xt.shape[0]), **b,
         }
     return out
 

@@ -288,14 +288,14 @@ def test_f6_unpacked_chain_of_partial_bytes_returns_bits(jx, mod):
 
 
 @pytest.mark.parametrize("dec,fft_len,instance", [
-    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "generic"),
-    (4, 48, "tile256"), (1, 16384, "tile512"),
+    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "direct"),
+    (4, 48, "direct"), (1, 16384, "cluster"),
 ])
 def test_f7_the_cards_split_agrees_with_jax(jx, dec, fft_len, instance):
-    # the split kernel_plan names for the plain twin (the card's own
-    # factorisation where the heuristic's does not tile: dec 4, fft_len 48 ->
-    # n1 24; dec 1, fft_len 16384 -> n1 128), against the JAX chain's
-    # spectra and bits at the usual bars
+    # the split kernel_plan names for the plain twin (the heuristic's, the
+    # JAX package's: dec 4, fft_len 48 -> n1 48; none at dec 1, fft_len
+    # 16384, where the twin takes the span-point FFT route), against the JAX
+    # chain's spectra and bits at the usual bars
     chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec), device="cpu")
     plan = rf.kernel_plan(dec, fft_len, None, chain.taps.shape[-1])
     assert plan[0] == instance
@@ -310,6 +310,44 @@ def test_f7_the_cards_split_agrees_with_jax(jx, dec, fft_len, instance):
     bits = rf.sign_bits(got, "qpsk").numpy()
     jbits = np.stack([want.real < 0, want.imag < 0], -1).astype(np.uint8).reshape(-1)
     assert (bits == jbits).mean() >= AGREEMENT
+
+
+# ------------------------------------------------------------ F11: every geometry
+# on the card; the plain twin where the chain has no stage split
+
+F11_GEOMETRIES = [(16, 2048), (4, 8192), (64, 512), (1, 65536), (3, 1536), (4, 131), (5, 30)]
+
+
+@pytest.mark.parametrize("dec,fft_len", F11_GEOMETRIES)
+def test_f11_the_twin_agrees_with_jax_where_the_card_raised(jx, dec, fft_len):
+    # geometries the RX frame kernel refused before it took every one; the
+    # plain twin the card is held to (the staged split where one exists,
+    # else the JAX package's span-point FFT route) against JAX
+    # fir_decimate_fft and the JAX chain, two-frame blocks, the second with
+    # the first's tail as history
+    chain = RxChain(RxChainConfig(fft_len=fft_len, decimation=dec, fir_mode="fused"),
+                    device="cpu")
+    assert rf.kernel_supports(dec, fft_len, None, chain.taps.shape[-1]) is not None
+    jchain = jx.modem.RxChain(jx.modem.RxChainConfig(fft_len=fft_len, decimation=dec,
+                                                     fir_mode="fused"))
+    assert np.array_equal(np.asarray(jchain.taps), chain.taps)
+    span = dec * fft_len
+    x = _c((2 * 2 * span,), 19)
+    jstate = jchain.init_state()
+    hist = None
+    for blk in (x[:2 * span], x[2 * span:]):
+        want = np.asarray(jx.fir.fir_decimate_fft(blk, chain.taps, dec, fft_len,
+                                                  jx.fft.Scale.SN, history=hist))
+        spec = rf.rx_frame_reference(torch.from_numpy(blk), chain.taps, dec, fft_len,
+                                     None if hist is None else torch.from_numpy(hist),
+                                     "spectrum")
+        assert evm_rms_db(spec.numpy(), want) <= SPECTRUM_DB
+        jbits, jstate = jchain.streaming_step(blk, jstate)
+        bits = rf.sign_bits(spec, "qpsk").numpy()
+        assert bits.shape == np.shape(jbits)
+        assert (bits == np.asarray(jbits)).mean() >= AGREEMENT
+        hist = blk[span * 2 - (chain.taps.shape[-1] - 1):]
+        assert np.array_equal(np.asarray(jstate), hist)
 
 
 # ------------------------------------------------------------ F8: the models exports

@@ -145,10 +145,12 @@ def test_kernel_supports():
     assert rf.kernel_supports(1, 2048) == "direct"
     assert rf.kernel_supports(1, 256) == "direct"
     assert rf.kernel_supports(4, 4096) == "direct"  # a frame over 64 KB
-    assert rf.kernel_supports(4, 192) == "tile256"  # not a power of two: n1 96, n2 8
-    assert rf.kernel_supports(4, 3072) == "tile512"  # n1 96, n2 128
-    assert rf.kernel_supports(5, 30) == "generic"  # no n1 % 8 == 0 divides 30
-    assert rf.kernel_supports(4, 8192) is None  # 256 KB a frame: beyond shared memory
+    assert rf.kernel_supports(4, 192) == "direct"  # not a power of two: radix 8, 8, 3
+    assert rf.kernel_supports(4, 3072) == "direct"
+    assert rf.kernel_supports(5, 30) == "direct"  # radix 2, 3, 5
+    assert rf.kernel_supports(16, 2048) == "chunked"  # 257 taps
+    assert rf.kernel_supports(4, 8192) == "cluster"  # 256 KB a frame over 2 CTAs
+    assert rf.kernel_supports(1, 65536) == "cluster"  # 8 CTAs of 8,192 points
 
 
 @pytest.mark.parametrize("dec,fft_len,stage_n1,want", [
@@ -156,29 +158,58 @@ def test_kernel_supports():
     (4, 4096, None, ("direct", 128)),
     (4, 64, None, ("direct", 64)),  # the heuristic's n1 64 (n2 = 4) serves the twin
     (1, 128, None, ("direct", 128)),
-    (2, 8192, None, ("tile512", 128)),  # the heuristic has no split (G' over 4 MB)
-    (5, 30, None, ("generic", 30)),
-    (1, 32, None, ("generic", 32)),  # a span under 64
+    (2, 8192, None, ("cluster", None)),  # no split (G' over 4 MB): the twin's FFT route
+    (5, 30, None, ("direct", 30)),  # outputs padded to whole groups of 8
+    (1, 32, None, ("chunked", 32)),  # fft_len under 64
     (4, 64, 64, ("direct", 64)),  # the route does not depend on stage_n1
     (4, 2048, 64, ("direct", 64)),
-    (4, 192, None, ("tile256", 96)),  # not a power of two
-    (8, 32, None, ("tile256", 32)),  # fft_len under 64
-    (4, 3072, None, ("tile512", 128)),
-    (1, 16384, None, ("tile512", 128)),  # fft_len over 4096; the card's own split
+    (4, 192, None, ("direct", 96)),  # not a power of two: the mixed-radix FFT
+    (8, 32, None, ("chunked", 32)),
+    (4, 3072, None, ("direct", 128)),
+    (16, 3000, None, ("chunked", None)),  # 257 taps, past 2,048 points: 512 threads
+    (1, 16384, None, ("cluster", None)),  # two CTAs of 8,192 points
+    (16, 2048, None, ("chunked", 128)),  # 257 taps: past the direct instance's 256
+    (4, 131, None, ("direct", 1)),  # a prime fft_len
+    (64, 1024, None, ("cluster", 128)),  # a 65,536-sample span over 2 CTAs
+    (4, 8192, 64, ("cluster", 64)),  # a caller's split for the twin
 ])
 def test_kernel_plan_picks_instance_and_split(dec, fft_len, stage_n1, want):
-    assert rf.kernel_plan(dec, fft_len, stage_n1, 65) == want
+    assert rf.kernel_plan(dec, fft_len, stage_n1, 16 * dec + 1) == want
 
 
-@pytest.mark.parametrize("dec,fft_len,stage_n1,want", [
-    (4, 64, 64, ("generic", 64)),  # a caller's split that no tile instance takes
-    (4, 2048, 64, ("tile256", 64)),  # a caller's split that tile256 takes
-    (1, 2048, 32, ("tile256", 32)),
-    (4, 2048, None, ("tile256", 128)),  # the heuristic's split
-    (4, 64, None, ("tile256", 32)),  # the card's own split (the heuristic's does not tile)
-])
-def test_staged_plan_keeps_a_callers_split(dec, fft_len, stage_n1, want):
-    assert rf.staged_plan(dec, fft_len, stage_n1, 65) == want
+GRID_DECS = (1, 2, 3, 4, 5, 8, 16, 32, 64)
+GRID_FFT_LENS = (16, 30, 32, 48, 64, 128, 131, 192, 256, 512, 1024, 1536, 2048, 3072, 4096,
+                 8192, 16384, 32768, 65536)
+
+
+@pytest.mark.parametrize("fft_len", GRID_FFT_LENS)
+@pytest.mark.parametrize("dec", GRID_DECS)
+def test_kernel_takes_every_geometry_of_the_grid(dec, fft_len):
+    # every geometry of the chain at its default 16 dec + 1 taps has an
+    # instance, and its launch geometry fits the card
+    k = 16 * dec + 1
+    plan = rf.kernel_plan(dec, fft_len, None, k)
+    assert plan is not None
+    if plan[0] == "direct":
+        fpc, wp, nb = rf.direct_layout(dec, fft_len, k)
+        assert fpc * max(wp, nb) * 8 <= rf.SMEM_LIMIT
+        return
+    lay = rf.general_layout(dec, fft_len, k)
+    assert lay["instance"] == plan[0]
+    assert 8 * (lay["fbuf"] + 2 * lay["win"]) <= rf.SMEM_LIMIT
+    assert lay["a"] * lay["b"] == fft_len and lay["lp"] % 8 == 0
+    assert int(np.prod(lay["rad1"] + lay["rad2"])) == fft_len
+    if lay["q"] == 1:
+        cap = rf._capacity(lay["threads"], lay["rad1"], rf.GEN_POINTS)
+        assert lay["fpc"] * fft_len <= cap <= lay["threads"] * rf.GEN_POINTS
+    else:
+        q, per = lay["q"], rf.CLUSTER_POINTS_A_THREAD
+        assert lay["a"] % (8 * q) == 0 and lay["b"] % q == 0 and lay["lp"] == fft_len // q
+        assert lay["threads"] == rf.CLUSTER_THREADS
+        assert fft_len // q <= min(rf._capacity(lay["threads"], r, per) for r in
+                                   (lay["rad1"], lay["rad2"])) <= lay["threads"] * per
+    assert lay["chunk"] * lay["split"] == 8 * lay["threads"] and 32 % lay["split"] == 0
+    assert lay["kt"] == k  # the default taps fit one staged range
 
 
 def test_direct_layout():
@@ -187,23 +218,29 @@ def test_direct_layout():
     assert rf.direct_layout(4, 4096, 65) == (1, 16961, 4608)  # one CTA an SM
     assert rf.direct_layout(1, 64, 1) == (32, 65, 72)  # the FFT buffer is the larger
     assert rf.direct_layout(4, 2048, rf.DIRECT_MAX_TAPS + 1) is None
-    assert rf.direct_layout(4, 2048 + 8, 65) is None  # not a power of two
+    assert rf.direct_layout(4, 2048 + 8, 65) == (1, 8546, 2313)  # the mixed-radix FFT
+    assert rf.direct_layout(4, 2048 + 4, 65) == (1, 8546, 2308)  # 2,056 outputs a frame
+    assert rf.direct_layout(4, 8, 9) is None  # under 12 points
     assert rf.direct_layout(4, 32, 65) is None  # under 64 points
     assert rf.direct_layout(8, 4096, 65) is None  # 270 KB a frame
-    assert rf.kernel_plan(4, 2048, None, 300) == ("tile256", 128)  # too many taps
+    assert rf.kernel_plan(4, 2048, None, 300) == ("chunked", 128)  # too many taps
     for dec in (1, 2, 4, 8):  # frames a CTA: a power of two that divides 256 threads
-        for log2n in range(6, 13):
-            layout = rf.direct_layout(dec, 1 << log2n, 65)
-            if layout is not None:
-                assert 256 % layout[0] == 0 and layout[0] << log2n <= 4096
+        for n in [1 << log2n for log2n in range(6, 13)] + [30, 96, 120, 131, 192, 1536, 3072]:
+            layout = rf.direct_layout(dec, n, 65)
+            if layout is not None:  # outputs rounded up to whole groups of 8
+                assert 256 % layout[0] == 0 and layout[0] * -(-n // 8) * 8 <= 4096
 
 
 def test_kernel_plan_refuses_frames_beyond_shared_memory():
-    assert rf.kernel_plan(8, 4096) is None  # span 32,768
-    assert rf.kernel_plan(4, 3750) is None  # generic, n1 125: 4 planes of 15,000
-    assert rf.kernel_plan(4, 3500) == ("generic", 125)  # 4 planes of 14,000
-    assert rf.kernel_plan(4, 3500, n_taps=1500) is None  # the deltas tip it over
-    assert 4 * 4 * 14000 + 8 * 1499 > rf.SMEM_LIMIT >= 4 * 4 * 14000
+    assert rf.kernel_plan(8, 4096) == ("chunked", None)  # span 32,768: one CTA
+    assert rf.kernel_plan(4, 3750) == ("direct", 125)  # radix 2, 3, 5, 5, 5, 5, 60 KB
+    assert rf.kernel_plan(8, 3750) == ("chunked", None)  # 235 KB a frame: in chunks
+    assert rf.kernel_plan(4, 1 << 16) == ("cluster", None)  # 8 CTAs of 8,192 points
+    assert rf.kernel_plan(1, 1 << 17) is None  # 16,384 points a CTA of a cluster of 8
+    assert rf.kernel_plan(1, 16411) is None  # a prime past 4,096 points: no split
+    assert rf.kernel_plan(4, 3500, n_taps=1500) == ("chunked", 125)  # any tap count
+    lay = rf.general_layout(64, 512, 32769)  # K - 1 = span: taps in staged ranges
+    assert lay["kt"] < 32769 and 8 * (lay["fbuf"] + 2 * lay["win"]) <= rf.SMEM_LIMIT
 
 
 def test_wrapper_rejects_what_it_does_not_take():
@@ -285,8 +322,8 @@ def test_kernel_batched_rows_and_identity_taps(cuda):
 def test_kernel_raises_instead_of_falling_back(cuda):
     before = rf.launches
     with pytest.raises(ValueError, match="232448 bytes"):
-        rf.rx_frame(torch.zeros(8 * 4096, dtype=torch.complex64, device=cuda),
-                    TAPS, 8, 4096)
+        rf.rx_frame(torch.zeros(1 << 18, dtype=torch.complex64, device=cuda),
+                    TAPS, 1, 1 << 18)
     strided = torch.zeros(2 * 4 * 256 * 2, dtype=torch.complex64, device=cuda)[::2]
     with pytest.raises(ValueError):
         rf.rx_frame(strided, TAPS, 4, 256)
@@ -295,12 +332,16 @@ def test_kernel_raises_instead_of_falling_back(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dec,n_fft,instance", [
-    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "generic"),
-    (2, 12, "generic"), (4, 192, "tile256"), (4, 3072, "tile512"), (1, 16384, "tile512"),
+    (4, 4096, "direct"), (4, 64, "direct"), (1, 128, "direct"), (5, 30, "direct"),
+    (2, 12, "direct"), (4, 192, "direct"), (4, 3072, "direct"), (1, 16384, "cluster"),
+    (16, 2048, "chunked"), (4, 8192, "cluster"), (8, 4096, "chunked"), (64, 512, "chunked"),
+    (4, 131, "direct"), (3, 1536, "direct"), (1, 65536, "cluster"), (64, 1024, "cluster"),
+    (8, 32, "chunked"), (64, 16, "chunked"), (16, 3000, "chunked"),
+    (5, 8192, "cluster"),
 ])
 @pytest.mark.parametrize("epilogue", ["qpsk", "bpsk", "spectrum"])
 def test_kernel_instances_match_the_twin_at_the_same_split(cuda, dec, n_fft, instance, epilogue):
-    # every instance against the plain twin given the card's own stage split
+    # every instance against the plain twin at the twin's split
     # the chain's default taps, cut to fit the 24-sample frame of dec 2, fft_len 12
     ntaps = 16 * dec + 1 if dec * n_fft > 16 * dec else 9
     taps = _default_lowpass(ntaps, 1.0 / (2 * dec)) if dec > 1 else TAPS[:1]
@@ -419,7 +460,15 @@ def direct_model(x, taps, dec, n, history=None, epilogue="spectrum"):
             else:
                 ar = (ar + -h.imag * v.imag) + h.real * v.real
                 ai = (ai + h.imag * v.real) + h.real * v.imag
-    z = _stockham(ar + _I * ai, rf.twiddles(n, "cpu").numpy())
+    z = ar + _I * ai
+    if n & (n - 1):  # the mixed-radix variant: the chunked instance's passes
+        nb = n + n // 8
+        buf = np.zeros(nsym * nb, np.complex64)
+        idx = np.arange(nsym)[:, None] * nb + (m + (m >> 3))[None, :]
+        buf[idx] = z
+        z = _gen_fft(buf, n, nb, nsym, rf.radices(n), rf.twiddles(n, "cpu").numpy(), 1)[idx]
+    else:
+        z = _stockham(z, rf.twiddles(n, "cpu").numpy())
     if epilogue == "spectrum":
         return z * np.float32(Scale.SN.factor_for(n))
     return rf.pack_bits(rf.sign_bits(torch.from_numpy(z), epilogue)).numpy()
@@ -471,7 +520,7 @@ def test_direct_model_matches_jax(jax_front, n_fft):
 
 
 @pytest.mark.parametrize("taps", ["real", "complex"])
-@pytest.mark.parametrize("n_fft", [2048, 64])
+@pytest.mark.parametrize("n_fft", [2048, 64, 192, 3072])
 def test_direct_model_bytes_match_the_twin(n_fft, taps):
     dec = 4
     h = TAPS if taps == "real" else (TAPS * np.exp(0.3j)).astype(np.complex64)
@@ -490,3 +539,188 @@ def test_direct_model_bytes_match_the_twin(n_fft, taps):
         spec = direct_model(blk.numpy(), h, dec, n_fft, hn)
         twin = rf.rx_frame_reference(blk, h, dec, n_fft, hist, "spectrum").numpy()
         assert evm_rms_db(spec, twin) <= EVM_DB
+
+
+# ------------------------------- the chunked and cluster instances' schedule
+#
+# A numpy model of ``csrc/rx_frame.cu``'s rx_frame_general_kernel at the
+# launch geometry of ``rf.general_layout``: each CTA's chunks and tap ranges
+# staged as the kernel stages them (one window per frame a chunk touches, at
+# the kernel's slot of each sample, zeros past the frame and before a row's
+# first frame without history), the FIR read back at the kernel's slots, the
+# outputs stored where the kernel stores them (a frame's FFT buffer, or the
+# cluster CTA that owns the column), the mixed-radix Stockham passes and the
+# prime pass by their index formulas on padded buffers, the cluster's
+# twiddled gather of rows, and the epilogue's bin order. Held against the
+# float64 chain, the JAX package and the plain twin.
+
+
+def _gen_fft(buf, n, nb, nf, rads, tw, tstride):
+    """The kernel's gen_fft over ``nf`` frames of ``n`` points (stride ``nb``,
+    fslot padding) in a flat complex64 buffer, in place."""
+    fs = lambda i: i + (i >> 3)  # noqa: E731
+    ns = 1
+    f = np.arange(nf)[:, None] * nb
+    for r in rads:
+        new = buf.copy()
+        if r in rf.SMALL_RADICES:
+            nbf = n // r
+            j = np.arange(nbf)[None, :]
+            v = [buf[f + fs(j + q * nbf)] for q in range(r)]
+            jd, jm = j // ns, j % ns
+            if ns > 1:
+                e = jm * (n // (ns * r) * tstride)
+                v = [v[0]] + [v[q] * tw[e * q] for q in range(1, r)]
+            v = np.fft.fft(np.stack(v, -1).astype(np.complex128), axis=-1).astype(np.complex64)
+            d = jd * ns * r + jm
+            for q in range(r):
+                new[f + fs(d + q * ns)] = v[..., q]
+        else:
+            np_ = n // r
+            w = np.arange(n)[None, :]
+            j, kk = w // r, w % r
+            jd, jm = j // ns, j % ns
+            step = np_ // ns * (jm + kk * ns)
+            acc = np.zeros((nf, n), np.complex64)
+            for q in range(r):
+                acc = acc + buf[f + fs(j + q * np_)] * tw[(q * step % n) * tstride]
+            new[f + fs(jd * ns * r + jm + kk * ns)] = acc
+        buf[:] = new
+        ns *= r
+    return buf
+
+
+def general_model(x, taps, dec, n, history=None, epilogue="spectrum"):
+    """One block row through the chunked or cluster instance's schedule:
+    SN-scaled spectra ``[nsym, n]`` or packed bytes, as ``rx_frame``."""
+    x = np.asarray(x, np.complex64)
+    taps = np.asarray(taps, np.complex64)
+    k, span = taps.size, dec * n
+    ku, nsym = k - 1, x.size // span
+    lay = rf.general_layout(dec, n, k)
+    tw = rf.twiddles(n, "cpu").numpy()
+    ws = lambda e: e + (e >> 5)  # noqa: E731
+    fs = lambda i: i + (i >> 3)  # noqa: E731
+    q, lp, chunk, kt = lay["q"], lay["lp"], lay["chunk"], lay["kt"]
+    nkr = -(-k // kt)
+
+    def sample(fi, i):
+        # sample i of frame fi, as the kernel stages it
+        out = np.zeros(i.shape, np.complex64)
+        ok = i < span
+        inside = ok & ((i >= 0) | (fi % nsym != 0))
+        out[inside] = x[fi * span + i[inside]]
+        if history is not None:
+            hs = ok & ~inside
+            out[hs] = np.asarray(history, np.complex64)[ku + i[hs]]
+        return out
+
+    ctas = nsym * q if q > 1 else -(-nsym // lay["fpc"])
+    bufs = np.zeros((ctas, lay["fbuf"]), np.complex64)
+    for cta in range(ctas):
+        f0, nf, rank = (cta // q, 1, cta % q) if q > 1 else (
+            cta * lay["fpc"], min(lay["fpc"], nsym - cta * lay["fpc"]), 0)
+        total = nf * lp
+        for o0 in range(0, total, chunk):
+            o1 = min(o0 + chunk, total)
+            o = np.arange(o0, o1)
+            acc = np.zeros(o.shape, np.complex64)
+            for kr in range(nkr):
+                k0, k1 = kr * kt, min(k, kr * kt + kt)
+                win = np.zeros(lay["win"], np.complex64)
+                jf, t = o0 // lp, 0
+                while jf * lp < o1:
+                    ps, pe = max(o0, jf * lp), min(o1, (jf + 1) * lp)
+                    base = dec * (ps - o0) + t * (k1 - k0 - dec)
+                    wl = dec * (pe - ps - 1) + (k1 - k0)
+                    e = np.arange(wl)
+                    i0 = dec * (rank * lp + ps - jf * lp) - (k1 - 1)
+                    win[ws(base + e)] = sample(f0 + jf, i0 + e)
+                    jf, t = jf + 1, t + 1
+                t = o // lp - o0 // lp
+                ob = dec * (o - o0) + t * (k1 - k0 - dec) + (k1 - 1)
+                kk = np.arange(k0, k1)
+                acc = acc + (win[ws(ob[:, None] - kk[None, :])] * taps[kk]).sum(-1)
+            jf = o // lp
+            m = o - jf * lp + rank * lp
+            if q > 1:
+                m1, m2 = m // lay["b"], m % lay["b"]
+                bq = lay["b"] // q
+                dst = cta - rank + m2 // bq
+                bufs[dst, (m2 % bq) * lay["nb1"] + fs(m1)] = acc
+            else:
+                keep = m < n
+                bufs[cta, jf[keep] * lay["nb1"] + fs(m[keep])] = acc[keep]
+    spec = np.zeros((nsym, n), np.complex64)
+    if q == 1:
+        for cta in range(ctas):
+            f0 = cta * lay["fpc"]
+            nf = min(lay["fpc"], nsym - f0)
+            _gen_fft(bufs[cta], n, lay["nb1"], nf, lay["rad1"], tw, 1)
+            for j in range(nf):
+                spec[f0 + j] = bufs[cta, j * lay["nb1"] + fs(np.arange(n))]
+    else:
+        a, b = lay["a"], lay["b"]
+        aq, bq = a // q, b // q
+        for cta in range(ctas):
+            _gen_fft(bufs[cta], a, lay["nb1"], bq, lay["rad1"], tw, b)
+        gathered = np.zeros_like(bufs)
+        pt = np.arange(aq * b)
+        k1l, m2 = pt // b, pt % b
+        for cta in range(ctas):
+            rank = cta % q
+            k1 = rank * aq + k1l
+            src = cta - rank + m2 // bq
+            v = bufs[src, (m2 % bq) * lay["nb1"] + fs(k1)] * tw[k1 * m2]
+            gathered[cta, k1l * lay["nb2"] + fs(m2)] = v
+        bufs = gathered
+        for cta in range(ctas):
+            rank = cta % q
+            _gen_fft(bufs[cta], b, lay["nb2"], aq, lay["rad2"], tw, a)
+            i = np.arange(aq * b)
+            k2, k1l = i // aq, i % aq
+            spec[cta // q, rank * aq + k1l + a * k2] = bufs[cta, k1l * lay["nb2"] + fs(k2)]
+    if epilogue == "spectrum":
+        return spec * np.float32(Scale.SN.factor_for(n))
+    return rf.pack_bits(rf.sign_bits(torch.from_numpy(spec), epilogue)).numpy()
+
+
+@pytest.mark.parametrize("n_fft", [192, 30, 131, 3072, 48, 1536, 1 << 12, 8 * 9 * 5 * 7])
+def test_general_model_fft_is_the_dft(n_fft):
+    rng = np.random.default_rng(n_fft)
+    nf, nb = 3, n_fft + (n_fft - 1) // 8 + 1
+    x = (rng.normal(size=(nf, n_fft)) + 1j * rng.normal(size=(nf, n_fft))).astype(np.complex64)
+    buf = np.zeros(nf * nb, np.complex64)
+    idx = np.arange(nf)[:, None] * nb + (lambda i: i + (i >> 3))(np.arange(n_fft))[None, :]
+    buf[idx] = x
+    _gen_fft(buf, n_fft, nb, nf, rf.radices(n_fft), rf.twiddles(n_fft, "cpu").numpy(), 1)
+    assert evm_rms_db(buf[idx], np.fft.fft(x.astype(np.complex128), axis=-1)) <= -110.0
+
+
+@pytest.mark.parametrize("dec,n_fft,ntaps", [
+    (4, 192, 65), (5, 30, 81), (4, 131, 65), (16, 128, 257), (64, 16, 1025),
+    (3, 48, 49), (2, 12, 9), (4, 128, 300), (1, 8192, 17),
+    (8, 4096, 129), (1, 32768, 17), (64, 1024, 1025), (3, 16384, 49),
+    (64, 64, 4097),  # taps staged in two ranges
+])
+def test_general_model_matches_float64_and_the_twin(dec, n_fft, ntaps):
+    # two blocks, the second with the first's tail as history; every
+    # instance the plan picks: one CTA, several frames a CTA, clusters
+    taps = _default_lowpass(ntaps, 1.0 / (2 * dec)) if dec > 1 else _default_lowpass(ntaps, 0.4)
+    k = taps.shape[-1]
+    span = dec * n_fft
+    x = _signal(2 * span * max(2, 4096 // span), 108 + n_fft)
+    ref = numpy_reference_spectra(x, taps, dec, n_fft)
+    half = ref.shape[0] // 2
+    for i, (blk, hist) in enumerate(_halves(x, k)):
+        hn = None if hist is None else hist.numpy()
+        spec = general_model(blk.numpy(), taps, dec, n_fft, hn)
+        rs = ref[i * half:(i + 1) * half] * np.sqrt(n_fft) * Scale.SN.factor_for(n_fft)
+        assert evm_rms_db(spec, rs) <= EVM_DB
+        twin = rf.rx_frame_reference(blk, taps, dec, n_fft, hist, "spectrum").numpy()
+        assert evm_rms_db(spec, twin) <= EVM_DB
+        for epi, bits in (("qpsk", 2), ("bpsk", 1)):
+            if n_fft * bits % 8 == 0:
+                got = unpack(torch.from_numpy(general_model(blk.numpy(), taps, dec, n_fft, hn,
+                                                            epi))).numpy()
+                _check_bits(got, *_decisions(rs, epi))

@@ -134,7 +134,8 @@ def test_kernel_limits():
     assert vk.kernel_supports(638, 2, 7)
     assert vk.kernel_supports(160, 3, 5)
     assert vk.kernel_supports(29_000, 2, 7)  # one trellis per block
-    assert not vk.kernel_supports(30_000, 2, 7)
+    assert vk.kernel_supports(30_000, 2, 7)  # the history in a device scratch
+    assert vk.kernel_supports(2 ** 20, 2, 7)
     assert not vk.kernel_supports(100, 2, 10)  # 512 states
     assert not vk.kernel_supports(100, 9, 7)  # 9 generators
     with pytest.raises(ValueError, match="bad span shape"):
@@ -179,8 +180,8 @@ def test_cuda_kernel_matches_twin_on_ties_and_every_state_count(cuda):
 @pytest.mark.cuda
 def test_cuda_kernel_raises_on_spans_it_does_not_take(cuda):
     before = vk.launches
-    with pytest.raises(ValueError, match="windowed decoder"):
-        vk.viterbi_lanes(torch.zeros(1, 30_000, 2, device=cuda), 30_000, 2, K7[0], 7,
+    with pytest.raises(ValueError, match="does not take"):  # 512 states
+        vk.viterbi_lanes(torch.zeros(1, 100, 2, device=cuda), 100, 2, (0o1171, 0o1233), 10,
                          True, True)
     with pytest.raises(ValueError, match="contiguous"):
         vk.viterbi_lanes(torch.zeros(10, 4, 2, device=cuda).transpose(0, 1), 10, 2,
@@ -323,8 +324,11 @@ def test_kernel_span_limit_is_the_decision_history(code):
     limit = vk.MAX_SMEM // (4 * max(1, (1 << (k - 1)) // 32))
     assert limit == {3: 58_112, 5: 58_112, 7: 29_056, 9: 7_264}[k]
     assert vk.kernel_supports(limit, n, k)
-    assert not vk.kernel_supports(limit + 1, n, k)
+    assert vk.kernel_supports(limit + 1, n, k)  # past it, the device scratch
+    assert vk.scratch_words(limit, k, 3) == 0
+    assert vk.scratch_words(limit + 1, k, 3) == 3 * (limit + 1) * max(1, (1 << (k - 1)) // 32)
     assert vk.warps_per_block(limit, k) == 1
+    assert vk.warps_per_block(limit + 1, k) is None
     assert vk.warps_per_block(limit // 4, k) == 4
 
 
@@ -337,6 +341,25 @@ def test_cuda_kernel_at_the_span_limit(cuda, code):
     rng = np.random.default_rng(110 + k)
     sym = np.round(rng.normal(size=(2, lw, n)) * 2).astype(np.float32)
     got = vk.viterbi_lanes(torch.from_numpy(sym).to(cuda), lw, n, polys, k, True, False)
+    want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, True, False)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lw", [29_057, 65_536])
+@pytest.mark.parametrize("code", ["k5r2", "k7r2", "k9r3"])
+def test_cuda_kernel_past_the_span_limit(cuda, code, lw):
+    # a full block whose decision history does not fit shared memory: one
+    # launch, the histories in the device scratch, equal to the twin
+    polys, k = CODES[code]
+    n = len(polys)
+    assert vk.scratch_words(lw, k, 2) > 0 or k < 7
+    rng = np.random.default_rng(120 + k + lw)
+    sym = _tie_llrs(rng, (2, lw, n))
+    before = vk.launches
+    got = vk.viterbi_lanes(torch.from_numpy(sym).to(cuda), lw, n, polys, k, True, False)
+    torch.cuda.synchronize()
+    assert vk.launches == before + 1
     want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, True, False)
     assert torch.equal(got.cpu(), want)
 
