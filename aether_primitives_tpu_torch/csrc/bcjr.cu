@@ -104,11 +104,25 @@
 //   spans Lw 876 at S 64, 1,705 at S 32, 1,610 at 16, 1,449 at 8 and 1,208
 //   at 4 fit 227 KB. A longer span takes the column instance.
 //
-// bcjr_kernel<S>, the column instance, only for spans past the lanes
-// instance's limit (any table set, S in 4..64): one thread per column, the
-// metric column in shared memory ([S][threads], so the table-indexed reads
-// of a warp hit 32 consecutive words), the beta history in a global scratch
-// laid out [Lw][S][N] (coalesced along N), backward pass then forward pass.
+// bcjr_kernel<S>, the column instance, for spans past the lanes instance's
+// limit (any table set, S in 4..64) and for every span at S 2 and 3: one
+// thread per column, the metric column in shared memory ([S][threads], so
+// the table-indexed reads of a warp hit 32 consecutive words), the beta
+// history in a global scratch laid out [Lw][S][N] (coalesced along N),
+// backward pass then forward pass. Its code does not need S to be a power of
+// two.
+//
+// bcjr_block_kernel, the block instance, for every other state count (5-7,
+// 9-15, ..., 128, 256 and up): one CTA of 256 threads a column, states s,
+// s + 256, ... a thread, the tables read from the card. Each direction keeps
+// two buffers of S metrics (read one, write the other), in shared memory
+// while both fit (S <= 28,928) and in a device scratch past that; a buffer
+// holds a step's metrics before the subtraction of their maximum, which the
+// next step subtracts as it reads them (the same floats as the twin's). The
+// maxima (the state maximum, and the LLR's two) are redux.sync on
+// order-preserving keys and one barrier a step. The beta history goes to a
+// device scratch [N][Lw][S]. Its limit is the card's memory; it is written
+// for reach, not speed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +135,7 @@ constexpr int kThreads = 128;         // the generic instance's block
 constexpr int kMeetThreads = 64;      // the meet instance's block: two warps
 constexpr int kLanesThreads = 64;     // the lanes instance's block: two warps
 constexpr int kMaxSmem = 232448;      // opt-in shared memory of a block on sm_90
+constexpr int kBlockThreads = 256;    // the block instance's CTA
 
 // The turbo RSC-8 trellis of ops/turbo.py _trellis(): nxt[s][u] and
 // prev_s[s'][j], row-major [8][2], and the branch-metric class of each
@@ -868,6 +883,136 @@ int launch(const void* ls, const void* lp, void* llr, void* scratch, int lw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ block instance
+
+constexpr int kNoKey = static_cast<int>(0x80000000u);  // below every max_key
+
+__device__ __forceinline__ int key_of(float v) { return max_key(__float_as_int(v)); }
+__device__ __forceinline__ float of_key(int k) { return __int_as_float(max_key(k)); }
+
+// The block maximum of R max_keys a thread (redux.sync a warp, then the
+// warps' through shared memory, one barrier); red: [2][R][warps],
+// alternating by `parity` so that one barrier a step suffices.
+template <int R>
+__device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kBlockThreads / 32],
+                                          int parity) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    k[r] = __reduce_max_sync(0xffffffffu, k[r]);
+    if ((threadIdx.x & 31) == 0) red[parity * R + r][warp] = k[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    k[r] = red[parity * R + r][0];
+#pragma unroll
+    for (int w = 1; w < kBlockThreads / 32; ++w) k[r] = max(k[r], red[parity * R + r][w]);
+  }
+}
+
+// One CTA a column (blockIdx.x). idx: int32 [nxt; prev_s] and coef: float32
+// [fw0; fw1; bw0; bw1], each [S][2], on the card; hist: the column's beta
+// history [lw][S] at hist + col lw S; mscratch: two buffers of S floats a
+// column, or null for shared memory.
+__global__ void __launch_bounds__(kBlockThreads)
+bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
+                  float* __restrict__ llr, float* hist, float* mscratch, int lw,
+                  long long ncols, int S, const int* __restrict__ idx,
+                  const float* __restrict__ coef) {
+  extern __shared__ float smb[];
+  __shared__ int red[2 * 3][kBlockThreads / 32];
+  const int tid = threadIdx.x;
+  const long long col = blockIdx.x;
+  float* ma = mscratch != nullptr ? mscratch + col * 2 * S : smb;
+  float* mb = ma + S;
+  float* h = hist + col * lw * S;
+  const int* nxt = idx;
+  const int* prv = idx + 2 * S;
+  const float* fw0 = coef;
+  const float* fw1 = coef + 2 * S;
+  const float* bw0 = coef + 4 * S;
+  const float* bw1 = coef + 6 * S;
+
+  // backward: beta[s] = ma[s] - mx, zero at t = lw - 1
+  for (int s = tid; s < S; s += kBlockThreads) ma[s] = 0.0f;
+  float mx = 0.0f;
+  __syncthreads();
+  for (int i = 0; i < lw; ++i) {
+    const int t = lw - 1 - i;
+    const float ls_t = __ldg(ls + t * ncols + col);
+    const float lp_t = __ldg(lp + t * ncols + col);
+    float* ht = h + static_cast<long long>(t) * S;
+    int k[1] = {kNoKey};
+    for (int s = tid; s < S; s += kBlockThreads) {
+      ht[s] = __fsub_rn(ma[s], mx);
+      const float c0 = __fadd_rn(__fsub_rn(ma[__ldg(nxt + 2 * s)], mx),
+                                 branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t));
+      const float c1 = __fadd_rn(__fsub_rn(ma[__ldg(nxt + 2 * s + 1)], mx),
+                                 branch_metric(__ldg(bw0 + 2 * s + 1), __ldg(bw1 + 2 * s + 1),
+                                               ls_t, lp_t));
+      const float b = fmaxf(c0, c1);
+      mb[s] = b;
+      k[0] = max(k[0], key_of(b));
+    }
+    block_max<1>(k, red, i & 1);  // its barrier: mb and ht written, ma read
+    mx = of_key(k[0]);
+    float* tmp = ma;
+    ma = mb;
+    mb = tmp;
+  }
+
+  // forward: alpha[s] = ma[s] - mx, zero at t = 0; the LLR from alpha, the
+  // backward step's branch metrics and beta_t
+  for (int s = tid; s < S; s += kBlockThreads) ma[s] = 0.0f;
+  mx = 0.0f;
+  __syncthreads();
+  for (int t = 0; t < lw; ++t) {
+    const float ls_t = __ldg(ls + t * ncols + col);
+    const float lp_t = __ldg(lp + t * ncols + col);
+    const float* ht = h + static_cast<long long>(t) * S;
+    int k[3] = {kNoKey, kNoKey, kNoKey};
+    for (int s = tid; s < S; s += kBlockThreads) {
+      const float a = __fsub_rn(ma[s], mx);
+      const float c0 = __fadd_rn(
+          __fadd_rn(a, branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t)),
+          ht[__ldg(nxt + 2 * s)]);
+      const float c1 = __fadd_rn(
+          __fadd_rn(a, branch_metric(__ldg(bw0 + 2 * s + 1), __ldg(bw1 + 2 * s + 1), ls_t, lp_t)),
+          ht[__ldg(nxt + 2 * s + 1)]);
+      k[0] = max(k[0], key_of(c0));
+      k[1] = max(k[1], key_of(c1));
+      const float n0 = __fadd_rn(__fsub_rn(ma[__ldg(prv + 2 * s)], mx),
+                                 branch_metric(__ldg(fw0 + 2 * s), __ldg(fw1 + 2 * s), ls_t, lp_t));
+      const float n1 = __fadd_rn(__fsub_rn(ma[__ldg(prv + 2 * s + 1)], mx),
+                                 branch_metric(__ldg(fw0 + 2 * s + 1), __ldg(fw1 + 2 * s + 1),
+                                               ls_t, lp_t));
+      const float an = fmaxf(n0, n1);
+      mb[s] = an;
+      k[2] = max(k[2], key_of(an));
+    }
+    block_max<3>(k, red, t & 1);
+    if (tid == 0) llr[t * ncols + col] = __fsub_rn(of_key(k[0]), of_key(k[1]));
+    mx = of_key(k[2]);
+    float* tmp = ma;
+    ma = mb;
+    mb = tmp;
+  }
+}
+
+int launch_block(const float* ls, const float* lp, float* llr, float* hist, float* mscratch,
+                 int lw, long long ncols, int s_count, const int* idx, const float* coef,
+                 cudaStream_t stream) {
+  const size_t smem = mscratch != nullptr ? 0 : 2 * static_cast<size_t>(s_count) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(bcjr_block_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bcjr_block_kernel<<<static_cast<unsigned>(ncols), kBlockThreads, smem, stream>>>(
+      ls, lp, llr, hist, mscratch, lw, ncols, s_count, idx, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Runs launch() with card `device` current (and the caller's put back).
 template <class F>
 int on_device(int device, F&& launch) {
@@ -918,9 +1063,9 @@ extern "C" int bcjr_lanes_launch(const void* ls, const void* lp, void* llr, int 
 }
 
 // bcjr_launch, the column instance, for spans too long for the lanes
-// instance's shared memory. The caller guarantees: ls, lp, llr
-// float32 [lw, ncols] and scratch float32 [lw, s_count, ncols], contiguous;
-// s_count in {4, 8, 16, 32, 64}; idx a host int32 array [nxt; prev_s] of
+// instance's shared memory and for 2 and 3 states. The caller guarantees:
+// ls, lp, llr float32 [lw, ncols] and scratch float32 [lw, s_count, ncols],
+// contiguous; s_count in {2, 3, 4, 8, 16, 32, 64}; idx a host int32 array [nxt; prev_s] of
 // 2 x s_count x 2 entries with every entry in [0, s_count); coef a host
 // float32 array [fw0; fw1; bw0; bw1] of 4 x s_count x 2 entries.
 extern "C" int bcjr_launch(const void* ls, const void* lp, void* llr, void* scratch,
@@ -929,6 +1074,8 @@ extern "C" int bcjr_launch(const void* ls, const void* lp, void* llr, void* scra
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     switch (s_count) {
+      case 2: return launch<2>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
+      case 3: return launch<3>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
       case 4: return launch<4>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
       case 8: return launch<8>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
       case 16: return launch<16>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
@@ -961,5 +1108,26 @@ extern "C" int bcjr_rsc8_launch(const void* ls, const void* lp, void* llr, int l
       case 16: return launch_meet<16>(a, b, o, lw, ncols, vec, cls, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+  });
+}
+
+// bcjr_block_launch, the block instance (one CTA a column), for any state
+// count. ls, lp, llr float32 [lw, ncols], contiguous, lw >= 1, 1 <= ncols <
+// 2^31, s_count >= 2; idx int32 [nxt; prev_s] (2 x s_count x 2 entries, each
+// in [0, s_count)) and coef float32 [fw0; fw1; bw0; bw1] (4 x s_count x 2),
+// both on the card; hist float32 [ncols, lw, s_count] on the card; mscratch
+// float32 [ncols, 2, s_count] on the card, or null where 2 s_count floats
+// fit the card's opt-in shared memory beside the block's 192 bytes.
+extern "C" int bcjr_block_launch(const void* ls, const void* lp, void* llr, void* hist,
+                                 void* mscratch, int lw, long long ncols, int s_count,
+                                 const void* idx, const void* coef, int device, void* stream) {
+  if (lw < 1 || ncols < 1 || ncols > 0x7fffffffLL || s_count < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&] {
+    return launch_block(static_cast<const float*>(ls), static_cast<const float*>(lp),
+                        static_cast<float*>(llr), static_cast<float*>(hist),
+                        static_cast<float*>(mscratch), lw, ncols, s_count,
+                        static_cast<const int*>(idx), static_cast<const float*>(coef), s);
   });
 }

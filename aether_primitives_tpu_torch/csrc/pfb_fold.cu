@@ -60,9 +60,21 @@
 //   class), are loaded once into shared memory where they fit beside one
 //   slab. Past that (a large os x P) an instance stages one class's weights
 //   a chunk of 4 x 16 (synthesis 4 x 11) branches at a time between two
-//   block barriers, so the kernel takes any P whose slab fits beside a
+//   block barriers, so this kernel takes any P whose slab fits beside a
 //   chunk, at every os: P <= 294 real / 262 complex (analysis, planes),
 //   388 / 366 (synthesis).
+// - Past that P, the ranged instance (pfb_fold_ranged_kernel) stages a
+//   tile's slab in ranges of Pc branches, the way the RX frame kernel stages
+//   its window: branches [q0, q0 + Pc) of a tile read the slab rows [q0, q0 +
+//   tile + Pc), which go through the same two-stage cp.async ring, each with
+//   its class's Pc x 64 weights beside it (Pc 64 real / 48 complex analysis
+//   and planes, 121 / 88 synthesis: two stages within 227 KB). A pipeline
+//   step is (tile, class, range); a thread's accumulators stay in registers
+//   across the ranges, so the sum over p runs in the same order from p = 0.
+//   It re-reads the tile's slab for every class: written for reach, not
+//   speed.
+// - Past 65,535 strips of 64 columns or 65,535 rows (times the class runs),
+//   grid.y and grid.z stop at 65,535 and the excess folds into grid.x.
 // - Frames go out interleaved, in frame order, as coalesced rows; the
 //   ragged edges are masked here, so no caller pads, concatenates,
 //   de-interleaves or splits planes. The synthesis stage's tail add and
@@ -118,10 +130,26 @@ struct Params {
   int t_out;  // analysis: frames; planes: class frames
   int t_cls;  // analysis, planes: class frames; synthesis: slabs a class (T_cls + P - 1)
   int n_tiles, tiles_per_block, stages;
-  // analysis, planes: runs of classes a tile is split into (blockIdx.z is
-  // row * groups + run; 1 unless the tiles alone leave SMs idle)
+  // analysis, planes: runs of classes a tile is split into (the block's z
+  // coordinate is row * groups + run; 1 unless the tiles alone leave SMs idle)
   int groups;
+  // the grid: splits runs of tiles along x, strips along y and batch *
+  // groups along z; past 65,535 along y or z the excess folds into x as
+  // blockIdx.x = split + splits * (yhi + ny * zhi)
+  int splits, ny, strips, zs;
+  // the ranged instance: branches a range (0 in the other instance)
+  int pc;
 };
+
+// This block's (tile run, strip, row * groups + run) coordinates; false
+// for a block of the folded grid past the last strip or row.
+__device__ __forceinline__ bool block_coords(const Params& a, int& bx, int& by, int& bz) {
+  const int hi = blockIdx.x / a.splits;
+  bx = blockIdx.x - hi * a.splits;
+  by = blockIdx.y + (hi % a.ny) * gridDim.y;
+  bz = blockIdx.z + (hi / a.ny) * gridDim.z;
+  return by < a.strips && bz < a.zs;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -233,6 +261,60 @@ __device__ __forceinline__ void fold_class(const float2* __restrict__ col,
   }
 }
 
+// Analysis and planes: class j's frames i0 .. i0 + F - 1 of column c (batch
+// row b) out, the ragged frame edge masked.
+template <int M_, int F>
+__device__ __forceinline__ void store_frames(const Params& a, long long b, int c, int i0, int j,
+                                             const float2 (&acc)[F]) {
+  if (M_ == kAnalysis) {
+    float2* out = a.out + b * static_cast<long long>(a.t_out) * a.m + c;
+#pragma unroll
+    for (int t = 0; t < F; ++t) {
+      const long long frame = static_cast<long long>(i0 + t) * a.os + j;
+      if (frame < a.t_out) out[frame * a.m] = acc[t];
+    }
+  } else {
+    const long long plane = (b * a.os + j) * static_cast<long long>(a.t_cls) * a.m + c;
+#pragma unroll
+    for (int t = 0; t < F; ++t) {
+      if (i0 + t < a.t_cls) {
+        a.out_re[plane + static_cast<long long>(i0 + t) * a.m] = acc[t].x;
+        a.out_im[plane + static_cast<long long>(i0 + t) * a.m] = acc[t].y;
+      }
+    }
+  }
+}
+
+// Synthesis: class j's sum acc of output rows u0 .. u0 + F - 1 of column c
+// (which reads class row U - d) added into o in j order; after the last
+// class the stage's epilogue (the tail added, samples below emit divided
+// by div[u mod hop] into out, the rest into rest).
+template <int F>
+__device__ __forceinline__ void synthesis_add(const Params& a, long long b, int c, int u0, int d,
+                                              int j, const float2 (&acc)[F], float2 (&o)[F]) {
+#pragma unroll
+  for (int t = 0; t < F; ++t) {
+    const int srow = u0 + t - d;
+    const float2 v = (srow >= 0 && srow < a.t_cls) ? acc[t] : zero2();
+    o[t] = j == 0 ? v : add2(o[t], v);
+  }
+  if (j != a.os - 1) return;
+  const float dv = a.div ? a.div[c % a.hop] : 1.0f;  // (U*M + c) mod hop
+#pragma unroll
+  for (int t = 0; t < F; ++t) {
+    const long long idx = static_cast<long long>(u0 + t) * a.m + c;
+    if (idx >= a.out_len) continue;
+    float2 v = o[t];
+    if (idx < a.tail_len) v = add2(v, a.tail[b * a.tail_len + idx]);
+    if (idx < a.emit) {
+      if (a.div) v = make_float2(__fdiv_rn(v.x, dv), __fdiv_rn(v.y, dv));
+      a.out[b * a.emit + idx] = v;
+    } else {
+      a.rest[b * (a.out_len - a.emit) + idx - a.emit] = v;
+    }
+  }
+}
+
 template <int M_, bool CT>
 struct Inst {
   static constexpr int kRows = M_ == kSynthesis ? kRowsSynthesis : kRowsAnalysis;
@@ -262,16 +344,18 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
   // WS: [os][p][64]; else [kChunk][64]
   Tw* sw = reinterpret_cast<Tw*>(ring + a.stages * slab_rows * kStrip);
 
+  int bx, by, bz;
+  if (!block_coords(a, bx, by, bz)) return;
   const int tid = threadIdx.x;
   const int tx = tid & (kStrip - 1);
   const int tl = (tid / kStrip) * F;  // first local frame (row) of this thread
-  const int c0 = blockIdx.y * kStrip;
+  const int c0 = by * kStrip;
   const int c = c0 + tx;
   const bool col_ok = c < a.m;
-  const long long b = blockIdx.z / a.groups;
-  const int g = blockIdx.z - static_cast<int>(b) * a.groups;  // this block's classes
+  const long long b = bz / a.groups;
+  const int g = bz - static_cast<int>(b) * a.groups;  // this block's classes
   const int j_lo = g * a.os / a.groups, j_hi = (g + 1) * a.os / a.groups;
-  const int tile0 = blockIdx.x * a.tiles_per_block;
+  const int tile0 = bx * a.tiles_per_block;
   const int n_my = min(a.tiles_per_block, a.n_tiles - tile0);
   const int upt = M_ == kSynthesis ? a.os : 1;  // pipeline steps a tile
   const int n_steps = n_my * upt;
@@ -401,31 +485,7 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
         float2 acc[F];
         fold_class<F, I::kChunk, WS, Tw>(slab + (tl + 1 - d) * kStrip + tx, wcol(j), p, acc,
                                          [&](int q0) { stage_chunk(j, q0); });
-        if (col_ok) {
-          const int u0 = tile * kTile + tl;
-#pragma unroll
-          for (int t = 0; t < F; ++t) {
-            const int srow = u0 + t - d;
-            const float2 v = (srow >= 0 && srow < a.t_cls) ? acc[t] : zero2();
-            o[t] = j == 0 ? v : add2(o[t], v);
-          }
-          if (j == a.os - 1) {
-            const float d = a.div ? a.div[c % a.hop] : 1.0f;  // (U*M + c) mod hop
-#pragma unroll
-            for (int t = 0; t < F; ++t) {
-              const long long idx = static_cast<long long>(u0 + t) * a.m + c;
-              if (idx >= a.out_len) continue;
-              float2 v = o[t];
-              if (idx < a.tail_len) v = add2(v, a.tail[b * a.tail_len + idx]);
-              if (idx < a.emit) {
-                if (a.div) v = make_float2(__fdiv_rn(v.x, d), __fdiv_rn(v.y, d));
-                a.out[b * a.emit + idx] = v;
-              } else {
-                a.rest[b * (a.out_len - a.emit) + idx - a.emit] = v;
-              }
-            }
-          }
-        }
+        if (col_ok) synthesis_add<F>(a, b, c, tile * kTile + tl, d, j, acc, o);
       }
     } else if (!WS || col_ok) {
       const int i0 = tile * kTile + tl;
@@ -434,24 +494,7 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
         float2 acc[F];
         fold_class<F, I::kChunk, WS, Tw>(slab + (tl + down) * kStrip + tx, wcol(j), p, acc,
                                          [&](int q0) { stage_chunk(j, q0); });
-        if (!col_ok) return;
-        if (M_ == kAnalysis) {
-          float2* out = a.out + b * static_cast<long long>(a.t_out) * a.m + c;
-#pragma unroll
-          for (int t = 0; t < F; ++t) {
-            const long long frame = static_cast<long long>(i0 + t) * a.os + j;
-            if (frame < a.t_out) out[frame * a.m] = acc[t];
-          }
-        } else {
-          const long long plane = (b * a.os + j) * static_cast<long long>(a.t_cls) * a.m + c;
-#pragma unroll
-          for (int t = 0; t < F; ++t) {
-            if (i0 + t < a.t_cls) {
-              a.out_re[plane + static_cast<long long>(i0 + t) * a.m] = acc[t].x;
-              a.out_im[plane + static_cast<long long>(i0 + t) * a.m] = acc[t].y;
-            }
-          }
-        }
+        if (col_ok) store_frames<M_, F>(a, b, c, i0, j, acc);
       };
       for (int j = j_lo; j < j_hi; ++j) fold_store(j);
     }
@@ -459,7 +502,170 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
   }
 }
 
-constexpr int kInstances = 10;  // 5 layout x tap-type pairs, weights staged or not
+// One range's sum for the F frames of a thread: branches q0 + q, q < pc, of
+// the rows the range's slab holds (slab row t + q of col in window slot (t +
+// q) % F, as in fold_class), weights wcol[q * 64] staged beside the slab;
+// the first term of branch 0 initialises acc where `first`, else every term
+// adds to the sum the earlier ranges left in acc.
+template <int F, typename Tw>
+__device__ __forceinline__ void fold_range(const float2* __restrict__ col,
+                                           const Tw* __restrict__ wcol, int pc, bool first,
+                                           float2 (&acc)[F]) {
+  float2 xw[F];
+#pragma unroll
+  for (int t = 0; t < F; ++t) xw[t] = col[t * kStrip];
+  for (int qb = 0; qb < pc; qb += F) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int q = qb + k;
+      if (q >= pc) break;
+      const Tw w = wcol[q * kStrip];
+#pragma unroll
+      for (int t = 0; t < F; ++t) {
+        const float2 v = term(xw[(k + t) % F], w);
+        acc[t] = (first && q == 0) ? v : add2(acc[t], v);
+      }
+      if (q + 1 < pc) xw[k] = col[(q + F) * kStrip];
+    }
+  }
+}
+
+// The ranged instance: layouts as pfb_fold_kernel, for a P whose slab does
+// not fit beside a chunk of the weights. A pipeline step u is (tile, class
+// jj, range r) = (u / (classes * ranges), u / ranges % classes, u % ranges);
+// its ring stage holds the slab rows [r Pc, r Pc + tile + Pc) of the tile
+// and class jj's weights of branches [r Pc, r Pc + Pc).
+template <int M_, bool CT>
+__global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBlocks)
+    pfb_fold_ranged_kernel(const Params a) {
+  using I = Inst<M_, CT>;
+  using Tw = typename I::Tw;
+  constexpr int F = I::kFrames;
+  constexpr int kTile = I::kTile;
+  constexpr int kThreads = I::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int bx, by, bz;
+  if (!block_coords(a, bx, by, bz)) return;
+  const int p = a.p;
+  const int pcmax = a.pc;
+  const int slab_rows = kTile + pcmax;
+  const int stage_elems = slab_rows * kStrip + pcmax * kStrip * static_cast<int>(sizeof(Tw)) / 8;
+  float2* ring = reinterpret_cast<float2*>(smem_raw);  // [2][slab, weights]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & (kStrip - 1);
+  const int tl = (tid / kStrip) * F;
+  const int c0 = by * kStrip;
+  const int c = c0 + tx;
+  const bool col_ok = c < a.m;
+  const long long b = bz / a.groups;
+  const int g = bz - static_cast<int>(b) * a.groups;
+  const int j_lo = M_ == kSynthesis ? 0 : g * a.os / a.groups;
+  const int j_hi = M_ == kSynthesis ? a.os : (g + 1) * a.os / a.groups;
+  const int classes = j_hi - j_lo;
+  const int ranges = (p + pcmax - 1) / pcmax;
+  const int tile0 = bx * a.tiles_per_block;
+  const int n_my = min(a.tiles_per_block, a.n_tiles - tile0);
+  const int upt = classes * ranges;
+  const int n_steps = n_my * upt;
+
+  auto load_unit = [&](int u, int stage) {
+    const int tile = tile0 + u / upt;
+    const int j = j_lo + (u / ranges) % classes;
+    const int q0 = (u % ranges) * pcmax;
+    float2* slab = ring + stage * stage_elems;
+    Tw* sw = reinterpret_cast<Tw*>(slab + slab_rows * kStrip);
+    for (int e = tid; e < pcmax * kStrip; e += kThreads) {
+      const int cc = c0 + (e & (kStrip - 1));
+      const int q = q0 + e / kStrip;
+      if (cc < a.m && q < p) {
+        int r = cc - j * a.hop;
+        if (r < 0) r += a.m;
+        const Tw* src = static_cast<const Tw*>(a.w) + static_cast<long long>(q) * a.m + r;
+        if (CT) {
+          cp_async8(sw + e, src);
+        } else {
+          cp_async4(sw + e, src);
+        }
+      } else {
+        sw[e] = Tw{};
+      }
+    }
+    if (M_ == kPlanes) {
+      const long long row0 = static_cast<long long>(tile) * kTile + q0;
+      for (int e = tid; e < slab_rows * kStrip; e += kThreads) {
+        const int cc = c0 + (e & (kStrip - 1));
+        const long long s = (row0 + e / kStrip) * a.m + cc;
+        float2* d = slab + e;
+        if (cc < a.m && s < a.n0) {
+          cp_async4(&d->x, a.x_re + b * a.n0 + s);
+          cp_async4(&d->y, a.x_im + b * a.n0 + s);
+        } else {
+          *d = zero2();
+        }
+      }
+      return;
+    }
+    // slab row rho is stream row first + rho * step (synthesis: class j's
+    // frame i*os + j for class frame i = tile0row - P + q0 + rho)
+    const long long first = M_ == kAnalysis
+                                ? static_cast<long long>(tile) * kTile + q0
+                                : (static_cast<long long>(tile) * kTile - p + q0) * a.os + j;
+    const long long step = M_ == kAnalysis ? 1 : a.os;
+    for (int e = tid; e < slab_rows * (kStrip / 2); e += kThreads) {
+      const int rho = e / (kStrip / 2);
+      const int k2 = 2 * (e & (kStrip / 2 - 1));
+      const int cc = c0 + k2;
+      float2* d = slab + rho * kStrip + k2;
+      const long long row = first + rho * step;
+      if (row < 0) {
+        d[0] = zero2();
+        d[1] = zero2();
+        continue;
+      }
+      load_pair(d, a, b, row * a.m + cc, cc < a.m, cc + 1 < a.m);
+    }
+  };
+
+  float2 acc[F];
+  float2 o[F];  // synthesis: the tile's sum over the classes so far
+#pragma unroll
+  for (int t = 0; t < F; ++t) {
+    acc[t] = zero2();
+    o[t] = zero2();
+  }
+
+  if (n_steps > 0) load_unit(0, 0);
+  cp_async_commit();
+  for (int u = 0; u < n_steps; ++u) {
+    if (u + 1 < n_steps) load_unit(u + 1, (u + 1) & 1);
+    cp_async_commit();
+    cp_async_wait(1);  // unit u's group landed
+    __syncthreads();
+    const float2* slab = ring + (u & 1) * stage_elems;
+    const Tw* sw = reinterpret_cast<const Tw*>(slab + slab_rows * kStrip);
+    const int tile = tile0 + u / upt;
+    const int j = j_lo + (u / ranges) % classes;
+    const int r = u % ranges;
+    const int pc = min(pcmax, p - r * pcmax);
+    if (col_ok) {
+      const int aj = j * a.hop;
+      const int d = c < aj ? 1 : 0;  // synthesis: class row U - d; else the next row
+      const int row0 = M_ == kSynthesis ? tl + 1 - d : tl + d;
+      fold_range<F, Tw>(slab + row0 * kStrip + tx, sw + tx, pc, r == 0, acc);
+      if (r == ranges - 1) {
+        if (M_ == kSynthesis) {
+          synthesis_add<F>(a, b, c, tile * kTile + tl, d, j, acc, o);
+        } else {
+          store_frames<M_, F>(a, b, c, tile * kTile + tl, j, acc);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the load issued next
+  }
+}
+
+constexpr int kInstances = 15;  // 5 layout x tap-type pairs: weights staged, chunked, ranged
 constexpr int kMaxDevices = 64;
 
 // per instance and device: the dynamic shared memory set so far, and the
@@ -472,16 +678,27 @@ struct LaunchCache {
 };
 LaunchCache g_cache;
 
-template <int M_, bool CT, bool WS>
+// KIND 0: every class's weights staged (pfb_fold_kernel<.., true>); 1: a
+// chunk at a time (pfb_fold_kernel<.., false>); 2: the ranged instance, a
+// ring of two stages of a range's slab and weights (a.pc branches)
+template <int M_, bool CT, int KIND>
 int launch_inst(int inst, int dev, size_t optin, Params a, int batch, cudaStream_t stream) {
   using I = Inst<M_, CT>;
-  auto kern = pfb_fold_kernel<M_, CT, WS>;
-  const size_t wbytes = static_cast<size_t>(WS ? a.os * a.p : I::kChunk) * kStrip *
-                        sizeof(typename I::Tw);
-  const size_t stage_bytes = static_cast<size_t>(I::kTile + a.p) * kStrip * sizeof(float2);
-  // a ring of two slabs, or one (no overlap) where two do not fit
-  a.stages = 2 * stage_bytes + wbytes <= optin ? 2 : 1;
-  const size_t smem = a.stages * stage_bytes + wbytes;
+  auto kern = KIND == 2 ? pfb_fold_ranged_kernel<M_, CT> : pfb_fold_kernel<M_, CT, KIND == 0>;
+  size_t smem;
+  if (KIND == 2) {
+    a.stages = 2;
+    smem = 2 * (static_cast<size_t>(I::kTile + a.pc) * kStrip * sizeof(float2) +
+                static_cast<size_t>(a.pc) * kStrip * sizeof(typename I::Tw));
+  } else {
+    a.pc = 0;
+    const size_t wbytes = static_cast<size_t>(KIND == 0 ? a.os * a.p : I::kChunk) * kStrip *
+                          sizeof(typename I::Tw);
+    const size_t stage_bytes = static_cast<size_t>(I::kTile + a.p) * kStrip * sizeof(float2);
+    // a ring of two slabs, or one (no overlap) where two do not fit
+    a.stages = 2 * stage_bytes + wbytes <= optin ? 2 : 1;
+    smem = a.stages * stage_bytes + wbytes;
+  }
   if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (g_cache.smem_set[inst][dev] < smem) {
@@ -506,8 +723,7 @@ int launch_inst(int inst, int dev, size_t optin, Params a, int batch, cudaStream
   const long long n_tiles = (rows + I::kTile - 1) / I::kTile;
   const long long strips = (a.m + kStrip - 1) / kStrip;
   const long long slots = static_cast<long long>(g_cache.sms[dev]) * g_cache.occ_blocks[inst][dev];
-  if (n_tiles > 0x7fffffffLL || strips > 65535 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // where the tiles leave SMs idle (few frames a class, a large os), each
   // tile's classes are split over up to slots / tiles blocks (analysis,
   // planes: they re-read the tile's slab)
@@ -526,14 +742,27 @@ int launch_inst(int inst, int dev, size_t optin, Params a, int batch, cudaStream
   a.n_tiles = static_cast<int>(n_tiles);
   a.tiles_per_block = static_cast<int>(per);
   a.groups = static_cast<int>(groups);
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(strips),
-                  static_cast<unsigned>(batch * groups));
+  // strips along y and rows x class runs along z, up to 65,535 each; the
+  // excess folds into x
+  const long long zs = batch * groups;
+  const long long gy = strips < 65535 ? strips : 65535;
+  const long long gz = zs < 65535 ? zs : 65535;
+  const long long ny = (strips + gy - 1) / gy;
+  const long long nz = (zs + gz - 1) / gz;
+  if (splits * ny * nz > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.splits = static_cast<int>(splits);
+  a.ny = static_cast<int>(ny);
+  a.strips = static_cast<int>(strips);
+  a.zs = static_cast<int>(zs);
+  const dim3 grid(static_cast<unsigned>(splits * ny * nz), static_cast<unsigned>(gy),
+                  static_cast<unsigned>(gz));
   kern<<<grid, I::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // layout `layout` (0-4): every class's weights staged where they fit beside
-// one slab, else a chunk at a time
+// one slab, else a chunk at a time where a chunk fits beside one slab, else
+// the ranged instance
 template <int M_, bool CT>
 int launch_layout(int layout, Params a, int batch, cudaStream_t stream) {
   using I = Inst<M_, CT>;
@@ -546,9 +775,20 @@ int launch_layout(int layout, Params a, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t wbytes = static_cast<size_t>(a.os) * a.p * kStrip * sizeof(typename I::Tw);
   const size_t stage_bytes = static_cast<size_t>(I::kTile + a.p) * kStrip * sizeof(float2);
+  const size_t chunk = static_cast<size_t>(I::kChunk) * kStrip * sizeof(typename I::Tw);
   const bool ws = stage_bytes + wbytes <= static_cast<size_t>(optin);
-  return ws ? launch_inst<M_, CT, true>(2 * layout, dev, optin, a, batch, stream)
-            : launch_inst<M_, CT, false>(2 * layout + 1, dev, optin, a, batch, stream);
+  if (ws) return launch_inst<M_, CT, 0>(3 * layout, dev, optin, a, batch, stream);
+  if (stage_bytes + chunk <= static_cast<size_t>(optin))
+    return launch_inst<M_, CT, 1>(3 * layout + 1, dev, optin, a, batch, stream);
+  // the ranged instance: the most branches a range (a multiple of the frames
+  // a thread) whose slab and weights fit two ring stages
+  const long long per_branch = kStrip * (sizeof(float2) + sizeof(typename I::Tw));
+  long long pc = (optin / 2 - static_cast<long long>(I::kTile) * kStrip * sizeof(float2)) /
+                 per_branch;
+  pc -= pc % I::kFrames;
+  if (pc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.pc = static_cast<int>(pc);
+  return launch_inst<M_, CT, 2>(3 * layout + 2, dev, optin, a, batch, stream);
 }
 
 }  // namespace
@@ -568,9 +808,10 @@ int launch_layout(int layout, Params a, int batch, cudaStream_t stream) {
 // - planes: src0/src1 the float32 planes [batch, n0], t_out class frames of
 //   [batch, os, t_out, m] planes into out0 / out1.
 // w: [p, m] float32 (complex_taps 0) or complex64, contiguous (synthesis:
-// the branches reversed in p). The kernel takes any p whose slab, (tile +
-// p) x 64 complex64 samples, fits the card's shared memory beside a chunk
-// of the weights (pfb_fold.launch_plan).
+// the branches reversed in p). Any p, any batch and any m: where the slab,
+// (tile + p) x 64 complex64 samples, does not fit the card's shared memory
+// beside a chunk of the weights, the ranged instance stages it in ranges of
+// branches (pfb_fold.launch_plan, branch_range).
 extern "C" int pfb_fold_launch(int mode, int complex_taps, const void* src0,
                                const void* src1, long long n0, long long n1,
                                long long stride0, long long stride1, const void* w,

@@ -35,7 +35,10 @@
 //             taps through L1, the mixed-radix FFT (rx_frame_general_kernel);
 //   cluster   larger frames or spans (fft_len 8,192-65,536, dec 64 at
 //             fft_len >= 1024): 2-8 CTAs of a thread-block cluster share a
-//             frame through distributed shared memory, with a four-step FFT.
+//             frame through distributed shared memory, with a four-step FFT;
+//   global    every other frame (past 65,536 points, or past 4,096 with no
+//             cluster split: 4,099, 8,198, 16,411): one cooperative launch
+//             whose frames sit in a device scratch (rx_frame_global_kernel).
 //
 // The direct instance:
 //   - a CTA stages its frames once, by 8-byte cp.async, into a window of
@@ -74,6 +77,18 @@ constexpr int kMaxPasses = 20;
 
 // The launch geometry of the chunked and cluster instances (ops/cuda/rx_frame.py
 // general_layout builds it; the field order is the ctypes mirror's, GenPlan).
+// The global instance's plan (ops/cuda/rx_frame.py global_layout; the ctypes
+// mirror's field order, GlobalPlan).
+struct GlobalPlan {
+  long long n;    // fft_len
+  long long m;    // the FFT's points: n (a power of two), or Bluestein's power of two >= 2n - 1
+  int dec;
+  int k;          // taps
+  int bluestein;  // 1: chirp, m-point FFT, the filter's spectrum, m-point FFT, chirp
+  int npass;
+  int rad[kMaxPasses];  // the m-point FFT's radices (8, then one 4 or 2)
+};
+
 struct GenPlan {
   int n;      // fft_len
   int dec;    // decimation
@@ -1035,6 +1050,187 @@ int general_instance(int epilogue, int real_taps, int threads, const void* x, co
                                                       out, frames, nsym, scale, plan, smem, s);
 }
 
+// ---- the global instance ---------------------------------------------------
+//
+// One cooperative launch (a grid of at most the co-resident CTAs, each phase a
+// grid-stride loop, grid.sync() between phases) over frames held in two
+// device scratch buffers of m points a frame that the wrapper allocates:
+//   1. the FIR at the frame's n outputs (any taps, any dec, read through L1),
+//      times the chirp w[j] for Bluestein, zeros at outputs n..m-1;
+//   2. a Stockham FFT of m points, one pass a phase (radix 8, then one 4 or
+//      2), buffer to buffer, twiddles from the float32 table W_m^e built on
+//      the host in float64;
+//   Bluestein (n not a power of two): 3. times the chirp filter's spectrum
+//      (FFT_m of conj(w) wrapped, over m, from the host in float64), and
+//      conjugated; 4. the same FFT again (the inverse, by conjugation);
+//   5. the epilogue at bin k: the FFT's bin (Bluestein: conj(z_k) w[k]),
+//      the Scale.SN factor on the spectrum, the bits as elsewhere.
+// w[j] = exp(-i pi (j^2 mod 2n) / n), the square reduced in integers on the
+// host. A 4M-point frame's two buffers are 64 MB, its passes stream through
+// L2 and device memory: the bound is the bytes, 2 m x 8 a pass.
+// Frames in the scratch are written by one CTA and read by others after a
+// grid.sync(): their loads are ld.global.cg (L2), never the read-only path.
+
+struct GlobalArgs {
+  const float2* x;      // [rows, nsym * span]
+  const float2* hist;   // [rows, k - 1] or null
+  const float2* tw;     // [m] W_m^e
+  const float2* taps;   // [k]
+  const float2* chirp;  // [n] w (Bluestein) or null
+  const float2* filt;   // [m] the chirp filter's spectrum over m (Bluestein) or null
+  float2* buf0;         // [frames, m]
+  float2* buf1;         // [frames, m]
+  void* out;
+  long long frames;
+  int nsym;
+  int epi;
+  float scale;
+  GlobalPlan plan;
+};
+
+template <int R>
+__device__ __forceinline__ void global_pass(const float2* src, float2* dst, long long frames,
+                                            long long m, long long ns,
+                                            const float2* __restrict__ tw) {
+  const long long mr = m / R;
+  const long long total = frames * mr;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += step) {
+    const long long f = i / mr;
+    const long long j = i - f * mr;
+    const float2* s = src + f * m;
+    float2* d = dst + f * m;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = __ldcg(s + j + r * mr);
+    const long long jm = j % ns;
+    if (ns > 1) {
+      const long long e = jm * (m / (ns * R));
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = c_mul(v[r], __ldg(tw + e * r));
+    }
+    dft<R>(v);
+    const long long o = (j / ns) * ns * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) d[o + r * ns] = v[r];
+  }
+}
+
+// The m-point FFT of every frame from *src, one grid.sync() a pass; *src
+// ends at the buffer that holds the bins.
+__device__ __forceinline__ void global_fft(const GlobalArgs& a, float2*& src, float2*& dst,
+                                           cg::grid_group& grid) {
+  long long ns = 1;
+  for (int p = 0; p < a.plan.npass; ++p) {
+    const int r = a.plan.rad[p];
+    if (r == 8) {
+      global_pass<8>(src, dst, a.frames, a.plan.m, ns, a.tw);
+    } else if (r == 4) {
+      global_pass<4>(src, dst, a.frames, a.plan.m, ns, a.tw);
+    } else {
+      global_pass<2>(src, dst, a.frames, a.plan.m, ns, a.tw);
+    }
+    ns *= r;
+    float2* t = src;
+    src = dst;
+    dst = t;
+    grid.sync();
+  }
+}
+
+__global__ void __launch_bounds__(256) rx_frame_global_kernel(const __grid_constant__ GlobalArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const long long n = a.plan.n, m = a.plan.m;
+  const int dec = a.plan.dec, k = a.plan.k, ku = k - 1;
+  const long long span = static_cast<long long>(dec) * n;
+  const long long row_len = static_cast<long long>(a.nsym) * span;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+
+  // 1. FIR at the kept outputs (and the chirp)
+  for (long long i = i0; i < a.frames * m; i += step) {
+    const long long f = i / m;
+    const long long j = i - f * m;
+    float ar = 0.0f, ai = 0.0f;
+    if (j < n) {
+      const long long r = f / a.nsym;
+      const float2* xr = a.x + r * row_len;
+      const long long base = (f - r * a.nsym) * span + j * dec;
+      for (int t = 0; t < k; ++t) {
+        const long long pos = base - t;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (pos >= 0) {
+          v = __ldg(xr + pos);
+        } else if (a.hist != nullptr) {
+          v = __ldg(a.hist + r * ku + ku + pos);
+        }
+        fir_mac<false>(ar, ai, __ldg(a.taps + t), v);
+      }
+    }
+    float2 y = make_float2(ar, ai);
+    if (a.plan.bluestein && j < n) y = c_mul(y, __ldg(a.chirp + j));
+    a.buf0[i] = y;
+  }
+  grid.sync();
+
+  float2* src = a.buf0;
+  float2* dst = a.buf1;
+  global_fft(a, src, dst, grid);
+  if (a.plan.bluestein) {
+    for (long long i = i0; i < a.frames * m; i += step) {
+      const long long j = i % m;
+      const float2 z = c_mul(__ldcg(src + i), __ldg(a.filt + j));
+      src[i] = make_float2(z.x, -z.y);
+    }
+    grid.sync();
+    global_fft(a, src, dst, grid);
+  }
+
+  // 5. the epilogue
+  auto bin = [&](long long f, long long q) {
+    const float2 z = __ldcg(src + f * m + q);
+    return a.plan.bluestein ? c_mul(make_float2(z.x, -z.y), __ldg(a.chirp + q)) : z;
+  };
+  if (a.epi == kSpectrum) {
+    float2* o = static_cast<float2*>(a.out);
+    for (long long i = i0; i < a.frames * n; i += step) {
+      const long long f = i / n;
+      const float2 z = bin(f, i - f * n);
+      o[i] = make_float2(z.x * a.scale, z.y * a.scale);
+    }
+  } else {
+    const int spb = a.epi == kQpsk ? 4 : 8;  // symbols a byte
+    const long long per = n / spb;
+    uint8_t* o = static_cast<uint8_t*>(a.out);
+    for (long long i = i0; i < a.frames * per; i += step) {
+      const long long f = i / per;
+      const long long kb = (i - f * per) * spb;
+      o[i] = demod_byte(a.epi, [&](int q) { return bin(f, kb + q); });
+    }
+  }
+}
+
+int launch_global(const GlobalArgs& a, int device, cudaStream_t stream) {
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rx_frame_global_kernel, 256, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long need = (a.frames * a.plan.m + 255) / 256;
+  const long long most = static_cast<long long>(per_sm) * sms;
+  const unsigned blocks = static_cast<unsigned>(need < most ? need : most);
+  void* args[] = {const_cast<GlobalArgs*>(&a)};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rx_frame_global_kernel),
+                                    dim3(blocks), dim3(256), args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point of the direct instance, loaded with ctypes. taps_ri:
@@ -1094,6 +1290,48 @@ extern "C" int rx_frame_general_launch(int epilogue, const void* x, const void* 
                       sizeof(float2);
   const int rc = general_instance(epilogue, real_taps, threads, x, hist, tw, taps, out, frames,
                                   nsym, scale, *plan, smem, static_cast<cudaStream_t>(stream));
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
+// Plain C entry point of the global instance, loaded with ctypes. plan: a
+// host GlobalPlan (ops/cuda/rx_frame.py global_layout); tw: the float32
+// table W_m^e, e < m, on the card; taps: the k complex taps on the card;
+// chirp ([n]) and filt ([m]) on the card where plan->bluestein, else null;
+// buf0, buf1: two scratch buffers of frames x m complex64 on the card; out:
+// as the other instances'. One cooperative launch; returns its
+// cudaError_t (0 = success). The caller guarantees contiguous tensors.
+extern "C" int rx_frame_global_launch(int epilogue, const void* x, const void* hist,
+                                      const void* tw, const void* taps, const void* chirp,
+                                      const void* filt, void* buf0, void* buf1, void* out,
+                                      long long frames, int nsym, const GlobalPlan* plan,
+                                      float scale, int device, void* stream) {
+  if (epilogue < kQpsk || epilogue > kSpectrum || plan->npass < 1 ||
+      plan->npass > kMaxPasses || plan->k < 1 || frames < 1 ||
+      (plan->bluestein && (chirp == nullptr || filt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  GlobalArgs a;
+  a.x = static_cast<const float2*>(x);
+  a.hist = static_cast<const float2*>(hist);
+  a.tw = static_cast<const float2*>(tw);
+  a.taps = static_cast<const float2*>(taps);
+  a.chirp = static_cast<const float2*>(chirp);
+  a.filt = static_cast<const float2*>(filt);
+  a.buf0 = static_cast<float2*>(buf0);
+  a.buf1 = static_cast<float2*>(buf1);
+  a.out = out;
+  a.frames = frames;
+  a.nsym = nsym;
+  a.epi = epilogue;
+  a.scale = scale;
+  a.plan = *plan;
+  const int rc = launch_global(a, device, static_cast<cudaStream_t>(stream));
   if (prev != device) cudaSetDevice(prev);
   return rc;
 }

@@ -51,6 +51,22 @@
 //     step's chain is register arithmetic; bit t goes to the first byte of
 //     step t's words once they are read, and the bits leave as coalesced
 //     stores of the whole warp.
+//
+// The block instance (viterbi_block_kernel) takes every code the warp
+// instance does not: more than 256 states (K >= 10) or more than 8
+// generators. One CTA of 256 threads decodes one trellis, state s' and
+// s' + 256, s' + 512, ... a thread. The path metrics are two buffers of S
+// floats (read one, write the other), in shared memory while both fit
+// (S <= 16,384, K <= 15) and in a device scratch past that; a buffer holds
+// the step's metrics before the subtraction of their minimum, and the next
+// step subtracts it as it reads them, so every value is the twin's. The
+// minimum is a redux.sync a warp and one barrier a step. The decisions go
+// to the device scratch as ballot words (S / 32 a step), the branch metric
+// reads the step's LLRs from the card in the twin's order (any number of
+// generators: the encoder outputs are S x 2 rows of ceil(n / 32) words on
+// the card), and thread 0 walks the traceback. Its limit is the card's
+// memory. It is written for reach, not speed: the metrics cross a barrier
+// every step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +74,8 @@
 namespace {
 
 constexpr int kMaxN = 8;        // generators per code
-constexpr int kMaxStates = 256; // 2^(K-1), K <= 9
+constexpr int kMaxStates = 256; // 2^(K-1), K <= 9 (the warp instance)
+constexpr int kBlockThreads = 256;  // the block instance's CTA
 constexpr int kAhead = 8;       // traceback steps whose words load together (shared)
 constexpr int kAheadScratch = 32;  // ... from the device scratch
 constexpr unsigned kFull = 0xffffffffu;
@@ -264,6 +281,106 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   for (int t = lane; t < lw; t += 32) dst[t] = out[t * kSpl * 4];
 }
 
+// ---- the block instance ------------------------------------------------------
+
+// g = sum_m o_m * l_m, m left to right, o_m bit m of the transition's words.
+__device__ __forceinline__ float branch_words(const unsigned* __restrict__ w,
+                                              const float* __restrict__ l, int n) {
+  float g = __fmul_rn((__ldg(w) & 1u) ? 1.0f : 0.0f, __ldg(l));
+  for (int m = 1; m < n; ++m) {
+    const float o = ((__ldg(w + (m >> 5)) >> (m & 31)) & 1u) ? 1.0f : 0.0f;
+    g = __fadd_rn(g, __fmul_rn(o, __ldg(l + m)));
+  }
+  return g;
+}
+
+// One CTA a trellis (blockIdx.x). masks: [2 S][mw] words on the card, bit m
+// of row 2 s' + j the output o_m of the transition into s' from predecessor
+// j; dec: the trellis's [lw][max(1, S/32)] decision words; pm_scratch: two
+// buffers of S floats a trellis, or null for shared memory.
+__global__ void __launch_bounds__(kBlockThreads)
+viterbi_block_kernel(const float* __restrict__ sym, unsigned char* __restrict__ bits,
+                     int lw, int n, int s_count, int init_state0, int end_state0,
+                     const unsigned* __restrict__ masks, int mw,
+                     unsigned* dec_scratch, float* pm_scratch) {
+  extern __shared__ float smf[];
+  __shared__ unsigned red[2][kBlockThreads / 32];
+  __shared__ int first;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long tr = blockIdx.x;
+  const int S = s_count;
+  const int words = S >= 32 ? S / 32 : 1;
+  float* pa = pm_scratch != nullptr ? pm_scratch + tr * 2 * S : smf;
+  float* pb = pa + S;
+  unsigned* dec = dec_scratch + tr * lw * words;
+  const float* y = sym + tr * static_cast<long long>(lw) * n;
+
+  for (int s = tid; s < S; s += kBlockThreads) {
+    pa[s] = init_state0 ? (s == 0 ? 0.0f : 1e9f) : 0.0f;
+  }
+  float mn = 0.0f;  // the minimum of pa (pm = pa - mn); 0 before the first step
+  __syncthreads();
+  for (int t = 0; t < lw; ++t) {
+    const float* l = y + static_cast<long long>(t) * n;
+    unsigned kmin = 0xffffffffu;
+    for (int base = 0; base < S; base += kBlockThreads) {
+      const int s = base + tid;
+      bool d = false;
+      if (s < S) {
+        const int p0 = s >> 1;
+        const float c0 = __fadd_rn(__fsub_rn(pa[p0], mn),
+                                   branch_words(masks + static_cast<long long>(2 * s) * mw, l, n));
+        const float c1 = __fadd_rn(__fsub_rn(pa[p0 + S / 2], mn),
+                                   branch_words(masks + static_cast<long long>(2 * s + 1) * mw,
+                                                l, n));
+        d = c1 < c0;
+        const float nw = d ? c1 : c0;
+        pb[s] = nw;
+        kmin = min(kmin, fkey(nw));
+      }
+      const unsigned word = __ballot_sync(kFull, d);
+      if (lane == 0 && base + 32 * warp < S) {
+        dec[static_cast<long long>(t) * words + (base >> 5) + warp] = word;
+      }
+    }
+    kmin = __reduce_min_sync(kFull, kmin);
+    if (lane == 0) red[t & 1][warp] = kmin;
+    __syncthreads();  // pb and the warps' minima written; pa read by all
+    kmin = red[t & 1][0];
+#pragma unroll
+    for (int w = 1; w < kBlockThreads / 32; ++w) kmin = min(kmin, red[t & 1][w]);
+    mn = unkey(kmin);
+    float* tmp = pa;
+    pa = pb;
+    pb = tmp;
+  }
+
+  // ---- traceback (thread 0) from state 0 or the first argmin: the first s
+  // whose metric pa[s] - mn is the minimum's, 0, i.e. pa[s] == mn
+  if (tid == 0) first = S;
+  __syncthreads();
+  if (!end_state0) {
+    for (int s = tid; s < S; s += kBlockThreads) {
+      if (pa[s] == mn) {
+        atomicMin(&first, s);
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int state = end_state0 ? 0 : first;
+    unsigned char* out = bits + tr * static_cast<long long>(lw);
+    for (int t = lw - 1; t >= 0; --t) {
+      out[t] = static_cast<unsigned char>(state & 1);
+      const unsigned word = dec[static_cast<long long>(t) * words + (state >> 5)];
+      state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
+    }
+  }
+}
+
 template <int S, int NT, bool kScratch>
 int launch_kernel(const void* sym, void* bits, long long n_trellis, int lw, int n,
                   int init_state0, int end_state0, int warps, const Masks& masks,
@@ -312,11 +429,12 @@ int launch_n(const void* sym, void* bits, long long n_trellis, int lw, int n,
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launch (0 = success). The caller guarantees: sym float32 [n_trellis, lw, n]
 // and bits uint8 [n_trellis, lw], contiguous; s_count a power of two in
-// [4, 256]; 1 <= n <= 8; out_mask a host array of 2 * s_count bytes;
+// [2, 256]; 1 <= n <= 8; out_mask a host array of 2 * s_count bytes;
 // warps trellises a block (one a warp); scratch null and warps * lw *
 // max(1, s_count / 32) * 4 bytes of shared memory within the card's per-block
 // limit, or scratch a device buffer of n_trellis * lw * max(1, s_count / 32)
 // uint32 words on the stream's card (the histories then take no shared memory).
+// s_count 2 runs with lanes replicating its two states, as 4-16 do.
 extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
                               int lw, int n, int s_count, int init_state0,
                               int end_state0, int warps,
@@ -327,6 +445,9 @@ extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
   for (int i = 0; i < 2 * s_count; ++i) masks.m[i] = out_mask[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (s_count) {
+    case 2:
+      return launch_n<2>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
+                           warps, masks, scratch, s);
     case 4:
       return launch_n<4>(sym, bits, n_trellis, lw, n, init_state0, end_state0,
                            warps, masks, scratch, s);
@@ -350,4 +471,32 @@ extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
                              warps, masks, scratch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Plain C entry point of the block instance (one CTA a trellis), loaded with
+// ctypes. Returns the cudaError_t of the launch (0 = success). The caller
+// guarantees: sym float32 [n_trellis, lw, n] and bits uint8 [n_trellis, lw],
+// contiguous, 1 <= n_trellis < 2^31; s_count a power of two >= 2; masks the
+// encoder outputs on the card, uint32 [2 s_count][mw], mw = ceil(n / 32);
+// dec_scratch n_trellis * lw * max(1, s_count / 32) uint32 words on the card;
+// pm_scratch n_trellis * 2 * s_count floats on the card, or null where
+// 2 * s_count floats fit the card's opt-in shared memory.
+extern "C" int viterbi_block_launch(const void* sym, void* bits, long long n_trellis, int lw,
+                                    int n, int s_count, int init_state0, int end_state0,
+                                    const void* masks, int mw, void* dec_scratch,
+                                    void* pm_scratch, void* stream) {
+  if (n < 1 || lw < 1 || s_count < 2 || (s_count & (s_count - 1)) || n_trellis < 1 ||
+      n_trellis > 0x7fffffffLL || mw < (n + 31) / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = pm_scratch != nullptr ? 0 : 2 * static_cast<size_t>(s_count) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(viterbi_block_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  viterbi_block_kernel<<<static_cast<unsigned>(n_trellis), kBlockThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sym), static_cast<unsigned char*>(bits), lw, n, s_count,
+      init_state0, end_state0, static_cast<const unsigned*>(masks), mw,
+      static_cast<unsigned*>(dec_scratch), static_cast<float*>(pm_scratch));
+  return static_cast<int>(cudaGetLastError());
 }

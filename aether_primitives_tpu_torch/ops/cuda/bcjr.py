@@ -29,9 +29,13 @@ for the meet instance: the same meeting warps with a column's states spread
 over lanes and its half-histories in shared memory, up to
 :func:`lanes_span_limit` steps; a step's metrics are gathered by shuffles
 where the tables are the shift-register pattern (:func:`shift_register`),
-else through shared memory by the tables. ``"column"``: longer spans; one
-thread per column, the beta history in a device scratch. All take any
-``N``, ragged or not, and any ``Lw >= 1``.
+else through shared memory by the tables. ``"column"``: longer spans, and
+every span at 2 and 3 states (:data:`COLUMN_STATES`); one thread per
+column, the beta history in a device scratch. ``"block"``: every other
+state count (5-7, 9-15, ..., 128, 256 and up), one CTA a column, the beta
+history in a device scratch and the metrics in shared memory up to
+:data:`BLOCK_SMEM_STATES` states, in the scratch past that. All take any
+``N``, ragged or not, and any ``Lw >= 1``; the limit is the card's memory.
 """
 
 from __future__ import annotations
@@ -42,13 +46,20 @@ import functools
 import numpy as np
 import torch
 
-from . import build
+from . import CARD_BYTES, build
 
 #: Launches of the CUDA kernel in this process (the plain version and
 #: calls that raise do not count).
 launches = 0
 
+#: The state counts of the rsc8, lanes and column instances' compiled
+#: tables; the column instance also takes :data:`COLUMN_STATES`, and the
+#: block instance any other count.
 KERNEL_STATES = (4, 8, 16, 32, 64)
+COLUMN_STATES = (2, 3)
+#: The block instance keeps its two metric buffers (2 S floats) in shared
+#: memory up to this many states, in the device scratch past it.
+BLOCK_SMEM_STATES = (232_448 - 1_024) // 8
 #: Columns a CTA of the meet instance takes (one lane of a forward and of a
 #: backward warp each), chosen by ``benches/torch_bcjr_sweep.py`` on an H100
 #: at Lw 96, N 2,560 (``PERF.md``); spans too long for it at 16 take 8.
@@ -148,14 +159,22 @@ def kernel_plan(tables, lw: int):
     instance at the first columns a CTA ``c`` of :data:`MEET_COLS` whose
     spans and history (``Lw`` x ``c`` x 40 bytes) fit a CTA's shared
     memory; else ``("lanes", g)``, ``g`` columns a CTA, up to
-    :func:`lanes_span_limit`; else ``("column", 0)``. Raises ValueError on
-    a state count the kernel does not take."""
+    :func:`lanes_span_limit`; else ``("column", 0)``; at 2 and 3 states
+    ``("column", 0)``, and at any other state count outside
+    :data:`KERNEL_STATES` ``("block", 0)``. Raises ValueError where one
+    column's device scratch does not fit the card's memory
+    (:data:`CARD_BYTES`)."""
     idx, _, instance, _ = _host_tables(tables if tables is not None else rsc8_tables())
     s_count = idx.shape[1]
-    if s_count not in KERNEL_STATES:
+    if scratch_bytes(s_count, lw, 1) > CARD_BYTES:
         raise ValueError(
-            f"the CUDA BCJR kernel takes {KERNEL_STATES} states, not {s_count}"
+            f"the CUDA BCJR kernel does not take {s_count} states over {lw} steps: a "
+            f"column's scratch exceeds the card's memory ({CARD_BYTES} bytes)"
         )
+    if s_count in COLUMN_STATES:
+        return "column", 0
+    if s_count not in KERNEL_STATES:
+        return "block", 0
     if instance == "rsc8":
         for c in MEET_COLS:
             if lw * c * (_MEET_STATES + 2) * 4 <= _MEET_SMEM:
@@ -163,6 +182,14 @@ def kernel_plan(tables, lw: int):
     if lw <= lanes_span_limit(s_count):
         return "lanes", 32 // min(s_count, 32)
     return "column", 0
+
+
+def scratch_bytes(s_count: int, lw: int, n: int) -> int:
+    """Device scratch bytes of a call on ``n`` columns at most: the beta
+    history (``Lw x S x N`` floats, the column and block instances), and the
+    block instance's metric buffers past :data:`BLOCK_SMEM_STATES`."""
+    metrics = 2 * s_count * n if s_count > BLOCK_SMEM_STATES else 0
+    return 4 * (lw * s_count * n + metrics)
 
 
 def _check_args(ls, lp, lw: int):
@@ -232,7 +259,11 @@ def _entries():
                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                       + [ctypes.c_int, ctypes.c_void_p])
     lanes.restype = ctypes.c_int
-    return column, meet, lanes
+    block = lib.bcjr_block_launch
+    block.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    block.restype = ctypes.c_int
+    return column, meet, lanes, block
 
 
 @functools.lru_cache(maxsize=None)
@@ -277,9 +308,9 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
 
     On a CUDA tensor this launches the kernel of ``csrc/bcjr.cu`` on the
     current stream, in the instance :func:`kernel_plan` names (the column
-    one with an ``[Lw, S, N]`` float32 scratch for the beta history); it
-    raises on a state count the kernel does not take, a dtype other than
-    float32, non-contiguous spans, a missing ``nvcc``, a failed build or a
+    one with an ``[Lw, S, N]`` float32 scratch for the beta history, the
+    block one with an ``[N, Lw, S]`` one); it raises where the scratch
+    exceeds the card's memory, a dtype other than float32, non-contiguous spans, a missing ``nvcc``, a failed build or a
     failed launch. On a CPU tensor it is :func:`bcjr_windowed_llr_reference`.
     NaN input is outside the contract: the kernel's ``fmaxf`` and the plain
     version's ``torch.maximum`` treat it differently.
@@ -293,6 +324,14 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         raise ValueError("bcjr_windowed_llr takes contiguous spans")
     idx, coef, cls, instance, cols, shift = _plan(tables, lw)
     n = ls.shape[1]
+    need = scratch_bytes(idx.shape[1], lw, n) if instance in ("column", "block") else 0
+    total = torch.cuda.get_device_properties(ls.device).total_memory if need else 0
+    if need > total or n >= 1 << 31:
+        raise ValueError(
+            f"the CUDA BCJR kernel does not take {n} columns of {lw} steps at "
+            f"{idx.shape[1]} states: its scratch ({need} bytes) exceeds the card's "
+            f"memory ({total} bytes)"
+        )
     out = torch.empty((lw, n), dtype=torch.float32, device=ls.device)
     if n == 0 or lw == 0:
         return out
@@ -300,6 +339,8 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         _launch_meet(ls, lp, out, lw, cols, cls)
     elif instance == "lanes":
         _launch_lanes(ls, lp, out, lw, tables, shift)
+    elif instance == "block":
+        _launch_block(ls, lp, out, lw, tables)
     else:
         scratch = torch.empty((lw, idx.shape[1], n), dtype=torch.float32, device=ls.device)
         _launch(ls, lp, out, lw, idx, coef, scratch)
@@ -347,6 +388,27 @@ def _launch_meet(ls, lp, out, lw: int, cols: int, cls) -> None:
     vec = int(n % 4 == 0 and cols % 4 == 0 and a % 16 == 0 and b % 16 == 0)
     index = ls.get_device()
     rc = _entries()[1](a, b, out.data_ptr(), lw, n, cols, vec, cls.ctypes.data, index,
+                       torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
+    launches += 1
+
+
+def _launch_block(ls, lp, out, lw: int, tables) -> None:
+    """One launch of the block instance with ``tables``, counted in
+    :data:`launches`: its beta history (and, past
+    :data:`BLOCK_SMEM_STATES`, its metric buffers) in a scratch allocated
+    here."""
+    global launches
+    index = ls.get_device()
+    idx_t, coef_t = _card_tables(tables, index)
+    s_count, n = idx_t.shape[1], ls.shape[1]
+    hist = torch.empty((n, lw, s_count), dtype=torch.float32, device=ls.device)
+    metrics = (torch.empty((n, 2, s_count), dtype=torch.float32, device=ls.device)
+               if s_count > BLOCK_SMEM_STATES else None)
+    rc = _entries()[3](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), hist.data_ptr(),
+                       None if metrics is None else metrics.data_ptr(), lw, n, s_count,
+                       idx_t.data_ptr(), coef_t.data_ptr(), index,
                        torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")

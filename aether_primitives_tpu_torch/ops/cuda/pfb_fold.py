@@ -61,7 +61,26 @@ TILE = {"analysis": 128, "planes": 128, "synthesis": 44}
 #: 4 x 11 synthesis)
 CHUNK = {"analysis": 64, "planes": 64, "synthesis": 44}
 MODES = {"analysis": 0, "synthesis": 1, "planes": 2}
-MAX_GRID_YZ = 65_535
+#: Frames (synthesis: rows) a thread (csrc/pfb_fold.cu kFrames): a branch
+#: range of the ranged instance is a multiple of it.
+FRAMES = {"analysis": 16, "planes": 16, "synthesis": 11}
+MAX_GRID_YZ = 65_535  # grid.y and grid.z; past it the excess folds into grid.x
+
+
+def branch_range(mode: str, p: int, complex_taps: bool = False, tile: int = 0) -> int:
+    """Branches a range of the ranged instance where layout ``mode`` runs
+    ``P = p`` branches in it (0 where one slab of ``(tile + P) x 64``
+    complex64 samples fits beside a chunk of the weights, and the kernel
+    does not range): the most, a multiple of :data:`FRAMES`, whose range
+    slab of ``(tile + Pc) x 64`` samples and ``Pc x 64`` weights fit two
+    ring stages (64 real / 48 complex analysis and planes, 121 / 88
+    synthesis)."""
+    tile = tile or TILE[mode]
+    size = 8 if complex_taps else 4
+    if (tile + p) * STRIP * 8 + CHUNK[mode] * STRIP * size <= MAX_SMEM:
+        return 0
+    pc = (MAX_SMEM // 2 - tile * STRIP * 8) // (STRIP * (8 + size))
+    return pc - pc % FRAMES[mode]
 
 
 def launch_plan(mode: str, p: int, os: int, complex_taps: bool = False, tile: int = 0):
@@ -70,16 +89,17 @@ def launch_plan(mode: str, p: int, os: int, complex_taps: bool = False, tile: in
     ``os x P x 64`` weights are staged in shared memory once where they fit
     beside one slab of ``(tile + P) x 64`` complex64 samples (else one
     class's :data:`CHUNK` branches at a time), and the ring holds two slabs
-    where two fit beside them (else one); ``(0, False)`` where not even one
-    slab fits beside a chunk. ``tile`` overrides the layout's
-    :data:`TILE`."""
+    where two fit beside them (else one). Where not even one slab fits
+    beside a chunk, ``(2, False)`` of the ranged instance: the slab in
+    ranges of :func:`branch_range` branches, two ring stages of a range's
+    slab and weights. ``tile`` overrides the layout's :data:`TILE`."""
     slab = ((tile or TILE[mode]) + p) * STRIP * 8
     size = 8 if complex_taps else 4
     weights = os * p * STRIP * size
     staged = slab + weights <= MAX_SMEM
     weights = weights if staged else CHUNK[mode] * STRIP * size
     if slab + weights > MAX_SMEM:
-        return 0, False
+        return 2, False
     return (2 if 2 * slab + weights <= MAX_SMEM else 1), staged
 
 
@@ -87,14 +107,17 @@ def kernel_supports(m: int, p: int, os: int, batch: int = 1, mode: str = "planes
                     complex_taps: bool = False) -> bool:
     """True when the CUDA kernel takes ``batch`` rows of an ``os``-class
     fold in layout ``mode`` with ``M = m`` columns and ``P = p`` branches:
-    one slab of ``(tile + P) x 64`` complex64 samples fits in shared memory
-    beside the weights or a chunk of them (``P <= 294`` real and ``262``
-    complex taps for analysis and planes, ``388`` and ``366`` synthesis, at
-    any ``os``; :func:`launch_plan`), and the grid fits its limits (at most
-    65,535 rows and 65,535 strips of 64 columns)."""
-    return (p >= 1 and m >= 1 and os >= 1 and m % os == 0
-            and launch_plan(mode, p, os, complex_taps)[0] > 0
-            and -(-m // STRIP) <= MAX_GRID_YZ and batch <= MAX_GRID_YZ)
+    any ``P`` (past one slab beside a chunk of the weights, ``P > 294`` real
+    and ``262`` complex taps for analysis and planes, ``388`` and ``366``
+    synthesis, the ranged instance of :func:`branch_range`), any ``os``
+    dividing ``M``, and any number of rows and strips of 64 columns whose
+    grid (strips and rows past 65,535 folded into its x axis) and 32-bit
+    counts hold them. The kernel allocates nothing: the card's memory holds
+    the caller's tensors, and that is the limit."""
+    strips = -(-int(m) // STRIP)
+    folds = -(-strips // MAX_GRID_YZ) * -(-max(int(batch), 1) // MAX_GRID_YZ)
+    return (p >= 1 and m >= 1 and os >= 1 and m % os == 0 and 0 <= batch < 1 << 31
+            and folds < 1 << 31)
 
 
 def _branches(w, os: int, what: str):
@@ -324,15 +347,20 @@ def _rows(t: torch.Tensor, name: str):
     return rows, (t.stride(0) if t.ndim > 1 and rows > 1 else n)
 
 
-def _launch(mode: str, complex_taps: bool, src0, src1, n0, n1, s0, s1, w, out0, out1,
-            out_len, rows, m, p, os, t_in, t_out, dev, tail=None, divisor=None, emit=0):
-    global launches
+def _require(mode: str, complex_taps: bool, m: int, p: int, os: int, rows: int) -> None:
+    """Raise where the kernel does not take the call (before any output is
+    allocated)."""
     if not kernel_supports(m, p, os, rows, mode, complex_taps):
         raise ValueError(
             f"the CUDA PFB fold kernel ({mode}) does not take M={m}, P={p}, os={os}, "
             f"{'complex' if complex_taps else 'real'} branches over {rows} rows (see "
-            f"kernel_supports: one slab and a chunk of the weights within {MAX_SMEM} "
-            "bytes of shared memory, rows <= 65535)")
+            "kernel_supports: rows and the folded grid within 32-bit counts; the "
+            "card's memory holds the tensors)")
+
+
+def _launch(mode: str, complex_taps: bool, src0, src1, n0, n1, s0, s1, w, out0, out1,
+            out_len, rows, m, p, os, t_in, t_out, dev, tail=None, divisor=None, emit=0):
+    global launches
     args = (MODES[mode], int(complex_taps), src0, src1, n0, n1, s0, s1, w, out0, out1,
             out_len, rows, m, p, os, t_in, t_out,
             None if tail is None else tail.data_ptr(), 0 if tail is None else tail.shape[-1],
@@ -383,6 +411,7 @@ def pfb_analysis(head, body, w, os: int, t_frames: int):
         src1, n1 = body.data_ptr(), body.shape[-1]
     else:
         src1, n1, s1 = None, 0, 0
+    _require("analysis", w.is_complex(), m, p, os, rows)
     out = torch.empty(batch + (t_frames, m), dtype=torch.complex64, device=dev)
     if rows == 0:
         return out
@@ -422,6 +451,7 @@ def pfb_synthesis(frames, w_rev, os: int, tail=None, divisor=None, emit=None):
         raise ValueError("pfb_synthesis takes contiguous frames, tail and divisor")
     batch = tuple(frames.shape[:-2])
     rows = frames.numel() // (t_frames * m)
+    _require("synthesis", w_rev.is_complex(), m, p, os, rows)
     cut = length if emit is None else int(emit)
     out = torch.empty(batch + (cut,), dtype=torch.complex64, device=dev)
     rest = torch.empty(batch + (length - cut,), dtype=torch.complex64, device=dev)
@@ -457,6 +487,7 @@ def pfb_fold_os(x_re, x_im, hb, os: int, t_cls: int):
     os, t_cls = int(os), int(t_cls)
     batch = tuple(x_re.shape[:-1])
     rows = x_re.numel() // x_re.shape[-1]
+    _require("planes", False, m, p, os, rows)
     out_re = torch.empty(batch + (os, t_cls, m), dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
     if rows == 0:

@@ -23,10 +23,14 @@ bytes, or the ``Scale.SN`` spectrum that the EVM gate reads.
   other frame of at most 4,096 points whose input span suits one CTA: the
   FIR's input staged in chunks, taps read through L1, a mixed-radix FFT);
   ``cluster`` (larger frames or spans: a thread-block cluster of 2-8 CTAs
-  shares a frame through distributed shared memory and a four-step FFT).
-  :func:`general_layout` gives the last two their launch geometry. A
-  geometry none takes (beyond what :func:`general_layout` finds room for:
-  a prime fft_len past 4,096, more than 65,536 points) raises.
+  shares a frame through distributed shared memory and a four-step FFT);
+  ``global`` (every other frame: past 65,536 points, or past 4,096 with no
+  cluster split, a prime fft_len such as 4,099 or 16,411: one cooperative
+  launch over frames in a device scratch, a Stockham FFT of a power of two
+  pass by pass, Bluestein's chirp transform for any other length).
+  :func:`general_layout` and :func:`global_layout` give their launch
+  geometry. The only geometry that raises is one whose scratch exceeds the
+  card's memory.
 
 Output per frame, natural bin ``k``: ``"qpsk"`` writes ``fft_len / 4``
 bytes (byte ``k/4`` holds symbols ``k..k+3``, two bits each, LSB-first); ``"bpsk"`` writes ``fft_len / 8`` bytes, one
@@ -46,7 +50,7 @@ import torch
 
 from .. import fir as _fir
 from ..fft import Scale
-from . import build
+from . import CARD_BYTES, build
 
 #: Launches of the CUDA kernel in this process (the plain version and
 #: calls that raise do not count).
@@ -202,8 +206,8 @@ def _cluster_layout(dec: int, n: int, k: int) -> Optional[dict]:
     span = dec * n
     found = []
     for q in CLUSTER_SIZES:
-        if n % (8 * q * q):
-            continue
+        if n % (8 * q * q) or n // q > CLUSTER_THREADS * CLUSTER_POINTS_A_THREAD:
+            continue  # no split, or more points a CTA than its threads hold
         # n = a * b, q | b, a / q a multiple of 8, a and b near sqrt(n)
         best = None
         for a in range(8 * q, n + 1, 8 * q):
@@ -270,27 +274,58 @@ def general_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[dict]:
     return _cluster_layout(dec, fft_len, n_taps) or single
 
 
+def global_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[dict]:
+    """The global instance's geometry, or None where one frame's scratch and
+    tables exceed the card's memory (:data:`CARD_BYTES`). Keys: ``n``
+    (fft_len), ``m`` (the FFT's points: ``n`` for a power of two, else
+    Bluestein's power of two ``>= 2n - 1``), ``bluestein``, ``dec``, ``k``
+    and ``rad`` (the m-point FFT's passes, :func:`radices`)."""
+    if fft_len < 1 or dec < 1 or not 1 <= n_taps <= dec * fft_len + 1:
+        return None
+    pow2 = fft_len & (fft_len - 1) == 0
+    m = fft_len if pow2 else 1 << (2 * fft_len - 2).bit_length()
+    if m < 2 or len(radices(m)) > MAX_PASSES:
+        return None
+    lay = dict(n=fft_len, m=m, bluestein=not pow2, dec=dec, k=n_taps, rad=radices(m))
+    if global_bytes(lay, 1) > CARD_BYTES:
+        return None
+    return lay
+
+
+def global_bytes(lay: dict, frames: int) -> int:
+    """Device bytes of a global-instance call on ``frames`` frames: its two
+    scratch buffers of ``m`` points a frame and its tables (twiddles, and
+    Bluestein's chirp and filter spectrum)."""
+    m, n = lay["m"], lay["n"]
+    return 8 * (2 * frames * m + m + (n + m if lay["bluestein"] else 0))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_plan(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                 n_taps: int = 1) -> Optional[tuple]:
     """``(instance, n1)``: the kernel's instance for a geometry (``"direct"``
     wherever :func:`direct_layout` takes it, else ``"chunked"`` or
-    ``"cluster"`` of :func:`general_layout`), or None where none takes it.
-    The kernel has no stage split: ``n1`` is the split the plain twin
-    computes, ``stage_n1`` or the heuristic's (``_fused_stage_n1``, the JAX
-    package's), None where there is none (the twin's FFT route)."""
+    ``"cluster"`` of :func:`general_layout`, else ``"global"`` of
+    :func:`global_layout`), or None where a frame's scratch exceeds the
+    card's memory. The kernel has no stage split: ``n1`` is the split the
+    plain twin computes, ``stage_n1`` or the heuristic's
+    (``_fused_stage_n1``, the JAX package's), None where there is none (the
+    twin's FFT route)."""
     n1 = _fir._fused_stage_n1(dec, fft_len, stage_n1)
     if direct_layout(dec, fft_len, n_taps) is not None:
         return "direct", n1
     layout = general_layout(dec, fft_len, n_taps)
-    return None if layout is None else (layout["instance"], n1)
+    if layout is not None:
+        return layout["instance"], n1
+    return None if global_layout(dec, fft_len, n_taps) is None else ("global", n1)
 
 
 def kernel_supports(dec: int, fft_len: int, stage_n1: Optional[int] = None,
                     n_taps: int = 1) -> Optional[str]:
     """The instance of the CUDA kernel that takes this geometry
-    (``"direct"``, ``"chunked"`` or ``"cluster"``, see :func:`kernel_plan`),
-    or None where none does. Every output mode shares the condition."""
+    (``"direct"``, ``"chunked"``, ``"cluster"`` or ``"global"``, see
+    :func:`kernel_plan`), or None where none does (a frame whose scratch
+    exceeds the card's memory). Every output mode shares the condition."""
     plan = kernel_plan(dec, fft_len, stage_n1, n_taps)
     return None if plan is None else plan[0]
 
@@ -482,20 +517,20 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
     ku = k - 1
     span = dec * fft_len
     plan = kernel_plan(dec, fft_len, stage_n1, k)
-    if plan is None:
-        raise ValueError(
-            f"the CUDA rx_frame kernel does not take dec {dec}, fft_len {fft_len}, "
-            f"{k} taps: no instance has room for it (see general_layout: one CTA takes "
-            f"up to 4,096 points in the {SMEM_LIMIT} bytes of opt-in shared memory, "
-            f"a cluster of up to {CLUSTER_SIZES[-1]} CTAs a frame that splits as a b "
-            f"with {8 * CLUSTER_SIZES[-1]} | a)"
-        )
     batch = tuple(x.shape[:-1])
     nsym = x.shape[-1] // span
     rows = int(np.prod(batch, dtype=np.int64))
     frames = rows * nsym
-    q = 1 if plan[0] == "direct" else gen_plan(dec, fft_len, k).q
-    if frames * q >= 1 << 31:
+    if plan is None or plan[0] == "global":
+        total = torch.cuda.get_device_properties(x.device).total_memory
+        if plan is None or global_bytes(global_layout(dec, fft_len, k), frames) > total:
+            raise ValueError(
+                f"the CUDA rx_frame kernel does not take dec {dec}, fft_len {fft_len}, "
+                f"{k} taps over {frames} frames: the global instance's scratch exceeds the "
+                f"card's memory ({total} bytes; see global_layout)"
+            )
+    q = gen_plan(dec, fft_len, k).q if plan[0] in ("chunked", "cluster") else 1
+    if plan[0] != "global" and frames * q >= 1 << 31:
         raise ValueError(f"{frames} frames exceed one launch's grid")
     hist = None
     if ku > 0 and history is not None:
@@ -513,6 +548,8 @@ def rx_frame(x, taps, dec: int, fft_len: int, history=None,
         return out
     if plan[0] == "direct":
         _launch_direct(x, hist, taps, dec, fft_len, epilogue, out, frames)
+    elif plan[0] == "global":
+        _launch_global(x, hist, taps, dec, fft_len, epilogue, out, frames)
     else:
         _launch_general(x, hist, taps, dec, fft_len, epilogue, out, frames)
     return out
@@ -553,6 +590,87 @@ def _launch_general(x, hist, taps, dec, fft_len, epilogue, out, frames):
         int(_direct_taps(taps.tobytes())[1]), out.data_ptr(), frames,
         x.shape[-1] // (dec * fft_len), threads, ctypes.byref(plan),
         Scale.SN.factor_for(fft_len), index, torch._C._cuda_getCurrentRawStream(index),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")
+    launches += 1
+
+
+class GlobalPlan(ctypes.Structure):
+    """ctypes mirror of ``csrc/rx_frame.cu`` ``GlobalPlan`` (same field order)."""
+
+    _fields_ = [("n", ctypes.c_longlong), ("m", ctypes.c_longlong), ("dec", ctypes.c_int),
+                ("k", ctypes.c_int), ("bluestein", ctypes.c_int), ("npass", ctypes.c_int),
+                ("rad", ctypes.c_int * MAX_PASSES)]
+
+
+@functools.lru_cache(maxsize=None)
+def global_plan(dec: int, fft_len: int, n_taps: int) -> GlobalPlan:
+    """The :class:`GlobalPlan` of :func:`global_layout` (which must take the
+    geometry), built once per geometry."""
+    lay = global_layout(dec, fft_len, n_taps)
+    plan = GlobalPlan(n=lay["n"], m=lay["m"], dec=dec, k=n_taps,
+                      bluestein=int(lay["bluestein"]), npass=len(lay["rad"]))
+    plan.rad[:len(lay["rad"])] = lay["rad"]
+    return plan
+
+
+def bluestein_chirp(n: int) -> np.ndarray:
+    """Bluestein's chirp ``w[j] = exp(-i pi j^2 / n)``, ``j < n``, complex128:
+    ``j^2`` reduced mod ``2n`` in integers first (a float ``j^2`` loses the
+    phase past a few thousand points)."""
+    j = np.arange(n, dtype=np.int64)
+    return np.exp(-1j * np.pi * ((j * j) % (2 * n)).astype(np.float64) / n)
+
+
+def bluestein_filter(n: int, m: int) -> np.ndarray:
+    """The chirp filter's spectrum over ``m``, complex128 ``[m]``: the FFT of
+    ``conj(w[t])`` at ``t`` and ``m - t`` (``0 <= t < n``), zeros between,
+    divided by ``m`` (the inverse FFT's factor)."""
+    b = np.zeros(m, np.complex128)
+    wc = np.conj(bluestein_chirp(n))
+    b[:n] = wc
+    b[m - n + 1:] = wc[1:][::-1]
+    return np.fft.fft(b) / m
+
+
+@functools.lru_cache(maxsize=None)
+def bluestein_tables(n: int, m: int, device: str):
+    """The chirp ``[n]`` and the filter's spectrum ``[m]`` as complex64 on
+    ``device``: built in float64 on the host, uploaded once per geometry."""
+    return (torch.from_numpy(bluestein_chirp(n).astype(np.complex64)).to(device),
+            torch.from_numpy(bluestein_filter(n, m).astype(np.complex64)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _global_entry():
+    fn = build.load("rx_frame").rx_frame_global_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(GlobalPlan),
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_global(x, hist, taps, dec, fft_len, epilogue, out, frames):
+    """One launch of the global instance into ``out`` (see :func:`rx_frame`),
+    its two scratch buffers allocated here."""
+    global launches
+    k = taps.shape[-1]
+    plan = global_plan(dec, fft_len, k)
+    dev = str(x.device)
+    index = x.get_device()
+    bufs = torch.empty((2, frames, plan.m), dtype=torch.complex64, device=x.device)
+    chirp = filt = None
+    if plan.bluestein:
+        chirp, filt = bluestein_tables(fft_len, plan.m, dev)
+    rc = _global_entry()(
+        EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
+        twiddles(plan.m, dev).data_ptr(), device_taps(taps.tobytes(), dev).data_ptr(),
+        None if chirp is None else chirp.data_ptr(), None if filt is None else filt.data_ptr(),
+        bufs[0].data_ptr(), bufs[1].data_ptr(), out.data_ptr(), frames,
+        x.shape[-1] // (dec * fft_len), ctypes.byref(plan), Scale.SN.factor_for(fft_len),
+        index, torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")

@@ -14,15 +14,20 @@ N]`` transposed) -> uint8 bits ``[N, Lw]``.
   the steps with the JAX scans' arithmetic, on any device.
 - :data:`launches` counts the kernel's launches.
 
-The kernel's limits (:func:`kernel_supports`): ``2^(K-1)`` from 4 to 256
-states and 1 to 8 generators, at any span length. A decision history of
-``Lw * max(1, S/32) * 4`` bytes per trellis is kept in one block's shared
-memory where it fits (58,112 steps up to 32 states, 29,056 at 64, with one
-trellis per block; the LLRs do not take shared memory); a longer full
-block keeps it in a device scratch that the wrapper allocates
+The kernel has two instances (:func:`instance`). ``"warp"``: ``2^(K-1)``
+from 2 to 256 states and 1 to 8 generators, at any span length. A decision
+history of ``Lw * max(1, S/32) * 4`` bytes per trellis is kept in one
+block's shared memory where it fits (58,112 steps up to 32 states, 29,056
+at 64, with one trellis per block; the LLRs do not take shared memory); a
+longer full block keeps it in a device scratch that the wrapper allocates
 (:func:`scratch_words`), with the same ACS, tie-break and traceback. A
 warp decodes one trellis; the trellises a block (:data:`WARPS`, the first
 that fits) were chosen by ``benches/torch_viterbi_sweep.py``.
+``"block"``: every other code (more than 256 states, more than 8
+generators), one CTA a trellis, the decisions in the device scratch and
+the path metrics in shared memory up to :data:`BLOCK_SMEM_STATES` states,
+in the scratch past that. :func:`kernel_supports` is then limited by the
+card's memory alone.
 """
 
 from __future__ import annotations
@@ -33,15 +38,19 @@ import functools
 import numpy as np
 import torch
 
-from . import build
+from . import CARD_BYTES, build
 
 #: Launches of the CUDA kernel in this process (the plain version and
 #: calls that raise do not count).
 launches = 0
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on an H100
-MAX_STATES = 256
-MAX_GENERATORS = 8
+#: The warp instance's codes: 2-256 states, 1-8 generators.
+WARP_MAX_STATES = 256
+WARP_MAX_GENERATORS = 8
+#: The block instance's path metrics (two buffers of S floats) stay in
+#: shared memory up to this many states, and go to the device scratch past it.
+BLOCK_SMEM_STATES = 16_384
 #: Trellises (warps) a block in order of preference; the kernel takes the
 #: first whose histories fit a block.
 WARPS = (4, 2, 1)
@@ -63,21 +72,53 @@ def warps_per_block(lw: int, k: int, choices=WARPS):
     return None
 
 
-def kernel_supports(lw: int, n: int, constraint: int) -> bool:
-    """True when the CUDA kernel takes spans of ``lw`` steps for a code of
-    ``n`` generators and constraint length ``constraint`` (any ``lw >= 1``:
-    histories past shared memory go to the device scratch)."""
+def instance(n: int, constraint: int) -> str:
+    """The kernel instance that decodes a code of ``n`` generators and
+    constraint length ``constraint``: ``"warp"`` (2-256 states, 1-8
+    generators) or ``"block"`` (any other code)."""
     s_count = 1 << (int(constraint) - 1)
-    return 4 <= s_count <= MAX_STATES and 1 <= n <= MAX_GENERATORS and lw >= 1
+    return ("warp" if 2 <= s_count <= WARP_MAX_STATES and n <= WARP_MAX_GENERATORS
+            else "block")
 
 
-def scratch_words(lw: int, k: int, n_trellis: int) -> int:
-    """uint32 words of the device scratch that holds the decision
-    histories of ``n_trellis`` spans of ``lw`` steps, or 0 where one
-    trellis's history fits a block's shared memory (the shared route)."""
+def _mask_words(n: int) -> int:
+    return -(-int(n) // 32)
+
+
+def _block_scratch(lw: int, n: int, k: int, n_trellis: int) -> tuple:
+    """``(decision words, metric floats)`` of the block instance's scratch."""
+    s_count = 1 << (int(k) - 1)
+    words = n_trellis * lw * max(1, s_count // 32)
+    return words, (n_trellis * 2 * s_count if s_count > BLOCK_SMEM_STATES else 0)
+
+
+def scratch_words(lw: int, k: int, n_trellis: int, n: int = 2) -> int:
+    """uint32 words of the device scratch of ``n_trellis`` spans of ``lw``
+    steps of a code of ``n`` generators: for the warp instance, the decision
+    histories, or 0 where one trellis's history fits a block's shared memory
+    (the shared route); for the block instance, the decision histories and,
+    past :data:`BLOCK_SMEM_STATES` states, two metric buffers a trellis."""
+    if instance(n, k) == "block":
+        return sum(_block_scratch(lw, n, k, n_trellis))
     if warps_per_block(lw, k) is not None:
         return 0
     return n_trellis * lw * max(1, (1 << (k - 1)) // 32)
+
+
+def _card_bytes(lw: int, n: int, k: int, n_trellis: int) -> int:
+    """Device bytes a call takes: its scratch and, for the block instance,
+    the encoder-output table."""
+    table = (2 << (int(k) - 1)) * _mask_words(n) * 4 if instance(n, k) == "block" else 0
+    return 4 * scratch_words(lw, k, n_trellis, n) + table
+
+
+def kernel_supports(lw: int, n: int, constraint: int) -> bool:
+    """True when the CUDA kernel takes spans of ``lw`` steps for a code of
+    ``n`` generators and constraint length ``constraint``: any ``K >= 2``,
+    ``n >= 1`` and ``lw >= 1`` whose one trellis's scratch and tables fit
+    the card's memory (:data:`CARD_BYTES`)."""
+    return (int(constraint) >= 2 and int(n) >= 1 and int(lw) >= 1
+            and _card_bytes(lw, n, constraint, 1) <= CARD_BYTES)
 
 
 def _check_args(sym: torch.Tensor, lw: int, n: int, polys, constraint: int):
@@ -138,13 +179,32 @@ def viterbi_lanes_reference(sym, lw: int, n: int, polys, constraint: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _out_masks(polys, k: int) -> np.ndarray:
-    """uint8 ``[2 S]``: bit m of entry ``2 s' + j`` is the encoder output
-    ``o_m`` of the transition into ``s'`` from predecessor ``j``."""
+def block_mask_words(polys, k: int) -> np.ndarray:
+    """The encoder outputs: uint32 ``[2 S, ceil(n / 32)]``, bit ``m % 32``
+    of word ``m // 32`` of row ``2 s' + j`` the output ``o_m`` of the
+    transition into ``s'`` from predecessor ``j`` (the block instance reads
+    them on the card)."""
     _, outs = _tables(polys, k)
-    weights = (1 << np.arange(outs.shape[-1])).astype(np.int64)
-    return np.ascontiguousarray((outs.astype(np.int64) * weights).sum(-1)
-                                .reshape(-1).astype(np.uint8))
+    n = outs.shape[-1]
+    flat = outs.reshape(-1, n).astype(np.uint64)
+    words = np.zeros((flat.shape[0], _mask_words(n)), np.uint64)
+    for m in range(n):
+        words[:, m // 32] |= flat[:, m] << np.uint64(m % 32)
+    return words.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _out_masks(polys, k: int) -> np.ndarray:
+    """The warp instance's uint8 ``[2 S]`` (its codes have at most 8
+    generators): :func:`block_mask_words`' one word a row."""
+    return np.ascontiguousarray(block_mask_words(polys, k)[:, 0].astype(np.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_masks(polys, k: int, index: int) -> torch.Tensor:
+    """:func:`block_mask_words` on card ``index`` (as int32), copied once."""
+    return torch.from_numpy(block_mask_words(polys, k).view(np.int32)).to(
+        torch.device("cuda", index))
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +216,16 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _block_entry():
+    fn = build.load("viterbi").viterbi_block_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
                   init_state0: bool, end_state0: bool) -> torch.Tensor:
     """Decode ``sym [N, Lw, n]`` float32 LLR spans, one independent trellis
@@ -163,11 +233,12 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
     bit at step t).
 
     On a CUDA tensor this launches the kernel of ``csrc/viterbi.cu`` on the
-    current stream, once (a history past shared memory in a scratch
-    allocated here, :func:`scratch_words`); it raises on codes the kernel
-    does not take (:func:`kernel_supports`), a dtype other than float32, a
-    non-contiguous tensor, a missing ``nvcc``, a failed build or a failed
-    launch. On a CPU tensor it is :func:`viterbi_lanes_reference`.
+    current stream, once, in the instance :func:`instance` names (a scratch
+    allocated here, :func:`scratch_words`, where it needs one); it raises on
+    a code past the card's memory (:func:`kernel_supports`, and the call's
+    scratch against its card's ``total_memory``), a dtype other than
+    float32, a non-contiguous tensor, a missing ``nvcc``, a failed build or
+    a failed launch. On a CPU tensor it is :func:`viterbi_lanes_reference`.
     """
     global launches
     if not isinstance(sym, torch.Tensor):
@@ -182,23 +253,50 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
         raise ValueError("viterbi_lanes takes contiguous spans")
     k = int(constraint)
     polys = tuple(int(p) for p in polys)
-    if not kernel_supports(lw, n, k):
+    n_tr = sym.shape[0]
+    need = _card_bytes(lw, n, k, max(n_tr, 1))
+    total = torch.cuda.get_device_properties(sym.device).total_memory if need else 0
+    if not kernel_supports(lw, n, k) or need > total or n_tr >= 1 << 31:
         raise ValueError(
             f"the CUDA Viterbi kernel does not take a K={k} code with {n} "
-            f"generators (see kernel_supports: 4-{MAX_STATES} states, "
-            f"1-{MAX_GENERATORS} generators)"
+            f"generators over {n_tr} spans of {lw} steps: its scratch and tables "
+            f"({need} bytes) exceed the card's memory ({total} bytes; see "
+            "kernel_supports)"
         )
-    n_tr = sym.shape[0]
     bits = torch.empty((n_tr, lw), dtype=torch.uint8, device=sym.device)
     if n_tr == 0:
         return bits
-    words = scratch_words(lw, k, n_tr)
+    if instance(n, k) == "block":
+        launch_block(sym, bits, lw, n, polys, k, init_state0, end_state0)
+        launches += 1
+        return bits
+    words = scratch_words(lw, k, n_tr, n)
     scratch = (torch.empty(words, dtype=torch.int32, device=sym.device)
                if words else None)
     launch(sym, bits, lw, n, polys, k, init_state0, end_state0,
            warps_per_block(lw, k) or WARPS[0], scratch)
     launches += 1
     return bits
+
+
+def launch_block(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,
+                 end_state0: bool) -> None:
+    """One launch of the block instance into ``bits`` (checked arguments; no
+    count), its scratch allocated here."""
+    n_tr = sym.shape[0]
+    words, floats = _block_scratch(lw, n, k, n_tr)
+    scratch = torch.empty(words + floats, dtype=torch.int32, device=sym.device)
+    masks = _block_masks(tuple(polys), k, sym.get_device())
+    with torch.cuda.device(sym.device):
+        stream = torch.cuda.current_stream(sym.device).cuda_stream
+        rc = _block_entry()(
+            sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, 1 << (k - 1),
+            int(bool(init_state0)), int(bool(end_state0)), masks.data_ptr(),
+            masks.shape[1], scratch.data_ptr(),
+            scratch.data_ptr() + 4 * words if floats else None, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc}")
 
 
 def launch(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,

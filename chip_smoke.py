@@ -77,7 +77,10 @@ in thirty-one phases:
    3072 and 131 and an unpacked chain at dec 5, fft_len 30 (the last four
    through its mixed-radix FFT); the chunked instance at dec 16, fft_len
    2048, dec 8, fft_len 4096 and dec 64, fft_len 512; the cluster instance
-   at dec 4, fft_len 8192 and dec 1, fft_len 65,536),
+   at dec 4, fft_len 8192 and dec 1, fft_len 65,536; the global instance,
+   one cooperative launch, at dec 4, fft_len 4,099 and 16,411 and dec 2,
+   fft_len 8,198 (Bluestein, unpacked) and dec 1, fft_len 131,072, dec 4,
+   fft_len 262,144 and dec 1, fft_len 4,194,304 (packed)),
    each through the chain's two-block streaming gate with one
    launch a step, against the plain twin, and timed on a 4M block beside
    its byte bound;
@@ -103,7 +106,12 @@ in thirty-one phases:
    the BCJR kernel's lanes instance on the K=7 tables at Lw 224 (the
    windowed soft decode 96/64), ``torch.equal``; and a K=7 full block of
    65,536 steps, past the shared-memory history (the device scratch), one
-   launch, ``torch.equal`` to the twin;
+   launch, ``torch.equal`` to the twin; then the codes past the decoders'
+   earlier instances (``decoder_reach_phase``): Viterbi at K 2, 10, 12, 15
+   and 17 and K 7 with 9 and 16 generators, full block and windowed, and
+   the windowed BCJR at S 2, 3, 128, 256 and 1,024 (``conv_decode_soft``
+   where S is a conv code's), each ``torch.equal`` to its twin with one
+   launch a call, and each new instance timed beside its bound;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
@@ -132,7 +140,10 @@ in thirty-one phases:
     (the carried tail and the block) with real and complex taps, the
     synthesis with the stage's tail and divisor and raw with complex taps,
     the critically sampled synthesis, and ragged batched cases (M 1,000, a
-    seam inside a row at an odd sample, os 4);
+    seam inside a row at an odd sample, os 4); the path's plan unchanged
+    (two slabs, every weight staged); the ranged instance at P 295, 512
+    and 1,024 in all five layout and tap-type pairs, and 70,000 rows (the
+    grid folded past 65,535);
 11. the channelizer path: three consecutive blocks through analysis and
     synthesis, exactly 1 analysis + 1 synthesis fold launch per step and no
     other kernel, the first 64 frames against a float64 golden (<= -80 dB),
@@ -141,14 +152,17 @@ in thirty-one phases:
     first frames against the port's CPU run (<= -110 dB); then the same
     blocks with a complex prototype (the root-Nyquist one moved by a
     quarter channel): the same launches, analysis and synthesis against
-    float64 goldens (<= -80 dB) and the CPU run (<= -110 dB);
+    float64 goldens (<= -80 dB) and the CPU run (<= -110 dB); and a
+    64-channel ``PfbChannelizerOs`` of P 512 (the ranged instance) against
+    its CPU run (<= -110 dB), one launch;
 12. the DDC path over two blocks: against the float64 composed golden on a
     prefix (<= -80 dB) and block by block against one-shot (<= -115 dB);
 13. timings of the fold kernel's analysis and synthesis layouts (CUDA
     events and ``torch.profiler`` device time with its record count), their
     plain twins, the previous design's kernel launched as its callers
     launched it (in turns), the complex-tap and planes layouts, the one-call
-    ``conv1d`` yardstick and both floors; of the analysis, synthesis and DDC
+    ``conv1d`` yardstick and both floors, and the ranged instance's analysis
+    and synthesis at P 512 beside their bounds; of the analysis, synthesis and DDC
     steps (CUDA events and the host's enqueue time) and of
     ``pfb_synthesize`` (slice-sum and kernel); a ``torch.profiler`` split of
     each channelizer step;
@@ -412,7 +426,22 @@ IRR_DB_APART = 0.01  # the corrected tone's image rejection, card vs CPU run (dB
 VITERBI_TIE_CODES = {3: (0o5, 0o7), 5: (0o23, 0o35), 7: (0o171, 0o133), 9: (0o561, 0o753)}
 F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (4, 192, True), (4, 3072, True),
                  (5, 30, False), (4, 131, False), (16, 2048, True), (4, 8192, True),
-                 (8, 4096, True), (64, 512, True), (1, 65536, True))
+                 (8, 4096, True), (64, 512, True), (1, 65536, True),
+                 (4, 4099, False), (4, 16411, False), (2, 8198, False), (1, 131072, True),
+                 (4, 262144, True), (1, 4194304, True))
+# ... and the global instance (one cooperative launch, frames in a device
+# scratch): frames past 4,096 points with no cluster split (4,099 and 16,411
+# are primes, 8,198 = 2 x 4,099: Bluestein), and past 65,536 points up to one
+# 4M-point frame at dec 1. Before it the card raised at all six.
+# phase 7's codes past the warp instance of the Viterbi kernel (K, generators)
+# and the state counts past the BCJR's 4-64 (conv codes through
+# conv_decode_soft; S 3 by random tables)
+VITERBI_REACH = {(2, 2): (0o3, 0o1), (10, 2): (0o1171, 0o1233), (12, 2): (0o4335, 0o5723),
+                 (15, 2): (0o46321, 0o51271), (17, 2): (0o234567, 0o312345),
+                 (7, 9): (0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o173),
+                 (7, 16): tuple(range(0o101, 0o101 + 32, 2))}
+BCJR_REACH = {2: (0o3, 0o1), 128: (0o247, 0o371), 256: (0o561, 0o753),
+              1024: (0o2467, 0o3565)}
 # phase 7's full block past the shared-memory history: K = 7, rate 1/2
 VITERBI_LONG_STEPS = 65_536
 # the burst families beside viterbi and turbo: (label, PacketConfig fields,
@@ -654,6 +683,106 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
               ("K=7 conv one step past the lanes limit", k7, normal(lim + 1, 77), lim + 1),
               ("RSC-8 past the meet limit", None, normal(727, 1000), 727)]
     return cases
+
+
+def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 7's codes past the decoders' earlier instances: Viterbi at
+    K 2 (the warp instance, lanes idle), K 10, 12, 15 and 17 and K 7 with 9
+    and 16 generators (the block instance; past 16,384 states its metrics in
+    the scratch), full block and windowed; the windowed BCJR at S 2 (the
+    column instance), 3 (random tables), 128, 256 and 1,024 (the block
+    instance), through ``conv_decode_soft`` where S is a conv code's. Each
+    ``torch.equal`` to its twin with one launch a call, then timed (CUDA
+    events; twin beside it) at a windowed shape beside its bound. Returns the
+    entries of the viterbi and bcjr kernels' ``instances``."""
+    import numpy as np
+    import torch
+
+    from aether_primitives_tpu_torch.ops import fec
+    from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
+    from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
+
+    dev = torch.device(device)
+    kl = 1 if dev.type == "cuda" else 0
+    rng = np.random.default_rng(1919)
+
+    def llrs(polys, k, b, n_bits):
+        bits = rng.integers(0, 2, (b, n_bits)).astype(np.uint8)
+        enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+        return torch.from_numpy(((1 - 2.0 * enc) * 2 + rng.normal(size=enc.shape))
+                                .astype(np.float32)).to(dev)
+
+    def once(label, what, run, plain):
+        reset_counts()
+        got = run()
+        sync(dev)
+        counts = kernel_launches()
+        want = plain()
+        sync(dev)
+        same = torch.equal(got, want)
+        print(f"compare {label}: kernel vs plain torch.equal {same}, launches {counts} "
+              f"(need {what} {kl})")
+        if not same or counts != {**NO_LAUNCHES, what: kl}:
+            fail(f"{label}: kernel and plain twin disagree, or not one launch")
+
+    def timed(label, run, plain, b, ops_bytes):
+        t, runs = timed_pair(run, plain, iters=(10, 2), runs=2)
+        print(f"time: {label}: kernel median {t['kernel']:.4f} ms (runs "
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}), plain twin median "
+              f"{t['plain']:.4f} ms; CUDA events; bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}: {ops_bytes}) [{card}]", flush=True)
+        return {**t, **b}
+
+    out = {"viterbi": {}, "bcjr": {}}
+    for (k, n), polys in VITERBI_REACH.items():
+        inst = vk.instance(n, k)
+        b_sz, n_bits = (16, 300) if k < 15 else (2, 60)
+        x = llrs(polys, k, b_sz, n_bits)
+        for kw in ({}, {"window": 64, "guard": 48}):
+            once(f"viterbi K={k} rate 1/{n} ({inst} instance) "
+                 f"{'windowed 64/48' if kw else 'full block'} {tuple(x.shape)}", "viterbi",
+                 lambda: fec.viterbi_decode(x, polys, k, **kw),
+                 lambda: fec.viterbi_decode(x, polys, k, backend="reference", **kw))
+        if k in (2, 10, 17) or n == 16:  # one timed shape an instance and state range
+            lw, n_tr = (112, 256) if k < 15 else (112, 4)
+            sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
+                                   .astype(np.float32)).to(dev)
+            s_count = 1 << (k - 1)
+            b = bound(n_tr * lw * s_count * (4 * n + 3), sym.numel() * 4 + n_tr * lw)
+            out["viterbi"][f"K={k} n={n} {inst}"] = timed(
+                f"viterbi K={k} rate 1/{n} ({inst} instance), {n_tr} spans of {lw} steps",
+                lambda: vk.viterbi_lanes(sym, lw, n, polys, k, False, False),
+                lambda: vk.viterbi_lanes_reference(sym, lw, n, polys, k, False, False), b,
+                f"{s_count} states x (4 n + 3) FP32 operations a step, LLRs in, bits out")
+    window, guard = CCSDS_SOFT
+    lw_b = window + 2 * guard
+    for s_count in (2, 3, 128, 256, 1024):
+        if s_count in BCJR_REACH:
+            polys = BCJR_REACH[s_count]
+            k = s_count.bit_length()
+            tables = fec._conv_soft_coeffs(polys, k)
+            x = llrs(polys, k, 8, 400)
+            once(f"conv_decode_soft K={k} (S {s_count}, {bk.kernel_plan(tables, lw_b)[0]} "
+                 f"instance) windowed {window}/{guard} {tuple(x.shape)}", "bcjr",
+                 lambda: fec.conv_decode_soft(x, polys, k, window=window, guard=guard),
+                 lambda: fec.conv_decode_soft(x, polys, k, window=window, guard=guard,
+                                              backend="reference"))
+        else:
+            tables = random_tables(s_count, 1900 + s_count)
+        n_cols = 2048 if s_count <= 256 else 256
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw_b, n_cols)) * 3).astype(np.float32))
+                  .to(dev) for _ in range(2))
+        inst = bk.kernel_plan(tables, lw_b)[0]
+        once(f"bcjr S {s_count} ({inst} instance) Lw {lw_b} x N {n_cols}", "bcjr",
+             lambda: bk.bcjr_windowed_llr(ls, lp, lw_b, tables),
+             lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_b, tables))
+        out["bcjr"][f"S {s_count} {inst}"] = timed(
+            f"bcjr S {s_count} ({inst} instance), Lw {lw_b} x N {n_cols}",
+            lambda: bk.bcjr_windowed_llr(ls, lp, lw_b, tables),
+            lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_b, tables),
+            bcjr_bound_of(lw_b, n_cols, s_count, classes=False),
+            "28 S - 3 FP32 operations a step and column, each an FMA's slot")
+    return out
 
 
 def main() -> None:
@@ -1007,6 +1136,7 @@ def main() -> None:
           f"{torch.equal(soft, soft_plain)}")
     if not (torch.equal(got, plain) and torch.equal(soft, soft_plain)):
         fail("bcjr at the ccsds shape: kernel and plain twin disagree")
+    reach = decoder_reach_phase(card)
     sys.stdout.flush()
 
     # ---- phase 8: the burst path, rx_batch on [256, 16384] ----------------
@@ -1241,6 +1371,7 @@ def main() -> None:
             "ccsds_bound_ms": ccsds_bounds["viterbi"]["bound_ms"],
             "microbench_launches": micro_vit.get("viterbi", 0),
             "cross_process_launches": cross["entries"]["rx_batch_sharded (viterbi)"]["viterbi"],
+            "instances": reach["viterbi"],
         },
         {
             "name": "bcjr",
@@ -1269,6 +1400,7 @@ def main() -> None:
             "ccsds_instance": bk.kernel_plan(k7_tables, lw_c)[0],
             "microbench_launches": micro_turbo.get("bcjr", 0),
             "cross_process_launches": cross["entries"]["rx_batch_sharded (turbo)"]["bcjr"],
+            "instances": reach["bcjr"],
         },
         pfb_entry,
         cmul_entry,
@@ -1368,6 +1500,10 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
         g = gate(chain, x_full, n, bits, states)
         if instance == "direct":
             shape = "whole frames staged"
+        elif instance == "global":
+            glay = rf.global_layout(dec, fft_len, k)
+            shape = (f"one cooperative launch, {'Bluestein over ' if glay['bluestein'] else ''}"
+                     f"{glay['m']}-point Stockham passes {glay['rad']}")
         else:
             lay = rf.general_layout(dec, fft_len, k)
             shape = (f"{lay['threads']} threads, {lay['fpc']} frame(s) a CTA, radices "
@@ -1627,6 +1763,59 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
                   lambda: pf.pfb_analysis(x_32, None, w, 32, 2048),
                   lambda: pf.pfb_analysis_reference(x_32, None, w, 32, 2048)),
     )
+    # the path's plan is the parent's: two slabs in the ring, every weight
+    # staged, no ranges
+    for mode_, cplx_ in (("analysis", False), ("analysis", True), ("synthesis", False),
+                         ("synthesis", True), ("planes", False)):
+        if pf.launch_plan(mode_, p, os, cplx_) != (2, True) or pf.branch_range(mode_, p, cplx_):
+            fail(f"pfb_fold {mode_} at the path's P {p}: the plan changed")
+    print(f"pfb_fold plan at the path's P {p}, os {os}: (2 stages, weights staged) in all "
+          "five layouts, no branch ranges (unchanged)")
+    # the ranged instance, past one slab beside a chunk of the weights: the
+    # five layout and tap-type pairs at P 295, 512 and 1,024 (M 200: a ragged
+    # strip; two tiles; a batch of 2), and 70,000 rows (grid.z folded into x)
+    m_g, os_g = 200, 2
+    for p_g in (295, 512, 1024):
+        w_g = torch.from_numpy(rng.normal(size=(p_g, m_g)).astype(np.float32)).to(dev)
+        w_gc = torch.complex(w_g, torch.from_numpy(rng.normal(size=(p_g, m_g))
+                                                   .astype(np.float32)).to(dev))
+        x_g = c64((2, (150 + p_g + 1) * m_g + 7))
+        v_g = c64((2, 60, m_g))
+        rg = {f"{md}{'-c' if c_ else ''}": (pf.branch_range(md, p_g, c_), c_) for md, c_ in
+              (("analysis", False), ("analysis", True), ("synthesis", False),
+               ("synthesis", True))}
+        fold_err = max(
+            fold_err,
+            fold_case(pf, f"ranged planes: M {m_g}, os 2, P {p_g}, t_cls 150, batch 2 (ranges "
+                          f"of {pf.branch_range('planes', p_g)} branches)",
+                      lambda: pf.pfb_fold_os(x_g.real.contiguous(), x_g.imag.contiguous(), w_g,
+                                             os_g, 150),
+                      lambda: pf.pfb_fold_os_reference(x_g.real.contiguous(),
+                                                       x_g.imag.contiguous(), w_g, os_g, 150)),
+            fold_case(pf, f"ranged analysis: M {m_g}, os 2, P {p_g}, 300 frames, batch 2, "
+                          f"seam at 333 (ranges of {rg['analysis'][0]})",
+                      lambda: pf.pfb_analysis(x_g[:, :333], x_g[:, 333:], w_g, os_g, 300),
+                      lambda: pf.pfb_analysis_reference(x_g[:, :333], x_g[:, 333:], w_g, os_g,
+                                                        300)),
+            fold_case(pf, f"ranged analysis, complex taps: P {p_g} (ranges of "
+                          f"{rg['analysis-c'][0]})",
+                      lambda: pf.pfb_analysis(x_g, None, w_gc, os_g, 300),
+                      lambda: pf.pfb_analysis_reference(x_g, None, w_gc, os_g, 300)),
+            fold_case(pf, f"synthesis: M {m_g}, os 2, P {p_g}, 60 frames, batch 2 (ranges of "
+                          f"{rg['synthesis'][0]}; 0: the chunked plan)",
+                      lambda: pf.pfb_synthesis(v_g, w_g, os_g),
+                      lambda: pf.pfb_synthesis_reference(v_g, w_g, os_g)),
+            fold_case(pf, f"synthesis, complex taps: P {p_g} (ranges of {rg['synthesis-c'][0]})",
+                      lambda: pf.pfb_synthesis(v_g, w_gc, os_g),
+                      lambda: pf.pfb_synthesis_reference(v_g, w_gc, os_g)),
+        )
+    w_r = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)).to(dev)
+    x_r = c64((70_000, 7 * 64))
+    fold_err = max(fold_err, fold_case(
+        pf, "analysis: 70,000 rows (past grid.z's 65,535), M 64, os 2, P 3, 8 frames",
+        lambda: pf.pfb_analysis(x_r, None, w_r, 2, 8),
+        lambda: pf.pfb_analysis_reference(x_r, None, w_r, 2, 8)))
+    del x_r
     sys.stdout.flush()
 
     # ---- phase 11: the channelizer path, three blocks -------------------
@@ -1712,6 +1901,26 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
             or dc_syn_cpu > CPU_DB):
         fail("complex prototype gate")
     del fr_c, rc_c, yc, bc
+
+    # a 64-channel bank of P 512 branches (the ranged instance) through the
+    # model, against the CPU run
+    h_w = ch.pfb_prototype(64, 512)
+    x_w = x_full[:64 * 2048]
+    ana_w = ch.PfbChannelizerOs(64, os=2, taps=h_w, device=dev)
+    sync(dev)
+    reset_counts()
+    y_w = ana_w.step(torch.from_numpy(x_w).to(dev))
+    sync(dev)
+    counts_w = kernel_launches()
+    y_wc = ch.PfbChannelizerOs(64, os=2, taps=h_w, device="cpu").step(x_w)
+    d_w = evm_db(y_w.cpu(), y_wc)
+    want_w = {**NO_LAUNCHES, "pfb_fold": kl}
+    print(f"wide bank: PfbChannelizerOs(64, os 2, P {ch._branches(h_w, 64).shape[0]}: ranges "
+          f"of {pf.branch_range('analysis', 512)} branches) on {x_w.shape[0]} samples -> "
+          f"{tuple(y_w.shape)} frames, launches {counts_w} (need {want_w}); vs the CPU run "
+          f"{d_w:.2f} dB (need <= {CPU_DB})", flush=True)
+    if counts_w != want_w or d_w > CPU_DB or not bool(torch.isfinite(y_w.abs()).all()):
+        fail("wide bank (P 512) against the CPU run")
 
     # ---- phase 12: the DDC path, two blocks ----------------------------
     cfg = DdcConfig(freq=0.1375, decimation=8)
@@ -1838,6 +2047,30 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
           f"conv1d library median {lib_ms:.4f} ms (runs "
           f"{', '.join(f'{x:.4f}' for x in lib_runs)}; rel. diff from the twin {lib_rel:.2e}) "
           f"[{card}]", flush=True)
+    # the ranged instance at the path's M and os with P 512 (two ranges of
+    # 64 branches are eight; synthesis 121), 512 class frames a class
+    ranged = {}
+    p_w, t_w = 512, 1024
+    w_w = torch.from_numpy(rng.normal(size=(p_w, m)).astype(np.float32)).to(dev)
+    x_w = c64(((t_w // os + p_w) * m,))
+    v_w = c64((t_w, m))
+    for name, run_k, run_p, nbytes in (
+        ("analysis", lambda: pf.pfb_analysis(x_w, None, w_w, os, t_w),
+         lambda: pf.pfb_analysis_reference(x_w, None, w_w, os, t_w),
+         8 * ((t_w // os - 1 + p_w) * m + (os - 1) * hop) + 8 * t_w * m + 4 * p_w * m),
+        ("synthesis", lambda: pf.pfb_synthesis(v_w, w_w, os),
+         lambda: pf.pfb_synthesis_reference(v_w, w_w, os),
+         8 * t_w * m + 8 * pf.synthesis_length(t_w, m, p_w, os) + 4 * p_w * m),
+    ):
+        t, runs = timed_pair(run_k, run_p, iters=(10, 2), runs=2)
+        b = bound(2 * t_w * m * 2 * (2 * p_w - 1), nbytes)
+        ranged[name] = {**t, **b, "branch_range": pf.branch_range(name, p_w)}
+        print(f"time: pfb_fold ranged {name}, M {m}, os {os}, P {p_w} (ranges of "
+              f"{pf.branch_range(name, p_w)} branches), {t_w} frames: kernel median "
+              f"{t['kernel']:.4f} ms (runs {', '.join(f'{x:.4f}' for x in runs['kernel'])}), "
+              f"plain twin median {t['plain']:.4f} ms; CUDA events; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+    del x_w, v_w
 
     def stepper(stage, inputs):
         box = {"i": 0}
@@ -1911,6 +2144,7 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
         "planes_device_ms": dev_c["planes"][0],
         "steps": {k: {"ms": t["kernel"], "host_enqueue_ms": t["enqueue"],
                       "device_busy_ms": busy[k]} for k, t in step_t.items()},
+        "ranged": ranged,
     }
 
 

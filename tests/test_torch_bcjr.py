@@ -18,6 +18,7 @@ tests/test_torch_bcjr.py``).
 """
 
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +52,15 @@ def _spans(lw, n, seed):
     rng = np.random.default_rng(seed)
     return ((rng.normal(size=(lw, n)) * 3).astype(np.float32),
             (rng.normal(size=(lw, n)) * 3).astype(np.float32))
+
+
+def _conv_llrs(polys, k, b, n_bits, seed=31):
+    """Conv-encoded random bits as LLRs ``2 (1 - 2 c) + N(0, 1)`` (float32),
+    and the bits."""
+    rng = np.random.default_rng(seed + k)
+    bits = rng.integers(0, 2, (b, n_bits)).astype(np.uint8)
+    enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+    return bits, ((1 - 2.0 * enc) * 2 + rng.normal(size=enc.shape)).astype(np.float32)
 
 
 def _channel_llrs(n_bits, b, seed, sigma=0.8):
@@ -376,9 +386,78 @@ def test_lanes_span_limit(s_count):
 
 
 def test_kernel_plan_raises_on_other_state_counts():
-    for s_count in (2, 3, 128):
-        with pytest.raises(ValueError, match="states"):
-            bk.kernel_plan(random_tables(s_count, 3), 96)
+    # every state count has an instance now: 2 and 3 the column instance,
+    # any other outside 4-64 the block instance; the plan raises only where
+    # one column's scratch exceeds the card's memory
+    for s_count in (2, 3):
+        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("column", 0)
+    for s_count in (5, 7, 128, 256, 1000):
+        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("block", 0)
+    assert bk.scratch_bytes(256, 96, 10) == 4 * 96 * 256 * 10
+    big = bk.BLOCK_SMEM_STATES + 1  # the block instance's metrics go to the scratch
+    assert bk.scratch_bytes(big, 96, 10) == 4 * (96 * big * 10 + 2 * big * 10)
+    with pytest.raises(ValueError, match="card's memory"):  # 96 GB of beta history
+        bk.kernel_plan(random_tables(4, 3), 6 * 10 ** 9)
+
+
+# --------------------------------------------- the block instance on the CPU
+#
+# A numpy model of ``csrc/bcjr.cu bcjr_block_kernel``: a buffer holds a
+# step's metrics before the subtraction of their maximum, which the next
+# step subtracts as it reads them; the maxima over the states are taken on
+# order-preserving uint32 keys (the kernel's redux.sync), in no particular
+# order. Held bit for bit against the twin.
+
+
+def _keys_max(a, axis=0):
+    u = np.asarray(a, np.float32).view(np.uint32)
+    k = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).max(axis=axis)
+    return np.where(k & np.uint32(0x80000000), k & np.uint32(0x7fffffff), ~k).astype(
+        np.uint32).view(np.float32)
+
+
+def _block_model(ls, lp, lw, tables):
+    idx, coef, _, _ = bk._host_tables(tables)
+    nxt, prv = idx[0], idx[1]
+    fw0, fw1, bw0, bw1 = coef
+    s_count, n = nxt.shape[0], ls.shape[1]
+
+    def g(c0, c1, u, t):  # [S, N]
+        return c0[:, u, None] * ls[t][None] + c1[:, u, None] * lp[t][None]
+
+    hist = np.empty((lw, s_count, n), np.float32)
+    m = np.zeros((s_count, n), np.float32)
+    mx = np.zeros(n, np.float32)
+    for t in range(lw - 1, -1, -1):
+        hist[t] = m - mx
+        b = np.maximum((m[nxt[:, 0]] - mx) + g(bw0, bw1, 0, t),
+                       (m[nxt[:, 1]] - mx) + g(bw0, bw1, 1, t))
+        m, mx = b, _keys_max(b)
+    out = np.empty((lw, n), np.float32)
+    m = np.zeros((s_count, n), np.float32)
+    mx = np.zeros(n, np.float32)
+    for t in range(lw):
+        a = m - mx
+        c0 = (a + g(bw0, bw1, 0, t)) + hist[t][nxt[:, 0]]
+        c1 = (a + g(bw0, bw1, 1, t)) + hist[t][nxt[:, 1]]
+        out[t] = _keys_max(c0) - _keys_max(c1)
+        an = np.maximum((m[prv[:, 0]] - mx) + g(fw0, fw1, 0, t),
+                        (m[prv[:, 1]] - mx) + g(fw0, fw1, 1, t))
+        m, mx = an, _keys_max(an)
+    return out
+
+
+@pytest.mark.parametrize("s_count", [2, 3, 5, 128, 300])
+def test_block_model_matches_twin(s_count):
+    rng = np.random.default_rng(40 + s_count)
+    lw, n = 23, 6
+    tables = random_tables(s_count, 7 + s_count)
+    ls, lp = (np.round(rng.normal(size=(lw, n)) * 2, 1).astype(np.float32) for _ in range(2))
+    ls[0, 0] = lp[1, 1] = -0.0  # signed zeros among ties
+    got = _block_model(ls, lp, lw, tables)
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
+                                          tables)
+    assert torch.equal(torch.from_numpy(got), want)
 
 
 @pytest.mark.parametrize("k", sorted(SR_CODES))
@@ -536,6 +615,53 @@ def test_cuda_kernel_at_ties_and_signed_zeros(cuda, tables, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_count", [2, 3, 5, 128, 256, 1000])
+def test_cuda_column_and_block_instances_match_twin(cuda, s_count):
+    # the state counts outside 4-64: 2 and 3 in the column instance, the
+    # rest in the block instance, one launch a call
+    rng = np.random.default_rng(90 + s_count)
+    tables = random_tables(s_count, 11 + s_count)
+    for lw, n in ((1, 3), (96, 77), (224, 257)):
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw, n)) * 3).astype(np.float32)).to(cuda)
+                  for _ in range(2))
+        before = bk.launches
+        got = bk.bcjr_windowed_llr(ls, lp, lw, tables)
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        torch.cuda.synchronize()
+        assert bk.launches == before + 1
+        assert torch.equal(got, want), (s_count, lw, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 8, 9])
+def test_cuda_conv_decode_soft_at_other_state_counts(cuda, k):
+    polys = {2: (0o3, 0o1), 8: (0o247, 0o371), 9: (0o561, 0o753)}[k]
+    bits, llrs = _conv_llrs(polys, k, 5, 300)
+    x = torch.from_numpy(llrs).to(cuda)
+    before = bk.launches
+    got = fec.conv_decode_soft(x, polys, k, window=96, guard=64)
+    want = fec.conv_decode_soft(x, polys, k, window=96, guard=64, backend="reference")
+    torch.cuda.synchronize()
+    assert bk.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_raises_past_the_card_memory(cuda, monkeypatch):
+    # a card of 64 KB: the block instance's beta history (96 x 256 x 10
+    # floats) does not fit, so the call raises; neither kernel nor twin runs
+    ls = torch.zeros((96, 10), device=cuda)
+    tables = random_tables(256, 5)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(total_memory=1 << 16))
+    before = bk.launches
+    with pytest.raises(ValueError, match="card's memory"):
+        bk.bcjr_windowed_llr(ls, ls, 96, tables)
+    monkeypatch.undo()
+    assert bk.launches == before
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 """The port's repaired faults against the JAX package (ROADMAP.md §3,
-F1-F10), each on the same numpy inputs from a seed through both packages.
+F1-F16), each on the same numpy inputs from a seed through both packages.
 
 Tolerances are the reference's own: filters RMS EVM <= -120 dB against the
 JAX function, spectra <= -80 dB, the RX chain's bits >= 0.99999 agreement
@@ -7,6 +7,25 @@ JAX function, spectra <= -80 dB, the RX chain's bits >= 0.99999 agreement
 ROADMAP.md §3.5), and exact equality where the reference is exact
 (scrambler bits, the Split planes, the bound arguments of a call, the
 exported names, the filled samples, the configs each package refuses).
+
+F13-F16 are the configurations the card refused before and the JAX package
+computes: the port's plain twins against the JAX package on the CPU, and the
+plans that now take them.
+- F13, the PFB fold past P = 294 branches: the planes twin against the
+  Pallas fold (interpret mode) at P = 300 at relative RMS error <= 1e-6
+  (``tests/test_torch_pfb_fold.py``'s bar: the same products in the same
+  order, the JAX side contracting to FMAs), and the analysis and synthesis
+  twins, real and complex taps, against a float64 fold at P 300 and 400.
+- F14, the RX frame kernel past 4,096 points with no cluster split and past
+  65,536 points: ``RxChain`` at dec 4 / fft_len 4,099, 2 / 8,198 and
+  1 / 131,072 against the JAX chain and the float64 chain, two streaming
+  blocks: bits >= 0.99999 (exact wherever a decision's margin is clear) and
+  block 2's spectrum at <= -80 dB, the carried state exact.
+- F15, Viterbi at 2 states, past 256 states and past 8 generators:
+  ``viterbi_decode`` at K 2, K 10 and K 7 with 9 generators, full block and
+  windowed, exactly (``np.array_equal``).
+- F16, the windowed BCJR at state counts outside 4-64:
+  ``conv_decode_soft`` windowed at K 2 and K 8, its hard decisions exactly.
 """
 
 import dataclasses
@@ -20,17 +39,28 @@ import torch
 import aether_primitives_tpu_torch as tp
 from aether_primitives_tpu_torch import boundary, convert
 from aether_primitives_tpu_torch import types as ttypes
+from aether_primitives_tpu_torch.cli import numpy_reference_spectra
 from aether_primitives_tpu_torch.evm import evm_rms_db
 from aether_primitives_tpu_torch.models import RxChain, RxChainConfig, channelizer, ddc
 from aether_primitives_tpu_torch.models import sync as tsync
 from aether_primitives_tpu_torch.ops import fft as tfft
 from aether_primitives_tpu_torch.ops import fir as tfir
+from aether_primitives_tpu_torch.ops import fec
 from aether_primitives_tpu_torch.ops import sequence as tseq
+from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
+from aether_primitives_tpu_torch.ops.cuda import pfb_fold as pf
 from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
+from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
 
 torch.set_num_threads(1)
 
 FILTER_DB, SPECTRUM_DB, AGREEMENT = -120.0, -80.0, 0.99999
+EVM_DB = SPECTRUM_DB
+MARGIN = 1e-4
+FOLD_REL = 1e-6
+# float32 against float64 after P = 300 rounded products and sums (each
+# within 2^-24 relative): about 1e-6 RMS; the bar leaves a factor of ten
+FOLD_F64_REL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -473,3 +503,242 @@ def test_f10_packet_modem_refuses_what_the_reference_refuses(jx, field, value, m
     with pytest.raises(ValueError, match=match) as err:
         PacketModem(PacketConfig(fec="viterbi", **kw), device="cpu")
     assert str(err.value) == str(jerr.value)
+
+
+# ------------------------------------------- F13-F16: what the card refused
+
+CODES_F15 = {
+    "k2": ((0o3, 0o1), 2),
+    "k10": ((0o1171, 0o1233), 10),
+    "k7-n9": ((0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o173), 7),
+}
+CODES_F16 = {2: (0o3, 0o1), 8: (0o247, 0o371)}
+
+
+@pytest.fixture(scope="module")
+def jfec():
+    pytest.importorskip("jax")
+    from aether_primitives_tpu.ops import fec as jax_fec
+
+    return jax_fec
+
+
+@pytest.fixture(scope="module")
+def jax_modem():
+    pytest.importorskip("jax")
+    from aether_primitives_tpu.models import modem
+
+    return modem
+
+
+@pytest.fixture(scope="module")
+def jax_fold():
+    pytest.importorskip("jax")
+    from aether_primitives_tpu.ops.pallas.pfb_fold import pfb_fold_os
+
+    return pfb_fold_os
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.complex128), np.asarray(ref, np.complex128)
+    return float(np.sqrt(np.mean(np.abs(got - ref) ** 2) / np.mean(np.abs(ref) ** 2)))
+
+
+# ------------------------------------------------------------------ F13
+
+
+def test_f13_the_kernel_takes_every_branch_count():
+    for p in (295, 300, 512, 1024):
+        for mode, cplx in (("analysis", False), ("analysis", True), ("planes", False),
+                           ("synthesis", False), ("synthesis", True)):
+            assert pf.kernel_supports(2048, p, 2, mode=mode, complex_taps=cplx)
+            ranged = pf.branch_range(mode, p, cplx)
+            assert ranged > 0 or mode == "synthesis" and p < 389
+            if ranged:
+                assert pf.launch_plan(mode, p, 2, cplx) == (2, False)
+    assert pf.kernel_supports(64, 4, 2, batch=70_000)
+    assert pf.kernel_supports(64 * 70_000, 4, 2)  # 70,000 strips of 64 columns
+
+
+def test_f13_planes_twin_matches_the_pallas_fold_at_p300(jax_fold):
+    m, os, p, t_cls = 16, 2, 300, 8
+    rng = np.random.default_rng(1300)
+    need = (os - 1) * (m // os) + (t_cls - 1 + p) * m
+    xr, xi = (rng.normal(size=need).astype(np.float32) for _ in range(2))
+    hb = rng.normal(size=(p, m)).astype(np.float32)
+    got_r, got_i = pf.pfb_fold_os_reference(torch.from_numpy(xr), torch.from_numpy(xi),
+                                            torch.from_numpy(hb), os, t_cls)
+    want_r, want_i = jax_fold(xr, xi, hb, os, t_cls, tile_t=8, interpret=True)
+    assert _rel(got_r.numpy(), np.asarray(want_r)) <= FOLD_REL
+    assert _rel(got_i.numpy(), np.asarray(want_i)) <= FOLD_REL
+
+
+def _f64_analysis(x, w, m, os, t_frames):
+    """out[t, c] = sum_p w[p, r] x[j hop + (i + p) M + r], t = i os + j,
+    r = (c - j hop) mod M, in float64."""
+    hop = m // os
+    p = w.shape[0]
+    out = np.zeros((t_frames, m), np.complex128)
+    for t in range(t_frames):
+        i, j = divmod(t, os)
+        acc = np.zeros(m, np.complex128)
+        for q in range(p):
+            s = j * hop + (i + q) * m
+            seg = np.zeros(m, np.complex128)
+            avail = x[s:s + m]
+            seg[:avail.shape[0]] = avail
+            acc += w[q] * seg
+        out[t] = np.roll(acc, (j * hop) % m)
+    return out
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_f13_analysis_twin_matches_float64_at_p300(cplx):
+    m, os, p, t_frames = 16, 2, 300, 7
+    rng = np.random.default_rng(1301)
+    n = (t_frames // os + p + 1) * m
+    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    w = rng.normal(size=(p, m)) + (1j * rng.normal(size=(p, m)) if cplx else 0)
+    w = w.astype(np.complex64 if cplx else np.float32)
+    got = pf.pfb_analysis_reference(torch.from_numpy(x[:100]), torch.from_numpy(x[100:]),
+                                    torch.from_numpy(w), os, t_frames)
+    want = _f64_analysis(x.astype(np.complex128), w.astype(np.complex128), m, os, t_frames)
+    assert _rel(got.numpy(), want) <= FOLD_F64_REL
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_f13_synthesis_twin_matches_float64_at_p400(cplx):
+    # P 400: past the chunked synthesis (388 real, 366 complex taps)
+    m, os, p, t_frames = 8, 2, 400, 5
+    hop = m // os
+    rng = np.random.default_rng(1302)
+    fr = (rng.normal(size=(t_frames, m)) + 1j * rng.normal(size=(t_frames, m))).astype(np.complex64)
+    w = rng.normal(size=(p, m)) + (1j * rng.normal(size=(p, m)) if cplx else 0)
+    w = w.astype(np.complex64 if cplx else np.float32)
+    got = pf.pfb_synthesis_reference(torch.from_numpy(fr), torch.from_numpy(w), os).numpy()
+    length = pf.synthesis_length(t_frames, m, p, os)
+    # out[U M + c] = sum over classes j of sum_q g[q, r] v[(U - d + q - (P-1)) os + j, c]
+    want = np.zeros(length, np.complex128)
+    frames = fr.astype(np.complex128)
+    g = w.astype(np.complex128)
+    for u_row in range(-(-length // m)):
+        for c in range(m):
+            idx = u_row * m + c
+            if idx >= length:
+                continue
+            for j in range(os):
+                d = 1 if c < j * hop else 0
+                r = (c - j * hop) % m
+                for q in range(p):
+                    cls = u_row - d + q - (p - 1)
+                    t = cls * os + j
+                    if 0 <= cls and t < t_frames:
+                        want[idx] += g[q, r] * frames[t, c]
+    assert got.shape == (length,)
+    assert _rel(got, want) <= FOLD_F64_REL
+
+
+# ------------------------------------------------------------------ F14
+
+
+def _decisions(spec, table):
+    """float64 nearest-point bits and each bit's margin (tests/test_torch_modem.py's)."""
+    s = spec.reshape(-1, 1)
+    score = s.real * table.real + s.imag * table.imag - 0.5 * np.abs(table) ** 2
+    order = np.sort(score, axis=-1)
+    idx = np.argmax(score, axis=-1)
+    bps = int(np.log2(table.shape[0]))
+    bits = ((idx[:, None] >> np.arange(bps)) & 1).astype(np.uint8).reshape(-1)
+    return bits, np.repeat(order[:, -1] - order[:, -2], bps)
+
+
+def _check_bits(got, want, margin):
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    assert got.shape == want.shape
+    clear = margin > MARGIN * np.sqrt(np.mean(margin ** 2))
+    assert np.array_equal(got[clear], want[clear])
+    assert (got == want).mean() >= AGREEMENT
+
+
+@pytest.mark.parametrize("dec,fft_len", [(4, 4099), (2, 8198), (1, 131072)],
+                         ids=["4-4099", "2-8198", "1-131072"])
+def test_f14_rx_chain_matches_jax_and_float64(jax_modem, dec, fft_len):
+    jcfg = jax_modem.RxChainConfig(fft_len=fft_len, decimation=dec, packed_bits=False)
+    jchain = jax_modem.RxChain(jcfg)
+    chain = RxChain(convert.config_from_numpy(dataclasses.asdict(jcfg)), device="cpu")
+    assert chain.taps.tobytes() == jchain.taps.tobytes()
+    k = chain.taps.shape[-1]
+    assert rf.kernel_supports(dec, fft_len, None, k) == "global"
+    lay = rf.global_layout(dec, fft_len, k)
+    # Bluestein past a power of two: an m-point FFT, m >= 2 n - 1
+    assert lay["bluestein"] == (fft_len != 131072)
+    assert lay["m"] >= 2 * fft_len - 1 if lay["bluestein"] else lay["m"] == fft_len
+    span = dec * fft_len
+    rng = np.random.default_rng(1400 + fft_len)
+    x = (rng.normal(size=4 * span) + 1j * rng.normal(size=4 * span)).astype(np.complex64)
+    jstate, state = jchain.init_state(), chain.init_state()
+    got, want, hist = [], [], []
+    for xb in (x[:2 * span], x[2 * span:]):
+        hist.append((state, jstate))
+        jb, jstate = jchain.streaming_step(xb, jstate)
+        b, state = chain.streaming_step(torch.from_numpy(xb), state)
+        got.append(b.numpy())
+        want.append(np.asarray(jb))
+        assert np.array_equal(state.numpy(), np.asarray(jstate))
+    ref_spec = numpy_reference_spectra(x, chain.taps, dec, fft_len)
+    ref_bits, margin = _decisions(ref_spec, chain.modulation.table)
+    _check_bits(np.concatenate(got), np.concatenate(want), margin)
+    _check_bits(np.concatenate(got), ref_bits, margin)
+    state1, jstate1 = hist[1]
+    spec2 = chain._frames_spectra(torch.from_numpy(x[2 * span:]), history=state1).numpy()
+    jspec2 = np.asarray(jchain._frames_spectra(x[2 * span:], history=jstate1))
+    assert evm_rms_db(spec2, ref_spec[2:]) <= EVM_DB
+    assert evm_rms_db(spec2, jspec2) <= EVM_DB
+
+
+def test_f14_every_frame_up_to_4m_points_has_an_instance():
+    for dec, fft_len in ((4, 4099), (2, 8198), (4, 16411), (1, 131072), (4, 262144),
+                         (1, 4194304)):
+        assert rf.kernel_supports(dec, fft_len, None, 65) == "global"
+    assert rf.kernel_supports(4, 2048, None, 65) == "direct"  # the main path
+    assert rf.kernel_supports(1, 65536, None, 1) == "cluster"
+
+
+# ------------------------------------------------------------------ F15
+
+
+def _llrs(polys, k, shape, seed):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, shape).astype(np.uint8)
+    enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+    return bits, ((1 - 2.0 * enc) * 2 + rng.normal(size=enc.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("code", sorted(CODES_F15))
+def test_f15_viterbi_decode_matches_jax(jfec, code):
+    polys, k = CODES_F15[code]
+    n = len(polys)
+    assert vk.kernel_supports(150, n, k)
+    assert vk.instance(n, k) == ("warp" if k == 2 else "block")
+    _, llr = _llrs(polys, k, (2, 150), 1500 + k + n)
+    for kw in ({}, {"window": 64, "guard": 48}):
+        got = fec.viterbi_decode(torch.from_numpy(llr), polys, k, **kw).numpy()
+        want = np.asarray(jfec.viterbi_decode(llr, polys, k, backend="xla", **kw))
+        assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------------ F16
+
+
+@pytest.mark.parametrize("k", sorted(CODES_F16))
+def test_f16_conv_decode_soft_windowed_matches_jax(jfec, k):
+    polys = CODES_F16[k]
+    tables = fec._conv_soft_coeffs(polys, k)
+    assert bk.kernel_plan(tables, 64 + 2 * 32) == (("column", 0) if k == 2 else ("block", 0))
+    bits, llr = _llrs(polys, k, (2, 150), 1600 + k)
+    got = fec.conv_decode_soft(torch.from_numpy(llr), polys, k, window=64, guard=32).numpy()
+    want = np.asarray(jfec.conv_decode_soft(llr, polys, k, window=64, guard=32,
+                                            backend="xla"))
+    assert got.shape == want.shape
+    assert np.array_equal(got < 0, want < 0)
+    assert np.array_equal((got < 0).astype(np.uint8), bits)

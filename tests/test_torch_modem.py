@@ -10,6 +10,7 @@ carry the ``cuda`` marker and skip without a card.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -295,21 +296,33 @@ def test_cuda_chain_goes_through_the_kernel(cuda, mod):
 
 
 @pytest.mark.cuda
-def test_cuda_chain_raises_where_the_kernel_does_not_go(cuda):
-    # fft_len 16,411 is a prime past the 4,096 points one CTA holds, and a
-    # prime has no split for a cluster: the chain raises instead of running
-    # the plain version (fft_len 3750, which raised before the mixed-radix
-    # FFT, now launches)
+def test_cuda_chain_raises_where_the_kernel_does_not_go(cuda, monkeypatch):
+    # fft_len 16,411 is a prime past the 4,096 points one CTA holds, with no
+    # split for a cluster: the global instance takes it (Bluestein), one
+    # launch a step; the kernel goes no further than the card's memory, and
+    # past it (a card of 1 MB here) the chain raises instead of running the
+    # plain version (fft_len 3750, which raised before the mixed-radix FFT,
+    # launches the direct instance)
     chain = RxChain(RxChainConfig(fft_len=16411, decimation=1), device=cuda)
-    assert rf.kernel_supports(1, 16411, None, chain.taps.shape[-1]) is None
+    assert rf.kernel_supports(1, 16411, None, chain.taps.shape[-1]) == "global"
     assert rf.kernel_supports(4, 3750, None, 65) == "direct"
+    x = torch.from_numpy(_signal(2 * 16411, 301))
     before = rf.launches
+    bits, state = chain.streaming_step(x, chain.init_state())
+    host = RxChain(RxChainConfig(fft_len=16411, decimation=1), device="cpu")
+    hbits, hstate = host.streaming_step(x, host.init_state())
+    assert rf.launches == before + 1
+    assert torch.equal(state.cpu(), hstate)
+    assert (bits.cpu() == hbits).float().mean().item() >= AGREEMENT
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(total_memory=1 << 20))
     with pytest.raises(ValueError, match="does not take"):
         chain.step(torch.zeros(16411, dtype=torch.complex64))
     with pytest.raises(ValueError, match="does not take"):
         chain.streaming_step(torch.zeros(16411, dtype=torch.complex64),
                              chain.init_state())
-    assert rf.launches == before
+    monkeypatch.undo()
+    assert rf.launches == before + 1
 
 
 # ------------------------------------------- ragged-capture policies and Split

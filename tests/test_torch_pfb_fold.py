@@ -146,19 +146,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="\\[P, M\\]"):
         pf.pfb_fold_os(xr, xi, hb[0], os, t_cls)
     assert pf.kernel_supports(2048, 33, 2)
-    # one slab of (tile + P) x 64 complex64 samples must fit (tile 128, or
-    # 44 synthesis rows) beside a chunk of the weights (64 branches, or 44),
-    # so the bound is the same at every os: the previous kernel's P 260 and
-    # more, with either tap type
+    # one slab of (tile + P) x 64 complex64 samples fits (tile 128, or 44
+    # synthesis rows) beside a chunk of the weights (64 branches, or 44) up
+    # to the same P at every os; past it the ranged instance stages the slab
+    # in ranges of branches, so every P is taken, with either tap type
     last = {("planes", False): 294, ("analysis", False): 294, ("analysis", True): 262,
             ("synthesis", False): 388, ("synthesis", True): 366}
+    ranges = {("planes", False): 64, ("analysis", False): 64, ("analysis", True): 48,
+              ("synthesis", False): 121, ("synthesis", True): 88}
     for os in (1, 2, 4, 8, 32):
         for (mode, cplx), p_max in last.items():
             assert pf.kernel_supports(2048, 260, os, mode=mode, complex_taps=cplx)
             assert pf.kernel_supports(2048, p_max, os, mode=mode, complex_taps=cplx)
-            assert not pf.kernel_supports(2048, p_max + 1, os, mode=mode, complex_taps=cplx)
-    assert pf.kernel_supports(2048, 260, 2) and not pf.kernel_supports(2048, 295, 2)
-    assert not pf.kernel_supports(64, 4, 2, batch=70_000)
+            assert pf.branch_range(mode, p_max, cplx) == 0
+            assert pf.kernel_supports(2048, p_max + 1, os, mode=mode, complex_taps=cplx)
+            assert pf.branch_range(mode, p_max + 1, cplx) == ranges[mode, cplx]
+            assert pf.launch_plan(mode, p_max + 1, os, cplx) == (2, False)
+            # two ring stages of a range's slab and weights fit, three branches more do not
+            pc, tile, size = ranges[mode, cplx], pf.TILE[mode], 8 if cplx else 4
+            stage = lambda q: (tile + q) * 64 * 8 + q * 64 * size  # noqa: E731
+            assert 2 * stage(pc) <= pf.MAX_SMEM < 2 * stage(pc + pf.FRAMES[mode])
+    assert pf.kernel_supports(2048, 295, 2) and pf.kernel_supports(2048, 4096, 2)
+    # rows and strips past 65,535 fold into the grid's x axis
+    assert pf.kernel_supports(64, 4, 2, batch=70_000)
+    assert pf.kernel_supports(64 * 70_000, 4, 2)
+    assert not pf.kernel_supports(64, 4, 2, batch=1 << 31)  # past a 32-bit row count
     # the path: a ring of two slabs, the weights in shared memory
     for mode in ("analysis", "synthesis"):
         for cplx in (False, True):
@@ -519,9 +531,119 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
     before = pf.launches
     with pytest.raises(ValueError, match="contiguous"):
         pf.pfb_fold_os(xr, xi, hb.t().contiguous().t(), os, t_cls)
-    long = torch.zeros(_need(m, os, 295, 1), device=cuda)  # a slab and a chunk too many
+    # 2^31 rows (one row read 2^31 times): past the kernel's 32-bit row count;
+    # it raises before any output is allocated, and neither kernel nor twin runs
+    rows = torch.zeros(m * 4, dtype=torch.complex64, device=cuda).expand(1 << 31, m * 4)
     with pytest.raises(ValueError, match="does not take"):
-        pf.pfb_fold_os(long, long, torch.zeros(295, m, device=cuda), os, 1)
+        pf.pfb_analysis(rows, None, hb, os, 4)
     with pytest.raises(ValueError, match="one device"):
         pf.pfb_fold_os(xr, xi, hb.cpu(), os, t_cls)
     assert pf.launches == before
+
+
+# ------------------------------------------ the ranged instance on the CPU
+#
+# A numpy model of ``csrc/pfb_fold.cu pfb_fold_ranged_kernel`` in the planes
+# layout: per tile of ``tile`` class frames, per class, per range of ``pc``
+# branches, the range's slab (rows [tile0 + q0, tile0 + q0 + tile + pc) of
+# M samples, zeros past the end) and its weights; frame t of column c reads
+# slab row t + down + q (down = c < j hop); the accumulators carry over the
+# ranges, so the sum runs from p = 0 in order. Held bit for bit against the
+# planes twin.
+
+
+def ranged_model(xr, xi, hb, os, t_cls, pc, tile=128):
+    p, m = hb.shape
+    hop = m // os
+    n = xr.shape[-1]
+    out = np.zeros((2, os, t_cls, m), np.float32)
+    cols = np.arange(m)
+    for tile0 in range(0, t_cls, tile):
+        for j in range(os):
+            down = (cols < j * hop).astype(np.int64)
+            r = (cols - j * hop) % m
+            acc = None
+            for q0 in range(0, p, pc):
+                rows = tile0 + q0 + np.arange(tile + pc)
+                idx = rows[:, None] * m + cols[None, :]
+                slab = [np.where(idx < n, pl[np.minimum(idx, n - 1)], np.float32(0))
+                        for pl in (xr, xi)]
+                for q in range(min(pc, p - q0)):
+                    sel = np.arange(tile)[:, None] + down[None, :] + q
+                    w = hb[q0 + q, r]
+                    term = np.stack([sl[sel, cols] * w for sl in slab])
+                    acc = term if acc is None else acc + term
+            keep = min(tile, t_cls - tile0)
+            out[:, j, tile0:tile0 + keep] = acc[:, :keep]
+    return out
+
+
+@pytest.mark.parametrize("p,pc,t_cls,os", [(300, 64, 150, 2), (70, 64, 20, 4), (97, 48, 9, 1)],
+                         ids=["p300", "p70", "p97-os1"])
+def test_ranged_model_matches_twin(p, pc, t_cls, os):
+    m = 16
+    xr, xi, hb = _case(m, os, p, t_cls, seed=p + pc)
+    got = ranged_model(xr, xi, hb, os, t_cls, pc)
+    want_r, want_i = _twin(xr, xi, hb, os, t_cls)
+    assert np.array_equal(got[0], want_r) and np.array_equal(got[1], want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [295, 512, 1024])
+@pytest.mark.parametrize("mode,cplx", [("analysis", False), ("analysis", True),
+                                       ("planes", False), ("synthesis", False),
+                                       ("synthesis", True)])
+def test_cuda_ranged_instance_matches_twin(cuda, mode, cplx, p):
+    # past one slab beside a chunk of the weights: the slab in ranges of
+    # branches, one launch, bit for bit (two tiles, ragged M, a batch axis)
+    m, os, batch = 200, 2, (2,)
+    rng = np.random.default_rng(p + 7 * len(mode) + cplx)
+    w = _branches(p, m, rng, cplx).to(cuda)
+    before = pf.launches
+    if mode == "planes":
+        t_cls = 150
+        xr, xi, hb = (torch.from_numpy(a).to(cuda)
+                      for a in _case(m, os, p, t_cls, seed=p, batch=batch, extra=3))
+        got = pf.pfb_fold_os(xr, xi, hb, os, t_cls)
+        want = pf.pfb_fold_os_reference(xr, xi, hb, os, t_cls)
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    elif mode == "analysis":
+        t_frames = 300
+        x = _c64(batch + (_need(m, os, p, t_frames // os) + 5,), rng).to(cuda)
+        got = pf.pfb_analysis(x[..., :m + 3], x[..., m + 3:], w, os, t_frames)
+        ok = torch.equal(got, pf.pfb_analysis_reference(x, None, w, os, t_frames))
+    else:
+        v = _c64(batch + (60, m), rng).to(cuda)
+        got = pf.pfb_synthesis(v, w, os)
+        ok = torch.equal(got, pf.pfb_synthesis_reference(v, w, os))
+    torch.cuda.synchronize()
+    assert pf.launches == before + 1
+    assert pf.branch_range(mode, p, cplx) > 0 or (mode == "synthesis" and p < 389)
+    assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["analysis", "planes", "synthesis"])
+def test_cuda_folded_grid_matches_twin(cuda, mode):
+    # 70,000 rows: past grid.z's 65,535, the excess folded into grid.x
+    m, os, p, t, rows = 64, 2, 3, 8, 70_000
+    rng = np.random.default_rng(70)
+    w = torch.from_numpy(rng.normal(size=(p, m)).astype(np.float32)).to(cuda)
+    before = pf.launches
+    if mode == "planes":
+        n = _need(m, os, p, t // os)
+        xr, xi = (torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32)).to(cuda)
+                  for _ in range(2))
+        got = pf.pfb_fold_os(xr, xi, w, os, t // os)
+        want = pf.pfb_fold_os_reference(xr, xi, w, os, t // os)
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    elif mode == "analysis":
+        x = _c64((rows, _need(m, os, p, t // os)), rng).to(cuda)
+        ok = torch.equal(pf.pfb_analysis(x, None, w, os, t),
+                         pf.pfb_analysis_reference(x, None, w, os, t))
+    else:
+        v = _c64((rows, t, m), rng).to(cuda)
+        ok = torch.equal(pf.pfb_synthesis(v, w, os), pf.pfb_synthesis_reference(v, w, os))
+    torch.cuda.synchronize()
+    assert pf.launches == before + 1
+    assert ok

@@ -10,6 +10,8 @@ and skip without a card; on one, run them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_rx_frame.py``.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +174,12 @@ def test_kernel_supports():
     (4, 131, None, ("direct", 1)),  # a prime fft_len
     (64, 1024, None, ("cluster", 128)),  # a 65,536-sample span over 2 CTAs
     (4, 8192, 64, ("cluster", 64)),  # a caller's split for the twin
+    (4, 4099, None, ("global", None)),  # a prime past 4,096 points: Bluestein
+    (2, 8198, None, ("global", None)),  # 2 x 4,099: no cluster split
+    (4, 16411, None, ("global", None)),
+    (1, 131072, None, ("global", None)),  # past a cluster of 8 CTAs
+    (4, 262144, None, ("global", None)),
+    (1, 4194304, None, ("global", None)),  # one 4M block as one frame
 ])
 def test_kernel_plan_picks_instance_and_split(dec, fft_len, stage_n1, want):
     assert rf.kernel_plan(dec, fft_len, stage_n1, 16 * dec + 1) == want
@@ -236,8 +244,18 @@ def test_kernel_plan_refuses_frames_beyond_shared_memory():
     assert rf.kernel_plan(4, 3750) == ("direct", 125)  # radix 2, 3, 5, 5, 5, 5, 60 KB
     assert rf.kernel_plan(8, 3750) == ("chunked", None)  # 235 KB a frame: in chunks
     assert rf.kernel_plan(4, 1 << 16) == ("cluster", None)  # 8 CTAs of 8,192 points
-    assert rf.kernel_plan(1, 1 << 17) is None  # 16,384 points a CTA of a cluster of 8
-    assert rf.kernel_plan(1, 16411) is None  # a prime past 4,096 points: no split
+    # past shared memory the global instance: 16,384 points a CTA of a
+    # cluster of 8 (a power of two: its own FFT), a prime past 4,096 points
+    # (no split: Bluestein over a power of two >= 2 n - 1)
+    assert rf.kernel_plan(1, 1 << 17) == ("global", None)
+    assert rf.global_layout(1, 1 << 17) == dict(n=1 << 17, m=1 << 17, bluestein=False, dec=1,
+                                                k=1, rad=[8, 8, 8, 8, 8, 4])
+    assert rf.kernel_plan(1, 16411) == ("global", None)
+    lay = rf.global_layout(1, 16411)
+    assert lay["bluestein"] and lay["m"] == 65536 and lay["rad"] == [8] * 5 + [2]
+    assert rf.global_bytes(lay, 3) == 8 * (2 * 3 * 65536 + 65536 + 16411 + 65536)
+    # the limit is the card's memory: 3^20 points take 2^33 a frame, 137 GB of scratch
+    assert rf.kernel_plan(1, 3 ** 20) is None
     assert rf.kernel_plan(4, 3500, n_taps=1500) == ("chunked", 125)  # any tap count
     lay = rf.general_layout(64, 512, 32769)  # K - 1 = span: taps in staged ranges
     assert lay["kt"] < 32769 and 8 * (lay["fbuf"] + 2 * lay["win"]) <= rf.SMEM_LIMIT
@@ -319,11 +337,16 @@ def test_kernel_batched_rows_and_identity_taps(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_raises_instead_of_falling_back(cuda):
+def test_kernel_raises_instead_of_falling_back(cuda, monkeypatch):
     before = rf.launches
-    with pytest.raises(ValueError, match="232448 bytes"):
-        rf.rx_frame(torch.zeros(1 << 18, dtype=torch.complex64, device=cuda),
-                    TAPS, 1, 1 << 18)
+    # the global instance's scratch past the card's memory (a card of 1 MB
+    # here: two buffers of 2^18 points are 4 MB) raises; no twin runs
+    x = torch.zeros(1 << 18, dtype=torch.complex64, device=cuda)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(total_memory=1 << 20))
+    with pytest.raises(ValueError, match="card's memory"):
+        rf.rx_frame(x, TAPS, 1, 1 << 18)
+    monkeypatch.undo()
     strided = torch.zeros(2 * 4 * 256 * 2, dtype=torch.complex64, device=cuda)[::2]
     with pytest.raises(ValueError):
         rf.rx_frame(strided, TAPS, 4, 256)
@@ -724,3 +747,118 @@ def test_general_model_matches_float64_and_the_twin(dec, n_fft, ntaps):
                 got = unpack(torch.from_numpy(general_model(blk.numpy(), taps, dec, n_fft, hn,
                                                             epi))).numpy()
                 _check_bits(got, *_decisions(rs, epi))
+
+
+
+# --------------------------------------------- the global instance on the CPU
+#
+# A numpy model of ``csrc/rx_frame.cu rx_frame_global_kernel``: the FIR at
+# the frame's outputs, times Bluestein's chirp (``rf.bluestein_chirp``, its
+# square reduced mod 2 n in integers) where fft_len is no power of two; the
+# m-point Stockham passes of the kernel (``_stockham``, radix 8 then 4 or 2,
+# the float32 table W_m); the chirp filter's spectrum (over m), conjugated,
+# the same passes again, conjugated, times the chirp; the Scale.SN factor.
+# Held against the float64 chain and the plain twin at the chain's bars.
+
+
+def global_model(x, taps, dec, n, history=None, epilogue="spectrum"):
+    x = np.asarray(x, np.complex64)
+    taps = np.asarray(taps, np.complex64)
+    k, span = taps.size, dec * n
+    lay = rf.global_layout(dec, n, k)
+    m = lay["m"]
+    xe = np.concatenate([np.zeros(k - 1, np.complex64) if history is None
+                         else np.asarray(history, np.complex64), x])
+    nsym = x.size // span
+    buf = np.zeros((nsym, m), np.complex64)
+    for f in range(nsym):
+        pos = k - 1 + f * span + dec * np.arange(n)
+        buf[f, :n] = sum(taps[t] * xe[pos - t] for t in range(k))
+    tw = rf.twiddles(m, "cpu").numpy()
+    if lay["bluestein"]:
+        chirp = rf.bluestein_chirp(n).astype(np.complex64)
+        filt = rf.bluestein_filter(n, m).astype(np.complex64)
+        buf[:, :n] *= chirp
+        buf = np.conj(_stockham(buf, tw) * filt)
+        spec = np.conj(_stockham(buf, tw))[:, :n] * chirp
+    else:
+        spec = _stockham(buf, tw)
+    if epilogue == "spectrum":
+        return spec * np.float32(Scale.SN.factor_for(n))
+    return rf.pack_bits(rf.sign_bits(torch.from_numpy(spec), epilogue)).numpy()
+
+
+def test_bluestein_chirp_reduces_the_square_in_integers():
+    n = 4_194_301  # a prime near a 4M-point frame
+    j = np.array([0, 1, 4_000, 2_000_003, n - 1], np.int64)
+    w = rf.bluestein_chirp(n)[j]
+    exact = np.exp(-1j * np.pi * np.array([(int(v) ** 2) % (2 * n) for v in j]) / n)
+    assert np.abs(w - exact).max() < 1e-12
+    # the square in float32 loses the phase this far out
+    naive = np.exp(-1j * np.pi * (j.astype(np.float32) ** 2).astype(np.float64) / n)
+    assert np.abs(naive - exact).max() > 1e-2
+    # Bluestein over m >= 2 n - 1 is the n-point DFT (float64, n = 4,099)
+    n, m = 4099, 16384
+    y = _signal(n, 91).astype(np.complex128)
+    a = np.zeros(m, np.complex128)
+    a[:n] = y * rf.bluestein_chirp(n)
+    z = np.conj(np.fft.fft(np.conj(np.fft.fft(a) * rf.bluestein_filter(n, m))))
+    assert np.abs(z[:n] * rf.bluestein_chirp(n) - np.fft.fft(y)).max() < 1e-9 * np.sqrt(n)
+
+
+@pytest.mark.parametrize("m", [16, 2048, 16384, 1 << 17])
+def test_global_model_fft_is_the_dft(m):
+    # the kernel's passes for every power of two it runs: radix 8, then 4 or 2
+    assert rf.radices(m) == [8] * ((m.bit_length() - 1) // 3) + (
+        [1 << (m.bit_length() - 1) % 3] if (m.bit_length() - 1) % 3 else [])
+    x = _signal(m, m).reshape(1, m)
+    got = _stockham(x, rf.twiddles(m, "cpu").numpy())
+    assert evm_rms_db(got, np.fft.fft(x.astype(np.complex128))) <= -120
+
+
+@pytest.mark.parametrize("dec,n_fft,ntaps", [(4, 4099, 65), (2, 8198, 33), (1, 131072, 17),
+                                             (1, 3000, 17)])
+def test_global_model_matches_float64_and_the_twin(dec, n_fft, ntaps):
+    # two blocks of two frames, the second with the first's tail as history
+    taps = _default_lowpass(ntaps, 1.0 / (2 * dec)) if dec > 1 else _default_lowpass(ntaps, 0.4)
+    k = taps.shape[-1]
+    span = dec * n_fft
+    x = _signal(4 * span, 208 + n_fft)
+    ref = numpy_reference_spectra(x, taps, dec, n_fft)
+    for i, (blk, hist) in enumerate(_halves(x, k)):
+        hn = None if hist is None else hist.numpy()
+        spec = global_model(blk.numpy(), taps, dec, n_fft, hn)
+        rs = ref[2 * i:2 * i + 2] * np.sqrt(n_fft) * Scale.SN.factor_for(n_fft)
+        assert evm_rms_db(spec, rs) <= EVM_DB
+        twin = rf.rx_frame_reference(blk, taps, dec, n_fft, hist, "spectrum").numpy()
+        assert evm_rms_db(spec, twin) <= EVM_DB
+        if n_fft * 2 % 8 == 0:
+            got = unpack(torch.from_numpy(global_model(blk.numpy(), taps, dec, n_fft, hn,
+                                                       "qpsk"))).numpy()
+            _check_bits(got, *_decisions(rs, "qpsk"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec,n_fft", [(4, 4099), (2, 8198), (4, 16411), (1, 131072),
+                                       (4, 262144), (1, 3000 * 49)])
+@pytest.mark.parametrize("epilogue", ["qpsk", "bpsk", "spectrum"])
+def test_global_instance_matches_the_twin(cuda, dec, n_fft, epilogue):
+    # one cooperative launch a call, with and without history, a batch of rows
+    if epilogue != "spectrum" and n_fft * (2 if epilogue == "qpsk" else 1) % 8:
+        pytest.skip("frames of fft_len that are not whole bytes take the spectrum epilogue")
+    taps = _default_lowpass(16 * dec + 1, 1.0 / (2 * dec)) if dec > 1 else TAPS[:1]
+    k = taps.shape[-1]
+    assert rf.kernel_plan(dec, n_fft, None, k)[0] == "global"
+    span = dec * n_fft
+    x = torch.from_numpy(_signal(2 * 2 * span, n_fft).reshape(2, 2 * span)).to(cuda)
+    hist = x[:, :k - 1].contiguous() if k > 1 else None
+    for h in (None, hist):
+        before = rf.launches
+        got = rf.rx_frame(x, taps, dec, n_fft, h, epilogue)
+        want = rf.rx_frame_reference(x, taps, dec, n_fft, h, epilogue)
+        torch.cuda.synchronize()
+        assert rf.launches == before + 1
+        if epilogue == "spectrum":
+            assert evm_rms_db(got.cpu().numpy(), want.cpu().numpy()) <= EVM_DB
+        else:
+            assert (unpack(got) == unpack(want)).float().mean().item() >= AGREEMENT

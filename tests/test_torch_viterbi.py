@@ -12,6 +12,8 @@ with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_viterbi.py``).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -136,8 +138,16 @@ def test_kernel_limits():
     assert vk.kernel_supports(29_000, 2, 7)  # one trellis per block
     assert vk.kernel_supports(30_000, 2, 7)  # the history in a device scratch
     assert vk.kernel_supports(2 ** 20, 2, 7)
-    assert not vk.kernel_supports(100, 2, 10)  # 512 states
-    assert not vk.kernel_supports(100, 9, 7)  # 9 generators
+    # every code: 2 states in the warp instance, more than 256 states or 8
+    # generators in the block instance; the limit is the card's memory
+    assert vk.kernel_supports(100, 2, 2) and vk.instance(2, 2) == "warp"
+    assert vk.kernel_supports(100, 2, 10) and vk.instance(2, 10) == "block"  # 512 states
+    assert vk.kernel_supports(100, 9, 7) and vk.instance(9, 7) == "block"  # 9 generators
+    assert vk.kernel_supports(100, 2, 15) and vk.scratch_words(100, 15, 3) == 3 * 100 * 512
+    # past BLOCK_SMEM_STATES the path metrics join the decisions in the scratch
+    assert vk.scratch_words(100, 17, 3) == 3 * (100 * 2048 + 2 * 65536)
+    assert not vk.kernel_supports(2 ** 20, 2, 30)  # 8 TB of decisions
+    assert not vk.kernel_supports(100, 2, 1)  # no trellis
     with pytest.raises(ValueError, match="bad span shape"):
         vk.viterbi_lanes_reference(torch.zeros(2, 10, 3), 10, 2, K7[0], 7, True, True)
     with pytest.raises(TypeError):
@@ -178,11 +188,16 @@ def test_cuda_kernel_matches_twin_on_ties_and_every_state_count(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_raises_on_spans_it_does_not_take(cuda):
+def test_cuda_kernel_raises_on_spans_it_does_not_take(cuda, monkeypatch):
     before = vk.launches
-    with pytest.raises(ValueError, match="does not take"):  # 512 states
-        vk.viterbi_lanes(torch.zeros(1, 100, 2, device=cuda), 100, 2, (0o1171, 0o1233), 10,
-                         True, True)
+    # past the card's memory (a card of 64 KB here): the call raises, and
+    # neither the kernel nor the twin runs
+    sym = torch.zeros(16, 100, 2, device=cuda)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(total_memory=1 << 16))
+    with pytest.raises(ValueError, match="card's memory"):  # 512 states: 6.4 KB a trellis
+        vk.viterbi_lanes(sym, 100, 2, (0o1171, 0o1233), 10, True, True)
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="contiguous"):
         vk.viterbi_lanes(torch.zeros(10, 4, 2, device=cuda).transpose(0, 1), 10, 2,
                          K7[0], 7, True, True)
@@ -382,3 +397,97 @@ def test_cuda_kernel_every_launch_shape_on_ties(cuda, code):
                 got = torch.full_like(want, 7)
                 vk.launch(sym, got, lw, n, polys, k, *ends, warps)
                 assert torch.equal(got, want), (lw, ends, warps)
+
+
+# ------------------------------------- the block instance's schedule on the CPU
+#
+# A numpy model of ``csrc/viterbi.cu viterbi_block_kernel``: a buffer holds a
+# step's metrics before the subtraction of their minimum, which the next step
+# subtracts as it reads them; the branch metric reads each generator's output
+# from ceil(n / 32) mask words; the decisions are packed into S/32 ballot
+# words a step; the first argmin is the first state whose buffered metric
+# equals the minimum. Held bit for bit against the twin at codes the warp
+# instance does not take.
+
+BLOCK_CODES = {
+    "k2r2": ((0o3, 0o1), 2), "k10r2": ((0o1171, 0o1233), 10), "k11r2": ((0o2467, 0o3565), 11),
+    "k7r9": ((0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o173), 7),
+    "k3r33": (tuple([0o7, 0o5, 0o3] * 11), 3),
+}
+
+
+def block_model(sym, lw, n, polys, k, init_state0, end_state0):
+    sym = np.asarray(sym, np.float32)
+    pred, _ = fec._trellis(tuple(polys), k)
+    s_count = 1 << (k - 1)
+    words_in = vk.block_mask_words(tuple(polys), k).astype(np.uint64)  # the card's table
+    one = lambda b: np.where(b, np.float32(1.0), np.float32(0.0))  # noqa: E731
+    n_tr = sym.shape[0]
+    pa = np.zeros((n_tr, s_count), np.float32)
+    if init_state0:
+        pa[:, 1:] = np.float32(1e9)
+    mn = np.zeros(n_tr, np.float32)
+    words = np.zeros((lw, n_tr, max(1, s_count // 32)), np.uint64)
+    states = np.arange(s_count)
+    for t in range(lw):
+        g = []
+        for j in (0, 1):
+            w = words_in[2 * states + j]
+            acc = one(w[:, 0] & np.uint64(1)) * sym[:, t, 0:1]
+            for m in range(1, n):
+                acc = acc + one((w[:, m // 32] >> np.uint64(m % 32)) & np.uint64(1)) * sym[:, t, m:m + 1]
+            g.append(acc)
+        c0 = (pa[:, pred[:, 0]] - mn[:, None]) + g[0]
+        c1 = (pa[:, pred[:, 1]] - mn[:, None]) + g[1]
+        d = c1 < c0
+        pa = np.where(d, c1, c0)
+        for s in states:
+            words[t, :, s >> 5] |= d[:, s].astype(np.uint64) << np.uint64(s & 31)
+        mn = _unkeys(_keys(pa).min(axis=1))
+    if end_state0:
+        state = np.zeros(n_tr, np.int64)
+    else:
+        state = np.where(pa == mn[:, None], states, s_count).min(axis=1)
+    bits = np.zeros((n_tr, lw), np.uint8)
+    rows = np.arange(n_tr)
+    for t in range(lw - 1, -1, -1):
+        bits[:, t] = state & 1
+        word = words[t, rows, state >> 5]
+        d = (word >> (state & 31).astype(np.uint64)) & np.uint64(1)
+        state = (state >> 1) | (d.astype(np.int64) << (k - 2))
+    return bits
+
+
+@pytest.mark.parametrize("ends", [(True, True), (True, False), (False, False)],
+                         ids=["state0-state0", "state0-argmin", "uniform-argmin"])
+@pytest.mark.parametrize("code", sorted(BLOCK_CODES))
+def test_block_model_matches_twin_on_ties(code, ends):
+    polys, k = BLOCK_CODES[code]
+    n = len(polys)
+    assert vk.instance(n, k) == ("warp" if k == 2 else "block")
+    rng = np.random.default_rng(170 + k + n)
+    lw = 21
+    sym = _tie_llrs(rng, (4, lw, n))
+    want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, *ends).numpy()
+    assert np.array_equal(block_model(sym, lw, n, polys, k, *ends), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", sorted(BLOCK_CODES) + ["k12r2", "k15r2", "k17r2"])
+def test_cuda_block_and_two_state_instances_match_twin(cuda, code):
+    # K 2 in the warp instance; past 256 states or 8 generators the block
+    # instance (past 16,384 states its metrics in the scratch), one launch
+    polys, k = BLOCK_CODES.get(code) or ({12: (0o4335, 0o5723), 15: (0o46321, 0o51271),
+                                          17: (0o234567, 0o312345)}[int(code[1:3])],
+                                         int(code[1:3]))
+    n = len(polys)
+    rng = np.random.default_rng(190 + k + n)
+    lw, n_tr = (120, 9) if k < 15 else (24, 2)
+    sym = torch.from_numpy(_tie_llrs(rng, (n_tr, lw, n))).to(cuda)
+    for ends in ((True, True), (False, False), (True, False)):
+        before = vk.launches
+        got = vk.viterbi_lanes(sym, lw, n, polys, k, *ends)
+        want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, *ends)
+        torch.cuda.synchronize()
+        assert vk.launches == before + 1
+        assert torch.equal(got, want), (code, ends)
