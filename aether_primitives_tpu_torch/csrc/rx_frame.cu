@@ -37,8 +37,10 @@
 //             fft_len >= 1024): 2-8 CTAs of a thread-block cluster share a
 //             frame through distributed shared memory, with a four-step FFT;
 //   global    every other frame (past 65,536 points, or past 4,096 with no
-//             cluster split: 4,099, 8,198, 16,411): one cooperative launch
-//             whose frames sit in a device scratch (rx_frame_global_kernel).
+//             cluster split: 4,099, 8,198, 16,411): one cooperative launch,
+//             frames of up to 16,384 FFT points whole in a CTA's shared
+//             memory, larger ones a four-step split through one device
+//             scratch buffer (rx_frame_global_kernel).
 //
 // The direct instance:
 //   - a CTA stages its frames once, by 8-byte cp.async, into a window of
@@ -74,9 +76,8 @@
 #include <stdint.h>
 
 constexpr int kMaxPasses = 20;
+constexpr int kMaxLevels = 4;
 
-// The launch geometry of the chunked and cluster instances (ops/cuda/rx_frame.py
-// general_layout builds it; the field order is the ctypes mirror's, GenPlan).
 // The global instance's plan (ops/cuda/rx_frame.py global_layout; the ctypes
 // mirror's field order, GlobalPlan).
 struct GlobalPlan {
@@ -84,11 +85,25 @@ struct GlobalPlan {
   long long m;    // the FFT's points: n (a power of two), or Bluestein's power of two >= 2n - 1
   int dec;
   int k;          // taps
-  int bluestein;  // 1: chirp, m-point FFT, the filter's spectrum, m-point FFT, chirp
-  int npass;
-  int rad[kMaxPasses];  // the m-point FFT's radices (8, then one 4 or 2)
+  int bluestein;  // 1: chirp, m-point FFT, the filter's spectrum, inverse FFT, chirp
+  int levels;     // 1: whole frames in a CTA's tile; 2-4: the four-step levels of m
+  int lp[kMaxLevels];  // log2 of level i's points P_i (level 0 the outermost)
+  int lt[kMaxLevels];  // log2 of level i's sequences a tile T_i
+  int tile;       // float2 slots of the tile buffer
+  int split;      // FIR: threads that share a group's 8 outputs
+  int chunk;      // FIR: outputs a chunk (8 threads / split)
+  int kt;         // FIR: taps a staged range
+  int win;        // FIR: float2 slots of one of the two windows (0: x read through L1)
+  int log2q;      // log2 of the largest level's points Q (the twiddles W_Q)
+  int h;          // log2 of the size of the low table of W_m (levels >= 2)
+  int hq;         // log2 of the size of the low table of W_Q
+  int twoff;      // float2 slot of the tables of W_Q in shared memory (after the
+                  // tile and the windows; past one level, the windows and a chunk)
+  int sub;        // Bluestein's sub-transforms of a frame in one CTA (m / 2^lp[0]), or 1
 };
 
+// The launch geometry of the chunked and cluster instances (ops/cuda/rx_frame.py
+// general_layout builds it; the field order is the ctypes mirror's, GenPlan).
 struct GenPlan {
   int n;      // fft_len
   int dec;    // decimation
@@ -1052,162 +1067,656 @@ int general_instance(int epilogue, int real_taps, int threads, const void* x, co
 
 // ---- the global instance ---------------------------------------------------
 //
-// One cooperative launch (a grid of at most the co-resident CTAs, each phase a
-// grid-stride loop, grid.sync() between phases) over frames held in two
-// device scratch buffers of m points a frame that the wrapper allocates:
-//   1. the FIR at the frame's n outputs (any taps, any dec, read through L1),
-//      times the chirp w[j] for Bluestein, zeros at outputs n..m-1;
-//   2. a Stockham FFT of m points, one pass a phase (radix 8, then one 4 or
-//      2), buffer to buffer, twiddles from the float32 table W_m^e built on
-//      the host in float64;
-//   Bluestein (n not a power of two): 3. times the chirp filter's spectrum
-//      (FFT_m of conj(w) wrapped, over m, from the host in float64), and
-//      conjugated; 4. the same FFT again (the inverse, by conjugation);
-//   5. the epilogue at bin k: the FFT's bin (Bluestein: conj(z_k) w[k]),
-//      the Scale.SN factor on the spectrum, the bits as elsewhere.
-// w[j] = exp(-i pi (j^2 mod 2n) / n), the square reduced in integers on the
-// host. A 4M-point frame's two buffers are 64 MB, its passes stream through
-// L2 and device memory: the bound is the bytes, 2 m x 8 a pass.
-// Frames in the scratch are written by one CTA and read by others after a
-// grid.sync(): their loads are ld.global.cg (L2), never the read-only path.
+// Every frame the other instances do not take (past 65,536 points, or past
+// 4,096 with no cluster split). The FFT has m points: fft_len where it is a
+// power of two, else Bluestein's power of two m >= 2n - 1 (the chirp
+// w[j] = exp(-i pi (j^2 mod 2n) / n), the square reduced in integers, and the
+// chirp filter's spectrum over m, both built on the host in float64). It runs
+// a tile at a time in shared memory: a CTA's tile holds T sequences of P
+// points (point r of sequence c at slot fslot(r T + c), at most kTilePoints),
+// and a sequence's FFT is an in-place radix-8 (then 4 or 2) DIF in the tile,
+// natural order in and digit-reversed out (difpos), or the DIT that takes the
+// DIF's order back; a thread holds all its butterflies of a stage in
+// registers, and the twiddles W_Q^e are the product of two float32 tables
+// built on the host in float64 and kept in shared memory. One cooperative
+// launch of co-resident CTAs, each phase a loop over tiles, a grid.sync()
+// between phases:
+//   - m <= kTilePoints (plan.levels 1): a tile holds whole frames. The FIR
+//     at the kept outputs (times the chirp), the FFT, Bluestein's product
+//     with the filter's spectrum and the inverse FFT (the DIT of the
+//     conjugate), and the epilogue all run on it: nothing of a frame goes to
+//     device memory.
+//   - Bluestein over m = 2 tiles with 100 frames or more (plan.sub 2): a
+//     frame a CTA, its two tile-sized sub-transforms (the even and the odd
+//     bins) one after the other; only x and a sum of n points a frame go
+//     through device memory (global_sub).
+//   - larger frames: m = P_0 P_1 ... (levels 2-4, each P_i <= 2,048), a
+//     frame in one device scratch buffer of m points, transformed in place a
+//     level at a time (the four-step split, m = a b for two levels). First
+//     the FIR writes every frame's outputs to the scratch. Level i's tiles
+//     hold T_i adjacent columns (points at stride s_i = P_{i+1} ...): the
+//     FFT along the column, then the twiddle W_m^{k c L_i} (L_i = P_0 ...
+//     P_{i-1}) from two float32 tables, W_m^e for e < 2^h and W_m^{e 2^h}.
+//     The last level's tiles hold 8 contiguous rows of consecutive k_0, so
+//     bin k_0 + P_0 k_1 + ... of 8 consecutive bins is whole bytes: the
+//     epilogue is fused into its store. Bluestein: the last level multiplies
+//     by the filter's spectrum and runs the inverse FFT on the same tile, the
+//     levels below run again in reverse (each the twiddle, then the DIT),
+//     and the epilogue is fused into level 0's store, conj(z_t) w[t].
+// Scratch written in the launch is read with ld.global.cg, never through
+// the read-only path, kBatch loads in flight a thread. What bounds it on an
+// H100: the bytes (x once, the output once); past the chip the scratch adds
+// 16 m bytes a frame for a power of two and 24 m with Bluestein (40 n on the
+// sub route), much of it through L2. What holds it back (PERF.md §6): one
+// CTA of 16 warps an SM (a tile takes 147 KB), so every phase waits on
+// latency, and a tile's load, FFT and store do not overlap.
+
+constexpr int kGlobalThreads = 512;
+constexpr int kTilePoints = 16384;
+constexpr int kBatch = 4;  // global loads a thread keeps in flight
 
 struct GlobalArgs {
   const float2* x;      // [rows, nsym * span]
   const float2* hist;   // [rows, k - 1] or null
-  const float2* tw;     // [m] W_m^e
   const float2* taps;   // [k]
+  const float2* twq;    // [2^hq] W_Q^e, then [Q / 2^hq] W_Q^{e 2^hq}
+  const float2* twlo;   // [2^h] W_m^e (levels >= 2)
+  const float2* twhi;   // [m / 2^h] W_m^{e 2^h} (levels >= 2)
   const float2* chirp;  // [n] w (Bluestein) or null
-  const float2* filt;   // [m] the chirp filter's spectrum over m (Bluestein) or null
-  float2* buf0;         // [frames, m]
-  float2* buf1;         // [frames, m]
+  const float2* filt;   // [m] the chirp filter's spectrum over m, divided by m (Bluestein) or null
+  float2* buf;          // [frames, m] (levels >= 2) or null
   void* out;
   long long frames;
   int nsym;
   int epi;
+  int real_taps;
   float scale;
   GlobalPlan plan;
 };
 
-template <int R>
-__device__ __forceinline__ void global_pass(const float2* src, float2* dst, long long frames,
-                                            long long m, long long ns,
-                                            const float2* __restrict__ tw) {
-  const long long mr = m / R;
-  const long long total = frames * mr;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += step) {
-    const long long f = i / mr;
-    const long long j = i - f * mr;
-    const float2* s = src + f * m;
-    float2* d = dst + f * m;
-    float2 v[R];
+// The slot of bin k after the DIF of a 2^lp-point sequence: the stages'
+// mixed-radix digits of k reversed.
+__device__ __forceinline__ int difpos(int k, int lp) {
+  int pos = 0;
+  for (int b = lp; b > 0; b -= 3) {
+    const int lr = min(3, b);
+    pos += (k & ((1 << lr) - 1)) << (b - lr);
+    k >>= lr;
+  }
+  return pos;
+}
+
+// e = tid, tid + kGlobalThreads, ... < total, kBatch at a time: every load(e)
+// of a batch is issued before the first use(e, value).
+template <typename Load, typename Use>
+__device__ __forceinline__ void batched(int total, Load load, Use use) {
+  for (int e0 = threadIdx.x; e0 < total; e0 += kGlobalThreads * kBatch) {
+    float2 v[kBatch];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = __ldcg(s + j + r * mr);
-    const long long jm = j % ns;
-    if (ns > 1) {
-      const long long e = jm * (m / (ns * R));
-#pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = c_mul(v[r], __ldg(tw + e * r));
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kGlobalThreads;
+      if (e < total) v[u] = load(e);
     }
-    dft<R>(v);
-    const long long o = (j / ns) * ns * R + jm;
 #pragma unroll
-    for (int r = 0; r < R; ++r) d[o + r * ns] = v[r];
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kGlobalThreads;
+      if (e < total) use(e, v[u]);
+    }
   }
 }
 
-// The m-point FFT of every frame from *src, one grid.sync() a pass; *src
-// ends at the buffer that holds the bins.
-__device__ __forceinline__ void global_fft(const GlobalArgs& a, float2*& src, float2*& dst,
-                                           cg::grid_group& grid) {
-  long long ns = 1;
-  for (int p = 0; p < a.plan.npass; ++p) {
-    const int r = a.plan.rad[p];
-    if (r == 8) {
-      global_pass<8>(src, dst, a.frames, a.plan.m, ns, a.tw);
-    } else if (r == 4) {
-      global_pass<4>(src, dst, a.frames, a.plan.m, ns, a.tw);
-    } else {
-      global_pass<2>(src, dst, a.frames, a.plan.m, ns, a.tw);
-    }
-    ns *= r;
-    float2* t = src;
-    src = dst;
-    dst = t;
-    grid.sync();
-  }
+// W_Q^e from the tables in shared memory: tq[e mod 2^hq] tq[2^hq + e / 2^hq].
+__device__ __forceinline__ float2 twiddle_q(const float2* tq, int hq, int e) {
+  return c_mul(tq[e & ((1 << hq) - 1)], tq[(1 << hq) + (e >> hq)]);
 }
 
-__global__ void __launch_bounds__(256) rx_frame_global_kernel(const __grid_constant__ GlobalArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const long long n = a.plan.n, m = a.plan.m;
-  const int dec = a.plan.dec, k = a.plan.k, ku = k - 1;
-  const long long span = static_cast<long long>(dec) * n;
-  const long long row_len = static_cast<long long>(a.nsym) * span;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-
-  // 1. FIR at the kept outputs (and the chirp)
-  for (long long i = i0; i < a.frames * m; i += step) {
-    const long long f = i / m;
-    const long long j = i - f * m;
-    float ar = 0.0f, ai = 0.0f;
-    if (j < n) {
-      const long long r = f / a.nsym;
-      const float2* xr = a.x + r * row_len;
-      const long long base = (f - r * a.nsym) * span + j * dec;
-      for (int t = 0; t < k; ++t) {
-        const long long pos = base - t;
-        float2 v = make_float2(0.0f, 0.0f);
-        if (pos >= 0) {
-          v = __ldg(xr + pos);
-        } else if (a.hist != nullptr) {
-          v = __ldg(a.hist + r * ku + ku + pos);
-        }
-        fir_mac<false>(ar, ai, __ldg(a.taps + t), v);
+// One radix-R stage on the sub-FFTs of 2^b points of each of a tile's 2^lt
+// sequences of 2^lp points, in place: butterfly j of a sub-FFT takes points
+// j + q 2^b / R. DIF: the DFT, then output u times W_{2^b}^{j u}; DIT: input
+// q times W_{2^b}^{j q}, then the DFT. A thread loads 8 points (8 / R of
+// its butterflies) before it computes and stores them (no other thread
+// touches them; more points a thread spill registers).
+template <int R, int LOG2R, bool kDit>
+__device__ __forceinline__ void tile_stage(float2* t, int lp, int lt, int b, const float2* tq,
+                                           int hq, int log2q) {
+  constexpr int kGroup = 8 / R;
+  const int lq = b - LOG2R;  // log2 of a sub-FFT's butterflies
+  const int total = 1 << (lp + lt - LOG2R);
+  const int cmask = (1 << lt) - 1;
+  for (int b0 = threadIdx.x; b0 < total; b0 += kGroup * kGlobalThreads) {
+    float2 v[kGroup][R];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int bi = b0 + u * kGlobalThreads;
+      if (bi < total) {
+        const int rest = bi >> lt;
+        const int r0 = ((rest >> lq) << b) + (rest & ((1 << lq) - 1));
+#pragma unroll
+        for (int q = 0; q < R; ++q) v[u][q] = t[fslot(((r0 + (q << lq)) << lt) + (bi & cmask))];
       }
     }
-    float2 y = make_float2(ar, ai);
-    if (a.plan.bluestein && j < n) y = c_mul(y, __ldg(a.chirp + j));
-    a.buf0[i] = y;
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int bi = b0 + u * kGlobalThreads;
+      if (bi < total) {
+        const int rest = bi >> lt;
+        const int j = rest & ((1 << lq) - 1);
+        const int r0 = ((rest >> lq) << b) + j;
+        const int e = j << (log2q - b);
+        if constexpr (kDit) {
+#pragma unroll
+          for (int q = 1; q < R; ++q) v[u][q] = c_mul(v[u][q], twiddle_q(tq, hq, e * q));
+          dft<R>(v[u]);
+        } else {
+          dft<R>(v[u]);
+#pragma unroll
+          for (int q = 1; q < R; ++q) v[u][q] = c_mul(v[u][q], twiddle_q(tq, hq, e * q));
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q) t[fslot(((r0 + (q << lq)) << lt) + (bi & cmask))] = v[u][q];
+      }
+    }
   }
+  __syncthreads();
+}
+
+// The FFT of every sequence of a tile: the DIF's stages on sub-FFTs of 2^lp,
+// 2^(lp-3), ... points, or the DIT's in the reverse order.
+template <bool kDit>
+__device__ __forceinline__ void tile_fft(float2* t, int lp, int lt, const float2* tq, int hq, int log2q) {
+  const int stages = (lp + 2) / 3;
+  for (int i = 0; i < stages; ++i) {
+    const int b = lp - 3 * (kDit ? stages - 1 - i : i);
+    if (b >= 3) {
+      tile_stage<8, 3, kDit>(t, lp, lt, b, tq, hq, log2q);
+    } else if (b == 2) {
+      tile_stage<4, 2, kDit>(t, lp, lt, b, tq, hq, log2q);
+    } else {
+      tile_stage<2, 1, kDit>(t, lp, lt, b, tq, hq, log2q);
+    }
+  }
+}
+
+// W_m^e, e < m, from the two tables of W_m.
+__device__ __forceinline__ float2 twiddle_m(const GlobalArgs& a, long long e) {
+  return c_mul(__ldg(a.twlo + (e & ((1LL << a.plan.h) - 1))), __ldg(a.twhi + (e >> a.plan.h)));
+}
+
+// A frame's samples -ku <= i < span for the FIR: its own, the previous
+// frame's tail, the carried history for frame 0 of a block row, or zeros
+// (null).
+struct FrameSrc {
+  const float2* x;     // the frame's sample 0
+  const float2* hist;  // its row's history at sample 0 (frame 0 of a row), or null
+  bool first;          // frame 0 of its block row
+  __device__ __forceinline__ const float2* at(long long i) const {
+    return i >= 0 || !first ? x + i : (hist != nullptr ? hist + i : nullptr);
+  }
+};
+
+// The FIR at the kept outputs of a CTA's chunks: item i is frame f's outputs
+// [o0, o0 + cnt), cnt <= plan.chunk; each output (times the chirp for
+// Bluestein) goes to put(f, o, y), through ostage (shared memory, chunk
+// slots) where it is given, so that a chunk leaves in order. A chunk's input
+// for a range of taps is staged by cp.async into one of two windows (the
+// next while this one computes) and split threads share a group of 8
+// outputs (fir_items), as in the chunked instance; where no window fits
+// (plan.win 0) each output reads x through L1. Ends in a barrier.
+template <typename Item, typename Put>
+__device__ __forceinline__ void global_fir(const GlobalArgs& a, float2* win0, float2* ostage, long long nitems,
+                           Item item, Put put) {
+  const GlobalPlan& p = a.plan;
+  const int dec = p.dec, k = p.k, ku = k - 1;
+  const long long span = static_cast<long long>(dec) * p.n;
+  const int tid = threadIdx.x;
+  auto source = [&](long long f) {
+    const long long row = f / a.nsym;
+    FrameSrc s;
+    s.x = a.x + f * span;
+    s.first = f == row * a.nsym;
+    s.hist = s.first && a.hist != nullptr ? a.hist + row * ku + ku : nullptr;
+    return s;
+  };
+  auto emit = [&](long long o, float ar, float ai) {
+    float2 y = make_float2(ar, ai);
+    if (p.bluestein) y = c_mul(y, __ldg(a.chirp + o));
+    return y;
+  };
+  if (p.win == 0) {
+    for (long long it = 0; it < nitems; ++it) {
+      long long f, o0;
+      int cnt;
+      item(it, f, o0, cnt);
+      const FrameSrc sx = source(f);
+      for (int u = tid; u < cnt; u += kGlobalThreads) {
+        const long long o = o0 + u;
+        float ar = 0.0f, ai = 0.0f;
+        for (int t = 0; t < k; ++t) {
+          const float2* s = sx.at(dec * o - t);
+          if (s != nullptr) fir_mac<false>(ar, ai, __ldg(a.taps + t), __ldg(s));
+        }
+        put(f, o, emit(o, ar, ai));
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  const int S = p.split;
+  const int nkr = (k + p.kt - 1) / p.kt;
+  const long long iters = nitems * nkr;
+  const int g = tid / S, s = tid - g * S;
+  const Div by_dec(dec);
+  auto stage = [&](long long it) {
+    const long long ii = it / nkr;
+    const int kr = static_cast<int>(it - ii * nkr);
+    long long f, o0;
+    int cnt;
+    item(ii, f, o0, cnt);
+    const FrameSrc sx = source(f);
+    const int k0 = kr * p.kt, k1 = min(k, k0 + p.kt);
+    const int wl = dec * (cnt - 1) + (k1 - k0);
+    float2* w = win0 + (it & 1) * p.win;
+    const long long i0 = dec * o0 - (k1 - 1);
+    for (int e = tid; e < wl; e += kGlobalThreads) {
+      const float2* sp = sx.at(i0 + e);
+      if (sp != nullptr) {
+        cp_async8(w + wslot(e), sp);
+      } else {
+        w[wslot(e)] = make_float2(0.f, 0.f);
+      }
+    }
+    cp_async_commit();
+  };
+  float ar[kFirOut], ai[kFirOut];
+  if (iters > 0) stage(0);
+  for (long long it = 0; it < iters; ++it) {
+    if (it + 1 < iters) {
+      stage(it + 1);
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    const long long ii = it / nkr;
+    const int kr = static_cast<int>(it - ii * nkr);
+    long long f, o0;
+    int cnt;
+    item(ii, f, o0, cnt);
+    const int k0 = kr * p.kt, k1 = min(k, k0 + p.kt);
+    if (kr == 0) {
+#pragma unroll
+      for (int r = 0; r < kFirOut; ++r) {
+        ar[r] = 0.f;
+        ai[r] = 0.f;
+      }
+    }
+    if (kFirOut * g < cnt) {
+      // window slot of output o0 + 8 g + r, tap kk: wslot(ob + dec r - kk)
+      const float2* w = win0 + (it & 1) * p.win;
+      const int ob = dec * kFirOut * g + (k1 - 1);
+      if (a.real_taps) {
+        fir_items<true>(w, a.taps, ob, dec, k0, k1, s, S, by_dec, ar, ai);
+      } else {
+        fir_items<false>(w, a.taps, ob, dec, k0, k1, s, S, by_dec, ar, ai);
+      }
+    }
+    if (kr == nkr - 1) {
+      for (int off = S >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kFirOut; ++r) {
+          ar[r] += __shfl_xor_sync(0xffffffffu, ar[r], off);
+          ai[r] += __shfl_xor_sync(0xffffffffu, ai[r], off);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kFirOut; ++r) {
+        const int u = kFirOut * g + r;
+        if ((S <= kFirOut ? (r & (S - 1)) == s : r == s) && u < cnt) {
+          const float2 y = emit(o0 + u, ar[r], ai[r]);
+          if (ostage != nullptr) {
+            ostage[u] = y;
+          } else {
+            put(f, o0 + u, y);
+          }
+        }
+      }
+      if (ostage != nullptr) {
+        __syncthreads();
+        for (int u = tid; u < cnt; u += kGlobalThreads) put(f, o0 + u, ostage[u]);
+      }
+    }
+    __syncthreads();  // the window is read: the load two iterations on may overwrite it
+  }
+}
+
+// The epilogue of bins: spectrum element value(0) times the scale at
+// out[o0]; bytes of spb bins (value(i), i < spb) at out[o0 / spb]. Strict
+// comparisons, as elsewhere.
+template <typename Value>
+__device__ __forceinline__ void put_bins(const GlobalArgs& a, long long o0, Value value) {
+  if (a.epi == kSpectrum) {
+    const float2 z = value(0);
+    static_cast<float2*>(a.out)[o0] = make_float2(z.x * a.scale, z.y * a.scale);
+  } else {
+    const int spb = a.epi == kQpsk ? 4 : 8;
+    static_cast<uint8_t*>(a.out)[o0 / spb] = demod_byte(a.epi, value);
+  }
+}
+
+// levels 1: whole frames in a tile, T = 2^lt of them, m = 2^lp points each.
+__device__ __forceinline__ void global_on_chip(const GlobalArgs& a, float2* tile, float2* win, const float2* tq) {
+  const GlobalPlan& p = a.plan;
+  const int tid = threadIdx.x;
+  const int lp = p.lp[0], lt = p.lt[0];
+  const int P = 1 << lp, T = 1 << lt;
+  const int n = static_cast<int>(p.n);
+  const int nc = (n + p.chunk - 1) / p.chunk;  // FIR chunks a frame
+  const int spb = a.epi == kSpectrum ? 1 : (a.epi == kQpsk ? 4 : 8);
+  const long long tiles = (a.frames + T - 1) >> lt;
+  for (long long tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    const long long f0 = tl << lt;
+    const int nf = static_cast<int>(min(static_cast<long long>(T), a.frames - f0));
+    for (int e = tid; e < (P - n) * nf; e += kGlobalThreads) {  // Bluestein's zeros
+      tile[fslot(((n + e / nf) << lt) + e % nf)] = make_float2(0.f, 0.f);
+    }
+    global_fir(
+        a, win, nullptr, static_cast<long long>(nf) * nc,
+        [&](long long i, long long& f, long long& o0, int& cnt) {
+          const int c = static_cast<int>(i / nc);
+          f = f0 + c;
+          o0 = (i - static_cast<long long>(c) * nc) * p.chunk;
+          cnt = static_cast<int>(min(static_cast<long long>(p.chunk), n - o0));
+        },
+        [&](long long f, long long o, float2 y) {
+          tile[fslot((static_cast<int>(o) << lt) + static_cast<int>(f - f0))] = y;
+        });
+    tile_fft<false>(tile, lp, lt, tq, p.hq, p.log2q);
+    if (p.bluestein) {
+      batched(P * nf, [&](int e) { return __ldg(a.filt + e / nf); },
+              [&](int e, float2 h) {  // bin k of frame c
+                const int slot = fslot((difpos(e / nf, lp) << lt) + e % nf);
+                const float2 z = c_mul(tile[slot], h);
+                tile[slot] = make_float2(z.x, -z.y);
+              });
+      __syncthreads();
+      tile_fft<true>(tile, lp, lt, tq, p.hq, p.log2q);  // natural order: conj(z_t)
+    }
+    const int per = n / spb;
+    for (int e = tid; e < per * nf; e += kGlobalThreads) {
+      const int c = e / per, q0 = (e - c * per) * spb;
+      put_bins(a, (f0 + c) * n + q0, [&](int q) {
+        const int t = q0 + q;
+        if (!p.bluestein) return tile[fslot((difpos(t, lp) << lt) + c)];
+        const float2 z = tile[fslot((t << lt) + c)];
+        return c_mul(make_float2(z.x, -z.y), __ldg(a.chirp + t));
+      });
+    }
+    __syncthreads();  // the tile is read: the next tile's FIR may overwrite it
+  }
+}
+
+// Bluestein with m = q P, q = plan.sub (P = 2^lp points, a tile): a frame a
+// CTA, its q sub-transforms one after the other. Its FIR outputs x (times the
+// chirp) go to buf [f][0, n), then for u < q: the tile holds a_u[t'] =
+// sum_j x[t' + P j] W_m^{u (t' + P j)}, whose DIF is X[q k + u]; times the
+// filter's spectrum there, conjugated, the DIT gives z_u, and conj(y_t) =
+// sum_u W_m^{u t} z_u[t mod P] accumulates in buf [f][n, 2 n) for t < n; the
+// last sub-transform's pass is the epilogue, conj of the sum times w[t].
+__device__ __forceinline__ void global_sub(const GlobalArgs& a, float2* tile, float2* win,
+                                           const float2* tq) {
+  const GlobalPlan& p = a.plan;
+  const int tid = threadIdx.x;
+  const int lp = p.lp[0], P = 1 << lp, q = p.sub;
+  const int n = static_cast<int>(p.n);
+  const long long nc = (n + p.chunk - 1) / p.chunk;
+  const int spb = a.epi == kSpectrum ? 1 : (a.epi == kQpsk ? 4 : 8);
+  for (long long f = blockIdx.x; f < a.frames; f += gridDim.x) {
+    float2* xs = a.buf + f * 2 * n;
+    float2* acc = xs + n;
+    global_fir(
+        a, win, tile, nc,
+        [&](long long i, long long& ff, long long& o0, int& cnt) {
+          ff = f;
+          o0 = i * p.chunk;
+          cnt = static_cast<int>(min(static_cast<long long>(p.chunk), n - o0));
+        },
+        [&](long long, long long o, float2 y) { xs[o] = y; });
+    for (int u = 0; u < q; ++u) {
+      batched(
+          P,
+          [&](int e) {
+            float2 v = make_float2(0.f, 0.f);
+            for (int t = e; t < n; t += P) {
+              const float2 x = __ldcg(xs + t);
+              v = c_add(v, u == 0 ? x : c_mul(x, twiddle_m(a, (static_cast<long long>(u) * t) &
+                                                                   (p.m - 1))));
+            }
+            return v;
+          },
+          [&](int e, float2 v) { tile[fslot(e)] = v; });
+      __syncthreads();
+      tile_fft<false>(tile, lp, 0, tq, p.hq, p.log2q);
+      batched(P, [&](int e) { return __ldg(a.filt + static_cast<long long>(q) * e + u); },
+              [&](int e, float2 h) {  // bin q e + u
+                const int slot = fslot(difpos(e, lp));
+                const float2 z = c_mul(tile[slot], h);
+                tile[slot] = make_float2(z.x, -z.y);
+              });
+      __syncthreads();
+      tile_fft<true>(tile, lp, 0, tq, p.hq, p.log2q);  // z_u, natural order
+      auto term = [&](int t) {
+        const float2 z = tile[fslot(t & (P - 1))];
+        return u == 0 ? z : c_mul(z, twiddle_m(a, (static_cast<long long>(u) * t) & (p.m - 1)));
+      };
+      if (u + 1 < q) {
+        for (int t = tid; t < n; t += kGlobalThreads) {
+          acc[t] = u == 0 ? term(t) : c_add(__ldcg(acc + t), term(t));
+        }
+      } else {
+        for (int e = tid; e < n / spb; e += kGlobalThreads) {
+          const int t0 = e * spb;
+          put_bins(a, f * n + t0, [&](int j) {
+            const float2 z = c_add(__ldcg(acc + t0 + j), term(t0 + j));
+            return c_mul(make_float2(z.x, -z.y), __ldg(a.chirp + t0 + j));
+          });
+        }
+      }
+      __syncthreads();  // the tile is read: the next sub-transform's load may overwrite it
+    }
+  }
+}
+
+// Level i's tile tl (levels >= 2): point (r, c) at base + r rstride + c
+// cstride of the scratch. Levels below the last: T columns c0 + c of a
+// block of P rows at stride s; the last: T rows (blocks) of consecutive k_0,
+// row c's bin k at binbase + c + k L.
+struct TileAt {
+  long long f, base, rstride, cstride, c0, binbase;
+  int ls, ll;  // log2 of s and of L
+};
+
+__device__ __forceinline__ TileAt tile_at(const GlobalArgs& a, int i, long long tl) {
+  const GlobalPlan& p = a.plan;
+  const int last = p.levels - 1;
+  TileAt t;
+  t.ls = 0;
+  t.ll = 0;
+  for (int l = 0; l < p.levels; ++l) {
+    if (l > i) t.ls += p.lp[l];
+    if (l < i) t.ll += p.lp[l];
+  }
+  const int lp = p.lp[i], lt = p.lt[i];
+  const long long tpf = p.m >> (lp + lt);  // tiles a frame
+  t.f = tl / tpf;
+  const long long rem = tl - t.f * tpf;
+  if (i < last) {
+    t.c0 = (rem & ((1LL << (t.ls - lt)) - 1)) << lt;
+    t.base = t.f * p.m + ((rem >> (t.ls - lt)) << (lp + t.ls)) + t.c0;
+    t.rstride = 1LL << t.ls;
+    t.cstride = 1;
+    t.binbase = 0;
+  } else {
+    // blocks k_0 P_1 ... P_{last-1} + rest; bin k_0 + P_0 dr(rest) + L k
+    const int lbs = t.ll - p.lp[0];
+    const long long g = rem >> lbs, rest = rem & ((1LL << lbs) - 1);
+    long long dr = 0, tmp = rest;
+    int sh = lbs;
+    for (int l = last - 1; l >= 1; --l) {
+      sh -= p.lp[l];
+      dr |= (tmp & ((1LL << p.lp[l]) - 1)) << sh;
+      tmp >>= p.lp[l];
+    }
+    t.base = t.f * p.m + ((((g << lt) << lbs) + rest) << lp);
+    t.rstride = 1;
+    t.cstride = 1LL << (lbs + lp);
+    t.c0 = 0;
+    t.binbase = (g << lt) + (dr << p.lp[0]);
+  }
+  return t;
+}
+
+__global__ void __launch_bounds__(kGlobalThreads, 1)
+rx_frame_global_kernel(const __grid_constant__ GlobalArgs a) {
+  extern __shared__ __align__(16) float2 sm[];
+  const GlobalPlan& p = a.plan;
+  const int tid = threadIdx.x;
+  float2* tile = sm;
+  float2* win = sm + (p.levels == 1 ? p.tile : 0);  // past one level the FIR runs first
+  float2* tq = sm + p.twoff;  // the tables of W_Q
+  const int nq = (1 << p.hq) + ((1 << p.log2q) >> p.hq);
+  for (int e = tid; e < nq; e += kGlobalThreads) tq[e] = __ldg(a.twq + e);
+  __syncthreads();
+  if (p.levels == 1) {
+    if (p.sub > 1) {
+      global_sub(a, tile, win, tq);
+    } else {
+      global_on_chip(a, tile, win, tq);
+    }
+    return;
+  }
+  cg::grid_group grid = cg::this_grid();
+  const long long n = p.n, m = p.m;
+  const int last = p.levels - 1;
+  const int spb = a.epi == kSpectrum ? 1 : (a.epi == kQpsk ? 4 : 8);
+
+  // the FIR of every frame into the scratch, each chunk in order
+  const long long nc = (n + p.chunk - 1) / p.chunk;
+  const long long items = a.frames * nc;
+  const long long mine = items > blockIdx.x ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  global_fir(
+      a, win, win + 2 * p.win, mine,
+      [&](long long i, long long& f, long long& o0, int& cnt) {
+        const long long it = blockIdx.x + i * gridDim.x;
+        f = it / nc;
+        o0 = (it - f * nc) * p.chunk;
+        cnt = static_cast<int>(min(static_cast<long long>(p.chunk), n - o0));
+      },
+      [&](long long f, long long o, float2 y) { a.buf[f * m + o] = y; });
   grid.sync();
 
-  float2* src = a.buf0;
-  float2* dst = a.buf1;
-  global_fft(a, src, dst, grid);
-  if (a.plan.bluestein) {
-    for (long long i = i0; i < a.frames * m; i += step) {
-      const long long j = i % m;
-      const float2 z = c_mul(__ldcg(src + i), __ldg(a.filt + j));
-      src[i] = make_float2(z.x, -z.y);
+  // the forward levels; Bluestein's last one also multiplies by the filter
+  // and runs the inverse FFT of its rows
+  for (int i = 0; i <= last; ++i) {
+    const int lp = p.lp[i], lt = p.lt[i];
+    const int P = 1 << lp, T = 1 << lt;
+    const long long tiles = (a.frames * m) >> (lp + lt);
+    for (long long tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+      const TileAt t = tile_at(a, i, tl);
+      // point (r, c): columns c fastest below the last level, rows r in it
+      auto rc = [&](int e, int& r, int& c) {
+        r = i < last ? e >> lt : e & (P - 1);
+        c = i < last ? e & (T - 1) : e >> lp;
+      };
+      batched(
+          P * T,
+          [&](int e) {
+            int r, c;
+            rc(e, r, c);
+            const long long pos = t.base + r * t.rstride + c * t.cstride;
+            return i == 0 && pos - t.f * m >= n ? make_float2(0.f, 0.f) : __ldcg(a.buf + pos);
+          },
+          [&](int e, float2 z) {
+            int r, c;
+            rc(e, r, c);
+            tile[fslot((r << lt) + c)] = z;
+          });
+      __syncthreads();
+      tile_fft<false>(tile, lp, lt, tq, p.hq, p.log2q);
+      if (i < last) {  // natural rows k, times W_m^{k c L}
+        batched(
+            P * T, [&](int e) { return twiddle_m(a, ((e >> lt) * (t.c0 + (e & (T - 1)))) << t.ll); },
+            [&](int e, float2 w) {
+              const int kb = e >> lt, c = e & (T - 1);
+              a.buf[t.base + kb * t.rstride + c] =
+                  c_mul(tile[fslot((difpos(kb, lp) << lt) + c)], w);
+            });
+      } else if (!p.bluestein) {  // the epilogue at bin binbase + c + k L
+        for (int e = tid; e < P * (T / spb); e += kGlobalThreads) {
+          const int kb = e / (T / spb), c0 = (e - kb * (T / spb)) * spb;
+          const int row = difpos(kb, lp) << lt;
+          put_bins(a, t.f * n + t.binbase + c0 + (static_cast<long long>(kb) << t.ll),
+                   [&](int q) { return tile[fslot(row + c0 + q)]; });
+        }
+      } else {
+        batched(
+            P * T,
+            [&](int e) {
+              return __ldg(a.filt + t.binbase + (e & (T - 1)) +
+                           (static_cast<long long>(e >> lt) << t.ll));
+            },
+            [&](int e, float2 h) {
+              const int slot = fslot((difpos(e >> lt, lp) << lt) + (e & (T - 1)));
+              const float2 z = c_mul(tile[slot], h);
+              tile[slot] = make_float2(z.x, -z.y);
+            });
+        __syncthreads();
+        tile_fft<true>(tile, lp, lt, tq, p.hq, p.log2q);
+        for (int e = tid; e < P * T; e += kGlobalThreads) {
+          const int r = e & (P - 1), c = e >> lp;
+          a.buf[t.base + r + c * t.cstride] = tile[fslot((r << lt) + c)];
+        }
+      }
+      __syncthreads();  // the tile is read: the next tile's load may overwrite it
     }
-    grid.sync();
-    global_fft(a, src, dst, grid);
+    if (i < last || p.bluestein) grid.sync();
   }
+  if (!p.bluestein) return;
 
-  // 5. the epilogue
-  auto bin = [&](long long f, long long q) {
-    const float2 z = __ldcg(src + f * m + q);
-    return a.plan.bluestein ? c_mul(make_float2(z.x, -z.y), __ldg(a.chirp + q)) : z;
-  };
-  if (a.epi == kSpectrum) {
-    float2* o = static_cast<float2*>(a.out);
-    for (long long i = i0; i < a.frames * n; i += step) {
-      const long long f = i / n;
-      const float2 z = bin(f, i - f * n);
-      o[i] = make_float2(z.x * a.scale, z.y * a.scale);
+  // Bluestein: the levels below the last in reverse, the twiddle then the
+  // DIT; level 0 ends in the epilogue at t = r s + c, conj(z_t) w[t]
+  for (int i = last - 1; i >= 0; --i) {
+    const int lp = p.lp[i], lt = p.lt[i];
+    const int P = 1 << lp, T = 1 << lt;
+    const long long tiles = (a.frames * m) >> (lp + lt);
+    for (long long tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+      const TileAt t = tile_at(a, i, tl);
+      batched(
+          P * T, [&](int e) { return __ldcg(a.buf + t.base + (e >> lt) * t.rstride + (e & (T - 1))); },
+          [&](int e, float2 z) {
+            const int kb = e >> lt, c = e & (T - 1);
+            tile[fslot((difpos(kb, lp) << lt) + c)] =
+                c_mul(z, twiddle_m(a, (kb * (t.c0 + c)) << t.ll));
+          });
+      __syncthreads();
+      tile_fft<true>(tile, lp, lt, tq, p.hq, p.log2q);
+      if (i > 0) {
+        for (int e = tid; e < P * T; e += kGlobalThreads) {
+          a.buf[t.base + (e >> lt) * t.rstride + (e & (T - 1))] = tile[fslot(e)];
+        }
+      } else {
+        for (int e = tid; e < P * (T / spb); e += kGlobalThreads) {
+          const int r = e / (T / spb), c0 = (e - r * (T / spb)) * spb;
+          const long long q0 = (static_cast<long long>(r) << t.ls) + t.c0 + c0;
+          if (q0 >= n) continue;
+          put_bins(a, t.f * n + q0, [&](int q) {
+            const float2 z = tile[fslot((r << lt) + c0 + q)];
+            return c_mul(make_float2(z.x, -z.y), __ldg(a.chirp + q0 + q));
+          });
+        }
+      }
+      __syncthreads();
     }
-  } else {
-    const int spb = a.epi == kQpsk ? 4 : 8;  // symbols a byte
-    const long long per = n / spb;
-    uint8_t* o = static_cast<uint8_t*>(a.out);
-    for (long long i = i0; i < a.frames * per; i += step) {
-      const long long f = i / per;
-      const long long kb = (i - f * per) * spb;
-      o[i] = demod_byte(a.epi, [&](int q) { return bin(f, kb + q); });
-    }
+    if (i > 0) grid.sync();
   }
 }
 
@@ -1218,15 +1727,31 @@ int launch_global(const GlobalArgs& a, int device, cudaStream_t stream) {
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rx_frame_global_kernel, 256, 0);
+  const size_t smem =
+      (static_cast<size_t>(a.plan.twoff) + (1 << a.plan.hq) + ((1 << a.plan.log2q) >> a.plan.hq)) *
+      sizeof(float2);
+  const int rc = set_smem(rx_frame_global_kernel, smem);
+  if (rc != 0) return rc;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rx_frame_global_kernel,
+                                                      kGlobalThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long need = (a.frames * a.plan.m + 255) / 256;
+  // the most work of a phase: tiles of a level, or FIR chunks
+  long long need = 1;
+  if (a.plan.levels == 1) {
+    need = a.plan.sub > 1 ? a.frames : (a.frames + (1LL << a.plan.lt[0]) - 1) >> a.plan.lt[0];
+  } else {
+    need = a.frames * ((a.plan.n + a.plan.chunk - 1) / a.plan.chunk);
+    for (int i = 0; i < a.plan.levels; ++i) {
+      const long long tiles = (a.frames * a.plan.m) >> (a.plan.lp[i] + a.plan.lt[i]);
+      if (tiles > need) need = tiles;
+    }
+  }
   const long long most = static_cast<long long>(per_sm) * sms;
   const unsigned blocks = static_cast<unsigned>(need < most ? need : most);
   void* args[] = {const_cast<GlobalArgs*>(&a)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rx_frame_global_kernel),
-                                    dim3(blocks), dim3(256), args, 0, stream);
+                                    dim3(blocks), dim3(kGlobalThreads), args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1295,20 +1820,28 @@ extern "C" int rx_frame_general_launch(int epilogue, const void* x, const void* 
 }
 
 // Plain C entry point of the global instance, loaded with ctypes. plan: a
-// host GlobalPlan (ops/cuda/rx_frame.py global_layout); tw: the float32
-// table W_m^e, e < m, on the card; taps: the k complex taps on the card;
-// chirp ([n]) and filt ([m]) on the card where plan->bluestein, else null;
-// buf0, buf1: two scratch buffers of frames x m complex64 on the card; out:
-// as the other instances'. One cooperative launch; returns its
-// cudaError_t (0 = success). The caller guarantees contiguous tensors.
+// host GlobalPlan (ops/cuda/rx_frame.py global_layout); taps: the k complex
+// taps on the card (real_taps: every imaginary part exactly 0); twq: W_Q^e,
+// e < 2^hq, then W_Q^{e 2^hq}, e < Q / 2^hq (Q = 2^plan->log2q), float32
+// built in float64; twlo, twhi: W_m^e, e < 2^h,
+// and W_m^{e 2^h}, e < m / 2^h (levels >= 2 or sub > 1, else null); chirp
+// ([n]) and filt ([m]) where plan->bluestein, else null; buf: a scratch of
+// frames x m complex64 (levels >= 2), of frames x 2 n (sub > 1), else null;
+// all on the card; out: as the other
+// instances'. One cooperative launch; returns its cudaError_t (0 =
+// success). The caller guarantees contiguous tensors and twoff + 2^hq +
+// Q / 2^hq float2 slots within the opt-in shared memory.
 extern "C" int rx_frame_global_launch(int epilogue, const void* x, const void* hist,
-                                      const void* tw, const void* taps, const void* chirp,
-                                      const void* filt, void* buf0, void* buf1, void* out,
-                                      long long frames, int nsym, const GlobalPlan* plan,
-                                      float scale, int device, void* stream) {
-  if (epilogue < kQpsk || epilogue > kSpectrum || plan->npass < 1 ||
-      plan->npass > kMaxPasses || plan->k < 1 || frames < 1 ||
-      (plan->bluestein && (chirp == nullptr || filt == nullptr)))
+                                      const void* taps, const void* twq, const void* twlo,
+                                      const void* twhi, const void* chirp, const void* filt,
+                                      void* buf, void* out, long long frames, int nsym,
+                                      int real_taps, const GlobalPlan* plan, float scale,
+                                      int device, void* stream) {
+  if (epilogue < kQpsk || epilogue > kSpectrum || plan->levels < 1 ||
+      plan->levels > kMaxLevels || plan->k < 1 || frames < 1 ||
+      (plan->bluestein && (chirp == nullptr || filt == nullptr)) ||
+      ((plan->levels > 1 || plan->sub > 1) &&
+       (buf == nullptr || twlo == nullptr || twhi == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
@@ -1319,16 +1852,18 @@ extern "C" int rx_frame_global_launch(int epilogue, const void* x, const void* h
   GlobalArgs a;
   a.x = static_cast<const float2*>(x);
   a.hist = static_cast<const float2*>(hist);
-  a.tw = static_cast<const float2*>(tw);
   a.taps = static_cast<const float2*>(taps);
+  a.twq = static_cast<const float2*>(twq);
+  a.twlo = static_cast<const float2*>(twlo);
+  a.twhi = static_cast<const float2*>(twhi);
   a.chirp = static_cast<const float2*>(chirp);
   a.filt = static_cast<const float2*>(filt);
-  a.buf0 = static_cast<float2*>(buf0);
-  a.buf1 = static_cast<float2*>(buf1);
+  a.buf = static_cast<float2*>(buf);
   a.out = out;
   a.frames = frames;
   a.nsym = nsym;
   a.epi = epilogue;
+  a.real_taps = real_taps;
   a.scale = scale;
   a.plan = *plan;
   const int rc = launch_global(a, device, static_cast<cudaStream_t>(stream));

@@ -52,26 +52,35 @@
 //     step t's words once they are read, and the bits leave as coalesced
 //     stores of the whole warp.
 //
-// The block instance (viterbi_block_kernel) takes every code the warp
-// instance does not: more than 256 states (K >= 10) or more than 8
-// generators. One CTA of 256 threads decodes one trellis, state s' and
-// s' + 256, s' + 512, ... a thread. The path metrics are two buffers of S
-// floats (read one, write the other), in shared memory while both fit
-// (S <= 16,384, K <= 15) and in a device scratch past that; a buffer holds
-// the step's metrics before the subtraction of their minimum, and the next
-// step subtracts it as it reads them, so every value is the twin's. The
-// minimum is a redux.sync a warp and one barrier a step. The decisions go
-// to the device scratch as ballot words (S / 32 a step), the branch metric
-// reads the step's LLRs from the card in the twin's order (any number of
-// generators: the encoder outputs are S x 2 rows of ceil(n / 32) words on
-// the card), and thread 0 walks the traceback. Its limit is the card's
-// memory. It is written for reach, not speed: the metrics cross a barrier
-// every step.
+// The block instance takes every code the warp instance does not: more
+// than 256 states (K >= 10) or more than 8 generators. Two routes:
+//   - cluster (viterbi_cta_kernel, up to 131,072 states, K <= 18): one CTA
+//     a trellis, or a thread-block cluster of 2-8 where trellises are fewer
+//     than the SMs or the metrics outgrow one CTA; the metrics in shared
+//     memory split by state range over the cluster, a thread a pair of
+//     states, the branch metrics once a step per output pattern, one
+//     barrier a step, the decisions in shared memory where they fit, a
+//     warp's traceback five steps a round. See its section below;
+//   - scratch (viterbi_block_kernel, past that, or where a CTA's two chunks
+//     of LLRs of many generators outgrow its shared memory, block_plan
+//     None): one CTA of 256 threads a
+//     trellis, state s' and s' + 256, ... a thread, the path metrics in two
+//     buffers of S floats in the device scratch and the decisions there as
+//     ballot words (S / 32 a step), thread 0 walking the traceback. A
+//     buffer holds the step's metrics before the subtraction of their
+//     minimum, and the next step subtracts it as it reads them, so every
+//     value is the twin's; its limit is the card's memory. It was written
+//     for reach, not speed: the metrics cross device memory every step.
+// The scratch route's branch metric reads each generator's output from S x 2
+// rows of ceil(n / 32) mask words on the card (any n).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxN = 8;        // generators per code
 constexpr int kMaxStates = 256; // 2^(K-1), K <= 9 (the warp instance)
@@ -281,7 +290,7 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   for (int t = lane; t < lw; t += 32) dst[t] = out[t * kSpl * 4];
 }
 
-// ---- the block instance ------------------------------------------------------
+// ---- the block instance's scratch route -------------------------------------
 
 // g = sum_m o_m * l_m, m left to right, o_m bit m of the transition's words.
 __device__ __forceinline__ float branch_words(const unsigned* __restrict__ w,
@@ -378,6 +387,346 @@ viterbi_block_kernel(const float* __restrict__ sym, unsigned char* __restrict__ 
       const unsigned word = dec[static_cast<long long>(t) * words + (state >> 5)];
       state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
     }
+  }
+}
+
+// ---- the block instance's cluster route ------------------------------------
+//
+// One CTA, or a thread-block cluster of q CTAs, a trellis (blockIdx.x / q;
+// the states split by range over the cluster's CTAs, S / q each). A thread
+// takes pairs of states (2i, 2i + 1), which share their predecessors i and
+// i + S/2: one load of each a pair, from the shared memory of the CTA that
+// holds them (distributed shared memory in a cluster). A step:
+//   - the branch metrics: one per distinct output pattern of the code (at
+//     most 256; the host maps each transition to its pattern, a byte, four
+//     a pair of states held in registers), computed for the next step while
+//     this one runs, from the LLRs that cp.async stages 32 steps at a time a
+//     chunk ahead; past 256 patterns, each transition's from its mask words.
+//     Either is sum_m o_m l_m left to right (__fmul_rn, __fadd_rn): the
+//     twin's floats;
+//   - the ACS of the CTA's states into the other of two metric buffers
+//     (the metrics before the subtraction of their minimum, which the next
+//     step subtracts as it reads them, as the scratch route does);
+//   - the decisions as ballot words (even and odd states interleaved), in
+//     shared memory where a trellis's history fits, else the device scratch;
+//   - the minimum: a redux.sync a warp, each warp's pushed to every CTA of
+//     the cluster, one barrier (cluster.sync() in a cluster) a step.
+// The traceback is one warp of rank 0: it loads the words of the 31
+// candidate states of the next five steps at once (2^j candidates j steps
+// back) and resolves them in order by shuffles. Bit-identical to the twin:
+// the tie-break c1 < c0, order-preserving keys for the minimum, the first
+// argmin of an unterminated span. What bounds it on an H100: the step chain,
+// a barrier and a minimum over the states every step (the operations, n
+// FMAs a distinct output pattern and 6 a state a step, take microseconds:
+// PERF.md §6 row 4).
+
+constexpr int kCtaMaxThreads = 512;
+constexpr int kPairIters = 16;   // pairs a thread at most (S / q / 2 <= 16 x 512)
+constexpr int kMaxPatterns = 256;
+constexpr int kLlrChunk = 32;    // steps of LLRs staged at once
+constexpr int kTraceAhead = 5;   // steps a traceback round resolves (31 candidate words)
+
+__device__ __forceinline__ unsigned spread16(unsigned x) {  // bit i to bit 2 i
+  x = (x | (x << 8)) & 0x00ff00ffu;
+  x = (x | (x << 4)) & 0x0f0f0f0fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// kCluster: q > 1 (a cluster launch); kTable: at most kMaxPatterns patterns;
+// kIters: pairs a thread (S / q / 2 = kIters x threads, or fewer pairs than
+// threads at 1). codes: kTable, the pattern byte of each transition row
+// (uint8 [2 S]) then the patterns' output bits (uint32 [npat][mw]); else the
+// rows' output bits (uint32 [2 S][mw]).
+template <bool kCluster, bool kTable, int kIters>
+__global__ void __launch_bounds__(kCtaMaxThreads, 1)
+viterbi_cta_kernel(const float* __restrict__ sym, unsigned char* __restrict__ bits, int lw,
+                   int n, int s_count, int init_state0, int end_state0,
+                   const unsigned* __restrict__ codes, int npat, int mw, int q, int dec_smem,
+                   unsigned* __restrict__ dec_scratch) {
+  extern __shared__ __align__(16) float smv[];
+  __shared__ int first;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int threads = blockDim.x, warps = threads >> 5;
+  const int S = s_count, K2 = __ffs(S) - 2;  // K - 2
+  const int sc = S / q, pc = sc / 2;          // states and pairs a CTA
+  const int rank = kCluster ? static_cast<int>(cluster.block_rank()) : 0;
+  const long long tr = blockIdx.x / q;
+  const int words = S >= 32 ? S / 32 : 1, wc = sc >= 32 ? sc / 32 : 1;
+  // shared memory: two metric buffers, the decisions, the branch metrics,
+  // the LLR chunks, the minima
+  float* buf0 = smv;
+  float* buf1 = smv + sc;
+  unsigned* dec_s = reinterpret_cast<unsigned*>(smv + 2 * sc);
+  float* gm = smv + 2 * sc + (dec_smem ? lw * wc : 0);  // [2][kMaxPatterns]
+  float* llr = gm + 2 * kMaxPatterns;                    // [2][kLlrChunk][n]
+  unsigned* red = reinterpret_cast<unsigned*>(llr + 2 * kLlrChunk * n);  // [2][q warps]
+  const float* y = sym + tr * static_cast<long long>(lw) * n;
+
+  // the predecessors of the CTA's pairs: i (owner g0 / sc) and i + S/2
+  const int g0 = rank * pc, g1 = rank * pc + S / 2;
+  auto remote = [&](float* b, int owner) -> const float* {
+    if constexpr (kCluster) return cluster.map_shared_rank(b, owner);
+    return b;
+  };
+  const float* lo0 = remote(buf0, g0 / sc) + g0 % sc;
+  const float* lo1 = remote(buf1, g0 / sc) + g0 % sc;
+  const float* hi0 = remote(buf0, g1 / sc) + g1 % sc;
+  const float* hi1 = remote(buf1, g1 / sc) + g1 % sc;
+
+  auto stage = [&](int c) {  // the LLRs of steps 32 c .. into chunk slot c & 1
+    const int steps = min(kLlrChunk, lw - kLlrChunk * c);
+    float* d = llr + (c & 1) * kLlrChunk * n;
+    const float* src = y + static_cast<long long>(kLlrChunk) * c * n;
+    for (int e = tid; e < steps * n; e += threads) cp_async4(d + e, src + e);
+    cp_async_commit();
+  };
+  // sum_m o_m l_m of the output bits w (mw words), m left to right
+  auto branch = [&](const unsigned* w, const float* l) -> float {
+    unsigned word = w[0];
+    float g = __fmul_rn((word & 1u) ? 1.0f : 0.0f, l[0]);
+    for (int m = 1; m < n; ++m) {
+      if ((m & 31) == 0) word = w[m >> 5];
+      g = __fadd_rn(g, __fmul_rn(((word >> (m & 31)) & 1u) ? 1.0f : 0.0f, l[m]));
+    }
+    return g;
+  };
+  const unsigned char* pid = reinterpret_cast<const unsigned char*>(codes);
+  const unsigned* pbits = codes + (2 * S + 3) / 4;  // the patterns' bits after the bytes
+  // a thread's pattern (tid < npat <= threads) and its output bits, held
+  // where they are one word
+  const unsigned pword = kTable && tid < npat ? __ldg(pbits + tid * mw) : 0u;
+  auto metrics = [&](int t) {  // the patterns' metrics of step t into gm[t & 1]
+    if constexpr (kTable) {
+      if (tid < npat) {
+        const float* l = llr + ((t / kLlrChunk) & 1) * kLlrChunk * n + (t % kLlrChunk) * n;
+        gm[(t & 1) * kMaxPatterns + tid] = mw == 1 ? branch(&pword, l) : branch(pbits + tid * mw, l);
+      }
+    }
+  };
+
+  // the pattern bytes of the thread's pairs (rows 4 i .. 4 i + 3), held
+  unsigned mk[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int u = it * threads + tid;
+    mk[it] = kTable && u < pc ? __ldg(reinterpret_cast<const unsigned*>(pid) + g0 + u) : 0u;
+  }
+  if (tid == 0) first = S;
+  for (int u = tid; u < sc; u += threads) {
+    buf0[u] = init_state0 ? (rank * sc + u == 0 ? 0.0f : 1e9f) : 0.0f;
+  }
+  stage(0);
+  cp_async_wait_group<0>();
+  __syncthreads();
+  metrics(0);
+  if constexpr (kCluster) {
+    cluster.sync();  // every CTA's metrics are set before one reads them
+  } else {
+    __syncthreads();
+  }
+
+  float mn = 0.0f;  // the minimum of the buffer the step reads
+  for (int t = 0; t < lw; ++t) {
+    const int rd = t & 1;
+    // the next chunk's LLRs load 32 steps ahead of their first use; they are
+    // waited for two steps before it, so a barrier publishes them
+    if (t % kLlrChunk == 0 && t + kLlrChunk < lw) stage(t / kLlrChunk + 1);
+    if (t + 1 < lw) metrics(t + 1);
+    const float* bd = gm + rd * kMaxPatterns;
+    const float* lt = llr + ((t / kLlrChunk) & 1) * kLlrChunk * n + (t % kLlrChunk) * n;
+    const float* plo = rd ? lo1 : lo0;
+    const float* phi = rd ? hi1 : hi0;
+    float* out = rd ? buf0 : buf1;
+    unsigned kmin = 0xffffffffu;
+    // the predecessors of kPre pairs at a time, loaded before their ACS (the
+    // fastest group at each width: at 16 pairs a thread more spill registers)
+    constexpr int kPre = kIters < 8 ? kIters : (kIters >= 16 ? 2 : 8);
+#pragma unroll
+    for (int g = 0; g < kIters; g += kPre) {
+      float pa0[kPre], pa1[kPre];
+#pragma unroll
+      for (int j = 0; j < kPre; ++j) {
+        const int u = (g + j) * threads + tid;
+        if (u < pc) {
+          pa0[j] = plo[u];
+          pa1[j] = phi[u];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPre; ++j) {
+        const int it = g + j;
+        const int base = it * threads;
+        const int u = base + tid;
+        bool de = false, dodd = false;
+        if (u < pc) {
+          const int i = g0 + u;  // the pair's states 2i, 2i + 1
+          const float a0 = __fsub_rn(pa0[j], mn), a1 = __fsub_rn(pa1[j], mn);
+          float m0e, m1e, m0o, m1o;  // rows 4 i .. 4 i + 3
+          if constexpr (kTable) {
+            m0e = bd[mk[it] & 255u];
+            m1e = bd[(mk[it] >> 8) & 255u];
+            m0o = bd[(mk[it] >> 16) & 255u];
+            m1o = bd[mk[it] >> 24];
+          } else {
+            const unsigned* w = codes + static_cast<long long>(4 * i) * mw;
+            m0e = branch(w, lt);
+            m1e = branch(w + mw, lt);
+            m0o = branch(w + 2 * mw, lt);
+            m1o = branch(w + 3 * mw, lt);
+          }
+          const float c0e = __fadd_rn(a0, m0e), c1e = __fadd_rn(a1, m1e);
+          const float c0o = __fadd_rn(a0, m0o), c1o = __fadd_rn(a1, m1o);
+          de = c1e < c0e;
+          dodd = c1o < c0o;
+          const float ne = de ? c1e : c0e, no = dodd ? c1o : c0o;
+          reinterpret_cast<float2*>(out)[u] = make_float2(ne, no);
+          kmin = min(kmin, min(fkey(ne), fkey(no)));
+        }
+        const unsigned e = __ballot_sync(kFull, de), o = __ballot_sync(kFull, dodd);
+        // lane 0: the word of the warp's first 16 pairs, lane 1 of the next 16
+        if (lane < 2 && base + 32 * warp + 16 * lane < pc) {
+          const int w = (g0 + base + 32 * warp) / 16 + lane;  // states 32 w ..
+          const unsigned half_e = lane == 0 ? e & 0xffffu : e >> 16;
+          const unsigned half_o = lane == 0 ? o & 0xffffu : o >> 16;
+          const unsigned word = spread16(half_e) | (spread16(half_o) << 1);
+          if (dec_smem) {
+            dec_s[t * wc + (w - rank * wc)] = word;
+          } else {
+            dec_scratch[(tr * lw + t) * words + w] = word;
+          }
+        }
+      }
+    }
+    if (t % kLlrChunk == kLlrChunk - 2) cp_async_wait_group<0>();
+    kmin = __reduce_min_sync(kFull, kmin);
+    if constexpr (kCluster) {
+      if (lane < q) cluster.map_shared_rank(red, lane)[rd * q * warps + rank * warps + warp] = kmin;
+      cluster.sync();
+    } else {
+      if (lane == 0) red[rd * warps + warp] = kmin;
+      __syncthreads();
+    }
+    unsigned m = 0xffffffffu;
+    for (int i = lane; i < q * warps; i += 32) m = min(m, red[rd * q * warps + i]);
+    mn = unkey(__reduce_min_sync(kFull, m));
+  }
+
+  // the start of the traceback: state 0, or the first argmin of the final
+  // metrics (the first s whose buffered metric equals their minimum)
+  const float* fin = (lw & 1) ? buf1 : buf0;
+  if (!end_state0) {
+    for (int u = tid; u < sc; u += threads) {
+      if (fin[u] == mn) {
+        atomicMin(&first, rank * sc + u);
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (kCluster) {
+    if (tid == 0 && rank != 0) atomicMin(cluster.map_shared_rank(&first, 0), first);
+    cluster.sync();
+  }
+  if (rank == 0 && warp == 0) {
+    auto word = [&](int t, int w) -> unsigned {
+      if (dec_smem) {
+        const int r = w / wc;
+        const unsigned* d = dec_s;
+        if constexpr (kCluster) d = cluster.map_shared_rank(dec_s, r);
+        return d[t * wc + (w - r * wc)];
+      }
+      return __ldcg(dec_scratch + (tr * lw + t) * words + w);
+    };
+    unsigned char* ob = bits + tr * static_cast<long long>(lw);
+    int s = end_state0 ? 0 : first;
+    // lane l holds the candidate j = floor(log2(l + 1)) steps back whose
+    // decisions on the way are the bits of l + 1 - 2^j (step t's the lowest)
+    const int lj = 31 - __clz(lane + 1), lb = lane + 1 - (1 << lj);
+    for (int t = lw - 1; t >= 0;) {
+      const int steps = min(kTraceAhead, t + 1);
+      unsigned wd = 0;
+      if (lj < steps) {
+        int st = s;
+        for (int i = 0; i < lj; ++i) st = (st >> 1) | (((lb >> i) & 1) << K2);
+        wd = word(t - lj, st >> 5);
+      }
+      int taken = 0;
+      for (int j = 0; j < steps; ++j) {
+        const unsigned w = __shfl_sync(kFull, wd, (1 << j) - 1 + taken);
+        if (lane == 0) ob[t - j] = static_cast<unsigned char>(s & 1);
+        const int b = (w >> (s & 31)) & 1;
+        s = (s >> 1) | (b << K2);
+        taken |= b << j;
+      }
+      t -= steps;
+    }
+  }
+  if constexpr (kCluster) cluster.sync();  // rank 0 has read every CTA's decisions
+}
+
+template <bool kCluster, bool kTable, int kIters>
+int launch_cta(const void* sym, void* bits, long long n_trellis, int lw, int n, int s_count,
+               int init_state0, int end_state0, const void* codes, int npat, int mw, int q,
+               int threads, int dec_smem, void* dec_scratch, size_t smem, cudaStream_t stream) {
+  auto kernel = viterbi_cta_kernel<kCluster, kTable, kIters>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_trellis * q));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(sym),
+                           static_cast<unsigned char*>(bits), lw, n, s_count, init_state0,
+                           end_state0, static_cast<const unsigned*>(codes), npat, mw, q, dec_smem,
+                           static_cast<unsigned*>(dec_scratch));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of a launch: q > 1, the pattern table, the pairs a thread.
+template <bool kCluster, bool kTable>
+int launch_cta_iters(int iters, const void* sym, void* bits, long long n_trellis, int lw, int n,
+                     int s_count, int init_state0, int end_state0, const void* codes, int npat,
+                     int mw, int q, int threads, int dec_smem, void* dec_scratch, size_t smem,
+                     cudaStream_t s) {
+  switch (iters) {
+#define VITERBI_CTA_ITERS(I)                                                                      \
+  case I:                                                                                         \
+    return launch_cta<kCluster, kTable, I>(sym, bits, n_trellis, lw, n, s_count, init_state0,     \
+                                           end_state0, codes, npat, mw, q, threads, dec_smem,     \
+                                           dec_scratch, smem, s);
+    VITERBI_CTA_ITERS(1)
+    VITERBI_CTA_ITERS(2)
+    VITERBI_CTA_ITERS(4)
+    VITERBI_CTA_ITERS(8)
+    VITERBI_CTA_ITERS(16)
+#undef VITERBI_CTA_ITERS
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -499,4 +848,52 @@ extern "C" int viterbi_block_launch(const void* sym, void* bits, long long n_tre
       init_state0, end_state0, static_cast<const unsigned*>(masks), mw,
       static_cast<unsigned*>(dec_scratch), static_cast<float*>(pm_scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of the block instance's cluster route (one CTA, or a
+// cluster of q CTAs, a trellis), loaded with ctypes. Returns the cudaError_t
+// of the launch (0 = success). The caller guarantees: sym float32
+// [n_trellis, lw, n] and bits uint8 [n_trellis, lw], contiguous; s_count a
+// power of two >= 2; q 1, 2, 4 or 8, and s_count / q >= 64 where q > 1;
+// threads a multiple of 32 up to 512, at least s_count / q / 32 and, with
+// npat <= 256 patterns, at least npat; codes on the card as uint32 words: with
+// npat <= 256, each transition row's pattern byte (uint8 [2 s_count],
+// padded to whole words) then the patterns' output bits ([npat][mw]); else
+// the rows' output bits ([2 s_count][mw]); mw = ceil(n / 32); dec_smem 1: the
+// decisions in shared memory (lw max(1, s_count / q / 32) words a CTA),
+// else dec_scratch n_trellis * lw * max(1, s_count / 32) uint32 words on
+// the card; the shared memory (ops/cuda/viterbi.py _cta_smem) within the
+// opt-in limit.
+extern "C" int viterbi_cta_launch(const void* sym, void* bits, long long n_trellis, int lw,
+                                  int n, int s_count, int init_state0, int end_state0,
+                                  const void* codes, int npat, int mw, int q, int threads,
+                                  int dec_smem, void* dec_scratch, void* stream) {
+  const int sc = s_count / (q > 0 ? q : 1);
+  if (n < 1 || lw < 1 || s_count < 2 || (s_count & (s_count - 1)) || n_trellis < 1 ||
+      (q != 1 && q != 2 && q != 4 && q != 8) || (q > 1 && sc < 64) || threads < 32 ||
+      threads > kCtaMaxThreads || threads % 32 || sc / 2 > kPairIters * threads ||
+      mw < (n + 31) / 32 || n_trellis * q > 0x7fffffffLL || npat < 1 ||
+      (npat <= kMaxPatterns && npat > threads) || (!dec_smem && dec_scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t floats = 2 * static_cast<size_t>(sc) +
+                        (dec_smem ? static_cast<size_t>(lw) * (sc >= 32 ? sc / 32 : 1) : 0) +
+                        2 * kMaxPatterns + 2 * static_cast<size_t>(kLlrChunk) * n +
+                        2 * static_cast<size_t>(q) * (threads / 32);
+  const size_t smem = floats * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int iters = (sc / 2 + threads - 1) / threads;  // a power of two up to kPairIters
+  if (npat <= kMaxPatterns) {
+    return q > 1 ? launch_cta_iters<true, true>(iters, sym, bits, n_trellis, lw, n, s_count,
+                                                init_state0, end_state0, codes, npat, mw, q,
+                                                threads, dec_smem, dec_scratch, smem, s)
+                 : launch_cta_iters<false, true>(iters, sym, bits, n_trellis, lw, n, s_count,
+                                                 init_state0, end_state0, codes, npat, mw, q,
+                                                 threads, dec_smem, dec_scratch, smem, s);
+  }
+  return q > 1 ? launch_cta_iters<true, false>(iters, sym, bits, n_trellis, lw, n, s_count,
+                                               init_state0, end_state0, codes, npat, mw, q,
+                                               threads, dec_smem, dec_scratch, smem, s)
+               : launch_cta_iters<false, false>(iters, sym, bits, n_trellis, lw, n, s_count,
+                                                init_state0, end_state0, codes, npat, mw, q,
+                                                threads, dec_smem, dec_scratch, smem, s);
 }

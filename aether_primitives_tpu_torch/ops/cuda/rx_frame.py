@@ -26,8 +26,10 @@ bytes, or the ``Scale.SN`` spectrum that the EVM gate reads.
   shares a frame through distributed shared memory and a four-step FFT);
   ``global`` (every other frame: past 65,536 points, or past 4,096 with no
   cluster split, a prime fft_len such as 4,099 or 16,411: one cooperative
-  launch over frames in a device scratch, a Stockham FFT of a power of two
-  pass by pass, Bluestein's chirp transform for any other length).
+  launch; an FFT of a power of two, Bluestein's chirp transform for any
+  other length, whole frames in a CTA's shared memory up to
+  :data:`GLOBAL_TILE` FFT points, a four-step split through one scratch
+  buffer past it).
   :func:`general_layout` and :func:`global_layout` give their launch
   geometry. The only geometry that raises is one whose scratch exceeds the
   card's memory.
@@ -80,6 +82,19 @@ CLUSTER_SIZES = (2, 4, 8)
 CLUSTER_POINTS = 8192
 MAX_PASSES = 20
 SMALL_RADICES = (2, 3, 4, 5, 8)
+#: The global instance: its CTA width, the points of a CTA's tile in shared
+#: memory, the most points of a level past one tile, and the most levels
+#: (``csrc/rx_frame.cu`` ``kGlobalThreads``, ``kMaxLevels``).
+GLOBAL_THREADS = 512
+GLOBAL_TILE = 16384
+GLOBAL_LEVEL = 2048
+GLOBAL_MAX_LEVELS = 4
+#: Bluestein over m = 2 x GLOBAL_TILE takes its two sub-transforms in one
+#: CTA (``global_layout``'s ``alt``) where a call has at least this many
+#: frames; fewer take the levels (at 2 / 8,198 and at 1 / 15,000 on an H100
+#: the levels were faster at 66 frames and the sub-transforms at 132:
+#: ``benches/torch_rx_frame_routes.py``, PERF.md §6).
+GLOBAL_SUB_FRAMES = 100
 
 
 def direct_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[tuple]:
@@ -274,30 +289,91 @@ def general_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[dict]:
     return _cluster_layout(dec, fft_len, n_taps) or single
 
 
+def global_levels(m: int, tile: int = GLOBAL_TILE, level: int = GLOBAL_LEVEL) -> tuple:
+    """``(lp, lt)``: log2 of each level's points ``P_i`` and of a tile's
+    sequences ``T_i`` for an m-point FFT (m a power of two), level 0 the
+    outermost. Up to ``tile`` points: one level, ``tile / m`` whole frames a
+    tile. Past it: ``level`` points in the last level (tiles of ``tile /
+    level`` rows, whole bytes of bins), the rest of m in levels of up to
+    ``level`` points from level 0 on, each tile ``tile / P_i`` adjacent
+    columns (at most the level's stride)."""
+    lm, lt_all, ll = m.bit_length() - 1, tile.bit_length() - 1, level.bit_length() - 1
+    if m <= tile:
+        return [lm], [lt_all - lm]
+    lps, rest = [], lm - ll
+    while rest > 0:
+        lps.append(min(rest, ll))
+        rest -= lps[-1]
+    lps.append(ll)
+    lts = [min(lt_all - lp, sum(lps[i + 1:])) for i, lp in enumerate(lps[:-1])]
+    return lps, lts + [lt_all - ll]
+
+
 def global_layout(dec: int, fft_len: int, n_taps: int = 1) -> Optional[dict]:
     """The global instance's geometry, or None where one frame's scratch and
     tables exceed the card's memory (:data:`CARD_BYTES`). Keys: ``n``
     (fft_len), ``m`` (the FFT's points: ``n`` for a power of two, else
-    Bluestein's power of two ``>= 2n - 1``), ``bluestein``, ``dec``, ``k``
-    and ``rad`` (the m-point FFT's passes, :func:`radices`)."""
+    Bluestein's power of two ``>= 2n - 1``), ``bluestein``, ``dec``, ``k``,
+    ``lp`` / ``lt`` (:func:`global_levels`: one level where m fits a tile of
+    :data:`GLOBAL_TILE` points, which then holds whole frames and no scratch
+    is needed; else the four-step levels through a scratch of m points a
+    frame), ``tile`` (float2 slots of the tile buffer), the FIR's staging
+    ``split``, ``chunk``, ``kt``, ``win`` (:func:`_fir_fit`: two windows
+    beside the tile for one level, in its place past it; ``win`` 0 where no
+    window fits: x read through L1), ``log2q`` (the largest level's points
+    Q), ``h`` and ``hq`` (the splits of the tables of ``W_m`` and ``W_Q``:
+    :func:`split_twiddles`) and ``twoff`` (the slot of the tables of ``W_Q``
+    in shared memory, after the tile and the windows), ``sub`` (1) and
+    ``alt``: for Bluestein over m = 2 x :data:`GLOBAL_TILE`, the layout
+    whose ``sub`` 2 sub-transforms of a frame run one after the other in one
+    CTA (a scratch of 2 n points a frame: x and the sum), else None."""
     if fft_len < 1 or dec < 1 or not 1 <= n_taps <= dec * fft_len + 1:
         return None
     pow2 = fft_len & (fft_len - 1) == 0
     m = fft_len if pow2 else 1 << (2 * fft_len - 2).bit_length()
-    if m < 2 or len(radices(m)) > MAX_PASSES:
+    if m < 2:
         return None
-    lay = dict(n=fft_len, m=m, bluestein=not pow2, dec=dec, k=n_taps, rad=radices(m))
+    lps, lts = global_levels(m)
+    if len(lps) > GLOBAL_MAX_LEVELS:
+        return None
+    lay = _global_fit(dict(n=fft_len, m=m, bluestein=not pow2, dec=dec, k=n_taps, lp=lps,
+                           lt=lts, h=m.bit_length() // 2, sub=1, alt=None))
+    if not pow2 and m == 2 * GLOBAL_TILE:  # Bluestein's two sub-transforms in one CTA
+        lay["alt"] = _global_fit(dict(lay, lp=[GLOBAL_TILE.bit_length() - 1], lt=[0], sub=2))
     if global_bytes(lay, 1) > CARD_BYTES:
         return None
     return lay
 
 
+def _global_fit(lay: dict) -> dict:
+    """``lay`` with its tile, the FIR's staging and the tables of ``W_Q``."""
+    lps = lay["lp"]
+    tile = _fslot(GLOBAL_TILE - 1) + 1
+    log2q = max(lps)
+    hq = (log2q + 1) // 2
+    tables = (1 << hq) + ((1 << log2q) >> hq)
+    # one level: the windows beside the tile; more: the FIR runs before the
+    # first level's tiles, its windows and a chunk of outputs in the tile's place
+    chunk_max = 8 * GLOBAL_THREADS
+    fit = _fir_fit(lay["dec"], lay["k"], GLOBAL_THREADS, 8, 1,
+                   (tile if len(lps) == 1 else chunk_max) + tables)
+    split, chunk, kt, win = fit if fit is not None else (1, GLOBAL_THREADS, lay["k"], 0)
+    twoff = tile + 2 * win if len(lps) == 1 else max(tile, 2 * win + chunk)
+    return dict(lay, tile=tile, split=split, chunk=chunk, kt=kt, win=win, log2q=log2q, hq=hq,
+                twoff=twoff)
+
+
 def global_bytes(lay: dict, frames: int) -> int:
-    """Device bytes of a global-instance call on ``frames`` frames: its two
-    scratch buffers of ``m`` points a frame and its tables (twiddles, and
-    Bluestein's chirp and filter spectrum)."""
+    """Device bytes of a global-instance call on ``frames`` frames: its
+    scratch of ``m`` points a frame where the FFT has more than one level
+    (``2 n`` for the ``sub`` route), and its tables (the two of ``W_Q``, the two of ``W_m``, and Bluestein's
+    chirp and filter spectrum)."""
     m, n = lay["m"], lay["n"]
-    return 8 * (2 * frames * m + m + (n + m if lay["bluestein"] else 0))
+    levels = len(lay["lp"]) > 1
+    scratch = frames * m if levels else (frames * 2 * n if lay["sub"] > 1 else 0)
+    tables = ((1 << lay["hq"]) + ((1 << lay["log2q"]) >> lay["hq"])
+              + (((1 << lay["h"]) + (m >> lay["h"])) if levels or lay["sub"] > 1 else 0))
+    return 8 * (scratch + tables + (n + m if lay["bluestein"] else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -599,19 +675,33 @@ def _launch_general(x, hist, taps, dec, fft_len, epilogue, out, frames):
 class GlobalPlan(ctypes.Structure):
     """ctypes mirror of ``csrc/rx_frame.cu`` ``GlobalPlan`` (same field order)."""
 
-    _fields_ = [("n", ctypes.c_longlong), ("m", ctypes.c_longlong), ("dec", ctypes.c_int),
-                ("k", ctypes.c_int), ("bluestein", ctypes.c_int), ("npass", ctypes.c_int),
-                ("rad", ctypes.c_int * MAX_PASSES)]
+    _fields_ = ([("n", ctypes.c_longlong), ("m", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in ("dec", "k", "bluestein", "levels")]
+                + [("lp", ctypes.c_int * GLOBAL_MAX_LEVELS),
+                   ("lt", ctypes.c_int * GLOBAL_MAX_LEVELS)]
+                + [(name, ctypes.c_int) for name in ("tile", "split", "chunk", "kt", "win",
+                                                     "log2q", "h", "hq", "twoff", "sub")])
+
+
+def global_route(lay: dict, frames: int) -> dict:
+    """The layout a call of ``frames`` frames takes: ``lay["alt"]`` (one CTA
+    a frame) where there is one and the call has :data:`GLOBAL_SUB_FRAMES`
+    frames or more, else ``lay``."""
+    return lay["alt"] if lay["alt"] is not None and frames >= GLOBAL_SUB_FRAMES else lay
 
 
 @functools.lru_cache(maxsize=None)
-def global_plan(dec: int, fft_len: int, n_taps: int) -> GlobalPlan:
+def global_plan(dec: int, fft_len: int, n_taps: int, alt: bool = False) -> GlobalPlan:
     """The :class:`GlobalPlan` of :func:`global_layout` (which must take the
-    geometry), built once per geometry."""
+    geometry), or of its ``alt`` route, built once per geometry."""
     lay = global_layout(dec, fft_len, n_taps)
+    lay = lay["alt"] if alt else lay
     plan = GlobalPlan(n=lay["n"], m=lay["m"], dec=dec, k=n_taps,
-                      bluestein=int(lay["bluestein"]), npass=len(lay["rad"]))
-    plan.rad[:len(lay["rad"])] = lay["rad"]
+                      bluestein=int(lay["bluestein"]), levels=len(lay["lp"]),
+                      **{key: lay[key] for key in ("tile", "split", "chunk", "kt", "win",
+                                                   "log2q", "h", "hq", "twoff", "sub")})
+    plan.lp[:len(lay["lp"])] = lay["lp"]
+    plan.lt[:len(lay["lt"])] = lay["lt"]
     return plan
 
 
@@ -642,35 +732,57 @@ def bluestein_tables(n: int, m: int, device: str):
             torch.from_numpy(bluestein_filter(n, m).astype(np.complex64)).to(device))
 
 
+def split_twiddles(m: int, h: int) -> tuple:
+    """``W_m^e`` as two complex64 tables built in float64: ``e < 2^h``, and
+    ``e 2^h`` for ``e < m / 2^h`` (their product is ``W_m^e`` for any
+    ``e < m``)."""
+    lo = np.exp(-2j * np.pi * np.arange(1 << h, dtype=np.float64) / m)
+    hi = np.exp(-2j * np.pi * (np.arange(m >> h, dtype=np.float64) * (1 << h)) / m)
+    return lo.astype(np.complex64), hi.astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_twiddles_on(m: int, h: int, device: str) -> torch.Tensor:
+    """:func:`split_twiddles` on ``device``, the two tables end to end."""
+    return torch.from_numpy(np.concatenate(split_twiddles(m, h))).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _global_entry():
     fn = build.load("rx_frame").rx_frame_global_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(GlobalPlan),
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(GlobalPlan),
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_global(x, hist, taps, dec, fft_len, epilogue, out, frames):
-    """One launch of the global instance into ``out`` (see :func:`rx_frame`),
-    its two scratch buffers allocated here."""
+    """One launch of the global instance into ``out`` (see :func:`rx_frame`)
+    in the route of :func:`global_route`, its scratch allocated here."""
     global launches
     k = taps.shape[-1]
-    plan = global_plan(dec, fft_len, k)
+    lay = global_layout(dec, fft_len, k)
+    plan = global_plan(dec, fft_len, k, global_route(lay, frames) is not lay)
     dev = str(x.device)
     index = x.get_device()
-    bufs = torch.empty((2, frames, plan.m), dtype=torch.complex64, device=x.device)
-    chirp = filt = None
+    buf = twlo = twhi = chirp = filt = None
+    if plan.levels > 1 or plan.sub > 1:
+        buf = torch.empty((frames, plan.m if plan.levels > 1 else 2 * fft_len),
+                          dtype=torch.complex64, device=x.device)
+        twlo = _split_twiddles_on(plan.m, plan.h, dev)
+        twhi = twlo[1 << plan.h:]
     if plan.bluestein:
         chirp, filt = bluestein_tables(fft_len, plan.m, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = _global_entry()(
-        EPILOGUES[epilogue], x.data_ptr(), None if hist is None else hist.data_ptr(),
-        twiddles(plan.m, dev).data_ptr(), device_taps(taps.tobytes(), dev).data_ptr(),
-        None if chirp is None else chirp.data_ptr(), None if filt is None else filt.data_ptr(),
-        bufs[0].data_ptr(), bufs[1].data_ptr(), out.data_ptr(), frames,
-        x.shape[-1] // (dec * fft_len), ctypes.byref(plan), Scale.SN.factor_for(fft_len),
-        index, torch._C._cuda_getCurrentRawStream(index),
+        EPILOGUES[epilogue], x.data_ptr(), ptr(hist),
+        device_taps(taps.tobytes(), dev).data_ptr(),
+        _split_twiddles_on(1 << plan.log2q, plan.hq, dev).data_ptr(),
+        ptr(twlo), ptr(twhi), ptr(chirp), ptr(filt), ptr(buf), out.data_ptr(), frames,
+        x.shape[-1] // (dec * fft_len), int(_direct_taps(taps.tobytes())[1]),
+        ctypes.byref(plan), Scale.SN.factor_for(fft_len), index,
+        torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"rx_frame kernel launch failed: CUDA error {rc}")

@@ -24,10 +24,17 @@ longer full block keeps it in a device scratch that the wrapper allocates
 warp decodes one trellis; the trellises a block (:data:`WARPS`, the first
 that fits) were chosen by ``benches/torch_viterbi_sweep.py``.
 ``"block"``: every other code (more than 256 states, more than 8
-generators), one CTA a trellis, the decisions in the device scratch and
-the path metrics in shared memory up to :data:`BLOCK_SMEM_STATES` states,
-in the scratch past that. :func:`kernel_supports` is then limited by the
-card's memory alone.
+generators), in one of two routes (:func:`block_plan`): up to
+:data:`CLUSTER_MAX_STATES` states a CTA or a cluster of 2-8 CTAs a
+trellis, the path metrics in shared memory split by state range, a thread
+a pair of states, the branch metrics once a step per distinct output
+pattern (:func:`patterns`; per transition past :data:`MAX_PATTERNS`) from
+LLRs staged 32 steps ahead, the decisions in shared memory where a
+trellis's history fits (else the device scratch), a warp's traceback five
+steps a round; past it, or where a CTA's LLRs of many generators do not
+fit its shared memory, one CTA of 256 threads a trellis with the metrics
+and the decisions in the device scratch. :func:`kernel_supports` is then
+limited by the card's memory alone.
 """
 
 from __future__ import annotations
@@ -48,9 +55,21 @@ MAX_SMEM = 232_448  # bytes of shared memory one block may use on an H100
 #: The warp instance's codes: 2-256 states, 1-8 generators.
 WARP_MAX_STATES = 256
 WARP_MAX_GENERATORS = 8
-#: The block instance's path metrics (two buffers of S floats) stay in
-#: shared memory up to this many states, and go to the device scratch past it.
-BLOCK_SMEM_STATES = 16_384
+#: The block instance's cluster route: up to this many states (K <= 18), a
+#: CTA of at most CTA_THREADS threads, clusters of up to CLUSTER_MAX CTAs,
+#: sized against the H100's SMS SMs, each CTA's shared memory within
+#: CTA_SMEM bytes (``csrc/viterbi.cu`` ``viterbi_cta_launch``). Past it the
+#: scratch route keeps the path metrics in the device scratch.
+CLUSTER_MAX_STATES = 131_072
+CTA_THREADS = 512
+CLUSTER_MAX = 8
+SMS = 132
+CTA_SMEM = MAX_SMEM - 1_024
+#: The cluster route's branch metrics: one a distinct output pattern up to
+#: this many patterns (each transition's own past it); the steps of LLRs
+#: staged at once (``kMaxPatterns``, ``kLlrChunk``).
+MAX_PATTERNS = 256
+LLR_CHUNK = 32
 #: Trellises (warps) a block in order of preference; the kernel takes the
 #: first whose histories fit a block.
 WARPS = (4, 2, 1)
@@ -85,19 +104,80 @@ def _mask_words(n: int) -> int:
     return -(-int(n) // 32)
 
 
+def _cta_smem(s_count: int, n: int, q: int, threads: int, lw: int, dec_smem: bool) -> int:
+    """Shared memory bytes of a CTA of the cluster route: two metric
+    buffers of its ``S / q`` states, the decisions where they are kept
+    there, the patterns' metrics, two chunks of LLRs and the warps'
+    minima."""
+    sc = s_count // q
+    return 4 * (2 * sc + (lw * max(1, sc // 32) if dec_smem else 0) + 2 * MAX_PATTERNS
+                + 2 * LLR_CHUNK * n + 2 * q * (threads // 32))
+
+
+@functools.lru_cache(maxsize=None)
+def patterns(polys, k: int) -> tuple:
+    """``(npat, codes)``: the code's distinct output patterns and the
+    cluster route's table of them, uint32 words: where ``npat <=``
+    :data:`MAX_PATTERNS`, each transition row's pattern byte (row ``2 s' +
+    j``, :func:`block_mask_words`' order; padded to whole words), then each
+    pattern's output bits (``[npat, ceil(n / 32)]``); past it the rows'
+    output bits themselves."""
+    rows = block_mask_words(polys, k)
+    pats, inverse = np.unique(rows, axis=0, return_inverse=True)
+    if len(pats) > MAX_PATTERNS:
+        return len(pats), rows
+    ids = np.zeros(-(-rows.shape[0] // 4) * 4, np.uint8)
+    ids[:rows.shape[0]] = inverse.reshape(-1)
+    return len(pats), np.concatenate([ids.view(np.uint32), pats.reshape(-1)])
+
+
+def block_plan(lw: int, n: int, k: int, n_trellis: int, npat=None):
+    """The block instance's cluster route for ``n_trellis`` spans, or None
+    (the scratch route: past :data:`CLUSTER_MAX_STATES` states, or where a
+    CTA's shared memory does not fit at the largest cluster, or a cluster's
+    CTA would keep fewer than 64 states): ``q`` CTAs a trellis (doubled from
+    1 while the metrics do not fit a CTA, or while the trellises' CTAs fill
+    fewer than half the SMs and a CTA keeps 2,048 states), ``threads`` a CTA
+    (a thread a pair of states, and one a pattern's metric, 32-512; ``npat``
+    the code's patterns, at most ``min(2^n, 2 S)`` where it is not given),
+    and ``dec_smem`` (the decisions in shared memory where they fit)."""
+    s_count = 1 << (int(k) - 1)
+    if s_count > CLUSTER_MAX_STATES:
+        return None
+    q = 1
+    while q < CLUSTER_MAX and (_cta_smem(s_count, n, q, CTA_THREADS, lw, False) > CTA_SMEM
+                               or (2 * n_trellis * q <= SMS and s_count // q >= 2048)):
+        q *= 2
+    if (_cta_smem(s_count, n, q, CTA_THREADS, lw, False) > CTA_SMEM
+            or (q > 1 and s_count // q < 64)):
+        return None  # the LLRs of many generators: viterbi_cta_launch would refuse it
+    if npat is None:
+        npat = min(1 << min(int(n), 20), 2 * s_count)
+    threads = max(32, min(CTA_THREADS, s_count // q // 2))
+    if npat > threads and threads < CTA_THREADS:  # a thread a pattern where it pays
+        threads = min(CTA_THREADS, -(-min(npat, MAX_PATTERNS) // 32) * 32)
+    # at the widest CTA: the scratch's size does not depend on npat
+    return dict(q=q, threads=threads,
+                dec_smem=_cta_smem(s_count, n, q, CTA_THREADS, lw, True) <= CTA_SMEM)
+
+
 def _block_scratch(lw: int, n: int, k: int, n_trellis: int) -> tuple:
     """``(decision words, metric floats)`` of the block instance's scratch."""
     s_count = 1 << (int(k) - 1)
     words = n_trellis * lw * max(1, s_count // 32)
-    return words, (n_trellis * 2 * s_count if s_count > BLOCK_SMEM_STATES else 0)
+    plan = block_plan(lw, n, k, n_trellis)
+    if plan is not None:
+        return (0 if plan["dec_smem"] else words), 0
+    return words, n_trellis * 2 * s_count
 
 
 def scratch_words(lw: int, k: int, n_trellis: int, n: int = 2) -> int:
     """uint32 words of the device scratch of ``n_trellis`` spans of ``lw``
     steps of a code of ``n`` generators: for the warp instance, the decision
     histories, or 0 where one trellis's history fits a block's shared memory
-    (the shared route); for the block instance, the decision histories and,
-    past :data:`BLOCK_SMEM_STATES` states, two metric buffers a trellis."""
+    (the shared route); for the block instance, the decision histories
+    where they do not fit the cluster route's shared memory, and, on the
+    scratch route (:func:`block_plan` None), two metric buffers a trellis."""
     if instance(n, k) == "block":
         return sum(_block_scratch(lw, n, k, n_trellis))
     if warps_per_block(lw, k) is not None:
@@ -107,8 +187,11 @@ def scratch_words(lw: int, k: int, n_trellis: int, n: int = 2) -> int:
 
 def _card_bytes(lw: int, n: int, k: int, n_trellis: int) -> int:
     """Device bytes a call takes: its scratch and, for the block instance,
-    the encoder-output table."""
-    table = (2 << (int(k) - 1)) * _mask_words(n) * 4 if instance(n, k) == "block" else 0
+    the encoder-output table (at most ``ceil(n / 32)`` words a transition
+    row, the most :func:`patterns` takes)."""
+    table = 0
+    if instance(n, k) == "block":
+        table = (2 << (int(k) - 1)) * _mask_words(n) * 4
     return 4 * scratch_words(lw, k, n_trellis, n) + table
 
 
@@ -208,10 +291,27 @@ def _block_masks(polys, k: int, index: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _patterns_on(polys, k: int, index: int) -> torch.Tensor:
+    """:func:`patterns`' table on card ``index`` (as int32), copied once."""
+    return torch.from_numpy(patterns(polys, k)[1].view(np.int32)).to(
+        torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("viterbi").viterbi_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cta_entry():
+    fn = build.load("viterbi").viterbi_cta_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -282,19 +382,31 @@ def viterbi_lanes(sym, lw: int, n: int, polys, constraint: int,
 def launch_block(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,
                  end_state0: bool) -> None:
     """One launch of the block instance into ``bits`` (checked arguments; no
-    count), its scratch allocated here."""
+    count) in the route of :func:`block_plan`, its scratch allocated here."""
     n_tr = sym.shape[0]
+    s_count = 1 << (k - 1)
     words, floats = _block_scratch(lw, n, k, n_tr)
-    scratch = torch.empty(words + floats, dtype=torch.int32, device=sym.device)
-    masks = _block_masks(tuple(polys), k, sym.get_device())
+    scratch = torch.empty(words + floats, dtype=torch.int32, device=sym.device) if (
+        words + floats) else None
+    npat = patterns(tuple(polys), k)[0] if s_count <= CLUSTER_MAX_STATES else None
+    plan = block_plan(lw, n, k, n_tr, npat)
+    index = sym.get_device()
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
-        rc = _block_entry()(
-            sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, 1 << (k - 1),
-            int(bool(init_state0)), int(bool(end_state0)), masks.data_ptr(),
-            masks.shape[1], scratch.data_ptr(),
-            scratch.data_ptr() + 4 * words if floats else None, stream,
-        )
+        if plan is not None:
+            rc = _cta_entry()(
+                sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, s_count, int(bool(init_state0)),
+                int(bool(end_state0)), _patterns_on(tuple(polys), k, index).data_ptr(),
+                npat, _mask_words(n), plan["q"], plan["threads"],
+                int(plan["dec_smem"]), None if scratch is None else scratch.data_ptr(), stream,
+            )
+        else:
+            masks = _block_masks(tuple(polys), k, index)
+            rc = _block_entry()(
+                sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, s_count,
+                int(bool(init_state0)), int(bool(end_state0)), masks.data_ptr(),
+                masks.shape[1], scratch.data_ptr(), scratch.data_ptr() + 4 * words, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc}")
 

@@ -6,7 +6,11 @@ parent tree's kernel, at the main path's geometry and ``chip_smoke.py``'s
 For each geometry (dec 4 / fft_len 2048 with real and with complex taps;
 ``chip_smoke.py``'s phase 3 geometries: dec 4 / fft_len 4096, 64, 192,
 3072, 131 and 8192, dec 5 / 30, dec 16 / 2048, dec 8 / 4096, dec 64 / 512,
-dec 1 / 65536; and off the main path, dec 1 / fft_len 2048 with 129 taps,
+dec 1 / 65536, and the global instance's dec 4 / 4,099 and 16,411, dec 2 /
+8,198, dec 1 / 131,072, dec 4 / 262,144 and dec 1 / 4,194,304 (with those,
+the plain twin in the same turns by CUDA events, and ``torch.fft.fft``
+over the block's decimated frames as a yardstick for the FFT alone); and
+off the main path, dec 1 / fft_len 2048 with 129 taps,
 dec 2 / fft_len 1024, dec 8 / fft_len 512 and dec 3 / 1536 with the chain's
 own lowpass) on a block of about 4,194,304 samples with carried history:
 this tree's ``rx_frame`` (the instance of ``ops/cuda/rx_frame.py
@@ -62,6 +66,9 @@ GEOMETRIES = (
     ("F7", 16, 2048, False, None), ("F7", 4, 8192, False, None),
     ("F7", 8, 4096, False, None), ("F7", 64, 512, False, None),
     ("F7", 1, 65536, False, None),
+    ("F7 global", 4, 4099, False, None), ("F7 global", 4, 16411, False, None),
+    ("F7 global", 2, 8198, False, None), ("F7 global", 1, 131072, False, None),
+    ("F7 global", 4, 262144, False, None), ("F7 global", 1, 4194304, False, None),
     ("off path", 1, 2048, False, 129), ("off path", 2, 1024, False, None),
     ("off path", 8, 512, False, None), ("off path", 3, 1536, False, None),
 )
@@ -158,15 +165,28 @@ def main() -> None:
                 sys.exit(f"{label} dec {dec} fft_len {fft_len}: {name} disagrees with the "
                          f"twin ({a})")
             runs[name] = run
+        if plan[0] == "global":
+            runs["twin"] = lambda: rf.rx_frame_reference(x, taps, dec, fft_len, hist, epi)
         times = {name: [] for name in runs}
-        order = [n for n in ("parent", "this tree") if n in runs]
+        order = [n for n in ("parent", "this tree", "twin") if n in runs]
         for r in range(RUNS):
             for name in (order if r % 2 == 0 else order[::-1]):
                 times[name].append(time_cuda(runs[name], ITERS, warmup=3))
         for name in order:
-            dev[name] = kernel_device_ms(runs[name], "rx_frame")
+            if name != "twin":
+                dev[name] = kernel_device_ms(runs[name], "rx_frame")
         out_bytes = (x.numel() // span) * (fft_len * 8 if epi == "spectrum" else fft_len // 4)
         bound = (x.numel() * 8 + out_bytes) / PEAK_BYTES * 1e3
+        if "twin" in runs:
+            frames_in = torch.from_numpy(capture(x.numel() // dec, 4300)).cuda().reshape(
+                -1, fft_len)
+            lib = float(np.median([time_cuda(lambda: torch.fft.fft(frames_in), ITERS)
+                                   for _ in range(RUNS)]))
+            print(f"{label}, dec {dec}, fft_len {fft_len}, {x.numel()} samples: plain twin "
+                  f"median {float(np.median(times['twin'])):.4f} ms (runs "
+                  f"{', '.join(f'{v:.4f}' for v in times['twin'])}; CUDA events, in the same "
+                  f"turns); torch.fft.fft over the {x.numel() // span} decimated frames "
+                  f"(cuFFT, the FFT alone) {lib:.4f} ms [{card}]", flush=True)
         for name in turns:
             inst = turns[name][1]
             if name not in runs:

@@ -15,9 +15,19 @@ a warp is the bench's own ``benches/torch_viterbi_sweep.cu``, built on the
 port's source, which the port does not ship. Then the port's own launch
 (``ops/cuda/viterbi.py WARPS``) and, with ``--parent DIR``, the parent
 tree's ``csrc/viterbi.cu`` (built beside the port's builds, 4 trellises a
-block, its own choice) in turns: parent, this, this, parent. Prints the
+block, its own choice) in turns: parent, this, this, parent. Then the
+block instance's codes (``BLOCK_CASES``: K 10, 15 and 17, K 7 with 16
+generators, 256 spans of 112 steps, 4 at K 17; integer LLRs with ties):
+this tree's ``viterbi_lanes`` and, with ``--parent``, the parent tree's
+(its package imported from DIR, built into DIR's own ``build/``), each
+``torch.equal`` to the twin, then in turns (CUDA events, median of 3 runs of
+10 calls; device time a launch by ``torch.profiler``) beside the operation
+bound: a step's metric of each distinct output pattern (``n`` FMAs each)
+and 6 non-FMA operations a state, each at an FMA's issue slot of the
+67 TFLOP/s FP32 peak (``chip_smoke.py viterbi_bound_of``). Prints the
 compiler's report of this tree's kernel and writes its SASS for 64 states
-to ``build/viterbi_sass.txt`` where ``cuobjdump`` is there.
+to ``build/viterbi_sass.txt`` where ``cuobjdump`` is there. Every line
+carries the card's name and power limit.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 benches/torch_viterbi_sweep.py [--parent DIR]``. Imports the port
@@ -26,6 +36,8 @@ only.
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -45,12 +57,78 @@ POLYS, K = (0o171, 0o133), 7
 CASES = (("full block", 256, 638, True, True), ("windowed spans", 2560, 160, False, False))
 SHAPES = [(w, t) for t in (1, 2) for w in (1, 2, 4, 8)]
 ITERS, RUNS = 50, 3
+# the block instance's codes: (label, K, generators, spans, steps)
+BLOCK_CASES = (
+    ("K=10 rate 1/2", 10, (0o1171, 0o1233), 256, 112),
+    ("K=15 rate 1/2", 15, (0o46321, 0o51271), 256, 112),
+    ("K=17 rate 1/2", 17, (0o234567, 0o312345), 4, 112),
+    ("K=7 rate 1/16", 7, tuple(range(0o101, 0o101 + 32, 2)), 256, 112),
+)
+PEAK_FP32 = 67e12  # H100 SXM, NVIDIA data sheet
+
+
+def parent_viterbi(root: str):
+    """The parent tree's ``ops/cuda/viterbi`` module: its package imported
+    from ``root`` as ``parent_port`` (its kernels build into ``root``'s own
+    ``build/``)."""
+    pkg = Path(root).resolve() / "aether_primitives_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_port.ops.cuda.viterbi")
+
+
+def block_cases(parent_root, card: str) -> None:
+    """The block instance's codes, this tree against the parent's in turns."""
+    pvk = parent_viterbi(parent_root) if parent_root else None
+    rng = np.random.default_rng(2027)
+    for label, k, polys, n_tr, lw in BLOCK_CASES:
+        n = len(polys)
+        sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
+                               .astype(np.float32)).cuda()
+        want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, False, False)
+        turns = {"this tree": vk}
+        if pvk is not None:
+            turns = {"parent": pvk, **turns}
+        runs = {}
+        for name, mod in turns.items():
+            run = (lambda m: lambda: m.viterbi_lanes(sym, lw, n, polys, k, False, False))(mod)
+            got = run()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                sys.exit(f"{label}: {name}'s kernel disagrees with the twin")
+            runs[name] = run
+        names = list(runs)
+        times = {name: [] for name in names}
+        for r in range(RUNS + 1):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                times[name].append(time_cuda(runs[name], 10))
+        s_count = 1 << (k - 1)
+        npat = vk.patterns(polys, k)[0]
+        # the patterns' metrics (n FMAs each) and 6 non-FMA operations a
+        # state, each at an FMA's issue slot (chip_smoke.py viterbi_bound_of)
+        bound = 2 * n_tr * lw * (npat * n + 6 * s_count) / PEAK_FP32 * 1e3
+        plan = vk.block_plan(lw, n, k, n_tr)
+        for r in range(2):  # the profiler in turns too
+            for name in (names if r % 2 == 0 else names[::-1]):
+                print(f"block {label} [{n_tr} x {lw}], in turns: {name} "
+                      f"{device(runs[name], 'viterbi_')} [{card}]", flush=True)
+        for name in names:
+            ms = float(np.median(times[name]))
+            print(f"block {label} [{n_tr} x {lw}]: {name}"
+                  f"{f' (cluster route {plan})' if name == 'this tree' else ''} median "
+                  f"{ms:.5f} ms (runs {', '.join(f'{v:.5f}' for v in times[name])}; CUDA "
+                  f"events, 10 calls); bound {bound:.5f} ms (operations: {npat} patterns x n "
+                  f"FMAs + 6 S a step at an FMA's slot) "
+                  f"[{card}]", flush=True)
 
 
 def parent_launcher(root: str, sym, bits, lw, init0, end0):
     """The parent tree's kernel (entry ``viterbi_launch(sym, bits, n_trellis,
-    lw, n, s_count, init_state0, end_state0, warps, out_mask, stream)``) at
-    4 trellises a block."""
+    lw, n, s_count, init_state0, end_state0, warps, out_mask, scratch,
+    stream)``, the histories in shared memory) at 4 trellises a block."""
     src = Path(root) / "aether_primitives_tpu_torch" / "csrc" / "viterbi.cu"
     out = build.BUILD_DIR / "sweep-parent-viterbi.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -60,13 +138,13 @@ def parent_launcher(root: str, sym, bits, lw, init0, end0):
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     fn = ctypes.CDLL(str(out)).viterbi_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     masks = vk._out_masks(POLYS, K)
 
     def run():
         if fn(sym.data_ptr(), bits.data_ptr(), sym.shape[0], lw, 2, 1 << (K - 1), int(init0),
-              int(end0), 4, masks.ctypes.data, torch.cuda.current_stream().cuda_stream):
+              int(end0), 4, masks.ctypes.data, None, torch.cuda.current_stream().cuda_stream):
             sys.exit("parent viterbi launch failed")
     return run
 
@@ -195,6 +273,7 @@ def main() -> None:
             print(f"{label}, in turns: {name} median {float(np.median(got[name])):.5f} ms "
                   f"(runs {', '.join(f'{v:.5f}' for v in got[name])}; CUDA events) [{card}]",
                   flush=True)
+    block_cases(args.parent, card)
 
 
 if __name__ == "__main__":

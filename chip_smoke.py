@@ -83,7 +83,8 @@ in thirty-one phases:
    fft_len 262,144 and dec 1, fft_len 4,194,304 (packed)),
    each through the chain's two-block streaming gate with one
    launch a step, against the plain twin, and timed on a 4M block beside
-   its byte bound;
+   its byte bound (the global instance's also beside ``torch.fft.fft`` over
+   the block's decimated frames, a yardstick for the FFT alone);
 4. the RX chain's two-block streaming gate, counting kernel launches;
 5. CUDA-event timings of the RX frame kernel, the plain version, and the RX
    chain's kernel and plain paths; the kernel's device time
@@ -107,8 +108,10 @@ in thirty-one phases:
    windowed soft decode 96/64), ``torch.equal``; and a K=7 full block of
    65,536 steps, past the shared-memory history (the device scratch), one
    launch, ``torch.equal`` to the twin; then the codes past the decoders'
-   earlier instances (``decoder_reach_phase``): Viterbi at K 2, 10, 12, 15
-   and 17 and K 7 with 9 and 16 generators, full block and windowed, and
+   earlier instances (``decoder_reach_phase``): Viterbi at K 2, 10, 12, 15,
+   17 and 19 (K 19 the block instance's scratch route, past the cluster
+   route's 131,072 states) and K 7 with 9 and 16 generators, full block and
+   windowed, and
    the windowed BCJR at S 2, 3, 128, 256 and 1,024 (``conv_decode_soft``
    where S is a conv code's), each ``torch.equal`` to its twin with one
    launch a call, and each new instance timed beside its bound;
@@ -438,6 +441,7 @@ F7_GEOMETRIES = ((4, 4096, True), (4, 64, True), (4, 192, True), (4, 3072, True)
 # conv_decode_soft; S 3 by random tables)
 VITERBI_REACH = {(2, 2): (0o3, 0o1), (10, 2): (0o1171, 0o1233), (12, 2): (0o4335, 0o5723),
                  (15, 2): (0o46321, 0o51271), (17, 2): (0o234567, 0o312345),
+                 (19, 2): (0o1351753, 0o1746321),
                  (7, 9): (0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o173),
                  (7, 16): tuple(range(0o101, 0o101 + 32, 2))}
 BCJR_REACH = {2: (0o3, 0o1), 128: (0o247, 0o371), 256: (0o561, 0o753),
@@ -497,6 +501,17 @@ def bcjr_bound_of(lw: int, n: int, s_count: int, classes: bool) -> dict:
     at its FP32 peak); the bytes: two spans in, the LLRs out."""
     ops = 16 * s_count + 21 if classes else 28 * s_count - 3
     return bound(2 * lw * n * ops, 3 * lw * n * 4)
+
+
+def viterbi_bound_of(n_tr: int, lw: int, n: int, s_count: int, npat: int) -> dict:
+    """The Viterbi kernel's bound: a step of a trellis needs the metric of
+    each of the code's ``npat`` distinct output patterns (``n`` FMAs each)
+    and 6 FP32 operations a state (the two candidates' sums, their
+    comparison, the select, the subtraction of the step's minimum and the
+    running minimum), none an FMA, so each an FMA's issue slot (twice the
+    data sheet's count at its FP32 peak); the bytes: the LLRs in, a uint8
+    bit a step out."""
+    return bound(2 * n_tr * lw * (npat * n + 6 * s_count), n_tr * lw * (4 * n + 1))
 
 
 def paired_device_ms(run_a, run_b, calls: int = 20):
@@ -688,12 +703,13 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
 def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
     """Phase 7's codes past the decoders' earlier instances: Viterbi at
     K 2 (the warp instance, lanes idle), K 10, 12, 15 and 17 and K 7 with 9
-    and 16 generators (the block instance; past 16,384 states its metrics in
-    the scratch), full block and windowed; the windowed BCJR at S 2 (the
+    and 16 generators (the block instance: a CTA or, K 17 over 4 spans, a
+    cluster of 8 a trellis), full block and windowed; the windowed BCJR at S 2 (the
     column instance), 3 (random tables), 128, 256 and 1,024 (the block
     instance), through ``conv_decode_soft`` where S is a conv code's. Each
     ``torch.equal`` to its twin with one launch a call, then timed (CUDA
-    events; twin beside it) at a windowed shape beside its bound. Returns the
+    events; twin beside it; Viterbi K 2, 10, 15 and 16 generators at 256 x
+    112, K 17 at 4 x 112) beside its bound. Returns the
     entries of the viterbi and bcjr kernels' ``instances``."""
     import numpy as np
     import torch
@@ -737,23 +753,28 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
     for (k, n), polys in VITERBI_REACH.items():
         inst = vk.instance(n, k)
         b_sz, n_bits = (16, 300) if k < 15 else (2, 60)
+        if inst == "block" and (vk.block_plan(n_bits + k - 1, n, k, b_sz) is None) != (k > 18):
+            fail(f"viterbi K={k} rate 1/{n}: the block instance's route is not the one "
+                 "phase 7 checks (the cluster route to K 18, the scratch route past it)")
         x = llrs(polys, k, b_sz, n_bits)
         for kw in ({}, {"window": 64, "guard": 48}):
             once(f"viterbi K={k} rate 1/{n} ({inst} instance) "
                  f"{'windowed 64/48' if kw else 'full block'} {tuple(x.shape)}", "viterbi",
                  lambda: fec.viterbi_decode(x, polys, k, **kw),
                  lambda: fec.viterbi_decode(x, polys, k, backend="reference", **kw))
-        if k in (2, 10, 17) or n == 16:  # one timed shape an instance and state range
-            lw, n_tr = (112, 256) if k < 15 else (112, 4)
+        if k in (2, 10, 15, 17) or n == 16:  # one timed shape an instance and state range
+            lw, n_tr = (112, 4) if k == 17 else (112, 256)
             sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
                                    .astype(np.float32)).to(dev)
             s_count = 1 << (k - 1)
-            b = bound(n_tr * lw * s_count * (4 * n + 3), sym.numel() * 4 + n_tr * lw)
+            npat = vk.patterns(polys, k)[0]
+            b = viterbi_bound_of(n_tr, lw, n, s_count, npat)
             out["viterbi"][f"K={k} n={n} {inst}"] = timed(
                 f"viterbi K={k} rate 1/{n} ({inst} instance), {n_tr} spans of {lw} steps",
                 lambda: vk.viterbi_lanes(sym, lw, n, polys, k, False, False),
                 lambda: vk.viterbi_lanes_reference(sym, lw, n, polys, k, False, False), b,
-                f"{s_count} states x (4 n + 3) FP32 operations a step, LLRs in, bits out")
+                f"{npat} patterns x n FMAs and {s_count} states x 6 FP32 operations a "
+                "step, LLRs in, bits out")
     window, guard = CCSDS_SOFT
     lw_b = window + 2 * guard
     for s_count in (2, 3, 128, 256, 1024):
@@ -1206,9 +1227,7 @@ def main() -> None:
               f"twin median {kt[kernel]['plain']:.2f} ms (runs "
               f"{', '.join(f'{v:.2f}' for v in runs['plain'])}; mean of 2 calls), same "
               f"spans, CUDA events [{card}]")
-    # per step and state: two candidates of 2n ops, the min, the state minimum, the
-    # subtraction; bytes: the LLRs in, one uint8 bit per step out
-    vit_bound = bound(BURSTS * lw_v * 64 * (4 * 2 + 3), sym_v.numel() * 4 + BURSTS * lw_v)
+    vit_bound = viterbi_bound_of(BURSTS, lw_v, 2, 64, vk.patterns(K7[0], 7)[0])
     bcjr_bound = bcjr_bound_of(lw_t, cols_t, 8, classes=True)
     # The chain floor of the meet instance, an estimate and not a
     # measurement: each warp walks Lw dependent steps (forward and backward
@@ -1258,7 +1277,7 @@ def main() -> None:
         "bcjr": lambda: bk.bcjr_windowed_llr(*spans_c, lw_c, k7_tables),
     }
     ccsds_bounds = {
-        "viterbi": bound(n_vit * lw_cv * 64 * (4 * 2 + 3), n_vit * lw_cv * (2 * 4 + 1)),
+        "viterbi": viterbi_bound_of(n_vit, lw_cv, 2, 64, vk.patterns(K7[0], 7)[0]),
         "bcjr": bcjr_bound_of(lw_c, spans_c[0].shape[1], 64, classes=False),
     }
     # the same function with four branch-metric classes, as the conv tables factor
@@ -1477,6 +1496,7 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
     import numpy as np
     import torch
 
+    from aether_primitives_tpu_torch import cli
     from aether_primitives_tpu_torch.cli import capture, gate, kernel_device_ms, stream_blocks
     from aether_primitives_tpu_torch.models import RxChain, RxChainConfig
     from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
@@ -1503,7 +1523,9 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
         elif instance == "global":
             glay = rf.global_layout(dec, fft_len, k)
             shape = (f"one cooperative launch, {'Bluestein over ' if glay['bluestein'] else ''}"
-                     f"{glay['m']}-point Stockham passes {glay['rad']}")
+                     f"a {glay['m']}-point FFT, "
+                     + ("whole frames a tile" if len(glay["lp"]) == 1 else
+                        f"levels of 2^{glay['lp']} points through a scratch"))
         else:
             lay = rf.general_layout(dec, fft_len, k)
             shape = (f"{lay['threads']} threads, {lay['fpc']} frame(s) a CTA, radices "
@@ -1550,6 +1572,12 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
                                                            n1),
                              iters=(20, 3), runs=2)
         dev_ms = kernel_device_ms(run, "rx_frame") if dev.type == "cuda" else None
+        lib_ms = None
+        if instance == "global":  # a yardstick for the FFT alone: cuFFT over the frames
+            frames_in = torch.from_numpy(capture(xt.shape[0] // dec, 3500)).to(dev).reshape(
+                -1, fft_len)
+            lib_ms = float(np.median([cli.time_cuda(lambda: torch.fft.fft(frames_in), 20)
+                                      for _ in range(2)]))
         out_bytes = (xt.shape[0] // span) * (fft_len * 8 if epi == "spectrum" else
                                              fft_len // 4)
         b = bound(4.0 * (xt.shape[0] // dec) * k + 5.0 * (xt.shape[0] // dec)
@@ -1559,11 +1587,14 @@ def rx_frame_instances(card: str, device: str = "cuda", n_check: int = 1 << 18,
               f"device {fmt_ms(dev_ms)} ms a launch (torch.profiler), "
               f"plain twin median {t['plain']:.4f} ms (runs "
               f"{', '.join(f'{v:.4f}' for v in runs['plain'])}); CUDA events; bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})"
+              + ("" if lib_ms is None else f"; torch.fft.fft over the {xt.shape[0] // span} "
+                 f"decimated frames (cuFFT, a yardstick for the FFT alone) {lib_ms:.4f} ms")
+              + f" [{card}]", flush=True)
         out[f"{instance} dec {dec} fft_len {fft_len}"] = {
             "n1": n1, "launches": counts["rx_frame"], "max_abs_err": worst,
             "ms": t["kernel"], "device_ms": dev_ms, "plain_ms": t["plain"],
-            "samples": int(xt.shape[0]), **b,
+            "library_ms": lib_ms, "samples": int(xt.shape[0]), **b,
         }
     return out
 

@@ -18,7 +18,8 @@ import torch
 
 from aether_primitives_tpu_torch.cli import numpy_reference_spectra
 from aether_primitives_tpu_torch.evm import evm_rms_db
-from aether_primitives_tpu_torch.models.modem import _default_lowpass
+from aether_primitives_tpu_torch.models import RxChainConfig
+from aether_primitives_tpu_torch.models.modem import _chain_taps, _default_lowpass
 from aether_primitives_tpu_torch.ops.fft import Scale
 from aether_primitives_tpu_torch.ops.cuda import rx_frame as rf
 
@@ -245,16 +246,21 @@ def test_kernel_plan_refuses_frames_beyond_shared_memory():
     assert rf.kernel_plan(8, 3750) == ("chunked", None)  # 235 KB a frame: in chunks
     assert rf.kernel_plan(4, 1 << 16) == ("cluster", None)  # 8 CTAs of 8,192 points
     # past shared memory the global instance: 16,384 points a CTA of a
-    # cluster of 8 (a power of two: its own FFT), a prime past 4,096 points
-    # (no split: Bluestein over a power of two >= 2 n - 1)
+    # cluster of 8 (a power of two: its own FFT, two levels of 64 x 2,048), a
+    # prime past 4,096 points (no split: Bluestein over a power of two >= 2 n
+    # - 1, one scratch buffer of m points a frame past a tile)
     assert rf.kernel_plan(1, 1 << 17) == ("global", None)
-    assert rf.global_layout(1, 1 << 17) == dict(n=1 << 17, m=1 << 17, bluestein=False, dec=1,
-                                                k=1, rad=[8, 8, 8, 8, 8, 4])
+    lay = rf.global_layout(1, 1 << 17)
+    assert {key: lay[key] for key in ("n", "m", "bluestein", "dec", "k", "lp", "lt")} == dict(
+        n=1 << 17, m=1 << 17, bluestein=False, dec=1, k=1, lp=[6, 11], lt=[8, 3])
     assert rf.kernel_plan(1, 16411) == ("global", None)
     lay = rf.global_layout(1, 16411)
-    assert lay["bluestein"] and lay["m"] == 65536 and lay["rad"] == [8] * 5 + [2]
-    assert rf.global_bytes(lay, 3) == 8 * (2 * 3 * 65536 + 65536 + 16411 + 65536)
-    # the limit is the card's memory: 3^20 points take 2^33 a frame, 137 GB of scratch
+    assert lay["bluestein"] and lay["m"] == 65536 and lay["lp"] == [5, 11]
+    assert rf.global_bytes(lay, 3) == 8 * (3 * 65536 + 64 + 32 + 256 + 256 + 16411 + 65536)
+    lay = rf.global_layout(1, 4099)  # m 16,384: whole frames a tile, no scratch
+    assert lay["lp"] == [14] and rf.global_bytes(lay, 3) == 8 * (128 + 128 + 4099 + 16384)
+    # the limit is the card's memory: 3^20 points take m = 2^33 a frame, 69 GB
+    # of scratch beside a filter spectrum as large
     assert rf.kernel_plan(1, 3 ** 20) is None
     assert rf.kernel_plan(4, 3500, n_taps=1500) == ("chunked", 125)  # any tap count
     lay = rf.general_layout(64, 512, 32769)  # K - 1 = span: taps in staged ranges
@@ -752,40 +758,216 @@ def test_general_model_matches_float64_and_the_twin(dec, n_fft, ntaps):
 
 # --------------------------------------------- the global instance on the CPU
 #
-# A numpy model of ``csrc/rx_frame.cu rx_frame_global_kernel``: the FIR at
-# the frame's outputs, times Bluestein's chirp (``rf.bluestein_chirp``, its
-# square reduced mod 2 n in integers) where fft_len is no power of two; the
-# m-point Stockham passes of the kernel (``_stockham``, radix 8 then 4 or 2,
-# the float32 table W_m); the chirp filter's spectrum (over m), conjugated,
-# the same passes again, conjugated, times the chirp; the Scale.SN factor.
-# Held against the float64 chain and the plain twin at the chain's bars.
+# A numpy model of ``csrc/rx_frame.cu rx_frame_global_kernel``'s schedule:
+# the FIR at the frame's outputs, times Bluestein's chirp
+# (``rf.bluestein_chirp``, its square reduced mod 2 n in integers) where
+# fft_len is no power of two; tiles of T sequences of P points (point r of
+# sequence c at r T + c), each sequence's in-place radix-8/4/2 DIF (natural
+# in, digit-reversed out, ``_difpos``) or DIT with the float32 table W_Q.
+# One level (m <= a tile): whole frames a tile, the FFT, the filter's
+# spectrum, conjugated, the DIT, conjugated, times the chirp. More levels:
+# the four-step split of ``rf.global_levels`` through a scratch of m points
+# a frame, each level's tiles addressed as ``_tile_at`` (the kernel's
+# ``tile_at``), the twiddle W_m^{k c L} from ``rf.split_twiddles``, the last
+# level's bins k_0 + P_0 k_1 + ..., Bluestein's levels run back by DIT. Held
+# against the DFT, the float64 chain and the plain twin at the chain's bars,
+# also at small tiles that give small m two and three levels.
 
 
-def global_model(x, taps, dec, n, history=None, epilogue="spectrum"):
+def _difpos(k, lp):
+    """The slot of bin ``k`` after the DIF of a ``2^lp``-point sequence."""
+    k = np.asarray(k, np.int64)
+    pos, b = np.zeros_like(k), lp
+    while b > 0:
+        lr = min(3, b)
+        pos, k, b = pos + ((k & ((1 << lr) - 1)) << (b - lr)), k >> lr, b - 3
+    return pos
+
+
+def _twq(log2q):
+    """W_Q^e for every e < Q as the kernel forms it: the product of the two
+    float32 tables of :func:`rf.split_twiddles`."""
+    hq = (log2q + 1) // 2
+    lo, hi = rf.split_twiddles(1 << log2q, hq)
+    e = np.arange(1 << log2q)
+    return lo[e & ((1 << hq) - 1)] * hi[e >> hq]
+
+
+def _tile_fft(t, lp, lt, tws, log2q, dit):
+    """The kernel's DIF (or DIT) of every tile ``t[tiles, P T]`` in place
+    (``tws``: :func:`_twq`)."""
+    stages = (lp + 2) // 3
+    for i in range(stages):
+        b = lp - 3 * (stages - 1 - i if dit else i)
+        lr = min(3, b)
+        rdx, lq = 1 << lr, b - lr
+        bi = np.arange(1 << (lp + lt - lr))
+        c, rest = bi & ((1 << lt) - 1), bi >> lt
+        j = rest & ((1 << lq) - 1)
+        r0 = ((rest >> lq) << b) + j
+        idx = [((r0 + (q << lq)) << lt) + c for q in range(rdx)]
+        w = [tws[(j << (log2q - b)) * q] for q in range(rdx)]
+        v = [t[:, ix] for ix in idx]
+        if dit:
+            v = _dft([v[0]] + [v[q] * w[q] for q in range(1, rdx)])
+        else:
+            v = _dft(v)
+            v = [v[0]] + [v[q] * w[q] for q in range(1, rdx)]
+        for q in range(rdx):
+            t[:, idx[q]] = v[q]
+    return t
+
+
+def _tile_at(lps, lts, i, tl, m):
+    """Level ``i``'s tiles ``tl``: frame, base, row and column strides, the
+    first column, the last level's first bin, log2 s and log2 L."""
+    last, lp, lt = len(lps) - 1, lps[i], lts[i]
+    ls, ll = sum(lps[i + 1:]), sum(lps[:i])
+    tpf = m >> (lp + lt)
+    f, rem = tl // tpf, tl % tpf
+    if i < last:
+        c0 = (rem & ((1 << (ls - lt)) - 1)) << lt
+        return f, f * m + ((rem >> (ls - lt)) << (lp + ls)) + c0, 1 << ls, 1, c0, 0, ls, ll
+    lbs = ll - lps[0]
+    g, rest = rem >> lbs, rem & ((1 << lbs) - 1)
+    dr, tmp, sh = np.zeros_like(rest), rest, lbs
+    for lev in range(last - 1, 0, -1):
+        sh -= lps[lev]
+        dr, tmp = dr | ((tmp & ((1 << lps[lev]) - 1)) << sh), tmp >> lps[lev]
+    return (f, f * m + ((((g << lt) << lbs) + rest) << lp), 1, 1 << (lbs + lp), 0,
+            (g << lt) + (dr << lps[0]), ls, ll)
+
+
+def _global_levels(buf, lay, n, frames, chirp=None, filt=None):
+    """The levels of the global instance over the scratch ``buf[frames m]``
+    (the FIR's outputs, times the chirp, at t < n): the spectra ``[frames,
+    n]`` (Bluestein: conj(z_t) w[t])."""
+    lps, lts, m = lay["lp"], lay["lt"], lay["m"]
+    last = len(lps) - 1
+    tws = _twq(lay["log2q"])
+    lo, hi = rf.split_twiddles(m, lay["h"])
+    tw_m = lambda e: lo[e & ((1 << lay["h"]) - 1)] * hi[e >> lay["h"]]  # noqa: E731
+    spec = np.zeros(frames * n, np.complex64)
+    for i in list(range(last + 1)) + (list(range(last - 1, -1, -1)) if filt is not None else []):
+        inverse = filt is not None and i < last and lay.get("_fwd_done", False)
+        lp, lt = lps[i], lts[i]
+        e = np.arange(1 << (lp + lt))
+        f, base, rs, cs, c0, binbase, ls, ll = _tile_at(
+            lps, lts, i, np.arange((frames * m) >> (lp + lt))[:, None], m)
+        kb, c = e >> lt, e & ((1 << lt) - 1)
+        if inverse:  # the twiddle, then the DIT
+            t = np.zeros((f.shape[0], e.size), np.complex64)
+            t[:, (_difpos(kb, lp) << lt) + c] = buf[base + kb * rs + c] * tw_m(
+                (kb * (c0 + c)) << ll)
+            _tile_fft(t, lp, lt, tws, lay["log2q"], True)
+            if i > 0:
+                buf[base + kb * rs + c] = t[:, e]
+            else:
+                q = (kb << ls) + c0 + c
+                keep = np.broadcast_to(q < n, t.shape)
+                fq = np.broadcast_to(f * n + q, t.shape)
+                z = np.conj(t[:, e])
+                spec[fq[keep]] = (z * chirp[np.minimum(q, n - 1)])[keep]
+            continue
+        r = kb if i < last else e & ((1 << lp) - 1)
+        cc = c if i < last else e >> lp
+        pos = base + r * rs + cc * cs
+        t = np.zeros((f.shape[0], e.size), np.complex64)
+        t[:, (r << lt) + cc] = np.where((i == 0) & (pos - f * m >= n), 0, buf[pos % buf.size])
+        _tile_fft(t, lp, lt, tws, lay["log2q"], False)
+        slot = (_difpos(kb, lp) << lt) + c
+        if i < last:
+            buf[base + kb * rs + c] = t[:, slot] * tw_m((kb * (c0 + c)) << ll)
+        elif filt is None:
+            spec[f * n + binbase + c + (kb << ll)] = t[:, slot]
+        else:
+            t[:, slot] = np.conj(t[:, slot] * filt[binbase + c + (kb << ll)])
+            _tile_fft(t, lp, lt, tws, lay["log2q"], True)
+            rr, cc = e & ((1 << lp) - 1), e >> lp
+            buf[base + rr + cc * cs] = t[:, (rr << lt) + cc]
+            lay = dict(lay, _fwd_done=True)
+    return spec.reshape(frames, n)
+
+
+def global_model(x, taps, dec, n, history=None, epilogue="spectrum", lay=None):
+    """One block row through the global instance's schedule (``lay``, the
+    plan's by default): SN-scaled spectra ``[nsym, n]`` or packed bytes."""
     x = np.asarray(x, np.complex64)
     taps = np.asarray(taps, np.complex64)
     k, span = taps.size, dec * n
-    lay = rf.global_layout(dec, n, k)
+    lay = lay or rf.global_layout(dec, n, k)
     m = lay["m"]
     xe = np.concatenate([np.zeros(k - 1, np.complex64) if history is None
                          else np.asarray(history, np.complex64), x])
     nsym = x.size // span
-    buf = np.zeros((nsym, m), np.complex64)
+    y = np.zeros((nsym, n), np.complex64)
     for f in range(nsym):
         pos = k - 1 + f * span + dec * np.arange(n)
-        buf[f, :n] = sum(taps[t] * xe[pos - t] for t in range(k))
-    tw = rf.twiddles(m, "cpu").numpy()
+        y[f] = sum(taps[t] * xe[pos - t] for t in range(k))
+    chirp = filt = None
     if lay["bluestein"]:
         chirp = rf.bluestein_chirp(n).astype(np.complex64)
         filt = rf.bluestein_filter(n, m).astype(np.complex64)
-        buf[:, :n] *= chirp
-        buf = np.conj(_stockham(buf, tw) * filt)
-        spec = np.conj(_stockham(buf, tw))[:, :n] * chirp
+        y = y * chirp
+    if lay.get("sub", 1) > 1:  # a frame a CTA, its sub-transforms in turn
+        spec = _global_sub(y, lay, n, chirp, filt)
+    elif len(lay["lp"]) == 1:  # whole frames a tile
+        lp, lt = lay["lp"][0], lay["lt"][0]
+        tws = _twq(lay["log2q"])
+        tiles = -(-nsym // (1 << lt))
+        t = np.zeros((tiles, m << lt), np.complex64)
+        fr = np.arange(tiles * (1 << lt))
+        o = np.arange(n)
+        tl, c = fr[:nsym, None] >> lt, fr[:nsym, None] & ((1 << lt) - 1)
+        t[tl, (o << lt) + c] = y
+        _tile_fft(t, lp, lt, tws, lay["log2q"], False)
+        kb = np.arange(m)
+        if lay["bluestein"]:
+            slot = (_difpos(kb, lp) << lt) + c
+            t[tl, slot] = np.conj(t[tl, slot] * filt)
+            _tile_fft(t, lp, lt, tws, lay["log2q"], True)
+            spec = np.conj(t[tl, (o << lt) + c]) * chirp
+        else:
+            spec = t[tl, (_difpos(kb, lp) << lt) + c]
     else:
-        spec = _stockham(buf, tw)
+        buf = np.zeros(nsym * m, np.complex64)
+        buf.reshape(nsym, m)[:, :n] = y
+        spec = _global_levels(buf, lay, n, nsym, chirp, filt)
     if epilogue == "spectrum":
         return spec * np.float32(Scale.SN.factor_for(n))
     return rf.pack_bits(rf.sign_bits(torch.from_numpy(spec), epilogue)).numpy()
+
+
+def _global_sub(y, lay, n, chirp, filt):
+    """The ``sub`` route over the frames' FIR outputs ``y[f, t]`` (times the
+    chirp): sub-transform u of P points holds sum_j x[t + P j] W_m^{u (t + P
+    j)}, its DIF is X[q k + u]; times the filter's spectrum, conjugated, the
+    DIT gives z_u; the spectra are conj(sum_u W_m^{u t} z_u[t mod P]) w[t]."""
+    lp, m = lay["lp"][0], lay["m"]
+    p_, q = 1 << lp, m >> lp
+    tws = _twq(lay["log2q"])
+    lo, hi = rf.split_twiddles(m, lay["h"])
+    tw_m = lambda e: lo[e & ((1 << lay["h"]) - 1)] * hi[e >> lay["h"]]  # noqa: E731
+    t = np.arange(n)
+    acc = np.zeros(y.shape, np.complex64)
+    for u in range(q):
+        tile = np.zeros((y.shape[0], p_), np.complex64)
+        for j in range(0, n, p_):  # the blocks of x the tile folds
+            tt = t[j:j + p_]
+            tile[:, tt - j] += y[:, tt] if u == 0 else y[:, tt] * tw_m((u * tt) % m)
+        _tile_fft(tile, lp, 0, tws, lay["log2q"], False)
+        slot = _difpos(np.arange(p_), lp)
+        tile[:, slot] = np.conj(tile[:, slot] * filt[q * np.arange(p_) + u])
+        _tile_fft(tile, lp, 0, tws, lay["log2q"], True)
+        z = tile[:, t & (p_ - 1)]
+        acc = acc + (z if u == 0 else z * tw_m((u * t) % m))
+    return np.conj(acc) * chirp
+
+
+def _small_tiles(lay, tile=256, level=32):
+    """``lay`` with the levels of a small tile: two or three levels at small m."""
+    lps, lts = rf.global_levels(lay["m"], tile, level)
+    return dict(lay, lp=lps, lt=lts, log2q=max(lps))
 
 
 def test_bluestein_chirp_reduces_the_square_in_integers():
@@ -806,35 +988,103 @@ def test_bluestein_chirp_reduces_the_square_in_integers():
     assert np.abs(z[:n] * rf.bluestein_chirp(n) - np.fft.fft(y)).max() < 1e-9 * np.sqrt(n)
 
 
-@pytest.mark.parametrize("m", [16, 2048, 16384, 1 << 17])
-def test_global_model_fft_is_the_dft(m):
-    # the kernel's passes for every power of two it runs: radix 8, then 4 or 2
-    assert rf.radices(m) == [8] * ((m.bit_length() - 1) // 3) + (
-        [1 << (m.bit_length() - 1) % 3] if (m.bit_length() - 1) % 3 else [])
-    x = _signal(m, m).reshape(1, m)
-    got = _stockham(x, rf.twiddles(m, "cpu").numpy())
-    assert evm_rms_db(got, np.fft.fft(x.astype(np.complex128))) <= -120
+@pytest.mark.parametrize("m,tile,level", [
+    (16, 16384, 2048), (2048, 16384, 2048), (16384, 16384, 2048), (1 << 17, 16384, 2048),
+    (1 << 10, 256, 32), (1 << 12, 256, 32), (1 << 14, 256, 32), (1 << 14, 1024, 32),
+])
+def test_global_model_fft_is_the_dft(m, tile, level):
+    # the levels of every split the planner makes: one tile of whole frames,
+    # a = b = 32 with 8-row tiles as a 4M frame's 2,048 x 2,048, three levels
+    lps, lts = rf.global_levels(m, tile, level)
+    assert sum(lps) == m.bit_length() - 1 and all(p_ + t_ <= tile.bit_length() - 1
+                                                   for p_, t_ in zip(lps, lts))
+    # past a tile: whole bytes of bins in the last level's rows, k_0 over them
+    assert len(lps) == 1 or (lps[-1] == level.bit_length() - 1 and lps[0] >= lts[-1] >= 3
+                             and 1 << (lps[-1] + lts[-1]) == tile)
+    lay = dict(m=m, lp=lps, lt=lts, log2q=max(lps), h=m.bit_length() // 2)
+    x = _signal(2 * m, m).reshape(2, m)
+    if len(lps) == 1:
+        t = np.zeros((1, m << lts[0]), np.complex64)
+        t[0, (np.arange(m) << lts[0])] = x[0]
+        _tile_fft(t, lps[0], lts[0], _twq(lps[0]), lps[0], False)
+        got = t[:, _difpos(np.arange(m), lps[0]) << lts[0]]
+        x = x[:1]
+    else:
+        got = _global_levels(x.reshape(-1).copy(), lay, m, 2)
+    assert evm_rms_db(got, np.fft.fft(x.astype(np.complex128), axis=-1)) <= -120
 
 
-@pytest.mark.parametrize("dec,n_fft,ntaps", [(4, 4099, 65), (2, 8198, 33), (1, 131072, 17),
-                                             (1, 3000, 17)])
-def test_global_model_matches_float64_and_the_twin(dec, n_fft, ntaps):
-    # two blocks of two frames, the second with the first's tail as history
+@pytest.mark.parametrize("dec,n_fft", [(4, 4099), (2, 8198), (4, 16411), (1, 131072),
+                                       (4, 262144), (1, 4194304)])
+def test_global_plan_of_each_phase3_geometry(dec, n_fft):
+    # the planner's split: whole frames on the chip up to 16,384 points,
+    # else 2,048-point rows of 8-row tiles under columns of up to 2,048
+    taps = _chain_taps(RxChainConfig(fft_len=n_fft, decimation=dec))
+    lay = rf.global_layout(dec, n_fft, taps.size)
+    m = lay["m"]
+    assert rf.kernel_plan(dec, n_fft, None, taps.size)[0] == "global"
+    want = {4099: ([14], [0]), 8198: ([4, 11], [10, 3]), 16411: ([5, 11], [9, 3]),
+            131072: ([6, 11], [8, 3]), 262144: ([7, 11], [7, 3]),
+            4194304: ([11, 11], [3, 3])}[n_fft]
+    assert (lay["lp"], lay["lt"]) == want
+    assert lay["win"] > 0 and lay["kt"] == taps.size  # the FIR staged, taps in one range
+    assert lay["twoff"] == (lay["tile"] + 2 * lay["win"] if len(want[0]) == 1 else
+                            max(lay["tile"], 2 * lay["win"] + lay["chunk"]))
+    tables = (1 << lay["hq"]) + ((1 << lay["log2q"]) >> lay["hq"])
+    assert 8 * (lay["twoff"] + tables) <= rf.SMEM_LIMIT
+    # scratch: none on the chip, one buffer of m points a frame past it
+    frames = 4
+    scratch = rf.global_bytes(lay, frames) - rf.global_bytes(lay, 0)
+    assert scratch == (0 if len(want[0]) == 1 else 8 * frames * m)
+    # the split's FFT against numpy on one frame (m up to 2^18; a 4M frame's
+    # levels are those of the small-tile case above, 32 x 32)
+    if len(want[0]) > 1 and m <= 1 << 18:
+        x = _signal(m, n_fft).reshape(1, m)
+        got = _global_levels(x.reshape(-1).copy(), lay, m, 1)
+        assert evm_rms_db(got, np.fft.fft(x.astype(np.complex128), axis=-1)) <= -120
+    # Bluestein over two tiles: one CTA a frame where a call has 100 frames or more
+    alt = lay["alt"]
+    assert (alt is not None) == (n_fft == 8198)
+    if alt is not None:
+        assert alt["sub"] == 2 and alt["lp"] == [14] and alt["win"] > 0
+        assert rf.global_route(lay, 99) is lay and rf.global_route(lay, 100) is alt
+        assert rf.global_bytes(alt, frames) - rf.global_bytes(alt, 0) == 8 * frames * 2 * n_fft
+        assert 8 * (alt["twoff"] + (1 << alt["hq"]) + ((1 << alt["log2q"]) >> alt["hq"])) <= (
+            rf.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("dec,n_fft,ntaps,small", [
+    (4, 4099, 65, False), (2, 8198, 33, False), (1, 131072, 17, False), (1, 3000, 17, False),
+    (1, 3000, 17, True), (2, 4096, 33, True), (4, 1 << 13, 65, True), (2, 8198, 33, "alt"),
+    (1, 200, 17, "alt"),
+])
+def test_global_model_matches_float64_and_the_twin(dec, n_fft, ntaps, small):
+    # two blocks of two frames, the second with the first's tail as history;
+    # small: the levels of a 256-point tile (three levels at m 4,096-8,192);
+    # "alt": the sub route (two 16,384-point sub-transforms of m 32,768; of
+    # 256 points at n 200)
     taps = _default_lowpass(ntaps, 1.0 / (2 * dec)) if dec > 1 else _default_lowpass(ntaps, 0.4)
     k = taps.shape[-1]
     span = dec * n_fft
+    lay = rf.global_layout(dec, n_fft, k)
+    if small == "alt":
+        lay = lay["alt"] or dict(lay, lp=[8], lt=[0], sub=2, log2q=8)
+        assert lay["sub"] == 2 and lay["m"] == 2 << lay["lp"][0]
+    elif small:
+        lay = _small_tiles(lay)
+        assert len(lay["lp"]) == 3
     x = _signal(4 * span, 208 + n_fft)
     ref = numpy_reference_spectra(x, taps, dec, n_fft)
     for i, (blk, hist) in enumerate(_halves(x, k)):
         hn = None if hist is None else hist.numpy()
-        spec = global_model(blk.numpy(), taps, dec, n_fft, hn)
+        spec = global_model(blk.numpy(), taps, dec, n_fft, hn, lay=lay)
         rs = ref[2 * i:2 * i + 2] * np.sqrt(n_fft) * Scale.SN.factor_for(n_fft)
         assert evm_rms_db(spec, rs) <= EVM_DB
         twin = rf.rx_frame_reference(blk, taps, dec, n_fft, hist, "spectrum").numpy()
         assert evm_rms_db(spec, twin) <= EVM_DB
         if n_fft * 2 % 8 == 0:
             got = unpack(torch.from_numpy(global_model(blk.numpy(), taps, dec, n_fft, hn,
-                                                       "qpsk"))).numpy()
+                                                       "qpsk", lay=lay))).numpy()
             _check_bits(got, *_decisions(rs, "qpsk"))
 
 
@@ -862,3 +1112,23 @@ def test_global_instance_matches_the_twin(cuda, dec, n_fft, epilogue):
             assert evm_rms_db(got.cpu().numpy(), want.cpu().numpy()) <= EVM_DB
         else:
             assert (unpack(got) == unpack(want)).float().mean().item() >= AGREEMENT
+
+
+@pytest.mark.cuda
+def test_global_instance_sub_route_matches_the_twin(cuda):
+    # Bluestein over two tiles (2 / 8,198, frames of no whole bytes: the
+    # spectrum): a call of 100 frames or more takes the sub route, one CTA a
+    # frame; fewer take the levels
+    dec, n_fft = 2, 8198
+    epilogue = "spectrum"
+    taps = _default_lowpass(33, 0.25)
+    lay = rf.global_layout(dec, n_fft, 33)
+    span = dec * n_fft
+    x = torch.from_numpy(_signal(2 * 60 * span, 8198).reshape(2, 60 * span)).to(cuda)
+    assert rf.global_route(lay, 120) is lay["alt"]
+    for h in (None, x[:, :32].contiguous()):
+        got = rf.rx_frame(x, taps, dec, n_fft, h, epilogue)
+        want = rf.rx_frame_reference(x, taps, dec, n_fft, h, epilogue)
+        torch.cuda.synchronize()
+        assert evm_rms_db(got.cpu().numpy(), want.cpu().numpy()) <= EVM_DB
+

@@ -143,9 +143,13 @@ def test_kernel_limits():
     assert vk.kernel_supports(100, 2, 2) and vk.instance(2, 2) == "warp"
     assert vk.kernel_supports(100, 2, 10) and vk.instance(2, 10) == "block"  # 512 states
     assert vk.kernel_supports(100, 9, 7) and vk.instance(9, 7) == "block"  # 9 generators
-    assert vk.kernel_supports(100, 2, 15) and vk.scratch_words(100, 15, 3) == 3 * 100 * 512
-    # past BLOCK_SMEM_STATES the path metrics join the decisions in the scratch
-    assert vk.scratch_words(100, 17, 3) == 3 * (100 * 2048 + 2 * 65536)
+    # the cluster route keeps a trellis's decisions in shared memory where
+    # they fit (K 15 and 17 over 3 spans: clusters of 8), else the scratch
+    assert vk.kernel_supports(100, 2, 15) and vk.scratch_words(100, 15, 3) == 0
+    assert vk.scratch_words(100, 17, 3) == 0
+    assert vk.scratch_words(100, 15, 256) == 256 * 100 * 512  # one CTA a span: past it
+    # past CLUSTER_MAX_STATES the path metrics join the decisions in the scratch
+    assert vk.scratch_words(100, 19, 3) == 3 * (100 * 8192 + 2 * 262144)
     assert not vk.kernel_supports(2 ** 20, 2, 30)  # 8 TB of decisions
     assert not vk.kernel_supports(100, 2, 1)  # no trellis
     with pytest.raises(ValueError, match="bad span shape"):
@@ -192,11 +196,13 @@ def test_cuda_kernel_raises_on_spans_it_does_not_take(cuda, monkeypatch):
     before = vk.launches
     # past the card's memory (a card of 64 KB here): the call raises, and
     # neither the kernel nor the twin runs
-    sym = torch.zeros(16, 100, 2, device=cuda)
+    sym = torch.zeros(16, 10_000, 2, device=cuda)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: types.SimpleNamespace(total_memory=1 << 16))
-    with pytest.raises(ValueError, match="card's memory"):  # 512 states: 6.4 KB a trellis
-        vk.viterbi_lanes(sym, 100, 2, (0o1171, 0o1233), 10, True, True)
+    # 512 states over 10,000 steps: 640 KB of decisions a trellis, past shared
+    # memory, in the scratch
+    with pytest.raises(ValueError, match="card's memory"):
+        vk.viterbi_lanes(sym, 10_000, 2, (0o1171, 0o1233), 10, True, True)
     monkeypatch.undo()
     with pytest.raises(ValueError, match="contiguous"):
         vk.viterbi_lanes(torch.zeros(10, 4, 2, device=cuda).transpose(0, 1), 10, 2,
@@ -401,60 +407,120 @@ def test_cuda_kernel_every_launch_shape_on_ties(cuda, code):
 
 # ------------------------------------- the block instance's schedule on the CPU
 #
-# A numpy model of ``csrc/viterbi.cu viterbi_block_kernel``: a buffer holds a
-# step's metrics before the subtraction of their minimum, which the next step
-# subtracts as it reads them; the branch metric reads each generator's output
-# from ceil(n / 32) mask words; the decisions are packed into S/32 ballot
-# words a step; the first argmin is the first state whose buffered metric
-# equals the minimum. Held bit for bit against the twin at codes the warp
-# instance does not take.
+# A numpy model of ``csrc/viterbi.cu viterbi_cta_kernel`` (the block
+# instance's cluster route): the states split by range over the q CTAs of a
+# trellis, each CTA's two metric buffers holding a step's metrics before the
+# subtraction of their minimum, which the next step subtracts as it reads
+# them; a thread a pair of states (2i, 2i + 1) reading predecessors i and i
+# + S/2 from the CTA that holds them; the branch metrics of every output
+# pattern a step (at most 8 generators; by the transition's byte) or of each
+# transition from its ceil(n / 32) mask words; the decisions packed from the
+# warps' even and odd ballots (``_spread16``); the first argmin the first
+# state whose buffered metric equals the minimum; the traceback five steps
+# a round from 31 candidate words. Held bit for bit against the twin at
+# codes the warp instance does not take, at every cluster size.
 
 BLOCK_CODES = {
     "k2r2": ((0o3, 0o1), 2), "k10r2": ((0o1171, 0o1233), 10), "k11r2": ((0o2467, 0o3565), 11),
+    "k12r2": ((0o4335, 0o5723), 12), "k15r2": ((0o46321, 0o51271), 15),
     "k7r9": ((0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147, 0o173), 7),
     "k3r33": (tuple([0o7, 0o5, 0o3] * 11), 3),
+    # 512 distinct output patterns: each transition's own branch metric
+    "k10r10": ((0o1171, 0o1233, 0o1365, 0o1047, 0o1523, 0o1711, 0o1357, 0o1131, 0o1463,
+                0o1275), 10),
 }
 
 
-def block_model(sym, lw, n, polys, k, init_state0, end_state0):
+def _spread16(x):
+    x = x & np.uint64(0xFFFF)
+    for sh, mask in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        x = (x | (x << np.uint64(sh))) & np.uint64(mask)
+    return x
+
+
+def block_model(sym, lw, n, polys, k, init_state0, end_state0, q=None):
     sym = np.asarray(sym, np.float32)
-    pred, _ = fec._trellis(tuple(polys), k)
-    s_count = 1 << (k - 1)
-    words_in = vk.block_mask_words(tuple(polys), k).astype(np.uint64)  # the card's table
-    one = lambda b: np.where(b, np.float32(1.0), np.float32(0.0))  # noqa: E731
     n_tr = sym.shape[0]
-    pa = np.zeros((n_tr, s_count), np.float32)
+    s_count = 1 << (k - 1)
+    q = q or vk.block_plan(lw, n, k, n_tr)["q"]
+    sc, pc = s_count // q, s_count // q // 2
+    one = lambda b: np.where(b, np.float32(1.0), np.float32(0.0))  # noqa: E731
+    npat, codes = vk.patterns(tuple(polys), k)  # the card's table
+    table = npat <= vk.MAX_PATTERNS
+    if table:  # a pattern byte a transition row, then the patterns' bits
+        nwords = -(-2 * s_count // 4)
+        rows = codes[:nwords].view(np.uint8)[:2 * s_count].astype(np.int64)
+        words_in = codes[nwords:].reshape(npat, -1).astype(np.uint64)
+    else:
+        words_in = codes.reshape(2 * s_count, -1).astype(np.uint64)
+    bufs = np.zeros((2, q, n_tr, sc), np.float32)  # [buffer, rank, trellis, state]
     if init_state0:
-        pa[:, 1:] = np.float32(1e9)
+        bufs[0, :, :, :] = np.float32(1e9)
+        bufs[0, 0, :, 0] = 0.0
     mn = np.zeros(n_tr, np.float32)
-    words = np.zeros((lw, n_tr, max(1, s_count // 32)), np.uint64)
-    states = np.arange(s_count)
+    n_words = max(1, s_count // 32)
+    words = np.zeros((lw, n_tr, n_words), np.uint64)
+    lanes = np.uint64(1) << np.arange(32, dtype=np.uint64)
     for t in range(lw):
-        g = []
-        for j in (0, 1):
-            w = words_in[2 * states + j]
-            acc = one(w[:, 0] & np.uint64(1)) * sym[:, t, 0:1]
-            for m in range(1, n):
-                acc = acc + one((w[:, m // 32] >> np.uint64(m % 32)) & np.uint64(1)) * sym[:, t, m:m + 1]
-            g.append(acc)
-        c0 = (pa[:, pred[:, 0]] - mn[:, None]) + g[0]
-        c1 = (pa[:, pred[:, 1]] - mn[:, None]) + g[1]
-        d = c1 < c0
-        pa = np.where(d, c1, c0)
-        for s in states:
-            words[t, :, s >> 5] |= d[:, s].astype(np.uint64) << np.uint64(s & 31)
-        mn = _unkeys(_keys(pa).min(axis=1))
+        lt = sym[:, t, :]
+        # the step's metric of every pattern (or transition row), m in order
+        g = one(words_in[:, 0] & np.uint64(1))[None, :] * lt[:, 0:1]
+        for m in range(1, n):
+            bit = (words_in[:, m // 32] >> np.uint64(m % 32)) & np.uint64(1)
+            g = g + one(bit)[None, :] * lt[:, m:m + 1]
+        if table:
+            g = g[:, rows]
+        rd = t & 1
+        for rank in range(q):
+            g0, g1 = rank * pc, rank * pc + s_count // 2
+            u = np.arange(pc)
+            i = g0 + u
+            a0 = bufs[rd, g0 // sc][:, g0 % sc + u] - mn[:, None]
+            a1 = bufs[rd, g1 // sc][:, g1 % sc + u] - mn[:, None]
+            c0e, c1e = a0 + g[:, 4 * i], a1 + g[:, 4 * i + 1]
+            c0o, c1o = a0 + g[:, 4 * i + 2], a1 + g[:, 4 * i + 3]
+            de, dodd = c1e < c0e, c1o < c0o
+            out = bufs[rd ^ 1, rank]
+            out[:, 0::2] = np.where(de, c1e, c0e)
+            out[:, 1::2] = np.where(dodd, c1o, c0o)
+            for base in range(0, pc, 32):  # a warp's 32 pairs: two words
+                e = (de[:, base:base + 32].astype(np.uint64) * lanes[:min(32, pc - base)]).sum(1)
+                o = (dodd[:, base:base + 32].astype(np.uint64) * lanes[:min(32, pc - base)]).sum(1)
+                for lane in range(2):
+                    if base + 16 * lane < pc:
+                        half_e = e & np.uint64(0xFFFF) if lane == 0 else e >> np.uint64(16)
+                        half_o = o & np.uint64(0xFFFF) if lane == 0 else o >> np.uint64(16)
+                        words[t, :, (g0 + base) // 16 + lane] = (
+                            _spread16(half_e) | (_spread16(half_o) << np.uint64(1)))
+        mn = _unkeys(_keys(bufs[rd ^ 1].transpose(1, 0, 2).reshape(n_tr, -1)).min(axis=1))
+    fin = bufs[lw & 1].transpose(1, 0, 2).reshape(n_tr, -1)
+    states = np.arange(s_count)
     if end_state0:
         state = np.zeros(n_tr, np.int64)
     else:
-        state = np.where(pa == mn[:, None], states, s_count).min(axis=1)
+        state = np.where(fin == mn[:, None], states, s_count).min(axis=1)
     bits = np.zeros((n_tr, lw), np.uint8)
-    rows = np.arange(n_tr)
-    for t in range(lw - 1, -1, -1):
-        bits[:, t] = state & 1
-        word = words[t, rows, state >> 5]
-        d = (word >> (state & 31).astype(np.uint64)) & np.uint64(1)
-        state = (state >> 1) | (d.astype(np.int64) << (k - 2))
+    rows_ = np.arange(n_tr)
+    lane = np.arange(31)
+    lj = np.floor(np.log2(lane + 1)).astype(np.int64)
+    lb = lane + 1 - (1 << lj)
+    t = lw - 1
+    while t >= 0:  # a round: the candidates' words, then five steps by them
+        steps = min(5, t + 1)
+        cand = np.zeros((n_tr, 31), np.uint64)
+        for ln in range(2 ** steps - 1):
+            st = state.copy()
+            for i in range(lj[ln]):
+                st = (st >> 1) | (((lb[ln] >> i) & 1) << (k - 2))
+            cand[:, ln] = words[t - lj[ln], rows_, st >> 5]
+        taken = np.zeros(n_tr, np.int64)
+        for j in range(steps):
+            w = cand[rows_, (1 << j) - 1 + taken]
+            bits[:, t - j] = state & 1
+            b = ((w >> (state & 31).astype(np.uint64)) & np.uint64(1)).astype(np.int64)
+            state = (state >> 1) | (b << (k - 2))
+            taken |= b << j
+        t -= steps
     return bits
 
 
@@ -462,6 +528,8 @@ def block_model(sym, lw, n, polys, k, init_state0, end_state0):
                          ids=["state0-state0", "state0-argmin", "uniform-argmin"])
 @pytest.mark.parametrize("code", sorted(BLOCK_CODES))
 def test_block_model_matches_twin_on_ties(code, ends):
+    # the plan's cluster size for 4 spans and every other one a CTA keeps
+    # 64 states or more at
     polys, k = BLOCK_CODES[code]
     n = len(polys)
     assert vk.instance(n, k) == ("warp" if k == 2 else "block")
@@ -469,20 +537,46 @@ def test_block_model_matches_twin_on_ties(code, ends):
     lw = 21
     sym = _tie_llrs(rng, (4, lw, n))
     want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, *ends).numpy()
-    assert np.array_equal(block_model(sym, lw, n, polys, k, *ends), want)
+    plan = vk.block_plan(lw, n, k, 4, vk.patterns(polys, k)[0])
+    assert plan["q"] == {12: 2, 15: 8}.get(k, 1) and plan["dec_smem"]
+    assert (vk.patterns(polys, k)[0] > vk.MAX_PATTERNS) == (code == "k10r10")
+    for q in sorted({plan["q"]} | {q for q in (2, 8) if (1 << (k - 1)) // q >= 64}):
+        assert np.array_equal(block_model(sym, lw, n, polys, k, *ends, q=q), want), q
+
+
+@pytest.mark.parametrize("k, n, q", [(3, 800, 1), (3, 900, None), (2, 2000, None),
+                                     (18, 380, 8), (18, 400, None), (8, 700, 1)])
+def test_block_plan_takes_the_scratch_route_where_a_cta_does_not_fit(k, n, q):
+    # a CTA stages two chunks of LLRs, 256 bytes a generator, which no
+    # cluster size divides: past the shared memory the scratch route, whose
+    # kernel takes any n, with its metrics in the scratch
+    plan = vk.block_plan(100, n, k, 4)
+    assert (plan and plan["q"]) == q
+    if plan is not None:
+        sc = (1 << (k - 1)) // q
+        assert vk._cta_smem(1 << (k - 1), n, q, vk.CTA_THREADS, 100, False) <= vk.CTA_SMEM
+        assert q == 1 or sc >= 64
+    assert vk.kernel_supports(100, n, k) and vk.instance(n, k) == "block"
+    words = 4 * 100 * max(1, (1 << (k - 1)) // 32)
+    assert vk.scratch_words(100, k, 4, n) == (
+        words + 4 * 2 * (1 << (k - 1)) if plan is None
+        else (0 if plan["dec_smem"] else words))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("code", sorted(BLOCK_CODES) + ["k12r2", "k15r2", "k17r2"])
+@pytest.mark.parametrize("code", sorted(BLOCK_CODES) + ["k17r2", "k19r2"])
 def test_cuda_block_and_two_state_instances_match_twin(cuda, code):
     # K 2 in the warp instance; past 256 states or 8 generators the block
-    # instance (past 16,384 states its metrics in the scratch), one launch
+    # instance: to 131,072 states its cluster route, past it (K 19) the
+    # scratch route with its metrics in the scratch; one launch
     polys, k = BLOCK_CODES.get(code) or ({12: (0o4335, 0o5723), 15: (0o46321, 0o51271),
-                                          17: (0o234567, 0o312345)}[int(code[1:3])],
+                                          17: (0o234567, 0o312345),
+                                          19: (0o1351753, 0o1746321)}[int(code[1:3])],
                                          int(code[1:3]))
     n = len(polys)
     rng = np.random.default_rng(190 + k + n)
     lw, n_tr = (120, 9) if k < 15 else (24, 2)
+    assert (vk.block_plan(lw, n, k, n_tr) is None) == (k == 19)
     sym = torch.from_numpy(_tie_llrs(rng, (n_tr, lw, n))).to(cuda)
     for ends in ((True, True), (False, False), (True, False)):
         before = vk.launches
