@@ -4,9 +4,9 @@
 // _bcjr_kernel (wrapper bcjr_windowed_llr) and is bit-identical to the JAX
 // package's windowed scan (ops/turbo.py _bcjr_maxlog_windowed). It takes any
 // binary trellis with two LLR streams as the tables (nxt, prev_s, fw0, fw1,
-// bw0, bw1) [S][2]: the RSC-8 turbo constituent (S = 8) or a rate-1/2
-// feedforward code (S = 64 at K = 7). Per column of the [Lw, N] spans, over
-// Lw steps, from uniform (zero) metrics at both ends:
+// bw0, bw1) [S][2]: the RSC-8 turbo constituent (S = 8), a rate-1/2
+// feedforward code (S = 2^(K-1)) or any other. Per column of the [Lw, N]
+// spans, over Lw steps, from uniform (zero) metrics at both ends:
 //   backward  beta_t = the metrics after step t (zero at t = Lw - 1),
 //             beta'[s] = max_u beta[nxt[s][u]] + (bw0[s][u] ls + bw1[s][u] lp),
 //             beta' -= max over states
@@ -92,50 +92,70 @@
 //   beta_t for t >= mid) are Lw x S x 4 bytes a column in shared memory,
 //   57 KB at the ccsds launch (60,160 bytes a CTA with the spans and the
 //   exchange buffers: at most 3 CTAs an SM, 6 warps) and 25 KB at Lw 96
-//   (26,368 a CTA: 8 CTAs an SM). (The column instance keeps the beta
-//   history in a [Lw][S][N] scratch in device memory: 323 MB at the ccsds
-//   launch, written and read back. Half-histories in an L2-resident scratch that
-//   persistent CTAs reuse ran slower than in shared memory; PERF.md.)
+//   (26,368 a CTA: 8 CTAs an SM). (Half-histories in an L2-resident
+//   scratch that persistent CTAs reuse ran slower than in shared memory;
+//   PERF.md.)
 // - The CTA's spans come into shared memory once, by cp.async, while the
 //   lanes load their table entries from the card (a table in the kernel's
 //   parameters, read at a lane-dependent index, would serialise on the
 //   constant bank).
 // - Shared memory is Lw x G x (S + 2) x 4 + 16 G S bytes (G = 32 / L): the
 //   spans Lw 876 at S 64, 1,705 at S 32, 1,610 at 16, 1,449 at 8 and 1,208
-//   at 4 fit 227 KB. A longer span takes the column instance.
+//   at 4 fit 227 KB. A longer span takes the block instance.
 //
-// bcjr_kernel<S>, the column instance, for spans past the lanes instance's
-// limit (any table set, S in 4..64) and for every span at S 2 and 3: one
-// thread per column, the metric column in shared memory ([S][threads], so
-// the table-indexed reads of a warp hit 32 consecutive words), the beta
-// history in a global scratch laid out [Lw][S][N] (coalesced along N),
-// backward pass then forward pass. Its code does not need S to be a power of
-// two.
-//
-// bcjr_block_kernel, the block instance, for every other state count (5-7,
-// 9-15, ..., 128, 256 and up): one CTA of 256 threads a column, states s,
-// s + 256, ... a thread, the tables read from the card. Each direction keeps
-// two buffers of S metrics (read one, write the other), in shared memory
-// while both fit (S <= 28,928) and in a device scratch past that; a buffer
-// holds a step's metrics before the subtraction of their maximum, which the
-// next step subtracts as it reads them (the same floats as the twin's). The
-// maxima (the state maximum, and the LLR's two) are redux.sync on
-// order-preserving keys and one barrier a step. The beta history goes to a
-// device scratch [N][Lw][S]. Its limit is the card's memory; it is written
-// for reach, not speed.
+// bcjr_kernel_block and bcjr_kernel_thin, the block instance, for every
+// other call: every state count outside 4-64 and every span past the lanes
+// instance's shared memory. The meet instances' schedule (forward and
+// backward side by side to the middle, then on through the other half),
+// the history off the step chain:
+// - bcjr_kernel_block<R, L, W> (S >= 4): a column's states over the lanes
+//   of W warps a direction, R = 1, 2, 4 or 8 a lane, the state count padded
+//   to P = L R W (L = 4-32 lanes a column, 32 / L columns a warp below 32
+//   states; the geometry compile-time). A lane keeps its transitions' table entries and coefficients
+//   in registers, loaded once; a step exchanges the metrics through shared
+//   memory (a store, __syncwarp or, with W > 1 warps, one named barrier of
+//   the direction's warps, the table-indexed loads; two alternating
+//   buffers) and takes the state maximum beside it (shuffles, or redux.sync
+//   on order-preserving keys and the warps' partials through shared
+//   memory), as the lanes instance does. Padded states point at themselves
+//   with zero coefficients and hold -inf, so they change no maximum.
+// - bcjr_kernel_thin<S, kResident> (S 2 and 3): a column a lane, its
+//   metrics in registers, its tables the kernel's parameters, the gather by
+//   selects; no exchange and no barrier a step; its spans and
+//   half-histories in shared memory where they fit (to 363-454 steps).
+// - bcjr_kernel_block writes each direction's half of the history (alpha_t
+//   for t < mid, beta_t for t >= mid) to a device scratch as it goes (fire
+//   and forget), and reads the other half back in the second half through a
+//   ring in shared memory that cp.async fills kDepth steps ahead; the spans
+//   come through a ring the same way. So a step's chain never waits on
+//   device memory, and the span may be any length. The history costs Lw x P
+//   x 4 bytes a column, written once and read once: 0.94 GB, 0.28 ms at
+//   3.35 TB/s, at S 256, Lw 224, N 2,048; with the history's traffic taken
+//   out (a scratch copy of the kernel) the time barely moves (PERF.md), so
+//   the kernel is held by its instructions and their latency, not by that
+//   floor. At R = 2 a step's branch metrics are computed a step ahead.
+// - bcjr_kernel_thin keeps its spans and half-histories in shared memory
+//   up to 454 steps (S 2) or 363 (S 3), as the meet instance does; past
+//   that they go through the scratch and a ring of 32 steps.
+// - Past 1,024 states (W > 4 warps) the tables no longer fit a CTA's
+//   registers: bcjr_kernel_wide, one CTA of 256 threads a column, the tables
+//   read from the card a step, two metric buffers in shared memory (in the
+//   scratch past 28,928 states) and one barrier a step, the beta history in
+//   the scratch [N][Lw][S]. Written for reach, not speed.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include <tuple>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;         // the generic instance's block
 constexpr int kMeetThreads = 64;      // the meet instance's block: two warps
 constexpr int kLanesThreads = 64;     // the lanes instance's block: two warps
 constexpr int kMaxSmem = 232448;      // opt-in shared memory of a block on sm_90
-constexpr int kBlockThreads = 256;    // the block instance's CTA
+constexpr int kWideThreads = 256;     // the wide route's CTA
 
 // The turbo RSC-8 trellis of ops/turbo.py _trellis(): nxt[s][u] and
 // prev_s[s'][j], row-major [8][2], and the branch-metric class of each
@@ -148,16 +168,6 @@ struct Rsc8 {
   static constexpr int kNxt[16] = {0, 4, 4, 0, 5, 1, 1, 5, 2, 6, 6, 2, 7, 3, 3, 7};
   static constexpr int kPrev[16] = {0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 2, 3, 4, 5, 6, 7};
   static constexpr int kClass[16] = {0, 3, 0, 3, 1, 2, 1, 2, 1, 2, 1, 2, 0, 3, 0, 3};
-};
-
-template <int S>
-struct Tables {
-  int nxt[2 * S];
-  int prev[2 * S];
-  float fw0[2 * S];
-  float fw1[2 * S];
-  float bw0[2 * S];
-  float bw1[2 * S];
 };
 
 // The meet instance's coefficients: the classes' pairs (c0[k], c1[k]).
@@ -787,102 +797,6 @@ int launch_lanes(const float* ls, const float* lp, float* llr, int lw, long long
                : launch_lanes<S, false>(ls, lp, llr, lw, ncols, idx, coef, stream);
 }
 
-// ----------------------------------------------------------- column instance
-
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-bcjr_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
-            float* __restrict__ llr, float* __restrict__ beta_hist, int lw,
-            long long ncols, const Tables<S> tb) {
-  extern __shared__ float metric[];  // [S][kThreads]: this thread's column
-  const long long col = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= ncols) return;  // no block-wide sync below
-  float* m = metric + threadIdx.x;
-
-#pragma unroll
-  for (int s = 0; s < S; ++s) m[s * kThreads] = 0.0f;
-  for (int i = 0; i < lw; ++i) {
-    const int t = lw - 1 - i;
-    const float ls_t = __ldg(ls + t * ncols + col);
-    const float lp_t = __ldg(lp + t * ncols + col);
-    float* hist = beta_hist + static_cast<long long>(t) * S * ncols + col;
-    float b[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) hist[s * ncols] = m[s * kThreads];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float c0 = __fadd_rn(m[tb.nxt[2 * s] * kThreads],
-                                 branch_metric(tb.bw0[2 * s], tb.bw1[2 * s], ls_t, lp_t));
-      const float c1 = __fadd_rn(m[tb.nxt[2 * s + 1] * kThreads],
-                                 branch_metric(tb.bw0[2 * s + 1], tb.bw1[2 * s + 1], ls_t, lp_t));
-      b[s] = fmaxf(c0, c1);
-    }
-    float mx = b[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) mx = fmaxf(mx, b[s]);
-#pragma unroll
-    for (int s = 0; s < S; ++s) m[s * kThreads] = __fsub_rn(b[s], mx);
-  }
-
-#pragma unroll
-  for (int s = 0; s < S; ++s) m[s * kThreads] = 0.0f;
-  for (int t = 0; t < lw; ++t) {
-    const float ls_t = __ldg(ls + t * ncols + col);
-    const float lp_t = __ldg(lp + t * ncols + col);
-    const float* hist = beta_hist + static_cast<long long>(t) * S * ncols + col;
-    float m0 = 0.0f, m1 = 0.0f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float a = m[s * kThreads];
-      const float c0 = __fadd_rn(__fadd_rn(a, branch_metric(tb.bw0[2 * s], tb.bw1[2 * s], ls_t, lp_t)),
-                                 hist[tb.nxt[2 * s] * ncols]);
-      const float c1 = __fadd_rn(__fadd_rn(a, branch_metric(tb.bw0[2 * s + 1], tb.bw1[2 * s + 1], ls_t, lp_t)),
-                                 hist[tb.nxt[2 * s + 1] * ncols]);
-      m0 = s == 0 ? c0 : fmaxf(m0, c0);
-      m1 = s == 0 ? c1 : fmaxf(m1, c1);
-    }
-    llr[t * ncols + col] = __fsub_rn(m0, m1);
-    float a_new[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float c0 = __fadd_rn(m[tb.prev[2 * s] * kThreads],
-                                 branch_metric(tb.fw0[2 * s], tb.fw1[2 * s], ls_t, lp_t));
-      const float c1 = __fadd_rn(m[tb.prev[2 * s + 1] * kThreads],
-                                 branch_metric(tb.fw0[2 * s + 1], tb.fw1[2 * s + 1], ls_t, lp_t));
-      a_new[s] = fmaxf(c0, c1);
-    }
-    float mx = a_new[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) mx = fmaxf(mx, a_new[s]);
-#pragma unroll
-    for (int s = 0; s < S; ++s) m[s * kThreads] = __fsub_rn(a_new[s], mx);
-  }
-}
-
-template <int S>
-int launch(const void* ls, const void* lp, void* llr, void* scratch, int lw,
-           long long ncols, const int* idx, const float* coef, cudaStream_t stream) {
-  Tables<S> tb;
-  for (int i = 0; i < 2 * S; ++i) {
-    tb.nxt[i] = idx[i];
-    tb.prev[i] = idx[2 * S + i];
-    tb.fw0[i] = coef[i];
-    tb.fw1[i] = coef[2 * S + i];
-    tb.bw0[i] = coef[4 * S + i];
-    tb.bw1[i] = coef[6 * S + i];
-  }
-  const size_t smem = static_cast<size_t>(S) * kThreads * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bcjr_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (ncols + kThreads - 1) / kThreads;
-  bcjr_kernel<S><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(ls), static_cast<const float*>(lp),
-      static_cast<float*>(llr), static_cast<float*>(scratch), lw, ncols, tb);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ------------------------------------------------------------ block instance
 
 constexpr int kNoKey = static_cast<int>(0x80000000u);  // below every max_key
@@ -890,11 +804,545 @@ constexpr int kNoKey = static_cast<int>(0x80000000u);  // below every max_key
 __device__ __forceinline__ int key_of(float v) { return max_key(__float_as_int(v)); }
 __device__ __forceinline__ float of_key(int k) { return __int_as_float(max_key(k)); }
 
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The maximum of v over the L lanes of this lane's column (L a power of two,
+// 4 to 32): redux.sync of order-preserving keys at L = 32, else a butterfly.
+__device__ __forceinline__ float lanes_max(float v, int L) {
+  if (L == 32) return of_key(__reduce_max_sync(0xffffffffu, key_of(v)));
+  for (int o = L >> 1; o >= 1; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+constexpr int kBlockWarps = 4;                      // the most warps a direction
+constexpr int kBlockStates = 32 * 8 * kBlockWarps;  // past this, the wide route
+
+// Steps copied ahead through the rings at R states a lane: enough to cover
+// a read from device memory at each R's step time.
+template <int R>
+struct BlockRing {
+  static constexpr int kDepth = R == 1 ? 16 : (R == 2 ? 8 : 4);
+};
+
+// The block kernel's shared memory in bytes: the exchange buffers [2
+// directions][2][row], the history ring [2 directions][kDepth][row], the
+// span rings [2 W warps][kDepth][2][G] and the warps' key partials [2
+// directions][2][3][W] (row = 32 R W floats: the padded states of a CTA's
+// columns).
+template <int R, int L, int W>
+constexpr int block_smem() {
+  constexpr int row = 32 * R * W, D = BlockRing<R>::kDepth, G = 32 / L;
+  return (4 * row + 2 * D * row + 4 * W * D * G) * 4 + 12 * W * 4;
+}
+
+// Warps 0..W-1 run alpha forward, warps W..2W-1 beta backward, over the
+// CTA's G = 32 / L columns (one column at L = 32), meeting at mid = Lw / 2
+// as the lanes instance does. A lane of column g = lane / L holds R states:
+// state s = w L R + r L + li in slot r of warp w of its direction, li = lane
+// mod L; states from S to P - 1 are padding. The lane carries the last
+// update's values n, before normalisation; a step publishes them to the
+// exchange buffer, takes their maximum mx beside it, gathers its
+// transitions' other ends from the buffer and subtracts mx from both (m = n
+// - mx are the step's metrics, v the gathered ones: the twin's floats, one
+// subtraction of one maximum), then updates n = max_k (v[k] + g[k]) with
+// the step's branch metrics from the spans copied ahead. The first
+// half stores m to history row t in the scratch; the second half computes
+// the LLR of step t from the other direction's stored row, copied ahead
+// into the ring. The geometry (R, L, W) is compile-time, so every index is
+// a register and an immediate; the loop runs two steps an iteration, so the
+// exchange buffer's parity is one too. hist: float32 [ceil(N / G)][lw][32 R
+// W], the CTA's rows at blockIdx.x; idx int32 [nxt; prev_s] and coef
+// float32 [fw0; fw1; bw0; bw1], each [S][2], on the card.
+template <int R, int L, int W>
+__global__ void __launch_bounds__(64 * W)
+bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
+                  float* __restrict__ llr, float* __restrict__ hist, int lw,
+                  long long ncols, int S, const int* __restrict__ idx,
+                  const float* __restrict__ coef) {
+  constexpr bool kMulti = W > 1;
+  // branch metrics a step ahead at R = 2, where that measured faster (6% at
+  // S 64); at R = 1 it measured slower (8 lanes a column) or even, and at
+  // larger R the registers it takes cost occupancy (PERF.md, PR 21)
+  constexpr bool kAhead = R == 2;
+  constexpr int D = BlockRing<R>::kDepth;
+  constexpr int G = 32 / L, P = L * R * W, row = 32 * R * W;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool forward = warp < W;
+  const int w = forward ? warp : warp - W;  // the warp within its direction
+  const int g = lane / L, li = lane % L;
+  const long long col0 = static_cast<long long>(blockIdx.x) * G;
+  const long long col = col0 + g;
+  const int xbase = forward ? 0 : 2 * row;  // this direction's exchange buffers
+  float* const hr = smem + 4 * row + (forward ? 0 : D * row);          // [D][row]
+  float* const sr = smem + 4 * row + 2 * D * row + warp * D * 2 * G;  // [D][2][G]
+  int* const pd = reinterpret_cast<int*>(smem + 4 * row + 2 * D * row + 4 * W * D * G) +
+                  (forward ? 0 : 6 * W);  // [2][3][W]
+  float* const hcta = hist + static_cast<long long>(blockIdx.x) * lw * row;
+
+  // this lane's transitions: the offsets of their other ends (exchange
+  // buffer 0 for the recursion, a history row for the LLR) and their
+  // coefficients, and (forward) the LLR's: nxt and the backward coefficients
+  const int own = g * P + w * L * R + li;  // slot r at own + r L
+  int at[R][2], lat[R][2];
+  float c0[R][2], c1[R][2], l0[R][2], l1[R][2], n[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = w * L * R + r * L + li;
+    n[r] = s < S ? 0.0f : -INFINITY;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = 2 * s + k;
+      if (s < S) {
+        const int nx = __ldg(idx + e);
+        at[r][k] = xbase + g * P + (forward ? __ldg(idx + 2 * S + e) : nx);
+        c0[r][k] = __ldg(coef + (forward ? 0 : 4 * S) + e);
+        c1[r][k] = __ldg(coef + (forward ? 2 * S : 6 * S) + e);
+        lat[r][k] = g * P + nx;
+        l0[r][k] = __ldg(coef + 4 * S + e);
+        l1[r][k] = __ldg(coef + 6 * S + e);
+      } else {  // padding: its own end, zero coefficients, -inf throughout
+        at[r][k] = xbase + own + r * L;
+        lat[r][k] = own + r * L;
+        c0[r][k] = c1[r][k] = l0[r][k] = l1[r][k] = 0.0f;
+      }
+    }
+  }
+  const int dt = forward ? 1 : -1;
+  const long long span_step = dt * ncols;
+  auto sync_dir = [&] {
+    if constexpr (kMulti) {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(forward ? 1 : 2), "n"(32 * W) : "memory");
+    } else {
+      __syncwarp();
+    }
+  };
+  // the span source of lanes below 2 G (a column each; past N it copies
+  // nothing and the ring reads zero)
+  const int q = lane < G ? lane : lane - G;
+  const bool copier = lane < 2 * G && col0 + q < ncols;
+  const float* const sbase = (lane < G ? ls : lp) + (copier ? col0 + q : 0);
+
+  // one half: `steps` steps from row t0 in this warp's direction; kLLR: the
+  // second half (the LLRs from the ring's rows), else the first (m to the
+  // history)
+  auto half = [&](auto llr_c, int t0, int steps) {
+    constexpr bool kLLR = decltype(llr_c)::value;
+    // the copies of the next step to issue (its ring slot, span source,
+    // history row), advanced a step at a time
+    int jn = 0;
+    const float* sn = sbase + t0 * ncols;
+    const float* hn = hcta + static_cast<long long>(t0) * row;
+    auto issue = [&] {
+      if (jn < steps) {
+        const int slot = jn & (D - 1);
+        if (lane < 2 * G) cp_async4(sr + slot * 2 * G + lane, sn, copier ? 4 : 0);
+        if constexpr (kLLR) {
+          for (int c = w * 32 + lane; c < row / 4; c += 32 * W) {
+            cp_async16(hr + slot * row + 4 * c, hn + 4 * c, 16);
+          }
+        }
+      }
+      cp_commit();
+      ++jn;
+      sn += span_step;
+      hn += dt * row;
+    };
+    // the branch metrics of step j from its ring slot: the recursion's,
+    // and (forward, second half) the LLR's
+    float gb[R][2], gl[R][2];
+    auto metrics = [&](int j, float (&to)[R][2], float (&lo)[R][2]) {
+      const int slot = j & (D - 1);
+      const float x = sr[slot * 2 * G + g], y = sr[slot * 2 * G + G + g];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          to[r][k] = branch_metric(c0[r][k], c1[r][k], x, y);
+          if (kLLR && forward) lo[r][k] = branch_metric(l0[r][k], l1[r][k], x, y);
+        }
+      }
+    };
+    for (int j = 0; j < D - 1; ++j) issue();
+    if constexpr (kAhead) {
+      cp_wait<D - 2>();  // step 0's copies
+      sync_dir();
+      metrics(0, gb, gl);
+    }
+    float* hw = hcta + static_cast<long long>(t0) * row + own;        // m's row (first half)
+    float* out = llr + static_cast<long long>(t0) * ncols + col;       // the LLR (second half)
+    int pend0 = kNoKey, pend1 = kNoKey;  // kMulti: the last step's LLR keys
+
+    auto step = [&](int i, auto parity_c) {
+      constexpr int par = decltype(parity_c)::value;
+      float* const xb = smem + par * row;
+      int* const pb = pd + par * 3 * W;
+      cp_wait<kAhead ? D - 3 : D - 2>();  // this thread's copies of step i (+ 1)
+      float lm = n[0];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        xb[xbase + own + r * L] = n[r];
+        lm = fmaxf(lm, n[r]);
+      }
+      if constexpr (kMulti) {
+        const int k = __reduce_max_sync(0xffffffffu, key_of(lm));
+        if (lane == 0) {
+          pb[w] = k;
+          if (kLLR) {
+            pb[W + w] = pend0;
+            pb[2 * W + w] = pend1;
+          }
+        }
+      }
+      sync_dir();  // the buffer, the partials and the step's copies visible
+      issue();     // step i + D - 1, into the slot of step i - 1
+      float gbn[R][2], gln[R][2];
+      if constexpr (kAhead) {
+        metrics(i + 1, gbn, gln);  // off the chain
+      } else {
+        metrics(i, gb, gl);
+      }
+      float mx;
+      if constexpr (kMulti) {
+        int k = pb[0];
+#pragma unroll
+        for (int u = 1; u < W; ++u) k = max(k, pb[u]);
+        mx = of_key(k);
+        if (kLLR && i > 0 && w == 0 && lane == 0) {  // step i - 1's LLR
+          int a = pb[W], b = pb[2 * W];
+#pragma unroll
+          for (int u = 1; u < W; ++u) {
+            a = max(a, pb[W + u]);
+            b = max(b, pb[2 * W + u]);
+          }
+          out[-span_step] = __fsub_rn(of_key(a), of_key(b));
+        }
+      } else {
+        mx = lanes_max(lm, L);
+      }
+      float m[R], v[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        m[r] = __fsub_rn(n[r], mx);
+        v[r][0] = __fsub_rn(xb[at[r][0]], mx);
+        v[r][1] = __fsub_rn(xb[at[r][1]], mx);
+      }
+      if constexpr (!kLLR) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) hw[r * L] = m[r];
+        hw += dt * row;
+      } else {
+        // (alpha + gb) + beta[nxt] over the lane's states, u = 0 and 1:
+        // forward, alpha = m and beta the row's; backward, alpha the row's,
+        // gb its own step's and beta[nxt] its gather v
+        const float* const o = hr + (i & (D - 1)) * row;
+        float k0 = -INFINITY, k1 = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float a, q0, q1, b0, b1;
+          if (forward) {
+            a = m[r];
+            q0 = gl[r][0];
+            q1 = gl[r][1];
+            b0 = o[lat[r][0]];
+            b1 = o[lat[r][1]];
+          } else {
+            a = o[own + r * L];
+            q0 = gb[r][0];
+            q1 = gb[r][1];
+            b0 = v[r][0];
+            b1 = v[r][1];
+          }
+          k0 = fmaxf(k0, __fadd_rn(__fadd_rn(a, q0), b0));
+          k1 = fmaxf(k1, __fadd_rn(__fadd_rn(a, q1), b1));
+        }
+        if constexpr (kMulti) {
+          pend0 = __reduce_max_sync(0xffffffffu, key_of(k0));
+          pend1 = __reduce_max_sync(0xffffffffu, key_of(k1));
+        } else {
+          const float o0 = lanes_max(k0, L), o1 = lanes_max(k1, L);
+          if (li == 0 && col < ncols) *out = __fsub_rn(o0, o1);
+        }
+        out += span_step;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        n[r] = fmaxf(__fadd_rn(v[r][0], gb[r][0]), __fadd_rn(v[r][1], gb[r][1]));
+        if constexpr (kAhead) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            gb[r][k] = gbn[r][k];
+            gl[r][k] = gln[r][k];
+          }
+        }
+      }
+    };
+
+    int i = 0;
+    for (; i + 1 < steps; i += 2) {
+      step(i, std::integral_constant<int, 0>{});
+      step(i + 1, std::integral_constant<int, 1>{});
+    }
+    if (i < steps) step(i, std::integral_constant<int, 0>{});
+    if constexpr (kMulti && kLLR) {  // the last step's LLR
+      if (steps > 0) {
+        int* const pb = pd + (steps & 1) * 3 * W;
+        if (lane == 0) {
+          pb[W + w] = pend0;
+          pb[2 * W + w] = pend1;
+        }
+        sync_dir();
+        if (w == 0 && lane == 0) {
+          int a = pb[W], b = pb[2 * W];
+#pragma unroll
+          for (int u = 1; u < W; ++u) {
+            a = max(a, pb[W + u]);
+            b = max(b, pb[2 * W + u]);
+          }
+          out[-span_step] = __fsub_rn(of_key(a), of_key(b));
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  };
+
+  const int mid = lw >> 1;
+  half(std::false_type{}, forward ? 0 : lw - 1, forward ? mid : lw - mid);
+  __syncthreads();  // the meet: each half of the history written
+  half(std::true_type{}, forward ? mid : mid - 1, forward ? lw - mid : mid);
+}
+
+// x[a] for a state index a < S held in registers: selects.
+template <int S>
+__device__ __forceinline__ float pick(const float (&x)[S], int a) {
+  float v = x[0];
+#pragma unroll
+  for (int s = 1; s < S; ++s) v = a == s ? x[s] : v;
+  return v;
+}
+
+constexpr int kThinRing = 32;  // steps the thin kernel copies ahead
+
+// The thin kernel's tables, passed by value: its parameters, uniform across
+// the CTA and read at compile-time indices, so a coefficient is an operand
+// of the constant bank and a pick's predicate is a uniform one.
+template <int S>
+struct ThinTables {
+  int nxt[2 * S];
+  int prev[2 * S];
+  float fw0[2 * S];
+  float fw1[2 * S];
+  float bw0[2 * S];
+  float bw1[2 * S];
+};
+
+// The thin kernel's shared memory in bytes: resident, the CTA's spans [2]
+// [lw][32] and half-histories [lw][S][32]; else the rings [2 warps][kThinRing]
+// [S + 2][32].
+template <int S, bool kResident>
+constexpr long long thin_smem(int lw) {
+  return kResident ? 4LL * lw * (S + 2) * 32 : 4LL * 2 * kThinRing * (S + 2) * 32;
+}
+
+// One direction of the thin kernel, both halves (kForward: alpha from t =
+// 0, else beta from t = lw - 1), for the lane's column col0 + lane.
+template <int S, bool kResident, bool kForward>
+__device__ __forceinline__ void thin_direction(const float* __restrict__ ls,
+                                               const float* __restrict__ lp,
+                                               float* __restrict__ llr, float* __restrict__ hist,
+                                               int lw, long long ncols, const ThinTables<S>& tb,
+                                               float* tsm, long long col0) {
+  constexpr int D = kThinRing;
+  constexpr int dt = kForward ? 1 : -1;
+  const int lane = threadIdx.x & 31;
+  const long long col = col0 + lane;
+  const bool in = col < ncols;
+  const long long cc = in ? col : 0;
+  float* const ring = tsm + (kForward ? 0 : D * (S + 2) * 32);  // [D][S + 2][32]
+  float* const hres = tsm + 2 * lw * 32;                        // [lw][S][32]
+  const int* const at = kForward ? tb.prev : tb.nxt;
+  const float* const c0 = kForward ? tb.fw0 : tb.bw0;
+  const float* const c1 = kForward ? tb.fw1 : tb.bw1;
+  const long long step_span = dt * ncols, step_hist = dt * S * ncols;
+  float n[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) n[s] = 0.0f;
+
+  auto half = [&](auto llr_c, int t0, int steps) {
+    constexpr bool kLLR = decltype(llr_c)::value;
+    int jn = 0;
+    const float* sn = ls + t0 * ncols + cc;
+    const float* pn = lp + t0 * ncols + cc;
+    const float* hn = hist + static_cast<long long>(t0) * S * ncols + cc;
+    auto issue = [&] {  // the ring: step jn's copies into its slot
+      if (jn < steps) {
+        float* const q = ring + (jn & (D - 1)) * (S + 2) * 32 + lane;
+        cp_async4(q, sn, in ? 4 : 0);
+        cp_async4(q + 32, pn, in ? 4 : 0);
+        if constexpr (kLLR) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) cp_async4(q + (2 + s) * 32, hn + s * ncols, in ? 4 : 0);
+        }
+      }
+      cp_commit();
+      ++jn;
+      sn += step_span;
+      pn += step_span;
+      hn += step_hist;
+    };
+    // step j's branch metrics: the recursion's, and (forward, second half)
+    // the LLR's, by the backward coefficients
+    float gb[S][2], gl[S][2];
+    auto metrics = [&](int j, float (&to)[S][2], float (&lo)[S][2]) {
+      float x, y;
+      if constexpr (kResident) {
+        const int t = min(max(t0 + dt * j, 0), lw - 1);
+        x = tsm[t * 32 + lane];
+        y = tsm[(lw + t) * 32 + lane];
+      } else {
+        const float* const q = ring + (j & (D - 1)) * (S + 2) * 32 + lane;
+        x = q[0];
+        y = q[32];
+      }
+#pragma unroll
+      for (int e = 0; e < 2 * S; ++e) {
+        to[e >> 1][e & 1] = branch_metric(c0[e], c1[e], x, y);
+        if (kLLR && kForward) lo[e >> 1][e & 1] = branch_metric(tb.bw0[e], tb.bw1[e], x, y);
+      }
+    };
+    if constexpr (!kResident) {
+      for (int j = 0; j < D - 1; ++j) issue();
+      cp_wait<D - 2>();
+    }
+    metrics(0, gb, gl);
+    float* hw = hist + static_cast<long long>(t0) * S * ncols + cc;
+    float* out = llr + t0 * ncols + cc;
+    for (int i = 0; i < steps; ++i) {
+      const int t = t0 + dt * i;
+      if constexpr (!kResident) {
+        cp_wait<D - 3>();  // this lane's copies of step i + 1
+        issue();           // step i + D - 1, into the slot of step i - 1
+      }
+      float gbn[S][2], gln[S][2];
+      metrics(i + 1, gbn, gln);  // off the chain
+      float mx = n[0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) mx = fmaxf(mx, n[s]);
+      float m[S], v[S][2];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        m[s] = __fsub_rn(n[s], mx);
+        v[s][0] = __fsub_rn(pick<S>(n, at[2 * s]), mx);
+        v[s][1] = __fsub_rn(pick<S>(n, at[2 * s + 1]), mx);
+      }
+      if constexpr (!kLLR) {
+        if constexpr (kResident) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) hres[(t * S + s) * 32 + lane] = m[s];
+        } else {
+          if (in) {
+#pragma unroll
+            for (int s = 0; s < S; ++s) hw[s * ncols] = m[s];
+          }
+          hw += step_hist;
+        }
+      } else {
+        float o[S];
+        if constexpr (kResident) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) o[s] = hres[(t * S + s) * 32 + lane];
+        } else {
+          const float* const q = ring + (i & (D - 1)) * (S + 2) * 32 + lane;
+#pragma unroll
+          for (int s = 0; s < S; ++s) o[s] = q[(2 + s) * 32];
+        }
+        // (alpha + gb) + beta[nxt]: forward alpha = m and beta the row's;
+        // backward alpha the row's, gb its own and beta[nxt] its gather v
+        float k0 = 0.0f, k1 = 0.0f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          float e0, e1;
+          if constexpr (kForward) {
+            e0 = __fadd_rn(__fadd_rn(m[s], gl[s][0]), pick<S>(o, tb.nxt[2 * s]));
+            e1 = __fadd_rn(__fadd_rn(m[s], gl[s][1]), pick<S>(o, tb.nxt[2 * s + 1]));
+          } else {
+            e0 = __fadd_rn(__fadd_rn(o[s], gb[s][0]), v[s][0]);
+            e1 = __fadd_rn(__fadd_rn(o[s], gb[s][1]), v[s][1]);
+          }
+          k0 = s == 0 ? e0 : fmaxf(k0, e0);
+          k1 = s == 0 ? e1 : fmaxf(k1, e1);
+        }
+        if (in) *out = __fsub_rn(k0, k1);
+        out += step_span;
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        n[s] = fmaxf(__fadd_rn(v[s][0], gb[s][0]), __fadd_rn(v[s][1], gb[s][1]));
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          gb[s][k] = gbn[s][k];
+          gl[s][k] = gln[s][k];
+        }
+      }
+    }
+    if constexpr (!kResident) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  };
+
+  const int mid = lw >> 1;
+  half(std::false_type{}, kForward ? 0 : lw - 1, kForward ? mid : lw - mid);
+  // the meet (both warps, from their own code): each half of the history written
+  asm volatile("bar.sync 1, 64;\n" ::: "memory");
+  half(std::true_type{}, kForward ? mid : mid - 1, kForward ? lw - mid : mid);
+}
+
+// S 2 and 3: warp 0 runs alpha forward and warp 1 beta backward over the
+// CTA's 32 columns, a column a lane, its S metrics in registers; the gather
+// picks among them by the tables (the kernel's parameters), and a step's
+// branch metrics are computed a step ahead. kResident (spans to 454 steps
+// at S 2, 363 at S 3): the CTA's spans come into shared memory once and the
+// half-histories stay there, as in the meet instance; else the spans and,
+// in the second half, the other direction's history row come through a
+// ring of the lane's own cp.async copies from the scratch, so no step waits
+// on another lane, and rarely on device memory. hist: float32 [lw][S][N]
+// (not resident).
+template <int S, bool kResident>
+__global__ void __launch_bounds__(64)
+bcjr_kernel_thin(const float* __restrict__ ls, const float* __restrict__ lp,
+                 float* __restrict__ llr, float* __restrict__ hist, int lw,
+                 long long ncols, const __grid_constant__ ThinTables<S> tb) {
+  extern __shared__ __align__(16) float tsm[];
+  const long long col0 = static_cast<long long>(blockIdx.x) * 32;
+  if constexpr (kResident) {  // the CTA's spans [2][lw][32]; past N as zero
+    for (int i = threadIdx.x; i < 2 * lw * 32; i += 64) {
+      const int r = i >> 5, q = i & 31;
+      const int t = r < lw ? r : r - lw;
+      const bool ok = col0 + q < ncols;
+      const float* src = (r < lw ? ls : lp) + static_cast<long long>(t) * ncols + (ok ? col0 + q : 0);
+      cp_async4(tsm + i, src, ok ? 4 : 0);
+    }
+    cp_commit();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+    thin_direction<S, kResident, true>(ls, lp, llr, hist, lw, ncols, tb, tsm, col0);
+  } else {
+    thin_direction<S, kResident, false>(ls, lp, llr, hist, lw, ncols, tb, tsm, col0);
+  }
+}
+
+// ---------------------------------------------------- the wide route (PR 19)
+
 // The block maximum of R max_keys a thread (redux.sync a warp, then the
 // warps' through shared memory, one barrier); red: [2][R][warps],
 // alternating by `parity` so that one barrier a step suffices.
 template <int R>
-__device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kBlockThreads / 32],
+__device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kWideThreads / 32],
                                           int parity) {
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -907,7 +1355,7 @@ __device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kBlockThreads 
   for (int r = 0; r < R; ++r) {
     k[r] = red[parity * R + r][0];
 #pragma unroll
-    for (int w = 1; w < kBlockThreads / 32; ++w) k[r] = max(k[r], red[parity * R + r][w]);
+    for (int w = 1; w < kWideThreads / 32; ++w) k[r] = max(k[r], red[parity * R + r][w]);
   }
 }
 
@@ -915,13 +1363,13 @@ __device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kBlockThreads 
 // [fw0; fw1; bw0; bw1], each [S][2], on the card; hist: the column's beta
 // history [lw][S] at hist + col lw S; mscratch: two buffers of S floats a
 // column, or null for shared memory.
-__global__ void __launch_bounds__(kBlockThreads)
-bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
-                  float* __restrict__ llr, float* hist, float* mscratch, int lw,
-                  long long ncols, int S, const int* __restrict__ idx,
-                  const float* __restrict__ coef) {
+__global__ void __launch_bounds__(kWideThreads)
+bcjr_kernel_wide(const float* __restrict__ ls, const float* __restrict__ lp,
+                 float* __restrict__ llr, float* hist, float* mscratch, int lw,
+                 long long ncols, int S, const int* __restrict__ idx,
+                 const float* __restrict__ coef) {
   extern __shared__ float smb[];
-  __shared__ int red[2 * 3][kBlockThreads / 32];
+  __shared__ int red[2 * 3][kWideThreads / 32];
   const int tid = threadIdx.x;
   const long long col = blockIdx.x;
   float* ma = mscratch != nullptr ? mscratch + col * 2 * S : smb;
@@ -935,7 +1383,7 @@ bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
   const float* bw1 = coef + 6 * S;
 
   // backward: beta[s] = ma[s] - mx, zero at t = lw - 1
-  for (int s = tid; s < S; s += kBlockThreads) ma[s] = 0.0f;
+  for (int s = tid; s < S; s += kWideThreads) ma[s] = 0.0f;
   float mx = 0.0f;
   __syncthreads();
   for (int i = 0; i < lw; ++i) {
@@ -944,7 +1392,7 @@ bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
     const float lp_t = __ldg(lp + t * ncols + col);
     float* ht = h + static_cast<long long>(t) * S;
     int k[1] = {kNoKey};
-    for (int s = tid; s < S; s += kBlockThreads) {
+    for (int s = tid; s < S; s += kWideThreads) {
       ht[s] = __fsub_rn(ma[s], mx);
       const float c0 = __fadd_rn(__fsub_rn(ma[__ldg(nxt + 2 * s)], mx),
                                  branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t));
@@ -964,7 +1412,7 @@ bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
 
   // forward: alpha[s] = ma[s] - mx, zero at t = 0; the LLR from alpha, the
   // backward step's branch metrics and beta_t
-  for (int s = tid; s < S; s += kBlockThreads) ma[s] = 0.0f;
+  for (int s = tid; s < S; s += kWideThreads) ma[s] = 0.0f;
   mx = 0.0f;
   __syncthreads();
   for (int t = 0; t < lw; ++t) {
@@ -972,7 +1420,7 @@ bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
     const float lp_t = __ldg(lp + t * ncols + col);
     const float* ht = h + static_cast<long long>(t) * S;
     int k[3] = {kNoKey, kNoKey, kNoKey};
-    for (int s = tid; s < S; s += kBlockThreads) {
+    for (int s = tid; s < S; s += kWideThreads) {
       const float a = __fsub_rn(ma[s], mx);
       const float c0 = __fadd_rn(
           __fadd_rn(a, branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t)),
@@ -1000,17 +1448,88 @@ bcjr_block_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
   }
 }
 
-int launch_block(const float* ls, const float* lp, float* llr, float* hist, float* mscratch,
-                 int lw, long long ncols, int s_count, const int* idx, const float* coef,
-                 cudaStream_t stream) {
+int launch_wide(const float* ls, const float* lp, float* llr, float* hist, float* mscratch,
+                int lw, long long ncols, int s_count, const int* idx, const float* coef,
+                cudaStream_t stream) {
   const size_t smem = mscratch != nullptr ? 0 : 2 * static_cast<size_t>(s_count) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bcjr_block_kernel,
+  cudaError_t err = cudaFuncSetAttribute(bcjr_kernel_wide,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bcjr_block_kernel<<<static_cast<unsigned>(ncols), kBlockThreads, smem, stream>>>(
+  bcjr_kernel_wide<<<static_cast<unsigned>(ncols), kWideThreads, smem, stream>>>(
       ls, lp, llr, hist, mscratch, lw, ncols, s_count, idx, coef);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R, int L, int W>
+int launch_block(const float* ls, const float* lp, float* llr, float* hist, int lw,
+                 long long ncols, int S, const int* idx, const float* coef,
+                 cudaStream_t stream) {
+  constexpr int smem = block_smem<R, L, W>();
+  static int opted[64] = {};
+  const int rc = opt_in(bcjr_kernel_block<R, L, W>, smem, opted);
+  if (rc) return rc;
+  const long long blocks = (ncols + 32 / L - 1) / (32 / L);
+  bcjr_kernel_block<R, L, W><<<static_cast<unsigned>(blocks), 64 * W, smem, stream>>>(
+      ls, lp, llr, hist, lw, ncols, S, idx, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, bool kResident>
+int launch_thin(const float* ls, const float* lp, float* llr, float* hist, int lw,
+                long long ncols, const int* hidx, const float* hcoef, cudaStream_t stream) {
+  ThinTables<S> tb;
+  for (int e = 0; e < 2 * S; ++e) {
+    tb.nxt[e] = hidx[e];
+    tb.prev[e] = hidx[2 * S + e];
+    tb.fw0[e] = hcoef[e];
+    tb.fw1[e] = hcoef[2 * S + e];
+    tb.bw0[e] = hcoef[4 * S + e];
+    tb.bw1[e] = hcoef[6 * S + e];
+  }
+  const long long smem = thin_smem<S, kResident>(lw);
+  static int opted[64] = {};
+  const int rc = opt_in(bcjr_kernel_thin<S, kResident>, smem, opted);
+  if (rc) return rc;
+  const long long blocks = (ncols + 31) / 32;
+  bcjr_kernel_thin<S, kResident><<<static_cast<unsigned>(blocks), 64,
+                                   static_cast<size_t>(smem), stream>>>(ls, lp, llr, hist, lw,
+                                                                        ncols, tb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_thin(const float* ls, const float* lp, float* llr, float* hist, int lw,
+                long long ncols, const int* hidx, const float* hcoef, cudaStream_t stream) {
+  return thin_smem<S, true>(lw) <= kMaxSmem
+             ? launch_thin<S, true>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream)
+             : launch_thin<S, false>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream);
+}
+
+// The block instance's route at S states (ops/cuda/bcjr.py block_layout
+// mirrors it): S 2-3 thin; 4-32 a state a lane, L the power of two >= S;
+// 33-256 one warp a direction, R the power of two >= S / 32; 257-1,024 W =
+// ceil(S / 256) warps a direction of 8 states a lane; past that the wide
+// route (mscratch: its metric buffers past 28,928 states, else null).
+int launch_block_route(const float* ls, const float* lp, float* llr, float* hist,
+                       float* mscratch, int lw, long long ncols, int S, const int* idx,
+                       const float* coef, const int* hidx, const float* hcoef,
+                       cudaStream_t stream) {
+  const auto a = std::make_tuple(ls, lp, llr, hist, lw, ncols, S, idx, coef, stream);
+  auto go = [&](auto f) { return std::apply(f, a); };
+  if (S == 2) return launch_thin<2>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream);
+  if (S == 3) return launch_thin<3>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream);
+  if (S <= 4) return go(launch_block<1, 4, 1>);
+  if (S <= 8) return go(launch_block<1, 8, 1>);
+  if (S <= 16) return go(launch_block<1, 16, 1>);
+  if (S <= 32) return go(launch_block<1, 32, 1>);
+  if (S <= 64) return go(launch_block<2, 32, 1>);
+  if (S <= 128) return go(launch_block<4, 32, 1>);
+  if (S <= 256) return go(launch_block<8, 32, 1>);
+  if (S <= 512) return go(launch_block<8, 32, 2>);
+  if (S <= 768) return go(launch_block<8, 32, 3>);
+  if (S <= kBlockStates) return go(launch_block<8, 32, 4>);
+  return launch_wide(ls, lp, llr, hist, mscratch, lw, ncols, S, idx, coef, stream);
 }
 
 // Runs launch() with card `device` current (and the caller's put back).
@@ -1062,30 +1581,6 @@ extern "C" int bcjr_lanes_launch(const void* ls, const void* lp, void* llr, int 
   });
 }
 
-// bcjr_launch, the column instance, for spans too long for the lanes
-// instance's shared memory and for 2 and 3 states. The caller guarantees:
-// ls, lp, llr float32 [lw, ncols] and scratch float32 [lw, s_count, ncols],
-// contiguous; s_count in {2, 3, 4, 8, 16, 32, 64}; idx a host int32 array [nxt; prev_s] of
-// 2 x s_count x 2 entries with every entry in [0, s_count); coef a host
-// float32 array [fw0; fw1; bw0; bw1] of 4 x s_count x 2 entries.
-extern "C" int bcjr_launch(const void* ls, const void* lp, void* llr, void* scratch,
-                           int lw, long long ncols, int s_count, const int* idx,
-                           const float* coef, int device, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&] {
-    switch (s_count) {
-      case 2: return launch<2>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 3: return launch<3>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 4: return launch<4>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 8: return launch<8>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 16: return launch<16>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 32: return launch<32>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      case 64: return launch<64>(ls, lp, llr, scratch, lw, ncols, idx, coef, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  });
-}
-
 // bcjr_rsc8_launch, the meet instance for tables whose nxt and prev_s equal
 // Rsc8's and whose coefficients factor through its classes (checked by the
 // wrapper). ls, lp, llr float32 [lw, ncols], contiguous, lw >= 1; cols
@@ -1111,23 +1606,28 @@ extern "C" int bcjr_rsc8_launch(const void* ls, const void* lp, void* llr, int l
   });
 }
 
-// bcjr_block_launch, the block instance (one CTA a column), for any state
-// count. ls, lp, llr float32 [lw, ncols], contiguous, lw >= 1, 1 <= ncols <
-// 2^31, s_count >= 2; idx int32 [nxt; prev_s] (2 x s_count x 2 entries, each
-// in [0, s_count)) and coef float32 [fw0; fw1; bw0; bw1] (4 x s_count x 2),
-// both on the card; hist float32 [ncols, lw, s_count] on the card; mscratch
-// float32 [ncols, 2, s_count] on the card, or null where 2 s_count floats
-// fit the card's opt-in shared memory beside the block's 192 bytes.
+// bcjr_block_launch, the block instance, for any state count and span. ls,
+// lp, llr float32 [lw, ncols], contiguous, lw >= 1, 1 <= ncols < 2^31,
+// s_count >= 2; idx int32 [nxt; prev_s] (2 x s_count x 2 entries, each in
+// [0, s_count)) and coef float32 [fw0; fw1; bw0; bw1] (4 x s_count x 2),
+// both on the card, and hidx, hcoef the same tables on the host (the thin
+// route's parameters); hist on the card, float32: [lw][s_count][ncols] at
+// s_count 2-3 past thin_smem's span (else unused), [ceil(ncols / G)][lw][G
+// P] to 1,024 states (block_layout's G and P), [ncols][lw][s_count] past
+// that; mscratch float32 [ncols][2][s_count] on the card past 28,928
+// states, else null.
 extern "C" int bcjr_block_launch(const void* ls, const void* lp, void* llr, void* hist,
                                  void* mscratch, int lw, long long ncols, int s_count,
-                                 const void* idx, const void* coef, int device, void* stream) {
+                                 const void* idx, const void* coef, const int* hidx,
+                                 const float* hcoef, int device, void* stream) {
   if (lw < 1 || ncols < 1 || ncols > 0x7fffffffLL || s_count < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    return launch_block(static_cast<const float*>(ls), static_cast<const float*>(lp),
-                        static_cast<float*>(llr), static_cast<float*>(hist),
-                        static_cast<float*>(mscratch), lw, ncols, s_count,
-                        static_cast<const int*>(idx), static_cast<const float*>(coef), s);
+    return launch_block_route(static_cast<const float*>(ls), static_cast<const float*>(lp),
+                              static_cast<float*>(llr), static_cast<float*>(hist),
+                              static_cast<float*>(mscratch), lw, ncols, s_count,
+                              static_cast<const int*>(idx), static_cast<const float*>(coef),
+                              hidx, hcoef, s);
   });
 }

@@ -340,7 +340,10 @@ class PacketModem:
             m_fold = 2 ** self.modulation.bits_per_symbol
             fine = _sync.estimate_cfo_blind(eq, m_fold)
             eq = _sync.apply_freq_shift(eq, fine)
-            phi = _sync.estimate_phase_mpsk(eq, m_fold)
+            # the psk tables lie on the axes (1, -1; 1, j, -1, -j), the
+            # bpsk / qpsk tables on the diagonals
+            grid = "axes" if self.modulation.name.startswith("psk") else "diagonal"
+            phi = _sync.estimate_phase_mpsk(eq, m_fold, grid)
             eq = eq * torch.complex(torch.cos(-phi), torch.sin(-phi))[..., None]
         llr = self.modulation.demod_soft(eq, noise_var[..., None])
         if self.mod_pad:

@@ -29,12 +29,15 @@ for the meet instance: the same meeting warps with a column's states spread
 over lanes and its half-histories in shared memory, up to
 :func:`lanes_span_limit` steps; a step's metrics are gathered by shuffles
 where the tables are the shift-register pattern (:func:`shift_register`),
-else through shared memory by the tables. ``"column"``: longer spans, and
-every span at 2 and 3 states (:data:`COLUMN_STATES`); one thread per
-column, the beta history in a device scratch. ``"block"``: every other
-state count (5-7, 9-15, ..., 128, 256 and up), one CTA a column, the beta
-history in a device scratch and the metrics in shared memory up to
-:data:`BLOCK_SMEM_STATES` states, in the scratch past that. All take any
+else through shared memory by the tables. ``"block"``: every other call
+(state counts outside 4-64, spans past the lanes limit): the same meeting
+schedule in the route :func:`block_layout` names: ``"thin"`` at 2 and 3
+states (a column a lane; spans and half-histories in shared memory up to
+:func:`thin_resident_span`), ``"block"`` to :data:`BLOCK_STATES` (a
+column's states over the lanes of 1-4 warps a direction, their tables in
+registers), ``"wide"`` past that (a CTA a column, tables read a step);
+past shared memory the half-histories go to a device scratch and come back
+ahead of need through a ``cp.async`` ring. All take any
 ``N``, ragged or not, and any ``Lw >= 1``; the limit is the card's memory.
 """
 
@@ -52,12 +55,14 @@ from . import CARD_BYTES, build
 #: calls that raise do not count).
 launches = 0
 
-#: The state counts of the rsc8, lanes and column instances' compiled
-#: tables; the column instance also takes :data:`COLUMN_STATES`, and the
-#: block instance any other count.
+#: The state counts of the rsc8 and lanes instances' compiled tables; the
+#: block instance takes any count.
 KERNEL_STATES = (4, 8, 16, 32, 64)
-COLUMN_STATES = (2, 3)
-#: The block instance keeps its two metric buffers (2 S floats) in shared
+#: The most states the block instance's ``block`` route takes (4 warps a
+#: direction of 8 states a lane, their tables in registers); past it the
+#: ``wide`` route.
+BLOCK_STATES = 1024
+#: The ``wide`` route keeps its two metric buffers (2 S floats) in shared
 #: memory up to this many states, in the device scratch past it.
 BLOCK_SMEM_STATES = (232_448 - 1_024) // 8
 #: Columns a CTA of the meet instance takes (one lane of a forward and of a
@@ -154,16 +159,47 @@ def lanes_span_limit(s_count: int) -> int:
     return (_MEET_SMEM // 4 - 4 * g * s_count) // (g * (s_count + 2))
 
 
+def block_layout(s_count: int):
+    """The block instance's route at ``s_count`` states, ``(route, R, L, W,
+    G, P)`` (``csrc/bcjr.cu launch_block_route``): ``R`` states a lane,
+    ``L`` lanes and ``W`` warps a column and direction, ``G`` columns a CTA,
+    ``P`` the padded states a column. ``"thin"`` at 2 and 3 states (a column
+    a lane, ``R = S``); ``"block"`` to :data:`BLOCK_STATES`: 4-32 states a
+    state a lane (``L`` the power of two >= S, ``32 / L`` columns a warp),
+    33-256 one warp (``R`` the power of two >= S / 32), past 256 ``W = ceil(S
+    / 256)`` warps of 8 states a lane; ``"wide"`` past that (a CTA a
+    column)."""
+    if s_count <= 3:
+        return "thin", s_count, 1, 1, 32, s_count
+    if s_count <= 32:
+        lanes = max(4, 1 << (s_count - 1).bit_length())
+        return "block", 1, lanes, 1, 32 // lanes, lanes
+    if s_count <= 256:
+        r = 1 << (-(-s_count // 32) - 1).bit_length()
+        return "block", r, 32, 1, 1, 32 * r
+    if s_count <= BLOCK_STATES:
+        w = -(-s_count // 256)
+        return "block", 8, 32, w, 1, 256 * w
+    return "wide", 0, 0, 0, 1, s_count
+
+
+def thin_resident_span(s_count: int) -> int:
+    """The longest span whose spans and half-histories the thin route (2 or
+    3 states) keeps in a CTA's shared memory, ``Lw x (S + 2) x 32`` floats
+    (``csrc/bcjr.cu thin_smem``): 454 steps at S 2, 363 at S 3; longer
+    spans go through the scratch."""
+    return _MEET_SMEM // (4 * (s_count + 2) * 32)
+
+
 def kernel_plan(tables, lw: int):
     """The instance a call on the card takes: ``("rsc8", c)``, the meet
     instance at the first columns a CTA ``c`` of :data:`MEET_COLS` whose
     spans and history (``Lw`` x ``c`` x 40 bytes) fit a CTA's shared
     memory; else ``("lanes", g)``, ``g`` columns a CTA, up to
-    :func:`lanes_span_limit`; else ``("column", 0)``; at 2 and 3 states
-    ``("column", 0)``, and at any other state count outside
-    :data:`KERNEL_STATES` ``("block", 0)``. Raises ValueError where one
-    column's device scratch does not fit the card's memory
-    (:data:`CARD_BYTES`)."""
+    :func:`lanes_span_limit`; else, and at any state count outside
+    :data:`KERNEL_STATES`, ``("block", g)``, ``g`` columns a CTA of
+    :func:`block_layout`. Raises ValueError where one column's device
+    scratch does not fit the card's memory (:data:`CARD_BYTES`)."""
     idx, _, instance, _ = _host_tables(tables if tables is not None else rsc8_tables())
     s_count = idx.shape[1]
     if scratch_bytes(s_count, lw, 1) > CARD_BYTES:
@@ -171,25 +207,30 @@ def kernel_plan(tables, lw: int):
             f"the CUDA BCJR kernel does not take {s_count} states over {lw} steps: a "
             f"column's scratch exceeds the card's memory ({CARD_BYTES} bytes)"
         )
-    if s_count in COLUMN_STATES:
-        return "column", 0
-    if s_count not in KERNEL_STATES:
-        return "block", 0
-    if instance == "rsc8":
-        for c in MEET_COLS:
-            if lw * c * (_MEET_STATES + 2) * 4 <= _MEET_SMEM:
-                return "rsc8", c
-    if lw <= lanes_span_limit(s_count):
-        return "lanes", 32 // min(s_count, 32)
-    return "column", 0
+    if s_count in KERNEL_STATES:
+        if instance == "rsc8":
+            for c in MEET_COLS:
+                if lw * c * (_MEET_STATES + 2) * 4 <= _MEET_SMEM:
+                    return "rsc8", c
+        if lw <= lanes_span_limit(s_count):
+            return "lanes", 32 // min(s_count, 32)
+    return "block", block_layout(s_count)[4]
 
 
 def scratch_bytes(s_count: int, lw: int, n: int) -> int:
-    """Device scratch bytes of a call on ``n`` columns at most: the beta
-    history (``Lw x S x N`` floats, the column and block instances), and the
-    block instance's metric buffers past :data:`BLOCK_SMEM_STATES`."""
-    metrics = 2 * s_count * n if s_count > BLOCK_SMEM_STATES else 0
-    return 4 * (lw * s_count * n + metrics)
+    """Device scratch bytes of a block-instance call on ``n`` columns: the
+    half-histories, ``Lw`` x ``P`` floats a column (``P`` the padded states
+    of :func:`block_layout`, whole CTAs of ``G`` columns; none where the
+    thin route keeps them in shared memory, to :func:`thin_resident_span`),
+    and the ``wide`` route's metric buffers past
+    :data:`BLOCK_SMEM_STATES`."""
+    route, _, _, _, g, p = block_layout(s_count)
+    if route == "thin" and lw <= thin_resident_span(s_count):
+        return 0
+    if route == "wide":
+        metrics = 2 * s_count * n if s_count > BLOCK_SMEM_STATES else 0
+        return 4 * (lw * s_count * n + metrics)
+    return 4 * lw * p * g * (-(-n // g))
 
 
 def _check_args(ls, lp, lw: int):
@@ -246,10 +287,6 @@ def bcjr_windowed_llr_reference(ls, lp, lw: int, tables=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _entries():
     lib = build.load("bcjr")
-    column = lib.bcjr_launch
-    column.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    column.restype = ctypes.c_int
     meet = lib.bcjr_rsc8_launch
     meet.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
                      + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
@@ -261,9 +298,9 @@ def _entries():
     lanes.restype = ctypes.c_int
     block = lib.bcjr_block_launch
     block.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                      + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
     block.restype = ctypes.c_int
-    return column, meet, lanes, block
+    return meet, lanes, block
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,11 +344,11 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
     prev_s, fw0, fw1, bw0, bw1)`` tuples, None for the turbo RSC-8 trellis.
 
     On a CUDA tensor this launches the kernel of ``csrc/bcjr.cu`` on the
-    current stream, in the instance :func:`kernel_plan` names (the column
-    one with an ``[Lw, S, N]`` float32 scratch for the beta history, the
-    block one with an ``[N, Lw, S]`` one); it raises where the scratch
-    exceeds the card's memory, a dtype other than float32, non-contiguous spans, a missing ``nvcc``, a failed build or a
-    failed launch. On a CPU tensor it is :func:`bcjr_windowed_llr_reference`.
+    current stream, in the instance :func:`kernel_plan` names (the block
+    one with a float32 scratch of :func:`scratch_bytes` for the
+    half-histories); it raises where the scratch exceeds the card's memory,
+    a dtype other than float32, non-contiguous spans, a missing ``nvcc``, a
+    failed build or a failed launch. On a CPU tensor it is :func:`bcjr_windowed_llr_reference`.
     NaN input is outside the contract: the kernel's ``fmaxf`` and the plain
     version's ``torch.maximum`` treat it differently.
     """
@@ -322,9 +359,9 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         raise ValueError(f"bcjr_windowed_llr runs on cpu or cuda, not {ls.device.type}")
     if not (ls.is_contiguous() and lp.is_contiguous()):
         raise ValueError("bcjr_windowed_llr takes contiguous spans")
-    idx, coef, cls, instance, cols, shift = _plan(tables, lw)
+    idx, _, cls, instance, cols, shift = _plan(tables, lw)
     n = ls.shape[1]
-    need = scratch_bytes(idx.shape[1], lw, n) if instance in ("column", "block") else 0
+    need = scratch_bytes(idx.shape[1], lw, n) if instance == "block" else 0
     total = torch.cuda.get_device_properties(ls.device).total_memory if need else 0
     if need > total or n >= 1 << 31:
         raise ValueError(
@@ -339,26 +376,9 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         _launch_meet(ls, lp, out, lw, cols, cls)
     elif instance == "lanes":
         _launch_lanes(ls, lp, out, lw, tables, shift)
-    elif instance == "block":
-        _launch_block(ls, lp, out, lw, tables)
     else:
-        scratch = torch.empty((lw, idx.shape[1], n), dtype=torch.float32, device=ls.device)
-        _launch(ls, lp, out, lw, idx, coef, scratch)
+        _launch_block(ls, lp, out, lw, tables)
     return out
-
-
-def _launch(ls, lp, out, lw: int, idx, coef, scratch) -> None:
-    """One launch of the column instance, counted in :data:`launches`."""
-    global launches
-    index = ls.get_device()
-    rc = _entries()[0](
-        ls.data_ptr(), lp.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        lw, ls.shape[1], idx.shape[1], idx.ctypes.data, coef.ctypes.data,
-        index, torch._C._cuda_getCurrentRawStream(index),
-    )
-    if rc != 0:
-        raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
-    launches += 1
 
 
 def _launch_lanes(ls, lp, out, lw: int, tables, shift: bool) -> None:
@@ -369,7 +389,7 @@ def _launch_lanes(ls, lp, out, lw: int, tables, shift: bool) -> None:
     global launches
     index = ls.get_device()
     idx_t, coef_t = _card_tables(tables, index)
-    rc = _entries()[2](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), lw, ls.shape[1],
+    rc = _entries()[1](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), lw, ls.shape[1],
                        idx_t.shape[1], int(shift), idx_t.data_ptr(), coef_t.data_ptr(),
                        index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
@@ -387,7 +407,7 @@ def _launch_meet(ls, lp, out, lw: int, cols: int, cls) -> None:
     a, b = ls.data_ptr(), lp.data_ptr()
     vec = int(n % 4 == 0 and cols % 4 == 0 and a % 16 == 0 and b % 16 == 0)
     index = ls.get_device()
-    rc = _entries()[1](a, b, out.data_ptr(), lw, n, cols, vec, cls.ctypes.data, index,
+    rc = _entries()[0](a, b, out.data_ptr(), lw, n, cols, vec, cls.ctypes.data, index,
                        torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
@@ -395,21 +415,27 @@ def _launch_meet(ls, lp, out, lw: int, cols: int, cls) -> None:
 
 
 def _launch_block(ls, lp, out, lw: int, tables) -> None:
-    """One launch of the block instance with ``tables``, counted in
-    :data:`launches`: its beta history (and, past
-    :data:`BLOCK_SMEM_STATES`, its metric buffers) in a scratch allocated
-    here."""
+    """One launch of the block instance with ``tables``, at any state count
+    and span (the route of :func:`block_layout`), counted in
+    :data:`launches`: its half-histories (and, past
+    :data:`BLOCK_SMEM_STATES`, the wide route's metric buffers) in a
+    scratch allocated here. A private entry: the wrapper takes it where
+    :func:`kernel_plan` names the block instance, a bench or a check may
+    call it at any state count to time the design against another
+    instance."""
     global launches
     index = ls.get_device()
     idx_t, coef_t = _card_tables(tables, index)
+    idx, coef, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
     s_count, n = idx_t.shape[1], ls.shape[1]
-    hist = torch.empty((n, lw, s_count), dtype=torch.float32, device=ls.device)
-    metrics = (torch.empty((n, 2, s_count), dtype=torch.float32, device=ls.device)
-               if s_count > BLOCK_SMEM_STATES else None)
-    rc = _entries()[3](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), hist.data_ptr(),
+    hist = torch.empty(scratch_bytes(s_count, lw, n) // 4, dtype=torch.float32,
+                       device=ls.device)
+    metrics = (hist[lw * s_count * n:] if block_layout(s_count)[0] == "wide"
+               and s_count > BLOCK_SMEM_STATES else None)
+    rc = _entries()[2](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), hist.data_ptr(),
                        None if metrics is None else metrics.data_ptr(), lw, n, s_count,
-                       idx_t.data_ptr(), coef_t.data_ptr(), index,
-                       torch._C._cuda_getCurrentRawStream(index))
+                       idx_t.data_ptr(), coef_t.data_ptr(), idx.ctypes.data,
+                       coef.ctypes.data, index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -7,39 +7,50 @@ float32: window 64, guard 16, 256 bursts x 10 windows; the RSC-8 trellis):
 the meet instance at 8, 16, 24 and 32 columns a CTA (the port ships 16 and
 8; ``benches/torch_bcjr_sweep.cu`` builds all four from the port's source
 with one more C entry), the meet instance at Lw 2, 24 and 48 (its fixed
-cost and its cost a step), and the lanes and column instances on the same
+cost and its cost a step), and the lanes and block instances on the same
 tables. Then the K=7 conv trellis (S 64) through the lanes instance (its
-shuffle form and, forced, its table form) and the column instance (the one-thread-per-column kernel), at the same
-spans and at the ccsds + erasures launch (``[224, 5632]``: window 96, guard
-64, 256 captures x 22 windows), with ``--parent`` the parent tree's kernel
-beside them, in turns. Each case is first held ``torch.equal`` to the plain
-twin. Times by CUDA events (median of 3 runs of 50 launches, outputs
-allocated once: bound by the host where a launch is shorter than its Python
-call) and by ``torch.profiler`` (the kernel's own device time, median of 2
-x 20 launches), with the card's name and power limit on every line, beside
-the bound (the FP32 operations the function needs a step and column, none
-an FMA, at 33.5 T a second: 16 S + 21 where the coefficients factor
-through four classes, as for the RSC-8 and conv tables, and 28 S - 3 for
-any tables, both printed; or the bytes at 3.35 TB/s) and the chain floor (Lw steps x 6
-dependent FP32 operations x 4 cycles at the card's maximum SM clock: an
-estimate from assumed counts, not a measurement). First it prints the
-compiler's register and spill report and, for each meet and lanes instance, its machine instructions by
-opcode (``cuobjdump -sass`` of the build: static counts, loops counted once
-per copy).
+shuffle form and, forced, its table form) and the block instance (forced
+through ``bk._launch_block``), at the same spans and at the ccsds +
+erasures launch (``[224, 5632]``: window 96, guard 64, 256 captures x 22
+windows). Then the block instance's own shapes (``REACH``): S 2 and 3
+(random tables), 128, 256 (N 2,048) and 1,024 (N 256), conv codes of K 8,
+9 and 11, at Lw 224, and the K=7 and K=3 codes one step past the lanes
+instance's span limit (Lw 877 and 1,209, N 2,048). With ``--parent DIR``
+each case also runs through the parent tree's wrapper, in turns. Each
+case is first held ``torch.equal`` to the plain twin. Times by CUDA
+events (median of 3 runs of 50 launches, outputs allocated once: bound by
+the host where a launch is shorter than its Python call) and by
+``torch.profiler`` (the kernel's own device time, median of 2 x 20
+launches), with the card's name and power limit on every line, beside the
+bound (the FP32 operations the function needs a step and column, none an
+FMA, at 33.5 T a second: 16 S + 21 where the coefficients factor through
+four classes, as for the RSC-8 and conv tables, and 28 S - 3 for any
+tables, both printed; or the bytes at 3.35 TB/s), the block instance's
+history floor (its half-histories, Lw x P x 4 bytes a column, written and
+read once at 3.35 TB/s) and the chain floor (Lw steps x 6 dependent FP32
+operations x 4 cycles at the card's maximum SM clock: an estimate from
+assumed counts, not a measurement). First it prints the compiler's
+register and spill report and, for each meet, lanes and block kernel, its
+machine instructions by opcode (``cuobjdump -sass`` of the build: static
+counts, loops counted once per copy).
 
-``--parent DIR``: also build ``DIR``'s ``csrc/bcjr.cu`` (C entry
-``bcjr_launch(ls, lp, llr, scratch, lw, ncols, s_count, idx, coef, device,
-stream)``, its generic instance) and time it the same way.
+``--parent DIR``: a checkout of the parent tree (``git archive``): its
+package imported as ``parent_port`` (its kernels built into ``DIR``'s own
+``build/``), its ``bcjr_windowed_llr`` timed beside this tree's at every
+shape, in turns (parent, this, this, parent, ...).
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 benches/torch_bcjr_sweep.py [--parent DIR]``. Imports the port
 only.
 """
 
+
 import argparse
 import collections
 import ctypes
 import functools
+import importlib
+import importlib.util
 import re
 import subprocess
 import sys
@@ -53,6 +64,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from aether_primitives_tpu_torch.cli import (  # noqa: E402
     card_label, kernel_device_ms, max_sm_clock_hz, time_cuda,
 )
+from chip_smoke import random_tables  # noqa: E402
 from aether_primitives_tpu_torch.ops import fec  # noqa: E402
 from aether_primitives_tpu_torch.ops.cuda import bcjr as bk  # noqa: E402
 from aether_primitives_tpu_torch.ops.cuda import build  # noqa: E402
@@ -64,6 +76,17 @@ ITERS, RUNS = 50, 3
 # BCJR's adds, multiplies and maxima never fuse, so 33.5 T instructions/s
 PEAK_INSTR, PEAK_BYTES = 33.5e12, 3.35e12
 CHAIN_OPS, OP_CYCLES = 6, 4  # dependent FP32 ops a step (add, max, 3-level tree, sub)
+# the block instance's shapes: (label, S, conv code (K, generators) or None
+# for random tables, Lw, N); None Lw: one step past the lanes limit
+REACH = (
+    ("S 2 (K=2)", 2, (2, (0o3, 0o1)), 224, 2048),
+    ("S 3 (random tables)", 3, None, 224, 2048),
+    ("S 128 (K=8)", 128, (8, (0o247, 0o371)), 224, 2048),
+    ("S 256 (K=9)", 256, (9, (0o561, 0o753)), 224, 2048),
+    ("S 1,024 (K=11)", 1024, (11, (0o2467, 0o3565)), 224, 256),
+    ("S 64 (K=7) past the lanes limit", 64, (7, (0o171, 0o133)), None, 2048),
+    ("S 4 (K=3) past the lanes limit", 4, (3, (0o5, 0o7)), None, 2048),
+)
 
 
 def bcjr_ops(lw: int, n: int, s_count: int, classes: bool) -> int:
@@ -74,8 +97,8 @@ def bcjr_ops(lw: int, n: int, s_count: int, classes: bool) -> int:
 
 
 def sass_opcodes(card: str) -> None:
-    """Static SASS instruction counts by opcode of the meet and lanes
-    instances."""
+    """Static SASS instruction counts by opcode of the meet, lanes and block
+    instances' kernels."""
     lib = build.library_path("bcjr")
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -93,6 +116,7 @@ def sass_opcodes(card: str) -> None:
     for fname, c in counts.items():
         m = re.search(r"bcjr_kernel_meetINS_4Rsc8ELi(\d+)E", fname)
         lanes = re.search(r"bcjr_kernel_lanesILi(\d+)ELb([01])E", fname)
+        block = re.search(r"bcjr_kernel_(?:blockILi(\d+)ELb([01])E|thinILi(\d+)E)", fname)
         top = ", ".join(f"{op} {k}" for op, k in c.most_common(9))
         if m:
             print(f"  sass meet {m.group(1)} cols: {sum(c.values())} instructions: {top} "
@@ -101,6 +125,10 @@ def sass_opcodes(card: str) -> None:
             form = "shuffle" if lanes.group(2) == "1" else "table"
             print(f"  sass lanes S {lanes.group(1)} {form} form: {sum(c.values())} "
                   f"instructions: {top} [{card}]")
+        elif block:
+            form = (f"thin S {block.group(3)}" if block.group(3) else
+                    f"block R {block.group(1)}{' multi-warp' if block.group(2) == '1' else ''}")
+            print(f"  sass {form}: {sum(c.values())} instructions: {top} [{card}]")
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,20 +152,65 @@ def sweep_library():
     return wide
 
 
-def parent_entry(root: str):
-    """The parent tree's BCJR kernel, built beside the port's builds."""
-    src = Path(root) / "aether_primitives_tpu_torch" / "csrc" / "bcjr.cu"
-    out = build.BUILD_DIR / "sweep-parent-bcjr.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).bcjr_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def parent_bcjr(root: str):
+    """The parent tree's ``ops/cuda/bcjr`` module: its package imported
+    from ``root`` as ``parent_port`` (its kernels build into ``root``'s own
+    ``build/``)."""
+    pkg = Path(root).resolve() / "aether_primitives_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_port.ops.cuda.bcjr")
+
+
+def reach_cases(pbk, card: str) -> None:
+    """The block instance's shapes (``REACH``), this tree's wrapper against
+    the parent's (``pbk``, or None) in turns: device time, events, bounds."""
+    rng = np.random.default_rng(2028)
+    for label, s_count, code, lw, n in REACH:
+        tables = (random_tables(s_count, 1900 + s_count) if code is None
+                  else fec._conv_soft_coeffs(code[1], code[0]))
+        lw = lw or bk.lanes_span_limit(s_count) + 1
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw, n)) * 3).astype(np.float32)).cuda()
+                  for _ in range(2))
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        turns = {"this tree": bk} if pbk is None else {"parent": pbk, "this tree": bk}
+        runs = {}
+        for name, mod in turns.items():
+            run = (lambda m: lambda: m.bcjr_windowed_llr(ls, lp, lw, tables))(mod)
+            got = run()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                sys.exit(f"{label}: {name}'s kernel disagrees with the twin")
+            runs[name] = run
+        names = list(runs)
+        ev = {name: [] for name in names}
+        dev = {name: [] for name in names}
+        for r in range(4):  # in turns, the order reversed every other round
+            for name in (names if r % 2 == 0 else names[::-1]):
+                ev[name].append(time_cuda(runs[name], 10, warmup=2))
+                dev[name].append(kernel_device_ms(runs[name], "bcjr", 10))
+        classes = code is not None
+        ops_any = bcjr_ops(lw, n, s_count, False)
+        ops = bcjr_ops(lw, n, s_count, classes)
+        b_bytes = 3 * lw * n * 4 / PEAK_BYTES * 1e3
+        bound_any = max(ops_any / PEAK_INSTR * 1e3, b_bytes)
+        bound = max(ops / PEAK_INSTR * 1e3, b_bytes)
+        p = bk.block_layout(s_count)[5]
+        hist_ms = 2 * lw * p * n * 4 / PEAK_BYTES * 1e3
+        print(f"{label}, Lw {lw} x N {n} (this tree's plan {bk.kernel_plan(tables, lw)}, "
+              f"route {bk.block_layout(s_count)[:4]}): bound {bound_any:.5f} ms for any tables"
+              f" ({ops_any / 1e6:.1f} M operations), {bound:.5f} ms with four classes"
+              f"{'' if classes else ' (random tables: none)'}; history floor {hist_ms:.5f} ms "
+              f"({2 * lw * p * n * 4 / 1e6:.1f} MB written and read) [{card}]")
+        for name in names:
+            d = float(np.median(dev[name]))
+            print(f"  {name:10s} device {d:.5f} ms a launch (torch.profiler, median of 4 x 10; "
+                  f"{', '.join(f'{v:.5f}' for v in dev[name])}), {d / bound_any:.1f}x the bound "
+                  f"for any tables; events {float(np.median(ev[name])):.5f} ms a call (median of "
+                  f"4 x 10) [{card}]", flush=True)
 
 
 def time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock) -> None:
@@ -193,7 +266,8 @@ def main() -> None:
     ls_all, lp_all = (torch.from_numpy((rng.normal(size=(CCSDS_LW, CCSDS_N)) * 3)
                                        .astype(np.float32)).cuda() for _ in range(2))
     stream = torch.cuda.current_stream().cuda_stream
-    old = parent_entry(args.parent) if args.parent else None
+    pbk = parent_bcjr(args.parent) if args.parent else None
+    reach_cases(pbk, card)
     wide = sweep_library()
     dev = ls_all.get_device()
     clock = max_sm_clock_hz()
@@ -203,10 +277,9 @@ def main() -> None:
     for label, tables, lw, n in shapes:
         ls, lp = ls_all[:lw, :n].contiguous(), lp_all[:lw, :n].contiguous()
         out = torch.empty((lw, n), device="cuda")
-        idx, coef, instance, cls = bk._host_tables(tables if tables is not None
-                                                   else bk.rsc8_tables())
+        idx, _, instance, cls = bk._host_tables(tables if tables is not None
+                                                else bk.rsc8_tables())
         s_count = idx.shape[1]
-        scratch = torch.empty((lw, s_count, n), device="cuda")
         want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
         floor_ms = lw * CHAIN_OPS * OP_CYCLES / clock * 1e3
         cases = {}
@@ -226,17 +299,9 @@ def main() -> None:
         if shift:
             cases["lanes, table form (no shuffles)"] = (
                 lambda: bk._launch_lanes(ls, lp, out, lw, tables, False))
-        cases["column (1 thread/column)"] = lambda: bk._launch(ls, lp, out, lw, idx, coef,
-                                                               scratch)
-        if old is not None:
-            def run_parent():
-                rc = old(ls.data_ptr(), lp.data_ptr(), out.data_ptr(), scratch.data_ptr(), lw,
-                         n, s_count, idx.ctypes.data, coef.ctypes.data, dev, stream)
-                if rc:
-                    sys.exit(f"parent bcjr kernel: CUDA error {rc}")
-            cases["parent kernel (its generic instance)"] = run_parent
+        cases["block (forced, the meeting warps, history in the scratch)"] = (
+            lambda: bk._launch_block(ls, lp, out, lw, tables))
         time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock)
-        del scratch
     # the meet instance's fixed cost and its cost a step: device time at
     # shorter spans of the same columns
     ls, lp = ls_all[:LW, :N].contiguous(), lp_all[:LW, :N].contiguous()

@@ -101,8 +101,10 @@ in thirty-one phases:
    97, N 1, 77, 1,000, 2,570, exact ties with -0.0, random tables of every
    state count it takes, shift-register codes at K = 3-6 (S 4-32) with a
    ragged last CTA, spans at the lanes instance's limit and one step past
-   it (the column instance), RSC-8 past the meet instance's limit, and the
-   meet instance at both its CTA widths (16 and 8 columns); and the
+   it (the block instance, at S 64 and S 4), RSC-8 past the meet and the
+   lanes instances' limits, 300 states (the block instance's multi-warp
+   form) and 1,500 (its wide route), and the meet instance at both its CTA
+   widths (16 and 8 columns); and the
    ``ccsds`` link's inner code at its shapes: the windowed Viterbi 64/48 and
    the BCJR kernel's lanes instance on the K=7 tables at Lw 224 (the
    windowed soft decode 96/64), ``torch.equal``; and a K=7 full block of
@@ -112,15 +114,18 @@ in thirty-one phases:
    17 and 19 (K 19 the block instance's scratch route, past the cluster
    route's 131,072 states) and K 7 with 9 and 16 generators, full block and
    windowed, and
-   the windowed BCJR at S 2, 3, 128, 256 and 1,024 (``conv_decode_soft``
-   where S is a conv code's), each ``torch.equal`` to its twin with one
-   launch a call, and each new instance timed beside its bound;
+   the windowed BCJR's block instance at S 2, 3, 128, 256 and 1,024
+   (``conv_decode_soft`` where S is a conv code's) and at S 64 and 4 one
+   step past the lanes instance's span limit, each ``torch.equal`` to its
+   twin with one launch a call, and each timed beside its bound;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
    exactly 1 Viterbi and 16 BCJR launches per call (``ccsds``: 1 Viterbi;
    with erasures 1 BCJR; the other families none), and the first 8 bursts
-   equal to the port's CPU run; the code tables of the file-loaded
+   equal to the port's CPU run; 32 bursts each of ``psk2`` and ``psk4``
+   through the viterbi link (ROADMAP §3 F17), every payload exact and
+   CRC-ok, one Viterbi launch a call; the code tables of the file-loaded
    families (an ``.alist`` of the Gallager code, a QC ``.npz`` of the
    802.11n base, an ``.npz`` NR BG2 graph) written into a temporary
    directory by the port's ``code_io``; then the NR transport-block chain
@@ -133,8 +138,8 @@ in thirty-one phases:
    the Viterbi and BCJR kernels' device times (``torch.profiler``) beside
    its chain floor (an estimate from assumed operation counts, on a line of
    its own) and at the ``ccsds`` shapes beside their bounds and, for the
-   BCJR, beside the column instance (the parent's generic kernel,
-   unchanged) in turns, and a
+   BCJR, beside its block instance (forced through ``bk._launch_block``)
+   in turns, and a
    ``torch.profiler`` split of ``rx_batch`` into front end, decoder kernels
    and the rest, with the device's idle share;
 10. every layout of the PFB fold kernel against its plain twin, bit for
@@ -657,8 +662,10 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
     coefficients on the RSC-8 pattern (not through its branch-metric
     classes: the lanes instance); shift-register codes at K = 3-6; the lanes
     instance's short spans (Lw 1-3, 97) in both its forms; its span limit at
-    S 64 and one step past it (the column instance); RSC-8 past the meet
-    instance's limit (the lanes instance)."""
+    S 64 and one step past it (the block instance); RSC-8 past the meet
+    instance's limit (the lanes instance); the block instance past the lanes
+    limit at S 4 and for RSC-8, at 300 states and past 1,024 (the wide
+    route)."""
     import numpy as np
     import torch
 
@@ -686,7 +693,7 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
                   random_tables(8, seed, pattern=bk.rsc8_tables()[:2]), spans, lw))
     # the lanes instance's shift-register codes with a ragged last CTA, its
     # short spans in both forms, its span limit and one step past it (the
-    # column instance), and RSC-8 past the meet instance's limit
+    # block instance), and RSC-8 past the meet instance's limit
     for k, polys in BCJR_SR_CODES.items():
         cases.append((f"K={k} conv (S {1 << (k - 1)})", fec._conv_soft_coeffs(polys, k),
                       normal(lw, 2570), lw))
@@ -697,6 +704,16 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
     cases += [("K=7 conv at the lanes limit", k7, normal(lim, 77), lim),
               ("K=7 conv one step past the lanes limit", k7, normal(lim + 1, 77), lim + 1),
               ("RSC-8 past the meet limit", None, normal(727, 1000), 727)]
+    # the block instance past the lanes limit at S 4 and for RSC-8, in its
+    # multi-warp form (S 300: 2 warps a direction) and past it (the wide
+    # route)
+    k3 = fec._conv_soft_coeffs(BCJR_SR_CODES[3], 3)
+    lim4, lim8 = bk.lanes_span_limit(4), bk.lanes_span_limit(8)
+    cases += [("K=3 conv one step past the lanes limit", k3, normal(lim4 + 1, 77), lim4 + 1),
+              ("RSC-8 past the lanes limit", None, normal(lim8 + 1, 77), lim8 + 1),
+              ("random S 300", random_tables(300, seed + 300), normal(lw, 77), lw),
+              ("random S 1,500 (the wide route)", random_tables(1500, seed + 1500),
+               normal(lw, 7), lw)]
     return cases
 
 
@@ -704,9 +721,10 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
     """Phase 7's codes past the decoders' earlier instances: Viterbi at
     K 2 (the warp instance, lanes idle), K 10, 12, 15 and 17 and K 7 with 9
     and 16 generators (the block instance: a CTA or, K 17 over 4 spans, a
-    cluster of 8 a trellis), full block and windowed; the windowed BCJR at S 2 (the
-    column instance), 3 (random tables), 128, 256 and 1,024 (the block
-    instance), through ``conv_decode_soft`` where S is a conv code's. Each
+    cluster of 8 a trellis), full block and windowed; the windowed BCJR's
+    block instance at S 2, 3 (random tables), 128, 256 and 1,024, through
+    ``conv_decode_soft`` where S is a conv code's, and at S 64 and 4 one step
+    past the lanes instance's span limit (K=7 and K=3 tables). Each
     ``torch.equal`` to its twin with one launch a call, then timed (CUDA
     events; twin beside it; Viterbi K 2, 10, 15 and 16 generators at 256 x
     112, K 17 at 4 x 112) beside its bound. Returns the
@@ -777,8 +795,16 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
                 "step, LLRs in, bits out")
     window, guard = CCSDS_SOFT
     lw_b = window + 2 * guard
-    for s_count in (2, 3, 128, 256, 1024):
-        if s_count in BCJR_REACH:
+    # (S, Lw, N): the state counts outside 4-64 at the ccsds span, and the
+    # K=7 and K=3 codes one step past the lanes instance's span limit
+    shapes = [(s_count, lw_b, 2048 if s_count <= 256 else 256)
+              for s_count in (2, 3, 128, 256, 1024)]
+    shapes += [(s_count, bk.lanes_span_limit(s_count) + 1, 2048) for s_count in (64, 4)]
+    for s_count, lw_r, n_cols in shapes:
+        if s_count in (64, 4):
+            k = s_count.bit_length()
+            tables = fec._conv_soft_coeffs(*(K7 if k == 7 else (BCJR_SR_CODES[k], k)))
+        elif s_count in BCJR_REACH:
             polys = BCJR_REACH[s_count]
             k = s_count.bit_length()
             tables = fec._conv_soft_coeffs(polys, k)
@@ -790,18 +816,17 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
                                               backend="reference"))
         else:
             tables = random_tables(s_count, 1900 + s_count)
-        n_cols = 2048 if s_count <= 256 else 256
-        ls, lp = (torch.from_numpy((rng.normal(size=(lw_b, n_cols)) * 3).astype(np.float32))
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw_r, n_cols)) * 3).astype(np.float32))
                   .to(dev) for _ in range(2))
-        inst = bk.kernel_plan(tables, lw_b)[0]
-        once(f"bcjr S {s_count} ({inst} instance) Lw {lw_b} x N {n_cols}", "bcjr",
-             lambda: bk.bcjr_windowed_llr(ls, lp, lw_b, tables),
-             lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_b, tables))
-        out["bcjr"][f"S {s_count} {inst}"] = timed(
-            f"bcjr S {s_count} ({inst} instance), Lw {lw_b} x N {n_cols}",
-            lambda: bk.bcjr_windowed_llr(ls, lp, lw_b, tables),
-            lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_b, tables),
-            bcjr_bound_of(lw_b, n_cols, s_count, classes=False),
+        inst = bk.kernel_plan(tables, lw_r)[0]
+        once(f"bcjr S {s_count} ({inst} instance) Lw {lw_r} x N {n_cols}", "bcjr",
+             lambda: bk.bcjr_windowed_llr(ls, lp, lw_r, tables),
+             lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_r, tables))
+        out["bcjr"][f"S {s_count} Lw {lw_r} {inst}"] = timed(
+            f"bcjr S {s_count} ({inst} instance), Lw {lw_r} x N {n_cols}",
+            lambda: bk.bcjr_windowed_llr(ls, lp, lw_r, tables),
+            lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_r, tables),
+            bcjr_bound_of(lw_r, n_cols, s_count, classes=False),
             "28 S - 3 FP32 operations a step and column, each an FMA's slot")
     return out
 
@@ -1198,6 +1223,23 @@ def main() -> None:
         if label in ("viterbi", "turbo"):
             burst_set[label] = (pm, x, payloads)
     tables.cleanup()  # the modems read their tables when they were made
+    # F17 (ROADMAP §3): the axis psk tables through the viterbi link
+    for mod in ("psk2", "psk4"):
+        pm = PacketModem(PacketConfig(payload_bits=PAYLOAD, fec="viterbi", modulation=mod),
+                         device="cuda")
+        payloads, caps = burst_captures(pm, bursts=32, seed=1717)
+        x = torch.from_numpy(caps).cuda()
+        torch.cuda.synchronize()
+        reset_counts()
+        bits_b, ok_b, _ = pm.rx_batch(x)
+        torch.cuda.synchronize()
+        counts = kernel_launches()
+        exact = (bits_b.cpu().numpy() == payloads).all(axis=1)
+        ok = ok_b.cpu().numpy()
+        print(f"burst path {mod} viterbi (F17): rx_batch {tuple(x.shape)} -> payloads exact "
+              f"{int(exact.sum())}/32, crc ok {int(ok.sum())}/32, launches {counts}", flush=True)
+        if not (exact.all() and ok.all()) or counts != {**NO_LAUNCHES, "viterbi": 1}:
+            fail(f"burst path {mod} viterbi: payloads/CRC/launches wrong")
     nr_chain_phase(card)
 
     # ---- phase 9: burst timings --------------------------------------------
@@ -1246,19 +1288,16 @@ def main() -> None:
           f"(torch.profiler, mean over 20 launches), {vk.warps_per_block(lw_v, 7)} "
           f"trellises a block; bound {vit_bound['bound_ms']:.5f} ms by "
           f"{vit_bound['bound_by']} [{card}]")
-    k7_idx, k7_coef = bk._host_tables(k7_tables)[:2]
-    k7_scratch = torch.empty((lw_t, 64, cols_t), device="cuda")
     k7_out = torch.empty((lw_t, cols_t), device="cuda")
-    k7_dev, k7_col_dev = paired_device_ms(
+    k7_dev, k7_block_dev = paired_device_ms(
         kernel_calls["bcjr K=7 (S 64, lanes instance)"][0],
-        lambda: bk._launch(spans[0], spans[1], k7_out, lw_t, k7_idx, k7_coef, k7_scratch))
-    del k7_scratch
+        lambda: bk._launch_block(spans[0], spans[1], k7_out, lw_t, k7_tables))
     k7_bound = bcjr_bound_of(lw_t, cols_t, 64, classes=False)
     print(f"bound: bcjr {bcjr_bound['bound_ms']:.5f} ms by {bcjr_bound['bound_by']}; kernel "
           f"device time {bcjr_dev:.5f} ms a launch (torch.profiler, mean over 20 launches), "
           f"instance {bk.kernel_plan(None, lw_t)}; K=7 (S 64) lanes instance device time "
-          f"{k7_dev:.5f} ms a launch against the column instance's (the parent's generic "
-          f"kernel, unchanged) {k7_col_dev:.5f} ms, in turns (median of 2 x 20 launches "
+          f"{k7_dev:.5f} ms a launch against the block instance's (forced through "
+          f"bk._launch_block) {k7_block_dev:.5f} ms, in turns (median of 2 x 20 launches "
           f"each); K=7 bound {k7_bound['bound_ms']:.5f} ms by {k7_bound['bound_by']} "
           f"[{card}]")
     print(f"chain floor (estimate, not measured): bcjr {chain_floor:.5f} ms = {lw_t} steps x "
@@ -1294,23 +1333,21 @@ def main() -> None:
               f"(torch.profiler, mean over 10 launches), the call {call_ms:.5f} ms (CUDA "
               f"events, median of 3 runs of 10 calls); bound {ccsds_bounds[kernel]['bound_ms']:.5f}"
               f" ms by {ccsds_bounds[kernel]['bound_by']} [{card}]")
-    # the lanes instance against the parent's generic kernel (the column
-    # instance, unchanged) at the ccsds launch, in turns, one output each
+    # the lanes instance against the block instance (forced) at the ccsds
+    # launch, in turns, one output each
     n_c = spans_c[0].shape[1]
-    c_scratch = torch.empty((lw_c, 64, n_c), device="cuda")
     c_out = torch.empty((lw_c, n_c), device="cuda")
-    k7_col = lambda: bk._launch(*spans_c, c_out, lw_c, k7_idx, k7_coef, c_scratch)  # noqa: E731
-    k7_col()
+    k7_block = lambda: bk._launch_block(*spans_c, c_out, lw_c, k7_tables)  # noqa: E731
+    k7_block()
     want_c = bk.bcjr_windowed_llr(*spans_c, lw_c, k7_tables)
     torch.cuda.synchronize()
     if not torch.equal(c_out, want_c):
-        fail("bcjr at the ccsds shape: the column instance and the lanes instance disagree")
-    lanes_c, col_c = paired_device_ms(ccsds_runs["bcjr"], k7_col)
-    del c_scratch
-    ccsds_t["bcjr"].update(lanes_ms=lanes_c, column_ms=col_c)
+        fail("bcjr at the ccsds shape: the block instance and the lanes instance disagree")
+    lanes_c, block_c = paired_device_ms(ccsds_runs["bcjr"], k7_block)
+    ccsds_t["bcjr"].update(lanes_ms=lanes_c, block_ms=block_c)
     print(f"time: bcjr at the ccsds launch, device ms a launch in turns (median of 2 x 20 "
-          f"launches each): lanes instance {lanes_c:.5f}, column instance (the parent's generic "
-          f"kernel, unchanged, torch.equal to it) {col_c:.5f}: {col_c / lanes_c:.2f}x; the "
+          f"launches each): lanes instance {lanes_c:.5f}, block instance (forced, torch.equal "
+          f"to it) {block_c:.5f}: {block_c / lanes_c:.2f}x; the "
           f"lanes instance {lanes_c / ccsds_bounds['bcjr']['bound_ms']:.1f}x its bound "
           f"{ccsds_bounds['bcjr']['bound_ms']:.5f} ms for any tables, "
           f"{lanes_c / ccsds_class_bound['bound_ms']:.1f}x the "
@@ -1407,12 +1444,12 @@ def main() -> None:
             "instance": bk.kernel_plan(None, lw_t)[0],
             "k7_ms": kt["bcjr K=7 (S 64, lanes instance)"]["kernel"],
             "k7_device_ms": k7_dev,
-            "k7_parent_device_ms": k7_col_dev,
+            "k7_block_device_ms": k7_block_dev,
             "k7_bound_ms": k7_bound["bound_ms"],
             "ccsds_launches": burst_counts["ccsds erasures"]["bcjr"],
             "ccsds_ms": ccsds_t["bcjr"]["device_ms"],
             "ccsds_lanes_ms": ccsds_t["bcjr"]["lanes_ms"],
-            "ccsds_parent_ms": ccsds_t["bcjr"]["column_ms"],
+            "ccsds_block_ms": ccsds_t["bcjr"]["block_ms"],
             "ccsds_call_ms": ccsds_t["bcjr"]["call_ms"],
             "ccsds_bound_ms": ccsds_bounds["bcjr"]["bound_ms"],
             "ccsds_class_bound_ms": ccsds_class_bound["bound_ms"],
@@ -1429,8 +1466,8 @@ def main() -> None:
     crc = micro["crc32 2^20 bits"]
     print(f"summary: bcjr rsc8 (turbo, Lw {lw_t} x N {cols_t}) {bcjr_dev:.5f} ms device, "
           f"bound {bcjr_bound['bound_ms']:.5f}; K=7 Lw {lw_t} lanes {k7_dev:.5f} against the "
-          f"parent's kernel {k7_col_dev:.5f}, bound {k7_bound['bound_ms']:.5f}; ccsds launch "
-          f"lanes {ccsds_t['bcjr']['lanes_ms']:.5f} against {ccsds_t['bcjr']['column_ms']:.5f}, "
+          f"block instance {k7_block_dev:.5f}, bound {k7_bound['bound_ms']:.5f}; ccsds launch "
+          f"lanes {ccsds_t['bcjr']['lanes_ms']:.5f} against {ccsds_t['bcjr']['block_ms']:.5f}, "
           f"bound {ccsds_bounds['bcjr']['bound_ms']:.5f} (four classes "
           f"{ccsds_class_bound['bound_ms']:.5f}); crc32 2^20 bits {crc['us_per_call']:.1f} us "
           f"a call, device busy {crc['device_busy_ms']} ms, {crc['kernels_per_call']} kernels")

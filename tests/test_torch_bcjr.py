@@ -8,9 +8,9 @@ the encoder and interleaver against JAX's. The reference decoders are exact
 (max-log, fixed expression tree), so LLRs and bits are compared with
 ``np.array_equal``: no tolerance. The wrapper's choice of kernel instance
 and the compile-time RSC-8 trellis in ``csrc/bcjr.cu`` are checked on the
-CPU, and so are the meet-in-the-middle schedules of the ``rsc8`` and
-``lanes`` instances (numpy models of their order of operations, bit for bit
-against the twin); the windowed conv decode's twin is held against the JAX
+CPU, and so are the meet-in-the-middle schedules of the ``rsc8``, ``lanes``
+and ``block`` instances (numpy models of their order of operations, bit for
+bit against the twin); the windowed conv decode's twin is held against the JAX
 package's XLA scan at K = 5, 6 and 7. The CUDA
 kernel is held against the twin on a card (``cuda`` marker; skipped without
 one; run with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -373,7 +373,7 @@ def test_kernel_plan_takes_the_lanes_instance_for_codes(k):
 @pytest.mark.parametrize("s_count", bk.KERNEL_STATES)
 def test_lanes_span_limit(s_count):
     # the lanes instance takes Lw up to its shared memory (spans, histories
-    # and exchange buffers within 227 KB); one step more takes the column
+    # and exchange buffers within 227 KB); one step more takes the block
     # instance
     tables = random_tables(s_count, 20 + s_count)
     limit = bk.lanes_span_limit(s_count)
@@ -382,17 +382,19 @@ def test_lanes_span_limit(s_count):
     smem = lambda lw: 4 * (lw * g * (s_count + 2) + 4 * g * s_count)  # noqa: E731
     assert smem(limit) <= 232448 < smem(limit + 1)
     assert bk.kernel_plan(tables, limit) == ("lanes", g)
-    assert bk.kernel_plan(tables, limit + 1) == ("column", 0)
+    assert bk.kernel_plan(tables, limit + 1) == ("block", 32 // max(4, s_count) if s_count <= 32
+                                                 else 1)
 
 
 def test_kernel_plan_raises_on_other_state_counts():
-    # every state count has an instance now: 2 and 3 the column instance,
-    # any other outside 4-64 the block instance; the plan raises only where
-    # one column's scratch exceeds the card's memory
+    # every state count has an instance now: any outside 4-64 the block
+    # instance (2 and 3 a column a lane, 32 columns a CTA; 5 and 7 eight
+    # lanes a column, 4 columns a CTA; from 33 states one column a CTA); the
+    # plan raises only where one column's scratch exceeds the card's memory
     for s_count in (2, 3):
-        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("column", 0)
-    for s_count in (5, 7, 128, 256, 1000):
-        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("block", 0)
+        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("block", 32)
+    for s_count, cols in ((5, 4), (7, 4), (128, 1), (256, 1), (1000, 1)):
+        assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("block", cols)
     assert bk.scratch_bytes(256, 96, 10) == 4 * 96 * 256 * 10
     big = bk.BLOCK_SMEM_STATES + 1  # the block instance's metrics go to the scratch
     assert bk.scratch_bytes(big, 96, 10) == 4 * (96 * big * 10 + 2 * big * 10)
@@ -402,11 +404,16 @@ def test_kernel_plan_raises_on_other_state_counts():
 
 # --------------------------------------------- the block instance on the CPU
 #
-# A numpy model of ``csrc/bcjr.cu bcjr_block_kernel``: a buffer holds a
-# step's metrics before the subtraction of their maximum, which the next
-# step subtracts as it reads them; the maxima over the states are taken on
-# order-preserving uint32 keys (the kernel's redux.sync), in no particular
-# order. Held bit for bit against the twin.
+# A numpy model of ``csrc/bcjr.cu bcjr_kernel_block`` and
+# ``bcjr_kernel_thin``: forward to mid = Lw // 2 and backward to mid side
+# by side, a step taking its metrics m = n - mx and its gathered ends v =
+# n[at] - mx from the last update's values n (before normalisation) and
+# their maximum mx, storing m in the history; then each direction on
+# through the other half, the LLR of step t from the other's history row:
+# forward (m + g_bw) + row[nxt], backward (row + g_bw) + v. The maxima over
+# the states are taken on order-preserving uint32 keys (the kernel's
+# redux.sync and its warps' partials), in no particular order. Held bit for
+# bit against the twin.
 
 
 def _keys_max(a, axis=0):
@@ -421,43 +428,97 @@ def _block_model(ls, lp, lw, tables):
     nxt, prv = idx[0], idx[1]
     fw0, fw1, bw0, bw1 = coef
     s_count, n = nxt.shape[0], ls.shape[1]
+    mid = lw // 2
 
-    def g(c0, c1, u, t):  # [S, N]
-        return c0[:, u, None] * ls[t][None] + c1[:, u, None] * lp[t][None]
+    def g(c0, c1, t):  # [S, 2, N]
+        return c0[:, :, None] * ls[t] + c1[:, :, None] * lp[t]
+
+    def step(nv, at):  # the step's metrics and gathered ends
+        mx = _keys_max(nv)
+        return nv - mx, nv[at] - mx
+
+    def update(v, gg):
+        return np.maximum(v[:, 0] + gg[:, 0], v[:, 1] + gg[:, 1])
+
+    def llr(c):
+        return _keys_max(c[:, 0]) - _keys_max(c[:, 1])
 
     hist = np.empty((lw, s_count, n), np.float32)
-    m = np.zeros((s_count, n), np.float32)
-    mx = np.zeros(n, np.float32)
-    for t in range(lw - 1, -1, -1):
-        hist[t] = m - mx
-        b = np.maximum((m[nxt[:, 0]] - mx) + g(bw0, bw1, 0, t),
-                       (m[nxt[:, 1]] - mx) + g(bw0, bw1, 1, t))
-        m, mx = b, _keys_max(b)
     out = np.empty((lw, n), np.float32)
-    m = np.zeros((s_count, n), np.float32)
-    mx = np.zeros(n, np.float32)
-    for t in range(lw):
-        a = m - mx
-        c0 = (a + g(bw0, bw1, 0, t)) + hist[t][nxt[:, 0]]
-        c1 = (a + g(bw0, bw1, 1, t)) + hist[t][nxt[:, 1]]
-        out[t] = _keys_max(c0) - _keys_max(c1)
-        an = np.maximum((m[prv[:, 0]] - mx) + g(fw0, fw1, 0, t),
-                        (m[prv[:, 1]] - mx) + g(fw0, fw1, 1, t))
-        m, mx = an, _keys_max(an)
+    nf = nb = np.zeros((s_count, n), np.float32)
+    for t in range(mid):
+        hist[t], v = step(nf, prv)
+        nf = update(v, g(fw0, fw1, t))
+    for t in range(lw - 1, mid - 1, -1):
+        hist[t], v = step(nb, nxt)
+        nb = update(v, g(bw0, bw1, t))
+    for t in range(mid, lw):
+        m, v = step(nf, prv)
+        out[t] = llr((m[:, None] + g(bw0, bw1, t)) + hist[t][nxt])
+        nf = update(v, g(fw0, fw1, t))
+    for t in range(mid - 1, -1, -1):
+        _, v = step(nb, nxt)
+        gb = g(bw0, bw1, t)
+        out[t] = llr((hist[t][:, None] + gb) + v)
+        nb = update(v, gb)
     return out
+
+
+def _model_case(s_count, lw, n, seed):
+    """Random tables and spans rounded to 0.1 (ties between paths) with
+    signed zeros among them; the model and the twin on them."""
+    rng = np.random.default_rng(seed)
+    tables = random_tables(s_count, 7 + s_count)
+    ls, lp = (np.round(rng.normal(size=(lw, n)) * 2, 1).astype(np.float32) for _ in range(2))
+    ls[0, 0] = lp[min(1, lw - 1), min(1, n - 1)] = -0.0
+    got = _block_model(ls, lp, lw, tables)
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
+                                          tables)
+    return got, want
 
 
 @pytest.mark.parametrize("s_count", [2, 3, 5, 128, 300])
 def test_block_model_matches_twin(s_count):
-    rng = np.random.default_rng(40 + s_count)
-    lw, n = 23, 6
-    tables = random_tables(s_count, 7 + s_count)
-    ls, lp = (np.round(rng.normal(size=(lw, n)) * 2, 1).astype(np.float32) for _ in range(2))
-    ls[0, 0] = lp[1, 1] = -0.0  # signed zeros among ties
-    got = _block_model(ls, lp, lw, tables)
-    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
-                                          tables)
+    got, want = _model_case(s_count, 23, 6, 40 + s_count)
     assert torch.equal(torch.from_numpy(got), want)
+
+
+@pytest.mark.parametrize("s_count", [4, 64])
+def test_block_model_past_the_lanes_limit(s_count):
+    # the spans the lanes instance's shared memory does not hold (S 4 from
+    # 1,209 steps, S 64 from 877) take the block instance
+    lw = bk.lanes_span_limit(s_count) + 1
+    assert bk.kernel_plan(random_tables(s_count, 7 + s_count), lw)[0] == "block"
+    got, want = _model_case(s_count, lw, 3, 70 + s_count)
+    assert torch.equal(torch.from_numpy(got), want)
+
+
+@pytest.mark.parametrize("lw", [1, 2, 3])
+@pytest.mark.parametrize("s_count", [3, 9])
+def test_block_model_short_spans(s_count, lw):
+    # the meeting point at its edges: no forward first half at Lw 1, no
+    # backward second half below Lw 2
+    got, want = _model_case(s_count, lw, 5, 80 + lw)
+    assert torch.equal(torch.from_numpy(got), want)
+
+
+@pytest.mark.parametrize("s_count", [2, 5, 33, 300, 1000, 1025])
+def test_block_layout_covers_the_states(s_count):
+    # the route's lanes, states a lane and warps hold every state, padded
+    # to P, whole columns a warp, at most 4 warps a direction, and the
+    # scratch is Lw x P floats a column of whole CTAs
+    route, r, lanes, warps, cols, p = bk.block_layout(s_count)
+    if route == "wide":
+        assert s_count > bk.BLOCK_STATES and cols == 1
+        return
+    assert p >= s_count and cols * p == (32 * r * warps if route == "block" else 32 * s_count)
+    if route == "block":
+        assert lanes * r * warps == p and lanes * cols == 32 and 1 <= warps <= 4
+        assert p < 2 * s_count or p == 4
+    lw = 96 if route == "block" else bk.thin_resident_span(s_count) + 1
+    assert bk.scratch_bytes(s_count, lw, 77) == 4 * lw * p * cols * -(-77 // cols)
+    if route == "thin":  # shorter spans stay in shared memory
+        assert bk.scratch_bytes(s_count, lw - 1, 77) == 0
 
 
 @pytest.mark.parametrize("k", sorted(SR_CODES))
@@ -620,8 +681,8 @@ def test_cuda_kernel_at_ties_and_signed_zeros(cuda, tables, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s_count", [2, 3, 5, 128, 256, 1000])
 def test_cuda_column_and_block_instances_match_twin(cuda, s_count):
-    # the state counts outside 4-64: 2 and 3 in the column instance, the
-    # rest in the block instance, one launch a call
+    # the state counts outside 4-64, all in the block instance (2 and 3 a
+    # column a lane), one launch a call
     rng = np.random.default_rng(90 + s_count)
     tables = random_tables(s_count, 11 + s_count)
     for lw, n in ((1, 3), (96, 77), (224, 257)):
@@ -633,6 +694,29 @@ def test_cuda_column_and_block_instances_match_twin(cuda, s_count):
         torch.cuda.synchronize()
         assert bk.launches == before + 1
         assert torch.equal(got, want), (s_count, lw, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_count", [2, 3, 4, 5, 8, 9, 17, 33, 64, 100, 300, 600, 1025])
+def test_cuda_block_instance_every_route(cuda, s_count):
+    # the block instance through its private entry at every route and
+    # layout (thin, its spans and half-histories in shared memory or, at Lw
+    # 500, through the scratch; a state a lane at 4-32 lanes a column; 2, 4
+    # and 8 states a lane; 2-4 warps a direction; the wide route past 1,024
+    # states), at the meeting point's edges (Lw 1-3), ragged N, ties with -0.0
+    tables = random_tables(s_count, 50 + s_count)
+    for lw, n in ((1, 5), (2, 33), (3, 7), (97, 77), (224, 130), (500, 40)):
+        make = _tie_spans if lw % 2 else _spans
+        ls, lp = (torch.from_numpy(a).to(cuda) for a in make(lw, n, s_count + lw))
+        out = torch.full((lw, n), float("nan"), device=cuda)
+        before = bk.launches
+        bk._launch_block(ls, lp, out, lw, tables)
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        torch.cuda.synchronize()
+        assert bk.launches == before + 1
+        assert torch.equal(out, want), (s_count, lw, n)
+        assert np.array_equal(out.cpu().numpy().view(np.uint32),
+                              want.cpu().numpy().view(np.uint32))
 
 
 @pytest.mark.cuda
@@ -693,10 +777,10 @@ def test_cuda_lanes_instance_codes(cuda, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s_count", bk.KERNEL_STATES)
 def test_cuda_at_the_lanes_span_limit(cuda, s_count):
-    # the last span the lanes instance takes and the first the column one does
+    # the last span the lanes instance takes and the first the block one does
     tables = random_tables(s_count, 30 + s_count)
     limit = bk.lanes_span_limit(s_count)
-    for lw, instance in ((limit, "lanes"), (limit + 1, "column")):
+    for lw, instance in ((limit, "lanes"), (limit + 1, "block")):
         assert bk.kernel_plan(tables, lw)[0] == instance
         ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(lw, 37, lw))
         got = bk.bcjr_windowed_llr(ls, lp, lw, tables)

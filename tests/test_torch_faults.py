@@ -734,7 +734,7 @@ def test_f15_viterbi_decode_matches_jax(jfec, code):
 def test_f16_conv_decode_soft_windowed_matches_jax(jfec, k):
     polys = CODES_F16[k]
     tables = fec._conv_soft_coeffs(polys, k)
-    assert bk.kernel_plan(tables, 64 + 2 * 32) == (("column", 0) if k == 2 else ("block", 0))
+    assert bk.kernel_plan(tables, 64 + 2 * 32) == ("block", 32 if k == 2 else 1)
     bits, llr = _llrs(polys, k, (2, 150), 1600 + k)
     got = fec.conv_decode_soft(torch.from_numpy(llr), polys, k, window=64, guard=32).numpy()
     want = np.asarray(jfec.conv_decode_soft(llr, polys, k, window=64, guard=32,

@@ -339,6 +339,52 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert PacketModem(device="cpu").device.type == "cpu"
 
 
+# ------------------------------------------------------------------ F17
+# The psk2 and psk4 tables lie on the axes (1, -1; 1, j, -1, -j), so the
+# burst's fine phase takes the "axes" grid for them (ROADMAP.md §3, F17);
+# the JAX package takes the diagonal grid for every table, and its psk2 /
+# psk4 bursts fail the CRC (ROADMAP.md §3.9).
+
+
+@pytest.mark.parametrize("fec_name", ["none", "viterbi"])
+@pytest.mark.parametrize("modulation", ["psk2", "psk4"])
+def test_f17_psk_loopback_is_exact(modulation, fec_name):
+    pm = _modem(fec_name, modulation=modulation)
+    payload = np.random.default_rng(17).integers(0, 2, PAYLOAD).astype(np.uint8)
+    bits, ok, diag = pm.loopback(torch.from_numpy(payload))
+    assert bool(ok) and np.array_equal(bits.numpy(), payload)
+    assert int(diag["offset"]) == 0
+
+
+def test_f17_psk4_rx_batch_decodes_every_capture():
+    # B captures with a gain, a delay, a CFO and noise, uncoded: a phase
+    # off by pi/4 would turn every symbol
+    pm = _modem("none", modulation="psk4")
+    rng = np.random.default_rng(1717)
+    payloads = rng.integers(0, 2, (B, PAYLOAD)).astype(np.uint8)
+    bursts = pm.tx(torch.from_numpy(payloads)).numpy()
+    caps = np.stack([_channel(bursts[b], rng, delay=70 + 97 * b, cfo=(b - 1.5) * 2e-4,
+                              sigma=0.02) for b in range(B)])
+    bits, ok, _ = pm.rx_batch(torch.from_numpy(caps))
+    assert ok.numpy().all() and np.array_equal(bits.numpy(), payloads)
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP.md §3.9: the JAX package's burst RX takes "
+                   "the diagonal phase grid for the axis psk tables, so its psk4 bursts fail "
+                   "the CRC")
+def test_f17_psk4_rx_matches_jax(jax_mods):
+    jax, jpacket = jax_mods["jax"], jax_mods["packet"]
+    jpm = jpacket.PacketModem(jpacket.PacketConfig(payload_bits=PAYLOAD, fec="none",
+                                                   modulation="psk4"))
+    pm = _modem("none", modulation="psk4")
+    payload = np.random.default_rng(18).integers(0, 2, PAYLOAD).astype(np.uint8)
+    burst = pm.tx(torch.from_numpy(payload)).numpy()
+    assert evm_rms_db(burst, np.asarray(jax.jit(jpm.tx)(payload))) <= EVM_DB
+    bits, ok, _ = pm.rx(torch.from_numpy(burst))
+    jbits, jok, _ = jax.jit(jpm.rx)(burst)
+    assert bool(ok) and bool(jok) and np.array_equal(np.asarray(jbits), bits.numpy())
+
+
 # ------------------------------------------- the RS, CCSDS, BCH, TPC, LDPC links
 
 
