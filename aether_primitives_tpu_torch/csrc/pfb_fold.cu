@@ -67,26 +67,32 @@
 //   tile's slab in ranges of Pc branches, the way the RX frame kernel stages
 //   its window: branches [q0, q0 + Pc) of a tile read the slab rows [q0, q0 +
 //   tile + Pc), which go through the same two-stage cp.async ring, each with
-//   its class's Pc x 64 weights beside it (Pc 64 real / 48 complex analysis
-//   and planes, 121 / 88 synthesis: two stages within 227 KB). A pipeline
-//   step is (tile, class, range); a thread's accumulators stay in registers
-//   across the ranges, so the sum over p runs in the same order from p = 0.
-//   It re-reads the tile's slab for every class: written for reach, not
-//   speed.
+//   its class's Pc x 64 weights beside it. Every layout takes one tile shape
+//   there, 8 x 16 (one 512-thread block, 16 warps an SM), and Pc 64 real /
+//   48 complex (two stages within 227 KB). A pipeline step is (tile, class,
+//   range); a thread's accumulators stay in registers across the ranges, so
+//   the sum over p runs in the same order. The synthesis runs only the
+//   ranges, and in them a thread only the branches, that reach a real class
+//   frame (its spread's all-zero edge is as wide as P), and adds its classes
+//   through the output.
 // - Past 65,535 strips of 64 columns or 65,535 rows (times the class runs),
 //   grid.y and grid.z stop at 65,535 and the excess folds into grid.x.
 // - Frames go out interleaved, in frame order, as coalesced rows; the
 //   ragged edges are masked here, so no caller pads, concatenates,
 //   de-interleaves or splits planes. The synthesis stage's tail add and
 //   periodic division (its epilogue) run on the way out.
-// On the H100 (benches/torch_pfb_fold_sweep.py) the analysis layout takes
-// ~0.063 ms and the synthesis ~0.084 ms. The branch loop bounds it: with
-// neither the slab copies nor the frame stores running, the analysis still
-// takes ~0.055 ms, ~60% of the issue rate, though a branch is FP32 work
-// beside two shared loads (a block's warps reach each branch together).
-// A ring of rows (each tile loading only its new rows, two blocks an SM)
-// was slower: the wrap test in the window loads cost more than the
-// re-reads it saved.
+// On the H100 (chip_smoke.py phase 13) the analysis layout takes ~0.063 ms
+// and the synthesis ~0.09 ms. The branch loop bounds it: with neither the
+// slab copies nor the frame stores running, the analysis still took ~0.055
+// ms, ~60% of the issue rate, though a branch is FP32 work beside two
+// shared loads (a block's warps reach each branch together). A ring of
+// rows (each tile loading only its new rows, two blocks an SM) was slower:
+// the wrap test in the window loads cost more than the re-reads it saved.
+// The ranged instance (benches/torch_pfb_fold_sweep.py) at M 2,048, os 2,
+// P 512, 1,024 frames: synthesis ~0.24 ms, analysis ~0.19 (1.9x and 1.45x
+// the operation floor); without its copies and outputs the synthesis
+// still takes ~0.18 ms. A 64-row tile at two blocks an SM, and the classes'
+// sum in registers, were no faster.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,8 +101,7 @@
 
 namespace {
 
-// Tile shapes (benches/torch_pfb_fold_sweep.py times others in edited
-// copies of this file).
+// Tile shapes of the staged and chunked instances.
 constexpr int kRowsAnalysis = 8;     // analysis (and planes): thread rows of 64 columns
 constexpr int kFramesAnalysis = 16;  // analysis (and planes): class frames a thread
 constexpr int kRowsSynthesis = 4;    // synthesis: thread rows of 64 columns
@@ -137,8 +142,9 @@ struct Params {
   // groups along z; past 65,535 along y or z the excess folds into x as
   // blockIdx.x = split + splits * (yhi + ny * zhi)
   int splits, ny, strips, zs;
-  // the ranged instance: branches a range (0 in the other instance)
-  int pc;
+  // the ranged instance: branches a range (0 in the other instance), and
+  // the synthesis's frames in
+  int pc, t_in;
 };
 
 // This block's (tile run, strip, row * groups + run) coordinates; false
@@ -502,43 +508,88 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
   }
 }
 
-// One range's sum for the F frames of a thread: branches q0 + q, q < pc, of
-// the rows the range's slab holds (slab row t + q of col in window slot (t +
-// q) % F, as in fold_class), weights wcol[q * 64] staged beside the slab;
-// the first term of branch 0 initialises acc where `first`, else every term
-// adds to the sum the earlier ranges left in acc.
+// The ranged instance's tile in every layout: 8 thread rows of 64 columns,
+// 16 class frames (synthesis: output rows) a thread, one 512-thread block
+// an SM (benches/torch_pfb_fold_sweep.py times edited copies).
+constexpr int kRowsRanged = 8;
+constexpr int kFramesRanged = 16;
+
+template <bool CT>
+struct RangedInst {
+  static constexpr int kRows = kRowsRanged;
+  static constexpr int kFrames = kFramesRanged;
+  static constexpr int kThreads = kStrip * kRows;
+  static constexpr int kMinBlocks = 1;
+  static constexpr int kTile = kRows * kFrames;
+  using Tw = typename std::conditional<CT, float2, float>::type;
+};
+
+// n branches' sum for the F frames of a thread: slab row t + q of col in
+// window slot (t + q) % F (as in fold_class), weight q at wcol[q * 64];
+// where `first` the first term initialises acc, else every term adds to the
+// sum that earlier ranges left there.
 template <int F, typename Tw>
 __device__ __forceinline__ void fold_range(const float2* __restrict__ col,
-                                           const Tw* __restrict__ wcol, int pc, bool first,
+                                           const Tw* __restrict__ wcol, int n, bool first,
                                            float2 (&acc)[F]) {
   float2 xw[F];
 #pragma unroll
   for (int t = 0; t < F; ++t) xw[t] = col[t * kStrip];
-  for (int qb = 0; qb < pc; qb += F) {
+  int q = 0;
+  if (first) {
+    const Tw w = wcol[0];
+#pragma unroll
+    for (int t = 0; t < F; ++t) acc[t] = term(xw[t], w);
+    if (n > 1) xw[0] = col[F * kStrip];
+    q = 1;
+  }
+  for (int qb = 0; qb < n; qb += F) {
 #pragma unroll
     for (int k = 0; k < F; ++k) {
-      const int q = qb + k;
-      if (q >= pc) break;
-      const Tw w = wcol[q * kStrip];
+      const int qk = qb + k;
+      if (qk >= n) break;
+      if (qk < q) continue;  // the peeled first term
+      const Tw w = wcol[qk * kStrip];
 #pragma unroll
-      for (int t = 0; t < F; ++t) {
-        const float2 v = term(xw[(k + t) % F], w);
-        acc[t] = (first && q == 0) ? v : add2(acc[t], v);
-      }
-      if (q + 1 < pc) xw[k] = col[(q + F) * kStrip];
+      for (int t = 0; t < F; ++t) acc[t] = add2(acc[t], term(xw[(k + t) % F], w));
+      if (qk + 1 < n) xw[k] = col[(qk + F) * kStrip];
     }
   }
 }
 
+// A pipeline step of the ranged instance: range r of class jj (its k-th
+// tile) in the ranges [r_lo, r_hi) that hold its live branches [ql, qh); a
+// class with none runs one empty step (r_hi = r_lo + 1, ql = qh), which
+// loads and adds nothing but still finishes the class.
+struct RStep {
+  int k, jj, r, r_lo, r_hi, ql, qh;
+};
+
 // The ranged instance: layouts as pfb_fold_kernel, for a P whose slab does
-// not fit beside a chunk of the weights. A pipeline step u is (tile, class
-// jj, range r) = (u / (classes * ranges), u / ranges % classes, u % ranges);
-// its ring stage holds the slab rows [r Pc, r Pc + tile + Pc) of the tile
-// and class jj's weights of branches [r Pc, r Pc + Pc).
+// not fit beside a chunk of the weights. A block walks its tiles (tile
+// bx, bx + splits, ...: the spread's edge tiles, which have less work, fall
+// to every block alike), per tile its classes in j order, per class the
+// ranges of pc branches that hold a live branch; a ring stage holds the slab
+// rows a range's live branches read and their weights.
+// - Analysis and planes: every branch is live (ql, qh = 0, P).
+// - Synthesis: output row U of column c reads class frame U - d + q - (P-1)
+//   (d = c < j*hop), a real frame for q in [P-1-U+d, P-1-U+d+T_j) (T_j the
+//   class's frames; the rest are the spread's zero frames, whose products
+//   are +-0 and leave every sum's value as it is: x + (+-0) = x). A tile's
+//   live branches are the union over its rows and its strip's d: ranges
+//   outside them are not loaded or run, and a thread runs only the union
+//   over its own 16 rows, so the dead terms left are the triangles of
+//   16-row thread slabs at the spread's two edges, at most 15 x 16 a thread
+//   and class: 2.9% more terms than real ones at M 2,048, os 2, P 512 and
+//   1,024 frames, 0.7% at 4,096 (pfb_fold.ranged_terms counts them). A
+//   thread's sum starts from its first live term; the classes are added in
+//   j order through the output itself (class j < os - 1 writes its partial
+//   sum where the sample goes; the next class reads it back), the last with
+//   the stage's epilogue; a row no class reaches is a literal +0.0.
 template <int M_, bool CT>
-__global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBlocks)
+__global__ void __launch_bounds__(RangedInst<CT>::kThreads, RangedInst<CT>::kMinBlocks)
     pfb_fold_ranged_kernel(const Params a) {
-  using I = Inst<M_, CT>;
+  using I = RangedInst<CT>;
   using Tw = typename I::Tw;
   constexpr int F = I::kFrames;
   constexpr int kTile = I::kTile;
@@ -558,48 +609,105 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
   const int c0 = by * kStrip;
   const int c = c0 + tx;
   const bool col_ok = c < a.m;
+  const int c_last = min(c0 + kStrip, a.m) - 1;
   const long long b = bz / a.groups;
   const int g = bz - static_cast<int>(b) * a.groups;
   const int j_lo = M_ == kSynthesis ? 0 : g * a.os / a.groups;
   const int j_hi = M_ == kSynthesis ? a.os : (g + 1) * a.os / a.groups;
   const int classes = j_hi - j_lo;
-  const int ranges = (p + pcmax - 1) / pcmax;
-  const int tile0 = bx * a.tiles_per_block;
-  const int n_my = min(a.tiles_per_block, a.n_tiles - tile0);
-  const int upt = classes * ranges;
-  const int n_steps = n_my * upt;
+  const int n_my = (a.n_tiles - bx + a.splits - 1) / a.splits;  // tiles bx + k * splits
 
-  auto load_unit = [&](int u, int stage) {
-    const int tile = tile0 + u / upt;
-    const int j = j_lo + (u / ranges) % classes;
-    const int q0 = (u % ranges) * pcmax;
+  // class jj's live branches in its k-th tile, and their ranges
+  auto begin = [&](int k, int jj) {
+    RStep s{k, jj, 0, 0, 0, 0, p};
+    if (M_ == kSynthesis && k < n_my) {
+      const int j = j_lo + jj;
+      const int u0 = (bx + k * a.splits) * kTile;
+      const int tj = (a.t_in - j + a.os - 1) / a.os;
+      const int dmin = c_last < j * a.hop ? 1 : 0;
+      const int dmax = c0 < j * a.hop ? 1 : 0;
+      s.ql = max(0, p - 1 - (u0 + kTile - 1) + dmin);
+      s.qh = min(p, p - 1 - u0 + dmax + tj);
+    }
+    if (s.ql < s.qh) {
+      s.r_lo = s.ql / pcmax;
+      s.r_hi = (s.qh + pcmax - 1) / pcmax;
+    } else {
+      s.r_lo = 0;
+      s.r_hi = 1;
+      s.qh = s.ql;
+    }
+    s.r = s.r_lo;
+    return s;
+  };
+  auto advance = [&](const RStep& s) {
+    if (s.r + 1 < s.r_hi) {
+      RStep t = s;
+      ++t.r;
+      return t;
+    }
+    return s.jj + 1 < classes ? begin(s.k, s.jj + 1) : begin(s.k + 1, 0);
+  };
+
+  auto load_unit = [&](const RStep& s, int stage) {
+    const int tile = bx + s.k * a.splits;
+    const int j = j_lo + s.jj;
+    const int q0 = s.r * pcmax;
+    // the range's live branches [la, lb) (local) and the slab rows they read
+    const int la = max(s.ql, q0) - q0;
+    const int lb = min(s.qh, q0 + pcmax) - q0;
+    if (la >= lb) return;
     float2* slab = ring + stage * stage_elems;
     Tw* sw = reinterpret_cast<Tw*>(slab + slab_rows * kStrip);
-    for (int e = tid; e < pcmax * kStrip; e += kThreads) {
-      const int cc = c0 + (e & (kStrip - 1));
-      const int q = q0 + e / kStrip;
-      if (cc < a.m && q < p) {
-        int r = cc - j * a.hop;
-        if (r < 0) r += a.m;
-        const Tw* src = static_cast<const Tw*>(a.w) + static_cast<long long>(q) * a.m + r;
-        if (CT) {
-          cp_async8(sw + e, src);
-        } else {
-          cp_async4(sw + e, src);
+    {
+      int r0 = c0 - j * a.hop;
+      if (r0 < 0) r0 += a.m;
+      const Tw* wsrc = static_cast<const Tw*>(a.w) + static_cast<long long>(q0) * a.m;
+      constexpr int kPer = 16 / static_cast<int>(sizeof(Tw));  // weights a 16-byte copy
+      if (c0 + kStrip <= a.m && r0 + kStrip <= a.m &&
+          ((reinterpret_cast<uintptr_t>(wsrc + r0) | (a.m * sizeof(Tw))) & 15) == 0) {
+        for (int e = la * (kStrip / kPer) + tid; e < lb * (kStrip / kPer); e += kThreads) {
+          const int q = e / (kStrip / kPer);
+          const int k4 = (e - q * (kStrip / kPer)) * kPer;
+          cp_async16(sw + q * kStrip + k4, wsrc + static_cast<long long>(q) * a.m + r0 + k4);
         }
       } else {
-        sw[e] = Tw{};
+        for (int e = la * kStrip + tid; e < lb * kStrip; e += kThreads) {
+          const int cc = c0 + (e & (kStrip - 1));
+          const int q = e / kStrip;
+          if (cc < a.m) {
+            int r = cc - j * a.hop;
+            if (r < 0) r += a.m;
+            const Tw* src = wsrc + static_cast<long long>(q) * a.m + r;
+            if (CT) {
+              cp_async8(sw + e, src);
+            } else {
+              cp_async4(sw + e, src);
+            }
+          } else {
+            sw[e] = Tw{};
+          }
+        }
       }
+    }
+    // slab rows [rho_lo, rho_hi): synthesis reads rows tl + 1 - d + q + t
+    // (d in [dmin, dmax]), analysis and planes tl + down + q + t
+    int rho_lo = 0, rho_hi = kTile + pcmax;
+    if (M_ == kSynthesis) {
+      const int dmin = c_last < j * a.hop ? 1 : 0;
+      const int dmax = c0 < j * a.hop ? 1 : 0;
+      rho_lo = la + 1 - dmax;
+      rho_hi = lb + kTile - dmin;
     }
     if (M_ == kPlanes) {
       const long long row0 = static_cast<long long>(tile) * kTile + q0;
-      for (int e = tid; e < slab_rows * kStrip; e += kThreads) {
+      for (int e = rho_lo * kStrip + tid; e < rho_hi * kStrip; e += kThreads) {
         const int cc = c0 + (e & (kStrip - 1));
-        const long long s = (row0 + e / kStrip) * a.m + cc;
+        const long long sidx = (row0 + e / kStrip) * a.m + cc;
         float2* d = slab + e;
-        if (cc < a.m && s < a.n0) {
-          cp_async4(&d->x, a.x_re + b * a.n0 + s);
-          cp_async4(&d->y, a.x_im + b * a.n0 + s);
+        if (cc < a.m && sidx < a.n0) {
+          cp_async4(&d->x, a.x_re + b * a.n0 + sidx);
+          cp_async4(&d->y, a.x_im + b * a.n0 + sidx);
         } else {
           *d = zero2();
         }
@@ -607,12 +715,30 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
       return;
     }
     // slab row rho is stream row first + rho * step (synthesis: class j's
-    // frame i*os + j for class frame i = tile0row - P + q0 + rho)
+    // frame i*os + j for class frame i = tile * kTile - P + q0 + rho)
     const long long first = M_ == kAnalysis
                                 ? static_cast<long long>(tile) * kTile + q0
                                 : (static_cast<long long>(tile) * kTile - p + q0) * a.os + j;
     const long long step = M_ == kAnalysis ? 1 : a.os;
-    for (int e = tid; e < slab_rows * (kStrip / 2); e += kThreads) {
+    // every row a whole strip inside one source, 16-byte aligned: one check
+    // a step, then plain 16-byte copies
+    const long long s_lo = (first + rho_lo * step) * a.m + c0;
+    const long long s_hi = (first + (rho_hi - 1) * step) * a.m + c0 + kStrip;
+    if (first + rho_lo * step >= 0 && c0 + kStrip <= a.m && (a.m & 1) == 0 &&
+        (s_hi <= a.n0 || (s_lo >= a.n0 && s_hi <= a.n0 + a.n1))) {
+      const float2* src = stream_at(a, b, s_lo);
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const long long row_step = step * a.m;
+        float2* dst = slab + rho_lo * kStrip;
+        for (int e = tid; e < (rho_hi - rho_lo) * (kStrip / 2); e += kThreads) {
+          const int rho = e / (kStrip / 2);
+          const int k2 = 2 * (e & (kStrip / 2 - 1));
+          cp_async16(dst + rho * kStrip + k2, src + rho * row_step + k2);
+        }
+        return;
+      }
+    }
+    for (int e = rho_lo * (kStrip / 2) + tid; e < rho_hi * (kStrip / 2); e += kThreads) {
       const int rho = e / (kStrip / 2);
       const int k2 = 2 * (e & (kStrip / 2 - 1));
       const int cc = c0 + k2;
@@ -627,41 +753,68 @@ __global__ void __launch_bounds__(Inst<M_, CT>::kThreads, Inst<M_, CT>::kMinBloc
     }
   };
 
-  float2 acc[F];
-  float2 o[F];  // synthesis: the tile's sum over the classes so far
+  // synthesis: class j's sum of this thread's rows added to the classes
+  // before it (their partial sum where the sample goes), the last class
+  // with the stage's epilogue (as synthesis_add)
+  auto synthesis_out = [&](int u0, int d, int j, const float2 (&acc)[F]) {
+    const float dv = a.div ? a.div[c % a.hop] : 1.0f;  // (U*M + c) mod hop
 #pragma unroll
-  for (int t = 0; t < F; ++t) {
-    acc[t] = zero2();
-    o[t] = zero2();
-  }
+    for (int t = 0; t < F; ++t) {
+      const long long idx = static_cast<long long>(u0 + t) * a.m + c;
+      if (idx >= a.out_len) continue;
+      const int srow = u0 + t - d;
+      float2 v = (srow >= 0 && srow < a.t_cls) ? acc[t] : zero2();
+      float2* dst = idx < a.emit ? a.out + b * a.emit + idx
+                                 : a.rest + b * (a.out_len - a.emit) + idx - a.emit;
+      if (j > 0) v = add2(*dst, v);
+      if (j == a.os - 1) {
+        if (idx < a.tail_len) v = add2(v, a.tail[b * a.tail_len + idx]);
+        if (idx < a.emit && a.div) v = make_float2(__fdiv_rn(v.x, dv), __fdiv_rn(v.y, dv));
+      }
+      *dst = v;
+    }
+  };
 
-  if (n_steps > 0) load_unit(0, 0);
+  float2 acc[F];
+  RStep cur = begin(0, 0);
+  if (cur.k < n_my) load_unit(cur, 0);
   cp_async_commit();
-  for (int u = 0; u < n_steps; ++u) {
-    if (u + 1 < n_steps) load_unit(u + 1, (u + 1) & 1);
+  for (int u = 0; cur.k < n_my; ++u) {
+    const RStep nxt = advance(cur);
+    if (nxt.k < n_my) load_unit(nxt, (u + 1) & 1);
     cp_async_commit();
-    cp_async_wait(1);  // unit u's group landed
+    cp_async_wait(1);  // step u's group landed
     __syncthreads();
     const float2* slab = ring + (u & 1) * stage_elems;
     const Tw* sw = reinterpret_cast<const Tw*>(slab + slab_rows * kStrip);
-    const int tile = tile0 + u / upt;
-    const int j = j_lo + (u / ranges) % classes;
-    const int r = u % ranges;
-    const int pc = min(pcmax, p - r * pcmax);
+    const int tile = bx + cur.k * a.splits;
+    const int j = j_lo + cur.jj;
+    const int q0 = cur.r * pcmax;
     if (col_ok) {
-      const int aj = j * a.hop;
-      const int d = c < aj ? 1 : 0;  // synthesis: class row U - d; else the next row
-      const int row0 = M_ == kSynthesis ? tl + 1 - d : tl + d;
-      fold_range<F, Tw>(slab + row0 * kStrip + tx, sw + tx, pc, r == 0, acc);
-      if (r == ranges - 1) {
-        if (M_ == kSynthesis) {
-          synthesis_add<F>(a, b, c, tile * kTile + tl, d, j, acc, o);
-        } else {
-          store_frames<M_, F>(a, b, c, tile * kTile + tl, j, acc);
-        }
+      const int d = c < j * a.hop ? 1 : 0;  // synthesis: class row U - d; else the next row
+      const int u0 = tile * kTile + tl;
+      if (cur.r == cur.r_lo) {
+#pragma unroll
+        for (int t = 0; t < F; ++t) acc[t] = zero2();
+      }
+      if (M_ == kSynthesis) {
+        // this thread's live branches, and those in this range
+        const int tj = (a.t_in - j + a.os - 1) / a.os;
+        const int qf = max(0, p - 1 - (u0 + F - 1) + d);
+        const int qs = max(q0, qf);
+        const int qe = min(min(q0 + pcmax, p), min(cur.qh, p - 1 - u0 + d + tj));
+        if (qs < qe)
+          fold_range<F, Tw>(slab + (tl + 1 - d + qs - q0) * kStrip + tx,
+                            sw + (qs - q0) * kStrip + tx, qe - qs, qs == qf, acc);
+        if (cur.r == cur.r_hi - 1) synthesis_out(u0, d, j, acc);
+      } else {
+        fold_range<F, Tw>(slab + (tl + d) * kStrip + tx, sw + tx, min(pcmax, p - q0),
+                          cur.r == 0, acc);
+        if (cur.r == cur.r_hi - 1) store_frames<M_, F>(a, b, c, u0, j, acc);
       }
     }
     __syncthreads();  // the stage is free for the load issued next
+    cur = nxt;
   }
 }
 
@@ -683,10 +836,10 @@ LaunchCache g_cache;
 // ring of two stages of a range's slab and weights (a.pc branches)
 template <int M_, bool CT, int KIND>
 int launch_inst(int inst, int dev, size_t optin, Params a, int batch, cudaStream_t stream) {
-  using I = Inst<M_, CT>;
+  using I = typename std::conditional<KIND == 2, RangedInst<CT>, Inst<M_, CT>>::type;
   auto kern = KIND == 2 ? pfb_fold_ranged_kernel<M_, CT> : pfb_fold_kernel<M_, CT, KIND == 0>;
   size_t smem;
-  if (KIND == 2) {
+  if constexpr (KIND == 2) {
     a.stages = 2;
     smem = 2 * (static_cast<size_t>(I::kTile + a.pc) * kStrip * sizeof(float2) +
                 static_cast<size_t>(a.pc) * kStrip * sizeof(typename I::Tw));
@@ -782,10 +935,11 @@ int launch_layout(int layout, Params a, int batch, cudaStream_t stream) {
     return launch_inst<M_, CT, 1>(3 * layout + 1, dev, optin, a, batch, stream);
   // the ranged instance: the most branches a range (a multiple of the frames
   // a thread) whose slab and weights fit two ring stages
+  using R = RangedInst<CT>;
   const long long per_branch = kStrip * (sizeof(float2) + sizeof(typename I::Tw));
-  long long pc = (optin / 2 - static_cast<long long>(I::kTile) * kStrip * sizeof(float2)) /
+  long long pc = (optin / 2 - static_cast<long long>(R::kTile) * kStrip * sizeof(float2)) /
                  per_branch;
-  pc -= pc % I::kFrames;
+  pc -= pc % R::kFrames;
   if (pc < 1) return static_cast<int>(cudaErrorInvalidValue);
   a.pc = static_cast<int>(pc);
   return launch_inst<M_, CT, 2>(3 * layout + 2, dev, optin, a, batch, stream);
@@ -847,6 +1001,7 @@ extern "C" int pfb_fold_launch(int mode, int complex_taps, const void* src0,
     a.src0 = static_cast<const float2*>(src0);
     a.n0 = static_cast<long long>(t_in) * m;
     a.n1 = 0;
+    a.t_in = t_in;
     a.out = static_cast<float2*>(out0);
     a.t_cls = (t_in + os - 1) / os + p - 1;
     a.out_len = static_cast<long long>(a.t_cls) * m + static_cast<long long>(os - 1) * a.hop;

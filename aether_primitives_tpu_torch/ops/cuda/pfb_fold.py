@@ -54,46 +54,73 @@ launches = 0
 
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on an H100
 STRIP = 64  # columns a block (csrc/pfb_fold.cu)
-#: Frames (synthesis: output rows) a tile (csrc/pfb_fold.cu: 8 thread rows
-#: x 16 analysis frames; 4 thread rows x 11 synthesis rows)
+#: Frames (synthesis: output rows) a tile of the staged and chunked
+#: instances (csrc/pfb_fold.cu: 8 thread rows x 16 analysis frames; 4
+#: thread rows x 11 synthesis rows)
 TILE = {"analysis": 128, "planes": 128, "synthesis": 44}
 #: Branches a chunk of weights where every class's do not fit (4 x 16, or
 #: 4 x 11 synthesis)
 CHUNK = {"analysis": 64, "planes": 64, "synthesis": 44}
 MODES = {"analysis": 0, "synthesis": 1, "planes": 2}
-#: Frames (synthesis: rows) a thread (csrc/pfb_fold.cu kFrames): a branch
-#: range of the ranged instance is a multiple of it.
-FRAMES = {"analysis": 16, "planes": 16, "synthesis": 11}
+#: The ranged instance's tile in every layout (csrc/pfb_fold.cu
+#: kRowsRanged x kFramesRanged: 8 thread rows x 16 frames or rows a thread)
+RANGED_ROWS, RANGED_FRAMES = 8, 16
+RANGED_TILE = RANGED_ROWS * RANGED_FRAMES
 MAX_GRID_YZ = 65_535  # grid.y and grid.z; past it the excess folds into grid.x
 
 
-def branch_range(mode: str, p: int, complex_taps: bool = False, tile: int = 0) -> int:
+def branch_range(mode: str, p: int, complex_taps: bool = False) -> int:
     """Branches a range of the ranged instance where layout ``mode`` runs
     ``P = p`` branches in it (0 where one slab of ``(tile + P) x 64``
-    complex64 samples fits beside a chunk of the weights, and the kernel
-    does not range): the most, a multiple of :data:`FRAMES`, whose range
-    slab of ``(tile + Pc) x 64`` samples and ``Pc x 64`` weights fit two
-    ring stages (64 real / 48 complex analysis and planes, 121 / 88
-    synthesis)."""
-    tile = tile or TILE[mode]
+    complex64 samples, ``tile`` the layout's :data:`TILE`, fits beside a
+    chunk of the weights, and the kernel does not range): the most, a
+    multiple of :data:`RANGED_FRAMES`, whose range slab of ``(RANGED_TILE +
+    Pc) x 64`` samples and ``Pc x 64`` weights fit two ring stages (64
+    real / 48 complex taps in every layout)."""
     size = 8 if complex_taps else 4
-    if (tile + p) * STRIP * 8 + CHUNK[mode] * STRIP * size <= MAX_SMEM:
+    if (TILE[mode] + p) * STRIP * 8 + CHUNK[mode] * STRIP * size <= MAX_SMEM:
         return 0
-    pc = (MAX_SMEM // 2 - tile * STRIP * 8) // (STRIP * (8 + size))
-    return pc - pc % FRAMES[mode]
+    pc = (MAX_SMEM // 2 - RANGED_TILE * STRIP * 8) // (STRIP * (8 + size))
+    return pc - pc % RANGED_FRAMES
 
 
-def launch_plan(mode: str, p: int, os: int, complex_taps: bool = False, tile: int = 0):
+def ranged_terms(t_frames: int, m: int, p: int, os: int) -> tuple:
+    """``(computed, real)``: the terms (a product and a sum) the ranged
+    synthesis runs over ``t_frames`` frames of ``M = m`` columns with ``P =
+    p`` branches at ``os``, and those of them that read a real class frame
+    (``t_frames x P x M``). Output row ``U`` of a column with ``d = c <
+    j*hop`` reads class ``j``'s frame ``U - d + q - (P-1)``, real for ``q``
+    in ``[P-1-U+d, P-1-U+d+T_j)``; a thread of 16 rows runs the union of its
+    rows' intervals, so the rest are the spread's dead terms that the
+    thread slabs' triangles leave (csrc/pfb_fold.cu
+    ``pfb_fold_ranged_kernel``)."""
+    t_frames, m, p, os = int(t_frames), int(m), int(p), int(os)
+    hop = m // os
+    rows = -(-synthesis_length(t_frames, m, p, os) // m)
+    n_slabs = -(-rows // RANGED_TILE) * RANGED_ROWS
+    u0 = [g * RANGED_FRAMES for g in range(n_slabs)]
+    computed = 0
+    for j in range(os):
+        t_j = -(-(t_frames - j) // os)
+        for d, cols in ((1, min(j * hop, m)), (0, m - min(j * hop, m))):
+            for u in u0:
+                lo = max(0, p - 1 - (u + RANGED_FRAMES - 1) + d)
+                hi = min(p, p - 1 - u + d + t_j)
+                computed += cols * RANGED_FRAMES * max(0, hi - lo)
+    return computed, t_frames * p * m
+
+
+def launch_plan(mode: str, p: int, os: int, complex_taps: bool = False):
     """``(stages, weights_staged)``: how the kernel runs layout ``mode``
     with ``P = p`` branches, as ``csrc/pfb_fold.cu`` chooses. The strip's
     ``os x P x 64`` weights are staged in shared memory once where they fit
-    beside one slab of ``(tile + P) x 64`` complex64 samples (else one
+    beside one slab of ``(TILE + P) x 64`` complex64 samples (else one
     class's :data:`CHUNK` branches at a time), and the ring holds two slabs
     where two fit beside them (else one). Where not even one slab fits
-    beside a chunk, ``(2, False)`` of the ranged instance: the slab in
-    ranges of :func:`branch_range` branches, two ring stages of a range's
-    slab and weights. ``tile`` overrides the layout's :data:`TILE`."""
-    slab = ((tile or TILE[mode]) + p) * STRIP * 8
+    beside a chunk, ``(2, False)`` of the ranged instance: its tile of
+    :data:`RANGED_TILE` in ranges of :func:`branch_range` branches, two
+    ring stages of a range's slab and weights."""
+    slab = (TILE[mode] + p) * STRIP * 8
     size = 8 if complex_taps else 4
     weights = os * p * STRIP * size
     staged = slab + weights <= MAX_SMEM

@@ -1,7 +1,6 @@
 // The previous design of aether_primitives_tpu_torch/csrc/pfb_fold.cu (each
 // block loads its whole slab, then computes), kept unchanged below so that
-// chip_smoke.py and benches/torch_pfb_fold_sweep.py can time the shipped
-// kernel beside it in one run. The port does not call it. Its comment's
+// chip_smoke.py phase 13 can time the shipped kernel beside it in one run. The port does not call it. Its comment's
 // "0.017 ms of FP32 issue" counts FMAs that it does not issue: its 1.09 G
 // unfused multiplies and adds take 0.033 ms at the issue rate.
 //

@@ -117,7 +117,9 @@ in thirty-one phases:
    the windowed BCJR's block instance at S 2, 3, 128, 256 and 1,024
    (``conv_decode_soft`` where S is a conv code's) and at S 64 and 4 one
    step past the lanes instance's span limit, each ``torch.equal`` to its
-   twin with one launch a call, and each timed beside its bound;
+   twin with one launch a call, and each timed beside its bound (Viterbi's
+   scratch route at K 19 and the BCJR's wide route at S 1,500, Lw 96 x N
+   7, by device time too);
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
@@ -150,8 +152,9 @@ in thirty-one phases:
     the critically sampled synthesis, and ragged batched cases (M 1,000, a
     seam inside a row at an odd sample, os 4); the path's plan unchanged
     (two slabs, every weight staged); the ranged instance at P 295, 512
-    and 1,024 in all five layout and tap-type pairs, and 70,000 rows (the
-    grid folded past 65,535);
+    and 1,024 in all five layout and tap-type pairs and a synthesis of
+    more class frames than branches with the stage's epilogue, and 70,000
+    rows (the grid folded past 65,535); every case one launch;
 11. the channelizer path: three consecutive blocks through analysis and
     synthesis, exactly 1 analysis + 1 synthesis fold launch per step and no
     other kernel, the first 64 frames against a float64 golden (<= -80 dB),
@@ -170,7 +173,10 @@ in thirty-one phases:
     plain twins, the previous design's kernel launched as its callers
     launched it (in turns), the complex-tap and planes layouts, the one-call
     ``conv1d`` yardstick and both floors, and the ranged instance's analysis
-    and synthesis at P 512 beside their bounds; of the analysis, synthesis and DDC
+    and synthesis at P 512 (device time, one-call depthwise ``conv1d``
+    yardsticks for class 0's fold, ``conv_transpose1d`` once) beside their
+    bounds, and both stages' 4M-block steps at P 512 (one launch a step,
+    the fold's device time); of the analysis, synthesis and DDC
     steps (CUDA events and the host's enqueue time) and of
     ``pfb_synthesize`` (slice-sum and kernel); a ``torch.profiler`` split of
     each channelizer step;
@@ -727,11 +733,16 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
     past the lanes instance's span limit (K=7 and K=3 tables). Each
     ``torch.equal`` to its twin with one launch a call, then timed (CUDA
     events; twin beside it; Viterbi K 2, 10, 15 and 16 generators at 256 x
-    112, K 17 at 4 x 112) beside its bound. Returns the
-    entries of the viterbi and bcjr kernels' ``instances``."""
+    112, K 17 at 4 x 112) beside its bound. The two routes written only
+    for reach, Viterbi's scratch route (K 19 full block, the check's 2
+    trellises of 78 steps) and the BCJR's ``wide`` route (S 1,500 at phase
+    7's Lw 96 x N 7), are timed by device time (``torch.profiler``) beside
+    their bounds. Returns the entries of the viterbi and bcjr kernels'
+    ``instances``."""
     import numpy as np
     import torch
 
+    from aether_primitives_tpu_torch.cli import kernel_device_ms
     from aether_primitives_tpu_torch.ops import fec
     from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
     from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
@@ -759,13 +770,19 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
         if not same or counts != {**NO_LAUNCHES, what: kl}:
             fail(f"{label}: kernel and plain twin disagree, or not one launch")
 
-    def timed(label, run, plain, b, ops_bytes):
+    def timed(label, run, plain, b, ops_bytes, kernel=None):
         t, runs = timed_pair(run, plain, iters=(10, 2), runs=2)
+        dev_ms = None
+        if kernel and dev.type == "cuda":
+            dev_ms = float(np.median([kernel_device_ms(run, kernel, 10) for _ in range(3)]))
         print(f"time: {label}: kernel median {t['kernel']:.4f} ms (runs "
-              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])}), plain twin median "
-              f"{t['plain']:.4f} ms; CUDA events; bound {b['bound_ms']:.5f} ms "
-              f"({b['bound_by']}: {ops_bytes}) [{card}]", flush=True)
-        return {**t, **b}
+              f"{', '.join(f'{v:.4f}' for v in runs['kernel'])})"
+              + ("" if kernel is None else f", device {fmt_ms(dev_ms)} ms ({kernel}, "
+                 "torch.profiler, median of 3 windows of 10 calls; "
+                 f"{fmt_ms(dev_ms and dev_ms / b['bound_ms'])}x the bound)")
+              + f", plain twin median {t['plain']:.4f} ms; CUDA events; bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}: {ops_bytes}) [{card}]", flush=True)
+        return {**t, **b, **({} if kernel is None else {"device_ms": dev_ms})}
 
     out = {"viterbi": {}, "bcjr": {}}
     for (k, n), polys in VITERBI_REACH.items():
@@ -780,6 +797,17 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
                  f"{'windowed 64/48' if kw else 'full block'} {tuple(x.shape)}", "viterbi",
                  lambda: fec.viterbi_decode(x, polys, k, **kw),
                  lambda: fec.viterbi_decode(x, polys, k, backend="reference", **kw))
+        if k == 19:  # the scratch route at the shape checked above
+            s_count = 1 << (k - 1)
+            npat = vk.patterns(polys, k)[0]
+            out["viterbi"][f"K={k} n={n} {inst} scratch"] = timed(
+                f"viterbi K={k} rate 1/{n} ({inst} instance, the scratch route), full block "
+                f"{tuple(x.shape)}",
+                lambda: fec.viterbi_decode(x, polys, k),
+                lambda: fec.viterbi_decode(x, polys, k, backend="reference"),
+                viterbi_bound_of(b_sz, n_bits + k - 1, n, s_count, npat),
+                f"{npat} patterns x n FMAs and {s_count} states x 6 FP32 operations a "
+                "step, LLRs in, bits out", kernel="viterbi_block_kernel")
         if k in (2, 10, 15, 17) or n == 16:  # one timed shape an instance and state range
             lw, n_tr = (112, 4) if k == 17 else (112, 256)
             sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
@@ -828,6 +856,23 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
             lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_r, tables),
             bcjr_bound_of(lw_r, n_cols, s_count, classes=False),
             "28 S - 3 FP32 operations a step and column, each an FMA's slot")
+    # the wide route past 1,024 states at phase 7's shape (bcjr_cases'
+    # "random S 1,500": Lw 96 x N 7)
+    lw_w, n_w, s_w = 16 + 64 + 16, 7, 1500
+    tables = random_tables(s_w, 1900 + s_w)
+    ls, lp = (torch.from_numpy((rng.normal(size=(lw_w, n_w)) * 3).astype(np.float32)).to(dev)
+              for _ in range(2))
+    inst = bk.kernel_plan(tables, lw_w)[0]
+    once(f"bcjr S {s_w} ({inst} instance, the wide route) Lw {lw_w} x N {n_w}", "bcjr",
+         lambda: bk.bcjr_windowed_llr(ls, lp, lw_w, tables),
+         lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_w, tables))
+    out["bcjr"][f"S {s_w} Lw {lw_w} {inst} wide"] = timed(
+        f"bcjr S {s_w} ({inst} instance, the wide route), Lw {lw_w} x N {n_w}",
+        lambda: bk.bcjr_windowed_llr(ls, lp, lw_w, tables),
+        lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_w, tables),
+        bcjr_bound_of(lw_w, n_w, s_w, classes=False),
+        "28 S - 3 FP32 operations a step and column, each an FMA's slot",
+        kernel="bcjr_kernel_wide")
     return out
 
 
@@ -1693,19 +1738,25 @@ def f64_synthesis(frames, h, m: int, os: int, n_out: int):
 
 def fold_case(pf, label: str, run_kernel, run_plain) -> float:
     """One phase-10 case: the kernel's output(s) against the twin's, bit
-    for bit; returns the largest absolute difference (0.0 when equal)."""
+    for bit, in one launch (none on the CPU); returns the largest absolute
+    difference (0.0 when equal)."""
     import torch
 
-    got, plain = run_kernel(), run_plain()
-    sync(plain[0].device if isinstance(plain, tuple) else plain.device)
+    before = pf.launches
+    got = run_kernel()
+    launched = pf.launches - before
+    plain = run_plain()
+    dev = plain[0].device if isinstance(plain, tuple) else plain.device
+    sync(dev)
     got = got if isinstance(got, tuple) else (got,)
     plain = plain if isinstance(plain, tuple) else (plain,)
     same = all(torch.equal(g, q) for g, q in zip(got, plain))
     err = max(float((g - q).abs().max()) if g.numel() else 0.0 for g, q in zip(got, plain))
+    want = 1 if dev.type == "cuda" else 0
     print(f"compare pfb_fold {label}: kernel vs plain twin torch.equal {same}, "
-          f"max |diff| {err}")
-    if not same:
-        fail(f"pfb_fold {label}: kernel and plain twin disagree")
+          f"max |diff| {err}, launches {launched} (need {want})")
+    if not same or launched != want:
+        fail(f"pfb_fold {label}: kernel and plain twin disagree, or not one launch")
     return err
 
 
@@ -1849,6 +1900,10 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
                                                    .astype(np.float32)).to(dev))
         x_g = c64((2, (150 + p_g + 1) * m_g + 7))
         v_g = c64((2, 60, m_g))
+        v_gl = c64((2, 2 * p_g + 37, m_g))
+        tail_g = c64((2, p_g * m_g - m_g // os_g))
+        div_g = torch.from_numpy(rng.uniform(0.5, 2.0, m_g // os_g).astype(np.float32)).to(dev)
+        emit_g = (v_gl.shape[1] - 1) * (m_g // os_g)
         rg = {f"{md}{'-c' if c_ else ''}": (pf.branch_range(md, p_g, c_), c_) for md, c_ in
               (("analysis", False), ("analysis", True), ("synthesis", False),
                ("synthesis", True))}
@@ -1876,6 +1931,13 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
             fold_case(pf, f"synthesis, complex taps: P {p_g} (ranges of {rg['synthesis-c'][0]})",
                       lambda: pf.pfb_synthesis(v_g, w_gc, os_g),
                       lambda: pf.pfb_synthesis_reference(v_g, w_gc, os_g)),
+            # more class frames than branches (the spread's two edges and a
+            # full middle), with the streaming stage's epilogue
+            fold_case(pf, f"synthesis: M {m_g}, os 2, P {p_g}, {v_gl.shape[1]} frames, "
+                          f"batch 2, tail {tail_g.shape[1]} added, {emit_g} emitted and divided",
+                      lambda: pf.pfb_synthesis(v_gl, w_g, os_g, tail_g, div_g, emit_g),
+                      lambda: pf.pfb_synthesis_reference(v_gl, w_g, os_g, tail_g, div_g,
+                                                         emit_g)),
         )
     w_r = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)).to(dev)
     x_r = c64((70_000, 7 * 64))
@@ -2115,13 +2177,44 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
           f"conv1d library median {lib_ms:.4f} ms (runs "
           f"{', '.join(f'{x:.4f}' for x in lib_runs)}; rel. diff from the twin {lib_rel:.2e}) "
           f"[{card}]", flush=True)
-    # the ranged instance at the path's M and os with P 512 (two ranges of
-    # 64 branches are eight; synthesis 121), 512 class frames a class
+    def stepper(stage, inputs):
+        box = {"i": 0}
+
+        def run():
+            out = stage.step(inputs[box["i"] % len(inputs)])
+            box["i"] += 1
+            return out
+        return run
+
+    # the ranged instance at the path's M and os with P 512 (eight ranges of
+    # 64 branches), 1,024 frames: device time, the twin, the bound, and one
+    # PyTorch call computing class 0's fold (depthwise conv1d for the
+    # analysis; for the synthesis's spread conv1d with P - 1 zeros padded on
+    # each side and the branches flipped, and conv_transpose1d, which takes
+    # seconds a call here, so it is timed once; TF32 off)
     ranged = {}
     p_w, t_w = 512, 1024
+    t_wc = t_w // os
     w_w = torch.from_numpy(rng.normal(size=(p_w, m)).astype(np.float32)).to(dev)
     x_w = c64(((t_w // os + p_w) * m,))
     v_w = c64((t_w, m))
+    span_w = (t_wc - 1 + p_w) * m
+    lib_a_in = torch.stack([pl[:span_w].reshape(t_wc - 1 + p_w, m).t()
+                            for pl in (x_w.real, x_w.imag)]).contiguous()
+    lib_a_w = w_w.t().contiguous()[:, None, :]
+    lib_s_in = torch.stack([pl.t() for pl in (v_w[0::os].real, v_w[0::os].imag)]).contiguous()
+    lib_s_w = w_w.flip(0).t().contiguous()[:, None, :]  # w_w holds the reversed branches
+    lib_s_wc = w_w.t().contiguous()[:, None, :]
+    lib_ct = lambda: F.conv_transpose1d(lib_s_in, lib_s_w, groups=m)  # noqa: E731
+    lib_runs = {
+        "analysis": (lambda: F.conv1d(lib_a_in, lib_a_w, groups=m),
+                     lambda: pf.pfb_fold_os_reference(x_w.real.contiguous(),
+                                                      x_w.imag.contiguous(), w_w, os,
+                                                      t_wc)[0][0]),
+        "synthesis": (lambda: F.conv1d(lib_s_in, lib_s_wc, padding=p_w - 1, groups=m),
+                      lambda: pf.pfb_synthesis_reference(v_w[0::os].contiguous(), w_w,
+                                                         1).real.reshape(-1, m)),
+    }
     for name, run_k, run_p, nbytes in (
         ("analysis", lambda: pf.pfb_analysis(x_w, None, w_w, os, t_w),
          lambda: pf.pfb_analysis_reference(x_w, None, w_w, os, t_w),
@@ -2131,23 +2224,73 @@ def channelizer_phases(card: str, device: str = "cuda", m: int = 2048, os: int =
          8 * t_w * m + 8 * pf.synthesis_length(t_w, m, p_w, os) + 4 * p_w * m),
     ):
         t, runs = timed_pair(run_k, run_p, iters=(10, 2), runs=2)
+        d_ms, d_n = device_ms(run_k, "pfb_fold_ranged_kernel")
         b = bound(2 * t_w * m * 2 * (2 * p_w - 1), nbytes)
-        ranged[name] = {**t, **b, "branch_range": pf.branch_range(name, p_w)}
+        lib, lib_plain = lib_runs[name]
+        lib_out, want0 = lib(), lib_plain()
+        got0 = lib_out[0].t()[:want0.shape[0]]
+        lib_rel_w = float((got0 - want0).norm() / want0.norm())
+        lib_ms_w = float(np.median([time_cuda(lib, 10) for _ in range(3)]))
+        terms = (pf.ranged_terms(t_w, m, p_w, os) if name == "synthesis" else None)
+        ct = ""
+        if name == "synthesis":
+            ct_out = lib_ct()  # its first call, held to the twin
+            ct_rel = float((ct_out[0].t() - want0).norm() / want0.norm())
+            ct_ms = time_cuda(lib_ct, 1, warmup=0)
+            ct = (f"; conv_transpose1d (depthwise) one call {ct_ms:.4f} ms (rel. diff "
+                  f"{ct_rel:.2e})")
+        ranged[name] = {**t, **b, "device_ms": d_ms, "library_ms": lib_ms_w,
+                        "branch_range": pf.branch_range(name, p_w)}
         print(f"time: pfb_fold ranged {name}, M {m}, os {os}, P {p_w} (ranges of "
               f"{pf.branch_range(name, p_w)} branches), {t_w} frames: kernel median "
               f"{t['kernel']:.4f} ms (runs {', '.join(f'{x:.4f}' for x in runs['kernel'])}), "
-              f"plain twin median {t['plain']:.4f} ms; CUDA events; bound "
+              f"device {fmt_ms(d_ms)} ms ({d_n} records of 20), plain twin median "
+              f"{t['plain']:.4f} ms; CUDA events; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})"
+              + ("" if terms is None else f", terms run / real {terms[0] / terms[1]:.4f}")
+              + f"; library: class 0's fold by one depthwise conv1d"
+              f"{'' if name == 'analysis' else ' (padded P - 1 each side)'} (TF32 off) median "
+              f"{lib_ms_w:.4f} ms (rel. diff from the twin {lib_rel_w:.2e}){ct} [{card}]",
+              flush=True)
+    del x_w, v_w, lib_a_in, lib_s_in
+    # the users' streaming step at P 512: 4M blocks through both stages, one
+    # fold launch a step; the fold's device time beside its bound (as above;
+    # a rehearsal's blocks shorter than two spans of the bank skip it)
+    h_s = ch.pfb_prototype(m, p_w) if block >= 2 * p_w * m else None
+    if h_s is None:
+        print(f"ranged streaming steps at P {p_w}: not run on {block}-sample blocks")
+    ana_s = ch.PfbChannelizerOs(m, os=os, taps=h_s if h_s is not None else h, device=dev)
+    syn_s = ch.PfbSynthesizerOs(m, os=os, taps=h_s if h_s is not None else h, device=dev)
+    fr_s = [ana_s.step(blk) for blk in blocks[:2]]
+    syn_s.step(fr_s[0])
+    sync(dev)
+    t_s = fr_s[1].shape[0]
+    stream_bytes = {
+        "analysis": 8 * ((t_s // os - 1 + p_w) * m + (os - 1) * hop) + 8 * t_s * m
+        + 4 * p_w * m,
+        "synthesis": 8 * t_s * m + 8 * pf.synthesis_length(t_s, m, p_w, os) + 4 * p_w * m,
+    }
+    for name, stage, inputs in (("analysis", ana_s, blocks), ("synthesis", syn_s, [fr_s[1]])):
+        if h_s is None:
+            break
+        run = stepper(stage, inputs)
+        before = pf.launches
+        run()
+        sync(dev)
+        per_step = pf.launches - before
+        if per_step != kl:
+            fail(f"ranged {name} step at P {p_w}: {per_step} fold launches, not {kl}")
+        st_ms = float(np.median([time_cuda(run, 5) for _ in range(3)]))
+        d_ms, d_n = device_ms(run, "pfb_fold_ranged_kernel", calls=10)
+        b = bound(2 * t_s * m * 2 * (2 * p_w - 1), stream_bytes[name])
+        ranged[f"{name} step"] = {"ms": st_ms, "device_ms": d_ms, **b}
+        stage_name = "PfbChannelizerOs" if name == "analysis" else "PfbSynthesizerOs"
+        print(f"time: ranged {name} step, {stage_name}(M {m}, os {os}, P {p_w}) on a 4M "
+              f"block ({t_s} frames): {st_ms:.4f} ms a step "
+              f"(CUDA events, median of 3 x 5 steps), {per_step} fold launch(es) a step, fold "
+              f"device {fmt_ms(d_ms)} ms ({d_n} records of 10; torch.profiler); fold bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
-    del x_w, v_w
-
-    def stepper(stage, inputs):
-        box = {"i": 0}
-
-        def run():
-            out = stage.step(inputs[box["i"] % len(inputs)])
-            box["i"] += 1
-            return out
-        return run
+    del ana_s, syn_s, fr_s
 
     msa = lambda ms: block / (ms * 1e-3) / 1e6  # noqa: E731
     steady = frames[1]

@@ -556,6 +556,12 @@ def test_f13_the_kernel_takes_every_branch_count():
             assert ranged > 0 or mode == "synthesis" and p < 389
             if ranged:
                 assert pf.launch_plan(mode, p, 2, cplx) == (2, False)
+                # one ranged tile of 8 x 16 in every layout: ranges of 64
+                # real / 48 complex branches, two ring stages within 227 KB
+                assert ranged == (48 if cplx else 64)
+                stage = (pf.RANGED_TILE + ranged) * 64 * 8 + ranged * 64 * (8 if cplx else 4)
+                assert 2 * stage <= pf.MAX_SMEM
+    assert pf.RANGED_TILE == pf.RANGED_ROWS * pf.RANGED_FRAMES == 128
     assert pf.kernel_supports(64, 4, 2, batch=70_000)
     assert pf.kernel_supports(64 * 70_000, 4, 2)  # 70,000 strips of 64 columns
 

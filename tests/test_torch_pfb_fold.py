@@ -148,12 +148,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert pf.kernel_supports(2048, 33, 2)
     # one slab of (tile + P) x 64 complex64 samples fits (tile 128, or 44
     # synthesis rows) beside a chunk of the weights (64 branches, or 44) up
-    # to the same P at every os; past it the ranged instance stages the slab
-    # in ranges of branches, so every P is taken, with either tap type
+    # to the same P at every os; past it the ranged instance (one tile of
+    # 128 in every layout) stages the slab in ranges of branches, so every P
+    # is taken, with either tap type
     last = {("planes", False): 294, ("analysis", False): 294, ("analysis", True): 262,
             ("synthesis", False): 388, ("synthesis", True): 366}
     ranges = {("planes", False): 64, ("analysis", False): 64, ("analysis", True): 48,
-              ("synthesis", False): 121, ("synthesis", True): 88}
+              ("synthesis", False): 64, ("synthesis", True): 48}
     for os in (1, 2, 4, 8, 32):
         for (mode, cplx), p_max in last.items():
             assert pf.kernel_supports(2048, 260, os, mode=mode, complex_taps=cplx)
@@ -163,9 +164,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
             assert pf.branch_range(mode, p_max + 1, cplx) == ranges[mode, cplx]
             assert pf.launch_plan(mode, p_max + 1, os, cplx) == (2, False)
             # two ring stages of a range's slab and weights fit, three branches more do not
-            pc, tile, size = ranges[mode, cplx], pf.TILE[mode], 8 if cplx else 4
+            pc, tile, size = ranges[mode, cplx], pf.RANGED_TILE, 8 if cplx else 4
             stage = lambda q: (tile + q) * 64 * 8 + q * 64 * size  # noqa: E731
-            assert 2 * stage(pc) <= pf.MAX_SMEM < 2 * stage(pc + pf.FRAMES[mode])
+            assert 2 * stage(pc) <= pf.MAX_SMEM < 2 * stage(pc + pf.RANGED_FRAMES)
     assert pf.kernel_supports(2048, 295, 2) and pf.kernel_supports(2048, 4096, 2)
     # rows and strips past 65,535 fold into the grid's x axis
     assert pf.kernel_supports(64, 4, 2, batch=70_000)
@@ -542,48 +543,16 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
 
 
 # ------------------------------------------ the ranged instance on the CPU
-#
-# A numpy model of ``csrc/pfb_fold.cu pfb_fold_ranged_kernel`` in the planes
-# layout: per tile of ``tile`` class frames, per class, per range of ``pc``
-# branches, the range's slab (rows [tile0 + q0, tile0 + q0 + tile + pc) of
-# M samples, zeros past the end) and its weights; frame t of column c reads
-# slab row t + down + q (down = c < j hop); the accumulators carry over the
-# ranges, so the sum runs from p = 0 in order. Held bit for bit against the
-# planes twin.
-
-
-def ranged_model(xr, xi, hb, os, t_cls, pc, tile=128):
-    p, m = hb.shape
-    hop = m // os
-    n = xr.shape[-1]
-    out = np.zeros((2, os, t_cls, m), np.float32)
-    cols = np.arange(m)
-    for tile0 in range(0, t_cls, tile):
-        for j in range(os):
-            down = (cols < j * hop).astype(np.int64)
-            r = (cols - j * hop) % m
-            acc = None
-            for q0 in range(0, p, pc):
-                rows = tile0 + q0 + np.arange(tile + pc)
-                idx = rows[:, None] * m + cols[None, :]
-                slab = [np.where(idx < n, pl[np.minimum(idx, n - 1)], np.float32(0))
-                        for pl in (xr, xi)]
-                for q in range(min(pc, p - q0)):
-                    sel = np.arange(tile)[:, None] + down[None, :] + q
-                    w = hb[q0 + q, r]
-                    term = np.stack([sl[sel, cols] * w for sl in slab])
-                    acc = term if acc is None else acc + term
-            keep = min(tile, t_cls - tile0)
-            out[:, j, tile0:tile0 + keep] = acc[:, :keep]
-    return out
 
 
 @pytest.mark.parametrize("p,pc,t_cls,os", [(300, 64, 150, 2), (70, 64, 20, 4), (97, 48, 9, 1)],
                          ids=["p300", "p70", "p97-os1"])
 def test_ranged_model_matches_twin(p, pc, t_cls, os):
+    # the kernel's planes layout at its own tile (8 x 16) and strip:
+    # ranged_analysis_model below, bit for bit against the planes twin
     m = 16
     xr, xi, hb = _case(m, os, p, t_cls, seed=p + pc)
-    got = ranged_model(xr, xi, hb, os, t_cls, pc)
+    got = ranged_analysis_model(xr + 1j * xi, hb, os, t_cls * os, pc, planes=True)
     want_r, want_i = _twin(xr, xi, hb, os, t_cls)
     assert np.array_equal(got[0], want_r) and np.array_equal(got[1], want_i)
 
@@ -592,10 +561,13 @@ def test_ranged_model_matches_twin(p, pc, t_cls, os):
 @pytest.mark.parametrize("p", [295, 512, 1024])
 @pytest.mark.parametrize("mode,cplx", [("analysis", False), ("analysis", True),
                                        ("planes", False), ("synthesis", False),
-                                       ("synthesis", True)])
+                                       ("synthesis", True), ("synthesis-long", False),
+                                       ("synthesis-long", True)])
 def test_cuda_ranged_instance_matches_twin(cuda, mode, cplx, p):
     # past one slab beside a chunk of the weights: the slab in ranges of
-    # branches, one launch, bit for bit (two tiles, ragged M, a batch axis)
+    # branches, one launch, bit for bit (two tiles, ragged M, a batch axis);
+    # synthesis at T_cls < P (all spread edge) and, "long", T_cls > P with
+    # the streaming stage's epilogue
     m, os, batch = 200, 2, (2,)
     rng = np.random.default_rng(p + 7 * len(mode) + cplx)
     w = _branches(p, m, rng, cplx).to(cuda)
@@ -612,13 +584,22 @@ def test_cuda_ranged_instance_matches_twin(cuda, mode, cplx, p):
         x = _c64(batch + (_need(m, os, p, t_frames // os) + 5,), rng).to(cuda)
         got = pf.pfb_analysis(x[..., :m + 3], x[..., m + 3:], w, os, t_frames)
         ok = torch.equal(got, pf.pfb_analysis_reference(x, None, w, os, t_frames))
-    else:
+    elif mode == "synthesis":
         v = _c64(batch + (60, m), rng).to(cuda)
         got = pf.pfb_synthesis(v, w, os)
         ok = torch.equal(got, pf.pfb_synthesis_reference(v, w, os))
+    else:
+        v = _c64(batch + (2 * p + 37, m), rng).to(cuda)
+        tail = _c64(batch + (p * m - m // os,), rng).to(cuda)
+        divisor = torch.from_numpy(rng.uniform(0.5, 3.0, m // os).astype(np.float32)).to(cuda)
+        emit = (2 * p + 36) * (m // os)
+        got = pf.pfb_synthesis(v, w, os, tail, divisor, emit)
+        want = pf.pfb_synthesis_reference(v, w, os, tail, divisor, emit)
+        ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize()
     assert pf.launches == before + 1
-    assert pf.branch_range(mode, p, cplx) > 0 or (mode == "synthesis" and p < 389)
+    layout = mode.split("-")[0]
+    assert pf.branch_range(layout, p, cplx) > 0 or (layout == "synthesis" and p < 389)
     assert ok
 
 
@@ -647,3 +628,215 @@ def test_cuda_folded_grid_matches_twin(cuda, mode):
     torch.cuda.synchronize()
     assert pf.launches == before + 1
     assert ok
+
+
+# ----------------------------- the ranged instance's schedule on the CPU
+#
+# A numpy model of ``csrc/pfb_fold.cu pfb_fold_ranged_kernel`` as it runs
+# now, in every layout: tiles of ``rows`` thread slabs of ``frames`` rows,
+# per tile the classes in j order, per class the ranges of ``pc`` branches
+# that hold a live branch. Synthesis: output row U of column c (d = c <
+# j hop) reads class frame U - d + q - (P-1), real for q in [P-1-U+d,
+# P-1-U+d+T_j); a strip's tile runs the ranges that meet the union of its
+# rows' and columns' intervals (one empty step where none does), a thread
+# slab only the union of its own rows', its sum starting from its first
+# live term; the classes are added in j order through the output (a
+# partial sum where the sample goes), the last with the epilogue. Every
+# read is checked to lie in the slab rows its step loads. Held bit for bit
+# against the twins (``np.array_equal``: -0.0 equals +0.0).
+
+
+def _term(xr, xi, w):
+    """The kernel's term in float32, one rounding an operation."""
+    if np.iscomplexobj(w):
+        wr, wi = w.real.astype(np.float32), w.imag.astype(np.float32)
+        return xr * wr - xi * wi, xr * wi + xi * wr
+    return xr * w, xi * w
+
+
+def ranged_synthesis_model(v, w, os, pc, frames=16, rows=8, strip=64, tail=None,
+                           divisor=None, emit=None):
+    """``(out, rest)`` (or the raw overlap-add) of the ranged synthesis, and
+    the terms it ran."""
+    t, m = v.shape
+    p = w.shape[0]
+    hop = m // os
+    tile = frames * rows
+    length = pf.synthesis_length(t, m, p, os)
+    n_rows = -(-length // m)
+    t_rows = -(-t // os) + p - 1  # rows any class reaches
+    o_re = np.zeros((n_rows, m), np.float32)
+    o_im = np.zeros((n_rows, m), np.float32)
+    vr, vi = v.real.astype(np.float32), v.imag.astype(np.float32)
+    ran = 0
+    for u_tile in range(0, n_rows, tile):
+        for j in range(os):
+            t_j = -(-(t - j) // os)
+            for c0 in range(0, m, strip):
+                cols = np.arange(c0, min(c0 + strip, m))
+                d = (cols < j * hop).astype(np.int64)
+                r = (cols - j * hop) % m
+                ql = max(0, p - 1 - (u_tile + tile - 1) + int(d.min()))
+                qh = min(p, p - 1 - u_tile + int(d.max()) + t_j)
+                live = range(ql // pc, -(-qh // pc)) if ql < qh else range(0)
+                for g in range(rows):
+                    u0 = u_tile + g * frames
+                    qf = np.maximum(0, p - 1 - (u0 + frames - 1) + d)
+                    qt = np.minimum(qh, p - 1 - u0 + d + t_j)
+                    ar = np.zeros((frames, cols.size), np.float32)
+                    ai = np.zeros((frames, cols.size), np.float32)
+                    for rg in live:  # the skipped ranges load and run nothing
+                        q0 = rg * pc
+                        la, lb = max(ql, q0) - q0, min(qh, q0 + pc) - q0
+                        lo, hi = la + 1 - int(d.max()), lb + tile - int(d.min())
+                        for q in range(q0 + la, q0 + lb):
+                            on = (q >= qf) & (q < qt)
+                            if not on.any():
+                                continue
+                            # slab row of row t: tile row g*frames + t + 1 - d + q - q0
+                            rho = g * frames + np.arange(frames)[:, None] + 1 - d + q - q0
+                            assert (rho[:, on] >= lo).all() and (rho[:, on] < hi).all()
+                            i = u0 + np.arange(frames)[:, None] - d + q - (p - 1)
+                            fr = i * os + j
+                            ok = (i >= 0) & (fr < t)
+                            sel = np.clip(fr, 0, t - 1)
+                            xr = np.where(ok, vr[sel, cols], np.float32(0))
+                            xi = np.where(ok, vi[sel, cols], np.float32(0))
+                            tr, ti = _term(xr, xi, w[q, r])
+                            first = on & (q == qf)
+                            ar = np.where(first, tr, np.where(on, ar + tr, ar))
+                            ai = np.where(first, ti, np.where(on, ai + ti, ai))
+                            ran += frames * int(on.sum())
+                    # class j added to the classes before it through the output
+                    for k in range(frames):
+                        u = u0 + k
+                        if u >= n_rows:
+                            continue
+                        srow = u - d
+                        keep = (srow >= 0) & (srow < t_rows)
+                        vr_k = np.where(keep, ar[k], np.float32(0))
+                        vi_k = np.where(keep, ai[k], np.float32(0))
+                        if j:
+                            vr_k, vi_k = o_re[u, cols] + vr_k, o_im[u, cols] + vi_k
+                        o_re[u, cols], o_im[u, cols] = vr_k, vi_k
+    raw_r, raw_i = o_re.reshape(-1)[:length], o_im.reshape(-1)[:length]
+    if tail is not None:
+        n_t = tail.shape[-1]
+        raw_r[:n_t] = raw_r[:n_t] + tail.real.astype(np.float32)
+        raw_i[:n_t] = raw_i[:n_t] + tail.imag.astype(np.float32)
+    raw = (raw_r + 1j * raw_i).astype(np.complex64)
+    if emit is None:
+        return raw, ran
+    head_r, head_i = raw_r[:emit], raw_i[:emit]
+    if divisor is not None:
+        dv = np.tile(divisor.astype(np.float32), emit // hop)
+        head_r, head_i = head_r / dv, head_i / dv
+    return ((head_r + 1j * head_i).astype(np.complex64), raw[emit:]), ran
+
+
+def ranged_analysis_model(x, w, os, t_frames, pc, frames=16, rows=8, strip=64, planes=False):
+    """The ranged analysis (frames ``[t_frames, M]`` in frame order) or, with
+    ``planes``, the planes layout (``[2, os, t_cls, M]``) of the one
+    complex stream ``x``: every range of every class runs, a thread slab's
+    sum from branch 0 in order, zeros past the stream's end."""
+    p, m = w.shape
+    hop = m // os
+    tile = frames * rows
+    t_cls = -(-t_frames // os)
+    xr, xi = x.real.astype(np.float32), x.imag.astype(np.float32)
+    n = x.shape[-1]
+    out = np.zeros((2, os, t_cls, m), np.float32)
+    for i_tile in range(0, t_cls, tile):
+        for j in range(os):
+            for c0 in range(0, m, strip):
+                cols = np.arange(c0, min(c0 + strip, m))
+                down = (cols < j * hop).astype(np.int64)
+                r = (cols - j * hop) % m
+                for g in range(rows):
+                    i0 = i_tile + g * frames
+                    ar = ai = None
+                    for q0 in range(0, p, pc):
+                        for q in range(q0, min(p, q0 + pc)):
+                            # slab row g*frames + t + down + q - q0 of the range's
+                            # slab, stream rows from i_tile + q0, column c
+                            rho = g * frames + np.arange(frames)[:, None] + down + q - q0
+                            assert (rho >= 0).all() and (rho < tile + pc).all()
+                            s = (i_tile + q0 + rho) * m + cols
+                            ok = s < n
+                            sel = np.minimum(s, n - 1)
+                            tr, ti = _term(np.where(ok, xr[sel], np.float32(0)),
+                                           np.where(ok, xi[sel], np.float32(0)), w[q, r])
+                            ar = tr if ar is None else ar + tr
+                            ai = ti if ai is None else ai + ti
+                    keep = min(frames, t_cls - i0)
+                    if keep > 0:
+                        out[0, j, i0:i0 + keep, c0:c0 + cols.size] = ar[:keep]
+                        out[1, j, i0:i0 + keep, c0:c0 + cols.size] = ai[:keep]
+    if planes:
+        return out
+    u = (out[0] + 1j * out[1]).astype(np.complex64)
+    return u.transpose(1, 0, 2).reshape(t_cls * os, m)[:t_frames]
+
+
+# (M, os, P, T, pc, frames, rows, complex taps): T_cls < P (all edge),
+# T_cls >> P, os 1 / 2 / 4, ragged M (a strip of 16 columns; hop not a
+# multiple of the strip, so d varies inside one), complex taps
+SCHEDULE = [(80, 2, 11, 6, 4, 4, 2, False), (80, 2, 5, 61, 4, 4, 2, True),
+            (48, 1, 9, 40, 4, 2, 3, False), (96, 4, 7, 14, 3, 4, 2, True),
+            (24, 4, 13, 130, 8, 4, 4, False), (72, 2, 20, 3, 8, 4, 2, True)]
+SCHEDULE_IDS = [f"m{m}-os{o}-p{p}-t{t}-pc{pc}-{'c' if c else 'r'}"
+                for m, o, p, t, pc, _, _, c in SCHEDULE]
+
+
+@pytest.mark.parametrize("m,os,p,t,pc,frames,rows,cplx", SCHEDULE, ids=SCHEDULE_IDS)
+def test_ranged_synthesis_schedule_matches_twin(m, os, p, t, pc, frames, rows, cplx):
+    rng = np.random.default_rng(m + 7 * p + t)
+    v = _with_negative_zeros(_c64((t, m), rng), rng)
+    w = _branches(p, m, rng, cplx)
+    got, ran = ranged_synthesis_model(v.numpy(), w.numpy(), os, pc, frames, rows, strip=32)
+    assert np.array_equal(got, pf.pfb_synthesis_reference(v, w, os).numpy())
+    assert ran >= t * p * m  # every real term runs
+    # the streaming stage's epilogue on the last class
+    tail, divisor, emit = _epilogue_case(v, w, os, rng)
+    (out, rest), _ = ranged_synthesis_model(v.numpy(), w.numpy(), os, pc, frames, rows,
+                                            strip=32, tail=tail.numpy(),
+                                            divisor=divisor.numpy(), emit=emit)
+    want_out, want_rest = pf.pfb_synthesis_reference(v, w, os, tail, divisor, emit)
+    assert np.array_equal(out, want_out.numpy()) and np.array_equal(rest, want_rest.numpy())
+
+
+@pytest.mark.parametrize("t,p", [(40, 20), (300, 9), (7, 30)], ids=["t40-p20", "t300-p9",
+                                                                    "t7-p30"])
+def test_ranged_synthesis_terms_count_the_kernels_schedule(t, p):
+    # the kernel's tile (8 slabs of 16 rows) and strip: the model runs the
+    # terms pfb_fold.ranged_terms counts, at most 15 x 16 dead ones a slab
+    # and class at each edge
+    m, os = 64, 2
+    rng = np.random.default_rng(t + p)
+    v = _c64((t, m), rng)
+    w = _branches(p, m, rng)
+    got, ran = ranged_synthesis_model(v.numpy(), w.numpy(), os, 16,
+                                      pf.RANGED_FRAMES, pf.RANGED_ROWS)
+    assert np.array_equal(got, pf.pfb_synthesis_reference(v, w, os).numpy())
+    computed, real = pf.ranged_terms(t, m, p, os)
+    assert ran == computed and real == t * p * m
+    slabs = -(-(-(-pf.synthesis_length(t, m, p, os) // m)) // pf.RANGED_TILE) * pf.RANGED_ROWS
+    assert computed - real <= 2 * 15 * 16 * m * os * slabs
+
+
+@pytest.mark.parametrize("m,os,p,t,pc,frames,rows,cplx", SCHEDULE, ids=SCHEDULE_IDS)
+def test_ranged_analysis_schedule_matches_twin(m, os, p, t, pc, frames, rows, cplx):
+    rng = np.random.default_rng(m + 5 * p + t)
+    t_cls = -(-t // os)
+    x = _c64((_need(m, os, p, t_cls) - 3 * m // 2,), rng)  # a zero tail past the end
+    w = _branches(p, m, rng, cplx)
+    got = ranged_analysis_model(x.numpy(), w.numpy(), os, t, pc, frames, rows, strip=32)
+    assert np.array_equal(got, pf.pfb_analysis_reference(x, None, w, os, t).numpy())
+    if not cplx:
+        planes = ranged_analysis_model(x.numpy(), w.numpy(), os, t, pc, frames, rows,
+                                       strip=32, planes=True)
+        xp = F.pad(x, (0, 3 * m // 2))
+        want = pf.pfb_fold_os_reference(xp.real.contiguous(), xp.imag.contiguous(), w, os,
+                                        t_cls)
+        assert np.array_equal(planes[0], want[0].numpy())
+        assert np.array_equal(planes[1], want[1].numpy())
