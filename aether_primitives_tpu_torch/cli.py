@@ -180,15 +180,15 @@ def kernel_device_times(fn, match: str, calls: int = 20) -> list:
             if e.device_type == DeviceType.CUDA and match in e.name]
 
 
-def kernel_device_ms(fn, match: str, calls: int = 20, tries: int = 3) -> float:
+def kernel_device_ms(fn, match: str, calls: int = 20, tries: int = 6) -> float:
     """Device milliseconds a launch of the kernels whose name holds
     ``match``, by ``torch.profiler`` (CUPTI) over ``calls`` calls of
     ``fn()`` after one: the kernel's own time, without the host's time
     between launches. The mean over the launches the profiler recorded,
     which may be fewer than were made (it drops some, at times all of a
-    window's: then it profiles another window, ``tries`` in all), so a call
-    of ``fn`` should launch one such kernel. Raises where no window
-    recorded any."""
+    window's, on an H100 in chip_smoke.py three windows running once: then
+    it profiles another window, ``tries`` in all), so a call of ``fn``
+    should launch one such kernel. Raises where no window recorded any."""
     for _ in range(tries):
         us = [t for _, t in kernel_device_times(fn, match, calls)]
         if us:

@@ -137,12 +137,20 @@
 // - bcjr_kernel_thin keeps its spans and half-histories in shared memory
 //   up to 454 steps (S 2) or 363 (S 3), as the meet instance does; past
 //   that they go through the scratch and a ring of 32 steps.
-// - Past 1,024 states (W > 4 warps) the tables no longer fit a CTA's
-//   registers: bcjr_kernel_wide, one CTA of 256 threads a column, the tables
-//   read from the card a step, two metric buffers in shared memory (in the
-//   scratch past 28,928 states) and one barrier a step, the beta history in
-//   the scratch [N][Lw][S]. Written for reach, not speed.
+// - Past 1,024 states (W > 4 warps) a column's tables no longer fit one
+//   CTA's registers. Over columns that fill the card, to 2,048 states,
+//   bcjr_kernel_block<8, 32, 8, true> (the shared route) keeps them in
+//   shared memory instead: one CTA of 16 warps a column, the transitions'
+//   ends alone in registers. Every other call takes bcjr_kernel_cluster,
+//   bcjr_kernel_block's design across a thread-block cluster of 2-8 CTAs a
+//   column: to 8 x 1,024 states its tables stay in registers and each
+//   step's metrics and partial maxima are pushed to every CTA's copy of the
+//   column by st.async under an mbarrier (no cluster barrier a step, local
+//   gathers); past that the tables are read through L1 and each CTA's
+//   exchange by the others, with one cluster barrier a step. See its
+//   section.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -152,10 +160,11 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMeetThreads = 64;      // the meet instance's block: two warps
 constexpr int kLanesThreads = 64;     // the lanes instance's block: two warps
 constexpr int kMaxSmem = 232448;      // opt-in shared memory of a block on sm_90
-constexpr int kWideThreads = 256;     // the wide route's CTA
 
 // The turbo RSC-8 trellis of ops/turbo.py _trellis(): nxt[s][u] and
 // prev_s[s'][j], row-major [8][2], and the branch-metric class of each
@@ -820,7 +829,7 @@ __device__ __forceinline__ float lanes_max(float v, int L) {
 }
 
 constexpr int kBlockWarps = 4;                      // the most warps a direction
-constexpr int kBlockStates = 32 * 8 * kBlockWarps;  // past this, the wide route
+constexpr int kBlockStates = 32 * 8 * kBlockWarps;  // past this, the cluster route
 
 // Steps copied ahead through the rings at R states a lane: enough to cover
 // a read from device memory at each R's step time.
@@ -831,13 +840,13 @@ struct BlockRing {
 
 // The block kernel's shared memory in bytes: the exchange buffers [2
 // directions][2][row], the history ring [2 directions][kDepth][row], the
-// span rings [2 W warps][kDepth][2][G] and the warps' key partials [2
+// span rings [2 W warps][kDepth][2][G], the warps' key partials [2
 // directions][2][3][W] (row = 32 R W floats: the padded states of a CTA's
-// columns).
-template <int R, int L, int W>
+// columns) and, with kShared, the coefficients [fw; bw][row][2] (float2).
+template <int R, int L, int W, bool kShared = false>
 constexpr int block_smem() {
   constexpr int row = 32 * R * W, D = BlockRing<R>::kDepth, G = 32 / L;
-  return (4 * row + 2 * D * row + 4 * W * D * G) * 4 + 12 * W * 4;
+  return (4 * row + 2 * D * row + 4 * W * D * G) * 4 + 12 * W * 4 + (kShared ? 4 * row * 8 : 0);
 }
 
 // Warps 0..W-1 run alpha forward, warps W..2W-1 beta backward, over the
@@ -858,7 +867,13 @@ constexpr int block_smem() {
 // exchange buffer's parity is one too. hist: float32 [ceil(N / G)][lw][32 R
 // W], the CTA's rows at blockIdx.x; idx int32 [nxt; prev_s] and coef
 // float32 [fw0; fw1; bw0; bw1], each [S][2], on the card.
-template <int R, int L, int W>
+//
+// kShared (past 1,024 states to 2,048, where the columns fill the card: one
+// CTA a column of 8 warps a direction of 8 states a lane): every
+// transition's coefficients come from shared memory, loaded once a CTA, at
+// a compile-time offset from the lane's first state, so a lane keeps only
+// its transitions' ends in registers and 16 warps fit one CTA's registers.
+template <int R, int L, int W, bool kShared = false>
 __global__ void __launch_bounds__(64 * W)
 bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
                   float* __restrict__ llr, float* __restrict__ hist, int lw,
@@ -883,6 +898,9 @@ bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
   float* const sr = smem + 4 * row + 2 * D * row + warp * D * 2 * G;  // [D][2][G]
   int* const pd = reinterpret_cast<int*>(smem + 4 * row + 2 * D * row + 4 * W * D * G) +
                   (forward ? 0 : 6 * W);  // [2][3][W]
+  // kShared: the coefficients (c0, c1) of transition (s, k), [fw; bw][row][2]
+  float2* const cs =
+      reinterpret_cast<float2*>(smem + 4 * row + 2 * D * row + 4 * W * D * G + 12 * W);
   float* const hcta = hist + static_cast<long long>(blockIdx.x) * lw * row;
 
   // this lane's transitions: the offsets of their other ends (exchange
@@ -890,7 +908,8 @@ bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
   // coefficients, and (forward) the LLR's: nxt and the backward coefficients
   const int own = g * P + w * L * R + li;  // slot r at own + r L
   int at[R][2], lat[R][2];
-  float c0[R][2], c1[R][2], l0[R][2], l1[R][2], n[R];
+  constexpr int RC = kShared ? 1 : R;
+  float c0[RC][2], c1[RC][2], l0[RC][2], l1[RC][2], n[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = w * L * R + r * L + li;
@@ -901,18 +920,31 @@ bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
       if (s < S) {
         const int nx = __ldg(idx + e);
         at[r][k] = xbase + g * P + (forward ? __ldg(idx + 2 * S + e) : nx);
-        c0[r][k] = __ldg(coef + (forward ? 0 : 4 * S) + e);
-        c1[r][k] = __ldg(coef + (forward ? 2 * S : 6 * S) + e);
         lat[r][k] = g * P + nx;
-        l0[r][k] = __ldg(coef + 4 * S + e);
-        l1[r][k] = __ldg(coef + 6 * S + e);
+        if constexpr (!kShared) {
+          c0[r][k] = __ldg(coef + (forward ? 0 : 4 * S) + e);
+          c1[r][k] = __ldg(coef + (forward ? 2 * S : 6 * S) + e);
+          l0[r][k] = __ldg(coef + 4 * S + e);
+          l1[r][k] = __ldg(coef + 6 * S + e);
+        }
       } else {  // padding: its own end, zero coefficients, -inf throughout
         at[r][k] = xbase + own + r * L;
         lat[r][k] = own + r * L;
-        c0[r][k] = c1[r][k] = l0[r][k] = l1[r][k] = 0.0f;
+        if constexpr (!kShared) c0[r][k] = c1[r][k] = l0[r][k] = l1[r][k] = 0.0f;
       }
     }
   }
+  if constexpr (kShared) {  // every transition's coefficients, zero for padding
+    for (int e = threadIdx.x; e < 4 * row; e += 64 * W) {
+      const int bw = e >= 2 * row, t = e - (bw ? 2 * row : 0), s = t >> 1;
+      cs[e] = s < S ? make_float2(__ldg(coef + 4 * bw * S + t), __ldg(coef + (4 * bw + 2) * S + t))
+                    : make_float2(0.0f, 0.0f);
+    }
+    __syncthreads();
+  }
+  // kShared: this lane's slots' coefficients (the recursion's, and forward the LLR's)
+  const float2* const crec = cs + (forward ? 0 : 2 * row) + 2 * own;
+  const float2* const cllr = cs + 2 * row + 2 * own;
   const int dt = forward ? 1 : -1;
   const long long span_step = dt * ncols;
   auto sync_dir = [&] {
@@ -959,12 +991,27 @@ bcjr_kernel_block(const float* __restrict__ ls, const float* __restrict__ lp,
     auto metrics = [&](int j, float (&to)[R][2], float (&lo)[R][2]) {
       const int slot = j & (D - 1);
       const float x = sr[slot * 2 * G + g], y = sr[slot * 2 * G + G + g];
+      if constexpr (kShared) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+        for (int r = 0; r < R; ++r) {
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          to[r][k] = branch_metric(c0[r][k], c1[r][k], x, y);
-          if (kLLR && forward) lo[r][k] = branch_metric(l0[r][k], l1[r][k], x, y);
+          for (int k = 0; k < 2; ++k) {
+            const float2 c = crec[2 * r * L + k];
+            to[r][k] = branch_metric(c.x, c.y, x, y);
+            if (kLLR && forward) {
+              const float2 u = cllr[2 * r * L + k];
+              lo[r][k] = branch_metric(u.x, u.y, x, y);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            to[r][k] = branch_metric(c0[r][k], c1[r][k], x, y);
+            if (kLLR && forward) lo[r][k] = branch_metric(l0[r][k], l1[r][k], x, y);
+          }
         }
       }
     };
@@ -1336,141 +1383,555 @@ bcjr_kernel_thin(const float* __restrict__ ls, const float* __restrict__ lp,
   }
 }
 
-// ---------------------------------------------------- the wide route (PR 19)
+// ------------------------------------------------------------ cluster route
+//
+// bcjr_kernel_cluster<R, W, kPlace>, the block instance past 1,024 states
+// (ops/cuda/bcjr.py block_layout "cluster"): bcjr_kernel_block's design
+// carried across a thread-block cluster of q CTAs a column (2-8). Each CTA
+// holds SC = 32 W R' of the column's P = q SC padded states (state s in the
+// CTA of rank s / SC), over W warps a direction (warps 0..W-1 forward,
+// W..2W-1 backward) of R' states a lane: state rank SC + w 32 R' + 32 r +
+// lane in slot r. The two directions run side by side to the middle (one
+// cluster barrier there: the history written), then on through the other
+// half, as in block: the chain is Lw steps, not 2 Lw. A step of a
+// direction: the state maximum mx from the q W warps' partial keys (a lane
+// a partial, one redux.sync); each state's metric m = n - mx (n, the last
+// update, before its normalisation) and its transitions' other ends v =
+// n[at] - mx (the twin's floats: one subtraction of one maximum); the
+// first half writes m to the history in the device scratch ([N][Lw][P]),
+// the second half takes its LLR's terms as block does, forward (m + g_bw)
+// + beta_t[nxt], backward (alpha_t + g_bw) + v, their warps' partial maxima
+// going to rank 0, which writes the LLR a step later; then the update n =
+// max_k (v[k] + g[k]) and its warp's partial maximum.
+//
+// kPlace, where the tables and the exchange live:
+// - kPlaceRegs (to 8 x 1,024 states): R states a lane, each transition's
+//   table entries and coefficients in registers, loaded once, as block.
+//   Every CTA keeps a whole copy of the column's metrics, [2 directions][2]
+//   [P], so a step's gathers are local shared-memory loads: a lane writes
+//   its updates to its own copy and pushes them to the q - 1 others with
+//   st.async, whose bytes complete the transaction count of the receiving
+//   CTA's mbarrier of that direction and parity (the partial keys likewise;
+//   the CTA's own warps arrive on it with the bytes they expect). A step
+//   waits on its mbarrier alone: no cluster barrier, no remote load, and no
+//   release of the history's stores a step. The spans and, in the second
+//   half, the other direction's history entries that the lane's own
+//   transitions read (beta_t at nxt forward, alpha_t at its own states
+//   backward) come through a ring of the lane's own cp.async copies
+//   kClusterRing steps ahead, so no row of the history need fit a CTA.
+// - kPlaceGlobal (past that): R' states a lane at run time, the tables read
+//   a step through the read-only path (L1-resident); each CTA's own states'
+//   metrics in an exchange in the device scratch ([N][2][2][P]) that the
+//   others read (ld.global.cg); one cluster barrier a step
+//   (barrier.cluster.arrive.release / wait.acquire), the partial keys
+//   pushed to every CTA before it; the spans and the history read directly.
+// What bounds it on an H100 (80GB HBM3, 700 W; PERF.md §6): at few
+// columns the step chain, whose exchange alone (an empty kernel of the same
+// mbarrier waits and pushes: chip_smoke.py phase 7's floor) takes a quarter
+// of phase 7's launch at S 1,500; at many columns the registers: 219 a
+// thread at 8 states a lane hold one CTA of 8 warps an SM (the K 12 code's
+// 512 columns would take ~8 waves: 2.95 ms), so from 34 columns to 2,048
+// states the shared route takes the call (1.10 ms there).
 
-// The block maximum of R max_keys a thread (redux.sync a warp, then the
-// warps' through shared memory, one barrier); red: [2][R][warps],
-// alternating by `parity` so that one barrier a step suffices.
-template <int R>
-__device__ __forceinline__ void block_max(int (&k)[R], int (*red)[kWideThreads / 32],
-                                          int parity) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    k[r] = __reduce_max_sync(0xffffffffu, k[r]);
-    if ((threadIdx.x & 31) == 0) red[parity * R + r][warp] = k[r];
+constexpr int kPlaceRegs = 0, kPlaceGlobal = 1, kPlaceShared = 2;
+constexpr int kClusterRing = 4;  // steps the registers placement copies ahead
+constexpr int kClusterMaxQ = 8;
+constexpr int kClusterKeys = 32;  // a direction's partial keys: q W <= 32
+
+__device__ __forceinline__ unsigned cluster_map(const void* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_st(unsigned a, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+// st.async of v to the shared::cluster address a, its bytes completing the
+// transaction count of the mbarrier at the shared::cluster address bar. No
+// memory clobber: the compiler may move this thread's loads past a push (no
+// load reads what it writes); the pushes keep their order to the volatile
+// arrive that follows them.
+__device__ __forceinline__ void push_f32(unsigned a, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n"
+               ::"r"(a), "f"(v), "r"(bar));
+}
+
+__device__ __forceinline__ void push_v2(unsigned a, int x, int y, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 [%0], {%1, %2}, [%3];\n"
+               ::"r"(a), "r"(x), "r"(y), "r"(bar));
+}
+
+__device__ __forceinline__ void push_s32(unsigned a, int v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 [%0], %1, [%2];\n"
+               ::"r"(a), "r"(v), "r"(bar));
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Floats of shared memory a CTA of the cluster route takes. Registers: the
+// metrics' copies [2 directions][2][P], the partial keys [2][2][32], the
+// LLR's [2][2][32][2], four mbarriers, the ring [kClusterRing][2 + 2 R][64
+// W]. Global: the keys and the LLR's keys.
+__host__ __device__ constexpr long long cluster_smem_floats(int R, int W, int place, long long sc,
+                                                            int q) {
+  return place == kPlaceRegs ? 4 * q * sc + 12 * kClusterKeys + 8 +
+                                   static_cast<long long>(kClusterRing) * (2 + 2 * R) * 64 * W
+                             : 12 * kClusterKeys;
+}
+
+// The registers placement (bcjr_kernel_cluster's comment).
+template <int R, int W>
+__device__ __forceinline__ void cluster_regs(const float* __restrict__ ls,
+                                             const float* __restrict__ lp,
+                                             float* __restrict__ llr, float* __restrict__ hist,
+                                             int lw, long long ncols, int S,
+                                             const int* __restrict__ idx,
+                                             const float* __restrict__ coef, float* smc) {
+  constexpr int D = kClusterRing, E = 2 + 2 * R, T = 64 * W, SC = 32 * W * R;
+  constexpr unsigned kAll = 0xffffffffu;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int P = q * SC;
+  const long long col = blockIdx.x / q;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool forward = warp < W;
+  const int d = forward ? 0 : 1, w = forward ? warp : warp - W;
+  const int own = rank * SC + w * 32 * R + lane;  // slot r's state: own + 32 r
+  const int key_slot = rank * W + w;
+  float* const xf = smc;                                         // [2 d][2 parity][P]
+  int* const keys = reinterpret_cast<int*>(smc + 4 * P);         // [2 d][2 parity][32]
+  int* const lkeys = keys + 4 * kClusterKeys;                    // [2 d][2 parity][32][2]
+  unsigned long long* const bars =
+      reinterpret_cast<unsigned long long*>(lkeys + 8 * kClusterKeys);  // [2 d][2 parity]
+  float* const ring = reinterpret_cast<float*>(bars + 4);        // [D][E][T]
+  float* const hcol = hist + col * lw * static_cast<long long>(P);
+  const unsigned bar_s = static_cast<unsigned>(__cvta_generic_to_shared(bars));
+
+  // the copies of parity 0 (every state's initial metric: 0, -inf padded)
+  // and their partial keys are the same in every CTA: each fills its own
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_s + 8 * i), "r"(W)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  for (int e = tid; e < 2 * P; e += T) {
+    const int s = e % P;
+    xf[(e / P) * 2 * P + s] = s < S ? 0.0f : -INFINITY;
+  }
+  for (int e = tid; e < 2 * q * W; e += T) {
+    const int k = e % (q * W);
+    const int first = (k / W) * SC + (k % W) * 32 * R;  // that warp's first state
+    keys[(e / (q * W)) * 2 * kClusterKeys + k] = key_of(first < S ? 0.0f : -INFINITY);
+  }
+
+  // each transition's other end (its copy index, parity 0), history index
+  // (forward: nxt, the LLR's beta) and coefficients (the direction's, and
+  // forward the LLR's backward ones), loaded once; padded states point at
+  // themselves with zero coefficients and hold -inf
+  int at[R][2], nx[R][2];
+  float c0[R][2], c1[R][2], l0[R][2], l1[R][2], n[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    k[r] = red[parity * R + r][0];
+    const int s = own + 32 * r;
+    n[r] = s < S ? 0.0f : -INFINITY;
 #pragma unroll
-    for (int w = 1; w < kWideThreads / 32; ++w) k[r] = max(k[r], red[parity * R + r][w]);
+    for (int k = 0; k < 2; ++k) {
+      const int e = 2 * s + k;
+      if (s < S) {
+        at[r][k] = 2 * d * P + __ldg(idx + (forward ? 2 * S : 0) + e);
+        nx[r][k] = __ldg(idx + e);
+        c0[r][k] = __ldg(coef + (forward ? 0 : 4 * S) + e);
+        c1[r][k] = __ldg(coef + (forward ? 2 * S : 6 * S) + e);
+        l0[r][k] = __ldg(coef + 4 * S + e);
+        l1[r][k] = __ldg(coef + 6 * S + e);
+      } else {
+        at[r][k] = 2 * d * P + s;
+        nx[r][k] = s;
+        c0[r][k] = c1[r][k] = l0[r][k] = l1[r][k] = 0.0f;
+      }
+    }
+  }
+  // the other CTAs' copies and mbarriers, as shared::cluster addresses
+  unsigned rx[kClusterMaxQ], rb[kClusterMaxQ];
+#pragma unroll
+  for (int j = 0; j < kClusterMaxQ; ++j) {
+    rx[j] = j < q ? cluster_map(xf, j) : 0u;
+    rb[j] = j < q ? cluster_map(bars, j) : 0u;
+  }
+  cluster.sync();  // every CTA's mbarriers set up before any pushes to it
+
+  int jd = 0;         // this direction's steps so far: parity jd & 1
+  unsigned ph = 0u;   // bit p: the phase parity mbarrier (d, p) completes next
+  int tp = -1;        // the step whose LLR is pending (its keys come with the next phase)
+  // the remote bytes a warp of this CTA expects in a phase: its share of the
+  // q - 1 other CTAs' metrics and keys (and at rank 0 the LLR's keys)
+  const unsigned share_base = static_cast<unsigned>((q - 1) * (128 * R + 4));
+  const unsigned share_llr = rank == 0 ? static_cast<unsigned>((q - 1) * 8) : 0u;
+  auto wait = [&](int p) {
+    bar_wait(bar_s + 8 * (2 * d + p), (ph >> p) & 1u);
+    ph ^= 1u << p;
+  };
+  auto write_llr = [&](int p) {  // rank 0's first warp: the pending step's LLR
+    if (tp >= 0 && rank == 0 && w == 0) {
+      const int* const pk = lkeys + (2 * d + p) * 2 * kClusterKeys;
+      const int a = __reduce_max_sync(kAll, lane < q * W ? pk[2 * lane] : kNoKey);
+      const int b = __reduce_max_sync(kAll, lane < q * W ? pk[2 * lane + 1] : kNoKey);
+      if (lane == 0) llr[tp * ncols + col] = __fsub_rn(of_key(a), of_key(b));
+    }
+    tp = -1;
+  };
+
+  // one half: `steps` steps of this direction from step t0
+  auto half = [&](auto llr_c, int t0, int steps) {
+    constexpr bool kLLR = decltype(llr_c)::value;
+    const int dt = forward ? 1 : -1;
+    int jn = 0;
+    // the ring: step j's copies in slot j mod D, element e (0, 1: the spans;
+    // then forward beta_t at nxt, backward alpha_t at the lane's states) of
+    // this thread at (slot E + e) T + tid
+    auto rs = [&](int j, int e) -> float* { return ring + ((j & (D - 1)) * E + e) * T + tid; };
+    auto issue = [&] {  // step jn's copies into its slot
+      if (jn < steps) {
+        const int t = t0 + dt * jn;
+        cp_async4(rs(jn, 0), ls + t * ncols + col, 4);
+        cp_async4(rs(jn, 1), lp + t * ncols + col, 4);
+        if constexpr (kLLR) {
+          const float* const row = hcol + static_cast<long long>(t) * P;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (forward) {
+              cp_async4(rs(jn, 2 + 2 * r), row + nx[r][0], 4);
+              cp_async4(rs(jn, 3 + 2 * r), row + nx[r][1], 4);
+            } else {
+              cp_async4(rs(jn, 2 + r), row + own + 32 * r, 4);
+            }
+          }
+        }
+      }
+      cp_commit();
+      ++jn;
+    };
+    for (int j = 0; j < D - 1; ++j) issue();
+    for (int i = 0; i < steps; ++i) {
+      const int t = t0 + dt * i, p = jd & 1;
+      cp_wait<D - 2>();  // this thread's copies of step i
+      if (jd > 0) wait(p);
+      write_llr(p);
+      issue();  // step i + D - 1, into the slot of step i - 1
+      const float x = *rs(i, 0), y = *rs(i, 1);
+      const float* const cur = xf + p * P;
+      float e[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        e[r][0] = cur[at[r][0]];
+        e[r][1] = cur[at[r][1]];
+      }
+      const float mx = of_key(__reduce_max_sync(
+          kAll, lane < q * W ? keys[(2 * d + p) * kClusterKeys + lane] : kNoKey));
+      float lm = -INFINITY, k0 = -INFINITY, k1 = -INFINITY;
+      float* const hrow = hcol + static_cast<long long>(t) * P;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float m = __fsub_rn(n[r], mx);
+        const float v0 = __fsub_rn(e[r][0], mx), v1 = __fsub_rn(e[r][1], mx);
+        const float g0 = branch_metric(c0[r][0], c1[r][0], x, y);
+        const float g1 = branch_metric(c0[r][1], c1[r][1], x, y);
+        if constexpr (!kLLR) {
+          hrow[own + 32 * r] = m;
+        } else if (forward) {
+          k0 = fmaxf(k0, __fadd_rn(__fadd_rn(m, branch_metric(l0[r][0], l1[r][0], x, y)),
+                                   *rs(i, 2 + 2 * r)));
+          k1 = fmaxf(k1, __fadd_rn(__fadd_rn(m, branch_metric(l0[r][1], l1[r][1], x, y)),
+                                   *rs(i, 3 + 2 * r)));
+        } else {
+          const float a = *rs(i, 2 + r);
+          k0 = fmaxf(k0, __fadd_rn(__fadd_rn(a, g0), v0));
+          k1 = fmaxf(k1, __fadd_rn(__fadd_rn(a, g1), v1));
+        }
+        n[r] = fmaxf(__fadd_rn(v0, g0), __fadd_rn(v1, g1));
+        lm = fmaxf(lm, n[r]);
+      }
+      // the updates to this CTA's copy and pushed to the others', after every
+      // state's loads
+      const int pn = p ^ 1;
+      const unsigned to = static_cast<unsigned>(4 * (2 * d + pn) * P);  // the next copy
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned off = to + 4u * static_cast<unsigned>(own + 32 * r);
+        xf[(2 * d + pn) * P + own + 32 * r] = n[r];
+#pragma unroll
+        for (int j = 0; j < kClusterMaxQ; ++j) {
+          if (j < q && j != rank) push_f32(rx[j] + off, n[r], rb[j] + 8 * (2 * d + pn));
+        }
+      }
+      // the warp's partial key to every CTA, and (second half) its LLR's to rank 0
+      const int km = __reduce_max_sync(kAll, key_of(lm));
+      const int ki = (2 * d + pn) * kClusterKeys + key_slot;
+      if (lane == rank) {
+        keys[ki] = km;
+      } else if (lane < q) {
+        push_s32(cluster_map(keys + ki, lane), km, cluster_map(bars + 2 * d + pn, lane));
+      }
+      if constexpr (kLLR) {
+        const int a = __reduce_max_sync(kAll, key_of(k0)), b = __reduce_max_sync(kAll, key_of(k1));
+        if (lane == 0) {
+          if (rank == 0) {
+            lkeys[2 * ki] = a;
+            lkeys[2 * ki + 1] = b;
+          } else {
+            push_v2(cluster_map(lkeys + 2 * ki, 0), a, b, rb[0] + 8 * (2 * d + pn));
+          }
+        }
+        tp = t;
+      }
+      __syncwarp();
+      if (lane == 0) {  // the warp's own writes released, its share of the remote bytes expected
+        asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n"
+                     ::"r"(bar_s + 8 * (2 * d + pn)),
+                     "r"(share_base + (kLLR ? share_llr : 0u))
+                     : "memory");
+      }
+      ++jd;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  };
+
+  const int mid = lw >> 1;
+  half(std::false_type{}, forward ? 0 : lw - 1, forward ? mid : lw - mid);
+  cluster.sync();  // the meet: each half of the history written
+  half(std::true_type{}, forward ? mid : mid - 1, forward ? lw - mid : mid);
+  wait(jd & 1);  // the last step's pushes have arrived: the last LLR's keys
+  write_llr(jd & 1);
+  cluster.sync();  // no CTA leaves while another's pushes may reach it
+}
+
+// The global placement (bcjr_kernel_cluster's comment).
+__device__ __forceinline__ void cluster_far(const float* __restrict__ ls,
+                                            const float* __restrict__ lp,
+                                            float* __restrict__ llr, float* __restrict__ hist,
+                                            float* __restrict__ xg, int lw, long long ncols,
+                                            int S, int rl, const int* __restrict__ idx,
+                                            const float* __restrict__ coef, float* smc) {
+  constexpr int W = 4;
+  constexpr unsigned kAll = 0xffffffffu;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long col = blockIdx.x / q;
+  const int SC = 32 * W * rl, P = q * SC;  // states a CTA, and a column (padded)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool forward = warp < W;
+  const int d = forward ? 0 : 1, w = forward ? warp : warp - W;
+  const int own = w * 32 * rl + lane;  // slot r's state rank SC + own + 32 r
+  int* const pd = reinterpret_cast<int*>(smc);  // [2 parity][2 d][32]
+  int* const pl = pd + 4 * kClusterKeys;         // [2 parity][2 d][2 u][32]
+  float* const hcol = hist + col * lw * static_cast<long long>(P);
+  float* const xgc = xg + col * 4 * static_cast<long long>(P);  // [2 d][2 parity][P]
+  const int key_slot = rank * W + w;
+
+  // this direction's exchange, parity p: a value of this CTA's state, and
+  // the value of any state a
+  auto put = [&](int p, int local, float v) {
+    xgc[(2 * d + p) * static_cast<long long>(P) + rank * SC + local] = v;
+  };
+  auto get = [&](int p, int a) -> float {
+    return __ldcg(xgc + (2 * d + p) * static_cast<long long>(P) + a);
+  };
+  // the warp's partial key pushed to every CTA's slot (parity p)
+  auto push_max = [&](int p, float lm) {
+    const int k = __reduce_max_sync(kAll, key_of(lm));
+    if (lane < q) cluster_st(cluster_map(pd + (2 * p + d) * kClusterKeys + key_slot, lane), k);
+  };
+
+  cluster.sync();  // every CTA has started before any reaches another's shared memory
+  {
+    float lm = -INFINITY;
+    for (int r = 0; r < rl; ++r) {
+      const float v = rank * SC + own + 32 * r < S ? 0.0f : -INFINITY;
+      put(0, own + 32 * r, v);
+      lm = fmaxf(lm, v);
+    }
+    push_max(0, lm);
+  }
+
+  int jd = 0;            // this direction's steps so far: the exchange's parity
+  int tp = -1, tpp = 0;  // the step whose LLR is pending, and its parity
+  auto write_llr = [&] {  // rank 0's first warp: the pending step's LLR
+    if (tp >= 0 && rank == 0 && w == 0) {
+      const int* const pk = pl + (2 * tpp + d) * 2 * kClusterKeys;
+      const int a = __reduce_max_sync(kAll, lane < q * W ? pk[lane] : kNoKey);
+      const int b = __reduce_max_sync(kAll, lane < q * W ? pk[kClusterKeys + lane] : kNoKey);
+      if (lane == 0) llr[tp * ncols + col] = __fsub_rn(of_key(a), of_key(b));
+    }
+    tp = -1;
+  };
+  // one half: `steps` steps of this direction from step t0 over `iters`
+  // cluster barriers (the other direction may take one more)
+  auto half = [&](auto llr_c, int t0, int steps, int iters) {
+    constexpr bool kLLR = decltype(llr_c)::value;
+    const int dt = forward ? 1 : -1;
+    for (int i = 0; i < iters; ++i) {
+      cluster.sync();
+      write_llr();
+      if (i >= steps) continue;
+      const int t = t0 + dt * i, p = jd & 1;
+      const float x = __ldg(ls + t * ncols + col), y = __ldg(lp + t * ncols + col);
+      const float mx = of_key(__reduce_max_sync(
+          kAll, lane < q * W ? pd[(2 * p + d) * kClusterKeys + lane] : kNoKey));
+      float lm = -INFINITY, k0 = -INFINITY, k1 = -INFINITY;
+      float* const hrow = hcol + static_cast<long long>(t) * P;
+      for (int r = 0; r < rl; ++r) {
+        const int local = own + 32 * r, s = rank * SC + local;
+        const bool real = s < S;
+        int a[2], nxs[2];
+        float cf0[2], cf1[2], lf0[2], lf1[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int e = 2 * s + k;
+          a[k] = real ? __ldg(idx + (forward ? 2 * S : 0) + e) : s;
+          nxs[k] = real ? __ldg(idx + e) : s;
+          cf0[k] = real ? __ldg(coef + (forward ? 0 : 4 * S) + e) : 0.0f;
+          cf1[k] = real ? __ldg(coef + (forward ? 2 * S : 6 * S) + e) : 0.0f;
+          lf0[k] = real ? __ldg(coef + 4 * S + e) : 0.0f;
+          lf1[k] = real ? __ldg(coef + 6 * S + e) : 0.0f;
+        }
+        const float m = __fsub_rn(get(p, s), mx);
+        const float v0 = __fsub_rn(get(p, a[0]), mx), v1 = __fsub_rn(get(p, a[1]), mx);
+        const float g0 = branch_metric(cf0[0], cf1[0], x, y);
+        const float g1 = branch_metric(cf0[1], cf1[1], x, y);
+        if constexpr (!kLLR) {
+          hrow[s] = m;
+        } else if (forward) {
+          k0 = fmaxf(k0, __fadd_rn(__fadd_rn(m, branch_metric(lf0[0], lf1[0], x, y)),
+                                   __ldcg(hrow + nxs[0])));
+          k1 = fmaxf(k1, __fadd_rn(__fadd_rn(m, branch_metric(lf0[1], lf1[1], x, y)),
+                                   __ldcg(hrow + nxs[1])));
+        } else {
+          const float al = __ldcg(hrow + s);
+          k0 = fmaxf(k0, __fadd_rn(__fadd_rn(al, g0), v0));
+          k1 = fmaxf(k1, __fadd_rn(__fadd_rn(al, g1), v1));
+        }
+        const float nn = fmaxf(__fadd_rn(v0, g0), __fadd_rn(v1, g1));
+        put(p ^ 1, local, nn);
+        lm = fmaxf(lm, nn);
+      }
+      if constexpr (kLLR) {  // the warp's LLR partials to rank 0
+        const int a = __reduce_max_sync(kAll, key_of(k0)), b = __reduce_max_sync(kAll, key_of(k1));
+        if (lane == 0) {
+          const unsigned dst = cluster_map(pl + (2 * p + d) * 2 * kClusterKeys + key_slot, 0);
+          cluster_st(dst, a);
+          cluster_st(dst + 4 * kClusterKeys, b);
+        }
+        tp = t;
+        tpp = p;
+      }
+      push_max(p ^ 1, lm);
+      ++jd;
+    }
+  };
+
+  const int mid = lw >> 1, iters = lw - mid;
+  half(std::false_type{}, forward ? 0 : lw - 1, forward ? mid : lw - mid, iters);
+  cluster.sync();  // the meet: each half of the history written
+  half(std::true_type{}, forward ? mid : mid - 1, forward ? lw - mid : mid, iters);
+  cluster.sync();  // the last steps' LLR partials at rank 0; no CTA reads another's after
+  write_llr();
+}
+
+// idx int32 [nxt; prev_s] and coef float32 [fw0; fw1; bw0; bw1], each [S][2],
+// on the card; hist float32 [N][lw][P]; xg (kPlaceGlobal) float32
+// [N][2][2][P]; rl the states a lane of the global placement.
+template <int R, int W, int kPlace>
+__global__ void __launch_bounds__(64 * W)
+bcjr_kernel_cluster(const float* __restrict__ ls, const float* __restrict__ lp,
+                    float* __restrict__ llr, float* __restrict__ hist, float* __restrict__ xg,
+                    int lw, long long ncols, int S, int rl, const int* __restrict__ idx,
+                    const float* __restrict__ coef) {
+  extern __shared__ __align__(16) float smc[];
+  if constexpr (kPlace == kPlaceRegs) {
+    cluster_regs<R, W>(ls, lp, llr, hist, lw, ncols, S, idx, coef, smc);
+  } else {
+    cluster_far(ls, lp, llr, hist, xg, lw, ncols, S, rl, idx, coef, smc);
   }
 }
 
-// One CTA a column (blockIdx.x). idx: int32 [nxt; prev_s] and coef: float32
-// [fw0; fw1; bw0; bw1], each [S][2], on the card; hist: the column's beta
-// history [lw][S] at hist + col lw S; mscratch: two buffers of S floats a
-// column, or null for shared memory.
-__global__ void __launch_bounds__(kWideThreads)
-bcjr_kernel_wide(const float* __restrict__ ls, const float* __restrict__ lp,
-                 float* __restrict__ llr, float* hist, float* mscratch, int lw,
-                 long long ncols, int S, const int* __restrict__ idx,
-                 const float* __restrict__ coef) {
-  extern __shared__ float smb[];
-  __shared__ int red[2 * 3][kWideThreads / 32];
-  const int tid = threadIdx.x;
-  const long long col = blockIdx.x;
-  float* ma = mscratch != nullptr ? mscratch + col * 2 * S : smb;
-  float* mb = ma + S;
-  float* h = hist + col * lw * S;
-  const int* nxt = idx;
-  const int* prv = idx + 2 * S;
-  const float* fw0 = coef;
-  const float* fw1 = coef + 2 * S;
-  const float* bw0 = coef + 4 * S;
-  const float* bw1 = coef + 6 * S;
-
-  // backward: beta[s] = ma[s] - mx, zero at t = lw - 1
-  for (int s = tid; s < S; s += kWideThreads) ma[s] = 0.0f;
-  float mx = 0.0f;
-  __syncthreads();
-  for (int i = 0; i < lw; ++i) {
-    const int t = lw - 1 - i;
-    const float ls_t = __ldg(ls + t * ncols + col);
-    const float lp_t = __ldg(lp + t * ncols + col);
-    float* ht = h + static_cast<long long>(t) * S;
-    int k[1] = {kNoKey};
-    for (int s = tid; s < S; s += kWideThreads) {
-      ht[s] = __fsub_rn(ma[s], mx);
-      const float c0 = __fadd_rn(__fsub_rn(ma[__ldg(nxt + 2 * s)], mx),
-                                 branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t));
-      const float c1 = __fadd_rn(__fsub_rn(ma[__ldg(nxt + 2 * s + 1)], mx),
-                                 branch_metric(__ldg(bw0 + 2 * s + 1), __ldg(bw1 + 2 * s + 1),
-                                               ls_t, lp_t));
-      const float b = fmaxf(c0, c1);
-      mb[s] = b;
-      k[0] = max(k[0], key_of(b));
-    }
-    block_max<1>(k, red, i & 1);  // its barrier: mb and ht written, ma read
-    mx = of_key(k[0]);
-    float* tmp = ma;
-    ma = mb;
-    mb = tmp;
-  }
-
-  // forward: alpha[s] = ma[s] - mx, zero at t = 0; the LLR from alpha, the
-  // backward step's branch metrics and beta_t
-  for (int s = tid; s < S; s += kWideThreads) ma[s] = 0.0f;
-  mx = 0.0f;
-  __syncthreads();
-  for (int t = 0; t < lw; ++t) {
-    const float ls_t = __ldg(ls + t * ncols + col);
-    const float lp_t = __ldg(lp + t * ncols + col);
-    const float* ht = h + static_cast<long long>(t) * S;
-    int k[3] = {kNoKey, kNoKey, kNoKey};
-    for (int s = tid; s < S; s += kWideThreads) {
-      const float a = __fsub_rn(ma[s], mx);
-      const float c0 = __fadd_rn(
-          __fadd_rn(a, branch_metric(__ldg(bw0 + 2 * s), __ldg(bw1 + 2 * s), ls_t, lp_t)),
-          ht[__ldg(nxt + 2 * s)]);
-      const float c1 = __fadd_rn(
-          __fadd_rn(a, branch_metric(__ldg(bw0 + 2 * s + 1), __ldg(bw1 + 2 * s + 1), ls_t, lp_t)),
-          ht[__ldg(nxt + 2 * s + 1)]);
-      k[0] = max(k[0], key_of(c0));
-      k[1] = max(k[1], key_of(c1));
-      const float n0 = __fadd_rn(__fsub_rn(ma[__ldg(prv + 2 * s)], mx),
-                                 branch_metric(__ldg(fw0 + 2 * s), __ldg(fw1 + 2 * s), ls_t, lp_t));
-      const float n1 = __fadd_rn(__fsub_rn(ma[__ldg(prv + 2 * s + 1)], mx),
-                                 branch_metric(__ldg(fw0 + 2 * s + 1), __ldg(fw1 + 2 * s + 1),
-                                               ls_t, lp_t));
-      const float an = fmaxf(n0, n1);
-      mb[s] = an;
-      k[2] = max(k[2], key_of(an));
-    }
-    block_max<3>(k, red, t & 1);
-    if (tid == 0) llr[t * ncols + col] = __fsub_rn(of_key(k[0]), of_key(k[1]));
-    mx = of_key(k[2]);
-    float* tmp = ma;
-    ma = mb;
-    mb = tmp;
-  }
-}
-
-int launch_wide(const float* ls, const float* lp, float* llr, float* hist, float* mscratch,
-                int lw, long long ncols, int s_count, const int* idx, const float* coef,
-                cudaStream_t stream) {
-  const size_t smem = mscratch != nullptr ? 0 : 2 * static_cast<size_t>(s_count) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bcjr_kernel_wide,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int R, int W, int kPlace>
+int launch_cluster(const float* ls, const float* lp, float* llr, float* hist, float* xg, int lw,
+                   long long ncols, int S, int q, int rl, const int* idx, const float* coef,
+                   cudaStream_t stream) {
+  const long long sc = 32LL * W * (kPlace == kPlaceRegs ? R : rl);
+  const long long smem = 4 * cluster_smem_floats(R, W, kPlace, sc, q);
+  if (q < 2 || q > kClusterMaxQ || q * W > kClusterKeys || q * sc < S || smem > kMaxSmem ||
+      ncols * q > 0x7fffffffLL || (kPlace == kPlaceGlobal && xg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = bcjr_kernel_cluster<R, W, kPlace>;
+  static int opted[64] = {};
+  const int rc = opt_in(kernel, smem, opted);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ncols * q));
+  cfg.blockDim = dim3(64 * W);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, ls, lp, llr, hist, xg, lw, ncols, S,
+                                             rl, idx, coef);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bcjr_kernel_wide<<<static_cast<unsigned>(ncols), kWideThreads, smem, stream>>>(
-      ls, lp, llr, hist, mscratch, lw, ncols, s_count, idx, coef);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R, int L, int W>
+// The cluster route's instance: the registers placement at R states a lane
+// and W warps a direction (R 2, 4, 8; W 3, 4: ops/cuda/bcjr.py
+// cluster_layout), else the global placement (W 4, rl states a lane).
+int launch_cluster_route(const float* ls, const float* lp, float* llr, float* hist, float* xg,
+                         int lw, long long ncols, int S, int q, int R, int W, int place, int rl,
+                         const int* idx, const float* coef, cudaStream_t stream) {
+  const auto a = std::make_tuple(ls, lp, llr, hist, xg, lw, ncols, S, q, rl, idx, coef, stream);
+  auto go = [&](auto f) { return std::apply(f, a); };
+  if (place == kPlaceGlobal && W == 4) return go(launch_cluster<1, 4, kPlaceGlobal>);
+  if (place != kPlaceRegs) return static_cast<int>(cudaErrorInvalidValue);
+  switch (10 * R + W) {
+    case 23: return go(launch_cluster<2, 3, kPlaceRegs>);
+    case 24: return go(launch_cluster<2, 4, kPlaceRegs>);
+    case 43: return go(launch_cluster<4, 3, kPlaceRegs>);
+    case 44: return go(launch_cluster<4, 4, kPlaceRegs>);
+    case 83: return go(launch_cluster<8, 3, kPlaceRegs>);
+    case 84: return go(launch_cluster<8, 4, kPlaceRegs>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int R, int L, int W, bool kShared = false>
 int launch_block(const float* ls, const float* lp, float* llr, float* hist, int lw,
                  long long ncols, int S, const int* idx, const float* coef,
                  cudaStream_t stream) {
-  constexpr int smem = block_smem<R, L, W>();
+  constexpr int smem = block_smem<R, L, W, kShared>();
   static int opted[64] = {};
-  const int rc = opt_in(bcjr_kernel_block<R, L, W>, smem, opted);
+  const int rc = opt_in(bcjr_kernel_block<R, L, W, kShared>, smem, opted);
   if (rc) return rc;
   const long long blocks = (ncols + 32 / L - 1) / (32 / L);
-  bcjr_kernel_block<R, L, W><<<static_cast<unsigned>(blocks), 64 * W, smem, stream>>>(
+  bcjr_kernel_block<R, L, W, kShared><<<static_cast<unsigned>(blocks), 64 * W, smem, stream>>>(
       ls, lp, llr, hist, lw, ncols, S, idx, coef);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1509,14 +1970,23 @@ int launch_thin(const float* ls, const float* lp, float* llr, float* hist, int l
 // The block instance's route at S states (ops/cuda/bcjr.py block_layout
 // mirrors it): S 2-3 thin; 4-32 a state a lane, L the power of two >= S;
 // 33-256 one warp a direction, R the power of two >= S / 32; 257-1,024 W =
-// ceil(S / 256) warps a direction of 8 states a lane; past that the wide
-// route (mscratch: its metric buffers past 28,928 states, else null).
-int launch_block_route(const float* ls, const float* lp, float* llr, float* hist,
-                       float* mscratch, int lw, long long ncols, int S, const int* idx,
-                       const float* coef, const int* hidx, const float* hcoef,
+// ceil(S / 256) warps a direction of 8 states a lane; past that, with
+// place kPlaceShared, the shared route (bcjr_kernel_block's kShared: one CTA
+// a column of cw = 8 warps a direction of cr = 8 states a lane, to 2,048
+// states), else the cluster route in the
+// geometry the caller gives (q, R, W, place, rl: block_layout's; xg its
+// exchange in the global placement, else null).
+int launch_block_route(const float* ls, const float* lp, float* llr, float* hist, float* xg,
+                       int lw, long long ncols, int S, int q, int cr, int cw, int place, int rl,
+                       const int* idx, const float* coef, const int* hidx, const float* hcoef,
                        cudaStream_t stream) {
   const auto a = std::make_tuple(ls, lp, llr, hist, lw, ncols, S, idx, coef, stream);
   auto go = [&](auto f) { return std::apply(f, a); };
+  if (place == kPlaceShared) {
+    if (S <= kBlockStates || S > 32 * cr * cw || cr != 8 || cw != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return go(launch_block<8, 32, 8, true>);
+  }
   if (S == 2) return launch_thin<2>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream);
   if (S == 3) return launch_thin<3>(ls, lp, llr, hist, lw, ncols, hidx, hcoef, stream);
   if (S <= 4) return go(launch_block<1, 4, 1>);
@@ -1529,7 +1999,8 @@ int launch_block_route(const float* ls, const float* lp, float* llr, float* hist
   if (S <= 512) return go(launch_block<8, 32, 2>);
   if (S <= 768) return go(launch_block<8, 32, 3>);
   if (S <= kBlockStates) return go(launch_block<8, 32, 4>);
-  return launch_wide(ls, lp, llr, hist, mscratch, lw, ncols, S, idx, coef, stream);
+  return launch_cluster_route(ls, lp, llr, hist, xg, lw, ncols, S, q, cr, cw, place, rl, idx,
+                              coef, stream);
 }
 
 // Runs launch() with card `device` current (and the caller's put back).
@@ -1613,20 +2084,22 @@ extern "C" int bcjr_rsc8_launch(const void* ls, const void* lp, void* llr, int l
 // both on the card, and hidx, hcoef the same tables on the host (the thin
 // route's parameters); hist on the card, float32: [lw][s_count][ncols] at
 // s_count 2-3 past thin_smem's span (else unused), [ceil(ncols / G)][lw][G
-// P] to 1,024 states (block_layout's G and P), [ncols][lw][s_count] past
-// that; mscratch float32 [ncols][2][s_count] on the card past 28,928
-// states, else null.
-extern "C" int bcjr_block_launch(const void* ls, const void* lp, void* llr, void* hist,
-                                 void* mscratch, int lw, long long ncols, int s_count,
-                                 const void* idx, const void* coef, const int* hidx,
-                                 const float* hcoef, int device, void* stream) {
+// P] to 1,024 states (block_layout's G and P), [ncols][lw][P] past that,
+// where q, cr, cw, place and rl are the cluster geometry (bcjr.py
+// cluster_layout)
+// (P = q x 32 cw x (cr, or rl in the global placement)); xg
+// float32 [ncols][2][2][P] on the card in the global placement, else null.
+extern "C" int bcjr_block_launch(const void* ls, const void* lp, void* llr, void* hist, void* xg,
+                                 int lw, long long ncols, int s_count, int q, int cr, int cw,
+                                 int place, int rl, const void* idx, const void* coef,
+                                 const int* hidx, const float* hcoef, int device, void* stream) {
   if (lw < 1 || ncols < 1 || ncols > 0x7fffffffLL || s_count < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     return launch_block_route(static_cast<const float*>(ls), static_cast<const float*>(lp),
                               static_cast<float*>(llr), static_cast<float*>(hist),
-                              static_cast<float*>(mscratch), lw, ncols, s_count,
+                              static_cast<float*>(xg), lw, ncols, s_count, q, cr, cw, place, rl,
                               static_cast<const int*>(idx), static_cast<const float*>(coef),
                               hidx, hcoef, s);
   });

@@ -61,18 +61,14 @@
 //     states, the branch metrics once a step per output pattern, one
 //     barrier a step, the decisions in shared memory where they fit, a
 //     warp's traceback five steps a round. See its section below;
-//   - scratch (viterbi_block_kernel, past that, or where a CTA's two chunks
-//     of LLRs of many generators outgrow its shared memory, block_plan
-//     None): one CTA of 256 threads a
-//     trellis, state s' and s' + 256, ... a thread, the path metrics in two
-//     buffers of S floats in the device scratch and the decisions there as
-//     ballot words (S / 32 a step), thread 0 walking the traceback. A
-//     buffer holds the step's metrics before the subtraction of their
-//     minimum, and the next step subtracts it as it reads them, so every
-//     value is the twin's; its limit is the card's memory. It was written
-//     for reach, not speed: the metrics cross device memory every step.
-// The scratch route's branch metric reads each generator's output from S x 2
-// rows of ceil(n / 32) mask words on the card (any n).
+//   - grid (viterbi_grid_kernel, past that, or where a CTA's two chunks of
+//     LLRs of many generators outgrow its shared memory, block_plan None):
+//     one cooperative launch of the co-resident CTAs, the trellises' states
+//     spread by range over all of them, the metrics in two buffers in the
+//     device scratch (L2-resident), the branch metrics per output pattern
+//     once a step a CTA, the decisions as ballot words in the scratch, one
+//     grid barrier a step, a warp's traceback five steps a round. See its
+//     section below; its limit is the card's memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,7 +80,6 @@ namespace cg = cooperative_groups;
 
 constexpr int kMaxN = 8;        // generators per code
 constexpr int kMaxStates = 256; // 2^(K-1), K <= 9 (the warp instance)
-constexpr int kBlockThreads = 256;  // the block instance's CTA
 constexpr int kAhead = 8;       // traceback steps whose words load together (shared)
 constexpr int kAheadScratch = 32;  // ... from the device scratch
 constexpr unsigned kFull = 0xffffffffu;
@@ -290,106 +285,6 @@ __global__ void viterbi_kernel(const float* __restrict__ sym,
   for (int t = lane; t < lw; t += 32) dst[t] = out[t * kSpl * 4];
 }
 
-// ---- the block instance's scratch route -------------------------------------
-
-// g = sum_m o_m * l_m, m left to right, o_m bit m of the transition's words.
-__device__ __forceinline__ float branch_words(const unsigned* __restrict__ w,
-                                              const float* __restrict__ l, int n) {
-  float g = __fmul_rn((__ldg(w) & 1u) ? 1.0f : 0.0f, __ldg(l));
-  for (int m = 1; m < n; ++m) {
-    const float o = ((__ldg(w + (m >> 5)) >> (m & 31)) & 1u) ? 1.0f : 0.0f;
-    g = __fadd_rn(g, __fmul_rn(o, __ldg(l + m)));
-  }
-  return g;
-}
-
-// One CTA a trellis (blockIdx.x). masks: [2 S][mw] words on the card, bit m
-// of row 2 s' + j the output o_m of the transition into s' from predecessor
-// j; dec: the trellis's [lw][max(1, S/32)] decision words; pm_scratch: two
-// buffers of S floats a trellis, or null for shared memory.
-__global__ void __launch_bounds__(kBlockThreads)
-viterbi_block_kernel(const float* __restrict__ sym, unsigned char* __restrict__ bits,
-                     int lw, int n, int s_count, int init_state0, int end_state0,
-                     const unsigned* __restrict__ masks, int mw,
-                     unsigned* dec_scratch, float* pm_scratch) {
-  extern __shared__ float smf[];
-  __shared__ unsigned red[2][kBlockThreads / 32];
-  __shared__ int first;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long tr = blockIdx.x;
-  const int S = s_count;
-  const int words = S >= 32 ? S / 32 : 1;
-  float* pa = pm_scratch != nullptr ? pm_scratch + tr * 2 * S : smf;
-  float* pb = pa + S;
-  unsigned* dec = dec_scratch + tr * lw * words;
-  const float* y = sym + tr * static_cast<long long>(lw) * n;
-
-  for (int s = tid; s < S; s += kBlockThreads) {
-    pa[s] = init_state0 ? (s == 0 ? 0.0f : 1e9f) : 0.0f;
-  }
-  float mn = 0.0f;  // the minimum of pa (pm = pa - mn); 0 before the first step
-  __syncthreads();
-  for (int t = 0; t < lw; ++t) {
-    const float* l = y + static_cast<long long>(t) * n;
-    unsigned kmin = 0xffffffffu;
-    for (int base = 0; base < S; base += kBlockThreads) {
-      const int s = base + tid;
-      bool d = false;
-      if (s < S) {
-        const int p0 = s >> 1;
-        const float c0 = __fadd_rn(__fsub_rn(pa[p0], mn),
-                                   branch_words(masks + static_cast<long long>(2 * s) * mw, l, n));
-        const float c1 = __fadd_rn(__fsub_rn(pa[p0 + S / 2], mn),
-                                   branch_words(masks + static_cast<long long>(2 * s + 1) * mw,
-                                                l, n));
-        d = c1 < c0;
-        const float nw = d ? c1 : c0;
-        pb[s] = nw;
-        kmin = min(kmin, fkey(nw));
-      }
-      const unsigned word = __ballot_sync(kFull, d);
-      if (lane == 0 && base + 32 * warp < S) {
-        dec[static_cast<long long>(t) * words + (base >> 5) + warp] = word;
-      }
-    }
-    kmin = __reduce_min_sync(kFull, kmin);
-    if (lane == 0) red[t & 1][warp] = kmin;
-    __syncthreads();  // pb and the warps' minima written; pa read by all
-    kmin = red[t & 1][0];
-#pragma unroll
-    for (int w = 1; w < kBlockThreads / 32; ++w) kmin = min(kmin, red[t & 1][w]);
-    mn = unkey(kmin);
-    float* tmp = pa;
-    pa = pb;
-    pb = tmp;
-  }
-
-  // ---- traceback (thread 0) from state 0 or the first argmin: the first s
-  // whose metric pa[s] - mn is the minimum's, 0, i.e. pa[s] == mn
-  if (tid == 0) first = S;
-  __syncthreads();
-  if (!end_state0) {
-    for (int s = tid; s < S; s += kBlockThreads) {
-      if (pa[s] == mn) {
-        atomicMin(&first, s);
-        break;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int state = end_state0 ? 0 : first;
-    unsigned char* out = bits + tr * static_cast<long long>(lw);
-    for (int t = lw - 1; t >= 0; --t) {
-      out[t] = static_cast<unsigned char>(state & 1);
-      const unsigned word = dec[static_cast<long long>(t) * words + (state >> 5)];
-      state = (state >> 1) | (((word >> (state & 31)) & 1u) ? S / 2 : 0);
-    }
-  }
-}
-
 // ---- the block instance's cluster route ------------------------------------
 //
 // One CTA, or a thread-block cluster of q CTAs, a trellis (blockIdx.x / q;
@@ -406,7 +301,7 @@ viterbi_block_kernel(const float* __restrict__ sym, unsigned char* __restrict__ 
 //     twin's floats;
 //   - the ACS of the CTA's states into the other of two metric buffers
 //     (the metrics before the subtraction of their minimum, which the next
-//     step subtracts as it reads them, as the scratch route does);
+//     step subtracts as it reads them, as the grid route does);
 //   - the decisions as ballot words (even and odd states interleaved), in
 //     shared memory where a trellis's history fits, else the device scratch;
 //   - the minimum: a redux.sync a warp, each warp's pushed to every CTA of
@@ -730,6 +625,316 @@ int launch_cta_iters(int iters, const void* sym, void* bits, long long n_trellis
   }
 }
 
+// ---- the block instance's grid route ----------------------------------------
+//
+// Every code the cluster route does not take (ops/cuda/viterbi.py block_plan
+// None: past 131,072 states, or where a CTA's two chunks of LLRs of many
+// generators outgrow its shared memory): one cooperative launch of
+// co-resident CTAs (cg::this_grid(), cudaLaunchCooperativeKernel, the grid
+// from the occupancy), the trellises' states spread by range over every CTA
+// the card holds, not one CTA a trellis. The unit of the split is a
+// decision word: min(S, 32) states of a trellis a step, U = min(S / 2, 16)
+// pairs; a batch's T_u units go to the G CTAs in ragged ranges (CTA b takes
+// [b T_u / G, (b + 1) T_u / G)), so a CTA may hold part of one trellis or
+// several whole ones. A thread takes pairs of states (2i, 2i + 1), which
+// share their predecessors i and i + S/2. A step:
+//   - the ACS of the CTA's pairs from the last step's metric buffer: two
+//     buffers of S floats a trellis in the device scratch (2 MB a K 19
+//     trellis, L2-resident), holding the metrics before the subtraction of
+//     their minimum, which the step subtracts as it reads them (__ldcg);
+//   - the branch metrics by output pattern (patterns(): 4 at K 19 rate
+//     1/2), once a step in each CTA for each of its trellises, into shared
+//     memory, computed for the next step after this step's ACS; where the
+//     CTA's trellises' patterns do not fit its table, or past 256 patterns,
+//     each transition's from its pattern's (or its own) output bits;
+//   - the decisions as ballot words (even and odd states interleaved, as
+//     the cluster route) in the scratch;
+//   - the minimum: a warp's redux.sync where its pairs are one trellis's (a
+//     lane's key otherwise), the CTA's a trellis by shared atomics, one
+//     global atomicMin a CTA and trellis into one of three rotating key
+//     arrays (the next one reset a step ahead), one grid.sync(), then the
+//     CTA reads its trellises' minima back.
+// The traceback: a warp a trellis, five steps a round from 31 candidate
+// words, as the cluster route. Trellises past a batch (GRID_BATCH) go in
+// turn inside the launch, reusing the scratch. Bit-identical to the twin:
+// (pa - mn) + g with __fsub_rn and __fadd_rn, the tie-break c1 < c0, the
+// first argmin of an unterminated span. What bounds it on an H100: the
+// chain of a grid barrier a step (measured with an empty kernel that makes
+// the same barriers: chip_smoke.py phase 7) and, at full width, the metric
+// buffers' L2 traffic (16 MB a step at 16 K 19 trellises).
+
+constexpr int kGridThreads = 512;
+constexpr int kGridTableBytes = 32768;  // a CTA's pattern metrics of two steps, at most
+
+// g = sum_m o_m * l_m, m left to right, o_m bit m of the output bits w.
+__device__ __forceinline__ float branch_bits(const unsigned* __restrict__ w,
+                                             const float* __restrict__ l, int n) {
+  unsigned word = __ldg(w);
+  float g = __fmul_rn((word & 1u) ? 1.0f : 0.0f, __ldg(l));
+  for (int m = 1; m < n; ++m) {
+    if ((m & 31) == 0) word = __ldg(w + (m >> 5));
+    g = __fadd_rn(g, __fmul_rn(((word >> (m & 31)) & 1u) ? 1.0f : 0.0f, __ldg(l + m)));
+  }
+  return g;
+}
+
+// kTable: the patterns' metrics in shared memory. codes as the cluster
+// route's (pattern bytes then the patterns' bits where npat <= 256, else the
+// rows' bits). Scratch, for cap = min(n_trellis, batch) trellises: dec
+// [cap][lw][max(1, S/32)] words, pm two buffers [cap][S], keys three [cap],
+// first [cap].
+template <bool kTable>
+__global__ void __launch_bounds__(kGridThreads, 2)
+viterbi_grid_kernel(const float* __restrict__ sym, unsigned char* __restrict__ bits,
+                    long long n_trellis, long long batch, int lw, int n, int s_count,
+                    int init_state0, int end_state0, const unsigned* __restrict__ codes,
+                    int npat, int mw, int slots_max, unsigned* __restrict__ dec,
+                    float* __restrict__ pm, unsigned* __restrict__ keys,
+                    int* __restrict__ first) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smg[];
+  float* const mn_s = smg;                                                 // [slots_max]
+  unsigned* const kmin_s = reinterpret_cast<unsigned*>(smg + slots_max);  // [slots_max]
+  float* const gm = smg + 2 * slots_max;  // kTable: [2][slots_max][npat]
+  const int tid = threadIdx.x, lane = tid & 31, threads = blockDim.x;
+  const long long G = gridDim.x, gtid = blockIdx.x * static_cast<long long>(threads) + tid;
+  const int S = s_count, P = S / 2, K2 = __ffs(S) - 2;
+  const int ws = S >= 32 ? S / 32 : 1, wshift = __ffs(ws) - 1;  // decision words a step
+  const int U = P < 16 ? P : 16, ushift = __ffs(U) - 1;        // pairs a word
+  const unsigned umask = (1u << U) - 1u;
+  const bool pat = npat <= kMaxPatterns;
+  const unsigned* const pbits = codes + (2 * S + 3) / 4;  // the patterns' bits after the bytes
+  const unsigned* const ids = codes;                      // rows 4 i .. 4 i + 3: word i
+  // the output bits of transition row r (2 s' + j)
+  auto row_bits = [&](int r) -> const unsigned* {
+    if (pat) {
+      const int id = (__ldg(ids + (r >> 2)) >> (8 * (r & 3))) & 255;
+      return pbits + id * mw;
+    }
+    return codes + static_cast<long long>(r) * mw;
+  };
+  const long long cap = min(batch, n_trellis);  // the scratch's trellises
+  float* const buf0 = pm;
+  float* const buf1 = pm + cap * S;
+  const int lj = 31 - __clz(lane + 1), lb = lane + 1 - (1 << lj);
+
+  for (long long b0 = 0; b0 < n_trellis; b0 += batch) {
+    const long long nb = min(batch, n_trellis - b0);
+    const long long units = nb * ws;
+    const long long u0 = blockIdx.x * units / G, u1 = (blockIdx.x + 1) * units / G;
+    const long long tr_lo = u0 >> wshift;
+    const int slots = u1 > u0 ? static_cast<int>(((u1 - 1) >> wshift) - tr_lo + 1) : 0;
+    const long long pairs = (u1 - u0) << ushift;
+    // the pattern metrics of step t for the CTA's trellises, into gm[t & 1]
+    auto metrics = [&](int t) {
+      float* const g = gm + (t & 1) * slots_max * npat;
+      for (int e = tid; e < slots * npat; e += threads) {
+        const int slot = e / npat, p = e - slot * npat;
+        const float* l = sym + ((b0 + tr_lo + slot) * lw + t) * static_cast<long long>(n);
+        g[e] = branch_bits(pbits + p * mw, l, n);
+      }
+    };
+    // a batch's start: the keys and first argmins reset, the CTA's minima
+    // zero, step 0's pattern metrics
+    for (long long x = gtid; x < nb; x += G * threads) {
+      keys[x] = keys[cap + x] = keys[2 * cap + x] = 0xffffffffu;
+      first[x] = S;
+    }
+    for (int s = tid; s < slots; s += threads) {
+      mn_s[s] = 0.0f;
+      kmin_s[s] = 0xffffffffu;
+    }
+    if constexpr (kTable) metrics(0);
+    grid.sync();
+
+    float ahead0 = 0.0f, ahead1 = 0.0f;  // the step's first pair's metrics, loaded ahead
+    for (int t = 0; t < lw; ++t) {
+      const float* const pa = (t & 1) ? buf1 : buf0;
+      float* const pb = (t & 1) ? buf0 : buf1;
+      const float* const gmt = gm + (t & 1) * slots_max * npat;
+      for (long long base = 0; base < pairs; base += threads) {
+        const long long j = base + tid;
+        const bool act = j < pairs;  // whole warps past the range: none active
+        const long long f = u0 + (j >> ushift);  // the word
+        const long long trl = f >> wshift;       // the batch's trellis
+        const int wd = static_cast<int>(f & (ws - 1));
+        const int i = (wd << ushift) + static_cast<int>(j & (U - 1));  // states 2i, 2i + 1
+        const int slot = static_cast<int>(trl - tr_lo);
+        bool de = false, dodd = false;
+        unsigned key = 0xffffffffu;
+        if (act) {
+          const float mn = mn_s[slot];
+          float a0, a1;
+          if (t == 0) {  // the initial metrics: 0 / 1e9 from state 0, or all zero
+            a0 = init_state0 && i != 0 ? 1e9f : 0.0f;
+            a1 = init_state0 ? 1e9f : 0.0f;
+          } else if (base == 0) {
+            a0 = ahead0;
+            a1 = ahead1;
+          } else {
+            a0 = __ldcg(pa + trl * S + i);
+            a1 = __ldcg(pa + trl * S + i + P);
+          }
+          a0 = __fsub_rn(a0, mn);
+          a1 = __fsub_rn(a1, mn);
+          float m0e, m1e, m0o, m1o;  // rows 4 i .. 4 i + 3
+          if constexpr (kTable) {
+            const unsigned id = __ldg(ids + i);
+            const float* g = gmt + slot * npat;
+            m0e = g[id & 255u];
+            m1e = g[(id >> 8) & 255u];
+            m0o = g[(id >> 16) & 255u];
+            m1o = g[id >> 24];
+          } else {
+            const float* l = sym + ((b0 + trl) * lw + t) * static_cast<long long>(n);
+            m0e = branch_bits(row_bits(4 * i), l, n);
+            m1e = branch_bits(row_bits(4 * i + 1), l, n);
+            m0o = branch_bits(row_bits(4 * i + 2), l, n);
+            m1o = branch_bits(row_bits(4 * i + 3), l, n);
+          }
+          const float c0e = __fadd_rn(a0, m0e), c1e = __fadd_rn(a1, m1e);
+          const float c0o = __fadd_rn(a0, m0o), c1o = __fadd_rn(a1, m1o);
+          de = c1e < c0e;
+          dodd = c1o < c0o;
+          const float ne = de ? c1e : c0e, no = dodd ? c1o : c0o;
+          reinterpret_cast<float2*>(pb + trl * S)[i] = make_float2(ne, no);
+          key = min(fkey(ne), fkey(no));
+        }
+        const unsigned e = __ballot_sync(kFull, de), o = __ballot_sync(kFull, dodd);
+        if (act && (lane & (U - 1)) == 0) {  // a word's first pair writes it
+          dec[(trl * lw + t) * ws + wd] =
+              spread16((e >> lane) & umask) | (spread16((o >> lane) & umask) << 1);
+        }
+        // the minimum: by redux.sync where the warp's pairs are one trellis's
+        const long long t0 = __shfl_sync(kFull, trl, 0);
+        if (__all_sync(kFull, !act || trl == t0)) {
+          key = __reduce_min_sync(kFull, key);
+          if (lane == 0 && act) atomicMin(kmin_s + slot, key);
+        } else if (act) {
+          atomicMin(kmin_s + slot, key);
+        }
+      }
+      if constexpr (kTable) {
+        if (t + 1 < lw) metrics(t + 1);
+      }
+      __syncthreads();
+      unsigned* const kt = keys + (t % 3) * cap;
+      for (int s = tid; s < slots; s += threads) {
+        atomicMin(kt + tr_lo + s, kmin_s[s]);
+        kmin_s[s] = 0xffffffffu;
+      }
+      unsigned* const kn = keys + ((t + 1) % 3) * cap;  // last read two steps ago
+      for (long long x = gtid; x < nb; x += G * threads) kn[x] = 0xffffffffu;
+      grid.sync();
+      // the next step's first pair's metrics load beside the minima's
+      if (t + 1 < lw && tid < pairs) {
+        const long long f = u0 + (tid >> ushift), trl = f >> wshift;
+        const int i = (static_cast<int>(f & (ws - 1)) << ushift) + (tid & (U - 1));
+        ahead0 = __ldcg(pb + trl * S + i);
+        ahead1 = __ldcg(pb + trl * S + i + P);
+      }
+      for (int s = tid; s < slots; s += threads) mn_s[s] = unkey(__ldcg(kt + tr_lo + s));
+      __syncthreads();
+    }
+
+    // the traceback's start: state 0, or the first argmin of the final
+    // metrics (the first s whose buffered metric equals their minimum)
+    if (!end_state0) {
+      const float* const fin = (lw & 1) ? buf1 : buf0;
+      for (long long j = tid; j < pairs; j += threads) {
+        const long long f = u0 + (j >> ushift), trl = f >> wshift;
+        const int i = (static_cast<int>(f & (ws - 1)) << ushift) + static_cast<int>(j & (U - 1));
+        const float mn = mn_s[trl - tr_lo];
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(fin + trl * S) + i);
+        if (v.x == mn) {
+          atomicMin(first + trl, 2 * i);
+        } else if (v.y == mn) {
+          atomicMin(first + trl, 2 * i + 1);
+        }
+      }
+      grid.sync();
+    }
+    // a warp a trellis: lane l holds the candidate j = floor(log2(l + 1))
+    // steps back whose decisions on the way are the bits of l + 1 - 2^j
+    const long long warps = G * threads / 32;
+    for (long long trl = gtid >> 5; trl < nb; trl += warps) {
+      const unsigned* const dt = dec + trl * lw * ws;
+      unsigned char* const ob = bits + (b0 + trl) * lw;
+      int s = end_state0 ? 0 : __ldcg(first + trl);
+      for (int t = lw - 1; t >= 0;) {
+        const int steps = min(kTraceAhead, t + 1);
+        unsigned wd = 0;
+        if (lj < steps) {
+          int st = s;
+          for (int i = 0; i < lj; ++i) st = (st >> 1) | (((lb >> i) & 1) << K2);
+          wd = __ldcg(dt + static_cast<long long>(t - lj) * ws + (st >> 5));
+        }
+        int taken = 0;
+        for (int j = 0; j < steps; ++j) {
+          const unsigned w = __shfl_sync(kFull, wd, (1 << j) - 1 + taken);
+          if (lane == 0) ob[t - j] = static_cast<unsigned char>(s & 1);
+          const int b = (w >> (s & 31)) & 1;
+          s = (s >> 1) | (b << K2);
+          taken |= b << j;
+        }
+        t -= steps;
+      }
+    }
+    if (b0 + batch < n_trellis) grid.sync();  // the tracebacks have read the scratch
+  }
+}
+
+// The grid route's geometry for a call: the CTAs (co-resident at the
+// occupancy, at most one a decision word of a batch), the trellis slots a
+// CTA holds at most (sized at one CTA an SM, the fewest CTAs a card
+// co-schedules), the pattern table's use and the dynamic shared memory;
+// `syncs` the grid barriers the launch makes.
+struct GridShape {
+  int grid, slots, table, smem;
+  long long syncs;
+};
+
+int grid_shape(long long n_trellis, long long batch, int lw, int s_count, int npat,
+               int end_state0, GridShape* gs) {
+  int dev = 0, sms = 0, optin = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop || sms < 1) return static_cast<int>(cudaErrorNotSupported);
+  const long long ws = s_count >= 32 ? s_count / 32 : 1;
+  const long long nb = n_trellis < batch ? n_trellis : batch;
+  const long long units = nb * ws;
+  auto slots_at = [&](long long g) {
+    const long long per = (units + g - 1) / g;
+    return (per + ws - 1) / ws + 1;
+  };
+  const long long s1 = slots_at(units < sms ? units : sms);
+  const bool table = npat <= kMaxPatterns && 2 * s1 * npat * 4 <= kGridTableBytes;
+  const long long smem = 8 * s1 + (table ? 2 * s1 * npat * 4 : 0);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = table ? reinterpret_cast<const void*>(viterbi_grid_kernel<true>)
+                             : reinterpret_cast<const void*>(viterbi_grid_kernel<false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kGridThreads,
+                                                      static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long most = static_cast<long long>(sms) * occ;
+  gs->grid = static_cast<int>(units < most ? units : most);
+  gs->slots = static_cast<int>(s1);
+  gs->table = table;
+  gs->smem = static_cast<int>(smem);
+  const long long batches = (n_trellis + batch - 1) / batch;
+  gs->syncs = batches * (1 + lw + (end_state0 ? 0 : 1)) + (batches - 1);
+  return 0;
+}
+
 template <int S, int NT, bool kScratch>
 int launch_kernel(const void* sym, void* bits, long long n_trellis, int lw, int n,
                   int init_state0, int end_state0, int warps, const Masks& masks,
@@ -822,32 +1027,61 @@ extern "C" int viterbi_launch(const void* sym, void* bits, long long n_trellis,
   }
 }
 
-// Plain C entry point of the block instance (one CTA a trellis), loaded with
-// ctypes. Returns the cudaError_t of the launch (0 = success). The caller
-// guarantees: sym float32 [n_trellis, lw, n] and bits uint8 [n_trellis, lw],
-// contiguous, 1 <= n_trellis < 2^31; s_count a power of two >= 2; masks the
-// encoder outputs on the card, uint32 [2 s_count][mw], mw = ceil(n / 32);
-// dec_scratch n_trellis * lw * max(1, s_count / 32) uint32 words on the card;
-// pm_scratch n_trellis * 2 * s_count floats on the card, or null where
-// 2 * s_count floats fit the card's opt-in shared memory.
-extern "C" int viterbi_block_launch(const void* sym, void* bits, long long n_trellis, int lw,
-                                    int n, int s_count, int init_state0, int end_state0,
-                                    const void* masks, int mw, void* dec_scratch,
-                                    void* pm_scratch, void* stream) {
+// Plain C entry point of the block instance's grid route, loaded with
+// ctypes: one cooperative launch. Returns the cudaError_t of the launch (0 =
+// success). The caller guarantees: sym float32 [n_trellis, lw, n] and bits
+// uint8 [n_trellis, lw], contiguous; s_count a power of two >= 2; codes on
+// the card as viterbi_cta_launch takes them (npat patterns, mw = ceil(n /
+// 32) words a row); batch >= 1 trellises a pass; on the card, dec
+// min(n_trellis, batch) * lw * max(1, s_count / 32) uint32 words, pm 2 *
+// min(n_trellis, batch) * s_count floats (8-byte aligned), keys 3 *
+// min(n_trellis, batch) uint32 and first min(n_trellis, batch) int32.
+extern "C" int viterbi_grid_launch(const void* sym, void* bits, long long n_trellis,
+                                   long long batch, int lw, int n, int s_count,
+                                   int init_state0, int end_state0, const void* codes, int npat,
+                                   int mw, void* dec, void* pm, void* keys, void* first,
+                                   void* stream) {
   if (n < 1 || lw < 1 || s_count < 2 || (s_count & (s_count - 1)) || n_trellis < 1 ||
-      n_trellis > 0x7fffffffLL || mw < (n + 31) / 32)
+      batch < 1 || npat < 1 || mw < (n + 31) / 32 || !dec || !pm || !keys || !first)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pm_scratch != nullptr ? 0 : 2 * static_cast<size_t>(s_count) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(viterbi_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  GridShape gs;
+  int rc = grid_shape(n_trellis, batch, lw, s_count, npat, end_state0, &gs);
+  if (rc) return rc;
+  const float* a_sym = static_cast<const float*>(sym);
+  unsigned char* a_bits = static_cast<unsigned char*>(bits);
+  const unsigned* a_codes = static_cast<const unsigned*>(codes);
+  unsigned* a_dec = static_cast<unsigned*>(dec);
+  float* a_pm = static_cast<float*>(pm);
+  unsigned* a_keys = static_cast<unsigned*>(keys);
+  int* a_first = static_cast<int*>(first);
+  void* args[] = {&a_sym, &a_bits, &n_trellis, &batch, &lw, &n, &s_count, &init_state0,
+                  &end_state0, &a_codes, &npat, &mw, &gs.slots, &a_dec, &a_pm, &a_keys,
+                  &a_first};
+  const void* kernel = gs.table ? reinterpret_cast<const void*>(viterbi_grid_kernel<true>)
+                                : reinterpret_cast<const void*>(viterbi_grid_kernel<false>);
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(gs.grid), dim3(kGridThreads), args,
+                                                static_cast<size_t>(gs.smem),
+                                                static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  viterbi_block_kernel<<<static_cast<unsigned>(n_trellis), kBlockThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sym), static_cast<unsigned char*>(bits), lw, n, s_count,
-      init_state0, end_state0, static_cast<const unsigned*>(masks), mw,
-      static_cast<unsigned*>(dec_scratch), static_cast<float*>(pm_scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid route's launch geometry for a call (what viterbi_grid_launch
+// would launch, on the current card): out[0] the CTAs, out[1] their
+// threads, out[2] the dynamic shared memory, out[3] the grid barriers the
+// launch makes. For a kernel that times the barriers alone (chip_smoke.py).
+extern "C" int viterbi_grid_geometry(long long n_trellis, long long batch, int lw, int s_count,
+                                     int npat, int end_state0, long long* out) {
+  if (lw < 1 || s_count < 2 || n_trellis < 1 || batch < 1 || npat < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GridShape gs;
+  const int rc = grid_shape(n_trellis, batch, lw, s_count, npat, end_state0, &gs);
+  if (rc) return rc;
+  out[0] = gs.grid;
+  out[1] = kGridThreads;
+  out[2] = gs.smem;
+  out[3] = gs.syncs;
+  return 0;
 }
 
 // Plain C entry point of the block instance's cluster route (one CTA, or a

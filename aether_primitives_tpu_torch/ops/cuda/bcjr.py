@@ -35,10 +35,21 @@ schedule in the route :func:`block_layout` names: ``"thin"`` at 2 and 3
 states (a column a lane; spans and half-histories in shared memory up to
 :func:`thin_resident_span`), ``"block"`` to :data:`BLOCK_STATES` (a
 column's states over the lanes of 1-4 warps a direction, their tables in
-registers), ``"wide"`` past that (a CTA a column, tables read a step);
-past shared memory the half-histories go to a device scratch and come back
-ahead of need through a ``cp.async`` ring. All take any
-``N``, ragged or not, and any ``Lw >= 1``; the limit is the card's memory.
+registers), ``"shared"`` past that to :data:`SHARED_STATES` over columns
+that fill the card (one CTA a column of 8 warps a direction, the tables in
+shared memory), ``"cluster"`` for every other call past
+:data:`BLOCK_STATES`
+(the same design across a cluster of 2-8 CTAs a column,
+:func:`cluster_layout`); past shared memory the half-histories go to a
+device scratch and come back ahead of need through a ``cp.async`` ring.
+All take any ``N``, ragged or not, and any ``Lw >= 1``; the limit is the
+card's memory.
+
+A call decides what it needs of a table set once (:func:`_tables_of`: the
+host tables, their kind, their copies on each card), finding it
+by the tables object's identity or, for a new object, by one hash of the
+tables; the instance comes from the state count, kind and span
+(:func:`_kernel_plan`).
 """
 
 from __future__ import annotations
@@ -60,11 +71,27 @@ launches = 0
 KERNEL_STATES = (4, 8, 16, 32, 64)
 #: The most states the block instance's ``block`` route takes (4 warps a
 #: direction of 8 states a lane, their tables in registers); past it the
-#: ``wide`` route.
+#: ``cluster`` route.
 BLOCK_STATES = 1024
-#: The ``wide`` route keeps its two metric buffers (2 S floats) in shared
-#: memory up to this many states, in the device scratch past it.
-BLOCK_SMEM_STATES = (232_448 - 1_024) // 8
+#: The ``cluster`` route (``csrc/bcjr.cu bcjr_kernel_cluster``): clusters of
+#: 2 to CLUSTER_MAX CTAs a column, sized against the H100's SMS SMs. To
+#: CLUSTER_REG_STATES states the tables in registers and the metrics pushed
+#: to every CTA's copy of the column (placement ``"registers"``, a ring of
+#: copies CLUSTER_RING steps ahead); past it the tables read a step through
+#: L1 and each CTA's own states' exchange in the device scratch, read by the
+#: others (``"global"``).
+CLUSTER_MAX = 8
+CLUSTER_REG_STATES = CLUSTER_MAX * BLOCK_STATES
+SMS = 132
+#: The ``"shared"`` route (``csrc/bcjr.cu bcjr_kernel_block``'s kShared):
+#: past :data:`BLOCK_STATES` to SHARED_STATES states, one CTA a column of
+#: SHARED_GEOMETRY = (R states a lane, W warps a direction), the tables'
+#: coefficients in shared memory; its place in a geometry ``(q, R, W,
+#: place, rl)`` is ``"shared"``, the third of PLACES.
+SHARED_STATES = 2048
+SHARED_GEOMETRY = (8, 8)
+PLACES = ("registers", "global", "shared")
+CLUSTER_RING = 4
 #: Columns a CTA of the meet instance takes (one lane of a forward and of a
 #: backward warp each), chosen by ``benches/torch_bcjr_sweep.py`` on an H100
 #: at Lw 96, N 2,560 (``PERF.md``); spans too long for it at 16 take 8.
@@ -159,28 +186,69 @@ def lanes_span_limit(s_count: int) -> int:
     return (_MEET_SMEM // 4 - 4 * g * s_count) // (g * (s_count + 2))
 
 
-def block_layout(s_count: int):
-    """The block instance's route at ``s_count`` states, ``(route, R, L, W,
-    G, P)`` (``csrc/bcjr.cu launch_block_route``): ``R`` states a lane,
-    ``L`` lanes and ``W`` warps a column and direction, ``G`` columns a CTA,
-    ``P`` the padded states a column. ``"thin"`` at 2 and 3 states (a column
-    a lane, ``R = S``); ``"block"`` to :data:`BLOCK_STATES`: 4-32 states a
-    state a lane (``L`` the power of two >= S, ``32 / L`` columns a warp),
-    33-256 one warp (``R`` the power of two >= S / 32), past 256 ``W = ceil(S
-    / 256)`` warps of 8 states a lane; ``"wide"`` past that (a CTA a
-    column)."""
+def cluster_layout(s_count: int, n: int = 1):
+    """The geometry past :data:`BLOCK_STATES` at ``s_count`` states over
+    ``n`` columns, ``(q, R, W, place, rl)``: ``q`` CTAs a column, ``W``
+    warps a direction in each, ``rl`` states a lane (``R`` its compile-time
+    count, 1 in the global placement), in the placement ``place`` of
+    :data:`PLACES`. The ``cluster`` route: to :data:`CLUSTER_REG_STATES`
+    ``q`` the least power of two with ``q`` x 1,024 >= S, doubled while the
+    columns' CTAs fill at most half the SMs (to 8), ``R`` the least of 2,
+    4, 8 with 128 R >= S / q, ``W = ceil(S / q / 32 R)`` (3 or 4); past it
+    the global placement, ``q`` 8, ``W`` 4, ``rl = ceil(S / 1,024)``. To
+    :data:`SHARED_STATES`, where that cluster is 2 CTAs (the columns fill
+    the SMs: 34 columns and more), the ``"shared"`` route instead, ``q`` 1,
+    ``(R, W)`` :data:`SHARED_GEOMETRY` (on an H100 at the K 12 code, Lw 224:
+    0.277 ms against the cluster's 0.374 at 64 columns, 0.268 against 0.228
+    at 7; ``benches/torch_bcjr_sweep.py``, PERF.md)."""
+    if s_count <= CLUSTER_REG_STATES:
+        q = max(2, 1 << (-(-s_count // BLOCK_STATES) - 1).bit_length())
+        while q < CLUSTER_MAX and 2 * q * n <= SMS:
+            q *= 2
+        if s_count <= SHARED_STATES and q == 2:
+            r, w = SHARED_GEOMETRY
+            return 1, r, w, "shared", r
+        sc = -(-s_count // q)
+        r = next(r for r in (2, 4, 8) if 128 * r >= sc)
+        return q, r, -(-sc // (32 * r)), "registers", r
+    q, w = CLUSTER_MAX, 4
+    return q, 1, w, "global", -(-s_count // (q * 32 * w))
+
+
+def cluster_smem(r: int, w: int, place: str, sc: int, q: int) -> int:
+    """Shared memory of a ``cluster`` CTA of ``sc`` states in a cluster of
+    ``q``, in bytes (``csrc/bcjr.cu cluster_smem_floats``): in the registers
+    placement the whole column's metrics (``4 q sc`` floats), the keys, four
+    mbarriers and the ring of copies; in the global placement the keys."""
+    if place == "registers":
+        return 4 * (4 * q * sc + 12 * 32 + 8 + CLUSTER_RING * (2 + 2 * r) * 64 * w)
+    return 4 * 12 * 32
+
+
+def block_layout(s_count: int, n: int = 1):
+    """The block instance's route at ``s_count`` states over ``n`` columns,
+    ``(route, R, L, W, G, P, q)`` (``csrc/bcjr.cu launch_block_route``):
+    ``R`` states a lane, ``L`` lanes and ``W`` warps a column and direction
+    in a CTA, ``G`` columns a CTA, ``P`` the padded states a column, ``q``
+    CTAs a column. ``"thin"`` at 2 and 3 states (a column a lane, ``R =
+    S``); ``"block"`` to :data:`BLOCK_STATES`: 4-32 states a state a lane
+    (``L`` the power of two >= S, ``32 / L`` columns a warp), 33-256 one
+    warp (``R`` the power of two >= S / 32), past 256 ``W = ceil(S / 256)``
+    warps of 8 states a lane; past that ``"shared"`` or ``"cluster"``
+    (:func:`cluster_layout`: ``q`` CTAs a column, ``P = 32 q W R``)."""
     if s_count <= 3:
-        return "thin", s_count, 1, 1, 32, s_count
+        return "thin", s_count, 1, 1, 32, s_count, 1
     if s_count <= 32:
         lanes = max(4, 1 << (s_count - 1).bit_length())
-        return "block", 1, lanes, 1, 32 // lanes, lanes
+        return "block", 1, lanes, 1, 32 // lanes, lanes, 1
     if s_count <= 256:
         r = 1 << (-(-s_count // 32) - 1).bit_length()
-        return "block", r, 32, 1, 1, 32 * r
+        return "block", r, 32, 1, 1, 32 * r, 1
     if s_count <= BLOCK_STATES:
         w = -(-s_count // 256)
-        return "block", 8, 32, w, 1, 256 * w
-    return "wide", 0, 0, 0, 1, s_count
+        return "block", 8, 32, w, 1, 256 * w, 1
+    q, _, w, place, rl = cluster_layout(s_count, n)
+    return ("shared" if place == "shared" else "cluster"), rl, 32, w, 1, 32 * q * w * rl, q
 
 
 def thin_resident_span(s_count: int) -> int:
@@ -200,15 +268,18 @@ def kernel_plan(tables, lw: int):
     :data:`KERNEL_STATES`, ``("block", g)``, ``g`` columns a CTA of
     :func:`block_layout`. Raises ValueError where one column's device
     scratch does not fit the card's memory (:data:`CARD_BYTES`)."""
-    idx, _, instance, _ = _host_tables(tables if tables is not None else rsc8_tables())
-    s_count = idx.shape[1]
+    return _tables_of(tables).plan(lw)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_plan(s_count: int, kind: str, lw: int):
     if scratch_bytes(s_count, lw, 1) > CARD_BYTES:
         raise ValueError(
             f"the CUDA BCJR kernel does not take {s_count} states over {lw} steps: a "
             f"column's scratch exceeds the card's memory ({CARD_BYTES} bytes)"
         )
     if s_count in KERNEL_STATES:
-        if instance == "rsc8":
+        if kind == "rsc8":
             for c in MEET_COLS:
                 if lw * c * (_MEET_STATES + 2) * 4 <= _MEET_SMEM:
                     return "rsc8", c
@@ -217,19 +288,27 @@ def kernel_plan(tables, lw: int):
     return "block", block_layout(s_count)[4]
 
 
+def _cluster_floats(layout, lw: int, n: int) -> tuple:
+    """``(history, exchange)`` floats of the ``cluster`` route's scratch at
+    ``layout = (q, R, W, place, rl)`` over ``n`` columns: ``Lw x P`` a
+    column, and in the global placement its four exchange buffers, ``4 P``."""
+    q, _, w, place, rl = layout
+    p = 32 * q * w * rl
+    return lw * p * n, (4 * p * n if place == "global" else 0)
+
+
 def scratch_bytes(s_count: int, lw: int, n: int) -> int:
     """Device scratch bytes of a block-instance call on ``n`` columns: the
     half-histories, ``Lw`` x ``P`` floats a column (``P`` the padded states
     of :func:`block_layout`, whole CTAs of ``G`` columns; none where the
     thin route keeps them in shared memory, to :func:`thin_resident_span`),
-    and the ``wide`` route's metric buffers past
-    :data:`BLOCK_SMEM_STATES`."""
-    route, _, _, _, g, p = block_layout(s_count)
+    and the ``cluster`` route's exchange in its global placement (``4 P``
+    floats a column)."""
+    route, _, _, _, g, p, _ = block_layout(s_count, n)
     if route == "thin" and lw <= thin_resident_span(s_count):
         return 0
-    if route == "wide":
-        metrics = 2 * s_count * n if s_count > BLOCK_SMEM_STATES else 0
-        return 4 * (lw * s_count * n + metrics)
+    if route == "cluster":
+        return 4 * sum(_cluster_floats(cluster_layout(s_count, n), lw, n))
     return 4 * lw * p * g * (-(-n // g))
 
 
@@ -297,20 +376,72 @@ def _entries():
                       + [ctypes.c_int, ctypes.c_void_p])
     lanes.restype = ctypes.c_int
     block = lib.bcjr_block_launch
-    block.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                      + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    block.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int, ctypes.c_void_p])
     block.restype = ctypes.c_int
     return meet, lanes, block
 
 
+class _TableSet:
+    """What a call needs of one table set, decided once: the host tables
+    (:func:`_host_tables`) and their kind, the shuffle form
+    (:func:`shift_register`), the state count, and the tables on each card,
+    copied at first use (:meth:`card`)."""
+
+    __slots__ = ("idx", "coef", "kind", "cls", "shift", "s_count", "cards")
+
+    def __init__(self, tables):
+        self.idx, self.coef, self.kind, self.cls = _host_tables(
+            tables if tables is not None else rsc8_tables())
+        self.s_count = self.idx.shape[1]
+        self.shift = _shift_pattern(self.idx)
+        self.cards = {}
+
+    def plan(self, lw: int):
+        """The instance at span ``lw`` (:func:`kernel_plan`)."""
+        return _kernel_plan(self.s_count, self.kind, lw)
+
+    def card(self, index: int) -> tuple:
+        """int32 ``[nxt; prev_s]`` and float32 ``[fw0; fw1; bw0; bw1]`` on
+        card ``index``."""
+        got = self.cards.get(index)
+        if got is None:
+            dev = torch.device("cuda", index)
+            got = self.cards[index] = (torch.from_numpy(self.idx).to(dev),
+                                       torch.from_numpy(self.coef).to(dev))
+        return got
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(tables, lw: int):
-    """``(idx, coef, cls, instance, cols, shift)`` of a call:
-    :func:`_host_tables`, :func:`kernel_plan` and :func:`shift_register` at
-    once, cached on the call's own arguments (no table hashing a call when
-    ``tables`` is None)."""
-    idx, coef, _, cls = _host_tables(tables if tables is not None else rsc8_tables())
-    return (idx, coef, cls, *kernel_plan(tables, lw), shift_register(tables))
+def _table_set(tables) -> _TableSet:
+    """The :class:`_TableSet` of ``tables``, cached on their hash."""
+    return _TableSet(tables)
+
+
+_RECENT = {}
+
+
+def _tables_of(tables) -> _TableSet:
+    """:func:`_table_set`, found first by the tables object's identity (the
+    decoders pass the same tuples every call; a hash of S = 2,048 tables
+    costs about as much as the kernel), so that a call hashes its tables at
+    most once, where it passes a new object."""
+    hit = _RECENT.get(id(tables))
+    if hit is not None and hit[0] is tables:
+        return hit[1]
+    ts = _table_set(tables)
+    if len(_RECENT) >= 64:
+        _RECENT.clear()
+    _RECENT[id(tables)] = (tables, ts)  # holds the tables, so their id stays theirs
+    return ts
+
+
+def _shift_pattern(idx) -> bool:
+    s = np.arange(idx.shape[1])
+    nxt = (2 * s[:, None] + np.arange(2)) % idx.shape[1]
+    prev = (s[:, None] >> 1) + np.arange(2) * (idx.shape[1] // 2)
+    return bool(np.array_equal(idx[0], nxt) and np.array_equal(idx[1], prev))
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,21 +451,7 @@ def shift_register(tables) -> bool:
     mod S``, ``prev_s[s'][j] = (s' >> 1) + j S / 2``): the lanes instance
     then gathers a step's metrics by shuffles instead of through shared
     memory."""
-    idx, _, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
-    s = np.arange(idx.shape[1])
-    nxt = (2 * s[:, None] + np.arange(2)) % idx.shape[1]
-    prev = (s[:, None] >> 1) + np.arange(2) * (idx.shape[1] // 2)
-    return bool(np.array_equal(idx[0], nxt) and np.array_equal(idx[1], prev))
-
-
-@functools.lru_cache(maxsize=None)
-def _card_tables(tables, index: int):
-    """The lanes instance's tables on card ``index``: int32 ``[nxt;
-    prev_s]`` and float32 ``[fw0; fw1; bw0; bw1]``, copied once a table
-    set and card."""
-    idx, coef, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
-    dev = torch.device("cuda", index)
-    return torch.from_numpy(idx).to(dev), torch.from_numpy(coef).to(dev)
+    return _shift_pattern(_host_tables(tables if tables is not None else rsc8_tables())[0])
 
 
 def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
@@ -359,36 +476,38 @@ def bcjr_windowed_llr(ls, lp, lw: int, tables=None) -> torch.Tensor:
         raise ValueError(f"bcjr_windowed_llr runs on cpu or cuda, not {ls.device.type}")
     if not (ls.is_contiguous() and lp.is_contiguous()):
         raise ValueError("bcjr_windowed_llr takes contiguous spans")
-    idx, _, cls, instance, cols, shift = _plan(tables, lw)
+    ts = _tables_of(tables)
+    instance, cols = ts.plan(lw)
     n = ls.shape[1]
-    need = scratch_bytes(idx.shape[1], lw, n) if instance == "block" else 0
+    need = scratch_bytes(ts.s_count, lw, n) if instance == "block" else 0
     total = torch.cuda.get_device_properties(ls.device).total_memory if need else 0
     if need > total or n >= 1 << 31:
         raise ValueError(
             f"the CUDA BCJR kernel does not take {n} columns of {lw} steps at "
-            f"{idx.shape[1]} states: its scratch ({need} bytes) exceeds the card's "
+            f"{ts.s_count} states: its scratch ({need} bytes) exceeds the card's "
             f"memory ({total} bytes)"
         )
     out = torch.empty((lw, n), dtype=torch.float32, device=ls.device)
     if n == 0 or lw == 0:
         return out
     if instance == "rsc8":
-        _launch_meet(ls, lp, out, lw, cols, cls)
+        _launch_meet(ls, lp, out, lw, cols, ts.cls)
     elif instance == "lanes":
-        _launch_lanes(ls, lp, out, lw, tables, shift)
+        _launch_lanes(ls, lp, out, lw, tables, ts.shift, ts)
     else:
-        _launch_block(ls, lp, out, lw, tables)
+        _launch_block(ls, lp, out, lw, tables, ts)
     return out
 
 
-def _launch_lanes(ls, lp, out, lw: int, tables, shift: bool) -> None:
+def _launch_lanes(ls, lp, out, lw: int, tables, shift: bool, ts=None) -> None:
     """One launch of the lanes instance with ``tables`` (None: RSC-8),
     counted in :data:`launches`: in its shuffle form where ``shift`` (only
     for tables that :func:`shift_register` holds for), else its table form.
-    The C entry makes the spans' card current for the launch itself."""
+    ``ts``: the call's :func:`_tables_of`, found here where not given. The
+    C entry makes the spans' card current for the launch itself."""
     global launches
     index = ls.get_device()
-    idx_t, coef_t = _card_tables(tables, index)
+    idx_t, coef_t = (ts or _tables_of(tables)).card(index)
     rc = _entries()[1](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), lw, ls.shape[1],
                        idx_t.shape[1], int(shift), idx_t.data_ptr(), coef_t.data_ptr(),
                        index, torch._C._cuda_getCurrentRawStream(index))
@@ -414,28 +533,37 @@ def _launch_meet(ls, lp, out, lw: int, cols: int, cls) -> None:
     launches += 1
 
 
-def _launch_block(ls, lp, out, lw: int, tables) -> None:
+def _launch_block(ls, lp, out, lw: int, tables, ts=None, cluster=None) -> None:
     """One launch of the block instance with ``tables``, at any state count
     and span (the route of :func:`block_layout`), counted in
-    :data:`launches`: its half-histories (and, past
-    :data:`BLOCK_SMEM_STATES`, the wide route's metric buffers) in a
-    scratch allocated here. A private entry: the wrapper takes it where
-    :func:`kernel_plan` names the block instance, a bench or a check may
-    call it at any state count to time the design against another
-    instance."""
+    :data:`launches`: its half-histories (and the ``cluster`` route's
+    exchange in its global placement) in a scratch allocated here.
+    ``ts``: the call's :func:`_tables_of`, found here where not given;
+    ``cluster``: a geometry ``(q, R, W, place, rl)`` past
+    :data:`BLOCK_STATES` in place of :func:`cluster_layout`'s (a bench's). A
+    private entry:
+    the wrapper takes it where :func:`kernel_plan` names the block instance,
+    a bench or a check may call it at any state count to time the design
+    against another instance."""
     global launches
+    ts = ts or _tables_of(tables)
     index = ls.get_device()
-    idx_t, coef_t = _card_tables(tables, index)
-    idx, coef, _, _ = _host_tables(tables if tables is not None else rsc8_tables())
-    s_count, n = idx_t.shape[1], ls.shape[1]
-    hist = torch.empty(scratch_bytes(s_count, lw, n) // 4, dtype=torch.float32,
-                       device=ls.device)
-    metrics = (hist[lw * s_count * n:] if block_layout(s_count)[0] == "wide"
-               and s_count > BLOCK_SMEM_STATES else None)
+    idx_t, coef_t = ts.card(index)
+    s_count, n = ts.s_count, ls.shape[1]
+    geo, xg = (1, 0, 0, 0, 0), None
+    if s_count > BLOCK_STATES:
+        geo = cluster or cluster_layout(s_count, n)
+        hist_f, xg_f = _cluster_floats(geo, lw, n)
+        hist = torch.empty(hist_f + xg_f, dtype=torch.float32, device=ls.device)
+        xg = hist[hist_f:] if xg_f else None
+        geo = (geo[0], geo[1], geo[2], PLACES.index(geo[3]), geo[4])
+    else:
+        hist = torch.empty(scratch_bytes(s_count, lw, n) // 4, dtype=torch.float32,
+                           device=ls.device)
     rc = _entries()[2](ls.data_ptr(), lp.data_ptr(), out.data_ptr(), hist.data_ptr(),
-                       None if metrics is None else metrics.data_ptr(), lw, n, s_count,
-                       idx_t.data_ptr(), coef_t.data_ptr(), idx.ctypes.data,
-                       coef.ctypes.data, index, torch._C._cuda_getCurrentRawStream(index))
+                       None if xg is None else xg.data_ptr(), lw, n, s_count, *geo,
+                       idx_t.data_ptr(), coef_t.data_ptr(), ts.idx.ctypes.data,
+                       ts.coef.ctypes.data, index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"bcjr kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -32,9 +32,12 @@ pattern (:func:`patterns`; per transition past :data:`MAX_PATTERNS`) from
 LLRs staged 32 steps ahead, the decisions in shared memory where a
 trellis's history fits (else the device scratch), a warp's traceback five
 steps a round; past it, or where a CTA's LLRs of many generators do not
-fit its shared memory, one CTA of 256 threads a trellis with the metrics
-and the decisions in the device scratch. :func:`kernel_supports` is then
-limited by the card's memory alone.
+fit its shared memory, the grid route: one cooperative launch of the
+co-resident CTAs, every trellis's states spread by range over all of them,
+the metrics and the decisions in the device scratch, one grid barrier a
+step (:func:`scratch_words`; batches of :data:`GRID_BATCH` trellises in
+turn). :func:`kernel_supports` is then limited by the card's memory
+alone.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ WARP_MAX_GENERATORS = 8
 #: CTA of at most CTA_THREADS threads, clusters of up to CLUSTER_MAX CTAs,
 #: sized against the H100's SMS SMs, each CTA's shared memory within
 #: CTA_SMEM bytes (``csrc/viterbi.cu`` ``viterbi_cta_launch``). Past it the
-#: scratch route keeps the path metrics in the device scratch.
+#: grid route keeps the path metrics in the device scratch.
 CLUSTER_MAX_STATES = 131_072
 CTA_THREADS = 512
 CLUSTER_MAX = 8
@@ -73,6 +76,9 @@ LLR_CHUNK = 32
 #: Trellises (warps) a block in order of preference; the kernel takes the
 #: first whose histories fit a block.
 WARPS = (4, 2, 1)
+#: The grid route's trellises a pass: more go in batches inside the launch,
+#: reusing the scratch (``csrc/viterbi.cu`` ``viterbi_grid_launch``).
+GRID_BATCH = 65_536
 
 
 def _tables(polys, k: int):
@@ -133,7 +139,7 @@ def patterns(polys, k: int) -> tuple:
 
 def block_plan(lw: int, n: int, k: int, n_trellis: int, npat=None):
     """The block instance's cluster route for ``n_trellis`` spans, or None
-    (the scratch route: past :data:`CLUSTER_MAX_STATES` states, or where a
+    (the grid route: past :data:`CLUSTER_MAX_STATES` states, or where a
     CTA's shared memory does not fit at the largest cluster, or a cluster's
     CTA would keep fewer than 64 states): ``q`` CTAs a trellis (doubled from
     1 while the metrics do not fit a CTA, or while the trellises' CTAs fill
@@ -162,13 +168,16 @@ def block_plan(lw: int, n: int, k: int, n_trellis: int, npat=None):
 
 
 def _block_scratch(lw: int, n: int, k: int, n_trellis: int) -> tuple:
-    """``(decision words, metric floats)`` of the block instance's scratch."""
+    """``(decision words, metric floats, key words)`` of the block
+    instance's scratch: on the grid route, for a batch of ``min(n_trellis,
+    GRID_BATCH)`` trellises, their decisions, two metric buffers a trellis,
+    and three key arrays and the first argmins."""
     s_count = 1 << (int(k) - 1)
-    words = n_trellis * lw * max(1, s_count // 32)
     plan = block_plan(lw, n, k, n_trellis)
     if plan is not None:
-        return (0 if plan["dec_smem"] else words), 0
-    return words, n_trellis * 2 * s_count
+        return (0 if plan["dec_smem"] else n_trellis * lw * max(1, s_count // 32)), 0, 0
+    nb = min(n_trellis, GRID_BATCH)
+    return nb * lw * max(1, s_count // 32), nb * 2 * s_count, 4 * nb
 
 
 def scratch_words(lw: int, k: int, n_trellis: int, n: int = 2) -> int:
@@ -177,7 +186,9 @@ def scratch_words(lw: int, k: int, n_trellis: int, n: int = 2) -> int:
     histories, or 0 where one trellis's history fits a block's shared memory
     (the shared route); for the block instance, the decision histories
     where they do not fit the cluster route's shared memory, and, on the
-    scratch route (:func:`block_plan` None), two metric buffers a trellis."""
+    grid route (:func:`block_plan` None), those of a batch of at most
+    :data:`GRID_BATCH` trellises, two metric buffers a trellis, three key
+    arrays and the first argmins."""
     if instance(n, k) == "block":
         return sum(_block_scratch(lw, n, k, n_trellis))
     if warps_per_block(lw, k) is not None:
@@ -284,13 +295,6 @@ def _out_masks(polys, k: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _block_masks(polys, k: int, index: int) -> torch.Tensor:
-    """:func:`block_mask_words` on card ``index`` (as int32), copied once."""
-    return torch.from_numpy(block_mask_words(polys, k).view(np.int32)).to(
-        torch.device("cuda", index))
-
-
-@functools.lru_cache(maxsize=None)
 def _patterns_on(polys, k: int, index: int) -> torch.Tensor:
     """:func:`patterns`' table on card ``index`` (as int32), copied once."""
     return torch.from_numpy(patterns(polys, k)[1].view(np.int32)).to(
@@ -317,11 +321,11 @@ def _cta_entry():
 
 
 @functools.lru_cache(maxsize=None)
-def _block_entry():
-    fn = build.load("viterbi").viterbi_block_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+def _grid_entry():
+    fn = build.load("viterbi").viterbi_grid_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
 
@@ -385,27 +389,28 @@ def launch_block(sym, bits, lw: int, n: int, polys, k: int, init_state0: bool,
     count) in the route of :func:`block_plan`, its scratch allocated here."""
     n_tr = sym.shape[0]
     s_count = 1 << (k - 1)
-    words, floats = _block_scratch(lw, n, k, n_tr)
-    scratch = torch.empty(words + floats, dtype=torch.int32, device=sym.device) if (
-        words + floats) else None
-    npat = patterns(tuple(polys), k)[0] if s_count <= CLUSTER_MAX_STATES else None
+    words, floats, keys = _block_scratch(lw, n, k, n_tr)
+    scratch = torch.empty(words + floats + keys, dtype=torch.int32, device=sym.device) if (
+        words + floats + keys) else None
+    npat, _ = patterns(tuple(polys), k)
     plan = block_plan(lw, n, k, n_tr, npat)
-    index = sym.get_device()
+    codes = _patterns_on(tuple(polys), k, sym.get_device()).data_ptr()
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
         if plan is not None:
             rc = _cta_entry()(
                 sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, s_count, int(bool(init_state0)),
-                int(bool(end_state0)), _patterns_on(tuple(polys), k, index).data_ptr(),
-                npat, _mask_words(n), plan["q"], plan["threads"],
+                int(bool(end_state0)), codes, npat, _mask_words(n), plan["q"], plan["threads"],
                 int(plan["dec_smem"]), None if scratch is None else scratch.data_ptr(), stream,
             )
-        else:
-            masks = _block_masks(tuple(polys), k, index)
-            rc = _block_entry()(
-                sym.data_ptr(), bits.data_ptr(), n_tr, lw, n, s_count,
-                int(bool(init_state0)), int(bool(end_state0)), masks.data_ptr(),
-                masks.shape[1], scratch.data_ptr(), scratch.data_ptr() + 4 * words, stream,
+        else:  # the metrics first (8-byte aligned), then the decisions and the keys
+            pm = scratch.data_ptr()
+            dec = pm + 4 * floats
+            key = dec + 4 * words
+            rc = _grid_entry()(
+                sym.data_ptr(), bits.data_ptr(), n_tr, GRID_BATCH, lw, n, s_count,
+                int(bool(init_state0)), int(bool(end_state0)), codes, npat, _mask_words(n),
+                dec, pm, key, key + 4 * 3 * (keys // 4), stream,
             )
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc}")

@@ -111,23 +111,16 @@ def _trellis(polys: Tuple[int, ...], k: int):
     - ``outs [S, 2, n]``: the encoder output bits of each transition.
     """
     s_count = 1 << (k - 1)
-    half = s_count >> 1
-    n = len(polys)
-    taps = [_poly_taps(p, k) for p in polys]
-    pred = np.zeros((s_count, 2), np.int32)
-    outs = np.zeros((s_count, 2, n), np.float32)
-    for ns in range(s_count):
-        b = ns & 1
-        base = ns >> 1
-        for which, s in enumerate((base, base | half)):
-            pred[ns, which] = s
-            # register contents during this transition: input bit b then
-            # state bits (newest..oldest) = b, s[0], s[1], ...
-            reg = [(b if j == 0 else (s >> (j - 1)) & 1) for j in range(k)]
-            for gi in range(n):
-                outs[ns, which, gi] = float(
-                    int(np.sum(taps[gi] * np.array(reg, np.uint8))) % 2
-                )
+    ns = np.arange(s_count)
+    pred = np.stack([ns >> 1, (ns >> 1) | (s_count >> 1)], axis=1).astype(np.int32)
+    # register contents during each transition: input bit b = ns & 1 then
+    # the predecessor's bits (newest..oldest)
+    reg = np.empty((s_count, 2, k), np.int64)
+    reg[:, :, 0] = (ns & 1)[:, None]
+    for j in range(1, k):
+        reg[:, :, j] = (pred >> (j - 1)) & 1
+    outs = np.stack([(reg @ _poly_taps(p, k).astype(np.int64)) % 2 for p in polys],
+                    axis=-1).astype(np.float32)
     return pred, outs
 
 

@@ -15,7 +15,14 @@ erasures launch (``[224, 5632]``: window 96, guard 64, 256 captures x 22
 windows). Then the block instance's own shapes (``REACH``): S 2 and 3
 (random tables), 128, 256 (N 2,048) and 1,024 (N 256), conv codes of K 8,
 9 and 11, at Lw 224, and the K=7 and K=3 codes one step past the lanes
-instance's span limit (Lw 877 and 1,209, N 2,048). With ``--parent DIR``
+instance's span limit (Lw 877 and 1,209, N 2,048); past 1,024 states the
+cluster route at ``chip_smoke.py`` phase 7's shape (random S 1,500, Lw 96
+x N 7) and at the K 13 code's S 4,096 over Lw 224 x N 256, the shared
+route at the K 12 code's S 2,048 and random S 2,048 tables over Lw 224 x N
+512; and, through the wrapper, the turbo path's RSC-8 launch (the meet
+instance) and the ccsds launch's K=7 code (the lanes instance). Then the
+routes past 1,024 states at each geometry (``cluster_geometries``). With
+``--parent DIR``
 each case also runs through the parent tree's wrapper, in turns. Each
 case is first held ``torch.equal`` to the plain twin. Times by CUDA
 events (median of 3 runs of 50 launches, outputs allocated once: bound by
@@ -37,11 +44,16 @@ counts, loops counted once per copy).
 ``--parent DIR``: a checkout of the parent tree (``git archive``): its
 package imported as ``parent_port`` (its kernels built into ``DIR``'s own
 ``build/``), its ``bcjr_windowed_llr`` timed beside this tree's at every
-shape, in turns (parent, this, this, parent, ...).
+shape, in turns (parent, this, this, parent, ...). ``--only`` runs some of
+the sections (``reach``: the block instance's shapes; ``geometries``: the
+routes past 1,024 states at each geometry; ``calls``: the host's part of a
+call past 1,024 states, by the tables' identity, with one hash and through
+the parent; ``instances``: the meet and lanes instances), ``--shapes TEXT``
+the reach shapes whose label holds TEXT.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 benches/torch_bcjr_sweep.py [--parent DIR]``. Imports the port
-only.
+``python3 benches/torch_bcjr_sweep.py [--parent DIR] [--only SECTION ...]
+[--shapes TEXT]``. Imports the port only.
 """
 
 
@@ -72,12 +84,17 @@ from aether_primitives_tpu_torch.ops.cuda import build  # noqa: E402
 LW, N = 16 + 64 + 16, 256 * 10
 CCSDS_LW, CCSDS_N = 96 + 2 * 64, 256 * 22  # the ccsds + erasures launch
 ITERS, RUNS = 50, 3
+#: The sweep's sections (``--only``): the block instance's shapes, the
+#: geometries past 1,024 states, the host's part of a call, the meet and
+#: lanes instances at the turbo and ccsds shapes.
+SECTIONS = ("reach", "geometries", "calls", "instances")
 # H100 SXM, NVIDIA data sheet: FP32 67 TFLOP/s counts an FMA as two; the
 # BCJR's adds, multiplies and maxima never fuse, so 33.5 T instructions/s
 PEAK_INSTR, PEAK_BYTES = 33.5e12, 3.35e12
 CHAIN_OPS, OP_CYCLES = 6, 4  # dependent FP32 ops a step (add, max, 3-level tree, sub)
-# the block instance's shapes: (label, S, conv code (K, generators) or None
-# for random tables, Lw, N); None Lw: one step past the lanes limit
+# the block instance's shapes: (label, S, conv code (K, generators), None
+# for random tables or "rsc8" for the turbo trellis, Lw, N); None Lw: one
+# step past the lanes limit
 REACH = (
     ("S 2 (K=2)", 2, (2, (0o3, 0o1)), 224, 2048),
     ("S 3 (random tables)", 3, None, 224, 2048),
@@ -86,6 +103,12 @@ REACH = (
     ("S 1,024 (K=11)", 1024, (11, (0o2467, 0o3565)), 224, 256),
     ("S 64 (K=7) past the lanes limit", 64, (7, (0o171, 0o133)), None, 2048),
     ("S 4 (K=3) past the lanes limit", 4, (3, (0o5, 0o7)), None, 2048),
+    ("S 1,500 (random tables), phase 7's shape", 1500, None, 96, 7),
+    ("S 2,048 (K=12)", 2048, (12, (0o4335, 0o5723)), 224, 512),
+    ("S 2,048 (random tables)", 2048, None, 224, 512),
+    ("S 4,096 (K=13)", 4096, (13, (0o10533, 0o17661)), 224, 256),
+    ("RSC-8 (the turbo path's launch)", 8, "rsc8", LW, N),
+    ("S 64 (K=7), the ccsds launch", 64, (7, (0o171, 0o133)), CCSDS_LW, CCSDS_N),
 )
 
 
@@ -165,13 +188,16 @@ def parent_bcjr(root: str):
     return importlib.import_module("parent_port.ops.cuda.bcjr")
 
 
-def reach_cases(pbk, card: str) -> None:
-    """The block instance's shapes (``REACH``), this tree's wrapper against
-    the parent's (``pbk``, or None) in turns: device time, events, bounds."""
+def reach_cases(pbk, card: str, shapes=None) -> None:
+    """The block instance's shapes (``REACH``; those whose label holds
+    ``shapes``, where given), this tree's wrapper against the parent's
+    (``pbk``, or None) in turns: device time, events, bounds."""
     rng = np.random.default_rng(2028)
     for label, s_count, code, lw, n in REACH:
+        if shapes and shapes not in label:
+            continue
         tables = (random_tables(s_count, 1900 + s_count) if code is None
-                  else fec._conv_soft_coeffs(code[1], code[0]))
+                  else None if code == "rsc8" else fec._conv_soft_coeffs(code[1], code[0]))
         lw = lw or bk.lanes_span_limit(s_count) + 1
         ls, lp = (torch.from_numpy((rng.normal(size=(lw, n)) * 3).astype(np.float32)).cuda()
                   for _ in range(2))
@@ -198,19 +224,101 @@ def reach_cases(pbk, card: str) -> None:
         b_bytes = 3 * lw * n * 4 / PEAK_BYTES * 1e3
         bound_any = max(ops_any / PEAK_INSTR * 1e3, b_bytes)
         bound = max(ops / PEAK_INSTR * 1e3, b_bytes)
-        p = bk.block_layout(s_count)[5]
-        hist_ms = 2 * lw * p * n * 4 / PEAK_BYTES * 1e3
+        layout = bk.block_layout(s_count, n)
+        hist_ms = 2 * lw * layout[5] * n * 4 / PEAK_BYTES * 1e3
         print(f"{label}, Lw {lw} x N {n} (this tree's plan {bk.kernel_plan(tables, lw)}, "
-              f"route {bk.block_layout(s_count)[:4]}): bound {bound_any:.5f} ms for any tables"
+              f"route {layout}): bound {bound_any:.5f} ms for any tables"
               f" ({ops_any / 1e6:.1f} M operations), {bound:.5f} ms with four classes"
               f"{'' if classes else ' (random tables: none)'}; history floor {hist_ms:.5f} ms "
-              f"({2 * lw * p * n * 4 / 1e6:.1f} MB written and read) [{card}]")
+              f"({2 * lw * layout[5] * n * 4 / 1e6:.1f} MB written and read) [{card}]")
         for name in names:
             d = float(np.median(dev[name]))
             print(f"  {name:10s} device {d:.5f} ms a launch (torch.profiler, median of 4 x 10; "
                   f"{', '.join(f'{v:.5f}' for v in dev[name])}), {d / bound_any:.1f}x the bound "
                   f"for any tables; events {float(np.median(ev[name])):.5f} ms a call (median of "
                   f"4 x 10) [{card}]", flush=True)
+
+
+def cluster_geometries(card: str) -> None:
+    """The geometries past 1,024 states at the timed shapes (phase 7's
+    random S 1,500 at Lw 96 x N 7; the K 12 code's S 2,048 at Lw 224 x N 7,
+    64 and 512; random S 2,048 at Lw 224 x N 512): the cluster route at
+    clusters of 2, 4 and 8 CTAs (the registers placement, R and W as
+    ``bk.cluster_layout`` sizes them for that q) and the shared route
+    (``bk.SHARED_GEOMETRY``), each held ``torch.equal`` to the twin, then device
+    time a launch in turns (``torch.profiler``)."""
+    rng = np.random.default_rng(2029)
+    k12 = fec._conv_soft_coeffs((0o4335, 0o5723), 12)
+    for s_count, tables, lw, n in ((1500, random_tables(1500, 3400), 96, 7),
+                                   (2048, k12, 224, 7), (2048, k12, 224, 64),
+                                   (2048, k12, 224, 512),
+                                   (2048, random_tables(2048, 3401), 224, 512)):
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw, n)) * 3).astype(np.float32)).cuda()
+                  for _ in range(2))
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        out = torch.empty_like(want)
+        geos = {}
+        found = []
+        for q in (2, 4, 8):
+            sc = -(-s_count // q)
+            r = next(r for r in (2, 4, 8) if 128 * r >= sc)
+            found.append((q, r, -(-sc // (32 * r)), "registers", r))
+        found.append((1, *bk.SHARED_GEOMETRY, "shared", bk.SHARED_GEOMETRY[0]))
+        for geo in found:
+            bk._launch_block(ls, lp, out, lw, tables, cluster=geo)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                sys.exit(f"S {s_count}: the geometry {geo} disagrees with the twin")
+            geos[geo] = (lambda g: lambda: bk._launch_block(ls, lp, out, lw, tables,
+                                                            cluster=g))(geo)
+        dev = {g: [] for g in geos}
+        names = list(geos)
+        for r in range(4):
+            for g in (names if r % 2 == 0 else names[::-1]):
+                dev[g].append(kernel_device_ms(geos[g], "bcjr_kernel", 10))
+        plan = bk.cluster_layout(s_count, n)
+        for g in names:
+            print(f"geometry S {s_count}, Lw {lw} x N {n}: (q, R, W, place) {g[:4]}"
+                  f"{' (the plan)' if g == plan else ''}: device "
+                  f"{float(np.median(dev[g])):.5f} ms a launch (torch.profiler, median of 4 x "
+                  f"10: {', '.join(f'{v:.5f}' for v in dev[g])}) [{card}]", flush=True)
+
+
+def call_cost(pbk, card: str) -> None:
+    """The host's part of a call past 1,024 states (random S 1,500 and the K
+    12 code's S 2,048, Lw 96 x N 7): CUDA events a call (median of 4 x 20)
+    where the call finds its table set by the tables object's identity,
+    where it hashes them once (the identity map emptied before each call),
+    and through the parent's wrapper (``pbk``), in turns, beside the
+    kernel's device time."""
+    rng = np.random.default_rng(2030)
+    for label, tables in (("random S 1,500", random_tables(1500, 3400)),
+                          ("K 12 (S 2,048)", fec._conv_soft_coeffs((0o4335, 0o5723), 12))):
+        lw, n = 96, 7
+        ls, lp = (torch.from_numpy((rng.normal(size=(lw, n)) * 3).astype(np.float32)).cuda()
+                  for _ in range(2))
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+
+        def hashed():
+            bk._RECENT.clear()
+            return bk.bcjr_windowed_llr(ls, lp, lw, tables)
+        runs = {"identity": lambda: bk.bcjr_windowed_llr(ls, lp, lw, tables), "one hash": hashed}
+        if pbk is not None:
+            runs["parent"] = lambda: pbk.bcjr_windowed_llr(ls, lp, lw, tables)
+        for name, run in runs.items():
+            if not torch.equal(run(), want):
+                sys.exit(f"{label}: the {name} call disagrees with the twin")
+        ev = {name: [] for name in runs}
+        names = list(runs)
+        for r in range(4):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                ev[name].append(time_cuda(runs[name], 20, warmup=2))
+        dev = {name: kernel_device_ms(runs[name], "bcjr_kernel", 20) for name in names}
+        for name in names:
+            print(f"call {label}, Lw {lw} x N {n}, {name}: {float(np.median(ev[name])):.5f} ms a "
+                  f"call (CUDA events, median of 4 x 20: "
+                  f"{', '.join(f'{v:.5f}' for v in ev[name])}), device {dev[name]:.5f} ms a "
+                  f"launch (torch.profiler, 20 calls) [{card}]", flush=True)
 
 
 def time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock) -> None:
@@ -251,7 +359,11 @@ def time_cases(label, cases, want, out, lw, n, s_count, card, floor_ms, clock) -
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--parent", help="a checkout of the parent tree to time beside this one")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS,
+                    help="run these sections only (default: all)")
+    ap.add_argument("--shapes", help="reach: the shapes whose label holds this text only")
     args = ap.parse_args()
+    only = set(args.only or SECTIONS)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     card = card_label()
@@ -262,12 +374,19 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas bcjr: {line.strip()}")
     sass_opcodes(card)
+    pbk = parent_bcjr(args.parent) if args.parent else None
+    if "reach" in only:
+        reach_cases(pbk, card, args.shapes)
+    if "geometries" in only:
+        cluster_geometries(card)
+    if "calls" in only:
+        call_cost(pbk, card)
+    if "instances" not in only:
+        return
     rng = np.random.default_rng(2026)
     ls_all, lp_all = (torch.from_numpy((rng.normal(size=(CCSDS_LW, CCSDS_N)) * 3)
                                        .astype(np.float32)).cuda() for _ in range(2))
     stream = torch.cuda.current_stream().cuda_stream
-    pbk = parent_bcjr(args.parent) if args.parent else None
-    reach_cases(pbk, card)
     wide = sweep_library()
     dev = ls_all.get_device()
     clock = max_sm_clock_hz()

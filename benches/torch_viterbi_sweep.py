@@ -17,7 +17,9 @@ port's source, which the port does not ship. Then the port's own launch
 tree's ``csrc/viterbi.cu`` (built beside the port's builds, 4 trellises a
 block, its own choice) in turns: parent, this, this, parent. Then the
 block instance's codes (``BLOCK_CASES``: K 10, 15 and 17, K 7 with 16
-generators, 256 spans of 112 steps, 4 at K 17; integer LLRs with ties):
+generators, 256 spans of 112 steps, 4 at K 17; the grid route's K 19 at
+``chip_smoke.py`` phase 7's 2 full blocks of 78 steps and at 16 of 1,024;
+integer LLRs with ties):
 this tree's ``viterbi_lanes`` and, with ``--parent``, the parent tree's
 (its package imported from DIR, built into DIR's own ``build/``), each
 ``torch.equal`` to the twin, then in turns (CUDA events, median of 3 runs of
@@ -57,12 +59,16 @@ POLYS, K = (0o171, 0o133), 7
 CASES = (("full block", 256, 638, True, True), ("windowed spans", 2560, 160, False, False))
 SHAPES = [(w, t) for t in (1, 2) for w in (1, 2, 4, 8)]
 ITERS, RUNS = 50, 3
-# the block instance's codes: (label, K, generators, spans, steps)
+# the block instance's codes: (label, K, generators, spans, steps, full
+# block (state 0 at both ends) or not, calls a timed window)
+K19 = (0o1351753, 0o1746321)
 BLOCK_CASES = (
-    ("K=10 rate 1/2", 10, (0o1171, 0o1233), 256, 112),
-    ("K=15 rate 1/2", 15, (0o46321, 0o51271), 256, 112),
-    ("K=17 rate 1/2", 17, (0o234567, 0o312345), 4, 112),
-    ("K=7 rate 1/16", 7, tuple(range(0o101, 0o101 + 32, 2)), 256, 112),
+    ("K=10 rate 1/2", 10, (0o1171, 0o1233), 256, 112, False, 10),
+    ("K=15 rate 1/2", 15, (0o46321, 0o51271), 256, 112, False, 10),
+    ("K=17 rate 1/2", 17, (0o234567, 0o312345), 4, 112, False, 10),
+    ("K=7 rate 1/16", 7, tuple(range(0o101, 0o101 + 32, 2)), 256, 112, False, 10),
+    ("K=19 rate 1/2, full block", 19, K19, 2, 78, True, 4),
+    ("K=19 rate 1/2, full block", 19, K19, 16, 1024, True, 2),
 )
 PEAK_FP32 = 67e12  # H100 SXM, NVIDIA data sheet
 
@@ -84,45 +90,49 @@ def block_cases(parent_root, card: str) -> None:
     """The block instance's codes, this tree against the parent's in turns."""
     pvk = parent_viterbi(parent_root) if parent_root else None
     rng = np.random.default_rng(2027)
-    for label, k, polys, n_tr, lw in BLOCK_CASES:
+    for label, k, polys, n_tr, lw, full, calls in BLOCK_CASES:
         n = len(polys)
         sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
                                .astype(np.float32)).cuda()
-        want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, False, False)
+        want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, full, full)
         turns = {"this tree": vk}
         if pvk is not None:
             turns = {"parent": pvk, **turns}
         runs = {}
         for name, mod in turns.items():
-            run = (lambda m: lambda: m.viterbi_lanes(sym, lw, n, polys, k, False, False))(mod)
+            run = (lambda m: lambda: m.viterbi_lanes(sym, lw, n, polys, k, full, full))(mod)
             got = run()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 sys.exit(f"{label}: {name}'s kernel disagrees with the twin")
             runs[name] = run
+        del want
         names = list(runs)
         times = {name: [] for name in names}
         for r in range(RUNS + 1):
             for name in (names if r % 2 == 0 else names[::-1]):
-                times[name].append(time_cuda(runs[name], 10))
+                times[name].append(time_cuda(runs[name], calls, warmup=1))
         s_count = 1 << (k - 1)
         npat = vk.patterns(polys, k)[0]
         # the patterns' metrics (n FMAs each) and 6 non-FMA operations a
         # state, each at an FMA's issue slot (chip_smoke.py viterbi_bound_of)
         bound = 2 * n_tr * lw * (npat * n + 6 * s_count) / PEAK_FP32 * 1e3
         plan = vk.block_plan(lw, n, k, n_tr)
+        route = f"cluster route {plan}" if plan else "grid route"
         for r in range(2):  # the profiler in turns too
             for name in (names if r % 2 == 0 else names[::-1]):
                 print(f"block {label} [{n_tr} x {lw}], in turns: {name} "
-                      f"{device(runs[name], 'viterbi_')} [{card}]", flush=True)
+                      f"{device(runs[name], 'viterbi_', 2 * calls)} [{card}]", flush=True)
         for name in names:
             ms = float(np.median(times[name]))
             print(f"block {label} [{n_tr} x {lw}]: {name}"
-                  f"{f' (cluster route {plan})' if name == 'this tree' else ''} median "
+                  f"{f' ({route})' if name == 'this tree' else ''} median "
                   f"{ms:.5f} ms (runs {', '.join(f'{v:.5f}' for v in times[name])}; CUDA "
-                  f"events, 10 calls); bound {bound:.5f} ms (operations: {npat} patterns x n "
+                  f"events, {calls} calls); bound {bound:.5f} ms (operations: {npat} patterns x n "
                   f"FMAs + 6 S a step at an FMA's slot) "
                   f"[{card}]", flush=True)
+        del sym, runs
+        torch.cuda.empty_cache()
 
 
 def parent_launcher(root: str, sym, bits, lw, init0, end0):
@@ -167,15 +177,21 @@ def pair_entry():
     return fn
 
 
-def device(fn, name: str) -> str:
+def device(fn, name: str, calls: int = 20) -> str:
     """The profiler's device time a launch of ``fn`` (one launch a call):
-    the mean over the launches it recorded, and how many of 20 it did."""
-    times = kernel_device_times(fn, name)
+    the mean over the launches it recorded, and how many of ``calls`` it
+    did."""
+    for _ in range(3):  # the profiler drops a window's records at times: another
+        times = kernel_device_times(fn, name, calls)
+        if times:
+            break
     us = [t for _, t in times]
+    if not us:  # no number where none was measured
+        return f"device none (torch.profiler recorded 0 of {calls} launches in 3 windows)"
     names = sorted({n.split("(")[0] for n, _ in times})
-    return (f"device {sum(us) / max(len(us), 1) / 1e3:.5f} ms a launch (torch.profiler: "
-            f"{len(us)} of 20 launches recorded, {min(us, default=0):.1f}-"
-            f"{max(us, default=0):.1f} us each; {', '.join(names)})")
+    return (f"device {sum(us) / len(us) / 1e3:.5f} ms a launch (torch.profiler: "
+            f"{len(us)} of {calls} launches recorded, {min(us):.1f}-"
+            f"{max(us):.1f} us each; {', '.join(names)})")
 
 
 def dump_sass() -> None:

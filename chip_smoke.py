@@ -103,7 +103,7 @@ in thirty-one phases:
    ragged last CTA, spans at the lanes instance's limit and one step past
    it (the block instance, at S 64 and S 4), RSC-8 past the meet and the
    lanes instances' limits, 300 states (the block instance's multi-warp
-   form) and 1,500 (its wide route), and the meet instance at both its CTA
+   form) and 1,500 (its cluster route), and the meet instance at both its CTA
    widths (16 and 8 columns); and the
    ``ccsds`` link's inner code at its shapes: the windowed Viterbi 64/48 and
    the BCJR kernel's lanes instance on the K=7 tables at Lw 224 (the
@@ -111,15 +111,21 @@ in thirty-one phases:
    65,536 steps, past the shared-memory history (the device scratch), one
    launch, ``torch.equal`` to the twin; then the codes past the decoders'
    earlier instances (``decoder_reach_phase``): Viterbi at K 2, 10, 12, 15,
-   17 and 19 (K 19 the block instance's scratch route, past the cluster
+   17 and 19 (K 19 the block instance's grid route, past the cluster
    route's 131,072 states) and K 7 with 9 and 16 generators, full block and
    windowed, and
    the windowed BCJR's block instance at S 2, 3, 128, 256 and 1,024
    (``conv_decode_soft`` where S is a conv code's) and at S 64 and 4 one
    step past the lanes instance's span limit, each ``torch.equal`` to its
    twin with one launch a call, and each timed beside its bound (Viterbi's
-   scratch route at K 19 and the BCJR's wide route at S 1,500, Lw 96 x N
-   7, by device time too);
+   grid route at K 19 and the BCJR's cluster route at S 1,500, Lw 96 x N
+   7, by device time too, each beside its chain floor: an empty kernel
+   making the same grid or cluster barriers); then two routes at
+   full-card shapes (Viterbi K 19 over 16 trellises of 1,024 steps, the
+   BCJR's shared route at the K 12 code's S 2,048 over Lw 224 x N 512),
+   each
+   ``torch.equal`` to its twin once, the kernel alone timed beside its
+   bound and chain floor;
 8. the burst path: 256 bursts built by the port's own ``tx`` through a
    numpy channel from a fixed seed, decoded by ``rx_batch`` for viterbi,
    turbo and each of ``BURST_FAMILIES``; every payload exact and CRC-ok,
@@ -380,6 +386,14 @@ CHAIN_OPS, OP_CYCLES = 6, 4
 NVLINK_BYTES = 450e9  # one way between two cards of a host
 # the fold kernel's previous design, timed beside the shipped one (phase 13)
 PARENT_FOLD = Path(__file__).resolve().parent / "benches" / "torch_pfb_fold_parent.cu"
+# empty kernels that make the decoders' grid, cluster and named barriers
+# (phase 7's chain floors)
+CHAIN_FLOOR = Path(__file__).resolve().parent / "benches" / "torch_chain_floor.cu"
+# phase 7's full-card shapes: Viterbi K 19 at 16 trellises of 1,024 steps
+# (the grid route), the BCJR at VITERBI_REACH's K 12 code (S 2,048, the
+# shared route) over Lw 224 x N 512
+VITERBI_FULL = (16, 1024)
+BCJR_FULL = (224, 512)
 SHARDED_DDC_DB = -100.0  # sharded DDC vs the one-device step (__graft_entry__.py's bar)
 LINK_DB = -120.0  # the link: card vs CPU run, and the RX kernel vs its plain twin
 # phases 25-26: outputs card vs CPU run (RMS EVM) and estimates (relative);
@@ -670,7 +684,7 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
     instance's short spans (Lw 1-3, 97) in both its forms; its span limit at
     S 64 and one step past it (the block instance); RSC-8 past the meet
     instance's limit (the lanes instance); the block instance past the lanes
-    limit at S 4 and for RSC-8, at 300 states and past 1,024 (the wide
+    limit at S 4 and for RSC-8, at 300 states and past 1,024 (the cluster
     route)."""
     import numpy as np
     import torch
@@ -711,16 +725,87 @@ def bcjr_cases(bk, spans, lw: int, cols: int, seed: int = 77):
               ("K=7 conv one step past the lanes limit", k7, normal(lim + 1, 77), lim + 1),
               ("RSC-8 past the meet limit", None, normal(727, 1000), 727)]
     # the block instance past the lanes limit at S 4 and for RSC-8, in its
-    # multi-warp form (S 300: 2 warps a direction) and past it (the wide
-    # route)
+    # multi-warp form (S 300: 2 warps a direction) and past it (the
+    # cluster route)
     k3 = fec._conv_soft_coeffs(BCJR_SR_CODES[3], 3)
     lim4, lim8 = bk.lanes_span_limit(4), bk.lanes_span_limit(8)
     cases += [("K=3 conv one step past the lanes limit", k3, normal(lim4 + 1, 77), lim4 + 1),
               ("RSC-8 past the lanes limit", None, normal(lim8 + 1, 77), lim8 + 1),
               ("random S 300", random_tables(300, seed + 300), normal(lw, 77), lw),
-              ("random S 1,500 (the wide route)", random_tables(1500, seed + 1500),
+              ("random S 1,500 (the cluster route)", random_tables(1500, seed + 1500),
                normal(lw, 7), lw)]
     return cases
+
+
+def viterbi_floor(n_tr: int, lw: int, k: int, polys, end_state0: bool) -> dict:
+    """The chain floor of a launch of the Viterbi kernel's grid route: its
+    geometry (``csrc/viterbi.cu viterbi_grid_geometry``: CTAs, threads, grid
+    barriers) and the device ms of an empty cooperative kernel that makes
+    the same barriers on the same grid (``benches/torch_chain_floor.cu``)."""
+    import torch
+
+    from aether_primitives_tpu_torch.cli import kernel_device_ms
+    from aether_primitives_tpu_torch.ops.cuda import build
+    from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
+
+    geometry = build.load("viterbi").viterbi_grid_geometry
+    geometry.argtypes = ([ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    geometry.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    npat = vk.patterns(tuple(polys), k)[0]
+    rc = geometry(n_tr, vk.GRID_BATCH, lw, 1 << (k - 1), npat, int(end_state0), out)
+    if rc:
+        fail(f"viterbi_grid_geometry: CUDA error {rc}")
+    grid, threads, _, syncs = (int(v) for v in out)
+    launch = build.load_source(CHAIN_FLOOR).grid_floor_launch
+    launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+
+    def run():
+        if launch(grid, threads, syncs, torch.cuda.current_stream().cuda_stream):
+            fail("the grid floor kernel did not launch")
+    ms = kernel_device_ms(run, "grid_floor_kernel", 10)
+    return {"floor_ms": ms, "ctas": grid, "threads": threads, "barriers": syncs}
+
+
+def bcjr_floor(s_count: int, lw: int, n: int) -> dict:
+    """The chain floor of a launch of the BCJR kernel past 1,024 states at
+    ``s_count`` states, ``Lw`` x ``N``, in the geometry of
+    ``bk.cluster_layout``: the device ms of an
+    empty kernel of the same CTAs and threads whose directions make the
+    same ``Lw`` steps of barriers (``benches/torch_chain_floor.cu``). The
+    cluster route (registers placement): clusters of the same size, a step
+    the mbarrier's wait, one st.async key to every other CTA and the
+    arrival, and the same three cluster barriers. The shared route: a
+    step the direction's named barrier, and the CTA barrier at the
+    meet."""
+    import torch
+
+    from aether_primitives_tpu_torch.cli import kernel_device_ms
+    from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
+    from aether_primitives_tpu_torch.ops.cuda import build
+
+    q, _, w, place, _ = bk.cluster_layout(s_count, n)
+    if place == "shared":
+        launch = build.load_source(CHAIN_FLOOR).block_floor_launch
+        launch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+
+        def run_block():
+            if launch(n, w, lw, torch.cuda.current_stream().cuda_stream):
+                fail("the block floor kernel did not launch")
+        ms = kernel_device_ms(run_block, "block_floor_kernel", 10)
+        return {"floor_ms": ms, "ctas": n, "cluster": 1, "threads": 64 * w, "barriers": lw}
+    ctas = n * q
+    launch = build.load_source(CHAIN_FLOOR).cluster_floor_launch
+    launch.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+
+    def run():
+        if launch(ctas, q, w, lw, torch.cuda.current_stream().cuda_stream):
+            fail("the cluster floor kernel did not launch")
+    ms = kernel_device_ms(run, "cluster_floor_kernel", 10)
+    return {"floor_ms": ms, "ctas": ctas, "cluster": q, "threads": 64 * w, "barriers": lw}
 
 
 def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
@@ -733,16 +818,22 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
     past the lanes instance's span limit (K=7 and K=3 tables). Each
     ``torch.equal`` to its twin with one launch a call, then timed (CUDA
     events; twin beside it; Viterbi K 2, 10, 15 and 16 generators at 256 x
-    112, K 17 at 4 x 112) beside its bound. The two routes written only
-    for reach, Viterbi's scratch route (K 19 full block, the check's 2
-    trellises of 78 steps) and the BCJR's ``wide`` route (S 1,500 at phase
+    112, K 17 at 4 x 112) beside its bound. The routes past the earlier
+    designs' reach, Viterbi's grid route (K 19 full block, the check's 2
+    trellises of 78 steps) and the BCJR's cluster route (S 1,500 at phase
     7's Lw 96 x N 7), are timed by device time (``torch.profiler``) beside
-    their bounds. Returns the entries of the viterbi and bcjr kernels'
+    their bounds and their chain floors (an empty kernel making the same
+    grid or cluster barriers: ``viterbi_floor``, ``bcjr_floor``); then a
+    full-card shape each (``VITERBI_FULL``: K 19, 16 trellises of 1,024
+    steps, the grid route; ``BCJR_FULL``: the K 12 code, Lw 224 x N 512,
+    the BCJR's shared route, its floor the same named barriers),
+    ``torch.equal`` to its twin once with one launch, the kernel alone
+    timed. Returns the entries of the viterbi and bcjr kernels'
     ``instances``."""
     import numpy as np
     import torch
 
-    from aether_primitives_tpu_torch.cli import kernel_device_ms
+    from aether_primitives_tpu_torch.cli import kernel_device_ms, time_cuda
     from aether_primitives_tpu_torch.ops import fec
     from aether_primitives_tpu_torch.ops.cuda import bcjr as bk
     from aether_primitives_tpu_torch.ops.cuda import viterbi as vk
@@ -784,30 +875,57 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
               f"{b['bound_ms']:.5f} ms ({b['bound_by']}: {ops_bytes}) [{card}]", flush=True)
         return {**t, **b, **({} if kernel is None else {"device_ms": dev_ms})}
 
+    def alone(label, run, b, kernel, floor):  # a full-card shape: the kernel alone
+        ms = time_cuda(run, 3, warmup=1) if dev.type == "cuda" else None
+        dev_ms = None
+        if dev.type == "cuda":
+            try:  # the profiler drops whole windows of these long launches at times
+                dev_ms = kernel_device_ms(run, kernel, 5, tries=5)
+            except RuntimeError:
+                print(f"time: {label}: the profiler recorded no window; the CUDA events' "
+                      f"time of the launch stands alone [{card}]", flush=True)
+        print(f"time: {label}: kernel {fmt_ms(ms)} ms a call (CUDA events, 3 calls), device "
+              f"{fmt_ms(dev_ms)} ms ({kernel}, torch.profiler, 5 calls a window; "
+              f"{fmt_ms(dev_ms and dev_ms / b['bound_ms'])}x the bound); bound "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']})[{card}]", flush=True)
+        print(f"chain floor: {label}: {floor['floor_ms']:.5f} ms device for "
+              f"{floor['barriers']} barriers of {floor['ctas']} CTAs x {floor['threads']} "
+              f"threads (an empty kernel, torch.profiler) [{card}]", flush=True)
+        return {"kernel": ms, "device_ms": dev_ms, **b, **floor}
+
     out = {"viterbi": {}, "bcjr": {}}
+    full = {}  # the grid route's code, timed at the full-card shape below
     for (k, n), polys in VITERBI_REACH.items():
         inst = vk.instance(n, k)
         b_sz, n_bits = (16, 300) if k < 15 else (2, 60)
         if inst == "block" and (vk.block_plan(n_bits + k - 1, n, k, b_sz) is None) != (k > 18):
             fail(f"viterbi K={k} rate 1/{n}: the block instance's route is not the one "
-                 "phase 7 checks (the cluster route to K 18, the scratch route past it)")
+                 "phase 7 checks (the cluster route to K 18, the grid route past it)")
         x = llrs(polys, k, b_sz, n_bits)
         for kw in ({}, {"window": 64, "guard": 48}):
             once(f"viterbi K={k} rate 1/{n} ({inst} instance) "
                  f"{'windowed 64/48' if kw else 'full block'} {tuple(x.shape)}", "viterbi",
                  lambda: fec.viterbi_decode(x, polys, k, **kw),
                  lambda: fec.viterbi_decode(x, polys, k, backend="reference", **kw))
-        if k == 19:  # the scratch route at the shape checked above
+        if k == 19:  # the grid route at the shape checked above, and its floor
             s_count = 1 << (k - 1)
             npat = vk.patterns(polys, k)[0]
-            out["viterbi"][f"K={k} n={n} {inst} scratch"] = timed(
-                f"viterbi K={k} rate 1/{n} ({inst} instance, the scratch route), full block "
+            lw_v = n_bits + k - 1
+            entry = timed(
+                f"viterbi K={k} rate 1/{n} ({inst} instance, the grid route), full block "
                 f"{tuple(x.shape)}",
                 lambda: fec.viterbi_decode(x, polys, k),
                 lambda: fec.viterbi_decode(x, polys, k, backend="reference"),
-                viterbi_bound_of(b_sz, n_bits + k - 1, n, s_count, npat),
+                viterbi_bound_of(b_sz, lw_v, n, s_count, npat),
                 f"{npat} patterns x n FMAs and {s_count} states x 6 FP32 operations a "
-                "step, LLRs in, bits out", kernel="viterbi_block_kernel")
+                "step, LLRs in, bits out", kernel="viterbi_grid_kernel")
+            floor = viterbi_floor(b_sz, lw_v, k, polys, True)
+            print(f"chain floor: viterbi K={k} grid route, {b_sz} x {lw_v} steps: "
+                  f"{floor['floor_ms']:.5f} ms device for {floor['barriers']} grid barriers of "
+                  f"{floor['ctas']} CTAs x {floor['threads']} threads (an empty cooperative "
+                  f"kernel, torch.profiler) [{card}]", flush=True)
+            out["viterbi"][f"K={k} n={n} {inst} grid"] = {**entry, **floor}
+            full[k] = polys
         if k in (2, 10, 15, 17) or n == 16:  # one timed shape an instance and state range
             lw, n_tr = (112, 4) if k == 17 else (112, 256)
             sym = torch.from_numpy(np.round(rng.normal(size=(n_tr, lw, n)) * 2)
@@ -821,6 +939,24 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
                 lambda: vk.viterbi_lanes_reference(sym, lw, n, polys, k, False, False), b,
                 f"{npat} patterns x n FMAs and {s_count} states x 6 FP32 operations a "
                 "step, LLRs in, bits out")
+    # the grid route at a full-card shape: 16 K 19 trellises of 1,024 steps
+    # (4.2 M states a step, 537 MB of decisions), once against the twin,
+    # then the kernel alone
+    (k_f, polys_f), = full.items()
+    n_tr_f, lw_f = VITERBI_FULL
+    sym_f = torch.from_numpy(np.round(rng.normal(size=(n_tr_f, lw_f, 2)) * 2)
+                             .astype(np.float32)).to(dev)
+    once(f"viterbi K={k_f} rate 1/2 (block instance, the grid route), full block "
+         f"{n_tr_f} x {lw_f} steps", "viterbi",
+         lambda: vk.viterbi_lanes(sym_f, lw_f, 2, polys_f, k_f, True, True),
+         lambda: vk.viterbi_lanes_reference(sym_f, lw_f, 2, polys_f, k_f, True, True))
+    out["viterbi"][f"K={k_f} n=2 block grid {n_tr_f} x {lw_f}"] = alone(
+        f"viterbi K={k_f} rate 1/2 (the grid route), full block {n_tr_f} x {lw_f} steps",
+        lambda: vk.viterbi_lanes(sym_f, lw_f, 2, polys_f, k_f, True, True),
+        viterbi_bound_of(n_tr_f, lw_f, 2, 1 << (k_f - 1), vk.patterns(polys_f, k_f)[0]),
+        "viterbi_grid_kernel", viterbi_floor(n_tr_f, lw_f, k_f, polys_f, True))
+    del sym_f
+    torch.cuda.empty_cache()
     window, guard = CCSDS_SOFT
     lw_b = window + 2 * guard
     # (S, Lw, N): the state counts outside 4-64 at the ccsds span, and the
@@ -856,23 +992,52 @@ def decoder_reach_phase(card: str, device: str = "cuda") -> dict:
             lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_r, tables),
             bcjr_bound_of(lw_r, n_cols, s_count, classes=False),
             "28 S - 3 FP32 operations a step and column, each an FMA's slot")
-    # the wide route past 1,024 states at phase 7's shape (bcjr_cases'
-    # "random S 1,500": Lw 96 x N 7)
+    # the cluster route past 1,024 states at phase 7's shape (bcjr_cases'
+    # "random S 1,500": Lw 96 x N 7), and its floor
     lw_w, n_w, s_w = 16 + 64 + 16, 7, 1500
     tables = random_tables(s_w, 1900 + s_w)
     ls, lp = (torch.from_numpy((rng.normal(size=(lw_w, n_w)) * 3).astype(np.float32)).to(dev)
               for _ in range(2))
     inst = bk.kernel_plan(tables, lw_w)[0]
-    once(f"bcjr S {s_w} ({inst} instance, the wide route) Lw {lw_w} x N {n_w}", "bcjr",
+    route = bk.block_layout(s_w, n_w)
+    once(f"bcjr S {s_w} ({inst} instance, the cluster route {route}) Lw {lw_w} x N {n_w}",
+         "bcjr",
          lambda: bk.bcjr_windowed_llr(ls, lp, lw_w, tables),
          lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_w, tables))
-    out["bcjr"][f"S {s_w} Lw {lw_w} {inst} wide"] = timed(
-        f"bcjr S {s_w} ({inst} instance, the wide route), Lw {lw_w} x N {n_w}",
+    entry = timed(
+        f"bcjr S {s_w} ({inst} instance, the cluster route), Lw {lw_w} x N {n_w}",
         lambda: bk.bcjr_windowed_llr(ls, lp, lw_w, tables),
         lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_w, tables),
         bcjr_bound_of(lw_w, n_w, s_w, classes=False),
         "28 S - 3 FP32 operations a step and column, each an FMA's slot",
-        kernel="bcjr_kernel_wide")
+        kernel="bcjr_kernel_cluster")
+    floor = bcjr_floor(s_w, lw_w, n_w)
+    print(f"chain floor: bcjr S {s_w} cluster route, Lw {lw_w} x N {n_w}: "
+          f"{floor['floor_ms']:.5f} ms device for {floor['barriers']} steps of exchange "
+          f"(mbarrier and st.async) of {floor['ctas']} CTAs in clusters of {floor['cluster']} "
+          f"x {floor['threads']} threads (an empty kernel, torch.profiler) [{card}]", flush=True)
+    out["bcjr"][f"S {s_w} Lw {lw_w} {inst} cluster"] = {**entry, **floor}
+    # the shared route at a full-card shape: VITERBI_REACH's K 12 code (S
+    # 2,048), Lw 224 x N 512 (0.94 GB of half-histories), once against the
+    # twin, then the kernel alone (its bound with the four branch-metric
+    # classes its tables factor through)
+    lw_f, n_f = BCJR_FULL
+    k_b = 12
+    tables = fec._conv_soft_coeffs(VITERBI_REACH[(k_b, 2)], k_b)
+    s_f = 1 << (k_b - 1)
+    ls, lp = (torch.from_numpy((rng.normal(size=(lw_f, n_f)) * 3).astype(np.float32)).to(dev)
+              for _ in range(2))
+    route = bk.block_layout(s_f, n_f)
+    if route[0] != "shared":
+        fail(f"bcjr K={k_b} over {n_f} columns does not take the shared route: {route}")
+    once(f"bcjr K={k_b} conv (S {s_f}, the shared route {route}) Lw {lw_f} x N {n_f}", "bcjr",
+         lambda: bk.bcjr_windowed_llr(ls, lp, lw_f, tables),
+         lambda: bk.bcjr_windowed_llr_reference(ls, lp, lw_f, tables))
+    out["bcjr"][f"S {s_f} Lw {lw_f} x N {n_f} shared"] = alone(
+        f"bcjr K={k_b} conv (S {s_f}, the shared route), Lw {lw_f} x N {n_f}",
+        lambda: bk.bcjr_windowed_llr(ls, lp, lw_f, tables),
+        bcjr_bound_of(lw_f, n_f, s_f, classes=True), "bcjr_kernel_block",
+        bcjr_floor(s_f, lw_f, n_f))
     return out
 
 
@@ -907,16 +1072,18 @@ def main() -> None:
 
     # ---- phase 2: build --------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:  # one nvcc per source, together
         builds = {k: pool.submit(build.load, k) for k in KERNELS}
         builds["the fold kernel's previous design"] = pool.submit(build.load_source, PARENT_FOLD)
+        builds["the chain floors' empty kernels"] = pool.submit(build.load_source, CHAIN_FLOOR)
         for kernel, fut in builds.items():
             try:
                 fut.result()
             except Exception as e:  # the build's own message names the cause
                 fail(f"{kernel} kernel build: {e}")
     print(f"build: {', '.join(f'{k}.cu -> {build.library_path(k).name}' for k in KERNELS)}, "
-          f"and {PARENT_FOLD.name} (timed in phase 13) in {time.perf_counter() - t0:.2f} s "
+          f"{PARENT_FOLD.name} (timed in phase 13) and {CHAIN_FLOOR.name} (phase 7) in "
+          f"{time.perf_counter() - t0:.2f} s "
           f"(parallel) [{card}]")
     print_ptxas(build, "pfb_fold")
     sys.stdout.flush()

@@ -17,6 +17,7 @@ one; run with ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_bcjr.py``).
 """
 
+import os
 import re
 import types
 from pathlib import Path
@@ -396,8 +397,9 @@ def test_kernel_plan_raises_on_other_state_counts():
     for s_count, cols in ((5, 4), (7, 4), (128, 1), (256, 1), (1000, 1)):
         assert bk.kernel_plan(random_tables(s_count, 3), 96) == ("block", cols)
     assert bk.scratch_bytes(256, 96, 10) == 4 * 96 * 256 * 10
-    big = bk.BLOCK_SMEM_STATES + 1  # the block instance's metrics go to the scratch
-    assert bk.scratch_bytes(big, 96, 10) == 4 * (96 * big * 10 + 2 * big * 10)
+    big = 131072  # the cluster route's exchange goes to the scratch (4 P a column)
+    assert bk.cluster_layout(big, 10)[3] == "global" and bk.block_layout(big)[5] == big
+    assert bk.scratch_bytes(big, 96, 10) == 4 * (96 * big * 10 + 4 * big * 10)
     with pytest.raises(ValueError, match="card's memory"):  # 96 GB of beta history
         bk.kernel_plan(random_tables(4, 3), 6 * 10 ** 9)
 
@@ -502,16 +504,29 @@ def test_block_model_short_spans(s_count, lw):
     assert torch.equal(torch.from_numpy(got), want)
 
 
-@pytest.mark.parametrize("s_count", [2, 5, 33, 300, 1000, 1025])
+@pytest.mark.parametrize("s_count", [2, 5, 33, 300, 1000, 1025, 2048, 9000, 131072])
 def test_block_layout_covers_the_states(s_count):
     # the route's lanes, states a lane and warps hold every state, padded
     # to P, whole columns a warp, at most 4 warps a direction, and the
-    # scratch is Lw x P floats a column of whole CTAs
-    route, r, lanes, warps, cols, p = bk.block_layout(s_count)
-    if route == "wide":
-        assert s_count > bk.BLOCK_STATES and cols == 1
+    # scratch is Lw x P floats a column of whole CTAs (past 1,024 states
+    # over the q CTAs of a cluster, and the exchange's 4 P in its global
+    # placement)
+    route, r, lanes, warps, cols, p, q = bk.block_layout(s_count)
+    if route == "cluster":
+        q_, r_, w_, place, rl = bk.cluster_layout(s_count)
+        assert s_count > bk.BLOCK_STATES and cols == 1 and lanes == 32
+        assert (q, r, warps) == (q_, rl, w_) and 2 <= q <= bk.CLUSTER_MAX and warps in (3, 4)
+        assert q * warps <= 32  # the partial keys a direction
+        assert p == 32 * q * warps * r >= s_count > p - 32 * q * r
+        assert (place == "registers") == (s_count <= bk.CLUSTER_REG_STATES)
+        assert place == "registers" or (r_, warps, q) == (1, 4, bk.CLUSTER_MAX)
+        assert bk.cluster_smem(r_, warps, place, p // q, q) <= 232448
+        p77 = bk.block_layout(s_count, 77)[5]  # the scratch at 77 columns' geometry
+        xg = 4 * p77 * 77 if place == "global" else 0
+        assert p77 >= s_count and bk.scratch_bytes(s_count, 96, 77) == 4 * (96 * p77 * 77 + xg)
         return
-    assert p >= s_count and cols * p == (32 * r * warps if route == "block" else 32 * s_count)
+    assert q == 1 and p >= s_count
+    assert cols * p == (32 * r * warps if route == "block" else 32 * s_count)
     if route == "block":
         assert lanes * r * warps == p and lanes * cols == 32 and 1 <= warps <= 4
         assert p < 2 * s_count or p == 4
@@ -519,6 +534,237 @@ def test_block_layout_covers_the_states(s_count):
     assert bk.scratch_bytes(s_count, lw, 77) == 4 * lw * p * cols * -(-77 // cols)
     if route == "thin":  # shorter spans stay in shared memory
         assert bk.scratch_bytes(s_count, lw - 1, 77) == 0
+
+
+@pytest.mark.parametrize("s_count, n, layout", [
+    (1025, 1, (8, 2, 3)), (1500, 7, (8, 2, 3)), (1500, 33, (4, 4, 3)), (1500, 34, (1, 8, 8)),
+    (2048, 512, (1, 8, 8)), (3000, 20, (4, 8, 3)), (4096, 100, (4, 8, 4)), (8192, 1, (8, 8, 4))])
+def test_cluster_layout_sizes_the_cluster_by_the_columns(s_count, n, layout):
+    # few columns: clusters of up to 8 while the columns' CTAs fill at most
+    # half the SMs; many: the fewest CTAs whose registers hold the tables,
+    # or, where that is 2 at up to 2,048 states, the shared route's one CTA
+    # of 8 warps a direction
+    q, r, w = layout
+    place = "shared" if q == 1 else "registers"
+    assert bk.cluster_layout(s_count, n) == (q, r, w, place, r)
+    assert 32 * q * r * w >= s_count and q * w <= 32
+    if place == "registers":
+        assert bk.cluster_smem(r, w, place, 32 * r * w, q) <= 232448
+    assert bk.scratch_bytes(s_count, 96, n) == 4 * 96 * 32 * q * r * w * n
+
+
+# ------------------------------------------- the cluster route on the CPU
+#
+# A numpy model of ``csrc/bcjr.cu bcjr_kernel_cluster``: a column's P = q SC
+# padded states over q CTAs (state s in CTA s // SC at s % SC), W warps a
+# direction of rl states a lane in each; a step's metrics gathered at a
+# transition's other end from the CTA that updated it (owner, local: its
+# own exchange in the global placement, every CTA's pushed copy in the
+# registers placement hold the same floats); the state maximum from
+# the q W warps' partial keys; padded states pointing at themselves with
+# zero coefficients, holding -inf; the first half's metrics to the history
+# rows [Lw][P], the second half's LLR terms forward (m + g_bw) + row[nxt],
+# backward (row + g_bw) + v, their maxima from the warps' partials at rank
+# 0. Held bit for bit against the twin.
+
+
+def _cluster_model(ls, lp, lw, tables, q, w, rl):
+    idx, coef, _, _ = bk._host_tables(tables)
+    s_count, n = idx.shape[1], ls.shape[1]
+    sc = 32 * w * rl
+    p = q * sc
+    assert p >= s_count
+    states = np.arange(p)
+    real = states < s_count
+
+    def padded(a, fill):  # padded states: themselves, or zero coefficients
+        out = np.zeros((p, 2), a.dtype) + np.asarray(fill, a.dtype).reshape(-1, 1)
+        out[:s_count] = a
+        return out
+
+    nxt, prv = padded(idx[0], states), padded(idx[1], states)
+    fw0, fw1, bw0, bw1 = (padded(c, np.float32(0)) for c in coef)
+    warp = (states // sc) * w + (states % sc) // (32 * rl)  # a direction's key slot
+
+    def g(c0, c1, t):  # [P, 2, N]
+        return c0[:, :, None] * ls[t] + c1[:, :, None] * lp[t]
+
+    def slot_max(v):  # the warps' partial keys, then their maximum
+        parts = [_keys_max(v[warp == k]) for k in range(q * w)]
+        return _keys_max(np.stack(parts))
+
+    def gather(buf, a):  # [q, SC, N] exchange buffers: the owner's, at its local index
+        return buf[a // sc, a % sc]
+
+    hist = np.empty((lw, p, n), np.float32)
+    out = np.empty((lw, n), np.float32)
+    mid = lw // 2
+    dirs = ((True, prv, fw0, fw1), (False, nxt, bw0, bw1))
+    start = np.where(real[:, None], np.float32(0), np.float32(-np.inf)).astype(np.float32)
+    nvs = [np.broadcast_to(start, (p, n)).copy() for _ in dirs]
+    for half in (0, 1):  # each half of both directions (the meet between them)
+        for d, (fwd, at, c0, c1) in enumerate(dirs):
+            nv = nvs[d]
+            if half == 0:
+                ts = range(mid) if fwd else range(lw - 1, mid - 1, -1)
+            else:
+                ts = range(mid, lw) if fwd else range(mid - 1, -1, -1)
+            for t in ts:
+                mx = slot_max(nv)
+                buf = nv.reshape(q, sc, n)
+                m = nv - mx
+                v = np.stack([gather(buf, at[:, 0]), gather(buf, at[:, 1])], axis=1) - mx
+                gg = g(c0, c1, t)
+                if half == 0:
+                    hist[t] = m
+                else:
+                    if fwd:
+                        c = (m[:, None] + g(bw0, bw1, t)) + hist[t][nxt]
+                    else:
+                        c = (hist[t][:, None] + gg) + v
+                    k0, k1 = (_keys_max(np.stack([_keys_max(c[warp == k, u])
+                                                  for k in range(q * w)])) for u in (0, 1))
+                    out[t] = k0 - k1
+                nv = np.maximum(v[:, 0] + gg[:, 0], v[:, 1] + gg[:, 1])
+            nvs[d] = nv
+    return out
+
+
+def _cluster_geometry(s_count, q):
+    """A cluster geometry ``(w, rl)`` at ``q`` CTAs: the registers
+    placement's (the least R with 4 warps of 32 R states holding S / q) or,
+    past 8 states a lane, 4 warps of rl states a lane."""
+    sc = -(-s_count // q)
+    for r in (1, 2, 4, 8):
+        if 128 * r >= sc:
+            return -(-sc // (32 * r)), r
+    return 4, -(-sc // 128)
+
+
+@pytest.mark.parametrize("q", [2, 4, 8])
+@pytest.mark.parametrize("s_count", [300, 1025, 1500, 3000])
+def test_cluster_model_matches_twin(s_count, q):
+    w, rl = _cluster_geometry(s_count, q)
+    rng = np.random.default_rng(90 + s_count + q)
+    tables = random_tables(s_count, 11 + s_count)
+    lw, n = 17, 3  # odd: one direction waits a barrier in each half
+    ls, lp = (np.round(rng.normal(size=(lw, n)) * 2, 1).astype(np.float32) for _ in range(2))
+    ls[0, 0] = lp[1, 1] = -0.0
+    got = _cluster_model(ls, lp, lw, tables, q, w, rl)
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
+                                          tables)
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("s_count, n, lw", [(1500, 7, 1), (1500, 7, 2), (2048, 512, 6),
+                                            (9000, 1, 5)])
+def test_cluster_model_at_the_plan(s_count, n, lw):
+    # the plan's own geometry (the registers placement at few and many
+    # columns, the global one past 8,192 states) at the meeting point's
+    # edges, ties with -0.0
+    q, _, w, _, rl = bk.cluster_layout(s_count, n)
+    ls, lp = _tie_spans(lw, 3, s_count + lw)
+    tables = random_tables(s_count, 13 + s_count)
+    got = _cluster_model(ls, lp, lw, tables, q, w, rl)
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw,
+                                          tables)
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+class _CountingTables(tuple):
+    hashes = 0
+
+    def __hash__(self):
+        type(self).hashes += 1
+        return super().__hash__()
+
+
+def test_a_call_hashes_its_tables_at_most_once():
+    # the table set is found by the tables object's identity: no hashing
+    # when a caller passes the same tables again, at any span (the instance
+    # comes from the state count, kind and span), once for an equal new
+    # object
+    base = random_tables(1500, 5)
+    tables = _CountingTables(base)
+    ts = bk._tables_of(tables)
+    assert ts.plan(96) == ("block", 1) and ts.s_count == 1500 and ts.kind == "generic"
+    before = _CountingTables.hashes
+    for lw in (96, 97, 224):
+        assert bk._tables_of(tables) is ts
+        assert bk.kernel_plan(tables, lw) == ("block", 1)
+    assert _CountingTables.hashes == before
+    again = _CountingTables(base)
+    assert bk._tables_of(again) is ts  # equal tables: the cached table set
+    assert _CountingTables.hashes == before + 1
+
+
+def test_shared_route_takes_many_columns_to_2048_states():
+    # past 1,024 states to 2,048, where the cluster would be 2 CTAs a column
+    # (34 columns and more), one CTA a column of 8 warps a direction with
+    # the tables in shared memory; fewer columns, and more states, take the
+    # cluster route
+    for s_count in (1025, 1500, 2048):
+        for n in (34, 64, 512):
+            assert bk.cluster_layout(s_count, n) == (1, 8, 8, "shared", 8)
+            assert bk.block_layout(s_count, n) == ("shared", 8, 32, 8, 1, 2048, 1)
+            assert bk.scratch_bytes(s_count, 224, n) == 4 * 224 * 2048 * n
+        for n in (1, 7, 33):
+            assert bk.block_layout(s_count, n)[0] == "cluster"
+            assert bk.cluster_layout(s_count, n)[0] >= 4
+    assert bk.block_layout(2049, 512)[0] == "cluster"
+    assert bk.block_layout(1024, 512)[0] == "block"
+    k12 = fec._conv_soft_coeffs((0o4335, 0o5723), 12)
+    assert bk.kernel_plan(k12, 224) == ("block", 1)
+
+
+@pytest.mark.parametrize("tables", ["k12", "random"])
+@pytest.mark.parametrize("lw", [1, 2, 9])
+def test_block_model_at_the_shared_route(tables, lw):
+    # the block kernel's schedule (the shared route's: the same steps, its
+    # coefficients from shared memory) at 2,048 states, the K 12 code and
+    # random tables, at the meeting point's edges, ties with -0.0
+    t = (fec._conv_soft_coeffs((0o4335, 0o5723), 12) if tables == "k12"
+         else random_tables(2048, 17))
+    ls, lp = _tie_spans(lw, 3, 2048 + lw)
+    got = _block_model(ls, lp, lw, t)
+    want = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls), torch.from_numpy(lp), lw, t)
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+def dyadic_tables(s_count, seed):
+    """Random valid tables (:func:`random_tables`' structure) whose
+    coefficients are 0 or +-2^e (-1 <= e <= 1): their products with the spans
+    are exact, so a contracted multiply-add rounds as the separate ones do."""
+    rng = np.random.default_rng(seed)
+    coef = [rng.choice(np.array([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0]), size=(s_count, 2))
+            for _ in range(4)]
+    return random_tables(s_count, seed)[:2] + tuple(tuple(map(tuple, c.tolist()))
+                                                    for c in coef)
+
+
+def test_twin_matches_pallas_on_random_tables(jturbo):
+    # a random trellis (not the shift-register pattern, S no power of two)
+    # through the JAX package's Pallas kernel in interpret mode. Its XLA
+    # CPU build contracts c0 ls + c1 lp into a fused multiply-add, so
+    # coefficients whose products round (random_tables') differ from the
+    # twin's separately rounded products in the last bits (ROADMAP.md §3);
+    # dyadic ones do not. The twin's code takes every state count alike;
+    # the JAX functions unroll the states, so past 1,024 states a call
+    # costs minutes here: BCJR_PALLAS_STATES=1500 runs this body at the
+    # cluster route's state count (PERF.md §7 gives its time)
+    from aether_primitives_tpu.ops.pallas.bcjr import bcjr_windowed_llr
+
+    tables = dyadic_tables(int(os.environ.get("BCJR_PALLAS_STATES", "40")), 7)
+    rng = np.random.default_rng(8)
+    lw, n = 15, 3
+    ls, lp = (np.zeros((lw, 128), np.float32) for _ in range(2))
+    for a in (ls, lp):
+        a[:, :n] = np.round(rng.normal(size=(lw, n)) * 2, 1)
+    got = bk.bcjr_windowed_llr_reference(torch.from_numpy(ls[:, :n].copy()),
+                                         torch.from_numpy(lp[:, :n].copy()), lw, tables)
+    want = np.asarray(bcjr_windowed_llr(ls, lp, lw, tables=tables, tile_n=128,
+                                        interpret=True))[:, :n]
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("k", sorted(SR_CODES))
@@ -697,13 +943,15 @@ def test_cuda_column_and_block_instances_match_twin(cuda, s_count):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s_count", [2, 3, 4, 5, 8, 9, 17, 33, 64, 100, 300, 600, 1025])
+@pytest.mark.parametrize("s_count", [2, 3, 4, 5, 8, 9, 17, 33, 64, 100, 300, 600, 1025, 1500,
+                                     2048])
 def test_cuda_block_instance_every_route(cuda, s_count):
     # the block instance through its private entry at every route and
     # layout (thin, its spans and half-histories in shared memory or, at Lw
     # 500, through the scratch; a state a lane at 4-32 lanes a column; 2, 4
-    # and 8 states a lane; 2-4 warps a direction; the wide route past 1,024
-    # states), at the meeting point's edges (Lw 1-3), ragged N, ties with -0.0
+    # and 8 states a lane; 2-4 warps a direction; the cluster route past
+    # 1,024 states), at the meeting point's edges (Lw 1-3), ragged N, ties
+    # with -0.0
     tables = random_tables(s_count, 50 + s_count)
     for lw, n in ((1, 5), (2, 33), (3, 7), (97, 77), (224, 130), (500, 40)):
         make = _tie_spans if lw % 2 else _spans
@@ -717,6 +965,69 @@ def test_cuda_block_instance_every_route(cuda, s_count):
         assert torch.equal(out, want), (s_count, lw, n)
         assert np.array_equal(out.cpu().numpy().view(np.uint32),
                               want.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(2, 8, 3, "registers", 8), (4, 4, 3, "registers", 4),
+                                      (8, 2, 3, "registers", 2), (8, 1, 4, "global", 2)],
+                         ids=["q2", "q4", "q8", "global"])
+def test_cuda_cluster_route_every_geometry(cuda, geometry):
+    # the cluster route at S 1,500 forced into clusters of 2, 4 and 8 with
+    # the tables in registers, and into its global placement (the tables
+    # through L1, the exchange in the scratch)
+    tables = random_tables(1500, 61)
+    for lw, n in ((1, 5), (2, 3), (3, 7), (97, 9)):
+        ls, lp = (torch.from_numpy(a).to(cuda) for a in _tie_spans(lw, n, lw + 1500))
+        out = torch.full((lw, n), float("nan"), device=cuda)
+        before = bk.launches
+        bk._launch_block(ls, lp, out, lw, tables, cluster=geometry)
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, tables)
+        torch.cuda.synchronize()
+        assert bk.launches == before + 1
+        assert np.array_equal(out.cpu().numpy().view(np.uint32),
+                              want.cpu().numpy().view(np.uint32)), (geometry, lw, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["k12", "random 2048", "random 1025"])
+@pytest.mark.parametrize("n", [7, 64])
+def test_cuda_shared_route_matches_twin(cuda, tables, n):
+    # the shared route (one CTA a column, the tables in shared memory; 1,025
+    # states padded to 2,048) forced at 7 columns and through the plan at
+    # 64, at the meeting point's edges, ragged N, ties with -0.0
+    t = (fec._conv_soft_coeffs((0o4335, 0o5723), 12) if tables == "k12"
+         else random_tables(int(tables.split()[1]), 19))
+    s_count = bk._tables_of(t).s_count
+    geo = (1, *bk.SHARED_GEOMETRY, "shared", bk.SHARED_GEOMETRY[0])
+    assert (bk.block_layout(s_count, n)[0] == "shared") == (n == 64)
+    for lw in (1, 2, 3, 97, 224):
+        ls, lp = (torch.from_numpy(a).to(cuda) for a in _tie_spans(lw, n, s_count + lw))
+        out = torch.full((lw, n), float("nan"), device=cuda)
+        before = bk.launches
+        bk._launch_block(ls, lp, out, lw, t, cluster=geo)
+        got = bk.bcjr_windowed_llr(ls, lp, lw, t)
+        want = bk.bcjr_windowed_llr_reference(ls, lp, lw, t)
+        torch.cuda.synchronize()
+        assert bk.launches == before + 2
+        for a in (out, got):
+            assert np.array_equal(a.cpu().numpy().view(np.uint32),
+                                  want.cpu().numpy().view(np.uint32)), (tables, n, lw)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_route_past_the_registers(cuda):
+    # 9,000 states: the global placement of the plan (8 CTAs, 9 states a
+    # lane), and a call hashes its tables at most once
+    tables = _CountingTables(random_tables(9000, 62))
+    assert bk.cluster_layout(9000, 3)[3] == "global"
+    ls, lp = (torch.from_numpy(a).to(cuda) for a in _spans(40, 3, 90))
+    got = bk.bcjr_windowed_llr(ls, lp, 40, tables)
+    before = _CountingTables.hashes
+    got = bk.bcjr_windowed_llr(ls, lp, 40, tables)
+    assert _CountingTables.hashes == before
+    want = bk.bcjr_windowed_llr_reference(ls, lp, 40, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -148,8 +148,9 @@ def test_kernel_limits():
     assert vk.kernel_supports(100, 2, 15) and vk.scratch_words(100, 15, 3) == 0
     assert vk.scratch_words(100, 17, 3) == 0
     assert vk.scratch_words(100, 15, 256) == 256 * 100 * 512  # one CTA a span: past it
-    # past CLUSTER_MAX_STATES the path metrics join the decisions in the scratch
-    assert vk.scratch_words(100, 19, 3) == 3 * (100 * 8192 + 2 * 262144)
+    # past CLUSTER_MAX_STATES the grid route: the path metrics, three keys
+    # and the first argmin a trellis join the decisions in the scratch
+    assert vk.scratch_words(100, 19, 3) == 3 * (100 * 8192 + 2 * 262144 + 4)
     assert not vk.kernel_supports(2 ** 20, 2, 30)  # 8 TB of decisions
     assert not vk.kernel_supports(100, 2, 1)  # no trellis
     with pytest.raises(ValueError, match="bad span shape"):
@@ -499,6 +500,15 @@ def block_model(sym, lw, n, polys, k, init_state0, end_state0, q=None):
         state = np.zeros(n_tr, np.int64)
     else:
         state = np.where(fin == mn[:, None], states, s_count).min(axis=1)
+    return _trace5(words, state, k, lw)
+
+
+def _trace5(words, state, k, lw):
+    """The block instance's traceback from ``state`` over the decision
+    words ``[lw, N, words]``: five steps a round, the candidates' words
+    loaded first (lane l: the candidate j = floor(log2(l + 1)) steps back
+    whose decisions on the way are the bits of l + 1 - 2^j)."""
+    n_tr = state.shape[0]
     bits = np.zeros((n_tr, lw), np.uint8)
     rows_ = np.arange(n_tr)
     lane = np.arange(31)
@@ -548,8 +558,9 @@ def test_block_model_matches_twin_on_ties(code, ends):
                                      (18, 380, 8), (18, 400, None), (8, 700, 1)])
 def test_block_plan_takes_the_scratch_route_where_a_cta_does_not_fit(k, n, q):
     # a CTA stages two chunks of LLRs, 256 bytes a generator, which no
-    # cluster size divides: past the shared memory the scratch route, whose
-    # kernel takes any n, with its metrics in the scratch
+    # cluster size divides: past the shared memory the grid route, whose
+    # kernel takes any n, with its metrics, keys and first argmins in the
+    # scratch
     plan = vk.block_plan(100, n, k, 4)
     assert (plan and plan["q"]) == q
     if plan is not None:
@@ -559,26 +570,172 @@ def test_block_plan_takes_the_scratch_route_where_a_cta_does_not_fit(k, n, q):
     assert vk.kernel_supports(100, n, k) and vk.instance(n, k) == "block"
     words = 4 * 100 * max(1, (1 << (k - 1)) // 32)
     assert vk.scratch_words(100, k, 4, n) == (
-        words + 4 * 2 * (1 << (k - 1)) if plan is None
+        words + 4 * 2 * (1 << (k - 1)) + 4 * 4 if plan is None
         else (0 if plan["dec_smem"] else words))
 
 
+# -------------------------------------- the block instance's grid route on the CPU
+#
+# A numpy model of ``csrc/viterbi.cu viterbi_grid_kernel``: a batch's
+# decision words (units of min(S, 32) states, U = min(S/2, 16) pairs) split
+# in ragged ranges over G CTAs (CTA b takes [b T_u / G, (b + 1) T_u / G)), a
+# thread a pair (2i, 2i + 1) from the unit's trellis and word; the two metric
+# buffers a trellis holding the step's metrics before the subtraction of
+# their minimum; every transition row's metric from its output bits (the
+# kernel's pattern table holds the same floats); the minimum a trellis over
+# every CTA's keys; each unit's decision word from its U pairs' ballots;
+# the first argmin and the five-step traceback. Trellises past ``batch`` go
+# in turn. Held bit for bit against the twin with ties and -0.0.
+
+GRID_CODES = {
+    "k8r2": ((0o247, 0o371), 8), "k10r2": ((0o1171, 0o1233), 10),
+    "k12r2": ((0o4335, 0o5723), 12), "k2r2": ((0o3, 0o1), 2),
+    # many generators: 40 (patterns in the table), 33 (two mask words)
+    "k9r40": (tuple(0o400 + 7 * i for i in range(40)), 9),
+    "k3r33": (tuple([0o7, 0o5, 0o3] * 11), 3),
+    # 512 distinct output patterns: each transition's own output bits
+    "k10r10": BLOCK_CODES["k10r10"],
+}
+
+
+def grid_model(sym, lw, n, polys, k, init_state0, end_state0, ctas, batch=None):
+    sym = np.asarray(sym, np.float32)
+    n_tr = sym.shape[0]
+    s_count = 1 << (k - 1)
+    p_half, ws = s_count // 2, max(1, s_count // 32)
+    u = min(p_half, 16)
+    batch = batch or vk.GRID_BATCH
+    one = lambda b: np.where(b, np.float32(1.0), np.float32(0.0))  # noqa: E731
+    npat, codes = vk.patterns(tuple(polys), k)  # the card's table
+    if npat <= vk.MAX_PATTERNS:  # a row's bits through its pattern byte
+        nwords = -(-2 * s_count // 4)
+        ids = codes[:nwords].view(np.uint8)[:2 * s_count].astype(np.int64)
+        rows = codes[nwords:].reshape(npat, -1)[ids].astype(np.uint64)
+    else:
+        rows = codes.reshape(2 * s_count, -1).astype(np.uint64)
+    bits = np.zeros((n_tr, lw), np.uint8)
+    lanes = np.uint64(1) << np.arange(u, dtype=np.uint64)
+    for b0 in range(0, n_tr, batch):
+        nb = min(batch, n_tr - b0)
+        units = nb * ws
+        g_ctas = min(ctas, units)
+        y = sym[b0:b0 + nb]
+        pm = np.zeros((2, nb, s_count), np.float32)
+        mn = np.zeros(nb, np.float32)
+        words = np.zeros((lw, nb, ws), np.uint64)
+        for t in range(lw):
+            g = one(rows[:, 0] & np.uint64(1))[None, :] * y[:, t, 0:1]
+            for m in range(1, n):
+                bit = (rows[:, m // 32] >> np.uint64(m % 32)) & np.uint64(1)
+                g = g + one(bit)[None, :] * y[:, t, m:m + 1]
+            rd = t & 1
+            keys = np.full(nb, 0xFFFFFFFF, np.uint64)
+            for b in range(g_ctas):  # a CTA's ragged range of words
+                u0, u1 = b * units // g_ctas, (b + 1) * units // g_ctas
+                j = np.arange((u1 - u0) * u)
+                f = u0 + j // u
+                tr, wd = f // ws, f % ws
+                i = wd * u + j % u
+                if t == 0:
+                    a0 = np.where(init_state0 & (i != 0), np.float32(1e9), np.float32(0))
+                    a1 = np.full(i.shape, np.float32(1e9 if init_state0 else 0))
+                else:
+                    a0, a1 = pm[rd, tr, i], pm[rd, tr, i + p_half]
+                a0, a1 = a0 - mn[tr], a1 - mn[tr]
+                c0e, c1e = a0 + g[tr, 4 * i], a1 + g[tr, 4 * i + 1]
+                c0o, c1o = a0 + g[tr, 4 * i + 2], a1 + g[tr, 4 * i + 3]
+                de, dodd = c1e < c0e, c1o < c0o
+                ne, no = np.where(de, c1e, c0e), np.where(dodd, c1o, c0o)
+                pm[rd ^ 1, tr, 2 * i], pm[rd ^ 1, tr, 2 * i + 1] = ne, no
+                np.minimum.at(keys, tr, np.minimum(_keys(ne), _keys(no)).astype(np.uint64))
+                half_e = (de.reshape(-1, u).astype(np.uint64) * lanes).sum(1)
+                half_o = (dodd.reshape(-1, u).astype(np.uint64) * lanes).sum(1)
+                words[t, tr[::u], wd[::u]] = _spread16(half_e) | (_spread16(half_o) << np.uint64(1))
+            mn = _unkeys(keys.astype(np.uint32))
+        fin = pm[lw & 1]
+        if end_state0:
+            state = np.zeros(nb, np.int64)
+        else:
+            state = np.where(fin == mn[:, None], np.arange(s_count), s_count).min(axis=1)
+        bits[b0:b0 + nb] = _trace5(words, state, k, lw)
+    return bits
+
+
+@pytest.mark.parametrize("ctas, batch", [(3, None), (4, None), (5, 3)],
+                         ids=["3ctas", "4ctas", "5ctas-batches"])
+@pytest.mark.parametrize("ends", [(True, True), (True, False), (False, False)],
+                         ids=["state0-state0", "state0-argmin", "uniform-argmin"])
+@pytest.mark.parametrize("code", sorted(GRID_CODES))
+def test_grid_model_matches_twin_on_ties(code, ends, ctas, batch):
+    # the grid route forced on codes of K 2-12 and of many generators, its
+    # words split over 3-5 model CTAs in ragged ranges (a CTA holding part
+    # of a trellis or several), and in batches of 3 trellises
+    polys, k = GRID_CODES[code]
+    n = len(polys)
+    rng = np.random.default_rng(230 + k + n)
+    lw = 19
+    sym = _tie_llrs(rng, (4, lw, n))
+    want = vk.viterbi_lanes_reference(torch.from_numpy(sym), lw, n, polys, k, *ends).numpy()
+    got = grid_model(sym, lw, n, polys, k, *ends, ctas=ctas, batch=batch)
+    assert np.array_equal(got, want)
+
+
+def test_twin_matches_jax_past_the_cluster_route(jfec):
+    # K 19 (262,144 states: the grid route) over 2 trellises of 24 steps,
+    # through the JAX package's scan, full block and unterminated, ties in
+    polys, k = (0o1351753, 0o1746321), 19
+    assert vk.block_plan(24, 2, k, 2) is None
+    rng = np.random.default_rng(19)
+    bits = rng.integers(0, 2, (2, 24 - (k - 1))).astype(np.uint8)
+    enc = fec.conv_encode(torch.from_numpy(bits), polys, k).numpy()
+    llr = np.round((1 - 2.0 * enc) * 2 + rng.normal(size=enc.shape)).astype(np.float32)
+    for kw in ({}, {"terminated": False}):
+        got = fec.viterbi_decode(torch.from_numpy(llr), polys, k, **kw).numpy()
+        want = np.asarray(jfec.viterbi_decode(llr, polys, k, backend="xla", **kw))
+        assert np.array_equal(got, want), kw
+    assert np.array_equal(fec.viterbi_decode(torch.from_numpy(llr), polys, k).numpy(), bits)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("code", sorted(BLOCK_CODES) + ["k17r2", "k19r2"])
+@pytest.mark.parametrize("code", sorted(BLOCK_CODES) + ["k17r2", "k19r2", "k3r900", "k2r2000"])
 def test_cuda_block_and_two_state_instances_match_twin(cuda, code):
     # K 2 in the warp instance; past 256 states or 8 generators the block
-    # instance: to 131,072 states its cluster route, past it (K 19) the
-    # scratch route with its metrics in the scratch; one launch
-    polys, k = BLOCK_CODES.get(code) or ({12: (0o4335, 0o5723), 15: (0o46321, 0o51271),
-                                          17: (0o234567, 0o312345),
-                                          19: (0o1351753, 0o1746321)}[int(code[1:3])],
-                                         int(code[1:3]))
+    # instance: to 131,072 states its cluster route, past it (K 19) and
+    # where a CTA's LLRs of many generators outgrow its shared memory (900
+    # and 2,000 generators) the grid route; one launch
+    many = {"k3r900": (tuple([0o7, 0o5, 0o3] * 300), 3),
+            "k2r2000": (tuple([0o3, 0o1] * 1000), 2)}
+    polys, k = BLOCK_CODES.get(code) or many.get(code) or (
+        {12: (0o4335, 0o5723), 15: (0o46321, 0o51271), 17: (0o234567, 0o312345),
+         19: (0o1351753, 0o1746321)}[int(code[1:3])], int(code[1:3]))
     n = len(polys)
     rng = np.random.default_rng(190 + k + n)
     lw, n_tr = (120, 9) if k < 15 else (24, 2)
-    assert (vk.block_plan(lw, n, k, n_tr) is None) == (k == 19)
+    assert (vk.block_plan(lw, n, k, n_tr) is None) == (code in ("k19r2", *many))
     sym = torch.from_numpy(_tie_llrs(rng, (n_tr, lw, n))).to(cuda)
     for ends in ((True, True), (False, False), (True, False)):
+        before = vk.launches
+        got = vk.viterbi_lanes(sym, lw, n, polys, k, *ends)
+        want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, *ends)
+        torch.cuda.synchronize()
+        assert vk.launches == before + 1
+        assert torch.equal(got, want), (code, ends)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["k3r900", "k10r10"])
+def test_cuda_grid_route_in_batches(cuda, code, monkeypatch):
+    # more trellises than a batch: the grid route takes them in turn inside
+    # its one launch, reusing the scratch (a batch of 3 here)
+    polys, k = {"k3r900": (tuple([0o7, 0o5, 0o3] * 300), 3),
+                "k10r10": BLOCK_CODES["k10r10"]}[code]
+    n = len(polys)
+    monkeypatch.setattr(vk, "GRID_BATCH", 3)
+    monkeypatch.setattr(vk, "block_plan", lambda *a, **kw: None)  # the grid route forced
+    rng = np.random.default_rng(300 + k)
+    lw, n_tr = 45, 8
+    sym = torch.from_numpy(_tie_llrs(rng, (n_tr, lw, n))).to(cuda)
+    for ends in ((True, True), (False, False)):
         before = vk.launches
         got = vk.viterbi_lanes(sym, lw, n, polys, k, *ends)
         want = vk.viterbi_lanes_reference(sym, lw, n, polys, k, *ends)
